@@ -8,15 +8,22 @@ Phases, each reported on its own line; any failure exits non-zero:
 1. the card and the kernel build (every ``mlvae_tpu_torch/csrc/*.cu``,
    compiled from this checkout, one ``nvcc`` per source in parallel);
 2. each kernel against its plain PyTorch version on the card, at the
-   slice's shapes (B=64, T=160, H=512), plus ragged and edge cases, and
-   K1-fwd again over many back-to-back launches (``--lstm-repeats``);
-3. MD_VAE's TEST-target eval step at the recipe's full width (H=512,
-   B=64, T=160, L=8, weights from a seed) through the kernels: finite
+   slices' shapes (B=64, T=160, H=512), plus ragged and edge cases, and
+   K1-fwd and K1-bwd again over many back-to-back launches
+   (``--lstm-repeats``, ``--lstm-bwd-repeats``);
+3. MD_VAE at the recipe's full width (H=512, B=64, T=160, L=8, weights
+   from a seed) through the kernels: the TEST-target eval step (finite
    losses, decoded boundaries that sum to each utterance's phoneme count,
    launch counts of 10 / 1 / 1 per forward, agreement with the same forward
-   through the plain versions, and one ``infer_features`` call at B=1;
+   through the plain versions, one ``infer_features`` call at B=1), then
+   the f32 training step, two steps of each target (epochs 1, 2, 3:
+   PHN_RECOG, B_DETECTOR, VAE): finite losses, launches per step, exactly
+   the target's modules changed, the normalizer updated in epochs 1 and 2
+   only, and each target's first step against the same step through the
+   plain versions;
 4. times from CUDA events after warm-up: each kernel, its plain version,
-   a one-call PyTorch yardstick where one exists, the eval step;
+   a one-call PyTorch yardstick where one exists, the eval step, the train
+   step of each target, and profiles of one eval and one VAE train step;
 5. a ``kernels`` JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -41,11 +48,34 @@ LSTM_ATOL = 1e-4      # f32 sums in another order, compounding over T=160
 FWD_ATOL = 1e-3       # logits after 2 LSTM layers and 3 FCs, same cause
 LOSS_RTOL = 1e-4      # the masked means of those per-element losses
 LSTM_REPEATS = 125    # phase 2's repeated K1 launches per shape, direction
+BWD_RTOL = 1e-4       # dW_hh: f32 sums of B*T = 10,240 terms in another order
+GRAD_RTOL = 1e-3      # module grad norms after a backward through ten LSTM
+                      # layers, the FCs and the clip, f32 in another order
+LSTM_BWD_REPEATS = 100  # phase 2's repeated K1-bwd launches per direction
 
 # kernel launches in one eval forward: ten directional LSTM layers (2 + 2
 # + 2 + 2x2 bidirectional), one decode
-PER_FORWARD = {"lstm_fwd": 10, "md_viterbi_lattice": 1,
+PER_FORWARD = {"lstm_fwd": 10, "lstm_bwd": 0, "md_viterbi_lattice": 1,
                "md_viterbi_backtrace": 1}
+# kernel launches in one training step: each target's forward runs the
+# LSTMs of the branches it gates in; its backward reaches only the LSTMs
+# of the modules it trains (VAE: the rnn's 2 layers and the decoder's 2
+# bidirectional layers; the recognizer and the detector sit behind
+# stop-gradients)
+PER_TRAIN_STEP = {
+    "PHN_RECOG": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi_lattice": 0,
+                  "md_viterbi_backtrace": 0},
+    "B_DETECTOR": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi_lattice": 0,
+                   "md_viterbi_backtrace": 0},
+    "VAE": {"lstm_fwd": 10, "lstm_bwd": 6, "md_viterbi_lattice": 1,
+            "md_viterbi_backtrace": 1},
+}
+ACTIVE = {
+    "PHN_RECOG": {"phoneme_recognizer"},
+    "B_DETECTOR": {"boundary_detector"},
+    "VAE": {"feat_fc", "phn_recog_fc", "concat_fc", "rnn", "pi_fc",
+            "encoder", "decoder"},
+}
 
 
 class SmokeFailure(Exception):
@@ -192,6 +222,108 @@ def stress_lstm(dev, report, repeats):
     return worst
 
 
+def bwd_problem(g, dev, T, B, H, reverse):
+    """A K1-bwd input: a forward trajectory from the plain recurrence,
+    random cotangents for every h and a non-zero one for the final c."""
+    import torch
+    from mlvae_tpu_torch.ops.lstm import lstm_layer_ref
+    gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
+    w = (torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1) / H ** 0.5
+    hs, cs = lstm_layer_ref(gx, w, reverse)
+    dhs = torch.randn((T, B, H), generator=g, device=dev) * 0.1
+    dc_last = torch.randn((B, H), generator=g, device=dev) * 0.1
+    return gx, w, hs, cs, dhs, dc_last
+
+
+def bwd_errors(got, want):
+    """(max abs error of dgx, max error of dW_hh relative to its largest
+    entry); an all-zero dW_hh (T=1) must come back all zero."""
+    dgx_err = max_err(got[0], want[0])
+    scale = float(want[1].abs().max())
+    dw_err = max_err(got[1], want[1]) / scale if scale else \
+        max_err(got[1], want[1])
+    return dgx_err, dw_err
+
+
+def where_wrong_bwd(diff, reverse):
+    """Where a (T, B, 4H) dgx first goes wrong in the order K1-bwd walks
+    (t = T-1 down to 0, or up from 0 when ``reverse``)."""
+    bad = diff > LSTM_ATOL
+    steps = bad.any(2).any(1).nonzero().flatten().tolist()
+    t = steps[0] if reverse else steps[-1]
+    rows = bad[t].any(1).nonzero().flatten().tolist()
+    cols = bad[t].any(0).nonzero().flatten().tolist()
+    return (f"first wrong step t={t} of {len(steps)} wrong steps; rows "
+            f"{rows[:16]} ({len(rows)}); gate columns {cols[:16]} "
+            f"({len(cols)})")
+
+
+def check_lstm_bwd(dev, report):
+    import torch
+    from mlvae_tpu_torch.ops.lstm import lstm_layer_bwd, lstm_layer_bwd_ref
+    g = torch.Generator(device=dev).manual_seed(3)
+    worst = 0.0
+    cases = [(160, 64, 512), (7, 1, 512), (1, 64, 512), (9, 70, 512),
+             (5, 130, 64)]
+    for T, B, H in cases:
+        for reverse in (False, True):
+            prob = bwd_problem(g, dev, T, B, H, reverse)
+            got = lstm_layer_bwd(*prob, reverse)
+            want = lstm_layer_bwd_ref(*prob, reverse)
+            torch.cuda.synchronize()
+            dgx_err, dw_err = bwd_errors(got, want)
+            report(f"  lstm_bwd T={T} B={B} H={H} reverse={reverse}: dgx "
+                   f"max_abs_err {dgx_err:.3e} (tol {LSTM_ATOL:g}), dW_hh "
+                   f"max rel err {dw_err:.3e} (tol {BWD_RTOL:g})")
+            if dgx_err > LSTM_ATOL:
+                report("  " + where_wrong_bwd((got[0] - want[0]).abs(),
+                                              reverse))
+            check(dgx_err <= LSTM_ATOL and dw_err <= BWD_RTOL,
+                  f"lstm_bwd disagrees: dgx {dgx_err}, dW_hh {dw_err}")
+            if (T, B, H) == cases[0]:
+                worst = max(worst, dgx_err)
+    return worst
+
+
+def stress_lstm_bwd(dev, report, repeats):
+    """Repeated K1-bwd launches at the training step's shape, back to back,
+    each held against the plain version on its inputs."""
+    import torch
+    from mlvae_tpu_torch.ops.lstm import lstm_layer_bwd, lstm_layer_bwd_ref
+    g = torch.Generator(device=dev).manual_seed(4)
+    n_inputs = 4
+    total, wrong, worst = 0, [], 0.0
+    T, B, H = 160, 64, 512
+    for reverse in (False, True):
+        for i in range(n_inputs):
+            prob = bwd_problem(g, dev, T, B, H, reverse)
+            dgx_r, dw_r = lstm_layer_bwd_ref(*prob, reverse)
+            scale = dw_r.abs().max()
+            errs = []
+            for _ in range(-(-repeats // n_inputs)):
+                dgx_k, dw_k = lstm_layer_bwd(*prob, reverse)
+                errs.append(torch.stack([(dgx_k - dgx_r).abs().max(),
+                                         (dw_k - dw_r).abs().max() / scale]))
+            errs = torch.stack(errs).cpu()
+            total += len(errs)
+            worst = max(worst, float(errs[:, 0].max()))
+            for j, (e_dgx, e_dw) in enumerate(errs.tolist()):
+                if e_dgx > LSTM_ATOL or e_dw > BWD_RTOL:
+                    wrong.append((reverse, i, j, e_dgx, e_dw))
+                    if len(wrong) == 1:
+                        dgx_k, _ = lstm_layer_bwd(*prob, reverse)
+                        report("  " + where_wrong_bwd(
+                            (dgx_k - dgx_r).abs(), reverse))
+    report(f"  lstm_bwd repeated: {total} launches at B=64, T=160, H=512, "
+           f"both directions: {len(wrong)} wrong, worst dgx max_abs_err "
+           f"{worst:.3e} (tol {LSTM_ATOL:g})"
+           + (f"; wrong (reverse, input, launch, dgx err, dW err): "
+              f"{wrong[:8]}" if wrong else ""))
+    check(not wrong, f"lstm_bwd wrong in {len(wrong)} of {total} repeated "
+          "launches")
+    return worst
+
+
 def check_viterbi(dev, report):
     import numpy as np
     import torch
@@ -237,19 +369,21 @@ def twins():
     """Route the model through the plain versions on the card (for the
     comparison run only)."""
     import contextlib
-    from mlvae_tpu_torch.nn import rnn
     from mlvae_tpu_torch.ops import decode as dec
-    from mlvae_tpu_torch.ops.lstm import lstm_layer_ref
+    from mlvae_tpu_torch.ops import lstm
 
     @contextlib.contextmanager
     def ctx():
-        saved = rnn.lstm_layer_fwd, dec.md_viterbi_batch
-        rnn.lstm_layer_fwd = lstm_layer_ref
+        saved = (lstm.lstm_layer_fwd, lstm.lstm_layer_bwd,
+                 dec.md_viterbi_batch)
+        lstm.lstm_layer_fwd = lstm.lstm_layer_ref
+        lstm.lstm_layer_bwd = lstm.lstm_layer_bwd_ref
         dec.md_viterbi_batch = dec.md_viterbi_batch_ref
         try:
             yield
         finally:
-            rnn.lstm_layer_fwd, dec.md_viterbi_batch = saved
+            (lstm.lstm_layer_fwd, lstm.lstm_layer_bwd,
+             dec.md_viterbi_batch) = saved
     return ctx()
 
 
@@ -371,6 +505,141 @@ def run_slice(dev, report, B=64, T=160, L=8):
     return model, batch, noise, main_counts
 
 
+def train_noise(model, B, T, dev, g):
+    """One training step's draws under the model's current target, made
+    with a torch generator and named as ``MDVAE.draws`` lists them."""
+    import torch
+    from mlvae_tpu_torch.nn.dist import gumbel_noise
+    noise = {}
+    for name, kind, shape, keep in model.draws(B, T, train=True):
+        if kind == "bernoulli":
+            noise.setdefault(name, []).append(
+                torch.rand(shape, generator=g, device=dev) < keep)
+        elif kind == "uniform":
+            noise[name] = torch.rand(shape, generator=g, device=dev)
+        elif kind == "normal":
+            noise[name] = torch.randn(shape, generator=g, device=dev)
+        else:
+            noise[name] = gumbel_noise(shape, device=dev, generator=g)
+    return noise
+
+
+def snapshot(model):
+    """Weights, normalizer statistics and optimizer states, copied."""
+    return ({k: v.clone() for k, v in model.state_dict().items()},
+            {name: {mk: {k: v.clone() for k, v in st.items()}
+                    for mk, st in per.items()}
+             for name, per in model.opt_states.items()})
+
+
+def restore(model, snap):
+    weights, opt_states = snap
+    model.load_state_dict(weights)
+    for name, per in opt_states.items():
+        for mk, st in per.items():
+            for k, v in st.items():
+                model.opt_states[name][mk][k].copy_(v)
+
+
+def grad_norms(model):
+    """Each module's norm of the grads the last step applied."""
+    import torch
+    out = {}
+    for mk, mod in model.param_modules().items():
+        gs = [p.grad.double().square().sum() for p in mod.parameters()
+              if p.grad is not None]
+        out[mk] = float(torch.stack(gs).sum().sqrt()) if gs else 0.0
+    return out
+
+
+def run_training(dev, report, B=64, T=160, L=8):
+    """Two steps of each target at full width through the kernels, each
+    target's first step also through the plain versions from the same
+    state and draws. Returns the model, the batch, each target's first
+    draws and the kernel launches of the six kernel steps."""
+    import numpy as np
+    import torch
+    from mlvae_tpu_torch.bench_utils import build_md_vae, synth_batch
+    from mlvae_tpu_torch.training.brain import Stage
+
+    model = build_md_vae(batch_size=B, seed=0, device=dev)
+    batch = synth_batch(B, T, L, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    total = {k: 0 for k in launches()}
+    first_noise = {}
+    for epoch in (1, 2, 3):
+        model.on_stage_start(Stage.TRAIN, epoch)
+        name = model.target.name
+        for step in range(2):
+            noise = train_noise(model, B, T, dev, g)
+            if step == 0:
+                first_noise[name] = noise
+                start = snapshot(model)
+                with twins():
+                    reset_launches()
+                    ref_loss, _ = model.fit_batch(batch, epoch, noise=noise)
+                    ref_norms = grad_norms(model)
+                    torch.cuda.synchronize()
+                    check(sum(launches().values()) == 0,
+                          "the plain training step hit a kernel")
+                restore(model, start)
+            weights, opt_states = snapshot(model)
+            norm_count = float(model.normalizer.count)
+            reset_launches()
+            loss, losses = model.fit_batch(batch, epoch, noise=noise)
+            torch.cuda.synchronize()
+            counts = launches()
+            for k in total:
+                total[k] += counts[k]
+            vals = {k: float(v) for k, v in losses.items()}
+            moved = {mk for mk, mod in model.param_modules().items()
+                     if any(not torch.equal(v, weights[f"{mk}.{n}"])
+                            for n, v in mod.state_dict().items())}
+            stepped = {mk for mk, st in model.opt_states["optimizer"].items()
+                       if int(st["count"]) != int(opt_states["optimizer"][mk]
+                                                  ["count"])}
+            kept = all(torch.equal(v, opt_states["optimizer"][mk][k])
+                       for mk, st in model.opt_states["optimizer"].items()
+                       if mk not in ACTIVE[name] for k, v in st.items())
+            d_norm = float(model.normalizer.count) - norm_count
+            report(f"  epoch {epoch} {name} step {step + 1}: loss "
+                   f"{float(loss):.6f} ("
+                   + ", ".join(f"{k} {v:.6f}" for k, v in vals.items())
+                   + f"); launches {counts}; modules moved {sorted(moved)}; "
+                   f"normalizer count +{d_norm:g}")
+            check(np.isfinite(float(loss)) and
+                  all(np.isfinite(list(vals.values()))), "non-finite loss")
+            check(counts == PER_TRAIN_STEP[name],
+                  f"{name} launch counts {counts} != {PER_TRAIN_STEP[name]}")
+            check(moved == ACTIVE[name] and stepped == ACTIVE[name] and kept,
+                  f"{name}: moved {sorted(moved)}, Adam stepped "
+                  f"{sorted(stepped)}, inactive states kept {kept}; want "
+                  f"{sorted(ACTIVE[name])}")
+            check(d_norm == (B if epoch < 3 else 0),
+                  f"normalizer count moved by {d_norm} in epoch {epoch}")
+            if step == 0:
+                norms = grad_norms(model)
+                idle_zero = all(v == 0 for mk, v in norms.items()
+                                if mk not in ACTIVE[name])
+                loss_rel = abs(float(loss) - float(ref_loss)) / abs(
+                    float(ref_loss))
+                norm_rel = {mk: abs(v - ref_norms[mk]) / ref_norms[mk]
+                            if ref_norms[mk] else abs(v)
+                            for mk, v in norms.items()}
+                report(f"  against the plain versions: loss rel err "
+                       f"{loss_rel:.3e} (tol {LOSS_RTOL:g}); grad norm rel "
+                       "err " + ", ".join(f"{mk} {v:.3e}" for mk, v in
+                                          norm_rel.items() if norms[mk])
+                       + f" (tol {GRAD_RTOL:g}); inactive grads zero "
+                       f"{idle_zero}")
+                check(loss_rel <= LOSS_RTOL, "training loss disagrees")
+                check(idle_zero, "an inactive module applied non-zero grads")
+                check(max(norm_rel.values()) <= GRAD_RTOL,
+                      "training grads disagree")
+    report(f"  launches in the six training steps: {total}")
+    return model, batch, first_noise, total
+
+
 # ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
@@ -378,6 +647,17 @@ def run_slice(dev, report, B=64, T=160, L=8):
 def lstm_bound(T, B, H):
     flops = 2.0 * B * H * 4 * H * T
     nbytes = 4.0 * (T * B * 4 * H + 4 * H * H + 2 * T * B * H)
+    return max(flops / F32_PEAK, nbytes / MEM_BW) * 1e3, \
+        "operations" if flops / F32_PEAK > nbytes / MEM_BW else "bytes"
+
+
+def lstm_bwd_bound(T, B, H):
+    """Three products per step (the gate recompute, dh_{t-1} = dgates W_hh,
+    dW_hh += h_{t-1}^T dgates) against gx, dgx, hs, cs, dhs, dc_last,
+    W_hh and dW_hh moved once."""
+    flops = 3 * 2.0 * B * H * 4 * H * T
+    nbytes = 4.0 * (2 * T * B * 4 * H + 3 * T * B * H + B * H
+                    + 2 * 4 * H * H)
     return max(flops / F32_PEAK, nbytes / MEM_BW) * 1e3, \
         "operations" if flops / F32_PEAK > nbytes / MEM_BW else "bytes"
 
@@ -411,11 +691,12 @@ def backtrace_bound(B, T, L):
     return nbytes / MEM_BW * 1e3, "bytes"
 
 
-def time_all(dev, report, model, batch, noise, prob, errs, main_counts):
+def time_all(dev, report, model, batch, noise, prob, errs, counts):
     import torch
     from mlvae_tpu_torch.cli.infer import infer_features
     from mlvae_tpu_torch.ops import decode as dec
-    from mlvae_tpu_torch.ops.lstm import lstm_layer_fwd, lstm_layer_ref
+    from mlvae_tpu_torch.ops.lstm import (lstm_layer_bwd, lstm_layer_bwd_ref,
+                                          lstm_layer_fwd, lstm_layer_ref)
     T, B, H = 160, 64, 512
     g = torch.Generator(device=dev).manual_seed(11)
     gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
@@ -444,6 +725,19 @@ def time_all(dev, report, model, batch, noise, prob, errs, main_counts):
     lat_bound, lat_by = lattice_bound(prob)
     bt_bound, bt_by = backtrace_bound(64, 160, 8)
 
+    k1b_prob = bwd_problem(g, dev, T, B, H, False)
+    k1b = cuda_ms(lambda: lstm_layer_bwd(*k1b_prob, False), iters=10)
+    k1b_plain = cuda_ms(lambda: lstm_layer_bwd_ref(*k1b_prob, False),
+                        iters=2, warmup=1)
+    # cuDNN's backward of one layer: its forward and backward less its
+    # forward (it also forms dX and dW_ih, which K1-bwd leaves to matmuls)
+    xg = torch.randn((T, B, H), generator=g, device=dev, requires_grad=True)
+    dy = torch.randn((T, B, H), generator=g, device=dev)
+    lib_fwd = cuda_ms(lambda: cudnn(xg), iters=10)
+    lib_fwd_bwd = cuda_ms(lambda: cudnn(xg)[0].backward(dy), iters=10)
+    k1b_lib = lib_fwd_bwd - lib_fwd
+    k1b_bound, k1b_by = lstm_bwd_bound(T, B, H)
+
     step = cuda_ms(lambda: model.eval_step(batch, noise=noise), iters=10)
     # one utterance through the serving entry; it ends in a copy to the host
     infer_ms = cuda_ms(lambda: infer_features(
@@ -456,6 +750,10 @@ def time_all(dev, report, model, batch, noise, prob, errs, main_counts):
     report(f"  lstm_fwd {k1:.4f} ms (plain {k1_plain:.4f}, cuDNN LSTM layer "
            f"incl. input projection {k1_lib:.4f}, bound {k1_bound:.4f} by "
            f"{k1_by})")
+    report(f"  lstm_bwd {k1b:.4f} ms (plain {k1b_plain:.4f}, cuDNN LSTM "
+           f"layer backward incl. dX and dW_ih {k1b_lib:.4f} = "
+           f"{lib_fwd_bwd:.4f} fwd+bwd - {lib_fwd:.4f} fwd, bound "
+           f"{k1b_bound:.4f} by {k1b_by})")
     report(f"  md_viterbi_lattice {lat:.4f} ms (plain {lat_plain:.4f}, bound "
            f"{lat_bound:.6f} by {lat_by}); md_viterbi_backtrace {bt:.4f} ms "
            f"(plain {bt_plain:.4f}, bound {bt_bound:.6f} by {bt_by})")
@@ -463,26 +761,32 @@ def time_all(dev, report, model, batch, noise, prob, errs, main_counts):
            f"({Bm * Tm * HOP_SEC / (step / 1e3):.1f} utt-sec/sec); "
            f"through the plain versions {step_plain:.3f} ms")
     report(f"  infer_features B=1 T={Tm}: {infer_ms:.3f} ms")
-    profile_step(model, batch, noise, report)
+    profile_step(lambda: model.eval_step(batch, noise=noise), "eval step",
+                 report)
     return [
         dict(name="lstm_fwd", route="cuda",
              source="mlvae_tpu_torch/csrc/lstm_fwd.cu",
              replaces="mlvae_tpu/ops/lstm_pallas.py:87",
-             launches=main_counts["lstm_fwd"], max_abs_err=errs["lstm"],
+             max_abs_err=errs["lstm"],
              ms=k1, plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
-             library_ms=k1_lib),
+             library_ms=k1_lib, **counts["lstm_fwd"]),
+        dict(name="lstm_bwd", route="cuda",
+             source="mlvae_tpu_torch/csrc/lstm_bwd.cu",
+             replaces="mlvae_tpu/ops/lstm_pallas.py:115",
+             max_abs_err=errs["lstm_bwd"],
+             ms=k1b, plain_ms=k1b_plain, bound_ms=k1b_bound, bound_by=k1b_by,
+             library_ms=k1b_lib, **counts["lstm_bwd"]),
         dict(name="md_viterbi_lattice", route="cuda",
              source="mlvae_tpu_torch/csrc/md_viterbi.cu",
              replaces="mlvae_tpu/ops/decode_pallas.py:37",
-             launches=main_counts["md_viterbi_lattice"],
-             max_abs_err=errs["lattice"],
+             max_abs_err=errs["lattice"], **counts["md_viterbi_lattice"],
              ms=lat, plain_ms=lat_plain, bound_ms=lat_bound, bound_by=lat_by,
              library_ms=None),
         dict(name="md_viterbi_backtrace", route="cuda",
              source="mlvae_tpu_torch/csrc/md_viterbi.cu",
              replaces="mlvae_tpu/ops/decode_pallas.py:111",
-             launches=main_counts["md_viterbi_backtrace"],
              max_abs_err=errs["backtrace"],
+             **counts["md_viterbi_backtrace"],
              ms=bt, plain_ms=bt_plain, bound_ms=bt_bound, bound_by=bt_by,
              library_ms=None),
     ], {"eval_step_ms": step, "eval_step_plain_ms": step_plain,
@@ -490,16 +794,33 @@ def time_all(dev, report, model, batch, noise, prob, errs, main_counts):
         "infer_b1_ms": infer_ms}
 
 
-def profile_step(model, batch, noise, report):
-    """Device time of one eval step by kernel name (torch.profiler)."""
+def time_training(dev, report, model, batch, first_noise):
+    """Train-step time per target (host clock around synchronised steps,
+    each step continuing the training), and a profile of one VAE step."""
+    B, T = batch["feat"][0].shape[:2]
+    out = {}
+    for epoch, name in ((1, "PHN_RECOG"), (2, "B_DETECTOR"), (3, "VAE")):
+        def fit(epoch=epoch, name=name):
+            model.fit_batch(batch, epoch, noise=first_noise[name])
+        ms = cuda_ms(fit, iters=5, warmup=1)
+        out[name] = {"ms": ms, "utt_sec_per_sec": B * T * HOP_SEC / (ms / 1e3)}
+        report(f"  train step {name} B={B} T={T}: {ms:.3f} ms "
+               f"({out[name]['utt_sec_per_sec']:.1f} utt-sec/sec)")
+    profile_step(lambda: model.fit_batch(batch, 3, noise=first_noise["VAE"]),
+                 "VAE train step", report)
+    return out
+
+
+def profile_step(fn, label, report):
+    """Device time of one call of ``fn`` by kernel name (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    model.eval_step(batch, noise=noise)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.eval_step(batch, noise=noise)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -513,7 +834,7 @@ def profile_step(model, batch, noise, report):
             rows.append((dev_us, ev.count, ev.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    report(f"  profile of one eval step: wall {wall_ms:.3f} ms, kernel time "
+    report(f"  profile of one {label}: wall {wall_ms:.3f} ms, kernel time "
            f"{total / 1e3:.3f} ms (idle share "
            f"{max(0.0, 1 - total / 1e3 / wall_ms):.3f}); "
            + "; ".join(f"{k[:48]} x{n} {us / 1e3:.3f} ms"
@@ -525,6 +846,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--lstm-repeats", type=int, default=LSTM_REPEATS,
                     help="K1 launches per shape and direction in phase 2's "
+                    "repeated check (default %(default)s)")
+    ap.add_argument("--lstm-bwd-repeats", type=int, default=LSTM_BWD_REPEATS,
+                    help="K1-bwd launches per direction in phase 2's "
                     "repeated check (default %(default)s)")
     args = ap.parse_args(argv)
     if not (REPO / "mlvae_tpu_torch" / "csrc").is_dir():
@@ -563,17 +887,35 @@ def main(argv=None) -> int:
     report("phase 2 kernels against their plain versions on the card")
     errs = {"lstm": max(check_lstm(dev, report),
                         stress_lstm(dev, report, args.lstm_repeats))}
+    errs["lstm_bwd"] = max(check_lstm_bwd(dev, report),
+                           stress_lstm_bwd(dev, report,
+                                           args.lstm_bwd_repeats))
     prob, errs_viterbi = check_viterbi(dev, report)
     errs.update(errs_viterbi)
 
     report("phase 3 MD_VAE TEST eval step at full width (H=512, B=64, "
            "T=160, L=8)")
-    model, batch, noise, main_counts = run_slice(dev, report)
+    model, batch, noise, eval_counts = run_slice(dev, report)
+    report("phase 3 MD_VAE f32 training step at full width (H=512, B=64, "
+           "T=160, L=8), two steps per target")
+    train_model, train_batch, first_noise, train_counts = run_training(
+        dev, report)
+    # the main path's launches: the eval forward's and the six train steps'
+    counts = {k: {"launches": eval_counts[k] + train_counts[k],
+                  "launches_eval_step": eval_counts[k],
+                  "launches_training": train_counts[k]}
+              for k in eval_counts}
+    check(all(c["launches"] > 0 for c in counts.values()),
+          f"a kernel of the path never launched: {counts}")
 
     report("phase 4 times (CUDA events, after warm-up)")
     kernels, step = time_all(dev, report, model, batch, noise, prob, errs,
-                             main_counts)
-    report(json.dumps({"kernels": kernels, "eval_step": step}))
+                             counts)
+    del model
+    train_step = time_training(dev, report, train_model, train_batch,
+                               first_noise)
+    report(json.dumps({"kernels": kernels, "eval_step": step,
+                       "train_step": train_step}))
     report(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

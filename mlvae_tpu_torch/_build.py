@@ -28,7 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the decode must round exactly like its plain version: no FMA contraction
 EXTRA_FLAGS = {"md_viterbi": ["-fmad=false"]}
-SOURCES = ("lstm_fwd", "md_viterbi")
+SOURCES = ("lstm_fwd", "lstm_bwd", "md_viterbi")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds to build, ptxas report) for the builds this process ran

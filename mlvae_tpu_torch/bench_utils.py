@@ -2,9 +2,10 @@
 the filesystem (counterpart of ``mlvae_tpu/bench_utils.py``).
 
 The widths are the recipe's, copied from
-``mlvae_tpu/models/MD_VAE/model.yaml``; ``overrides`` changes any of them
-(narrow widths for the CPU tests). ``synth_batch`` draws the same numpy
-values as the JAX package's ``synth_batch`` for the same arguments.
+``mlvae_tpu/models/MD_VAE/model.yaml``, with its Adam at ``lr``;
+``overrides`` changes any of them (narrow widths for the CPU tests).
+``synth_batch`` draws the same numpy values as the JAX package's
+``synth_batch`` for the same arguments.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from mlvae_tpu_torch.device import resolve_device
 from mlvae_tpu_torch.models.MD_VAE.model import MDVAE
+from mlvae_tpu_torch.training.optim import Adam
 
 N_PHONEMES = 12          # digits task (smoke-test scale)
 N_CLASSES = N_PHONEMES + 2
@@ -51,19 +53,22 @@ RECIPE = {
     "boundary_bce_weight": 1.0,
     "recon_weight": 1.0,
     "kld_n_samples": 2249,
+    "lr": 0.001,
 }
 
 
 def build_md_vae(batch_size: int = 8, overrides=None, seed: int = 0,
                  device=None) -> MDVAE:
-    """MD_VAE at the recipe's widths with weights drawn from ``seed``, in
-    eval mode on ``device`` (None means CUDA)."""
+    """MD_VAE at the recipe's widths with weights drawn from ``seed`` on
+    ``device`` (None means CUDA), its optimizer states initialised."""
     dev = resolve_device(device)
     hparams = dict(RECIPE, batch_size=batch_size)
     hparams.update(overrides or {})
+    hparams.setdefault("optimizer", Adam(lr=hparams["lr"]))
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    model = MDVAE(hparams, generator=gen)
-    return model.to(dev).eval()
+    model = MDVAE(hparams, generator=gen).to(dev).eval()
+    model.init_optimizers()
+    return model
 
 
 def synth_batch(batch_size: int = 8, T: int = 160, L: int = 8,

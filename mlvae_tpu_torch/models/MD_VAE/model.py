@@ -1,21 +1,31 @@
-"""Flagship recipe MD_VAE: the TEST-target forward and eval step
-(counterpart of ``mlvae_tpu/models/MD_VAE/model.py`` ``SBModel``).
+"""Flagship recipe MD_VAE (counterpart of
+``mlvae_tpu/models/MD_VAE/model.py`` ``SBModel``): the training step of
+its three alternating targets and the TEST-target eval step.
 
-forward = normalizer (no stats update) + phoneme recognizer + boundary
-detector + [feat_fc ⊕ phn_recog_fc -> concat_fc -> LSTM -> pi_fc -> argmax
-π -> in-step MD Viterbi decode -> HierarchicalVAE -> Decoder], with every
-loss key. This slice serves; the training targets (PHN_RECOG, B_DETECTOR,
-VAE), the sampled π and the backward pass come with the training slice.
+forward = normalizer (its stats update while training before
+``update_until_epoch``) + phoneme recognizer + boundary detector +
+[feat_fc ⊕ phn_recog_fc(stop-grad) -> concat_fc -> LSTM -> pi_fc -> π
+(sampled while training, argmax otherwise) -> in-step MD Viterbi decode on
+stop-gradded inputs -> HierarchicalVAE -> Decoder], with every loss key.
+The training target cycles PHN_RECOG -> B_DETECTOR -> VAE by
+``(epoch-1) % 3``; the branches a target runs are gated by it, and the
+losses of the branches it does not train are detached.
 
-The eval step draws noise four times, in the JAX package's order
-(``fold_in(rng, 0..3)`` of its ``RngStream``): ``kumaraswamy_u``
-(10, B, T), ``vanilla_eps`` (B, T, latent), ``gumbel_g``
-(B, T, components), ``gmm_eps`` (B, T, latent * components). Pass them in
-``noise`` to replay a run, or a ``torch.Generator`` to draw them.
+Every draw is named, and ``draws`` lists those of one forward in the JAX
+package's order (``fold_in(rng, 0..k)`` of its ``RngStream``). The eval
+step draws ``kumaraswamy_u`` (10, B, T), ``vanilla_eps`` (B, T, latent),
+``gumbel_g`` (B, T, components) and ``gmm_eps`` (B, T, latent *
+components); the VAE target's training step draws ``kumaraswamy_u``, the
+``rnn_dropout`` keep-mask (T, B, H), ``pi_gumbel`` (B, T, 2), the three
+encoder draws and the ``decoder_dropout`` keep-mask (T, B, 2H); the
+B_DETECTOR target draws only ``kumaraswamy_u`` and PHN_RECOG nothing. Pass
+them in ``noise`` to replay a run, or a ``torch.Generator`` to draw them.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from enum import Enum, auto
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,9 +40,20 @@ from mlvae_tpu_torch.nn import dist as D
 from mlvae_tpu_torch.nn.norm import InputNormalization
 from mlvae_tpu_torch.nn.rnn import LSTM
 from mlvae_tpu_torch.ops import decode as dec
+from mlvae_tpu_torch.training.brain import Stage
 from mlvae_tpu_torch.utils.tensor import abs_lengths, apply_lens_to_loss
 
 NOISE_KEYS = ("kumaraswamy_u", "vanilla_eps", "gumbel_g", "gmm_eps")
+
+
+class Target(Enum):
+    PHN_RECOG = auto()
+    B_DETECTOR = auto()
+    VAE = auto()
+    TEST = auto()
+
+
+TRAIN_CYCLE = (Target.PHN_RECOG, Target.B_DETECTOR, Target.VAE)
 
 
 class MDVAE(MDModel):
@@ -45,6 +66,7 @@ class MDVAE(MDModel):
     def __init__(self, hparams: Dict,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__(hparams)
+        self.target = Target.TEST
         h = self.hparams
         kw = dict(generator=generator, device=device)
         n_cls = h["n_phonemes"] + 2
@@ -79,6 +101,45 @@ class MDVAE(MDModel):
             [h["dec_rnn_hidden_size"] * 2, h["dec_fc_size"],
              h["dec_fc_size"], inp], **kw)
 
+    def on_stage_start(self, stage: Stage, epoch: Optional[int] = None):
+        """TRAIN takes the epoch's target, ``(epoch-1) % 3`` of PHN_RECOG,
+        B_DETECTOR, VAE; TEST takes the TEST target."""
+        if stage == Stage.TRAIN:
+            if epoch is None:
+                raise ValueError(f"{stage} needs the epoch")
+            self.target = TRAIN_CYCLE[(epoch - 1) % 3]
+        elif stage == Stage.TEST:
+            self.target = Target.TEST
+        else:
+            raise ValueError(f"invalid stage {stage}")
+
+    def draws(self, B: int, T: int, train: bool = False
+              ) -> List[Tuple[str, str, tuple, Optional[float]]]:
+        """The draws of one forward under the current target, in the JAX
+        package's RngStream order: (name, kind, shape, keep probability
+        for a ``bernoulli`` keep-mask). Kinds are ``uniform``,
+        ``bernoulli``, ``gumbel`` and ``normal``; names that repeat (one
+        dropout mask per gap between layers) are replayed as a list."""
+        h, t = self.hparams, self.target
+        lat, nc = h["latent_size"], h["num_components"]
+        out = []
+        if t in (Target.B_DETECTOR, Target.VAE, Target.TEST):
+            out.append(("kumaraswamy_u", "uniform",
+                        (BoundaryDetector.SAMPLE_TIMES, B, T), None))
+        if t in (Target.VAE, Target.TEST):
+            if train:
+                out += [("rnn_dropout", "bernoulli", s, 1.0 - self.rnn.dropout)
+                        for s in self.rnn.dropout_shapes(B, T)]
+                out.append(("pi_gumbel", "gumbel", (B, T, 2), None))
+            out += [("vanilla_eps", "normal", (B, T, lat), None),
+                    ("gumbel_g", "gumbel", (B, T, nc), None),
+                    ("gmm_eps", "normal", (B, T, lat * nc), None)]
+            if train:
+                drop = self.decoder.rnn
+                out += [("decoder_dropout", "bernoulli", s, 1.0 - drop.dropout)
+                        for s in drop.dropout_shapes(B, T)]
+        return out
+
     def prepare_batch(self, batch: Dict) -> Dict:
         """Host-side checks of what the decode indexes with: every utterance
         has at least one canonical phoneme and at least as many frames as
@@ -110,9 +171,10 @@ class MDVAE(MDModel):
         plvl_cnnl, plvl_lens = batch["gt_cnncl_seq"]
         t_lens = abs_lengths(batch["feat"][1], T)
         l_lens = abs_lengths(plvl_lens, plvl_cnnl.shape[1])
+        # the decode sees stop-gradded inputs; its outputs are labels
         log_p_yx, log_p_y, log_p_b, log_p_pi = dec.build_viterbi_inputs(
-            phn_out, predictions["boundary_v"], predictions["pi_logits"],
-            batch["prior"][0][0])
+            phn_out.detach(), predictions["boundary_v"].detach(),
+            predictions["pi_logits"].detach(), batch["prior"][0][0])
         boundary, flvl, plvl = dec.md_viterbi_batch(
             log_p_yx.contiguous(), log_p_y.contiguous(),
             plvl_cnnl.to(torch.int32), log_p_b.contiguous(),
@@ -120,35 +182,62 @@ class MDVAE(MDModel):
             float(self.hparams.get("dec_weight", 1.0)))
         return boundary, flvl, plvl, t_lens, l_lens
 
-    @torch.no_grad()
     def compute_forward(self, batch: Dict, noise: Optional[Dict] = None,
-                        generator: Optional[torch.Generator] = None):
-        """TEST-target forward; returns the predictions dict with its
-        per-element ``losses``."""
-        noise = noise or {}
+                        generator: Optional[torch.Generator] = None,
+                        train: bool = False, epoch: int = 1):
+        """The current target's forward; returns the predictions dict with
+        its per-element ``losses``. ``train`` samples π, applies dropout,
+        updates the normalizer's stats before ``update_until_epoch`` and
+        builds the graph; otherwise no graph is built."""
+        target = self.target
+        if train and target == Target.TEST:
+            raise ValueError("the TEST target does not train")
+        with contextlib.nullcontext() if train else torch.no_grad():
+            return self._forward(batch, noise or {}, generator, train, epoch,
+                                 target)
+
+    def _forward(self, batch, noise, generator, train, epoch, target):
         feats, feat_lens = batch["feat"]
-        feats = self.normalizer(feats, feat_lens, update=False)
+        feats = self.normalizer(feats, feat_lens, epoch=epoch, update=train)
         fa_boundary = batch["fa_boundary_seq"][0]
         preds = {"losses": {}}
 
-        phn = self.phoneme_recognizer(feats, feat_lens,
-                                      batch["gt_cnncl_seq"][0], fa_boundary)
-        preds["phn_recog_out"] = phn["out"]
-        preds["losses"].update(phn["losses"])
+        def maybe_detach(losses, active):
+            return losses if active else {k: v.detach()
+                                          for k, v in losses.items()}
 
-        bd = self.boundary_detector(feats, fa_boundary,
-                                    u=noise.get("kumaraswamy_u"),
-                                    generator=generator)
-        preds["boundary_v"] = bd["boundary_v"]
-        preds["losses"].update(bd["losses"])
+        if target in (Target.PHN_RECOG, Target.VAE, Target.TEST):
+            phn = self.phoneme_recognizer(
+                feats, feat_lens, batch["gt_cnncl_seq"][0], fa_boundary,
+                train=train, generator=generator)
+            preds["phn_recog_out"] = phn["out"]
+            preds["losses"].update(
+                maybe_detach(phn["losses"], target == Target.PHN_RECOG))
 
-        rnn_in = torch.cat([self.feat_fc(feats),
-                            self.phn_recog_fc(preds["phn_recog_out"])],
+        if target in (Target.B_DETECTOR, Target.VAE, Target.TEST):
+            bd = self.boundary_detector(feats, fa_boundary,
+                                        u=noise.get("kumaraswamy_u"),
+                                        generator=generator, train=train)
+            preds["boundary_v"] = bd["boundary_v"]
+            preds["losses"].update(
+                maybe_detach(bd["losses"], target == Target.B_DETECTOR))
+
+        if target not in (Target.VAE, Target.TEST):
+            return preds
+        phn_in = preds["phn_recog_out"].detach()   # stop-grad
+        rnn_in = torch.cat([self.feat_fc(feats), self.phn_recog_fc(phn_in)],
                            dim=-1)
-        rnn_out, _ = self.rnn(self.concat_fc(rnn_in))
+        rnn_out, _ = self.rnn(self.concat_fc(rnn_in), train=train,
+                              generator=generator,
+                              masks=noise.get("rnn_dropout"))
         pi_logits = self.pi_fc(rnn_out)
         preds["pi_logits"] = pi_logits
-        sampled = torch.argmax(pi_logits, dim=-1).to(feats.dtype)  # (B, T)
+        if train:
+            sampled = D.categorical_sample(pi_logits, g=noise.get("pi_gumbel"),
+                                           generator=generator)
+        else:
+            sampled = torch.argmax(pi_logits, dim=-1)
+        sampled = sampled.to(feats.dtype)  # (B, T)
         sampled_pi = torch.stack([1 - sampled, sampled], dim=2)
         preds["sampled_pi"] = sampled_pi
 
@@ -164,7 +253,9 @@ class MDVAE(MDModel):
         enc = self.encoder(rnn_out, sampled_pi, noise=noise,
                            generator=generator)
         preds["losses"].update(enc["losses"])
-        dec_out = self.decoder(enc["sampled_h"], feats)
+        dec_out = self.decoder(enc["sampled_h"], feats, train=train,
+                               generator=generator,
+                               masks=noise.get("decoder_dropout"))
         preds["losses"].update(dec_out["losses"])
         return preds
 
@@ -174,11 +265,13 @@ class MDVAE(MDModel):
                   for k, v in predictions["losses"].items()}
         return self.weighted_total(losses), losses
 
+    @torch.no_grad()
     def eval_step(self, batch: Dict, noise: Optional[Dict] = None,
                   generator: Optional[torch.Generator] = None):
         """One TEST-target eval step, as the JAX package's jitted eval step
         returns it: (predictions restricted to ``EVAL_PRED_KEYS``, total
         loss, per-key losses)."""
+        self.on_stage_start(Stage.TEST)
         preds = self.compute_forward(batch, noise=noise, generator=generator)
         loss, losses = self.compute_objectives(preds, batch)
         return ({k: v for k, v in preds.items() if k in self.EVAL_PRED_KEYS},

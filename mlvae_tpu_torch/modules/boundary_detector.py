@@ -31,10 +31,11 @@ class BoundaryDetector(nn.Module):
         self.fc_beta = FCBlock(fc_sizes, generator=generator, device=device)
 
     def forward(self, x, boundary_seqs, u: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                train: bool = False):
         """``u``: raw uniform noise (SAMPLE_TIMES, B, T), else drawn from
-        ``generator``."""
-        rnn_out, _ = self.rnn(x)
+        ``generator``. The draw keeps its gradient path to alpha and beta."""
+        rnn_out, _ = self.rnn(x, train=train, generator=generator)
         eps = 1e-5
         v_alpha = softplus(self.fc_alpha(rnn_out)).squeeze(-1) + eps
         v_beta = softplus(self.fc_beta(rnn_out)).squeeze(-1) + eps

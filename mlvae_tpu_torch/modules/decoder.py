@@ -25,8 +25,13 @@ class Decoder(nn.Module):
         self.mean_fc = FCBlock(fc_sizes, **kw)
         self.log_var_fc = FCBlock(fc_sizes, **kw)
 
-    def forward(self, sampled_h, target_feats):
-        rnn_out, _ = self.rnn(sampled_h)
+    def forward(self, sampled_h, target_feats, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                masks: Optional[Sequence[torch.Tensor]] = None):
+        """``masks``: the LSTM's dropout keep-masks while training (see
+        ``LSTM.dropout_shapes``), else drawn from ``generator``."""
+        rnn_out, _ = self.rnn(sampled_h, train=train, generator=generator,
+                              masks=masks)
         mean = self.mean_fc(rnn_out)
         log_var = self.log_var_fc(rnn_out)
         return {"mean": mean, "log_var": log_var,

@@ -30,8 +30,10 @@ class PhonemeRecognizer(nn.Module):
                         generator=generator, device=device)
         self.fc = FCBlock(fc_sizes, generator=generator, device=device)
 
-    def forward(self, feats, feat_lens, plvl_cnnl_phn_seqs, boundary_seqs):
-        rnn_out, _ = self.rnn(feats)
+    def forward(self, feats, feat_lens, plvl_cnnl_phn_seqs, boundary_seqs,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        rnn_out, _ = self.rnn(feats, train=train, generator=generator)
         out = self.fc(rnn_out)  # (B, T, N)
         B, T, N = out.shape
         L = plvl_cnnl_phn_seqs.shape[1]

@@ -132,6 +132,16 @@ def bce_with_logits(logits, targets):
 
 # -- Categorical --------------------------------------------------------------
 
+def categorical_sample(logits, g: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None):
+    """One draw per row of Categorical(logits) by the Gumbel-max trick:
+    ``argmax(g + logits)`` over the last axis, ``g`` the raw Gumbel noise
+    of ``logits``' shape (as ``jax.random.categorical`` draws it)."""
+    logits = logits.float()
+    g = _noise(g, logits.shape, logits.device, gumbel_noise, generator)
+    return torch.argmax(g + logits, dim=-1)
+
+
 def categorical_log_prob(logits, value):
     """log p(value) for integer ``value`` under Categorical(logits); f32."""
     logp = torch.log_softmax(logits.float(), dim=-1)

@@ -47,11 +47,18 @@ class Linear(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Inverted dropout (scale by 1/(1-p) while training)."""
+            generator: Optional[torch.Generator] = None,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverted dropout (scale by 1/(1-p) while training). ``mask`` is the
+    keep-mask of ``x``'s shape (as ``jax.random.bernoulli(key, 1-p, shape)``
+    gives it); without one it is drawn from ``generator``."""
     if not train or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                    device=x.device))
+    if mask is None:
+        mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    elif tuple(mask.shape) != tuple(x.shape):
+        raise ValueError(f"dropout mask shape {tuple(mask.shape)} != "
+                         f"{tuple(x.shape)}")
+    return torch.where(mask.to(device=x.device, dtype=torch.bool), x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))

@@ -6,22 +6,25 @@ Parameters carry ``torch.nn.LSTM``'s names and layouts
 (4H, H), ``bias_ih_...``, ``bias_hh_...``) and the gate order i, f, g, o.
 The initial state is zero. The input projection of every time step is one
 ``torch.matmul`` outside the recurrence, as the JAX package leaves it to
-XLA; the recurrence itself is ``ops.lstm.lstm_layer_fwd`` (kernel K1-fwd on
-the card). The stack runs time-major, with one transpose in and one out.
-A bidirectional layer outputs ``[fwd, bwd]``; the reverse direction is
-indexing inside the recurrence, never a flip. Dropout applies between
-layers and only while training.
+XLA; the recurrence itself is ``ops.lstm.LSTMRecurrence`` (kernel K1-fwd
+forward and K1-bwd backward on the card), so autograd gives dX, dW_ih and
+the biases from its dgx as XLA does from the Pallas kernel's. The stack
+runs time-major, with one transpose in and one out. A bidirectional layer
+outputs ``[fwd, bwd]``; the reverse direction is indexing inside the
+recurrence, never a flip. Dropout applies between layers and only while
+training, with one time-major (T, B, D*H) keep-mask per gap, the shape the
+JAX module draws.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from mlvae_tpu_torch.nn.layers import dropout, uniform_
-from mlvae_tpu_torch.ops.lstm import lstm_layer_fwd
+from mlvae_tpu_torch.ops.lstm import LSTMRecurrence
 
 
 class LSTM(nn.Module):
@@ -68,23 +71,33 @@ class LSTM(nn.Module):
         b_hh = getattr(self, f"bias_hh_{sfx}")
         return gx + (b_ih + b_hh) if folded else gx + b_ih + b_hh
 
+    def dropout_shapes(self, B: int, T: int):
+        """The keep-masks one training forward draws, in order: one
+        (T, B, D*H) mask per gap between layers, none without dropout."""
+        if self.dropout <= 0.0:
+            return []
+        return [(T, B, self._dirs * self.hidden_size)] * (self.num_layers - 1)
+
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                masks: Optional[Sequence[torch.Tensor]] = None):
+        """``masks``: the keep-masks of ``dropout_shapes``, else drawn from
+        ``generator`` while training."""
         out = x.transpose(0, 1).contiguous()   # (T, B, In)
         last_h, last_c = [], []
         for layer in range(self.num_layers):
             outs = []
             for d, sfx in enumerate(self._suffixes(layer)):
                 gx = self._gates(out, sfx, folded=self.bidirectional)
-                hs, cs = lstm_layer_fwd(gx.contiguous(),
-                                        getattr(self, f"weight_hh_{sfx}"),
-                                        reverse=d == 1)
+                hs, c_last = LSTMRecurrence.apply(
+                    gx.contiguous(), getattr(self, f"weight_hh_{sfx}"), d == 1)
                 # final state after the last PROCESSED step (t=0 reversed)
                 last_h.append(hs[0] if d == 1 else hs[-1])
-                last_c.append((cs[0] if d == 1 else cs[-1]).to(x.dtype))
+                last_c.append(c_last.to(x.dtype))
                 outs.append(hs)
             out = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
             if layer < self.num_layers - 1:
-                out = dropout(out, self.dropout, train, generator)
+                out = dropout(out, self.dropout, train, generator,
+                              mask=masks[layer] if masks else None)
         return (out.transpose(0, 1),
                 (torch.stack(last_h, 0), torch.stack(last_c, 0)))

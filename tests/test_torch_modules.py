@@ -17,6 +17,7 @@ from mlvae_tpu.modules.h_vae import HierarchicalVAE as JHVAE
 from mlvae_tpu.modules.phoneme_recognizer import PhonemeRecognizer as JPR
 from mlvae_tpu.modules.vanilla_vae import VanillaVAE as JVAE
 from mlvae_tpu.nn import dist as JD
+from mlvae_tpu.nn import layers as JL
 from mlvae_tpu.nn.layers import Linear as JLinear
 from mlvae_tpu.nn.norm import InputNormalization as JNorm
 from mlvae_tpu.utils import tensor as jtensor
@@ -30,6 +31,7 @@ from mlvae_tpu_torch.modules.h_vae import HierarchicalVAE
 from mlvae_tpu_torch.modules.phoneme_recognizer import PhonemeRecognizer
 from mlvae_tpu_torch.modules.vanilla_vae import VanillaVAE
 from mlvae_tpu_torch.nn import dist as D
+from mlvae_tpu_torch.nn import layers as L
 from mlvae_tpu_torch.nn.layers import Linear
 from mlvae_tpu_torch.nn.norm import InputNormalization
 from mlvae_tpu_torch.utils import tensor as ttensor
@@ -187,6 +189,28 @@ def test_dist_functions(name):
     got, want = _dist_cases()[name]
     _close(got(), want(), rtol=_DIST_RTOL.get(name, RTOL), atol=1e-5
            if name in _DIST_RTOL else ATOL)
+
+
+def test_categorical_sample_replays_jax_exactly():
+    """``jax.random.categorical`` is the Gumbel-max trick on
+    ``gumbel(key, logits.shape)`` for the installed jax: replaying that
+    draw gives its sample, element for element."""
+    logits = _x(8, 50, 2, seed=11, scale=0.5)
+    key = jax.random.fold_in(KEY, 3)
+    want = np.asarray(JD.categorical_sample(key, jnp.asarray(logits)))
+    g = np.asarray(jax.random.gumbel(key, logits.shape, jnp.float32))
+    got = D.categorical_sample(_t(logits), g=_t(g))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.mean() < 1
+
+
+def test_dropout_replays_a_jax_keep_mask():
+    x = _x(6, B, 8, seed=12)
+    key = jax.random.fold_in(KEY, 4)
+    want = JL.dropout(key, jnp.asarray(x), 0.15, True)
+    mask = np.asarray(jax.random.bernoulli(key, 0.85, x.shape))
+    _close(L.dropout(_t(x), 0.15, True, mask=_t(mask)), want)
+    assert torch.equal(L.dropout(_t(x), 0.15, False, mask=_t(mask)), _t(x))
 
 
 # -- modules --------------------------------------------------------------------
