@@ -8,9 +8,11 @@ Phases, each reported on its own line; any failure exits non-zero:
 1. the card and the kernel build (every ``mlvae_tpu_torch/csrc/*.cu``,
    compiled from this checkout, one ``nvcc`` per source in parallel);
 2. each kernel against its plain PyTorch version on the card, at the
-   slices' shapes (B=64, T=160, H=512), plus ragged and edge cases, and
+   slices' shapes (B=64, T=160, H=512; the fused kernels at In=128, 512
+   and 1024 as the AMP step gives them), plus ragged and edge cases, and
    K1-fwd and K1-bwd again over many back-to-back launches
-   (``--lstm-repeats``, ``--lstm-bwd-repeats``);
+   (``--lstm-repeats``, ``--lstm-bwd-repeats``), the fused kernels over a
+   few;
 3. MD_VAE at the recipe's full width (H=512, B=64, T=160, L=8, weights
    from a seed) through the kernels: the TEST-target eval step (finite
    losses, decoded boundaries that sum to each utterance's phoneme count,
@@ -20,10 +22,14 @@ Phases, each reported on its own line; any failure exits non-zero:
    PHN_RECOG, B_DETECTOR, VAE): finite losses, launches per step, exactly
    the target's modules changed, the normalizer updated in epochs 1 and 2
    only, and each target's first step against the same step through the
-   plain versions;
+   plain versions; then the same two steps per target under AMP (bf16,
+   ``build_md_vae(bf16=True)``), whose launches take K3/K4 and never K1,
+   whose parameters and optimizer states stay f32, and whose VAE step is
+   also held against the f32 step from the same state and draws;
 4. times from CUDA events after warm-up: each kernel, its plain version,
-   a one-call PyTorch yardstick where one exists, the eval step, the train
-   step of each target, and profiles of one eval and one VAE train step;
+   a one-call PyTorch yardstick where one exists, the eval step, the f32
+   and AMP train steps of each target, the AMP VAE step at the JAX bench's
+   B=256, and profiles of one eval, one f32 and one AMP VAE train step;
 5. a ``kernels`` JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -52,11 +58,25 @@ BWD_RTOL = 1e-4       # dW_hh: f32 sums of B*T = 10,240 terms in another order
 GRAD_RTOL = 1e-3      # module grad norms after a backward through ten LSTM
                       # layers, the FCs and the clip, f32 in another order
 LSTM_BWD_REPEATS = 100  # phase 2's repeated K1-bwd launches per direction
+# K3/K4: the kernels round where their plain versions round, but an f32
+# sum in another order can cross a bf16 rounding boundary, and a flipped
+# h_t feeds every later step
+FUSED_ATOL = 4e-3     # hs: one bf16 ulp at |h| < 1; cs (f32) drifts less
+FUSED_BWD_RTOL = 1e-2  # K3-bwd, K4-bwd outputs, of their largest entry: a
+                      # dgates one bf16 ulp off in a sum of In or 4H terms
+FUSED_REPEATS = 10    # phase 2's repeated launches per fused kernel, shape
+                      # and direction
+BF16_PEAK = 989e12    # H100 SXM dense bf16 tensor cores, FLOP/s
+AMP_LOSS_RTOL = 1e-3  # the AMP step against its plain twin: the fused
+AMP_GRAD_RTOL = 1e-2  # kernels' bf16 flips (above) through ten layers
+AMP_F32_RTOL = 0.05   # the AMP VAE loss against the f32 step's, as
+                      # tests/test_mixed_precision.py holds the JAX step
 
 # kernel launches in one eval forward: ten directional LSTM layers (2 + 2
 # + 2 + 2x2 bidirectional), one decode
+NO_FUSED = {"lstm_fused_fwd": 0, "lstm_fused_bwd": 0, "lstm_semi_bwd": 0}
 PER_FORWARD = {"lstm_fwd": 10, "lstm_bwd": 0, "md_viterbi_lattice": 1,
-               "md_viterbi_backtrace": 1}
+               "md_viterbi_backtrace": 1, **NO_FUSED}
 # kernel launches in one training step: each target's forward runs the
 # LSTMs of the branches it gates in; its backward reaches only the LSTMs
 # of the modules it trains (VAE: the rnn's 2 layers and the decoder's 2
@@ -64,11 +84,25 @@ PER_FORWARD = {"lstm_fwd": 10, "lstm_bwd": 0, "md_viterbi_lattice": 1,
 # stop-gradients)
 PER_TRAIN_STEP = {
     "PHN_RECOG": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi_lattice": 0,
-                  "md_viterbi_backtrace": 0},
+                  "md_viterbi_backtrace": 0, **NO_FUSED},
     "B_DETECTOR": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi_lattice": 0,
-                   "md_viterbi_backtrace": 0},
+                   "md_viterbi_backtrace": 0, **NO_FUSED},
     "VAE": {"lstm_fwd": 10, "lstm_bwd": 6, "md_viterbi_lattice": 1,
-            "md_viterbi_backtrace": 1},
+            "md_viterbi_backtrace": 1, **NO_FUSED},
+}
+# the same under AMP: every layer takes K3 or K4 and none K1; K4 only for
+# the decoder's In=1024 pair (K3-bwd: the rnn's 2 layers and decoder l0,
+# both directions)
+NO_K1 = {"lstm_fwd": 0, "lstm_bwd": 0}
+PER_AMP_STEP = {
+    "PHN_RECOG": {**NO_K1, "md_viterbi_lattice": 0, "md_viterbi_backtrace": 0,
+                  "lstm_fused_fwd": 2, "lstm_fused_bwd": 2,
+                  "lstm_semi_bwd": 0},
+    "B_DETECTOR": {**NO_K1, "md_viterbi_lattice": 0,
+                   "md_viterbi_backtrace": 0, "lstm_fused_fwd": 2,
+                   "lstm_fused_bwd": 2, "lstm_semi_bwd": 0},
+    "VAE": {**NO_K1, "md_viterbi_lattice": 1, "md_viterbi_backtrace": 1,
+            "lstm_fused_fwd": 10, "lstm_fused_bwd": 4, "lstm_semi_bwd": 2},
 }
 ACTIVE = {
     "PHN_RECOG": {"phoneme_recognizer"},
@@ -112,6 +146,13 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def rel_err(a, b) -> float:
+    """Max abs error relative to the largest entry of ``b``; an all-zero
+    ``b`` must be matched by an all-zero ``a``."""
+    scale = float(b.double().abs().max()) if b.numel() else 0.0
+    return max_err(a, b) / scale if scale else max_err(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -238,11 +279,7 @@ def bwd_problem(g, dev, T, B, H, reverse):
 def bwd_errors(got, want):
     """(max abs error of dgx, max error of dW_hh relative to its largest
     entry); an all-zero dW_hh (T=1) must come back all zero."""
-    dgx_err = max_err(got[0], want[0])
-    scale = float(want[1].abs().max())
-    dw_err = max_err(got[1], want[1]) / scale if scale else \
-        max_err(got[1], want[1])
-    return dgx_err, dw_err
+    return max_err(got[0], want[0]), rel_err(got[1], want[1])
 
 
 def where_wrong_bwd(diff, reverse):
@@ -324,6 +361,146 @@ def stress_lstm_bwd(dev, report, repeats):
     return worst
 
 
+def fused_problem(g, dev, T, B, In, H):
+    """A fused layer's inputs: x and the weights bf16, the bias f32, at the
+    scale of the recipe's layers (weights U(+-1/sqrt(H)))."""
+    import torch
+    bf = torch.bfloat16
+    x = (torch.randn((T, B, In), generator=g, device=dev) * 0.5).to(bf)
+    w_ih = ((torch.rand((4 * H, In), generator=g, device=dev) * 2 - 1)
+            / H ** 0.5).to(bf)
+    bias = (torch.rand((4 * H,), generator=g, device=dev) * 2 - 1) / H ** 0.5
+    w_hh = ((torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1)
+            / H ** 0.5).to(bf)
+    return x, w_ih, bias, w_hh
+
+
+def fused_bwd_problem(g, dev, T, B, In, H, reverse):
+    """A fused backward's inputs: a forward trajectory from the plain
+    version, random bf16 cotangents for every h and f32 ones for the final
+    c."""
+    import torch
+    from mlvae_tpu_torch.ops.lstm import lstm_fused_fwd_ref
+    x, w_ih, bias, w_hh = fused_problem(g, dev, T, B, In, H)
+    hs, cs = lstm_fused_fwd_ref(x, w_ih, bias, w_hh, reverse)
+    dhs = (torch.randn((T, B, H), generator=g, device=dev) * 0.1).to(
+        torch.bfloat16)
+    dc_last = torch.randn((B, H), generator=g, device=dev) * 0.1
+    return x, w_ih, bias, w_hh, hs, cs, dhs, dc_last
+
+
+def fused_fwd_errors(got, want):
+    """(max abs error of hs, of cs, share of hs elements not bit-equal)."""
+    hs_k, cs_k = got
+    hs_r, cs_r = want
+    return (max_err(hs_k, hs_r), max_err(cs_k, cs_r),
+            float((hs_k != hs_r).float().mean()) if hs_r.numel() else 0.0)
+
+
+def check_fused_fwd(dev, report):
+    import torch
+    from mlvae_tpu_torch.ops.lstm import lstm_fused_fwd, lstm_fused_fwd_ref
+    g = torch.Generator(device=dev).manual_seed(21)
+    worst = 0.0
+    cases = [(160, 64, 128, 512), (160, 64, 512, 512), (160, 64, 1024, 512),
+             (1, 64, 128, 512), (7, 1, 512, 512), (9, 70, 128, 512),
+             (5, 130, 1024, 512), (6, 33, 136, 64)]
+    for T, B, In, H in cases:
+        prob = fused_problem(g, dev, T, B, In, H)
+        for reverse in (False, True):
+            got = lstm_fused_fwd(*prob, reverse)
+            want = lstm_fused_fwd_ref(*prob, reverse)
+            torch.cuda.synchronize()
+            hs_err, cs_err, flipped = fused_fwd_errors(got, want)
+            report(f"  lstm_fused_fwd T={T} B={B} In={In} H={H} reverse="
+                   f"{reverse}: hs max_abs_err {hs_err:.3e}, cs {cs_err:.3e} "
+                   f"(tol {FUSED_ATOL:g}); hs not bit-equal {flipped:.2e}")
+            check(max(hs_err, cs_err) <= FUSED_ATOL,
+                  f"lstm_fused_fwd disagrees: hs {hs_err}, cs {cs_err}")
+            if T == 160 and B == 64:
+                worst = max(worst, hs_err, cs_err)
+    return worst
+
+
+def fused_bwd_errors(got, want):
+    """Each output's max error relative to its largest entry."""
+    return [rel_err(a, b) for a, b in zip(got, want)]
+
+
+def check_fused_bwd(dev, report):
+    """Each backward against its plain version; returns each kernel's
+    worst max abs error of its streamed output (dX, dgx) at T=160."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    g = torch.Generator(device=dev).manual_seed(22)
+    worst = {"lstm_fused_bwd": 0.0, "lstm_semi_bwd": 0.0}
+    cases = [  # (kernel, T, B, In, H)
+        ("lstm_fused_bwd", 160, 64, 128, 512),
+        ("lstm_fused_bwd", 160, 64, 512, 512),
+        ("lstm_semi_bwd", 160, 64, 1024, 512),
+        ("lstm_fused_bwd", 1, 64, 512, 512),
+        ("lstm_semi_bwd", 1, 64, 1024, 512),
+        ("lstm_fused_bwd", 7, 1, 128, 512), ("lstm_semi_bwd", 7, 1, 1024, 512),
+        ("lstm_fused_bwd", 9, 70, 512, 512),
+        ("lstm_semi_bwd", 9, 70, 1024, 512),
+        ("lstm_fused_bwd", 5, 130, 128, 512),
+        ("lstm_semi_bwd", 5, 130, 1024, 512),
+        ("lstm_fused_bwd", 6, 33, 136, 64), ("lstm_semi_bwd", 6, 33, 136, 64)]
+    names = {"lstm_fused_bwd": ("dX", "dW_ih", "db", "dW_hh"),
+             "lstm_semi_bwd": ("dgx", "dW_hh")}
+    for name, T, B, In, H in cases:
+        for reverse in (False, True):
+            prob = fused_bwd_problem(g, dev, T, B, In, H, reverse)
+            got = getattr(L, name)(*prob, reverse)
+            want = getattr(L, name + "_ref")(*prob, reverse)
+            torch.cuda.synchronize()
+            errs = fused_bwd_errors(got, want)
+            report(f"  {name} T={T} B={B} In={In} H={H} reverse={reverse}: "
+                   "max err rel to largest entry "
+                   + ", ".join(f"{n} {e:.3e}" for n, e in
+                               zip(names[name], errs))
+                   + f" (tol {FUSED_BWD_RTOL:g}); {names[name][0]} max "
+                   f"abs err {max_err(got[0], want[0]):.3e}")
+            check(max(errs) <= FUSED_BWD_RTOL, f"{name} disagrees: {errs}")
+            if T == 160:
+                worst[name] = max(worst[name], max_err(got[0], want[0]))
+    return worst
+
+
+def stress_fused(dev, report, repeats):
+    """Repeated launches of the three fused kernels at the AMP step's
+    shapes, back to back, each held against the plain version on its
+    inputs."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    g = torch.Generator(device=dev).manual_seed(23)
+    T, B, H = 160, 64, 512
+    total, wrong = 0, []
+    for name, In in (("lstm_fused_fwd", 128), ("lstm_fused_fwd", 1024),
+                     ("lstm_fused_bwd", 512), ("lstm_semi_bwd", 1024)):
+        for reverse in (False, True):
+            if name == "lstm_fused_fwd":
+                prob = fused_problem(g, dev, T, B, In, H)
+            else:
+                prob = fused_bwd_problem(g, dev, T, B, In, H, reverse)
+            want = getattr(L, name + "_ref")(*prob, reverse)
+            fwd = name == "lstm_fused_fwd"
+            tol = FUSED_ATOL if fwd else FUSED_BWD_RTOL
+            for j in range(repeats):
+                got = getattr(L, name)(*prob, reverse)
+                err = max(fused_fwd_errors(got, want)[:2] if fwd
+                          else fused_bwd_errors(got, want))
+                total += 1
+                if err > tol:
+                    wrong.append((name, In, reverse, j, err))
+    report(f"  fused kernels repeated: {total} launches at T=160, B=64, "
+           f"H=512, both directions: {len(wrong)} wrong"
+           + (f"; wrong (kernel, In, reverse, launch, err): {wrong[:8]}"
+              if wrong else ""))
+    check(not wrong, f"fused kernels wrong in {len(wrong)} of {total} "
+          "repeated launches")
+
+
 def check_viterbi(dev, report):
     import numpy as np
     import torch
@@ -372,18 +549,23 @@ def twins():
     from mlvae_tpu_torch.ops import decode as dec
     from mlvae_tpu_torch.ops import lstm
 
+    plain = {(lstm, "lstm_layer_fwd"): lstm.lstm_layer_ref,
+             (lstm, "lstm_layer_bwd"): lstm.lstm_layer_bwd_ref,
+             (lstm, "lstm_fused_fwd"): lstm.lstm_fused_fwd_ref,
+             (lstm, "lstm_fused_bwd"): lstm.lstm_fused_bwd_ref,
+             (lstm, "lstm_semi_bwd"): lstm.lstm_semi_bwd_ref,
+             (dec, "md_viterbi_batch"): dec.md_viterbi_batch_ref}
+
     @contextlib.contextmanager
     def ctx():
-        saved = (lstm.lstm_layer_fwd, lstm.lstm_layer_bwd,
-                 dec.md_viterbi_batch)
-        lstm.lstm_layer_fwd = lstm.lstm_layer_ref
-        lstm.lstm_layer_bwd = lstm.lstm_layer_bwd_ref
-        dec.md_viterbi_batch = dec.md_viterbi_batch_ref
+        saved = {k: getattr(*k) for k in plain}
+        for (mod, name), fn in plain.items():
+            setattr(mod, name, fn)
         try:
             yield
         finally:
-            (lstm.lstm_layer_fwd, lstm.lstm_layer_bwd,
-             dec.md_viterbi_batch) = saved
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
     return ctx()
 
 
@@ -511,7 +693,7 @@ def train_noise(model, B, T, dev, g):
     import torch
     from mlvae_tpu_torch.nn.dist import gumbel_noise
     noise = {}
-    for name, kind, shape, keep in model.draws(B, T, train=True):
+    for name, kind, shape, keep, dtype in model.draws(B, T, train=True):
         if kind == "bernoulli":
             noise.setdefault(name, []).append(
                 torch.rand(shape, generator=g, device=dev) < keep)
@@ -520,8 +702,19 @@ def train_noise(model, B, T, dev, g):
         elif kind == "normal":
             noise[name] = torch.randn(shape, generator=g, device=dev)
         else:
-            noise[name] = gumbel_noise(shape, device=dev, generator=g)
+            noise[name] = gumbel_noise(shape, device=dev, generator=g,
+                                       dtype=dtype)
     return noise
+
+
+def f32_state(model) -> bool:
+    """Parameters, grads and optimizer states all f32 (AMP keeps them so)."""
+    import torch
+    tensors = [p for p in model.parameters()] + [
+        p.grad for p in model.parameters() if p.grad is not None] + [
+        v for per in model.opt_states.values() for st in per.values()
+        for v in st.values() if v.is_floating_point()]
+    return all(t.dtype == torch.float32 for t in tensors)
 
 
 def snapshot(model):
@@ -552,17 +745,23 @@ def grad_norms(model):
     return out
 
 
-def run_training(dev, report, B=64, T=160, L=8):
+def run_training(dev, report, B=64, T=160, L=8, amp=False):
     """Two steps of each target at full width through the kernels, each
     target's first step also through the plain versions from the same
-    state and draws. Returns the model, the batch, each target's first
-    draws and the kernel launches of the six kernel steps."""
+    state and draws. ``amp``: the AMP (bf16) step, whose parameters and
+    optimizer states must stay f32, and whose VAE step is also held
+    against the f32 step from the same state and draws. Returns the model,
+    the batch, each target's first draws and the kernel launches of the
+    six kernel steps."""
     import numpy as np
     import torch
     from mlvae_tpu_torch.bench_utils import build_md_vae, synth_batch
     from mlvae_tpu_torch.training.brain import Stage
 
-    model = build_md_vae(batch_size=B, seed=0, device=dev)
+    per_step = PER_AMP_STEP if amp else PER_TRAIN_STEP
+    loss_tol, grad_tol = (AMP_LOSS_RTOL, AMP_GRAD_RTOL) if amp else \
+        (LOSS_RTOL, GRAD_RTOL)
+    model = build_md_vae(batch_size=B, seed=0, device=dev, bf16=amp)
     batch = synth_batch(B, T, L, seed=0, device=dev)
     g = torch.Generator(device=dev).manual_seed(5)
     total = {k: 0 for k in launches()}
@@ -583,6 +782,13 @@ def run_training(dev, report, B=64, T=160, L=8):
                     check(sum(launches().values()) == 0,
                           "the plain training step hit a kernel")
                 restore(model, start)
+                if amp and name == "VAE":
+                    model.auto_mix_prec = False
+                    loss_f32, _ = model.fit_batch(batch, epoch, noise={
+                        k: v.float() if k == "pi_gumbel" else v
+                        for k, v in noise.items()})
+                    model.auto_mix_prec = True
+                    restore(model, start)
             weights, opt_states = snapshot(model)
             norm_count = float(model.normalizer.count)
             reset_launches()
@@ -609,8 +815,10 @@ def run_training(dev, report, B=64, T=160, L=8):
                    f"normalizer count +{d_norm:g}")
             check(np.isfinite(float(loss)) and
                   all(np.isfinite(list(vals.values()))), "non-finite loss")
-            check(counts == PER_TRAIN_STEP[name],
-                  f"{name} launch counts {counts} != {PER_TRAIN_STEP[name]}")
+            check(counts == per_step[name],
+                  f"{name} launch counts {counts} != {per_step[name]}")
+            check(f32_state(model), "a parameter, grad or optimizer state is "
+                  "not f32")
             check(moved == ACTIVE[name] and stepped == ACTIVE[name] and kept,
                   f"{name}: moved {sorted(moved)}, Adam stepped "
                   f"{sorted(stepped)}, inactive states kept {kept}; want "
@@ -627,15 +835,23 @@ def run_training(dev, report, B=64, T=160, L=8):
                             if ref_norms[mk] else abs(v)
                             for mk, v in norms.items()}
                 report(f"  against the plain versions: loss rel err "
-                       f"{loss_rel:.3e} (tol {LOSS_RTOL:g}); grad norm rel "
+                       f"{loss_rel:.3e} (tol {loss_tol:g}); grad norm rel "
                        "err " + ", ".join(f"{mk} {v:.3e}" for mk, v in
                                           norm_rel.items() if norms[mk])
-                       + f" (tol {GRAD_RTOL:g}); inactive grads zero "
+                       + f" (tol {grad_tol:g}); inactive grads zero "
                        f"{idle_zero}")
-                check(loss_rel <= LOSS_RTOL, "training loss disagrees")
+                check(loss_rel <= loss_tol, "training loss disagrees")
                 check(idle_zero, "an inactive module applied non-zero grads")
-                check(max(norm_rel.values()) <= GRAD_RTOL,
+                check(max(norm_rel.values()) <= grad_tol,
                       "training grads disagree")
+                if amp and name == "VAE":
+                    f32_rel = abs(float(loss) - float(loss_f32)) / abs(
+                        float(loss_f32))
+                    report(f"  against the f32 step from the same state and "
+                           f"draws: f32 loss {float(loss_f32):.6f}, rel err "
+                           f"{f32_rel:.3e} (tol {AMP_F32_RTOL:g})")
+                    check(f32_rel <= AMP_F32_RTOL,
+                          "the AMP loss is far from the f32 loss")
     report(f"  launches in the six training steps: {total}")
     return model, batch, first_noise, total
 
@@ -660,6 +876,43 @@ def lstm_bwd_bound(T, B, H):
                     + 2 * 4 * H * H)
     return max(flops / F32_PEAK, nbytes / MEM_BW) * 1e3, \
         "operations" if flops / F32_PEAK > nbytes / MEM_BW else "bytes"
+
+
+def _bound(flops, nbytes, peak):
+    t_o, t_b = flops / peak, nbytes / MEM_BW
+    return max(t_o, t_b) * 1e3, "operations" if t_o > t_b else "bytes"
+
+
+def fused_fwd_bound(T, B, In, H):
+    """One product over [x_t | h_{t-1}] per step at the bf16 tensor-core
+    peak, against x, hs (bf16), cs (f32), the bf16 weights and the bias
+    moved once."""
+    flops = 2.0 * B * 4 * H * (In + H) * T
+    nbytes = (2.0 * T * B * In + 2.0 * T * B * H + 4.0 * T * B * H
+              + 2.0 * 4 * H * (In + H) + 4.0 * 4 * H)
+    return _bound(flops, nbytes, BF16_PEAK)
+
+
+def fused_bwd_bound(T, B, In, H):
+    """Three products over In + H columns per step (the recompute; dX with
+    dh_{t-1}; dW_ih with dW_hh) against x, dX, hs, dhs (bf16), cs, dc_last,
+    the weights, the bias and the f32 dW_ih, db, dW_hh moved once."""
+    flops = 3 * 2.0 * B * 4 * H * (In + H) * T
+    nbytes = (2.0 * 2 * T * B * In + 2.0 * 2 * T * B * H + 4.0 * T * B * H
+              + 4.0 * B * H + 2.0 * 4 * H * (In + H) + 4.0 * 4 * H
+              + 4.0 * 4 * H * (In + H) + 4.0 * 4 * H)
+    return _bound(flops, nbytes, BF16_PEAK)
+
+
+def semi_bwd_bound(T, B, In, H):
+    """The recompute over In + H columns, dh_{t-1} and dW_hh over H, against
+    x, dgx, hs, dhs (bf16), cs, dc_last, the weights, the bias and the f32
+    dW_hh moved once."""
+    flops = 2.0 * B * 4 * H * (In + H) * T + 2 * 2.0 * B * 4 * H * H * T
+    nbytes = (2.0 * T * B * In + 2.0 * T * B * 4 * H + 2.0 * 2 * T * B * H
+              + 4.0 * T * B * H + 4.0 * B * H + 2.0 * 4 * H * (In + H)
+              + 4.0 * 4 * H + 4.0 * 4 * H * H)
+    return _bound(flops, nbytes, BF16_PEAK)
 
 
 def lattice_bound(prob):
@@ -794,7 +1047,77 @@ def time_all(dev, report, model, batch, noise, prob, errs, counts):
         "infer_b1_ms": infer_ms}
 
 
-def time_training(dev, report, model, batch, first_noise):
+def time_fused(dev, report, errs, counts):
+    """Each fused kernel at the AMP step's widths (T=160, B=64, H=512; In
+    128, 512, 1024 for the forward, 128 and 512 for K3-bwd, 1024 for
+    K4-bwd), its plain version and cuDNN's bf16 LSTM layer; the kernels
+    line reports K3/K4-fwd and K3-bwd at In=512, K4-bwd at In=1024."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    T, B, H = 160, 64, 512
+    g = torch.Generator(device=dev).manual_seed(31)
+    ms, plain, lib, lib_bwd = {}, {}, {}, {}
+    for In in (128, 512, 1024):
+        prob = fused_problem(g, dev, T, B, In, H)
+        ms[("fwd", In)] = cuda_ms(lambda: L.lstm_fused_fwd(*prob), iters=10)
+        cudnn = torch.nn.LSTM(In, H, 1).to(dev, torch.bfloat16)
+        cudnn.flatten_parameters()  # else cuDNN compacts them every call
+        with torch.no_grad():
+            lib[In] = cuda_ms(lambda: cudnn(prob[0]), iters=10)
+        xg = prob[0].clone().requires_grad_()
+        dy = torch.randn((T, B, H), generator=g, device=dev).to(
+            torch.bfloat16)
+        fwd_ms = cuda_ms(lambda: cudnn(xg), iters=10)
+        lib_bwd[In] = cuda_ms(lambda: cudnn(xg)[0].backward(dy),
+                              iters=10) - fwd_ms
+        if In == 512:
+            plain["fwd"] = cuda_ms(lambda: L.lstm_fused_fwd_ref(*prob),
+                                   iters=2, warmup=1)
+    for kind, name, In in (("bwd", "lstm_fused_bwd", 128),
+                           ("bwd", "lstm_fused_bwd", 512),
+                           ("semi", "lstm_semi_bwd", 1024)):
+        prob = fused_bwd_problem(g, dev, T, B, In, H, False)
+        fn, ref = getattr(L, name), getattr(L, name + "_ref")
+        ms[(kind, In)] = cuda_ms(lambda: fn(*prob), iters=10)
+        if In != 128:
+            plain[kind] = cuda_ms(lambda: ref(*prob), iters=2, warmup=1)
+    bounds = {("fwd", In): fused_fwd_bound(T, B, In, H)
+              for In in (128, 512, 1024)}
+    bounds.update({("bwd", In): fused_bwd_bound(T, B, In, H)
+                   for In in (128, 512)})
+    bounds[("semi", 1024)] = semi_bwd_bound(T, B, 1024, H)
+    names = {"fwd": "lstm_fused_fwd", "bwd": "lstm_fused_bwd",
+             "semi": "lstm_semi_bwd"}
+    for (kind, In), t in ms.items():
+        b_ms, b_by = bounds[(kind, In)]
+        yard = (f"forward incl. input projection {lib[In]:.4f}"
+                if kind == "fwd" else "forward+backward less forward, incl. "
+                f"dX and dW_ih {lib_bwd[In]:.4f}")
+        report(f"  {names[kind]} In={In}: {t:.4f} ms (bound {b_ms:.4f} by "
+               f"{b_by}; cuDNN bf16 LSTM layer {yard})")
+    report(f"  plain versions: lstm_fused_fwd In=512 {plain['fwd']:.4f} ms, "
+           f"lstm_fused_bwd In=512 {plain['bwd']:.4f} ms, lstm_semi_bwd "
+           f"In=1024 {plain['semi']:.4f} ms")
+    rows = (("lstm_fused_fwd", "fwd", 512, "lstm_fused_fwd.cu", 347,
+             lib[512]),
+            ("lstm_fused_bwd", "bwd", 512, "lstm_fused_bwd.cu", 371,
+             lib_bwd[512]),
+            ("lstm_semi_bwd", "semi", 1024, "lstm_semi_bwd.cu", 519,
+             lib_bwd[1024]))
+    out = []
+    for name, kind, In, src, line, yard in rows:
+        b_ms, b_by = bounds[(kind, In)]
+        out.append(dict(
+            name=name, route="cuda", source=f"mlvae_tpu_torch/csrc/{src}",
+            replaces=f"mlvae_tpu/ops/lstm_pallas.py:{line}",
+            max_abs_err=errs[name], ms=ms[(kind, In)], plain_ms=plain[kind],
+            bound_ms=b_ms, bound_by=b_by, library_ms=yard, shape_in=In,
+            ms_by_in={i: t for (k, i), t in ms.items() if k == kind},
+            **counts[name]))
+    return out
+
+
+def time_training(dev, report, model, batch, first_noise, label="f32"):
     """Train-step time per target (host clock around synchronised steps,
     each step continuing the training), and a profile of one VAE step."""
     B, T = batch["feat"][0].shape[:2]
@@ -804,10 +1127,31 @@ def time_training(dev, report, model, batch, first_noise):
             model.fit_batch(batch, epoch, noise=first_noise[name])
         ms = cuda_ms(fit, iters=5, warmup=1)
         out[name] = {"ms": ms, "utt_sec_per_sec": B * T * HOP_SEC / (ms / 1e3)}
-        report(f"  train step {name} B={B} T={T}: {ms:.3f} ms "
+        report(f"  {label} train step {name} B={B} T={T}: {ms:.3f} ms "
                f"({out[name]['utt_sec_per_sec']:.1f} utt-sec/sec)")
     profile_step(lambda: model.fit_batch(batch, 3, noise=first_noise["VAE"]),
-                 "VAE train step", report)
+                 f"{label} VAE train step", report)
+    return out
+
+
+def time_amp_vae(dev, report, B=256, T=160, L=8):
+    """The AMP VAE train step at the JAX bench's shape (B=256, T=160)."""
+    import torch
+    from mlvae_tpu_torch.bench_utils import build_md_vae, synth_batch
+    from mlvae_tpu_torch.training.brain import Stage
+    torch.cuda.reset_peak_memory_stats()
+    model = build_md_vae(batch_size=B, seed=0, device=dev, bf16=True)
+    batch = synth_batch(B, T, L, seed=0, device=dev)
+    model.on_stage_start(Stage.TRAIN, 3)
+    noise = train_noise(model, B, T, dev,
+                        torch.Generator(device=dev).manual_seed(6))
+    ms = cuda_ms(lambda: model.fit_batch(batch, 3, noise=noise), iters=5,
+                 warmup=1)
+    out = {"ms": ms, "utt_sec_per_sec": B * T * HOP_SEC / (ms / 1e3),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    report(f"  AMP train step VAE B={B} T={T}: {ms:.3f} ms "
+           f"({out['utt_sec_per_sec']:.1f} utt-sec/sec); peak memory "
+           f"{out['peak_mem_gib']:.2f} GiB")
     return out
 
 
@@ -892,6 +1236,9 @@ def main(argv=None) -> int:
                                            args.lstm_bwd_repeats))
     prob, errs_viterbi = check_viterbi(dev, report)
     errs.update(errs_viterbi)
+    errs["lstm_fused_fwd"] = check_fused_fwd(dev, report)
+    errs.update(check_fused_bwd(dev, report))
+    stress_fused(dev, report, FUSED_REPEATS)
 
     report("phase 3 MD_VAE TEST eval step at full width (H=512, B=64, "
            "T=160, L=8)")
@@ -900,10 +1247,17 @@ def main(argv=None) -> int:
            "T=160, L=8), two steps per target")
     train_model, train_batch, first_noise, train_counts = run_training(
         dev, report)
-    # the main path's launches: the eval forward's and the six train steps'
-    counts = {k: {"launches": eval_counts[k] + train_counts[k],
+    report("phase 3 MD_VAE AMP (bf16) training step at full width (H=512, "
+           "B=64, T=160, L=8), two steps per target")
+    amp_model, amp_batch, amp_noise, amp_counts = run_training(
+        dev, report, amp=True)
+    # the main path's launches: the eval forward's, the six f32 train
+    # steps' and the six AMP train steps'
+    counts = {k: {"launches": eval_counts[k] + train_counts[k]
+                  + amp_counts[k],
                   "launches_eval_step": eval_counts[k],
-                  "launches_training": train_counts[k]}
+                  "launches_training": train_counts[k],
+                  "launches_amp_training": amp_counts[k]}
               for k in eval_counts}
     check(all(c["launches"] > 0 for c in counts.values()),
           f"a kernel of the path never launched: {counts}")
@@ -912,10 +1266,16 @@ def main(argv=None) -> int:
     kernels, step = time_all(dev, report, model, batch, noise, prob, errs,
                              counts)
     del model
+    kernels += time_fused(dev, report, errs, counts)
     train_step = time_training(dev, report, train_model, train_batch,
                                first_noise)
+    del train_model
+    amp_step = time_training(dev, report, amp_model, amp_batch, amp_noise,
+                             label="AMP")
+    del amp_model
+    amp_step["VAE_B256"] = time_amp_vae(dev, report)
     report(json.dumps({"kernels": kernels, "eval_step": step,
-                       "train_step": train_step}))
+                       "train_step": train_step, "amp_train_step": amp_step}))
     report(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface under ``mlvae_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of its source and flags so that an edited
-source is never served from a stale build. The libraries are loaded with
+``.gitignore``), named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so that an edited source is never served
+from a stale build. The libraries are loaded with
 ``ctypes``; every entry point returns a ``cudaError_t`` and :class:`Kernel`
 raises when it is not 0.
 
@@ -28,7 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the decode must round exactly like its plain version: no FMA contraction
 EXTRA_FLAGS = {"md_viterbi": ["-fmad=false"]}
-SOURCES = ("lstm_fwd", "lstm_bwd", "md_viterbi")
+SOURCES = ("lstm_fwd", "lstm_bwd", "md_viterbi", "lstm_fused_fwd",
+           "lstm_fused_bwd", "lstm_semi_bwd")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds to build, ptxas report) for the builds this process ran
@@ -50,6 +52,7 @@ def _flags(name: str) -> List[str]:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -58,15 +58,18 @@ RECIPE = {
 
 
 def build_md_vae(batch_size: int = 8, overrides=None, seed: int = 0,
-                 device=None) -> MDVAE:
+                 device=None, bf16: bool = False) -> MDVAE:
     """MD_VAE at the recipe's widths with weights drawn from ``seed`` on
-    ``device`` (None means CUDA), its optimizer states initialised."""
+    ``device`` (None means CUDA), its optimizer states initialised.
+    ``bf16`` turns AMP on for the training step, as the JAX bench's
+    default ``--bf16`` does (``bench.py``); the eval step stays f32."""
     dev = resolve_device(device)
     hparams = dict(RECIPE, batch_size=batch_size)
     hparams.update(overrides or {})
     hparams.setdefault("optimizer", Adam(lr=hparams["lr"]))
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    model = MDVAE(hparams, generator=gen).to(dev).eval()
+    model = MDVAE(hparams, generator=gen, run_opts={"bf16": bf16}).to(
+        dev).eval()
     model.init_optimizers()
     return model
 

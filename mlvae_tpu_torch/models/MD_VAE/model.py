@@ -20,6 +20,14 @@ components); the VAE target's training step draws ``kumaraswamy_u``, the
 encoder draws and the ``decoder_dropout`` keep-mask (T, B, 2H); the
 B_DETECTOR target draws only ``kumaraswamy_u`` and PHN_RECOG nothing. Pass
 them in ``noise`` to replay a run, or a ``torch.Generator`` to draw them.
+Every draw is f32 but ``pi_gumbel`` under AMP, which
+``jax.random.categorical`` draws in the bf16 logits' dtype.
+
+Under AMP (``Brain.auto_mix_prec``) the forward sees bf16 weights and a
+bf16 batch; each module keeps the stream dtype where the JAX module does
+(linears, activations, dropout, the LSTMs, the mixtures) and casts to f32
+where it does (the distribution math of ``nn/dist.py``, the decode's
+inputs). ``batch["prior"]`` reaches the decode as bf16.
 """
 from __future__ import annotations
 
@@ -64,8 +72,9 @@ class MDVAE(MDModel):
     })
 
     def __init__(self, hparams: Dict,
-                 generator: Optional[torch.Generator] = None, device=None):
-        super().__init__(hparams)
+                 generator: Optional[torch.Generator] = None, device=None,
+                 run_opts: Optional[Dict] = None):
+        super().__init__(hparams, run_opts)
         self.target = Target.TEST
         h = self.hparams
         kw = dict(generator=generator, device=device)
@@ -114,29 +123,36 @@ class MDVAE(MDModel):
             raise ValueError(f"invalid stage {stage}")
 
     def draws(self, B: int, T: int, train: bool = False
-              ) -> List[Tuple[str, str, tuple, Optional[float]]]:
+              ) -> List[Tuple[str, str, tuple, Optional[float],
+                              torch.dtype]]:
         """The draws of one forward under the current target, in the JAX
         package's RngStream order: (name, kind, shape, keep probability
-        for a ``bernoulli`` keep-mask). Kinds are ``uniform``,
+        for a ``bernoulli`` keep-mask, dtype). Kinds are ``uniform``,
         ``bernoulli``, ``gumbel`` and ``normal``; names that repeat (one
-        dropout mask per gap between layers) are replayed as a list."""
+        dropout mask per gap between layers) are replayed as a list. The
+        dtype is f32 but for ``pi_gumbel`` under AMP (bf16)."""
         h, t = self.hparams, self.target
         lat, nc = h["latent_size"], h["num_components"]
+        f32 = torch.float32
+        pi_dtype = torch.bfloat16 if self.auto_mix_prec else f32
         out = []
         if t in (Target.B_DETECTOR, Target.VAE, Target.TEST):
             out.append(("kumaraswamy_u", "uniform",
-                        (BoundaryDetector.SAMPLE_TIMES, B, T), None))
+                        (BoundaryDetector.SAMPLE_TIMES, B, T), None, f32))
         if t in (Target.VAE, Target.TEST):
             if train:
-                out += [("rnn_dropout", "bernoulli", s, 1.0 - self.rnn.dropout)
+                out += [("rnn_dropout", "bernoulli", s,
+                         1.0 - self.rnn.dropout, f32)
                         for s in self.rnn.dropout_shapes(B, T)]
-                out.append(("pi_gumbel", "gumbel", (B, T, 2), None))
-            out += [("vanilla_eps", "normal", (B, T, lat), None),
-                    ("gumbel_g", "gumbel", (B, T, nc), None),
-                    ("gmm_eps", "normal", (B, T, lat * nc), None)]
+                out.append(("pi_gumbel", "gumbel", (B, T, 2), None,
+                            pi_dtype))
+            out += [("vanilla_eps", "normal", (B, T, lat), None, f32),
+                    ("gumbel_g", "gumbel", (B, T, nc), None, f32),
+                    ("gmm_eps", "normal", (B, T, lat * nc), None, f32)]
             if train:
                 drop = self.decoder.rnn
-                out += [("decoder_dropout", "bernoulli", s, 1.0 - drop.dropout)
+                out += [("decoder_dropout", "bernoulli", s,
+                         1.0 - drop.dropout, f32)
                         for s in drop.dropout_shapes(B, T)]
         return out
 
@@ -171,14 +187,16 @@ class MDVAE(MDModel):
         plvl_cnnl, plvl_lens = batch["gt_cnncl_seq"]
         t_lens = abs_lengths(batch["feat"][1], T)
         l_lens = abs_lengths(plvl_lens, plvl_cnnl.shape[1])
-        # the decode sees stop-gradded inputs; its outputs are labels
-        log_p_yx, log_p_y, log_p_b, log_p_pi = dec.build_viterbi_inputs(
-            phn_out.detach(), predictions["boundary_v"].detach(),
-            predictions["pi_logits"].detach(), batch["prior"][0][0])
+        # the decode sees stop-gradded inputs, built in their streams' dtype
+        # and then cast to f32 as the JAX decode casts them; its outputs
+        # are labels
+        log_p_yx, log_p_y, log_p_b, log_p_pi = (
+            v.float().contiguous() for v in dec.build_viterbi_inputs(
+                phn_out.detach(), predictions["boundary_v"].detach(),
+                predictions["pi_logits"].detach(), batch["prior"][0][0]))
         boundary, flvl, plvl = dec.md_viterbi_batch(
-            log_p_yx.contiguous(), log_p_y.contiguous(),
-            plvl_cnnl.to(torch.int32), log_p_b.contiguous(),
-            log_p_pi.contiguous(), t_lens, l_lens,
+            log_p_yx, log_p_y, plvl_cnnl.to(torch.int32), log_p_b,
+            log_p_pi, t_lens, l_lens,
             float(self.hparams.get("dec_weight", 1.0)))
         return boundary, flvl, plvl, t_lens, l_lens
 

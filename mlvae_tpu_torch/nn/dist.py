@@ -1,7 +1,9 @@
 """Distribution math for the VAE family (counterpart of
 ``mlvae_tpu/nn/dist.py``).
 
-The math runs in f32 whatever the activations' dtype. Every sampler takes
+The math runs in f32 whatever the activations' dtype, except the
+categorical sample, which ``jax.random.categorical`` takes in the logits'
+dtype (bf16 under AMP). Every sampler takes
 its noise explicitly (``u``, ``g`` or ``eps``: the raw draw, as
 ``jax.random.uniform`` / ``gumbel`` / ``normal`` would give it) or draws it
 from an optional ``torch.Generator``, so a test can replay the JAX draws.
@@ -26,10 +28,16 @@ def _noise(noise, shape, device, sampler, generator):
     return sampler(shape, device=device, generator=generator)
 
 
-def gumbel_noise(shape, device=None, generator=None):
-    u = torch.rand(shape, device=device, generator=generator)
-    tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+def gumbel_noise(shape, device=None, generator=None,
+                 dtype=torch.float32):
+    """Standard Gumbel noise, -log(-log(u)) computed in ``dtype``, with u
+    drawn as ``jax.random.gumbel`` draws it: on the dtype's grid of eps
+    (2^-7 for bf16) in [tiny, 1). An f32 uniform rounded to bf16 would
+    reach 1.0 and give +inf; floored to the grid it never does."""
+    fi = torch.finfo(dtype)
+    u = torch.floor(torch.rand(shape, device=device, generator=generator)
+                    / fi.eps) * fi.eps
+    return -torch.log(-torch.log(torch.clamp(u.to(dtype), min=fi.tiny)))
 
 
 # -- Gaussian ---------------------------------------------------------------
@@ -136,10 +144,16 @@ def categorical_sample(logits, g: Optional[torch.Tensor] = None,
                        generator: Optional[torch.Generator] = None):
     """One draw per row of Categorical(logits) by the Gumbel-max trick:
     ``argmax(g + logits)`` over the last axis, ``g`` the raw Gumbel noise
-    of ``logits``' shape (as ``jax.random.categorical`` draws it)."""
-    logits = logits.float()
-    g = _noise(g, logits.shape, logits.device, gumbel_noise, generator)
-    return torch.argmax(g + logits, dim=-1)
+    of ``logits``' shape. As ``jax.random.categorical``, the noise and the
+    sum are in the logits' dtype: bf16 logits take bf16 noise."""
+    if g is None:
+        g = gumbel_noise(logits.shape, device=logits.device,
+                         generator=generator, dtype=logits.dtype)
+    elif tuple(g.shape) != tuple(logits.shape):
+        raise ValueError(f"noise shape {tuple(g.shape)} != "
+                         f"{tuple(logits.shape)}")
+    return torch.argmax(g.to(device=logits.device, dtype=logits.dtype)
+                        + logits, dim=-1)
 
 
 def categorical_log_prob(logits, value):

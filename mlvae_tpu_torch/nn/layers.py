@@ -16,7 +16,10 @@ from torch import nn
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01):
-    return F.leaky_relu(x, negative_slope)
+    """The slope is taken in x's dtype (bf16(0.01) under AMP), as the JAX
+    package's weakly typed ``negative_slope * x`` takes it."""
+    slope = float(torch.tensor(negative_slope, dtype=x.dtype))
+    return F.leaky_relu(x, slope)
 
 
 def softplus(x: torch.Tensor):
@@ -30,7 +33,9 @@ def uniform_(t: torch.Tensor, bound: float,
 
 
 class Linear(nn.Module):
-    """y = x @ W^T + b."""
+    """y = x @ W^T + b. In bf16 the product is rounded to x's dtype before
+    the bias is added, as the JAX package's einsum-then-add rounds; f32
+    takes one fused ``F.linear``."""
 
     def __init__(self, in_size: int, out_size: int, bias: bool = True,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -43,7 +48,10 @@ class Linear(nn.Module):
             if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        if x.dtype == torch.float32:
+            return F.linear(x, self.weight, self.bias)
+        y = torch.matmul(x, self.weight.t())
+        return y if self.bias is None else y + self.bias
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
@@ -51,7 +59,9 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverted dropout (scale by 1/(1-p) while training). ``mask`` is the
     keep-mask of ``x``'s shape (as ``jax.random.bernoulli(key, 1-p, shape)``
-    gives it); without one it is drawn from ``generator``."""
+    gives it); without one it is drawn from ``generator``. The keep
+    probability is taken in x's dtype, as the JAX package's ``x / keep``
+    takes it (bf16(0.85) = 0.8515625 under AMP)."""
     if not train or rate <= 0.0:
         return x
     keep = 1.0 - rate
@@ -60,5 +70,7 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     elif tuple(mask.shape) != tuple(x.shape):
         raise ValueError(f"dropout mask shape {tuple(mask.shape)} != "
                          f"{tuple(x.shape)}")
-    return torch.where(mask.to(device=x.device, dtype=torch.bool), x / keep,
+    keep_x = float(torch.tensor(keep, dtype=x.dtype))
+    return torch.where(mask.to(device=x.device, dtype=torch.bool),
+                       x / keep_x,
                        torch.zeros((), dtype=x.dtype, device=x.device))

@@ -4,16 +4,32 @@
 Parameters carry ``torch.nn.LSTM``'s names and layouts
 (``weight_ih_l{k}[_reverse]`` (4H, In), ``weight_hh_l{k}[_reverse]``
 (4H, H), ``bias_ih_...``, ``bias_hh_...``) and the gate order i, f, g, o.
-The initial state is zero. The input projection of every time step is one
-``torch.matmul`` outside the recurrence, as the JAX package leaves it to
-XLA; the recurrence itself is ``ops.lstm.LSTMRecurrence`` (kernel K1-fwd
-forward and K1-bwd backward on the card), so autograd gives dX, dW_ih and
-the biases from its dgx as XLA does from the Pallas kernel's. The stack
-runs time-major, with one transpose in and one out. A bidirectional layer
-outputs ``[fwd, bwd]``; the reverse direction is indexing inside the
-recurrence, never a flip. Dropout applies between layers and only while
-training, with one time-major (T, B, D*H) keep-mask per gap, the shape the
-JAX module draws.
+The initial state is zero. Each layer takes the kernel tier the JAX
+package's ``_lstm_layer`` picks (``mlvae_tpu/nn/rnn.py:150-223``):
+
+- an f32 stream takes K1: the input projection of every time step is one
+  ``torch.matmul`` outside the recurrence, as the JAX package leaves it to
+  XLA, and the recurrence is ``ops.lstm.LSTMRecurrence`` (K1-fwd forward,
+  K1-bwd backward on the card), so autograd gives dX, dW_ih and the
+  biases from its dgx as XLA does from the Pallas kernel's;
+- a bf16 stream (AMP) takes the fused input projection:
+  ``ops.lstm.LSTMFused`` (K3) where ``fused_eligible`` holds for the input
+  width padded to a multiple of 128, else ``LSTMSemiFused`` (K4) where
+  ``semifused_eligible`` does. x and W_ih are zero-padded to that width
+  exactly where the JAX package pads (the pad's backward slices dW_ih
+  back), the bias is ``b_ih + b_hh`` summed in the stream dtype and then
+  cast to f32, W_hh is cast to the stream dtype, and hs and the final
+  states come back in it. A bf16 layer that neither predicate admits is
+  refused. The JAX package also leaves the kernels for a bf16-carry
+  ``lax.scan`` when B is not a multiple of 16 (``_pallas_eligible``): that
+  is a TPU tiling limit, not semantics, and the port keeps its kernels for
+  every B.
+
+The stack runs time-major, with one transpose in and one out. A
+bidirectional layer outputs ``[fwd, bwd]``; the reverse direction is
+indexing inside the recurrence, never a flip. Dropout applies between
+layers and only while training, with one time-major (T, B, D*H) keep-mask
+per gap, the shape the JAX module draws.
 """
 from __future__ import annotations
 
@@ -21,10 +37,33 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mlvae_tpu_torch.nn.layers import dropout, uniform_
-from mlvae_tpu_torch.ops.lstm import LSTMRecurrence
+from mlvae_tpu_torch.ops.lstm import (LSTMFused, LSTMRecurrence,
+                                      LSTMSemiFused, fused_eligible,
+                                      semifused_eligible)
+
+LANE = 128   # the JAX package pads the fused kernels' input width to this
+
+
+def fused_tier(In: int, H: int, dtype):
+    """The fused kernel a ``dtype`` stream of input width ``In`` takes
+    (``LSTMFused`` or ``LSTMSemiFused``), or None for K1. Only bf16 streams
+    take one, as the JAX package's default ``MLVAE_PALLAS_FUSED=auto``
+    does."""
+    if dtype != torch.bfloat16:
+        return None
+    In_pad = -(-In // LANE) * LANE
+    if fused_eligible(In_pad, H, dtype):
+        return LSTMFused
+    if semifused_eligible(In_pad, H, dtype):
+        return LSTMSemiFused
+    raise NotImplementedError(
+        f"a bf16 LSTM layer of input width {In} and H={H} is outside both "
+        "fused tiers (In and H multiples of 128 within the budget); the "
+        "port has no bf16 K1 path")
 
 
 class LSTM(nn.Module):
@@ -71,6 +110,21 @@ class LSTM(nn.Module):
         b_hh = getattr(self, f"bias_hh_{sfx}")
         return gx + (b_ih + b_hh) if folded else gx + b_ih + b_hh
 
+    def _fused(self, x: torch.Tensor, sfx: str, tier, reverse: bool):
+        """One layer direction through a fused tier: x (T, B, In) bf16 ->
+        (hs (T, B, H), c_last (B, H) f32)."""
+        w_ih = getattr(self, f"weight_ih_{sfx}")
+        w_hh = getattr(self, f"weight_hh_{sfx}")
+        bias = (getattr(self, f"bias_ih_{sfx}")
+                + getattr(self, f"bias_hh_{sfx}"))
+        pad = -x.shape[-1] % LANE
+        if pad:
+            x = F.pad(x, (0, pad))
+            w_ih = F.pad(w_ih, (0, pad))
+        return tier.apply(x.contiguous(), w_ih.to(x.dtype).contiguous(),
+                          bias.float(), w_hh.to(x.dtype).contiguous(),
+                          reverse)
+
     def dropout_shapes(self, B: int, T: int):
         """The keep-masks one training forward draws, in order: one
         (T, B, D*H) mask per gap between layers, none without dropout."""
@@ -87,10 +141,15 @@ class LSTM(nn.Module):
         last_h, last_c = [], []
         for layer in range(self.num_layers):
             outs = []
+            tier = fused_tier(out.shape[-1], self.hidden_size, out.dtype)
             for d, sfx in enumerate(self._suffixes(layer)):
-                gx = self._gates(out, sfx, folded=self.bidirectional)
-                hs, c_last = LSTMRecurrence.apply(
-                    gx.contiguous(), getattr(self, f"weight_hh_{sfx}"), d == 1)
+                if tier is not None:
+                    hs, c_last = self._fused(out, sfx, tier, d == 1)
+                else:
+                    gx = self._gates(out, sfx, folded=self.bidirectional)
+                    hs, c_last = LSTMRecurrence.apply(
+                        gx.contiguous(), getattr(self, f"weight_hh_{sfx}"),
+                        d == 1)
                 # final state after the last PROCESSED step (t=0 reversed)
                 last_h.append(hs[0] if d == 1 else hs[-1])
                 last_c.append(c_last.to(x.dtype))

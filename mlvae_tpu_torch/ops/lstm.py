@@ -1,17 +1,29 @@
-"""LSTM recurrence over precomputed gates: kernels K1-fwd and K1-bwd, their
-plain PyTorch versions, and the autograd seam between them.
+"""LSTM recurrence kernels, their plain PyTorch versions, and the autograd
+seams between them.
 
-Counterpart of ``mlvae_tpu/ops/lstm_pallas.py`` ``_run_fwd``, ``_run_bwd``
-and the ``lstm_layer`` custom VJP: the input projection ``x @ W_ih^T + b``
-stays outside (a plain ``torch.matmul``), and the recurrence
-``gates = gx[t] + h_{t-1} @ W_hh^T`` in torch gate order (i, f, g, o) runs
-here with zero initial state and f32 carries. ``reverse`` processes
-t = T-1 .. 0 by indexing; outputs stay in natural time order.
+Two families, as in ``mlvae_tpu/ops/lstm_pallas.py``:
 
-``lstm_layer_fwd`` and ``lstm_layer_bwd`` run the CUDA kernels
-(``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``) for CUDA tensors and the plain
-versions ``lstm_layer_ref`` and ``lstm_layer_bwd_ref`` for CPU tensors
-only. ``LSTMRecurrence`` joins them as one differentiable function.
+- **Over precomputed gates** (K1-fwd, K1-bwd; ``_run_fwd``, ``_run_bwd``
+  and the ``lstm_layer`` custom VJP), the f32 path: the input projection
+  ``x @ W_ih^T + b`` stays outside (a plain ``torch.matmul``), and the
+  recurrence ``gates = gx[t] + h_{t-1} @ W_hh^T`` runs here.
+  ``lstm_layer_fwd`` / ``lstm_layer_bwd`` run ``csrc/lstm_fwd.cu`` /
+  ``csrc/lstm_bwd.cu`` for CUDA tensors and ``lstm_layer_ref`` /
+  ``lstm_layer_bwd_ref`` for CPU tensors only; ``LSTMRecurrence`` joins
+  them.
+- **Fused input projection** (K3/K4-fwd, K3-bwd, K4-bwd;
+  ``_run_fwd_fused``, ``_run_bwd_fused``, ``_run_bwd_semi`` and the
+  ``lstm_layer_fused`` / ``lstm_layer_semifused`` custom VJPs), the bf16
+  (AMP) path: ``x @ W_ih^T + bias`` is formed inside the recurrence, so
+  the (T, B, 4H) gates never reach memory. ``lstm_fused_fwd``,
+  ``lstm_fused_bwd`` and ``lstm_semi_bwd`` run ``csrc/lstm_fused_fwd.cu``,
+  ``csrc/lstm_fused_bwd.cu`` and ``csrc/lstm_semi_bwd.cu`` for CUDA
+  tensors (bf16 streams only) and the ``*_ref`` plain versions for CPU
+  tensors only; ``LSTMFused`` and ``LSTMSemiFused`` join them.
+
+All run in torch gate order (i, f, g, o) with zero initial state and f32
+carries. ``reverse`` processes t = T-1 .. 0 by indexing; outputs stay in
+natural time order.
 """
 from __future__ import annotations
 
@@ -30,6 +42,15 @@ LSTM_FWD = _build.register(_build.Kernel(
 LSTM_BWD = _build.register(_build.Kernel(
     "lstm_bwd", "lstm_bwd", "mlvae_lstm_bwd",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]))
+LSTM_FUSED_FWD = _build.register(_build.Kernel(
+    "lstm_fused_fwd", "lstm_fused_fwd", "mlvae_lstm_fused_fwd",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]))
+LSTM_FUSED_BWD = _build.register(_build.Kernel(
+    "lstm_fused_bwd", "lstm_fused_bwd", "mlvae_lstm_fused_bwd",
+    [_P] * 15 + [_I, _I, _I, _I, _I, _P]))
+LSTM_SEMI_BWD = _build.register(_build.Kernel(
+    "lstm_semi_bwd", "lstm_semi_bwd", "mlvae_lstm_semi_bwd",
+    [_P] * 12 + [_I, _I, _I, _I, _I, _P]))
 
 
 def _gate_acts(gates: torch.Tensor, H: int):
@@ -37,6 +58,21 @@ def _gate_acts(gates: torch.Tensor, H: int):
             torch.sigmoid(gates[:, 1 * H:2 * H]),
             torch.tanh(gates[:, 2 * H:3 * H]),
             torch.sigmoid(gates[:, 3 * H:4 * H]))
+
+
+def _bptt_dgates(gates, c_t, c_prev, dh, dc, H: int):
+    """One BPTT step (``_bptt_dgates`` of the JAX package): f32
+    pre-activation cotangents (B, 4H) and the cell cotangent carried to the
+    previous step, from the recomputed gates and the saved cells."""
+    i, f, g, o = _gate_acts(gates, H)
+    tanh_c = torch.tanh(c_t)
+    d_o = dh * tanh_c
+    dc = dc + dh * o * (1.0 - tanh_c * tanh_c)
+    dgates = torch.cat([dc * g * i * (1.0 - i),
+                        dc * c_prev * f * (1.0 - f),
+                        dc * i * (1.0 - g * g),
+                        d_o * o * (1.0 - o)], dim=1)
+    return dgates, dc * f
 
 
 def lstm_layer_ref(gx: torch.Tensor, w_hh: torch.Tensor,
@@ -83,16 +119,9 @@ def lstm_layer_bwd_ref(gx: torch.Tensor, w_hh: torch.Tensor,
         tp = t + 1 if reverse else t - 1     # previous processed position
         h_prev = zeros if s == 0 else hs[tp].float()
         c_prev = zeros if s == 0 else cs[tp].float()
-        i, f, g, o = _gate_acts(gx[t].float() + h_prev @ w_t, H)
         dh = dhs[t].float() + dh
-        tanh_c = torch.tanh(cs[t].float())
-        d_o = dh * tanh_c
-        dc = dc + dh * o * (1.0 - tanh_c * tanh_c)
-        dgates = torch.cat([dc * g * i * (1.0 - i),
-                            dc * c_prev * f * (1.0 - f),
-                            dc * i * (1.0 - g * g),
-                            d_o * o * (1.0 - o)], dim=1)
-        dc = dc * f
+        dgates, dc = _bptt_dgates(gx[t].float() + h_prev @ w_t,
+                                  cs[t].float(), c_prev, dh, dc, H)
         dgx[t] = dgates.to(dgx.dtype)
         dh = dgates @ w
         dw += dgates.t() @ h_prev
@@ -108,8 +137,8 @@ def _check_cuda_f32(name: str, tensors) -> None:
     if any(x.dtype != torch.float32 for x in tensors):
         raise NotImplementedError(
             f"{name}: the kernel takes f32 only (got "
-            f"{sorted({str(x.dtype) for x in tensors})}); bf16 streams come "
-            "with the AMP training slice")
+            f"{sorted({str(x.dtype) for x in tensors})}); bf16 layers take "
+            "the fused kernels (LSTMFused, LSTMSemiFused)")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name}: every tensor must be contiguous")
 
@@ -212,3 +241,316 @@ class LSTMRecurrence(torch.autograd.Function):
         dgx, dw = lstm_layer_bwd(gx, w_hh, hs, cs, dhs, dc_last,
                                  ctx.reverse)
         return dgx, dw.to(w_hh.dtype), None
+
+
+# ---------------------------------------------------------------------------
+# Fused input projection (K3/K4-fwd, K3-bwd, K4-bwd): the bf16 (AMP) path
+# ---------------------------------------------------------------------------
+
+# The JAX package's scoped-VMEM budget for the fused backward's residents
+# (``FUSED_RESIDENT_BUDGET`` of ``lstm_pallas.py``): a TPU limit, not an H100
+# one. It is kept so that every layer takes the same tier (fused, semi-fused)
+# in both packages; choosing the tiers by H100 measurement is later work.
+FUSED_RESIDENT_BUDGET = 13 * 1024 * 1024
+
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def fused_eligible(In: int, H: int, dtype) -> bool:
+    """The JAX package's predicate for the fully fused tier (K3): In and H
+    multiples of 128, and W_ih, W_hh in ``dtype`` with their f32 grads
+    within the budget."""
+    if In % 128 or H % 128:
+        return False
+    resident = (In + H) * 4 * H * _itemsize(dtype) + (In + H) * 4 * H * 4
+    return resident <= FUSED_RESIDENT_BUDGET
+
+
+def semifused_eligible(In: int, H: int, dtype) -> bool:
+    """The half-fused tier (K4): as ``fused_eligible`` without the f32
+    dW_ih accumulator."""
+    if In % 128 or H % 128:
+        return False
+    resident = (In + H) * 4 * H * _itemsize(dtype) + H * 4 * H * 4
+    return resident <= FUSED_RESIDENT_BUDGET
+
+
+def lstm_fused_fwd_ref(x: torch.Tensor, w_ih: torch.Tensor,
+                       bias: torch.Tensor, w_hh: torch.Tensor,
+                       reverse: bool = False):
+    """Plain fused recurrence (the work of K3/K4-fwd): x (T, B, In), w_ih
+    (4H, In), bias (4H,) f32, w_hh (4H, H) -> (hs (T, B, H) in x's dtype,
+    cs (T, B, H) f32). Products take the weights' dtype as operands and
+    sum in f32 (a bf16 value times a bf16 value is exact in f32, so the
+    operands are upcast); h_{t-1} is rounded to the weights' dtype before
+    the recurrent product, c stays f32."""
+    T, B, _ = x.shape
+    H = w_hh.shape[1]
+    xp = x.float() @ w_ih.float().t() + bias.float()     # (T, B, 4H) f32
+    w_t = w_hh.float().t()
+    h = x.new_zeros((B, H), dtype=torch.float32)
+    c = torch.zeros_like(h)
+    hs = x.new_empty((T, B, H))
+    cs = x.new_empty((T, B, H), dtype=torch.float32)
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        i, f, g, o = _gate_acts(xp[t] + h.to(w_hh.dtype).float() @ w_t, H)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs[t] = h.to(hs.dtype)
+        cs[t] = c
+    return hs, cs
+
+
+def _fused_bptt(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last, reverse,
+                semi: bool):
+    """The backward walk shared by K3-bwd and K4-bwd's plain versions:
+    gates recomputed from x and the saved hs (h_{t-1} = c_{t-1} = 0 at the
+    first processed step), dgates rounded to the weights' dtype for every
+    product. Returns (dX, dW_ih, db, dW_hh) or, ``semi``, (dgx, dW_hh)."""
+    T, B, In = x.shape
+    H = w_hh.shape[1]
+    G = 4 * H
+    wd = w_hh.dtype
+    wi, wh = w_ih.float(), w_hh.float()
+    xp = x.float() @ wi.t() + bias.float()
+    out = x.new_empty((T, B, G) if semi else (T, B, In))
+    dwih = x.new_zeros((G, In), dtype=torch.float32)
+    db = x.new_zeros((G,), dtype=torch.float32)
+    dwhh = x.new_zeros((G, H), dtype=torch.float32)
+    dh = x.new_zeros((B, H), dtype=torch.float32)
+    dc = dc_last.float().clone()
+    zeros = torch.zeros_like(dh)
+    for s in range(T - 1, -1, -1):
+        t = T - 1 - s if reverse else s
+        tp = t + 1 if reverse else t - 1
+        h_prev = zeros if s == 0 else hs[tp].to(wd).float()
+        c_prev = zeros if s == 0 else cs[tp].float()
+        dh = dhs[t].float() + dh
+        dgates, dc = _bptt_dgates(xp[t] + h_prev @ wh.t(), cs[t].float(),
+                                  c_prev, dh, dc, H)
+        dg_w = dgates.to(wd).float()
+        if semi:
+            out[t] = dgates.to(out.dtype)
+        else:
+            out[t] = (dg_w @ wi).to(out.dtype)
+            dwih += dg_w.t() @ x[t].float()
+            db += dgates.sum(0)
+        dh = dg_w @ wh
+        dwhh += dg_w.t() @ h_prev
+    return (out, dwhh) if semi else (out, dwih, db, dwhh)
+
+
+def lstm_fused_bwd_ref(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last,
+                       reverse: bool = False):
+    """Plain fused BPTT (the work of K3-bwd): the forward's inputs, its
+    saved hs (x's dtype) and cs (f32), the cotangents dhs (T, B, H) and
+    dc_last (B, H) -> (dX (T, B, In) in x's dtype, dW_ih (4H, In), db (4H,)
+    and dW_hh (4H, H) in f32). db sums the f32 dgates."""
+    return _fused_bptt(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last, reverse,
+                       semi=False)
+
+
+def lstm_semi_bwd_ref(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last,
+                      reverse: bool = False):
+    """Plain half-fused BPTT (the work of K4-bwd): as
+    ``lstm_fused_bwd_ref`` but -> (dgx (T, B, 4H) in x's dtype, dW_hh
+    (4H, H) f32); dX, dW_ih and db are formed from dgx outside
+    (``semi_input_grads``)."""
+    return _fused_bptt(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last, reverse,
+                       semi=True)
+
+
+def semi_input_grads(x, w_ih, dgx):
+    """dX and dW_ih (the stream dtype) and db (f32) from the half-fused
+    backward's dgx, as ``_semi_input_grads`` of the JAX package forms them
+    outside its kernel: one GEMM each on the stream-dtype operands, summed
+    in f32 and rounded once, and db summed in f32 from the rounded dgx."""
+    dx = torch.matmul(dgx, w_ih)
+    dwih = dgx.flatten(0, 1).t() @ x.flatten(0, 1)
+    return dx, dwih, dgx.sum((0, 1), dtype=torch.float32)
+
+
+def _check_fused(name, x, w_ih, bias, w_hh, extra=()) -> None:
+    """A fused kernel's inputs: one CUDA device, bf16 streams (x, the
+    weights, hs, dhs) and f32 bias / cells / dc_last, contiguous, shapes
+    (T, B, In), (4H, In), (4H,), (4H, H), In a multiple of 8 and H of 16."""
+    tensors = (x, w_ih, bias, w_hh) + tuple(extra)
+    dev = x.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: tensors on "
+                         f"{sorted({str(t.device) for t in tensors})}; all "
+                         "must be on one CUDA device")
+    if x.dtype != torch.bfloat16 or w_ih.dtype != torch.bfloat16 \
+            or w_hh.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"{name}: the kernel takes bf16 x and weights (got {x.dtype}, "
+            f"{w_ih.dtype}, {w_hh.dtype}); f32 layers take K1 "
+            "(LSTMRecurrence)")
+    if bias.dtype != torch.float32:
+        raise ValueError(f"{name}: bias must be f32 (got {bias.dtype})")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: every tensor must be contiguous")
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x {tuple(x.shape)} is not (T, B, In)")
+    T, B, In = x.shape
+    H = w_hh.shape[-1]
+    if (w_hh.shape != (4 * H, H) or w_ih.shape != (4 * H, In)
+            or bias.shape != (4 * H,)):
+        raise ValueError(f"{name}: w_ih {tuple(w_ih.shape)}, bias "
+                         f"{tuple(bias.shape)}, w_hh {tuple(w_hh.shape)} "
+                         f"are not (4H, In), (4H,), (4H, H) for In={In}")
+    if In % 8 or H % 16:
+        raise ValueError(f"{name}: In={In} must be a multiple of 8 and "
+                         f"H={H} of 16")
+
+
+def _check_fused_bwd(name, x, w_ih, bias, w_hh, hs, cs, dhs, dc_last):
+    _check_fused(name, x, w_ih, bias, w_hh, (hs, cs, dhs, dc_last))
+    T, B, _ = x.shape
+    H = w_hh.shape[1]
+    if (hs.shape != (T, B, H) or cs.shape != (T, B, H)
+            or dhs.shape != (T, B, H) or dc_last.shape != (B, H)):
+        raise ValueError(f"{name}: hs/cs/dhs {tuple(hs.shape)}/"
+                         f"{tuple(cs.shape)}/{tuple(dhs.shape)}, dc_last "
+                         f"{tuple(dc_last.shape)} are not (T, B, H), (B, H)")
+    if hs.dtype != torch.bfloat16 or dhs.dtype != torch.bfloat16 \
+            or cs.dtype != torch.float32 or dc_last.dtype != torch.float32:
+        raise ValueError(f"{name}: hs and dhs must be bf16, cs and dc_last "
+                         "f32")
+
+
+def lstm_fused_fwd(x, w_ih, bias, w_hh, reverse: bool = False):
+    """K3/K4-fwd: same contract as ``lstm_fused_fwd_ref``. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise. As K1, the
+    H/4 blocks must all be resident at once (H <= 528 on an H100)."""
+    if x.device.type == "cpu":
+        return lstm_fused_fwd_ref(x, w_ih, bias, w_hh, reverse)
+    _check_fused("lstm_fused_fwd", x, w_ih, bias, w_hh)
+    T, B, In = x.shape
+    H = w_hh.shape[1]
+    hs = torch.empty((T, B, H), device=x.device, dtype=x.dtype)
+    cs = torch.empty((T, B, H), device=x.device, dtype=torch.float32)
+    barrier = torch.zeros((1,), device=x.device, dtype=torch.int32)
+    if T and B:
+        LSTM_FUSED_FWD(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
+                       w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                       barrier.data_ptr(), T, B, In, H, int(reverse),
+                       _build.stream_handle(x.device))
+    return hs, cs
+
+
+def _bwd_scratch(x, H, dc_last):
+    """The fused backwards' scratch: the dh carry (zero), the dc carry (from
+    dc_last) and the step barrier's counter."""
+    B = x.shape[1]
+    dh_buf = torch.zeros((B, H), device=x.device, dtype=torch.float32)
+    barrier = torch.zeros((1,), device=x.device, dtype=torch.int32)
+    return dh_buf, dc_last.clone(), barrier
+
+
+def lstm_fused_bwd(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last,
+                   reverse: bool = False):
+    """K3-bwd: same contract as ``lstm_fused_bwd_ref``. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
+    if x.device.type == "cpu":
+        return lstm_fused_bwd_ref(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last,
+                                  reverse)
+    _check_fused_bwd("lstm_fused_bwd", x, w_ih, bias, w_hh, hs, cs, dhs,
+                     dc_last)
+    T, B, In = x.shape
+    H = w_hh.shape[1]
+    dx = torch.empty_like(x)
+    dwih = torch.empty((4 * H, In), device=x.device, dtype=torch.float32)
+    db = torch.empty((4 * H,), device=x.device, dtype=torch.float32)
+    dwhh = torch.empty((4 * H, H), device=x.device, dtype=torch.float32)
+    if not (T and B):
+        return dx, dwih.zero_(), db.zero_(), dwhh.zero_()
+    dh_buf, dc_buf, barrier = _bwd_scratch(x, H, dc_last)
+    # the step's bf16 dgates, exchanged between blocks; ping-ponged
+    dgbuf = torch.empty((2, B, 4 * H), device=x.device, dtype=x.dtype)
+    LSTM_FUSED_BWD(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
+                   w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                   dhs.data_ptr(), dx.data_ptr(), dwih.data_ptr(),
+                   db.data_ptr(), dwhh.data_ptr(), dgbuf.data_ptr(),
+                   dh_buf.data_ptr(), dc_buf.data_ptr(), barrier.data_ptr(),
+                   T, B, In, H, int(reverse), _build.stream_handle(x.device))
+    return dx, dwih, db, dwhh
+
+
+def lstm_semi_bwd(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last,
+                  reverse: bool = False):
+    """K4-bwd: same contract as ``lstm_semi_bwd_ref``. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
+    if x.device.type == "cpu":
+        return lstm_semi_bwd_ref(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last,
+                                 reverse)
+    _check_fused_bwd("lstm_semi_bwd", x, w_ih, bias, w_hh, hs, cs, dhs,
+                     dc_last)
+    T, B, In = x.shape
+    H = w_hh.shape[1]
+    dgx = torch.empty((T, B, 4 * H), device=x.device, dtype=x.dtype)
+    dwhh = torch.empty((4 * H, H), device=x.device, dtype=torch.float32)
+    if not (T and B):
+        return dgx, dwhh.zero_()
+    dh_buf, dc_buf, barrier = _bwd_scratch(x, H, dc_last)
+    LSTM_SEMI_BWD(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
+                  w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                  dhs.data_ptr(), dgx.data_ptr(), dwhh.data_ptr(),
+                  dh_buf.data_ptr(), dc_buf.data_ptr(),
+                  barrier.data_ptr(), T, B, In, H, int(reverse),
+                  _build.stream_handle(x.device))
+    return dgx, dwhh
+
+
+class _FusedBase(torch.autograd.Function):
+    """``apply(x, w_ih, bias, w_hh, reverse) -> (hs (T, B, H), c_last
+    (B, H) f32)``, the JAX package's ``lstm_layer_fused`` /
+    ``lstm_layer_semifused``: forward ``lstm_fused_fwd``, saving (x, w_ih,
+    bias, w_hh, hs, cs). The grads leave in their inputs' dtypes. A
+    cotangent that autograd leaves undefined is zeros."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih, bias, w_hh, reverse: bool):
+        hs, cs = lstm_fused_fwd(x, w_ih, bias, w_hh, reverse)
+        ctx.save_for_backward(x, w_ih, bias, w_hh, hs, cs)
+        ctx.reverse = reverse
+        ctx.set_materialize_grads(False)
+        return hs, (cs[0] if reverse else cs[-1]).clone()
+
+    @staticmethod
+    def _cotangents(ctx, dhs, dc_last):
+        x, w_ih, bias, w_hh, hs, cs = ctx.saved_tensors
+        dhs = (torch.zeros_like(hs) if dhs is None
+               else dhs.to(hs.dtype).contiguous())
+        dc_last = (cs.new_zeros(cs.shape[1:]) if dc_last is None
+                   else dc_last.float().contiguous())
+        return (x, w_ih, bias, w_hh, hs, cs, dhs, dc_last, ctx.reverse)
+
+
+class LSTMFused(_FusedBase):
+    """The fully fused tier: backward ``lstm_fused_bwd`` (K3-bwd), which
+    forms dX, dW_ih, db and dW_hh itself."""
+
+    @staticmethod
+    def backward(ctx, dhs, dc_last):
+        args = _FusedBase._cotangents(ctx, dhs, dc_last)
+        x, w_ih, bias, w_hh = args[:4]
+        dx, dwih, db, dwhh = lstm_fused_bwd(*args)
+        return (dx, dwih.to(w_ih.dtype), db.to(bias.dtype),
+                dwhh.to(w_hh.dtype), None)
+
+
+class LSTMSemiFused(_FusedBase):
+    """The half-fused tier: backward ``lstm_semi_bwd`` (K4-bwd) emits dgx,
+    and dX, dW_ih and db come from it through ``semi_input_grads``."""
+
+    @staticmethod
+    def backward(ctx, dhs, dc_last):
+        args = _FusedBase._cotangents(ctx, dhs, dc_last)
+        x, w_ih, bias, w_hh = args[:4]
+        dgx, dwhh = lstm_semi_bwd(*args)
+        dx, dwih, db = semi_input_grads(x, w_ih, dgx)
+        return (dx, dwih.to(w_ih.dtype), db.to(bias.dtype),
+                dwhh.to(w_hh.dtype), None)

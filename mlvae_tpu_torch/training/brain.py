@@ -12,16 +12,31 @@ optimizer-state advance and its update. A module that autograd never
 reached counts as all zero. The decisions stay on the device; nothing
 waits for the host.
 
+AMP (``auto_mix_prec``, from ``run_opts["bf16"]`` or
+``run_opts["auto_mix_prec"]``) follows the JAX Brain's ``_cast_floats``
+rule, not ``torch.autocast``'s per-op lists: the forward runs on a bf16
+copy of every float parameter, made by a differentiable cast so that its
+grad reaches the f32 master parameter, and on the batch's float arrays
+of ndim >= 2 cast to bf16 (the 1-D relative lengths never are). Buffers
+(the normalizer's running statistics) stay f32. The predictions' float
+leaves go back to f32 before ``compute_objectives``, which receives the
+uncast batch. Master parameters, grads and optimizer states stay f32.
+The AMP step's forward and backward run with cuBLAS's reduced-precision
+bf16 reduction off, so that a split-K GEMM sums in f32 as the JAX
+package's products do.
+
 The rest of the JAX Brain's fit loop (validation, checkpoints, loggers,
 the scanned epoch) is not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 from enum import Enum, auto
 from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 
 class Stage(Enum):
@@ -33,12 +48,42 @@ def global_norm(flat_grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.stack([(g * g).sum() for g in flat_grads]).sum().sqrt()
 
 
+def cast_floats(tree, dtype, min_ndim: int = 0):
+    """Cast the float tensors of a nested dict / tuple / list to ``dtype``;
+    tensors with fewer than ``min_ndim`` dims (relative lengths, counters)
+    keep theirs (the JAX Brain's ``_cast_floats``)."""
+    if isinstance(tree, dict):
+        return {k: cast_floats(v, dtype, min_ndim) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(cast_floats(v, dtype, min_ndim) for v in tree)
+    if (isinstance(tree, torch.Tensor) and tree.is_floating_point()
+            and tree.dim() >= min_ndim):
+        return tree.to(dtype)
+    return tree
+
+
+@contextlib.contextmanager
+def f32_gemm_sums():
+    """cuBLAS's bf16 GEMMs sum in f32 inside the block, split-K included
+    (``allow_bf16_reduced_precision_reduction`` off); restored after."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
+
+
 class Brain(nn.Module):
     max_grad_norm = 5.0   # the JAX Brain's default
 
-    def __init__(self, hparams: Dict):
+    def __init__(self, hparams: Dict, run_opts: Optional[Dict] = None):
         super().__init__()
         self.hparams = dict(hparams)
+        self.run_opts = dict(run_opts or {})
+        self.auto_mix_prec = bool(self.run_opts.get(
+            "bf16", self.run_opts.get("auto_mix_prec", False)))
         # name -> (optimizer, module names or None for all); the recipe's
         # init_optimizers fills them
         self.optimizers: Dict = {}
@@ -58,6 +103,11 @@ class Brain(nn.Module):
 
     def prepare_batch(self, batch: Dict) -> Dict:
         return batch
+
+    def forward(self, *args, **kwargs):
+        """``compute_forward``; the AMP step calls it through
+        ``torch.func.functional_call`` with the bf16 parameters."""
+        return self.compute_forward(*args, **kwargs)
 
     def on_stage_start(self, stage: Stage, epoch: Optional[int] = None):
         pass
@@ -89,10 +139,20 @@ class Brain(nn.Module):
         clipped, or zeros after a non-finite step."""
         for p in self.parameters():
             p.grad = None
-        preds = self.compute_forward(batch, noise=noise, generator=generator,
-                                     train=True, epoch=epoch)
-        loss, losses = self.compute_objectives(preds, batch)
-        loss.backward()
+        kwargs = dict(noise=noise, generator=generator, train=True,
+                      epoch=epoch)
+        with (f32_gemm_sums() if self.auto_mix_prec
+              else contextlib.nullcontext()):
+            if self.auto_mix_prec:
+                params = {name: p.to(torch.bfloat16) if p.is_floating_point()
+                          else p for name, p in self.named_parameters()}
+                preds = cast_floats(functional_call(
+                    self, params, (cast_floats(batch, torch.bfloat16, 2),),
+                    kwargs), torch.float32)
+            else:
+                preds = self.compute_forward(batch, **kwargs)
+            loss, losses = self.compute_objectives(preds, batch)
+            loss.backward()
 
         modules = self.param_modules()
         grads: Dict[str, Optional[torch.Tensor]] = {}

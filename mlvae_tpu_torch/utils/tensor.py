@@ -32,11 +32,13 @@ def length_mask(rel_lens: torch.Tensor, max_len: int,
 
 def apply_weight(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Contract the component axis: x (B, T, N, C) or (B, T, N*C), weight
-    (B, T, N) -> (B, T, C)."""
+    (B, T, N) -> (B, T, C), in the promoted dtype of the two (an f32 loss
+    weighted by bf16 weights stays f32, as in the JAX package)."""
     B, T, N = weight.shape
     if x.dim() == 3:
         x = x.reshape(B, T, N, x.shape[-1] // N)
-    return torch.einsum("btnc,btn->btc", x, weight)
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    return torch.einsum("btnc,btn->btc", x.to(dt), weight.to(dt))
 
 
 def apply_lens_to_loss(loss: torch.Tensor,

@@ -51,7 +51,7 @@ def _replay(draws, rng):
     """The port's named draws made as the JAX step makes them: draw i from
     ``fold_in(rng, i)``; repeated names (dropout gaps) become lists."""
     noise = {}
-    for i, (name, kind, shape, keep) in enumerate(draws):
+    for i, (name, kind, shape, keep, _) in enumerate(draws):
         k = jax.random.fold_in(rng, i)
         if kind == "bernoulli":
             noise.setdefault(name, []).append(torch.from_numpy(
@@ -225,4 +225,4 @@ def test_draw_order_matches_rngstream(jax_model, epoch, monkeypatch):
     port.on_stage_start(Stage.TRAIN if epoch else Stage.TEST, epoch)
     draws = port.draws(B, T, train=epoch is not None)
     assert record == [(i, kind, tuple(shape))
-                      for i, (_, kind, shape, _) in enumerate(draws)]
+                      for i, (_, kind, shape, _, _) in enumerate(draws)]
