@@ -9,15 +9,23 @@ Phases, each reported on its own line; any failure exits non-zero:
    compiled from this checkout, one ``nvcc`` per source in parallel);
 2. each kernel against its plain PyTorch version on the card, at the
    slices' shapes (B=64, T=160, H=512; the fused kernels at In=128, 512
-   and 1024 as the AMP step gives them), plus ragged and edge cases, and
-   K1-fwd and K1-bwd again over many back-to-back launches
+   and 1024 as the AMP step gives them; the filterbank K6 in its Kaldi
+   mode at the Kaldi pass's B=256 x 325 frames and B=1, in its
+   SpeechBrain mode at B=64 and B=1 x 160 frames), plus ragged and edge
+   cases, K1-fwd and K1-bwd again over many back-to-back launches
    (``--lstm-repeats``, ``--lstm-bwd-repeats``), the fused kernels over a
-   few;
+   few, K6 over 20 per mode that must be bit-identical, and K6's two
+   extractors against the float64 golden on two short utterances;
 3. MD_VAE at the recipe's full width (H=512, B=64, T=160, L=8, weights
    from a seed) through the kernels: the TEST-target eval step (finite
    losses, decoded boundaries that sum to each utterance's phoneme count,
    launch counts of 10 / 1 / 1 per forward, agreement with the same forward
-   through the plain versions, one ``infer_features`` call at B=1), then
+   through the plain versions, one ``infer_features`` call at B=1); the
+   wav-in path: ``infer`` on a written wav at B=1 (one verdict per
+   phoneme, launches 1 K6 / 10 / 1 / 1), a B=64 wav batch through
+   ``Fbank(deltas=True)`` and the eval step against the same through the
+   plain versions, and ``compute_kaldi_features`` over a small
+   ``kaldi_data`` directory on the card against the CPU; then
    the f32 training step, two steps of each target (epochs 1, 2, 3:
    PHN_RECOG, B_DETECTOR, VAE): finite losses, launches per step, exactly
    the target's modules changed, the normalizer updated in epochs 1 and 2
@@ -27,9 +35,13 @@ Phases, each reported on its own line; any failure exits non-zero:
    whose parameters and optimizer states stay f32, and whose VAE step is
    also held against the f32 step from the same state and draws;
 4. times from CUDA events after warm-up: each kernel, its plain version,
-   a one-call PyTorch yardstick where one exists, the eval step, the f32
-   and AMP train steps of each target, the AMP VAE step at the JAX bench's
-   B=256, and profiles of one eval, one f32 and one AMP VAE train step;
+   a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6),
+   the eval step, the wav-in ``infer`` at B=1 (read and features, then
+   the eval), the wav-in eval step at B=64, the Kaldi feature pass
+   (``compute_kaldi_features`` over 256 written wav files, one batch,
+   host clock), the f32 and AMP train steps of each target, the AMP VAE
+   step at the JAX bench's B=256, and profiles of one eval, one wav-in
+   eval, one f32 and one AMP VAE train step;
 5. a ``kernels`` JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -71,12 +83,28 @@ AMP_LOSS_RTOL = 1e-3  # the AMP step against its plain twin: the fused
 AMP_GRAD_RTOL = 1e-2  # kernels' bf16 flips (above) through ten layers
 AMP_F32_RTOL = 0.05   # the AMP VAE loss against the f32 step's, as
                       # tests/test_mixed_precision.py holds the JAX step
+# K6 against its plain version: f32 DFT sums in another order; in a
+# low-energy band the power is a small difference of large sums, so the
+# tolerance is absolute on the log values
+FBANK_KALDI_ATOL = 1e-3  # natural-log mels
+FBANK_SB_ATOL = 5e-3     # dB: 10 / ln 10 times the natural log
+FBANK_GOLDEN_RTOL = 1e-4  # against the float64 golden, the denominator
+                      # floored at 1e-3 (tests/test_frontend.py's gate); on
+                      # two short utterances only: even the TPU's f32
+                      # passes land at 1.04e-4 at the Kaldi pass's size
+FBANK_REPEATS = 20    # phase 2's repeated K6 launches per mode: bit-equal
+CMVN_RTOL = 1e-4      # Kaldi features after speaker CMVN, card against
+                      # CPU, of the largest entry (K6's errors divided by
+                      # each band's deviation)
 
 # kernel launches in one eval forward: ten directional LSTM layers (2 + 2
 # + 2 + 2x2 bidirectional), one decode
 NO_FUSED = {"lstm_fused_fwd": 0, "lstm_fused_bwd": 0, "lstm_semi_bwd": 0}
+NO_FBANK = {"fbank": 0}
 PER_FORWARD = {"lstm_fwd": 10, "lstm_bwd": 0, "md_viterbi_lattice": 1,
-               "md_viterbi_backtrace": 1, **NO_FUSED}
+               "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK}
+# the wav-in forward adds one K6 launch (SpeechBrain mode) for the batch
+PER_WAV_FORWARD = {**PER_FORWARD, "fbank": 1}
 # kernel launches in one training step: each target's forward runs the
 # LSTMs of the branches it gates in; its backward reaches only the LSTMs
 # of the modules it trains (VAE: the rnn's 2 layers and the decoder's 2
@@ -84,24 +112,26 @@ PER_FORWARD = {"lstm_fwd": 10, "lstm_bwd": 0, "md_viterbi_lattice": 1,
 # stop-gradients)
 PER_TRAIN_STEP = {
     "PHN_RECOG": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi_lattice": 0,
-                  "md_viterbi_backtrace": 0, **NO_FUSED},
+                  "md_viterbi_backtrace": 0, **NO_FUSED, **NO_FBANK},
     "B_DETECTOR": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi_lattice": 0,
-                   "md_viterbi_backtrace": 0, **NO_FUSED},
+                   "md_viterbi_backtrace": 0, **NO_FUSED, **NO_FBANK},
     "VAE": {"lstm_fwd": 10, "lstm_bwd": 6, "md_viterbi_lattice": 1,
-            "md_viterbi_backtrace": 1, **NO_FUSED},
+            "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK},
 }
 # the same under AMP: every layer takes K3 or K4 and none K1; K4 only for
 # the decoder's In=1024 pair (K3-bwd: the rnn's 2 layers and decoder l0,
 # both directions)
 NO_K1 = {"lstm_fwd": 0, "lstm_bwd": 0}
 PER_AMP_STEP = {
-    "PHN_RECOG": {**NO_K1, "md_viterbi_lattice": 0, "md_viterbi_backtrace": 0,
+    "PHN_RECOG": {**NO_K1, **NO_FBANK, "md_viterbi_lattice": 0,
+                  "md_viterbi_backtrace": 0,
                   "lstm_fused_fwd": 2, "lstm_fused_bwd": 2,
                   "lstm_semi_bwd": 0},
-    "B_DETECTOR": {**NO_K1, "md_viterbi_lattice": 0,
+    "B_DETECTOR": {**NO_K1, **NO_FBANK, "md_viterbi_lattice": 0,
                    "md_viterbi_backtrace": 0, "lstm_fused_fwd": 2,
                    "lstm_fused_bwd": 2, "lstm_semi_bwd": 0},
-    "VAE": {**NO_K1, "md_viterbi_lattice": 1, "md_viterbi_backtrace": 1,
+    "VAE": {**NO_K1, **NO_FBANK, "md_viterbi_lattice": 1,
+            "md_viterbi_backtrace": 1,
             "lstm_fused_fwd": 10, "lstm_fused_bwd": 4, "lstm_semi_bwd": 2},
 }
 ACTIVE = {
@@ -538,6 +568,120 @@ def check_viterbi(dev, report):
     return viterbi_problem(rs, dev, 64, 160, 14, 8, 1.0), worst
 
 
+KALDI_PASS = (256, 104_000)  # utterances, and the longest one's samples:
+                             # one batch of compute_kaldi_features, 325
+                             # frames (docs/fbank_pallas_ab.json's shape)
+KALDI_SPEAKERS = 8           # of the pass's utterances, 32 each
+
+
+def kaldi_pass_waves():
+    """The Kaldi pass's utterances, as their wav files hold them (in
+    [-1, 1]): ``bench_utils.synth_wave``'s tones and noise, amplitude-
+    modulated (CMVN divides by each band's deviation), of lengths from a
+    quarter of the longest to the longest, one of 170 samples (under half
+    a window: reflected more than once)."""
+    import numpy as np
+    from mlvae_tpu_torch.bench_utils import synth_wave
+    B, longest = KALDI_PASS
+    lengths = np.random.RandomState(41).randint(longest // 4, longest + 1, B)
+    lengths[0], lengths[1] = longest, 170
+    return [synth_wave(int(n), 30 + i, 0.25, am_hz=3.0)
+            for i, n in enumerate(lengths)]
+
+
+def kaldi_pass_batch(dev, utts):
+    """The batch ``compute_kaldi_features`` hands its extractor for
+    ``utts``: int16-scale waves padded to the longest, on the card, and
+    their lengths on the host."""
+    import torch
+    from mlvae_tpu_torch.data.data_io import int16_batch
+    waves, lengths = int16_batch(utts)
+    return torch.from_numpy(waves).to(dev), torch.from_numpy(lengths)
+
+
+def fbank_frames_of(mode, waves, lengths, max_frames):
+    """The (rows, N) frames the extractors hand K6."""
+    from mlvae_tpu_torch.ops import fbank as fb
+    if mode == fb.KALDI:
+        return fb.kaldi_frames(waves, lengths, max_frames, 320, 400)
+    return fb.sb_frame_gather(waves, lengths, max_frames, 320,
+                              400).reshape(-1, 400)
+
+
+def fbank_cases(dev, B=64, T=160):
+    """K6's shapes on the main paths: (label, mode, frames, repeat): the
+    Kaldi pass's batch, the wav-in eval batch (both repeated in phase 2),
+    and one utterance of T frames in each mode."""
+    from mlvae_tpu_torch.bench_utils import synth_wav_batch
+    from mlvae_tpu_torch.ops import fbank as fb
+    waves, lengths = kaldi_pass_batch(dev, kaldi_pass_waves())
+    mf = (waves.shape[1] + 160) // 320
+    cases = [(f"kaldi B={waves.shape[0]} x {mf}", fb.KALDI,
+              fbank_frames_of(fb.KALDI, waves, lengths, mf), True)]
+    del waves
+    for b in (B, 1):
+        waves, lengths = synth_wav_batch(b, T, seed=0, device=dev)
+        if b == 1:
+            cases.append((f"kaldi B=1 x {T - 1}", fb.KALDI, fbank_frames_of(
+                fb.KALDI, waves * 32768.0, lengths, T - 1), False))
+        cases.append((f"sb B={b} x {T}", fb.SB,
+                       fbank_frames_of(fb.SB, waves, lengths, T), b > 1))
+    return cases
+
+
+def check_fbank(dev, report, cases):
+    """K6 in both modes against its plain version at the main paths'
+    shapes, repeated launches bit-identical, and both extractors on the
+    card against the float64 golden on ``tests/test_fbank_pallas.py``'s two
+    utterances. Returns the max abs error per case."""
+    import numpy as np
+    import torch
+    from mlvae_tpu_torch.bench_utils import synth_wave
+    from mlvae_tpu_torch.ops import fbank as fb
+    from mlvae_tpu_torch.ops import frontend_ref as ref
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls are on: the plain version would not be f32")
+    errs = {}
+    for label, mode, frames, repeat in cases:
+        got = fb.fbank_frames_cuda(frames, mode)
+        want = fb.fbank_frames_ref(frames, mode)
+        torch.cuda.synchronize()
+        errs[label] = max_err(got, want)
+        tol = FBANK_KALDI_ATOL if mode == fb.KALDI else FBANK_SB_ATOL
+        same = all(torch.equal(fb.fbank_frames_cuda(frames, mode), got)
+                   for _ in range(FBANK_REPEATS if repeat else 0))
+        report(f"  fbank {label} ({frames.shape[0]} frames of "
+               f"{frames.shape[1]}): max_abs_err {errs[label]:.3e} (tol "
+               f"{tol:g}); finite {bool(torch.isfinite(got).all())}"
+               + (f"; {FBANK_REPEATS} repeats bit-identical {same}"
+                  if repeat else ""))
+        check(errs[label] <= tol and bool(torch.isfinite(got).all()),
+              f"fbank {label} disagrees: {errs[label]}")
+        check(same, f"fbank {label}: repeated launches differ")
+
+    lengths = [16000, 9000]
+    waves = np.zeros((2, 16000), np.float32)
+    for i, n in enumerate(lengths):
+        waves[i, :n] = synth_wave(n, i)
+    w = torch.from_numpy(waves).to(dev)
+    lens = torch.tensor(lengths, device=dev)
+    kaldi, _ = fb.kaldi_fbank_batch(w, lens, max_frames=50)
+    sb, _ = fb.sb_fbank_batch(w, lens, max_frames=51)
+    for name, got, golden in (("kaldi", kaldi, ref.kaldi_fbank),
+                              ("sb", sb, ref.sb_fbank)):
+        rel = 0.0
+        for i, n in enumerate(lengths):
+            g = golden(waves[i, :n])
+            x = got[i, :g.shape[0]].cpu().numpy()
+            rel = max(rel, float(np.max(np.abs(x - g)
+                                        / np.maximum(np.abs(g), 1e-3))))
+        report(f"  fbank {name} extractor on the card against the float64 "
+               f"golden ({lengths} samples): max rel err {rel:.3e} (tol "
+               f"{FBANK_GOLDEN_RTOL:g})")
+        check(rel < FBANK_GOLDEN_RTOL, f"fbank {name} is off the golden")
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the slice at full width
 # ---------------------------------------------------------------------------
@@ -547,6 +691,7 @@ def twins():
     comparison run only)."""
     import contextlib
     from mlvae_tpu_torch.ops import decode as dec
+    from mlvae_tpu_torch.ops import fbank as fb
     from mlvae_tpu_torch.ops import lstm
 
     plain = {(lstm, "lstm_layer_fwd"): lstm.lstm_layer_ref,
@@ -554,7 +699,8 @@ def twins():
              (lstm, "lstm_fused_fwd"): lstm.lstm_fused_fwd_ref,
              (lstm, "lstm_fused_bwd"): lstm.lstm_fused_bwd_ref,
              (lstm, "lstm_semi_bwd"): lstm.lstm_semi_bwd_ref,
-             (dec, "md_viterbi_batch"): dec.md_viterbi_batch_ref}
+             (dec, "md_viterbi_batch"): dec.md_viterbi_batch_ref,
+             (fb, "fbank_frames"): fb.fbank_frames_ref}
 
     @contextlib.contextmanager
     def ctx():
@@ -601,14 +747,45 @@ def infer_input(model, T):
     return feats, [3, 5, 7, 2, 9, 4]
 
 
+def against_plain(report, batch, preds, losses, ref, ref_losses):
+    """A forward through the kernels against the same forward through the
+    plain versions: the float outputs, each loss (the pi NLL of both on
+    the kernel run's decoded labels: like with like) and the decode."""
+    import torch
+    from mlvae_tpu_torch.nn import dist as D
+    from mlvae_tpu_torch.utils.tensor import apply_lens_to_loss
+
+    def pi_nll(p):
+        return apply_lens_to_loss(
+            -D.categorical_log_prob(p["pi_logits"],
+                                    preds["decoded_flvl_md_lbl_seq"]),
+            batch["feat"][1])
+
+    errs = {k: max_err(preds[k], ref[k])
+            for k in ("phn_recog_out", "boundary_v", "pi_logits")}
+    rel = {k: abs(float(losses[k]) - float(ref_losses[k]))
+           / max(abs(float(ref_losses[k])), 1e-12)
+           for k in losses if k != "pi_nll_loss"}
+    rel["pi_nll_loss"] = abs(float(pi_nll(preds)) - float(pi_nll(ref))) \
+        / abs(float(pi_nll(ref)))
+    same_decode = all(torch.equal(preds[k], ref[k]) for k in (
+        "decoded_boundary_seq", "decoded_flvl_md_lbl_seq",
+        "decoded_plvl_md_lbl_seq"))
+    report("  against the plain versions: max abs err "
+           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+           + f" (tol {FWD_ATOL:g}); loss rel err "
+           + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+           + f" (tol {LOSS_RTOL:g}); same decode {same_decode}")
+    check(max(errs.values()) <= FWD_ATOL, "forward outputs disagree")
+    check(max(rel.values()) <= LOSS_RTOL, "losses disagree")
+
+
 def run_slice(dev, report, B=64, T=160, L=8):
     import numpy as np
     import torch
     from mlvae_tpu_torch.bench_utils import build_md_vae, synth_batch
     from mlvae_tpu_torch.cli.infer import infer_features
-    from mlvae_tpu_torch.nn import dist as D
     from mlvae_tpu_torch.ops import decode as dec
-    from mlvae_tpu_torch.utils.tensor import apply_lens_to_loss
 
     model = build_md_vae(batch_size=B, seed=0, device=dev)
     batch = model.prepare_batch(synth_batch(B, T, L, seed=0, device=dev))
@@ -651,30 +828,7 @@ def run_slice(dev, report, B=64, T=160, L=8):
         _, ref_losses = model.compute_objectives(ref, batch)
         torch.cuda.synchronize()
         check(sum(launches().values()) == 0, "the plain run hit a kernel")
-
-    def pi_nll(p):  # on the kernel run's labels: like with like
-        return apply_lens_to_loss(
-            -D.categorical_log_prob(p["pi_logits"],
-                                    preds["decoded_flvl_md_lbl_seq"]),
-            batch["feat"][1])
-
-    errs = {k: max_err(preds[k], ref[k])
-            for k in ("phn_recog_out", "boundary_v", "pi_logits")}
-    rel = {k: abs(float(losses[k]) - float(ref_losses[k]))
-           / max(abs(float(ref_losses[k])), 1e-12)
-           for k in losses if k != "pi_nll_loss"}
-    rel["pi_nll_loss"] = abs(float(pi_nll(preds)) - float(pi_nll(ref))) \
-        / abs(float(pi_nll(ref)))
-    same_decode = all(torch.equal(preds[k], ref[k]) for k in (
-        "decoded_boundary_seq", "decoded_flvl_md_lbl_seq",
-        "decoded_plvl_md_lbl_seq"))
-    report("  against the plain versions: max abs err "
-           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-           + f" (tol {FWD_ATOL:g}); loss rel err "
-           + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
-           + f" (tol {LOSS_RTOL:g}); same decode {same_decode}")
-    check(max(errs.values()) <= FWD_ATOL, "forward outputs disagree")
-    check(max(rel.values()) <= LOSS_RTOL, "losses disagree")
+    against_plain(report, batch, preds, losses, ref, ref_losses)
 
     reset_launches()
     verdicts = infer_features(model, *infer_input(model, T), device=dev)
@@ -685,6 +839,151 @@ def run_slice(dev, report, B=64, T=160, L=8):
                                      for v in verdicts)
           and counts == PER_FORWARD, "infer_features failed")
     return model, batch, noise, main_counts
+
+
+PHONES = ["sil", "aa", "b", "d", "eh", "f", "g", "ih", "k", "l", "m", "n",
+          "s"]
+CANONICAL = ["sil", "b", "aa", "d", "eh", "sil"]
+
+
+def wav_hparams():
+    """What ``infer`` reads of a recipe's hparams (config/run.yaml), and a
+    label encoder of 13 phonemes and the blank (the model's 14 classes)."""
+    from mlvae_tpu_torch.data.encoder import LabelEncoder
+    from mlvae_tpu_torch.ops.fbank import Fbank
+    enc = LabelEncoder()
+    enc.update_from_iterable(PHONES)
+    enc.insert_blank(index=0)
+    return {"sample_rate": 16000, "hop_length": 20,
+            "compute_features": Fbank(deltas=True)}, enc
+
+
+def write_utterance(path, T=160):
+    """A wav of T SpeechBrain frames (3.18 s at T=160), speech-like."""
+    from mlvae_tpu_torch.bench_utils import synth_wave
+    from mlvae_tpu_torch.data.wav import write_wav
+    write_wav(path, synth_wave((T - 1) * 320, 7, 8000.0 / 32768.0,
+                               am_hz=3.0))
+
+
+def write_kaldi_dir(root, waves, speakers):
+    """A ``kaldi_data`` train set of ``waves``, utterance i spoken by
+    speaker i mod ``speakers``, and the hparams that name it."""
+    from mlvae_tpu_torch.data.wav import write_wav
+    kaldi = root / "kaldi_data"
+    kaldi.mkdir(parents=True)
+    scp, u2s = [], []
+    for i, wave in enumerate(waves):
+        utt, path = f"u{i:04d}", root / f"u{i:04d}.wav"
+        write_wav(path, wave)
+        scp.append(f"{utt} {path}\n")
+        u2s.append(f"{utt} s{i % speakers}\n")
+    (kaldi / "train.wav.scp").write_text("".join(scp))
+    (kaldi / "train.utt2spk").write_text("".join(u2s))
+    return {"prepare": {"dataset_dir": str(root / "data")},
+            "kaldi_feature_params": {"sample_rate": 16000, "hop_length": 20,
+                                     "n_fft": 400, "n_mels": 40}}
+
+
+def wav_forward(model, fbank, waves, lengths, batch, noise):
+    """The wav-in eval forward of a batch: features, then the forward and
+    the objectives on ``batch`` with its ``feat`` replaced."""
+    feats = fbank(waves, lengths)
+    b = model.prepare_batch(dict(batch, feat=(feats, batch["feat"][1])))
+    preds = model.compute_forward(b, noise=noise)
+    loss, losses = model.compute_objectives(preds, b)
+    return feats, b, preds, loss, losses
+
+
+def run_wav(dev, report, model, B=64, T=160, L=8):
+    """The wav-in path through the kernels: ``infer`` at B=1 on a written
+    wav, a B=64 wav batch through ``Fbank(deltas=True)`` and the eval step
+    against the same through the plain versions, and the Kaldi feature
+    pass on the card against the CPU. Returns the launches of the three."""
+    import tempfile
+    import numpy as np
+    import torch
+    from mlvae_tpu_torch.bench_utils import (synth_batch, synth_wav_batch,
+                                             synth_wave)
+    from mlvae_tpu_torch.cli.infer import infer
+    from mlvae_tpu_torch.data.data_io import compute_kaldi_features
+    from mlvae_tpu_torch.ops.fbank import Fbank
+
+    total = {k: 0 for k in launches()}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    hparams, enc = wav_hparams()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "utt.wav"
+        write_utterance(path, T)
+        reset_launches()
+        verdicts = infer(model, hparams, enc, path, CANONICAL, device=dev)
+        torch.cuda.synchronize()
+        counts = launches()
+    add(counts)
+    report(f"  infer (wav in) B=1 T={T}: {verdicts}; launches {counts}")
+    check([v["phoneme"] for v in verdicts] == CANONICAL
+          and all(v["mispronounced"] is not None
+                  and v["start_sec"] is not None for v in verdicts)
+          and counts == PER_WAV_FORWARD, "wav-in infer failed")
+
+    waves, lengths = synth_wav_batch(B, T, seed=0, device=dev)
+    batch = synth_batch(B, T, L, seed=0, device=dev)
+    noise = eval_noise(model, B, T, dev, seed=3)
+    fbank = Fbank(deltas=True)
+    reset_launches()
+    feats, b, preds, loss, losses = wav_forward(model, fbank, waves, lengths,
+                                                batch, noise)
+    torch.cuda.synchronize()
+    counts = launches()
+    add(counts)
+    vals = {k: float(v) for k, v in losses.items()}
+    report(f"  wav-in eval forward B={B} T={T}: features "
+           f"{tuple(feats.shape)}; loss {float(loss):.6f}; launches "
+           f"{counts}")
+    check(tuple(feats.shape) == (B, T, 120) and counts == PER_WAV_FORWARD
+          and bool(torch.isfinite(feats).all())
+          and all(np.isfinite(list(vals.values()))),
+          "the wav-in eval forward failed")
+    with twins():
+        reset_launches()
+        ref_feats, _, ref, _, ref_losses = wav_forward(
+            model, fbank, waves, lengths, batch, noise)
+        torch.cuda.synchronize()
+        check(sum(launches().values()) == 0, "the plain run hit a kernel")
+    feat_err = max_err(feats[..., :40], ref_feats[..., :40])
+    report(f"  wav-in features against the plain version: max abs err "
+           f"{feat_err:.3e} dB (tol {FBANK_SB_ATOL:g}), with deltas "
+           f"{max_err(feats, ref_feats):.3e}")
+    check(feat_err <= FBANK_SB_ATOL, "the wav-in features disagree")
+    against_plain(report, b, preds, losses, ref, ref_losses)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # two speakers with two utterances each, 1 to 2 s, speech-like
+        kaldi_hp = write_kaldi_dir(Path(tmp), [
+            synth_wave(n, 30 + i, 0.25, am_hz=3.0)
+            for i, n in enumerate((24000, 17000, 32000, 16003))], 2)
+        reset_launches()
+        got = compute_kaldi_features(kaldi_hp, "train", device=dev)
+        torch.cuda.synchronize()
+        counts = launches()
+        want = compute_kaldi_features(kaldi_hp, "train", device="cpu")
+    add(counts)
+    err = max(float(np.abs(got[u] - want[u]).max() / np.abs(want[u]).max())
+              for u in want)
+    report(f"  compute_kaldi_features (4 utterances, 2 speakers, one batch) "
+           f"on the card against the CPU: shapes "
+           f"{[got[u].shape for u in got]}, max err of the largest entry "
+           f"{err:.3e} (tol {CMVN_RTOL:g}); launches {counts}")
+    check(list(got) == list(want) and all(got[u].shape == want[u].shape
+                                          for u in want)
+          and err <= CMVN_RTOL and counts == {**dict.fromkeys(counts, 0),
+                                              "fbank": 1},
+          "compute_kaldi_features on the card disagrees with the CPU")
+    return total
 
 
 def train_noise(model, B, T, dev, g):
@@ -1155,6 +1454,177 @@ def time_amp_vae(dev, report, B=256, T=160, L=8):
     return out
 
 
+def fbank_bound(mode, rows):
+    """K6's least time on ``rows`` frames, counted two ways, each against
+    the window's 400 columns read and the 40 log-mels written once: as K6
+    computes it, the DFT as products over the window's columns (the TPU
+    kernel counts the same products over all N = 512 in the Kaldi mode),
+    and as an FFT would, about 2.5 N log2 N operations for a real N-point
+    transform. Both add the pre-processing (DC removal, pre-emphasis and
+    window: 5 operations a column; the window alone in the SpeechBrain
+    mode), the power and each filter's nonzero bins. Returns ((ms, by) as
+    K6 computes it, (ms, by) with an FFT)."""
+    import math
+    from mlvae_tpu_torch.ops import fbank as fb
+    window, n = 400, (512 if mode == fb.KALDI else 400)
+    bins = n // 2 + 1
+    nonzero = int(fb._frame_consts(mode, 16000, n, window, 40)[
+        "mel_len"].sum())
+    rest = (5 if mode == fb.KALDI else 1) * window + 3.0 * bins \
+        + 2.0 * nonzero
+    nbytes = 4.0 * rows * (window + 40)
+    return (_bound(rows * (2.0 * window * bins * 2 + rest), nbytes,
+                   F32_PEAK),
+            _bound(rows * (2.5 * n * math.log2(n) + rest), nbytes, F32_PEAK))
+
+
+def _rfft_power(f, consts):
+    import torch
+    spec = torch.fft.rfft(f, dim=1)
+    return spec.real.square() + spec.imag.square()
+
+
+def fbank_cufft(frames, mode):
+    """The library yardstick: the plain version with cuFFT's rfft in place
+    of the two DFT products (timed here, never the port's path)."""
+    from mlvae_tpu_torch.ops import fbank as fb
+    return fb.fbank_frames_ref(frames, mode, _power=_rfft_power)
+
+
+def time_fbank(dev, report, cases, errs, counts):
+    """K6 in each mode and shape against its plain version, the cuFFT
+    yardstick and its bound; the kernels line reports the wav-in eval
+    step's shape (SpeechBrain mode, B=64) and lists every shape."""
+    from mlvae_tpu_torch.ops import fbank as fb
+    by_shape = {}
+    for label, mode, frames, _ in cases:
+        small = frames.shape[0] < 1000
+        ms = cuda_ms(lambda: fb.fbank_frames_cuda(frames, mode),
+                     iters=100 if small else 20)
+        plain = cuda_ms(lambda: fb.fbank_frames_ref(frames, mode),
+                        iters=20 if small else 5)
+        lib = cuda_ms(lambda: fbank_cufft(frames, mode),
+                      iters=20 if small else 5)
+        lib_err = max_err(fbank_cufft(frames, mode),
+                          fb.fbank_frames_ref(frames, mode))
+        (b_ms, b_by), (f_ms, f_by) = fbank_bound(mode, frames.shape[0])
+        by_shape[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                               bound_ms=b_ms, bound_by=b_by,
+                               fft_bound_ms=f_ms, fft_bound_by=f_by,
+                               max_abs_err=errs[label],
+                               frames=frames.shape[0])
+        report(f"  fbank {label} ({frames.shape[0]} frames): {ms:.4f} ms "
+               f"(bound {b_ms:.4f} by {b_by} for the DFT over the window, "
+               f"{f_ms:.4f} by {f_by} for an FFT; plain {plain:.4f}; cuFFT "
+               f"rfft + power + mel + log {lib:.4f}, max abs err against "
+               f"the plain version {lib_err:.3e})")
+    shape = next(label for label, mode, _, repeat in cases
+                 if mode == fb.SB and repeat)  # the wav-in eval batch
+    head = by_shape[shape]
+    return [dict(name="fbank", route="cuda",
+                 source="mlvae_tpu_torch/csrc/fbank.cu",
+                 replaces="mlvae_tpu/ops/fbank_pallas.py:40",
+                 max_abs_err=head["max_abs_err"], ms=head["ms"],
+                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                 bound_by=head["bound_by"], fft_bound_ms=head["fft_bound_ms"],
+                 fft_bound_by=head["fft_bound_by"],
+                 library_ms=head["library_ms"],
+                 shape=shape, by_shape=by_shape, **counts["fbank"])]
+
+
+def host_ms(fn, iters, warmup=2):
+    """Host clock around calls that end on the host (a copy back)."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def time_wav(dev, report, model, B=64, T=160, L=8):
+    """The wav-in serving path: ``infer`` at B=1 split into read and
+    features, then the eval (``infer_features`` on those features); the
+    wav-in eval step at B=64; a profile of one wav-in eval step; and the
+    Kaldi feature pass (``compute_kaldi_features``: read, ``KaldiFbank``
+    with deltas, copy back, speaker CMVN) over written wav files."""
+    import tempfile
+    import torch
+    from mlvae_tpu_torch.bench_utils import synth_batch, synth_wav_batch
+    from mlvae_tpu_torch.cli.infer import infer, infer_features
+    from mlvae_tpu_torch.data.data_io import compute_kaldi_features
+    from mlvae_tpu_torch.data.wav import read_wav
+    from mlvae_tpu_torch.ops.fbank import Fbank, KaldiFbank
+    hparams, enc = wav_hparams()
+    fbank = hparams["compute_features"]
+    ids = enc.encode_sequence(CANONICAL)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "utt.wav"
+        write_utterance(path, T)
+
+        def features():
+            wave, _ = read_wav(path)
+            feats = fbank(torch.as_tensor(wave[None], device=dev))[0]
+            torch.cuda.synchronize()
+            return feats
+        feats = features()
+        out["infer_b1_ms"] = host_ms(
+            lambda: infer(model, hparams, enc, path, CANONICAL, device=dev),
+            iters=20)
+        out["infer_b1_read_features_ms"] = host_ms(features, iters=20)
+        out["infer_b1_eval_ms"] = host_ms(
+            lambda: infer_features(model, feats, ids, device=dev), iters=20)
+    report(f"  infer (wav in) B=1 T={T}: {out['infer_b1_ms']:.3f} ms; read "
+           f"and features {out['infer_b1_read_features_ms']:.3f} ms, eval "
+           f"{out['infer_b1_eval_ms']:.3f} ms")
+
+    waves, lengths = synth_wav_batch(B, T, seed=0, device=dev)
+    batch = model.prepare_batch(synth_batch(B, T, L, seed=0, device=dev))
+    noise = eval_noise(model, B, T, dev, seed=3)
+    wav_fbank = Fbank(deltas=True)
+
+    def wav_eval():
+        feats = wav_fbank(waves, lengths)
+        return model.eval_step(dict(batch, feat=(feats, batch["feat"][1])),
+                               noise=noise)
+    ms = cuda_ms(wav_eval, iters=10)
+    feat_ms = cuda_ms(lambda: wav_fbank(waves, lengths), iters=20)
+    out["wav_eval_step_ms"] = ms
+    out["wav_eval_features_ms"] = feat_ms
+    out["wav_eval_utt_sec_per_sec"] = B * T * HOP_SEC / (ms / 1e3)
+    report(f"  wav-in eval step B={B} T={T}: {ms:.3f} ms "
+           f"({out['wav_eval_utt_sec_per_sec']:.1f} utt-sec/sec), of which "
+           f"Fbank(deltas=True) alone {feat_ms:.3f} ms")
+    profile_step(wav_eval, "wav-in eval step", report)
+
+    utts = kaldi_pass_waves()
+    utt_sec = sum(len(w) for w in utts) / 16000.0
+    with tempfile.TemporaryDirectory() as tmp:
+        kaldi_hp = write_kaldi_dir(Path(tmp), utts, KALDI_SPEAKERS)
+        paths = sorted(Path(tmp).glob("*.wav"))
+        out["kaldi_pass_ms"] = host_ms(
+            lambda: compute_kaldi_features(kaldi_hp, "train", device=dev),
+            iters=3, warmup=1)
+        out["kaldi_pass_read_ms"] = host_ms(
+            lambda: [read_wav(p) for p in paths], iters=3, warmup=1)
+    kwaves, klens = kaldi_pass_batch(dev, utts)
+    kaldi = KaldiFbank()
+    out["kaldi_pass_extractor_ms"] = cuda_ms(lambda: kaldi(kwaves, klens),
+                                             iters=5)
+    out["kaldi_pass_utt_sec_per_sec"] = utt_sec / (out["kaldi_pass_ms"]
+                                                   / 1e3)
+    report(f"  Kaldi feature pass (compute_kaldi_features, {len(utts)} "
+           f"utterances of {KALDI_SPEAKERS} speakers, {utt_sec:.1f} utt-sec, "
+           f"one batch of up to {KALDI_PASS[1]} samples): "
+           f"{out['kaldi_pass_ms']:.3f} ms "
+           f"({out['kaldi_pass_utt_sec_per_sec']:.1f} utt-sec/sec); reading "
+           f"the wav files {out['kaldi_pass_read_ms']:.3f} ms, its one "
+           f"KaldiFbank call on the card "
+           f"{out['kaldi_pass_extractor_ms']:.3f} ms")
+    return out
+
+
 def profile_step(fn, label, report):
     """Device time of one call of ``fn`` by kernel name (torch.profiler)."""
     import torch
@@ -1239,10 +1709,15 @@ def main(argv=None) -> int:
     errs["lstm_fused_fwd"] = check_fused_fwd(dev, report)
     errs.update(check_fused_bwd(dev, report))
     stress_fused(dev, report, FUSED_REPEATS)
+    cases = fbank_cases(dev)
+    errs_fbank = check_fbank(dev, report, cases)
 
     report("phase 3 MD_VAE TEST eval step at full width (H=512, B=64, "
            "T=160, L=8)")
     model, batch, noise, eval_counts = run_slice(dev, report)
+    report("phase 3 wav in: infer at B=1, the wav-in eval forward at B=64, "
+           "the Kaldi feature pass")
+    wav_counts = run_wav(dev, report, model)
     report("phase 3 MD_VAE f32 training step at full width (H=512, B=64, "
            "T=160, L=8), two steps per target")
     train_model, train_batch, first_noise, train_counts = run_training(
@@ -1251,11 +1726,12 @@ def main(argv=None) -> int:
            "B=64, T=160, L=8), two steps per target")
     amp_model, amp_batch, amp_noise, amp_counts = run_training(
         dev, report, amp=True)
-    # the main path's launches: the eval forward's, the six f32 train
-    # steps' and the six AMP train steps'
-    counts = {k: {"launches": eval_counts[k] + train_counts[k]
-                  + amp_counts[k],
+    # the main path's launches: the eval forward's, the wav-in path's, the
+    # six f32 train steps' and the six AMP train steps'
+    counts = {k: {"launches": eval_counts[k] + wav_counts[k]
+                  + train_counts[k] + amp_counts[k],
                   "launches_eval_step": eval_counts[k],
+                  "launches_wav_in": wav_counts[k],
                   "launches_training": train_counts[k],
                   "launches_amp_training": amp_counts[k]}
               for k in eval_counts}
@@ -1265,6 +1741,9 @@ def main(argv=None) -> int:
     report("phase 4 times (CUDA events, after warm-up)")
     kernels, step = time_all(dev, report, model, batch, noise, prob, errs,
                              counts)
+    kernels += time_fbank(dev, report, cases, errs_fbank, counts)
+    del cases
+    wav_in = time_wav(dev, report, model)
     del model
     kernels += time_fused(dev, report, errs, counts)
     train_step = time_training(dev, report, train_model, train_batch,
@@ -1275,7 +1754,8 @@ def main(argv=None) -> int:
     del amp_model
     amp_step["VAE_B256"] = time_amp_vae(dev, report)
     report(json.dumps({"kernels": kernels, "eval_step": step,
-                       "train_step": train_step, "amp_train_step": amp_step}))
+                       "wav_in": wav_in, "train_step": train_step,
+                       "amp_train_step": amp_step}))
     report(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,7 +5,9 @@ The widths are the recipe's, copied from
 ``mlvae_tpu/models/MD_VAE/model.yaml``, with its Adam at ``lr``;
 ``overrides`` changes any of them (narrow widths for the CPU tests).
 ``synth_batch`` draws the same numpy values as the JAX package's
-``synth_batch`` for the same arguments.
+``synth_batch`` for the same arguments. ``synth_wave`` and
+``synth_wav_batch`` make audio for the wav front end: tones plus noise, as
+``tests/test_fbank_pallas.py`` makes them.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from mlvae_tpu_torch.training.optim import Adam
 N_PHONEMES = 12          # digits task (smoke-test scale)
 N_CLASSES = N_PHONEMES + 2
 INPUT_SIZE = 120         # 40 mel x 3 (static + delta + delta2)
+SAMPLE_RATE = 16000      # the recipe's front end (config/run.yaml)
+HOP = 320                # 20 ms
 
 RECIPE = {
     "input_size": INPUT_SIZE,
@@ -105,3 +109,38 @@ def synth_batch(batch_size: int = 8, T: int = 160, L: int = 8,
         "plvl_gt_md_lbl_seq": (t(md), t(cnncl_lens)),
         "prior": (t(prior_b), t(cnncl_lens)),
     }
+
+
+def synth_wave(n: int, seed: int = 0, scale: float = 8000.0,
+               am_hz: float = 0.0) -> np.ndarray:
+    """(n,) float32 audio: 220 Hz and 1330 Hz tones at ``scale`` plus
+    Gaussian noise at ``scale / 80``; the default is int16-scale (noise of
+    100, as ``tests/test_fbank_pallas.py``), ``scale / 32768`` gives
+    read_wav's [-1, 1]. ``am_hz`` > 0 modulates the whole by an envelope
+    from 0.2 to 1.2 at that rate, so that every band's energy moves from
+    frame to frame as in speech (a steady tone leaves a band's per-speaker
+    deviation near zero, and CMVN then divides by it)."""
+    rs = np.random.RandomState(seed)
+    t = np.arange(n) / float(SAMPLE_RATE)
+    sig = np.sin(2 * np.pi * 220 * t) + 0.3 * np.sin(2 * np.pi * 1330 * t)
+    wave = scale * sig + (scale / 80.0) * rs.randn(n)
+    if am_hz > 0:
+        wave = wave * (0.2 + np.abs(np.sin(2 * np.pi * am_hz * t)))
+    return wave.astype(np.float32)
+
+
+def synth_wav_batch(batch_size: int = 64, T: int = 160, seed: int = 0,
+                    device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Waves in [-1, 1], (B, (T-1)*HOP), on ``device``, and their lengths
+    (B,) on the host, as a caller knows them from the files: wave i has the
+    frame count ``synth_batch`` gives row i (T for the first), so that
+    ``Fbank(deltas=True)`` of the batch is the ``feat`` of
+    ``synth_batch(batch_size, T, ...)``."""
+    dev = resolve_device(device)
+    t_lens = np.round(np.linspace(1.0, 0.8, batch_size) * T).astype(int)
+    lengths = (t_lens - 1) * HOP
+    waves = np.zeros((batch_size, (T - 1) * HOP), np.float32)
+    for i, n in enumerate(lengths):
+        waves[i, :n] = synth_wave(int(n), seed + i) / 32768.0
+    return (torch.from_numpy(waves).to(dev),
+            torch.from_numpy(lengths.astype(np.int64)))

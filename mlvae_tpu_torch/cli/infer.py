@@ -1,10 +1,14 @@
-"""Features-in inference: per-phoneme mispronunciation verdicts for one
-utterance (counterpart of ``mlvae_tpu/cli/infer.py``'s ``infer``).
+"""Inference: per-phoneme mispronunciation verdicts for one utterance
+(counterpart of ``mlvae_tpu/cli/infer.py``'s ``infer``).
 
-It builds the same single-utterance batch as the JAX entry (uniform
-forced-alignment boundaries, zero MD labels) and runs the TEST-target eval
-step. The wav front end and the YAML/CLI layer come in a later slice, so
-the caller passes features (T, input_size) and canonical phoneme ids.
+``infer`` takes a wav file and the canonical phonemes as strings, as the
+JAX entry does: it reads and resamples the wav, runs the recipe's
+``compute_features`` (an ``ops.fbank.Fbank``, K6 on the card) and encodes
+the phonemes. ``infer_features`` takes features (T, input_size) and
+phoneme ids. Both build the JAX entry's single-utterance batch (uniform
+forced-alignment boundaries, zero MD labels) and run the TEST-target eval
+step. The YAML/CLI layer and checkpoint selection come in later slices,
+so the caller passes the model, a dict of hparams and the label encoder.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from mlvae_tpu_torch.data.wav import read_wav, resample
 from mlvae_tpu_torch.device import resolve_device
 
 # frame shift in ms when the model's hparams name none: the recipes' fbank
@@ -27,17 +32,47 @@ def _uniform_boundary(T: int, L: int) -> np.ndarray:
     return seq
 
 
+def infer(model, hparams, label_encoder, wav_path,
+          canonical_phonemes: Sequence[str], prior=None, device=None,
+          noise: Optional[Dict] = None) -> List[Dict]:
+    """One wav file -> one verdict per canonical phoneme, with the JAX
+    entry's keys: ``phoneme`` (the string), ``start_sec`` (``None`` where
+    the decode placed no boundary for it) and ``mispronounced``.
+    ``hparams`` holds the keys the JAX entry reads: ``sample_rate``,
+    ``hop_length`` (ms) and ``compute_features``. ``prior`` defaults to
+    uniform over the label encoder's labels; ``noise`` replays the eval
+    step's draws (see ``infer_features``)."""
+    dev = resolve_device(device)
+    wave, sr = read_wav(wav_path)
+    if sr != hparams["sample_rate"]:
+        wave = resample(wave, sr, hparams["sample_rate"])
+    feats = hparams["compute_features"](
+        torch.as_tensor(wave[None], device=dev))[0]
+    cnncl = label_encoder.encode_sequence(canonical_phonemes)
+    if prior is None:
+        prior = np.full(len(label_encoder), 1.0 / len(label_encoder),
+                        np.float32)
+    verdicts = infer_features(model, feats, cnncl, prior, device=dev,
+                              noise=noise)
+    hop_s = hparams["hop_length"] / 1000.0
+    return [{"phoneme": phn,
+             "start_sec": None if v["start_frame"] is None
+             else round(float(v["start_frame"]) * hop_s, 3),
+             "mispronounced": v["mispronounced"]}
+            for phn, v in zip(canonical_phonemes, verdicts)]
+
+
 def infer_features(model, feats, canonical_ids: Sequence[int],
                    prior=None, device=None,
                    noise: Optional[Dict] = None) -> List[Dict]:
-    """feats (T, C) -> one verdict per canonical phoneme: its id, start
-    frame and time (``None`` where the decode placed no boundary for it;
-    the time uses ``model.hparams["hop_length"]`` in ms, 20 if absent)
-    and whether it is mispronounced. The eval step's noise comes from a
-    generator seeded with 0, as the JAX entry uses ``PRNGKey(0)``, or from
-    ``noise`` (see ``MDVAE.compute_forward``)."""
+    """feats (T, C), an array or a tensor -> one verdict per canonical
+    phoneme: its id, start frame and time (``None`` where the decode placed
+    no boundary for it; the time uses ``model.hparams["hop_length"]`` in
+    ms, 20 if absent) and whether it is mispronounced. The eval step's
+    noise comes from a generator seeded with 0, as the JAX entry uses
+    ``PRNGKey(0)``, or from ``noise`` (see ``MDVAE.compute_forward``)."""
     dev = resolve_device(device)
-    feats = np.asarray(feats, np.float32)
+    feats = torch.as_tensor(feats, dtype=torch.float32, device=dev)
     T = feats.shape[0]
     L = len(canonical_ids)
     n_cls = model.hparams["n_phonemes"] + 2
@@ -51,7 +86,7 @@ def infer_features(model, feats, canonical_ids: Sequence[int],
     boundary = t(_uniform_boundary(T, L))
     batch = {
         "id": ["utt"],
-        "feat": (t(feats), one),
+        "feat": (feats[None], one),
         "gt_cnncl_seq": (t(canonical_ids, torch.int64), one),
         "fa_boundary_seq": (boundary, one),
         "gt_boundary_seq": (boundary, one),

@@ -12,9 +12,13 @@ import pytest
 import torch
 
 from mlvae_tpu_torch.bench_utils import build_md_vae, synth_batch
-from mlvae_tpu_torch.cli.infer import infer_features
+from mlvae_tpu_torch.bench_utils import synth_wav_batch
+from mlvae_tpu_torch.cli.infer import infer, infer_features
+from mlvae_tpu_torch.data.data_io import compute_kaldi_features
 from mlvae_tpu_torch.device import resolve_device
 from mlvae_tpu_torch.ops.decode import md_viterbi_batch
+from mlvae_tpu_torch.ops.fbank import (KALDI, SB, Fbank, KaldiFbank,
+                                        fbank_frames)
 from mlvae_tpu_torch.ops.lstm import lstm_layer_fwd
 
 torch.set_num_threads(2)
@@ -58,7 +62,10 @@ def test_port_sources_never_name_jax(path):
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "build_md_vae",
-                                   "synth_batch", "infer_features"])
+                                   "synth_batch", "infer_features", "infer",
+                                   "Fbank", "KaldiFbank",
+                                   "compute_kaldi_features",
+                                   "synth_wav_batch"])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -66,6 +73,11 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
         "build_md_vae": lambda: build_md_vae(),
         "synth_batch": lambda: synth_batch(2, 8, 2),
         "infer_features": lambda: infer_features(None, [[0.0]], [1]),
+        "infer": lambda: infer(None, {}, None, "utt.wav", ["a"]),
+        "Fbank": lambda: Fbank(deltas=True)([0.0] * 800),
+        "KaldiFbank": lambda: KaldiFbank()([0.0] * 800),
+        "compute_kaldi_features": lambda: compute_kaldi_features({}, "test"),
+        "synth_wav_batch": lambda: synth_wav_batch(2, 8),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -89,6 +101,17 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
                          torch.empty((2, 4, 2), device="meta"),
                          torch.empty((2,), device="meta"),
                          torch.empty((2,), device="meta"))
+
+
+@pytest.mark.parametrize("mode", [KALDI, SB])
+def test_fbank_wrapper_takes_the_plain_version_only_on_the_cpu(mode):
+    """K6's wrapper refuses a tensor on neither the CPU nor a CUDA device
+    (never computing it with the plain version), and on the CPU gives the
+    plain version's (rows, n_mels)."""
+    n = 512 if mode == KALDI else 400
+    with pytest.raises(ValueError):
+        fbank_frames(torch.empty((4, n), device="meta"), mode)
+    assert fbank_frames(torch.zeros((3, n)), mode).shape == (3, 40)
 
 
 @pytest.mark.parametrize("alone", [False, True])
