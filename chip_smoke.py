@@ -11,11 +11,13 @@ Phases, each reported on its own line; any failure exits non-zero:
    slices' shapes (B=64, T=160, H=512; the fused kernels at In=128, 512
    and 1024 as the AMP step gives them; the filterbank K6 in its Kaldi
    mode at the Kaldi pass's B=256 x 325 frames and B=1, in its
-   SpeechBrain mode at B=64 and B=1 x 160 frames), plus ragged and edge
-   cases, K1-fwd and K1-bwd again over many back-to-back launches
-   (``--lstm-repeats``, ``--lstm-bwd-repeats``), the fused kernels over a
-   few, K6 over 20 per mode that must be bit-identical, and K6's two
-   extractors against the float64 golden on two short utterances;
+   SpeechBrain mode at B=64 and B=1 x 160 frames; the GRU kernels K5-fwd
+   and K5-bwd in f32 and bf16), plus ragged and edge cases, K1-fwd and
+   K1-bwd again over many back-to-back launches (``--lstm-repeats``,
+   ``--lstm-bwd-repeats``), the fused kernels over a few, K5 over 50 per
+   kernel and direction, K6 over 20 per mode that must be bit-identical,
+   and K6's two extractors against the float64 golden on two short
+   utterances;
 3. MD_VAE at the recipe's full width (H=512, B=64, T=160, L=8, weights
    from a seed) through the kernels: the TEST-target eval step (finite
    losses, decoded boundaries that sum to each utterance's phoneme count,
@@ -33,15 +35,25 @@ Phases, each reported on its own line; any failure exits non-zero:
    plain versions; then the same two steps per target under AMP (bf16,
    ``build_md_vae(bf16=True)``), whose launches take K3/K4 and never K1,
    whose parameters and optimizer states stay f32, and whose VAE step is
-   also held against the f32 step from the same state and draws;
+   also held against the f32 step from the same state and draws; then
+   the BASELINE gate configs (``bench_utils.build_gate``): the GRU
+   sequence VAE of gate 3 at full width (C=120, H=512, LAT=32, B=64,
+   T=160), two f32 and two AMP steps, 3 K5-fwd and 3 K5-bwd launches a
+   step, each first step against the same step through the plain
+   versions and the AMP loss against the f32 loss, f32 parameters and
+   Adam states under AMP; and one step of each of gates 1, 2 and 4 on the
+   card against the same step on the CPU;
 4. times from CUDA events after warm-up: each kernel, its plain version,
    a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6),
    the eval step, the wav-in ``infer`` at B=1 (read and features, then
    the eval), the wav-in eval step at B=64, the Kaldi feature pass
    (``compute_kaldi_features`` over 256 written wav files, one batch,
    host clock), the f32 and AMP train steps of each target, the AMP VAE
-   step at the JAX bench's B=256, and profiles of one eval, one wav-in
-   eval, one f32 and one AMP VAE train step;
+   step at the JAX bench's B=256, K5-fwd and K5-bwd in f32 and bf16
+   beside their bounds, their plain versions and cuDNN's GRU layer, the
+   gate-3 train step in f32 and under AMP, and profiles of one eval, one
+   wav-in eval, one f32 and one AMP VAE train step and one f32 gate-3
+   step;
 5. a ``kernels`` JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -96,13 +108,25 @@ FBANK_REPEATS = 20    # phase 2's repeated K6 launches per mode: bit-equal
 CMVN_RTOL = 1e-4      # Kaldi features after speaker CMVN, card against
                       # CPU, of the largest entry (K6's errors divided by
                       # each band's deviation)
+# K5 against its plain versions: f32 sums in another order over T (and, in
+# the backward, over B*T for dW_hh and db_hh); under bf16 a sum can cross a
+# bf16 rounding boundary, and a flipped h_t feeds every later step
+GRU_ATOL = 1e-4       # f32 hs
+GRU_BWD_RTOL = 1e-4   # f32 dgx, dW_hh, db_hh, of their largest entry
+GRU_BF16_ATOL = 4e-3  # bf16 hs (one bf16 ulp at |h| < 1) and hs32
+GRU_BF16_BWD_RTOL = 1e-2  # bf16 backward: a dgh one bf16 ulp off
+GRU_REPEATS = 50      # phase 2's repeated launches per K5 kernel and
+                      # direction, half f32, half bf16
+GATE_RTOL = 1e-4      # gates 1, 2, 4 card against CPU: loss, and each
+                      # parameter's grad in norm (f32 sums in another order)
 
 # kernel launches in one eval forward: ten directional LSTM layers (2 + 2
 # + 2 + 2x2 bidirectional), one decode
 NO_FUSED = {"lstm_fused_fwd": 0, "lstm_fused_bwd": 0, "lstm_semi_bwd": 0}
 NO_FBANK = {"fbank": 0}
+NO_GRU = {"gru_fwd": 0, "gru_bwd": 0}
 PER_FORWARD = {"lstm_fwd": 10, "lstm_bwd": 0, "md_viterbi_lattice": 1,
-               "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK}
+               "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK, **NO_GRU}
 # the wav-in forward adds one K6 launch (SpeechBrain mode) for the batch
 PER_WAV_FORWARD = {**PER_FORWARD, "fbank": 1}
 # kernel launches in one training step: each target's forward runs the
@@ -112,28 +136,34 @@ PER_WAV_FORWARD = {**PER_FORWARD, "fbank": 1}
 # stop-gradients)
 PER_TRAIN_STEP = {
     "PHN_RECOG": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi_lattice": 0,
-                  "md_viterbi_backtrace": 0, **NO_FUSED, **NO_FBANK},
+                  "md_viterbi_backtrace": 0, **NO_FUSED, **NO_FBANK,
+                  **NO_GRU},
     "B_DETECTOR": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi_lattice": 0,
-                   "md_viterbi_backtrace": 0, **NO_FUSED, **NO_FBANK},
+                   "md_viterbi_backtrace": 0, **NO_FUSED, **NO_FBANK,
+                   **NO_GRU},
     "VAE": {"lstm_fwd": 10, "lstm_bwd": 6, "md_viterbi_lattice": 1,
-            "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK},
+            "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK, **NO_GRU},
 }
 # the same under AMP: every layer takes K3 or K4 and none K1; K4 only for
 # the decoder's In=1024 pair (K3-bwd: the rnn's 2 layers and decoder l0,
 # both directions)
 NO_K1 = {"lstm_fwd": 0, "lstm_bwd": 0}
 PER_AMP_STEP = {
-    "PHN_RECOG": {**NO_K1, **NO_FBANK, "md_viterbi_lattice": 0,
-                  "md_viterbi_backtrace": 0,
+    "PHN_RECOG": {**NO_K1, **NO_FBANK, **NO_GRU,
+                  "md_viterbi_lattice": 0, "md_viterbi_backtrace": 0,
                   "lstm_fused_fwd": 2, "lstm_fused_bwd": 2,
                   "lstm_semi_bwd": 0},
-    "B_DETECTOR": {**NO_K1, **NO_FBANK, "md_viterbi_lattice": 0,
-                   "md_viterbi_backtrace": 0, "lstm_fused_fwd": 2,
+    "B_DETECTOR": {**NO_K1, **NO_FBANK, **NO_GRU,
+                   "md_viterbi_lattice": 0, "md_viterbi_backtrace": 0,
+                   "lstm_fused_fwd": 2,
                    "lstm_fused_bwd": 2, "lstm_semi_bwd": 0},
-    "VAE": {**NO_K1, **NO_FBANK, "md_viterbi_lattice": 1,
+    "VAE": {**NO_K1, **NO_FBANK, **NO_GRU, "md_viterbi_lattice": 1,
             "md_viterbi_backtrace": 1,
             "lstm_fused_fwd": 10, "lstm_fused_bwd": 4, "lstm_semi_bwd": 2},
 }
+# one gate-3 train step: K5-fwd for the encoder and the decoder's two
+# directions, K5-bwd for each of them; nothing else
+PER_GATE3_STEP = {**{k: 0 for k in PER_FORWARD}, "gru_fwd": 3, "gru_bwd": 3}
 ACTIVE = {
     "PHN_RECOG": {"phoneme_recognizer"},
     "B_DETECTOR": {"boundary_detector"},
@@ -531,6 +561,106 @@ def stress_fused(dev, report, repeats):
           "repeated launches")
 
 
+def gru_problem(g, dev, T, B, H, bf16, reverse):
+    """A K5 input at the scale of the recipe's layers (W_hh and b_hh
+    U(+-1/sqrt(H))): gx and W_hh in the stream dtype, b_hh f32, the plain
+    forward's hs (and hs32) and random cotangents in the stream dtype."""
+    import torch
+    from mlvae_tpu_torch.ops.gru import gru_layer_ref
+    dt = torch.bfloat16 if bf16 else torch.float32
+    gx = (torch.randn((T, B, 3 * H), generator=g, device=dev) * 0.5).to(dt)
+    w = ((torch.rand((3 * H, H), generator=g, device=dev) * 2 - 1)
+         / H ** 0.5).to(dt)
+    b = (torch.rand((3 * H,), generator=g, device=dev) * 2 - 1) / H ** 0.5
+    hs, hs32 = gru_layer_ref(gx, w, b, reverse)
+    dhs = (torch.randn((T, B, H), generator=g, device=dev) * 0.1).to(dt)
+    return gx, w, b, hs, hs32, dhs
+
+
+def gru_errors(fwd, bwd, want_fwd, want_bwd):
+    """(max abs error of hs and hs32; each backward output's max error
+    relative to its largest entry)."""
+    f = max(max_err(fwd[0], want_fwd[0]),
+            max_err(fwd[1], want_fwd[1]) if want_fwd[1] is not None else 0.0)
+    return f, [rel_err(a, b) for a, b in zip(bwd, want_bwd)]
+
+
+def check_gru(dev, report):
+    """K5-fwd and K5-bwd against their plain versions, f32 and bf16, both
+    directions, at the gate-3 shape and ragged ones (B=5, T=1, H=128, a B
+    past one tile of 64). Returns the worst max abs error of hs and of dgx
+    at the full shape, per kernel."""
+    import torch
+    from mlvae_tpu_torch.ops import gru as G
+    g = torch.Generator(device=dev).manual_seed(41)
+    worst = {"gru_fwd": 0.0, "gru_bwd": 0.0}
+    cases = [(160, 64, 512), (1, 64, 512), (7, 5, 512), (9, 70, 128),
+             (12, 3, 128)]
+    for T, B, H in cases:
+        for bf16 in (False, True):
+            atol, rtol = ((GRU_BF16_ATOL, GRU_BF16_BWD_RTOL) if bf16
+                          else (GRU_ATOL, GRU_BWD_RTOL))
+            for reverse in (False, True):
+                gx, w, b, hs, hs32, dhs = gru_problem(g, dev, T, B, H, bf16,
+                                                      reverse)
+                fwd = G.gru_layer_fwd(gx, w, b, reverse)
+                bwd = G.gru_layer_bwd(gx, w, b, hs, hs32, dhs, reverse)
+                want_bwd = G.gru_layer_bwd_ref(gx, w, b, hs, hs32, dhs,
+                                               reverse)
+                torch.cuda.synchronize()
+                f_err, b_errs = gru_errors(fwd, bwd, (hs, hs32), want_bwd)
+                ok_dtype = (fwd[0].dtype == gx.dtype
+                            and (fwd[1] is None) == (not bf16)
+                            and bwd[0].dtype == gx.dtype)
+                report(f"  gru T={T} B={B} H={H} "
+                       f"{'bf16' if bf16 else 'f32'} reverse={reverse}: "
+                       f"hs max_abs_err {f_err:.3e} (tol {atol:g}); "
+                       "backward max err rel to largest entry "
+                       + ", ".join(f"{n} {e:.3e}" for n, e in zip(
+                           ("dgx", "dW_hh", "db_hh"), b_errs))
+                       + f" (tol {rtol:g}); dgx max abs err "
+                       f"{max_err(bwd[0], want_bwd[0]):.3e}")
+                check(ok_dtype, "gru kernels returned the wrong dtypes")
+                check(f_err <= atol, f"gru_fwd disagrees: {f_err}")
+                check(max(b_errs) <= rtol, f"gru_bwd disagrees: {b_errs}")
+                if (T, B, H) == cases[0]:
+                    worst["gru_fwd"] = max(worst["gru_fwd"], f_err)
+                    worst["gru_bwd"] = max(worst["gru_bwd"],
+                                           max_err(bwd[0], want_bwd[0]))
+    return worst
+
+
+def stress_gru(dev, report, repeats):
+    """Repeated K5-fwd and K5-bwd launches at the gate-3 shape, back to
+    back, each held against the plain version on its inputs: per kernel
+    and direction ``repeats`` launches, half in f32 and half in bf16."""
+    import torch
+    from mlvae_tpu_torch.ops import gru as G
+    g = torch.Generator(device=dev).manual_seed(42)
+    T, B, H = 160, 64, 512
+    total, wrong = 0, []
+    for bf16 in (False, True):
+        atol, rtol = ((GRU_BF16_ATOL, GRU_BF16_BWD_RTOL) if bf16
+                      else (GRU_ATOL, GRU_BWD_RTOL))
+        for reverse in (False, True):
+            gx, w, b, hs, hs32, dhs = gru_problem(g, dev, T, B, H, bf16,
+                                                  reverse)
+            want_bwd = G.gru_layer_bwd_ref(gx, w, b, hs, hs32, dhs, reverse)
+            for j in range(repeats // 2):
+                fwd = G.gru_layer_fwd(gx, w, b, reverse)
+                bwd = G.gru_layer_bwd(gx, w, b, hs, hs32, dhs, reverse)
+                f_err, b_errs = gru_errors(fwd, bwd, (hs, hs32), want_bwd)
+                total += 2
+                if f_err > atol or max(b_errs) > rtol:
+                    wrong.append((bf16, reverse, j, f_err, max(b_errs)))
+    report(f"  gru kernels repeated: {total} launches at T=160, B=64, "
+           f"H=512, f32 and bf16, both directions: {len(wrong)} wrong"
+           + (f"; wrong (bf16, reverse, launch, hs err, bwd err): "
+              f"{wrong[:8]}" if wrong else ""))
+    check(not wrong, f"gru kernels wrong in {len(wrong)} of {total} "
+          "repeated launches")
+
+
 def check_viterbi(dev, report):
     import numpy as np
     import torch
@@ -692,9 +822,12 @@ def twins():
     import contextlib
     from mlvae_tpu_torch.ops import decode as dec
     from mlvae_tpu_torch.ops import fbank as fb
+    from mlvae_tpu_torch.ops import gru
     from mlvae_tpu_torch.ops import lstm
 
-    plain = {(lstm, "lstm_layer_fwd"): lstm.lstm_layer_ref,
+    plain = {(gru, "gru_layer_fwd"): gru.gru_layer_ref,
+             (gru, "gru_layer_bwd"): gru.gru_layer_bwd_ref,
+             (lstm, "lstm_layer_fwd"): lstm.lstm_layer_ref,
              (lstm, "lstm_layer_bwd"): lstm.lstm_layer_bwd_ref,
              (lstm, "lstm_fused_fwd"): lstm.lstm_fused_fwd_ref,
              (lstm, "lstm_fused_bwd"): lstm.lstm_fused_bwd_ref,
@@ -1155,6 +1288,133 @@ def run_training(dev, report, B=64, T=160, L=8, amp=False):
     return model, batch, first_noise, total
 
 
+def gate_noise(gate, batch, g):
+    """One step's standard normal draws, from ``g`` on its device."""
+    import torch
+    return {k: torch.randn(shape, generator=g, device=g.device)
+            for k, shape in gate.draws(batch).items()}
+
+
+def gate_grad_norms(gate):
+    """Each top-level module's norm of the grads the last step applied."""
+    import torch
+    return {name: float(torch.stack([p.grad.double().square().sum()
+                                     for p in mod.parameters()]).sum().sqrt())
+            for name, mod in gate.named_children()}
+
+
+def gate_f32_state(gate) -> bool:
+    import torch
+    return all(t.dtype == torch.float32 for t in
+               [p for p in gate.parameters()]
+               + [p.grad for p in gate.parameters()]
+               + [gate.opt_state["mu"], gate.opt_state["nu"]])
+
+
+def run_gate3(dev, report, B=64, T=160, amp=False, ref_f32=None):
+    """Two gate-3 train steps at full width through the kernels; the first
+    also through the plain versions from the same state and draws.
+    ``amp``: under AMP, with f32 parameters and states kept, the first
+    loss also held against ``ref_f32`` (the f32 gate's first loss, same
+    weights and draws). Returns (gate, batch, first draws, first loss,
+    launches of the two kernel steps)."""
+    import numpy as np
+    import torch
+    from mlvae_tpu_torch.bench_utils import GATE3_RECIPE, build_gate, \
+        gate_batch
+    gate = build_gate(3, seed=0, device=dev, amp=amp, full_width=True)
+    batch = gate_batch(3, device=dev, B=B, T=T, C=GATE3_RECIPE["C"])
+    g = torch.Generator(device=dev).manual_seed(43)
+    loss_tol, grad_tol = (AMP_LOSS_RTOL, AMP_GRAD_RTOL) if amp else \
+        (LOSS_RTOL, GRAD_RTOL)
+    total = {k: 0 for k in launches()}
+    label = "AMP" if amp else "f32"
+    for step in range(2):
+        noise = gate_noise(gate, batch, g)
+        if step == 0:
+            first_noise = noise
+            start = ({k: v.clone() for k, v in gate.state_dict().items()},
+                     {k: v.clone() for k, v in gate.opt_state.items()})
+            with twins():
+                reset_launches()
+                ref_loss = gate.train_step(batch, noise)
+                ref_norms = gate_grad_norms(gate)
+                torch.cuda.synchronize()
+                check(sum(launches().values()) == 0,
+                      "the plain gate-3 step hit a kernel")
+            gate.load_state_dict(start[0])
+            for k, v in start[1].items():
+                gate.opt_state[k].copy_(v)
+        reset_launches()
+        loss = gate.train_step(batch, noise)
+        torch.cuda.synchronize()
+        counts = launches()
+        for k in total:
+            total[k] += counts[k]
+        report(f"  gate 3 {label} step {step + 1}: loss {float(loss):.6f}; "
+               f"launches {counts}")
+        check(np.isfinite(float(loss)), "non-finite gate-3 loss")
+        check(counts == PER_GATE3_STEP,
+              f"gate-3 launch counts {counts} != {PER_GATE3_STEP}")
+        check(gate_f32_state(gate), "a gate-3 parameter, grad or Adam state "
+              "is not f32")
+        if step == 0:
+            first_loss = float(loss)
+            norms = gate_grad_norms(gate)
+            loss_rel = abs(first_loss - float(ref_loss)) / abs(
+                float(ref_loss))
+            norm_rel = {k: abs(v - ref_norms[k]) / ref_norms[k]
+                        for k, v in norms.items()}
+            report(f"  against the plain versions: loss rel err "
+                   f"{loss_rel:.3e} (tol {loss_tol:g}); grad norm rel err "
+                   + ", ".join(f"{k} {v:.3e}" for k, v in norm_rel.items())
+                   + f" (tol {grad_tol:g})")
+            check(loss_rel <= loss_tol, "gate-3 loss disagrees")
+            check(max(norm_rel.values()) <= grad_tol,
+                  "gate-3 grads disagree")
+            if ref_f32 is not None:
+                f32_rel = abs(first_loss - ref_f32) / abs(ref_f32)
+                report(f"  against the f32 step from the same weights and "
+                       f"draws: f32 loss {ref_f32:.6f}, rel err "
+                       f"{f32_rel:.3e} (tol {AMP_F32_RTOL:g})")
+                check(f32_rel <= AMP_F32_RTOL,
+                      "the AMP gate-3 loss is far from the f32 loss")
+    report(f"  launches in the two {label} gate-3 steps: {total}")
+    return gate, batch, first_noise, first_loss, total
+
+
+def run_small_gates(dev, report):
+    """One step of gates 1, 2 and 4 on the card against the same step on
+    the CPU (same weights, batch and draws): the loss and each parameter's
+    applied grad. They reach no kernel."""
+    import torch
+    from mlvae_tpu_torch.bench_utils import build_gate, gate_batch
+    for n in (1, 2, 4):
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            gate = build_gate(n, seed=0, device=d)
+            batch = gate_batch(n, device=d)
+            g = torch.Generator(device="cpu").manual_seed(44)
+            noise = {k: torch.randn(shape, generator=g).to(d)
+                     for k, shape in gate.draws(batch).items()}
+            reset_launches()
+            loss = gate.train_step(batch, noise)
+            counts = launches()
+            out[d.type] = (float(loss), {k: p.grad.cpu() for k, p in
+                                         gate.named_parameters()}, counts)
+        (loss, grads, counts), (loss_c, grads_c, _) = out[dev.type], \
+            out["cpu"]
+        loss_rel = abs(loss - loss_c) / abs(loss_c)
+        grad_rel = max(float((grads[k].double() - grads_c[k].double()).norm()
+                             / grads_c[k].double().norm()) for k in grads_c)
+        report(f"  gate {n} one step, card against CPU: loss {loss:.6f} "
+               f"rel err {loss_rel:.3e}, worst grad rel err (norm) "
+               f"{grad_rel:.3e} (tol {GATE_RTOL:g}); launches "
+               f"{sum(counts.values())}")
+        check(loss_rel <= GATE_RTOL and grad_rel <= GATE_RTOL
+              and sum(counts.values()) == 0, f"gate {n} disagrees")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
@@ -1454,6 +1714,100 @@ def time_amp_vae(dev, report, B=256, T=160, L=8):
     return out
 
 
+def gru_fwd_bound(T, B, H, bf16):
+    """The recurrent product per step at the stream dtype's peak (f32 on
+    the CUDA cores, bf16 on the tensor cores), against gx, W_hh, b_hh read
+    and hs (and hs32 under bf16) written once."""
+    item = 2.0 if bf16 else 4.0
+    flops = 2.0 * B * H * 3 * H * T
+    nbytes = (item * (T * B * 3 * H + 3 * H * H + T * B * H) + 4.0 * 3 * H
+              + (4.0 * T * B * H if bf16 else 0.0))
+    return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
+
+
+def gru_bwd_bound(T, B, H, bf16):
+    """Three products per step (the recompute, dh_{t-1} = dgh W_hh, dW_hh
+    += h_{t-1}^T dgh) against gx, hs, dhs, W_hh, b_hh (and hs32) read and
+    dgx, dW_hh, db_hh written once."""
+    item = 2.0 if bf16 else 4.0
+    flops = 3 * 2.0 * B * H * 3 * H * T
+    nbytes = (item * (2 * T * B * 3 * H + 2 * T * B * H + 3 * H * H)
+              + 4.0 * (3 * H + 3 * H * H + 3 * H)
+              + (4.0 * T * B * H if bf16 else 0.0))
+    return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
+
+
+def time_gru(dev, report, errs, counts):
+    """K5-fwd and K5-bwd at the gate-3 shape (T=160, B=64, H=512) in f32
+    and bf16, their plain versions and bounds, and cuDNN's one-layer GRU
+    (``torch.nn.GRU``, the same b_hn-inside-r semantics; never the port's
+    path) at the encoder's In=120: its forward with the input projection,
+    and its forward+backward less its forward, which also forms dX and
+    dW_ih. The kernels line reports f32 and lists bf16 beside it."""
+    import torch
+    from mlvae_tpu_torch.ops import gru as G
+    T, B, H, In = 160, 64, 512, 120
+    g = torch.Generator(device=dev).manual_seed(45)
+    rows = {}
+    for bf16 in (False, True):
+        dt = torch.bfloat16 if bf16 else torch.float32
+        gx, w, b, hs, hs32, dhs = gru_problem(g, dev, T, B, H, bf16, False)
+        fwd = cuda_ms(lambda: G.gru_layer_fwd(gx, w, b, False), iters=20)
+        bwd = cuda_ms(lambda: G.gru_layer_bwd(gx, w, b, hs, hs32, dhs,
+                                              False), iters=10)
+        fwd_plain = cuda_ms(lambda: G.gru_layer_ref(gx, w, b, False),
+                            iters=3, warmup=1)
+        bwd_plain = cuda_ms(lambda: G.gru_layer_bwd_ref(
+            gx, w, b, hs, hs32, dhs, False), iters=2, warmup=1)
+        cudnn = torch.nn.GRU(In, H, 1).to(dev, dt)
+        cudnn.flatten_parameters()
+        x = torch.randn((T, B, In), generator=g, device=dev).to(dt)
+        with torch.no_grad():
+            lib_fwd = cuda_ms(lambda: cudnn(x), iters=20)
+        xg = x.clone().requires_grad_()
+        dy = torch.randn((T, B, H), generator=g, device=dev).to(dt)
+        fwd_grad = cuda_ms(lambda: cudnn(xg), iters=10)
+        lib_bwd = cuda_ms(lambda: cudnn(xg)[0].backward(dy),
+                          iters=10) - fwd_grad
+        label = "bf16" if bf16 else "f32"
+        for name, ms, plain, lib, (b_ms, b_by) in (
+                ("gru_fwd", fwd, fwd_plain, lib_fwd,
+                 gru_fwd_bound(T, B, H, bf16)),
+                ("gru_bwd", bwd, bwd_plain, lib_bwd,
+                 gru_bwd_bound(T, B, H, bf16))):
+            rows[(name, label)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                       bound_ms=b_ms, bound_by=b_by)
+            report(f"  {name} {label}: {ms:.4f} ms (bound {b_ms:.4f} by "
+                   f"{b_by}; plain {plain:.4f}; cuDNN {label} GRU layer "
+                   + ("forward incl. input projection" if name == "gru_fwd"
+                      else "forward+backward less forward, incl. dX and "
+                      "dW_ih") + f" {lib:.4f})")
+    out = []
+    for name, line in (("gru_fwd", 31), ("gru_bwd", 63)):
+        head = rows[(name, "f32")]
+        out.append(dict(
+            name=name, route="cuda",
+            source=f"mlvae_tpu_torch/csrc/{name}.cu",
+            replaces=f"mlvae_tpu/ops/gru_pallas.py:{line}",
+            max_abs_err=errs[name], **head, shape="T=160 B=64 H=512 f32",
+            bf16=rows[(name, "bf16")], **counts[name]))
+    return out
+
+
+def time_gate3(dev, report, gate, batch, noise, label):
+    """The gate-3 train step at full width (each step continuing the
+    training), and for f32 a profile of one step."""
+    B, T = batch["feats"].shape[:2]
+    ms = cuda_ms(lambda: gate.train_step(batch, noise), iters=5, warmup=1)
+    out = {"ms": ms, "utt_sec_per_sec": B * T * HOP_SEC / (ms / 1e3)}
+    report(f"  {label} gate-3 train step B={B} T={T}: {ms:.3f} ms "
+           f"({out['utt_sec_per_sec']:.1f} utt-sec/sec)")
+    if label == "f32":
+        profile_step(lambda: gate.train_step(batch, noise),
+                     "f32 gate-3 train step", report)
+    return out
+
+
 def fbank_bound(mode, rows):
     """K6's least time on ``rows`` frames, counted two ways, each against
     the window's 400 columns read and the 40 log-mels written once: as K6
@@ -1711,6 +2065,8 @@ def main(argv=None) -> int:
     stress_fused(dev, report, FUSED_REPEATS)
     cases = fbank_cases(dev)
     errs_fbank = check_fbank(dev, report, cases)
+    errs.update(check_gru(dev, report))
+    stress_gru(dev, report, GRU_REPEATS)
 
     report("phase 3 MD_VAE TEST eval step at full width (H=512, B=64, "
            "T=160, L=8)")
@@ -1726,14 +2082,25 @@ def main(argv=None) -> int:
            "B=64, T=160, L=8), two steps per target")
     amp_model, amp_batch, amp_noise, amp_counts = run_training(
         dev, report, amp=True)
+    report("phase 3 BASELINE gate configs: gate 3 (GRU sequence VAE) at "
+           "full width (C=120, H=512, LAT=32, B=64, T=160), two f32 and two "
+           "AMP steps; gates 1, 2, 4 one step each, card against CPU")
+    gate, gate_batch, gate_noise_, gate_loss, gate_counts = run_gate3(
+        dev, report)
+    amp_gate, amp_gate_batch, amp_gate_noise, _, amp_gate_counts = \
+        run_gate3(dev, report, amp=True, ref_f32=gate_loss)
+    run_small_gates(dev, report)
     # the main path's launches: the eval forward's, the wav-in path's, the
-    # six f32 train steps' and the six AMP train steps'
+    # six f32 and six AMP MD_VAE train steps', and the four gate-3 steps'
     counts = {k: {"launches": eval_counts[k] + wav_counts[k]
-                  + train_counts[k] + amp_counts[k],
+                  + train_counts[k] + amp_counts[k] + gate_counts[k]
+                  + amp_gate_counts[k],
                   "launches_eval_step": eval_counts[k],
                   "launches_wav_in": wav_counts[k],
                   "launches_training": train_counts[k],
-                  "launches_amp_training": amp_counts[k]}
+                  "launches_amp_training": amp_counts[k],
+                  "launches_gate3": gate_counts[k],
+                  "launches_amp_gate3": amp_gate_counts[k]}
               for k in eval_counts}
     check(all(c["launches"] > 0 for c in counts.values()),
           f"a kernel of the path never launched: {counts}")
@@ -1753,9 +2120,15 @@ def main(argv=None) -> int:
                              label="AMP")
     del amp_model
     amp_step["VAE_B256"] = time_amp_vae(dev, report)
+    kernels += time_gru(dev, report, errs, counts)
+    gate3_step = {"f32": time_gate3(dev, report, gate, gate_batch,
+                                    gate_noise_, "f32"),
+                  "amp": time_gate3(dev, report, amp_gate, amp_gate_batch,
+                                    amp_gate_noise, "AMP")}
     report(json.dumps({"kernels": kernels, "eval_step": step,
                        "wav_in": wav_in, "train_step": train_step,
-                       "amp_train_step": amp_step}))
+                       "amp_train_step": amp_step,
+                       "gate3_train_step": gate3_step}))
     report(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,17 +8,35 @@ The widths are the recipe's, copied from
 ``synth_batch`` for the same arguments. ``synth_wave`` and
 ``synth_wav_batch`` make audio for the wav front end: tones plus noise, as
 ``tests/test_fbank_pallas.py`` makes them.
+
+The four BASELINE gate configs (``BASELINE.json`` ``configs[0..3]``) are
+composed here as ``tests/test_gate_configs.py`` composes them in the JAX
+package, each with its train step (``Gate``): gate 1 a ``VanillaVAE`` and a
+``Linear`` head, gate 2 a ``ConvVAE``, gate 3 a GRU sequence VAE over
+variable-length utterances, gate 4 a ``GroupedLatentVAE`` with
+``group_elbo``. ``gate_batch`` draws the JAX test's inputs.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
+from torch.func import functional_call
 
 from mlvae_tpu_torch.device import resolve_device
 from mlvae_tpu_torch.models.MD_VAE.model import MDVAE
+from mlvae_tpu_torch.modules.conv_vae import ConvVAE
+from mlvae_tpu_torch.modules.grouped_vae import GroupedLatentVAE, group_elbo
+from mlvae_tpu_torch.modules.vanilla_vae import VanillaVAE
+from mlvae_tpu_torch.nn import dist as D
+from mlvae_tpu_torch.nn.layers import Linear
+from mlvae_tpu_torch.nn.rnn import GRU
+from mlvae_tpu_torch.training.brain import cast_floats, f32_gemm_sums
 from mlvae_tpu_torch.training.optim import Adam
+from mlvae_tpu_torch.utils.tensor import apply_lens_to_loss
 
 N_PHONEMES = 12          # digits task (smoke-test scale)
 N_CLASSES = N_PHONEMES + 2
@@ -144,3 +162,226 @@ def synth_wav_batch(batch_size: int = 64, T: int = 160, seed: int = 0,
         waves[i, :n] = synth_wave(int(n), seed + i) / 32768.0
     return (torch.from_numpy(waves).to(dev),
             torch.from_numpy(lengths.astype(np.int64)))
+
+
+# ---------------------------------------------------------------------------
+# The BASELINE gate configs
+# ---------------------------------------------------------------------------
+
+# gate 3 at the recipe's widths: fbank with deltas in, H=512 as every RNN of
+# the recipe, MD_VAE's latent; one layer each, as the gate composes them
+GATE3_RECIPE = {"C": INPUT_SIZE, "H": 512, "LAT": 32}
+# each gate's shapes in tests/test_gate_configs.py
+GATE_TEST = {1: {"B": 1, "T": 50, "C": 80},
+             2: {"B": 8, "H": 16, "W": 40},
+             3: {"B": 4, "T": 24, "C": 20, "H": 32, "LAT": 8},
+             4: {"B": 6, "T": 20, "C": 24}}
+GATE_LENS = {3: [1.0, 0.9, 0.75, 0.5], 4: [1.0, 1.0, 0.8, 0.7, 0.6, 0.5]}
+
+
+class Gate(nn.Module):
+    """One gate composition and its train step: the loss of ``forward``'s
+    predictions (``objective``), its gradient by autograd, then one step of
+    the port's ``Adam`` over all the parameters, as ``optax.adam`` steps
+    them in the JAX test (no clip). ``noise`` holds the step's standard
+    normal draws by the names and shapes of ``draws``. With ``amp`` the
+    forward runs on bf16 parameters and a bf16 batch
+    (``training.brain.cast_floats``, the relative lengths kept f32), as
+    ``Brain.train_step`` runs it under ``auto_mix_prec``; the predictions
+    come back in f32, the grads reach the f32 parameters, and the Adam
+    states stay f32."""
+
+    lr = 1e-2   # the JAX test's optax.adam(1e-2)
+
+    def __init__(self, amp: bool = False):
+        super().__init__()
+        self.amp = bool(amp)
+
+    def init_optimizer(self) -> None:
+        self.opt = Adam(lr=self.lr)
+        self.opt_state = self.opt.init(list(self.parameters()))
+
+    def draws(self, batch: Dict) -> Dict[str, Tuple[int, ...]]:
+        raise NotImplementedError
+
+    def objective(self, preds: Dict, batch: Dict) -> torch.Tensor:
+        raise NotImplementedError
+
+    def loss(self, batch: Dict, noise: Dict) -> torch.Tensor:
+        if not self.amp:
+            return self.objective(self(batch, noise), batch)
+        params = {n: p.to(torch.bfloat16)
+                  for n, p in self.named_parameters()}
+        preds = functional_call(
+            self, params, (cast_floats(batch, torch.bfloat16, 2), noise))
+        return self.objective(cast_floats(preds, torch.float32), batch)
+
+    def train_step(self, batch: Dict, noise: Dict) -> torch.Tensor:
+        """One step; returns the loss before it, detached. Afterwards each
+        parameter's ``.grad`` holds the gradient that was applied. Under
+        AMP the GEMMs of the forward and the backward sum in f32."""
+        params = list(self.parameters())
+        for p in params:
+            p.grad = None
+        with (f32_gemm_sums() if self.amp else contextlib.nullcontext()):
+            loss = self.loss(batch, noise)
+            loss.backward()
+        grad = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).reshape(-1)
+                          for p in params])
+        self.opt.step(params, grad, self.opt_state)
+        return loss.detach()
+
+
+class DenseGate(Gate):
+    """Gate 1: a dense MLP-VAE on the log-mel frames of one utterance and a
+    linear reconstruction head."""
+
+    def __init__(self, C: int, amp: bool = False,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(amp)
+        kw = dict(generator=generator, device=device)
+        self.vae = VanillaVAE([C, 32, 32], 8, **kw)
+        self.head = Linear(8, C, **kw)
+
+    def draws(self, batch):
+        B, T, _ = batch["feats"].shape
+        return {"eps": (B, T, 8)}
+
+    def forward(self, batch, noise):
+        out = self.vae(batch["feats"], eps=noise["eps"])
+        return {"recon": self.head(out["sampled_h"]), "loss": out["loss"]}
+
+    def objective(self, preds, batch):
+        return ((preds["recon"] - batch["feats"]) ** 2).mean() \
+            + 1e-3 * preds["loss"].mean()
+
+
+class ConvGate(Gate):
+    """Gate 2: the conv encoder/decoder VAE on fixed-size spectrogram
+    patches."""
+
+    def __init__(self, patch_shape: Sequence[int], amp: bool = False,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(amp)
+        self.vae = ConvVAE(patch_shape, 16, channels=(8, 16),
+                           generator=generator, device=device)
+
+    def draws(self, batch):
+        return {"eps": (batch["patches"].shape[0], 16)}
+
+    def forward(self, batch, noise):
+        return self.vae(batch["patches"], eps=noise["eps"])
+
+    def objective(self, preds, batch):
+        return preds["recon_loss"].mean() + 1e-3 * preds["loss"].mean()
+
+
+class GRUGate(Gate):
+    """Gate 3: a GRU encoder, mean / log-var heads, the reparameterised
+    per-frame latent, a bidirectional GRU decoder and an output head, under
+    the masked loss ``apply_lens_to_loss(recon^2) + 1e-3 *
+    apply_lens_to_loss(kld)``. Each step launches K5-fwd three times (the
+    encoder, the decoder's two directions) and K5-bwd three times."""
+
+    def __init__(self, C: int, H: int, LAT: int, amp: bool = False,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(amp)
+        kw = dict(generator=generator, device=device)
+        self.enc = GRU(C, H, num_layers=1, **kw)
+        self.dec = GRU(LAT, H, num_layers=1, bidirectional=True, **kw)
+        self.mean = Linear(H, LAT, **kw)
+        self.log_var = Linear(H, LAT, **kw)
+        self.out = Linear(2 * H, C, **kw)
+        self.latent = LAT
+
+    def draws(self, batch):
+        B, T, _ = batch["feats"].shape
+        return {"eps": (B, T, self.latent)}
+
+    def forward(self, batch, noise):
+        h, _ = self.enc(batch["feats"])
+        mean, log_var = self.mean(h), self.log_var(h)
+        z = D.reparameterize(mean, log_var, eps=noise["eps"])
+        dh, _ = self.dec(z)
+        return {"recon": self.out(dh), "mean": mean, "log_var": log_var}
+
+    def objective(self, preds, batch):
+        lens = batch["lens"]
+        return apply_lens_to_loss((preds["recon"] - batch["feats"]) ** 2,
+                                  lens) \
+            + 1e-3 * apply_lens_to_loss(
+                D.kld_std_normal(preds["mean"], preds["log_var"]), lens)
+
+
+class GroupedGate(Gate):
+    """Gate 4: the multi-level VAE with grouped (utterance and frame)
+    latents under the group-ELBO."""
+
+    def __init__(self, C: int, amp: bool = False,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(amp)
+        self.vae = GroupedLatentVAE([C, 32, 32], 6, 4, [32, C],
+                                    generator=generator, device=device)
+
+    def draws(self, batch):
+        B, T, _ = batch["feats"].shape
+        return {"eps_frame": (B, T, 6), "eps_utt": (B, 4)}
+
+    def forward(self, batch, noise):
+        return self.vae(batch["feats"], batch["lens"], **noise)
+
+    def objective(self, preds, batch):
+        return group_elbo(preds, batch["feats"], batch["lens"],
+                          kld_weight=1e-3)
+
+
+def build_gate(n: int, seed: int = 0, device=None, amp: bool = False,
+               full_width: bool = False) -> Gate:
+    """Gate ``n`` (1-4) at the JAX test's shapes, weights drawn from
+    ``seed`` on ``device`` (None means CUDA), its Adam state initialised;
+    ``full_width`` builds gate 3 at ``GATE3_RECIPE``'s widths."""
+    dev = resolve_device(device)
+    kw = dict(amp=amp, generator=torch.Generator(device="cpu").manual_seed(
+        seed))
+    if n == 1:
+        gate = DenseGate(GATE_TEST[1]["C"], **kw)
+    elif n == 2:
+        gate = ConvGate((GATE_TEST[2]["H"], GATE_TEST[2]["W"]), **kw)
+    elif n == 3:
+        w = GATE3_RECIPE if full_width else GATE_TEST[3]
+        gate = GRUGate(w["C"], w["H"], w["LAT"], **kw)
+    elif n == 4:
+        gate = GroupedGate(GATE_TEST[4]["C"], **kw)
+    else:
+        raise ValueError(f"no gate {n}: the gates are 1-4")
+    gate = gate.to(dev)
+    gate.init_optimizer()
+    return gate
+
+
+def gate_batch(n: int, device=None, B: Optional[int] = None,
+               T: Optional[int] = None, C: Optional[int] = None
+               ) -> Dict[str, torch.Tensor]:
+    """Gate ``n``'s batch as ``tests/test_gate_configs.py`` draws it (the
+    same numpy values), on ``device``. Gate 3 also takes other ``B``, ``T``
+    and ``C`` (its full width); its relative lengths are then those of
+    ``synth_batch``'s rows."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    if n not in GATE_TEST:
+        raise ValueError(f"no gate {n}: the gates are 1-4")
+    S = GATE_TEST[n]
+    rs = np.random.RandomState({1: 0, 2: 1, 3: 2, 4: 4}[n])
+    if n == 2:
+        return {"patches": t(rs.randn(S["B"], S["H"], S["W"]) * 0.3)}
+    if n == 3 and (B, T, C) != (None, None, None):
+        B, T, C = B or S["B"], T or S["T"], C or S["C"]
+        return {"feats": t(rs.randn(B, T, C) * 0.3),
+                "lens": t(np.linspace(1.0, 0.8, B))}
+    feats = t(rs.randn(S["B"], S["T"], S["C"]) * 0.3)
+    return {"feats": feats} if n == 1 else \
+        {"feats": feats, "lens": t(GATE_LENS[n])}

@@ -40,6 +40,8 @@
 // one per SM, which limits H to 528 on an H100 (132 SMs).
 #include <cuda_runtime.h>
 
+#include "grid_sync.cuh"
+
 namespace {
 
 constexpr int UNITS = 4;                 // hidden units owned by one block
@@ -54,30 +56,6 @@ constexpr int RED = 4;                   // lanes that sum one row's partials
 static_assert(THREADS == KSPLIT * GATES * (BT / 4), "recompute layout");
 static_assert(THREADS == BT * UNITS, "cell layout");
 static_assert(RED == UNITS, "a reducing lane ends with its own unit");
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// Every block arrives once per barrier; barrier n ends when the counter
-// reaches n * gridDim.x (see csrc/lstm_fwd.cu).
-__device__ __forceinline__ void grid_barrier(unsigned int* count,
-                                             unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(count),
-                 "r"(1u)
-                 : "memory");
-    unsigned int seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                   : "=r"(seen)
-                   : "l"(count)
-                   : "memory");
-    } while (seen < target);
-  }
-  __syncthreads();
-}
 
 // Stage rows [0, nb) of a (rows x H) f32 slice with row stride `stride` as
 // x_s[k][b] (row pitch PAD), zero past nb. Each warp moves tiles of 8 rows
@@ -372,21 +350,13 @@ int mlvae_lstm_bwd(const float* gx, const float* w_hh, const float* hs,
                    cudaStream_t stream) {
   if (H % (UNITS * KSPLIT) != 0 || H > KPT * THREADS || T < 1 || B < 1)
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(H);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   void* args[] = {(void*)&gx,     (void*)&w_hh,    (void*)&hs,
                   (void*)&cs,     (void*)&dhs,     (void*)&dgx,
                   (void*)&dw_hh,  (void*)&part,    (void*)&dh_buf,
                   (void*)&dc_buf, (void*)&barrier, (void*)&T,
                   (void*)&B,      (void*)&H,       (void*)&reverse};
-  err = cudaLaunchCooperativeKernel((const void*)lstm_bwd_kernel,
-                                    dim3(H / UNITS), dim3(THREADS), args, smem,
-                                    stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_cooperative(lstm_bwd_kernel, H / UNITS, THREADS, args,
+                            smem_bytes(H), stream);
 }
 
 }  // extern "C"

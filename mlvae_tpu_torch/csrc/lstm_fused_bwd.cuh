@@ -333,10 +333,6 @@ cudaError_t launch_bwd(const bf16* x, const bf16* w_ih, const float* bias,
     return cudaErrorInvalidValue;
   const size_t smem = bwd_smem_bytes<SEMI>(In, H, nblk);
   if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_fused_bwd_kernel<SEMI>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   void* args[] = {(void*)&x,      (void*)&w_ih,    (void*)&bias,
                   (void*)&w_hh,   (void*)&hs,      (void*)&cs,
                   (void*)&dhs,    (void*)&out,     (void*)&dw_ih,
@@ -344,11 +340,8 @@ cudaError_t launch_bwd(const bf16* x, const bf16* w_ih, const float* bias,
                   (void*)&dh_buf, (void*)&dc_buf,  (void*)&barrier,
                   (void*)&T,      (void*)&B,       (void*)&In,
                   (void*)&H,      (void*)&reverse};
-  err = cudaLaunchCooperativeKernel((const void*)lstm_fused_bwd_kernel<SEMI>,
-                                    dim3(nblk), dim3(THREADS), args, smem,
-                                    stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_cooperative(lstm_fused_bwd_kernel<SEMI>, nblk, THREADS, args,
+                            smem, stream);
 }
 
 }  // namespace fused

@@ -21,6 +21,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_sync.cuh"
+
 namespace fused {
 
 constexpr int UNITS = 4;             // hidden units owned by one block
@@ -45,31 +47,6 @@ typedef __nv_bfloat16 bf16;
 // bank quads.
 __host__ __device__ inline int weight_pitch(int In, int H) {
   return In + H + 8;
-}
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// Every block arrives once per barrier; barrier n ends when the counter
-// reaches n * gridDim.x (see lstm_fwd.cu): release on arrival, acquire
-// while polling, both at GPU scope.
-__device__ __forceinline__ void grid_barrier(unsigned int* count,
-                                             unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(count),
-                 "r"(1u)
-                 : "memory");
-    unsigned int seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                   : "=r"(seen)
-                   : "l"(count)
-                   : "memory");
-    } while (seen < target);
-  }
-  __syncthreads();
 }
 
 // Stage columns [c0, c0 + width) of rows [0, nb) of a bf16 matrix with row

@@ -106,19 +106,12 @@ int mlvae_lstm_fused_fwd(const bf16* x, const bf16* w_ih, const float* bias,
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(In, H);
   if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_fused_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   void* args[] = {(void*)&x,  (void*)&w_ih,    (void*)&bias, (void*)&w_hh,
                   (void*)&hs, (void*)&cs,      (void*)&barrier,
                   (void*)&T,  (void*)&B,       (void*)&In,   (void*)&H,
                   (void*)&reverse};
-  err = cudaLaunchCooperativeKernel((const void*)lstm_fused_fwd_kernel,
-                                    dim3(H / UNITS), dim3(THREADS), args, smem,
-                                    stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_cooperative(lstm_fused_fwd_kernel, H / UNITS, THREADS, args,
+                            smem, stream);
 }
 
 }  // extern "C"

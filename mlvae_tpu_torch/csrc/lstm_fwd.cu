@@ -29,6 +29,8 @@
 // co-resident instead of deadlocking; the wrapper raises on that error.
 #include <cuda_runtime.h>
 
+#include "grid_sync.cuh"
+
 namespace {
 
 constexpr int UNITS = 4;       // hidden units owned by one block
@@ -38,32 +40,6 @@ constexpr int KSPLIT = 4;      // K is split four ways across the block
 constexpr int THREADS = 256;   // KSPLIT * GATES * (BT / 4)
 static_assert(THREADS == KSPLIT * GATES * (BT / 4), "thread layout");
 static_assert(THREADS == BT * UNITS, "cell-update layout");
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// Every block arrives once per step; step s ends when the counter reaches
-// (s + 1) * gridDim.x. The block's writes before the first __syncthreads are
-// published by thread 0's release; the acquire and the second __syncthreads
-// make every block's writes visible to all of this block's threads.
-__device__ __forceinline__ void grid_barrier(unsigned int* count,
-                                             unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(count),
-                 "r"(1u)
-                 : "memory");
-    unsigned int seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                   : "=r"(seen)
-                   : "l"(count)
-                   : "memory");
-    } while (seen < target);
-  }
-  __syncthreads();
-}
 
 size_t smem_bytes(int H) {
   // w_s [GATES][H][UNITS] + h_s [H][BT] + red_s [KSPLIT][BT][GATES*UNITS]
@@ -194,19 +170,11 @@ int mlvae_lstm_fwd(const float* gx, const float* w_hh, float* hs, float* cs,
                    float* hbuf, unsigned int* barrier, int T, int B, int H,
                    int reverse, cudaStream_t stream) {
   if (H % (UNITS * KSPLIT) != 0) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(H);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   void* args[] = {(void*)&gx, (void*)&w_hh, (void*)&hs, (void*)&cs,
                   (void*)&hbuf, (void*)&barrier, (void*)&T, (void*)&B,
                   (void*)&H, (void*)&reverse};
-  err = cudaLaunchCooperativeKernel((const void*)lstm_fwd_kernel,
-                                    dim3(H / UNITS), dim3(THREADS), args, smem,
-                                    stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_cooperative(lstm_fwd_kernel, H / UNITS, THREADS, args,
+                            smem_bytes(H), stream);
 }
 
 }  // extern "C"

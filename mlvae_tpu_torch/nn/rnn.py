@@ -1,5 +1,5 @@
-"""Multi-layer, optionally bidirectional, batch-first LSTM (counterpart of
-``mlvae_tpu/nn/rnn.py`` ``LSTM``).
+"""Multi-layer, optionally bidirectional, batch-first LSTM and GRU
+(counterparts of ``mlvae_tpu/nn/rnn.py`` ``LSTM`` and ``GRU``).
 
 Parameters carry ``torch.nn.LSTM``'s names and layouts
 (``weight_ih_l{k}[_reverse]`` (4H, In), ``weight_hh_l{k}[_reverse]``
@@ -30,6 +30,16 @@ bidirectional layer outputs ``[fwd, bwd]``; the reverse direction is
 indexing inside the recurrence, never a flip. Dropout applies between
 layers and only while training, with one time-major (T, B, D*H) keep-mask
 per gap, the shape the JAX module draws.
+
+``GRU`` keeps ``torch.nn.GRU``'s constructor, parameter names and layouts
+(gate order r, z, n) and the JAX ``GRU``'s semantics
+(``mlvae_tpu/nn/rnn.py:345-460``): each layer direction forms
+``x @ W_ih^T + b_ih`` as one ``torch.matmul`` outside the recurrence and
+runs ``ops.gru.GRURecurrence`` (K5-fwd forward, K5-bwd backward on the
+card) with W_hh cast to the stream dtype and b_hh to f32, for f32 and bf16
+streams alike. As for the LSTM, the JAX package's bf16-carry ``lax.scan``
+for a bf16 B that is not a multiple of 16 is a TPU tiling limit, and the
+port keeps its kernels for every B.
 """
 from __future__ import annotations
 
@@ -41,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mlvae_tpu_torch.nn.layers import dropout, uniform_
+from mlvae_tpu_torch.ops.gru import GRURecurrence
 from mlvae_tpu_torch.ops.lstm import (LSTMFused, LSTMRecurrence,
                                       LSTMSemiFused, fused_eligible,
                                       semifused_eligible)
@@ -66,7 +77,27 @@ def fused_tier(In: int, H: int, dtype):
         "port has no bf16 K1 path")
 
 
-class LSTM(nn.Module):
+class _Stack(nn.Module):
+    """What the LSTM and GRU stacks share: their directions, parameter
+    suffixes and dropout masks."""
+
+    @property
+    def _dirs(self) -> int:
+        return 2 if self.bidirectional else 1
+
+    def _suffixes(self, layer: int):
+        return [f"l{layer}"] + ([f"l{layer}_reverse"]
+                                if self.bidirectional else [])
+
+    def dropout_shapes(self, B: int, T: int):
+        """The keep-masks one training forward draws, in order: one
+        (T, B, D*H) mask per gap between layers, none without dropout."""
+        if self.dropout <= 0.0:
+            return []
+        return [(T, B, self._dirs * self.hidden_size)] * (self.num_layers - 1)
+
+
+class LSTM(_Stack):
     """``forward(x (B, T, In)) -> (out (B, T, D*H), (h_n, c_n))`` with
     ``h_n``, ``c_n`` of shape (num_layers * D, B, H)."""
 
@@ -93,14 +124,6 @@ class LSTM(nn.Module):
                         uniform_(torch.empty(shape, device=device), bound,
                                  generator)))
 
-    @property
-    def _dirs(self) -> int:
-        return 2 if self.bidirectional else 1
-
-    def _suffixes(self, layer: int):
-        return [f"l{layer}"] + ([f"l{layer}_reverse"]
-                                if self.bidirectional else [])
-
     def _gates(self, x: torch.Tensor, sfx: str, folded: bool):
         """x (T, B, In) -> gx (T, B, 4H). ``folded`` sums the two biases
         before adding them, as the JAX package does for bidirectional
@@ -124,13 +147,6 @@ class LSTM(nn.Module):
         return tier.apply(x.contiguous(), w_ih.to(x.dtype).contiguous(),
                           bias.float(), w_hh.to(x.dtype).contiguous(),
                           reverse)
-
-    def dropout_shapes(self, B: int, T: int):
-        """The keep-masks one training forward draws, in order: one
-        (T, B, D*H) mask per gap between layers, none without dropout."""
-        if self.dropout <= 0.0:
-            return []
-        return [(T, B, self._dirs * self.hidden_size)] * (self.num_layers - 1)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -160,3 +176,69 @@ class LSTM(nn.Module):
                               mask=masks[layer] if masks else None)
         return (out.transpose(0, 1),
                 (torch.stack(last_h, 0), torch.stack(last_c, 0)))
+
+
+class GRU(_Stack):
+    """``forward(x (B, T, In)) -> (out (B, T, D*H), h_n (num_layers * D, B,
+    H))``. ``bias=False`` means zero biases and no bias parameters."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 num_layers: int = 1, batch_first: bool = True,
+                 dropout: float = 0.0, bidirectional: bool = False,
+                 bias: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        if not batch_first:
+            raise ValueError("only batch_first=True is supported")
+        self.input_size = int(input_size)
+        self.hidden_size = int(hidden_size)
+        self.num_layers = int(num_layers)
+        self.dropout = float(dropout)
+        self.bidirectional = bool(bidirectional)
+        self.bias = bool(bias)
+        H = self.hidden_size
+        bound = 1.0 / math.sqrt(H)
+        for layer in range(self.num_layers):
+            in_size = self.input_size if layer == 0 else H * self._dirs
+            for sfx in self._suffixes(layer):
+                shapes = [("weight_ih", (3 * H, in_size)),
+                          ("weight_hh", (3 * H, H))]
+                if self.bias:
+                    shapes += [("bias_ih", (3 * H,)), ("bias_hh", (3 * H,))]
+                for name, shape in shapes:
+                    self.register_parameter(f"{name}_{sfx}", nn.Parameter(
+                        uniform_(torch.empty(shape, device=device), bound,
+                                 generator)))
+
+    def _bias(self, name: str, x: torch.Tensor):
+        if self.bias:
+            return getattr(self, name)
+        return x.new_zeros((3 * self.hidden_size,))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                masks: Optional[Sequence[torch.Tensor]] = None):
+        """``masks``: the keep-masks of ``dropout_shapes``, else drawn from
+        ``generator`` while training."""
+        out = x.transpose(0, 1)   # (T, B, In)
+        last_h = []
+        for layer in range(self.num_layers):
+            outs = []
+            for d, sfx in enumerate(self._suffixes(layer)):
+                gx = torch.matmul(
+                    out, getattr(self, f"weight_ih_{sfx}").t()) \
+                    + self._bias(f"bias_ih_{sfx}", out)
+                hs = GRURecurrence.apply(
+                    gx.contiguous(),
+                    getattr(self, f"weight_hh_{sfx}").to(out.dtype)
+                    .contiguous(),
+                    self._bias(f"bias_hh_{sfx}", out).float().contiguous(),
+                    d == 1)
+                # final state after the last PROCESSED step (t=0 reversed)
+                last_h.append(hs[0] if d == 1 else hs[-1])
+                outs.append(hs)
+            out = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+            if layer < self.num_layers - 1:
+                out = dropout(out, self.dropout, train, generator,
+                              mask=masks[layer] if masks else None)
+        return out.transpose(0, 1), torch.stack(last_h, 0)
