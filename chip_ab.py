@@ -8,8 +8,9 @@ runs OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT, each in
 a fresh process that builds that checkout's kernels and times, with CUDA
 events after warm-up, K1-fwd, K1-bwd, K3/K4-fwd and K3-bwd (In=512),
 K4-bwd (In=1024) at T=160, B=64, H=512 and the MD_VAE eval step at B=64,
-T=160, on inputs from fixed seeds. Each run prints one line ``AB <root>
-<JSON of ms>``; the card's name and power limit come first. It compares
+T=160, on inputs from fixed seeds, and a digest of each kernel's
+outputs. Each run prints one line ``AB <root> <JSON of ms and digests>``;
+the card's name and power limit come first. It compares
 two versions of code that both checkouts have (a parent and its change):
 a change that may slow an earlier path is held against its parent here.
 It needs a CUDA card and exits non-zero without one.
@@ -22,6 +23,14 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+
+
+def digest(tensors) -> str:
+    import hashlib
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def time_checkout(root: Path) -> dict:
@@ -46,6 +55,13 @@ def time_checkout(root: Path) -> dict:
     bwd3 = cs.fused_bwd_problem(g, dev, T, B, 512, H, False)
     bwd4 = cs.fused_bwd_problem(g, dev, T, B, 1024, H, False)
     out = {
+        # a digest of each kernel's outputs: equal digests mean outputs
+        # bit-identical to the other checkout's
+        "digest_lstm_fwd": digest(L.lstm_layer_fwd(gx, w, False)),
+        "digest_lstm_bwd": digest(L.lstm_layer_bwd(*bwd, False)),
+        "digest_lstm_fused_fwd": digest(L.lstm_fused_fwd(*fwd3)),
+        "digest_lstm_fused_bwd": digest(L.lstm_fused_bwd(*bwd3)),
+        "digest_lstm_semi_bwd": digest(L.lstm_semi_bwd(*bwd4)),
         "lstm_fwd": cs.cuda_ms(lambda: L.lstm_layer_fwd(gx, w, False),
                                iters=30),
         "lstm_bwd": cs.cuda_ms(lambda: L.lstm_layer_bwd(*bwd, False),

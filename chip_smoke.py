@@ -17,7 +17,12 @@ Phases, each reported on its own line; any failure exits non-zero:
    ``--lstm-bwd-repeats``), the fused kernels over a few, K5 over 50 per
    kernel and direction, K6 over 20 per mode that must be bit-identical,
    and K6's two extractors against the float64 golden on two short
-   utterances;
+   utterances; the K-unrolled LSTM forwards at the unroll bench's shape
+   (B=128, T=160, H=512, In 512 and 128, K 2, 4, 8, both directions): K7a
+   in f32 bit-equal to K1-fwd, K7a in bf16 bit-equal to its K=1, K7b
+   bit-equal to K3/K4-fwd, the twins against the plain versions, K7 at
+   T=K, ragged B and narrower H against the plain versions, a few
+   repeated launches, and a T that is not a multiple of K refused;
 3. MD_VAE at the recipe's full width (H=512, B=64, T=160, L=8, weights
    from a seed) through the kernels: the TEST-target eval step (finite
    losses, decoded boundaries that sum to each utterance's phoneme count,
@@ -41,8 +46,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    T=160), two f32 and two AMP steps, 3 K5-fwd and 3 K5-bwd launches a
    step, each first step against the same step through the plain
    versions and the AMP loss against the f32 loss, f32 parameters and
-   Adam states under AMP; and one step of each of gates 1, 2 and 4 on the
-   card against the same step on the CPU;
+   Adam states under AMP; one step of each of gates 1, 2 and 4 on the
+   card against the same step on the CPU; and the unroll A/B path
+   (``mlvae_tpu_torch.tools.bench_lstm_unroll``) at B=128, T=160, H=512,
+   In=512, K 2, 4, 8: every unrolled arm bit-equal to its twin, launch
+   counts exact;
 4. times from CUDA events after warm-up: each kernel, its plain version,
    a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6),
    the eval step, the wav-in ``infer`` at B=1 (read and features, then
@@ -51,7 +59,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    host clock), the f32 and AMP train steps of each target, the AMP VAE
    step at the JAX bench's B=256, K5-fwd and K5-bwd in f32 and bf16
    beside their bounds, their plain versions and cuDNN's GRU layer, the
-   gate-3 train step in f32 and under AMP, and profiles of one eval, one
+   gate-3 train step in f32 and under AMP, K7a (f32, bf16) and K7b per K
+   beside K1-fwd and K3/K4-fwd at B=128, their bounds, plain versions and
+   cuDNN's LSTM layer, and profiles of one eval, one
    wav-in eval, one f32 and one AMP VAE train step and one f32 gate-3
    step;
 5. a ``kernels`` JSON line, the card's name and power limit, and last
@@ -119,14 +129,24 @@ GRU_REPEATS = 50      # phase 2's repeated launches per K5 kernel and
                       # direction, half f32, half bf16
 GATE_RTOL = 1e-4      # gates 1, 2, 4 card against CPU: loss, and each
                       # parameter's grad in norm (f32 sums in another order)
+# K7a and K7b: bit-equal to their one-step twins (K1-fwd, K7a at K=1,
+# K3/K4-fwd) for every K; the twins against the plain versions as above
+# (LSTM_ATOL in f32, FUSED_ATOL in bf16)
+UNROLL_KS = (2, 4, 8)  # the unroll bench's K
+UNROLL_REPEATS = 5    # phase 2's repeated launches per K7 kernel, dtype and
+                      # direction, at the bench shape
+UNROLL_ITERS = 20     # timed calls per kernel on the unroll path (phase 3)
 
 # kernel launches in one eval forward: ten directional LSTM layers (2 + 2
 # + 2 + 2x2 bidirectional), one decode
 NO_FUSED = {"lstm_fused_fwd": 0, "lstm_fused_bwd": 0, "lstm_semi_bwd": 0}
 NO_FBANK = {"fbank": 0}
 NO_GRU = {"gru_fwd": 0, "gru_bwd": 0}
+# K7a and K7b run on the unroll A/B path only (phase 3's last part)
+NO_UNROLL = {"lstm_unroll_fwd": 0, "lstm_unroll_fused_fwd": 0}
 PER_FORWARD = {"lstm_fwd": 10, "lstm_bwd": 0, "md_viterbi_lattice": 1,
-               "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK, **NO_GRU}
+               "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK, **NO_GRU,
+               **NO_UNROLL}
 # the wav-in forward adds one K6 launch (SpeechBrain mode) for the batch
 PER_WAV_FORWARD = {**PER_FORWARD, "fbank": 1}
 # kernel launches in one training step: each target's forward runs the
@@ -137,27 +157,29 @@ PER_WAV_FORWARD = {**PER_FORWARD, "fbank": 1}
 PER_TRAIN_STEP = {
     "PHN_RECOG": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi_lattice": 0,
                   "md_viterbi_backtrace": 0, **NO_FUSED, **NO_FBANK,
-                  **NO_GRU},
+                  **NO_GRU, **NO_UNROLL},
     "B_DETECTOR": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi_lattice": 0,
                    "md_viterbi_backtrace": 0, **NO_FUSED, **NO_FBANK,
-                   **NO_GRU},
+                   **NO_GRU, **NO_UNROLL},
     "VAE": {"lstm_fwd": 10, "lstm_bwd": 6, "md_viterbi_lattice": 1,
-            "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK, **NO_GRU},
+            "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK, **NO_GRU,
+            **NO_UNROLL},
 }
 # the same under AMP: every layer takes K3 or K4 and none K1; K4 only for
 # the decoder's In=1024 pair (K3-bwd: the rnn's 2 layers and decoder l0,
 # both directions)
 NO_K1 = {"lstm_fwd": 0, "lstm_bwd": 0}
 PER_AMP_STEP = {
-    "PHN_RECOG": {**NO_K1, **NO_FBANK, **NO_GRU,
+    "PHN_RECOG": {**NO_K1, **NO_FBANK, **NO_GRU, **NO_UNROLL,
                   "md_viterbi_lattice": 0, "md_viterbi_backtrace": 0,
                   "lstm_fused_fwd": 2, "lstm_fused_bwd": 2,
                   "lstm_semi_bwd": 0},
-    "B_DETECTOR": {**NO_K1, **NO_FBANK, **NO_GRU,
+    "B_DETECTOR": {**NO_K1, **NO_FBANK, **NO_GRU, **NO_UNROLL,
                    "md_viterbi_lattice": 0, "md_viterbi_backtrace": 0,
                    "lstm_fused_fwd": 2,
                    "lstm_fused_bwd": 2, "lstm_semi_bwd": 0},
-    "VAE": {**NO_K1, **NO_FBANK, **NO_GRU, "md_viterbi_lattice": 1,
+    "VAE": {**NO_K1, **NO_FBANK, **NO_GRU, **NO_UNROLL,
+            "md_viterbi_lattice": 1,
             "md_viterbi_backtrace": 1,
             "lstm_fused_fwd": 10, "lstm_fused_bwd": 4, "lstm_semi_bwd": 2},
 }
@@ -659,6 +681,157 @@ def stress_gru(dev, report, repeats):
               f"{wrong[:8]}" if wrong else ""))
     check(not wrong, f"gru kernels wrong in {len(wrong)} of {total} "
           "repeated launches")
+
+
+def unroll_problem(g, dev, T, B, H, dtype):
+    """A K7a input at the scale of the recipe's layers: gx N(0, 0.5^2) and
+    W_hh U(+-1/sqrt(H)), both in ``dtype``."""
+    import torch
+    gx = (torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5).to(dtype)
+    w = ((torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1)
+         / H ** 0.5).to(dtype)
+    return gx, w
+
+
+def bit_equal(got, want) -> bool:
+    import torch
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def check_unroll(dev, report, T=160, B=128, H=512):
+    """K7a and K7b on the card. At the unroll bench's shape (T=160, B=128,
+    H=512; In=512 and 128 for K7b), K in ``UNROLL_KS`` and both
+    directions: K7a in f32 bit-equal to K1-fwd, K7a in bf16 bit-equal to
+    its K=1, K7b bit-equal to K3/K4-fwd, and each twin against the plain
+    version. At T=K, ragged B (5, 70, 130), H=128 and H=64: each kernel
+    against the plain version. A T that is not a multiple of K is refused
+    before any launch. Returns each kernel's worst max abs error against
+    the plain versions at the bench shape."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
+    g = torch.Generator(device=dev).manual_seed(51)
+    bf = torch.bfloat16
+    worst = {"lstm_unroll_fwd": 0.0, "lstm_unroll_fused_fwd": 0.0}
+    for dtype, tol in ((torch.float32, LSTM_ATOL), (bf, FUSED_ATOL)):
+        gx, w = unroll_problem(g, dev, T, B, H, dtype)
+        f32 = dtype == torch.float32
+        for reverse in (False, True):
+            twin = (L.lstm_layer_fwd(gx, w, reverse) if f32
+                    else LU.run_fwd_k(gx, w, reverse, 1))
+            same = {K: bit_equal(LU.run_fwd_k(gx, w, reverse, K), twin)
+                    for K in UNROLL_KS}
+            plain = LU.run_fwd_k_ref(gx, w, reverse, 1)
+            torch.cuda.synchronize()
+            hs_err, cs_err, flipped = fused_fwd_errors(twin, plain)
+            report(f"  lstm_unroll_fwd T={T} B={B} H={H} "
+                   f"{'f32' if f32 else 'bf16'} reverse={reverse}: "
+                   f"bit-equal to {'lstm_fwd' if f32 else 'its K=1'} at K "
+                   f"{same}; the twin against the plain version: hs max_abs"
+                   f"_err {hs_err:.3e}, cs {cs_err:.3e} (tol {tol:g}); hs "
+                   f"not bit-equal {flipped:.2e}")
+            check(all(same.values()), f"lstm_unroll_fwd differs from its "
+                  f"twin: {same}")
+            check(max(hs_err, cs_err) <= tol,
+                  f"lstm_unroll_fwd disagrees: hs {hs_err}, cs {cs_err}")
+            worst["lstm_unroll_fwd"] = max(worst["lstm_unroll_fwd"], hs_err,
+                                           cs_err)
+    for In in (512, 128):
+        prob = fused_problem(g, dev, T, B, In, H)
+        for reverse in (False, True):
+            twin = L.lstm_fused_fwd(*prob, reverse)
+            same = {K: bit_equal(LU.run_fwd_fused_k(*prob, reverse, K), twin)
+                    for K in UNROLL_KS}
+            plain = LU.run_fwd_fused_k_ref(*prob, reverse, UNROLL_KS[0])
+            torch.cuda.synchronize()
+            hs_err, cs_err, flipped = fused_fwd_errors(twin, plain)
+            report(f"  lstm_unroll_fused_fwd T={T} B={B} In={In} H={H} "
+                   f"reverse={reverse}: bit-equal to lstm_fused_fwd at K "
+                   f"{same}; against the plain version: hs max_abs_err "
+                   f"{hs_err:.3e}, cs {cs_err:.3e} (tol {FUSED_ATOL:g}); hs "
+                   f"not bit-equal {flipped:.2e}")
+            check(all(same.values()), "lstm_unroll_fused_fwd differs from "
+                  f"lstm_fused_fwd: {same}")
+            check(max(hs_err, cs_err) <= FUSED_ATOL,
+                  f"lstm_unroll_fused_fwd disagrees: hs {hs_err}, cs "
+                  f"{cs_err}")
+            worst["lstm_unroll_fused_fwd"] = max(
+                worst["lstm_unroll_fused_fwd"], hs_err, cs_err)
+    # (T, B, H, In, K): T=K, ragged batches, narrower H and an odd In
+    for T, B, H, In, K in ((4, 128, 512, 512, 4), (16, 5, 512, 128, 8),
+                           (12, 70, 512, 512, 4), (10, 130, 128, 128, 2),
+                           (8, 33, 64, 136, 8)):
+        for reverse in (False, True):
+            errs = []
+            for dtype, tol in ((torch.float32, LSTM_ATOL), (bf, FUSED_ATOL)):
+                gx, w = unroll_problem(g, dev, T, B, H, dtype)
+                got = LU.run_fwd_k(gx, w, reverse, K)
+                errs.append((f"lstm_unroll_fwd {str(dtype)[6:]}", tol,
+                             fused_fwd_errors(
+                                 got, LU.run_fwd_k_ref(gx, w, reverse, K))))
+            prob = fused_problem(g, dev, T, B, In, H)
+            errs.append(("lstm_unroll_fused_fwd", FUSED_ATOL, fused_fwd_errors(
+                LU.run_fwd_fused_k(*prob, reverse, K),
+                LU.run_fwd_fused_k_ref(*prob, reverse, K))))
+            torch.cuda.synchronize()
+            report(f"  K7 T={T} B={B} H={H} In={In} K={K} reverse={reverse}:"
+                   " against the plain versions, hs/cs max_abs_err "
+                   + ", ".join(f"{n} {e[0]:.3e}/{e[1]:.3e} (tol {tol:g})"
+                               for n, tol, e in errs))
+            for n, tol, e in errs:
+                check(max(e[:2]) <= tol, f"{n} disagrees at T={T} B={B} "
+                      f"H={H} K={K}: {e}")
+    before = LU.LSTM_UNROLL_FWD.launches + LU.LSTM_UNROLL_FUSED_FWD.launches
+    gx, w = unroll_problem(g, dev, 7, 8, 64, torch.float32)
+    prob = fused_problem(g, dev, 7, 8, 128, 64)
+    refused = []
+    for call in (lambda: LU.run_fwd_k(gx, w, False, 2),
+                 lambda: LU.run_fwd_fused_k(*prob, False, 2)):
+        try:
+            call()
+        except ValueError:
+            refused.append(True)
+    after = LU.LSTM_UNROLL_FWD.launches + LU.LSTM_UNROLL_FUSED_FWD.launches
+    report(f"  T=7, K=2 refused before a launch: {len(refused)} of 2, "
+           f"launches {after - before}")
+    check(len(refused) == 2 and after == before,
+          "a T that is not a multiple of K was not refused")
+    return worst
+
+
+def stress_unroll(dev, report, repeats, T=160, B=128, H=512):
+    """Repeated K7a (f32 and bf16) and K7b launches at the unroll bench's
+    shape with K=8, back to back, each bit-equal to its twin's output."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
+    g = torch.Generator(device=dev).manual_seed(52)
+    K = UNROLL_KS[-1]
+    total, wrong = 0, []
+    for name in ("lstm_unroll_fwd f32", "lstm_unroll_fwd bf16",
+                 "lstm_unroll_fused_fwd"):
+        for reverse in (False, True):
+            if name == "lstm_unroll_fused_fwd":
+                prob = fused_problem(g, dev, T, B, 512, H)
+                twin = L.lstm_fused_fwd(*prob, reverse)
+                run = lambda: LU.run_fwd_fused_k(*prob, reverse, K)
+            else:
+                f32 = name.endswith("f32")
+                gx, w = unroll_problem(
+                    g, dev, T, B, H, torch.float32 if f32 else torch.bfloat16)
+                twin = (L.lstm_layer_fwd(gx, w, reverse) if f32
+                        else LU.run_fwd_k(gx, w, reverse, 1))
+                run = lambda: LU.run_fwd_k(gx, w, reverse, K)
+            for j in range(repeats):
+                total += 1
+                if not bit_equal(run(), twin):
+                    wrong.append((name, reverse, j))
+    report(f"  K7 repeated: {total} launches at T={T}, B={B}, H={H}, K={K}, "
+           f"both directions: {len(wrong)} not bit-equal to their twins"
+           + (f"; wrong (kernel, reverse, launch): {wrong[:8]}"
+              if wrong else ""))
+    check(not wrong, f"K7 kernels wrong in {len(wrong)} of {total} repeated "
+          "launches")
 
 
 def check_viterbi(dev, report):
@@ -1415,6 +1588,40 @@ def run_small_gates(dev, report):
               and sum(counts.values()) == 0, f"gate {n} disagrees")
 
 
+def run_unroll(dev, report, iters=UNROLL_ITERS):
+    """The unroll A/B path at full shape (B=128, T=160, H=512, In=512, K in
+    {2, 4, 8}): ``mlvae_tpu_torch.tools.bench_lstm_unroll.bench``, the
+    function its command line runs. Every unrolled arm must be bit-equal
+    to its one-step twin, and each timed kernel launches 1 + warm-up +
+    ``iters`` times: K1-fwd and K3/K4-fwd once each, K7a seven times (three
+    K in f32; K=1 and three K in bf16), K7b three times."""
+    import math
+    import torch
+    from mlvae_tpu_torch.tools import bench_lstm_unroll as BU
+    reset_launches()
+    res = BU.bench(dev, iters=iters)
+    torch.cuda.synchronize()
+    counts = launches()
+    per = 1 + BU.WARMUP + iters
+    n_k = len(BU.KS)
+    want = {**{k: 0 for k in PER_FORWARD}, "lstm_fwd": per,
+            "lstm_fused_fwd": per, "lstm_unroll_fwd": per * (2 * n_k + 1),
+            "lstm_unroll_fused_fwd": per * n_k}
+    worst = BU.worst_max_abs(res)
+    times = [a["twin_ms"] for a in res["arms"] if "K" in a] + [
+        k["ms"] for a in res["arms"] for k in a.get("K", {}).values()]
+    report(f"  unroll A/B at B={BU.SHAPE[0]} T={BU.SHAPE[1]} "
+           f"H={BU.SHAPE[2]} In={BU.SHAPE[3]}, K {list(BU.KS)}: worst "
+           f"max_abs against the twins {worst:g} (must be 0); "
+           + "; ".join(a["status"] for a in res["arms"] if "status" in a)
+           + f"; launches {counts}")
+    check(worst == 0.0, f"an unrolled arm differs from its twin by {worst}")
+    check(all(math.isfinite(t) and t > 0 for t in times),
+          f"unroll path times {times}")
+    check(counts == want, f"unroll path launch counts {counts} != {want}")
+    return res, counts
+
+
 # ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
@@ -1424,6 +1631,17 @@ def lstm_bound(T, B, H):
     nbytes = 4.0 * (T * B * 4 * H + 4 * H * H + 2 * T * B * H)
     return max(flops / F32_PEAK, nbytes / MEM_BW) * 1e3, \
         "operations" if flops / F32_PEAK > nbytes / MEM_BW else "bytes"
+
+
+def unroll_fwd_bound(T, B, H, bf16):
+    """K7a: K1-fwd's products at the stream dtype's peak (f32 on the CUDA
+    cores, bf16 on the tensor cores), against gx, W_hh read and hs (the
+    stream dtype), cs (f32) written once."""
+    if not bf16:
+        return lstm_bound(T, B, H)
+    flops = 2.0 * B * H * 4 * H * T
+    nbytes = 2.0 * (T * B * 4 * H + 4 * H * H + T * B * H) + 4.0 * T * B * H
+    return _bound(flops, nbytes, BF16_PEAK)
 
 
 def lstm_bwd_bound(T, B, H):
@@ -1794,6 +2012,92 @@ def time_gru(dev, report, errs, counts):
     return out
 
 
+def time_unroll(dev, report, res, errs, counts):
+    """K7a and K7b at the unroll bench's shape from the unroll path's run
+    (``res``, CUDA events after warm-up): per K and dtype, beside K1-fwd
+    and K3/K4-fwd at the same B=128, their bounds, their plain versions
+    (timed here) and cuDNN's one-layer LSTM with its input projection in
+    the arm's dtype. The kernels line reports K=4 (f32 for K7a) and lists
+    every K and dtype beside it."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
+    from mlvae_tpu_torch.tools import bench_lstm_unroll as BU
+    B, T, H, In = BU.SHAPE
+    bf = torch.bfloat16
+    x, gx, w_ih, w_hh, bias = BU.make_inputs(dev, B, T, H, In)
+    K = UNROLL_KS[1]
+    plain = {
+        "f32": cuda_ms(lambda: LU.run_fwd_k_ref(gx, w_hh, False, K),
+                       iters=2, warmup=1),
+        "bf16": cuda_ms(lambda: LU.run_fwd_k_ref(
+            gx.to(bf), w_hh.to(bf), False, K), iters=2, warmup=1),
+        "fused": cuda_ms(lambda: LU.run_fwd_fused_k_ref(
+            x.to(bf), w_ih.to(bf), bias, w_hh.to(bf), False, K), iters=2,
+            warmup=1)}
+    arms = {(a["arm"], a["dtype"]): a for a in res["arms"] if "K" in a}
+    bounds = {("plain", "f32"): unroll_fwd_bound(T, B, H, False),
+              ("plain", "bf16"): unroll_fwd_bound(T, B, H, True),
+              ("fused", "bf16"): fused_fwd_bound(T, B, In, H)}
+    for key, a in arms.items():
+        b_ms, b_by = bounds[key]
+        fused_arm = key[0] == "fused"
+        p_ms = plain["fused" if fused_arm else key[1]]
+        name = "lstm_unroll_fused_fwd" if fused_arm else "lstm_unroll_fwd"
+        report(f"  {name} {key[1]}: "
+               + ", ".join(f"K={k} {v['ms']:.4f} ms" for k, v in
+                           a["K"].items())
+               + f"; twin {a['twin']} {a['twin_ms']:.4f} ms (bound "
+               f"{b_ms:.4f} by {b_by}; plain {p_ms:.4f}; cuDNN {key[1]} "
+               f"LSTM layer incl. input projection {a['library_ms']:.4f})")
+
+    # K7b at the AMP step's B=64 beside K3/K4-fwd there: whether forming
+    # the input products ahead of the barriers pays at the main path's batch
+    from mlvae_tpu_torch.ops import lstm as L
+    prob = fused_problem(torch.Generator(device=dev).manual_seed(53), dev,
+                         T, 64, In, H)
+    b64 = {"lstm_fused_fwd": cuda_ms(lambda: L.lstm_fused_fwd(*prob),
+                                     iters=10)}
+    for k in UNROLL_KS:
+        b64[f"K={k}"] = cuda_ms(lambda: LU.run_fwd_fused_k(*prob, False, k),
+                                iters=10)
+    report(f"  lstm_unroll_fused_fwd at B=64 T={T} In={In} H={H}: "
+           + ", ".join(f"{n} {v:.4f} ms" for n, v in b64.items()))
+
+    def by_k(a):
+        return {k: v["ms"] for k, v in a["K"].items()}
+
+    f32, b16, fused = (arms[("plain", "f32")], arms[("plain", "bf16")],
+                       arms[("fused", "bf16")])
+    return [
+        dict(name="lstm_unroll_fwd", route="cuda",
+             source="mlvae_tpu_torch/csrc/lstm_unroll_fwd.cu",
+             replaces="mlvae_tpu/ops/lstm_unroll_exp.py:36",
+             max_abs_err=errs["lstm_unroll_fwd"], ms=f32["K"][str(K)]["ms"],
+             plain_ms=plain["f32"], bound_ms=bounds[("plain", "f32")][0],
+             bound_by=bounds[("plain", "f32")][1],
+             library_ms=f32["library_ms"],
+             shape=f"T={T} B={B} H={H} f32 K={K}", ms_by_k=by_k(f32),
+             twin_ms=f32["twin_ms"],
+             bf16=dict(ms_by_k=by_k(b16), twin_ms=b16["twin_ms"],
+                       plain_ms=plain["bf16"],
+                       bound_ms=bounds[("plain", "bf16")][0],
+                       bound_by=bounds[("plain", "bf16")][1],
+                       library_ms=b16["library_ms"]),
+             **counts["lstm_unroll_fwd"]),
+        dict(name="lstm_unroll_fused_fwd", route="cuda",
+             source="mlvae_tpu_torch/csrc/lstm_unroll_fused_fwd.cu",
+             replaces="mlvae_tpu/ops/lstm_unroll_exp.py:93",
+             max_abs_err=errs["lstm_unroll_fused_fwd"],
+             ms=fused["K"][str(K)]["ms"], plain_ms=plain["fused"],
+             bound_ms=bounds[("fused", "bf16")][0],
+             bound_by=bounds[("fused", "bf16")][1],
+             library_ms=fused["library_ms"],
+             shape=f"T={T} B={B} In={In} H={H} bf16 K={K}",
+             ms_by_k=by_k(fused), twin_ms=fused["twin_ms"], b64_ms=b64,
+             **counts["lstm_unroll_fused_fwd"]),
+    ]
+
+
 def time_gate3(dev, report, gate, batch, noise, label):
     """The gate-3 train step at full width (each step continuing the
     training), and for f32 a profile of one step."""
@@ -2034,6 +2338,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(REPO))
     from mlvae_tpu_torch import _build
     from mlvae_tpu_torch.device import resolve_device
+    # register every kernel before the first launch count is read
+    from mlvae_tpu_torch.ops import (decode, fbank, gru, lstm,  # noqa: F401
+                                     lstm_unroll_exp)
 
     def report(line):
         print(line, flush=True)
@@ -2067,6 +2374,8 @@ def main(argv=None) -> int:
     errs_fbank = check_fbank(dev, report, cases)
     errs.update(check_gru(dev, report))
     stress_gru(dev, report, GRU_REPEATS)
+    errs.update(check_unroll(dev, report))
+    stress_unroll(dev, report, UNROLL_REPEATS)
 
     report("phase 3 MD_VAE TEST eval step at full width (H=512, B=64, "
            "T=160, L=8)")
@@ -2090,17 +2399,22 @@ def main(argv=None) -> int:
     amp_gate, amp_gate_batch, amp_gate_noise, _, amp_gate_counts = \
         run_gate3(dev, report, amp=True, ref_f32=gate_loss)
     run_small_gates(dev, report)
-    # the main path's launches: the eval forward's, the wav-in path's, the
-    # six f32 and six AMP MD_VAE train steps', and the four gate-3 steps'
+    report("phase 3 the unroll A/B path (K7a, K7b against K1-fwd and "
+           "K3/K4-fwd) at B=128, T=160, H=512, In=512, K 2, 4, 8")
+    unroll_res, unroll_counts = run_unroll(dev, report)
+    # the paths' launches: the eval forward's, the wav-in path's, the six
+    # f32 and six AMP MD_VAE train steps', the four gate-3 steps' and the
+    # unroll path's
     counts = {k: {"launches": eval_counts[k] + wav_counts[k]
                   + train_counts[k] + amp_counts[k] + gate_counts[k]
-                  + amp_gate_counts[k],
+                  + amp_gate_counts[k] + unroll_counts[k],
                   "launches_eval_step": eval_counts[k],
                   "launches_wav_in": wav_counts[k],
                   "launches_training": train_counts[k],
                   "launches_amp_training": amp_counts[k],
                   "launches_gate3": gate_counts[k],
-                  "launches_amp_gate3": amp_gate_counts[k]}
+                  "launches_amp_gate3": amp_gate_counts[k],
+                  "launches_unroll": unroll_counts[k]}
               for k in eval_counts}
     check(all(c["launches"] > 0 for c in counts.values()),
           f"a kernel of the path never launched: {counts}")
@@ -2121,6 +2435,7 @@ def main(argv=None) -> int:
     del amp_model
     amp_step["VAE_B256"] = time_amp_vae(dev, report)
     kernels += time_gru(dev, report, errs, counts)
+    kernels += time_unroll(dev, report, unroll_res, errs, counts)
     gate3_step = {"f32": time_gate3(dev, report, gate, gate_batch,
                                     gate_noise_, "f32"),
                   "amp": time_gate3(dev, report, amp_gate, amp_gate_batch,

@@ -30,7 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the decode must round exactly like its plain version: no FMA contraction
 EXTRA_FLAGS = {"md_viterbi": ["-fmad=false"]}
 SOURCES = ("lstm_fwd", "lstm_bwd", "md_viterbi", "lstm_fused_fwd",
-           "lstm_fused_bwd", "lstm_semi_bwd", "fbank", "gru_fwd", "gru_bwd")
+           "lstm_fused_bwd", "lstm_semi_bwd", "fbank", "gru_fwd", "gru_bwd",
+           "lstm_unroll_fwd", "lstm_unroll_fused_fwd")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds to build, ptxas report) for the builds this process ran

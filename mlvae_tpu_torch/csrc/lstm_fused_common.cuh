@@ -1,6 +1,7 @@
 // Shared pieces of the fused-projection LSTM kernels (K3/K4-fwd in
 // lstm_fused_fwd.cu, K3-bwd in lstm_fused_bwd.cu, K4-bwd in
-// lstm_semi_bwd.cu): bf16 streams, f32 carries and sums.
+// lstm_semi_bwd.cu, K7b in lstm_unroll_fused_fwd.cu): bf16 streams, f32
+// carries and sums.
 //
 // Layout, as K1's (lstm_fwd.cu, lstm_bwd.cu): one persistent cooperative
 // grid of H/4 blocks; block k owns UNITS=4 hidden units, i.e. ROWS=16 gate
@@ -133,11 +134,43 @@ __device__ __forceinline__ void mma_chunk(float (&c)[4], const bf16* tile,
              ld32(a + 8 * LDT + k0 + 8), ld32(b + k0), ld32(b + k0 + 8));
 }
 
+// c += rows [0, nb) of the bf16 matrix src (row stride `cols`) times the
+// weight columns [wcol, wcol + cols), staged KC columns at a time; each
+// chunk starts with __syncthreads (the tile is free again). A chunk of
+// width w runs to the next multiple of 16; the columns past w are zero in
+// the tile.
+__device__ __forceinline__ void chunked_product(float (&c)[4], bf16* tile,
+                                                const bf16* w_s, int LDW,
+                                                const bf16* src, int cols,
+                                                int wcol, int nb, int mi,
+                                                int ni) {
+  for (int c0 = 0; c0 < cols; c0 += KC) {
+    const int width = min(KC, cols - c0);
+    __syncthreads();
+    stage_bf16(tile, src, cols, c0, width, nb);
+    __syncthreads();
+    mma_chunk(c, tile, w_s, LDW, wcol + c0, width, mi, ni);
+  }
+}
+
+// The warp's 16 x 8 accumulator tile into red_s[b][q], then __syncthreads.
+__device__ __forceinline__ void store_preacts(float* red_s,
+                                              const float (&c)[4], int mi,
+                                              int ni) {
+  const int lane = threadIdx.x & 31;
+  const int r = mi * 16 + (lane >> 2);
+  const int q = ni * 8 + 2 * (lane & 3);
+  red_s[r * ROWS + q] = c[0];
+  red_s[r * ROWS + q + 1] = c[1];
+  red_s[(r + 8) * ROWS + q] = c[2];
+  red_s[(r + 8) * ROWS + q + 1] = c[3];
+  __syncthreads();
+}
+
 // The pre-activations of batch rows [b0, b0 + nb) at step t, without the
 // bias, into red_s[b][q]: x_t always, h_{t-1} = hs[tp] unless `first`
-// (then h_{t-1} = 0). A chunk of width w runs to the next multiple of 16;
-// the columns past w are zero in the tile. Starts and ends with
-// __syncthreads.
+// (then h_{t-1} = 0), one accumulator chain over the input chunks and then
+// the hidden ones. Starts and ends with __syncthreads.
 __device__ __forceinline__ void preactivations(
     float* red_s, bf16* tile, const bf16* w_s, const bf16* x,
     const bf16* hs, int t, int tp, bool first, int b0, int nb, int B,
@@ -147,30 +180,12 @@ __device__ __forceinline__ void preactivations(
   const int ni = warp & 1;   // gate rows 8 ni ..
   const int LDW = weight_pitch(In, H);
   float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int c0 = 0; c0 < In; c0 += KC) {
-    const int width = min(KC, In - c0);
-    __syncthreads();  // the tile (and red_s) are free again
-    stage_bf16(tile, x + ((size_t)t * B + b0) * In, In, c0, width, nb);
-    __syncthreads();
-    mma_chunk(c, tile, w_s, LDW, c0, width, mi, ni);
-  }
-  if (!first) {
-    for (int c0 = 0; c0 < H; c0 += KC) {
-      const int width = min(KC, H - c0);
-      __syncthreads();
-      stage_bf16(tile, hs + ((size_t)tp * B + b0) * H, H, c0, width, nb);
-      __syncthreads();
-      mma_chunk(c, tile, w_s, LDW, In + c0, width, mi, ni);
-    }
-  }
-  const int lane = threadIdx.x & 31;
-  const int r = mi * 16 + (lane >> 2);
-  const int q = ni * 8 + 2 * (lane & 3);
-  red_s[r * ROWS + q] = c[0];
-  red_s[r * ROWS + q + 1] = c[1];
-  red_s[(r + 8) * ROWS + q] = c[2];
-  red_s[(r + 8) * ROWS + q + 1] = c[3];
-  __syncthreads();
+  chunked_product(c, tile, w_s, LDW, x + ((size_t)t * B + b0) * In, In, 0,
+                  nb, mi, ni);
+  if (!first)
+    chunked_product(c, tile, w_s, LDW, hs + ((size_t)tp * B + b0) * H, H,
+                    In, nb, mi, ni);
+  store_preacts(red_s, c, mi, ni);
 }
 
 // Pre-activation of gate `gate` for the cell thread's (row cb, unit cj):

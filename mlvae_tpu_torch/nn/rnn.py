@@ -99,26 +99,33 @@ class _Stack(nn.Module):
 
 class LSTM(_Stack):
     """``forward(x (B, T, In)) -> (out (B, T, D*H), (h_n, c_n))`` with
-    ``h_n``, ``c_n`` of shape (num_layers * D, B, H)."""
+    ``h_n``, ``c_n`` of shape (num_layers * D, B, H). The constructor takes
+    the JAX ``LSTM``'s arguments in its order; ``bias=False`` means zero
+    biases and no bias parameters, and ``batch_first=False`` is refused in
+    ``forward``, as the JAX module refuses it."""
 
     def __init__(self, input_size: int, hidden_size: int,
-                 num_layers: int = 1, dropout: float = 0.0,
-                 bidirectional: bool = False,
+                 num_layers: int = 1, batch_first: bool = True,
+                 dropout: float = 0.0, bidirectional: bool = False,
+                 bias: bool = True,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.input_size = int(input_size)
         self.hidden_size = int(hidden_size)
         self.num_layers = int(num_layers)
+        self.batch_first = bool(batch_first)
         self.dropout = float(dropout)
         self.bidirectional = bool(bidirectional)
+        self.bias = bool(bias)
         H = self.hidden_size
         bound = 1.0 / math.sqrt(H)
         for layer in range(self.num_layers):
             in_size = self.input_size if layer == 0 else H * self._dirs
             for sfx in self._suffixes(layer):
                 shapes = [("weight_ih", (4 * H, in_size)),
-                          ("weight_hh", (4 * H, H)),
-                          ("bias_ih", (4 * H,)), ("bias_hh", (4 * H,))]
+                          ("weight_hh", (4 * H, H))]
+                if self.bias:
+                    shapes += [("bias_ih", (4 * H,)), ("bias_hh", (4 * H,))]
                 for name, shape in shapes:
                     self.register_parameter(f"{name}_{sfx}", nn.Parameter(
                         uniform_(torch.empty(shape, device=device), bound,
@@ -127,32 +134,40 @@ class LSTM(_Stack):
     def _gates(self, x: torch.Tensor, sfx: str, folded: bool):
         """x (T, B, In) -> gx (T, B, 4H). ``folded`` sums the two biases
         before adding them, as the JAX package does for bidirectional
-        layers; otherwise they are added one after the other."""
+        layers; otherwise they are added one after the other. Without
+        biases gx is the product alone."""
         gx = torch.matmul(x, getattr(self, f"weight_ih_{sfx}").t())
+        if not self.bias:
+            return gx
         b_ih = getattr(self, f"bias_ih_{sfx}")
         b_hh = getattr(self, f"bias_hh_{sfx}")
         return gx + (b_ih + b_hh) if folded else gx + b_ih + b_hh
 
     def _fused(self, x: torch.Tensor, sfx: str, tier, reverse: bool):
         """One layer direction through a fused tier: x (T, B, In) bf16 ->
-        (hs (T, B, H), c_last (B, H) f32)."""
+        (hs (T, B, H), c_last (B, H) f32). The kernels take an f32 bias,
+        zeros without biases."""
         w_ih = getattr(self, f"weight_ih_{sfx}")
         w_hh = getattr(self, f"weight_hh_{sfx}")
-        bias = (getattr(self, f"bias_ih_{sfx}")
-                + getattr(self, f"bias_hh_{sfx}"))
+        if self.bias:
+            bias = (getattr(self, f"bias_ih_{sfx}")
+                    + getattr(self, f"bias_hh_{sfx}")).float()
+        else:
+            bias = x.new_zeros((4 * self.hidden_size,), dtype=torch.float32)
         pad = -x.shape[-1] % LANE
         if pad:
             x = F.pad(x, (0, pad))
             w_ih = F.pad(w_ih, (0, pad))
         return tier.apply(x.contiguous(), w_ih.to(x.dtype).contiguous(),
-                          bias.float(), w_hh.to(x.dtype).contiguous(),
-                          reverse)
+                          bias, w_hh.to(x.dtype).contiguous(), reverse)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 masks: Optional[Sequence[torch.Tensor]] = None):
         """``masks``: the keep-masks of ``dropout_shapes``, else drawn from
         ``generator`` while training."""
+        if not self.batch_first:
+            raise ValueError("LSTM: only batch_first=True is supported")
         out = x.transpose(0, 1).contiguous()   # (T, B, In)
         last_h, last_c = [], []
         for layer in range(self.num_layers):

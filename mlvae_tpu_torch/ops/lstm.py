@@ -78,7 +78,9 @@ def _bptt_dgates(gates, c_t, c_prev, dh, dc, H: int):
 def lstm_layer_ref(gx: torch.Tensor, w_hh: torch.Tensor,
                    reverse: bool = False):
     """Plain recurrence: gx (T, B, 4H), w_hh (4H, H) -> (hs (T, B, H) in
-    gx's dtype, cs (T, B, H) f32)."""
+    gx's dtype, cs (T, B, H) f32). As the Pallas kernel, h_{t-1} is rounded
+    to the weights' dtype before the recurrent product (a no-op in f32),
+    the product sums in f32 and c stays f32."""
     T, B, G = gx.shape
     H = G // 4
     w_t = w_hh.float().t()
@@ -87,7 +89,8 @@ def lstm_layer_ref(gx: torch.Tensor, w_hh: torch.Tensor,
     hs = gx.new_empty((T, B, H))
     cs = gx.new_empty((T, B, H), dtype=torch.float32)
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        i, f, g, o = _gate_acts(gx[t].float() + h @ w_t, H)
+        i, f, g, o = _gate_acts(
+            gx[t].float() + h.to(w_hh.dtype).float() @ w_t, H)
         c = f * c + i * g
         h = o * torch.tanh(c)
         hs[t] = h.to(hs.dtype)
