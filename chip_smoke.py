@@ -6,7 +6,8 @@
 Phases, each reported on its own line; any failure exits non-zero:
 
 1. the card and the kernel build (every ``mlvae_tpu_torch/csrc/*.cu``,
-   compiled from this checkout, one ``nvcc`` per source in parallel);
+   compiled from this checkout, and the timing builds of K3-bwd and
+   K4-bwd, one ``nvcc`` per build in parallel);
 2. each kernel against its plain PyTorch version on the card, at the
    slices' shapes (B=64, T=160, H=512; the fused kernels at In=128, 512
    and 1024 as the AMP step gives them; the filterbank K6 in its Kaldi
@@ -23,6 +24,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    bit-equal to K3/K4-fwd, the twins against the plain versions, K7 at
    T=K, ragged B and narrower H against the plain versions, a few
    repeated launches, and a T that is not a multiple of K refused;
+   K3-bwd and K4-bwd also at the JAX bench's B=256, at T=2 beside T=1,
+   at B=320 (their serial schedule), and 100 repeated launches per
+   direction each bit-equal to the first;
 3. MD_VAE at the recipe's full width (H=512, B=64, T=160, L=8, weights
    from a seed) through the kernels: the TEST-target eval step (finite
    losses, decoded boundaries that sum to each utterance's phoneme count,
@@ -57,13 +61,18 @@ Phases, each reported on its own line; any failure exits non-zero:
    the eval), the wav-in eval step at B=64, the Kaldi feature pass
    (``compute_kaldi_features`` over 256 written wav files, one batch,
    host clock), the f32 and AMP train steps of each target, the AMP VAE
-   step at the JAX bench's B=256, K5-fwd and K5-bwd in f32 and bf16
-   beside their bounds, their plain versions and cuDNN's GRU layer, the
-   gate-3 train step in f32 and under AMP, K7a (f32, bf16) and K7b per K
-   beside K1-fwd and K3/K4-fwd at B=128, their bounds, plain versions and
-   cuDNN's LSTM layer, and profiles of one eval, one
-   wav-in eval, one f32 and one AMP VAE train step and one f32 gate-3
-   step;
+   step at the JAX bench's B=256 (and its profile), K5-fwd and K5-bwd in
+   f32 and bf16 beside their bounds, their plain versions and cuDNN's GRU
+   layer, the gate-3 train step in f32 and under AMP, K7a (f32, bf16) and
+   K7b per K beside K1-fwd and K3/K4-fwd at B=128, their bounds, plain
+   versions and cuDNN's LSTM layer, K3-bwd (In 32, 128, 512) and K4-bwd
+   (In 1024) at B=64 and K3-bwd In=512, K4-bwd at B=256 in turns with
+   cuDNN's bf16 backward of the same layer (kernel, cuDNN, cuDNN, kernel,
+   five rounds; medians and spreads; and cuDNN's profiled kernel time),
+   their step timeline (``mlvae_tpu_torch.tools.bench_bwd_timeline``:
+   microseconds a step of each phase, and the ablation without or with
+   half of the copies' L2 traffic), and profiles of one eval, one wav-in
+   eval, one f32 and one AMP VAE train step and one f32 gate-3 step;
 5. a ``kernels`` JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -73,6 +82,7 @@ and prints no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -100,6 +110,15 @@ FUSED_BWD_RTOL = 1e-2  # K3-bwd, K4-bwd outputs, of their largest entry: a
                       # dgates one bf16 ulp off in a sum of In or 4H terms
 FUSED_REPEATS = 10    # phase 2's repeated launches per fused kernel, shape
                       # and direction
+FUSED_BWD_REPEATS = 100  # phase 2's repeated K3-bwd / K4-bwd launches per
+                         # direction, each bit-equal to the first
+# the fused backwards beside cuDNN's bf16 backward of one layer, timed in
+# turns (kernel, cuDNN, cuDNN, kernel) in phase 4: (kernel, In, B); T=160,
+# H=512
+BWD_YARD_CASES = (("lstm_fused_bwd", 32, 64), ("lstm_fused_bwd", 128, 64),
+                  ("lstm_fused_bwd", 512, 64), ("lstm_semi_bwd", 1024, 64),
+                  ("lstm_fused_bwd", 512, 256), ("lstm_semi_bwd", 1024, 256))
+BWD_YARD_ROUNDS = 5
 BF16_PEAK = 989e12    # H100 SXM dense bf16 tensor cores, FLOP/s
 AMP_LOSS_RTOL = 1e-3  # the AMP step against its plain twin: the fused
 AMP_GRAD_RTOL = 1e-2  # kernels' bf16 flips (above) through ten layers
@@ -510,7 +529,9 @@ def fused_bwd_errors(got, want):
 
 
 def check_fused_bwd(dev, report):
-    """Each backward against its plain version; returns each kernel's
+    """Each backward against its plain version, at the AMP step's shapes,
+    the JAX bench's B=256, T=1 and T=2 (where the prologue and the last
+    step meet), ragged and serial-schedule batches; returns each kernel's
     worst max abs error of its streamed output (dX, dgx) at T=160."""
     import torch
     from mlvae_tpu_torch.ops import lstm as L
@@ -520,8 +541,15 @@ def check_fused_bwd(dev, report):
         ("lstm_fused_bwd", 160, 64, 128, 512),
         ("lstm_fused_bwd", 160, 64, 512, 512),
         ("lstm_semi_bwd", 160, 64, 1024, 512),
+        ("lstm_fused_bwd", 160, 256, 512, 512),
+        ("lstm_semi_bwd", 160, 256, 1024, 512),
         ("lstm_fused_bwd", 1, 64, 512, 512),
         ("lstm_semi_bwd", 1, 64, 1024, 512),
+        ("lstm_fused_bwd", 2, 64, 512, 512),
+        ("lstm_semi_bwd", 2, 64, 1024, 512),
+        # more than four batch tiles: the serial schedule
+        ("lstm_fused_bwd", 5, 320, 512, 512),
+        ("lstm_semi_bwd", 3, 320, 1024, 512),
         ("lstm_fused_bwd", 7, 1, 128, 512), ("lstm_semi_bwd", 7, 1, 1024, 512),
         ("lstm_fused_bwd", 9, 70, 512, 512),
         ("lstm_semi_bwd", 9, 70, 1024, 512),
@@ -549,38 +577,49 @@ def check_fused_bwd(dev, report):
     return worst
 
 
-def stress_fused(dev, report, repeats):
-    """Repeated launches of the three fused kernels at the AMP step's
-    shapes, back to back, each held against the plain version on its
-    inputs."""
+def stress_fused(dev, report, repeats, bwd_repeats=FUSED_BWD_REPEATS):
+    """Repeated launches of the fused kernels at the AMP step's shapes, back
+    to back: the forward's each held against the plain version on its
+    inputs; K3-bwd's and K4-bwd's the first against the plain version and
+    every later one bit-equal to the first (their split barrier and
+    concurrent warp groups are an ordering a race would break)."""
     import torch
     from mlvae_tpu_torch.ops import lstm as L
     g = torch.Generator(device=dev).manual_seed(23)
     T, B, H = 160, 64, 512
     total, wrong = 0, []
-    for name, In in (("lstm_fused_fwd", 128), ("lstm_fused_fwd", 1024),
-                     ("lstm_fused_bwd", 512), ("lstm_semi_bwd", 1024)):
+    for In in (128, 1024):
         for reverse in (False, True):
-            if name == "lstm_fused_fwd":
-                prob = fused_problem(g, dev, T, B, In, H)
-            else:
-                prob = fused_bwd_problem(g, dev, T, B, In, H, reverse)
-            want = getattr(L, name + "_ref")(*prob, reverse)
-            fwd = name == "lstm_fused_fwd"
-            tol = FUSED_ATOL if fwd else FUSED_BWD_RTOL
+            prob = fused_problem(g, dev, T, B, In, H)
+            want = L.lstm_fused_fwd_ref(*prob, reverse)
             for j in range(repeats):
-                got = getattr(L, name)(*prob, reverse)
-                err = max(fused_fwd_errors(got, want)[:2] if fwd
-                          else fused_bwd_errors(got, want))
+                got = L.lstm_fused_fwd(*prob, reverse)
+                err = max(fused_fwd_errors(got, want)[:2])
                 total += 1
-                if err > tol:
-                    wrong.append((name, In, reverse, j, err))
-    report(f"  fused kernels repeated: {total} launches at T=160, B=64, "
-           f"H=512, both directions: {len(wrong)} wrong"
+                if err > FUSED_ATOL:
+                    wrong.append(("lstm_fused_fwd", In, reverse, j, err))
+    total_bwd = 0
+    for name, In in (("lstm_fused_bwd", 512), ("lstm_semi_bwd", 1024)):
+        for reverse in (False, True):
+            prob = fused_bwd_problem(g, dev, T, B, In, H, reverse)
+            want = getattr(L, name + "_ref")(*prob, reverse)
+            first = getattr(L, name)(*prob, reverse)
+            err = max(fused_bwd_errors(first, want))
+            if err > FUSED_BWD_RTOL:
+                wrong.append((name, In, reverse, 0, err))
+            for j in range(1, bwd_repeats + 1):
+                got = getattr(L, name)(*prob, reverse)
+                total_bwd += 1
+                if not all(torch.equal(a, b) for a, b in zip(got, first)):
+                    wrong.append((name, In, reverse, j, "not bit-equal"))
+    report(f"  fused kernels repeated at T=160, B=64, H=512, both "
+           f"directions: {total} K3/K4-fwd launches against the plain "
+           f"version, {total_bwd} K3-bwd / K4-bwd launches against the "
+           f"first: {len(wrong)} wrong"
            + (f"; wrong (kernel, In, reverse, launch, err): {wrong[:8]}"
               if wrong else ""))
-    check(not wrong, f"fused kernels wrong in {len(wrong)} of {total} "
-          "repeated launches")
+    check(not wrong, f"fused kernels wrong in {len(wrong)} of "
+          f"{total + total_bwd} repeated launches")
 
 
 def gru_problem(g, dev, T, B, H, bf16, reverse):
@@ -1824,16 +1863,117 @@ def time_all(dev, report, model, batch, noise, prob, errs, counts):
         "infer_b1_ms": infer_ms}
 
 
+def interleaved_ms(kernel, yard, rounds, iters):
+    """Two timers in turns (kernel, yardstick, yardstick, kernel), `rounds`
+    times: each one's samples (ms a call, CUDA events)."""
+    ks, ys = [], []
+    for _ in range(rounds):
+        ks.append(kernel(iters))
+        ys.append(yard(iters))
+        ys.append(yard(iters))
+        ks.append(kernel(iters))
+    return ks, ys
+
+
+def kernel_ms(fn) -> float:
+    """Device time of the CUDA kernels one call of ``fn`` launches, summed
+    (torch.profiler), after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0))
+               for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def time_fused_bwd(dev, report, T=160, H=512, cases=BWD_YARD_CASES,
+                   rounds=BWD_YARD_ROUNDS):
+    """K3-bwd and K4-bwd beside cuDNN's bf16 backward of the same layer
+    (its forward and backward less its forward; it also forms dX and
+    dW_ih), timed in turns in one run: median and spread of each, the
+    factor of the medians, microseconds a step, the bound; and the device
+    time of cuDNN's backward kernels alone (profiler), which the host's
+    launches do not stretch."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    g = torch.Generator(device=dev).manual_seed(32)
+    out = {}
+    for name, In, B in cases:
+        prob = fused_bwd_problem(g, dev, T, B, In, H, False)
+        fn = getattr(L, name)
+        cudnn = torch.nn.LSTM(In, H, 1).to(dev, torch.bfloat16)
+        cudnn.flatten_parameters()  # else cuDNN compacts them every call
+        xg = prob[0].clone().requires_grad_()
+        dy = torch.randn((T, B, H), generator=g, device=dev).to(
+            torch.bfloat16)
+
+        def kernel(iters):
+            return cuda_ms(lambda: fn(*prob), iters=iters, warmup=1)
+
+        def yard(iters):
+            fwd = cuda_ms(lambda: cudnn(xg), iters=iters, warmup=1)
+            return cuda_ms(lambda: cudnn(xg)[0].backward(dy), iters=iters,
+                           warmup=1) - fwd
+
+        ks, ys = interleaved_ms(kernel, yard, rounds, iters=5)
+        km, ym = statistics.median(ks), statistics.median(ys)
+        dev_ms = (kernel_ms(lambda: cudnn(xg)[0].backward(dy))
+                  - kernel_ms(lambda: cudnn(xg)))
+        b_ms, b_by = (semi_bwd_bound(T, B, In, H) if name == "lstm_semi_bwd"
+                      else fused_bwd_bound(T, B, In, H))
+        row = {"ms": km, "spread": [min(ks), max(ks)],
+               "us_a_step": km * 1e3 / T, "cudnn_ms": ym,
+               "cudnn_spread": [min(ys), max(ys)], "factor": km / ym,
+               "cudnn_kernels_ms": dev_ms,
+               "bound_ms": b_ms, "bound_by": b_by}
+        out[f"{name} In={In} B={B}"] = row
+        report(f"  {name} In={In} B={B} T={T}: {km:.4f} ms median "
+               f"({min(ks):.4f}-{max(ks):.4f}; {row['us_a_step']:.2f} us a "
+               f"step); cuDNN bf16 layer fwd+bwd less fwd, in turns, "
+               f"{ym:.4f} median ({min(ys):.4f}-{max(ys):.4f}); factor "
+               f"{km / ym:.3f}; cuDNN's backward kernels alone {dev_ms:.4f} "
+               f"(profiler); bound {b_ms:.4f} by {b_by}")
+    return out
+
+
+def time_bwd_timeline(dev, report):
+    """The step timeline of K3-bwd and K4-bwd (their timing builds,
+    tools/bench_bwd_timeline.py): microseconds a step of each phase."""
+    from mlvae_tpu_torch.tools import bench_bwd_timeline as btl
+    res = btl.bench(dev)
+    for r in res["rows"]:
+        report(f"  timeline {r['kernel']} In={r['In']} B={r['B']} "
+               f"(ahead={r['ahead']}): {r['ms']:.4f} ms, timing build "
+               f"{r['ms_timing_build']:.4f}; us a step, median over blocks "
+               "(min-max): " + ", ".join(
+                   f"{k} {v['median']:.2f} ({v['min']:.2f}-{v['max']:.2f})"
+                   for k, v in r["us_a_step"].items())
+               + "; ablation, step us (ms) with only the first r of 64 rows "
+               "staged: " + ", ".join(
+                   f"r={k[4:]} {v['us_a_step']['step']:.2f} ({v['ms']:.4f})"
+                   for k, v in r["ablation"].items()))
+    bad = [r["kernel"] for r in res["rows"]
+           if not r["bit_equal_to_normal_build"]]
+    check(not bad, f"the timing build differs from the normal build: {bad}")
+    return res
+
+
 def time_fused(dev, report, errs, counts):
     """Each fused kernel at the AMP step's widths (T=160, B=64, H=512; In
-    128, 512, 1024 for the forward, 128 and 512 for K3-bwd, 1024 for
-    K4-bwd), its plain version and cuDNN's bf16 LSTM layer; the kernels
-    line reports K3/K4-fwd and K3-bwd at In=512, K4-bwd at In=1024."""
+    128, 512, 1024 for the forward), its plain version and cuDNN's bf16
+    LSTM layer; the backwards beside cuDNN in turns (time_fused_bwd). The
+    kernels line reports K3/K4-fwd and K3-bwd at In=512, K4-bwd at
+    In=1024, B=64."""
     import torch
     from mlvae_tpu_torch.ops import lstm as L
     T, B, H = 160, 64, 512
     g = torch.Generator(device=dev).manual_seed(31)
-    ms, plain, lib, lib_bwd = {}, {}, {}, {}
+    ms, plain, lib = {}, {}, {}
     for In in (128, 512, 1024):
         prob = fused_problem(g, dev, T, B, In, H)
         ms[("fwd", In)] = cuda_ms(lambda: L.lstm_fused_fwd(*prob), iters=10)
@@ -1841,55 +1981,45 @@ def time_fused(dev, report, errs, counts):
         cudnn.flatten_parameters()  # else cuDNN compacts them every call
         with torch.no_grad():
             lib[In] = cuda_ms(lambda: cudnn(prob[0]), iters=10)
-        xg = prob[0].clone().requires_grad_()
-        dy = torch.randn((T, B, H), generator=g, device=dev).to(
-            torch.bfloat16)
-        fwd_ms = cuda_ms(lambda: cudnn(xg), iters=10)
-        lib_bwd[In] = cuda_ms(lambda: cudnn(xg)[0].backward(dy),
-                              iters=10) - fwd_ms
         if In == 512:
             plain["fwd"] = cuda_ms(lambda: L.lstm_fused_fwd_ref(*prob),
                                    iters=2, warmup=1)
-    for kind, name, In in (("bwd", "lstm_fused_bwd", 128),
-                           ("bwd", "lstm_fused_bwd", 512),
+    for kind, name, In in (("bwd", "lstm_fused_bwd", 512),
                            ("semi", "lstm_semi_bwd", 1024)):
         prob = fused_bwd_problem(g, dev, T, B, In, H, False)
-        fn, ref = getattr(L, name), getattr(L, name + "_ref")
-        ms[(kind, In)] = cuda_ms(lambda: fn(*prob), iters=10)
-        if In != 128:
-            plain[kind] = cuda_ms(lambda: ref(*prob), iters=2, warmup=1)
-    bounds = {("fwd", In): fused_fwd_bound(T, B, In, H)
-              for In in (128, 512, 1024)}
-    bounds.update({("bwd", In): fused_bwd_bound(T, B, In, H)
-                   for In in (128, 512)})
-    bounds[("semi", 1024)] = semi_bwd_bound(T, B, 1024, H)
-    names = {"fwd": "lstm_fused_fwd", "bwd": "lstm_fused_bwd",
-             "semi": "lstm_semi_bwd"}
-    for (kind, In), t in ms.items():
-        b_ms, b_by = bounds[(kind, In)]
-        yard = (f"forward incl. input projection {lib[In]:.4f}"
-                if kind == "fwd" else "forward+backward less forward, incl. "
-                f"dX and dW_ih {lib_bwd[In]:.4f}")
-        report(f"  {names[kind]} In={In}: {t:.4f} ms (bound {b_ms:.4f} by "
-               f"{b_by}; cuDNN bf16 LSTM layer {yard})")
+        ref = getattr(L, name + "_ref")
+        plain[kind] = cuda_ms(lambda: ref(*prob), iters=2, warmup=1)
+    for In in (128, 512, 1024):
+        b_ms, b_by = fused_fwd_bound(T, B, In, H)
+        report(f"  lstm_fused_fwd In={In}: {ms[('fwd', In)]:.4f} ms (bound "
+               f"{b_ms:.4f} by {b_by}; cuDNN bf16 LSTM layer forward incl. "
+               f"input projection {lib[In]:.4f})")
+    yard = time_fused_bwd(dev, report)
     report(f"  plain versions: lstm_fused_fwd In=512 {plain['fwd']:.4f} ms, "
            f"lstm_fused_bwd In=512 {plain['bwd']:.4f} ms, lstm_semi_bwd "
            f"In=1024 {plain['semi']:.4f} ms")
-    rows = (("lstm_fused_fwd", "fwd", 512, "lstm_fused_fwd.cu", 347,
-             lib[512]),
-            ("lstm_fused_bwd", "bwd", 512, "lstm_fused_bwd.cu", 371,
-             lib_bwd[512]),
-            ("lstm_semi_bwd", "semi", 1024, "lstm_semi_bwd.cu", 519,
-             lib_bwd[1024]))
-    out = []
-    for name, kind, In, src, line, yard in rows:
-        b_ms, b_by = bounds[(kind, In)]
+    b_ms, b_by = fused_fwd_bound(T, B, 512, H)
+    out = [dict(
+        name="lstm_fused_fwd", route="cuda",
+        source="mlvae_tpu_torch/csrc/lstm_fused_fwd.cu",
+        replaces="mlvae_tpu/ops/lstm_pallas.py:347",
+        max_abs_err=errs["lstm_fused_fwd"], ms=ms[("fwd", 512)],
+        plain_ms=plain["fwd"], bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib[512], shape_in=512,
+        ms_by_in={i: t for (_, i), t in ms.items()},
+        **counts["lstm_fused_fwd"])]
+    for name, kind, In, src, line in (
+            ("lstm_fused_bwd", "bwd", 512, "lstm_fused_bwd.cu", 371),
+            ("lstm_semi_bwd", "semi", 1024, "lstm_semi_bwd.cu", 519)):
+        row = yard[f"{name} In={In} B={B}"]
         out.append(dict(
             name=name, route="cuda", source=f"mlvae_tpu_torch/csrc/{src}",
             replaces=f"mlvae_tpu/ops/lstm_pallas.py:{line}",
-            max_abs_err=errs[name], ms=ms[(kind, In)], plain_ms=plain[kind],
-            bound_ms=b_ms, bound_by=b_by, library_ms=yard, shape_in=In,
-            ms_by_in={i: t for (k, i), t in ms.items() if k == kind},
+            max_abs_err=errs[name], ms=row["ms"], plain_ms=plain[kind],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["cudnn_ms"], shape_in=In,
+            interleaved={k: v for k, v in yard.items()
+                         if k.startswith(name)},
             **counts[name]))
     return out
 
@@ -1912,7 +2042,8 @@ def time_training(dev, report, model, batch, first_noise, label="f32"):
 
 
 def time_amp_vae(dev, report, B=256, T=160, L=8):
-    """The AMP VAE train step at the JAX bench's shape (B=256, T=160)."""
+    """The AMP VAE train step at the JAX bench's shape (B=256, T=160), and
+    a profile of one."""
     import torch
     from mlvae_tpu_torch.bench_utils import build_md_vae, synth_batch
     from mlvae_tpu_torch.training.brain import Stage
@@ -1929,6 +2060,8 @@ def time_amp_vae(dev, report, B=256, T=160, L=8):
     report(f"  AMP train step VAE B={B} T={T}: {ms:.3f} ms "
            f"({out['utt_sec_per_sec']:.1f} utt-sec/sec); peak memory "
            f"{out['peak_mem_gib']:.2f} GiB")
+    profile_step(lambda: model.fit_batch(batch, 3, noise=noise),
+                 f"AMP VAE train step at B={B}", report)
     return out
 
 
@@ -2351,7 +2484,7 @@ def main(argv=None) -> int:
     report(f"phase 1 card: {name}; nvidia-smi: {smi}; torch "
            f"{torch.__version__} CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    built = _build.build()
+    built = _build.build([*_build.SOURCES, *_build.VARIANTS])
     report(f"phase 1 build: {time.perf_counter() - t0:.1f} s wall for "
            f"{sorted(built) or 'nothing (cached)'}")
     for src, (_, log) in _build.BUILD_LOG.items():
@@ -2427,6 +2560,7 @@ def main(argv=None) -> int:
     wav_in = time_wav(dev, report, model)
     del model
     kernels += time_fused(dev, report, errs, counts)
+    bwd_timeline = time_bwd_timeline(dev, report)
     train_step = time_training(dev, report, train_model, train_batch,
                                first_noise)
     del train_model
@@ -2443,7 +2577,8 @@ def main(argv=None) -> int:
     report(json.dumps({"kernels": kernels, "eval_step": step,
                        "wav_in": wav_in, "train_step": train_step,
                        "amp_train_step": amp_step,
-                       "gate3_train_step": gate3_step}))
+                       "gate3_train_step": gate3_step,
+                       "bwd_timeline": bwd_timeline}))
     report(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

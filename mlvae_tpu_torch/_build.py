@@ -32,6 +32,19 @@ EXTRA_FLAGS = {"md_viterbi": ["-fmad=false"]}
 SOURCES = ("lstm_fwd", "lstm_bwd", "md_viterbi", "lstm_fused_fwd",
            "lstm_fused_bwd", "lstm_semi_bwd", "fbank", "gru_fwd", "gru_bwd",
            "lstm_unroll_fwd", "lstm_unroll_fused_fwd")
+# second builds of a source under their own library names: the fused
+# backwards with the step timeline of tools/bench_bwd_timeline.py (a
+# %globaltimer stamp at each phase boundary of each step and block), and
+# with it the ablation that reads only the first r rows of each staged chunk
+# from L2 (r = 0, 32; wrong outputs by design). No build in SOURCES has
+# either define.
+TIMELINE_DEFINE = "-DMLVAE_BWD_TIMELINE"
+ABLATION_ROWS = (0, 32)
+VARIANTS = {f"{src}_timeline{suffix}": (src, [TIMELINE_DEFINE, *flags])
+            for src in ("lstm_fused_bwd", "lstm_semi_bwd")
+            for suffix, flags in (("", []), *(
+                (f"_rows{r}", [f"-DMLVAE_BWD_STAGE_ROWS={r}"])
+                for r in ABLATION_ROWS))}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds to build, ptxas report) for the builds this process ran
@@ -47,12 +60,18 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit (set CUDA_HOME)")
 
 
+def source_of(name: str) -> str:
+    """The ``csrc/<source>.cu`` that the build ``name`` compiles."""
+    return VARIANTS[name][0] if name in VARIANTS else name
+
+
 def _flags(name: str) -> List[str]:
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+    extra = VARIANTS[name][1] if name in VARIANTS else []
+    return NVCC_FLAGS + EXTRA_FLAGS.get(source_of(name), []) + extra
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{source_of(name)}.cu").read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
@@ -71,7 +90,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     for name in todo:
         out = _lib_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp),
+               str(CSRC / f"{source_of(name)}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -116,7 +136,8 @@ class Kernel:
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
-            err = getattr(lib, f"mlvae_{self.source}_error_string")
+            err = getattr(lib,
+                          f"mlvae_{source_of(self.source)}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             self._fn, self._err = fn, err

@@ -19,8 +19,11 @@
 // and an exchange that every block reads whole (B x 4H bf16, 256 KB at
 // B=64) from L2, x_t and h_{t-1} staged twice a step (for the recompute,
 // then for dW), and one block per SM with 16 gate rows of work, which
-// leaves the tensor cores idle most of each step. Shared memory holds
-// 172 KB at In=512, H=512.
+// leaves the tensor cores idle most of each step. The schedule runs the
+// recompute and dW on warps 4-7 while warps 0-3 wait at the split barrier
+// and run the exchange, so that the chains of dependent products overlap,
+// and stages every chunk with the TMA behind the products of the one
+// before it. Shared memory holds 199.2 KB at In=512, H=512, B=64.
 #include "lstm_fused_bwd.cuh"
 
 using namespace fused;
@@ -36,16 +39,26 @@ const char* mlvae_lstm_fused_bwd_error_string(int err) {
 // bf16, dw_ih (4H,In), db (4H) and dw_hh (4H,H) f32. Scratch: dgbuf
 // (2,B,4H) bf16, dh_buf (B,H) zeroed, dc_buf (B,H) holding dc_last,
 // barrier one zeroed counter. In a multiple of 8 and at most 4H, H of 16.
-// Returns a cudaError_t.
-int mlvae_lstm_fused_bwd(const bf16* x, const bf16* w_ih, const float* bias,
-                         const bf16* w_hh, const bf16* hs, const float* cs,
-                         const bf16* dhs, bf16* dx, float* dw_ih, float* db,
-                         float* dw_hh, bf16* dgbuf, float* dh_buf,
-                         float* dc_buf, unsigned int* barrier, int T, int B,
-                         int In, int H, int reverse, cudaStream_t stream) {
+// Returns a cudaError_t. The timing build (MLVAE_BWD_TIMELINE) is
+// mlvae_lstm_fused_bwd_timeline, which also takes the (T, H/4, 6) u64
+// timeline before the stream.
+#ifdef MLVAE_BWD_TIMELINE
+int mlvae_lstm_fused_bwd_timeline(
+#else
+int mlvae_lstm_fused_bwd(
+#endif
+    const bf16* x, const bf16* w_ih, const float* bias, const bf16* w_hh,
+    const bf16* hs, const float* cs, const bf16* dhs, bf16* dx, float* dw_ih,
+    float* db, float* dw_hh, bf16* dgbuf, float* dh_buf, float* dc_buf,
+    unsigned int* barrier, int T, int B, int In, int H,
+    int reverse BWD_TIMELINE_ARG, cudaStream_t stream) {
   return launch_bwd<false>(x, w_ih, bias, w_hh, hs, cs, dhs, dx, dw_ih, db,
                            dw_hh, dgbuf, dh_buf, dc_buf, barrier, T, B, In,
-                           H, reverse, stream);
+                           H, reverse,
+#ifdef MLVAE_BWD_TIMELINE
+                           timeline,
+#endif
+                           stream);
 }
 
 }  // extern "C"

@@ -15,7 +15,8 @@
 // product runs on the tensor cores (mma.sync m16n8k16, bf16 operands, f32
 // sums), as the Pallas kernels' MXU dots take bf16 operands with f32
 // accumulation: the block's 64 x 16 output is eight 16 x 8 tiles, one per
-// warp, each warp walking the chunk's columns 16 at a time.
+// warp, each warp walking the chunk's columns 16 at a time. The backwards
+// stage their chunks with the TMA instead (lstm_fused_bwd.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

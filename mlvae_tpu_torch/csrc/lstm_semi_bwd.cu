@@ -17,7 +17,8 @@
 // 2*2*B*4H*H*T = 42.9 GFLOP, 107.4 GFLOP in all (0.11 ms at 989 TFLOP/s of
 // bf16 tensor cores), against x, dgx, hs, dhs, cs and the weights, about
 // 115 MB (34 us at 3.35 TB/s): the floor is the operations. Shared memory
-// holds 140 KB, of which the 16 rows of [W_ih | W_hh] are 48 KB.
+// holds 167.1 KB at B=64, of which the 16 rows of [W_ih | W_hh] are 48 KB
+// and the four chunk tiles 64 KB.
 #include "lstm_fused_bwd.cuh"
 
 using namespace fused;
@@ -29,16 +30,25 @@ const char* mlvae_lstm_semi_bwd_error_string(int err) {
 }
 
 // As mlvae_lstm_fused_bwd, but dgx (T,B,4H) bf16 and dw_hh (4H,H) f32 are
-// the outputs, and there is no dgbuf.
-int mlvae_lstm_semi_bwd(const bf16* x, const bf16* w_ih, const float* bias,
-                        const bf16* w_hh, const bf16* hs, const float* cs,
-                        const bf16* dhs, bf16* dgx, float* dw_hh,
-                        float* dh_buf, float* dc_buf, unsigned int* barrier,
-                        int T, int B, int In, int H, int reverse,
-                        cudaStream_t stream) {
+// the outputs, and there is no dgbuf. The timing build is
+// mlvae_lstm_semi_bwd_timeline, as mlvae_lstm_fused_bwd_timeline.
+#ifdef MLVAE_BWD_TIMELINE
+int mlvae_lstm_semi_bwd_timeline(
+#else
+int mlvae_lstm_semi_bwd(
+#endif
+    const bf16* x, const bf16* w_ih, const float* bias, const bf16* w_hh,
+    const bf16* hs, const float* cs, const bf16* dhs, bf16* dgx,
+    float* dw_hh, float* dh_buf, float* dc_buf, unsigned int* barrier, int T,
+    int B, int In, int H, int reverse BWD_TIMELINE_ARG,
+    cudaStream_t stream) {
   return launch_bwd<true>(x, w_ih, bias, w_hh, hs, cs, dhs, dgx, nullptr,
                           nullptr, dw_hh, nullptr, dh_buf, dc_buf, barrier, T,
-                          B, In, H, reverse, stream);
+                          B, In, H, reverse,
+#ifdef MLVAE_BWD_TIMELINE
+                          timeline,
+#endif
+                          stream);
 }
 
 }  // extern "C"

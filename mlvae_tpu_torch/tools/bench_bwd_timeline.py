@@ -1,0 +1,247 @@
+"""A step timeline of the fused LSTM backwards (K3-bwd, K4-bwd) on the card.
+
+    python -m mlvae_tpu_torch.tools.bench_bwd_timeline [--iters N]
+
+Builds ``csrc/lstm_fused_bwd.cu`` and ``csrc/lstm_semi_bwd.cu`` a second
+time with ``-DMLVAE_BWD_TIMELINE`` (their own library names, see
+``_build.VARIANTS``): thread 0 of each block writes ``%globaltimer`` at the
+phase boundaries of each step into a (T, H/4, 7) buffer. For K3-bwd at
+In=512 and K4-bwd at In=1024, H=512, T=160, B=64 and B=256 (the AMP step's
+shapes and the JAX bench's batch), inputs from a generator seeded 0 at the
+recipe layers' scales, it prints each phase's microseconds a step: each
+block's mean over the steps, then the min, median and max over the blocks.
+The phases: ``dgates`` (from the carries, then the barrier's arrival);
+then at once on warps 4-7 ``dW`` and ``recompute`` (the next step's
+pre-activations) and on warps 0-3 ``wait`` (the rest of the barrier) and
+``exchange`` (dX and dh_{t-1}); ``warps_0_3`` and ``warps_4_7`` are the
+two groups' spans after the arrival, and ``step`` runs from the step's
+start to the groups' join. A launch that keeps its tiles in the serial
+schedule (``ahead`` false) reports dgates, dW and recompute together
+under ``dgates``.
+
+It also times both builds (CUDA events after warm-up: what the stamps
+cost) and holds the timing build's outputs bit-equal to the normal
+build's. The ablation reruns each shape with only the first 0 or 32 of
+each staged chunk's 64 rows read from L2 (``-DMLVAE_BWD_STAGE_ROWS``; wrong
+outputs by design): what the copies' traffic costs a step. It prints one JSON line naming the card and its power limit, and
+exits non-zero when an output differs. It needs the card and raises
+without CUDA.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from mlvae_tpu_torch import _build
+from mlvae_tpu_torch.device import resolve_device
+from mlvae_tpu_torch.ops import lstm as L
+
+# each phase as (start stamp, end stamp) of the timing build's seven: 0 the
+# step's start, 1 dgates done and arrived, 2 dW done, 3 the next step's
+# pre-activations done (warps 4-7), 4 the wait done, 5 the exchange done
+# (warps 0-3), 6 the two groups joined
+PHASES = {"dgates": (0, 1), "dW": (1, 2), "recompute": (2, 3),
+          "wait": (1, 4), "exchange": (4, 5), "warps_0_3": (1, 5),
+          "warps_4_7": (1, 3), "step": (0, 6)}
+STAMPS = 7
+CASES = (("lstm_fused_bwd", 512), ("lstm_semi_bwd", 1024))
+BATCHES = (64, 256)
+T, H = 160, 512
+WARMUP = 2
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGS = {"lstm_fused_bwd": [_P] * 15 + [_I] * 5 + [_P, _P],
+         "lstm_semi_bwd": [_P] * 12 + [_I] * 5 + [_P, _P]}
+
+
+def _timed(name: str, rows: Optional[int] = None) -> _build.Kernel:
+    """The timing build of ``name`` (with the staged-rows ablation if
+    ``rows`` is given); its entry takes the timeline before the stream."""
+    src = f"{name}_timeline" + ("" if rows is None else f"_rows{rows}")
+    return _build.Kernel(src, src, f"mlvae_{name}_timeline", _ARGS[name])
+
+
+# Not registered: their launches count on no path.
+TIMED = {name: _timed(name) for name in _ARGS}
+ABLATED = {(name, r): _timed(name, r) for name in _ARGS
+           for r in _build.ABLATION_ROWS}
+
+
+def bwd_smem_bytes(semi: bool, In: int, H: int, B: int, ahead: bool) -> int:
+    """Shared memory of a K3-bwd (K4-bwd if ``semi``) launch over B batch
+    rows, keeping every tile across the barrier (``ahead``) or not
+    (``bwd_smem_bytes`` of ``csrc/lstm_fused_bwd.cuh``)."""
+    BT, ROWS, LDD, TILE = 64, 16, 72, 64 * 128
+    nres = -(-B // BT) if ahead else 1
+    passes = 0 if semi else -(-(In // 4) // (H // 4))
+    Kp = H if semi else In + H
+    Kp += (40 - Kp % 32) % 32                  # dw_pitch
+    return (2 * (4 if ahead else 2) * TILE
+            + 4 * (ROWS * Kp + nres * BT * ROWS)
+            + 2 * (ROWS * (In + H + 8) + nres * ROWS * LDD
+                   + (4 * passes + 4) * (4 * H + 8))
+            + 4 * 8)                           # the tiles' mbarriers
+
+
+def keeps_tiles(semi: bool, In: int, H: int, B: int) -> bool:
+    """Whether a launch takes the schedule that keeps its tiles across the
+    barrier (``keeps_tiles`` of ``csrc/lstm_fused_bwd.cuh``)."""
+    return (-(-B // 64) <= 4
+            and bwd_smem_bytes(semi, In, H, B, True) <= 232448)
+
+
+def phase_split(stamps: torch.Tensor) -> Dict[str, Dict[str, float]]:
+    """``stamps`` (T, blocks, 7) int64 ns -> each phase's microseconds a
+    step (``PHASES``): every block's mean over the steps, then min, median
+    and max over the blocks. A stamp never written (0: K4's step 0 has no
+    exchange) counts as its phase's start."""
+    st = stamps.to(torch.float64)
+    out = {}
+    for name, (a, b) in PHASES.items():
+        end = torch.where(st[..., b] > 0, st[..., b], st[..., a])
+        m = (end - st[..., a]).mean(dim=0) / 1e3   # (blocks,) us a step
+        out[name] = {"min": float(m.min()), "median": float(m.median()),
+                     "max": float(m.max())}
+    return out
+
+
+def make_problem(dev, In: int, B: int, seed: int = 0):
+    """x, w_ih, w_hh bf16, the f32 bias at the recipe layers' scales
+    (weights U(+-1/sqrt(H))), the forward's hs and cs from K3/K4-fwd, bf16
+    cotangents for every h and f32 ones for the final c."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    x = (torch.randn((T, B, In), generator=g, device=dev) * 0.5).to(bf)
+    w_ih = ((torch.rand((4 * H, In), generator=g, device=dev) * 2 - 1)
+            / H ** 0.5).to(bf)
+    bias = (torch.rand((4 * H,), generator=g, device=dev) * 2 - 1) / H ** 0.5
+    w_hh = ((torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1)
+            / H ** 0.5).to(bf)
+    hs, cs = L.lstm_fused_fwd(x, w_ih, bias, w_hh)
+    dhs = (torch.randn((T, B, H), generator=g, device=dev) * 0.1).to(bf)
+    dc_last = torch.randn((B, H), generator=g, device=dev) * 0.1
+    return x, w_ih, bias, w_hh, hs, cs, dhs, dc_last
+
+
+def timed_bwd(name: str, prob, reverse: bool = False, kernel=None):
+    """The timing build of ``name`` (or ``kernel``, one of ``ABLATED``) on
+    ``prob``: (its outputs, as the normal wrapper's, and the (T, H/4, 7)
+    int64 timeline)."""
+    kernel = kernel or TIMED[name]
+    x, w_ih, bias, w_hh, hs, cs, dhs, dc_last = prob
+    Tn, B, In = x.shape
+    Hn = w_hh.shape[1]
+    stream = _build.stream_handle(x.device)
+    tl = torch.zeros((Tn, Hn // 4, STAMPS), device=x.device,
+                     dtype=torch.int64)
+    dh_buf, dc_buf, barrier = L._bwd_scratch(x, Hn, dc_last)
+    head = (x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(), w_hh.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), dhs.data_ptr())
+    if name == "lstm_fused_bwd":
+        dx = torch.empty_like(x)
+        dwih = torch.empty((4 * Hn, In), device=x.device, dtype=torch.float32)
+        db = torch.empty((4 * Hn,), device=x.device, dtype=torch.float32)
+        dwhh = torch.empty((4 * Hn, Hn), device=x.device,
+                           dtype=torch.float32)
+        dgbuf = torch.empty((2, B, 4 * Hn), device=x.device, dtype=x.dtype)
+        kernel(*head, dx.data_ptr(), dwih.data_ptr(), db.data_ptr(),
+                    dwhh.data_ptr(), dgbuf.data_ptr(), dh_buf.data_ptr(),
+                    dc_buf.data_ptr(), barrier.data_ptr(), Tn, B, In, Hn,
+                    int(reverse), tl.data_ptr(), stream)
+        return (dx, dwih, db, dwhh), tl
+    dgx = torch.empty((Tn, B, 4 * Hn), device=x.device, dtype=x.dtype)
+    dwhh = torch.empty((4 * Hn, Hn), device=x.device, dtype=torch.float32)
+    kernel(*head, dgx.data_ptr(), dwhh.data_ptr(), dh_buf.data_ptr(),
+                dc_buf.data_ptr(), barrier.data_ptr(), Tn, B, In, Hn,
+                int(reverse), tl.data_ptr(), stream)
+    return (dgx, dwhh), tl
+
+
+def cuda_ms(fn, iters: int) -> float:
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bench(dev, iters: int = 10) -> Dict:
+    _build.build([*_build.VARIANTS, "lstm_fused_fwd", "lstm_fused_bwd",
+                  "lstm_semi_bwd"])
+    rows = []
+    for name, In in CASES:
+        for B in BATCHES:
+            prob = make_problem(dev, In, B)
+            want = getattr(L, name)(*prob)
+            got, tl = timed_bwd(name, prob)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(got, want))
+            rows.append({
+                "kernel": name, "In": In, "B": B, "T": T, "H": H,
+                "ahead": keeps_tiles(name == "lstm_semi_bwd", In, H, B),
+                "bit_equal_to_normal_build": equal,
+                "ms": cuda_ms(lambda: getattr(L, name)(*prob), iters),
+                "ms_timing_build": cuda_ms(lambda: timed_bwd(name, prob),
+                                           iters),
+                "us_a_step": phase_split(tl.cpu()),
+                "ablation": {
+                    f"rows{r}": ablation(name, prob, r, iters)
+                    for r in _build.ABLATION_ROWS}})
+    return {"rows": rows}
+
+
+def ablation(name: str, prob, rows: int, iters: int) -> Dict:
+    """The timing build that reads only the first ``rows`` rows of each
+    staged chunk from L2: its ms and median microseconds a step of each
+    phase (outputs wrong by design, not checked)."""
+    kernel = ABLATED[(name, rows)]
+    _, tl = timed_bwd(name, prob, kernel=kernel)
+    torch.cuda.synchronize()
+    return {"ms": cuda_ms(lambda: timed_bwd(name, prob, kernel=kernel),
+                         iters),
+            "us_a_step": {k: v["median"]
+                          for k, v in phase_split(tl.cpu()).items()}}
+
+
+def _card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=10,
+                    help="timed calls per build and shape (default "
+                    "%(default)s)")
+    args = ap.parse_args(argv)
+    dev = resolve_device(None)
+    res = bench(dev, args.iters)
+    print(json.dumps({"tool": "bench_bwd_timeline",
+                      "device": torch.cuda.get_device_name(dev),
+                      "nvidia_smi": _card(), **res}), flush=True)
+    bad = [(r["kernel"], r["B"]) for r in res["rows"]
+           if not r["bit_equal_to_normal_build"]]
+    if bad:
+        print(f"bench_bwd_timeline: the timing build differs from the "
+              f"normal build at {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -106,15 +106,17 @@ def _cotangents(seed, T, B, H, dtype):
                        torch.from_numpy(_np(dc)))
 
 
+@pytest.mark.parametrize("T", [1, 2, 14])
 @pytest.mark.parametrize("semi", [False, True], ids=["K3", "K4"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_fused_bwd_refs_match_pallas_kernels(semi, dtype, reverse):
+def test_fused_bwd_refs_match_pallas_kernels(semi, dtype, reverse, T):
     """The plain K3-bwd (dX, dW_ih, db, dW_hh) and the plain K4-bwd with
     ``semi_input_grads`` against ``jax.vjp`` of the Pallas layer, whose
     backward is the Pallas backward kernel in interpret mode, with random
-    cotangents for every h and for the final cell state."""
-    (jx, jwi, jb, jwh), (x, wi, b, wh) = _both(_inputs(2), dtype)
+    cotangents for every h and for the final cell state. T=1 and T=2 are
+    where the CUDA kernels' prologue and last step meet."""
+    (jx, jwi, jb, jwh), (x, wi, b, wh) = _both(_inputs(2, T=T), dtype)
     T, B, _ = x.shape
     H = wh.shape[1]
     kernel = lp.lstm_layer_semifused if semi else lp.lstm_layer_fused
