@@ -6,11 +6,12 @@ NVIDIA card, in turns.
 
 runs OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT, each in
 a fresh process that builds that checkout's kernels and times, with CUDA
-events after warm-up, K1-fwd, K1-bwd, K3/K4-fwd and K3-bwd (In=512),
-K4-bwd (In=1024) at T=160, B=64, H=512 and the MD_VAE eval step at B=64,
-T=160, on inputs from fixed seeds, and a digest of each kernel's
-outputs. Each run prints one line ``AB <root> <JSON of ms and digests>``;
-the card's name and power limit come first. It compares
+events after warm-up, K1-fwd (B=64 and 128), K1-bwd, K3/K4-fwd (In=128,
+512, 1024) and K3-bwd (In=512), K4-bwd (In=1024) at T=160, B=64, H=512,
+the MD_VAE eval step and the AMP VAE train step at B=64, T=160, on inputs
+from fixed seeds, a digest of each kernel's outputs and of the AMP step's
+first loss. Each run prints one line ``AB <root> <JSON of ms and
+digests>``; the card's name and power limit come first. It compares
 two versions of code that both checkouts have (a parent and its change):
 a change that may slow an earlier path is held against its parent here.
 It needs a CUDA card and exits non-zero without one.
@@ -54,6 +55,8 @@ def time_checkout(root: Path) -> dict:
     fwd3 = cs.fused_problem(g, dev, T, B, 512, H)
     bwd3 = cs.fused_bwd_problem(g, dev, T, B, 512, H, False)
     bwd4 = cs.fused_bwd_problem(g, dev, T, B, 1024, H, False)
+    gx128 = torch.randn((T, 128, 4 * H), generator=g, device=dev) * 0.5
+    fwd_in = {In: cs.fused_problem(g, dev, T, B, In, H) for In in (128, 1024)}
     out = {
         # a digest of each kernel's outputs: equal digests mean outputs
         # bit-identical to the other checkout's
@@ -73,11 +76,31 @@ def time_checkout(root: Path) -> dict:
         "lstm_semi_bwd": cs.cuda_ms(lambda: L.lstm_semi_bwd(*bwd4),
                                     iters=20),
     }
+    out["digest_lstm_fwd_B128"] = digest(L.lstm_layer_fwd(gx128, w, False))
+    out["lstm_fwd_B128"] = cs.cuda_ms(
+        lambda: L.lstm_layer_fwd(gx128, w, False), iters=20)
+    for In, prob in fwd_in.items():
+        out[f"digest_lstm_fused_fwd_In{In}"] = digest(L.lstm_fused_fwd(*prob))
+        out[f"lstm_fused_fwd_In{In}"] = cs.cuda_ms(
+            lambda: L.lstm_fused_fwd(*prob), iters=20)
     model = build_md_vae(batch_size=B, seed=0, device=dev)
     batch = model.prepare_batch(synth_batch(B, T, 8, seed=0, device=dev))
     noise = cs.eval_noise(model, B, T, dev, seed=3)
     out["eval_step"] = cs.cuda_ms(
         lambda: model.eval_step(batch, noise=noise), iters=10)
+    del model
+    # the AMP VAE train step (each call trains on: the same work each time)
+    from mlvae_tpu_torch.training.brain import Stage
+    amp = build_md_vae(batch_size=B, seed=0, device=dev, bf16=True)
+    amp.on_stage_start(Stage.TRAIN, 3)
+    amp_batch = synth_batch(B, T, 8, seed=0, device=dev)
+    amp_noise = cs.train_noise(amp, B, T, dev,
+                               torch.Generator(device=dev).manual_seed(6))
+    loss, _ = amp.fit_batch(amp_batch, 3, noise=amp_noise)
+    out["digest_amp_vae_loss"] = digest([torch.as_tensor(loss).reshape(1)])
+    out["amp_vae_step"] = cs.cuda_ms(
+        lambda: amp.fit_batch(amp_batch, 3, noise=amp_noise), iters=5,
+        warmup=1)
     return out
 
 

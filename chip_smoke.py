@@ -6,8 +6,8 @@
 Phases, each reported on its own line; any failure exits non-zero:
 
 1. the card and the kernel build (every ``mlvae_tpu_torch/csrc/*.cu``,
-   compiled from this checkout, and the timing builds of K3-bwd and
-   K4-bwd, one ``nvcc`` per build in parallel);
+   compiled from this checkout, and the timing builds of K3-bwd, K4-bwd,
+   K1-fwd and K3/K4-fwd, one ``nvcc`` per build in parallel);
 2. each kernel against its plain PyTorch version on the card, at the
    slices' shapes (B=64, T=160, H=512; the fused kernels at In=128, 512
    and 1024 as the AMP step gives them; the filterbank K6 in its Kaldi
@@ -26,7 +26,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    repeated launches, and a T that is not a multiple of K refused;
    K3-bwd and K4-bwd also at the JAX bench's B=256, at T=2 beside T=1,
    at B=320 (their serial schedule), and 100 repeated launches per
-   direction each bit-equal to the first;
+   direction each bit-equal to the first; K1-fwd and K3/K4-fwd also at
+   ragged B (1, 63, 65, 70, 200), B=128 and 256, T=1 and T=2, K3/K4-fwd's
+   serial schedule (B=320; In=4096), and 100 repeated launches per case
+   and direction (K1-fwd at B=64 and 128, K3/K4-fwd at In=1024 B=64 and
+   In=512 B=256) each bit-equal to the first;
 3. MD_VAE at the recipe's full width (H=512, B=64, T=160, L=8, weights
    from a seed) through the kernels: the TEST-target eval step (finite
    losses, decoded boundaries that sum to each utterance's phoneme count,
@@ -69,8 +73,13 @@ Phases, each reported on its own line; any failure exits non-zero:
    (In 1024) at B=64 and K3-bwd In=512, K4-bwd at B=256 in turns with
    cuDNN's bf16 backward of the same layer (kernel, cuDNN, cuDNN, kernel,
    five rounds; medians and spreads; and cuDNN's profiled kernel time),
-   their step timeline (``mlvae_tpu_torch.tools.bench_bwd_timeline``:
-   microseconds a step of each phase, and the ablation without or with
+   K1-fwd (B=64, 128) and K3/K4-fwd (In 128, 512, 1024 at B=64 and 256)
+   in turns with cuDNN's forward of the same layer likewise, the
+   forwards' step timeline (``mlvae_tpu_torch.tools.bench_fwd_timeline``:
+   microseconds a step of each phase, the timing builds bit-equal to the
+   normal ones), the backwards' step timeline
+   (``mlvae_tpu_torch.tools.bench_bwd_timeline``: microseconds a step of
+   each phase, and the ablation without or with
    half of the copies' L2 traffic), and profiles of one eval, one wav-in
    eval, one f32 and one AMP VAE train step and one f32 gate-3 step;
 5. a ``kernels`` JSON line, the card's name and power limit, and last
@@ -112,6 +121,8 @@ FUSED_REPEATS = 10    # phase 2's repeated launches per fused kernel, shape
                       # and direction
 FUSED_BWD_REPEATS = 100  # phase 2's repeated K3-bwd / K4-bwd launches per
                          # direction, each bit-equal to the first
+FWD_BIT_REPEATS = 100  # phase 2's repeated K1-fwd / K3/K4-fwd launches per
+                       # case and direction, each bit-equal to the first
 # the fused backwards beside cuDNN's bf16 backward of one layer, timed in
 # turns (kernel, cuDNN, cuDNN, kernel) in phase 4: (kernel, In, B); T=160,
 # H=512
@@ -119,6 +130,14 @@ BWD_YARD_CASES = (("lstm_fused_bwd", 32, 64), ("lstm_fused_bwd", 128, 64),
                   ("lstm_fused_bwd", 512, 64), ("lstm_semi_bwd", 1024, 64),
                   ("lstm_fused_bwd", 512, 256), ("lstm_semi_bwd", 1024, 256))
 BWD_YARD_ROUNDS = 5
+# the forwards beside cuDNN's forward of one layer, in turns in phase 4:
+# (kernel, In, B), In None for K1-fwd (f32, against an f32 layer whose
+# input is H wide: cuDNN's time includes its input projection, which
+# K1-fwd leaves to a matmul); T=160, H=512
+K1_YARD_CASES = (("lstm_fwd", None, 64), ("lstm_fwd", None, 128))
+FUSED_FWD_YARD_CASES = tuple(("lstm_fused_fwd", In, B) for B in (64, 256)
+                             for In in (128, 512, 1024))
+FWD_YARD_ROUNDS = 5
 BF16_PEAK = 989e12    # H100 SXM dense bf16 tensor cores, FLOP/s
 AMP_LOSS_RTOL = 1e-3  # the AMP step against its plain twin: the fused
 AMP_GRAD_RTOL = 1e-2  # kernels' bf16 flips (above) through ten layers
@@ -306,7 +325,11 @@ def check_lstm(dev, report):
     from mlvae_tpu_torch.ops.lstm import lstm_layer_fwd, lstm_layer_ref
     g = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
-    cases = [(160, 64, 512), (7, 1, 512), (9, 70, 64)]
+    # the main path's shape first; then B=128 (two batch tiles through the
+    # ring of TMA copies), ragged and larger batches, T=1 and T=2
+    cases = [(160, 64, 512), (160, 128, 512), (7, 1, 512), (9, 70, 64),
+             (5, 63, 512), (5, 65, 512), (4, 200, 512), (3, 256, 512),
+             (3, 320, 512), (1, 64, 512), (2, 64, 512), (2, 1, 512)]
     for T, B, H in cases:
         gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
         w = (torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1) \
@@ -503,9 +526,15 @@ def check_fused_fwd(dev, report):
     from mlvae_tpu_torch.ops.lstm import lstm_fused_fwd, lstm_fused_fwd_ref
     g = torch.Generator(device=dev).manual_seed(21)
     worst = 0.0
+    # the AMP step's shapes; the JAX bench's B=256; ragged B, T=1 and T=2;
+    # the serial schedule (B=320: five batch tiles; In=4096: the layout
+    # that keeps both tiles passes 227 KB)
     cases = [(160, 64, 128, 512), (160, 64, 512, 512), (160, 64, 1024, 512),
-             (1, 64, 128, 512), (7, 1, 512, 512), (9, 70, 128, 512),
-             (5, 130, 1024, 512), (6, 33, 136, 64)]
+             (160, 256, 512, 512), (20, 256, 1024, 512), (1, 64, 128, 512),
+             (2, 64, 512, 512), (1, 256, 1024, 512), (2, 256, 128, 512),
+             (7, 1, 512, 512), (5, 63, 1024, 512), (5, 65, 512, 512),
+             (4, 200, 128, 512), (9, 70, 128, 512), (5, 130, 1024, 512),
+             (3, 320, 512, 512), (2, 70, 4096, 512), (6, 33, 136, 64)]
     for T, B, In, H in cases:
         prob = fused_problem(g, dev, T, B, In, H)
         for reverse in (False, True):
@@ -620,6 +649,42 @@ def stress_fused(dev, report, repeats, bwd_repeats=FUSED_BWD_REPEATS):
               if wrong else ""))
     check(not wrong, f"fused kernels wrong in {len(wrong)} of "
           f"{total + total_bwd} repeated launches")
+
+
+def stress_fwd_bits(dev, report, repeats=FWD_BIT_REPEATS):
+    """Repeated K1-fwd (B=64 and 128) and K3/K4-fwd (In=1024 at B=64,
+    In=512 at B=256) launches back to back, both directions, each
+    bit-equal to the first: their split barriers, rings of TMA copies and
+    (K3/K4-fwd) two warp groups are an ordering a race would break."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    g = torch.Generator(device=dev).manual_seed(24)
+    T, H = 160, 512
+    total, wrong = 0, []
+    cases = [("lstm_fwd", 64, None), ("lstm_fwd", 128, None),
+             ("lstm_fused_fwd", 64, 1024), ("lstm_fused_fwd", 256, 512)]
+    for name, B, In in cases:
+        for reverse in (False, True):
+            if name == "lstm_fwd":
+                gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
+                w = (torch.rand((4 * H, H), generator=g, device=dev) * 2
+                     - 1) / H ** 0.5
+                run = lambda: L.lstm_layer_fwd(gx, w, reverse)
+            else:
+                prob = fused_problem(g, dev, T, B, In, H)
+                run = lambda: L.lstm_fused_fwd(*prob, reverse)
+            first = run()
+            same = [bit_equal(run(), first) for _ in range(repeats)]
+            total += len(same)
+            wrong += [(name, B, In, reverse, j)
+                      for j, ok in enumerate(same) if not ok]
+    report(f"  forwards repeated: {total} K1-fwd (B=64, 128) and K3/K4-fwd "
+           f"(In=1024 B=64, In=512 B=256) launches at T=160, H=512, both "
+           f"directions, against each case's first: {len(wrong)} not "
+           "bit-equal" + (f"; wrong (kernel, B, In, reverse, launch): "
+                          f"{wrong[:8]}" if wrong else ""))
+    check(not wrong, f"forward kernels not bit-equal in {len(wrong)} of "
+          f"{total} repeated launches")
 
 
 def gru_problem(g, dev, T, B, H, bf16, reverse):
@@ -1770,13 +1835,12 @@ def time_all(dev, report, model, batch, noise, prob, errs, counts):
     g = torch.Generator(device=dev).manual_seed(11)
     gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
     w = (torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1) / H ** 0.5
-    k1 = cuda_ms(lambda: lstm_layer_fwd(gx, w, False), iters=20)
+    k1_yard = time_fwd_yard(dev, report, K1_YARD_CASES)
+    k1 = k1_yard["lstm_fwd B=64"]["ms"]
     k1_plain = cuda_ms(lambda: lstm_layer_ref(gx, w, False), iters=3,
                        warmup=1)
     cudnn = torch.nn.LSTM(H, H, 1).to(dev)
-    x = torch.randn((T, B, H), generator=g, device=dev)
-    with torch.no_grad():
-        k1_lib = cuda_ms(lambda: cudnn(x), iters=20)
+    k1_lib = k1_yard["lstm_fwd B=64"]["cudnn_ms"]
     k1_bound, k1_by = lstm_bound(T, B, H)
 
     yx, y_, y, lpb, lpi, tl, ll, w8 = prob
@@ -1838,7 +1902,7 @@ def time_all(dev, report, model, batch, noise, prob, errs, counts):
              replaces="mlvae_tpu/ops/lstm_pallas.py:87",
              max_abs_err=errs["lstm"],
              ms=k1, plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by,
-             library_ms=k1_lib, **counts["lstm_fwd"]),
+             library_ms=k1_lib, interleaved=k1_yard, **counts["lstm_fwd"]),
         dict(name="lstm_bwd", route="cuda",
              source="mlvae_tpu_torch/csrc/lstm_bwd.cu",
              replaces="mlvae_tpu/ops/lstm_pallas.py:115",
@@ -1941,6 +2005,75 @@ def time_fused_bwd(dev, report, T=160, H=512, cases=BWD_YARD_CASES,
     return out
 
 
+def time_fwd_yard(dev, report, cases, T=160, H=512, rounds=FWD_YARD_ROUNDS):
+    """K1-fwd and K3/K4-fwd beside cuDNN's forward of the same layer
+    (``torch.nn.LSTM``, one layer, f32 or bf16, with its input
+    projection), timed in turns in one run: median and spread of each,
+    the factor of the medians, microseconds a step, the bound; and the
+    device time of cuDNN's forward kernels alone (profiler)."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    g = torch.Generator(device=dev).manual_seed(33)
+    out = {}
+    for name, In, B in cases:
+        if name == "lstm_fwd":
+            gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
+            w = (torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1) \
+                / H ** 0.5
+            fn = lambda: L.lstm_layer_fwd(gx, w, False)
+            cudnn = torch.nn.LSTM(H, H, 1).to(dev)
+            x = torch.randn((T, B, H), generator=g, device=dev)
+            b_ms, b_by = lstm_bound(T, B, H)
+            key = f"{name} B={B}"
+        else:
+            prob = fused_problem(g, dev, T, B, In, H)
+            fn = lambda: L.lstm_fused_fwd(*prob)
+            cudnn = torch.nn.LSTM(In, H, 1).to(dev, torch.bfloat16)
+            x = prob[0]
+            b_ms, b_by = fused_fwd_bound(T, B, In, H)
+            key = f"{name} In={In} B={B}"
+        cudnn.flatten_parameters()  # else cuDNN compacts them every call
+        with torch.no_grad():
+            ks, ys = interleaved_ms(
+                lambda iters: cuda_ms(fn, iters=iters, warmup=1),
+                lambda iters: cuda_ms(lambda: cudnn(x), iters=iters,
+                                      warmup=1), rounds, iters=5)
+            dev_ms = kernel_ms(lambda: cudnn(x))
+        km, ym = statistics.median(ks), statistics.median(ys)
+        fk = km / dev_ms if dev_ms else float("nan")
+        out[key] = {"ms": km, "spread": [min(ks), max(ks)],
+                    "us_a_step": km * 1e3 / T, "cudnn_ms": ym,
+                    "cudnn_spread": [min(ys), max(ys)], "factor": km / ym,
+                    "cudnn_kernels_ms": dev_ms, "factor_kernels": fk,
+                    "bound_ms": b_ms, "bound_by": b_by}
+        report(f"  {key} T={T}: {km:.4f} ms median ({min(ks):.4f}-"
+               f"{max(ks):.4f}; {km * 1e3 / T:.2f} us a step); cuDNN "
+               f"{'f32' if In is None else 'bf16'} layer forward incl. input "
+               f"projection, in turns, {ym:.4f} median ({min(ys):.4f}-"
+               f"{max(ys):.4f}); factor {km / ym:.3f}; cuDNN's forward "
+               f"kernels alone {dev_ms:.4f} (profiler; factor {fk:.3f}); "
+               f"bound {b_ms:.4f} by {b_by}")
+    return out
+
+
+def time_fwd_timeline(dev, report):
+    """The step timeline of K1-fwd and K3/K4-fwd (their timing builds,
+    tools/bench_fwd_timeline.py): microseconds a step of each phase."""
+    from mlvae_tpu_torch.tools import bench_fwd_timeline as ftl
+    res = ftl.bench(dev)
+    for r in res["rows"]:
+        report(f"  timeline {r['kernel']} In={r['In']} B={r['B']}: "
+               f"{r['ms']:.4f} ms ({r['us_a_step']:.2f} us a step), timing "
+               f"build {r['ms_timing_build']:.4f}; us a step, median over "
+               "blocks (min-max): " + ", ".join(
+                   f"{k} {v['median']:.2f} ({v['min']:.2f}-{v['max']:.2f})"
+                   for k, v in r["phases_us_a_step"].items()))
+    bad = [(r["kernel"], r["In"], r["B"]) for r in res["rows"]
+           if not r["bit_equal_to_normal_build"]]
+    check(not bad, f"the timing build differs from the normal build: {bad}")
+    return res
+
+
 def time_bwd_timeline(dev, report):
     """The step timeline of K3-bwd and K4-bwd (their timing builds,
     tools/bench_bwd_timeline.py): microseconds a step of each phase."""
@@ -1965,25 +2098,23 @@ def time_bwd_timeline(dev, report):
 
 def time_fused(dev, report, errs, counts):
     """Each fused kernel at the AMP step's widths (T=160, B=64, H=512; In
-    128, 512, 1024 for the forward), its plain version and cuDNN's bf16
-    LSTM layer; the backwards beside cuDNN in turns (time_fused_bwd). The
+    128, 512, 1024 for the forward), its plain version, and cuDNN's bf16
+    LSTM layer in turns with it (time_fwd_yard, also at B=256;
+    time_fused_bwd). The
     kernels line reports K3/K4-fwd and K3-bwd at In=512, K4-bwd at
     In=1024, B=64."""
     import torch
     from mlvae_tpu_torch.ops import lstm as L
     T, B, H = 160, 64, 512
     g = torch.Generator(device=dev).manual_seed(31)
-    ms, plain, lib = {}, {}, {}
-    for In in (128, 512, 1024):
-        prob = fused_problem(g, dev, T, B, In, H)
-        ms[("fwd", In)] = cuda_ms(lambda: L.lstm_fused_fwd(*prob), iters=10)
-        cudnn = torch.nn.LSTM(In, H, 1).to(dev, torch.bfloat16)
-        cudnn.flatten_parameters()  # else cuDNN compacts them every call
-        with torch.no_grad():
-            lib[In] = cuda_ms(lambda: cudnn(prob[0]), iters=10)
-        if In == 512:
-            plain["fwd"] = cuda_ms(lambda: L.lstm_fused_fwd_ref(*prob),
-                                   iters=2, warmup=1)
+    fwd_yard = time_fwd_yard(dev, report, FUSED_FWD_YARD_CASES)
+    ms = {("fwd", In): fwd_yard[f"lstm_fused_fwd In={In} B={B}"]["ms"]
+          for In in (128, 512, 1024)}
+    lib = {In: fwd_yard[f"lstm_fused_fwd In={In} B={B}"]["cudnn_ms"]
+           for In in (128, 512, 1024)}
+    prob = fused_problem(g, dev, T, B, 512, H)
+    plain = {"fwd": cuda_ms(lambda: L.lstm_fused_fwd_ref(*prob), iters=2,
+                            warmup=1)}
     for kind, name, In in (("bwd", "lstm_fused_bwd", 512),
                            ("semi", "lstm_semi_bwd", 1024)):
         prob = fused_bwd_problem(g, dev, T, B, In, H, False)
@@ -2006,7 +2137,7 @@ def time_fused(dev, report, errs, counts):
         max_abs_err=errs["lstm_fused_fwd"], ms=ms[("fwd", 512)],
         plain_ms=plain["fwd"], bound_ms=b_ms, bound_by=b_by,
         library_ms=lib[512], shape_in=512,
-        ms_by_in={i: t for (_, i), t in ms.items()},
+        ms_by_in={i: t for (_, i), t in ms.items()}, interleaved=fwd_yard,
         **counts["lstm_fused_fwd"])]
     for name, kind, In, src, line in (
             ("lstm_fused_bwd", "bwd", 512, "lstm_fused_bwd.cu", 371),
@@ -2503,6 +2634,7 @@ def main(argv=None) -> int:
     errs["lstm_fused_fwd"] = check_fused_fwd(dev, report)
     errs.update(check_fused_bwd(dev, report))
     stress_fused(dev, report, FUSED_REPEATS)
+    stress_fwd_bits(dev, report)
     cases = fbank_cases(dev)
     errs_fbank = check_fbank(dev, report, cases)
     errs.update(check_gru(dev, report))
@@ -2561,6 +2693,7 @@ def main(argv=None) -> int:
     del model
     kernels += time_fused(dev, report, errs, counts)
     bwd_timeline = time_bwd_timeline(dev, report)
+    fwd_timeline = time_fwd_timeline(dev, report)
     train_step = time_training(dev, report, train_model, train_batch,
                                first_noise)
     del train_model
@@ -2578,7 +2711,8 @@ def main(argv=None) -> int:
                        "wav_in": wav_in, "train_step": train_step,
                        "amp_train_step": amp_step,
                        "gate3_train_step": gate3_step,
-                       "bwd_timeline": bwd_timeline}))
+                       "bwd_timeline": bwd_timeline,
+                       "fwd_timeline": fwd_timeline}))
     report(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

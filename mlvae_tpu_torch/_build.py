@@ -36,15 +36,27 @@ SOURCES = ("lstm_fwd", "lstm_bwd", "md_viterbi", "lstm_fused_fwd",
 # backwards with the step timeline of tools/bench_bwd_timeline.py (a
 # %globaltimer stamp at each phase boundary of each step and block), and
 # with it the ablation that reads only the first r rows of each staged chunk
-# from L2 (r = 0, 32; wrong outputs by design). No build in SOURCES has
-# either define.
+# from L2 (r = 0, 32; wrong outputs by design); the LSTM forwards K1-fwd and
+# K3/K4-fwd with the step timeline of tools/bench_fwd_timeline.py. No build
+# in SOURCES has any of these defines.
 TIMELINE_DEFINE = "-DMLVAE_BWD_TIMELINE"
+FWD_TIMELINE_DEFINE = "-DMLVAE_FWD_TIMELINE"
+FWD_TIMED = ("lstm_fwd", "lstm_fused_fwd")
 ABLATION_ROWS = (0, 32)
 VARIANTS = {f"{src}_timeline{suffix}": (src, [TIMELINE_DEFINE, *flags])
             for src in ("lstm_fused_bwd", "lstm_semi_bwd")
             for suffix, flags in (("", []), *(
                 (f"_rows{r}", [f"-DMLVAE_BWD_STAGE_ROWS={r}"])
                 for r in ABLATION_ROWS))}
+VARIANTS.update({f"{src}_timeline": (src, [FWD_TIMELINE_DEFINE])
+                 for src in FWD_TIMED})
+
+
+def timeline_define(name: str) -> str:
+    """The timing define of the build ``name`` of ``VARIANTS``."""
+    return (FWD_TIMELINE_DEFINE if source_of(name) in FWD_TIMED
+            else TIMELINE_DEFINE)
+
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds to build, ptxas report) for the builds this process ran

@@ -1,7 +1,7 @@
 // Shared pieces of the persistent recurrence kernels (K1 in lstm_fwd.cu and
 // lstm_bwd.cu, K3/K4 through lstm_fused_common.cuh, K5 in gru_fwd.cu and
-// gru_bwd.cu): the step barrier across the grid (and, for K3-bwd and
-// K4-bwd, the same barrier split in an arrival and a wait), the
+// gru_bwd.cu): the step barrier across the grid (and, for K1-fwd, K3/K4-fwd,
+// K3-bwd and K4-bwd, the same barrier split in an arrival and a wait), the
 // cooperative launch that makes it safe, and the logistic function they
 // all apply.
 #pragma once
@@ -38,16 +38,29 @@ __device__ __forceinline__ void grid_barrier(unsigned int* count,
 }
 
 // grid_barrier split in two, so that a block can run work that needs no
-// other block's writes between its arrival and its wait. grid_arrive (every
-// thread of the block) publishes the block's writes before it: thread 0's
-// release after __syncthreads. grid_wait returns once every block has
-// arrived `target / gridDim.x` times, with their published writes visible
-// to the threads that call it: thread 0 polls with acquire, then named
-// barrier `bar` joins the `nthreads` callers (thread 0 among them; a
-// multiple of 32). Writes made between the two are not published by this
-// barrier.
+// other block's writes between its arrival and its wait (K1-fwd, K3-bwd,
+// K4-bwd). grid_arrive (every thread of the block) publishes the block's
+// writes before it: thread 0's release after __syncthreads. grid_wait
+// returns once every block has arrived `target / gridDim.x` times, with
+// their published writes visible to the threads that call it: thread 0
+// polls with acquire, then named barrier `bar` joins the `nthreads`
+// callers (thread 0 among them; a multiple of 32). Writes made between the
+// two are not published by this barrier.
 __device__ __forceinline__ void grid_arrive(unsigned int* count) {
   __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(count),
+                 "r"(1u)
+                 : "memory");
+}
+
+// grid_arrive for part of the block (K3/K4-fwd's warps 0-3): the
+// `nthreads` threads that call it (thread 0 among them; a multiple of 32)
+// join on named barrier `bar`, then thread 0's release publishes their
+// writes.
+__device__ __forceinline__ void grid_arrive_by(unsigned int* count, int bar,
+                                               int nthreads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(nthreads) : "memory");
   if (threadIdx.x == 0)
     asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(count),
                  "r"(1u)

@@ -58,20 +58,13 @@
 // recompute, dgates, dW; then the exchange), with the same copies.
 #pragma once
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
-#include "lstm_fused_common.cuh"
+#include "lstm_fused_tma.cuh"
 
 namespace fused {
 
 constexpr int LDD = BT + 8;   // bf16 pitch of dg_t [ROWS][LDD]
 constexpr int MAXP = 4;       // dX column groups a block may own
 constexpr int MAXT = 4;       // batch tiles kept across the barrier: B <= 256
-constexpr int KCB = 128;      // columns per staged chunk of the backward
-constexpr int HALF = 64;      // columns per 128-byte swizzled half of it
-constexpr int TILE = BT * KCB;  // bf16 elements of a chunk tile (16 KB)
-constexpr int GROUP = THREADS / 2;  // warps 0-3: exchange; 4-7: dW, recompute
 constexpr int BAR_X = 1, BAR_W = 2;  // the groups' named barriers
 static_assert(GROUP == (BT / 16) * 32, "a warp of the exchange: 16 rows");
 static_assert(KCB == (GROUP / 32) * 32, "dW: 32 columns a warp of group W");
@@ -100,63 +93,11 @@ constexpr int STAMPS = 7;
 #endif
 #define BWD_STAMP(s, k) BWD_STAMP_BY(s, k, 0)
 
-// bar.sync on named barrier `id` for the 128 threads of one warp group.
-__device__ __forceinline__ void group_sync(int id) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(GROUP) : "memory");
-}
-
 // f32 row pitch of dw_s: Kp and enough padding that the pitch is 8 words
 // past a multiple of 32, so that the float2 accesses of dw_chunk (rows g
 // and g + 8, columns 2t) meet no bank twice in a half-warp.
 __host__ __device__ inline int dw_pitch(int Kp) {
   return Kp + (40 - Kp % 32) % 32;
-}
-
-// ldmatrix: four 8x8 bf16 matrices from shared memory, lanes 8m .. 8m+7
-// giving the row addresses of matrix m (16-byte aligned); .trans gives
-// each its transpose, which turns a row-major [k][n] tile into the k16 x n8
-// B fragments of mma.m16n8k16.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned int a =
-      static_cast<unsigned int>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  const unsigned int a =
-      static_cast<unsigned int>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// This lane's ldmatrix address for the A fragments (k0 = 0) of rows r0 ..
-// r0 + 15 of a row-major bf16 tile of pitch ld: matrices rows 0-7 / 8-15
-// at columns 0-7, then at 8-15.
-__device__ __forceinline__ const bf16* a_frag_addr(const bf16* tile, int ld,
-                                                   int r0) {
-  const int lane = threadIdx.x & 31;
-  return tile + (size_t)(r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld +
-         8 * (lane >> 4);
-}
-
-// Element (r, c) of a staged chunk tile: two halves of 64 columns, 64
-// rows of 128 bytes each, with the 16-byte unit u of row r at u ^ (r & 7),
-// as the TMA's 128-byte swizzle writes them; an ldmatrix row (8 columns
-// from c, a multiple of 8) is one unit, and the 8 rows a matrix touches
-// fall on 8 different bank groups.
-__device__ __forceinline__ const bf16* tile_at(const bf16* tile, int r,
-                                               int c) {
-  return tile + (c >> 6) * (BT * HALF) + r * HALF +
-         ((((c >> 3) & 7) ^ (r & 7)) << 3);
 }
 
 // dW of one staged chunk on the tensor cores, columns [0, width) of the
@@ -211,137 +152,6 @@ __device__ __forceinline__ void dw_chunk(const bf16* tile, float* dw_s,
         make_float2(d[j][0], d[j][1]);
     *reinterpret_cast<float2*>(dw_s + (g + 8) * KpP + col) =
         make_float2(d[j][2], d[j][3]);
-  }
-}
-
-// The pre-activations' product of one staged chunk for warp mi (0-3) of
-// group W: c[ni] += the chunk's rows 16 mi .. (A) times the weight rows
-// 8 ni .. (B, k = column), ni = 0, 1, 16 columns at a time in the order of
-// mma_chunk (lstm_fused_common.cuh), each accumulator one chain.
-__device__ __forceinline__ void pre_chunk_mma(float (&c)[2][4],
-                                              const bf16* tile,
-                                              const bf16* w_s, int LDW,
-                                              int wcol, int width, int mi) {
-  const int lane = threadIdx.x & 31;
-  const int arow = 16 * mi + (lane & 7) + 8 * ((lane >> 3) & 1);
-  const int acol = 8 * (lane >> 4);
-  // B's matrices: weight rows 0-7 at k0, at k0 + 8, rows 8-15 at k0, at
-  // k0 + 8
-  const bf16* pb = w_s + (size_t)((lane & 7) + 8 * (lane >> 4)) * LDW + wcol +
-                   8 * ((lane >> 3) & 1);
-#pragma unroll 4
-  for (int k0 = 0; k0 < width; k0 += 16) {
-    uint32_t a[4], b[4];
-    ldsm_x4(a, tile_at(tile, arow, acol + k0));
-    ldsm_x4(b, pb + k0);
-    mma16816(c[0], a[0], a[1], a[2], a[3], b[0], b[1]);
-    mma16816(c[1], a[0], a[1], a[2], a[3], b[2], b[3]);
-  }
-}
-
-// One staged chunk: columns [c0, c0 + 128) of rows [b0, b0 + 64) of slice z
-// of the 3-D bf16 tensor behind the TMA descriptor `map` (columns, rows,
-// slices innermost first); rows and columns past the tensor's ends arrive
-// as zeros (the rows past B meet zero dgates in dW; the columns past In
-// meet the k-steps that straddle In).
-struct Chunk {
-  const CUtensorMap* map;
-  int c0, b0, z;
-};
-
-__device__ __forceinline__ unsigned int smem_u32(const void* p) {
-  return static_cast<unsigned int>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar,
-                                            unsigned int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Until the phase of parity `ph` of `bar` has completed. A wait far past
-// any step (2^24 polls) traps: a fault, not a hung card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned int ph) {
-  const unsigned int a = smem_u32(bar);
-  for (unsigned int n = 0;; ++n) {
-    unsigned int done;
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(a), "r"(ph)
-        : "memory");
-    if (done) return;
-    if (n > (1u << 24)) __trap();
-  }
-}
-
-// The timing build's ablation (MLVAE_BWD_STAGE_ROWS=r): the descriptors'
-// boxes take only r of a chunk's 64 rows (none for r = 0), the rest of
-// the tile stays as it was, so the step's time without (r = 0) or with
-// half (r = 32) of its copies' L2 traffic can be read off the timeline.
-// Its outputs are wrong by design.
-#ifdef MLVAE_BWD_STAGE_ROWS
-constexpr int STAGED_ROWS = MLVAE_BWD_STAGE_ROWS;
-#else
-constexpr int STAGED_ROWS = BT;
-#endif
-
-// One TMA copy of a 64-column half of chunk c into its tile, completing
-// the tile's mbarrier.
-__device__ __forceinline__ void tma_half(bf16* dst, const Chunk& c, int half,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
-      "l"(c.map), "r"(c.c0 + half * HALF), "r"(c.b0), "r"(c.z),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Jobs 0 .. n-1 of one warp group (threads [t0, t0 + GROUP), named barrier
-// `bar`; n the same in all of them), each a chunk (chunk(j)) copied by the
-// TMA into tile j & 1 of `bufs` (thread t0 issues both halves and the
-// tile's mbarrier full[j & 1] takes their bytes; `phase` holds each
-// tile's next parity) and then consumed by work(j, tile): chunk j + 1 is in
-// flight while chunk j's products run. One group barrier a chunk, and one
-// before the first copy, so the tiles' earlier readers are done.
-// fence_src: the source was written in this launch by plain stores (the
-// exchange), which the TMA's async proxy must see.
-template <class ChunkOf, class Work>
-__device__ __forceinline__ void pipeline(bf16* bufs, uint64_t* full,
-                                         unsigned int& phase, int n, int t0,
-                                         int bar, bool fence_src,
-                                         ChunkOf chunk, Work work) {
-  if (n <= 0) return;
-  auto stage = [&](int j) {
-    if ((int)threadIdx.x != t0) return;
-    const int b = j & 1;
-    const Chunk c = chunk(j);
-    if (fence_src) asm volatile("fence.proxy.async.global;" ::: "memory");
-    mbar_expect(&full[b], 2 * HALF * STAGED_ROWS * sizeof(bf16));
-    if (STAGED_ROWS > 0) {
-      tma_half(bufs + (size_t)b * TILE, c, 0, &full[b]);
-      tma_half(bufs + (size_t)b * TILE + BT * HALF, c, 1, &full[b]);
-    }
-  };
-  group_sync(bar);
-  stage(0);
-  for (int j = 0; j < n; ++j) {
-    const int b = j & 1;
-    mbar_wait(&full[b], (phase >> b) & 1);
-    phase ^= 1u << b;
-    group_sync(bar);
-    if (j + 1 < n) stage(j + 1);
-    work(j, bufs + (size_t)b * TILE);
   }
 }
 
@@ -789,38 +599,6 @@ lstm_fused_bwd_kernel(const bf16* __restrict__ x,
   }
   if (!SEMI && tid < ROWS)
     db[(size_t)(tid / UNITS) * H + u0 + tid % UNITS] = db_acc;
-}
-
-// A TMA descriptor of the 3-D bf16 tensor `base` (cols x rows x slices,
-// innermost first, dense), in boxes of 64 columns x STAGED_ROWS rows of one
-// slice, 128-byte swizzled, zeros past the ends. cuTensorMapEncodeTiled
-// comes from the driver through the runtime, so the library links
-// nothing more.
-inline cudaError_t chunk_map(CUtensorMap* map, const void* base, int cols,
-                             int rows, int slices) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (!encode) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || !fn)
-      return cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                              (cuuint64_t)slices};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(bf16),
-                                 (cuuint64_t)cols * rows * sizeof(bf16)};
-  const cuuint32_t box[3] = {HALF, STAGED_ROWS > 0 ? STAGED_ROWS : 1, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // The C entry's checks and launch; args as the kernel's. A block owns at

@@ -15,8 +15,9 @@
 // product runs on the tensor cores (mma.sync m16n8k16, bf16 operands, f32
 // sums), as the Pallas kernels' MXU dots take bf16 operands with f32
 // accumulation: the block's 64 x 16 output is eight 16 x 8 tiles, one per
-// warp, each warp walking the chunk's columns 16 at a time. The backwards
-// stage their chunks with the TMA instead (lstm_fused_bwd.cuh).
+// warp, each warp walking the chunk's columns 16 at a time. K7b stages
+// its chunks so; K3/K4-fwd and the backwards stage theirs with the TMA
+// (lstm_fused_tma.cuh) and run the same mma operations in the same order.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -166,27 +167,6 @@ __device__ __forceinline__ void store_preacts(float* red_s,
   red_s[(r + 8) * ROWS + q] = c[2];
   red_s[(r + 8) * ROWS + q + 1] = c[3];
   __syncthreads();
-}
-
-// The pre-activations of batch rows [b0, b0 + nb) at step t, without the
-// bias, into red_s[b][q]: x_t always, h_{t-1} = hs[tp] unless `first`
-// (then h_{t-1} = 0), one accumulator chain over the input chunks and then
-// the hidden ones. Starts and ends with __syncthreads.
-__device__ __forceinline__ void preactivations(
-    float* red_s, bf16* tile, const bf16* w_s, const bf16* x,
-    const bf16* hs, int t, int tp, bool first, int b0, int nb, int B,
-    int In, int H) {
-  const int warp = threadIdx.x >> 5;
-  const int mi = warp >> 1;  // batch rows 16 mi ..
-  const int ni = warp & 1;   // gate rows 8 ni ..
-  const int LDW = weight_pitch(In, H);
-  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  chunked_product(c, tile, w_s, LDW, x + ((size_t)t * B + b0) * In, In, 0,
-                  nb, mi, ni);
-  if (!first)
-    chunked_product(c, tile, w_s, LDW, hs + ((size_t)tp * B + b0) * H, H,
-                    In, nb, mi, ni);
-  store_preacts(red_s, c, mi, ni);
 }
 
 // Pre-activation of gate `gate` for the cell thread's (row cb, unit cj):

@@ -146,6 +146,13 @@ def _check_cuda_f32(name: str, tensors) -> None:
         raise ValueError(f"{name}: every tensor must be contiguous")
 
 
+def hbuf_pitch(B: int) -> int:
+    """K1-fwd's h ping-pong buffer row pitch (floats): B rounded up to a
+    multiple of 4, so that each row of the TMA's tensor map starts on 16
+    bytes (``hbuf_pitch`` of ``csrc/lstm_fwd.cu``)."""
+    return -(-B // 4) * 4
+
+
 def lstm_layer_fwd(gx: torch.Tensor, w_hh: torch.Tensor,
                    reverse: bool = False):
     """K1-fwd: same contract as ``lstm_layer_ref``. CPU tensors take the
@@ -164,10 +171,12 @@ def lstm_layer_fwd(gx: torch.Tensor, w_hh: torch.Tensor,
     H = G // 4
     hs = torch.empty((T, B, H), device=gx.device, dtype=torch.float32)
     cs = torch.empty_like(hs)
-    # h ping-pong buffer (h_0 = 0) and the step barrier's counter
-    hbuf = torch.zeros((2, H, B), device=gx.device, dtype=torch.float32)
+    # h ping-pong buffer (rows padded to 16 bytes for the TMA) and the step
+    # barrier's counter
+    hbuf = torch.zeros((2, H, hbuf_pitch(B)), device=gx.device,
+                       dtype=torch.float32)
     barrier = torch.zeros((1,), device=gx.device, dtype=torch.int32)
-    if T:
+    if T and B:
         LSTM_FWD(gx.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
                  cs.data_ptr(), hbuf.data_ptr(), barrier.data_ptr(), T, B, H,
                  int(reverse), _build.stream_handle(gx.device))

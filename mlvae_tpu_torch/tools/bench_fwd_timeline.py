@@ -1,0 +1,261 @@
+"""A step timeline of the LSTM forwards (K1-fwd, K3/K4-fwd) on the card.
+
+    python -m mlvae_tpu_torch.tools.bench_fwd_timeline [--iters N]
+
+Builds ``csrc/lstm_fwd.cu`` and ``csrc/lstm_fused_fwd.cu`` a second time
+with ``-DMLVAE_FWD_TIMELINE`` (their own library names, see
+``_build.VARIANTS``): a lead thread of each block reads ``%globaltimer`` at
+the phase boundaries of its chain of work and writes, for each step, the
+step's start and end and each phase's sum over the step's batch tiles into a
+(T, H/4, 8) buffer (``csrc/fwd_timeline.cuh``). For K1-fwd at B=64 and 128
+(f32) and K3/K4-fwd at In=128, 512 and 1024 and B=64 and 256 (bf16), H=512,
+T=160, inputs from a generator seeded 0 at the recipe layers' scales, it
+prints each phase's microseconds a step: each block's mean over the steps,
+then the min, median and max over the blocks. The phases, on the chain of
+thread 0: ``input`` (the x_t product where it lies on the chain), ``stage``
+(waiting for h_{t-1} in shared memory), ``product`` (the recurrent
+product), ``cell`` (the cell update and its stores), ``barrier`` (arrival
+to the end of the wait); ``offchain`` is the input product formed off the
+chain by other warps (0 where the design has none), and ``step`` runs from
+the step's start to the end of its wait.
+
+It also times both builds (CUDA events after warm-up: what the stamps
+cost) and holds the timing build's outputs bit-equal to the normal
+build's. It prints one JSON line naming the card and its power limit, and
+exits non-zero when an output differs. It needs the card and raises
+without CUDA.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from mlvae_tpu_torch import _build
+from mlvae_tpu_torch.device import resolve_device
+from mlvae_tpu_torch.ops import lstm as L
+
+SLOTS = 8
+# each phase's slot of the timing build's eight: 0 the step's start, 1 its
+# end, 2-7 the sums below (ns)
+PHASES = {"input": 2, "stage": 3, "product": 4, "cell": 5, "barrier": 6,
+          "offchain": 7}
+# (kernel, In, B); In None for K1-fwd
+CASES = (("lstm_fwd", None, 64), ("lstm_fwd", None, 128),
+         *(("lstm_fused_fwd", In, B) for In in (128, 512, 1024)
+           for B in (64, 256)))
+T, H = 160, 512
+WARMUP = 2
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGS = {"lstm_fwd": [_P] * 6 + [_I] * 4 + [_P, _P],
+         "lstm_fused_fwd": [_P] * 7 + [_I] * 5 + [_P, _P]}
+
+# Not registered: their launches count on no path.
+TIMED = {name: _build.Kernel(f"{name}_timeline", f"{name}_timeline",
+                             f"mlvae_{name}_timeline", _ARGS[name])
+         for name in _ARGS}
+
+
+SMEM_LIMIT = 232448   # an H100 block's shared memory
+BT, ROWS, KCB, TILE_BYTES = 64, 16, 128, 64 * 128 * 2
+MAXT = 4              # K3/K4-fwd's batch tiles kept in one pass
+
+
+def fused_fwd_smem_bytes(In: int, H: int, nt: int, nhb: int,
+                         ahead: bool) -> int:
+    """Shared memory of a K3/K4-fwd launch (``fwd_smem_bytes`` of
+    ``csrc/lstm_fused_fwd.cu``): the chunk tiles (group H's nhb, and group
+    X's two when ``ahead``), the accumulator slots and pre-activations
+    (ahead: 3 nt tiles of 64 x 16 f32; serial: one), the bf16 weights at
+    pitch In + H + 8 and the mbarriers."""
+    acc = (3 * nt if ahead else 1) * BT * ROWS * 4
+    return ((nhb + (2 if ahead else 0)) * TILE_BYTES + acc
+            + 2 * ROWS * (In + H + 8) + 8 * (2 + nhb))
+
+
+def fused_fwd_schedule(In: int, H: int, B: int):
+    """(ahead, nhb) of a K3/K4-fwd launch (``fwd_schedule``): every batch
+    tile in one pass with as many of h_{t-1}'s chunk tiles as fit (at least
+    one a tile) when B <= 256, else the serial schedule with two shared
+    tiles; None when even that passes 227 KB."""
+    ntiles = -(-B // BT)
+    nh = -(-H // KCB)
+    if ntiles <= MAXT:
+        for n in range(ntiles * nh, ntiles - 1, -1):
+            if fused_fwd_smem_bytes(In, H, ntiles, n, True) <= SMEM_LIMIT:
+                return True, n
+    if fused_fwd_smem_bytes(In, H, 1, 2, False) <= SMEM_LIMIT:
+        return False, 2
+    return None
+
+
+def k1_smem_bytes(H: int, nq: int) -> int:
+    """Shared memory of a K1-fwd launch (``smem_bytes`` of
+    ``csrc/lstm_fwd.cu``): a ring of nq copies of H/16 x 64 f32 for each
+    of the four K slices, W_hh's 16 rows, the split-K partials and the
+    ring's mbarriers."""
+    return 4 * (4 * nq * (H // 16) * BT + 4 * H * 4 + 4 * BT * 16) + 8 * 4 * nq
+
+
+def k1_ring_depth(H: int, B: int) -> int:
+    """K1-fwd's ring depth a slice (``ring_depth``): every copy of a step
+    (4 a batch tile) where they fit, else the most that fit."""
+    for nq in range(4 * -(-B // BT), 0, -1):
+        if k1_smem_bytes(H, nq) <= SMEM_LIMIT:
+            return nq
+    return 0
+
+
+def k1_tensor_map(B: int, H: int):
+    """K1-fwd's tensor map over the (2, H, Bp) f32 h buffer: (dims, byte
+    strides of dims 1 and 2, box), innermost first. The TMA needs each
+    stride a multiple of 16 bytes, hence the padded pitch."""
+    Bp = L.hbuf_pitch(B)
+    return (B, H, 2), (4 * Bp, 4 * Bp * H), (BT, H // 16, 1)
+
+
+def fused_chunk_map(cols: int, rows: int, slices: int):
+    """The fused kernels' chunk descriptors (``chunk_map`` of
+    ``csrc/lstm_fused_tma.cuh``) over a dense bf16 (slices, rows, cols)
+    tensor: (dims, byte strides, box of one 64-column half)."""
+    return (cols, rows, slices), (2 * cols, 2 * cols * rows), (64, BT, 1)
+
+
+def phase_split(tl: torch.Tensor) -> Dict[str, Dict[str, float]]:
+    """``tl`` (T, blocks, 8) int64 ns -> each phase's microseconds a step
+    (``PHASES`` and ``step``, end less start): every block's mean over the
+    steps, then min, median and max over the blocks."""
+    st = tl.to(torch.float64)
+    cols = {name: st[..., k] for name, k in PHASES.items()}
+    cols["step"] = st[..., 1] - st[..., 0]
+    out = {}
+    for name, v in cols.items():
+        m = v.mean(dim=0) / 1e3                     # (blocks,) us a step
+        out[name] = {"min": float(m.min()), "median": float(m.median()),
+                     "max": float(m.max())}
+    return out
+
+
+def make_problem(dev, name: str, In: Optional[int], B: int, seed: int = 0):
+    """K1-fwd: gx N(0, 0.5^2) and W_hh U(+-1/sqrt(H)), f32. K3/K4-fwd: x
+    N(0, 0.5^2), W_ih, W_hh U(+-1/sqrt(H)) bf16 and the bias f32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if name == "lstm_fwd":
+        gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
+        w = (torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1) \
+            / H ** 0.5
+        return gx, w
+    bf = torch.bfloat16
+    x = (torch.randn((T, B, In), generator=g, device=dev) * 0.5).to(bf)
+    w_ih = ((torch.rand((4 * H, In), generator=g, device=dev) * 2 - 1)
+            / H ** 0.5).to(bf)
+    bias = (torch.rand((4 * H,), generator=g, device=dev) * 2 - 1) / H ** 0.5
+    w_hh = ((torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1)
+            / H ** 0.5).to(bf)
+    return x, w_ih, bias, w_hh
+
+
+def normal(name: str, prob, reverse: bool = False):
+    return (L.lstm_layer_fwd(*prob, reverse) if name == "lstm_fwd"
+            else L.lstm_fused_fwd(*prob, reverse))
+
+
+def timed_fwd(name: str, prob, reverse: bool = False):
+    """The timing build of ``name`` on ``prob``: ((hs, cs), as the normal
+    wrapper's, and the (T, H/4, 8) int64 timeline)."""
+    kernel = TIMED[name]
+    head = prob[0]
+    Tn, B = head.shape[:2]
+    Hn = prob[-1].shape[1]
+    dev = head.device
+    stream = _build.stream_handle(dev)
+    tl = torch.zeros((Tn, Hn // 4, SLOTS), device=dev, dtype=torch.int64)
+    cs = torch.empty((Tn, B, Hn), device=dev, dtype=torch.float32)
+    hs = torch.empty((Tn, B, Hn), device=dev, dtype=head.dtype)
+    barrier = torch.zeros((1,), device=dev, dtype=torch.int32)
+    if name == "lstm_fwd":
+        gx, w = prob
+        hbuf = torch.zeros((2, Hn, L.hbuf_pitch(B)), device=dev,
+                           dtype=torch.float32)
+        kernel(gx.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+               hbuf.data_ptr(), barrier.data_ptr(), Tn, B, Hn, int(reverse),
+               tl.data_ptr(), stream)
+    else:
+        x, w_ih, bias, w_hh = prob
+        kernel(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
+               w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+               barrier.data_ptr(), Tn, B, x.shape[2], Hn, int(reverse),
+               tl.data_ptr(), stream)
+    return (hs, cs), tl
+
+
+def cuda_ms(fn, iters: int) -> float:
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bench(dev, iters: int = 10, cases=CASES) -> Dict:
+    _build.build([*(f"{n}_timeline" for n in _build.FWD_TIMED),
+                  *_build.FWD_TIMED])
+    rows = []
+    for name, In, B in cases:
+        prob = make_problem(dev, name, In, B)
+        want = normal(name, prob)
+        got, tl = timed_fwd(name, prob)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        ms = cuda_ms(lambda: normal(name, prob), iters)
+        rows.append({
+            "kernel": name, "In": In, "B": B, "T": T, "H": H,
+            "bit_equal_to_normal_build": equal,
+            "ms": ms, "us_a_step": ms * 1e3 / T,
+            "ms_timing_build": cuda_ms(lambda: timed_fwd(name, prob), iters),
+            "phases_us_a_step": phase_split(tl.cpu())})
+    return {"rows": rows}
+
+
+def _card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=10,
+                    help="timed calls per build and shape (default "
+                    "%(default)s)")
+    args = ap.parse_args(argv)
+    dev = resolve_device(None)
+    res = bench(dev, args.iters)
+    print(json.dumps({"tool": "bench_fwd_timeline",
+                      "device": torch.cuda.get_device_name(dev),
+                      "nvidia_smi": _card(), **res}), flush=True)
+    bad = [(r["kernel"], r["In"], r["B"]) for r in res["rows"]
+           if not r["bit_equal_to_normal_build"]]
+    if bad:
+        print(f"bench_fwd_timeline: the timing build differs from the "
+              f"normal build at {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
