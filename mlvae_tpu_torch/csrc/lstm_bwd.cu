@@ -42,6 +42,93 @@
 
 #include "grid_sync.cuh"
 
+// The step timeline, compiled in only with -DMLVAE_K1_BWD_TIMELINE (the
+// timing build of tools/bench_bwd_timeline.py): thread 0 reads
+// %globaltimer at the boundaries of its phases, adds each interval to its
+// phase's sum and at the end of each step writes timeline[s][block][k]
+// (int64 ns): k = 0 the step's start, 1 its end, then the sums of 2 stage
+// (h_{t-1} into shared memory), 3 recompute (the pre-activations), 4 cell
+// (the dgates and their stores), 5 partial (the split-K share of
+// dh_{t-1}), 6 dW, 7 wait (in the grid barrier), 8 reduce (dh_{t-1} from
+// the partials), 9 barrier (from the arrival to the end of the wait,
+// whatever ran between) and 10 loads (the next step's cell inputs). Each
+// phase's interval ends at the __syncthreads that closes it. Without the
+// define the macros are empty and the kernel takes no timeline argument.
+#ifdef MLVAE_K1_BWD_TIMELINE
+constexpr int TL_SLOTS = 11;
+enum TlPhase { TL_STAGE = 2, TL_RECOMPUTE, TL_CELL, TL_PARTIAL, TL_DW,
+               TL_WAIT, TL_REDUCE, TL_BARRIER, TL_LOADS };
+
+__device__ __forceinline__ unsigned long long tl_now() {
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return ns;
+}
+
+struct TlClock {
+  unsigned long long start, last, arrived, sum[TL_SLOTS];
+  __device__ __forceinline__ void begin() {
+    start = last = tl_now();
+#pragma unroll
+    for (int k = 0; k < TL_SLOTS; ++k) sum[k] = 0;
+  }
+  __device__ __forceinline__ void mark(int k) {
+    const unsigned long long now = tl_now();
+    sum[k] += now - last;
+    last = now;
+  }
+};
+
+#define TL_ARG , unsigned long long* timeline
+#define TL_CLOCK TlClock tl_clock_
+#define TL_BEGIN()                               \
+  do {                                           \
+    if (threadIdx.x == 0) tl_clock_.begin();     \
+  } while (0)
+#define TL_MARK(k)                               \
+  do {                                           \
+    if (threadIdx.x == 0) tl_clock_.mark(k);     \
+  } while (0)
+#define TL_ARRIVED()                                           \
+  do {                                                         \
+    if (threadIdx.x == 0) tl_clock_.arrived = tl_clock_.last;  \
+  } while (0)
+#define TL_WAITED()                                            \
+  do {                                                         \
+    if (threadIdx.x == 0)                                      \
+      tl_clock_.sum[TL_BARRIER] += tl_clock_.last - tl_clock_.arrived; \
+  } while (0)
+#define TL_STORE(s)                                                       \
+  do {                                                                    \
+    if (threadIdx.x == 0) {                                               \
+      unsigned long long* row_ =                                          \
+          timeline + ((size_t)(s) * gridDim.x + blockIdx.x) * TL_SLOTS;   \
+      row_[0] = tl_clock_.start;                                          \
+      row_[1] = tl_now();                                                 \
+      for (int k_ = TL_STAGE; k_ < TL_SLOTS; ++k_)                        \
+        row_[k_] = tl_clock_.sum[k_];                                     \
+    }                                                                     \
+  } while (0)
+#else
+#define TL_ARG
+#define TL_CLOCK
+#define TL_BEGIN() \
+  do {             \
+  } while (0)
+#define TL_MARK(k) \
+  do {             \
+  } while (0)
+#define TL_ARRIVED() \
+  do {               \
+  } while (0)
+#define TL_WAITED() \
+  do {              \
+  } while (0)
+#define TL_STORE(s) \
+  do {              \
+  } while (0)
+#endif
+
 namespace {
 
 constexpr int UNITS = 4;                 // hidden units owned by one block
@@ -113,7 +200,7 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
                 const float* __restrict__ dhs, float* __restrict__ dgx,
                 float* __restrict__ dw_hh, float* part, float* dh_buf,
                 float* dc_buf, unsigned int* barrier, int T, int B, int H,
-                int reverse) {
+                int reverse TL_ARG) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
   float* x_s = w_s + (size_t)GATES * H * UNITS;
@@ -162,7 +249,9 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
   }
 
   unsigned int barriers = 0;
+  TL_CLOCK;
   for (int s = T - 1; s >= 0; --s) {  // processing steps, walked backward
+    TL_BEGIN();
     const int t = reverse ? T - 1 - s : s;
     const int tp = reverse ? t + 1 : t - 1;  // previous processed position
     const bool first = s == 0;               // h_{t-1} = c_{t-1} = 0
@@ -174,6 +263,7 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
       if (!first) {
         stage_transposed(x_s, hs + ((size_t)tp * B + b0) * H, H, H, nb);
         __syncthreads();
+        TL_MARK(TL_STAGE);
         float acc[4][UNITS];
 #pragma unroll
         for (int r = 0; r < 4; ++r)
@@ -200,6 +290,7 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
             red_s[((size_t)ks * BT + b4 * 4 + r) * ROWS + gate * UNITS + j] =
                 acc[r][j];
         __syncthreads();
+        TL_MARK(TL_RECOMPUTE);
       }
 
       float dg[GATES] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -214,9 +305,10 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
           if (!first) {
 #pragma unroll
             for (int kk = 0; kk < KSPLIT; ++kk)
-              sum += red_s[((size_t)kk * BT + cb) * ROWS + q * UNITS + cj];
+              sum = __fadd_rn(
+                  sum, red_s[((size_t)kk * BT + cb) * ROWS + q * UNITS + cj]);
           }
-          pre[q] = gxr[(size_t)q * H] + sum;
+          pre[q] = __fadd_rn(gxr[(size_t)q * H], sum);
         }
         const float ig = sigmoid_f(pre[0]);
         const float fg = sigmoid_f(pre[1]);
@@ -227,15 +319,21 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
         const float c_t = cs[o];
         const float c_prev =
             first ? 0.0f : cs[((size_t)tp * B + b) * H + u0 + cj];
-        const float dh = dhs[o] + dh_buf[bu];
+        // the contraction of the unpinned code, read off its SASS: every
+        // product rounded, 1 - x^2 and dc's update one FMA each
+        const float dh = __fadd_rn(dhs[o], dh_buf[bu]);
         const float tanh_c = tanhf(c_t);
-        const float d_o = dh * tanh_c;
-        const float dc = dc_buf[bu] + dh * og * (1.0f - tanh_c * tanh_c);
-        dg[0] = dc * gg * ig * (1.0f - ig);
-        dg[1] = dc * c_prev * fg * (1.0f - fg);
-        dg[2] = dc * ig * (1.0f - gg * gg);
-        dg[3] = d_o * og * (1.0f - og);
-        dc_buf[bu] = dc * fg;
+        const float d_o = __fmul_rn(dh, tanh_c);
+        const float dc = __fmaf_rn(__fmul_rn(dh, og),
+                                   __fmaf_rn(-tanh_c, tanh_c, 1.0f),
+                                   dc_buf[bu]);
+        dg[0] = __fmul_rn(__fmul_rn(__fmul_rn(dc, gg), ig),
+                          __fsub_rn(1.0f, ig));
+        dg[1] = __fmul_rn(__fmul_rn(__fmul_rn(dc, c_prev), fg),
+                          __fsub_rn(1.0f, fg));
+        dg[2] = __fmul_rn(__fmul_rn(dc, ig), __fmaf_rn(-gg, gg, 1.0f));
+        dg[3] = __fmul_rn(__fmul_rn(d_o, og), __fsub_rn(1.0f, og));
+        dc_buf[bu] = __fmul_rn(dc, fg);
         float* dgr = dgx + row * G + u0 + cj;
 #pragma unroll
         for (int q = 0; q < GATES; ++q) dgr[(size_t)q * H] = dg[q];
@@ -244,6 +342,7 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
 #pragma unroll
       for (int q = 0; q < GATES; ++q) dg_s[cb * ROWS + q * UNITS + cj] = dg[q];
       __syncthreads();
+      TL_MARK(TL_CELL);
 
       if (!first) {
         // dW_hh[rows][k] += sum_b dgates[b][row] * h_{t-1}[b][k], and
@@ -281,12 +380,19 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
             }
           }
         }
+        TL_MARK(TL_PARTIAL);  // with dW: one pass
       }
     }
-    if (first) break;
+    if (first) {
+      TL_STORE(s);
+      break;
+    }
 
     // every block's partials of step s are written: sum this block's units
+    TL_ARRIVED();
     grid_barrier(barrier, (++barriers) * gridDim.x);
+    TL_MARK(TL_WAIT);
+    TL_WAITED();
     const float* part_all = part + (size_t)(s & 1) * nblk * B * H;
     const int lane_q = tid % RED;
     for (int b0 = 0; b0 < B; b0 += BT) {
@@ -317,6 +423,8 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
                                        : acc.w;
       if (b < B) dh_buf[(size_t)b * H + u0 + lane_q] = mine;
     }
+    TL_MARK(TL_REDUCE);
+    TL_STORE(s);
   }
 
 #pragma unroll
@@ -342,19 +450,30 @@ const char* mlvae_lstm_bwd_error_string(int err) {
 // aligned; dgx (T,B,4H) and dw_hh (4H,H) f32 outputs (every element
 // written); part (2, H/4, B, H) f32 scratch; dh_buf (B,H) zeroed and dc_buf
 // (B,H) holding dc_last, both scratch; barrier one zeroed counter. Returns
-// a cudaError_t.
-int mlvae_lstm_bwd(const float* gx, const float* w_hh, const float* hs,
-                   const float* cs, const float* dhs, float* dgx,
-                   float* dw_hh, float* part, float* dh_buf, float* dc_buf,
-                   unsigned int* barrier, int T, int B, int H, int reverse,
-                   cudaStream_t stream) {
+// a cudaError_t. The timing build (MLVAE_K1_BWD_TIMELINE) is
+// mlvae_lstm_bwd_timeline, which also takes the (T, H/4, 11) u64 timeline
+// before the stream.
+#ifdef MLVAE_K1_BWD_TIMELINE
+int mlvae_lstm_bwd_timeline(
+#else
+int mlvae_lstm_bwd(
+#endif
+    const float* gx, const float* w_hh, const float* hs, const float* cs,
+    const float* dhs, float* dgx, float* dw_hh, float* part, float* dh_buf,
+    float* dc_buf, unsigned int* barrier, int T, int B, int H,
+    int reverse TL_ARG, cudaStream_t stream) {
   if (H % (UNITS * KSPLIT) != 0 || H > KPT * THREADS || T < 1 || B < 1)
     return cudaErrorInvalidValue;
   void* args[] = {(void*)&gx,     (void*)&w_hh,    (void*)&hs,
                   (void*)&cs,     (void*)&dhs,     (void*)&dgx,
                   (void*)&dw_hh,  (void*)&part,    (void*)&dh_buf,
                   (void*)&dc_buf, (void*)&barrier, (void*)&T,
-                  (void*)&B,      (void*)&H,       (void*)&reverse};
+                  (void*)&B,      (void*)&H,       (void*)&reverse
+#ifdef MLVAE_K1_BWD_TIMELINE
+                  ,
+                  (void*)&timeline
+#endif
+  };
   return launch_cooperative(lstm_bwd_kernel, H / UNITS, THREADS, args,
                             smem_bytes(H), stream);
 }

@@ -183,6 +183,20 @@ def lstm_layer_fwd(gx: torch.Tensor, w_hh: torch.Tensor,
     return hs, cs
 
 
+def k1_bwd_scratch(gx: torch.Tensor, dc_last: torch.Tensor):
+    """K1-bwd's scratch for a (T, B, 4H) ``gx``: each block's split-K
+    share of dh_{t-1}, (2, H/4, B, H) ping-ponged between steps; the dh
+    carry (zero at the start) and the dc carry (from dc_last), (B, H), each
+    entry touched by one thread only; the step barrier's counter."""
+    _, B, G = gx.shape
+    H = G // 4
+    part = torch.empty((2, H // 4, B, H), device=gx.device,
+                       dtype=torch.float32)
+    dh_buf = torch.zeros((B, H), device=gx.device, dtype=torch.float32)
+    barrier = torch.zeros((1,), device=gx.device, dtype=torch.int32)
+    return part, dh_buf, dc_last.clone(), barrier
+
+
 def lstm_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
                    cs: torch.Tensor, dhs: torch.Tensor,
                    dc_last: torch.Tensor, reverse: bool = False):
@@ -210,15 +224,7 @@ def lstm_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
     dgx = torch.empty_like(gx)
     dw = torch.zeros((G, H), device=gx.device, dtype=torch.float32)
     if T and B:
-        # each block's split-K share of dh_{t-1}, ping-ponged between
-        # steps; the dh carry (zero at the start) and the dc carry (from
-        # dc_last), each entry touched by one thread only; the step
-        # barrier's counter
-        part = torch.empty((2, H // 4, B, H), device=gx.device,
-                           dtype=torch.float32)
-        dh_buf = torch.zeros((B, H), device=gx.device, dtype=torch.float32)
-        dc_buf = dc_last.clone()
-        barrier = torch.zeros((1,), device=gx.device, dtype=torch.int32)
+        part, dh_buf, dc_buf, barrier = k1_bwd_scratch(gx, dc_last)
         LSTM_BWD(gx.data_ptr(), w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
                  dhs.data_ptr(), dgx.data_ptr(), dw.data_ptr(),
                  part.data_ptr(), dh_buf.data_ptr(), dc_buf.data_ptr(),

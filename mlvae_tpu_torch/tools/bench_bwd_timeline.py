@@ -1,4 +1,4 @@
-"""A step timeline of the fused LSTM backwards (K3-bwd, K4-bwd) on the card.
+"""A step timeline of the LSTM backwards (K3-bwd, K4-bwd, K1-bwd) on the card.
 
     python -m mlvae_tpu_torch.tools.bench_bwd_timeline [--iters N]
 
@@ -23,9 +23,19 @@ It also times both builds (CUDA events after warm-up: what the stamps
 cost) and holds the timing build's outputs bit-equal to the normal
 build's. The ablation reruns each shape with only the first 0 or 32 of
 each staged chunk's 64 rows read from L2 (``-DMLVAE_BWD_STAGE_ROWS``; wrong
-outputs by design): what the copies' traffic costs a step. It prints one JSON line naming the card and its power limit, and
-exits non-zero when an output differs. It needs the card and raises
-without CUDA.
+outputs by design): what the copies' traffic costs a step.
+
+K1-bwd (``csrc/lstm_bwd.cu``, f32) has a timing build of its own
+(``-DMLVAE_K1_BWD_TIMELINE``): thread 0 of each block sums the intervals
+of its phases, a (T, H/4, 11) buffer, at T=160, H=512, B=64 on the
+trajectory of K1-fwd. Its phases, microseconds a step as above:
+``stage`` (h_{t-1} into shared memory), ``recompute``, ``cell``,
+``partial`` (the split-K share of dh_{t-1}), ``dW``, ``wait`` (in the grid
+barrier), ``reduce``, ``barrier`` (from the arrival to the end of the
+wait, with whatever runs between), ``loads`` (the next step's cell
+inputs) and ``step``. It prints one JSON line naming the card and its
+power limit, and exits non-zero when an output differs. It needs the card
+and raises without CUDA.
 """
 from __future__ import annotations
 
@@ -55,10 +65,18 @@ BATCHES = (64, 256)
 T, H = 160, 512
 WARMUP = 2
 
+# K1-bwd's timeline: slot of each phase's sum (0 the step's start, 1 its
+# end), as ``csrc/lstm_bwd.cu`` writes them
+K1_SLOTS = 11
+K1_PHASES = {"stage": 2, "recompute": 3, "cell": 4, "partial": 5, "dW": 6,
+             "wait": 7, "reduce": 8, "barrier": 9, "loads": 10}
+K1_BATCHES = (64,)
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = {"lstm_fused_bwd": [_P] * 15 + [_I] * 5 + [_P, _P],
          "lstm_semi_bwd": [_P] * 12 + [_I] * 5 + [_P, _P]}
+_K1_ARGS = [_P] * 11 + [_I] * 4 + [_P, _P]
 
 
 def _timed(name: str, rows: Optional[int] = None) -> _build.Kernel:
@@ -70,6 +88,8 @@ def _timed(name: str, rows: Optional[int] = None) -> _build.Kernel:
 
 # Not registered: their launches count on no path.
 TIMED = {name: _timed(name) for name in _ARGS}
+TIMED["lstm_bwd"] = _build.Kernel("lstm_bwd_timeline", "lstm_bwd_timeline",
+                                  "mlvae_lstm_bwd_timeline", _K1_ARGS)
 ABLATED = {(name, r): _timed(name, r) for name in _ARGS
            for r in _build.ABLATION_ROWS}
 
@@ -110,6 +130,72 @@ def phase_split(stamps: torch.Tensor) -> Dict[str, Dict[str, float]]:
         out[name] = {"min": float(m.min()), "median": float(m.median()),
                      "max": float(m.max())}
     return out
+
+
+def k1_phase_split(tl: torch.Tensor) -> Dict[str, Dict[str, float]]:
+    """K1-bwd's ``tl`` (T, blocks, 11) int64 ns -> each phase's
+    microseconds a step (``K1_PHASES`` and ``step``, end less start): every
+    block's mean over the steps, then min, median and max over the
+    blocks."""
+    st = tl.to(torch.float64)
+    cols = {name: st[..., k] for name, k in K1_PHASES.items()}
+    cols["step"] = st[..., 1] - st[..., 0]
+    out = {}
+    for name, v in cols.items():
+        m = v.mean(dim=0) / 1e3                     # (blocks,) us a step
+        out[name] = {"min": float(m.min()), "median": float(m.median()),
+                     "max": float(m.max())}
+    return out
+
+
+def k1_problem(dev, B: int, seed: int = 0):
+    """A K1-bwd input at T, H: gx N(0, 0.5^2), W_hh U(+-1/sqrt(H)), the
+    trajectory from K1-fwd, cotangents N(0, 0.1^2) for every h and the
+    final c."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
+    w = (torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1) / H ** 0.5
+    hs, cs = L.lstm_layer_fwd(gx, w)
+    dhs = torch.randn((T, B, H), generator=g, device=dev) * 0.1
+    dc_last = torch.randn((B, H), generator=g, device=dev) * 0.1
+    return gx, w, hs, cs, dhs, dc_last
+
+
+def timed_k1(prob, reverse: bool = False):
+    """K1-bwd's timing build on ``prob``: ((dgx, dW_hh), as
+    ``lstm_layer_bwd``'s, and the (T, H/4, 11) int64 timeline)."""
+    gx, w, hs, cs, dhs, dc_last = prob
+    Tn, B, G = gx.shape
+    Hn = G // 4
+    dev = gx.device
+    tl = torch.zeros((Tn, Hn // 4, K1_SLOTS), device=dev, dtype=torch.int64)
+    dgx = torch.empty_like(gx)
+    dw = torch.zeros((G, Hn), device=dev, dtype=torch.float32)
+    part, dh_buf, dc_buf, barrier = L.k1_bwd_scratch(gx, dc_last)
+    TIMED["lstm_bwd"](gx.data_ptr(), w.data_ptr(), hs.data_ptr(),
+                      cs.data_ptr(), dhs.data_ptr(), dgx.data_ptr(),
+                      dw.data_ptr(), part.data_ptr(), dh_buf.data_ptr(),
+                      dc_buf.data_ptr(), barrier.data_ptr(), Tn, B, Hn,
+                      int(reverse), tl.data_ptr(), _build.stream_handle(dev))
+    return (dgx, dw), tl
+
+
+def k1_rows(dev, iters: int):
+    rows = []
+    for B in K1_BATCHES:
+        prob = k1_problem(dev, B)
+        want = L.lstm_layer_bwd(*prob)
+        got, tl = timed_k1(prob)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        ms = cuda_ms(lambda: L.lstm_layer_bwd(*prob), iters)
+        rows.append({
+            "kernel": "lstm_bwd", "B": B, "T": T, "H": H,
+            "bit_equal_to_normal_build": equal,
+            "ms": ms, "us_a_step_total": ms * 1e3 / T,
+            "ms_timing_build": cuda_ms(lambda: timed_k1(prob), iters),
+            "us_a_step": k1_phase_split(tl.cpu())})
+    return rows
 
 
 def make_problem(dev, In: int, B: int, seed: int = 0):
@@ -180,7 +266,7 @@ def cuda_ms(fn, iters: int) -> float:
 
 def bench(dev, iters: int = 10) -> Dict:
     _build.build([*_build.VARIANTS, "lstm_fused_fwd", "lstm_fused_bwd",
-                  "lstm_semi_bwd"])
+                  "lstm_semi_bwd", "lstm_fwd", "lstm_bwd"])
     rows = []
     for name, In in CASES:
         for B in BATCHES:
@@ -200,7 +286,7 @@ def bench(dev, iters: int = 10) -> Dict:
                 "ablation": {
                     f"rows{r}": ablation(name, prob, r, iters)
                     for r in _build.ABLATION_ROWS}})
-    return {"rows": rows}
+    return {"rows": rows, "lstm_bwd": k1_rows(dev, iters)}
 
 
 def ablation(name: str, prob, rows: int, iters: int) -> Dict:
@@ -234,7 +320,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(json.dumps({"tool": "bench_bwd_timeline",
                       "device": torch.cuda.get_device_name(dev),
                       "nvidia_smi": _card(), **res}), flush=True)
-    bad = [(r["kernel"], r["B"]) for r in res["rows"]
+    bad = [(r["kernel"], r["B"]) for r in [*res["rows"], *res["lstm_bwd"]]
            if not r["bit_equal_to_normal_build"]]
     if bad:
         print(f"bench_bwd_timeline: the timing build differs from the "

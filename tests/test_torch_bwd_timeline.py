@@ -1,19 +1,21 @@
-"""The fused backwards' step timeline (``tools/bench_bwd_timeline.py``) and
-its builds, on the CPU: no normal build carries the timing define, the
-timing builds have library paths of their own, the phase split reads the
-stamps as the kernel writes them, and the tool's shared-memory budget
-chooses the kernel's schedule. The kernels themselves run on the card
-(``chip_smoke.py``)."""
+"""The LSTM backwards' step timeline (``tools/bench_bwd_timeline.py``) and
+its builds, on the CPU: no normal build carries a timing define, the
+timing builds (K3-bwd, K4-bwd and K1-bwd's own) have library paths of
+their own, the phase splits read the stamps as the kernels write them, and
+the tool's shared-memory budget chooses the kernel's schedule. The kernels
+themselves run on the card (``chip_smoke.py``)."""
 import pytest
 import torch
 
 from mlvae_tpu_torch import _build
+from mlvae_tpu_torch.ops import lstm as L
 from mlvae_tpu_torch.tools import bench_bwd_timeline as btl
 
 
 @pytest.mark.parametrize("name", _build.SOURCES)
 def test_normal_builds_have_no_timing_define(name):
     assert _build.TIMELINE_DEFINE not in _build._flags(name)
+    assert not set(_build.TIMING_DEFINES) & set(_build._flags(name))
     assert _build.source_of(name) == name
 
 
@@ -36,6 +38,15 @@ def test_timed_kernels_are_not_counted_on_any_path():
            if _build.source_of(v) not in _build.FWD_TIMED}
     assert {k.source for k in timed} == bwd
     assert len(timed) == len(bwd)
+    # K1-bwd's timing build: its own define and entry, never LSTM_BWD
+    k1 = btl.TIMED["lstm_bwd"]
+    assert (k1.source, k1.symbol) == ("lstm_bwd_timeline",
+                                      "mlvae_lstm_bwd_timeline")
+    assert _build.timeline_define(k1.source) == \
+        _build.K1_BWD_TIMELINE_DEFINE
+    assert _build.TIMELINE_DEFINE not in _build._flags(k1.source)
+    assert L.LSTM_BWD in _build.KERNELS and L.LSTM_BWD.source == "lstm_bwd"
+    assert len(k1.argtypes) == len(L.LSTM_BWD.argtypes) + 1
 
 
 def _stamps(T=4, blocks=3):
@@ -70,6 +81,59 @@ def test_phase_split_reads_the_stamps():
     # the join follows the later group: 7.5, 7.5, 8.5 us after the arrival
     assert split["step"] == pytest.approx(
         {"min": 9.5, "median": 9.5, "max": 10.5})
+
+
+def _k1_timeline(T=4, blocks=3):
+    """K1-bwd's timeline as thread 0 writes it: step s of block k starts at
+    10 ms * (s + 10 k) and ends 20 + k us later; stage 1 us, recompute 4,
+    cell 2, partial 3, dW 5, wait 0.5 + k, reduce 1.5, barrier 9.5 + k,
+    loads 0.25 (ns sums)."""
+    tl = torch.zeros((T, blocks, btl.K1_SLOTS), dtype=torch.int64)
+    for s in range(T):
+        for k in range(blocks):
+            t0 = 10_000_000 * (s + 10 * k)
+            tl[s, k] = torch.tensor([t0, t0 + 20000 + 1000 * k, 1000, 4000,
+                                     2000, 3000, 5000, 500 + 1000 * k, 1500,
+                                     9500 + 1000 * k, 250])
+    return tl
+
+
+def test_k1_phase_split_reads_the_timeline():
+    split = btl.k1_phase_split(_k1_timeline())
+    assert set(split) == {*btl.K1_PHASES, "step"}
+    for name, us in (("stage", 1.0), ("recompute", 4.0), ("cell", 2.0),
+                     ("partial", 3.0), ("dW", 5.0), ("reduce", 1.5),
+                     ("loads", 0.25)):
+        assert split[name] == pytest.approx(
+            {"min": us, "median": us, "max": us}), name
+    assert split["wait"] == pytest.approx(
+        {"min": 0.5, "median": 1.5, "max": 2.5})
+    assert split["barrier"] == pytest.approx(
+        {"min": 9.5, "median": 10.5, "max": 11.5})
+    assert split["step"] == pytest.approx(
+        {"min": 20.0, "median": 21.0, "max": 22.0})
+
+
+def test_k1_phase_split_means_over_steps_then_blocks():
+    tl = _k1_timeline(T=2, blocks=1)
+    tl[1, 0, btl.K1_PHASES["stage"]] = 3000   # 1 us, then 3 us
+    tl[0, 0, btl.K1_PHASES["dW"]] = 0         # a step without dW
+    split = btl.k1_phase_split(tl)
+    assert split["stage"]["median"] == pytest.approx(2.0)
+    assert split["dW"]["median"] == pytest.approx(2.5)
+
+
+@pytest.mark.parametrize("H", [512, 64])
+@pytest.mark.parametrize("B", [1, 64, 65, 256])
+def test_k1_bwd_scratch_shapes(B, H):
+    gx = torch.zeros((3, B, 4 * H))
+    dc_last = torch.randn((B, H))
+    part, dh_buf, dc_buf, barrier = L.k1_bwd_scratch(gx, dc_last)
+    assert part.shape == (2, H // 4, B, H) and part.dtype == torch.float32
+    assert dh_buf.shape == (B, H) and not dh_buf.any()
+    assert torch.equal(dc_buf, dc_last) and dc_buf is not dc_last
+    assert barrier.shape == (1,) and barrier.dtype == torch.int32
+    assert not barrier.any()
 
 
 def test_phase_split_counts_an_unwritten_stamp_as_its_phase_start():
