@@ -8,9 +8,9 @@ runs OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT, each in
 a fresh process that builds that checkout's kernels and times, with CUDA
 events after warm-up, K1-fwd (B=64 and 128), K1-bwd, K3/K4-fwd (In=128,
 512, 1024) and K3-bwd (In=512), K4-bwd (In=1024) at T=160, B=64, H=512,
-the MD_VAE eval step and the AMP VAE train step at B=64, T=160, on inputs
-from fixed seeds, a digest of each kernel's outputs and of the AMP step's
-first loss. Each run prints one line ``AB <root> <JSON of ms and
+the MD_VAE eval step and the AMP and f32 VAE train steps at B=64, T=160,
+on inputs from fixed seeds, a digest of each kernel's outputs (K1-bwd also
+at the ragged B=70) and of each train step's first loss. Each run prints one line ``AB <root> <JSON of ms and
 digests>``; the card's name and power limit come first. It compares
 two versions of code that both checkouts have (a parent and its change):
 a change that may slow an earlier path is held against its parent here.
@@ -57,6 +57,7 @@ def time_checkout(root: Path) -> dict:
     bwd4 = cs.fused_bwd_problem(g, dev, T, B, 1024, H, False)
     gx128 = torch.randn((T, 128, 4 * H), generator=g, device=dev) * 0.5
     fwd_in = {In: cs.fused_problem(g, dev, T, B, In, H) for In in (128, 1024)}
+    bwd70 = cs.bwd_problem(g, dev, T, 70, H, False)
     out = {
         # a digest of each kernel's outputs: equal digests mean outputs
         # bit-identical to the other checkout's
@@ -76,6 +77,7 @@ def time_checkout(root: Path) -> dict:
         "lstm_semi_bwd": cs.cuda_ms(lambda: L.lstm_semi_bwd(*bwd4),
                                     iters=20),
     }
+    out["digest_lstm_bwd_B70"] = digest(L.lstm_layer_bwd(*bwd70, False))
     out["digest_lstm_fwd_B128"] = digest(L.lstm_layer_fwd(gx128, w, False))
     out["lstm_fwd_B128"] = cs.cuda_ms(
         lambda: L.lstm_layer_fwd(gx128, w, False), iters=20)
@@ -100,6 +102,17 @@ def time_checkout(root: Path) -> dict:
     out["digest_amp_vae_loss"] = digest([torch.as_tensor(loss).reshape(1)])
     out["amp_vae_step"] = cs.cuda_ms(
         lambda: amp.fit_batch(amp_batch, 3, noise=amp_noise), iters=5,
+        warmup=1)
+    del amp
+    # the f32 VAE train step: six K1-bwd launches a step
+    f32 = build_md_vae(batch_size=B, seed=0, device=dev)
+    f32.on_stage_start(Stage.TRAIN, 3)
+    f32_noise = cs.train_noise(f32, B, T, dev,
+                               torch.Generator(device=dev).manual_seed(6))
+    loss, _ = f32.fit_batch(amp_batch, 3, noise=f32_noise)
+    out["digest_f32_vae_loss"] = digest([torch.as_tensor(loss).reshape(1)])
+    out["f32_vae_step"] = cs.cuda_ms(
+        lambda: f32.fit_batch(amp_batch, 3, noise=f32_noise), iters=5,
         warmup=1)
     return out
 

@@ -135,6 +135,8 @@ BWD_YARD_ROUNDS = 5
 # input is H wide: cuDNN's time includes its input projection, which
 # K1-fwd leaves to a matmul); T=160, H=512
 K1_YARD_CASES = (("lstm_fwd", None, 64), ("lstm_fwd", None, 128))
+# K1-bwd beside cuDNN's f32 backward of one layer, in turns in phase 4
+K1B_YARD_CASES = (("lstm_bwd", None, 64), ("lstm_bwd", None, 128))
 FUSED_FWD_YARD_CASES = tuple(("lstm_fused_fwd", In, B) for B in (64, 256)
                              for In in (128, 512, 1024))
 FWD_YARD_ROUNDS = 5
@@ -424,8 +426,13 @@ def check_lstm_bwd(dev, report):
     from mlvae_tpu_torch.ops.lstm import lstm_layer_bwd, lstm_layer_bwd_ref
     g = torch.Generator(device=dev).manual_seed(3)
     worst = 0.0
+    # the main path's shape, then both schedules (B <= 64 splits its
+    # barrier, larger B runs its tiles in series), ragged B on either
+    # side of a tile, T=1 and 2, and a narrow H
     cases = [(160, 64, 512), (7, 1, 512), (1, 64, 512), (9, 70, 512),
-             (5, 130, 64)]
+             (5, 130, 64), (160, 128, 512), (160, 256, 512), (33, 63, 512),
+             (33, 65, 512), (33, 200, 512), (2, 64, 512), (2, 200, 512),
+             (9, 64, 64), (9, 63, 64)]
     for T, B, H in cases:
         for reverse in (False, True):
             prob = bwd_problem(g, dev, T, B, H, reverse)
@@ -448,7 +455,9 @@ def check_lstm_bwd(dev, report):
 
 def stress_lstm_bwd(dev, report, repeats):
     """Repeated K1-bwd launches at the training step's shape, back to back,
-    each held against the plain version on its inputs."""
+    each held against the plain version on its inputs and bit-equal to the
+    first launch on them: its split barrier, TMA copies and mbarriers are
+    an ordering a race would break."""
     import torch
     from mlvae_tpu_torch.ops.lstm import lstm_layer_bwd, lstm_layer_bwd_ref
     g = torch.Generator(device=dev).manual_seed(4)
@@ -460,25 +469,29 @@ def stress_lstm_bwd(dev, report, repeats):
             prob = bwd_problem(g, dev, T, B, H, reverse)
             dgx_r, dw_r = lstm_layer_bwd_ref(*prob, reverse)
             scale = dw_r.abs().max()
-            errs = []
+            first = lstm_layer_bwd(*prob, reverse)
+            errs, same = [], []
             for _ in range(-(-repeats // n_inputs)):
                 dgx_k, dw_k = lstm_layer_bwd(*prob, reverse)
                 errs.append(torch.stack([(dgx_k - dgx_r).abs().max(),
                                          (dw_k - dw_r).abs().max() / scale]))
+                same.append(bit_equal((dgx_k, dw_k), first))
             errs = torch.stack(errs).cpu()
             total += len(errs)
             worst = max(worst, float(errs[:, 0].max()))
             for j, (e_dgx, e_dw) in enumerate(errs.tolist()):
-                if e_dgx > LSTM_ATOL or e_dw > BWD_RTOL:
-                    wrong.append((reverse, i, j, e_dgx, e_dw))
+                if e_dgx > LSTM_ATOL or e_dw > BWD_RTOL or not same[j]:
+                    wrong.append((reverse, i, j, e_dgx, e_dw, same[j]))
                     if len(wrong) == 1:
                         dgx_k, _ = lstm_layer_bwd(*prob, reverse)
                         report("  " + where_wrong_bwd(
                             (dgx_k - dgx_r).abs(), reverse))
     report(f"  lstm_bwd repeated: {total} launches at B=64, T=160, H=512, "
-           f"both directions: {len(wrong)} wrong, worst dgx max_abs_err "
-           f"{worst:.3e} (tol {LSTM_ATOL:g})"
-           + (f"; wrong (reverse, input, launch, dgx err, dW err): "
+           f"both directions, against the plain version and the first "
+           f"launch on each input: {len(wrong)} wrong, worst dgx "
+           f"max_abs_err {worst:.3e} (tol {LSTM_ATOL:g})"
+           + (f"; wrong (reverse, input, launch, dgx err, dW err, "
+              f"bit-equal): "
               f"{wrong[:8]}" if wrong else ""))
     check(not wrong, f"lstm_bwd wrong in {len(wrong)} of {total} repeated "
           "launches")
@@ -1829,8 +1842,7 @@ def time_all(dev, report, model, batch, noise, prob, errs, counts):
     import torch
     from mlvae_tpu_torch.cli.infer import infer_features
     from mlvae_tpu_torch.ops import decode as dec
-    from mlvae_tpu_torch.ops.lstm import (lstm_layer_bwd, lstm_layer_bwd_ref,
-                                          lstm_layer_fwd, lstm_layer_ref)
+    from mlvae_tpu_torch.ops.lstm import lstm_layer_bwd_ref, lstm_layer_ref
     T, B, H = 160, 64, 512
     g = torch.Generator(device=dev).manual_seed(11)
     gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
@@ -1839,7 +1851,6 @@ def time_all(dev, report, model, batch, noise, prob, errs, counts):
     k1 = k1_yard["lstm_fwd B=64"]["ms"]
     k1_plain = cuda_ms(lambda: lstm_layer_ref(gx, w, False), iters=3,
                        warmup=1)
-    cudnn = torch.nn.LSTM(H, H, 1).to(dev)
     k1_lib = k1_yard["lstm_fwd B=64"]["cudnn_ms"]
     k1_bound, k1_by = lstm_bound(T, B, H)
 
@@ -1859,16 +1870,14 @@ def time_all(dev, report, model, batch, noise, prob, errs, counts):
     bt_bound, bt_by = backtrace_bound(64, 160, 8)
 
     k1b_prob = bwd_problem(g, dev, T, B, H, False)
-    k1b = cuda_ms(lambda: lstm_layer_bwd(*k1b_prob, False), iters=10)
     k1b_plain = cuda_ms(lambda: lstm_layer_bwd_ref(*k1b_prob, False),
                         iters=2, warmup=1)
-    # cuDNN's backward of one layer: its forward and backward less its
-    # forward (it also forms dX and dW_ih, which K1-bwd leaves to matmuls)
-    xg = torch.randn((T, B, H), generator=g, device=dev, requires_grad=True)
-    dy = torch.randn((T, B, H), generator=g, device=dev)
-    lib_fwd = cuda_ms(lambda: cudnn(xg), iters=10)
-    lib_fwd_bwd = cuda_ms(lambda: cudnn(xg)[0].backward(dy), iters=10)
-    k1b_lib = lib_fwd_bwd - lib_fwd
+    # in turns with cuDNN's backward of one layer: its forward and
+    # backward less its forward (it also forms dX and dW_ih, which K1-bwd
+    # leaves to matmuls)
+    k1b_yard = time_fused_bwd(dev, report, T=T, H=H, cases=K1B_YARD_CASES)
+    k1b = k1b_yard["lstm_bwd B=64"]["ms"]
+    k1b_lib = k1b_yard["lstm_bwd B=64"]["cudnn_ms"]
     k1b_bound, k1b_by = lstm_bwd_bound(T, B, H)
 
     step = cuda_ms(lambda: model.eval_step(batch, noise=noise), iters=10)
@@ -1884,9 +1893,8 @@ def time_all(dev, report, model, batch, noise, prob, errs, counts):
            f"incl. input projection {k1_lib:.4f}, bound {k1_bound:.4f} by "
            f"{k1_by})")
     report(f"  lstm_bwd {k1b:.4f} ms (plain {k1b_plain:.4f}, cuDNN LSTM "
-           f"layer backward incl. dX and dW_ih {k1b_lib:.4f} = "
-           f"{lib_fwd_bwd:.4f} fwd+bwd - {lib_fwd:.4f} fwd, bound "
-           f"{k1b_bound:.4f} by {k1b_by})")
+           f"layer backward incl. dX and dW_ih, in turns, {k1b_lib:.4f}, "
+           f"bound {k1b_bound:.4f} by {k1b_by})")
     report(f"  md_viterbi_lattice {lat:.4f} ms (plain {lat_plain:.4f}, bound "
            f"{lat_bound:.6f} by {lat_by}); md_viterbi_backtrace {bt:.4f} ms "
            f"(plain {bt_plain:.4f}, bound {bt_bound:.6f} by {bt_by})")
@@ -1908,7 +1916,8 @@ def time_all(dev, report, model, batch, noise, prob, errs, counts):
              replaces="mlvae_tpu/ops/lstm_pallas.py:115",
              max_abs_err=errs["lstm_bwd"],
              ms=k1b, plain_ms=k1b_plain, bound_ms=k1b_bound, bound_by=k1b_by,
-             library_ms=k1b_lib, **counts["lstm_bwd"]),
+             library_ms=k1b_lib, interleaved=k1b_yard,
+             **counts["lstm_bwd"]),
         dict(name="md_viterbi_lattice", route="cuda",
              source="mlvae_tpu_torch/csrc/md_viterbi.cu",
              replaces="mlvae_tpu/ops/decode_pallas.py:37",
@@ -1957,24 +1966,33 @@ def kernel_ms(fn) -> float:
 
 def time_fused_bwd(dev, report, T=160, H=512, cases=BWD_YARD_CASES,
                    rounds=BWD_YARD_ROUNDS):
-    """K3-bwd and K4-bwd beside cuDNN's bf16 backward of the same layer
-    (its forward and backward less its forward; it also forms dX and
-    dW_ih), timed in turns in one run: median and spread of each, the
-    factor of the medians, microseconds a step, the bound; and the device
-    time of cuDNN's backward kernels alone (profiler), which the host's
-    launches do not stretch."""
+    """K3-bwd and K4-bwd beside cuDNN's bf16 backward of the same layer,
+    K1-bwd (name ``lstm_bwd``, In None) beside cuDNN's f32 backward of an
+    In=H layer (its forward and backward less its forward; it also forms
+    dX and dW_ih), timed in turns in one run: median and spread of each,
+    the factor of the medians, microseconds a step, the bound; and the
+    device time of cuDNN's backward kernels alone (profiler), which the
+    host's launches do not stretch."""
     import torch
     from mlvae_tpu_torch.ops import lstm as L
     g = torch.Generator(device=dev).manual_seed(32)
     out = {}
     for name, In, B in cases:
-        prob = fused_bwd_problem(g, dev, T, B, In, H, False)
-        fn = getattr(L, name)
-        cudnn = torch.nn.LSTM(In, H, 1).to(dev, torch.bfloat16)
+        if name == "lstm_bwd":
+            prob = bwd_problem(g, dev, T, B, H, False)
+            fn = L.lstm_layer_bwd
+            cudnn = torch.nn.LSTM(H, H, 1).to(dev)
+            xg = torch.randn((T, B, H), generator=g, device=dev,
+                             requires_grad=True)
+            dy = torch.randn((T, B, H), generator=g, device=dev)
+        else:
+            prob = fused_bwd_problem(g, dev, T, B, In, H, False)
+            fn = getattr(L, name)
+            cudnn = torch.nn.LSTM(In, H, 1).to(dev, torch.bfloat16)
+            xg = prob[0].clone().requires_grad_()
+            dy = torch.randn((T, B, H), generator=g, device=dev).to(
+                torch.bfloat16)
         cudnn.flatten_parameters()  # else cuDNN compacts them every call
-        xg = prob[0].clone().requires_grad_()
-        dy = torch.randn((T, B, H), generator=g, device=dev).to(
-            torch.bfloat16)
 
         def kernel(iters):
             return cuda_ms(lambda: fn(*prob), iters=iters, warmup=1)
@@ -1988,20 +2006,25 @@ def time_fused_bwd(dev, report, T=160, H=512, cases=BWD_YARD_CASES,
         km, ym = statistics.median(ks), statistics.median(ys)
         dev_ms = (kernel_ms(lambda: cudnn(xg)[0].backward(dy))
                   - kernel_ms(lambda: cudnn(xg)))
-        b_ms, b_by = (semi_bwd_bound(T, B, In, H) if name == "lstm_semi_bwd"
+        b_ms, b_by = (lstm_bwd_bound(T, B, H) if name == "lstm_bwd"
+                      else semi_bwd_bound(T, B, In, H)
+                      if name == "lstm_semi_bwd"
                       else fused_bwd_bound(T, B, In, H))
+        fk = km / dev_ms if dev_ms else float("nan")
         row = {"ms": km, "spread": [min(ks), max(ks)],
                "us_a_step": km * 1e3 / T, "cudnn_ms": ym,
                "cudnn_spread": [min(ys), max(ys)], "factor": km / ym,
-               "cudnn_kernels_ms": dev_ms,
+               "cudnn_kernels_ms": dev_ms, "factor_kernels": fk,
                "bound_ms": b_ms, "bound_by": b_by}
-        out[f"{name} In={In} B={B}"] = row
-        report(f"  {name} In={In} B={B} T={T}: {km:.4f} ms median "
+        key = f"{name} B={B}" if In is None else f"{name} In={In} B={B}"
+        out[key] = row
+        report(f"  {key} T={T}: {km:.4f} ms median "
                f"({min(ks):.4f}-{max(ks):.4f}; {row['us_a_step']:.2f} us a "
-               f"step); cuDNN bf16 layer fwd+bwd less fwd, in turns, "
+               f"step); cuDNN {'f32' if In is None else 'bf16'} layer "
+               f"fwd+bwd less fwd, in turns, "
                f"{ym:.4f} median ({min(ys):.4f}-{max(ys):.4f}); factor "
                f"{km / ym:.3f}; cuDNN's backward kernels alone {dev_ms:.4f} "
-               f"(profiler); bound {b_ms:.4f} by {b_by}")
+               f"(profiler; factor {fk:.3f}); bound {b_ms:.4f} by {b_by}")
     return out
 
 
@@ -2075,8 +2098,9 @@ def time_fwd_timeline(dev, report):
 
 
 def time_bwd_timeline(dev, report):
-    """The step timeline of K3-bwd and K4-bwd (their timing builds,
-    tools/bench_bwd_timeline.py): microseconds a step of each phase."""
+    """The step timeline of K3-bwd, K4-bwd and K1-bwd (their timing
+    builds, tools/bench_bwd_timeline.py): microseconds a step of each
+    phase."""
     from mlvae_tpu_torch.tools import bench_bwd_timeline as btl
     res = btl.bench(dev)
     for r in res["rows"]:
@@ -2090,7 +2114,14 @@ def time_bwd_timeline(dev, report):
                "staged: " + ", ".join(
                    f"r={k[4:]} {v['us_a_step']['step']:.2f} ({v['ms']:.4f})"
                    for k, v in r["ablation"].items()))
-    bad = [r["kernel"] for r in res["rows"]
+    for r in res["lstm_bwd"]:
+        report(f"  timeline lstm_bwd B={r['B']}: {r['ms']:.4f} ms "
+               f"({r['us_a_step_total']:.2f} us a step), timing build "
+               f"{r['ms_timing_build']:.4f}; us a step, median over blocks "
+               "(min-max): " + ", ".join(
+                   f"{k} {v['median']:.2f} ({v['min']:.2f}-{v['max']:.2f})"
+                   for k, v in r["us_a_step"].items()))
+    bad = [r["kernel"] for r in [*res["rows"], *res["lstm_bwd"]]
            if not r["bit_equal_to_normal_build"]]
     check(not bad, f"the timing build differs from the normal build: {bad}")
     return res

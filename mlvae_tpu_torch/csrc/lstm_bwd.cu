@@ -23,24 +23,44 @@
 // hidden units, i.e. 16 gate rows, and keeps those rows of W_hh in shared
 // memory (the recompute) and in registers (dh_{t-1}), and its 16 rows of
 // dW_hh in registers for the whole sequence: the block owns those rows, so
-// dW_hh needs no atomics and is deterministic. Each step, per batch tile of
-// 64 rows, the block stages h_{t-1} straight from the saved hs (no exchange
-// is needed for it), recomputes its B x 16 pre-activations with K1-fwd's
-// 4x4 register tiles, forms its dgates from its own dh/dc carries (global
-// scratch that only the owning thread touches) and writes them to its
-// columns of dgx[t]. Then, in one pass over its dgates, it adds its share
-// of dW_hh and writes its split-K share of dh_{t-1}, its 16 gate rows'
-// product partial[k] = dgates[:, rows] @ W_hh[rows, :] (B x H), to a
-// ping-pong buffer. After a grid barrier (a per-launch counter, as in
-// K1-fwd) each block sums the partials of all blocks for its own four
-// units, reading them through L2 with __ldcg in a fixed order, so dh_{t-1}
-// is deterministic too. That moves 2 x B x H floats per block and step
-// through L2, where reading all of dgx[t] would move 4 x B x H.
-// Shared memory is 188 KB at H=512. The H/4 blocks must all be resident,
+// dW_hh needs no atomics and is deterministic. Per step and batch tile of
+// 64 rows the block recomputes its B x 16 pre-activations from h_{t-1}
+// with K1-fwd's 4x4 register tiles (thread: K slice, gate, rows b4 + 16 r),
+// forms its dgates from its dh/dc carries and writes them to its columns
+// of dgx[t]; then it writes its split-K share of dh_{t-1}, its 16 gate
+// rows' product partial[k] = dgates[:, rows] @ W_hh[rows, :] (B x H), to a
+// ping-pong buffer, and adds its share of dW_hh. After a grid barrier (a
+// per-launch counter, as in K1-fwd) each block sums the partials of all
+// blocks for its own four units, reading them through L2 with __ldcg in a
+// fixed order, so dh_{t-1} is deterministic too.
+//
+// h_{t-1} comes straight from the saved hs by the TMA: a 3-D tensor map
+// over hs (H, B, T) copies 64 batch rows x 32 columns a box (rows past B
+// arrive as zeros) into one 128 KB tile (at H=512), 128-byte swizzled
+// (the 16-byte unit u of row b at u ^ (b % 8)), one mbarrier a box; the
+// recompute's K slices wait only for their own boxes. The tile stays [b][k]
+// as hs has it: the recompute reads a float4 along k for each of its rows
+// b4 + 16 r, whose swizzles differ across a quarter warp, and dW reads 32
+// consecutive columns of one row a warp, so neither meets a bank twice.
+//
+// The schedule (B <= 64, one tile). Only the dgates, the partials and the
+// reduce lie on the chain of steps: dW of step s and the recompute of step
+// s-1 read hs and the block's own dgates. So the step's grid barrier is
+// split: cell(s) -> partial(s) -> arrive -> dW(s) -> copy of h for step s-1
+// -> recompute(s-1) -> loads of step s-1's gx, c and dh inputs -> wait ->
+// reduce(s), the dh and dc carries in registers. B > 64 runs the tiles in
+// series with the same copies (each tile: copy, recompute, cell, partial,
+// dW; then the barrier and the reduce). Every sum keeps its order (dW over
+// s, then tiles, then rows; each partial over its 16 rows; each
+// pre-activation over k; the reduce over blocks) and the dgates block its
+// contraction, so the outputs are bit-identical to the single-copy design.
+// Shared memory is 184 KB at H=512. The H/4 blocks must all be resident,
 // one per SM, which limits H to 528 on an H100 (132 SMs).
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "grid_sync.cuh"
+#include "mbarrier.cuh"
 
 // The step timeline, compiled in only with -DMLVAE_K1_BWD_TIMELINE (the
 // timing build of tools/bench_bwd_timeline.py): thread 0 reads
@@ -49,11 +69,13 @@
 // (int64 ns): k = 0 the step's start, 1 its end, then the sums of 2 stage
 // (h_{t-1} into shared memory), 3 recompute (the pre-activations), 4 cell
 // (the dgates and their stores), 5 partial (the split-K share of
-// dh_{t-1}), 6 dW, 7 wait (in the grid barrier), 8 reduce (dh_{t-1} from
-// the partials), 9 barrier (from the arrival to the end of the wait,
-// whatever ran between) and 10 loads (the next step's cell inputs). Each
-// phase's interval ends at the __syncthreads that closes it. Without the
-// define the macros are empty and the kernel takes no timeline argument.
+// dh_{t-1}), 6 dW, 7 wait (in the grid barrier, with the block's other
+// warps catching up), 8 reduce (dh_{t-1} from the partials), 9 barrier
+// (from the arrival to the end of the wait, whatever ran between) and 10
+// loads (the next step's cell inputs). Stage is thread 0's time in the
+// mbarrier waits of its K slice, recompute the rest of its recompute.
+// Without the define the macros are empty and the kernel takes no
+// timeline argument.
 #ifdef MLVAE_K1_BWD_TIMELINE
 constexpr int TL_SLOTS = 11;
 enum TlPhase { TL_STAGE = 2, TL_RECOMPUTE, TL_CELL, TL_PARTIAL, TL_DW,
@@ -137,75 +159,58 @@ constexpr int ROWS = GATES * UNITS;      // gate rows owned by one block
 constexpr int BT = 64;                   // batch rows per tile
 constexpr int KSPLIT = 4;                // recompute: K split four ways
 constexpr int THREADS = 256;
-constexpr int PAD = BT + 4;              // row stride of the staged [k][b] tile
 constexpr int KPT = 3;                   // columns of H per thread
 constexpr int RED = 4;                   // lanes that sum one row's partials
+constexpr int BOXC = 32;                 // columns of a TMA box: 128 bytes
+constexpr int BOX = BT * BOXC;           // floats of a box (8 KB)
 static_assert(THREADS == KSPLIT * GATES * (BT / 4), "recompute layout");
 static_assert(THREADS == BT * UNITS, "cell layout");
 static_assert(RED == UNITS, "a reducing lane ends with its own unit");
 
-// Stage rows [0, nb) of a (rows x H) f32 slice with row stride `stride` as
-// x_s[k][b] (row pitch PAD), zero past nb. Each warp moves tiles of 8 rows
-// by 16 columns, one float4 a lane (full 32-byte sectors, 2-way bank
-// conflicts at most on the transposing stores), with UNR loads in flight
-// per lane before the stores.
-__device__ __forceinline__ void stage_transposed(float* x_s, const float* src,
-                                                 size_t stride, int H,
-                                                 int nb) {
-  constexpr int WARPS = THREADS / 32;
-  constexpr int UNR = 8;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int bl = lane & 7;
-  const int kl = lane >> 3;
-  const int n_tiles = (BT / 8) * (H / 16);
-  for (int t0 = warp; t0 < n_tiles; t0 += WARPS * UNR) {
-    float4 v[UNR];
-#pragma unroll
-    for (int u = 0; u < UNR; ++u) {
-      const int tile = t0 + u * WARPS;
-      const int bb = (tile % (BT / 8)) * 8 + bl;
-      const int k = ((tile / (BT / 8)) * 4 + kl) * 4;
-      v[u] = (tile < n_tiles && bb < nb)
-                 ? __ldg(reinterpret_cast<const float4*>(src + bb * stride +
-                                                         k))
-                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-#pragma unroll
-    for (int u = 0; u < UNR; ++u) {
-      const int tile = t0 + u * WARPS;
-      if (tile < n_tiles) {
-        const int bb = (tile % (BT / 8)) * 8 + bl;
-        const int k = ((tile / (BT / 8)) * 4 + kl) * 4;
-        float* d = x_s + (size_t)k * PAD + bb;
-        d[0] = v[u].x;
-        d[PAD] = v[u].y;
-        d[2 * PAD] = v[u].z;
-        d[3 * PAD] = v[u].w;
-      }
-    }
-  }
+__host__ __device__ inline int n_boxes(int H) {
+  return (H + BOXC - 1) / BOXC;
 }
 
 size_t smem_bytes(int H) {
-  // w_s [GATES][H][UNITS] + x_s [H][PAD] + red_s [KSPLIT][BT][ROWS]
-  // + dg_s [BT][ROWS]
-  return sizeof(float) * ((size_t)GATES * H * UNITS + (size_t)H * PAD +
-                          (size_t)KSPLIT * BT * ROWS + (size_t)BT * ROWS);
+  // tile [box][BT][BOXC] + w_s [GATES][H][UNITS] + red_s [KSPLIT][BT][ROWS]
+  // + dg_s [BT][ROWS], f32; an mbarrier a box
+  return sizeof(float) * ((size_t)n_boxes(H) * BOX +
+                          (size_t)GATES * H * UNITS +
+                          (size_t)KSPLIT * BT * ROWS + (size_t)BT * ROWS) +
+         sizeof(uint64_t) * n_boxes(H);
 }
 
+// Offset of element (b, k) in the tile: box k / 32, row b of 128 bytes,
+// 16-byte unit (k / 4) % 8 at that unit ^ (b % 8), as the TMA's 128-byte
+// swizzle writes it.
+__device__ __forceinline__ int tile_off(int b, int k) {
+  return (k >> 5) * BOX + b * BOXC + ((((k >> 2) & 7) ^ (b & 7)) << 2) +
+         (k & 3);
+}
+
+// The cell thread's inputs of one step: gx's four gates, c_t, c_{t-1}
+// and the cotangent of h_t from above.
+struct CellIn {
+  float gx[GATES];
+  float c_t, c_prev, dhs;
+};
+
+template <bool SPLIT>
 __global__ void __launch_bounds__(THREADS)
 lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
-                const float* __restrict__ hs, const float* __restrict__ cs,
-                const float* __restrict__ dhs, float* __restrict__ dgx,
-                float* __restrict__ dw_hh, float* part, float* dh_buf,
-                float* dc_buf, unsigned int* barrier, int T, int B, int H,
-                int reverse TL_ARG) {
-  extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);
-  float* x_s = w_s + (size_t)GATES * H * UNITS;
-  float* red_s = x_s + (size_t)H * PAD;
+                const float* __restrict__ cs, const float* __restrict__ dhs,
+                float* __restrict__ dgx, float* __restrict__ dw_hh,
+                float* part, float* dh_buf, float* dc_buf,
+                unsigned int* barrier, int T, int B, int H, int reverse,
+                const __grid_constant__ CUtensorMap map_h TL_ARG) {
+  extern __shared__ __align__(1024) float4 smem4[];
+  const int nbox = n_boxes(H);
+  float* tile = reinterpret_cast<float*>(smem4);
+  float* w_s = tile + (size_t)nbox * BOX;
+  float* red_s = w_s + (size_t)GATES * H * UNITS;
   float* dg_s = red_s + (size_t)KSPLIT * BT * ROWS;
+  uint64_t* mb = reinterpret_cast<uint64_t*>(dg_s + (size_t)BT * ROWS);
+  if (smem_u32(tile) & 1023) __trap();  // the swizzle's 1024-byte atoms
 
   const int tid = threadIdx.x;
   const int nblk = gridDim.x;
@@ -220,9 +225,13 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
     w_s[((size_t)gate * H + k) * UNITS + j] =
         w_hh[(size_t)(gate * H + u0 + j) * H + k];
   }
+  if (tid == 0) {
+    for (int i = 0; i < nbox; ++i) mbar_init(&mb[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
 
-  // recompute layout: thread -> (K slice, gate, 4 batch rows)
+  // recompute layout: thread -> (K slice, gate, batch rows b4 + 16 r)
   const int ks = tid / (GATES * (BT / 4));
   const int gate = (tid / (BT / 4)) % GATES;
   const int b4 = tid % (BT / 4);
@@ -248,183 +257,337 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
     }
   }
 
-  unsigned int barriers = 0;
   TL_CLOCK;
-  for (int s = T - 1; s >= 0; --s) {  // processing steps, walked backward
-    TL_BEGIN();
-    const int t = reverse ? T - 1 - s : s;
-    const int tp = reverse ? t + 1 : t - 1;  // previous processed position
-    const bool first = s == 0;               // h_{t-1} = c_{t-1} = 0
-    float* part_s = part + (size_t)(s & 1) * nblk * B * H +
-                    (size_t)blockIdx.x * B * H;  // this block's [B][H]
-    for (int b0 = 0; b0 < B; b0 += BT) {
-      const int nb = min(BT, B - b0);
-      __syncthreads();  // x_s, red_s and dg_s are free again
-      if (!first) {
-        stage_transposed(x_s, hs + ((size_t)tp * B + b0) * H, H, H, nb);
-        __syncthreads();
-        TL_MARK(TL_STAGE);
-        float acc[4][UNITS];
+  TL_BEGIN();
+  unsigned int staged = 0;  // copies of h_{t-1} consumed: the mbarriers' phase
+
+  // thread 0: rows [b0, b0 + 64) of h at position tp into the tile, a box
+  // of 32 columns an mbarrier
+  auto issue = [&](int tp, int b0) {
+    if (tid == 0) {
+      for (int j = 0; j < nbox; ++j) {
+        mbar_expect(&mb[j], BOX * sizeof(float));
+        asm volatile(
+            "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+            "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(
+                smem_u32(tile + (size_t)j * BOX)),
+            "l"(&map_h), "r"(j * BOXC), "r"(b0), "r"(tp),
+            "r"(smem_u32(&mb[j]))
+            : "memory");
+      }
+    }
+  };
+
+  // h_{t-1} @ W_hh^T of the staged tile into red_s [K slice][row][gate
+  // row]: each sum over its K slice in k order, box by box as they land
+  auto recompute = [&]() {
+    float acc[4][UNITS];
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int j = 0; j < UNITS; ++j) acc[r][j] = 0.0f;
-        const float4* h4 = reinterpret_cast<const float4*>(x_s);
-        const float4* w4 = reinterpret_cast<const float4*>(w_s) +
-                           (size_t)gate * H;
-        for (int k = k_lo; k < k_lo + kper; ++k) {
-          const float4 hv = h4[k * (PAD / 4) + b4];
-          const float4 wv = w4[k];
-          const float hb[4] = {hv.x, hv.y, hv.z, hv.w};
+      for (int j = 0; j < UNITS; ++j) acc[r][j] = 0.0f;
+    const float4* w4 = reinterpret_cast<const float4*>(w_s) +
+                       (size_t)gate * H;
+    const int sw = b4 & 7;  // the swizzle of rows b4 + 16 r
+    for (int kb = k_lo; kb < k_lo + kper;) {
+      const int box = kb / BOXC;
+      const int kend = min(k_lo + kper, (box + 1) * BOXC);
+      TL_MARK(TL_RECOMPUTE);
+      mbar_wait(&mb[box], staged & 1);
+      TL_MARK(TL_STAGE);
+      const float* tb = tile + (size_t)box * BOX + b4 * BOXC;
+#pragma unroll 2
+      for (int k = kb; k < kend; k += 4) {
+        const int u = (((k >> 2) & 7) ^ sw) << 2;
+        float hb[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(tb + r * 16 * BOXC + u);
+          hb[r][0] = v.x;
+          hb[r][1] = v.y;
+          hb[r][2] = v.z;
+          hb[r][3] = v.w;
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float4 wv = w4[k + c];
           const float wj[UNITS] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
           for (int r = 0; r < 4; ++r)
 #pragma unroll
             for (int j = 0; j < UNITS; ++j)
-              acc[r][j] = fmaf(hb[r], wj[j], acc[r][j]);
+              acc[r][j] = fmaf(hb[r][c], wj[j], acc[r][j]);
         }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int j = 0; j < UNITS; ++j)
-            red_s[((size_t)ks * BT + b4 * 4 + r) * ROWS + gate * UNITS + j] =
-                acc[r][j];
-        __syncthreads();
-        TL_MARK(TL_RECOMPUTE);
       }
+      kb = kend;
+    }
+    ++staged;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<float4*>(
+          red_s + ((size_t)ks * BT + b4 + 16 * r) * ROWS + gate * UNITS) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  };
 
-      float dg[GATES] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (cb < nb) {
-        const int b = b0 + cb;
-        const size_t row = (size_t)t * B + b;
-        const float* gxr = gx + row * G + u0 + cj;
-        float pre[GATES];
+  // the cell thread's inputs of step s, batch tile b0
+  auto load_in = [&](int s, int b0, CellIn& in) {
+    const int t = reverse ? T - 1 - s : s;
+    const int tp = reverse ? t + 1 : t - 1;
+    const int b = b0 + cb;
+    if (b < B) {
+      const size_t row = (size_t)t * B + b;
 #pragma unroll
-        for (int q = 0; q < GATES; ++q) {
-          float sum = 0.0f;
-          if (!first) {
+      for (int q = 0; q < GATES; ++q)
+        in.gx[q] = gx[row * G + (size_t)q * H + u0 + cj];
+      const size_t o = row * H + u0 + cj;
+      in.c_t = cs[o];
+      in.c_prev = s == 0 ? 0.0f : cs[((size_t)tp * B + b) * H + u0 + cj];
+      in.dhs = dhs[o];
+    }
+  };
+
+  // the dgates of step s, tile b0, from red_s and the carries dh_c (dh
+  // from the step above) and dc_c (updated to dc * f): to dgx[t] and dg_s
+  // (rows past the tile's end stay zero: they meet zero h rows in dW)
+  auto cell = [&](int s, int b0, const CellIn& in, float dh_c, float& dc_c) {
+    const int t = reverse ? T - 1 - s : s;
+    const int b = b0 + cb;
+    float dg[GATES] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (b < B) {
+      float pre[GATES];
 #pragma unroll
-            for (int kk = 0; kk < KSPLIT; ++kk)
-              sum = __fadd_rn(
-                  sum, red_s[((size_t)kk * BT + cb) * ROWS + q * UNITS + cj]);
+      for (int q = 0; q < GATES; ++q) {
+        float sum = 0.0f;
+        if (s != 0) {
+#pragma unroll
+          for (int kk = 0; kk < KSPLIT; ++kk)
+            sum = __fadd_rn(
+                sum, red_s[((size_t)kk * BT + cb) * ROWS + q * UNITS + cj]);
+        }
+        pre[q] = __fadd_rn(in.gx[q], sum);
+      }
+      const float ig = sigmoid_f(pre[0]);
+      const float fg = sigmoid_f(pre[1]);
+      const float gg = tanhf(pre[2]);
+      const float og = sigmoid_f(pre[3]);
+      // the single-copy design's contraction, read off its SASS: every
+      // product rounded, 1 - x^2 and dc's update one FMA each
+      const float dh = __fadd_rn(in.dhs, dh_c);
+      const float tanh_c = tanhf(in.c_t);
+      const float d_o = __fmul_rn(dh, tanh_c);
+      const float dc = __fmaf_rn(__fmul_rn(dh, og),
+                                 __fmaf_rn(-tanh_c, tanh_c, 1.0f), dc_c);
+      dg[0] = __fmul_rn(__fmul_rn(__fmul_rn(dc, gg), ig),
+                        __fsub_rn(1.0f, ig));
+      dg[1] = __fmul_rn(__fmul_rn(__fmul_rn(dc, in.c_prev), fg),
+                        __fsub_rn(1.0f, fg));
+      dg[2] = __fmul_rn(__fmul_rn(dc, ig), __fmaf_rn(-gg, gg, 1.0f));
+      dg[3] = __fmul_rn(__fmul_rn(d_o, og), __fsub_rn(1.0f, og));
+      dc_c = __fmul_rn(dc, fg);
+      float* dgr = dgx + ((size_t)t * B + b) * G + u0 + cj;
+#pragma unroll
+      for (int q = 0; q < GATES; ++q) dgr[(size_t)q * H] = dg[q];
+    }
+#pragma unroll
+    for (int q = 0; q < GATES; ++q) dg_s[cb * ROWS + q * UNITS + cj] = dg[q];
+  };
+
+  // dgates rows [bb, bb + 4) of dg_s in registers
+  auto load_dg = [&](int bb, float (&dgv)[4][ROWS]) {
+    const float4* g4 = reinterpret_cast<const float4*>(dg_s);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q4 = 0; q4 < ROWS / 4; ++q4) {
+        const float4 v = g4[(bb + r) * (ROWS / 4) + q4];
+        dgv[r][q4 * 4 + 0] = v.x;
+        dgv[r][q4 * 4 + 1] = v.y;
+        dgv[r][q4 * 4 + 2] = v.z;
+        dgv[r][q4 * 4 + 3] = v.w;
+      }
+  };
+
+  // partial[b][k] = sum_row dgates[b][row] * W_hh[row][k], rows in order,
+  // for the tile's nb rows from b0, into part_s [B][H]
+  auto partial = [&](float* part_s, int b0, int nb) {
+    for (int bb = 0; bb < nb; bb += 4) {
+      float dgv[4][ROWS];
+      load_dg(bb, dgv);
+#pragma unroll
+      for (int kk = 0; kk < KPT; ++kk) {
+        const int k = tid + kk * THREADS;
+        if (k < H) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            float p = 0.0f;
+#pragma unroll
+            for (int q = 0; q < ROWS; ++q)
+              p = fmaf(dgv[r][q], wr[kk][q], p);
+            if (bb + r < nb) part_s[(size_t)(b0 + bb + r) * H + k] = p;
           }
-          pre[q] = __fadd_rn(gxr[(size_t)q * H], sum);
         }
-        const float ig = sigmoid_f(pre[0]);
-        const float fg = sigmoid_f(pre[1]);
-        const float gg = tanhf(pre[2]);
-        const float og = sigmoid_f(pre[3]);
-        const size_t o = row * H + u0 + cj;
-        const size_t bu = (size_t)b * H + u0 + cj;
-        const float c_t = cs[o];
-        const float c_prev =
-            first ? 0.0f : cs[((size_t)tp * B + b) * H + u0 + cj];
-        // the contraction of the unpinned code, read off its SASS: every
-        // product rounded, 1 - x^2 and dc's update one FMA each
-        const float dh = __fadd_rn(dhs[o], dh_buf[bu]);
-        const float tanh_c = tanhf(c_t);
-        const float d_o = __fmul_rn(dh, tanh_c);
-        const float dc = __fmaf_rn(__fmul_rn(dh, og),
-                                   __fmaf_rn(-tanh_c, tanh_c, 1.0f),
-                                   dc_buf[bu]);
-        dg[0] = __fmul_rn(__fmul_rn(__fmul_rn(dc, gg), ig),
-                          __fsub_rn(1.0f, ig));
-        dg[1] = __fmul_rn(__fmul_rn(__fmul_rn(dc, c_prev), fg),
-                          __fsub_rn(1.0f, fg));
-        dg[2] = __fmul_rn(__fmul_rn(dc, ig), __fmaf_rn(-gg, gg, 1.0f));
-        dg[3] = __fmul_rn(__fmul_rn(d_o, og), __fsub_rn(1.0f, og));
-        dc_buf[bu] = __fmul_rn(dc, fg);
-        float* dgr = dgx + row * G + u0 + cj;
-#pragma unroll
-        for (int q = 0; q < GATES; ++q) dgr[(size_t)q * H] = dg[q];
       }
-      // rows past the tile's end stay zero: they meet zero h rows below
-#pragma unroll
-      for (int q = 0; q < GATES; ++q) dg_s[cb * ROWS + q * UNITS + cj] = dg[q];
-      __syncthreads();
-      TL_MARK(TL_CELL);
+    }
+  };
 
-      if (!first) {
-        // dW_hh[rows][k] += sum_b dgates[b][row] * h_{t-1}[b][k], and
-        // partial[b][k] = sum_row dgates[b][row] * W_hh[row][k]
-        const float4* g4 = reinterpret_cast<const float4*>(dg_s);
-        for (int bb = 0; bb < nb; bb += 4) {
-          float dgv[4][ROWS];
+  // dW_hh[rows][k] += sum_b dgates[b][row] * h_{t-1}[b][k], rows in order
+  auto dw_pass = [&](int nb) {
+    for (int bb = 0; bb < nb; bb += 4) {
+      float dgv[4][ROWS];
+      load_dg(bb, dgv);
+#pragma unroll
+      for (int kk = 0; kk < KPT; ++kk) {
+        const int k = tid + kk * THREADS;
+        if (k < H) {
+          float hb[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) hb[r] = tile[tile_off(bb + r, k)];
 #pragma unroll
           for (int r = 0; r < 4; ++r)
 #pragma unroll
-            for (int q4 = 0; q4 < ROWS / 4; ++q4) {
-              const float4 v = g4[(bb + r) * (ROWS / 4) + q4];
-              dgv[r][q4 * 4 + 0] = v.x;
-              dgv[r][q4 * 4 + 1] = v.y;
-              dgv[r][q4 * 4 + 2] = v.z;
-              dgv[r][q4 * 4 + 3] = v.w;
-            }
-#pragma unroll
-          for (int kk = 0; kk < KPT; ++kk) {
-            const int k = tid + kk * THREADS;
-            if (k < H) {
-              const float4 hv =
-                  *reinterpret_cast<const float4*>(x_s + (size_t)k * PAD + bb);
-              const float hb[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-              for (int r = 0; r < 4; ++r) {
-                float p = 0.0f;
-#pragma unroll
-                for (int q = 0; q < ROWS; ++q) {
-                  dw[kk][q] = fmaf(dgv[r][q], hb[r], dw[kk][q]);
-                  p = fmaf(dgv[r][q], wr[kk][q], p);
-                }
-                if (bb + r < nb) part_s[(size_t)(b0 + bb + r) * H + k] = p;
-              }
-            }
-          }
+            for (int q = 0; q < ROWS; ++q)
+              dw[kk][q] = fmaf(dgv[r][q], hb[r], dw[kk][q]);
         }
-        TL_MARK(TL_PARTIAL);  // with dW: one pass
       }
     }
-    if (first) {
-      TL_STORE(s);
-      break;
-    }
+  };
 
-    // every block's partials of step s are written: sum this block's units
-    TL_ARRIVED();
-    grid_barrier(barrier, (++barriers) * gridDim.x);
-    TL_MARK(TL_WAIT);
-    TL_WAITED();
-    const float* part_all = part + (size_t)(s & 1) * nblk * B * H;
+  // dh_{t-1} for row b0 + tid / RED, unit tid % RED: the partials of
+  // every block, through L2, in block order (four lanes, then shuffles)
+  auto reduce = [&](const float* part_all, int b0) {
     const int lane_q = tid % RED;
-    for (int b0 = 0; b0 < B; b0 += BT) {
-      const int b = b0 + tid / RED;
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (b < B) {
+    const int b = b0 + tid / RED;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (b < B) {
 #pragma unroll 8
-        for (int k2 = lane_q; k2 < nblk; k2 += RED) {
-          const float4 v = __ldcg(reinterpret_cast<const float4*>(
-              part_all + ((size_t)k2 * B + b) * H + u0));
-          acc.x += v.x;
-          acc.y += v.y;
-          acc.z += v.z;
-          acc.w += v.w;
+      for (int k2 = lane_q; k2 < nblk; k2 += RED) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(
+            part_all + ((size_t)k2 * B + b) * H + u0));
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < RED; off <<= 1) {
+      acc.x += __shfl_xor_sync(0xffffffffu, acc.x, off);
+      acc.y += __shfl_xor_sync(0xffffffffu, acc.y, off);
+      acc.z += __shfl_xor_sync(0xffffffffu, acc.z, off);
+      acc.w += __shfl_xor_sync(0xffffffffu, acc.w, off);
+    }
+    // lane q keeps unit q: the thread that reads this carry next step
+    return lane_q == 0 ? acc.x
+           : lane_q == 1 ? acc.y
+           : lane_q == 2 ? acc.z
+                         : acc.w;
+  };
+
+  auto prev_pos = [&](int s) {  // h_{t-1}'s position for step s
+    const int t = reverse ? T - 1 - s : s;
+    return reverse ? t + 1 : t - 1;
+  };
+  auto part_of = [&](int s) {  // the ping-pong slot of step s
+    return part + (size_t)(s & 1) * nblk * B * H;
+  };
+  unsigned int arrivals = 0;
+
+  if (SPLIT) {
+    // one tile; the carries in registers
+    float dh_c = 0.0f;
+    float dc_c = cb < B ? dc_buf[(size_t)cb * H + u0 + cj] : 0.0f;
+    CellIn in;
+    if (T > 1) {
+      issue(prev_pos(T - 1), 0);
+      recompute();
+    }
+    load_in(T - 1, 0, in);
+    __syncthreads();  // red_s
+    for (int s = T - 1;; --s) {
+      TL_BEGIN();
+      cell(s, 0, in, dh_c, dc_c);
+      __syncthreads();  // dg_s written, red_s read
+      TL_MARK(TL_CELL);
+      if (s == 0) {
+        TL_STORE(s);
+        break;
+      }
+      partial(part_of(s) + (size_t)blockIdx.x * B * H, 0, B);
+      grid_arrive(barrier);  // publishes every thread's partials
+      ++arrivals;
+      TL_MARK(TL_PARTIAL);
+      TL_ARRIVED();
+      // needs no other block's writes: dW(s), then step s-1's
+      // pre-activations and inputs
+      dw_pass(B);
+      __syncthreads();  // the tile and dg_s are free
+      TL_MARK(TL_DW);
+      if (s > 1) {
+        issue(prev_pos(s - 1), 0);
+        recompute();
+        TL_MARK(TL_RECOMPUTE);
+      }
+      load_in(s - 1, 0, in);
+      TL_MARK(TL_LOADS);
+      grid_wait(barrier, arrivals * gridDim.x, 0, THREADS);
+      TL_MARK(TL_WAIT);
+      TL_WAITED();
+      dh_c = reduce(part_of(s), 0);  // thread (b, unit) == (cb, cj)
+      TL_MARK(TL_REDUCE);
+      TL_STORE(s);
+    }
+  } else {
+    // the tiles in series, the carries in dh_buf / dc_buf
+    for (int s = T - 1; s >= 0; --s) {
+      TL_BEGIN();
+      const bool first = s == 0;  // h_{t-1} = c_{t-1} = 0
+      for (int b0 = 0; b0 < B; b0 += BT) {
+        const int nb = min(BT, B - b0);
+        __syncthreads();  // the tile, red_s and dg_s are free again
+        if (!first) {
+          issue(prev_pos(s), b0);
+          recompute();
+          __syncthreads();
+          TL_MARK(TL_RECOMPUTE);
+        }
+        CellIn in;
+        load_in(s, b0, in);
+        const size_t bu = (size_t)(b0 + cb) * H + u0 + cj;
+        float dh_c = 0.0f, dc_c = 0.0f;
+        if (cb < nb) {
+          dh_c = dh_buf[bu];
+          dc_c = dc_buf[bu];
+        }
+        cell(s, b0, in, dh_c, dc_c);
+        if (cb < nb) dc_buf[bu] = dc_c;
+        __syncthreads();
+        TL_MARK(TL_CELL);
+        if (!first) {
+          partial(part_of(s) + (size_t)blockIdx.x * B * H, b0, nb);
+          TL_MARK(TL_PARTIAL);
+          dw_pass(nb);
+          TL_MARK(TL_DW);
         }
       }
-#pragma unroll
-      for (int off = 1; off < RED; off <<= 1) {
-        acc.x += __shfl_xor_sync(0xffffffffu, acc.x, off);
-        acc.y += __shfl_xor_sync(0xffffffffu, acc.y, off);
-        acc.z += __shfl_xor_sync(0xffffffffu, acc.z, off);
-        acc.w += __shfl_xor_sync(0xffffffffu, acc.w, off);
+      if (first) {
+        TL_STORE(s);
+        break;
       }
-      // lane q keeps unit q: the thread that reads this carry next step
-      const float mine = lane_q == 0 ? acc.x
-                         : lane_q == 1 ? acc.y
-                         : lane_q == 2 ? acc.z
-                                       : acc.w;
-      if (b < B) dh_buf[(size_t)b * H + u0 + lane_q] = mine;
+      grid_arrive(barrier);
+      ++arrivals;
+      TL_ARRIVED();
+      grid_wait(barrier, arrivals * gridDim.x, 0, THREADS);
+      TL_MARK(TL_WAIT);
+      TL_WAITED();
+      for (int b0 = 0; b0 < B; b0 += BT) {
+        const int b = b0 + tid / RED;
+        const float mine = reduce(part_of(s), b0);
+        if (b < B) dh_buf[(size_t)b * H + u0 + tid % RED] = mine;
+      }
+      TL_MARK(TL_REDUCE);
+      TL_STORE(s);
     }
-    TL_MARK(TL_REDUCE);
-    TL_STORE(s);
   }
 
 #pragma unroll
@@ -462,20 +625,39 @@ int mlvae_lstm_bwd(
     const float* dhs, float* dgx, float* dw_hh, float* part, float* dh_buf,
     float* dc_buf, unsigned int* barrier, int T, int B, int H,
     int reverse TL_ARG, cudaStream_t stream) {
-  if (H % (UNITS * KSPLIT) != 0 || H > KPT * THREADS || T < 1 || B < 1)
+  if (H % (UNITS * KSPLIT) != 0 || H > KPT * THREADS || T < 1 || B < 1 ||
+      reinterpret_cast<uintptr_t>(hs) % 16)
     return cudaErrorInvalidValue;
-  void* args[] = {(void*)&gx,     (void*)&w_hh,    (void*)&hs,
-                  (void*)&cs,     (void*)&dhs,     (void*)&dgx,
-                  (void*)&dw_hh,  (void*)&part,    (void*)&dh_buf,
-                  (void*)&dc_buf, (void*)&barrier, (void*)&T,
-                  (void*)&B,      (void*)&H,       (void*)&reverse
+  // hs as (column k, batch row, position), k innermost; boxes of 32
+  // columns x 64 rows of one position, zeros past B, 128-byte swizzled
+  PFN_cuTensorMapEncodeTiled_v12000 encode;
+  cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[3] = {(cuuint64_t)H, (cuuint64_t)B, (cuuint64_t)T};
+  const cuuint64_t strides[2] = {(cuuint64_t)H * sizeof(float),
+                                 (cuuint64_t)B * H * sizeof(float)};
+  const cuuint32_t box[3] = {BOXC, BT, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  CUtensorMap map_h;
+  if (encode(&map_h, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+             const_cast<float*>(hs), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  void* args[] = {(void*)&gx,     (void*)&w_hh,   (void*)&cs,
+                  (void*)&dhs,    (void*)&dgx,    (void*)&dw_hh,
+                  (void*)&part,   (void*)&dh_buf, (void*)&dc_buf,
+                  (void*)&barrier, (void*)&T,     (void*)&B,
+                  (void*)&H,      (void*)&reverse, (void*)&map_h
 #ifdef MLVAE_K1_BWD_TIMELINE
                   ,
                   (void*)&timeline
 #endif
   };
-  return launch_cooperative(lstm_bwd_kernel, H / UNITS, THREADS, args,
-                            smem_bytes(H), stream);
+  return launch_cooperative(
+      B <= BT ? lstm_bwd_kernel<true> : lstm_bwd_kernel<false>, H / UNITS,
+      THREADS, args, smem_bytes(H), stream);
 }
 
 }  // extern "C"

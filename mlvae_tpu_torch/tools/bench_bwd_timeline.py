@@ -148,6 +148,28 @@ def k1_phase_split(tl: torch.Tensor) -> Dict[str, Dict[str, float]]:
     return out
 
 
+def k1_bwd_smem_bytes(H: int) -> int:
+    """Shared memory of a K1-bwd launch (``smem_bytes`` of
+    ``csrc/lstm_bwd.cu``): the h_{t-1} tile of 64 rows in boxes of 32
+    columns, W_hh's 16 rows, the split-K pre-activations, the dgates, f32,
+    and an mbarrier a box. It does not depend on B."""
+    nbox = -(-H // 32)
+    return 4 * (nbox * 64 * 32 + 16 * H + 4 * 64 * 16 + 64 * 16) + 8 * nbox
+
+
+def k1_bwd_split(B: int) -> bool:
+    """Whether a K1-bwd launch takes the split schedule (one batch tile,
+    the carry-free work between the barrier's arrival and wait) rather
+    than the tiles in series."""
+    return B <= 64
+
+
+def k1_bwd_tensor_map(T: int, B: int, H: int):
+    """K1-bwd's tensor map over hs (T, B, H) f32: (dims, byte strides of
+    dims 1 and 2, box), innermost first."""
+    return (H, B, T), (4 * H, 4 * H * B), (32, 64, 1)
+
+
 def k1_problem(dev, B: int, seed: int = 0):
     """A K1-bwd input at T, H: gx N(0, 0.5^2), W_hh U(+-1/sqrt(H)), the
     trajectory from K1-fwd, cotangents N(0, 0.1^2) for every h and the

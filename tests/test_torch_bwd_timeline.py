@@ -136,6 +136,35 @@ def test_k1_bwd_scratch_shapes(B, H):
     assert not barrier.any()
 
 
+@pytest.mark.parametrize("H, nbytes", [(512, 184448), (64, 40976)])
+@pytest.mark.parametrize("B", [1, 64, 65, 256])
+def test_k1_bwd_shared_memory_and_schedule(B, H, nbytes):
+    # the tile (H/32 boxes of 64 x 32 f32), W_hh's rows, red_s, dg_s and an
+    # mbarrier a box, whatever B; one tile splits its barrier
+    assert btl.k1_bwd_smem_bytes(H) == nbytes
+    assert btl.k1_bwd_smem_bytes(H) <= 232448
+    assert btl.k1_bwd_split(B) is (B <= 64)
+
+
+def test_k1_bwd_fits_every_shape_the_launch_takes():
+    for H in range(16, 529, 16):
+        assert btl.k1_bwd_smem_bytes(H) <= 232448, H
+
+
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 70, 200, 256])
+@pytest.mark.parametrize("H", [512, 64, 16])
+def test_k1_bwd_tensor_map_strides_and_box(B, H):
+    dims, strides, box = btl.k1_bwd_tensor_map(160, B, H)
+    assert dims == (H, B, 160)
+    # the TMA wants 16-byte strides and a box row of at most the 128-byte
+    # swizzle's span; rows past B and columns past H arrive as zeros
+    assert all(st % 16 == 0 for st in strides)
+    assert strides == (4 * H, 4 * H * B)
+    assert box == (32, 64, 1) and box[0] * 4 == 128
+    assert -(-H // box[0]) * box[0] * box[1] * 4 <= \
+        btl.k1_bwd_smem_bytes(H)
+
+
 def test_phase_split_counts_an_unwritten_stamp_as_its_phase_start():
     st = _stamps(T=2, blocks=1)
     st[0, 0, 4] = 0     # K4's step 0: no wait, no exchange
