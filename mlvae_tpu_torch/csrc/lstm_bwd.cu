@@ -514,15 +514,16 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
         break;
       }
       partial(part_of(s) + (size_t)blockIdx.x * B * H, 0, B);
-      grid_arrive(barrier);  // publishes every thread's partials
-      ++arrivals;
       TL_MARK(TL_PARTIAL);
-      TL_ARRIVED();
       // needs no other block's writes: dW(s), then step s-1's
-      // pre-activations and inputs
+      // pre-activations and inputs. The arrival waits for dW: thread 0's
+      // release must see every store of the partials done, and they drain
+      // behind dW instead of stalling its warp.
       dw_pass(B);
-      __syncthreads();  // the tile and dg_s are free
+      grid_arrive(barrier);  // the tile and dg_s are free, partials published
+      ++arrivals;
       TL_MARK(TL_DW);
+      TL_ARRIVED();
       if (s > 1) {
         issue(prev_pos(s - 1), 0);
         recompute();
