@@ -32,7 +32,11 @@
 // ping-pong buffer, and adds its share of dW_hh. After a grid barrier (a
 // per-launch counter, as in K1-fwd) each block sums the partials of all
 // blocks for its own four units, reading them through L2 with __ldcg in a
-// fixed order, so dh_{t-1} is deterministic too.
+// fixed order, so dh_{t-1} is deterministic too. A block's partials lie
+// [unit group][row][unit], so that a reducing block reads its four units
+// of a row as one float4 and a warp's reads fill whole 32-byte sectors;
+// the writer turns each 4 x 4 of rows and units across a lane quad with
+// shuffles and stores float4s, whole sectors too.
 //
 // h_{t-1} comes straight from the saved hs by the TMA: a 3-D tensor map
 // over hs (H, B, T) copies 64 batch rows x 32 columns a box (rows past B
@@ -186,6 +190,33 @@ size_t smem_bytes(int H) {
 __device__ __forceinline__ int tile_off(int b, int k) {
   return (k >> 5) * BOX + b * BOXC + ((((k >> 2) & 7) ^ (b & 7)) << 2) +
          (k & 3);
+}
+
+// A 4 x 4 transpose across the quad of lanes holding v: lane u (its place
+// in the quad) ends with v[j] = the v[u] of lane j. Two butterflies: the
+// 2 x 2 blocks across lanes u ^ 2, then the entries within them across
+// lanes u ^ 1.
+__device__ __forceinline__ void quad_transpose(float (&v)[4], int u) {
+  const bool hi = u & 2;
+  const float a0 = __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[2], 2);
+  const float a1 = __shfl_xor_sync(0xffffffffu, hi ? v[1] : v[3], 2);
+  if (hi) {
+    v[0] = a0;
+    v[1] = a1;
+  } else {
+    v[2] = a0;
+    v[3] = a1;
+  }
+  const bool lo = u & 1;
+  const float b0 = __shfl_xor_sync(0xffffffffu, lo ? v[0] : v[1], 1);
+  const float b1 = __shfl_xor_sync(0xffffffffu, lo ? v[2] : v[3], 1);
+  if (lo) {
+    v[0] = b0;
+    v[2] = b1;
+  } else {
+    v[1] = b0;
+    v[3] = b1;
+  }
 }
 
 // The cell thread's inputs of one step: gx's four gates, c_t, c_{t-1}
@@ -409,23 +440,32 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
   };
 
   // partial[b][k] = sum_row dgates[b][row] * W_hh[row][k], rows in order,
-  // for the tile's nb rows from b0, into part_s [B][H]
+  // for the tile's nb rows from b0, into part_s [H/4][B][4]: the quad of
+  // lanes that holds four rows of units k - k % 4 .. + 3 turns them
+  // around, so that lane u stores row bb + u's four units as one float4
   auto partial = [&](float* part_s, int b0, int nb) {
+    const int u = tid & 3;
     for (int bb = 0; bb < nb; bb += 4) {
       float dgv[4][ROWS];
       load_dg(bb, dgv);
 #pragma unroll
       for (int kk = 0; kk < KPT; ++kk) {
         const int k = tid + kk * THREADS;
-        if (k < H) {
+        if ((tid & ~31) + kk * THREADS < H) {  // the warp's quads are whole
+          float v[4];
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             float p = 0.0f;
 #pragma unroll
             for (int q = 0; q < ROWS; ++q)
               p = fmaf(dgv[r][q], wr[kk][q], p);
-            if (bb + r < nb) part_s[(size_t)(b0 + bb + r) * H + k] = p;
+            v[r] = p;
           }
+          quad_transpose(v, u);
+          if (k < H && bb + u < nb)
+            *reinterpret_cast<float4*>(
+                part_s + ((size_t)(k >> 2) * B + b0 + bb + u) * UNITS) =
+                make_float4(v[0], v[1], v[2], v[3]);
         }
       }
     }
@@ -463,7 +503,8 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
 #pragma unroll 8
       for (int k2 = lane_q; k2 < nblk; k2 += RED) {
         const float4 v = __ldcg(reinterpret_cast<const float4*>(
-            part_all + ((size_t)k2 * B + b) * H + u0));
+            part_all + (size_t)k2 * B * H +
+            ((size_t)blockIdx.x * B + b) * UNITS));
         acc.x += v.x;
         acc.y += v.y;
         acc.z += v.z;
@@ -612,7 +653,8 @@ const char* mlvae_lstm_bwd_error_string(int err) {
 
 // gx (T,B,4H), w_hh (4H,H), hs/cs/dhs (T,B,H) f32 inputs, hs 16-byte
 // aligned; dgx (T,B,4H) and dw_hh (4H,H) f32 outputs (every element
-// written); part (2, H/4, B, H) f32 scratch; dh_buf (B,H) zeroed and dc_buf
+// written); part (2, H/4, H/4, B, 4) f32 scratch (slot, writing block,
+// unit group, row, unit); dh_buf (B,H) zeroed and dc_buf
 // (B,H) holding dc_last, both scratch; barrier one zeroed counter. Returns
 // a cudaError_t. The timing build (MLVAE_K1_BWD_TIMELINE) is
 // mlvae_lstm_bwd_timeline, which also takes the (T, H/4, 11) u64 timeline

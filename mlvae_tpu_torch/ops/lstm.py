@@ -185,7 +185,8 @@ def lstm_layer_fwd(gx: torch.Tensor, w_hh: torch.Tensor,
 
 def k1_bwd_scratch(gx: torch.Tensor, dc_last: torch.Tensor):
     """K1-bwd's scratch for a (T, B, 4H) ``gx``: each block's split-K
-    share of dh_{t-1}, (2, H/4, B, H) ping-ponged between steps; the dh
+    share of dh_{t-1}, (2, H/4, B, H) floats ping-ponged between steps
+    (the kernel lays each block's B x H out as (H/4, B, 4)); the dh
     carry (zero at the start) and the dc carry (from dc_last), (B, H), each
     entry touched by one thread only; the step barrier's counter."""
     _, B, G = gx.shape
