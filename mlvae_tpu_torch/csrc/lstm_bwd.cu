@@ -439,11 +439,14 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
       }
   };
 
+  // One pass over the tile's nb rows from b0 and this thread's columns k:
   // partial[b][k] = sum_row dgates[b][row] * W_hh[row][k], rows in order,
-  // for the tile's nb rows from b0, into part_s [H/4][B][4]: the quad of
-  // lanes that holds four rows of units k - k % 4 .. + 3 turns them
-  // around, so that lane u stores row bb + u's four units as one float4
-  auto partial = [&](float* part_s, int b0, int nb) {
+  // into part_s [H/4][B][4] (the quad of lanes that holds four rows of
+  // units k - k % 4 .. + 3 turns them around, so that lane u stores row
+  // bb + u's four units as one float4), and dW_hh[rows][k] += sum_b
+  // dgates[b][row] * h_{t-1}[b][k], rows in order. The partials' stores
+  // drain behind dW's products.
+  auto partial_dw = [&](float* part_s, int b0, int nb) {
     const int u = tid & 3;
     for (int bb = 0; bb < nb; bb += 4) {
       float dgv[4][ROWS];
@@ -467,18 +470,6 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
                 part_s + ((size_t)(k >> 2) * B + b0 + bb + u) * UNITS) =
                 make_float4(v[0], v[1], v[2], v[3]);
         }
-      }
-    }
-  };
-
-  // dW_hh[rows][k] += sum_b dgates[b][row] * h_{t-1}[b][k], rows in order
-  auto dw_pass = [&](int nb) {
-    for (int bb = 0; bb < nb; bb += 4) {
-      float dgv[4][ROWS];
-      load_dg(bb, dgv);
-#pragma unroll
-      for (int kk = 0; kk < KPT; ++kk) {
-        const int k = tid + kk * THREADS;
         if (k < H) {
           float hb[4];
 #pragma unroll
@@ -554,17 +545,13 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
         TL_STORE(s);
         break;
       }
-      partial(part_of(s) + (size_t)blockIdx.x * B * H, 0, B);
-      TL_MARK(TL_PARTIAL);
-      // needs no other block's writes: dW(s), then step s-1's
-      // pre-activations and inputs. The arrival waits for dW: thread 0's
-      // release must see every store of the partials done, and they drain
-      // behind dW instead of stalling its warp.
-      dw_pass(B);
+      partial_dw(part_of(s) + (size_t)blockIdx.x * B * H, 0, B);
       grid_arrive(barrier);  // the tile and dg_s are free, partials published
       ++arrivals;
-      TL_MARK(TL_DW);
+      TL_MARK(TL_PARTIAL);
       TL_ARRIVED();
+      // needs no other block's writes: step s-1's pre-activations and
+      // inputs
       if (s > 1) {
         issue(prev_pos(s - 1), 0);
         recompute();
@@ -606,10 +593,8 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
         __syncthreads();
         TL_MARK(TL_CELL);
         if (!first) {
-          partial(part_of(s) + (size_t)blockIdx.x * B * H, b0, nb);
+          partial_dw(part_of(s) + (size_t)blockIdx.x * B * H, b0, nb);
           TL_MARK(TL_PARTIAL);
-          dw_pass(nb);
-          TL_MARK(TL_DW);
         }
       }
       if (first) {
