@@ -48,13 +48,19 @@
 // consecutive columns of one row a warp, so neither meets a bank twice.
 //
 // The schedule (B <= 64, one tile). Only the dgates, the partials and the
-// reduce lie on the chain of steps: dW of step s and the recompute of step
-// s-1 read hs and the block's own dgates. So the step's grid barrier is
-// split: cell(s) -> partial(s) -> arrive -> dW(s) -> copy of h for step s-1
-// -> recompute(s-1) -> loads of step s-1's gx, c and dh inputs -> wait ->
-// reduce(s), the dh and dc carries in registers. B > 64 runs the tiles in
-// series with the same copies (each tile: copy, recompute, cell, partial,
-// dW; then the barrier and the reduce). Every sum keeps its order (dW over
+// reduce lie on the chain of steps: the recompute of step s-1 reads hs and
+// W_hh only. So the step's grid barrier is split: cell(s) -> one pass over
+// the dgates forming partial(s) and dW(s) -> arrive -> copy of h for step
+// s-1 -> recompute(s-1) -> loads of step s-1's gx, c and dh inputs ->
+// wait -> reduce(s), the dh and dc carries in registers. The partials'
+// stores drain behind dW's products in the pass, and the arrival after it
+// finds them done (arriving before dW stalled thread 0's warp on them).
+// Two warp groups, the partials and the reduce on warps 0-3 beside dW and
+// the recompute on warps 4-7 (as K3-bwd runs), were slower: the partials
+// on four warps outlasted the rest. B > 64 runs the tiles in series with
+// the same copies (each tile: copy, recompute, cell, the pass; then the
+// barrier and the reduce). A thread holds W_hh's and dW_hh's 16 rows for
+// KP = 2 columns of H (H <= 512) or 3. Every sum keeps its order (dW over
 // s, then tiles, then rows; each partial over its 16 rows; each
 // pre-activation over k; the reduce over blocks) and the dgates block its
 // contraction, so the outputs are bit-identical to the single-copy design.
@@ -72,18 +78,19 @@
 // phase's sum and at the end of each step writes timeline[s][block][k]
 // (int64 ns): k = 0 the step's start, 1 its end, then the sums of 2 stage
 // (h_{t-1} into shared memory), 3 recompute (the pre-activations), 4 cell
-// (the dgates and their stores), 5 partial (the split-K share of
-// dh_{t-1}), 6 dW, 7 wait (in the grid barrier, with the block's other
-// warps catching up), 8 reduce (dh_{t-1} from the partials), 9 barrier
-// (from the arrival to the end of the wait, whatever ran between) and 10
-// loads (the next step's cell inputs). Stage is thread 0's time in the
-// mbarrier waits of its K slice, recompute the rest of its recompute.
+// (the dgates and their stores), 5 partial_dw (the pass forming the
+// split-K share of dh_{t-1} and dW, to the arrival), 6 wait (in the grid
+// barrier, with the block's other warps catching up), 7 reduce (dh_{t-1}
+// from the partials), 8 barrier (from the arrival to the end of the wait,
+// whatever ran between) and 9 loads (the next step's cell inputs). Stage
+// is thread 0's time in the mbarrier waits of its K slice, recompute the
+// rest of its recompute.
 // Without the define the macros are empty and the kernel takes no
 // timeline argument.
 #ifdef MLVAE_K1_BWD_TIMELINE
-constexpr int TL_SLOTS = 11;
-enum TlPhase { TL_STAGE = 2, TL_RECOMPUTE, TL_CELL, TL_PARTIAL, TL_DW,
-               TL_WAIT, TL_REDUCE, TL_BARRIER, TL_LOADS };
+constexpr int TL_SLOTS = 10;
+enum TlPhase { TL_STAGE = 2, TL_RECOMPUTE, TL_CELL, TL_PARTIAL_DW, TL_WAIT,
+               TL_REDUCE, TL_BARRIER, TL_LOADS };
 
 __device__ __forceinline__ unsigned long long tl_now() {
   unsigned long long ns;
@@ -163,7 +170,7 @@ constexpr int ROWS = GATES * UNITS;      // gate rows owned by one block
 constexpr int BT = 64;                   // batch rows per tile
 constexpr int KSPLIT = 4;                // recompute: K split four ways
 constexpr int THREADS = 256;
-constexpr int KPT = 3;                   // columns of H per thread
+constexpr int KPT = 3;                   // columns of H a thread, at most
 constexpr int RED = 4;                   // lanes that sum one row's partials
 constexpr int BOXC = 32;                 // columns of a TMA box: 128 bytes
 constexpr int BOX = BT * BOXC;           // floats of a box (8 KB)
@@ -226,7 +233,7 @@ struct CellIn {
   float c_t, c_prev, dhs;
 };
 
-template <bool SPLIT>
+template <bool SPLIT, int KP>
 __global__ void __launch_bounds__(THREADS)
 lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
                 const float* __restrict__ cs, const float* __restrict__ dhs,
@@ -274,10 +281,10 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
   const int cj = tid % UNITS;
   // column layout (dW_hh and the partials): thread -> columns
   // k = tid + kk * THREADS, all 16 rows; W_hh[rows][k] held in registers
-  float dw[KPT][ROWS];
-  float wr[KPT][ROWS];
+  float dw[KP][ROWS];
+  float wr[KP][ROWS];
 #pragma unroll
-  for (int kk = 0; kk < KPT; ++kk) {
+  for (int kk = 0; kk < KP; ++kk) {
     const int k = tid + kk * THREADS;
 #pragma unroll
     for (int q = 0; q < ROWS; ++q) {
@@ -327,7 +334,7 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
       mbar_wait(&mb[box], staged & 1);
       TL_MARK(TL_STAGE);
       const float* tb = tile + (size_t)box * BOX + b4 * BOXC;
-#pragma unroll 2
+#pragma unroll 4
       for (int k = kb; k < kend; k += 4) {
         const int u = (((k >> 2) & 7) ^ sw) << 2;
         float hb[4][4];
@@ -448,11 +455,12 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
   // drain behind dW's products.
   auto partial_dw = [&](float* part_s, int b0, int nb) {
     const int u = tid & 3;
+#pragma unroll 2  // two groups of rows in flight
     for (int bb = 0; bb < nb; bb += 4) {
       float dgv[4][ROWS];
       load_dg(bb, dgv);
 #pragma unroll
-      for (int kk = 0; kk < KPT; ++kk) {
+      for (int kk = 0; kk < KP; ++kk) {
         const int k = tid + kk * THREADS;
         if ((tid & ~31) + kk * THREADS < H) {  // the warp's quads are whole
           float v[4];
@@ -548,7 +556,7 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
       partial_dw(part_of(s) + (size_t)blockIdx.x * B * H, 0, B);
       grid_arrive(barrier);  // the tile and dg_s are free, partials published
       ++arrivals;
-      TL_MARK(TL_PARTIAL);
+      TL_MARK(TL_PARTIAL_DW);
       TL_ARRIVED();
       // needs no other block's writes: step s-1's pre-activations and
       // inputs
@@ -594,7 +602,7 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
         TL_MARK(TL_CELL);
         if (!first) {
           partial_dw(part_of(s) + (size_t)blockIdx.x * B * H, b0, nb);
-          TL_MARK(TL_PARTIAL);
+          TL_MARK(TL_PARTIAL_DW);
         }
       }
       if (first) {
@@ -618,7 +626,7 @@ lstm_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
   }
 
 #pragma unroll
-  for (int kk = 0; kk < KPT; ++kk) {
+  for (int kk = 0; kk < KP; ++kk) {
     const int k = tid + kk * THREADS;
     if (k < H) {
 #pragma unroll
@@ -642,7 +650,7 @@ const char* mlvae_lstm_bwd_error_string(int err) {
 // unit group, row, unit); dh_buf (B,H) zeroed and dc_buf
 // (B,H) holding dc_last, both scratch; barrier one zeroed counter. Returns
 // a cudaError_t. The timing build (MLVAE_K1_BWD_TIMELINE) is
-// mlvae_lstm_bwd_timeline, which also takes the (T, H/4, 11) u64 timeline
+// mlvae_lstm_bwd_timeline, which also takes the (T, H/4, 10) u64 timeline
 // before the stream.
 #ifdef MLVAE_K1_BWD_TIMELINE
 int mlvae_lstm_bwd_timeline(
@@ -683,9 +691,12 @@ int mlvae_lstm_bwd(
                   (void*)&timeline
 #endif
   };
+  const bool split = B <= BT;
+  const bool two = H <= 2 * THREADS;  // two columns a thread, or three
   return launch_cooperative(
-      B <= BT ? lstm_bwd_kernel<true> : lstm_bwd_kernel<false>, H / UNITS,
-      THREADS, args, smem_bytes(H), stream);
+      split ? (two ? lstm_bwd_kernel<true, 2> : lstm_bwd_kernel<true, KPT>)
+            : (two ? lstm_bwd_kernel<false, 2> : lstm_bwd_kernel<false, KPT>),
+      H / UNITS, THREADS, args, smem_bytes(H), stream);
 }
 
 }  // extern "C"

@@ -27,13 +27,13 @@ outputs by design): what the copies' traffic costs a step.
 
 K1-bwd (``csrc/lstm_bwd.cu``, f32) has a timing build of its own
 (``-DMLVAE_K1_BWD_TIMELINE``): thread 0 of each block sums the intervals
-of its phases, a (T, H/4, 11) buffer, at T=160, H=512, B=64 on the
+of its phases, a (T, H/4, 10) buffer, at T=160, H=512, B=64 on the
 trajectory of K1-fwd. Its phases, microseconds a step as above:
-``stage`` (h_{t-1} into shared memory), ``recompute``, ``cell``,
-``partial`` (the split-K share of dh_{t-1}), ``dW``, ``wait`` (in the grid
-barrier), ``reduce``, ``barrier`` (from the arrival to the end of the
-wait, with whatever runs between), ``loads`` (the next step's cell
-inputs) and ``step``. It prints one JSON line naming the card and its
+``stage`` (waiting for the copies of h_{t-1}), ``recompute``, ``cell``,
+``partial_dw`` (one pass forming the split-K share of dh_{t-1} and dW),
+``wait`` (in the grid barrier), ``reduce``, ``barrier`` (from the arrival
+to the end of the wait, with whatever runs between), ``loads`` (the next
+step's cell inputs) and ``step``. It prints one JSON line naming the card and its
 power limit, and exits non-zero when an output differs. It needs the card
 and raises without CUDA.
 """
@@ -67,9 +67,9 @@ WARMUP = 2
 
 # K1-bwd's timeline: slot of each phase's sum (0 the step's start, 1 its
 # end), as ``csrc/lstm_bwd.cu`` writes them
-K1_SLOTS = 11
-K1_PHASES = {"stage": 2, "recompute": 3, "cell": 4, "partial": 5, "dW": 6,
-             "wait": 7, "reduce": 8, "barrier": 9, "loads": 10}
+K1_SLOTS = 10
+K1_PHASES = {"stage": 2, "recompute": 3, "cell": 4, "partial_dw": 5,
+             "wait": 6, "reduce": 7, "barrier": 8, "loads": 9}
 K1_BATCHES = (64,)
 
 _P = ctypes.c_void_p
@@ -133,7 +133,7 @@ def phase_split(stamps: torch.Tensor) -> Dict[str, Dict[str, float]]:
 
 
 def k1_phase_split(tl: torch.Tensor) -> Dict[str, Dict[str, float]]:
-    """K1-bwd's ``tl`` (T, blocks, 11) int64 ns -> each phase's
+    """K1-bwd's ``tl`` (T, blocks, 10) int64 ns -> each phase's
     microseconds a step (``K1_PHASES`` and ``step``, end less start): every
     block's mean over the steps, then min, median and max over the
     blocks."""
@@ -157,11 +157,12 @@ def k1_bwd_smem_bytes(H: int) -> int:
     return 4 * (nbox * 64 * 32 + 16 * H + 4 * 64 * 16 + 64 * 16) + 8 * nbox
 
 
-def k1_bwd_split(B: int) -> bool:
-    """Whether a K1-bwd launch takes the split schedule (one batch tile,
-    the carry-free work between the barrier's arrival and wait) rather
-    than the tiles in series."""
-    return B <= 64
+def k1_bwd_schedule(B: int, H: int):
+    """(split, columns) of a K1-bwd launch: whether it takes the split
+    schedule (one batch tile, the recompute between the barrier's arrival
+    and wait) rather than the tiles in series, and how many columns of H
+    a thread holds W_hh's and dW_hh's rows for (``KP``)."""
+    return B <= 64, 2 if H <= 512 else 3
 
 
 def k1_bwd_tensor_map(T: int, B: int, H: int):
@@ -185,7 +186,7 @@ def k1_problem(dev, B: int, seed: int = 0):
 
 def timed_k1(prob, reverse: bool = False):
     """K1-bwd's timing build on ``prob``: ((dgx, dW_hh), as
-    ``lstm_layer_bwd``'s, and the (T, H/4, 11) int64 timeline)."""
+    ``lstm_layer_bwd``'s, and the (T, H/4, 10) int64 timeline)."""
     gx, w, hs, cs, dhs, dc_last = prob
     Tn, B, G = gx.shape
     Hn = G // 4

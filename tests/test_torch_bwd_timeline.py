@@ -86,15 +86,15 @@ def test_phase_split_reads_the_stamps():
 def _k1_timeline(T=4, blocks=3):
     """K1-bwd's timeline as thread 0 writes it: step s of block k starts at
     10 ms * (s + 10 k) and ends 20 + k us later; stage 1 us, recompute 4,
-    cell 2, partial 3, dW 5, wait 0.5 + k, reduce 1.5, barrier 9.5 + k,
+    cell 2, partial_dw 8, wait 0.5 + k, reduce 1.5, barrier 5.75 + k,
     loads 0.25 (ns sums)."""
     tl = torch.zeros((T, blocks, btl.K1_SLOTS), dtype=torch.int64)
     for s in range(T):
         for k in range(blocks):
             t0 = 10_000_000 * (s + 10 * k)
             tl[s, k] = torch.tensor([t0, t0 + 20000 + 1000 * k, 1000, 4000,
-                                     2000, 3000, 5000, 500 + 1000 * k, 1500,
-                                     9500 + 1000 * k, 250])
+                                     2000, 8000, 500 + 1000 * k, 1500,
+                                     5750 + 1000 * k, 250])
     return tl
 
 
@@ -102,14 +102,13 @@ def test_k1_phase_split_reads_the_timeline():
     split = btl.k1_phase_split(_k1_timeline())
     assert set(split) == {*btl.K1_PHASES, "step"}
     for name, us in (("stage", 1.0), ("recompute", 4.0), ("cell", 2.0),
-                     ("partial", 3.0), ("dW", 5.0), ("reduce", 1.5),
-                     ("loads", 0.25)):
+                     ("partial_dw", 8.0), ("reduce", 1.5), ("loads", 0.25)):
         assert split[name] == pytest.approx(
             {"min": us, "median": us, "max": us}), name
     assert split["wait"] == pytest.approx(
         {"min": 0.5, "median": 1.5, "max": 2.5})
     assert split["barrier"] == pytest.approx(
-        {"min": 9.5, "median": 10.5, "max": 11.5})
+        {"min": 5.75, "median": 6.75, "max": 7.75})
     assert split["step"] == pytest.approx(
         {"min": 20.0, "median": 21.0, "max": 22.0})
 
@@ -117,10 +116,10 @@ def test_k1_phase_split_reads_the_timeline():
 def test_k1_phase_split_means_over_steps_then_blocks():
     tl = _k1_timeline(T=2, blocks=1)
     tl[1, 0, btl.K1_PHASES["stage"]] = 3000   # 1 us, then 3 us
-    tl[0, 0, btl.K1_PHASES["dW"]] = 0         # a step without dW
+    tl[0, 0, btl.K1_PHASES["partial_dw"]] = 0  # step 0: no pass
     split = btl.k1_phase_split(tl)
     assert split["stage"]["median"] == pytest.approx(2.0)
-    assert split["dW"]["median"] == pytest.approx(2.5)
+    assert split["partial_dw"]["median"] == pytest.approx(4.0)
 
 
 @pytest.mark.parametrize("H", [512, 64])
@@ -143,7 +142,16 @@ def test_k1_bwd_shared_memory_and_schedule(B, H, nbytes):
     # mbarrier a box, whatever B; one tile splits its barrier
     assert btl.k1_bwd_smem_bytes(H) == nbytes
     assert btl.k1_bwd_smem_bytes(H) <= 232448
-    assert btl.k1_bwd_split(B) is (B <= 64)
+    split, cols = btl.k1_bwd_schedule(B, H)
+    assert split is (B <= 64) and cols == 2
+
+
+@pytest.mark.parametrize("H, cols", [(16, 2), (512, 2), (528, 3)])
+def test_k1_bwd_columns_a_thread_cover_h(H, cols):
+    # 256 threads hold W_hh's and dW_hh's rows for KP columns each
+    assert btl.k1_bwd_schedule(64, H) == (True, cols)
+    assert btl.k1_bwd_schedule(65, H) == (False, cols)
+    assert 256 * (cols - 1) < H <= 256 * cols or cols == 2
 
 
 def test_k1_bwd_fits_every_shape_the_launch_takes():
