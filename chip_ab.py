@@ -2,10 +2,11 @@
 """Time the port's LSTM kernels and its eval step in two checkouts on one
 NVIDIA card, in turns.
 
-    python3 chip_ab.py OTHER_CHECKOUT
+    python3 chip_ab.py [--only lstm_bwd] OTHER_CHECKOUT [OTHER_CHECKOUT ...]
 
-runs OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT, each in
-a fresh process that builds that checkout's kernels and times, with CUDA
+runs OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT (with
+several, the others in order, this checkout twice, the others in reverse
+order), each in a fresh process that builds that checkout's kernels and times, with CUDA
 events after warm-up, K1-fwd (B=64 and 128), K1-bwd, K3/K4-fwd (In=128,
 512, 1024) and K3-bwd (In=512), K4-bwd (In=1024) at T=160, B=64, H=512,
 the MD_VAE eval step and the AMP and f32 VAE train steps at B=64, T=160,
@@ -14,7 +15,10 @@ at the ragged B=70) and of each train step's first loss. Each run prints one lin
 digests>``; the card's name and power limit come first. It compares
 two versions of code that both checkouts have (a parent and its change):
 a change that may slow an earlier path is held against its parent here.
-It needs a CUDA card and exits non-zero without one.
+``--only lstm_bwd`` times K1-bwd alone (B=64, and its digests at B=64 and
+70 from inputs of their own), to hold the steps of a redesign against
+each other in one run. It needs a CUDA card and exits non-zero without
+one.
 """
 from __future__ import annotations
 
@@ -32,6 +36,27 @@ def digest(tensors) -> str:
     for t in tensors:
         h.update(t.float().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def time_lstm_bwd(root: Path) -> dict:
+    """K1-bwd alone in one checkout, in this process: its time at B=64 and
+    the digests of its outputs at B=64 and 70."""
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    from mlvae_tpu_torch import _build
+    from mlvae_tpu_torch.device import resolve_device
+    from mlvae_tpu_torch.ops import lstm as L
+    import torch
+    dev = resolve_device(None)
+    _build.build(["lstm_fwd", "lstm_bwd"])
+    g = torch.Generator(device=dev).manual_seed(12)
+    T, H = 160, 512
+    bwd = cs.bwd_problem(g, dev, T, 64, H, False)
+    bwd70 = cs.bwd_problem(g, dev, T, 70, H, False)
+    return {"digest_lstm_bwd": digest(L.lstm_layer_bwd(*bwd, False)),
+            "digest_lstm_bwd_B70": digest(L.lstm_layer_bwd(*bwd70, False)),
+            "lstm_bwd": cs.cuda_ms(lambda: L.lstm_layer_bwd(*bwd, False),
+                                   iters=20)}
 
 
 def time_checkout(root: Path) -> dict:
@@ -118,25 +143,36 @@ def time_checkout(root: Path) -> dict:
 
 
 def main(argv) -> int:
-    if len(argv) == 3 and argv[1] == "--time":
+    if len(argv) in (3, 4) and argv[1] == "--time":
         root = Path(argv[2]).resolve()
-        print("AB", root, json.dumps(time_checkout(root)), flush=True)
+        res = (time_lstm_bwd(root) if argv[3:] == ["lstm_bwd"]
+               else time_checkout(root))
+        print("AB", root, json.dumps(res), flush=True)
         return 0
-    if len(argv) != 2:
+    args = argv[1:]
+    only = []
+    if args[:1] == ["--only"]:
+        if args[1:2] != ["lstm_bwd"]:
+            print(__doc__, file=sys.stderr)
+            return 2
+        only, args = ["lstm_bwd"], args[2:]
+    if not args:
         print(__doc__, file=sys.stderr)
         return 2
-    other = Path(argv[1]).resolve()
-    if not (other / "chip_smoke.py").is_file():
-        print(f"chip_ab: {other} is not a checkout of this repo",
-              file=sys.stderr)
-        return 2
+    others = [Path(a).resolve() for a in args]
+    for other in others:
+        if not (other / "chip_smoke.py").is_file():
+            print(f"chip_ab: {other} is not a checkout of this repo",
+                  file=sys.stderr)
+            return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    for root in (other, HERE, HERE, other):
+    for root in (*others, HERE, HERE, *others[::-1]):
         res = subprocess.run([sys.executable, str(HERE / "chip_ab.py"),
-                              "--time", str(root)], cwd=root, timeout=900)
+                              "--time", str(root), *only], cwd=root,
+                             timeout=900)
         if res.returncode:
             return res.returncode
     return 0

@@ -54,7 +54,8 @@
 // s-1 -> recompute(s-1) -> loads of step s-1's gx, c and dh inputs ->
 // wait -> reduce(s), the dh and dc carries in registers. The partials'
 // stores drain behind dW's products in the pass, and the arrival after it
-// finds them done (arriving before dW stalled thread 0's warp on them).
+// finds them done (an arrival between the two would hold thread 0's warp
+// until they drained).
 // Two warp groups, the partials and the reduce on warps 0-3 beside dW and
 // the recompute on warps 4-7 (as K3-bwd runs), were slower: the partials
 // on four warps outlasted the rest. B > 64 runs the tiles in series with
