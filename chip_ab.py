@@ -6,12 +6,13 @@ NVIDIA card, in turns.
 
 runs OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT (with
 several, the others in order, this checkout twice, the others in reverse
-order), each in a fresh process that builds that checkout's kernels and times, with CUDA
-events after warm-up, K1-fwd (B=64 and 128), K1-bwd, K3/K4-fwd (In=128,
-512, 1024) and K3-bwd (In=512), K4-bwd (In=1024) at T=160, B=64, H=512,
-the MD_VAE eval step and the AMP and f32 VAE train steps at B=64, T=160,
-on inputs from fixed seeds, a digest of each kernel's outputs (K1-bwd also
-at the ragged B=70) and of each train step's first loss. Each run prints one line ``AB <root> <JSON of ms and
+order), each in a fresh process that builds that checkout's kernels and
+times, with CUDA events after warm-up, K1-fwd (B=64 and 128), K1-bwd,
+K3/K4-fwd (In=128, 512, 1024) and K3-bwd (In=512), K4-bwd (In=1024) at
+T=160, B=64, H=512, the MD_VAE eval step and the AMP and f32 VAE train
+steps at B=64, T=160, on inputs from fixed seeds, a digest of each
+kernel's outputs (K1-bwd also at the ragged B=70) and of each train
+step's first loss. Each run prints one line ``AB <root> <JSON of ms and
 digests>``; the card's name and power limit come first. It compares
 two versions of code that both checkouts have (a parent and its change):
 a change that may slow an earlier path is held against its parent here.

@@ -53,8 +53,6 @@ VARIANTS = {f"{src}_timeline{suffix}": (src, [TIMELINE_DEFINE, *flags])
 VARIANTS["lstm_bwd_timeline"] = ("lstm_bwd", [K1_BWD_TIMELINE_DEFINE])
 VARIANTS.update({f"{src}_timeline": (src, [FWD_TIMELINE_DEFINE])
                  for src in FWD_TIMED})
-TIMING_DEFINES = (TIMELINE_DEFINE, K1_BWD_TIMELINE_DEFINE,
-                  FWD_TIMELINE_DEFINE)
 
 
 def timeline_define(name: str) -> str:

@@ -33,9 +33,11 @@ trajectory of K1-fwd. Its phases, microseconds a step as above:
 ``partial_dw`` (one pass forming the split-K share of dh_{t-1} and dW),
 ``wait`` (in the grid barrier), ``reduce``, ``barrier`` (from the arrival
 to the end of the wait, with whatever runs between), ``loads`` (the next
-step's cell inputs) and ``step``. It prints one JSON line naming the card and its
-power limit, and exits non-zero when an output differs. It needs the card
-and raises without CUDA.
+step's cell inputs) and ``step``.
+
+It prints one JSON line naming the card and its power limit, and exits
+non-zero when an output differs. It needs the card and raises without
+CUDA.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ import torch
 from mlvae_tpu_torch import _build
 from mlvae_tpu_torch.device import resolve_device
 from mlvae_tpu_torch.ops import lstm as L
+from mlvae_tpu_torch.tools import bench_fwd_timeline as ftl
 
 # each phase as (start stamp, end stamp) of the timing build's seven: 0 the
 # step's start, 1 dgates done and arrived, 2 dW done, 3 the next step's
@@ -132,22 +135,6 @@ def phase_split(stamps: torch.Tensor) -> Dict[str, Dict[str, float]]:
     return out
 
 
-def k1_phase_split(tl: torch.Tensor) -> Dict[str, Dict[str, float]]:
-    """K1-bwd's ``tl`` (T, blocks, 10) int64 ns -> each phase's
-    microseconds a step (``K1_PHASES`` and ``step``, end less start): every
-    block's mean over the steps, then min, median and max over the
-    blocks."""
-    st = tl.to(torch.float64)
-    cols = {name: st[..., k] for name, k in K1_PHASES.items()}
-    cols["step"] = st[..., 1] - st[..., 0]
-    out = {}
-    for name, v in cols.items():
-        m = v.mean(dim=0) / 1e3                     # (blocks,) us a step
-        out[name] = {"min": float(m.min()), "median": float(m.median()),
-                     "max": float(m.max())}
-    return out
-
-
 def k1_bwd_smem_bytes(H: int) -> int:
     """Shared memory of a K1-bwd launch (``smem_bytes`` of
     ``csrc/lstm_bwd.cu``): the h_{t-1} tile of 64 rows in boxes of 32
@@ -217,7 +204,7 @@ def k1_rows(dev, iters: int):
             "bit_equal_to_normal_build": equal,
             "ms": ms, "us_a_step_total": ms * 1e3 / T,
             "ms_timing_build": cuda_ms(lambda: timed_k1(prob), iters),
-            "us_a_step": k1_phase_split(tl.cpu())})
+            "us_a_step": ftl.phase_split(tl.cpu(), K1_PHASES)})
     return rows
 
 

@@ -128,12 +128,15 @@ def fused_chunk_map(cols: int, rows: int, slices: int):
     return (cols, rows, slices), (2 * cols, 2 * cols * rows), (64, BT, 1)
 
 
-def phase_split(tl: torch.Tensor) -> Dict[str, Dict[str, float]]:
-    """``tl`` (T, blocks, 8) int64 ns -> each phase's microseconds a step
-    (``PHASES`` and ``step``, end less start): every block's mean over the
-    steps, then min, median and max over the blocks."""
+def phase_split(tl: torch.Tensor, phases: Dict[str, int] = PHASES
+                ) -> Dict[str, Dict[str, float]]:
+    """``tl`` (T, blocks, slots) int64 ns, slot 0 each step's start, 1 its
+    end and ``phases`` the slots of the phases' sums (this tool's
+    ``PHASES``, or K1-bwd's of ``bench_bwd_timeline``) -> each phase's
+    microseconds a step and ``step``, end less start: every block's mean
+    over the steps, then min, median and max over the blocks."""
     st = tl.to(torch.float64)
-    cols = {name: st[..., k] for name, k in PHASES.items()}
+    cols = {name: st[..., k] for name, k in phases.items()}
     cols["step"] = st[..., 1] - st[..., 0]
     out = {}
     for name, v in cols.items():

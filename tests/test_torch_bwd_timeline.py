@@ -10,12 +10,14 @@ import torch
 from mlvae_tpu_torch import _build
 from mlvae_tpu_torch.ops import lstm as L
 from mlvae_tpu_torch.tools import bench_bwd_timeline as btl
+from mlvae_tpu_torch.tools import bench_fwd_timeline as ftl
 
 
 @pytest.mark.parametrize("name", _build.SOURCES)
 def test_normal_builds_have_no_timing_define(name):
     assert _build.TIMELINE_DEFINE not in _build._flags(name)
-    assert not set(_build.TIMING_DEFINES) & set(_build._flags(name))
+    timing = {_build.timeline_define(v) for v in _build.VARIANTS}
+    assert len(timing) == 3 and not timing & set(_build._flags(name))
     assert _build.source_of(name) == name
 
 
@@ -99,7 +101,7 @@ def _k1_timeline(T=4, blocks=3):
 
 
 def test_k1_phase_split_reads_the_timeline():
-    split = btl.k1_phase_split(_k1_timeline())
+    split = ftl.phase_split(_k1_timeline(), btl.K1_PHASES)
     assert set(split) == {*btl.K1_PHASES, "step"}
     for name, us in (("stage", 1.0), ("recompute", 4.0), ("cell", 2.0),
                      ("partial_dw", 8.0), ("reduce", 1.5), ("loads", 0.25)):
@@ -117,7 +119,7 @@ def test_k1_phase_split_means_over_steps_then_blocks():
     tl = _k1_timeline(T=2, blocks=1)
     tl[1, 0, btl.K1_PHASES["stage"]] = 3000   # 1 us, then 3 us
     tl[0, 0, btl.K1_PHASES["partial_dw"]] = 0  # step 0: no pass
-    split = btl.k1_phase_split(tl)
+    split = ftl.phase_split(tl, btl.K1_PHASES)
     assert split["stage"]["median"] == pytest.approx(2.0)
     assert split["partial_dw"]["median"] == pytest.approx(4.0)
 
