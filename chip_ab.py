@@ -12,7 +12,9 @@ K3/K4-fwd (In=128, 512, 1024) and K3-bwd (In=512), K4-bwd (In=1024) at
 T=160, B=64, H=512, the MD_VAE eval step and the AMP and f32 VAE train
 steps at B=64, T=160, on inputs from fixed seeds, a digest of each
 kernel's outputs (K1-bwd also at the ragged B=70) and of each train
-step's first loss. Each run prints one line ``AB <root> <JSON of ms and
+step's first loss; and, in a checkout that has them, the wide K1-fwd and
+K1-bwd at H=1024 (digests at B=64, K1-bwd also at B=70, and times) and
+LSTM_FC's f32 train step (time, digest of its first loss). Each run prints one line ``AB <root> <JSON of ms and
 digests>``; the card's name and power limit come first. It compares
 two versions of code that both checkouts have (a parent and its change):
 a change that may slow an earlier path is held against its parent here.
@@ -71,8 +73,9 @@ def time_checkout(root: Path) -> dict:
     from mlvae_tpu_torch.ops import lstm as L
     import torch
     dev = resolve_device(None)
-    _build.build(["lstm_fwd", "lstm_bwd", "lstm_fused_fwd", "lstm_fused_bwd",
-                  "lstm_semi_bwd", "md_viterbi"])
+    _build.build([n for n in _build.SOURCES if n in (
+        "lstm_fwd", "lstm_bwd", "lstm_fused_fwd", "lstm_fused_bwd",
+        "lstm_semi_bwd", "md_viterbi", "lstm_fwd_wide", "lstm_bwd_wide")])
     g = torch.Generator(device=dev).manual_seed(11)
     T, B, H = 160, 64, 512
     gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
@@ -140,6 +143,41 @@ def time_checkout(root: Path) -> dict:
     out["f32_vae_step"] = cs.cuda_ms(
         lambda: f32.fit_batch(amp_batch, 3, noise=f32_noise), iters=5,
         warmup=1)
+    del f32
+    out.update(time_wide(cs, dev))
+    return out
+
+
+def time_wide(cs, dev) -> dict:
+    """The wide K1 builds (H=1024) and LSTM_FC's f32 train step in a
+    checkout that has them (none before they were added): digests of
+    K1-fwd's outputs at B=64 and of K1-bwd's at B=64 and 70, their times,
+    and the digest of the first train step's loss and that step's time."""
+    from mlvae_tpu_torch import bench_utils
+    from mlvae_tpu_torch.ops import lstm as L
+    import torch
+    if not hasattr(bench_utils, "build_lstm_fc"):
+        return {}
+    T, H = 160, 1024
+    g = torch.Generator(device=dev).manual_seed(13)
+    bwd = cs.bwd_problem(g, dev, T, 64, H, False)
+    bwd70 = cs.bwd_problem(g, dev, T, 70, H, False)
+    out = {"digest_lstm_fwd_wide": digest(L.lstm_layer_fwd(*bwd[:2])),
+           "digest_lstm_bwd_wide": digest(L.lstm_layer_bwd(*bwd, False)),
+           "digest_lstm_bwd_wide_B70": digest(L.lstm_layer_bwd(*bwd70,
+                                                               False)),
+           "lstm_fwd_wide": cs.cuda_ms(lambda: L.lstm_layer_fwd(*bwd[:2]),
+                                       iters=10),
+           "lstm_bwd_wide": cs.cuda_ms(lambda: L.lstm_layer_bwd(*bwd, False),
+                                       iters=5)}
+    model = bench_utils.build_lstm_fc(batch_size=64, seed=0, device=dev)
+    batch = bench_utils.synth_flvl_batch(64, T, seed=0, device=dev)
+    noise = cs.train_noise(model, 64, T, dev,
+                           torch.Generator(device=dev).manual_seed(6))
+    loss, _ = model.fit_batch(batch, 1, noise=noise)
+    out["digest_lstm_fc_loss"] = digest([torch.as_tensor(loss).reshape(1)])
+    out["lstm_fc_step"] = cs.cuda_ms(
+        lambda: model.fit_batch(batch, 1, noise=noise), iters=5, warmup=1)
     return out
 
 

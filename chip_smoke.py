@@ -7,7 +7,10 @@ Phases, each reported on its own line; any failure exits non-zero:
 
 1. the card and the kernel build (every ``mlvae_tpu_torch/csrc/*.cu``,
    compiled from this checkout, and the timing builds of K3-bwd, K4-bwd,
-   K1-fwd and K3/K4-fwd, one ``nvcc`` per build in parallel);
+   K1-fwd and K3/K4-fwd, one ``nvcc`` per build in parallel), and the
+   launch plan of the wide K1 builds (H above 528) at H=1024, 768 and 640
+   as their C code computes it (grid, threads, shared memory, blocks an SM
+   holds, registers) against ``ops.k1_plan``;
 2. each kernel against its plain PyTorch version on the card, at the
    slices' shapes (B=64, T=160, H=512; the fused kernels at In=128, 512
    and 1024 as the AMP step gives them; the filterbank K6 in its Kaldi
@@ -30,7 +33,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    ragged B (1, 63, 65, 70, 200), B=128 and 256, T=1 and T=2, K3/K4-fwd's
    serial schedule (B=320; In=4096), and 100 repeated launches per case
    and direction (K1-fwd at B=64 and 128, K3/K4-fwd at In=1024 B=64 and
-   In=512 B=256) each bit-equal to the first;
+   In=512 B=256) each bit-equal to the first; the wide K1-fwd and K1-bwd
+   (``lstm_fwd_wide``, ``lstm_bwd_wide``) at H=1024, B=64, T=160, at
+   H=768 and 640, ragged B (1, 63, 65, 70), B=128, T=1 and 2, both
+   directions, and 100 repeated launches of each per direction at
+   H=1024, B=64, each bit-equal to the first;
 3. MD_VAE at the recipe's full width (H=512, B=64, T=160, L=8, weights
    from a seed) through the kernels: the TEST-target eval step (finite
    losses, decoded boundaries that sum to each utterance's phoneme count,
@@ -58,7 +65,13 @@ Phases, each reported on its own line; any failure exits non-zero:
    card against the same step on the CPU; and the unroll A/B path
    (``mlvae_tpu_torch.tools.bench_lstm_unroll``) at B=128, T=160, H=512,
    In=512, K 2, 4, 8: every unrolled arm bit-equal to its twin, launch
-   counts exact;
+   counts exact; and LSTM_FC at full width (input 120, H=1024, 4 layers,
+   FC 1024-64-64-2, B=64, T=160, weights from seed 0,
+   ``bench_utils.build_lstm_fc``): the TEST eval step (4 wide K1-fwd
+   launches, logits and loss against the plain versions, frame-level MD
+   scores) and two f32 training steps (4 + 4 wide launches a step, the
+   first step's loss and grad norms against the plain versions, ``lstm``
+   and ``fc`` moved);
 4. times from CUDA events after warm-up: each kernel, its plain version,
    a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6),
    the eval step, the wav-in ``infer`` at B=1 (read and features, then
@@ -81,7 +94,10 @@ Phases, each reported on its own line; any failure exits non-zero:
    (``mlvae_tpu_torch.tools.bench_bwd_timeline``: microseconds a step of
    each phase, and the ablation without or with
    half of the copies' L2 traffic), and profiles of one eval, one wav-in
-   eval, one f32 and one AMP VAE train step and one f32 gate-3 step;
+   eval, one f32 and one AMP VAE train step and one f32 gate-3 step; the
+   wide K1-fwd and K1-bwd at H=1024 in turns with cuDNN's f32 layer, their
+   plain versions and bounds, LSTM_FC's eval and train steps (ms,
+   utt-sec/sec) and a profile of each;
 5. a ``kernels`` JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -184,9 +200,11 @@ NO_FBANK = {"fbank": 0}
 NO_GRU = {"gru_fwd": 0, "gru_bwd": 0}
 # K7a and K7b run on the unroll A/B path only (phase 3's last part)
 NO_UNROLL = {"lstm_unroll_fwd": 0, "lstm_unroll_fused_fwd": 0}
+# the wide K1 builds (H above 528) run on the LSTM_FC path only
+NO_WIDE = {"lstm_fwd_wide": 0, "lstm_bwd_wide": 0}
 PER_FORWARD = {"lstm_fwd": 10, "lstm_bwd": 0, "md_viterbi_lattice": 1,
                "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK, **NO_GRU,
-               **NO_UNROLL}
+               **NO_UNROLL, **NO_WIDE}
 # the wav-in forward adds one K6 launch (SpeechBrain mode) for the batch
 PER_WAV_FORWARD = {**PER_FORWARD, "fbank": 1}
 # kernel launches in one training step: each target's forward runs the
@@ -197,18 +215,18 @@ PER_WAV_FORWARD = {**PER_FORWARD, "fbank": 1}
 PER_TRAIN_STEP = {
     "PHN_RECOG": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi_lattice": 0,
                   "md_viterbi_backtrace": 0, **NO_FUSED, **NO_FBANK,
-                  **NO_GRU, **NO_UNROLL},
+                  **NO_GRU, **NO_UNROLL, **NO_WIDE},
     "B_DETECTOR": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi_lattice": 0,
                    "md_viterbi_backtrace": 0, **NO_FUSED, **NO_FBANK,
-                   **NO_GRU, **NO_UNROLL},
+                   **NO_GRU, **NO_UNROLL, **NO_WIDE},
     "VAE": {"lstm_fwd": 10, "lstm_bwd": 6, "md_viterbi_lattice": 1,
             "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK, **NO_GRU,
-            **NO_UNROLL},
+            **NO_UNROLL, **NO_WIDE},
 }
 # the same under AMP: every layer takes K3 or K4 and none K1; K4 only for
 # the decoder's In=1024 pair (K3-bwd: the rnn's 2 layers and decoder l0,
 # both directions)
-NO_K1 = {"lstm_fwd": 0, "lstm_bwd": 0}
+NO_K1 = {"lstm_fwd": 0, "lstm_bwd": 0, **NO_WIDE}
 PER_AMP_STEP = {
     "PHN_RECOG": {**NO_K1, **NO_FBANK, **NO_GRU, **NO_UNROLL,
                   "md_viterbi_lattice": 0, "md_viterbi_backtrace": 0,
@@ -226,6 +244,11 @@ PER_AMP_STEP = {
 # one gate-3 train step: K5-fwd for the encoder and the decoder's two
 # directions, K5-bwd for each of them; nothing else
 PER_GATE3_STEP = {**{k: 0 for k in PER_FORWARD}, "gru_fwd": 3, "gru_bwd": 3}
+# LSTM_FC (four f32 LSTM layers at H=1024): the wide K1-fwd once a layer in
+# the eval forward, and K1-fwd and K1-bwd once a layer in a train step
+PER_LSTM_FC_EVAL = {**{k: 0 for k in PER_FORWARD}, "lstm_fwd_wide": 4}
+PER_LSTM_FC_STEP = {**PER_LSTM_FC_EVAL, "lstm_bwd_wide": 4}
+LSTM_FC_ACTIVE = {"lstm", "fc"}
 ACTIVE = {
     "PHN_RECOG": {"phoneme_recognizer"},
     "B_DETECTOR": {"boundary_detector"},
@@ -496,6 +519,144 @@ def stress_lstm_bwd(dev, report, repeats):
     check(not wrong, f"lstm_bwd wrong in {len(wrong)} of {total} repeated "
           "launches")
     return worst
+
+
+# ---------------------------------------------------------------------------
+# the wide K1 builds (528 < H <= 1024): LSTM_FC's H=1024
+# ---------------------------------------------------------------------------
+
+WIDE_H = 1024         # LSTM_FC's LSTM
+# phase 2's cases of both wide kernels, (T, B, H): the main path's shape
+# first, the other widths the launch takes, ragged B on either side of a
+# 64-row tile, B=128 (two tiles), T=1 and T=2
+WIDE_CASES = ((160, 64, 1024), (33, 64, 768), (33, 64, 640), (9, 1, 1024),
+              (9, 63, 1024), (9, 65, 1024), (9, 70, 1024), (33, 128, 1024),
+              (1, 64, 1024), (2, 64, 1024))
+WIDE_REPEATS = 100    # phase 2's repeated launches per wide kernel and
+                      # direction at H=1024, B=64, T=160, each bit-equal to
+                      # the first
+
+
+def wide_plans(dev, report):
+    """Phase 1: the wide builds' launch plan as the C code computes it
+    (blocks, threads, shared memory, blocks an SM can hold, registers)
+    against ``ops.k1_plan``, each grid co-resident on this card."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    from mlvae_tpu_torch.ops.k1_plan import k1_bwd_plan, k1_fwd_plan
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for H in (1024, 768, 640):
+        for direction, plan_of in (("fwd", k1_fwd_plan), ("bwd", k1_bwd_plan)):
+            got = L.wide_plan(direction, H, 64)
+            want = plan_of(H, 64)
+            out[f"lstm_{direction}_wide H={H}"] = got
+            report(f"  plan lstm_{direction}_wide H={H} B=64: grid "
+                   f"{got['blocks']} x {got['threads']} threads, shared "
+                   f"memory {got['smem_bytes']} B, ring {got['ring']} chunks "
+                   f"of {got['chunk']} rows, {got['blocks_per_sm']} block(s) "
+                   f"an SM resident (occupancy), {got['registers']} "
+                   f"registers, {got['local_bytes']} B local a thread; "
+                   f"{sms} SMs")
+            check(want.variant == "wide" and
+                  (got["blocks"], got["threads"], got["smem_bytes"],
+                   got["ring"]) == (want.blocks, want.threads,
+                                    want.smem_bytes, want.ring),
+                  f"lstm_{direction}_wide plan {got} != {want}")
+            check(got["blocks_per_sm"] >= 1 and
+                  got["blocks"] <= got["blocks_per_sm"] * sms,
+                  f"lstm_{direction}_wide H={H}: the grid cannot be "
+                  "co-resident")
+    return out
+
+
+def check_lstm_wide(dev, report):
+    """Both wide kernels against their plain versions on ``WIDE_CASES``,
+    both directions; returns each one's worst error at the main shape."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    g = torch.Generator(device=dev).manual_seed(41)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for T, B, H in WIDE_CASES:
+        check(L.k1_fwd_plan(H, B).variant == "wide", f"H={H} is not wide")
+        for reverse in (False, True):
+            gx, w, hs_r, cs_r, dhs, dc_last = bwd_problem(g, dev, T, B, H,
+                                                          reverse)
+            hs_k, cs_k = L.lstm_layer_fwd(gx, w, reverse)
+            torch.cuda.synchronize()
+            err = max(max_err(hs_k, hs_r), max_err(cs_k, cs_r))
+            report(f"  lstm_fwd_wide T={T} B={B} H={H} reverse={reverse}: "
+                   f"max_abs_err {err:.3e} (tol {LSTM_ATOL:g})")
+            if err > LSTM_ATOL:
+                report("  " + where_wrong(torch.maximum(
+                    (hs_k - hs_r).abs(), (cs_k - cs_r).abs()), reverse)
+                    + " (eight units a block)")
+            check(err <= LSTM_ATOL, f"lstm_fwd_wide disagrees: {err}")
+            prob = (gx, w, hs_r, cs_r, dhs, dc_last)
+            got = L.lstm_layer_bwd(*prob, reverse)
+            want = L.lstm_layer_bwd_ref(*prob, reverse)
+            torch.cuda.synchronize()
+            dgx_err, dw_err = bwd_errors(got, want)
+            report(f"  lstm_bwd_wide T={T} B={B} H={H} reverse={reverse}: "
+                   f"dgx max_abs_err {dgx_err:.3e} (tol {LSTM_ATOL:g}), "
+                   f"dW_hh max rel err {dw_err:.3e} (tol {BWD_RTOL:g})")
+            if dgx_err > LSTM_ATOL:
+                report("  " + where_wrong_bwd((got[0] - want[0]).abs(),
+                                              reverse))
+            check(dgx_err <= LSTM_ATOL and dw_err <= BWD_RTOL,
+                  f"lstm_bwd_wide disagrees: dgx {dgx_err}, dW {dw_err}")
+            if (T, B, H) == WIDE_CASES[0]:
+                worst["fwd"] = max(worst["fwd"], err)
+                worst["bwd"] = max(worst["bwd"], dgx_err)
+    return worst
+
+
+def stress_lstm_wide(dev, report, repeats=WIDE_REPEATS, T=160, B=64,
+                     H=WIDE_H):
+    """Repeated launches of both wide kernels at LSTM_FC's shape, back to
+    back, each against the plain version and bit-equal to the first launch
+    on its inputs (the cp.async ring and the grid barrier are an ordering a
+    race would break)."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    g = torch.Generator(device=dev).manual_seed(42)
+    n_inputs = 4
+    total, wrong = {"fwd": 0, "bwd": 0}, []
+    for reverse in (False, True):
+        for i in range(n_inputs):
+            prob = bwd_problem(g, dev, T, B, H, reverse)
+            gx, w, hs_r, cs_r = prob[:4]
+            dgx_r, dw_r = L.lstm_layer_bwd_ref(*prob, reverse)
+            scale = dw_r.abs().max()
+            first_f = L.lstm_layer_fwd(gx, w, reverse)
+            first_b = L.lstm_layer_bwd(*prob, reverse)
+            errs = []
+            for _ in range(-(-repeats // n_inputs)):
+                hs_k, cs_k = L.lstm_layer_fwd(gx, w, reverse)
+                dgx_k, dw_k = L.lstm_layer_bwd(*prob, reverse)
+                errs.append((torch.stack([
+                    torch.maximum((hs_k - hs_r).abs().max(),
+                                  (cs_k - cs_r).abs().max()),
+                    (dgx_k - dgx_r).abs().max(),
+                    (dw_k - dw_r).abs().max() / scale]),
+                    bit_equal((hs_k, cs_k), first_f),
+                    bit_equal((dgx_k, dw_k), first_b)))
+            for j, (e, same_f, same_b) in enumerate(errs):
+                e_f, e_dgx, e_dw = e.tolist()
+                total["fwd"] += 1
+                total["bwd"] += 1
+                if (e_f > LSTM_ATOL or e_dgx > LSTM_ATOL or e_dw > BWD_RTOL
+                        or not same_f or not same_b):
+                    wrong.append((reverse, i, j, e_f, e_dgx, e_dw, same_f,
+                                  same_b))
+    report(f"  wide repeated: {total['fwd']} lstm_fwd_wide and "
+           f"{total['bwd']} lstm_bwd_wide launches at T={T} B={B} H={H}, "
+           f"both directions, against the plain versions and the first "
+           f"launch on each input: {len(wrong)} wrong"
+           + (f"; (reverse, input, launch, fwd err, dgx err, dW err, "
+              f"fwd bit-equal, bwd bit-equal): {wrong[:8]}" if wrong else ""))
+    check(not wrong, f"a wide kernel was wrong in {len(wrong)} repeated "
+          "launches")
 
 
 def fused_problem(g, dev, T, B, In, H):
@@ -1578,6 +1739,106 @@ def run_training(dev, report, B=64, T=160, L=8, amp=False):
     return model, batch, first_noise, total
 
 
+def run_lstm_fc(dev, report, B=64, T=160):
+    """LSTM_FC at full width through the wide kernels: the TEST eval step
+    (launches, finite loss, logits and loss against the same forward
+    through the plain versions, frame-level MD scores) and two f32
+    training steps (launches, finite losses, the modules that moved, the
+    first step's loss and applied grad norms against the same step through
+    the plain versions). Returns the model, the batch, the first step's
+    draws and the launches of the eval and the two steps."""
+    import numpy as np
+    import torch
+    from mlvae_tpu_torch.bench_utils import build_lstm_fc, synth_flvl_batch
+
+    model = build_lstm_fc(batch_size=B, seed=0, device=dev)
+    batch = synth_flvl_batch(B, T, seed=0, device=dev)
+    total = {k: 0 for k in launches()}
+
+    reset_launches()
+    preds, loss, _ = model.eval_step(batch)
+    torch.cuda.synchronize()
+    counts = launches()
+    for k in total:
+        total[k] += counts[k]
+    report(f"  eval step: loss {float(loss):.6f}; logits "
+           f"{tuple(preds['out'].shape)}; launches {counts}")
+    check(counts == PER_LSTM_FC_EVAL,
+          f"LSTM_FC eval launches {counts} != {PER_LSTM_FC_EVAL}")
+    check(np.isfinite(float(loss)) and
+          bool(torch.isfinite(preds["out"]).all()), "non-finite eval")
+    with twins():
+        reset_launches()
+        ref, ref_loss, _ = model.eval_step(batch)
+        torch.cuda.synchronize()
+        check(sum(launches().values()) == 0, "the plain run hit a kernel")
+    out_err = max_err(preds["out"], ref["out"])
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    report(f"  against the plain versions: logits max abs err "
+           f"{out_err:.3e} (tol {FWD_ATOL:g}); loss rel err {loss_rel:.3e} "
+           f"(tol {LOSS_RTOL:g})")
+    check(out_err <= FWD_ATOL and loss_rel <= LOSS_RTOL,
+          "LSTM_FC eval disagrees with the plain versions")
+    model.evaluate_predictions(preds, batch)
+    scores = model.stats_loggers["flvl_md_stats"].summarize()
+    report(f"  frame-level MD scores (MDMetricStats, random weights): "
+           f"{scores}")
+    check(set(scores) == {"ACC", "PRE", "REC", "F1"} and
+          all(0.0 <= v <= 100.0 for v in scores.values()),
+          f"MD scores {scores}")
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    first_noise = None
+    for step in range(2):
+        noise = train_noise(model, B, T, dev, g)
+        if step == 0:
+            first_noise = noise
+            start = snapshot(model)
+            with twins():
+                reset_launches()
+                ref_loss, _ = model.fit_batch(batch, 1, noise=noise)
+                ref_norms = grad_norms(model)
+                torch.cuda.synchronize()
+                check(sum(launches().values()) == 0,
+                      "the plain training step hit a kernel")
+            restore(model, start)
+        weights = {k: v.clone() for k, v in model.state_dict().items()}
+        reset_launches()
+        loss, _ = model.fit_batch(batch, 1, noise=noise)
+        torch.cuda.synchronize()
+        counts = launches()
+        for k in total:
+            total[k] += counts[k]
+        moved = {mk for mk, mod in model.param_modules().items()
+                 if any(not torch.equal(v, weights[f"{mk}.{n}"])
+                        for n, v in mod.state_dict().items())}
+        report(f"  train step {step + 1}: loss {float(loss):.6f}; launches "
+               f"{counts}; modules moved {sorted(moved)}")
+        check(np.isfinite(float(loss)), "non-finite LSTM_FC loss")
+        check(counts == PER_LSTM_FC_STEP,
+              f"LSTM_FC step launches {counts} != {PER_LSTM_FC_STEP}")
+        check(moved == LSTM_FC_ACTIVE, f"moved {sorted(moved)}")
+        check(f32_state(model), "a parameter, grad or state is not f32")
+        check(torch.equal(model.normalizer.count,
+                          torch.zeros((), device=dev)),
+              "LSTM_FC's normalizer moved")
+        if step == 0:
+            norms = grad_norms(model)
+            loss_rel = abs(float(loss) - float(ref_loss)) / abs(
+                float(ref_loss))
+            norm_rel = {mk: abs(v - ref_norms[mk]) / ref_norms[mk]
+                        for mk, v in norms.items()}
+            report(f"  against the plain versions: loss rel err "
+                   f"{loss_rel:.3e} (tol {LOSS_RTOL:g}); grad norm rel err "
+                   + ", ".join(f"{mk} {v:.3e}" for mk, v in norm_rel.items())
+                   + f" (tol {GRAD_RTOL:g})")
+            check(loss_rel <= LOSS_RTOL, "LSTM_FC training loss disagrees")
+            check(max(norm_rel.values()) <= GRAD_RTOL,
+                  "LSTM_FC training grads disagree")
+    report(f"  launches in the eval and the two training steps: {total}")
+    return model, batch, first_noise, total
+
+
 def gate_noise(gate, batch, g):
     """One step's standard normal draws, from ``g`` on its device."""
     import torch
@@ -2227,6 +2488,68 @@ def time_amp_vae(dev, report, B=256, T=160, L=8):
     return out
 
 
+def time_lstm_fc(dev, report, model, batch, first_noise, errs, counts):
+    """Phase 4 for LSTM_FC: both wide kernels at H=1024, B=64, T=160 in
+    turns with cuDNN's f32 layer (forward; forward and backward less
+    forward) and its profiled kernels, their plain versions and bounds; the
+    eval step and the f32 train step (ms, utt-sec/sec) and a profile of
+    each. Returns the kernels' rows and the steps' numbers."""
+    import torch
+    from mlvae_tpu_torch.ops.lstm import lstm_layer_bwd_ref, lstm_layer_ref
+    T, B, H = 160, 64, WIDE_H
+    fwd = time_fwd_yard(dev, report, (("lstm_fwd", None, B),), T=T, H=H)
+    bwd = time_fused_bwd(dev, report, T=T, H=H,
+                         cases=(("lstm_bwd", None, B),))
+    g = torch.Generator(device=dev).manual_seed(43)
+    prob = bwd_problem(g, dev, T, B, H, False)
+    fwd_plain = cuda_ms(lambda: lstm_layer_ref(*prob[:2]), iters=3, warmup=1)
+    bwd_plain = cuda_ms(lambda: lstm_layer_bwd_ref(*prob), iters=2, warmup=1)
+    f_bound, f_by = lstm_bound(T, B, H)
+    b_bound, b_by = lstm_bwd_bound(T, B, H)
+    f_row, b_row = fwd[f"lstm_fwd B={B}"], bwd[f"lstm_bwd B={B}"]
+    report(f"  lstm_fwd_wide H={H}: {f_row['ms']:.4f} ms (plain "
+           f"{fwd_plain:.4f}, cuDNN f32 layer with its input projection in "
+           f"turns {f_row['cudnn_ms']:.4f}, its kernels alone "
+           f"{f_row['cudnn_kernels_ms']:.4f}, bound {f_bound:.4f} by {f_by})")
+    report(f"  lstm_bwd_wide H={H}: {b_row['ms']:.4f} ms (plain "
+           f"{bwd_plain:.4f}, cuDNN f32 backward in turns "
+           f"{b_row['cudnn_ms']:.4f}, its kernels alone "
+           f"{b_row['cudnn_kernels_ms']:.4f}, bound {b_bound:.4f} by {b_by})")
+
+    Bm, Tm = batch["feat"][0].shape[:2]
+    ev = cuda_ms(lambda: model.eval_step(batch), iters=10)
+    tr = cuda_ms(lambda: model.fit_batch(batch, 1, noise=first_noise),
+                 iters=5, warmup=1)
+    steps = {"eval_ms": ev, "eval_utt_sec_per_sec": Bm * Tm * HOP_SEC
+             / (ev / 1e3), "train_ms": tr,
+             "train_utt_sec_per_sec": Bm * Tm * HOP_SEC / (tr / 1e3)}
+    report(f"  LSTM_FC eval step B={Bm} T={Tm}: {ev:.3f} ms "
+           f"({steps['eval_utt_sec_per_sec']:.1f} utt-sec/sec); f32 train "
+           f"step {tr:.3f} ms ({steps['train_utt_sec_per_sec']:.1f} "
+           "utt-sec/sec)")
+    steps["eval_profile"] = profile_step(lambda: model.eval_step(batch),
+                                         "LSTM_FC eval step", report)
+    steps["train_profile"] = profile_step(
+        lambda: model.fit_batch(batch, 1, noise=first_noise),
+        "LSTM_FC f32 train step", report)
+    kernels = [
+        dict(name="lstm_fwd_wide", route="cuda",
+             source="mlvae_tpu_torch/csrc/lstm_fwd_wide.cu",
+             replaces="mlvae_tpu/ops/lstm_pallas.py:87",
+             max_abs_err=errs["lstm_wide"]["fwd"], ms=f_row["ms"],
+             plain_ms=fwd_plain, bound_ms=f_bound, bound_by=f_by,
+             library_ms=f_row["cudnn_ms"], interleaved=fwd,
+             **counts["lstm_fwd_wide"]),
+        dict(name="lstm_bwd_wide", route="cuda",
+             source="mlvae_tpu_torch/csrc/lstm_bwd_wide.cu",
+             replaces="mlvae_tpu/ops/lstm_pallas.py:115",
+             max_abs_err=errs["lstm_wide"]["bwd"], ms=b_row["ms"],
+             plain_ms=bwd_plain, bound_ms=b_bound, bound_by=b_by,
+             library_ms=b_row["cudnn_ms"], interleaved=bwd,
+             **counts["lstm_bwd_wide"])]
+    return kernels, steps
+
+
 def gru_fwd_bound(T, B, H, bf16):
     """The recurrent product per step at the stream dtype's peak (f32 on
     the CUDA cores, bf16 on the tensor cores), against gx, W_hh, b_hh read
@@ -2601,11 +2924,13 @@ def profile_step(fn, label, report):
             rows.append((dev_us, ev.count, ev.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
+    idle = max(0.0, 1 - total / 1e3 / wall_ms)
     report(f"  profile of one {label}: wall {wall_ms:.3f} ms, kernel time "
-           f"{total / 1e3:.3f} ms (idle share "
-           f"{max(0.0, 1 - total / 1e3 / wall_ms):.3f}); "
+           f"{total / 1e3:.3f} ms (idle share {idle:.3f}); "
            + "; ".join(f"{k[:48]} x{n} {us / 1e3:.3f} ms"
                        for us, n, k in rows[:8]))
+    return {"wall_ms": wall_ms, "kernel_ms": total / 1e3, "idle_share": idle,
+            "top": [[k, n, us / 1e3] for us, n, k in rows[:8]]}
 
 
 def main(argv=None) -> int:
@@ -2653,6 +2978,7 @@ def main(argv=None) -> int:
         usage = [ln.strip() for ln in log.splitlines() if "registers" in ln
                  or "spill" in ln]
         report(f"  ptxas {src}: " + " | ".join(usage))
+    plans = wide_plans(dev, report)
 
     report("phase 2 kernels against their plain versions on the card")
     errs = {"lstm": max(check_lstm(dev, report),
@@ -2660,6 +2986,8 @@ def main(argv=None) -> int:
     errs["lstm_bwd"] = max(check_lstm_bwd(dev, report),
                            stress_lstm_bwd(dev, report,
                                            args.lstm_bwd_repeats))
+    errs["lstm_wide"] = check_lstm_wide(dev, report)
+    stress_lstm_wide(dev, report)
     prob, errs_viterbi = check_viterbi(dev, report)
     errs.update(errs_viterbi)
     errs["lstm_fused_fwd"] = check_fused_fwd(dev, report)
@@ -2698,19 +3026,24 @@ def main(argv=None) -> int:
     report("phase 3 the unroll A/B path (K7a, K7b against K1-fwd and "
            "K3/K4-fwd) at B=128, T=160, H=512, In=512, K 2, 4, 8")
     unroll_res, unroll_counts = run_unroll(dev, report)
+    report(f"phase 3 LSTM_FC at full width (input 120, H={WIDE_H}, 4 layers, "
+           "FC 1024-64-64-2, B=64, T=160): the TEST eval step and two f32 "
+           "training steps")
+    fc_model, fc_batch, fc_noise, fc_counts = run_lstm_fc(dev, report)
     # the paths' launches: the eval forward's, the wav-in path's, the six
-    # f32 and six AMP MD_VAE train steps', the four gate-3 steps' and the
-    # unroll path's
+    # f32 and six AMP MD_VAE train steps', the four gate-3 steps', the
+    # unroll path's and LSTM_FC's eval and two train steps'
     counts = {k: {"launches": eval_counts[k] + wav_counts[k]
                   + train_counts[k] + amp_counts[k] + gate_counts[k]
-                  + amp_gate_counts[k] + unroll_counts[k],
+                  + amp_gate_counts[k] + unroll_counts[k] + fc_counts[k],
                   "launches_eval_step": eval_counts[k],
                   "launches_wav_in": wav_counts[k],
                   "launches_training": train_counts[k],
                   "launches_amp_training": amp_counts[k],
                   "launches_gate3": gate_counts[k],
                   "launches_amp_gate3": amp_gate_counts[k],
-                  "launches_unroll": unroll_counts[k]}
+                  "launches_unroll": unroll_counts[k],
+                  "launches_lstm_fc": fc_counts[k]}
               for k in eval_counts}
     check(all(c["launches"] > 0 for c in counts.values()),
           f"a kernel of the path never launched: {counts}")
@@ -2738,7 +3071,13 @@ def main(argv=None) -> int:
                                     gate_noise_, "f32"),
                   "amp": time_gate3(dev, report, amp_gate, amp_gate_batch,
                                     amp_gate_noise, "AMP")}
+    del gate, amp_gate
+    fc_kernels, lstm_fc = time_lstm_fc(dev, report, fc_model, fc_batch,
+                                       fc_noise, errs, counts)
+    kernels += fc_kernels
+    lstm_fc["plans"] = plans
     report(json.dumps({"kernels": kernels, "eval_step": step,
+                       "lstm_fc": lstm_fc,
                        "wav_in": wav_in, "train_step": train_step,
                        "amp_train_step": amp_step,
                        "gate3_train_step": gate3_step,

@@ -5,7 +5,10 @@ The widths are the recipe's, copied from
 ``mlvae_tpu/models/MD_VAE/model.yaml``, with its Adam at ``lr``;
 ``overrides`` changes any of them (narrow widths for the CPU tests).
 ``synth_batch`` draws the same numpy values as the JAX package's
-``synth_batch`` for the same arguments. ``synth_wave`` and
+``synth_batch`` for the same arguments. ``build_lstm_fc`` builds the
+LSTM_FC recipe (``LSTM_FC_RECIPE``, from
+``mlvae_tpu/models/LSTM_FC/model.yaml``) and ``synth_flvl_batch`` its
+frame-level batches. ``synth_wave`` and
 ``synth_wav_batch`` make audio for the wav front end: tones plus noise, as
 ``tests/test_fbank_pallas.py`` makes them.
 
@@ -27,6 +30,7 @@ from torch import nn
 from torch.func import functional_call
 
 from mlvae_tpu_torch.device import resolve_device
+from mlvae_tpu_torch.models.LSTM_FC.model import LSTMFC
 from mlvae_tpu_torch.models.MD_VAE.model import MDVAE
 from mlvae_tpu_torch.modules.conv_vae import ConvVAE
 from mlvae_tpu_torch.modules.grouped_vae import GroupedLatentVAE, group_elbo
@@ -127,6 +131,63 @@ def synth_batch(batch_size: int = 8, T: int = 160, L: int = 8,
         "plvl_gt_md_lbl_seq": (t(md), t(cnncl_lens)),
         "prior": (t(prior_b), t(cnncl_lens)),
     }
+
+
+# LSTM_FC at the widths of mlvae_tpu/models/LSTM_FC/model.yaml: fbank with
+# deltas in, a 4-layer f32 LSTM at H=1024 with dropout 0.1 between layers,
+# FCBlock [1024, 64, 64, 2], BCE with the mispronunciation logit weighted
+# 10, Adam at the recipe's lr 1.0
+LSTM_FC_RECIPE = {
+    "input_size": INPUT_SIZE,
+    "lstm_hidden_size": 1024,
+    "lstm_num_layers": 4,
+    "lstm_dropout": 0.1,
+    "fc_sizes": [1024, 64, 64, 2],
+    "misp_weight": 10,
+    "lr": 1.0,
+}
+
+
+def build_lstm_fc(batch_size: int = 8, overrides=None, seed: int = 0,
+                  device=None) -> LSTMFC:
+    """LSTM_FC at ``LSTM_FC_RECIPE``'s widths with weights drawn from
+    ``seed`` on ``device`` (None means CUDA), its optimizer states
+    initialised. ``overrides`` changes any width (``fc_sizes[0]`` must be
+    ``lstm_hidden_size``)."""
+    dev = resolve_device(device)
+    hparams = dict(LSTM_FC_RECIPE, batch_size=batch_size)
+    hparams.update(overrides or {})
+    hparams.setdefault("optimizer", Adam(lr=hparams["lr"]))
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    model = LSTMFC(hparams, generator=gen).to(dev).eval()
+    model.init_optimizers()
+    return model
+
+
+MISP_RATE = 0.2   # the share of frames labelled mispronounced
+
+
+def synth_flvl_batch(batch_size: int = 8, T: int = 160, seed: int = 0,
+                     device=None) -> Dict[str, Tuple]:
+    """A synthetic LSTM_FC batch on ``device``: ``feat`` (B, T, 120) and its
+    augmented twin ``aug_feat`` (the same plus noise at 0.1), and the
+    frame-level MD labels ``flvl_gt_md_lbl_seq`` and
+    ``aug_flvl_gt_md_lbl_seq`` (B, T), 1 on ``MISP_RATE`` of the frames,
+    every one with ``synth_batch``'s relative lengths (1.0 down to 0.8)."""
+    dev = resolve_device(device)
+    rs = np.random.RandomState(seed)
+    feats = rs.randn(batch_size, T, INPUT_SIZE).astype(np.float32)
+    aug = (feats + 0.1 * rs.randn(batch_size, T, INPUT_SIZE)).astype(
+        np.float32)
+    lens = np.linspace(1.0, 0.8, batch_size).astype(np.float32)
+    md = (rs.rand(batch_size, T) < MISP_RATE).astype(np.int64)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    return {"feat": (t(feats), t(lens)), "aug_feat": (t(aug), t(lens)),
+            "flvl_gt_md_lbl_seq": (t(md), t(lens)),
+            "aug_flvl_gt_md_lbl_seq": (t(md.copy()), t(lens))}
 
 
 def synth_wave(n: int, seed: int = 0, scale: float = 8000.0,

@@ -1,0 +1,132 @@
+"""The supervised frame-level MD classifier LSTM_FC (counterpart of
+``mlvae_tpu/models/LSTM_FC/model.py`` ``SBModel``): an LSTM and an
+``FCBlock`` give two logits a frame, trained with a class-weighted BCE
+against the frame-level MD labels and scored with frame-level MD metrics.
+
+TRAIN reads the augmented features and labels (``aug_feat``,
+``aug_flvl_gt_md_lbl_seq``), every other stage the clean ones (``feat``,
+``flvl_gt_md_lbl_seq``). The model keeps a ``normalizer`` whose statistics
+travel with its checkpoints, and, as the JAX recipe, never applies it.
+The BCE puts ``misp_weight`` on the second (mispronunciation) logit and is
+the log-sigmoid form, finite at any logit, masked by the relative lengths.
+
+At f32 every LSTM layer runs K1 (``ops.lstm.LSTMRecurrence``): at the
+recipe's H=1024 the wide K1-fwd and K1-bwd. The training step's only
+draws are the LSTM's dropout keep-masks, one (T, B, H) mask a gap between
+layers (``draws``).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mlvae_tpu_torch.metrics.md import MDMetricStats
+from mlvae_tpu_torch.models.md_model import MDModel
+from mlvae_tpu_torch.modules.fc_block import FCBlock
+from mlvae_tpu_torch.nn.norm import InputNormalization
+from mlvae_tpu_torch.nn.rnn import LSTM
+from mlvae_tpu_torch.training.brain import Stage
+from mlvae_tpu_torch.utils.tensor import apply_lens_to_loss, undo_padding
+
+
+def weighted_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                             pos_weight: torch.Tensor) -> torch.Tensor:
+    """-[pw * y * log s(x) + (1 - y) * log(1 - s(x))], elementwise, in the
+    log-sigmoid form of ``_weighted_bce_with_logits``."""
+    log_sig = -F.softplus(-logits)        # log sigmoid(x)
+    log_one_minus = -F.softplus(logits)   # log(1 - sigmoid(x))
+    return -(pos_weight * targets * log_sig + (1 - targets) * log_one_minus)
+
+
+class LSTMFC(MDModel):
+    # what the host-side evaluation reads (JAX SBModel.EVAL_PRED_KEYS)
+    EVAL_PRED_KEYS = frozenset({"out"})
+
+    def __init__(self, hparams: Dict,
+                 generator: Optional[torch.Generator] = None, device=None,
+                 run_opts: Optional[Dict] = None):
+        super().__init__(hparams, run_opts)
+        h = self.hparams
+        kw = dict(generator=generator, device=device)
+        self.stage = Stage.TEST
+        self.stats_loggers: Dict = {}
+        self.normalizer = InputNormalization(h["input_size"], device=device)
+        self.lstm = LSTM(h["input_size"], h["lstm_hidden_size"],
+                         h["lstm_num_layers"], dropout=h["lstm_dropout"],
+                         **kw)
+        self.fc = FCBlock(h["fc_sizes"], **kw)
+
+    def on_stage_start(self, stage: Stage, epoch: Optional[int] = None):
+        self.stage = stage
+        self.stats_loggers = {"flvl_md_stats": MDMetricStats()}
+
+    def _keys(self, train: bool) -> Tuple[str, str]:
+        return (("aug_feat", "aug_flvl_gt_md_lbl_seq") if train
+                else ("feat", "flvl_gt_md_lbl_seq"))
+
+    def draws(self, B: int, T: int, train: bool = False
+              ) -> List[Tuple[str, str, tuple, Optional[float],
+                              torch.dtype]]:
+        """The draws of one forward, in the JAX package's RngStream order:
+        (name, kind, shape, keep probability, dtype), as ``MDVAE.draws``
+        lists them. Only a training forward draws: the LSTM's keep-masks."""
+        if not train:
+            return []
+        return [("lstm_dropout", "bernoulli", s, 1.0 - self.lstm.dropout,
+                 torch.float32) for s in self.lstm.dropout_shapes(B, T)]
+
+    def compute_forward(self, batch: Dict, noise: Optional[Dict] = None,
+                        generator: Optional[torch.Generator] = None,
+                        train: bool = False, epoch: int = 1):
+        """Logits (B, T, 2) under ``out``. ``train`` reads ``aug_feat``,
+        applies dropout (``noise["lstm_dropout"]``, else drawn from
+        ``generator``) and builds the graph; otherwise no graph is built."""
+        feats = batch[self._keys(train)[0]][0]
+        with contextlib.nullcontext() if train else torch.no_grad():
+            out, _ = self.lstm(feats, train=train, generator=generator,
+                               masks=(noise or {}).get("lstm_dropout"))
+            return {"out": self.fc(out)}
+
+    def compute_objectives(self, predictions: Dict, batch: Dict):
+        """The masked class-weighted BCE of the current stage's labels."""
+        out = predictions["out"]
+        feat_key, lbl_key = self._keys(self.stage == Stage.TRAIN)
+        md = batch[lbl_key][0].to(out.dtype)
+        targets = torch.stack([1 - md, md], dim=-1)
+        pos_weight = torch.tensor([1.0, float(self.hparams["misp_weight"])],
+                                  dtype=out.dtype, device=out.device)
+        loss = apply_lens_to_loss(
+            weighted_bce_with_logits(out, targets, pos_weight),
+            batch[feat_key][1])
+        return loss, {}
+
+    @torch.no_grad()
+    def eval_step(self, batch: Dict, noise: Optional[Dict] = None,
+                  generator: Optional[torch.Generator] = None):
+        """One TEST eval step, as the JAX package's jitted eval step returns
+        it: (predictions restricted to ``EVAL_PRED_KEYS``, loss, per-key
+        losses)."""
+        self.on_stage_start(Stage.TEST)
+        preds = self.compute_forward(batch, noise=noise, generator=generator)
+        loss, losses = self.compute_objectives(preds, batch)
+        return ({k: v for k, v in preds.items() if k in self.EVAL_PRED_KEYS},
+                loss, losses)
+
+    def evaluate_predictions(self, predictions: Dict, batch: Dict,
+                             ids=None) -> None:
+        """Host side: each frame's argmax against the clean frame labels,
+        both trimmed to their lengths, into ``flvl_md_stats``. ``ids``
+        name the utterances (row numbers by default)."""
+        out = predictions["out"].detach().float().cpu().numpy()
+        feat_lens = batch["feat"][1].cpu().numpy()
+        md, md_lens = (x.cpu().numpy() for x in batch["flvl_gt_md_lbl_seq"])
+        pred = undo_padding(out.argmax(-1), feat_lens)
+        gt = undo_padding(np.asarray(md), md_lens)
+        self.stats_loggers["flvl_md_stats"].append(
+            list(range(len(pred))) if ids is None else list(ids),
+            pred_md_lbl_seqs=[list(p) for p in pred],
+            gt_md_lbl_seqs=[list(g) for g in gt])

@@ -7,10 +7,12 @@ Two families, as in ``mlvae_tpu/ops/lstm_pallas.py``:
   and the ``lstm_layer`` custom VJP), the f32 path: the input projection
   ``x @ W_ih^T + b`` stays outside (a plain ``torch.matmul``), and the
   recurrence ``gates = gx[t] + h_{t-1} @ W_hh^T`` runs here.
-  ``lstm_layer_fwd`` / ``lstm_layer_bwd`` run ``csrc/lstm_fwd.cu`` /
-  ``csrc/lstm_bwd.cu`` for CUDA tensors and ``lstm_layer_ref`` /
-  ``lstm_layer_bwd_ref`` for CPU tensors only; ``LSTMRecurrence`` joins
-  them.
+  ``lstm_layer_fwd`` / ``lstm_layer_bwd`` run, for CUDA tensors, the
+  build that ``ops.k1_plan`` picks for H: ``csrc/lstm_fwd.cu`` /
+  ``csrc/lstm_bwd.cu`` up to H=528, ``csrc/lstm_fwd_wide.cu`` /
+  ``csrc/lstm_bwd_wide.cu`` above it up to H=1024 (a wider H is refused),
+  and ``lstm_layer_ref`` / ``lstm_layer_bwd_ref`` for CPU tensors only;
+  ``LSTMRecurrence`` joins them.
 - **Fused input projection** (K3/K4-fwd, K3-bwd, K4-bwd;
   ``_run_fwd_fused``, ``_run_bwd_fused``, ``_run_bwd_semi`` and the
   ``lstm_layer_fused`` / ``lstm_layer_semifused`` custom VJPs), the bf16
@@ -32,6 +34,7 @@ import ctypes
 import torch
 
 from mlvae_tpu_torch import _build
+from mlvae_tpu_torch.ops.k1_plan import K1Plan, k1_bwd_plan, k1_fwd_plan
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +45,12 @@ LSTM_FWD = _build.register(_build.Kernel(
 LSTM_BWD = _build.register(_build.Kernel(
     "lstm_bwd", "lstm_bwd", "mlvae_lstm_bwd",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]))
+LSTM_FWD_WIDE = _build.register(_build.Kernel(
+    "lstm_fwd_wide", "lstm_fwd_wide", "mlvae_lstm_fwd_wide",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]))
+LSTM_BWD_WIDE = _build.register(_build.Kernel(
+    "lstm_bwd_wide", "lstm_bwd_wide", "mlvae_lstm_bwd_wide",
+    [_P] * 12 + [_I, _I, _I, _I, _P]))
 LSTM_FUSED_FWD = _build.register(_build.Kernel(
     "lstm_fused_fwd", "lstm_fused_fwd", "mlvae_lstm_fused_fwd",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]))
@@ -153,13 +162,34 @@ def hbuf_pitch(B: int) -> int:
     return -(-B // 4) * 4
 
 
+def wide_plan(direction: str, H: int, B: int) -> dict:
+    """What the wide build of ``direction`` ("fwd" or "bwd") computes for
+    its launch at H, B (``mlvae_lstm_{fwd,bwd}_wide_plan``): blocks,
+    threads, shared memory bytes, resident blocks an SM, ring buffers,
+    rows a chunk, registers and local memory bytes a thread. Builds the
+    library; needs the card. Not a launch: it counts nowhere."""
+    kernel = LSTM_FWD_WIDE if direction == "fwd" else LSTM_BWD_WIDE
+    fn = getattr(_build.library(kernel.source),
+                 f"mlvae_lstm_{direction}_wide_plan")
+    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 8)()
+    code = fn(H, B, out)
+    if code:
+        raise RuntimeError(f"{kernel.name} plan: CUDA error {code}")
+    keys = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "ring",
+            "chunk", "registers", "local_bytes")
+    return dict(zip(keys, list(out)))
+
+
 def lstm_layer_fwd(gx: torch.Tensor, w_hh: torch.Tensor,
                    reverse: bool = False):
     """K1-fwd: same contract as ``lstm_layer_ref``. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise. The launch
-    refuses an H that is not a multiple of 16 (four units per block, K split
-    four ways) and one whose H/4 blocks cannot all be resident at once,
-    above 528 on an H100's 132 SMs."""
+    plain version; CUDA tensors launch the build ``k1_fwd_plan`` picks or
+    raise: the narrow one (four units a block, H/4 blocks all resident at
+    once) up to H=528, the wide one (eight units a block) above it up to
+    H=1024. An H that is not a multiple of 16 is refused, and one above
+    1024 raises ``NotImplementedError``."""
     if gx.device.type == "cpu":
         return lstm_layer_ref(gx, w_hh, reverse)
     _check_cuda_f32("lstm_layer_fwd", (gx, w_hh))
@@ -169,6 +199,7 @@ def lstm_layer_fwd(gx: torch.Tensor, w_hh: torch.Tensor,
                          f"{tuple(w_hh.shape)} are not (T, B, 4H), (4H, H)")
     T, B, G = gx.shape
     H = G // 4
+    plan = k1_fwd_plan(H, max(B, 1))
     hs = torch.empty((T, B, H), device=gx.device, dtype=torch.float32)
     cs = torch.empty_like(hs)
     # h ping-pong buffer (rows padded to 16 bytes for the TMA) and the step
@@ -177,34 +208,48 @@ def lstm_layer_fwd(gx: torch.Tensor, w_hh: torch.Tensor,
                        dtype=torch.float32)
     barrier = torch.zeros((1,), device=gx.device, dtype=torch.int32)
     if T and B:
-        LSTM_FWD(gx.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
-                 cs.data_ptr(), hbuf.data_ptr(), barrier.data_ptr(), T, B, H,
-                 int(reverse), _build.stream_handle(gx.device))
+        kernel = LSTM_FWD if plan.variant == "narrow" else LSTM_FWD_WIDE
+        kernel(gx.data_ptr(), w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+               hbuf.data_ptr(), barrier.data_ptr(), T, B, H, int(reverse),
+               _build.stream_handle(gx.device))
     return hs, cs
 
 
 def k1_bwd_scratch(gx: torch.Tensor, dc_last: torch.Tensor):
     """K1-bwd's scratch for a (T, B, 4H) ``gx``: each block's split-K
-    share of dh_{t-1}, (2, H/4, B, H) floats ping-ponged between steps
-    (the kernel lays each block's B x H out as (H/4, B, 4)); the dh
-    carry (zero at the start) and the dc carry (from dc_last), (B, H), each
-    entry touched by one thread only; the step barrier's counter."""
+    share of dh_{t-1}, (2, H/units, B, H) floats ping-ponged between steps
+    (``k1_bwd_plan``'s units a block: the narrow build lays each block's
+    B x H out as (H/4, B, 4), the wide one as (H/8, B, 8)); the dh carry
+    (zero at the start) and the dc carry (from dc_last), (B, H), each entry
+    touched by one thread only; the step barrier's counter. The wide build
+    also takes ``hs`` transposed (``k1_bwd_hs_slab``)."""
     _, B, G = gx.shape
     H = G // 4
-    part = torch.empty((2, H // 4, B, H), device=gx.device,
+    units = k1_bwd_plan(H, max(B, 1)).units
+    part = torch.empty((2, H // units, B, H), device=gx.device,
                        dtype=torch.float32)
     dh_buf = torch.zeros((B, H), device=gx.device, dtype=torch.float32)
     barrier = torch.zeros((1,), device=gx.device, dtype=torch.int32)
     return part, dh_buf, dc_last.clone(), barrier
 
 
+def k1_bwd_hs_slab(hs: torch.Tensor) -> torch.Tensor:
+    """The wide K1-bwd's scratch for hs transposed: (T, H, Bp) f32, Bp =
+    B rounded up to 4 (``hbuf_pitch``), every entry written by the
+    kernel's transpose (zeros past B)."""
+    T, B, H = hs.shape
+    return torch.empty((T, H, hbuf_pitch(B)), device=hs.device,
+                       dtype=torch.float32)
+
+
 def lstm_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
                    cs: torch.Tensor, dhs: torch.Tensor,
                    dc_last: torch.Tensor, reverse: bool = False):
     """K1-bwd: same contract as ``lstm_layer_bwd_ref``. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise. The launch
-    refuses an H that is not a multiple of 16 and, as K1-fwd's, one whose
-    H/4 blocks cannot all be resident at once, above 528 on an H100."""
+    plain version; CUDA tensors launch the build ``k1_bwd_plan`` picks or
+    raise, as K1-fwd: narrow up to H=528, wide up to H=1024, an H that is
+    not a multiple of 16 refused and one above 1024 ``NotImplementedError``.
+    """
     if gx.device.type == "cpu":
         return lstm_layer_bwd_ref(gx, w_hh, hs, cs, dhs, dc_last, reverse)
     _check_cuda_f32("lstm_layer_bwd", (gx, w_hh, hs, cs, dhs, dc_last))
@@ -219,6 +264,7 @@ def lstm_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
             f"{tuple(cs.shape)}/{tuple(dhs.shape)}, dc_last "
             f"{tuple(dc_last.shape)} are not (T, B, 4H), (4H, H), (T, B, H) "
             "and (B, H)")
+    plan = k1_bwd_plan(H, max(B, 1))
     if hs.data_ptr() % 16:
         raise ValueError("lstm_layer_bwd: hs must be 16-byte aligned (the "
                          "kernel reads it as float4)")
@@ -226,11 +272,15 @@ def lstm_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
     dw = torch.zeros((G, H), device=gx.device, dtype=torch.float32)
     if T and B:
         part, dh_buf, dc_buf, barrier = k1_bwd_scratch(gx, dc_last)
-        LSTM_BWD(gx.data_ptr(), w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                 dhs.data_ptr(), dgx.data_ptr(), dw.data_ptr(),
-                 part.data_ptr(), dh_buf.data_ptr(), dc_buf.data_ptr(),
-                 barrier.data_ptr(), T, B, H, int(reverse),
-                 _build.stream_handle(gx.device))
+        head = (gx.data_ptr(), w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                dhs.data_ptr(), dgx.data_ptr(), dw.data_ptr(),
+                part.data_ptr(), dh_buf.data_ptr(), dc_buf.data_ptr())
+        tail = (barrier.data_ptr(), T, B, H, int(reverse),
+                _build.stream_handle(gx.device))
+        if plan.variant == "narrow":
+            LSTM_BWD(*head, *tail)
+        else:
+            LSTM_BWD_WIDE(*head, k1_bwd_hs_slab(hs).data_ptr(), *tail)
     return dgx, dw
 
 

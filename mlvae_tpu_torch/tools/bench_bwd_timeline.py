@@ -53,6 +53,7 @@ import torch
 from mlvae_tpu_torch import _build
 from mlvae_tpu_torch.device import resolve_device
 from mlvae_tpu_torch.ops import lstm as L
+from mlvae_tpu_torch.ops.k1_plan import k1_bwd_plan, narrow_bwd_smem_bytes
 from mlvae_tpu_torch.tools import bench_fwd_timeline as ftl
 
 # each phase as (start stamp, end stamp) of the timing build's seven: 0 the
@@ -136,20 +137,22 @@ def phase_split(stamps: torch.Tensor) -> Dict[str, Dict[str, float]]:
 
 
 def k1_bwd_smem_bytes(H: int) -> int:
-    """Shared memory of a K1-bwd launch (``smem_bytes`` of
-    ``csrc/lstm_bwd.cu``): the h_{t-1} tile of 64 rows in boxes of 32
-    columns, W_hh's 16 rows, the split-K pre-activations, the dgates, f32,
-    and an mbarrier a box. It does not depend on B."""
-    nbox = -(-H // 32)
-    return 4 * (nbox * 64 * 32 + 16 * H + 4 * 64 * 16 + 64 * 16) + 8 * nbox
+    """Shared memory of a narrow K1-bwd launch (``smem_bytes`` of
+    ``csrc/lstm_bwd.cu``; ``ops.k1_plan.narrow_bwd_smem_bytes``): the
+    h_{t-1} tile of 64 rows in boxes of 32 columns, W_hh's 16 rows, the
+    split-K pre-activations, the dgates, f32, and an mbarrier a box. It
+    does not depend on B."""
+    return narrow_bwd_smem_bytes(H)
 
 
 def k1_bwd_schedule(B: int, H: int):
-    """(split, columns) of a K1-bwd launch: whether it takes the split
-    schedule (one batch tile, the recompute between the barrier's arrival
-    and wait) rather than the tiles in series, and how many columns of H
-    a thread holds W_hh's and dW_hh's rows for (``KP``)."""
-    return B <= 64, 2 if H <= 512 else 3
+    """(split, columns) of a narrow K1-bwd launch: whether it takes the
+    split schedule (one batch tile, the recompute between the barrier's
+    arrival and wait) rather than the tiles in series, and how many columns
+    of H a thread holds W_hh's and dW_hh's rows for (``KP``). The whole
+    plan, wide builds included, is ``k1_bwd_plan``."""
+    plan = k1_bwd_plan(H, B)
+    return plan.split, plan.cols
 
 
 def k1_bwd_tensor_map(T: int, B: int, H: int):

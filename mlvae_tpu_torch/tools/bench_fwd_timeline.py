@@ -39,6 +39,9 @@ import torch
 from mlvae_tpu_torch import _build
 from mlvae_tpu_torch.device import resolve_device
 from mlvae_tpu_torch.ops import lstm as L
+from mlvae_tpu_torch.ops.k1_plan import (k1_fwd_plan,  # noqa: F401
+                                         narrow_fwd_ring_depth,
+                                         narrow_fwd_smem_bytes)
 
 SLOTS = 8
 # each phase's slot of the timing build's eight: 0 the step's start, 1 its
@@ -97,20 +100,18 @@ def fused_fwd_schedule(In: int, H: int, B: int):
 
 
 def k1_smem_bytes(H: int, nq: int) -> int:
-    """Shared memory of a K1-fwd launch (``smem_bytes`` of
-    ``csrc/lstm_fwd.cu``): a ring of nq copies of H/16 x 64 f32 for each
-    of the four K slices, W_hh's 16 rows, the split-K partials and the
-    ring's mbarriers."""
-    return 4 * (4 * nq * (H // 16) * BT + 4 * H * 4 + 4 * BT * 16) + 8 * 4 * nq
+    """Shared memory of a narrow K1-fwd launch (``smem_bytes`` of
+    ``csrc/lstm_fwd.cu``; ``ops.k1_plan.narrow_fwd_smem_bytes``): a ring of
+    nq copies of H/16 x 64 f32 for each of the four K slices, W_hh's 16
+    rows, the split-K partials and the ring's mbarriers."""
+    return narrow_fwd_smem_bytes(H, nq)
 
 
 def k1_ring_depth(H: int, B: int) -> int:
-    """K1-fwd's ring depth a slice (``ring_depth``): every copy of a step
-    (4 a batch tile) where they fit, else the most that fit."""
-    for nq in range(4 * -(-B // BT), 0, -1):
-        if k1_smem_bytes(H, nq) <= SMEM_LIMIT:
-            return nq
-    return 0
+    """Narrow K1-fwd's ring depth a slice (``ring_depth``): every copy of a
+    step (4 a batch tile) where they fit, else the most that fit. The whole
+    plan, wide builds included, is ``k1_fwd_plan``."""
+    return narrow_fwd_ring_depth(H, B)
 
 
 def k1_tensor_map(B: int, H: int):
