@@ -20,22 +20,24 @@
 //
 // Design (lstm_wide.cuh): one persistent cooperative grid of H/8 blocks; a
 // block owns 8 units, i.e. 32 gate rows, and keeps those rows of W_hh in
-// shared memory (128 KB at H=1024) for both the recompute and dh_{t-1}.
-// Its 32 rows of dW_hh stay in registers for the whole sequence: a
-// thread owns one column of each 128-column chunk and 16 of the rows, 8 x
-// 16 = 128 accumulators at H=1024, so dW_hh needs no atomics and repeated
-// launches are bit-equal. hs is first copied once into an (T, H, Bp)
-// slab, k-major (a plain transpose launched just before), so that h_{t-1}
-// stages like K1-fwd's h buffer. A step, for each 64-row batch tile in
-// series: stage h_{t-1} chunk by chunk and recompute the pre-activations;
-// the cell forms the dgates from the dh and dc carries (dh_buf, dc_buf,
-// one thread an entry) and writes them to dgx[t] and shared memory; then
-// h_{t-1} is staged a second time (it does not fit whole beside W_hh),
-// and for each chunk's column k a thread forms half of the tile's rows of
-// its split-K share of dh_{t-1}, partial[b][k] = sum over the block's
-// rows of dgates[b][row] * W_hh[row][k], and adds its 16 rows of dW_hh
-// over all rows of the tile. After a grid barrier each block sums the
-// partials of every block for its own 8 units in block order.
+// shared memory (128 KB at H=1024) for the recompute and for dh_{t-1}.
+// Its 32 rows of dW_hh stay in registers for the whole sequence: a thread
+// owns four consecutive columns of H and all 32 rows, 128 accumulators,
+// so dW_hh needs no atomics and repeated launches are bit-equal. hs is
+// first copied once into a (T, H, Bp) slab, k-major (a plain transpose
+// launched just before), so that h_{t-1} stages for the recompute as
+// K1-fwd's h buffer does. A step, for each 64-row batch tile in series:
+// stage h_{t-1} in k chunks and recompute the pre-activations (8 x 4
+// register tiles, four K slices); the cell forms the dgates from the dh
+// and dc carries (dh_buf, dc_buf, one thread an entry) and writes them to
+// dgx[t] and shared memory; each thread forms its four columns of its
+// split-K share of dh_{t-1}, partial[b][k] = sum over the block's rows of
+// dgates[b][row] * W_hh[row][k], eight batch rows at a time (twelve
+// float4 reads for 128 FMAs), while h_{t-1} lands a second time, now eight
+// batch rows a chunk straight from hs, since it does not fit whole beside
+// W_hh; then dW_hh[rows][k] += dgates[b][row] * h_{t-1}[b][k] over the
+// chunk's rows (nine float4 reads for 128 FMAs). After a grid barrier each block
+// sums the partials of every block for its own 8 units in block order.
 //
 // The exchange keeps the narrow build's split-K partials, laid out
 // (slot, writing block, unit group of 8, row, unit), so that a reducing
@@ -44,9 +46,9 @@
 // reads one 32 MB slot. Publishing the dgates instead (B x 4H a step)
 // would have every block read all of them, 128 MB a step, and the W_hh
 // columns of its units beside its rows, which do not fit beside them.
-// Shared memory: 220 KB at H=1024. A plain design: the tiles run in
-// series and the barrier is not split; the copies of h_{t-1} (twice a
-// step) and the exchange share the block's warps with the products.
+// Shared memory: 204 KB at H=1024. The tiles run in series and the
+// barrier is not split; the copies of h_{t-1} (twice a step) and the
+// exchange share the block's warps with the products.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,13 +74,33 @@ __global__ void transpose_hs(const float* __restrict__ hs,
   __syncthreads();
   for (int j = threadIdx.y; j < 32; j += 8) {
     const int k = k0 + j, b = b0 + threadIdx.x;
-    if (k < H && b < Bp) hst[((size_t)t * H + k) * Bp + b] = tile[threadIdx.x][j];
+    if (k < H && b < Bp)
+      hst[((size_t)t * H + k) * Bp + b] = tile[threadIdx.x][j];
   }
 }
+
+// Rows [b0 + 8c, b0 + 8c + 8) of h at one position, (B, H) in hs, into
+// ring buffer c % RING as [row][k], one copy group; rows past B as zeros.
+__device__ inline void stage_rows(float* ring, const float* h, int B, int H,
+                                  int b0, int c) {
+  float* buf = ring_buf(ring, c);
+  const int n4 = H / 4;
+  for (int i = threadIdx.x; i < 8 * n4; i += THREADS) {
+    const int r = i / n4, j = i % n4;
+    const int b = b0 + 8 * c + r;
+    const bool ok = b < B;
+    cp_async16(buf + (size_t)r * H + 4 * j,
+               h + (size_t)(ok ? b : 0) * H + 4 * j, ok);
+  }
+  cp_commit();
+}
+
+constexpr int TB = 8, TR = 4;  // the recompute's register tile: 4 K slices
 
 __global__ void __launch_bounds__(THREADS, 1)
 lstm_bwd_wide_kernel(const float* __restrict__ gx,
                      const float* __restrict__ w_hh,
+                     const float* __restrict__ hs,
                      const float* __restrict__ cs,
                      const float* __restrict__ dhs,
                      const float* __restrict__ hst, float* __restrict__ dgx,
@@ -92,7 +114,6 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
   const int u0 = blockIdx.x * UNITS;
   const int G = GATES * H;
   const int Bp = pitch_of(B);
-  const int nc = n_chunks(H);
   load_w(sm.w, w_hh, H, u0);
   __syncthreads();
 
@@ -100,15 +121,13 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
   // the same thread owns those (row, unit) carries and reduces them
   const int cb = tid / (UNITS / 2);
   const int cu = (tid % (UNITS / 2)) * 2;
-  // pass layout: thread -> column kl of each chunk; rows [32 hb, 32 hb +
-  // 32) of the tile for the partials, gate rows [16 hb, 16 hb + 16) for dW
-  const int kl = tid % CHUNK;
-  const int hb = tid / CHUNK;
-  float dw[MAXC][ROWS / 2];
+  // column layout (the partials and dW_hh): thread -> columns kq .. kq+3
+  const int kq = tid * 4;
+  float dw[4][ROWS];  // dW_hh[row][kq + c]
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c)
+  for (int c = 0; c < 4; ++c)
 #pragma unroll
-    for (int i = 0; i < ROWS / 2; ++i) dw[c][i] = 0.0f;
+    for (int r = 0; r < ROWS; ++r) dw[c][r] = 0.0f;
 
   const float4* w4 = reinterpret_cast<const float4*>(sm.w);
   const float4* dg4 = reinterpret_cast<const float4*>(sm.dg);
@@ -119,11 +138,12 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
     const int t = reverse ? T - 1 - s : s;
     const int tp = reverse ? t + 1 : t - 1;
     const float* h_prev = hst + (size_t)(first ? 0 : tp) * H * Bp;
+    const float* hs_prev = hs + (size_t)(first ? 0 : tp) * B * H;
     float* my_part = part + ((size_t)(s & 1) * nblk + blockIdx.x) * B * H;
     for (int b0 = 0; b0 < B; b0 += BT) {
       const int nb = min(BT, B - b0);
       const int b = b0 + cb;
-      if (!first) product(sm, h_prev, H, Bp, b0);
+      if (!first) product<TB, TR>(sm, h_prev, H, Bp, b0);
 
       // the cell: dgates to dgx[t] and dg_s (zero past the tile's end)
 #pragma unroll
@@ -138,7 +158,7 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
 #pragma unroll
           for (int q = 0; q < GATES; ++q) {
             const float sum =
-                first ? 0.0f : red_sum(sm.red, cb, q * UNITS + uu);
+                first ? 0.0f : red_at(sm.red, q, e);
             pre[q] = __fadd_rn(gx[row * G + (size_t)q * H + u0 + uu], sum);
           }
           const float c_t = cs[o];
@@ -171,64 +191,80 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
         for (int q = 0; q < GATES; ++q)
           sm.dg[cb * ROWS + q * UNITS + uu] = dg[q];
       }
-      __syncthreads();  // dg_s written, red_s read
+      __syncthreads();  // dg_s written, red_s (the ring) read
       if (first) continue;
 
-      // h_{t-1} again, chunk by chunk: the partials and dW of column
-      // k = 128 c + kl (c unrolled, so that dw stays in registers)
-      for (int c = 0; c < RING && c < nc; ++c)
-        stage(sm.ring, h_prev, H, Bp, c, b0);
+      // h_{t-1} lands again, eight rows a chunk, while the partials form
+      const int nbc = (nb + 7) / 8;
+      for (int c = 0; c < RING && c < nbc; ++c)
+        stage_rows(sm.ring, hs_prev, B, H, b0, c);
+      if (kq < H) {
+        // partial[b][kq + c], the block's gate rows in order
+        for (int b8 = 0; b8 < nb; b8 += 8) {
+          float acc[8][4];
 #pragma unroll
-      for (int c = 0; c < MAXC; ++c) {
-        if (c < nc) {
-          const float* buf = chunk_ready(sm.ring, c, nc);
-          const int k = c * CHUNK + kl;
-          if (k < H) {
-            // partial[b][k], rows of this thread's half, gate rows in order
-            float wc[ROWS];
+          for (int bb = 0; bb < 8; ++bb)
 #pragma unroll
-            for (int g = 0; g < ROWS / 4; ++g) {
-              const float4 v = w4[(size_t)g * H + k];
-              wc[4 * g + 0] = v.x;
-              wc[4 * g + 1] = v.y;
-              wc[4 * g + 2] = v.z;
-              wc[4 * g + 3] = v.w;
+            for (int c = 0; c < 4; ++c) acc[bb][c] = 0.0f;
+#pragma unroll 2
+          for (int q = 0; q < ROWS / 4; ++q) {
+            float wv[4][4];  // [column][row 4q + j]
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const float4 v = w4[w_slot(kq + c, q)];
+              wv[c][0] = v.x;
+              wv[c][1] = v.y;
+              wv[c][2] = v.z;
+              wv[c][3] = v.w;
             }
-            const int bend = min(nb, (hb + 1) * (BT / 2));
-            for (int bb = hb * (BT / 2); bb < bend; ++bb) {
-              float p = 0.0f;
 #pragma unroll
-              for (int g = 0; g < ROWS / 4; ++g) {
-                const float4 v = dg4[bb * (ROWS / 4) + g];
-                p = fmaf(v.x, wc[4 * g + 0], p);
-                p = fmaf(v.y, wc[4 * g + 1], p);
-                p = fmaf(v.z, wc[4 * g + 2], p);
-                p = fmaf(v.w, wc[4 * g + 3], p);
-              }
-              my_part[((size_t)(k >> 3) * B + b0 + bb) * UNITS + (k & 7)] = p;
-            }
-            // dW[rows][k] += sum_b dgates[b][row] * h_{t-1}[b][k], b in
-            // order (rows past the tile's end have zero dgates)
-            const float* hk = buf + (size_t)kl * PITCH;
-            for (int bb = 0; bb < nb; bb += 4) {
-              const float4 hv = *reinterpret_cast<const float4*>(hk + bb);
-              const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
+            for (int bb = 0; bb < 8; ++bb) {
+              const float4 v = dg4[(b8 + bb) * (ROWS / 4) + q];
+              const float d[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-              for (int r = 0; r < 4; ++r) {
+              for (int j = 0; j < 4; ++j)
 #pragma unroll
-                for (int g = 0; g < ROWS / 8; ++g) {
-                  const float4 v =
-                      dg4[(bb + r) * (ROWS / 4) + hb * (ROWS / 8) + g];
-                  dw[c][4 * g + 0] = fmaf(v.x, hr[r], dw[c][4 * g + 0]);
-                  dw[c][4 * g + 1] = fmaf(v.y, hr[r], dw[c][4 * g + 1]);
-                  dw[c][4 * g + 2] = fmaf(v.z, hr[r], dw[c][4 * g + 2]);
-                  dw[c][4 * g + 3] = fmaf(v.w, hr[r], dw[c][4 * g + 3]);
-                }
-              }
+                for (int c = 0; c < 4; ++c)
+                  acc[bb][c] = fmaf(d[j], wv[c][j], acc[bb][c]);
             }
           }
-          chunk_done(sm.ring, h_prev, H, Bp, c, nc, b0);
+#pragma unroll
+          for (int bb = 0; bb < 8; ++bb)
+            if (b8 + bb < nb)
+              *reinterpret_cast<float4*>(
+                  my_part + ((size_t)(kq >> 3) * B + b0 + b8 + bb) * UNITS +
+                  (kq & 7)) =
+                  make_float4(acc[bb][0], acc[bb][1], acc[bb][2], acc[bb][3]);
         }
+      }
+      // dW_hh[row][kq + c] += dgates[b][row] * h_{t-1}[b][kq + c], b in
+      // order (rows past the tile's end have zero dgates and zero h)
+      for (int c = 0; c < nbc; ++c) {
+        const float* buf = chunk_ready(sm.ring, c, nbc);
+        if (kq < H) {
+#pragma unroll 2
+          for (int bb = 0; bb < 8; ++bb) {
+            const float4 hv =
+                *reinterpret_cast<const float4*>(buf + (size_t)bb * H + kq);
+            const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
+            float d[ROWS];
+#pragma unroll
+            for (int q = 0; q < ROWS / 4; ++q) {
+              const float4 v = dg4[(8 * c + bb) * (ROWS / 4) + q];
+              d[4 * q + 0] = v.x;
+              d[4 * q + 1] = v.y;
+              d[4 * q + 2] = v.z;
+              d[4 * q + 3] = v.w;
+            }
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+              for (int r = 0; r < ROWS; ++r)
+                dw[cc][r] = fmaf(d[r], hr[cc], dw[cc][r]);
+          }
+        }
+        __syncthreads();  // the buffer is free
+        if (c + RING < nbc) stage_rows(sm.ring, hs_prev, B, H, b0, c + RING);
       }
     }
     if (first) break;
@@ -272,16 +308,12 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
     }
   }
 
+  if (kq < H) {
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
-    const int k = c * CHUNK + kl;
-    if (c < nc && k < H) {
-#pragma unroll
-      for (int i = 0; i < ROWS / 2; ++i) {
-        const int r = hb * (ROWS / 2) + i;  // gate * 8 + unit
-        dw_hh[(size_t)((r / UNITS) * H + u0 + r % UNITS) * H + k] = dw[c][i];
-      }
-    }
+    for (int r = 0; r < ROWS; ++r)  // gate * 8 + unit
+      *reinterpret_cast<float4*>(
+          dw_hh + (size_t)((r / UNITS) * H + u0 + r % UNITS) * H + kq) =
+          make_float4(dw[0][r], dw[1][r], dw[2][r], dw[3][r]);
   }
 }
 
@@ -319,9 +351,9 @@ int mlvae_lstm_bwd_wide_plan(int H, int B, int* out) {
   return cudaSuccess;
 }
 
-// gx (T,B,4H), w_hh (4H,H), hs/cs/dhs (T,B,H) f32 inputs; dgx (T,B,4H) and
-// dw_hh (4H,H) f32 outputs (every element written); part (2, H/8, H/8, B,
-// 8) f32 scratch (slot, writing block, unit group, row, unit); dh_buf
+// gx (T,B,4H), w_hh (4H,H), hs/cs/dhs (T,B,H) f32 inputs, hs 16-byte
+// aligned; dgx (T,B,4H) and dw_hh (4H,H) f32 outputs (every element
+// written); part (2, H/8, H/8, B, 8) f32 scratch (slot, writing block, unit group, row, unit); dh_buf
 // (B,H) zeroed and dc_buf (B,H) holding dc_last, both scratch; hst
 // (T,H,Bp) f32 scratch for hs transposed, Bp = B rounded up to 4; barrier
 // one zeroed counter. Two launches on the stream: the transpose, then the
@@ -339,8 +371,9 @@ int mlvae_lstm_bwd_wide(const float* gx, const float* w_hh, const float* hs,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float* hst_c = hst;
-  void* args[] = {(void*)&gx,    (void*)&w_hh,   (void*)&cs,
-                  (void*)&dhs,   (void*)&hst_c,  (void*)&dgx,
+  void* args[] = {(void*)&gx,    (void*)&w_hh,   (void*)&hs,
+                  (void*)&cs,    (void*)&dhs,    (void*)&hst_c,
+                  (void*)&dgx,
                   (void*)&dw_hh, (void*)&part,   (void*)&dh_buf,
                   (void*)&dc_buf, (void*)&barrier, (void*)&T,
                   (void*)&B,     (void*)&H,      (void*)&reverse};

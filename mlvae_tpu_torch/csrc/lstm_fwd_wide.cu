@@ -21,14 +21,14 @@
 // tile, stages h_{t-1} from an f32 ping-pong buffer in L2 in 128-row
 // chunks through a ring of two cp.async buffers (the 256 KB of h_{t-1} do
 // not fit beside W_hh: only one chunk lands while the previous one is
-// multiplied), forms its B x 32 pre-activations with 4 x 4 register
-// tiles split two ways over K, applies the cell update for two units a
-// thread and writes its slice of h_t to the buffer. The step ends in the
-// split grid barrier of grid_sync.cuh, the next step's gx for the first
-// tile loaded between the arrival and the wait. The cell update's
-// contraction is pinned as in the narrow build. Shared memory: 212 KB at
-// H=1024. A plain design: the chunk copies and the product share the
-// block's warps; overlapping them further is later work.
+// multiplied), forms its B x 32 pre-activations with 8 x 8 register
+// tiles split eight ways over K (a warp a slice), applies the cell update
+// for two units a thread and writes its slice of h_t to the buffer. The
+// step ends in the split grid barrier of grid_sync.cuh, the next step's
+// gx for the first tile loaded between the arrival and the wait. The cell
+// update's contraction is pinned as in the narrow build. Shared memory:
+// 196 KB at H=1024. The chunk copies and the product share the block's
+// warps.
 #include <cuda_runtime.h>
 
 #include "grid_sync.cuh"
@@ -37,6 +37,8 @@
 namespace {
 
 using namespace wide;
+
+constexpr int TB = 8, TR = 8;  // the product's register tile: 8 K slices
 
 __global__ void __launch_bounds__(THREADS, 1)
 lstm_fwd_wide_kernel(const float* __restrict__ gx,
@@ -81,7 +83,7 @@ lstm_fwd_wide_kernel(const float* __restrict__ gx,
     for (int i = 0; i < ntiles; ++i) {
       const int b0 = i * BT;
       const int b = b0 + cb;
-      if (s > 0) product(sm, h_prev, H, Bp, b0);
+      if (s > 0) product<TB, TR>(sm, h_prev, H, Bp, b0);
       if (b < B) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -90,7 +92,7 @@ lstm_fwd_wide_kernel(const float* __restrict__ gx,
 #pragma unroll
           for (int q = 0; q < GATES; ++q) {
             const float sum =
-                s > 0 ? red_sum(sm.red, cb, q * UNITS + cu + e) : 0.0f;
+                s > 0 ? red_at(sm.red, q, e) : 0.0f;
             const float g_in =
                 i == 0 ? gx0[e][q]
                        : gx[((size_t)t * B + b) * G + (size_t)q * H + u];
@@ -112,7 +114,7 @@ lstm_fwd_wide_kernel(const float* __restrict__ gx,
           h_next[(size_t)u * Bp + b] = h;
         }
       }
-      __syncthreads();  // red_s read before the next tile's product
+      __syncthreads();  // red_s (the ring) read before the next product
     }
     grid_arrive(barrier);
     ++arrivals;

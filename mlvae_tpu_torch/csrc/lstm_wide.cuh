@@ -5,11 +5,14 @@
 // At H above 528 the narrow kernels' four units a block would need more
 // than the H100's 132 SMs (every block of the cooperative grid resident at
 // once). Here a block owns UNITS=8 hidden units, so H/8 <= 128 blocks.
-// Its 32 gate rows of W_hh (rows gate*H + u0 + unit) sit in shared memory
-// for the whole sequence, laid out [g][k][j] with row r = gate*8 + unit =
-// 4g + j, so that one float4 holds four rows' weights for one k: 128 KB at
-// H=1024. h_{t-1} for a 64-row batch tile (256 KB at H=1024) does not fit
-// beside them, so it comes in chunks of CHUNK=128 rows of k x 64 batch
+// Its 32 gate rows of W_hh (row r = gate*8 + unit is W_hh's row gate*H +
+// u0 + unit) sit in shared memory for the whole sequence, k-major: for each
+// k, the 32 rows as eight float4s, the float4 of rows 4q .. 4q+3 at slot q ^
+// ((k >> 2) & 7), so that threads reading one row group at eight
+// consecutive groups of four k meet eight different banks (K1-bwd's
+// partials) while the product's readers of one k share a broadcast: 128 KB
+// at H=1024. h_{t-1} for a 64-row batch tile (256 KB at H=1024) does not
+// fit beside them, so it comes in chunks of CHUNK=128 rows of k x 64 batch
 // columns (32 KB), laid out [k][b] at a pitch of 68 floats, through a ring
 // of RING=2 buffers filled by cp.async (16 bytes a copy, zeros past the
 // padded row): the product of chunk c runs while chunk c+1 lands. The
@@ -17,11 +20,17 @@
 // hold zeros: K1-fwd's h ping-pong buffer, or K1-bwd's transposed copy of
 // hs.
 //
-// The product of a tile: thread -> (K slice ks of 2, row group g of 8,
-// batch rows 4*b4 .. 4*b4+3 of 16 groups), a 4 x 4 register tile summed
-// over its half of each chunk in k order, chunk after chunk; the two
-// slices' sums go to red_s [ks][row][32] and the cell adds them in order.
-// The order of every sum is fixed, so repeated launches are bit-equal.
+// The product of a tile: thread -> (K slice, row group of TR gate rows,
+// batch group of TB rows: 4 consecutive rows, or two such 32 rows apart),
+// a TB x TR register tile summed over its slice of each chunk in k order,
+// chunk after chunk. A shared-memory read of 16 bytes costs a warp four
+// passes of the shared-memory pipe however many threads share it, so the
+// tile is what sets the FMA rate: 8 x 8 (K1-fwd) reads four float4s for 64
+// FMAs, the FMA rate of the card; 8 x 4 (K1-bwd, whose dW_hh holds 128
+// registers a thread) three for 32. The K slices' sums go to red_s
+// [ks][row][32], which reuses the ring once its last chunk is read; one
+// pass adds them in slice order and lays the sums out by cell thread. The
+// order of every sum is fixed, so repeated launches are bit-equal.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,30 +43,28 @@ constexpr int GATES = 4;             // i, f, g, o
 constexpr int ROWS = GATES * UNITS;  // gate rows owned by one block
 constexpr int BT = 64;               // batch rows a tile
 constexpr int THREADS = 256;
-constexpr int KSPLIT = 2;            // the product's K slices
 constexpr int CHUNK = 128;           // rows of k a staged chunk
 constexpr int RING = 2;              // chunk buffers
 constexpr int PITCH = BT + 4;        // floats a staged row of k
 constexpr int MAX_H = 1024;
-constexpr int MAXC = MAX_H / CHUNK;  // chunks of the widest H
-static_assert(THREADS == KSPLIT * (ROWS / 4) * (BT / 4), "product layout");
 static_assert(THREADS == BT * UNITS / 2, "cell layout: two units a thread");
-static_assert(THREADS == 2 * CHUNK, "K1-bwd's pass: two threads a column");
+static_assert(THREADS * 4 == MAX_H, "K1-bwd's pass: four columns a thread");
+// the widest product's K slices' sums fit in the ring they reuse
+static_assert(8 * BT * ROWS <= RING * CHUNK * PITCH, "red_s in the ring");
 
 __host__ __device__ inline int n_chunks(int H) {
   return (H + CHUNK - 1) / CHUNK;
 }
 
-// w_s [ROWS * H] + ring [RING][CHUNK][PITCH] + red_s [KSPLIT][BT][ROWS]
-// (+ dg_s [BT][ROWS] for K1-bwd), f32
+// w_s [H][ROWS] + ring [RING][CHUNK][PITCH] (red_s [KS][BT][ROWS] reuses
+// it) + dg_s [BT][ROWS] for K1-bwd, f32
 inline size_t smem_bytes(int H, bool bwd) {
-  return sizeof(float) *
-         ((size_t)ROWS * H + (size_t)RING * CHUNK * PITCH +
-          (size_t)KSPLIT * BT * ROWS + (bwd ? (size_t)BT * ROWS : 0));
+  return sizeof(float) * ((size_t)ROWS * H + (size_t)RING * CHUNK * PITCH +
+                          (bwd ? (size_t)BT * ROWS : 0));
 }
 
 // The launch checks both wide kernels share: H a multiple of 16 (so that
-// each chunk's half is whole float4 rows of eight), at most MAX_H.
+// each chunk's K slices are whole rows), at most MAX_H.
 inline bool takes(int T, int B, int H) {
   return H >= 16 && H % 16 == 0 && H <= MAX_H && T >= 1 && B >= 1;
 }
@@ -67,7 +74,7 @@ __host__ __device__ inline int pitch_of(int B) { return (B + 3) & ~3; }
 struct Smem {
   float* w;
   float* ring;
-  float* red;
+  float* red;  // the ring's own memory, between a product and the cell
   float* dg;
 };
 
@@ -75,19 +82,24 @@ __device__ inline Smem carve(float* base, int H) {
   Smem s;
   s.w = base;
   s.ring = s.w + (size_t)ROWS * H;
-  s.red = s.ring + (size_t)RING * CHUNK * PITCH;
-  s.dg = s.red + (size_t)KSPLIT * BT * ROWS;
+  s.red = s.ring;
+  s.dg = s.ring + (size_t)RING * CHUNK * PITCH;
   return s;
 }
 
-// this block's 32 rows of W_hh into w_s [g][k][j]
+// The float4 slot of W_hh's rows 4q .. 4q+3 at column k in w_s.
+__device__ __forceinline__ int w_slot(int k, int q) {
+  return k * (ROWS / 4) + (q ^ ((k >> 2) & 7));
+}
+
+// this block's 32 rows of W_hh into w_s
 __device__ inline void load_w(float* w_s, const float* __restrict__ w_hh,
                               int H, int u0) {
   for (int idx = threadIdx.x; idx < ROWS * H; idx += THREADS) {
     const int k = idx % H;
-    const int r = idx / H;  // gate * 8 + unit = 4g + j
+    const int r = idx / H;  // gate * 8 + unit
     const int gate = r / UNITS, unit = r % UNITS;
-    w_s[((size_t)(r >> 2) * H + k) * 4 + (r & 3)] =
+    w_s[w_slot(k, r >> 2) * 4 + (r & 3)] =
         w_hh[(size_t)(gate * H + u0 + unit) * H + k];
   }
 }
@@ -113,6 +125,10 @@ __device__ __forceinline__ void cp_wait(int pending) {
     asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
+__device__ __forceinline__ float* ring_buf(float* ring, int c) {
+  return ring + (size_t)(c % RING) * CHUNK * PITCH;
+}
+
 // Chunk c of the (H, Bp) slab h for batch columns [b0, b0 + 64) into ring
 // buffer c % RING, as one copy group (by every thread). Columns past Bp
 // arrive as zeros; the slab's own columns past B are zeros.
@@ -120,7 +136,7 @@ __device__ inline void stage(float* ring, const float* h, int H, int Bp,
                              int c, int b0) {
   const int k0 = c * CHUNK;
   const int kc = min(CHUNK, H - k0);
-  float* buf = ring + (size_t)(c % RING) * CHUNK * PITCH;
+  float* buf = ring_buf(ring, c);
   for (int i = threadIdx.x; i < kc * (BT / 4); i += THREADS) {
     const int r = i / (BT / 4);
     const int j = i % (BT / 4);
@@ -132,75 +148,119 @@ __device__ inline void stage(float* ring, const float* h, int H, int Bp,
   cp_commit();
 }
 
-// Before chunk c of an nc-chunk pass is read: its copies landed (each
+// Before chunk c of an n-chunk pass is read: its copies landed (each
 // thread's own), then every thread's.
-__device__ __forceinline__ const float* chunk_ready(const float* ring, int c,
-                                                    int nc) {
-  cp_wait(c + 1 < nc ? 1 : 0);
+__device__ __forceinline__ const float* chunk_ready(float* ring, int c,
+                                                    int n) {
+  cp_wait(c + 1 < n ? 1 : 0);
   __syncthreads();
-  return ring + (size_t)(c % RING) * CHUNK * PITCH;
-}
-
-// After chunk c was read by every thread: its buffer takes chunk c + RING.
-__device__ __forceinline__ void chunk_done(float* ring, const float* h,
-                                           int H, int Bp, int c, int nc,
-                                           int b0) {
-  __syncthreads();
-  if (c + RING < nc) stage(ring, h, H, Bp, c + RING, b0);
+  return ring_buf(ring, c);
 }
 
 // h_{t-1} @ W_hh^T for the tile's 64 rows from b0 and this block's 32 gate
-// rows, the slab h staged chunk by chunk: the two K slices' sums into
-// red_s [ks][row][gate row]. Returns after a barrier: red_s is written.
+// rows, the slab h staged chunk by chunk, with TB x TR register tiles:
+// the K slices' sums into red_s [ks][row][gate row]. Returns after a
+// barrier: red_s is written (the ring is taken until the cell reads it).
+template <int TB, int TR>
 __device__ inline void product(const Smem& sm, const float* h, int H, int Bp,
                                int b0) {
+  constexpr int KS = TB * TR * THREADS / (BT * ROWS);  // K slices
+  constexpr int NBG = BT / TB;                          // batch groups
+  constexpr int PER = THREADS / KS;                     // threads a slice
+  constexpr int BSTEP = BT * 4 / TB;  // rows between a thread's row quads
+  static_assert(PER == NBG * (ROWS / TR), "product layout");
   const int tid = threadIdx.x;
-  const int ks = tid / (THREADS / KSPLIT);
-  const int g = (tid / (BT / 4)) % (ROWS / 4);
-  const int b4 = tid % (BT / 4);
+  const int ks = tid / PER;
+  const int rq0 = (tid % PER) / NBG * (TR / 4);  // first row quad
+  const int bg = tid % NBG;
   const int nc = n_chunks(H);
-  float acc[4][4];
+  const float4* w4 = reinterpret_cast<const float4*>(sm.w);
+  float acc[TB][TR];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int b = 0; b < TB; ++b)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
+    for (int r = 0; r < TR; ++r) acc[b][r] = 0.0f;
   for (int c = 0; c < RING && c < nc; ++c) stage(sm.ring, h, H, Bp, c, b0);
   for (int c = 0; c < nc; ++c) {
     const float* buf = chunk_ready(sm.ring, c, nc);
-    const int k0 = c * CHUNK;
-    const int half = min(CHUNK, H - k0) / KSPLIT;
-    const float4* w4 =
-        reinterpret_cast<const float4*>(sm.w) + (size_t)g * H + k0 + ks * half;
-    const float* hb = buf + (size_t)ks * half * PITCH + b4 * 4;
-#pragma unroll 8
-    for (int k = 0; k < half; ++k) {
-      const float4 hv = *reinterpret_cast<const float4*>(hb + k * PITCH);
-      const float4 wv = w4[k];
-      const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
-      const float wj[4] = {wv.x, wv.y, wv.z, wv.w};
+    const int part = min(CHUNK, H - c * CHUNK) / KS;
+    const int kb = c * CHUNK + ks * part;  // this slice's first k
+    const float* hb = buf + (size_t)ks * part * PITCH + bg * 4;
+#pragma unroll 4
+    for (int k = 0; k < part; ++k) {
+      float hr[TB], wr[TR];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int q = 0; q < TB / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(hb + k * PITCH + q * BSTEP);
+        hr[4 * q + 0] = v.x;
+        hr[4 * q + 1] = v.y;
+        hr[4 * q + 2] = v.z;
+        hr[4 * q + 3] = v.w;
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(hr[r], wj[j], acc[r][j]);
+      for (int q = 0; q < TR / 4; ++q) {
+        const float4 v = w4[w_slot(kb + k, rq0 + q)];
+        wr[4 * q + 0] = v.x;
+        wr[4 * q + 1] = v.y;
+        wr[4 * q + 2] = v.z;
+        wr[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int b = 0; b < TB; ++b)
+#pragma unroll
+        for (int r = 0; r < TR; ++r) acc[b][r] = fmaf(hr[b], wr[r], acc[b][r]);
     }
-    chunk_done(sm.ring, h, H, Bp, c, nc, b0);
+    __syncthreads();  // the buffer is free
+    if (c + RING < nc) stage(sm.ring, h, H, Bp, c + RING, b0);
   }
+  // every chunk is read: the K slices' sums take the ring as [ks][row][r]
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-    *reinterpret_cast<float4*>(
-        sm.red + ((size_t)ks * BT + b4 * 4 + r) * ROWS + g * 4) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  for (int b = 0; b < TB; ++b)
+#pragma unroll
+    for (int q = 0; q < TR / 4; ++q)
+      *reinterpret_cast<float4*>(
+          sm.red + ((size_t)ks * BT + bg * 4 + (b & 3) + (b >> 2) * BSTEP) *
+                       ROWS + (rq0 + q) * 4) =
+          make_float4(acc[b][4 * q], acc[b][4 * q + 1], acc[b][4 * q + 2],
+                      acc[b][4 * q + 3]);
+  __syncthreads();
+  // one pass adds the slices in order, 16 bytes a read along [row][r], and
+  // puts each sum where its cell thread reads it without bank conflicts
+  constexpr int SLICE4 = BT * ROWS / 4;  // float4s of a slice
+  float4 sum[SLICE4 / THREADS];
+#pragma unroll
+  for (int i = 0; i < SLICE4 / THREADS; ++i) {
+    sum[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      const float4 v = reinterpret_cast<const float4*>(
+          sm.red)[k * SLICE4 + tid + i * THREADS];
+      sum[i].x = __fadd_rn(sum[i].x, v.x);
+      sum[i].y = __fadd_rn(sum[i].y, v.y);
+      sum[i].z = __fadd_rn(sum[i].z, v.z);
+      sum[i].w = __fadd_rn(sum[i].w, v.w);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < SLICE4 / THREADS; ++i) {
+    const int e = 4 * (tid + i * THREADS);
+    const float v[4] = {sum[i].x, sum[i].y, sum[i].z, sum[i].w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int b = e / ROWS, r = e % ROWS + j;
+      sm.red[((r / UNITS) * 2 + (r & 1)) * THREADS + b * (UNITS / 2) +
+             (r % UNITS) / 2] = v[j];
+    }
+  }
   __syncthreads();
 }
 
-// The pre-activation's recurrent part for (row cb, gate row r): the two K
-// slices added in order.
-__device__ __forceinline__ float red_sum(const float* red, int cb, int r) {
-  float sum = 0.0f;
-#pragma unroll
-  for (int ks = 0; ks < KSPLIT; ++ks)
-    sum = __fadd_rn(sum, red[((size_t)ks * BT + cb) * ROWS + r]);
-  return sum;
+// The recurrent part of the cell thread's pre-activation of gate q for its
+// unit cu + e (cell layout: thread = row * 4 + cu / 2), after product().
+__device__ __forceinline__ float red_at(const float* red, int q, int e) {
+  return red[(2 * q + e) * THREADS + threadIdx.x];
 }
 
 }  // namespace wide

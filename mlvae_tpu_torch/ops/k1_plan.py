@@ -97,9 +97,9 @@ def narrow_bwd_smem_bytes(H: int) -> int:
 
 def wide_fwd_smem_bytes(H: int) -> int:
     """``wide::smem_bytes(H, false)`` of ``csrc/lstm_wide.cuh``: W_hh's 32
-    rows of the block, the ring of chunks and the two K slices' partial
-    pre-activations (64 rows of 32 gate rows), f32."""
-    return 4 * (32 * H + WIDE_RING * CHUNK * PITCH + 2 * BT * 32)
+    rows of the block and the ring of chunks, f32; the K slices' partial
+    pre-activations reuse the ring."""
+    return 4 * (32 * H + WIDE_RING * CHUNK * PITCH)
 
 
 def wide_bwd_smem_bytes(H: int) -> int:

@@ -25,6 +25,7 @@ from mlvae_tpu_torch import _build
 from mlvae_tpu_torch.ops import k1_plan as P
 from mlvae_tpu_torch.ops import lstm as L
 from mlvae_tpu_torch.tools import bench_bwd_timeline as btl
+from mlvae_tpu_torch.tools import bench_wide_ablation as abl
 from mlvae_tpu_torch.tools import bench_fwd_timeline as ftl
 
 torch.set_num_threads(2)
@@ -103,14 +104,14 @@ def test_narrow_plan_is_the_narrow_builds_layout(Bn):
         assert b.ring == -(-Hn // 32)
 
 
-@pytest.mark.parametrize("Hn, fwd, bwd", [(1024, 217088, 225280),
-                                          (768, 184320, 192512),
-                                          (544, 155648, 163840)])
+@pytest.mark.parametrize("Hn, fwd, bwd", [(1024, 200704, 208896),
+                                          (768, 167936, 176128),
+                                          (544, 139264, 147456)])
 def test_wide_shared_memory(Hn, fwd, bwd):
-    # W_hh's 32 rows, two 128 x 68 chunk buffers, the two K slices'
-    # partials (64 x 32), and for K1-bwd the dgates (64 x 32), f32
+    # W_hh's 32 rows and two 128 x 68 chunk buffers (which the K slices'
+    # partials reuse), and for K1-bwd the dgates (64 x 32), f32
     assert P.k1_fwd_plan(Hn, 64).smem_bytes == fwd \
-        == 4 * (32 * Hn + 2 * 128 * 68 + 2 * 64 * 32)
+        == 4 * (32 * Hn + 2 * 128 * 68)
     assert P.k1_bwd_plan(Hn, 64).smem_bytes == bwd == fwd + 4 * 64 * 32
 
 
@@ -132,6 +133,14 @@ def _cuh_constant(name):
     text = (CSRC / "lstm_wide.cuh").read_text()
     m = re.search(rf"constexpr int {name} = ([^;]+);", text)
     return m.group(1).strip()
+
+
+def test_widest_partials_fit_in_the_ring():
+    # the K slices' sums of an 8 x 8 product (eight slices of 64 x 32)
+    # reuse the ring, and a K1-bwd chunk of eight batch rows of H fits in
+    # one of its buffers
+    assert 8 * P.BT * 32 <= P.WIDE_RING * P.CHUNK * P.PITCH
+    assert 8 * P.WIDE_MAX_H <= P.CHUNK * P.PITCH
 
 
 def test_plan_constants_are_the_kernels():
@@ -170,3 +179,19 @@ def test_wide_kernels_are_built_registered_and_bound():
         assert sig.count(",") + 1 == nargs, name
         assert f"mlvae_{name}_error_string" in text
         assert f"mlvae_{name}_plan" in text
+
+
+@pytest.mark.parametrize("name", sorted(abl.ABLATIONS))
+def test_each_ablation_finds_its_text_once(name):
+    src, subs = abl.ABLATIONS[name]
+    files = abl.patched(subs)
+    assert f"{src}.cu" in files
+    changed = {f for f, text in files.items()
+               if text != (CSRC / f).read_text()}
+    assert changed == {f for f, _, _ in subs}
+
+
+def test_ablation_tool_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        abl.main([])
