@@ -66,7 +66,8 @@
 // pre-activation over k; the reduce over blocks) and the dgates block its
 // contraction, so the outputs are bit-identical to the single-copy design.
 // Shared memory is 184 KB at H=512. The H/4 blocks must all be resident,
-// one per SM, which limits H to 528 on an H100 (132 SMs).
+// one per SM, which limits this build to H <= 528 on an H100 (132 SMs);
+// wider layers, up to H=1024, take lstm_bwd_wide.cu (ops/k1_plan.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 

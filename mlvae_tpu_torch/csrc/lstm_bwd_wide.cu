@@ -36,8 +36,9 @@
 // float4 reads for 128 FMAs), while h_{t-1} lands a second time, now eight
 // batch rows a chunk straight from hs, since it does not fit whole beside
 // W_hh; then dW_hh[rows][k] += dgates[b][row] * h_{t-1}[b][k] over the
-// chunk's rows (nine float4 reads for 128 FMAs). After a grid barrier each block
-// sums the partials of every block for its own 8 units in block order.
+// chunk's rows (nine float4 reads for 128 FMAs). After a grid barrier each
+// block sums the partials of every block for its own 8 units in block
+// order.
 //
 // The exchange keeps the narrow build's split-K partials, laid out
 // (slot, writing block, unit group of 8, row, unit), so that a reducing
@@ -353,11 +354,11 @@ int mlvae_lstm_bwd_wide_plan(int H, int B, int* out) {
 
 // gx (T,B,4H), w_hh (4H,H), hs/cs/dhs (T,B,H) f32 inputs, hs 16-byte
 // aligned; dgx (T,B,4H) and dw_hh (4H,H) f32 outputs (every element
-// written); part (2, H/8, H/8, B, 8) f32 scratch (slot, writing block, unit group, row, unit); dh_buf
-// (B,H) zeroed and dc_buf (B,H) holding dc_last, both scratch; hst
-// (T,H,Bp) f32 scratch for hs transposed, Bp = B rounded up to 4; barrier
-// one zeroed counter. Two launches on the stream: the transpose, then the
-// recurrence. Returns a cudaError_t.
+// written); part (2, H/8, H/8, B, 8) f32 scratch (slot, writing block,
+// unit group, row, unit); dh_buf (B,H) zeroed and dc_buf (B,H) holding
+// dc_last, both scratch; hst (T,H,Bp) f32 scratch for hs transposed, Bp =
+// B rounded up to 4; barrier one zeroed counter. Two launches on the
+// stream: the transpose, then the recurrence. Returns a cudaError_t.
 int mlvae_lstm_bwd_wide(const float* gx, const float* w_hh, const float* hs,
                         const float* cs, const float* dhs, float* dgx,
                         float* dw_hh, float* part, float* dh_buf,

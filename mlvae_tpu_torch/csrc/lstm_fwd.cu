@@ -17,11 +17,13 @@
 // Design: one persistent cooperative grid. Block k owns UNITS=4 hidden units
 // and keeps their i/f/g/o rows of W_hh (16 x H floats, 32 KB at H=512) in
 // shared memory for the whole sequence; H/4 = 128 blocks cover H=512, one
-// per SM. Each step every block forms its B x 16 pre-activations with 4x4
-// register tiles split four ways over K (thread: K slice, gate, 4 batch
-// rows; each sum over its slice in k order, then the slices summed in
-// order), applies the cell update locally and writes its slice of h_t to an
-// f32 ping-pong buffer in global memory that stays in L2. h_{t-1} comes in
+// per SM. H/4 blocks fit on an H100's 132 SMs up to H=528; wider layers, up
+// to H=1024, take lstm_fwd_wide.cu (ops/k1_plan.py picks the build). Each
+// step every block forms its B x 16 pre-activations with 4x4 register
+// tiles split four ways over K (thread: K slice, gate, 4 batch rows; each
+// sum over its slice in k order, then the slices summed in order), applies
+// the cell update locally and writes its slice of h_t to an f32 ping-pong
+// buffer in global memory that stays in L2. h_{t-1} comes in
 // by the TMA: each K slice's quarter of it, per 64-row batch tile, in four
 // copies of H/16 rows x 64 batch columns from a 3-D tensor map over the
 // buffer (its row pitch padded to 16 bytes; zeros past B), each completing

@@ -492,8 +492,9 @@ def _check_fused_bwd(name, x, w_ih, bias, w_hh, hs, cs, dhs, dc_last):
 
 def lstm_fused_fwd(x, w_ih, bias, w_hh, reverse: bool = False):
     """K3/K4-fwd: same contract as ``lstm_fused_fwd_ref``. CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise. As K1, the
-    H/4 blocks must all be resident at once (H <= 528 on an H100)."""
+    the plain version; CUDA tensors launch the kernel or raise. As K1's
+    narrow build, the H/4 blocks must all be resident at once (H <= 528 on
+    an H100); the fused kernels have no wide build."""
     if x.device.type == "cpu":
         return lstm_fused_fwd_ref(x, w_ih, bias, w_hh, reverse)
     _check_fused("lstm_fused_fwd", x, w_ih, bias, w_hh)
