@@ -7,12 +7,13 @@ It keeps the reference's INVERTED counting convention: TP counts matching
 zeros (correct pronunciations), while PRE, REC and F1 are computed over the
 ones (mispronunciations, counted as TN, FN and FP in that scheme). F1 is
 recomputed from the MEAN precision and recall at summarize time. The
-boundary, soft and PER scores and the results-table writer stay with the
-JAX package until a recipe of the port needs them. Host-side numpy.
+boundary, soft and PER scores, the saved sequences and the results-table
+writer stay with the JAX package until a recipe of the port needs them.
+Host-side numpy.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -50,37 +51,17 @@ def binary_seq_md_scoring(prediction, target) -> Dict[str, float]:
 
 
 def batch_seq_md_scoring(pred_md_lbl_seqs, gt_md_lbl_seqs):
-    """Per-utterance scores of a batch and the sequences that were scored
-    (the JAX ``batch_seq_md_scoring`` given both label sequences; the
-    phoneme and canonical sequences it would save stay absent)."""
+    """Per-utterance scores of a batch (the JAX ``batch_seq_md_scoring``
+    given both label sequences)."""
     if len(pred_md_lbl_seqs) != len(gt_md_lbl_seqs):
         raise ValueError("Inconsistent batch size")
-    scores = [binary_seq_md_scoring(p, g)
-              for p, g in zip(pred_md_lbl_seqs, gt_md_lbl_seqs)]
-    seqs = {"gt_md_lbl_seqs": [list(np.asarray(g).tolist())
-                               for g in gt_md_lbl_seqs],
-            "pred_md_lbl_seqs": [list(np.asarray(p).tolist())
-                                 for p in pred_md_lbl_seqs]}
-    return scores, seqs
+    return [binary_seq_md_scoring(p, g)
+            for p, g in zip(pred_md_lbl_seqs, gt_md_lbl_seqs)]
 
 
 class MDMetricStats(BaseMetricStats):
     def __init__(self):
         super().__init__(metric_fn=batch_seq_md_scoring)
-        self.saved_seqs: Dict[str, List] = {}
-
-    def append(self, ids, **kwargs):
-        self.ids.extend(ids)
-        scores, seqs = self.metric_fn(**kwargs)
-        self.scores_list.extend(scores)
-        if not self.metric_keys:
-            self.metric_keys = list(self.scores_list[0].keys())
-        seqs["utt_ids"] = list(ids)
-        if not self.saved_seqs:
-            self.saved_seqs = seqs
-        else:
-            for key in self.saved_seqs:
-                self.saved_seqs[key].extend(seqs[key])
 
     def summarize(self, field: Optional[str] = None):
         means = super().summarize()

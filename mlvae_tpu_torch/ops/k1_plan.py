@@ -62,8 +62,7 @@ class K1Plan:
 def _check(H: int, B: int) -> None:
     if H < 16 or H % 16 or B < 1:
         raise ValueError(f"K1: H={H} must be a positive multiple of 16 "
-                         f"(four units a block, K split four ways) and "
-                         f"B={B} positive")
+                         f"and B={B} positive")
     if H > WIDE_MAX_H:
         raise NotImplementedError(
             f"K1: H={H} is above {WIDE_MAX_H}, the widest the port's K1 "

@@ -34,7 +34,7 @@ import ctypes
 import torch
 
 from mlvae_tpu_torch import _build
-from mlvae_tpu_torch.ops.k1_plan import K1Plan, k1_bwd_plan, k1_fwd_plan
+from mlvae_tpu_torch.ops.k1_plan import k1_bwd_plan, k1_fwd_plan
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
