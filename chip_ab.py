@@ -14,7 +14,9 @@ steps at B=64, T=160, on inputs from fixed seeds, a digest of each
 kernel's outputs (K1-bwd also at the ragged B=70) and of each train
 step's first loss; and, in a checkout that has them, the wide K1-fwd and
 K1-bwd at H=1024 (digests at B=64, K1-bwd also at B=70, and times) and
-LSTM_FC's f32 train step (time, digest of its first loss). Each run prints one line ``AB <root> <JSON of ms and
+LSTM_FC's f32 train step (time, digest of its first loss), and where they
+exist the same for the wide builds on bf16 streams and LSTM_FC's AMP
+train step. Each run prints one line ``AB <root> <JSON of ms and
 digests>``; the card's name and power limit come first. It compares
 two versions of code that both checkouts have (a parent and its change):
 a change that may slow an earlier path is held against its parent here.
@@ -177,6 +179,41 @@ def time_wide(cs, dev) -> dict:
     loss, _ = model.fit_batch(batch, 1, noise=noise)
     out["digest_lstm_fc_loss"] = digest([torch.as_tensor(loss).reshape(1)])
     out["lstm_fc_step"] = cs.cuda_ms(
+        lambda: model.fit_batch(batch, 1, noise=noise), iters=5, warmup=1)
+    del model
+    if hasattr(L, "LSTM_FWD_WIDE_BF16"):
+        out.update(time_wide_bf16(cs, dev, batch))
+    return out
+
+
+def time_wide_bf16(cs, dev, batch) -> dict:
+    """The wide K1 builds on bf16 streams (H=1024): digests of K1-fwd's
+    outputs at B=64 and of K1-bwd's at B=64 and 70, their times; LSTM_FC's
+    AMP train step: the digest of its first loss and its time."""
+    from mlvae_tpu_torch import bench_utils
+    from mlvae_tpu_torch.ops import lstm as L
+    import torch
+    T, H = 160, 1024
+    g = torch.Generator(device=dev).manual_seed(14)
+    bwd = cs.bwd_problem(g, dev, T, 64, H, False, bf16=True)
+    bwd70 = cs.bwd_problem(g, dev, T, 70, H, False, bf16=True)
+    out = {"digest_lstm_fwd_wide_bf16": digest(L.lstm_layer_fwd(*bwd[:2])),
+           "digest_lstm_bwd_wide_bf16": digest(L.lstm_layer_bwd(*bwd,
+                                                                False)),
+           "digest_lstm_bwd_wide_bf16_B70": digest(
+               L.lstm_layer_bwd(*bwd70, False)),
+           "lstm_fwd_wide_bf16": cs.cuda_ms(
+               lambda: L.lstm_layer_fwd(*bwd[:2]), iters=10),
+           "lstm_bwd_wide_bf16": cs.cuda_ms(
+               lambda: L.lstm_layer_bwd(*bwd, False), iters=5)}
+    model = bench_utils.build_lstm_fc(batch_size=64, seed=0, device=dev,
+                                      bf16=True)
+    noise = cs.train_noise(model, 64, T, dev,
+                           torch.Generator(device=dev).manual_seed(6))
+    loss, _ = model.fit_batch(batch, 1, noise=noise)
+    out["digest_lstm_fc_amp_loss"] = digest(
+        [torch.as_tensor(loss).reshape(1)])
+    out["lstm_fc_amp_step"] = cs.cuda_ms(
         lambda: model.fit_batch(batch, 1, noise=noise), iters=5, warmup=1)
     return out
 

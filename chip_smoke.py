@@ -8,9 +8,10 @@ Phases, each reported on its own line; any failure exits non-zero:
 1. the card and the kernel build (every ``mlvae_tpu_torch/csrc/*.cu``,
    compiled from this checkout, and the timing builds of K3-bwd, K4-bwd,
    K1-fwd and K3/K4-fwd, one ``nvcc`` per build in parallel), and the
-   launch plan of the wide K1 builds (H above 528) at H=1024, 768 and 640
-   as their C code computes it (grid, threads, shared memory, blocks an SM
-   holds, registers) against ``ops.k1_plan``;
+   launch plan of the wide K1 builds (H above 528) at H=1024, 768 and 640,
+   and of their bf16 entry points at H=1024 and 640, as their C code
+   computes it (grid, threads, shared memory, blocks an SM holds,
+   registers) against ``ops.k1_plan``;
 2. each kernel against its plain PyTorch version on the card, at the
    slices' shapes (B=64, T=160, H=512; the fused kernels at In=128, 512
    and 1024 as the AMP step gives them; the filterbank K6 in its Kaldi
@@ -18,7 +19,7 @@ Phases, each reported on its own line; any failure exits non-zero:
    SpeechBrain mode at B=64 and B=1 x 160 frames; the GRU kernels K5-fwd
    and K5-bwd in f32 and bf16), plus ragged and edge cases, K1-fwd and
    K1-bwd again over many back-to-back launches (``--lstm-repeats``,
-   ``--lstm-bwd-repeats``), the fused kernels over a few, K5 over 50 per
+   ``--lstm-bwd-repeats``), the fused kernels over a few, K5 over 26 per
    kernel and direction, K6 over 20 per mode that must be bit-identical,
    and K6's two extractors against the float64 golden on two short
    utterances; the K-unrolled LSTM forwards at the unroll bench's shape
@@ -28,16 +29,21 @@ Phases, each reported on its own line; any failure exits non-zero:
    T=K, ragged B and narrower H against the plain versions, a few
    repeated launches, and a T that is not a multiple of K refused;
    K3-bwd and K4-bwd also at the JAX bench's B=256, at T=2 beside T=1,
-   at B=320 (their serial schedule), and 100 repeated launches per
+   at B=320 (their serial schedule), and 50 repeated launches per
    direction each bit-equal to the first; K1-fwd and K3/K4-fwd also at
    ragged B (1, 63, 65, 70, 200), B=128 and 256, T=1 and T=2, K3/K4-fwd's
-   serial schedule (B=320; In=4096), and 100 repeated launches per case
+   serial schedule (B=320; In=4096), and 50 repeated launches per case
    and direction (K1-fwd at B=64 and 128, K3/K4-fwd at In=1024 B=64 and
    In=512 B=256) each bit-equal to the first; the wide K1-fwd and K1-bwd
    (``lstm_fwd_wide``, ``lstm_bwd_wide``) at H=1024, B=64, T=160, at
    H=768 and 640, ragged B (1, 63, 65, 70), B=128, T=1 and 2, both
-   directions, and 100 repeated launches of each per direction at
-   H=1024, B=64, each bit-equal to the first;
+   directions, and 50 repeated launches of each per direction at
+   H=1024, B=64, each bit-equal to the first; the same wide kernels on
+   bf16 streams (``lstm_fwd_wide_bf16``, ``lstm_bwd_wide_bf16``) against
+   the plain versions in bf16 at H=1024 and 640, B=64 and 70, B=1, T=1
+   and 2, both directions (hs and dgx bf16, cs and dW_hh f32, at the
+   fused kernels' bf16 tolerances), and 50 repeated launches of each per
+   direction at H=1024, B=64, each bit-equal to the first;
 3. MD_VAE at the recipe's full width (H=512, B=64, T=160, L=8, weights
    from a seed) through the kernels: the TEST-target eval step (finite
    losses, decoded boundaries that sum to each utterance's phoneme count,
@@ -71,7 +77,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    launches, logits and loss against the plain versions, frame-level MD
    scores) and two f32 training steps (4 + 4 wide launches a step, the
    first step's loss and grad norms against the plain versions, ``lstm``
-   and ``fc`` moved);
+   and ``fc`` moved); then its two AMP (bf16) training steps
+   (``build_lstm_fc(bf16=True)``: 4 + 4 launches of the bf16 wide builds a
+   step and no f32 K1 or fused kernel, the first step against the plain
+   versions and its loss against the f32 step's from the same state and
+   draws, f32 parameters and Adam states);
 4. times from CUDA events after warm-up: each kernel, its plain version,
    a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6),
    the eval step, the wav-in ``infer`` at B=1 (read and features, then
@@ -85,7 +95,7 @@ Phases, each reported on its own line; any failure exits non-zero:
    versions and cuDNN's LSTM layer, K3-bwd (In 32, 128, 512) and K4-bwd
    (In 1024) at B=64 and K3-bwd In=512, K4-bwd at B=256 in turns with
    cuDNN's bf16 backward of the same layer (kernel, cuDNN, cuDNN, kernel,
-   five rounds; medians and spreads; and cuDNN's profiled kernel time),
+   three rounds; medians and spreads; and cuDNN's profiled kernel time),
    K1-fwd (B=64, 128) and K3/K4-fwd (In 128, 512, 1024 at B=64 and 256)
    in turns with cuDNN's forward of the same layer likewise, the
    forwards' step timeline (``mlvae_tpu_torch.tools.bench_fwd_timeline``:
@@ -97,7 +107,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    eval, one f32 and one AMP VAE train step and one f32 gate-3 step; the
    wide K1-fwd and K1-bwd at H=1024 in turns with cuDNN's f32 layer, their
    plain versions and bounds, LSTM_FC's eval and train steps (ms,
-   utt-sec/sec) and a profile of each;
+   utt-sec/sec) and a profile of each; the bf16 wide builds likewise in
+   turns with cuDNN's bf16 layer, and LSTM_FC's AMP train step and its
+   profile;
 5. a ``kernels`` JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -122,11 +134,11 @@ HOP_SEC = 0.02        # the JAX bench's utterance-seconds per frame
 LSTM_ATOL = 1e-4      # f32 sums in another order, compounding over T=160
 FWD_ATOL = 1e-3       # logits after 2 LSTM layers and 3 FCs, same cause
 LOSS_RTOL = 1e-4      # the masked means of those per-element losses
-LSTM_REPEATS = 125    # phase 2's repeated K1 launches per shape, direction
+LSTM_REPEATS = 60     # phase 2's repeated K1 launches per shape, direction
 BWD_RTOL = 1e-4       # dW_hh: f32 sums of B*T = 10,240 terms in another order
 GRAD_RTOL = 1e-3      # module grad norms after a backward through ten LSTM
                       # layers, the FCs and the clip, f32 in another order
-LSTM_BWD_REPEATS = 100  # phase 2's repeated K1-bwd launches per direction
+LSTM_BWD_REPEATS = 50   # phase 2's repeated K1-bwd launches per direction
 # K3/K4: the kernels round where their plain versions round, but an f32
 # sum in another order can cross a bf16 rounding boundary, and a flipped
 # h_t feeds every later step
@@ -135,9 +147,9 @@ FUSED_BWD_RTOL = 1e-2  # K3-bwd, K4-bwd outputs, of their largest entry: a
                       # dgates one bf16 ulp off in a sum of In or 4H terms
 FUSED_REPEATS = 10    # phase 2's repeated launches per fused kernel, shape
                       # and direction
-FUSED_BWD_REPEATS = 100  # phase 2's repeated K3-bwd / K4-bwd launches per
+FUSED_BWD_REPEATS = 50   # phase 2's repeated K3-bwd / K4-bwd launches per
                          # direction, each bit-equal to the first
-FWD_BIT_REPEATS = 100  # phase 2's repeated K1-fwd / K3/K4-fwd launches per
+FWD_BIT_REPEATS = 50   # phase 2's repeated K1-fwd / K3/K4-fwd launches per
                        # case and direction, each bit-equal to the first
 # the fused backwards beside cuDNN's bf16 backward of one layer, timed in
 # turns (kernel, cuDNN, cuDNN, kernel) in phase 4: (kernel, In, B); T=160,
@@ -145,7 +157,7 @@ FWD_BIT_REPEATS = 100  # phase 2's repeated K1-fwd / K3/K4-fwd launches per
 BWD_YARD_CASES = (("lstm_fused_bwd", 32, 64), ("lstm_fused_bwd", 128, 64),
                   ("lstm_fused_bwd", 512, 64), ("lstm_semi_bwd", 1024, 64),
                   ("lstm_fused_bwd", 512, 256), ("lstm_semi_bwd", 1024, 256))
-BWD_YARD_ROUNDS = 5
+BWD_YARD_ROUNDS = 3
 # the forwards beside cuDNN's forward of one layer, in turns in phase 4:
 # (kernel, In, B), In None for K1-fwd (f32, against an f32 layer whose
 # input is H wide: cuDNN's time includes its input projection, which
@@ -155,7 +167,7 @@ K1_YARD_CASES = (("lstm_fwd", None, 64), ("lstm_fwd", None, 128))
 K1B_YARD_CASES = (("lstm_bwd", None, 64), ("lstm_bwd", None, 128))
 FUSED_FWD_YARD_CASES = tuple(("lstm_fused_fwd", In, B) for B in (64, 256)
                              for In in (128, 512, 1024))
-FWD_YARD_ROUNDS = 5
+FWD_YARD_ROUNDS = 3
 BF16_PEAK = 989e12    # H100 SXM dense bf16 tensor cores, FLOP/s
 AMP_LOSS_RTOL = 1e-3  # the AMP step against its plain twin: the fused
 AMP_GRAD_RTOL = 1e-2  # kernels' bf16 flips (above) through ten layers
@@ -181,7 +193,7 @@ GRU_ATOL = 1e-4       # f32 hs
 GRU_BWD_RTOL = 1e-4   # f32 dgx, dW_hh, db_hh, of their largest entry
 GRU_BF16_ATOL = 4e-3  # bf16 hs (one bf16 ulp at |h| < 1) and hs32
 GRU_BF16_BWD_RTOL = 1e-2  # bf16 backward: a dgh one bf16 ulp off
-GRU_REPEATS = 50      # phase 2's repeated launches per K5 kernel and
+GRU_REPEATS = 26      # phase 2's repeated launches per K5 kernel and
                       # direction, half f32, half bf16
 GATE_RTOL = 1e-4      # gates 1, 2, 4 card against CPU: loss, and each
                       # parameter's grad in norm (f32 sums in another order)
@@ -200,8 +212,10 @@ NO_FBANK = {"fbank": 0}
 NO_GRU = {"gru_fwd": 0, "gru_bwd": 0}
 # K7a and K7b run on the unroll A/B path only (phase 3's last part)
 NO_UNROLL = {"lstm_unroll_fwd": 0, "lstm_unroll_fused_fwd": 0}
-# the wide K1 builds (H above 528) run on the LSTM_FC path only
-NO_WIDE = {"lstm_fwd_wide": 0, "lstm_bwd_wide": 0}
+# the wide K1 builds (H above 528), f32 and bf16, run on the LSTM_FC path
+# only
+NO_WIDE = {"lstm_fwd_wide": 0, "lstm_bwd_wide": 0, "lstm_fwd_wide_bf16": 0,
+           "lstm_bwd_wide_bf16": 0}
 PER_FORWARD = {"lstm_fwd": 10, "lstm_bwd": 0, "md_viterbi_lattice": 1,
                "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK, **NO_GRU,
                **NO_UNROLL, **NO_WIDE}
@@ -248,6 +262,11 @@ PER_GATE3_STEP = {**{k: 0 for k in PER_FORWARD}, "gru_fwd": 3, "gru_bwd": 3}
 # the eval forward, and K1-fwd and K1-bwd once a layer in a train step
 PER_LSTM_FC_EVAL = {**{k: 0 for k in PER_FORWARD}, "lstm_fwd_wide": 4}
 PER_LSTM_FC_STEP = {**PER_LSTM_FC_EVAL, "lstm_bwd_wide": 4}
+# its AMP (bf16) train step: no layer fits a fused tier at H=1024, so every
+# layer takes the wide K1 builds on bf16 streams, and no f32 K1 or fused
+# kernel runs
+PER_LSTM_FC_AMP_STEP = {**{k: 0 for k in PER_FORWARD},
+                        "lstm_fwd_wide_bf16": 4, "lstm_bwd_wide_bf16": 4}
 LSTM_FC_ACTIVE = {"lstm", "fc"}
 ACTIVE = {
     "PHN_RECOG": {"phoneme_recognizer"},
@@ -412,15 +431,19 @@ def stress_lstm(dev, report, repeats):
     return worst
 
 
-def bwd_problem(g, dev, T, B, H, reverse):
+def bwd_problem(g, dev, T, B, H, reverse, bf16=False):
     """A K1-bwd input: a forward trajectory from the plain recurrence,
-    random cotangents for every h and a non-zero one for the final c."""
+    random cotangents for every h and a non-zero one for the final c;
+    with ``bf16``, gx, W_hh, hs and dhs on bf16 streams (the same draws,
+    rounded), cs and dc_last f32."""
     import torch
     from mlvae_tpu_torch.ops.lstm import lstm_layer_ref
-    gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
-    w = (torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1) / H ** 0.5
+    dt = torch.bfloat16 if bf16 else torch.float32
+    gx = (torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5).to(dt)
+    w = ((torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1)
+         / H ** 0.5).to(dt)
     hs, cs = lstm_layer_ref(gx, w, reverse)
-    dhs = torch.randn((T, B, H), generator=g, device=dev) * 0.1
+    dhs = (torch.randn((T, B, H), generator=g, device=dev) * 0.1).to(dt)
     dc_last = torch.randn((B, H), generator=g, device=dev) * 0.1
     return gx, w, hs, cs, dhs, dc_last
 
@@ -532,26 +555,38 @@ WIDE_H = 1024         # LSTM_FC's LSTM
 WIDE_CASES = ((160, 64, 1024), (33, 64, 768), (33, 64, 640), (9, 1, 1024),
               (9, 63, 1024), (9, 65, 1024), (9, 70, 1024), (33, 128, 1024),
               (1, 64, 1024), (2, 64, 1024))
-WIDE_REPEATS = 100    # phase 2's repeated launches per wide kernel and
+WIDE_REPEATS = 50     # phase 2's repeated launches per wide kernel and
                       # direction at H=1024, B=64, T=160, each bit-equal to
                       # the first
+# the same for the bf16 builds: the main path's shape, a second wide H,
+# B=70 (not a multiple of 64), B=1, T=1 and T=2; tolerances as the fused
+# kernels' (FUSED_ATOL on hs and cs, FUSED_BWD_RTOL on dgx and dW_hh of
+# their largest entry): the kernel rounds where its plain version rounds,
+# but an f32 sum in another order can cross a bf16 rounding boundary
+WIDE_BF16_CASES = ((160, 64, 1024), (160, 70, 1024), (33, 64, 640),
+                   (33, 70, 640), (9, 1, 1024), (1, 64, 1024),
+                   (2, 64, 1024))
+WIDE_BF16_REPEATS = 50
 
 
 def wide_plans(dev, report):
     """Phase 1: the wide builds' launch plan as the C code computes it
-    (blocks, threads, shared memory, blocks an SM can hold, registers)
-    against ``ops.k1_plan``, each grid co-resident on this card."""
+    (blocks, threads, shared memory, blocks an SM can hold, registers), f32
+    and bf16 (one shared-memory layout), against ``ops.k1_plan``, each
+    grid co-resident on this card."""
     import torch
     from mlvae_tpu_torch.ops import lstm as L
     from mlvae_tpu_torch.ops.k1_plan import k1_bwd_plan, k1_fwd_plan
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
-    for H in (1024, 768, 640):
+    for H, bf16 in ((1024, False), (768, False), (640, False), (1024, True),
+                    (640, True)):
         for direction, plan_of in (("fwd", k1_fwd_plan), ("bwd", k1_bwd_plan)):
-            got = L.wide_plan(direction, H, 64)
+            got = L.wide_plan(direction, H, 64, bf16=bf16)
             want = plan_of(H, 64)
-            out[f"lstm_{direction}_wide H={H}"] = got
-            report(f"  plan lstm_{direction}_wide H={H} B=64: grid "
+            name = f"lstm_{direction}_wide{'_bf16' if bf16 else ''}"
+            out[f"{name} H={H}"] = got
+            report(f"  plan {name} H={H} B=64: grid "
                    f"{got['blocks']} x {got['threads']} threads, shared "
                    f"memory {got['smem_bytes']} B, ring {got['ring']} chunks "
                    f"of {got['chunk']} rows, {got['blocks_per_sm']} block(s) "
@@ -562,72 +597,92 @@ def wide_plans(dev, report):
                   (got["blocks"], got["threads"], got["smem_bytes"],
                    got["ring"]) == (want.blocks, want.threads,
                                     want.smem_bytes, want.ring),
-                  f"lstm_{direction}_wide plan {got} != {want}")
+                  f"{name} plan {got} != {want}")
             check(got["blocks_per_sm"] >= 1 and
                   got["blocks"] <= got["blocks_per_sm"] * sms,
-                  f"lstm_{direction}_wide H={H}: the grid cannot be "
-                  "co-resident")
+                  f"{name} H={H}: the grid cannot be co-resident")
     return out
 
 
-def check_lstm_wide(dev, report):
-    """Both wide kernels against their plain versions on ``WIDE_CASES``,
-    both directions; returns each one's worst error at the main shape."""
+def check_lstm_wide(dev, report, bf16=False):
+    """Both wide kernels against their plain versions on ``WIDE_CASES``
+    (``WIDE_BF16_CASES`` on bf16 streams), both directions; returns each
+    one's worst error at the main shape (f32: absolute; bf16: hs and cs
+    absolute, dgx relative to its largest entry)."""
     import torch
     from mlvae_tpu_torch.ops import lstm as L
-    g = torch.Generator(device=dev).manual_seed(41)
+    g = torch.Generator(device=dev).manual_seed(44 if bf16 else 41)
+    sfx = "_bf16" if bf16 else ""
+    cases = WIDE_BF16_CASES if bf16 else WIDE_CASES
+    f_tol, dgx_tol, dw_tol = ((FUSED_ATOL, FUSED_BWD_RTOL, FUSED_BWD_RTOL)
+                              if bf16 else (LSTM_ATOL, LSTM_ATOL, BWD_RTOL))
     worst = {"fwd": 0.0, "bwd": 0.0}
-    for T, B, H in WIDE_CASES:
+    for T, B, H in cases:
         check(L.k1_fwd_plan(H, B).variant == "wide", f"H={H} is not wide")
         for reverse in (False, True):
-            gx, w, hs_r, cs_r, dhs, dc_last = bwd_problem(g, dev, T, B, H,
-                                                          reverse)
+            gx, w, hs_r, cs_r, dhs, dc_last = bwd_problem(
+                g, dev, T, B, H, reverse, bf16=bf16)
             hs_k, cs_k = L.lstm_layer_fwd(gx, w, reverse)
             torch.cuda.synchronize()
+            check(hs_k.dtype == gx.dtype and cs_k.dtype == torch.float32,
+                  f"lstm_fwd_wide{sfx} output dtypes {hs_k.dtype}, "
+                  f"{cs_k.dtype}")
             err = max(max_err(hs_k, hs_r), max_err(cs_k, cs_r))
-            report(f"  lstm_fwd_wide T={T} B={B} H={H} reverse={reverse}: "
-                   f"max_abs_err {err:.3e} (tol {LSTM_ATOL:g})")
-            if err > LSTM_ATOL:
+            flips = float((hs_k != hs_r).float().mean()) if hs_k.numel() \
+                else 0.0
+            report(f"  lstm_fwd_wide{sfx} T={T} B={B} H={H} reverse="
+                   f"{reverse}: max_abs_err {err:.3e} (tol {f_tol:g}); hs "
+                   f"not bit-equal {flips:.4f}")
+            if err > f_tol:
                 report("  " + where_wrong(torch.maximum(
-                    (hs_k - hs_r).abs(), (cs_k - cs_r).abs()), reverse)
+                    (hs_k.float() - hs_r.float()).abs(),
+                    (cs_k - cs_r).abs()), reverse)
                     + " (eight units a block)")
-            check(err <= LSTM_ATOL, f"lstm_fwd_wide disagrees: {err}")
+            check(err <= f_tol, f"lstm_fwd_wide{sfx} disagrees: {err}")
             prob = (gx, w, hs_r, cs_r, dhs, dc_last)
             got = L.lstm_layer_bwd(*prob, reverse)
             want = L.lstm_layer_bwd_ref(*prob, reverse)
             torch.cuda.synchronize()
+            check(got[0].dtype == gx.dtype and got[1].dtype == torch.float32,
+                  f"lstm_bwd_wide{sfx} output dtypes")
             dgx_err, dw_err = bwd_errors(got, want)
-            report(f"  lstm_bwd_wide T={T} B={B} H={H} reverse={reverse}: "
-                   f"dgx max_abs_err {dgx_err:.3e} (tol {LSTM_ATOL:g}), "
-                   f"dW_hh max rel err {dw_err:.3e} (tol {BWD_RTOL:g})")
-            if dgx_err > LSTM_ATOL:
-                report("  " + where_wrong_bwd((got[0] - want[0]).abs(),
-                                              reverse))
-            check(dgx_err <= LSTM_ATOL and dw_err <= BWD_RTOL,
-                  f"lstm_bwd_wide disagrees: dgx {dgx_err}, dW {dw_err}")
-            if (T, B, H) == WIDE_CASES[0]:
+            if bf16:
+                dgx_err = rel_err(got[0], want[0])
+            report(f"  lstm_bwd_wide{sfx} T={T} B={B} H={H} reverse="
+                   f"{reverse}: dgx max {'rel' if bf16 else 'abs'} err "
+                   f"{dgx_err:.3e} (tol {dgx_tol:g}), dW_hh max rel err "
+                   f"{dw_err:.3e} (tol {dw_tol:g})")
+            if dgx_err > dgx_tol:
+                report("  " + where_wrong_bwd(
+                    (got[0].float() - want[0].float()).abs(), reverse))
+            check(dgx_err <= dgx_tol and dw_err <= dw_tol,
+                  f"lstm_bwd_wide{sfx} disagrees: dgx {dgx_err}, dW {dw_err}")
+            if (T, B, H) == cases[0]:
                 worst["fwd"] = max(worst["fwd"], err)
                 worst["bwd"] = max(worst["bwd"], dgx_err)
     return worst
 
 
 def stress_lstm_wide(dev, report, repeats=WIDE_REPEATS, T=160, B=64,
-                     H=WIDE_H):
+                     H=WIDE_H, bf16=False):
     """Repeated launches of both wide kernels at LSTM_FC's shape, back to
     back, each against the plain version and bit-equal to the first launch
     on its inputs (the cp.async ring and the grid barrier are an ordering a
-    race would break)."""
+    race would break); ``bf16`` on bf16 streams, at the bf16 tolerances."""
     import torch
     from mlvae_tpu_torch.ops import lstm as L
-    g = torch.Generator(device=dev).manual_seed(42)
+    g = torch.Generator(device=dev).manual_seed(45 if bf16 else 42)
+    f_tol, dgx_tol, dw_tol = ((FUSED_ATOL, FUSED_BWD_RTOL, FUSED_BWD_RTOL)
+                              if bf16 else (LSTM_ATOL, LSTM_ATOL, BWD_RTOL))
     n_inputs = 4
     total, wrong = {"fwd": 0, "bwd": 0}, []
     for reverse in (False, True):
         for i in range(n_inputs):
-            prob = bwd_problem(g, dev, T, B, H, reverse)
+            prob = bwd_problem(g, dev, T, B, H, reverse, bf16=bf16)
             gx, w, hs_r, cs_r = prob[:4]
             dgx_r, dw_r = L.lstm_layer_bwd_ref(*prob, reverse)
             scale = dw_r.abs().max()
+            dgx_scale = dgx_r.float().abs().max() if bf16 else 1.0
             first_f = L.lstm_layer_fwd(gx, w, reverse)
             first_b = L.lstm_layer_bwd(*prob, reverse)
             errs = []
@@ -635,9 +690,9 @@ def stress_lstm_wide(dev, report, repeats=WIDE_REPEATS, T=160, B=64,
                 hs_k, cs_k = L.lstm_layer_fwd(gx, w, reverse)
                 dgx_k, dw_k = L.lstm_layer_bwd(*prob, reverse)
                 errs.append((torch.stack([
-                    torch.maximum((hs_k - hs_r).abs().max(),
+                    torch.maximum((hs_k.float() - hs_r.float()).abs().max(),
                                   (cs_k - cs_r).abs().max()),
-                    (dgx_k - dgx_r).abs().max(),
+                    (dgx_k.float() - dgx_r.float()).abs().max() / dgx_scale,
                     (dw_k - dw_r).abs().max() / scale]),
                     bit_equal((hs_k, cs_k), first_f),
                     bit_equal((dgx_k, dw_k), first_b)))
@@ -645,18 +700,19 @@ def stress_lstm_wide(dev, report, repeats=WIDE_REPEATS, T=160, B=64,
                 e_f, e_dgx, e_dw = e.tolist()
                 total["fwd"] += 1
                 total["bwd"] += 1
-                if (e_f > LSTM_ATOL or e_dgx > LSTM_ATOL or e_dw > BWD_RTOL
+                if (e_f > f_tol or e_dgx > dgx_tol or e_dw > dw_tol
                         or not same_f or not same_b):
                     wrong.append((reverse, i, j, e_f, e_dgx, e_dw, same_f,
                                   same_b))
-    report(f"  wide repeated: {total['fwd']} lstm_fwd_wide and "
-           f"{total['bwd']} lstm_bwd_wide launches at T={T} B={B} H={H}, "
-           f"both directions, against the plain versions and the first "
-           f"launch on each input: {len(wrong)} wrong"
+    sfx = "_bf16" if bf16 else ""
+    report(f"  wide{sfx} repeated: {total['fwd']} lstm_fwd_wide{sfx} and "
+           f"{total['bwd']} lstm_bwd_wide{sfx} launches at T={T} B={B} "
+           f"H={H}, both directions, against the plain versions and the "
+           f"first launch on each input: {len(wrong)} wrong"
            + (f"; (reverse, input, launch, fwd err, dgx err, dW err, "
               f"fwd bit-equal, bwd bit-equal): {wrong[:8]}" if wrong else ""))
-    check(not wrong, f"a wide kernel was wrong in {len(wrong)} repeated "
-          "launches")
+    check(not wrong, f"a wide{sfx} kernel was wrong in {len(wrong)} "
+          "repeated launches")
 
 
 def fused_problem(g, dev, T, B, In, H):
@@ -1739,53 +1795,61 @@ def run_training(dev, report, B=64, T=160, L=8, amp=False):
     return model, batch, first_noise, total
 
 
-def run_lstm_fc(dev, report, B=64, T=160):
+def run_lstm_fc(dev, report, B=64, T=160, amp=False):
     """LSTM_FC at full width through the wide kernels: the TEST eval step
     (launches, finite loss, logits and loss against the same forward
     through the plain versions, frame-level MD scores) and two f32
     training steps (launches, finite losses, the modules that moved, the
     first step's loss and applied grad norms against the same step through
-    the plain versions). Returns the model, the batch, the first step's
-    draws and the launches of the eval and the two steps."""
+    the plain versions). ``amp``: no eval step (it stays f32), and two AMP
+    (bf16) training steps through the bf16 builds, whose parameters and
+    optimizer states must stay f32, and whose first step is also held
+    against the f32 step from the same state and draws. Returns the model,
+    the batch, the first step's draws and the launches of the eval and the
+    two steps."""
     import numpy as np
     import torch
     from mlvae_tpu_torch.bench_utils import build_lstm_fc, synth_flvl_batch
 
-    model = build_lstm_fc(batch_size=B, seed=0, device=dev)
+    model = build_lstm_fc(batch_size=B, seed=0, device=dev, bf16=amp)
     batch = synth_flvl_batch(B, T, seed=0, device=dev)
     total = {k: 0 for k in launches()}
+    per_step = PER_LSTM_FC_AMP_STEP if amp else PER_LSTM_FC_STEP
+    loss_tol, grad_tol = (AMP_LOSS_RTOL, AMP_GRAD_RTOL) if amp else \
+        (LOSS_RTOL, GRAD_RTOL)
 
-    reset_launches()
-    preds, loss, _ = model.eval_step(batch)
-    torch.cuda.synchronize()
-    counts = launches()
-    for k in total:
-        total[k] += counts[k]
-    report(f"  eval step: loss {float(loss):.6f}; logits "
-           f"{tuple(preds['out'].shape)}; launches {counts}")
-    check(counts == PER_LSTM_FC_EVAL,
-          f"LSTM_FC eval launches {counts} != {PER_LSTM_FC_EVAL}")
-    check(np.isfinite(float(loss)) and
-          bool(torch.isfinite(preds["out"]).all()), "non-finite eval")
-    with twins():
+    if not amp:
         reset_launches()
-        ref, ref_loss, _ = model.eval_step(batch)
+        preds, loss, _ = model.eval_step(batch)
         torch.cuda.synchronize()
-        check(sum(launches().values()) == 0, "the plain run hit a kernel")
-    out_err = max_err(preds["out"], ref["out"])
-    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
-    report(f"  against the plain versions: logits max abs err "
-           f"{out_err:.3e} (tol {FWD_ATOL:g}); loss rel err {loss_rel:.3e} "
-           f"(tol {LOSS_RTOL:g})")
-    check(out_err <= FWD_ATOL and loss_rel <= LOSS_RTOL,
-          "LSTM_FC eval disagrees with the plain versions")
-    model.evaluate_predictions(preds, batch)
-    scores = model.stats_loggers["flvl_md_stats"].summarize()
-    report(f"  frame-level MD scores (MDMetricStats, random weights): "
-           f"{scores}")
-    check(set(scores) == {"ACC", "PRE", "REC", "F1"} and
-          all(0.0 <= v <= 100.0 for v in scores.values()),
-          f"MD scores {scores}")
+        counts = launches()
+        for k in total:
+            total[k] += counts[k]
+        report(f"  eval step: loss {float(loss):.6f}; logits "
+               f"{tuple(preds['out'].shape)}; launches {counts}")
+        check(counts == PER_LSTM_FC_EVAL,
+              f"LSTM_FC eval launches {counts} != {PER_LSTM_FC_EVAL}")
+        check(np.isfinite(float(loss)) and
+              bool(torch.isfinite(preds["out"]).all()), "non-finite eval")
+        with twins():
+            reset_launches()
+            ref, ref_loss, _ = model.eval_step(batch)
+            torch.cuda.synchronize()
+            check(sum(launches().values()) == 0, "the plain run hit a kernel")
+        out_err = max_err(preds["out"], ref["out"])
+        loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        report(f"  against the plain versions: logits max abs err "
+               f"{out_err:.3e} (tol {FWD_ATOL:g}); loss rel err "
+               f"{loss_rel:.3e} (tol {LOSS_RTOL:g})")
+        check(out_err <= FWD_ATOL and loss_rel <= LOSS_RTOL,
+              "LSTM_FC eval disagrees with the plain versions")
+        model.evaluate_predictions(preds, batch)
+        scores = model.stats_loggers["flvl_md_stats"].summarize()
+        report(f"  frame-level MD scores (MDMetricStats, random weights): "
+               f"{scores}")
+        check(set(scores) == {"ACC", "PRE", "REC", "F1"} and
+              all(0.0 <= v <= 100.0 for v in scores.values()),
+              f"MD scores {scores}")
 
     g = torch.Generator(device=dev).manual_seed(7)
     first_noise = None
@@ -1802,6 +1866,11 @@ def run_lstm_fc(dev, report, B=64, T=160):
                 check(sum(launches().values()) == 0,
                       "the plain training step hit a kernel")
             restore(model, start)
+            if amp:
+                model.auto_mix_prec = False
+                loss_f32, _ = model.fit_batch(batch, 1, noise=noise)
+                model.auto_mix_prec = True
+                restore(model, start)
         weights = {k: v.clone() for k, v in model.state_dict().items()}
         reset_launches()
         loss, _ = model.fit_batch(batch, 1, noise=noise)
@@ -1812,11 +1881,12 @@ def run_lstm_fc(dev, report, B=64, T=160):
         moved = {mk for mk, mod in model.param_modules().items()
                  if any(not torch.equal(v, weights[f"{mk}.{n}"])
                         for n, v in mod.state_dict().items())}
-        report(f"  train step {step + 1}: loss {float(loss):.6f}; launches "
-               f"{counts}; modules moved {sorted(moved)}")
+        report(f"  {'AMP ' if amp else ''}train step {step + 1}: loss "
+               f"{float(loss):.6f}; launches {counts}; modules moved "
+               f"{sorted(moved)}")
         check(np.isfinite(float(loss)), "non-finite LSTM_FC loss")
-        check(counts == PER_LSTM_FC_STEP,
-              f"LSTM_FC step launches {counts} != {PER_LSTM_FC_STEP}")
+        check(counts == per_step,
+              f"LSTM_FC step launches {counts} != {per_step}")
         check(moved == LSTM_FC_ACTIVE, f"moved {sorted(moved)}")
         check(f32_state(model), "a parameter, grad or state is not f32")
         check(torch.equal(model.normalizer.count,
@@ -1829,13 +1899,22 @@ def run_lstm_fc(dev, report, B=64, T=160):
             norm_rel = {mk: abs(v - ref_norms[mk]) / ref_norms[mk]
                         for mk, v in norms.items()}
             report(f"  against the plain versions: loss rel err "
-                   f"{loss_rel:.3e} (tol {LOSS_RTOL:g}); grad norm rel err "
+                   f"{loss_rel:.3e} (tol {loss_tol:g}); grad norm rel err "
                    + ", ".join(f"{mk} {v:.3e}" for mk, v in norm_rel.items())
-                   + f" (tol {GRAD_RTOL:g})")
-            check(loss_rel <= LOSS_RTOL, "LSTM_FC training loss disagrees")
-            check(max(norm_rel.values()) <= GRAD_RTOL,
+                   + f" (tol {grad_tol:g})")
+            check(loss_rel <= loss_tol, "LSTM_FC training loss disagrees")
+            check(max(norm_rel.values()) <= grad_tol,
                   "LSTM_FC training grads disagree")
-    report(f"  launches in the eval and the two training steps: {total}")
+            if amp:
+                f32_rel = abs(float(loss) - float(loss_f32)) / abs(
+                    float(loss_f32))
+                report(f"  against the f32 step from the same state and "
+                       f"draws: f32 loss {float(loss_f32):.6f}, rel err "
+                       f"{f32_rel:.3e} (tol {AMP_F32_RTOL:g})")
+                check(f32_rel <= AMP_F32_RTOL,
+                      "the AMP loss is far from the f32 loss")
+    report(f"  launches in the {'two AMP' if amp else 'eval and the two'} "
+           f"training steps: {total}")
     return model, batch, first_noise, total
 
 
@@ -2004,33 +2083,26 @@ def run_unroll(dev, report, iters=UNROLL_ITERS):
 # phase 4: times
 # ---------------------------------------------------------------------------
 
-def lstm_bound(T, B, H):
+def lstm_bound(T, B, H, bf16=False):
+    """K1-fwd and K7a: 2·B·H·4H·T at the stream dtype's peak (f32 on the
+    CUDA cores, bf16 on the tensor cores), against gx, W_hh read and hs
+    (the stream dtype), cs (f32) written once."""
+    item = 2.0 if bf16 else 4.0
     flops = 2.0 * B * H * 4 * H * T
-    nbytes = 4.0 * (T * B * 4 * H + 4 * H * H + 2 * T * B * H)
-    return max(flops / F32_PEAK, nbytes / MEM_BW) * 1e3, \
-        "operations" if flops / F32_PEAK > nbytes / MEM_BW else "bytes"
+    nbytes = item * (T * B * 4 * H + 4 * H * H + T * B * H) + 4.0 * T * B * H
+    return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
 
 
-def unroll_fwd_bound(T, B, H, bf16):
-    """K7a: K1-fwd's products at the stream dtype's peak (f32 on the CUDA
-    cores, bf16 on the tensor cores), against gx, W_hh read and hs (the
-    stream dtype), cs (f32) written once."""
-    if not bf16:
-        return lstm_bound(T, B, H)
-    flops = 2.0 * B * H * 4 * H * T
-    nbytes = 2.0 * (T * B * 4 * H + 4 * H * H + T * B * H) + 4.0 * T * B * H
-    return _bound(flops, nbytes, BF16_PEAK)
-
-
-def lstm_bwd_bound(T, B, H):
+def lstm_bwd_bound(T, B, H, bf16=False):
     """Three products per step (the gate recompute, dh_{t-1} = dgates W_hh,
-    dW_hh += h_{t-1}^T dgates) against gx, dgx, hs, cs, dhs, dc_last,
-    W_hh and dW_hh moved once."""
+    dW_hh += h_{t-1}^T dgates) at the stream dtype's peak, against gx,
+    dgx, hs, dhs, W_hh (the stream dtype), cs, dc_last and dW_hh (f32)
+    moved once."""
+    item = 2.0 if bf16 else 4.0
     flops = 3 * 2.0 * B * H * 4 * H * T
-    nbytes = 4.0 * (2 * T * B * 4 * H + 3 * T * B * H + B * H
-                    + 2 * 4 * H * H)
-    return max(flops / F32_PEAK, nbytes / MEM_BW) * 1e3, \
-        "operations" if flops / F32_PEAK > nbytes / MEM_BW else "bytes"
+    nbytes = (item * (2 * T * B * 4 * H + 2 * T * B * H + 4 * H * H)
+              + 4.0 * (T * B * H + B * H + 4 * H * H))
+    return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
 
 
 def _bound(flops, nbytes, peak):
@@ -2230,7 +2302,8 @@ def time_fused_bwd(dev, report, T=160, H=512, cases=BWD_YARD_CASES,
     """K3-bwd and K4-bwd beside cuDNN's bf16 backward of the same layer,
     K1-bwd (name ``lstm_bwd``, In None) beside cuDNN's f32 backward of an
     In=H layer (its forward and backward less its forward; it also forms
-    dX and dW_ih), timed in turns in one run: median and spread of each,
+    dX and dW_ih), or on bf16 streams (``lstm_bwd_bf16``) beside cuDNN's
+    bf16 backward, timed in turns in one run: median and spread of each,
     the factor of the medians, microseconds a step, the bound; and the
     device time of cuDNN's backward kernels alone (profiler), which the
     host's launches do not stretch."""
@@ -2239,13 +2312,15 @@ def time_fused_bwd(dev, report, T=160, H=512, cases=BWD_YARD_CASES,
     g = torch.Generator(device=dev).manual_seed(32)
     out = {}
     for name, In, B in cases:
-        if name == "lstm_bwd":
-            prob = bwd_problem(g, dev, T, B, H, False)
+        if In is None:   # K1-bwd, "lstm_bwd" (f32) or "lstm_bwd_bf16"
+            bf16 = name.endswith("_bf16")
+            dt = torch.bfloat16 if bf16 else torch.float32
+            prob = bwd_problem(g, dev, T, B, H, False, bf16=bf16)
             fn = L.lstm_layer_bwd
-            cudnn = torch.nn.LSTM(H, H, 1).to(dev)
-            xg = torch.randn((T, B, H), generator=g, device=dev,
-                             requires_grad=True)
-            dy = torch.randn((T, B, H), generator=g, device=dev)
+            cudnn = torch.nn.LSTM(H, H, 1).to(dev, dt)
+            xg = torch.randn((T, B, H), generator=g, device=dev).to(
+                dt).requires_grad_()
+            dy = torch.randn((T, B, H), generator=g, device=dev).to(dt)
         else:
             prob = fused_bwd_problem(g, dev, T, B, In, H, False)
             fn = getattr(L, name)
@@ -2267,7 +2342,7 @@ def time_fused_bwd(dev, report, T=160, H=512, cases=BWD_YARD_CASES,
         km, ym = statistics.median(ks), statistics.median(ys)
         dev_ms = (kernel_ms(lambda: cudnn(xg)[0].backward(dy))
                   - kernel_ms(lambda: cudnn(xg)))
-        b_ms, b_by = (lstm_bwd_bound(T, B, H) if name == "lstm_bwd"
+        b_ms, b_by = (lstm_bwd_bound(T, B, H, bf16=bf16) if In is None
                       else semi_bwd_bound(T, B, In, H)
                       if name == "lstm_semi_bwd"
                       else fused_bwd_bound(T, B, In, H))
@@ -2281,8 +2356,8 @@ def time_fused_bwd(dev, report, T=160, H=512, cases=BWD_YARD_CASES,
         out[key] = row
         report(f"  {key} T={T}: {km:.4f} ms median "
                f"({min(ks):.4f}-{max(ks):.4f}; {row['us_a_step']:.2f} us a "
-               f"step); cuDNN {'f32' if In is None else 'bf16'} layer "
-               f"fwd+bwd less fwd, in turns, "
+               f"step); cuDNN {'f32' if name == 'lstm_bwd' else 'bf16'} "
+               "layer fwd+bwd less fwd, in turns, "
                f"{ym:.4f} median ({min(ys):.4f}-{max(ys):.4f}); factor "
                f"{km / ym:.3f}; cuDNN's backward kernels alone {dev_ms:.4f} "
                f"(profiler; factor {fk:.3f}); bound {b_ms:.4f} by {b_by}")
@@ -2300,14 +2375,17 @@ def time_fwd_yard(dev, report, cases, T=160, H=512, rounds=FWD_YARD_ROUNDS):
     g = torch.Generator(device=dev).manual_seed(33)
     out = {}
     for name, In, B in cases:
-        if name == "lstm_fwd":
-            gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
-            w = (torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1) \
-                / H ** 0.5
+        if In is None:   # K1-fwd, "lstm_fwd" (f32) or "lstm_fwd_bf16"
+            bf16 = name.endswith("_bf16")
+            dt = torch.bfloat16 if bf16 else torch.float32
+            gx = (torch.randn((T, B, 4 * H), generator=g, device=dev)
+                  * 0.5).to(dt)
+            w = ((torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1)
+                 / H ** 0.5).to(dt)
             fn = lambda: L.lstm_layer_fwd(gx, w, False)
-            cudnn = torch.nn.LSTM(H, H, 1).to(dev)
-            x = torch.randn((T, B, H), generator=g, device=dev)
-            b_ms, b_by = lstm_bound(T, B, H)
+            cudnn = torch.nn.LSTM(H, H, 1).to(dev, dt)
+            x = torch.randn((T, B, H), generator=g, device=dev).to(dt)
+            b_ms, b_by = lstm_bound(T, B, H, bf16=bf16)
             key = f"{name} B={B}"
         else:
             prob = fused_problem(g, dev, T, B, In, H)
@@ -2332,7 +2410,8 @@ def time_fwd_yard(dev, report, cases, T=160, H=512, rounds=FWD_YARD_ROUNDS):
                     "bound_ms": b_ms, "bound_by": b_by}
         report(f"  {key} T={T}: {km:.4f} ms median ({min(ks):.4f}-"
                f"{max(ks):.4f}; {km * 1e3 / T:.2f} us a step); cuDNN "
-               f"{'f32' if In is None else 'bf16'} layer forward incl. input "
+               f"{'f32' if name == 'lstm_fwd' else 'bf16'} layer forward "
+               "incl. input "
                f"projection, in turns, {ym:.4f} median ({min(ys):.4f}-"
                f"{max(ys):.4f}); factor {km / ym:.3f}; cuDNN's forward "
                f"kernels alone {dev_ms:.4f} (profiler; factor {fk:.3f}); "
@@ -2488,65 +2567,77 @@ def time_amp_vae(dev, report, B=256, T=160, L=8):
     return out
 
 
-def time_lstm_fc(dev, report, model, batch, first_noise, errs, counts):
+def time_lstm_fc(dev, report, model, batch, first_noise, errs, counts,
+                 amp=False):
     """Phase 4 for LSTM_FC: both wide kernels at H=1024, B=64, T=160 in
-    turns with cuDNN's f32 layer (forward; forward and backward less
-    forward) and its profiled kernels, their plain versions and bounds; the
-    eval step and the f32 train step (ms, utt-sec/sec) and a profile of
-    each. Returns the kernels' rows and the steps' numbers."""
+    turns with cuDNN's layer of the same dtype (forward; forward and
+    backward less forward) and its profiled kernels, their plain versions
+    and bounds; the eval step and the f32 train step (ms, utt-sec/sec) and
+    a profile of each. ``amp``: the bf16 builds beside cuDNN's bf16 layer,
+    and the AMP train step and its profile (no eval step: it stays f32).
+    Returns the kernels' rows and the steps' numbers."""
     import torch
     from mlvae_tpu_torch.ops.lstm import lstm_layer_bwd_ref, lstm_layer_ref
     T, B, H = 160, 64, WIDE_H
-    fwd = time_fwd_yard(dev, report, (("lstm_fwd", None, B),), T=T, H=H)
+    sfx = "_bf16" if amp else ""
+    fwd = time_fwd_yard(dev, report, ((f"lstm_fwd{sfx}", None, B),), T=T,
+                        H=H)
     bwd = time_fused_bwd(dev, report, T=T, H=H,
-                         cases=(("lstm_bwd", None, B),))
+                         cases=((f"lstm_bwd{sfx}", None, B),))
     g = torch.Generator(device=dev).manual_seed(43)
-    prob = bwd_problem(g, dev, T, B, H, False)
+    prob = bwd_problem(g, dev, T, B, H, False, bf16=amp)
     fwd_plain = cuda_ms(lambda: lstm_layer_ref(*prob[:2]), iters=3, warmup=1)
     bwd_plain = cuda_ms(lambda: lstm_layer_bwd_ref(*prob), iters=2, warmup=1)
-    f_bound, f_by = lstm_bound(T, B, H)
-    b_bound, b_by = lstm_bwd_bound(T, B, H)
-    f_row, b_row = fwd[f"lstm_fwd B={B}"], bwd[f"lstm_bwd B={B}"]
-    report(f"  lstm_fwd_wide H={H}: {f_row['ms']:.4f} ms (plain "
-           f"{fwd_plain:.4f}, cuDNN f32 layer with its input projection in "
+    f_bound, f_by = lstm_bound(T, B, H, bf16=amp)
+    b_bound, b_by = lstm_bwd_bound(T, B, H, bf16=amp)
+    f_row, b_row = fwd[f"lstm_fwd{sfx} B={B}"], bwd[f"lstm_bwd{sfx} B={B}"]
+    dt = "bf16" if amp else "f32"
+    report(f"  lstm_fwd_wide{sfx} H={H}: {f_row['ms']:.4f} ms (plain "
+           f"{fwd_plain:.4f}, cuDNN {dt} layer with its input projection in "
            f"turns {f_row['cudnn_ms']:.4f}, its kernels alone "
            f"{f_row['cudnn_kernels_ms']:.4f}, bound {f_bound:.4f} by {f_by})")
-    report(f"  lstm_bwd_wide H={H}: {b_row['ms']:.4f} ms (plain "
-           f"{bwd_plain:.4f}, cuDNN f32 backward in turns "
+    report(f"  lstm_bwd_wide{sfx} H={H}: {b_row['ms']:.4f} ms (plain "
+           f"{bwd_plain:.4f}, cuDNN {dt} backward in turns "
            f"{b_row['cudnn_ms']:.4f}, its kernels alone "
            f"{b_row['cudnn_kernels_ms']:.4f}, bound {b_bound:.4f} by {b_by})")
 
     Bm, Tm = batch["feat"][0].shape[:2]
-    ev = cuda_ms(lambda: model.eval_step(batch), iters=10)
+    steps = {}
+    if not amp:
+        ev = cuda_ms(lambda: model.eval_step(batch), iters=10)
+        steps.update(eval_ms=ev,
+                     eval_utt_sec_per_sec=Bm * Tm * HOP_SEC / (ev / 1e3))
+        report(f"  LSTM_FC eval step B={Bm} T={Tm}: {ev:.3f} ms "
+               f"({steps['eval_utt_sec_per_sec']:.1f} utt-sec/sec)")
     tr = cuda_ms(lambda: model.fit_batch(batch, 1, noise=first_noise),
                  iters=5, warmup=1)
-    steps = {"eval_ms": ev, "eval_utt_sec_per_sec": Bm * Tm * HOP_SEC
-             / (ev / 1e3), "train_ms": tr,
-             "train_utt_sec_per_sec": Bm * Tm * HOP_SEC / (tr / 1e3)}
-    report(f"  LSTM_FC eval step B={Bm} T={Tm}: {ev:.3f} ms "
-           f"({steps['eval_utt_sec_per_sec']:.1f} utt-sec/sec); f32 train "
-           f"step {tr:.3f} ms ({steps['train_utt_sec_per_sec']:.1f} "
-           "utt-sec/sec)")
-    steps["eval_profile"] = profile_step(lambda: model.eval_step(batch),
-                                         "LSTM_FC eval step", report)
+    steps.update(train_ms=tr,
+                 train_utt_sec_per_sec=Bm * Tm * HOP_SEC / (tr / 1e3))
+    if not amp:
+        steps["eval_profile"] = profile_step(lambda: model.eval_step(batch),
+                                             "LSTM_FC eval step", report)
+    label = "AMP" if amp else "f32"
+    report(f"  LSTM_FC {label} train step B={Bm} T={Tm}: {tr:.3f} ms "
+           f"({steps['train_utt_sec_per_sec']:.1f} utt-sec/sec)")
     steps["train_profile"] = profile_step(
         lambda: model.fit_batch(batch, 1, noise=first_noise),
-        "LSTM_FC f32 train step", report)
+        f"LSTM_FC {label} train step", report)
+    wide = errs[f"lstm_wide{sfx}"]
     kernels = [
-        dict(name="lstm_fwd_wide", route="cuda",
+        dict(name=f"lstm_fwd_wide{sfx}", route="cuda",
              source="mlvae_tpu_torch/csrc/lstm_fwd_wide.cu",
              replaces="mlvae_tpu/ops/lstm_pallas.py:87",
-             max_abs_err=errs["lstm_wide"]["fwd"], ms=f_row["ms"],
+             max_abs_err=wide["fwd"], ms=f_row["ms"],
              plain_ms=fwd_plain, bound_ms=f_bound, bound_by=f_by,
              library_ms=f_row["cudnn_ms"], interleaved=fwd,
-             **counts["lstm_fwd_wide"]),
-        dict(name="lstm_bwd_wide", route="cuda",
+             **counts[f"lstm_fwd_wide{sfx}"]),
+        dict(name=f"lstm_bwd_wide{sfx}", route="cuda",
              source="mlvae_tpu_torch/csrc/lstm_bwd_wide.cu",
              replaces="mlvae_tpu/ops/lstm_pallas.py:115",
-             max_abs_err=errs["lstm_wide"]["bwd"], ms=b_row["ms"],
+             max_abs_err=wide["bwd"], ms=b_row["ms"],
              plain_ms=bwd_plain, bound_ms=b_bound, bound_by=b_by,
              library_ms=b_row["cudnn_ms"], interleaved=bwd,
-             **counts["lstm_bwd_wide"])]
+             **counts[f"lstm_bwd_wide{sfx}"])]
     return kernels, steps
 
 
@@ -2653,8 +2744,8 @@ def time_unroll(dev, report, res, errs, counts):
             x.to(bf), w_ih.to(bf), bias, w_hh.to(bf), False, K), iters=2,
             warmup=1)}
     arms = {(a["arm"], a["dtype"]): a for a in res["arms"] if "K" in a}
-    bounds = {("plain", "f32"): unroll_fwd_bound(T, B, H, False),
-              ("plain", "bf16"): unroll_fwd_bound(T, B, H, True),
+    bounds = {("plain", "f32"): lstm_bound(T, B, H),
+              ("plain", "bf16"): lstm_bound(T, B, H, bf16=True),
               ("fused", "bf16"): fused_fwd_bound(T, B, In, H)}
     for key, a in arms.items():
         b_ms, b_by = bounds[key]
@@ -2962,7 +3053,11 @@ def main(argv=None) -> int:
     from mlvae_tpu_torch.ops import (decode, fbank, gru, lstm,  # noqa: F401
                                      lstm_unroll_exp)
 
+    t_start = time.perf_counter()
+
     def report(line):
+        if line.startswith("phase "):   # each phase's start, in seconds
+            line += f" [{time.perf_counter() - t_start:.1f} s]"
         print(line, flush=True)
 
     dev = resolve_device(None)
@@ -2988,6 +3083,8 @@ def main(argv=None) -> int:
                                            args.lstm_bwd_repeats))
     errs["lstm_wide"] = check_lstm_wide(dev, report)
     stress_lstm_wide(dev, report)
+    errs["lstm_wide_bf16"] = check_lstm_wide(dev, report, bf16=True)
+    stress_lstm_wide(dev, report, WIDE_BF16_REPEATS, bf16=True)
     prob, errs_viterbi = check_viterbi(dev, report)
     errs.update(errs_viterbi)
     errs["lstm_fused_fwd"] = check_fused_fwd(dev, report)
@@ -3030,12 +3127,18 @@ def main(argv=None) -> int:
            "FC 1024-64-64-2, B=64, T=160): the TEST eval step and two f32 "
            "training steps")
     fc_model, fc_batch, fc_noise, fc_counts = run_lstm_fc(dev, report)
+    report(f"phase 3 LSTM_FC's AMP (bf16) training step at full width (H="
+           f"{WIDE_H}, 4 layers, B=64, T=160), two steps")
+    fc_amp_model, _, fc_amp_noise, fc_amp_counts = run_lstm_fc(
+        dev, report, amp=True)
     # the paths' launches: the eval forward's, the wav-in path's, the six
     # f32 and six AMP MD_VAE train steps', the four gate-3 steps', the
-    # unroll path's and LSTM_FC's eval and two train steps'
+    # unroll path's, LSTM_FC's eval and two f32 train steps' and its two
+    # AMP train steps'
     counts = {k: {"launches": eval_counts[k] + wav_counts[k]
                   + train_counts[k] + amp_counts[k] + gate_counts[k]
-                  + amp_gate_counts[k] + unroll_counts[k] + fc_counts[k],
+                  + amp_gate_counts[k] + unroll_counts[k] + fc_counts[k]
+                  + fc_amp_counts[k],
                   "launches_eval_step": eval_counts[k],
                   "launches_wav_in": wav_counts[k],
                   "launches_training": train_counts[k],
@@ -3043,7 +3146,8 @@ def main(argv=None) -> int:
                   "launches_gate3": gate_counts[k],
                   "launches_amp_gate3": amp_gate_counts[k],
                   "launches_unroll": unroll_counts[k],
-                  "launches_lstm_fc": fc_counts[k]}
+                  "launches_lstm_fc": fc_counts[k],
+                  "launches_lstm_fc_amp": fc_amp_counts[k]}
               for k in eval_counts}
     check(all(c["launches"] > 0 for c in counts.values()),
           f"a kernel of the path never launched: {counts}")
@@ -3075,9 +3179,16 @@ def main(argv=None) -> int:
     fc_kernels, lstm_fc = time_lstm_fc(dev, report, fc_model, fc_batch,
                                        fc_noise, errs, counts)
     kernels += fc_kernels
+    del fc_model
+    fc_amp_kernels, lstm_fc_amp = time_lstm_fc(
+        dev, report, fc_amp_model, fc_batch, fc_amp_noise, errs, counts,
+        amp=True)
+    kernels += fc_amp_kernels
+    del fc_amp_model
     lstm_fc["plans"] = plans
+    report("phase 5 the kernels line, the card and the result")
     report(json.dumps({"kernels": kernels, "eval_step": step,
-                       "lstm_fc": lstm_fc,
+                       "lstm_fc": lstm_fc, "lstm_fc_amp": lstm_fc_amp,
                        "wav_in": wav_in, "train_step": train_step,
                        "amp_train_step": amp_step,
                        "gate3_train_step": gate3_step,

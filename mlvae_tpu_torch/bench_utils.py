@@ -134,7 +134,7 @@ def synth_batch(batch_size: int = 8, T: int = 160, L: int = 8,
 
 
 # LSTM_FC at the widths of mlvae_tpu/models/LSTM_FC/model.yaml: fbank with
-# deltas in, a 4-layer f32 LSTM at H=1024 with dropout 0.1 between layers,
+# deltas in, a 4-layer LSTM at H=1024 with dropout 0.1 between layers,
 # FCBlock [1024, 64, 64, 2], BCE with the mispronunciation logit weighted
 # 10, Adam at the recipe's lr 1.0
 LSTM_FC_RECIPE = {
@@ -149,17 +149,19 @@ LSTM_FC_RECIPE = {
 
 
 def build_lstm_fc(batch_size: int = 8, overrides=None, seed: int = 0,
-                  device=None) -> LSTMFC:
+                  device=None, bf16: bool = False) -> LSTMFC:
     """LSTM_FC at ``LSTM_FC_RECIPE``'s widths with weights drawn from
     ``seed`` on ``device`` (None means CUDA), its optimizer states
     initialised. ``overrides`` changes any width (``fc_sizes[0]`` must be
-    ``lstm_hidden_size``)."""
+    ``lstm_hidden_size``). ``bf16`` turns AMP on for the training step, as
+    the JAX bench's ``--bf16`` does; the eval step stays f32."""
     dev = resolve_device(device)
     hparams = dict(LSTM_FC_RECIPE, batch_size=batch_size)
     hparams.update(overrides or {})
     hparams.setdefault("optimizer", Adam(lr=hparams["lr"]))
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    model = LSTMFC(hparams, generator=gen).to(dev).eval()
+    model = LSTMFC(hparams, generator=gen, run_opts={"bf16": bf16}).to(
+        dev).eval()
     model.init_optimizers()
     return model
 

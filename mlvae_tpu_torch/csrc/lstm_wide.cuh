@@ -31,10 +31,19 @@
 // [ks][row][32], which reuses the ring once its last chunk is read; one
 // pass adds them in slice order and lays the sums out by cell thread. The
 // order of every sum is fixed, so repeated launches are bit-equal.
+//
+// The streams (gx, W_hh, hs, dhs, dgx) are f32 or bf16 (stream_dtype.cuh);
+// everything in shared memory, the h_{t-1} slab, the carries and the sums
+// stay f32. A bf16 W_hh or h_{t-1} widens to f32 exactly, and a product of
+// two such values is exact in f32, so the bf16 builds run the same f32
+// FMAs and differ from the f32 ones only in their loads, stores and
+// rounding points.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "stream_dtype.cuh"
 
 namespace wide {
 
@@ -92,19 +101,20 @@ __device__ __forceinline__ int w_slot(int k, int q) {
   return k * (ROWS / 4) + (q ^ ((k >> 2) & 7));
 }
 
-// this block's 32 rows of W_hh into w_s
-__device__ inline void load_w(float* w_s, const float* __restrict__ w_hh,
-                              int H, int u0) {
+// this block's 32 rows of W_hh into w_s, widened to f32
+template <typename T>
+__device__ inline void load_w(float* w_s, const T* __restrict__ w_hh, int H,
+                              int u0) {
   for (int idx = threadIdx.x; idx < ROWS * H; idx += THREADS) {
     const int k = idx % H;
     const int r = idx / H;  // gate * 8 + unit
     const int gate = r / UNITS, unit = r % UNITS;
     w_s[w_slot(k, r >> 2) * 4 + (r & 3)] =
-        w_hh[(size_t)(gate * H + u0 + unit) * H + k];
+        stream_dtype::to_f32(w_hh[(size_t)(gate * H + u0 + unit) * H + k]);
   }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   const unsigned int d =
       static_cast<unsigned int>(__cvta_generic_to_shared(dst));

@@ -10,10 +10,13 @@ travel with its checkpoints, and, as the JAX recipe, never applies it.
 The BCE puts ``misp_weight`` on the second (mispronunciation) logit and is
 the log-sigmoid form, finite at any logit, masked by the relative lengths.
 
-At f32 every LSTM layer runs K1 (``ops.lstm.LSTMRecurrence``): at the
-recipe's H=1024 the wide K1-fwd and K1-bwd. The training step's only
-draws are the LSTM's dropout keep-masks, one (T, B, H) mask a gap between
-layers (``draws``).
+Every LSTM layer runs K1 (``ops.lstm.LSTMRecurrence``): at the recipe's
+H=1024 the wide K1-fwd and K1-bwd, the f32 build (``lstm_fwd_wide``,
+``lstm_bwd_wide``) in the eval step and the f32 train step, the bf16
+build (``lstm_fwd_wide_bf16``, ``lstm_bwd_wide_bf16``) in the AMP train
+step (``run_opts["bf16"]``), where no layer fits a fused tier. The
+training step's only draws are the LSTM's dropout keep-masks, one
+(T, B, H) mask a gap between layers (``draws``).
 """
 from __future__ import annotations
 

@@ -11,7 +11,8 @@ package's ``_lstm_layer`` picks (``mlvae_tpu/nn/rnn.py:150-223``):
   ``torch.matmul`` outside the recurrence, as the JAX package leaves it to
   XLA, and the recurrence is ``ops.lstm.LSTMRecurrence`` (K1-fwd forward,
   K1-bwd backward on the card), so autograd gives dX, dW_ih and the
-  biases from its dgx as XLA does from the Pallas kernel's;
+  biases from its dgx as XLA does from the Pallas kernel's; W_hh enters
+  it in the stream dtype;
 - a bf16 stream (AMP) takes the fused input projection:
   ``ops.lstm.LSTMFused`` (K3) where ``fused_eligible`` holds for the input
   width padded to a multiple of 128, else ``LSTMSemiFused`` (K4) where
@@ -19,11 +20,15 @@ package's ``_lstm_layer`` picks (``mlvae_tpu/nn/rnn.py:150-223``):
   exactly where the JAX package pads (the pad's backward slices dW_ih
   back), the bias is ``b_ih + b_hh`` summed in the stream dtype and then
   cast to f32, W_hh is cast to the stream dtype, and hs and the final
-  states come back in it. A bf16 layer that neither predicate admits is
-  refused. The JAX package also leaves the kernels for a bf16-carry
-  ``lax.scan`` when B is not a multiple of 16 (``_pallas_eligible``): that
-  is a TPU tiling limit, not semantics, and the port keeps its kernels for
-  every B.
+  states come back in it. A bf16 layer that neither predicate admits
+  takes K1 as an f32 one does, on bf16 gx, W_hh and hs, where H % 128 == 0
+  (LSTM_FC's four H=1024 layers: the wide K1 builds); with another H it
+  is refused, since the JAX package then runs a bf16-carry ``lax.scan``
+  (``mlvae_tpu/nn/rnn.py:225-239``) that the port does not have
+  (``ROADMAP.md`` queue 1 item 4). The JAX package also leaves the
+  kernels for a bf16-carry ``lax.scan`` when B is not a multiple of 16
+  (``_pallas_eligible``): that is a TPU tiling limit, not semantics, and
+  the port keeps its kernels for every B.
 
 The stack runs time-major, with one transpose in and one out. A
 bidirectional layer outputs ``[fwd, bwd]``; the reverse direction is
@@ -63,7 +68,9 @@ def fused_tier(In: int, H: int, dtype):
     """The fused kernel a ``dtype`` stream of input width ``In`` takes
     (``LSTMFused`` or ``LSTMSemiFused``), or None for K1. Only bf16 streams
     take one, as the JAX package's default ``MLVAE_PALLAS_FUSED=auto``
-    does."""
+    does; a bf16 layer outside both tiers takes K1 where H % 128 == 0, as
+    the JAX package's Pallas ``lstm_layer`` does, and is refused
+    otherwise."""
     if dtype != torch.bfloat16:
         return None
     In_pad = -(-In // LANE) * LANE
@@ -71,10 +78,14 @@ def fused_tier(In: int, H: int, dtype):
         return LSTMFused
     if semifused_eligible(In_pad, H, dtype):
         return LSTMSemiFused
+    if H % LANE == 0:
+        return None
     raise NotImplementedError(
         f"a bf16 LSTM layer of input width {In} and H={H} is outside both "
-        "fused tiers (In and H multiples of 128 within the budget); the "
-        "port has no bf16 K1 path")
+        "fused tiers (In and H multiples of 128 within the budget) and K1's "
+        "(H a multiple of 128); the JAX package runs it as a bf16-carry "
+        "lax.scan (mlvae_tpu/nn/rnn.py:225-239), which the port does not "
+        "have (ROADMAP.md queue 1 item 4)")
 
 
 class _Stack(nn.Module):
@@ -179,8 +190,8 @@ class LSTM(_Stack):
                 else:
                     gx = self._gates(out, sfx, folded=self.bidirectional)
                     hs, c_last = LSTMRecurrence.apply(
-                        gx.contiguous(), getattr(self, f"weight_hh_{sfx}"),
-                        d == 1)
+                        gx.contiguous(), getattr(self, f"weight_hh_{sfx}").to(
+                            gx.dtype).contiguous(), d == 1)
                 # final state after the last PROCESSED step (t=0 reversed)
                 last_h.append(hs[0] if d == 1 else hs[-1])
                 last_c.append(c_last.to(x.dtype))

@@ -1,4 +1,4 @@
-"""The launch plan of the f32 LSTM recurrence kernels K1-fwd and K1-bwd.
+"""The launch plan of the LSTM recurrence kernels K1-fwd and K1-bwd.
 
 For a hidden width H and a batch B, ``k1_fwd_plan`` and ``k1_bwd_plan``
 say which build runs and how it is laid out: the variant, the hidden units
@@ -8,19 +8,22 @@ copies is. The launch code in ``csrc/`` computes the same numbers; the
 ``*_plan`` entry points of the wide builds return theirs, and
 ``chip_smoke.py`` holds them against these.
 
-- ``narrow`` (H <= 528; ``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``): four
-  units a block, so H/4 blocks, every one resident on its own SM of an
-  H100's 132. K1-fwd's ring holds ``ring`` TMA copies of H/16 x 64 floats
-  per K slice; K1-bwd stages all of h_{t-1} for 64 batch rows at once and
-  holds W_hh's and dW_hh's rows for ``cols`` columns of H a thread.
+- ``narrow`` (H <= 528; ``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``; f32
+  streams only): four units a block, so H/4 blocks, every one resident on
+  its own SM of an H100's 132. K1-fwd's ring holds ``ring`` TMA copies of
+  H/16 x 64 floats per K slice; K1-bwd stages all of h_{t-1} for 64 batch
+  rows at once and holds W_hh's and dW_hh's rows for ``cols`` columns of H
+  a thread.
 - ``wide`` (528 < H <= 1024; ``csrc/lstm_fwd_wide.cu``,
   ``csrc/lstm_bwd_wide.cu``): eight units a block, so H/8 <= 128 blocks,
   W_hh's 32 rows of the block in shared memory (128 KB at H=1024), and
   h_{t-1} staged in chunks of ``CHUNK`` rows of k x 64 batch columns
   through a ring of ``WIDE_RING`` buffers (``cp.async``), since all of it
-  (256 KB at B=64) does not fit beside W_hh.
+  (256 KB at B=64) does not fit beside W_hh. Its bf16-stream entry points
+  keep the same layout (W_hh and h_{t-1} widened to f32 in shared
+  memory), so the plan holds for both stream dtypes.
 
-No recipe of the repo has an f32 LSTM wider than 1024; a wider H is
+No recipe of the repo has an LSTM on K1 wider than 1024; a wider H is
 refused (``ROADMAP.md`` queue 2, "Still to port").
 
 Only integers here: the CPU tests import it.
@@ -34,7 +37,7 @@ SMEM_LIMIT = 232448   # an H100 block's dynamic shared memory, bytes
 SMS = 132             # an H100 SXM's streaming multiprocessors
 BT = 64               # batch rows a tile
 NARROW_MAX_H = 528    # H/4 blocks, one an SM
-WIDE_MAX_H = 1024     # the widest f32 LSTM of any recipe (LSTM_FC)
+WIDE_MAX_H = 1024     # the widest LSTM on K1 of any recipe (LSTM_FC)
 
 # the narrow builds (csrc/lstm_fwd.cu, csrc/lstm_bwd.cu)
 NARROW_UNITS = 4
@@ -66,8 +69,8 @@ def _check(H: int, B: int) -> None:
     if H > WIDE_MAX_H:
         raise NotImplementedError(
             f"K1: H={H} is above {WIDE_MAX_H}, the widest the port's K1 "
-            "kernels take; wider f32 LSTMs are ROADMAP.md queue 2, 'Still "
-            "to port'")
+            "kernels take; wider LSTMs are ROADMAP.md queue 2, 'Still to "
+            "port'")
 
 
 def narrow_fwd_smem_bytes(H: int, nq: int) -> int:
@@ -109,7 +112,7 @@ def wide_bwd_smem_bytes(H: int) -> int:
 
 @lru_cache(maxsize=None)
 def k1_fwd_plan(H: int, B: int) -> K1Plan:
-    """K1-fwd's plan for a (T, B, 4H) f32 layer."""
+    """K1-fwd's plan for a (T, B, 4H) layer, f32 or bf16 streams."""
     _check(H, B)
     if H <= NARROW_MAX_H:
         nq = narrow_fwd_ring_depth(H, B)

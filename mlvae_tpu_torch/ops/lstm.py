@@ -4,14 +4,15 @@ seams between them.
 Two families, as in ``mlvae_tpu/ops/lstm_pallas.py``:
 
 - **Over precomputed gates** (K1-fwd, K1-bwd; ``_run_fwd``, ``_run_bwd``
-  and the ``lstm_layer`` custom VJP), the f32 path: the input projection
-  ``x @ W_ih^T + b`` stays outside (a plain ``torch.matmul``), and the
-  recurrence ``gates = gx[t] + h_{t-1} @ W_hh^T`` runs here.
-  ``lstm_layer_fwd`` / ``lstm_layer_bwd`` run, for CUDA tensors, the
-  build that ``ops.k1_plan`` picks for H: ``csrc/lstm_fwd.cu`` /
-  ``csrc/lstm_bwd.cu`` up to H=528, ``csrc/lstm_fwd_wide.cu`` /
-  ``csrc/lstm_bwd_wide.cu`` above it up to H=1024 (a wider H is refused),
-  and ``lstm_layer_ref`` / ``lstm_layer_bwd_ref`` for CPU tensors only;
+  and the ``lstm_layer`` custom VJP), the f32 path and the bf16 layers
+  that miss both fused tiers: the input projection ``x @ W_ih^T + b``
+  stays outside (a plain ``torch.matmul``), and the recurrence ``gates =
+  gx[t] + h_{t-1} @ W_hh^T`` runs here. ``lstm_layer_fwd`` /
+  ``lstm_layer_bwd`` run, for CUDA tensors, the build that ``ops.k1_plan``
+  picks for H: ``csrc/lstm_fwd.cu`` / ``csrc/lstm_bwd.cu`` up to H=528
+  (f32 streams only), ``csrc/lstm_fwd_wide.cu`` / ``csrc/lstm_bwd_wide.cu``
+  above it up to H=1024 (f32 or bf16 streams; a wider H is refused), and
+  ``lstm_layer_ref`` / ``lstm_layer_bwd_ref`` for CPU tensors only;
   ``LSTMRecurrence`` joins them.
 - **Fused input projection** (K3/K4-fwd, K3-bwd, K4-bwd;
   ``_run_fwd_fused``, ``_run_bwd_fused``, ``_run_bwd_semi`` and the
@@ -50,6 +51,13 @@ LSTM_FWD_WIDE = _build.register(_build.Kernel(
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]))
 LSTM_BWD_WIDE = _build.register(_build.Kernel(
     "lstm_bwd_wide", "lstm_bwd_wide", "mlvae_lstm_bwd_wide",
+    [_P] * 12 + [_I, _I, _I, _I, _P]))
+# the wide builds' bf16-stream entry points, counted apart from the f32 ones
+LSTM_FWD_WIDE_BF16 = _build.register(_build.Kernel(
+    "lstm_fwd_wide_bf16", "lstm_fwd_wide", "mlvae_lstm_fwd_wide_bf16",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]))
+LSTM_BWD_WIDE_BF16 = _build.register(_build.Kernel(
+    "lstm_bwd_wide_bf16", "lstm_bwd_wide", "mlvae_lstm_bwd_wide_bf16",
     [_P] * 12 + [_I, _I, _I, _I, _P]))
 LSTM_FUSED_FWD = _build.register(_build.Kernel(
     "lstm_fused_fwd", "lstm_fused_fwd", "mlvae_lstm_fused_fwd",
@@ -110,15 +118,21 @@ def lstm_layer_ref(gx: torch.Tensor, w_hh: torch.Tensor,
 def lstm_layer_bwd_ref(gx: torch.Tensor, w_hh: torch.Tensor,
                        hs: torch.Tensor, cs: torch.Tensor, dhs: torch.Tensor,
                        dc_last: torch.Tensor, reverse: bool = False):
-    """Plain BPTT (the work of K1-bwd): the saved trajectories hs, cs
-    (T, B, H), the cotangents dhs (T, B, H) and dc_last (B, H) of the final
-    cell state -> (dgx (T, B, 4H) in gx's dtype, dW_hh (4H, H) f32).
+    """Plain BPTT (the work of K1-bwd): the saved trajectories hs (T, B, H)
+    in gx's dtype and cs (T, B, H) f32, the cotangents dhs (T, B, H) and
+    dc_last (B, H) f32 of the final cell state -> (dgx (T, B, 4H) in gx's
+    dtype, dW_hh (4H, H) f32).
 
     Walks the processing order backward from dh = 0, dc = dc_last,
     recomputing the gates from ``hs`` (h_{t-1} = c_{t-1} = 0 at the first
-    processed step), with ``_bptt_dgates``' step math."""
+    processed step), with ``_bptt_dgates``' step math in f32. As the
+    Pallas kernel (``_bwd_recurrent_grads``), the dgates are rounded to the
+    weights' dtype before both products, dh_{t-1} = dgates @ W_hh and
+    dW_hh += dgates^T h_{t-1}, which sum in f32 (a no-op in f32); dgx
+    takes the f32 dgates rounded to gx's dtype."""
     T, B, G = gx.shape
     H = G // 4
+    wd = w_hh.dtype
     w = w_hh.float()
     w_t = w.t()
     dgx = gx.new_empty((T, B, G))
@@ -135,22 +149,43 @@ def lstm_layer_bwd_ref(gx: torch.Tensor, w_hh: torch.Tensor,
         dgates, dc = _bptt_dgates(gx[t].float() + h_prev @ w_t,
                                   cs[t].float(), c_prev, dh, dc, H)
         dgx[t] = dgates.to(dgx.dtype)
+        dgates = dgates.to(wd).float()
         dh = dgates @ w
         dw += dgates.t() @ h_prev
     return dgx, dw
 
 
-def _check_cuda_f32(name: str, tensors) -> None:
+def _stream_dtype(name: str, streams, f32s) -> torch.dtype:
+    """The one dtype of K1's streams (gx, W_hh, hs, dhs), f32 or bf16; the
+    cells and their cotangent (cs, dc_last) are f32."""
+    dtypes = {x.dtype for x in streams}
+    if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16}:
+        raise ValueError(f"{name}: the streams must share one dtype, f32 or "
+                         f"bf16 (got {sorted(str(d) for d in dtypes)})")
+    if any(x.dtype != torch.float32 for x in f32s):
+        raise ValueError(f"{name}: cs and dc_last must be f32")
+    return dtypes.pop()
+
+
+def _k1_kernel(name: str, plan, dtype, narrow, wide, wide_bf16):
+    """The kernel of ``plan``'s build for ``dtype`` streams, or a refusal:
+    the narrow builds take f32 streams only."""
+    if plan.variant == "wide":
+        return wide_bf16 if dtype == torch.bfloat16 else wide
+    if dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{name}: bf16 streams at H <= 528 need the narrow builds on "
+            "bf16 streams, which the port does not have yet (ROADMAP.md "
+            "queue 2, 'Still to port')")
+    return narrow
+
+
+def _check_cuda(name: str, tensors) -> None:
     dev = tensors[0].device
     if dev.type != "cuda" or any(x.device != dev for x in tensors):
         raise ValueError(f"{name}: tensors on "
                          f"{sorted({str(x.device) for x in tensors})}; all "
                          "must be on one CUDA device")
-    if any(x.dtype != torch.float32 for x in tensors):
-        raise NotImplementedError(
-            f"{name}: the kernel takes f32 only (got "
-            f"{sorted({str(x.dtype) for x in tensors})}); bf16 layers take "
-            "the fused kernels (LSTMFused, LSTMSemiFused)")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name}: every tensor must be contiguous")
 
@@ -162,15 +197,17 @@ def hbuf_pitch(B: int) -> int:
     return -(-B // 4) * 4
 
 
-def wide_plan(direction: str, H: int, B: int) -> dict:
+def wide_plan(direction: str, H: int, B: int, bf16: bool = False) -> dict:
     """What the wide build of ``direction`` ("fwd" or "bwd") computes for
-    its launch at H, B (``mlvae_lstm_{fwd,bwd}_wide_plan``): blocks,
-    threads, shared memory bytes, resident blocks an SM, ring buffers,
-    rows a chunk, registers and local memory bytes a thread. Builds the
-    library; needs the card. Not a launch: it counts nowhere."""
+    its launch at H, B on f32 or ``bf16`` streams
+    (``mlvae_lstm_{fwd,bwd}_wide[_bf16]_plan``): blocks, threads, shared
+    memory bytes, resident blocks an SM, ring buffers, rows a chunk,
+    registers and local memory bytes a thread. Builds the library; needs
+    the card. Not a launch: it counts nowhere."""
     kernel = LSTM_FWD_WIDE if direction == "fwd" else LSTM_BWD_WIDE
     fn = getattr(_build.library(kernel.source),
-                 f"mlvae_lstm_{direction}_wide_plan")
+                 f"mlvae_lstm_{direction}_wide{'_bf16' if bf16 else ''}"
+                 "_plan")
     fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 8)()
@@ -184,31 +221,34 @@ def wide_plan(direction: str, H: int, B: int) -> dict:
 
 def lstm_layer_fwd(gx: torch.Tensor, w_hh: torch.Tensor,
                    reverse: bool = False):
-    """K1-fwd: same contract as ``lstm_layer_ref``. CPU tensors take the
-    plain version; CUDA tensors launch the build ``k1_fwd_plan`` picks or
-    raise: the narrow one (four units a block, H/4 blocks all resident at
-    once) up to H=528, the wide one (eight units a block) above it up to
-    H=1024. An H that is not a multiple of 16 is refused, and one above
-    1024 raises ``NotImplementedError``."""
+    """K1-fwd: same contract as ``lstm_layer_ref``, gx and W_hh in one
+    stream dtype (f32 or bf16). CPU tensors take the plain version; CUDA
+    tensors launch the build ``k1_fwd_plan`` picks or raise: the narrow one
+    (four units a block, H/4 blocks all resident at once, f32 streams) up
+    to H=528, the wide one (eight units a block, f32 or bf16 streams) above
+    it up to H=1024. Mixed stream dtypes and an H that is not a multiple of
+    16 are refused (``ValueError``); bf16 streams at H <= 528 and an H
+    above 1024 raise ``NotImplementedError``."""
     if gx.device.type == "cpu":
         return lstm_layer_ref(gx, w_hh, reverse)
-    _check_cuda_f32("lstm_layer_fwd", (gx, w_hh))
+    dtype = _stream_dtype("lstm_layer_fwd", (gx, w_hh), ())
     if gx.dim() != 3 or gx.shape[2] % 4 or w_hh.shape != (gx.shape[2],
                                                          gx.shape[2] // 4):
         raise ValueError(f"lstm_layer_fwd: gx {tuple(gx.shape)} and w_hh "
                          f"{tuple(w_hh.shape)} are not (T, B, 4H), (4H, H)")
     T, B, G = gx.shape
     H = G // 4
-    plan = k1_fwd_plan(H, max(B, 1))
-    hs = torch.empty((T, B, H), device=gx.device, dtype=torch.float32)
-    cs = torch.empty_like(hs)
+    kernel = _k1_kernel("lstm_layer_fwd", k1_fwd_plan(H, max(B, 1)), dtype,
+                        LSTM_FWD, LSTM_FWD_WIDE, LSTM_FWD_WIDE_BF16)
+    _check_cuda("lstm_layer_fwd", (gx, w_hh))
+    hs = torch.empty((T, B, H), device=gx.device, dtype=dtype)
+    cs = torch.empty((T, B, H), device=gx.device, dtype=torch.float32)
     # h ping-pong buffer (rows padded to 16 bytes for the TMA) and the step
     # barrier's counter
     hbuf = torch.zeros((2, H, hbuf_pitch(B)), device=gx.device,
                        dtype=torch.float32)
     barrier = torch.zeros((1,), device=gx.device, dtype=torch.int32)
     if T and B:
-        kernel = LSTM_FWD if plan.variant == "narrow" else LSTM_FWD_WIDE
         kernel(gx.data_ptr(), w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
                hbuf.data_ptr(), barrier.data_ptr(), T, B, H, int(reverse),
                _build.stream_handle(gx.device))
@@ -245,14 +285,18 @@ def k1_bwd_hs_slab(hs: torch.Tensor) -> torch.Tensor:
 def lstm_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
                    cs: torch.Tensor, dhs: torch.Tensor,
                    dc_last: torch.Tensor, reverse: bool = False):
-    """K1-bwd: same contract as ``lstm_layer_bwd_ref``. CPU tensors take the
-    plain version; CUDA tensors launch the build ``k1_bwd_plan`` picks or
-    raise, as K1-fwd: narrow up to H=528, wide up to H=1024, an H that is
-    not a multiple of 16 refused and one above 1024 ``NotImplementedError``.
+    """K1-bwd: same contract as ``lstm_layer_bwd_ref``, gx, W_hh, hs and dhs
+    in one stream dtype (f32 or bf16), cs and dc_last f32. CPU tensors take
+    the plain version; CUDA tensors launch the build ``k1_bwd_plan`` picks
+    or raise, as K1-fwd: narrow up to H=528 (f32 streams), wide up to
+    H=1024 (f32 or bf16 streams), mixed stream dtypes and an H that is not
+    a multiple of 16 refused, bf16 streams at H <= 528 and an H above 1024
+    ``NotImplementedError``. dW_hh comes back f32 in either dtype.
     """
     if gx.device.type == "cpu":
         return lstm_layer_bwd_ref(gx, w_hh, hs, cs, dhs, dc_last, reverse)
-    _check_cuda_f32("lstm_layer_bwd", (gx, w_hh, hs, cs, dhs, dc_last))
+    dtype = _stream_dtype("lstm_layer_bwd", (gx, w_hh, hs, dhs),
+                          (cs, dc_last))
     T, B, G = gx.shape
     H = G // 4
     if (gx.dim() != 3 or G % 4 or w_hh.shape != (G, H)
@@ -265,6 +309,9 @@ def lstm_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
             f"{tuple(dc_last.shape)} are not (T, B, 4H), (4H, H), (T, B, H) "
             "and (B, H)")
     plan = k1_bwd_plan(H, max(B, 1))
+    kernel = _k1_kernel("lstm_layer_bwd", plan, dtype, LSTM_BWD,
+                        LSTM_BWD_WIDE, LSTM_BWD_WIDE_BF16)
+    _check_cuda("lstm_layer_bwd", (gx, w_hh, hs, cs, dhs, dc_last))
     if hs.data_ptr() % 16:
         raise ValueError("lstm_layer_bwd: hs must be 16-byte aligned (the "
                          "kernel reads it as float4)")
@@ -278,9 +325,9 @@ def lstm_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
         tail = (barrier.data_ptr(), T, B, H, int(reverse),
                 _build.stream_handle(gx.device))
         if plan.variant == "narrow":
-            LSTM_BWD(*head, *tail)
+            kernel(*head, *tail)
         else:
-            LSTM_BWD_WIDE(*head, k1_bwd_hs_slab(hs).data_ptr(), *tail)
+            kernel(*head, k1_bwd_hs_slab(hs).data_ptr(), *tail)
     return dgx, dw
 
 
@@ -289,8 +336,11 @@ class LSTMRecurrence(torch.autograd.Function):
     custom VJP): ``apply(gx, w_hh, reverse) -> (hs (T, B, H), c_last
     (B, H))``, c_last being the cell state after the last PROCESSED step
     (t=0 when ``reverse``). Forward is ``lstm_layer_fwd`` and saves
-    (w_hh, gx, hs, cs); backward is ``lstm_layer_bwd``. A cotangent that
-    autograd leaves undefined is zeros."""
+    (w_hh, gx, hs, cs); backward is ``lstm_layer_bwd``, whose f32 dW_hh
+    goes back in W_hh's dtype, rounded once (``_run_bwd``'s
+    ``dwhh.T.astype(w_hh.dtype)``). gx and W_hh share a stream dtype, f32
+    or bf16; hs comes back in it, c_last f32. A cotangent that autograd
+    leaves undefined is zeros."""
 
     @staticmethod
     def forward(ctx, gx, w_hh, reverse: bool):

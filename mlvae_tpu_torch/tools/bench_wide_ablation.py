@@ -56,8 +56,8 @@ ABLATIONS = {
         "for (int bb = 0; bb < 0; ++bb) {\n            const float4 hv")]),
     "bwd-dw_staging": ("lstm_bwd_wide", [(
         "lstm_bwd_wide.cu",
-        "    cp_async16(buf + (size_t)r * H + 4 * j,\n"
-        "               h + (size_t)(ok ? b : 0) * H + 4 * j, ok);", "")]),
+        "    cp_async16(buf + (size_t)r * H + E * j,\n"
+        "               h + (size_t)(ok ? b : 0) * H + E * j, ok);", "")]),
     "bwd-reduce": ("lstm_bwd_wide", [(
         "lstm_bwd_wide.cu", "for (int w = q4; w < nblk; w += 4) {",
         "for (int w = q4; w < 0; w += 4) {")]),
