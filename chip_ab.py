@@ -15,9 +15,10 @@ kernel's outputs (K1-bwd also at the ragged B=70) and of each train
 step's first loss; and, in a checkout that has them, the wide K1-fwd and
 K1-bwd at H=1024 (digests at B=64, K1-bwd also at B=70, and times) and
 LSTM_FC's f32 train step (time, digest of its first loss), and where they
-exist the same for the wide builds on bf16 streams and LSTM_FC's AMP
-train step. Each run prints one line ``AB <root> <JSON of ms and
-digests>``; the card's name and power limit come first. It compares
+exist the same for the wide builds on bf16 streams (K1-bwd's dW_hh also
+digested alone) and LSTM_FC's AMP train step. Each run prints one line
+``AB <root> <JSON of ms and digests>``; the card's name and power limit
+come first. It compares
 two versions of code that both checkouts have (a parent and its change):
 a change that may slow an earlier path is held against its parent here.
 ``--only lstm_bwd`` times K1-bwd alone (B=64, and its digests at B=64 and
@@ -77,7 +78,8 @@ def time_checkout(root: Path) -> dict:
     dev = resolve_device(None)
     _build.build([n for n in _build.SOURCES if n in (
         "lstm_fwd", "lstm_bwd", "lstm_fused_fwd", "lstm_fused_bwd",
-        "lstm_semi_bwd", "md_viterbi", "lstm_fwd_wide", "lstm_bwd_wide")])
+        "lstm_semi_bwd", "md_viterbi", "lstm_fwd_wide", "lstm_bwd_wide",
+        "lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16")])
     g = torch.Generator(device=dev).manual_seed(11)
     T, B, H = 160, 64, 512
     gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
@@ -188,8 +190,9 @@ def time_wide(cs, dev) -> dict:
 
 def time_wide_bf16(cs, dev, batch) -> dict:
     """The wide K1 builds on bf16 streams (H=1024): digests of K1-fwd's
-    outputs at B=64 and of K1-bwd's at B=64 and 70, their times; LSTM_FC's
-    AMP train step: the digest of its first loss and its time."""
+    outputs at B=64 and of K1-bwd's at B=64 and 70 (dgx and dW_hh
+    together, and dW_hh alone), their times; LSTM_FC's AMP train step:
+    the digest of its first loss and its time."""
     from mlvae_tpu_torch import bench_utils
     from mlvae_tpu_torch.ops import lstm as L
     import torch
@@ -197,11 +200,12 @@ def time_wide_bf16(cs, dev, batch) -> dict:
     g = torch.Generator(device=dev).manual_seed(14)
     bwd = cs.bwd_problem(g, dev, T, 64, H, False, bf16=True)
     bwd70 = cs.bwd_problem(g, dev, T, 70, H, False, bf16=True)
+    got, got70 = L.lstm_layer_bwd(*bwd, False), L.lstm_layer_bwd(*bwd70, False)
     out = {"digest_lstm_fwd_wide_bf16": digest(L.lstm_layer_fwd(*bwd[:2])),
-           "digest_lstm_bwd_wide_bf16": digest(L.lstm_layer_bwd(*bwd,
-                                                                False)),
-           "digest_lstm_bwd_wide_bf16_B70": digest(
-               L.lstm_layer_bwd(*bwd70, False)),
+           "digest_lstm_bwd_wide_bf16": digest(got),
+           "digest_lstm_bwd_wide_bf16_B70": digest(got70),
+           "digest_lstm_dw_wide_bf16": digest(got[1:]),
+           "digest_lstm_dw_wide_bf16_B70": digest(got70[1:]),
            "lstm_fwd_wide_bf16": cs.cuda_ms(
                lambda: L.lstm_layer_fwd(*bwd[:2]), iters=10),
            "lstm_bwd_wide_bf16": cs.cuda_ms(

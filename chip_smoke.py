@@ -9,9 +9,10 @@ Phases, each reported on its own line; any failure exits non-zero:
    compiled from this checkout, and the timing builds of K3-bwd, K4-bwd,
    K1-fwd and K3/K4-fwd, one ``nvcc`` per build in parallel), and the
    launch plan of the wide K1 builds (H above 528) at H=1024, 768 and 640,
-   and of their bf16 entry points at H=1024 and 640, as their C code
-   computes it (grid, threads, shared memory, blocks an SM holds,
-   registers) against ``ops.k1_plan``;
+   and of the bf16 builds (the tensor-core K1-fwd and K1-bwd, and K1-bwd's
+   dW_hh kernel) at H=1024 and 640, as their C code computes it (grid,
+   threads, shared memory, blocks an SM holds, registers, local bytes: 0
+   for the bf16 builds) against ``ops.k1_plan``;
 2. each kernel against its plain PyTorch version on the card, at the
    slices' shapes (B=64, T=160, H=512; the fused kernels at In=128, 512
    and 1024 as the AMP step gives them; the filterbank K6 in its Kaldi
@@ -38,12 +39,14 @@ Phases, each reported on its own line; any failure exits non-zero:
    (``lstm_fwd_wide``, ``lstm_bwd_wide``) at H=1024, B=64, T=160, at
    H=768 and 640, ragged B (1, 63, 65, 70), B=128, T=1 and 2, both
    directions, and 50 repeated launches of each per direction at
-   H=1024, B=64, each bit-equal to the first; the same wide kernels on
-   bf16 streams (``lstm_fwd_wide_bf16``, ``lstm_bwd_wide_bf16``) against
-   the plain versions in bf16 at H=1024 and 640, B=64 and 70, B=1, T=1
-   and 2, both directions (hs and dgx bf16, cs and dW_hh f32, at the
-   fused kernels' bf16 tolerances), and 50 repeated launches of each per
-   direction at H=1024, B=64, each bit-equal to the first;
+   H=1024, B=64, each bit-equal to the first; the wide builds on bf16
+   streams (``lstm_fwd_wide_bf16``, ``lstm_bwd_wide_bf16`` and its dW_hh
+   kernel ``lstm_dw_wide_bf16``) against the plain versions in bf16 at
+   H=1024 and 640, B=64 and 70, B=1, T=1 and 2, both directions (hs and
+   dgx bf16, cs and dW_hh f32, at the fused kernels' bf16 tolerances; the
+   dW_hh kernel also against its plain version on its own operands), and
+   repeated launches of each per direction at H=1024, B=64, each
+   bit-equal to the first;
 3. MD_VAE at the recipe's full width (H=512, B=64, T=160, L=8, weights
    from a seed) through the kernels: the TEST-target eval step (finite
    losses, decoded boundaries that sum to each utterance's phoneme count,
@@ -78,8 +81,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    scores) and two f32 training steps (4 + 4 wide launches a step, the
    first step's loss and grad norms against the plain versions, ``lstm``
    and ``fc`` moved); then its two AMP (bf16) training steps
-   (``build_lstm_fc(bf16=True)``: 4 + 4 launches of the bf16 wide builds a
-   step and no f32 K1 or fused kernel, the first step against the plain
+   (``build_lstm_fc(bf16=True)``: 4 + 4 + 4 launches of the bf16 wide
+   builds a step, K1-fwd, K1-bwd and its dW_hh kernel, and no f32 K1 or
+   fused kernel, the first step against the plain
    versions and its loss against the f32 step's from the same state and
    draws, f32 parameters and Adam states);
 4. times from CUDA events after warm-up: each kernel, its plain version,
@@ -108,8 +112,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    wide K1-fwd and K1-bwd at H=1024 in turns with cuDNN's f32 layer, their
    plain versions and bounds, LSTM_FC's eval and train steps (ms,
    utt-sec/sec) and a profile of each; the bf16 wide builds likewise in
-   turns with cuDNN's bf16 layer, and LSTM_FC's AMP train step and its
-   profile;
+   turns with cuDNN's bf16 layer, K1-bwd's dW_hh kernel beside one bf16
+   ``torch.matmul`` of its operands, and LSTM_FC's AMP train step and its
+   profile; the timelines include the bf16 wide builds' timing builds;
 5. a ``kernels`` JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -215,7 +220,7 @@ NO_UNROLL = {"lstm_unroll_fwd": 0, "lstm_unroll_fused_fwd": 0}
 # the wide K1 builds (H above 528), f32 and bf16, run on the LSTM_FC path
 # only
 NO_WIDE = {"lstm_fwd_wide": 0, "lstm_bwd_wide": 0, "lstm_fwd_wide_bf16": 0,
-           "lstm_bwd_wide_bf16": 0}
+           "lstm_bwd_wide_bf16": 0, "lstm_dw_wide_bf16": 0}
 PER_FORWARD = {"lstm_fwd": 10, "lstm_bwd": 0, "md_viterbi_lattice": 1,
                "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK, **NO_GRU,
                **NO_UNROLL, **NO_WIDE}
@@ -263,10 +268,11 @@ PER_GATE3_STEP = {**{k: 0 for k in PER_FORWARD}, "gru_fwd": 3, "gru_bwd": 3}
 PER_LSTM_FC_EVAL = {**{k: 0 for k in PER_FORWARD}, "lstm_fwd_wide": 4}
 PER_LSTM_FC_STEP = {**PER_LSTM_FC_EVAL, "lstm_bwd_wide": 4}
 # its AMP (bf16) train step: no layer fits a fused tier at H=1024, so every
-# layer takes the wide K1 builds on bf16 streams, and no f32 K1 or fused
-# kernel runs
+# layer takes the wide K1 builds on bf16 streams (K1-bwd: the recurrence,
+# then the dW_hh kernel), and no f32 K1 or fused kernel runs
 PER_LSTM_FC_AMP_STEP = {**{k: 0 for k in PER_FORWARD},
-                        "lstm_fwd_wide_bf16": 4, "lstm_bwd_wide_bf16": 4}
+                        "lstm_fwd_wide_bf16": 4, "lstm_bwd_wide_bf16": 4,
+                        "lstm_dw_wide_bf16": 4}
 LSTM_FC_ACTIVE = {"lstm", "fc"}
 ACTIVE = {
     "PHN_RECOG": {"phoneme_recognizer"},
@@ -571,36 +577,50 @@ WIDE_BF16_REPEATS = 50
 
 def wide_plans(dev, report):
     """Phase 1: the wide builds' launch plan as the C code computes it
-    (blocks, threads, shared memory, blocks an SM can hold, registers), f32
-    and bf16 (one shared-memory layout), against ``ops.k1_plan``, each
-    grid co-resident on this card."""
+    (blocks, threads, shared memory, blocks an SM can hold, registers,
+    local bytes), f32 and bf16 (the tensor-core builds, with K1-bwd's
+    dW_hh kernel ``dw``; K1-bwd at B=64, one tile and the split barrier,
+    and B=70, the tiles in series), against ``ops.k1_plan``, each
+    cooperative grid co-resident on this card, the bf16 builds without
+    spills."""
     import torch
     from mlvae_tpu_torch.ops import lstm as L
-    from mlvae_tpu_torch.ops.k1_plan import k1_bwd_plan, k1_fwd_plan
+    from mlvae_tpu_torch.ops.k1_plan import (k1_bwd_plan, k1_dw_plan,
+                                             k1_fwd_plan)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
-    for H, bf16 in ((1024, False), (768, False), (640, False), (1024, True),
-                    (640, True)):
-        for direction, plan_of in (("fwd", k1_fwd_plan), ("bwd", k1_bwd_plan)):
-            got = L.wide_plan(direction, H, 64, bf16=bf16)
-            want = plan_of(H, 64)
-            name = f"lstm_{direction}_wide{'_bf16' if bf16 else ''}"
-            out[f"{name} H={H}"] = got
-            report(f"  plan {name} H={H} B=64: grid "
-                   f"{got['blocks']} x {got['threads']} threads, shared "
-                   f"memory {got['smem_bytes']} B, ring {got['ring']} chunks "
-                   f"of {got['chunk']} rows, {got['blocks_per_sm']} block(s) "
-                   f"an SM resident (occupancy), {got['registers']} "
-                   f"registers, {got['local_bytes']} B local a thread; "
-                   f"{sms} SMs")
-            check(want.variant == "wide" and
-                  (got["blocks"], got["threads"], got["smem_bytes"],
-                   got["ring"]) == (want.blocks, want.threads,
-                                    want.smem_bytes, want.ring),
-                  f"{name} plan {got} != {want}")
-            check(got["blocks_per_sm"] >= 1 and
-                  got["blocks"] <= got["blocks_per_sm"] * sms,
-                  f"{name} H={H}: the grid cannot be co-resident")
+    cases = [(H, False, d, 64) for H in (1024, 768, 640) for d in ("fwd",
+                                                                  "bwd")]
+    cases += [(H, True, d, B) for H in (1024, 640)
+              for d, B in (("fwd", 64), ("bwd", 64), ("bwd", 70),
+                           ("dw", 64))]
+    for H, bf16, direction, B in cases:
+        got = L.wide_plan(direction, H, B, bf16=bf16)
+        if direction == "dw":
+            want = k1_dw_plan(H, B)
+        else:
+            want = (k1_fwd_plan if direction == "fwd" else k1_bwd_plan)(
+                H, B, bf16=bf16)
+        name = f"lstm_{direction}_wide{'_bf16' if bf16 else ''}"
+        out[f"{name} H={H} B={B}"] = got
+        report(f"  plan {name} H={H} B={B}: grid "
+               f"{got['blocks']} x {got['threads']} threads, shared "
+               f"memory {got['smem_bytes']} B, ring {got['ring']} of "
+               f"{got['chunk']}, {got['blocks_per_sm']} block(s) an SM "
+               f"resident (occupancy), {got['registers']} registers, "
+               f"{got['local_bytes']} B local a thread; {sms} SMs")
+        check(want.variant == ("dw_bf16" if direction == "dw" else
+                               "wide_bf16" if bf16 else "wide") and
+              (got["blocks"], got["threads"], got["smem_bytes"],
+               got["ring"]) == (want.blocks, want.threads,
+                                want.smem_bytes, want.ring),
+              f"{name} plan {got} != {want}")
+        check(got["blocks_per_sm"] >= 1 and
+              (direction == "dw" or
+               got["blocks"] <= got["blocks_per_sm"] * sms),
+              f"{name} H={H}: the grid cannot be co-resident")
+        check(not bf16 or got["local_bytes"] == 0,
+              f"{name} H={H} B={B} spills: {got['local_bytes']} B local")
     return out
 
 
@@ -648,6 +668,15 @@ def check_lstm_wide(dev, report, bf16=False):
             dgx_err, dw_err = bwd_errors(got, want)
             if bf16:
                 dgx_err = rel_err(got[0], want[0])
+                # the dW_hh kernel on its own operands: the kernel's dgx
+                # and hs, f32 sums of (T-1)*B terms in another order
+                own = rel_err(got[1], L.wide_dw_ref(got[0], hs_r, reverse))
+                report(f"  lstm_dw_wide_bf16 T={T} B={B} H={H} reverse="
+                       f"{reverse}: against wide_dw_ref on the kernel's dgx "
+                       f"and hs, max rel err {own:.3e} (tol {BWD_RTOL:g})")
+                check(own <= BWD_RTOL, f"lstm_dw_wide_bf16 disagrees: {own}")
+                if (T, B, H) == cases[0]:
+                    worst["dw"] = max(worst.get("dw", 0.0), own)
             report(f"  lstm_bwd_wide{sfx} T={T} B={B} H={H} reverse="
                    f"{reverse}: dgx max {'rel' if bf16 else 'abs'} err "
                    f"{dgx_err:.3e} (tol {dgx_tol:g}), dW_hh max rel err "
@@ -2105,6 +2134,15 @@ def lstm_bwd_bound(T, B, H, bf16=False):
     return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
 
 
+def dw_bound(T, B, H):
+    """The bf16 K1-bwd's dW_hh kernel: 2·4H·H·(T-1)B at the bf16
+    tensor-core peak, against dgx and hs (shifted, bf16) read and dW_hh
+    (f32) written once."""
+    K = (T - 1) * B
+    return _bound(2.0 * 4 * H * H * K, 2.0 * K * 5 * H + 4.0 * 4 * H * H,
+                  BF16_PEAK)
+
+
 def _bound(flops, nbytes, peak):
     t_o, t_b = flops / peak, nbytes / MEM_BW
     return max(t_o, t_b) * 1e3, "operations" if t_o > t_b else "bytes"
@@ -2420,12 +2458,13 @@ def time_fwd_yard(dev, report, cases, T=160, H=512, rounds=FWD_YARD_ROUNDS):
 
 
 def time_fwd_timeline(dev, report):
-    """The step timeline of K1-fwd and K3/K4-fwd (their timing builds,
-    tools/bench_fwd_timeline.py): microseconds a step of each phase."""
+    """The step timeline of K1-fwd, K3/K4-fwd and the wide K1-fwd on bf16
+    streams (their timing builds, tools/bench_fwd_timeline.py):
+    microseconds a step of each phase."""
     from mlvae_tpu_torch.tools import bench_fwd_timeline as ftl
     res = ftl.bench(dev)
     for r in res["rows"]:
-        report(f"  timeline {r['kernel']} In={r['In']} B={r['B']}: "
+        report(f"  timeline {r['kernel']} H={r['H']} In={r['In']} B={r['B']}: "
                f"{r['ms']:.4f} ms ({r['us_a_step']:.2f} us a step), timing "
                f"build {r['ms_timing_build']:.4f}; us a step, median over "
                "blocks (min-max): " + ", ".join(
@@ -2438,9 +2477,9 @@ def time_fwd_timeline(dev, report):
 
 
 def time_bwd_timeline(dev, report):
-    """The step timeline of K3-bwd, K4-bwd and K1-bwd (their timing
-    builds, tools/bench_bwd_timeline.py): microseconds a step of each
-    phase."""
+    """The step timeline of K3-bwd, K4-bwd, K1-bwd and the wide K1-bwd on
+    bf16 streams (their timing builds, tools/bench_bwd_timeline.py):
+    microseconds a step of each phase."""
     from mlvae_tpu_torch.tools import bench_bwd_timeline as btl
     res = btl.bench(dev)
     for r in res["rows"]:
@@ -2454,14 +2493,15 @@ def time_bwd_timeline(dev, report):
                "staged: " + ", ".join(
                    f"r={k[4:]} {v['us_a_step']['step']:.2f} ({v['ms']:.4f})"
                    for k, v in r["ablation"].items()))
-    for r in res["lstm_bwd"]:
-        report(f"  timeline lstm_bwd B={r['B']}: {r['ms']:.4f} ms "
-               f"({r['us_a_step_total']:.2f} us a step), timing build "
-               f"{r['ms_timing_build']:.4f}; us a step, median over blocks "
-               "(min-max): " + ", ".join(
+    for r in [*res["lstm_bwd"], *res["lstm_bwd_wide_bf16"]]:
+        report(f"  timeline {r['kernel']} H={r['H']} B={r['B']}: "
+               f"{r['ms']:.4f} ms ({r['us_a_step_total']:.2f} us a step), "
+               f"timing build {r['ms_timing_build']:.4f}; us a step, median "
+               "over blocks (min-max): " + ", ".join(
                    f"{k} {v['median']:.2f} ({v['min']:.2f}-{v['max']:.2f})"
                    for k, v in r["us_a_step"].items()))
-    bad = [r["kernel"] for r in [*res["rows"], *res["lstm_bwd"]]
+    bad = [r["kernel"] for r in [*res["rows"], *res["lstm_bwd"],
+                                 *res["lstm_bwd_wide_bf16"]]
            if not r["bit_equal_to_normal_build"]]
     check(not bad, f"the timing build differs from the normal build: {bad}")
     return res
@@ -2590,6 +2630,25 @@ def time_lstm_fc(dev, report, model, batch, first_noise, errs, counts,
     bwd_plain = cuda_ms(lambda: lstm_layer_bwd_ref(*prob), iters=2, warmup=1)
     f_bound, f_by = lstm_bound(T, B, H, bf16=amp)
     b_bound, b_by = lstm_bwd_bound(T, B, H, bf16=amp)
+    if amp:   # K1-bwd's dW_hh kernel alone, on its operands at this shape
+        from mlvae_tpu_torch import _build
+        from mlvae_tpu_torch.ops import lstm as L
+        dgx, hs = L.lstm_layer_bwd(*prob, False)[0], prob[2]
+        dw = torch.empty((4 * H, H), device=dev)
+        st = _build.stream_handle(dev)
+        dw_ms = cuda_ms(lambda: L.LSTM_DW_WIDE_BF16(
+            dgx.data_ptr(), hs.data_ptr(), dw.data_ptr(), T, B, H, 0, st),
+            iters=10)
+        dw_plain = cuda_ms(lambda: L.wide_dw_ref(dgx, hs), iters=3,
+                           warmup=1)
+        xs, ys = dgx[1:].reshape(-1, 4 * H), hs[:-1].reshape(-1, H)
+        dw_lib = cuda_ms(lambda: torch.matmul(xs.t(), ys), iters=10)
+        w_bound, w_by = dw_bound(T, B, H)
+        report(f"  lstm_dw_wide_bf16 H={H}: {dw_ms:.4f} ms (plain "
+               f"{dw_plain:.4f}, one bf16 torch.matmul of the same operands "
+               f"{dw_lib:.4f}, bound {w_bound:.4f} by {w_by}); K1-bwd's "
+               f"recurrence alone "
+               f"{bwd[f'lstm_bwd{sfx} B={B}']['ms'] - dw_ms:.4f}")
     f_row, b_row = fwd[f"lstm_fwd{sfx} B={B}"], bwd[f"lstm_bwd{sfx} B={B}"]
     dt = "bf16" if amp else "f32"
     report(f"  lstm_fwd_wide{sfx} H={H}: {f_row['ms']:.4f} ms (plain "
@@ -2625,19 +2684,27 @@ def time_lstm_fc(dev, report, model, batch, first_noise, errs, counts,
     wide = errs[f"lstm_wide{sfx}"]
     kernels = [
         dict(name=f"lstm_fwd_wide{sfx}", route="cuda",
-             source="mlvae_tpu_torch/csrc/lstm_fwd_wide.cu",
+             source=f"mlvae_tpu_torch/csrc/lstm_fwd_wide{sfx}.cu",
              replaces="mlvae_tpu/ops/lstm_pallas.py:87",
              max_abs_err=wide["fwd"], ms=f_row["ms"],
              plain_ms=fwd_plain, bound_ms=f_bound, bound_by=f_by,
              library_ms=f_row["cudnn_ms"], interleaved=fwd,
              **counts[f"lstm_fwd_wide{sfx}"]),
         dict(name=f"lstm_bwd_wide{sfx}", route="cuda",
-             source="mlvae_tpu_torch/csrc/lstm_bwd_wide.cu",
+             source=f"mlvae_tpu_torch/csrc/lstm_bwd_wide{sfx}.cu",
              replaces="mlvae_tpu/ops/lstm_pallas.py:115",
              max_abs_err=wide["bwd"], ms=b_row["ms"],
              plain_ms=bwd_plain, bound_ms=b_bound, bound_by=b_by,
              library_ms=b_row["cudnn_ms"], interleaved=bwd,
              **counts[f"lstm_bwd_wide{sfx}"])]
+    if amp:   # ms above: the whole K1-bwd, its dW_hh kernel included
+        kernels.append(dict(
+            name="lstm_dw_wide_bf16", route="cuda",
+            source="mlvae_tpu_torch/csrc/lstm_bwd_wide_bf16.cu",
+            replaces="mlvae_tpu/ops/lstm_pallas.py:115",
+            max_abs_err=wide["dw"], ms=dw_ms, plain_ms=dw_plain,
+            bound_ms=w_bound, bound_by=w_by, library_ms=dw_lib,
+            **counts["lstm_dw_wide_bf16"]))
     return kernels, steps
 
 

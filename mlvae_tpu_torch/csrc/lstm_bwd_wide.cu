@@ -1,8 +1,8 @@
-// K1-bwd for 528 < H <= 1024: backpropagation through the LSTM recurrence
-// over precomputed input gates, on f32 or bf16 streams, where the narrow
-// build (lstm_bwd.cu)
-// would need more blocks than an H100 has SMs and more registers than a
-// thread has for W_hh's and dW_hh's rows.
+// K1-bwd for 528 < H <= 1024 on f32 streams: backpropagation through the
+// LSTM recurrence over precomputed input gates, where the narrow build
+// (lstm_bwd.cu) would need more blocks than an H100 has SMs and more
+// registers than a thread has for W_hh's and dW_hh's rows. bf16 streams
+// take lstm_bwd_wide_bf16.cu, whose products run on the tensor cores.
 //
 // Replaces the TPU kernel mlvae_tpu/ops/lstm_pallas.py `_bwd_kernel`
 // (launched by `_run_bwd`), which takes any H % 128 == 0. As the narrow
@@ -14,23 +14,14 @@
 // step; h_{t-1} = c_{t-1} = 0 at the first processed step; `reverse` is
 // indexing only.
 //
-// The streams gx, W_hh, hs, dhs and dgx are f32 or bf16 (one template), cs,
-// dc_last and dW_hh f32. As `_bwd_kernel` does under AMP: gx, W_hh, hs
-// and dhs widen to f32 as they are read (h_{t-1} comes from the stream's
-// hs), the recompute and every sum run in f32, dh = dhs + the f32 dh
-// carry, the dgates are f32 and dgx takes them rounded to the stream
-// dtype, and the dgates are rounded to the stream dtype before both
-// products (the dh_{t-1} partials and dW_hh), as
-// `dgates.astype(whh_t_ref.dtype)` feeds `_bwd_recurrent_grads`. dW_hh
-// sums in f32 and is written f32; the wrapper rounds it to W_hh's dtype
-// once, at the end.
+// The kernel is a template over the stream dtype (stream_dtype.cuh) and
+// is instantiated for f32 only: gx, W_hh, hs, dhs, dgx, cs, dc_last, dW_hh
+// and every sum are f32.
 //
 // What bounds it on an H100: at B=64, H=1024, T=160 three products a step
 // (the recompute, dh_{t-1}, dW_hh), 3*2*B*H*4H*T = 257.7 GFLOP of f32 FMA
 // work (3.846 ms at 67 TFLOP/s) against about 400 MB of traffic (0.12 ms
-// at 3.35 TB/s): the floor is the operations. On bf16 streams the same
-// products could run on the tensor cores (0.26 ms at 989 TFLOP/s) against
-// about 280 MB (84 us); this build runs them as f32 FMAs.
+// at 3.35 TB/s): the floor is the operations.
 //
 // Design (lstm_wide.cuh): one persistent cooperative grid of H/8 blocks; a
 // block owns 8 units, i.e. 32 gate rows, and keeps those rows of W_hh in
@@ -73,7 +64,7 @@
 namespace {
 
 using namespace wide;
-using namespace stream_dtype;  // bf16, to_f32, store, rounded, load4
+using namespace stream_dtype;  // to_f32, store, rounded, load4
 
 // hst[t][k][b] = hs[t][b][k] for b < B, 0 for B <= b < Bp, widened to f32:
 // 32 x 32 tiles through shared memory, blocks (32, 8), grid (H/32, Bp/32,
@@ -403,10 +394,6 @@ int mlvae_lstm_bwd_wide_plan(int H, int B, int* out) {
   return plan<float>(H, B, out);
 }
 
-int mlvae_lstm_bwd_wide_bf16_plan(int H, int B, int* out) {
-  return plan<bf16>(H, B, out);
-}
-
 // gx (T,B,4H), w_hh (4H,H), hs/cs/dhs (T,B,H) f32 inputs, hs 16-byte
 // aligned; dgx (T,B,4H) and dw_hh (4H,H) f32 outputs (every element
 // written); part (2, H/8, H/8, B, 8) f32 scratch (slot, writing block,
@@ -420,18 +407,6 @@ int mlvae_lstm_bwd_wide(const float* gx, const float* w_hh, const float* hs,
                         float* dc_buf, float* hst, unsigned int* barrier,
                         int T, int B, int H, int reverse,
                         cudaStream_t stream) {
-  return launch(gx, w_hh, hs, cs, dhs, dgx, dw_hh, part, dh_buf, dc_buf, hst,
-                barrier, T, B, H, reverse, stream);
-}
-
-// The same on bf16 streams: gx, w_hh, hs, dhs and dgx bf16, cs, dw_hh and
-// every scratch f32 (hst holds hs widened).
-int mlvae_lstm_bwd_wide_bf16(const bf16* gx, const bf16* w_hh,
-                             const bf16* hs, const float* cs, const bf16* dhs,
-                             bf16* dgx, float* dw_hh, float* part,
-                             float* dh_buf, float* dc_buf, float* hst,
-                             unsigned int* barrier, int T, int B, int H,
-                             int reverse, cudaStream_t stream) {
   return launch(gx, w_hh, hs, cs, dhs, dgx, dw_hh, part, dh_buf, dc_buf, hst,
                 barrier, T, B, H, reverse, stream);
 }

@@ -1,28 +1,24 @@
-// K1-fwd for 528 < H <= 1024: the LSTM forward recurrence over precomputed
-// input gates, on f32 or bf16 streams, where the narrow build (lstm_fwd.cu,
-// four units a block) would need more blocks than an H100 has SMs.
+// K1-fwd for 528 < H <= 1024 on f32 streams: the LSTM forward recurrence
+// over precomputed input gates, where the narrow build (lstm_fwd.cu, four
+// units a block) would need more blocks than an H100 has SMs. bf16 streams
+// take lstm_fwd_wide_bf16.cu, whose products run on the tensor cores.
 //
 // Replaces the TPU kernel mlvae_tpu/ops/lstm_pallas.py `_fwd_kernel`
 // (launched by `_run_fwd`), which takes any H % 128 == 0: hs[t] = o *
 // tanh(c_t), c_t = f * c_{t-1} + i * g, with the gates (i, f, g, o) = gx[t]
 // + h_{t-1} @ W_hh^T in torch gate order, zero initial state, f32 carries,
 // and `reverse` by indexing (outputs stay in natural time order). Its one
-// recipe is LSTM_FC: four layers at H=1024, f32 or under AMP.
+// recipe is LSTM_FC: four layers at H=1024.
 //
-// The streams gx, W_hh and hs are f32 or bf16 (one template; the JAX
-// kernel's `gx_ref[0].astype(f32)`, `h.astype(whh_t_ref.dtype)`,
-// `h_new.astype(hs_ref.dtype)`): gx and W_hh widen to f32 as they are
-// read, h_{t-1} enters the product rounded to the stream dtype (the h
-// buffer holds the rounded h), the product sums in f32, c stays f32 and
-// cs is written f32, hs in the stream dtype.
+// The kernel is a template over the stream dtype (stream_dtype.cuh) and
+// is instantiated for f32 only: gx, W_hh and hs are f32, and so are cs,
+// the h buffer and every sum.
 //
 // What bounds it on an H100: at B=64, H=1024, T=160 the recurrent products
 // are 2*B*H*4H*T = 85.9 GFLOP of f32 FMA work (1.282 ms at 67 TFLOP/s)
 // against about 210 MB of gx/hs/cs/W_hh traffic (63 us at 3.35 TB/s): the
-// floor is the operations. On bf16 streams the same products could run on
-// the tensor cores (87 us at 989 TFLOP/s) against about 147 MB (44 us);
-// this build runs them as f32 FMAs. As at H=512, every step needs all of
-// h_{t-1} before any of h_t can start.
+// floor is the operations. As at H=512, every step needs all of h_{t-1}
+// before any of h_t can start.
 //
 // Design (lstm_wide.cuh): one persistent cooperative grid of H/8 blocks
 // (128 at H=1024, one an SM). A block owns 8 units, keeps their 32 gate
@@ -46,7 +42,7 @@
 namespace {
 
 using namespace wide;
-using namespace stream_dtype;  // bf16, to_f32, store, rounded, load4
+using namespace stream_dtype;  // to_f32, store, rounded
 
 constexpr int TB = 8, TR = 8;  // the product's register tile: 8 K slices
 
@@ -193,25 +189,12 @@ int mlvae_lstm_fwd_wide_plan(int H, int B, int* out) {
   return plan<float>(H, B, out);
 }
 
-int mlvae_lstm_fwd_wide_bf16_plan(int H, int B, int* out) {
-  return plan<bf16>(H, B, out);
-}
-
 // As mlvae_lstm_fwd: gx (T,B,4H) f32, w_hh (4H,H) f32, hs/cs (T,B,H) f32
 // outputs, hbuf (2,H,Bp) f32 scratch zeroed (Bp = B rounded up to 4),
 // barrier one zeroed counter. Returns a cudaError_t.
 int mlvae_lstm_fwd_wide(const float* gx, const float* w_hh, float* hs,
                         float* cs, float* hbuf, unsigned int* barrier, int T,
                         int B, int H, int reverse, cudaStream_t stream) {
-  return launch(gx, w_hh, hs, cs, hbuf, barrier, T, B, H, reverse, stream);
-}
-
-// The same on bf16 streams: gx (T,B,4H), w_hh (4H,H) and hs (T,B,H) bf16,
-// cs (T,B,H) and hbuf (2,H,Bp) f32.
-int mlvae_lstm_fwd_wide_bf16(const bf16* gx, const bf16* w_hh, bf16* hs,
-                             float* cs, float* hbuf, unsigned int* barrier,
-                             int T, int B, int H, int reverse,
-                             cudaStream_t stream) {
   return launch(gx, w_hh, hs, cs, hbuf, barrier, T, B, H, reverse, stream);
 }
 

@@ -1,6 +1,7 @@
-// What the wide K1 kernels share (lstm_fwd_wide.cu, lstm_bwd_wide.cu): the
-// layout of a block for 528 < H <= 1024, W_hh's rows in shared memory, the
-// chunked staging of h_{t-1} and the recurrent product of one batch tile.
+// What the f32 wide K1 kernels share (lstm_fwd_wide.cu, lstm_bwd_wide.cu):
+// the layout of a block for 528 < H <= 1024, W_hh's rows in shared memory,
+// the chunked staging of h_{t-1} and the recurrent product of one batch
+// tile.
 //
 // At H above 528 the narrow kernels' four units a block would need more
 // than the H100's 132 SMs (every block of the cooperative grid resident at
@@ -32,12 +33,10 @@
 // pass adds them in slice order and lays the sums out by cell thread. The
 // order of every sum is fixed, so repeated launches are bit-equal.
 //
-// The streams (gx, W_hh, hs, dhs, dgx) are f32 or bf16 (stream_dtype.cuh);
-// everything in shared memory, the h_{t-1} slab, the carries and the sums
-// stay f32. A bf16 W_hh or h_{t-1} widens to f32 exactly, and a product of
-// two such values is exact in f32, so the bf16 builds run the same f32
-// FMAs and differ from the f32 ones only in their loads, stores and
-// rounding points.
+// The kernels are templates over the stream dtype (stream_dtype.cuh),
+// instantiated for f32 only: everything here is f32. The bf16-stream
+// builds (lstm_fwd_wide_bf16.cu, lstm_bwd_wide_bf16.cu) have a layout of
+// their own (lstm_wide_mma.cuh): their products run on the tensor cores.
 #pragma once
 
 #include <cuda_runtime.h>

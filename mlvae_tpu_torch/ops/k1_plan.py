@@ -14,17 +14,28 @@ copies is. The launch code in ``csrc/`` computes the same numbers; the
   H/16 x 64 floats per K slice; K1-bwd stages all of h_{t-1} for 64 batch
   rows at once and holds W_hh's and dW_hh's rows for ``cols`` columns of H
   a thread.
-- ``wide`` (528 < H <= 1024; ``csrc/lstm_fwd_wide.cu``,
+- ``wide`` (528 < H <= 1024, f32 streams; ``csrc/lstm_fwd_wide.cu``,
   ``csrc/lstm_bwd_wide.cu``): eight units a block, so H/8 <= 128 blocks,
   W_hh's 32 rows of the block in shared memory (128 KB at H=1024), and
   h_{t-1} staged in chunks of ``CHUNK`` rows of k x 64 batch columns
   through a ring of ``WIDE_RING`` buffers (``cp.async``), since all of it
-  (256 KB at B=64) does not fit beside W_hh. Its bf16-stream entry points
-  keep the same layout (W_hh and h_{t-1} widened to f32 in shared
-  memory), so the plan holds for both stream dtypes.
+  (256 KB at B=64) does not fit beside W_hh.
+- ``wide_bf16`` (528 < H <= 1024, H % 128 == 0, bf16 streams;
+  ``csrc/lstm_fwd_wide_bf16.cu``, ``csrc/lstm_bwd_wide_bf16.cu``): the
+  same grid, its products on the tensor cores. W_hh's 32 rows sit in
+  registers as mma fragments, and h_{t-1} lands whole from hs by the TMA
+  (128 KB at H=1024) in ``ring`` = H/128 slices of ``SLICE`` columns, one
+  mbarrier each. K1-bwd also holds W_hh's columns of its units (4H x 8
+  bf16) and streams every block's dgates (dgx[t]) in chunks of ``XCHUNK``
+  gate columns through ``BF16_RING`` buffers, the tile's memory, two a
+  warp; its ``split`` says whether B takes
+  one tile (the recompute between the barrier's arrival and wait). dW_hh
+  is a kernel of its own after the recurrence (``k1_dw_plan``).
 
 No recipe of the repo has an LSTM on K1 wider than 1024; a wider H is
-refused (``ROADMAP.md`` queue 2, "Still to port").
+refused (``ROADMAP.md`` queue 2, "Still to port"), as are bf16 streams at
+H <= 528 (queue 2) and a bf16 wide layer whose H is not a multiple of 128,
+which the JAX package runs as a bf16-carry scan (queue 1 item 4).
 
 Only integers here: the CPU tests import it.
 """
@@ -48,18 +59,27 @@ WIDE_THREADS = 256
 CHUNK = 128           # rows of k in one staged chunk of h_{t-1}
 WIDE_RING = 2         # chunk buffers
 PITCH = BT + 4        # floats a staged row: 16-byte rows, no bank conflicts
+# the wide builds on bf16 streams (csrc/lstm_wide_mma.cuh,
+# csrc/lstm_bwd_wide_bf16.cu)
+SLICE = 128           # columns of a K slice of h_{t-1}
+SLICE_BYTES = BT * SLICE * 2
+XCHUNK = 64           # gate columns of a K1-bwd dgates chunk (8 KB)
+BF16_RING = 16        # K1-bwd's dgates chunk buffers: two a warp
+DW_TILE = 128         # the dW_hh kernel: rows and columns of dW_hh a block
+DW_BK = 64            # K rows a stage
+DW_STAGES = 3
 
 
 @dataclass(frozen=True)
 class K1Plan:
-    variant: str      # "narrow" or "wide"
+    variant: str      # "narrow", "wide", "wide_bf16" or "dw_bf16"
     units: int        # hidden units a block owns
     blocks: int       # the cooperative grid, H / units
     threads: int      # a block
     smem_bytes: int   # dynamic shared memory a block
     ring: int         # staged copies of h_{t-1} in flight (see above)
     cols: int = 0     # narrow K1-bwd: columns of H a thread holds rows for
-    split: bool = False  # narrow K1-bwd: the split barrier (B <= 64)
+    split: bool = False  # K1-bwd: the split barrier (B <= 64)
 
 
 def _check(H: int, B: int) -> None:
@@ -71,6 +91,20 @@ def _check(H: int, B: int) -> None:
             f"K1: H={H} is above {WIDE_MAX_H}, the widest the port's K1 "
             "kernels take; wider LSTMs are ROADMAP.md queue 2, 'Still to "
             "port'")
+
+
+def _check_bf16(H: int) -> None:
+    if H <= NARROW_MAX_H:
+        raise NotImplementedError(
+            f"K1: bf16 streams at H={H} <= {NARROW_MAX_H} need the narrow "
+            "builds on bf16 streams, which the port does not have yet "
+            "(ROADMAP.md queue 2, 'Still to port')")
+    if H % SLICE:
+        raise NotImplementedError(
+            f"K1: a bf16 layer at H={H}, not a multiple of {SLICE}, takes no "
+            "K1 build; the JAX package runs it as a bf16-carry lax.scan "
+            "(mlvae_tpu/nn/rnn.py:225-239), which the port does not have "
+            "(ROADMAP.md queue 1 item 4)")
 
 
 def narrow_fwd_smem_bytes(H: int, nq: int) -> int:
@@ -110,10 +144,38 @@ def wide_bwd_smem_bytes(H: int) -> int:
     return wide_fwd_smem_bytes(H) + 4 * BT * 32
 
 
+def wide_bf16_fwd_smem_bytes(H: int) -> int:
+    """``fwd_smem_bytes`` of ``csrc/lstm_fwd_wide_bf16.cu``: the h_{t-1}
+    tile, H/128 slices of 64 x 128 bf16 (each slice's first half takes its
+    warp's f32 sums), and an mbarrier a slice."""
+    return (H // SLICE) * (SLICE_BYTES + 8)
+
+
+def wide_bf16_bwd_smem_bytes(H: int) -> int:
+    """``bwd_smem_bytes`` of ``csrc/lstm_bwd_wide_bf16.cu``: the tile at
+    H=1024 (8 slices), which is also the ring of ``BF16_RING`` dgates
+    chunks of 64 x ``XCHUNK`` bf16; the warps' dh sums (8 x 64 x 8 f32);
+    W_hh's columns of the block's units (8 x (4H + 8) bf16); an mbarrier a
+    slice and a ring buffer."""
+    return (8 * SLICE_BYTES + 8 * BT * 8 * 4 + 8 * (4 * H + 8) * 2
+            + 8 * (H // SLICE + BF16_RING))
+
+
+def dw_smem_bytes() -> int:
+    """``dw_smem_bytes`` of ``csrc/lstm_bwd_wide_bf16.cu``: ``DW_STAGES``
+    stages of a 64-row chunk of each operand, 128 columns of bf16 each, and
+    an mbarrier a stage."""
+    return DW_STAGES * (2 * DW_BK * DW_TILE * 2 + 8)
+
+
 @lru_cache(maxsize=None)
-def k1_fwd_plan(H: int, B: int) -> K1Plan:
-    """K1-fwd's plan for a (T, B, 4H) layer, f32 or bf16 streams."""
+def k1_fwd_plan(H: int, B: int, bf16: bool = False) -> K1Plan:
+    """K1-fwd's plan for a (T, B, 4H) layer, f32 or ``bf16`` streams."""
     _check(H, B)
+    if bf16:
+        _check_bf16(H)
+        return K1Plan("wide_bf16", WIDE_UNITS, H // WIDE_UNITS, WIDE_THREADS,
+                      wide_bf16_fwd_smem_bytes(H), H // SLICE)
     if H <= NARROW_MAX_H:
         nq = narrow_fwd_ring_depth(H, B)
         return K1Plan("narrow", NARROW_UNITS, H // NARROW_UNITS,
@@ -123,10 +185,16 @@ def k1_fwd_plan(H: int, B: int) -> K1Plan:
 
 
 @lru_cache(maxsize=None)
-def k1_bwd_plan(H: int, B: int) -> K1Plan:
+def k1_bwd_plan(H: int, B: int, bf16: bool = False) -> K1Plan:
     """K1-bwd's plan. The narrow build stages all of h_{t-1} for a tile
-    (``ring`` counts its 32-column boxes)."""
+    (``ring`` counts its 32-column boxes); the bf16 one streams the dgates
+    through ``BF16_RING`` chunk buffers."""
     _check(H, B)
+    if bf16:
+        _check_bf16(H)
+        return K1Plan("wide_bf16", WIDE_UNITS, H // WIDE_UNITS, WIDE_THREADS,
+                      wide_bf16_bwd_smem_bytes(H), BF16_RING,
+                      split=B <= BT)
     if H <= NARROW_MAX_H:
         return K1Plan("narrow", NARROW_UNITS, H // NARROW_UNITS,
                       NARROW_THREADS, narrow_bwd_smem_bytes(H), -(-H // 32),
@@ -134,3 +202,13 @@ def k1_bwd_plan(H: int, B: int) -> K1Plan:
                       split=B <= BT)
     return K1Plan("wide", WIDE_UNITS, H // WIDE_UNITS, WIDE_THREADS,
                   wide_bwd_smem_bytes(H), WIDE_RING)
+
+
+@lru_cache(maxsize=None)
+def k1_dw_plan(H: int, B: int) -> K1Plan:
+    """The dW_hh kernel after the bf16 K1-bwd: (H/128) x (4H/128) blocks of
+    a 128 x 128 tile of dW_hh, ``DW_STAGES`` stages (``ring``)."""
+    _check(H, B)
+    _check_bf16(H)
+    return K1Plan("dw_bf16", 0, (H // DW_TILE) * (4 * H // DW_TILE),
+                  WIDE_THREADS, dw_smem_bytes(), DW_STAGES)

@@ -10,10 +10,13 @@ Two families, as in ``mlvae_tpu/ops/lstm_pallas.py``:
   gx[t] + h_{t-1} @ W_hh^T`` runs here. ``lstm_layer_fwd`` /
   ``lstm_layer_bwd`` run, for CUDA tensors, the build that ``ops.k1_plan``
   picks for H: ``csrc/lstm_fwd.cu`` / ``csrc/lstm_bwd.cu`` up to H=528
-  (f32 streams only), ``csrc/lstm_fwd_wide.cu`` / ``csrc/lstm_bwd_wide.cu``
-  above it up to H=1024 (f32 or bf16 streams; a wider H is refused), and
-  ``lstm_layer_ref`` / ``lstm_layer_bwd_ref`` for CPU tensors only;
-  ``LSTMRecurrence`` joins them.
+  (f32 streams only), above it up to H=1024 ``csrc/lstm_fwd_wide.cu`` /
+  ``csrc/lstm_bwd_wide.cu`` on f32 streams and
+  ``csrc/lstm_fwd_wide_bf16.cu`` / ``csrc/lstm_bwd_wide_bf16.cu`` on bf16
+  streams (H % 128 == 0; the bf16 backward's dW_hh is a second kernel,
+  after the recurrence; a wider H is refused), and ``lstm_layer_ref`` /
+  ``lstm_layer_bwd_ref`` for CPU tensors only; ``LSTMRecurrence`` joins
+  them.
 - **Fused input projection** (K3/K4-fwd, K3-bwd, K4-bwd;
   ``_run_fwd_fused``, ``_run_bwd_fused``, ``_run_bwd_semi`` and the
   ``lstm_layer_fused`` / ``lstm_layer_semifused`` custom VJPs), the bf16
@@ -52,13 +55,17 @@ LSTM_FWD_WIDE = _build.register(_build.Kernel(
 LSTM_BWD_WIDE = _build.register(_build.Kernel(
     "lstm_bwd_wide", "lstm_bwd_wide", "mlvae_lstm_bwd_wide",
     [_P] * 12 + [_I, _I, _I, _I, _P]))
-# the wide builds' bf16-stream entry points, counted apart from the f32 ones
+# the wide builds on bf16 streams (tensor cores), and the dW_hh kernel that
+# follows the bf16 K1-bwd's recurrence
 LSTM_FWD_WIDE_BF16 = _build.register(_build.Kernel(
-    "lstm_fwd_wide_bf16", "lstm_fwd_wide", "mlvae_lstm_fwd_wide_bf16",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]))
+    "lstm_fwd_wide_bf16", "lstm_fwd_wide_bf16", "mlvae_lstm_fwd_wide_bf16",
+    [_P] * 5 + [_I] * 4 + [_P]))
 LSTM_BWD_WIDE_BF16 = _build.register(_build.Kernel(
-    "lstm_bwd_wide_bf16", "lstm_bwd_wide", "mlvae_lstm_bwd_wide_bf16",
-    [_P] * 12 + [_I, _I, _I, _I, _P]))
+    "lstm_bwd_wide_bf16", "lstm_bwd_wide_bf16", "mlvae_lstm_bwd_wide_bf16",
+    [_P] * 9 + [_I] * 4 + [_P]))
+LSTM_DW_WIDE_BF16 = _build.register(_build.Kernel(
+    "lstm_dw_wide_bf16", "lstm_bwd_wide_bf16", "mlvae_lstm_dw_wide_bf16",
+    [_P] * 3 + [_I] * 4 + [_P]))
 LSTM_FUSED_FWD = _build.register(_build.Kernel(
     "lstm_fused_fwd", "lstm_fused_fwd", "mlvae_lstm_fused_fwd",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]))
@@ -155,6 +162,22 @@ def lstm_layer_bwd_ref(gx: torch.Tensor, w_hh: torch.Tensor,
     return dgx, dw
 
 
+def wide_dw_ref(dgx: torch.Tensor, hs: torch.Tensor,
+                reverse: bool = False) -> torch.Tensor:
+    """Plain dW_hh of the bf16 K1-bwd from its operands (the work of the
+    dW_hh kernel): dgx (T, B, 4H), which holds the dgates rounded to the
+    stream dtype as both of ``_bwd_recurrent_grads``' products take them,
+    and hs (T, B, H) shifted by a step, summed in f32 ->
+    (4H, H) f32: sum over the processing order's steps s >= 1 of
+    dgx[t_s]^T hs[t_{s-1}] (the first processed step's h_{t-1} is zero)."""
+    T, B, G = dgx.shape
+    H = hs.shape[2]
+    if T < 2:
+        return dgx.new_zeros((G, H), dtype=torch.float32)
+    x, y = (dgx[:-1], hs[1:]) if reverse else (dgx[1:], hs[:-1])
+    return x.reshape(-1, G).float().t() @ y.reshape(-1, H).float()
+
+
 def _stream_dtype(name: str, streams, f32s) -> torch.dtype:
     """The one dtype of K1's streams (gx, W_hh, hs, dhs), f32 or bf16; the
     cells and their cotangent (cs, dc_last) are f32."""
@@ -167,17 +190,11 @@ def _stream_dtype(name: str, streams, f32s) -> torch.dtype:
     return dtypes.pop()
 
 
-def _k1_kernel(name: str, plan, dtype, narrow, wide, wide_bf16):
-    """The kernel of ``plan``'s build for ``dtype`` streams, or a refusal:
-    the narrow builds take f32 streams only."""
-    if plan.variant == "wide":
-        return wide_bf16 if dtype == torch.bfloat16 else wide
-    if dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{name}: bf16 streams at H <= 528 need the narrow builds on "
-            "bf16 streams, which the port does not have yet (ROADMAP.md "
-            "queue 2, 'Still to port')")
-    return narrow
+def _k1_kernel(plan, narrow, wide, wide_bf16):
+    """The kernel of ``plan``'s build (``k1_plan`` refuses what no build
+    takes)."""
+    return {"narrow": narrow, "wide": wide,
+            "wide_bf16": wide_bf16}[plan.variant]
 
 
 def _check_cuda(name: str, tensors) -> None:
@@ -198,16 +215,18 @@ def hbuf_pitch(B: int) -> int:
 
 
 def wide_plan(direction: str, H: int, B: int, bf16: bool = False) -> dict:
-    """What the wide build of ``direction`` ("fwd" or "bwd") computes for
-    its launch at H, B on f32 or ``bf16`` streams
-    (``mlvae_lstm_{fwd,bwd}_wide[_bf16]_plan``): blocks, threads, shared
-    memory bytes, resident blocks an SM, ring buffers, rows a chunk,
+    """What the wide build of ``direction`` ("fwd", "bwd", or on bf16
+    streams also "dw", the dW_hh kernel) computes for its launch at H, B on
+    f32 or ``bf16`` streams (its ``*_plan`` entry point): blocks, threads,
+    shared memory bytes, resident blocks an SM, ring buffers (bf16 K1-fwd:
+    the h_{t-1} tile's slices; dW_hh: stages), rows or columns a chunk,
     registers and local memory bytes a thread. Builds the library; needs
     the card. Not a launch: it counts nowhere."""
-    kernel = LSTM_FWD_WIDE if direction == "fwd" else LSTM_BWD_WIDE
-    fn = getattr(_build.library(kernel.source),
-                 f"mlvae_lstm_{direction}_wide{'_bf16' if bf16 else ''}"
-                 "_plan")
+    kernel = {("fwd", False): LSTM_FWD_WIDE, ("bwd", False): LSTM_BWD_WIDE,
+              ("fwd", True): LSTM_FWD_WIDE_BF16,
+              ("bwd", True): LSTM_BWD_WIDE_BF16,
+              ("dw", True): LSTM_DW_WIDE_BF16}[direction, bf16]
+    fn = getattr(_build.library(kernel.source), f"{kernel.symbol}_plan")
     fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 8)()
@@ -225,10 +244,11 @@ def lstm_layer_fwd(gx: torch.Tensor, w_hh: torch.Tensor,
     stream dtype (f32 or bf16). CPU tensors take the plain version; CUDA
     tensors launch the build ``k1_fwd_plan`` picks or raise: the narrow one
     (four units a block, H/4 blocks all resident at once, f32 streams) up
-    to H=528, the wide one (eight units a block, f32 or bf16 streams) above
-    it up to H=1024. Mixed stream dtypes and an H that is not a multiple of
-    16 are refused (``ValueError``); bf16 streams at H <= 528 and an H
-    above 1024 raise ``NotImplementedError``."""
+    to H=528, the wide ones (eight units a block; f32, or bf16 on the
+    tensor cores) above it up to H=1024. Mixed stream dtypes and an H that
+    is not a multiple of 16 are refused (``ValueError``); bf16 streams at
+    H <= 528 or at an H that is not a multiple of 128, and an H above 1024,
+    raise ``NotImplementedError``."""
     if gx.device.type == "cpu":
         return lstm_layer_ref(gx, w_hh, reverse)
     dtype = _stream_dtype("lstm_layer_fwd", (gx, w_hh), ())
@@ -238,11 +258,19 @@ def lstm_layer_fwd(gx: torch.Tensor, w_hh: torch.Tensor,
                          f"{tuple(w_hh.shape)} are not (T, B, 4H), (4H, H)")
     T, B, G = gx.shape
     H = G // 4
-    kernel = _k1_kernel("lstm_layer_fwd", k1_fwd_plan(H, max(B, 1)), dtype,
-                        LSTM_FWD, LSTM_FWD_WIDE, LSTM_FWD_WIDE_BF16)
+    plan = k1_fwd_plan(H, max(B, 1), bf16=dtype == torch.bfloat16)
+    kernel = _k1_kernel(plan, LSTM_FWD, LSTM_FWD_WIDE, LSTM_FWD_WIDE_BF16)
     _check_cuda("lstm_layer_fwd", (gx, w_hh))
     hs = torch.empty((T, B, H), device=gx.device, dtype=dtype)
     cs = torch.empty((T, B, H), device=gx.device, dtype=torch.float32)
+    if plan.variant == "wide_bf16":
+        # the next step stages h_{t-1} from hs itself (TMA, 16-byte base)
+        barrier = torch.zeros((1,), device=gx.device, dtype=torch.int32)
+        if T and B:
+            kernel(gx.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
+                   cs.data_ptr(), barrier.data_ptr(), T, B, H, int(reverse),
+                   _build.stream_handle(gx.device))
+        return hs, cs
     # h ping-pong buffer (rows padded to 16 bytes for the TMA) and the step
     # barrier's counter
     hbuf = torch.zeros((2, H, hbuf_pitch(B)), device=gx.device,
@@ -282,6 +310,18 @@ def k1_bwd_hs_slab(hs: torch.Tensor) -> torch.Tensor:
                        dtype=torch.float32)
 
 
+def k1_bf16_bwd_scratch(gx: torch.Tensor, dc_last: torch.Tensor):
+    """The bf16 wide K1-bwd's scratch for a (T, B, 4H) ``gx``: the dh carry
+    (zero at the start) and the dc carry (from dc_last), (B, H) f32, each
+    entry touched by one thread only (read by the tiles in series of B >
+    64; one tile keeps them in registers), and the step barrier's
+    counter."""
+    _, B, G = gx.shape
+    dh_buf = torch.zeros((B, G // 4), device=gx.device, dtype=torch.float32)
+    barrier = torch.zeros((1,), device=gx.device, dtype=torch.int32)
+    return dh_buf, dc_last.clone(), barrier
+
+
 def lstm_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
                    cs: torch.Tensor, dhs: torch.Tensor,
                    dc_last: torch.Tensor, reverse: bool = False):
@@ -289,9 +329,12 @@ def lstm_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
     in one stream dtype (f32 or bf16), cs and dc_last f32. CPU tensors take
     the plain version; CUDA tensors launch the build ``k1_bwd_plan`` picks
     or raise, as K1-fwd: narrow up to H=528 (f32 streams), wide up to
-    H=1024 (f32 or bf16 streams), mixed stream dtypes and an H that is not
-    a multiple of 16 refused, bf16 streams at H <= 528 and an H above 1024
-    ``NotImplementedError``. dW_hh comes back f32 in either dtype.
+    H=1024 (f32, or bf16 at H % 128 == 0), mixed stream dtypes and an H
+    that is not a multiple of 16 refused, the bf16 layers no build takes
+    and an H above 1024 ``NotImplementedError``. dW_hh comes back f32 in
+    either dtype. On bf16 streams two kernels launch: the recurrence
+    (dgx), then the dW_hh kernel over dgx and hs (``wide_dw_ref``), which
+    a T=1 layer, whose only step has h_{t-1} = 0, does without.
     """
     if gx.device.type == "cpu":
         return lstm_layer_bwd_ref(gx, w_hh, hs, cs, dhs, dc_last, reverse)
@@ -308,16 +351,25 @@ def lstm_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
             f"{tuple(cs.shape)}/{tuple(dhs.shape)}, dc_last "
             f"{tuple(dc_last.shape)} are not (T, B, 4H), (4H, H), (T, B, H) "
             "and (B, H)")
-    plan = k1_bwd_plan(H, max(B, 1))
-    kernel = _k1_kernel("lstm_layer_bwd", plan, dtype, LSTM_BWD,
-                        LSTM_BWD_WIDE, LSTM_BWD_WIDE_BF16)
+    plan = k1_bwd_plan(H, max(B, 1), bf16=dtype == torch.bfloat16)
+    kernel = _k1_kernel(plan, LSTM_BWD, LSTM_BWD_WIDE, LSTM_BWD_WIDE_BF16)
     _check_cuda("lstm_layer_bwd", (gx, w_hh, hs, cs, dhs, dc_last))
     if hs.data_ptr() % 16:
         raise ValueError("lstm_layer_bwd: hs must be 16-byte aligned (the "
-                         "kernel reads it as float4)")
+                         "kernel reads it as float4 or by the TMA)")
     dgx = torch.empty_like(gx)
     dw = torch.zeros((G, H), device=gx.device, dtype=torch.float32)
-    if T and B:
+    if T and B and plan.variant == "wide_bf16":
+        dh_buf, dc_buf, barrier = k1_bf16_bwd_scratch(gx, dc_last)
+        stream = _build.stream_handle(gx.device)
+        kernel(gx.data_ptr(), w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+               dhs.data_ptr(), dgx.data_ptr(), dh_buf.data_ptr(),
+               dc_buf.data_ptr(), barrier.data_ptr(), T, B, H, int(reverse),
+               stream)
+        if T > 1:
+            LSTM_DW_WIDE_BF16(dgx.data_ptr(), hs.data_ptr(), dw.data_ptr(),
+                              T, B, H, int(reverse), stream)
+    elif T and B:
         part, dh_buf, dc_buf, barrier = k1_bwd_scratch(gx, dc_last)
         head = (gx.data_ptr(), w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
                 dhs.data_ptr(), dgx.data_ptr(), dw.data_ptr(),

@@ -1,4 +1,5 @@
-"""A step timeline of the LSTM backwards (K3-bwd, K4-bwd, K1-bwd) on the card.
+"""A step timeline of the LSTM backwards (K3-bwd, K4-bwd, K1-bwd, the wide
+K1-bwd on bf16 streams) on the card.
 
     python -m mlvae_tpu_torch.tools.bench_bwd_timeline [--iters N]
 
@@ -34,6 +35,18 @@ trajectory of K1-fwd. Its phases, microseconds a step as above:
 ``wait`` (in the grid barrier), ``reduce``, ``barrier`` (from the arrival
 to the end of the wait, with whatever runs between), ``loads`` (the next
 step's cell inputs) and ``step``.
+
+The wide K1-bwd on bf16 streams (``csrc/lstm_bwd_wide_bf16.cu``) has a
+timing build of its recurrence with the same define and layout, a (T,
+H/8, 10) buffer, at T=160, H=1024, B=64 (LSTM_FC's AMP shape) on the
+trajectory of the bf16 K1-fwd. Its phases (``WIDE_PHASES``): ``stage``
+(waiting for thread 0's slice of h_{t-1}), ``recompute`` (its slice's
+product and the gather of the slices' sums), ``cell`` (the dgates, their
+stores and the arrival), ``dh_stage`` (waiting for warp 0's chunks of the
+dgates), ``wait``, ``dh_product`` (warp 0's chunk products and the
+gather of the warps' dh sums), ``barrier``, ``loads`` and ``step``.
+Its normal build's ms include the dW_hh kernel that follows the
+recurrence; the timing build's do not.
 
 It prints one JSON line naming the card and its power limit, and exits
 non-zero when an output differs. It needs the card and raises without
@@ -75,12 +88,17 @@ K1_SLOTS = 10
 K1_PHASES = {"stage": 2, "recompute": 3, "cell": 4, "partial_dw": 5,
              "wait": 6, "reduce": 7, "barrier": 8, "loads": 9}
 K1_BATCHES = (64,)
+# the wide K1-bwd on bf16 streams: the same slots, its own phases
+WIDE_PHASES = {"stage": 2, "recompute": 3, "cell": 4, "dh_stage": 5,
+               "wait": 6, "dh_product": 7, "barrier": 8, "loads": 9}
+WIDE_H = 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = {"lstm_fused_bwd": [_P] * 15 + [_I] * 5 + [_P, _P],
          "lstm_semi_bwd": [_P] * 12 + [_I] * 5 + [_P, _P]}
 _K1_ARGS = [_P] * 11 + [_I] * 4 + [_P, _P]
+_WIDE_ARGS = [_P] * 9 + [_I] * 4 + [_P, _P]
 
 
 def _timed(name: str, rows: Optional[int] = None) -> _build.Kernel:
@@ -94,6 +112,9 @@ def _timed(name: str, rows: Optional[int] = None) -> _build.Kernel:
 TIMED = {name: _timed(name) for name in _ARGS}
 TIMED["lstm_bwd"] = _build.Kernel("lstm_bwd_timeline", "lstm_bwd_timeline",
                                   "mlvae_lstm_bwd_timeline", _K1_ARGS)
+TIMED["lstm_bwd_wide_bf16"] = _build.Kernel(
+    "lstm_bwd_wide_bf16_timeline", "lstm_bwd_wide_bf16_timeline",
+    "mlvae_lstm_bwd_wide_bf16_timeline", _WIDE_ARGS)
 ABLATED = {(name, r): _timed(name, r) for name in _ARGS
            for r in _build.ABLATION_ROWS}
 
@@ -211,6 +232,58 @@ def k1_rows(dev, iters: int):
     return rows
 
 
+def wide_problem(dev, B: int, seed: int = 0):
+    """A bf16 wide K1-bwd input at T, H=1024: gx N(0, 0.5^2), W_hh
+    U(+-1/sqrt(H)) and cotangents N(0, 0.1^2) for every h in bf16, the
+    trajectory from the bf16 K1-fwd, an f32 cotangent for the final c."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    gx = (torch.randn((T, B, 4 * WIDE_H), generator=g, device=dev)
+          * 0.5).to(bf)
+    w = ((torch.rand((4 * WIDE_H, WIDE_H), generator=g, device=dev) * 2 - 1)
+         / WIDE_H ** 0.5).to(bf)
+    hs, cs = L.lstm_layer_fwd(gx, w)
+    dhs = (torch.randn((T, B, WIDE_H), generator=g, device=dev) * 0.1).to(bf)
+    dc_last = torch.randn((B, WIDE_H), generator=g, device=dev) * 0.1
+    return gx, w, hs, cs, dhs, dc_last
+
+
+def timed_wide(prob, reverse: bool = False):
+    """The bf16 wide K1-bwd's timing build (the recurrence) on ``prob``:
+    (dgx, as ``lstm_layer_bwd``'s, and the (T, H/8, 10) int64
+    timeline)."""
+    gx, w, hs, cs, dhs, dc_last = prob
+    Tn, B, G = gx.shape
+    Hn = G // 4
+    dev = gx.device
+    tl = torch.zeros((Tn, Hn // 8, K1_SLOTS), device=dev, dtype=torch.int64)
+    dgx = torch.empty_like(gx)
+    dh_buf, dc_buf, barrier = L.k1_bf16_bwd_scratch(gx, dc_last)
+    TIMED["lstm_bwd_wide_bf16"](
+        gx.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+        dhs.data_ptr(), dgx.data_ptr(), dh_buf.data_ptr(), dc_buf.data_ptr(),
+        barrier.data_ptr(), Tn, B, Hn, int(reverse), tl.data_ptr(),
+        _build.stream_handle(dev))
+    return dgx, tl
+
+
+def wide_rows(dev, iters: int):
+    rows = []
+    for B in K1_BATCHES:
+        prob = wide_problem(dev, B)
+        want = L.lstm_layer_bwd(*prob)[0]
+        got, tl = timed_wide(prob)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: L.lstm_layer_bwd(*prob), iters)
+        rows.append({
+            "kernel": "lstm_bwd_wide_bf16", "B": B, "T": T, "H": WIDE_H,
+            "bit_equal_to_normal_build": torch.equal(got, want),
+            "ms": ms, "us_a_step_total": ms * 1e3 / T,
+            "ms_timing_build": cuda_ms(lambda: timed_wide(prob), iters),
+            "us_a_step": ftl.phase_split(tl.cpu(), WIDE_PHASES)})
+    return rows
+
+
 def make_problem(dev, In: int, B: int, seed: int = 0):
     """x, w_ih, w_hh bf16, the f32 bias at the recipe layers' scales
     (weights U(+-1/sqrt(H))), the forward's hs and cs from K3/K4-fwd, bf16
@@ -279,7 +352,8 @@ def cuda_ms(fn, iters: int) -> float:
 
 def bench(dev, iters: int = 10) -> Dict:
     _build.build([*_build.VARIANTS, "lstm_fused_fwd", "lstm_fused_bwd",
-                  "lstm_semi_bwd", "lstm_fwd", "lstm_bwd"])
+                  "lstm_semi_bwd", "lstm_fwd", "lstm_bwd",
+                  "lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16"])
     rows = []
     for name, In in CASES:
         for B in BATCHES:
@@ -299,7 +373,8 @@ def bench(dev, iters: int = 10) -> Dict:
                 "ablation": {
                     f"rows{r}": ablation(name, prob, r, iters)
                     for r in _build.ABLATION_ROWS}})
-    return {"rows": rows, "lstm_bwd": k1_rows(dev, iters)}
+    return {"rows": rows, "lstm_bwd": k1_rows(dev, iters),
+            "lstm_bwd_wide_bf16": wide_rows(dev, iters)}
 
 
 def ablation(name: str, prob, rows: int, iters: int) -> Dict:
@@ -333,7 +408,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(json.dumps({"tool": "bench_bwd_timeline",
                       "device": torch.cuda.get_device_name(dev),
                       "nvidia_smi": _card(), **res}), flush=True)
-    bad = [(r["kernel"], r["B"]) for r in [*res["rows"], *res["lstm_bwd"]]
+    bad = [(r["kernel"], r["B"]) for r in [*res["rows"], *res["lstm_bwd"],
+                                           *res["lstm_bwd_wide_bf16"]]
            if not r["bit_equal_to_normal_build"]]
     if bad:
         print(f"bench_bwd_timeline: the timing build differs from the "

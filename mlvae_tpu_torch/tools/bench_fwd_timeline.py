@@ -1,15 +1,18 @@
-"""A step timeline of the LSTM forwards (K1-fwd, K3/K4-fwd) on the card.
+"""A step timeline of the LSTM forwards (K1-fwd, K3/K4-fwd, the wide K1-fwd
+on bf16 streams) on the card.
 
     python -m mlvae_tpu_torch.tools.bench_fwd_timeline [--iters N]
 
-Builds ``csrc/lstm_fwd.cu`` and ``csrc/lstm_fused_fwd.cu`` a second time
-with ``-DMLVAE_FWD_TIMELINE`` (their own library names, see
-``_build.VARIANTS``): a lead thread of each block reads ``%globaltimer`` at
-the phase boundaries of its chain of work and writes, for each step, the
-step's start and end and each phase's sum over the step's batch tiles into a
-(T, H/4, 8) buffer (``csrc/fwd_timeline.cuh``). For K1-fwd at B=64 and 128
-(f32) and K3/K4-fwd at In=128, 512 and 1024 and B=64 and 256 (bf16), H=512,
-T=160, inputs from a generator seeded 0 at the recipe layers' scales, it
+Builds ``csrc/lstm_fwd.cu``, ``csrc/lstm_fused_fwd.cu`` and
+``csrc/lstm_fwd_wide_bf16.cu`` a second time with ``-DMLVAE_FWD_TIMELINE``
+(their own library names, see ``_build.VARIANTS``): a lead thread of each
+block reads ``%globaltimer`` at the phase boundaries of its chain of work
+and writes, for each step, the step's start and end and each phase's sum
+over the step's batch tiles into a (T, blocks, 8) buffer
+(``csrc/fwd_timeline.cuh``). For K1-fwd at B=64 and 128 (f32) and
+K3/K4-fwd at In=128, 512 and 1024 and B=64 and 256 (bf16), H=512, and the
+wide K1-fwd on bf16 streams at H=1024, B=64 (LSTM_FC's AMP shape), T=160,
+inputs from a generator seeded 0 at the recipe layers' scales, it
 prints each phase's microseconds a step: each block's mean over the steps,
 then the min, median and max over the blocks. The phases, on the chain of
 thread 0: ``input`` (the x_t product where it lies on the chain), ``stage``
@@ -51,14 +54,16 @@ PHASES = {"input": 2, "stage": 3, "product": 4, "cell": 5, "barrier": 6,
 # (kernel, In, B); In None for K1-fwd
 CASES = (("lstm_fwd", None, 64), ("lstm_fwd", None, 128),
          *(("lstm_fused_fwd", In, B) for In in (128, 512, 1024)
-           for B in (64, 256)))
+           for B in (64, 256)), ("lstm_fwd_wide_bf16", None, 64))
 T, H = 160, 512
+WIDE_H = 1024         # the wide K1-fwd's shape: LSTM_FC's layers
 WARMUP = 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = {"lstm_fwd": [_P] * 6 + [_I] * 4 + [_P, _P],
-         "lstm_fused_fwd": [_P] * 7 + [_I] * 5 + [_P, _P]}
+         "lstm_fused_fwd": [_P] * 7 + [_I] * 5 + [_P, _P],
+         "lstm_fwd_wide_bf16": [_P] * 5 + [_I] * 4 + [_P, _P]}
 
 # Not registered: their launches count on no path.
 TIMED = {name: _build.Kernel(f"{name}_timeline", f"{name}_timeline",
@@ -148,14 +153,18 @@ def phase_split(tl: torch.Tensor, phases: Dict[str, int] = PHASES
 
 
 def make_problem(dev, name: str, In: Optional[int], B: int, seed: int = 0):
-    """K1-fwd: gx N(0, 0.5^2) and W_hh U(+-1/sqrt(H)), f32. K3/K4-fwd: x
-    N(0, 0.5^2), W_ih, W_hh U(+-1/sqrt(H)) bf16 and the bias f32."""
+    """K1-fwd: gx N(0, 0.5^2) and W_hh U(+-1/sqrt(H)), f32 (the wide build:
+    bf16 at H=1024). K3/K4-fwd: x N(0, 0.5^2), W_ih, W_hh U(+-1/sqrt(H))
+    bf16 and the bias f32."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    if name == "lstm_fwd":
-        gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
-        w = (torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1) \
-            / H ** 0.5
-        return gx, w
+    if name in ("lstm_fwd", "lstm_fwd_wide_bf16"):
+        Hn = H if name == "lstm_fwd" else WIDE_H
+        gx = torch.randn((T, B, 4 * Hn), generator=g, device=dev) * 0.5
+        w = (torch.rand((4 * Hn, Hn), generator=g, device=dev) * 2 - 1) \
+            / Hn ** 0.5
+        if name == "lstm_fwd":
+            return gx, w
+        return gx.to(torch.bfloat16), w.to(torch.bfloat16)
     bf = torch.bfloat16
     x = (torch.randn((T, B, In), generator=g, device=dev) * 0.5).to(bf)
     w_ih = ((torch.rand((4 * H, In), generator=g, device=dev) * 2 - 1)
@@ -167,20 +176,22 @@ def make_problem(dev, name: str, In: Optional[int], B: int, seed: int = 0):
 
 
 def normal(name: str, prob, reverse: bool = False):
-    return (L.lstm_layer_fwd(*prob, reverse) if name == "lstm_fwd"
-            else L.lstm_fused_fwd(*prob, reverse))
+    return (L.lstm_fused_fwd(*prob, reverse) if name == "lstm_fused_fwd"
+            else L.lstm_layer_fwd(*prob, reverse))
 
 
 def timed_fwd(name: str, prob, reverse: bool = False):
     """The timing build of ``name`` on ``prob``: ((hs, cs), as the normal
-    wrapper's, and the (T, H/4, 8) int64 timeline)."""
+    wrapper's, and the (T, blocks, 8) int64 timeline: H/4 blocks, H/8 for
+    the wide build)."""
     kernel = TIMED[name]
     head = prob[0]
     Tn, B = head.shape[:2]
     Hn = prob[-1].shape[1]
     dev = head.device
     stream = _build.stream_handle(dev)
-    tl = torch.zeros((Tn, Hn // 4, SLOTS), device=dev, dtype=torch.int64)
+    units = 8 if name == "lstm_fwd_wide_bf16" else 4
+    tl = torch.zeros((Tn, Hn // units, SLOTS), device=dev, dtype=torch.int64)
     cs = torch.empty((Tn, B, Hn), device=dev, dtype=torch.float32)
     hs = torch.empty((Tn, B, Hn), device=dev, dtype=head.dtype)
     barrier = torch.zeros((1,), device=dev, dtype=torch.int32)
@@ -191,6 +202,11 @@ def timed_fwd(name: str, prob, reverse: bool = False):
         kernel(gx.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
                hbuf.data_ptr(), barrier.data_ptr(), Tn, B, Hn, int(reverse),
                tl.data_ptr(), stream)
+    elif name == "lstm_fwd_wide_bf16":
+        gx, w = prob
+        kernel(gx.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+               barrier.data_ptr(), Tn, B, Hn, int(reverse), tl.data_ptr(),
+               stream)
     else:
         x, w_ih, bias, w_hh = prob
         kernel(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
@@ -226,7 +242,8 @@ def bench(dev, iters: int = 10, cases=CASES) -> Dict:
         equal = all(torch.equal(a, b) for a, b in zip(got, want))
         ms = cuda_ms(lambda: normal(name, prob), iters)
         rows.append({
-            "kernel": name, "In": In, "B": B, "T": T, "H": H,
+            "kernel": name, "In": In, "B": B, "T": T,
+            "H": prob[-1].shape[1],
             "bit_equal_to_normal_build": equal,
             "ms": ms, "us_a_step": ms * 1e3 / T,
             "ms_timing_build": cuda_ms(lambda: timed_fwd(name, prob), iters),

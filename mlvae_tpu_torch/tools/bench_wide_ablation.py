@@ -2,15 +2,21 @@
 
     python -m mlvae_tpu_torch.tools.bench_wide_ablation [--iters N]
 
-Builds ``csrc/lstm_fwd_wide.cu`` and ``csrc/lstm_bwd_wide.cu`` once as
-they are and once for each entry of ``ABLATIONS``: a copy of ``csrc/``
-(under ``mlvae_tpu_torch/_build/ablation/``) in which one phase is taken
-out by a text substitution (its FMAs, its copies of h_{t-1}, its
+Builds ``csrc/lstm_fwd_wide.cu`` and ``csrc/lstm_bwd_wide.cu`` (f32), and
+``csrc/lstm_fwd_wide_bf16.cu`` and ``csrc/lstm_bwd_wide_bf16.cu`` (bf16
+streams; K1-bwd's recurrence without its dW_hh kernel), once as they are
+and once for each entry of ``ABLATIONS``: a copy of ``csrc/`` (under
+``mlvae_tpu_torch/_build/ablation/``) in which one phase is taken out by a
+text substitution (its FMAs, its copies of h_{t-1} or of the dgates, its
 exchange), so that the time it saves is that phase's share. The ablated
-outputs are wrong by design; each is reported beside its time. It runs at
-LSTM_FC's shape (T=160, B=64, H=1024) on inputs from a generator seeded 0,
-times each build with CUDA events after warm-up in two rounds (the lower
-kept), and prints one JSON line naming the card and its power limit. It
+outputs are wrong by design; each is reported beside its time. One entry
+is a design, not an ablation: ``fwd_bf16-w_in_shared`` builds the bf16
+K1-fwd with W_hh's rows in shared memory instead of registers (its
+``W_SMEM``), whose outputs must stay bit-equal to the normal build's
+(``bit_equal_to_base``). It runs at LSTM_FC's shape (T=160, B=64, H=1024) on
+inputs from a generator seeded 0, times each build with CUDA events after
+warm-up in two rounds (the lower kept), and prints one JSON line naming
+the card and its power limit. It
 needs the card and raises without CUDA; a substitution that no longer
 finds its text fails the build (``tests/test_torch_lstm_wide.py`` holds
 every one against the sources).
@@ -39,6 +45,13 @@ _PRODUCT_FMAS = ("lstm_wide.cuh", "for (int k = 0; k < part; ++k) {",
 _STAGE = ("lstm_wide.cuh",
           "    cp_async16(buf + r * PITCH + 4 * j,\n"
           "               h + (size_t)(k0 + r) * Bp + (ok ? b : 0), ok);", "")
+# the bf16 builds' TMA copies: each copy's mbarrier expects no bytes, so
+# it completes at once and the tile keeps what it held
+_STAGE_BF16 = ("lstm_wide_mma.cuh",
+               "    mbar_expect(&bar[ks], SLICE * sizeof(bf16));\n"
+               "    fused::tma_half(dst, c, 0, &bar[ks]);\n"
+               "    fused::tma_half(dst + BT * fused::HALF, c, 1, &bar[ks]);",
+               "    mbar_expect(&bar[ks], 0);")
 # (kernel source, [(file, text, replacement)]); "" keeps the build as it is
 ABLATIONS = {
     "fwd": ("lstm_fwd_wide", []),
@@ -61,7 +74,23 @@ ABLATIONS = {
     "bwd-reduce": ("lstm_bwd_wide", [(
         "lstm_bwd_wide.cu", "for (int w = q4; w < nblk; w += 4) {",
         "for (int w = q4; w < 0; w += 4) {")]),
+    "fwd_bf16": ("lstm_fwd_wide_bf16", []),
+    "fwd_bf16-w_in_shared": ("lstm_fwd_wide_bf16", [(
+        "lstm_fwd_wide_bf16.cu", "constexpr bool W_SMEM = false;",
+        "constexpr bool W_SMEM = true;")]),
+    "fwd_bf16-staging": ("lstm_fwd_wide_bf16", [_STAGE_BF16]),
+    "bwd_bf16": ("lstm_bwd_wide_bf16", []),
+    "bwd_bf16-recompute_staging": ("lstm_bwd_wide_bf16", [_STAGE_BF16]),
+    "bwd_bf16-exchange_staging": ("lstm_bwd_wide_bf16", [(
+        "lstm_bwd_wide_bf16.cu",
+        "      mbar_expect(&bars[slot], XCHUNK_ELEMS * sizeof(bf16));\n"
+        "      fused::tma_half(bufs + (size_t)slot * XCHUNK_ELEMS, c, 0, "
+        "&bars[slot]);",
+        "      mbar_expect(&bars[slot], 0);")]),
 }
+# the build each ablation saves time against
+BASE = {"lstm_fwd_wide": "fwd", "lstm_bwd_wide": "bwd",
+        "lstm_fwd_wide_bf16": "fwd_bf16", "lstm_bwd_wide_bf16": "bwd_bf16"}
 ROOT = _build.BUILD_DIR / "ablation"
 
 
@@ -106,6 +135,33 @@ def _launcher(lib, src, prob):
     P, I = ctypes.c_void_p, ctypes.c_int
     dev = gx.device
     fn = getattr(lib, f"mlvae_{src}")
+    if src == "lstm_fwd_wide_bf16":
+        fn.argtypes = [P] * 5 + [I] * 4 + [P]
+
+        def run():
+            h = torch.empty_like(hs)
+            c = torch.empty_like(cs)
+            bar = torch.zeros((1,), device=dev, dtype=torch.int32)
+            code = fn(gx.data_ptr(), w.data_ptr(), h.data_ptr(), c.data_ptr(),
+                      bar.data_ptr(), T, B, H, 0, _build.stream_handle(dev))
+            if code:
+                raise RuntimeError(f"{src}: CUDA error {code}")
+            return h, c
+        return run
+    if src == "lstm_bwd_wide_bf16":
+        fn.argtypes = [P] * 9 + [I] * 4 + [P]
+
+        def run():
+            dgx = torch.empty_like(gx)
+            dh_buf, dc_buf, bar = L.k1_bf16_bwd_scratch(gx, dc_last)
+            code = fn(gx.data_ptr(), w.data_ptr(), hs.data_ptr(),
+                      cs.data_ptr(), dhs.data_ptr(), dgx.data_ptr(),
+                      dh_buf.data_ptr(), dc_buf.data_ptr(), bar.data_ptr(),
+                      T, B, H, 0, _build.stream_handle(dev))
+            if code:
+                raise RuntimeError(f"{src}: CUDA error {code}")
+            return (dgx,)
+        return run
     if src == "lstm_fwd_wide":
         fn.argtypes = [P] * 6 + [I] * 4 + [P]
 
@@ -161,23 +217,35 @@ def bench(dev, iters: int = 5) -> Dict:
     dhs = torch.randn((T, B, H), generator=g, device=dev) * 0.1
     dc_last = torch.randn((B, H), generator=g, device=dev) * 0.1
     prob = (gx, w, hs, cs, dhs, dc_last)
+    # the same draws on bf16 streams, the trajectory from the plain
+    # recurrence in bf16
+    bf = torch.bfloat16
+    hs16, cs16 = L.lstm_layer_ref(gx.to(bf), w.to(bf))
+    prob16 = (gx.to(bf), w.to(bf), hs16, cs16, dhs.to(bf), dc_last)
     want = {"lstm_fwd_wide": (hs, cs),
-            "lstm_bwd_wide": L.lstm_layer_bwd_ref(*prob)}
-    rows = {}
+            "lstm_bwd_wide": L.lstm_layer_bwd_ref(*prob),
+            "lstm_fwd_wide_bf16": (hs16, cs16),
+            "lstm_bwd_wide_bf16": L.lstm_layer_bwd_ref(*prob16)[:1]}
+    rows, outs = {}, {}
     for _ in range(ROUNDS):
         for name, lib in libs.items():
             src = ABLATIONS[name][0]
-            run = _launcher(lib, src, prob)
+            run = _launcher(lib, src, prob16 if src in (
+                "lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16") else prob)
             got = run()
             torch.cuda.synchronize()
-            err = max(float((a - b).abs().max() / b.abs().max())
+            outs.setdefault(name, got)
+            err = max(float((a.float() - b.float()).abs().max()
+                            / b.float().abs().max())
                       for a, b in zip(got, want[src]))
             ms = cuda_ms(run, iters)
             row = rows.setdefault(name, {"ms": ms, "max_rel_err": err})
             row["ms"] = min(row["ms"], ms)
     for name, row in rows.items():
-        base = "fwd" if ABLATIONS[name][0] == "lstm_fwd_wide" else "bwd"
+        base = BASE[ABLATIONS[name][0]]
         row["saved_ms"] = rows[base]["ms"] - row["ms"]
+        row["bit_equal_to_base"] = all(
+            torch.equal(a, b) for a, b in zip(outs[name], outs[base]))
     return {"card": _card(), "T": T, "B": B, "H": H, "rows": rows}
 
 

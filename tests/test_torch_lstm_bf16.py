@@ -378,8 +378,9 @@ def test_k1_wrappers_refuse_what_no_build_takes(direction):
     version: mixed stream dtypes and non-f32 cells are refused
     (``ValueError``), bf16 streams at H <= 528 (the narrow builds take f32
     only) and H above 1024 raise ``NotImplementedError`` naming
-    ``ROADMAP.md`` queue 2, and a bf16 layer the wide build takes is
-    refused for not lying on a CUDA device."""
+    ``ROADMAP.md`` queue 2, a bf16 wide layer whose H is not a multiple of
+    128 names queue 1 item 4 (the bf16-carry scan), and a bf16 layer the
+    wide bf16 build takes is refused for not lying on a CUDA device."""
     def call(args):
         gx, w, hs, cs, dhs, dc = args
         if direction == "fwd":
@@ -402,7 +403,9 @@ def test_k1_wrappers_refuse_what_no_build_takes(direction):
             call(_k1_args(3, 8, H))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
         call(_k1_args(3, 8, 1040))
-    for H in (544, 1024):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        call(_k1_args(3, 8, 544))
+    for H in (640, 1024):
         with pytest.raises(ValueError, match="CUDA device"):
             call(_k1_args(3, 8, H))
     # f32 streams keep every build: only the device is refused
@@ -411,23 +414,27 @@ def test_k1_wrappers_refuse_what_no_build_takes(direction):
 
 
 def test_bf16_wide_kernels_are_built_registered_and_bound():
-    """Each wide source exports a bf16 entry point and its plan beside the
-    f32 ones, registered as its own kernel (its own launch count) with the
-    C signature's arity."""
-    for kernel, src, f32 in ((L.LSTM_FWD_WIDE_BF16, "lstm_fwd_wide",
+    """The bf16 wide builds are sources of their own beside the f32 ones
+    (K1-fwd; K1-bwd's recurrence and its dW_hh kernel in one source), each
+    entry point registered as its own kernel (its own launch count) with
+    the C signature's arity and a plan; the f32 sources keep f32 only."""
+    for kernel, src, f32 in ((L.LSTM_FWD_WIDE_BF16, "lstm_fwd_wide_bf16",
                               L.LSTM_FWD_WIDE),
-                             (L.LSTM_BWD_WIDE_BF16, "lstm_bwd_wide",
+                             (L.LSTM_BWD_WIDE_BF16, "lstm_bwd_wide_bf16",
+                              L.LSTM_BWD_WIDE),
+                             (L.LSTM_DW_WIDE_BF16, "lstm_bwd_wide_bf16",
                               L.LSTM_BWD_WIDE)):
         assert kernel in _build.KERNELS and kernel is not f32
-        assert kernel.name == f"{src}_bf16" and kernel.source == src
-        assert src in _build.SOURCES
-        assert kernel.symbol == f"mlvae_{src}_bf16"
-        assert kernel.argtypes == f32.argtypes
+        assert kernel.source == src and src in _build.SOURCES
+        assert f32.source == f32.name and f32.source in _build.SOURCES
+        assert kernel.symbol == f"mlvae_{kernel.name}"
         text = (CSRC / f"{src}.cu").read_text()
-        sig = re.search(rf"int mlvae_{src}_bf16\(([^)]*)\)", text).group(1)
+        sig = re.search(rf"int {kernel.symbol}\(([^)]*)\)", text).group(1)
         assert sig.count(",") + 1 == len(kernel.argtypes)
-        assert f"int mlvae_{src}_bf16_plan(" in text
-        assert '#include "lstm_wide.cuh"' in text
+        assert f"int {kernel.symbol}_plan(" in text
+        assert '#include "lstm_wide_mma.cuh"' in text
+        assert f"mlvae_{kernel.name}" not in (CSRC / f"{f32.source}.cu"
+                                              ).read_text()
     assert '#include "stream_dtype.cuh"' in (CSRC / "lstm_wide.cuh"
                                              ).read_text()
     names = [k.name for k in _build.KERNELS]
