@@ -162,7 +162,7 @@ FWD_BIT_REPEATS = 50   # phase 2's repeated K1-fwd / K3/K4-fwd launches per
 BWD_YARD_CASES = (("lstm_fused_bwd", 32, 64), ("lstm_fused_bwd", 128, 64),
                   ("lstm_fused_bwd", 512, 64), ("lstm_semi_bwd", 1024, 64),
                   ("lstm_fused_bwd", 512, 256), ("lstm_semi_bwd", 1024, 256))
-BWD_YARD_ROUNDS = 3
+BWD_YARD_ROUNDS = 2
 # the forwards beside cuDNN's forward of one layer, in turns in phase 4:
 # (kernel, In, B), In None for K1-fwd (f32, against an f32 layer whose
 # input is H wide: cuDNN's time includes its input projection, which
@@ -172,7 +172,7 @@ K1_YARD_CASES = (("lstm_fwd", None, 64), ("lstm_fwd", None, 128))
 K1B_YARD_CASES = (("lstm_bwd", None, 64), ("lstm_bwd", None, 128))
 FUSED_FWD_YARD_CASES = tuple(("lstm_fused_fwd", In, B) for B in (64, 256)
                              for In in (128, 512, 1024))
-FWD_YARD_ROUNDS = 3
+FWD_YARD_ROUNDS = 2
 BF16_PEAK = 989e12    # H100 SXM dense bf16 tensor cores, FLOP/s
 AMP_LOSS_RTOL = 1e-3  # the AMP step against its plain twin: the fused
 AMP_GRAD_RTOL = 1e-2  # kernels' bf16 flips (above) through ten layers
@@ -2639,7 +2639,7 @@ def time_lstm_fc(dev, report, model, batch, first_noise, errs, counts,
         dw_ms = cuda_ms(lambda: L.LSTM_DW_WIDE_BF16(
             dgx.data_ptr(), hs.data_ptr(), dw.data_ptr(), T, B, H, 0, st),
             iters=10)
-        dw_plain = cuda_ms(lambda: L.wide_dw_ref(dgx, hs), iters=3,
+        dw_plain = cuda_ms(lambda: L.wide_dw_ref(dgx, hs), iters=1,
                            warmup=1)
         xs, ys = dgx[1:].reshape(-1, 4 * H), hs[:-1].reshape(-1, H)
         dw_lib = cuda_ms(lambda: torch.matmul(xs.t(), ys), iters=10)
@@ -3148,10 +3148,12 @@ def main(argv=None) -> int:
     errs["lstm_bwd"] = max(check_lstm_bwd(dev, report),
                            stress_lstm_bwd(dev, report,
                                            args.lstm_bwd_repeats))
+    report("phase 2 the wide K1 builds")
     errs["lstm_wide"] = check_lstm_wide(dev, report)
     stress_lstm_wide(dev, report)
     errs["lstm_wide_bf16"] = check_lstm_wide(dev, report, bf16=True)
     stress_lstm_wide(dev, report, WIDE_BF16_REPEATS, bf16=True)
+    report("phase 2 K2, K3/K4, K6, K5, K7")
     prob, errs_viterbi = check_viterbi(dev, report)
     errs.update(errs_viterbi)
     errs["lstm_fused_fwd"] = check_fused_fwd(dev, report)
@@ -3226,9 +3228,11 @@ def main(argv=None) -> int:
     del cases
     wav_in = time_wav(dev, report, model)
     del model
+    report("phase 4 the fused tiers and the step timelines")
     kernels += time_fused(dev, report, errs, counts)
     bwd_timeline = time_bwd_timeline(dev, report)
     fwd_timeline = time_fwd_timeline(dev, report)
+    report("phase 4 the MD_VAE train steps, K5, K7, gate 3")
     train_step = time_training(dev, report, train_model, train_batch,
                                first_noise)
     del train_model
@@ -3243,6 +3247,7 @@ def main(argv=None) -> int:
                   "amp": time_gate3(dev, report, amp_gate, amp_gate_batch,
                                     amp_gate_noise, "AMP")}
     del gate, amp_gate
+    report("phase 4 LSTM_FC, f32 and AMP")
     fc_kernels, lstm_fc = time_lstm_fc(dev, report, fc_model, fc_batch,
                                        fc_noise, errs, counts)
     kernels += fc_kernels

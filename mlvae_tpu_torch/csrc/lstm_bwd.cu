@@ -71,97 +71,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bwd_timeline.cuh"
 #include "grid_sync.cuh"
 #include "mbarrier.cuh"
 
-// The step timeline, compiled in only with -DMLVAE_K1_BWD_TIMELINE (the
-// timing build of tools/bench_bwd_timeline.py): thread 0 reads
-// %globaltimer at the boundaries of its phases, adds each interval to its
-// phase's sum and at the end of each step writes timeline[s][block][k]
-// (int64 ns): k = 0 the step's start, 1 its end, then the sums of 2 stage
-// (h_{t-1} into shared memory), 3 recompute (the pre-activations), 4 cell
-// (the dgates and their stores), 5 partial_dw (the pass forming the
-// split-K share of dh_{t-1} and dW, to the arrival), 6 wait (in the grid
-// barrier, with the block's other warps catching up), 7 reduce (dh_{t-1}
-// from the partials), 8 barrier (from the arrival to the end of the wait,
-// whatever ran between) and 9 loads (the next step's cell inputs). Stage
-// is thread 0's time in the mbarrier waits of its K slice, recompute the
-// rest of its recompute.
-// Without the define the macros are empty and the kernel takes no
-// timeline argument.
+// The step timeline (bwd_timeline.cuh, only with -DMLVAE_K1_BWD_TIMELINE):
+// slot 5 partial_dw (the pass forming the split-K share of dh_{t-1} and
+// dW, to the arrival; the block's other warps catch up in 6 wait), 7
+// reduce (dh_{t-1} from the partials). Stage is thread 0's time in the
+// mbarrier waits of its K slice, recompute the rest of its recompute.
 #ifdef MLVAE_K1_BWD_TIMELINE
-constexpr int TL_SLOTS = 10;
-enum TlPhase { TL_STAGE = 2, TL_RECOMPUTE, TL_CELL, TL_PARTIAL_DW, TL_WAIT,
-               TL_REDUCE, TL_BARRIER, TL_LOADS };
-
-__device__ __forceinline__ unsigned long long tl_now() {
-  unsigned long long ns;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-  return ns;
-}
-
-struct TlClock {
-  unsigned long long start, last, arrived, sum[TL_SLOTS];
-  __device__ __forceinline__ void begin() {
-    start = last = tl_now();
-#pragma unroll
-    for (int k = 0; k < TL_SLOTS; ++k) sum[k] = 0;
-  }
-  __device__ __forceinline__ void mark(int k) {
-    const unsigned long long now = tl_now();
-    sum[k] += now - last;
-    last = now;
-  }
-};
-
-#define TL_ARG , unsigned long long* timeline
-#define TL_CLOCK TlClock tl_clock_
-#define TL_BEGIN()                               \
-  do {                                           \
-    if (threadIdx.x == 0) tl_clock_.begin();     \
-  } while (0)
-#define TL_MARK(k)                               \
-  do {                                           \
-    if (threadIdx.x == 0) tl_clock_.mark(k);     \
-  } while (0)
-#define TL_ARRIVED()                                           \
-  do {                                                         \
-    if (threadIdx.x == 0) tl_clock_.arrived = tl_clock_.last;  \
-  } while (0)
-#define TL_WAITED()                                            \
-  do {                                                         \
-    if (threadIdx.x == 0)                                      \
-      tl_clock_.sum[TL_BARRIER] += tl_clock_.last - tl_clock_.arrived; \
-  } while (0)
-#define TL_STORE(s)                                                       \
-  do {                                                                    \
-    if (threadIdx.x == 0) {                                               \
-      unsigned long long* row_ =                                          \
-          timeline + ((size_t)(s) * gridDim.x + blockIdx.x) * TL_SLOTS;   \
-      row_[0] = tl_clock_.start;                                          \
-      row_[1] = tl_now();                                                 \
-      for (int k_ = TL_STAGE; k_ < TL_SLOTS; ++k_)                        \
-        row_[k_] = tl_clock_.sum[k_];                                     \
-    }                                                                     \
-  } while (0)
-#else
-#define TL_ARG
-#define TL_CLOCK
-#define TL_BEGIN() \
-  do {             \
-  } while (0)
-#define TL_MARK(k) \
-  do {             \
-  } while (0)
-#define TL_ARRIVED() \
-  do {               \
-  } while (0)
-#define TL_WAITED() \
-  do {              \
-  } while (0)
-#define TL_STORE(s) \
-  do {              \
-  } while (0)
+enum { TL_PARTIAL_DW = 5, TL_REDUCE = 7 };
 #endif
 
 namespace {

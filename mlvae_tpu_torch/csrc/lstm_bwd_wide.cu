@@ -14,10 +14,6 @@
 // step; h_{t-1} = c_{t-1} = 0 at the first processed step; `reverse` is
 // indexing only.
 //
-// The kernel is a template over the stream dtype (stream_dtype.cuh) and
-// is instantiated for f32 only: gx, W_hh, hs, dhs, dgx, cs, dc_last, dW_hh
-// and every sum are f32.
-//
 // What bounds it on an H100: at B=64, H=1024, T=160 three products a step
 // (the recompute, dh_{t-1}, dW_hh), 3*2*B*H*4H*T = 257.7 GFLOP of f32 FMA
 // work (3.846 ms at 67 TFLOP/s) against about 400 MB of traffic (0.12 ms
@@ -64,13 +60,10 @@
 namespace {
 
 using namespace wide;
-using namespace stream_dtype;  // to_f32, store, rounded, load4
 
-// hst[t][k][b] = hs[t][b][k] for b < B, 0 for B <= b < Bp, widened to f32:
-// 32 x 32 tiles through shared memory, blocks (32, 8), grid (H/32, Bp/32,
-// T) rounded up.
-template <typename T>
-__global__ void transpose_hs(const T* __restrict__ hs,
+// hst[t][k][b] = hs[t][b][k] for b < B, 0 for B <= b < Bp: 32 x 32 tiles
+// through shared memory, blocks (32, 8), grid (H/32, Bp/32, T) rounded up.
+__global__ void transpose_hs(const float* __restrict__ hs,
                              float* __restrict__ hst, int B, int H, int Bp) {
   __shared__ float tile[32][33];
   const int t = blockIdx.z;
@@ -78,7 +71,7 @@ __global__ void transpose_hs(const T* __restrict__ hs,
   for (int j = threadIdx.y; j < 32; j += 8) {
     const int b = b0 + j, k = k0 + threadIdx.x;
     tile[j][threadIdx.x] =
-        b < B && k < H ? to_f32(hs[((size_t)t * B + b) * H + k]) : 0.0f;
+        b < B && k < H ? hs[((size_t)t * B + b) * H + k] : 0.0f;
   }
   __syncthreads();
   for (int j = threadIdx.y; j < 32; j += 8) {
@@ -89,35 +82,32 @@ __global__ void transpose_hs(const T* __restrict__ hs,
 }
 
 // Rows [b0 + 8c, b0 + 8c + 8) of h at one position, (B, H) in hs, into
-// ring buffer c % RING as [row][k] in the stream dtype, one copy group;
-// rows past B as zeros.
-template <typename T>
-__device__ inline void stage_rows(float* ring, const T* h, int B, int H,
+// ring buffer c % RING as [row][k], one copy group; rows past B as zeros.
+__device__ inline void stage_rows(float* ring, const float* h, int B, int H,
                                   int b0, int c) {
-  constexpr int E = 16 / sizeof(T);  // elements a copy
-  T* buf = reinterpret_cast<T*>(ring_buf(ring, c));
-  const int n4 = H / E;
+  float* buf = ring_buf(ring, c);
+  const int n4 = H / 4;
   for (int i = threadIdx.x; i < 8 * n4; i += THREADS) {
     const int r = i / n4, j = i % n4;
     const int b = b0 + 8 * c + r;
     const bool ok = b < B;
-    cp_async16(buf + (size_t)r * H + E * j,
-               h + (size_t)(ok ? b : 0) * H + E * j, ok);
+    cp_async16(buf + (size_t)r * H + 4 * j,
+               h + (size_t)(ok ? b : 0) * H + 4 * j, ok);
   }
   cp_commit();
 }
 
 constexpr int TB = 8, TR = 4;  // the recompute's register tile: 4 K slices
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-lstm_bwd_wide_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh,
-                     const T* __restrict__ hs,
+lstm_bwd_wide_kernel(const float* __restrict__ gx,
+                     const float* __restrict__ w_hh,
+                     const float* __restrict__ hs,
                      const float* __restrict__ cs,
-                     const T* __restrict__ dhs,
-                     const float* __restrict__ hst, T* __restrict__ dgx,
+                     const float* __restrict__ dhs,
+                     const float* __restrict__ hst, float* __restrict__ dgx,
                      float* __restrict__ dw_hh, float* part, float* dh_buf,
-                     float* dc_buf, unsigned int* barrier, int Tn, int B,
+                     float* dc_buf, unsigned int* barrier, int T, int B,
                      int H, int reverse) {
   extern __shared__ __align__(16) float smem[];
   const Smem sm = carve(smem, H);
@@ -145,12 +135,12 @@ lstm_bwd_wide_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh,
   const float4* dg4 = reinterpret_cast<const float4*>(sm.dg);
   unsigned int arrivals = 0;
 
-  for (int s = Tn - 1; s >= 0; --s) {
+  for (int s = T - 1; s >= 0; --s) {
     const bool first = s == 0;  // h_{t-1} = c_{t-1} = 0
-    const int t = reverse ? Tn - 1 - s : s;
+    const int t = reverse ? T - 1 - s : s;
     const int tp = reverse ? t + 1 : t - 1;
     const float* h_prev = hst + (size_t)(first ? 0 : tp) * H * Bp;
-    const T* hs_prev = hs + (size_t)(first ? 0 : tp) * B * H;
+    const float* hs_prev = hs + (size_t)(first ? 0 : tp) * B * H;
     float* my_part = part + ((size_t)(s & 1) * nblk + blockIdx.x) * B * H;
     for (int b0 = 0; b0 < B; b0 += BT) {
       const int nb = min(BT, B - b0);
@@ -171,8 +161,7 @@ lstm_bwd_wide_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh,
           for (int q = 0; q < GATES; ++q) {
             const float sum =
                 first ? 0.0f : red_at(sm.red, q, e);
-            pre[q] = __fadd_rn(
-                to_f32(gx[row * G + (size_t)q * H + u0 + uu]), sum);
+            pre[q] = __fadd_rn(gx[row * G + (size_t)q * H + u0 + uu], sum);
           }
           const float c_t = cs[o];
           const float c_prev =
@@ -183,7 +172,7 @@ lstm_bwd_wide_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh,
           const float og = sigmoid_f(pre[3]);
           // the narrow build's contraction: every product rounded,
           // 1 - x^2 and dc's update one FMA each
-          const float dh = __fadd_rn(to_f32(dhs[o]), dh_buf[bu]);
+          const float dh = __fadd_rn(dhs[o], dh_buf[bu]);
           const float tanh_c = tanhf(c_t);
           const float d_o = __fmul_rn(dh, tanh_c);
           const float dc = __fmaf_rn(__fmul_rn(dh, og),
@@ -196,15 +185,13 @@ lstm_bwd_wide_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh,
           dg[2] = __fmul_rn(__fmul_rn(dc, ig), __fmaf_rn(-gg, gg, 1.0f));
           dg[3] = __fmul_rn(__fmul_rn(d_o, og), __fsub_rn(1.0f, og));
           dc_buf[bu] = __fmul_rn(dc, fg);
-          T* dgr = dgx + row * G + u0 + uu;
+          float* dgr = dgx + row * G + u0 + uu;
 #pragma unroll
-          for (int q = 0; q < GATES; ++q)
-            store(dgr + (size_t)q * H, dg[q]);
+          for (int q = 0; q < GATES; ++q) dgr[(size_t)q * H] = dg[q];
         }
-        // both products take the dgates in the stream dtype
 #pragma unroll
         for (int q = 0; q < GATES; ++q)
-          sm.dg[cb * ROWS + q * UNITS + uu] = rounded(dg[q], dgx);
+          sm.dg[cb * ROWS + q * UNITS + uu] = dg[q];
       }
       __syncthreads();  // dg_s written, red_s (the ring) read
       if (first) continue;
@@ -255,12 +242,12 @@ lstm_bwd_wide_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh,
       // dW_hh[row][kq + c] += dgates[b][row] * h_{t-1}[b][kq + c], b in
       // order (rows past the tile's end have zero dgates and zero h)
       for (int c = 0; c < nbc; ++c) {
-        const T* buf =
-            reinterpret_cast<const T*>(chunk_ready(sm.ring, c, nbc));
+        const float* buf = chunk_ready(sm.ring, c, nbc);
         if (kq < H) {
 #pragma unroll 2
           for (int bb = 0; bb < 8; ++bb) {
-            const float4 hv = load4(buf + (size_t)bb * H + kq);
+            const float4 hv =
+                *reinterpret_cast<const float4*>(buf + (size_t)bb * H + kq);
             const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
             float d[ROWS];
 #pragma unroll
@@ -332,21 +319,28 @@ lstm_bwd_wide_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh,
   }
 }
 
-// The launch plan of a build for H, as lstm_fwd_wide.cu's out[0..7].
-template <typename T>
-int plan(int H, int B, int* out) {
+}  // namespace
+
+extern "C" {
+
+const char* mlvae_lstm_bwd_wide_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The launch plan for H, as mlvae_lstm_fwd_wide_plan's out[0..7].
+int mlvae_lstm_bwd_wide_plan(int H, int B, int* out) {
   if (!takes(1, B, H)) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(H, true);
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_bwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int occ = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, lstm_bwd_wide_kernel<T>, THREADS, smem);
+      &occ, lstm_bwd_wide_kernel, THREADS, smem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, lstm_bwd_wide_kernel<T>);
+  err = cudaFuncGetAttributes(&attr, lstm_bwd_wide_kernel);
   if (err != cudaSuccess) return err;
   out[0] = H / UNITS;
   out[1] = THREADS;
@@ -357,41 +351,6 @@ int plan(int H, int B, int* out) {
   out[6] = attr.numRegs;
   out[7] = static_cast<int>(attr.localSizeBytes);
   return cudaSuccess;
-}
-
-// Two launches on the stream: the transpose, then the recurrence.
-template <typename T>
-int launch(const T* gx, const T* w_hh, const T* hs, const float* cs,
-           const T* dhs, T* dgx, float* dw_hh, float* part, float* dh_buf,
-           float* dc_buf, float* hst, unsigned int* barrier, int Tn, int B,
-           int H, int reverse, cudaStream_t stream) {
-  if (!takes(Tn, B, H)) return cudaErrorInvalidValue;
-  const int Bp = pitch_of(B);
-  transpose_hs<T><<<dim3((H + 31) / 32, (Bp + 31) / 32, Tn), dim3(32, 8),
-                    0, stream>>>(hs, hst, B, H, Bp);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const float* hst_c = hst;
-  void* args[] = {(void*)&gx,    (void*)&w_hh,   (void*)&hs,
-                  (void*)&cs,    (void*)&dhs,    (void*)&hst_c,
-                  (void*)&dgx,
-                  (void*)&dw_hh, (void*)&part,   (void*)&dh_buf,
-                  (void*)&dc_buf, (void*)&barrier, (void*)&Tn,
-                  (void*)&B,     (void*)&H,      (void*)&reverse};
-  return launch_cooperative(lstm_bwd_wide_kernel<T>, H / UNITS, THREADS,
-                            args, smem_bytes(H, true), stream);
-}
-
-}  // namespace
-
-extern "C" {
-
-const char* mlvae_lstm_bwd_wide_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-int mlvae_lstm_bwd_wide_plan(int H, int B, int* out) {
-  return plan<float>(H, B, out);
 }
 
 // gx (T,B,4H), w_hh (4H,H), hs/cs/dhs (T,B,H) f32 inputs, hs 16-byte
@@ -407,8 +366,21 @@ int mlvae_lstm_bwd_wide(const float* gx, const float* w_hh, const float* hs,
                         float* dc_buf, float* hst, unsigned int* barrier,
                         int T, int B, int H, int reverse,
                         cudaStream_t stream) {
-  return launch(gx, w_hh, hs, cs, dhs, dgx, dw_hh, part, dh_buf, dc_buf, hst,
-                barrier, T, B, H, reverse, stream);
+  if (!takes(T, B, H)) return cudaErrorInvalidValue;
+  const int Bp = pitch_of(B);
+  transpose_hs<<<dim3((H + 31) / 32, (Bp + 31) / 32, T), dim3(32, 8), 0,
+                 stream>>>(hs, hst, B, H, Bp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float* hst_c = hst;
+  void* args[] = {(void*)&gx,    (void*)&w_hh,   (void*)&hs,
+                  (void*)&cs,    (void*)&dhs,    (void*)&hst_c,
+                  (void*)&dgx,
+                  (void*)&dw_hh, (void*)&part,   (void*)&dh_buf,
+                  (void*)&dc_buf, (void*)&barrier, (void*)&T,
+                  (void*)&B,     (void*)&H,      (void*)&reverse};
+  return launch_cooperative(lstm_bwd_wide_kernel, H / UNITS, THREADS, args,
+                            smem_bytes(H, true), stream);
 }
 
 }  // extern "C"

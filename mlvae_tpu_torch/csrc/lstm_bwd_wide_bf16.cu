@@ -59,93 +59,15 @@
 // operands copied by the TMA (128-byte swizzle, three stages), eight warps
 // of 64 x 32 with mma.sync m16n8k16 on fragments read by ldmatrix.trans,
 // every sum in K order: no atomics, repeated launches bit-equal.
+#include "bwd_timeline.cuh"
 #include "lstm_wide_mma.cuh"
 
-// The step timeline, compiled in only with -DMLVAE_K1_BWD_TIMELINE (the
-// timing build of tools/bench_bwd_timeline.py): thread 0 reads
-// %globaltimer at the boundaries of its phases, adds each interval to its
-// phase's sum and at the end of each step writes timeline[s][block][k]
-// (int64 ns): k = 0 the step's start, 1 its end, then the sums of 2 stage
-// (waiting for its slice of h_{t-1}), 3 recompute (its slice's product,
-// the sums' gather), 4 cell (the dgates, their stores and the arrival),
-// 5 dh_stage (waiting for its chunks of the dgates), 6 wait (in the grid
-// barrier), 7 dh_product (its chunks' products and the sums' gather),
-// 8 barrier (from the arrival to the end of the wait, whatever ran
-// between) and 9 loads (the next step's cell inputs). Without the define
-// the macros are empty and the kernel takes no timeline argument.
+// The step timeline (bwd_timeline.cuh, only with -DMLVAE_K1_BWD_TIMELINE):
+// slot 5 dh_stage (waiting for its chunks of the dgates), 7 dh_product
+// (its chunks' products and the sums' gather). Recompute is its slice's
+// product and the sums' gather; cell includes the arrival.
 #ifdef MLVAE_K1_BWD_TIMELINE
-constexpr int TL_SLOTS = 10;
-enum TlPhase { TL_STAGE = 2, TL_RECOMPUTE, TL_CELL, TL_DH_STAGE, TL_WAIT,
-               TL_DH_PRODUCT, TL_BARRIER, TL_LOADS };
-
-__device__ __forceinline__ unsigned long long tl_now() {
-  unsigned long long ns;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-  return ns;
-}
-
-struct TlClock {
-  unsigned long long start, last, arrived, sum[TL_SLOTS];
-  __device__ __forceinline__ void begin() {
-    start = last = tl_now();
-#pragma unroll
-    for (int k = 0; k < TL_SLOTS; ++k) sum[k] = 0;
-  }
-  __device__ __forceinline__ void mark(int k) {
-    const unsigned long long now = tl_now();
-    sum[k] += now - last;
-    last = now;
-  }
-};
-
-#define TL_ARG , unsigned long long* timeline
-#define TL_CLOCK TlClock tl_clock_
-#define TL_BEGIN()                               \
-  do {                                           \
-    if (threadIdx.x == 0) tl_clock_.begin();     \
-  } while (0)
-#define TL_MARK(k)                               \
-  do {                                           \
-    if (threadIdx.x == 0) tl_clock_.mark(k);     \
-  } while (0)
-#define TL_ARRIVED()                                           \
-  do {                                                         \
-    if (threadIdx.x == 0) tl_clock_.arrived = tl_clock_.last;  \
-  } while (0)
-#define TL_WAITED()                                            \
-  do {                                                         \
-    if (threadIdx.x == 0)                                      \
-      tl_clock_.sum[TL_BARRIER] += tl_clock_.last - tl_clock_.arrived; \
-  } while (0)
-#define TL_STORE(s)                                                       \
-  do {                                                                    \
-    if (threadIdx.x == 0) {                                               \
-      unsigned long long* row_ =                                          \
-          timeline + ((size_t)(s) * gridDim.x + blockIdx.x) * TL_SLOTS;   \
-      row_[0] = tl_clock_.start;                                          \
-      row_[1] = tl_now();                                                 \
-      for (int k_ = TL_STAGE; k_ < TL_SLOTS; ++k_)                        \
-        row_[k_] = tl_clock_.sum[k_];                                     \
-    }                                                                     \
-  } while (0)
-#else
-#define TL_ARG
-#define TL_CLOCK
-#define TL_BEGIN() \
-  do {             \
-  } while (0)
-#define TL_MARK(k) \
-  do {             \
-  } while (0)
-#define TL_ARRIVED() \
-  do {               \
-  } while (0)
-#define TL_WAITED() \
-  do {              \
-  } while (0)
-#define TL_STORE(s) \
-  do {              \
-  } while (0)
+enum { TL_DH_STAGE = 5, TL_DH_PRODUCT = 7 };
 #endif
 
 using namespace widebf;
@@ -250,7 +172,7 @@ lstm_bwd_wide_bf16_kernel(const bf16* __restrict__ gx,
       return;
     }
     recurrent_product(pre, tile, hbar, &map_h, wf, nk, prev_pos(s), b0,
-                      hstaged, mark, nullptr, 0, issued);
+                      hstaged, mark, issued);
   };
 
   auto load_in = [&](int s, int b0, CellIn& in) {
@@ -670,8 +592,8 @@ int mlvae_lstm_bwd_wide_bf16(
       reinterpret_cast<uintptr_t>(dgx) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap map_h, map_g;
-  cudaError_t err = stream_map(&map_h, hs, H, B, T);
-  if (err == cudaSuccess) err = stream_map(&map_g, dgx, GATES * H, B, T);
+  cudaError_t err = fused::chunk_map(&map_h, hs, H, B, T);
+  if (err == cudaSuccess) err = fused::chunk_map(&map_g, dgx, GATES * H, B, T);
   if (err != cudaSuccess) return err;
   void* args[] = {(void*)&gx,     (void*)&w_hh,   (void*)&cs,
                   (void*)&dhs,    (void*)&dgx,    (void*)&dh_buf,

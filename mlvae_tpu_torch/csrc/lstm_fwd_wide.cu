@@ -10,10 +10,6 @@
 // and `reverse` by indexing (outputs stay in natural time order). Its one
 // recipe is LSTM_FC: four layers at H=1024.
 //
-// The kernel is a template over the stream dtype (stream_dtype.cuh) and
-// is instantiated for f32 only: gx, W_hh and hs are f32, and so are cs,
-// the h buffer and every sum.
-//
 // What bounds it on an H100: at B=64, H=1024, T=160 the recurrent products
 // are 2*B*H*4H*T = 85.9 GFLOP of f32 FMA work (1.282 ms at 67 TFLOP/s)
 // against about 210 MB of gx/hs/cs/W_hh traffic (63 us at 3.35 TB/s): the
@@ -42,15 +38,14 @@
 namespace {
 
 using namespace wide;
-using namespace stream_dtype;  // to_f32, store, rounded
 
 constexpr int TB = 8, TR = 8;  // the product's register tile: 8 K slices
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-lstm_fwd_wide_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh,
-                     T* __restrict__ hs, float* __restrict__ cs, float* hbuf,
-                     unsigned int* barrier, int Tn, int B, int H,
+lstm_fwd_wide_kernel(const float* __restrict__ gx,
+                     const float* __restrict__ w_hh, float* __restrict__ hs,
+                     float* __restrict__ cs, float* hbuf,
+                     unsigned int* barrier, int T, int B, int H,
                      int reverse) {
   extern __shared__ __align__(16) float smem[];
   const Smem sm = carve(smem, H);
@@ -69,21 +64,20 @@ lstm_fwd_wide_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh,
   // the first tile's gx of step s, by the cell thread
   float gx0[2][GATES];
   auto load_gx0 = [&](int s) {
-    const int t = reverse ? Tn - 1 - s : s;
+    const int t = reverse ? T - 1 - s : s;
     if (cb < B) {
-      const T* gxr = gx + ((size_t)t * B + cb) * G + u0 + cu;
+      const float* gxr = gx + ((size_t)t * B + cb) * G + u0 + cu;
 #pragma unroll
       for (int e = 0; e < 2; ++e)
 #pragma unroll
-        for (int q = 0; q < GATES; ++q)
-          gx0[e][q] = to_f32(gxr[(size_t)q * H + e]);
+        for (int q = 0; q < GATES; ++q) gx0[e][q] = gxr[(size_t)q * H + e];
     }
   };
   load_gx0(0);
 
   unsigned int arrivals = 0;
-  for (int s = 0; s < Tn; ++s) {
-    const int t = reverse ? Tn - 1 - s : s;
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
     const int tp = reverse ? t + 1 : t - 1;  // previous processed position
     const float* h_prev = hbuf + (size_t)(s & 1) * H * Bp;
     float* h_next = hbuf + (size_t)((s + 1) & 1) * H * Bp;
@@ -102,8 +96,7 @@ lstm_fwd_wide_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh,
                 s > 0 ? red_at(sm.red, q, e) : 0.0f;
             const float g_in =
                 i == 0 ? gx0[e][q]
-                       : to_f32(
-                             gx[((size_t)t * B + b) * G + (size_t)q * H + u]);
+                       : gx[((size_t)t * B + b) * G + (size_t)q * H + u];
             pre[q] = g_in + sum;
           }
           const float ig = sigmoid_f(pre[0]);
@@ -118,41 +111,47 @@ lstm_fwd_wide_kernel(const T* __restrict__ gx, const T* __restrict__ w_hh,
           const float c = __fmaf_rn(ig, gg, __fmul_rn(fg, c_prev));
           const float h = og * tanhf(c);
           cs[o] = c;
-          store(hs + o, h);
-          // the next step's product sees h as hs holds it
-          h_next[(size_t)u * Bp + b] = rounded(h, hs);
+          hs[o] = h;
+          h_next[(size_t)u * Bp + b] = h;
         }
       }
       __syncthreads();  // red_s (the ring) read before the next product
     }
     grid_arrive(barrier);
     ++arrivals;
-    if (s + 1 < Tn) {
+    if (s + 1 < T) {
       load_gx0(s + 1);  // needs no other block's writes
       grid_wait(barrier, arrivals * gridDim.x, 0, THREADS);
     }
   }
 }
 
-// The launch plan of a build for H (B does not change it): out[0] blocks,
-// [1] threads, [2] dynamic shared memory bytes, [3] resident blocks an SM
+}  // namespace
+
+extern "C" {
+
+const char* mlvae_lstm_fwd_wide_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The launch plan for H (B does not change it): out[0] blocks, [1]
+// threads, [2] dynamic shared memory bytes, [3] resident blocks an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), [4] ring buffers, [5]
 // rows of k a chunk, [6] registers a thread, [7] local memory bytes a
 // thread (spills). Returns a cudaError_t.
-template <typename T>
-int plan(int H, int B, int* out) {
+int mlvae_lstm_fwd_wide_plan(int H, int B, int* out) {
   if (!takes(1, B, H)) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(H, false);
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int occ = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, lstm_fwd_wide_kernel<T>, THREADS, smem);
+      &occ, lstm_fwd_wide_kernel, THREADS, smem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, lstm_fwd_wide_kernel<T>);
+  err = cudaFuncGetAttributes(&attr, lstm_fwd_wide_kernel);
   if (err != cudaSuccess) return err;
   out[0] = H / UNITS;
   out[1] = THREADS;
@@ -165,37 +164,18 @@ int plan(int H, int B, int* out) {
   return cudaSuccess;
 }
 
-template <typename T>
-int launch(const T* gx, const T* w_hh, T* hs, float* cs, float* hbuf,
-           unsigned int* barrier, int Tn, int B, int H, int reverse,
-           cudaStream_t stream) {
-  if (!takes(Tn, B, H)) return cudaErrorInvalidValue;
-  void* args[] = {(void*)&gx, (void*)&w_hh,    (void*)&hs, (void*)&cs,
-                  (void*)&hbuf, (void*)&barrier, (void*)&Tn, (void*)&B,
-                  (void*)&H,  (void*)&reverse};
-  return launch_cooperative(lstm_fwd_wide_kernel<T>, H / UNITS, THREADS,
-                            args, smem_bytes(H, false), stream);
-}
-
-}  // namespace
-
-extern "C" {
-
-const char* mlvae_lstm_fwd_wide_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-int mlvae_lstm_fwd_wide_plan(int H, int B, int* out) {
-  return plan<float>(H, B, out);
-}
-
 // As mlvae_lstm_fwd: gx (T,B,4H) f32, w_hh (4H,H) f32, hs/cs (T,B,H) f32
 // outputs, hbuf (2,H,Bp) f32 scratch zeroed (Bp = B rounded up to 4),
 // barrier one zeroed counter. Returns a cudaError_t.
 int mlvae_lstm_fwd_wide(const float* gx, const float* w_hh, float* hs,
                         float* cs, float* hbuf, unsigned int* barrier, int T,
                         int B, int H, int reverse, cudaStream_t stream) {
-  return launch(gx, w_hh, hs, cs, hbuf, barrier, T, B, H, reverse, stream);
+  if (!takes(T, B, H)) return cudaErrorInvalidValue;
+  void* args[] = {(void*)&gx, (void*)&w_hh,    (void*)&hs, (void*)&cs,
+                  (void*)&hbuf, (void*)&barrier, (void*)&T, (void*)&B,
+                  (void*)&H,  (void*)&reverse};
+  return launch_cooperative(lstm_fwd_wide_kernel, H / UNITS, THREADS, args,
+                            smem_bytes(H, false), stream);
 }
 
 }  // extern "C"

@@ -31,11 +31,9 @@
 // before the split grid barrier's arrival; the next step's gx and c_{t-1}
 // for the first tile are loaded between the arrival and the wait. B > 64
 // runs the 64-row tiles in series. Shared memory: 128 KB at H=1024.
-//
-// W_SMEM = true builds the other way to hold W_hh's 32 rows: in shared
-// memory beside the tile (64 KB more, 193 KB at H=1024), read by
-// ldmatrix, the same mma in the same order (the same output bits);
-// tools/bench_wide_ablation.py times the two (PERF.md).
+// Holding W_hh's rows in shared memory instead (64 KB more, read by
+// ldmatrix) gave the same bits and saved 1.5 us of 0.77 ms (PERF.md), so
+// the registers were kept.
 #include "fwd_timeline.cuh"
 #include "lstm_wide_mma.cuh"
 
@@ -43,16 +41,10 @@ using namespace widebf;
 
 namespace {
 
-constexpr bool W_SMEM = false;
-
-__host__ __device__ inline int w_pitch(int H) { return H + 8; }
-
 // The h_{t-1} tile (n_slices(H) slices of 64 rows x 128 columns, each
-// slice's first half taking its warp's sums), W_hh's rows with W_SMEM,
-// then an mbarrier a slice.
+// slice's first half taking its warp's sums), then an mbarrier a slice.
 size_t fwd_smem_bytes(int H) {
-  return (size_t)n_slices(H) * (SLICE * sizeof(bf16) + sizeof(uint64_t)) +
-         (W_SMEM ? (size_t)ROWS * w_pitch(H) * sizeof(bf16) : 0);
+  return (size_t)n_slices(H) * (SLICE * sizeof(bf16) + sizeof(uint64_t));
 }
 
 // The cell thread's inputs of one step: gx of its two units' four gates,
@@ -72,9 +64,7 @@ lstm_fwd_wide_bf16_kernel(const bf16* __restrict__ gx,
   extern __shared__ __align__(1024) float4 smem4[];
   bf16* tile = reinterpret_cast<bf16*>(smem4);
   const int nk = n_slices(H);
-  bf16* w_s = W_SMEM ? tile + (size_t)nk * SLICE : nullptr;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(
-      tile + (size_t)nk * SLICE + (W_SMEM ? ROWS * w_pitch(H) : 0));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(tile + (size_t)nk * SLICE);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int u0 = blockIdx.x * UNITS;
@@ -85,16 +75,7 @@ lstm_fwd_wide_bf16_kernel(const bf16* __restrict__ gx,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   uint32_t wf[KSTEPS][GATES][2];
-  if (W_SMEM) {
-    for (int i = tid; i < ROWS * H / 8; i += THREADS) {
-      const int r = i / (H / 8), k = 8 * (i % (H / 8));
-      *reinterpret_cast<uint4*>(w_s + (size_t)r * w_pitch(H) + k) =
-          __ldg(reinterpret_cast<const uint4*>(
-              w_hh + (size_t)((r / UNITS) * H + u0 + r % UNITS) * H + k));
-    }
-  } else if (warp < nk) {
-    load_w_frags(wf, w_hh, H, u0, warp);
-  }
+  if (warp < nk) load_w_frags(wf, w_hh, H, u0, warp);
   __syncthreads();
 
   // cell layout (the product's fragment layout): row cb of the tile,
@@ -139,7 +120,7 @@ lstm_fwd_wide_bf16_kernel(const bf16* __restrict__ gx,
       float pre[GATES][2] = {};
       if (s > 0)
         recurrent_product(pre, tile, bar, &map_h, wf, nk, tp, b0, staged,
-                          mark, w_s, w_pitch(H));
+                          mark);
       CellIn in = in0;
       if (i > 0) load_in(s, b0, in);
       FWD_MARK(FWD_INPUT);
@@ -230,7 +211,7 @@ int mlvae_lstm_fwd_wide_bf16(
   if (!takes(T, B, H) || reinterpret_cast<uintptr_t>(hs) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap map_h;
-  const cudaError_t err = stream_map(&map_h, hs, H, B, T);
+  const cudaError_t err = fused::chunk_map(&map_h, hs, H, B, T);
   if (err != cudaSuccess) return err;
   void* args[] = {(void*)&gx, (void*)&w_hh,    (void*)&hs,
                   (void*)&cs, (void*)&barrier, (void*)&T,

@@ -1,7 +1,9 @@
 // What the f32 wide K1 kernels share (lstm_fwd_wide.cu, lstm_bwd_wide.cu):
 // the layout of a block for 528 < H <= 1024, W_hh's rows in shared memory,
 // the chunked staging of h_{t-1} and the recurrent product of one batch
-// tile.
+// tile. The bf16-stream builds (lstm_fwd_wide_bf16.cu,
+// lstm_bwd_wide_bf16.cu) have a layout of their own (lstm_wide_mma.cuh):
+// their products run on the tensor cores.
 //
 // At H above 528 the narrow kernels' four units a block would need more
 // than the H100's 132 SMs (every block of the cooperative grid resident at
@@ -32,17 +34,10 @@
 // [ks][row][32], which reuses the ring once its last chunk is read; one
 // pass adds them in slice order and lays the sums out by cell thread. The
 // order of every sum is fixed, so repeated launches are bit-equal.
-//
-// The kernels are templates over the stream dtype (stream_dtype.cuh),
-// instantiated for f32 only: everything here is f32. The bf16-stream
-// builds (lstm_fwd_wide_bf16.cu, lstm_bwd_wide_bf16.cu) have a layout of
-// their own (lstm_wide_mma.cuh): their products run on the tensor cores.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "stream_dtype.cuh"
 
 namespace wide {
 
@@ -100,20 +95,19 @@ __device__ __forceinline__ int w_slot(int k, int q) {
   return k * (ROWS / 4) + (q ^ ((k >> 2) & 7));
 }
 
-// this block's 32 rows of W_hh into w_s, widened to f32
-template <typename T>
-__device__ inline void load_w(float* w_s, const T* __restrict__ w_hh, int H,
-                              int u0) {
+// this block's 32 rows of W_hh into w_s
+__device__ inline void load_w(float* w_s, const float* __restrict__ w_hh,
+                              int H, int u0) {
   for (int idx = threadIdx.x; idx < ROWS * H; idx += THREADS) {
     const int k = idx % H;
     const int r = idx / H;  // gate * 8 + unit
     const int gate = r / UNITS, unit = r % UNITS;
     w_s[w_slot(k, r >> 2) * 4 + (r & 3)] =
-        stream_dtype::to_f32(w_hh[(size_t)(gate * H + u0 + unit) * H + k]);
+        w_hh[(size_t)(gate * H + u0 + unit) * H + k];
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            bool valid) {
   const unsigned int d =
       static_cast<unsigned int>(__cvta_generic_to_shared(dst));

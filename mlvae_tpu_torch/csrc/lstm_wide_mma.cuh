@@ -137,45 +137,6 @@ __device__ __forceinline__ void slice_product(
   }
 }
 
-// The same product with W_hh's 32 rows in shared memory instead of
-// registers (w_s[r][k], r = gate * 8 + unit, row pitch ldw; K1-fwd's
-// W_SMEM build): per k-step two ldmatrix of 16 rows x 16 columns give the
-// B fragments of gates 0-1 and 2-3. The same mma in the same order: the
-// same sums.
-__device__ __forceinline__ void slice_product_smem(float (&acc)[4][GATES][4],
-                                                   const bf16* slice,
-                                                   const bf16* w_s, int ldw,
-                                                   int ks) {
-  const int lane = threadIdx.x & 31;
-  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1);
-  const int acol = 8 * (lane >> 4);
-  // B's matrices (as lstm_fused_tma.cuh's pre_chunk_mma): rows 0-7 at k0,
-  // at k0 + 8, rows 8-15 at k0, at k0 + 8
-  const bf16* pb = w_s + (size_t)((lane & 7) + 8 * (lane >> 4)) * ldw +
-                   ks * KSLICE + 8 * ((lane >> 3) & 1);
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int q = 0; q < GATES; ++q)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][q][e] = 0.0f;
-#pragma unroll
-  for (int k = 0; k < KSTEPS; ++k) {
-    uint32_t b01[4], b23[4];
-    fused::ldsm_x4(b01, pb + 16 * k);
-    fused::ldsm_x4(b23, pb + (size_t)16 * ldw + 16 * k);
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      uint32_t a[4];
-      fused::ldsm_x4(a, fused::tile_at(slice, 16 * m + arow, acol + 16 * k));
-      fused::mma16816(acc[m][0], a[0], a[1], a[2], a[3], b01[0], b01[1]);
-      fused::mma16816(acc[m][1], a[0], a[1], a[2], a[3], b01[2], b01[3]);
-      fused::mma16816(acc[m][2], a[0], a[1], a[2], a[3], b23[0], b23[1]);
-      fused::mma16816(acc[m][3], a[0], a[1], a[2], a[3], b23[2], b23[3]);
-    }
-  }
-}
-
 // Slice ks's sums as the cell reads them: float4 index ((m * 2 + half) * 2
 // + p) * 32 + lane holds gates 2p, 2p + 1 of units 2t, 2t + 1 at row
 // 16 m + 8 half + g.
@@ -232,38 +193,26 @@ __device__ __forceinline__ void gather_sums(float (&pre)[GATES][2],
 // counts the tile's stagings so far (the mbarriers' parity). The tile's
 // memory stays taken until every thread has gathered: the caller's next
 // block barrier frees it. W_hh's rows come from the register fragments
-// wf, or from w_s (pitch ldw) where w_s is given. `issued`: thread 0 has
-// already issued the copies (stage_h) while the tile was free.
+// wf. `issued`: thread 0 has already issued the copies (stage_h) while the
+// tile was free.
 template <class Mark>
 __device__ inline void recurrent_product(
     float (&pre)[GATES][2], bf16* tile, uint64_t* bar, const CUtensorMap* map,
     const uint32_t (&wf)[KSTEPS][GATES][2], int nk, int tp, int b0,
-    unsigned int& staged, Mark mark, const bf16* w_s = nullptr,
-    int ldw = 0, bool issued = false) {
+    unsigned int& staged, Mark mark, bool issued = false) {
   const int warp = threadIdx.x >> 5;
   if (threadIdx.x == 0 && !issued) stage_h(tile, map, bar, nk, tp, b0);
   if (warp < nk) {
     mbar_wait(&bar[warp], staged & 1);
     mark(0);  // staged
     float acc[4][GATES][4];
-    if (w_s)
-      slice_product_smem(acc, tile + (size_t)warp * SLICE, w_s, ldw, warp);
-    else
-      slice_product(acc, tile + (size_t)warp * SLICE, wf);
+    slice_product(acc, tile + (size_t)warp * SLICE, wf);
     store_sums(tile, warp, acc);
   }
   ++staged;
   __syncthreads();
   gather_sums(pre, tile, nk);
   mark(1);  // product
-}
-
-// A tensor map over a (T, B, cols) bf16 stream for slices of 64 batch rows
-// of one position: lstm_fused_tma.cuh's 3-D chunk map (columns, rows,
-// positions), zeros past B.
-inline cudaError_t stream_map(CUtensorMap* map, const void* base, int cols,
-                              int B, int T) {
-  return fused::chunk_map(map, base, cols, B, T);
 }
 
 }  // namespace widebf

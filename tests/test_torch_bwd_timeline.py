@@ -4,6 +4,8 @@ timing builds (K3-bwd, K4-bwd and K1-bwd's own) have library paths of
 their own, the phase splits read the stamps as the kernels write them, and
 the tool's shared-memory budget chooses the kernel's schedule. The kernels
 themselves run on the card (``chip_smoke.py``)."""
+import re
+
 import pytest
 import torch
 
@@ -84,6 +86,30 @@ def test_phase_split_reads_the_stamps():
     assert split["step"] == pytest.approx(
         {"min": 9.5, "median": 9.5, "max": 10.5})
 
+
+
+def _tl_slots(text):
+    """The TL_<PHASE> = slot names a source or header gives."""
+    return {m.group(1).lower(): int(m.group(2))
+            for m in re.finditer(r"\bTL_([A-Z_]+) = (\d+)", text)}
+
+
+@pytest.mark.parametrize("src, phases", [("lstm_bwd", btl.K1_PHASES),
+                                         ("lstm_bwd_wide_bf16",
+                                          btl.WIDE_PHASES)])
+def test_k1_bwd_sources_share_the_timeline_clock(src, phases):
+    """Both K1-bwd timing builds take the clock and macros from
+    bwd_timeline.cuh and name only their own two slots; together they are
+    the phases the tool reads."""
+    header = (_build.CSRC / "bwd_timeline.cuh").read_text()
+    text = (_build.CSRC / f"{src}.cu").read_text()
+    assert '#include "bwd_timeline.cuh"' in text
+    for own in ("tl_now", "struct TlClock", "#define TL_MARK", "TL_SLOTS ="):
+        assert own in header and own not in text, own
+    shared, named = _tl_slots(header), _tl_slots(text)
+    assert shared.pop("slots") == btl.K1_SLOTS
+    assert set(named.values()) == {5, 7} and not set(shared) & set(named)
+    assert {**shared, **named} == phases
 
 def _k1_timeline(T=4, blocks=3):
     """K1-bwd's timeline as thread 0 writes it: step s of block k starts at

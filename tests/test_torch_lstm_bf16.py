@@ -435,7 +435,8 @@ def test_bf16_wide_kernels_are_built_registered_and_bound():
         assert '#include "lstm_wide_mma.cuh"' in text
         assert f"mlvae_{kernel.name}" not in (CSRC / f"{f32.source}.cu"
                                               ).read_text()
-    assert '#include "stream_dtype.cuh"' in (CSRC / "lstm_wide.cuh"
-                                             ).read_text()
+    for f32 in ("lstm_wide.cuh", "lstm_fwd_wide.cu", "lstm_bwd_wide.cu"):
+        assert not re.search(r"\bbf16\s*\*|__nv_bfloat16|template <typename",
+                             (CSRC / f32).read_text())
     names = [k.name for k in _build.KERNELS]
     assert len(names) == len(set(names))
