@@ -199,7 +199,10 @@ GRU_BWD_RTOL = 1e-4   # f32 dgx, dW_hh, db_hh, of their largest entry
 GRU_BF16_ATOL = 4e-3  # bf16 hs (one bf16 ulp at |h| < 1) and hs32
 GRU_BF16_BWD_RTOL = 1e-2  # bf16 backward: a dgh one bf16 ulp off
 GRU_REPEATS = 26      # phase 2's repeated launches per K5 kernel and
-                      # direction, half f32, half bf16
+                      # direction, half f32, half bf16, each bit-equal to
+                      # the first of its dtype
+GRU_YARD_ROUNDS = 2   # phase 4: the bf16 K5 builds in turns with cuDNN's
+                      # bf16 layer (two pairs of samples a round)
 GATE_RTOL = 1e-4      # gates 1, 2, 4 card against CPU: loss, and each
                       # parameter's grad in norm (f32 sums in another order)
 # K7a and K7b: bit-equal to their one-step twins (K1-fwd, K7a at K=1,
@@ -214,7 +217,8 @@ UNROLL_ITERS = 20     # timed calls per kernel on the unroll path (phase 3)
 # + 2 + 2x2 bidirectional), one decode
 NO_FUSED = {"lstm_fused_fwd": 0, "lstm_fused_bwd": 0, "lstm_semi_bwd": 0}
 NO_FBANK = {"fbank": 0}
-NO_GRU = {"gru_fwd": 0, "gru_bwd": 0}
+NO_GRU = {"gru_fwd": 0, "gru_bwd": 0, "gru_fwd_bf16": 0, "gru_bwd_bf16": 0,
+          "gru_dw_bf16": 0}
 # K7a and K7b run on the unroll A/B path only (phase 3's last part)
 NO_UNROLL = {"lstm_unroll_fwd": 0, "lstm_unroll_fused_fwd": 0}
 # the wide K1 builds (H above 528), f32 and bf16, run on the LSTM_FC path
@@ -261,8 +265,11 @@ PER_AMP_STEP = {
             "lstm_fused_fwd": 10, "lstm_fused_bwd": 4, "lstm_semi_bwd": 2},
 }
 # one gate-3 train step: K5-fwd for the encoder and the decoder's two
-# directions, K5-bwd for each of them; nothing else
+# directions, K5-bwd for each of them; nothing else. Under AMP the bf16
+# builds only, K5-bwd as the recurrence and its dW_hh kernel (T > 1)
 PER_GATE3_STEP = {**{k: 0 for k in PER_FORWARD}, "gru_fwd": 3, "gru_bwd": 3}
+PER_GATE3_AMP_STEP = {**{k: 0 for k in PER_FORWARD}, "gru_fwd_bf16": 3,
+                      "gru_bwd_bf16": 3, "gru_dw_bf16": 3}
 # LSTM_FC (four f32 LSTM layers at H=1024): the wide K1-fwd once a layer in
 # the eval forward, and K1-fwd and K1-bwd once a layer in a train step
 PER_LSTM_FC_EVAL = {**{k: 0 for k in PER_FORWARD}, "lstm_fwd_wide": 4}
@@ -970,17 +977,65 @@ def gru_errors(fwd, bwd, want_fwd, want_bwd):
     return f, [rel_err(a, b) for a, b in zip(bwd, want_bwd)]
 
 
-def check_gru(dev, report):
-    """K5-fwd and K5-bwd against their plain versions, f32 and bf16, both
-    directions, at the gate-3 shape and ragged ones (B=5, T=1, H=128, a B
-    past one tile of 64). Returns the worst max abs error of hs and of dgx
-    at the full shape, per kernel."""
+def gru_plans(dev, report):
+    """Phase 1: the bf16 K5 builds' launch plans as the C code computes
+    them (blocks, threads, shared memory, blocks an SM can hold, boxes or
+    ring buffers, registers, local bytes) at H=512, 208 and 528, at the
+    rows a block ``ops.gru.k5_plan`` picks and at the other layout,
+    against ``k5_plan``: each cooperative grid co-resident on this card,
+    the picked layout without spills."""
     import torch
     from mlvae_tpu_torch.ops import gru as G
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for H in (512, 208, 528):
+        for rows in (G.BF16_ROWS, 96 - G.BF16_ROWS):
+            for direction, B in (("fwd", 64), ("bwd", 64), ("bwd", 70),
+                                 ("dw", 64)):
+                if direction == "dw" and rows != G.BF16_ROWS:
+                    continue
+                got = G.k5_launch_plan(direction, H, B, rows)
+                want = G.k5_plan(direction, H, True, rows)
+                name = "gru_dw_bf16" if direction == "dw" else \
+                    f"gru_{direction}_bf16"
+                key = f"{name} H={H} B={B} rows={got['rows']}"
+                out[key] = got
+                report(f"  plan {key}: grid {got['blocks']} x "
+                       f"{got['threads']} threads, shared memory "
+                       f"{got['smem_bytes']} B, ring {got['ring']}, "
+                       f"{got['blocks_per_sm']} block(s) an SM resident, "
+                       f"{got['registers']} registers, {got['local_bytes']} "
+                       f"B local a thread; {sms} SMs")
+                check((got["blocks"], got["threads"], got["smem_bytes"])
+                      == (want.blocks, want.threads, want.smem_bytes)
+                      and (direction == "bwd" or got["ring"] == (
+                          want.boxes if direction == "fwd" else 4)),
+                      f"{key} plan {got} != {want}")
+                check(got["blocks_per_sm"] >= 1 and
+                      (direction == "dw" or
+                       got["blocks"] <= got["blocks_per_sm"] * sms),
+                      f"{key}: the grid cannot be co-resident")
+                check(rows != G.BF16_ROWS or got["local_bytes"] == 0,
+                      f"{key} spills: {got['local_bytes']} B local")
+    return out
+
+
+def check_gru(dev, report):
+    """K5-fwd and K5-bwd against their plain versions, f32 and bf16 (the
+    tensor-core builds), both directions, at the gate-3 shape and ragged
+    ones (B=5, T=1, T=2, H=128, a B past one tile of 64; H=208, a multiple
+    of 16 but not of 64 or 128, and the widest, 528, past one tile); and
+    K5-bwd's bf16 dW_hh kernel against its plain version on its own
+    operands. Returns the worst max abs error of hs and of dgx at the full
+    shape, per kernel."""
+    import torch
+    from mlvae_tpu_torch import _build
+    from mlvae_tpu_torch.ops import gru as G
     g = torch.Generator(device=dev).manual_seed(41)
-    worst = {"gru_fwd": 0.0, "gru_bwd": 0.0}
-    cases = [(160, 64, 512), (1, 64, 512), (7, 5, 512), (9, 70, 128),
-             (12, 3, 128)]
+    worst = {"gru_fwd": 0.0, "gru_bwd": 0.0, "gru_fwd_bf16": 0.0,
+             "gru_bwd_bf16": 0.0}
+    cases = [(160, 64, 512), (1, 64, 512), (2, 64, 512), (7, 5, 512),
+             (9, 70, 128), (12, 3, 128), (6, 70, 208), (5, 130, 528)]
     for T, B, H in cases:
         for bf16 in (False, True):
             atol, rtol = ((GRU_BF16_ATOL, GRU_BF16_BWD_RTOL) if bf16
@@ -1009,21 +1064,49 @@ def check_gru(dev, report):
                 check(f_err <= atol, f"gru_fwd disagrees: {f_err}")
                 check(max(b_errs) <= rtol, f"gru_bwd disagrees: {b_errs}")
                 if (T, B, H) == cases[0]:
-                    worst["gru_fwd"] = max(worst["gru_fwd"], f_err)
-                    worst["gru_bwd"] = max(worst["gru_bwd"],
-                                           max_err(bwd[0], want_bwd[0]))
+                    sfx = "_bf16" if bf16 else ""
+                    worst["gru_fwd" + sfx] = max(worst["gru_fwd" + sfx],
+                                                 f_err)
+                    worst["gru_bwd" + sfx] = max(
+                        worst["gru_bwd" + sfx], max_err(bwd[0],
+                                                        want_bwd[0]))
+    # the dW_hh kernel alone, on the plain BPTT's bf16(dgh) and hs
+    worst["gru_dw_bf16"] = 0.0
+    for T, B, H in ((160, 64, 512), (6, 70, 208)):
+        for reverse in (False, True):
+            gx, w, b, hs, hs32, dhs = gru_problem(g, dev, T, B, H, True,
+                                                  reverse)
+            dgx, _, _, dgh = G.gru_layer_bwd_ref(gx, w, b, hs, hs32, dhs,
+                                                 reverse, with_dgh=True)
+            dgn = dgh[..., 2 * H:].contiguous()
+            got = torch.empty((3 * H, H), device=dev)
+            G.GRU_DW_BF16(dgx.data_ptr(), dgn.data_ptr(), hs.data_ptr(),
+                          got.data_ptr(), T, B, H, int(reverse),
+                          _build.stream_handle(dev))
+            want = G.gru_dw_ref(dgx, dgn, hs, reverse)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            report(f"  gru_dw_bf16 T={T} B={B} H={H} reverse={reverse} on "
+                   f"its operands: max err rel to largest entry {err:.3e} "
+                   f"(tol {BWD_RTOL:g})")
+            check(err <= BWD_RTOL, f"gru_dw_bf16 disagrees: {err}")
+            if T == 160:
+                worst["gru_dw_bf16"] = max(worst["gru_dw_bf16"],
+                                           max_err(got, want))
     return worst
 
 
 def stress_gru(dev, report, repeats):
     """Repeated K5-fwd and K5-bwd launches at the gate-3 shape, back to
-    back, each held against the plain version on its inputs: per kernel
-    and direction ``repeats`` launches, half in f32 and half in bf16."""
+    back, each held against the plain version on its inputs and bit-equal
+    to the first of its dtype and direction: per kernel and direction
+    ``repeats`` launches, half in f32 and half in bf16 (the tensor-core
+    builds)."""
     import torch
     from mlvae_tpu_torch.ops import gru as G
     g = torch.Generator(device=dev).manual_seed(42)
     T, B, H = 160, 64, 512
-    total, wrong = 0, []
+    total, wrong, unequal = 0, [], []
     for bf16 in (False, True):
         atol, rtol = ((GRU_BF16_ATOL, GRU_BF16_BWD_RTOL) if bf16
                       else (GRU_ATOL, GRU_BWD_RTOL))
@@ -1031,6 +1114,7 @@ def stress_gru(dev, report, repeats):
             gx, w, b, hs, hs32, dhs = gru_problem(g, dev, T, B, H, bf16,
                                                   reverse)
             want_bwd = G.gru_layer_bwd_ref(gx, w, b, hs, hs32, dhs, reverse)
+            first = None
             for j in range(repeats // 2):
                 fwd = G.gru_layer_fwd(gx, w, b, reverse)
                 bwd = G.gru_layer_bwd(gx, w, b, hs, hs32, dhs, reverse)
@@ -1038,12 +1122,22 @@ def stress_gru(dev, report, repeats):
                 total += 2
                 if f_err > atol or max(b_errs) > rtol:
                     wrong.append((bf16, reverse, j, f_err, max(b_errs)))
+                outs = [x for x in (*fwd, *bwd) if x is not None]
+                if first is None:
+                    first = outs
+                elif not all(torch.equal(a, c) for a, c in zip(outs, first)):
+                    unequal.append((bf16, reverse, j))
     report(f"  gru kernels repeated: {total} launches at T=160, B=64, "
-           f"H=512, f32 and bf16, both directions: {len(wrong)} wrong"
+           f"H=512, f32 and bf16, both directions: {len(wrong)} wrong, "
+           f"{len(unequal)} not bit-equal to the first"
            + (f"; wrong (bf16, reverse, launch, hs err, bwd err): "
-              f"{wrong[:8]}" if wrong else ""))
+              f"{wrong[:8]}" if wrong else "")
+           + (f"; unequal (bf16, reverse, launch): {unequal[:8]}"
+              if unequal else ""))
     check(not wrong, f"gru kernels wrong in {len(wrong)} of {total} "
           "repeated launches")
+    check(not unequal, f"gru kernels not bit-equal in {len(unequal)} of "
+          f"{total} repeated launches")
 
 
 def unroll_problem(g, dev, T, B, H, dtype):
@@ -2013,8 +2107,8 @@ def run_gate3(dev, report, B=64, T=160, amp=False, ref_f32=None):
         report(f"  gate 3 {label} step {step + 1}: loss {float(loss):.6f}; "
                f"launches {counts}")
         check(np.isfinite(float(loss)), "non-finite gate-3 loss")
-        check(counts == PER_GATE3_STEP,
-              f"gate-3 launch counts {counts} != {PER_GATE3_STEP}")
+        want = PER_GATE3_AMP_STEP if amp else PER_GATE3_STEP
+        check(counts == want, f"gate-3 launch counts {counts} != {want}")
         check(gate_f32_state(gate), "a gate-3 parameter, grad or Adam state "
               "is not f32")
         if step == 0:
@@ -2464,7 +2558,9 @@ def time_fwd_timeline(dev, report):
     from mlvae_tpu_torch.tools import bench_fwd_timeline as ftl
     res = ftl.bench(dev)
     for r in res["rows"]:
-        report(f"  timeline {r['kernel']} H={r['H']} In={r['In']} B={r['B']}: "
+        report(f"  timeline {r['kernel']} H={r['H']} In={r['In']} B={r['B']}"
+               + (f" rows={r['rows_a_block']}" if "rows_a_block" in r
+                  else "") + ": "
                f"{r['ms']:.4f} ms ({r['us_a_step']:.2f} us a step), timing "
                f"build {r['ms_timing_build']:.4f}; us a step, median over "
                "blocks (min-max): " + ", ".join(
@@ -2493,15 +2589,19 @@ def time_bwd_timeline(dev, report):
                "staged: " + ", ".join(
                    f"r={k[4:]} {v['us_a_step']['step']:.2f} ({v['ms']:.4f})"
                    for k, v in r["ablation"].items()))
-    for r in [*res["lstm_bwd"], *res["lstm_bwd_wide_bf16"]]:
-        report(f"  timeline {r['kernel']} H={r['H']} B={r['B']}: "
+    for r in [*res["lstm_bwd"], *res["lstm_bwd_wide_bf16"],
+              *res["gru_bwd_bf16"]]:
+        report(f"  timeline {r['kernel']} H={r['H']} B={r['B']}"
+               + (f" rows={r['rows_a_block']}" if "rows_a_block" in r
+                  else "") + ": "
                f"{r['ms']:.4f} ms ({r['us_a_step_total']:.2f} us a step), "
                f"timing build {r['ms_timing_build']:.4f}; us a step, median "
                "over blocks (min-max): " + ", ".join(
                    f"{k} {v['median']:.2f} ({v['min']:.2f}-{v['max']:.2f})"
                    for k, v in r["us_a_step"].items()))
     bad = [r["kernel"] for r in [*res["rows"], *res["lstm_bwd"],
-                                 *res["lstm_bwd_wide_bf16"]]
+                                 *res["lstm_bwd_wide_bf16"],
+                                 *res["gru_bwd_bf16"]]
            if not r["bit_equal_to_normal_build"]]
     check(not bad, f"the timing build differs from the normal build: {bad}")
     return res
@@ -2731,60 +2831,203 @@ def gru_bwd_bound(T, B, H, bf16):
     return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
 
 
-def time_gru(dev, report, errs, counts):
-    """K5-fwd and K5-bwd at the gate-3 shape (T=160, B=64, H=512) in f32
-    and bf16, their plain versions and bounds, and cuDNN's one-layer GRU
-    (``torch.nn.GRU``, the same b_hn-inside-r semantics; never the port's
-    path) at the encoder's In=120: its forward with the input projection,
-    and its forward+backward less its forward, which also forms dX and
-    dW_ih. The kernels line reports f32 and lists bf16 beside it."""
+def gru_dw_bound(T, B, H):
+    """K5-bwd's bf16 dW_hh kernel: 2 (T-1) B 3H H operations at the bf16
+    tensor-core peak, against bf16(dgh) and hs read and dW_hh (f32) written
+    once."""
+    K = (T - 1) * B
+    return _bound(2.0 * K * 3 * H * H, 2.0 * K * 4 * H + 4.0 * 3 * H * H,
+                  BF16_PEAK)
+
+
+def kernel_split(fn):
+    """Device time (profiler, after one warm-up call) of the kernels one
+    call of ``fn`` launches: (all, those that are no matrix product: no
+    'gemm', 'xmma' or 'cutlass' in the name, i.e. cuDNN's recurrence
+    without its input and weight products), and the names."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(ev.key, getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0)) / 1e3)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    gemm = ("gemm", "xmma", "cutlass")
+    rest = sum(ms for k, ms in rows if not any(w in k.lower() for w in gemm))
+    return sum(ms for _, ms in rows), rest, sorted(k for k, _ in rows)
+
+
+def time_gru(dev, report, errs, counts):
+    """K5-fwd and K5-bwd at the gate-3 shape (T=160, B=64, H=512): the f32
+    builds beside their plain versions, bounds and cuDNN's f32 one-layer
+    GRU (``torch.nn.GRU``, the same b_hn-inside-r semantics; never the
+    port's path) at the encoder's In=120 (its forward with the input
+    projection; its forward+backward less its forward, which also forms
+    dX and dW_ih); the bf16 builds in turns with cuDNN's bf16 layer
+    (median and spread of each, microseconds a step, and cuDNN's kernels
+    alone, all and without its matrix products, from the profiler), in
+    turns with their other layout (``BF16_ROWS``), beside their plain
+    versions and bounds; and K5-bwd's dW_hh kernel alone beside one bf16
+    ``torch.matmul`` of its operands."""
+    import torch
+    from mlvae_tpu_torch import _build
     from mlvae_tpu_torch.ops import gru as G
     T, B, H, In = 160, 64, 512, 120
     g = torch.Generator(device=dev).manual_seed(45)
-    rows = {}
-    for bf16 in (False, True):
-        dt = torch.bfloat16 if bf16 else torch.float32
-        gx, w, b, hs, hs32, dhs = gru_problem(g, dev, T, B, H, bf16, False)
-        fwd = cuda_ms(lambda: G.gru_layer_fwd(gx, w, b, False), iters=20)
-        bwd = cuda_ms(lambda: G.gru_layer_bwd(gx, w, b, hs, hs32, dhs,
-                                              False), iters=10)
-        fwd_plain = cuda_ms(lambda: G.gru_layer_ref(gx, w, b, False),
-                            iters=3, warmup=1)
-        bwd_plain = cuda_ms(lambda: G.gru_layer_bwd_ref(
-            gx, w, b, hs, hs32, dhs, False), iters=2, warmup=1)
-        cudnn = torch.nn.GRU(In, H, 1).to(dev, dt)
-        cudnn.flatten_parameters()
-        x = torch.randn((T, B, In), generator=g, device=dev).to(dt)
-        with torch.no_grad():
-            lib_fwd = cuda_ms(lambda: cudnn(x), iters=20)
-        xg = x.clone().requires_grad_()
-        dy = torch.randn((T, B, H), generator=g, device=dev).to(dt)
-        fwd_grad = cuda_ms(lambda: cudnn(xg), iters=10)
-        lib_bwd = cuda_ms(lambda: cudnn(xg)[0].backward(dy),
-                          iters=10) - fwd_grad
-        label = "bf16" if bf16 else "f32"
-        for name, ms, plain, lib, (b_ms, b_by) in (
-                ("gru_fwd", fwd, fwd_plain, lib_fwd,
-                 gru_fwd_bound(T, B, H, bf16)),
-                ("gru_bwd", bwd, bwd_plain, lib_bwd,
-                 gru_bwd_bound(T, B, H, bf16))):
-            rows[(name, label)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                       bound_ms=b_ms, bound_by=b_by)
-            report(f"  {name} {label}: {ms:.4f} ms (bound {b_ms:.4f} by "
-                   f"{b_by}; plain {plain:.4f}; cuDNN {label} GRU layer "
-                   + ("forward incl. input projection" if name == "gru_fwd"
-                      else "forward+backward less forward, incl. dX and "
-                      "dW_ih") + f" {lib:.4f})")
     out = []
-    for name, line in (("gru_fwd", 31), ("gru_bwd", 63)):
-        head = rows[(name, "f32")]
+    # f32
+    gx, w, b, hs, hs32, dhs = gru_problem(g, dev, T, B, H, False, False)
+    f32 = {"gru_fwd": (cuda_ms(lambda: G.gru_layer_fwd(gx, w, b, False),
+                               iters=20),
+                       cuda_ms(lambda: G.gru_layer_ref(gx, w, b, False),
+                               iters=3, warmup=1),
+                       gru_fwd_bound(T, B, H, False)),
+           "gru_bwd": (cuda_ms(lambda: G.gru_layer_bwd(
+                           gx, w, b, hs, hs32, dhs, False), iters=10),
+                       cuda_ms(lambda: G.gru_layer_bwd_ref(
+                           gx, w, b, hs, hs32, dhs, False), iters=2,
+                           warmup=1),
+                       gru_bwd_bound(T, B, H, False))}
+    cudnn = torch.nn.GRU(In, H, 1).to(dev)
+    cudnn.flatten_parameters()
+    x = torch.randn((T, B, In), generator=g, device=dev)
+    with torch.no_grad():
+        lib_fwd = cuda_ms(lambda: cudnn(x), iters=20)
+    xg = x.clone().requires_grad_()
+    dy = torch.randn((T, B, H), generator=g, device=dev)
+    lib_bwd = cuda_ms(lambda: cudnn(xg)[0].backward(dy), iters=10) \
+        - cuda_ms(lambda: cudnn(xg), iters=10)
+    for name, lib in (("gru_fwd", lib_fwd), ("gru_bwd", lib_bwd)):
+        ms, plain, (b_ms, b_by) = f32[name]
+        report(f"  {name} f32: {ms:.4f} ms (bound {b_ms:.4f} by {b_by}; "
+               f"plain {plain:.4f}; cuDNN f32 GRU layer "
+               + ("forward incl. input projection" if name == "gru_fwd"
+                  else "forward+backward less forward, incl. dX and "
+                  "dW_ih") + f" {lib:.4f})")
         out.append(dict(
-            name=name, route="cuda",
-            source=f"mlvae_tpu_torch/csrc/{name}.cu",
-            replaces=f"mlvae_tpu/ops/gru_pallas.py:{line}",
-            max_abs_err=errs[name], **head, shape="T=160 B=64 H=512 f32",
-            bf16=rows[(name, "bf16")], **counts[name]))
+            name=name, route="cuda", source=f"mlvae_tpu_torch/csrc/{name}.cu",
+            replaces="mlvae_tpu/ops/gru_pallas.py:"
+            + ("31" if name == "gru_fwd" else "63"),
+            max_abs_err=errs[name], ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib, shape="T=160 B=64 H=512 f32",
+            **counts[name]))
+
+    # bf16: the tensor-core builds in turns with cuDNN's bf16 layer
+    bf = torch.bfloat16
+    gx, w, b, hs, hs32, dhs = gru_problem(g, dev, T, B, H, True, False)
+    cudnn = torch.nn.GRU(In, H, 1).to(dev, bf)
+    cudnn.flatten_parameters()
+    x = torch.randn((T, B, In), generator=g, device=dev).to(bf)
+    xg = x.clone().requires_grad_()
+    dy = torch.randn((T, B, H), generator=g, device=dev).to(bf)
+
+    def fwd(iters):
+        return cuda_ms(lambda: G.gru_layer_fwd(gx, w, b, False), iters,
+                       warmup=1)
+
+    def bwd(iters):
+        return cuda_ms(lambda: G.gru_layer_bwd(gx, w, b, hs, hs32, dhs,
+                                               False), iters, warmup=1)
+
+    def lib_fwd(iters):
+        with torch.no_grad():
+            return cuda_ms(lambda: cudnn(x), iters, warmup=1)
+
+    def lib_bwd(iters):
+        return cuda_ms(lambda: cudnn(xg)[0].backward(dy), iters, warmup=1) \
+            - cuda_ms(lambda: cudnn(xg), iters, warmup=1)
+
+    def other_rows(fn):
+        def run(iters):
+            keep, G.BF16_ROWS = G.BF16_ROWS, 96 - G.BF16_ROWS
+            try:
+                return fn(iters)
+            finally:
+                G.BF16_ROWS = keep
+        return run
+
+    with torch.no_grad():
+        all_f, rest_f, names_f = kernel_split(lambda: cudnn(x))
+    all_fb, rest_fb, names_b = kernel_split(
+        lambda: cudnn(xg)[0].backward(dy))
+    all_g, rest_g, _ = kernel_split(lambda: cudnn(xg))
+    cudnn_alone = {"gru_fwd_bf16": (all_f, rest_f),
+                   "gru_bwd_bf16": (all_fb - all_g, rest_fb - rest_g)}
+    report(f"  cuDNN bf16 GRU kernels: forward {names_f}; forward and "
+           f"backward {names_b}")
+    # K5-bwd's dW_hh kernel alone, on the plain BPTT's operands
+    dgx, _, _, dgh = G.gru_layer_bwd_ref(gx, w, b, hs, hs32, dhs, False,
+                                         with_dgh=True)
+    dgn = dgh[..., 2 * H:].contiguous()
+    dwbuf = torch.empty((3 * H, H), device=dev)
+    st = _build.stream_handle(dev)
+    dw_ms = cuda_ms(lambda: G.GRU_DW_BF16(
+        dgx.data_ptr(), dgn.data_ptr(), hs.data_ptr(), dwbuf.data_ptr(), T,
+        B, H, 0, st), iters=20)
+    dw_plain = cuda_ms(lambda: G.gru_dw_ref(dgx, dgn, hs), iters=2, warmup=1)
+    xs = torch.cat([dgx[1:, :, :2 * H], dgn[1:]], dim=2).reshape(-1, 3 * H)
+    ys = hs[:-1].reshape(-1, H)
+    dw_lib = cuda_ms(lambda: torch.matmul(xs.t(), ys), iters=20)
+    w_bound, w_by = gru_dw_bound(T, B, H)
+    other = 96 - G.BF16_ROWS
+    for name, kern, yard, plain, (b_ms, b_by) in (
+            ("gru_fwd_bf16", fwd, lib_fwd,
+             cuda_ms(lambda: G.gru_layer_ref(gx, w, b, False), iters=3,
+                     warmup=1), gru_fwd_bound(T, B, H, True)),
+            ("gru_bwd_bf16", bwd, lib_bwd,
+             cuda_ms(lambda: G.gru_layer_bwd_ref(gx, w, b, hs, hs32, dhs,
+                                                 False), iters=2, warmup=1),
+             gru_bwd_bound(T, B, H, True))):
+        ks, ys_ = interleaved_ms(kern, yard, GRU_YARD_ROUNDS, iters=10)
+        ks2, os_ = interleaved_ms(kern, other_rows(kern), GRU_YARD_ROUNDS,
+                                  iters=10)
+        km, ym = statistics.median(ks), statistics.median(ys_)
+        km2, om = statistics.median(ks2), statistics.median(os_)
+        alone, rest = cudnn_alone[name]
+        row = dict(
+            name=name, route="cuda", source=f"mlvae_tpu_torch/csrc/{name}.cu",
+            replaces="mlvae_tpu/ops/gru_pallas.py:"
+            + ("31" if name == "gru_fwd_bf16" else "63"),
+            max_abs_err=errs[name], ms=km, spread=[min(ks), max(ks)],
+            us_a_step=km * 1e3 / T, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=ym, library_spread=[min(ys_), max(ys_)],
+            factor=km / ym, cudnn_kernels_ms=alone,
+            cudnn_recurrence_ms=rest,
+            factor_kernels=km / alone if alone else None,
+            rows=G.BF16_ROWS, other_rows={
+                "rows": other, "ms": om, "spread": [min(os_), max(os_)],
+                "ms_in_turns": km2},
+            shape="T=160 B=64 H=512 bf16", **counts[name])
+        if name == "gru_bwd_bf16":
+            row["recurrence_ms"] = km - dw_ms
+        out.append(row)
+        report(f"  {name} T={T} B={B} H={H}: {km:.4f} ms median "
+               f"({min(ks):.4f}-{max(ks):.4f}; {km * 1e3 / T:.2f} us a "
+               f"step; rows a block {G.BF16_ROWS}); cuDNN bf16 GRU layer "
+               + ("forward incl. input projection" if name == "gru_fwd_bf16"
+                  else "forward+backward less forward, incl. dX and "
+                  "dW_ih") + f", in turns, {ym:.4f} median ({min(ys_):.4f}-"
+               f"{max(ys_):.4f}); factor {km / ym:.3f}; cuDNN's kernels "
+               f"alone {alone:.4f}, without its matrix products {rest:.4f} "
+               f"(profiler); in turns with {other} rows a block: "
+               f"{km2:.4f} against {om:.4f} ({min(os_):.4f}-{max(os_):.4f});"
+               f" plain {plain:.4f}; bound {b_ms:.4f} by {b_by}"
+               + (f"; its dW_hh kernel {dw_ms:.4f}, the recurrence alone "
+                  f"{km - dw_ms:.4f}" if name == "gru_bwd_bf16" else ""))
+    report(f"  gru_dw_bf16 H={H}: {dw_ms:.4f} ms (plain {dw_plain:.4f}, one "
+           f"bf16 torch.matmul of the same operands {dw_lib:.4f}, bound "
+           f"{w_bound:.4f} by {w_by})")
+    out.append(dict(
+        name="gru_dw_bf16", route="cuda",
+        source="mlvae_tpu_torch/csrc/gru_bwd_bf16.cu",
+        replaces="mlvae_tpu/ops/gru_pallas.py:63",
+        max_abs_err=errs["gru_dw_bf16"], ms=dw_ms, plain_ms=dw_plain,
+        bound_ms=w_bound, bound_by=w_by, library_ms=dw_lib,
+        shape="T=160 B=64 H=512 bf16", **counts["gru_dw_bf16"]))
     return out
 
 
@@ -2876,15 +3119,14 @@ def time_unroll(dev, report, res, errs, counts):
 
 def time_gate3(dev, report, gate, batch, noise, label):
     """The gate-3 train step at full width (each step continuing the
-    training), and for f32 a profile of one step."""
+    training), and a profile of one step."""
     B, T = batch["feats"].shape[:2]
     ms = cuda_ms(lambda: gate.train_step(batch, noise), iters=5, warmup=1)
     out = {"ms": ms, "utt_sec_per_sec": B * T * HOP_SEC / (ms / 1e3)}
     report(f"  {label} gate-3 train step B={B} T={T}: {ms:.3f} ms "
            f"({out['utt_sec_per_sec']:.1f} utt-sec/sec)")
-    if label == "f32":
-        profile_step(lambda: gate.train_step(batch, noise),
-                     "f32 gate-3 train step", report)
+    out["profile"] = profile_step(lambda: gate.train_step(batch, noise),
+                                  f"{label} gate-3 train step", report)
     return out
 
 
@@ -3141,6 +3383,7 @@ def main(argv=None) -> int:
                  or "spill" in ln]
         report(f"  ptxas {src}: " + " | ".join(usage))
     plans = wide_plans(dev, report)
+    k5_plans = gru_plans(dev, report)
 
     report("phase 2 kernels against their plain versions on the card")
     errs = {"lstm": max(check_lstm(dev, report),
@@ -3264,6 +3507,7 @@ def main(argv=None) -> int:
                        "wav_in": wav_in, "train_step": train_step,
                        "amp_train_step": amp_step,
                        "gate3_train_step": gate3_step,
+                       "gru_plans": k5_plans,
                        "bwd_timeline": bwd_timeline,
                        "fwd_timeline": fwd_timeline}))
     report(smi)

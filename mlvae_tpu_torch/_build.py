@@ -32,20 +32,23 @@ EXTRA_FLAGS = {"md_viterbi": ["-fmad=false"]}
 SOURCES = ("lstm_fwd", "lstm_bwd", "md_viterbi", "lstm_fused_fwd",
            "lstm_fused_bwd", "lstm_semi_bwd", "fbank", "gru_fwd", "gru_bwd",
            "lstm_unroll_fwd", "lstm_unroll_fused_fwd", "lstm_fwd_wide",
-           "lstm_bwd_wide", "lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16")
+           "lstm_bwd_wide", "lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16",
+           "gru_fwd_bf16", "gru_bwd_bf16")
 # second builds of a source under their own library names: the fused
 # backwards with the step timeline of tools/bench_bwd_timeline.py (a
 # %globaltimer stamp at each phase boundary of each step and block), and
 # with it the ablation that reads only the first r rows of each staged chunk
-# from L2 (r = 0, 32; wrong outputs by design); K1-bwd and the wide K1-bwd
-# on bf16 streams with their own step timeline in the same tool (their own
-# define); the LSTM forwards K1-fwd, K3/K4-fwd and the wide K1-fwd on bf16
-# streams with the step timeline of tools/bench_fwd_timeline.py. No build
-# in SOURCES has any of these defines.
+# from L2 (r = 0, 32; wrong outputs by design); K1-bwd, the wide K1-bwd on
+# bf16 streams and K5-bwd on bf16 streams with their own step timeline in
+# the same tool (their own define); the forwards K1-fwd, K3/K4-fwd, the
+# wide K1-fwd and K5-fwd on bf16 streams with the step timeline of
+# tools/bench_fwd_timeline.py. No build in SOURCES has any of these
+# defines.
 TIMELINE_DEFINE = "-DMLVAE_BWD_TIMELINE"
 K1_BWD_TIMELINE_DEFINE = "-DMLVAE_K1_BWD_TIMELINE"
 FWD_TIMELINE_DEFINE = "-DMLVAE_FWD_TIMELINE"
-FWD_TIMED = ("lstm_fwd", "lstm_fused_fwd", "lstm_fwd_wide_bf16")
+FWD_TIMED = ("lstm_fwd", "lstm_fused_fwd", "lstm_fwd_wide_bf16",
+             "gru_fwd_bf16")
 ABLATION_ROWS = (0, 32)
 VARIANTS = {f"{src}_timeline{suffix}": (src, [TIMELINE_DEFINE, *flags])
             for src in ("lstm_fused_bwd", "lstm_semi_bwd")
@@ -53,7 +56,8 @@ VARIANTS = {f"{src}_timeline{suffix}": (src, [TIMELINE_DEFINE, *flags])
                 (f"_rows{r}", [f"-DMLVAE_BWD_STAGE_ROWS={r}"])
                 for r in ABLATION_ROWS))}
 VARIANTS.update({f"{src}_timeline": (src, [K1_BWD_TIMELINE_DEFINE])
-                 for src in ("lstm_bwd", "lstm_bwd_wide_bf16")})
+                 for src in ("lstm_bwd", "lstm_bwd_wide_bf16",
+                             "gru_bwd_bf16")})
 VARIANTS.update({f"{src}_timeline": (src, [FWD_TIMELINE_DEFINE])
                  for src in FWD_TIMED})
 

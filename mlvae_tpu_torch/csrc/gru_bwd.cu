@@ -1,5 +1,5 @@
 // K5-bwd: backpropagation through the GRU recurrence over precomputed input
-// gates, f32 or bf16 (AMP) streams.
+// gates, f32 streams (bf16 streams: gru_bwd_bf16.cu).
 //
 // Replaces the TPU kernel mlvae_tpu/ops/gru_pallas.py `_bwd_kernel`
 // (launched by `_run_bwd`). It walks the processing order backward from
@@ -12,18 +12,14 @@
 // dh_{t-1} = dh z + dgh @ W_hh backward, and accumulates dW_hh += dgh^T
 // h_{t-1} and db_hh += sum_b dgh in f32 over every batch row and step.
 // h_{t-1} is zero at the first processed step (t=0, or t=T-1 when
-// `reverse`), and `reverse` is indexing only, never a flip. Under bf16 the
-// products take the bf16 h_{t-1} (hs) and dgh rounded to bf16, the
-// elementwise chain the f32 h_{t-1} (hs32), db_hh the f32 dgh, and dgx is
-// written in bf16, where the TPU kernel rounds.
+// `reverse`), and `reverse` is indexing only, never a flip.
 //
 // What bounds it on an H100: at B=64, H=512, T=160 there are three products
 // per step (the recompute, dh_{t-1} and dW_hh), 3*2*B*H*3H*T = 48.3 GFLOP,
 // 0.721 ms at the f32 rate of 67 TFLOP/s (0.049 ms at the bf16 tensor-core
 // peak), against ~180 MB of gx/dgx/hs/dhs/W_hh/dW_hh traffic in f32 (54 us
 // at 3.35 TB/s): the floor is the operations. As K5-fwd, every product runs
-// on the CUDA cores in f32 FMAs (bf16 operands widened, exactly), so the
-// f32 floor is this design's. What keeps it far from it is the chain of T
+// on the CUDA cores in f32 FMAs, so the f32 floor is this design's. What keeps it far from it is the chain of T
 // dependent steps, each of which needs every unit's dgh before any unit's
 // dh_{t-1} can be formed: a reduction across blocks every step.
 //
@@ -60,22 +56,13 @@ static_assert(ROWS % 4 == 0, "dgh rows are read as float4");
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
 
 // Stage rows [0, nb) of a (rows x H) slice of hs (row stride H) as
 // x_s[k][b] in f32 (row pitch PAD), zero past nb. Each warp moves tiles of 8
 // rows by 16 columns, four columns a lane, with UNR loads in flight per
 // lane before the transposing stores (lstm_bwd.cu's staging, for both
 // stream dtypes).
-template <typename S>
-__device__ __forceinline__ void stage_transposed(float* x_s, const S* src,
+__device__ __forceinline__ void stage_transposed(float* x_s, const float* src,
                                                  int H, int nb) {
   constexpr int WARPS = THREADS / 32;
   constexpr int UNR = 8;
@@ -118,15 +105,13 @@ size_t smem_bytes(int H) {
                           (size_t)KSPLIT * BT * ROWS + 2 * (size_t)BT * ROWS);
 }
 
-template <typename S>
 __global__ void __launch_bounds__(THREADS)
-gru_bwd_kernel(const S* __restrict__ gx, const S* __restrict__ w_hh,
-               const float* __restrict__ b_hh, const S* __restrict__ hs,
-               const float* __restrict__ hs32, const S* __restrict__ dhs,
-               S* __restrict__ dgx, float* __restrict__ dw_hh,
+gru_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
+               const float* __restrict__ b_hh, const float* __restrict__ hs,
+               const float* __restrict__ dhs,
+               float* __restrict__ dgx, float* __restrict__ dw_hh,
                float* __restrict__ db_hh, float* part, float* dh_buf,
                unsigned int* barrier, int T, int B, int H, int reverse) {
-  constexpr bool BF16 = is_bf16<S>;
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
   float* x_s = w_s + (size_t)GATES * H * UNITS;
@@ -145,7 +130,7 @@ gru_bwd_kernel(const S* __restrict__ gx, const S* __restrict__ w_hh,
     const int j = (idx / H) % UNITS;
     const int gate = idx / (H * UNITS);
     w_s[((size_t)gate * H + k) * UNITS + j] =
-        to_f32(w_hh[(size_t)(gate * H + u0 + j) * H + k]);
+        w_hh[(size_t)(gate * H + u0 + j) * H + k];
   }
   __syncthreads();
 
@@ -228,7 +213,7 @@ gru_bwd_kernel(const S* __restrict__ gx, const S* __restrict__ w_hh,
       if (cb < nb) {
         const int b = b0 + cb;
         const size_t row = (size_t)t * B + b;
-        const S* gxr = gx + row * G + u0 + cj;
+        const float* gxr = gx + row * G + u0 + cj;
         float gh[GATES];
 #pragma unroll
         for (int q = 0; q < GATES; ++q) {
@@ -240,28 +225,22 @@ gru_bwd_kernel(const S* __restrict__ gx, const S* __restrict__ w_hh,
           }
           gh[q] = sum + bias[q];
         }
-        const float r = sigmoid_f(to_f32(gxr[0]) + gh[0]);
-        const float z = sigmoid_f(to_f32(gxr[H]) + gh[1]);
+        const float r = sigmoid_f(gxr[0] + gh[0]);
+        const float z = sigmoid_f(gxr[H] + gh[1]);
         const float hn = gh[2];
-        const float n = tanhf(to_f32(gxr[2 * H]) + r * hn);
-        float h_prev = 0.0f;  // the f32 h_{t-1} of the elementwise chain
-        if (!first) {
-          const size_t op = ((size_t)tp * B + b) * H + u0 + cj;
-          if constexpr (BF16)
-            h_prev = hs32[op];
-          else
-            h_prev = hs[op];
-        }
+        const float n = tanhf(gxr[2 * H] + r * hn);
+        float h_prev = 0.0f;  // h_{t-1} of the elementwise chain
+        if (!first) h_prev = hs[((size_t)tp * B + b) * H + u0 + cj];
         const size_t o = row * H + u0 + cj;
         const size_t bu = (size_t)b * H + u0 + cj;
-        const float dh = to_f32(dhs[o]) + dh_buf[bu];
+        const float dh = dhs[o] + dh_buf[bu];
         const float dn = dh * (1.0f - z) * (1.0f - n * n);
         const float dr = dn * hn * r * (1.0f - r);
         const float dz = dh * (h_prev - n) * z * (1.0f - z);
-        S* dgr = dgx + row * G + u0 + cj;
-        store(dgr, dr);
-        store(dgr + H, dz);
-        store(dgr + 2 * H, dn);
+        float* dgr = dgx + row * G + u0 + cj;
+        dgr[0] = dr;
+        dgr[H] = dz;
+        dgr[2 * H] = dn;
         dg[0] = dr;
         dg[1] = dz;
         dg[2] = dn * r;
@@ -271,7 +250,7 @@ gru_bwd_kernel(const S* __restrict__ gx, const S* __restrict__ w_hh,
       // rows past the tile's end stay zero: they meet zero h rows below
 #pragma unroll
       for (int q = 0; q < GATES; ++q) {
-        dg_s[cb * ROWS + q * UNITS + cj] = rounded(dg[q], dgx);
+        dg_s[cb * ROWS + q * UNITS + cj] = dg[q];
         df_s[cb * ROWS + q * UNITS + cj] = dg[q];
       }
       __syncthreads();
@@ -376,30 +355,24 @@ const char* mlvae_gru_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// gx (T,B,3H), w_hh (3H,H), hs and dhs (T,B,H) in the stream dtype (f32, or
-// bf16 when bf16_streams), b_hh (3H) f32 and, for bf16 streams only, hs32
-// (T,B,H) f32; every row 16-byte aligned. Outputs, every element written:
-// dgx (T,B,3H) in the stream dtype, dw_hh (3H,H) and db_hh (3H) f32.
-// Scratch: part (2, H/4, B, H) f32, dh_buf (B,H) zeroed, barrier one zeroed
-// counter. H a multiple of 16. Returns a cudaError_t.
-int mlvae_gru_bwd(const void* gx, const void* w_hh, const float* b_hh,
-                  const void* hs, const float* hs32, const void* dhs,
-                  void* dgx, float* dw_hh, float* db_hh, float* part,
-                  float* dh_buf, unsigned int* barrier, int T, int B, int H,
-                  int reverse, int bf16_streams, cudaStream_t stream) {
-  if (H % (UNITS * KSPLIT) != 0 || H > KPT * THREADS || T < 1 || B < 1 ||
-      (bf16_streams && hs32 == nullptr))
+// gx (T,B,3H), w_hh (3H,H), hs and dhs (T,B,H) and b_hh (3H) f32; every
+// row 16-byte aligned. Outputs, every element written: dgx (T,B,3H),
+// dw_hh (3H,H) and db_hh (3H) f32. Scratch: part (2, H/4, B, H) f32,
+// dh_buf (B,H) zeroed, barrier one zeroed counter. H a multiple of 16.
+// Returns a cudaError_t.
+int mlvae_gru_bwd(const float* gx, const float* w_hh, const float* b_hh,
+                  const float* hs, const float* dhs, float* dgx,
+                  float* dw_hh, float* db_hh, float* part, float* dh_buf,
+                  unsigned int* barrier, int T, int B, int H, int reverse,
+                  cudaStream_t stream) {
+  if (H % (UNITS * KSPLIT) != 0 || H > KPT * THREADS || T < 1 || B < 1)
     return cudaErrorInvalidValue;
-  void* args[] = {(void*)&gx,     (void*)&w_hh,    (void*)&b_hh,
-                  (void*)&hs,     (void*)&hs32,    (void*)&dhs,
-                  (void*)&dgx,    (void*)&dw_hh,   (void*)&db_hh,
-                  (void*)&part,   (void*)&dh_buf,  (void*)&barrier,
-                  (void*)&T,      (void*)&B,       (void*)&H,
-                  (void*)&reverse};
-  if (bf16_streams)
-    return launch_cooperative(gru_bwd_kernel<bf16>, H / UNITS, THREADS, args,
-                              smem_bytes(H), stream);
-  return launch_cooperative(gru_bwd_kernel<float>, H / UNITS, THREADS, args,
+  void* args[] = {(void*)&gx,     (void*)&w_hh,   (void*)&b_hh,
+                  (void*)&hs,     (void*)&dhs,    (void*)&dgx,
+                  (void*)&dw_hh,  (void*)&db_hh,  (void*)&part,
+                  (void*)&dh_buf, (void*)&barrier, (void*)&T,
+                  (void*)&B,      (void*)&H,      (void*)&reverse};
+  return launch_cooperative(gru_bwd_kernel, H / UNITS, THREADS, args,
                             smem_bytes(H), stream);
 }
 

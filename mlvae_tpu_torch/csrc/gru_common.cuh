@@ -1,19 +1,13 @@
-// Shared pieces of the GRU recurrence kernels (K5-fwd in gru_fwd.cu, K5-bwd
-// in gru_bwd.cu): the block layout, K1's with three gates, and the
-// conversions between the stream dtype (f32 or bf16) and the f32 the
-// kernels compute in.
+// Shared pieces of the f32 GRU recurrence kernels (K5-fwd in gru_fwd.cu,
+// K5-bwd in gru_bwd.cu): the block layout, K1's with three gates. K5 on
+// bf16 streams has builds of its own (gru_mma.cuh).
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "grid_sync.cuh"
 
 namespace gru {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int UNITS = 4;                  // hidden units owned by one block
 constexpr int GATES = 3;                  // r, z, n
@@ -26,20 +20,5 @@ constexpr int THREADS = 256;
 constexpr int PRODUCT_THREADS = KSPLIT * GATES * (BT / 4);
 static_assert(PRODUCT_THREADS <= THREADS, "product layout");
 static_assert(THREADS == BT * UNITS, "gate-update layout");
-
-template <typename S>
-constexpr bool is_bf16 = std::is_same<S, bf16>::value;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-// v as a stream of the pointer's dtype holds it, widened back to f32
-__device__ __forceinline__ float rounded(float v, float*) { return v; }
-__device__ __forceinline__ float rounded(float v, bf16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 }  // namespace gru

@@ -1,5 +1,5 @@
-// K5-fwd: the GRU forward recurrence over precomputed input gates, f32 or
-// bf16 (AMP) streams.
+// K5-fwd: the GRU forward recurrence over precomputed input gates, f32
+// streams (bf16 streams: gru_fwd_bf16.cu).
 //
 // Replaces the TPU kernel mlvae_tpu/ops/gru_pallas.py `_fwd_kernel`
 // (launched by `_run_fwd`): with gh = h_{t-1} @ W_hh^T + b_hh in torch gate
@@ -8,32 +8,28 @@
 // kernel input and cannot be folded into gx) and h_t = (1 - z) * n +
 // z * h_{t-1}, with zero initial state, an f32 carry, and `reverse` handled
 // by indexing (processing order t = T-1 .. 0, outputs in natural order).
-// Under bf16, h_{t-1} is rounded to bf16 before the product (which sums in
-// f32), hs is written in bf16 and the exact f32 carry beside it in hs32.
 //
 // What bounds it on an H100: at B=64, H=512, T=160 the recurrent products
 // are 2*B*H*3H*T = 16.1 GFLOP, 0.240 ms at the f32 rate of 67 TFLOP/s
 // (0.016 ms at the bf16 tensor-core peak of 989 TFLOP/s), against ~84 MB of
 // gx/hs/W_hh traffic in f32 (25 us at 3.35 TB/s): the floor is the
 // operations. This design runs every product on the CUDA cores in f32
-// FMAs, bf16 operands widened (their products are exact, the sums f32), so
-// its floor is the f32 one; the tensor cores (mma.sync, as K3 uses) are
-// later work. What keeps it far even from that floor is the serial
-// dependence between steps: every step needs all of h_{t-1} before any of
-// h_t can start, and W_hh (3 MB in f32) does not fit in one SM.
+// FMAs, so its floor is the f32 one. What keeps it far even from that
+// floor is the serial dependence between steps: every step needs all of
+// h_{t-1} before any of h_t can start, and W_hh (3 MB in f32) does not fit
+// in one SM.
 //
 // Design, K1-fwd's (lstm_fwd.cu) with three gates: one persistent
 // cooperative grid of H/4 blocks. Block k owns UNITS=4 hidden units and
-// keeps their r/z/n rows of W_hh (12 x H, widened to f32: 24 KB at H=512)
-// and of b_hh in shared memory and registers for the whole sequence. Each
-// step it stages h_{t-1} (as the product takes it) from an f32 ping-pong
-// buffer in L2 through __ldcg, computes its B x 12 products with 4x4
-// register tiles split four ways over K (192 of the 256 threads), applies
-// the gate update for its units, reading its own f32 h_{t-1} from hs (or
-// hs32) where the same thread wrote it a step earlier, and writes its slice
-// of h_t. A grid barrier (grid_sync.cuh) ends each step. Shared memory is
-// 164 KB at H=512; the H/4 blocks must all be resident, one per SM, which
-// limits H to 528 on an H100 (132 SMs).
+// keeps their r/z/n rows of W_hh (12 x H, 24 KB at H=512) and of b_hh in
+// shared memory and registers for the whole sequence. Each step it stages
+// h_{t-1} from an f32 ping-pong buffer in L2 through __ldcg, computes its
+// B x 12 products with 4x4 register tiles split four ways over K (192 of
+// the 256 threads), applies the gate update for its units, reading its own
+// h_{t-1} from hs where the same thread wrote it a step earlier, and
+// writes its slice of h_t. A grid barrier (grid_sync.cuh) ends each step.
+// Shared memory is 164 KB at H=512; the H/4 blocks must all be resident,
+// one per SM, which limits H to 528 on an H100 (132 SMs).
 #include "gru_common.cuh"
 
 using namespace gru;
@@ -46,13 +42,11 @@ size_t smem_bytes(int H) {
                           (size_t)KSPLIT * BT * ROWS);
 }
 
-template <typename S>
 __global__ void __launch_bounds__(THREADS)
-gru_fwd_kernel(const S* __restrict__ gx, const S* __restrict__ w_hh,
-               const float* __restrict__ b_hh, S* __restrict__ hs,
-               float* __restrict__ hs32, float* hbuf, unsigned int* barrier,
-               int T, int B, int H, int reverse) {
-  constexpr bool BF16 = is_bf16<S>;
+gru_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
+               const float* __restrict__ b_hh, float* __restrict__ hs,
+               float* hbuf, unsigned int* barrier, int T, int B, int H,
+               int reverse) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
   float* h_s = w_s + (size_t)GATES * H * UNITS;
@@ -68,7 +62,7 @@ gru_fwd_kernel(const S* __restrict__ gx, const S* __restrict__ w_hh,
     const int j = (idx / H) % UNITS;
     const int gate = idx / (H * UNITS);
     w_s[((size_t)gate * H + k) * UNITS + j] =
-        to_f32(w_hh[(size_t)(gate * H + u0 + j) * H + k]);
+        w_hh[(size_t)(gate * H + u0 + j) * H + k];
   }
 
   // product layout: thread -> (K slice, gate, 4 batch rows)
@@ -133,7 +127,7 @@ gru_fwd_kernel(const S* __restrict__ gx, const S* __restrict__ w_hh,
       if (cb < nb) {
         const int b = b0 + cb;
         const size_t row = (size_t)t * B + b;
-        const S* gxr = gx + row * G + u0 + cj;
+        const float* gxr = gx + row * G + u0 + cj;
         float gh[GATES];
 #pragma unroll
         for (int q = 0; q < GATES; ++q) {
@@ -143,23 +137,16 @@ gru_fwd_kernel(const S* __restrict__ gx, const S* __restrict__ w_hh,
             sum += red_s[((size_t)kk * BT + cb) * ROWS + q * UNITS + cj];
           gh[q] = sum + bias[q];
         }
-        const float r = sigmoid_f(to_f32(gxr[0]) + gh[0]);
-        const float z = sigmoid_f(to_f32(gxr[H]) + gh[1]);
-        const float n = tanhf(to_f32(gxr[2 * H]) + r * gh[2]);
+        const float r = sigmoid_f(gxr[0] + gh[0]);
+        const float z = sigmoid_f(gxr[H] + gh[1]);
+        const float n = tanhf(gxr[2 * H] + r * gh[2]);
         const size_t o = row * H + u0 + cj;
-        // the f32 h_{t-1}, written by this same thread one step earlier
+        // h_{t-1}, written by this same thread one step earlier
         float h_old = 0.0f;
-        if (s > 0) {
-          const size_t op = ((size_t)tp * B + b) * H + u0 + cj;
-          if constexpr (BF16)
-            h_old = hs32[op];
-          else
-            h_old = hs[op];
-        }
+        if (s > 0) h_old = hs[((size_t)tp * B + b) * H + u0 + cj];
         const float h = (1.0f - z) * n + z * h_old;
-        store(hs + o, h);
-        if constexpr (BF16) hs32[o] = h;
-        h_next[(size_t)(u0 + cj) * B + b] = rounded(h, hs);
+        hs[o] = h;
+        h_next[(size_t)(u0 + cj) * B + b] = h;
       }
     }
     grid_barrier(barrier, (unsigned int)(s + 1) * gridDim.x);
@@ -174,26 +161,19 @@ const char* mlvae_gru_fwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// gx (T,B,3H) and w_hh (3H,H) in the stream dtype (f32, or bf16 when
-// bf16_streams), b_hh (3H) f32; hs (T,B,H) output in the stream dtype and,
-// for bf16 streams only, hs32 (T,B,H) f32; hbuf (2,H,B) f32 scratch whose
-// first half is zero; barrier one zeroed counter. H a multiple of 16.
-// Returns a cudaError_t.
-int mlvae_gru_fwd(const void* gx, const void* w_hh, const float* b_hh,
-                  void* hs, float* hs32, float* hbuf, unsigned int* barrier,
-                  int T, int B, int H, int reverse, int bf16_streams,
-                  cudaStream_t stream) {
-  if (H % (UNITS * KSPLIT) != 0 || T < 1 || B < 1 ||
-      (bf16_streams && hs32 == nullptr))
+// gx (T,B,3H), w_hh (3H,H) and b_hh (3H) f32; hs (T,B,H) f32 output; hbuf
+// (2,H,B) f32 scratch whose first half is zero; barrier one zeroed
+// counter. H a multiple of 16. Returns a cudaError_t.
+int mlvae_gru_fwd(const float* gx, const float* w_hh, const float* b_hh,
+                  float* hs, float* hbuf, unsigned int* barrier, int T,
+                  int B, int H, int reverse, cudaStream_t stream) {
+  if (H % (UNITS * KSPLIT) != 0 || T < 1 || B < 1)
     return cudaErrorInvalidValue;
-  void* args[] = {(void*)&gx,   (void*)&w_hh,    (void*)&b_hh,
-                  (void*)&hs,   (void*)&hs32,    (void*)&hbuf,
-                  (void*)&barrier, (void*)&T,    (void*)&B,
-                  (void*)&H,    (void*)&reverse};
-  if (bf16_streams)
-    return launch_cooperative(gru_fwd_kernel<bf16>, H / UNITS, THREADS, args,
-                              smem_bytes(H), stream);
-  return launch_cooperative(gru_fwd_kernel<float>, H / UNITS, THREADS, args,
+  void* args[] = {(void*)&gx,      (void*)&w_hh, (void*)&b_hh,
+                  (void*)&hs,      (void*)&hbuf, (void*)&barrier,
+                  (void*)&T,       (void*)&B,    (void*)&H,
+                  (void*)&reverse};
+  return launch_cooperative(gru_fwd_kernel, H / UNITS, THREADS, args,
                             smem_bytes(H), stream);
 }
 

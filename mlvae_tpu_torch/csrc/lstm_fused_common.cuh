@@ -25,6 +25,7 @@
 #include <stdint.h>
 
 #include "grid_sync.cuh"
+#include "mma_tma.cuh"
 
 namespace fused {
 
@@ -42,8 +43,6 @@ static_assert(THREADS / 32 == (BT / 16) * (ROWS / 8), "one mma tile a warp");
 static_assert(KC == (THREADS / 32) * 4 * 8,
               "column phase: four 8-column tiles a warp");
 static_assert(RED == UNITS, "a reducing lane ends with its own unit");
-
-typedef __nv_bfloat16 bf16;
 
 // bf16 row pitch of the weights in shared memory: In + H columns and 8 of
 // padding, which puts the 8 rows a fragment load touches on 8 different
@@ -102,23 +101,6 @@ __device__ __forceinline__ void load_weights(bf16* w_s, const bf16* w_ih,
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += A (16 x 16) * B (16 x 8) on the tensor cores, bf16 operands, f32
-// sums, in the PTX fragment layouts of mma.m16n8k16 (lane = 4 * g + t:
-// a0 = A[g][2t, 2t+1], a1 = A[g+8][..], a2 = A[g][2t+8, 2t+9], a3 =
-// A[g+8][2t+8, ..]; b0 = B[2t, 2t+1][g], b1 = B[2t+8, 2t+9][g]; d0, d1 =
-// D[g][2t, 2t+1], d2, d3 = D[g+8][..]), the lower half of each register
-// holding the first of its pair.
-__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // c += the chunk's rows 16 mi .. (A) times the weight rows 8 ni .. (B,

@@ -14,39 +14,12 @@
 namespace fused {
 
 constexpr int KCB = 128;      // columns per staged chunk
-constexpr int HALF = 64;      // columns per 128-byte swizzled half of it
 constexpr int TILE = BT * KCB;  // bf16 elements of a chunk tile (16 KB)
 constexpr int GROUP = THREADS / 2;  // threads of a warp group (4 warps)
 
 // bar.sync on named barrier `id` for the 128 threads of one warp group.
 __device__ __forceinline__ void group_sync(int id) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(GROUP) : "memory");
-}
-
-// ldmatrix: four 8x8 bf16 matrices from shared memory, lanes 8m .. 8m+7
-// giving the row addresses of matrix m (16-byte aligned); .trans gives
-// each its transpose, which turns a row-major [k][n] tile into the k16 x n8
-// B fragments of mma.m16n8k16.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned int a =
-      static_cast<unsigned int>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  const unsigned int a =
-      static_cast<unsigned int>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
 }
 
 // This lane's ldmatrix address for the A fragments (k0 = 0) of rows r0 ..
@@ -59,15 +32,11 @@ __device__ __forceinline__ const bf16* a_frag_addr(const bf16* tile, int ld,
          8 * (lane >> 4);
 }
 
-// Element (r, c) of a staged chunk tile: two halves of 64 columns, 64
-// rows of 128 bytes each, with the 16-byte unit u of row r at u ^ (r & 7),
-// as the TMA's 128-byte swizzle writes them; an ldmatrix row (8 columns
-// from c, a multiple of 8) is one unit, and the 8 rows a matrix touches
-// fall on 8 different bank groups.
+// Element (r, c) of a staged chunk tile: two boxes of 64 rows x 64
+// columns, swizzled as the TMA writes them (swz_at, mma_tma.cuh).
 __device__ __forceinline__ const bf16* tile_at(const bf16* tile, int r,
                                                int c) {
-  return tile + (c >> 6) * (BT * HALF) + r * HALF +
-         ((((c >> 3) & 7) ^ (r & 7)) << 3);
+  return swz_at<BT>(tile, r, c);
 }
 
 // The pre-activations' product of one staged chunk for warp mi (0-3) of
@@ -95,16 +64,6 @@ __device__ __forceinline__ void pre_chunk_mma(float (&c)[2][4],
   }
 }
 
-// One staged chunk: columns [c0, c0 + 128) of rows [b0, b0 + 64) of slice z
-// of the 3-D bf16 tensor behind the TMA descriptor `map` (columns, rows,
-// slices innermost first); rows and columns past the tensor's ends arrive
-// as zeros (the rows past B meet zero dgates in dW; the columns past In
-// meet the k-steps that straddle In).
-struct Chunk {
-  const CUtensorMap* map;
-  int c0, b0, z;
-};
-
 // The timing build's ablation (MLVAE_BWD_STAGE_ROWS=r): the descriptors'
 // boxes take only r of a chunk's 64 rows (none for r = 0), the rest of
 // the tile stays as it was, so the step's time without (r = 0) or with
@@ -115,18 +74,6 @@ constexpr int STAGED_ROWS = MLVAE_BWD_STAGE_ROWS;
 #else
 constexpr int STAGED_ROWS = BT;
 #endif
-
-// One TMA copy of a 64-column half of chunk c into its tile, completing
-// the tile's mbarrier.
-__device__ __forceinline__ void tma_half(bf16* dst, const Chunk& c, int half,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
-      "l"(c.map), "r"(c.c0 + half * HALF), "r"(c.b0), "r"(c.z),
-      "r"(smem_u32(bar))
-      : "memory");
-}
 
 // Jobs 0 .. n-1 of one warp group (threads [t0, t0 + GROUP), named barrier
 // `bar`; n the same in all of them), each a chunk (chunk(j)) copied by the
@@ -171,21 +118,8 @@ __device__ __forceinline__ void pipeline(bf16* bufs, uint64_t* full,
 // slice, 128-byte swizzled, zeros past the ends.
 inline cudaError_t chunk_map(CUtensorMap* map, const void* base, int cols,
                              int rows, int slices) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode;
-  const cudaError_t err = tensor_map_encoder(&encode);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                              (cuuint64_t)slices};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(bf16),
-                                 (cuuint64_t)cols * rows * sizeof(bf16)};
-  const cuuint32_t box[3] = {HALF, STAGED_ROWS > 0 ? STAGED_ROWS : 1, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return tensor_map(map, base, cols, cols, rows, slices,
+                    STAGED_ROWS > 0 ? STAGED_ROWS : 1);
 }
 
 }  // namespace fused

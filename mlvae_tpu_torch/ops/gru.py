@@ -22,13 +22,19 @@ the f32 one for its elementwise chain, casts dgh to the weights' dtype
 before ``dgh @ W_hh`` and ``h_prev^T @ dgh``, sums db_hh from the f32 dgh,
 and writes dgx in the stream dtype.
 
-``gru_layer_fwd`` / ``gru_layer_bwd`` run ``csrc/gru_fwd.cu`` /
-``csrc/gru_bwd.cu`` for CUDA tensors and ``gru_layer_ref`` /
-``gru_layer_bwd_ref`` for CPU tensors only; ``GRURecurrence`` joins them.
+``gru_layer_fwd`` / ``gru_layer_bwd`` run, for CUDA tensors, the build
+that ``k5_plan`` picks, and ``gru_layer_ref`` / ``gru_layer_bwd_ref`` for
+CPU tensors only; ``GRURecurrence`` joins them. f32 streams take
+``csrc/gru_fwd.cu`` / ``csrc/gru_bwd.cu`` (CUDA-core FMAs, four units a
+block); bf16 streams take ``csrc/gru_fwd_bf16.cu`` / ``csrc/gru_bwd_bf16.cu``
+(the tensor cores, eight units a group of blocks, ``csrc/gru_mma.cuh``),
+whose backward is two kernels: the recurrence, then dW_hh
+(``gru_dw_ref`` is its plain version).
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -38,11 +44,96 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 GRU_FWD = _build.register(_build.Kernel(
-    "gru_fwd", "gru_fwd", "mlvae_gru_fwd",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]))
+    "gru_fwd", "gru_fwd", "mlvae_gru_fwd", [_P] * 6 + [_I] * 4 + [_P]))
 GRU_BWD = _build.register(_build.Kernel(
-    "gru_bwd", "gru_bwd", "mlvae_gru_bwd",
-    [_P] * 12 + [_I, _I, _I, _I, _I, _P]))
+    "gru_bwd", "gru_bwd", "mlvae_gru_bwd", [_P] * 11 + [_I] * 4 + [_P]))
+GRU_FWD_BF16 = _build.register(_build.Kernel(
+    "gru_fwd_bf16", "gru_fwd_bf16", "mlvae_gru_fwd_bf16",
+    [_P] * 6 + [_I] * 5 + [_P]))
+GRU_BWD_BF16 = _build.register(_build.Kernel(
+    "gru_bwd_bf16", "gru_bwd_bf16", "mlvae_gru_bwd_bf16",
+    [_P] * 11 + [_I] * 5 + [_P]))
+GRU_DW_BF16 = _build.register(_build.Kernel(
+    "gru_dw_bf16", "gru_bwd_bf16", "mlvae_gru_dw_bf16",
+    [_P] * 4 + [_I] * 4 + [_P]))
+
+SMEM_LIMIT = 232448   # an H100 block's dynamic shared memory, bytes
+SMS = 132             # an H100 SXM's streaming multiprocessors
+K5_MAX_H = 528        # every build needs H/4 co-resident blocks, one an SM
+BT = 64               # batch rows a tile
+BOX = 64              # columns of a TMA box (bf16 builds)
+F32_UNITS = 4         # csrc/gru_common.cuh
+BF16_UNITS = 8        # csrc/gru_mma.cuh
+THREADS = 256
+# Rows of each 64-row batch tile a bf16 block takes (csrc/gru_mma.cuh: RB,
+# 32 or 64). 32 puts two blocks on each group of eight units, H/4 blocks
+# (128 at H=512): each block stages, multiplies and exchanges half the
+# rows, on twice the SMs.
+BF16_ROWS = 32
+XBUFS = 2             # the bf16 K5-bwd's ring buffers a warp
+DW_M, DW_N, DW_BK, DW_STAGES = 64, 128, 64, 4   # the dW_hh kernel's tiles
+
+
+@dataclass(frozen=True)
+class K5Plan:
+    build: str        # "f32" or "bf16"
+    rows: int         # batch rows of a 64-row tile a block takes
+    blocks: int       # the grid (cooperative for the recurrences)
+    threads: int
+    smem_bytes: int   # dynamic shared memory a block
+    boxes: int        # bf16 recurrences: TMA boxes of h_{t-1}; 0 in f32
+
+
+def _boxes(cols: int) -> int:
+    return -(-cols // BOX)
+
+
+def k5_plan(direction: str, H: int, bf16: bool, rows: int = None
+            ) -> K5Plan:
+    """The build of K5 that runs ``direction`` ("fwd", "bwd", or on bf16
+    streams "dw", K5-bwd's dW_hh kernel) at hidden width H, and its launch
+    as the ``csrc`` code computes it. f32 streams: ``gru_fwd.cu`` /
+    ``gru_bwd.cu``, H/4 blocks of four units. bf16 streams: the tensor-core
+    builds, H/8 groups of eight units with 64/rows blocks each. Every H
+    that is a multiple of 16 up to 528 runs in both dtypes (H/4 blocks
+    resident on an H100's 132 SMs); another H is refused. ``rows``: a
+    bf16 block's rows of a tile, ``BF16_ROWS`` unless given."""
+    rows = BF16_ROWS if rows is None else rows
+    if H < 16 or H % 16:
+        raise ValueError(f"K5: H={H} must be a positive multiple of 16")
+    if H > K5_MAX_H:
+        raise NotImplementedError(
+            f"K5: H={H} above {K5_MAX_H}: every build keeps H/4 blocks of "
+            "one cooperative grid resident, one an SM of an H100's "
+            f"{SMS} (ROADMAP.md queue 2, 'Still to port')")
+    if not bf16:
+        if direction not in ("fwd", "bwd"):
+            raise ValueError(f"K5: no f32 build runs {direction!r}")
+        red = 4 * BT * 3 * F32_UNITS
+        smem = 4 * (3 * H * F32_UNITS + H * BT + red) if direction == "fwd" \
+            else 4 * (3 * H * F32_UNITS + H * (BT + 4) + red
+                      + 2 * BT * 3 * F32_UNITS)
+        return K5Plan("f32", BT, H // F32_UNITS, THREADS, smem, 0)
+    if rows not in (32, 64):
+        raise ValueError(f"K5: a bf16 block takes 32 or 64 rows, not {rows}")
+    mt = rows // 16
+    box_bytes = rows * BOX * 2
+    parts = 8 * 3 * 2 * 32 * 8           # the K parts' sums (float2s)
+    if direction == "fwd":
+        nb = _boxes(H)
+        smem = nb * (box_bytes + 8) + parts
+    elif direction == "bwd":
+        nb = _boxes(H)
+        sums = max(parts, 8 * mt * 2 * 32 * 8)
+        smem = (nb + 8 * XBUFS) * (box_bytes + 8) + sums
+    elif direction == "dw":
+        blocks = -(-H // DW_N) * (_boxes(2 * H) + _boxes(H))
+        return K5Plan("bf16", DW_BK, blocks, THREADS,
+                      DW_STAGES * (DW_BK * (DW_M + DW_N) * 2 + 8), 0)
+    else:
+        raise ValueError(f"K5: no direction {direction!r}")
+    return K5Plan("bf16", rows, H // BF16_UNITS * (BT // rows), THREADS,
+                  smem, nb)
 
 _STREAMS = (torch.float32, torch.bfloat16)
 
@@ -80,10 +171,13 @@ def gru_layer_ref(gx: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
 
 def gru_layer_bwd_ref(gx: torch.Tensor, w_hh: torch.Tensor,
                       b_hh: torch.Tensor, hs: torch.Tensor,
-                      hs32, dhs: torch.Tensor, reverse: bool = False):
+                      hs32, dhs: torch.Tensor, reverse: bool = False,
+                      with_dgh: bool = False):
     """Plain BPTT (the work of K5-bwd): the forward's inputs, its hs (and
     hs32 under bf16), the cotangents dhs (T, B, H) -> (dgx (T, B, 3H) in
-    gx's dtype, dW_hh (3H, H) f32, db_hh (3H,) f32).
+    gx's dtype, dW_hh (3H, H) f32, db_hh (3H,) f32), and with ``with_dgh``
+    also dgh = [dr', dz', dn' r] (T, B, 3H) in W_hh's dtype, the operand of
+    both products.
 
     Walks the processing order backward from dh = 0, recomputing gh from
     the saved h_{t-1} (zero at the first processed step, t=0, or t=T-1
@@ -99,6 +193,7 @@ def gru_layer_bwd_ref(gx: torch.Tensor, w_hh: torch.Tensor,
     db = gx.new_zeros((G,), dtype=torch.float32)
     dh = gx.new_zeros((B, H), dtype=torch.float32)
     zeros = torch.zeros_like(dh)
+    dghs = gx.new_empty((T, B, G), dtype=wd) if with_dgh else None
     for s in range(T - 1, -1, -1):          # processing steps, backward
         t = T - 1 - s if reverse else s
         tp = t + 1 if reverse else t - 1     # previous processed position
@@ -112,10 +207,31 @@ def gru_layer_bwd_ref(gx: torch.Tensor, w_hh: torch.Tensor,
         dgx[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=1).to(dgx.dtype)
         dgh = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=1)
         dgh_w = dgh.to(wd).float()
+        if with_dgh:
+            dghs[t] = dgh_w.to(wd)
         dh = dh * z + dgh_w @ w
         dw += dgh_w.t() @ h_prev
         db += dgh.sum(0)
+    if with_dgh:
+        return dgx, dw, db, dghs
     return dgx, dw, db
+
+
+def gru_dw_ref(dgx: torch.Tensor, dgn: torch.Tensor, hs: torch.Tensor,
+               reverse: bool = False) -> torch.Tensor:
+    """Plain dW_hh of the bf16 K5-bwd from its operands (the work of the
+    dW_hh kernel): bf16(dgh) = [dgx's r and z columns | dgn] (T, B, 3H),
+    dgn (T, B, H) holding bf16(dn' r), and hs (T, B, H) shifted by a step,
+    summed in f32 -> (3H, H) f32: the sum over the processing order's
+    steps s >= 1 of bf16(dgh)[t_s]^T hs[t_{s-1}] (the first processed
+    step's h_{t-1} is zero)."""
+    T, B, G = dgx.shape
+    H = hs.shape[2]
+    if T < 2:
+        return dgx.new_zeros((G, H), dtype=torch.float32)
+    dgh = torch.cat([dgx[..., :2 * H], dgn], dim=2)
+    x, y = (dgh[:-1], hs[1:]) if reverse else (dgh[1:], hs[:-1])
+    return x.reshape(-1, G).float().t() @ y.reshape(-1, H).float()
 
 
 def _check(name: str, gx, w_hh, b_hh, extra=()) -> None:
@@ -152,26 +268,35 @@ def _check(name: str, gx, w_hh, b_hh, extra=()) -> None:
 def gru_layer_fwd(gx: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                   reverse: bool = False):
     """K5-fwd: same contract as ``gru_layer_ref``. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise. The launch
-    refuses an H whose H/4 blocks cannot all be resident at once (above
-    528 on an H100's 132 SMs)."""
+    plain version; CUDA tensors launch the build ``k5_plan`` picks (f32:
+    ``gru_fwd.cu``; bf16: ``gru_fwd_bf16.cu``) or raise: an H above 528,
+    whose blocks cannot all be resident at once, ``NotImplementedError``."""
     if gx.device.type == "cpu":
         return gru_layer_ref(gx, w_hh, b_hh, reverse)
     _check("gru_layer_fwd", gx, w_hh, b_hh)
     T, B, G = gx.shape
     H = G // 3
-    bf16 = gx.dtype == torch.bfloat16
+    plan = k5_plan("fwd", H, gx.dtype == torch.bfloat16)
+    bf16 = plan.build == "bf16"
     hs = torch.empty((T, B, H), device=gx.device, dtype=gx.dtype)
     hs32 = torch.empty((T, B, H), device=gx.device,
                        dtype=torch.float32) if bf16 else None
-    if T and B:
-        # h ping-pong buffer (h_0 = 0) and the step barrier's counter
+    if not (T and B):
+        return hs, hs32
+    # the step barrier's counter
+    barrier = torch.zeros((1,), device=gx.device, dtype=torch.int32)
+    stream = _build.stream_handle(gx.device)
+    if bf16:
+        # the next step stages h_{t-1} from hs itself (TMA, 16-byte base)
+        GRU_FWD_BF16(gx.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                     hs.data_ptr(), hs32.data_ptr(), barrier.data_ptr(), T,
+                     B, H, int(reverse), plan.rows, stream)
+    else:
+        # h ping-pong buffer (h_0 = 0)
         hbuf = torch.zeros((2, H, B), device=gx.device, dtype=torch.float32)
-        barrier = torch.zeros((1,), device=gx.device, dtype=torch.int32)
         GRU_FWD(gx.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-                hs.data_ptr(), hs32.data_ptr() if bf16 else None,
-                hbuf.data_ptr(), barrier.data_ptr(), T, B, H, int(reverse),
-                int(bf16), _build.stream_handle(gx.device))
+                hs.data_ptr(), hbuf.data_ptr(), barrier.data_ptr(), T, B, H,
+                int(reverse), stream)
     return hs, hs32
 
 
@@ -179,7 +304,11 @@ def gru_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                   hs: torch.Tensor, hs32, dhs: torch.Tensor,
                   reverse: bool = False):
     """K5-bwd: same contract as ``gru_layer_bwd_ref``. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    plain version; CUDA tensors launch the build ``k5_plan`` picks or raise,
+    as K5-fwd. On bf16 streams two kernels launch: the recurrence (dgx, and
+    the n column of bf16(dgh) into a scratch), then the dW_hh kernel
+    (``gru_dw_ref``), which a T=1 layer, whose only step has h_{t-1} = 0,
+    does without."""
     if gx.device.type == "cpu":
         return gru_layer_bwd_ref(gx, w_hh, b_hh, hs, hs32, dhs, reverse)
     bf16 = gx.dtype == torch.bfloat16
@@ -197,24 +326,63 @@ def gru_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
         raise ValueError(f"gru_layer_bwd: hs/dhs {tuple(hs.shape)}/"
                          f"{tuple(dhs.shape)} ({hs.dtype}/{dhs.dtype}) are "
                          f"not (T, B, H) in gx's dtype, or hs32 is not f32")
+    plan = k5_plan("bwd", H, bf16)
     dgx = torch.empty_like(gx)
     dw = torch.zeros((G, H), device=gx.device, dtype=torch.float32)
     db = torch.zeros((G,), device=gx.device, dtype=torch.float32)
-    if T and B:
+    if not (T and B):
+        return dgx, dw, db
+    # the dh carry (zero at the start), each entry touched by one thread
+    # only; the step barrier's counter
+    dh_buf = torch.zeros((B, H), device=gx.device, dtype=torch.float32)
+    barrier = torch.zeros((1,), device=gx.device, dtype=torch.int32)
+    stream = _build.stream_handle(gx.device)
+    if bf16:
+        # bf16(dn' r), the n column of the products' operand bf16(dgh)
+        dgn = torch.empty((T, B, H), device=gx.device, dtype=gx.dtype)
+        GRU_BWD_BF16(gx.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+                     hs.data_ptr(), hs32.data_ptr(), dhs.data_ptr(),
+                     dgx.data_ptr(), dgn.data_ptr(), db.data_ptr(),
+                     dh_buf.data_ptr(), barrier.data_ptr(), T, B, H,
+                     int(reverse), plan.rows, stream)
+        if T > 1:
+            GRU_DW_BF16(dgx.data_ptr(), dgn.data_ptr(), hs.data_ptr(),
+                        dw.data_ptr(), T, B, H, int(reverse), stream)
+    else:
         # each block's split-K share of dgh @ W_hh, ping-ponged between
-        # steps; the dh carry (zero at the start), each entry touched by one
-        # thread only; the step barrier's counter
-        part = torch.empty((2, H // 4, B, H), device=gx.device,
+        # steps
+        part = torch.empty((2, H // F32_UNITS, B, H), device=gx.device,
                            dtype=torch.float32)
-        dh_buf = torch.zeros((B, H), device=gx.device, dtype=torch.float32)
-        barrier = torch.zeros((1,), device=gx.device, dtype=torch.int32)
         GRU_BWD(gx.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-                hs.data_ptr(), hs32.data_ptr() if bf16 else None,
-                dhs.data_ptr(), dgx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                part.data_ptr(), dh_buf.data_ptr(), barrier.data_ptr(),
-                T, B, H, int(reverse), int(bf16),
-                _build.stream_handle(gx.device))
+                hs.data_ptr(), dhs.data_ptr(), dgx.data_ptr(), dw.data_ptr(),
+                db.data_ptr(), part.data_ptr(), dh_buf.data_ptr(),
+                barrier.data_ptr(), T, B, H, int(reverse), stream)
     return dgx, dw, db
+
+
+def k5_launch_plan(direction: str, H: int, B: int, rows: int = None
+                   ) -> dict:
+    """What a bf16 build of ``direction`` ("fwd", "bwd", "dw") computes for
+    its launch at H, B and ``rows`` a block (``BF16_ROWS`` unless given;
+    its ``*_plan`` entry point): blocks, threads,
+    shared memory bytes, resident blocks an SM, boxes (fwd) / ring buffers
+    (bwd) / stages (dw), rows a block / K rows a stage, registers and local
+    memory bytes a thread. Builds the library; needs the card. Not a
+    launch: it counts nowhere."""
+    rows = BF16_ROWS if rows is None else rows
+    kernel = {"fwd": GRU_FWD_BF16, "bwd": GRU_BWD_BF16,
+              "dw": GRU_DW_BF16}[direction]
+    fn = getattr(_build.library(kernel.source), f"{kernel.symbol}_plan")
+    args = {"fwd": (H, rows), "bwd": (H, B, rows), "dw": (H,)}[direction]
+    fn.argtypes = [_I] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 8)()
+    code = fn(*args, out)
+    if code:
+        raise RuntimeError(f"{kernel.name} plan: CUDA error {code}")
+    keys = ("blocks", "threads", "smem_bytes", "blocks_per_sm", "ring",
+            "rows", "registers", "local_bytes")
+    return dict(zip(keys, list(out)))
 
 
 class GRURecurrence(torch.autograd.Function):

@@ -48,6 +48,14 @@ gather of the warps' dh sums), ``barrier``, ``loads`` and ``step``.
 Its normal build's ms include the dW_hh kernel that follows the
 recurrence; the timing build's do not.
 
+K5-bwd on bf16 streams (``csrc/gru_bwd_bf16.cu``) has a timing build of
+its recurrence with the same define, slots and phases (``WIDE_PHASES``;
+``dh_stage`` and ``dh_product`` are its exchange of bf16(dgh)), a (T,
+blocks, 10) buffer, at T=160, H=512, B=64 (gate 3's AMP shape) on the
+trajectory of the bf16 K5-fwd, with 32 and with 64 rows a block
+(``ops.gru.BF16_ROWS``; ``rows_a_block``); its dgx and db_hh must be
+bit-equal to the normal build's at the same rows.
+
 It prints one JSON line naming the card and its power limit, and exits
 non-zero when an output differs. It needs the card and raises without
 CUDA.
@@ -65,6 +73,7 @@ import torch
 
 from mlvae_tpu_torch import _build
 from mlvae_tpu_torch.device import resolve_device
+from mlvae_tpu_torch.ops import gru as G
 from mlvae_tpu_torch.ops import lstm as L
 from mlvae_tpu_torch.ops.k1_plan import k1_bwd_plan, narrow_bwd_smem_bytes
 from mlvae_tpu_torch.tools import bench_fwd_timeline as ftl
@@ -99,6 +108,7 @@ _ARGS = {"lstm_fused_bwd": [_P] * 15 + [_I] * 5 + [_P, _P],
          "lstm_semi_bwd": [_P] * 12 + [_I] * 5 + [_P, _P]}
 _K1_ARGS = [_P] * 11 + [_I] * 4 + [_P, _P]
 _WIDE_ARGS = [_P] * 9 + [_I] * 4 + [_P, _P]
+_GRU_ARGS = [_P] * 11 + [_I] * 5 + [_P, _P]
 
 
 def _timed(name: str, rows: Optional[int] = None) -> _build.Kernel:
@@ -115,6 +125,9 @@ TIMED["lstm_bwd"] = _build.Kernel("lstm_bwd_timeline", "lstm_bwd_timeline",
 TIMED["lstm_bwd_wide_bf16"] = _build.Kernel(
     "lstm_bwd_wide_bf16_timeline", "lstm_bwd_wide_bf16_timeline",
     "mlvae_lstm_bwd_wide_bf16_timeline", _WIDE_ARGS)
+TIMED["gru_bwd_bf16"] = _build.Kernel(
+    "gru_bwd_bf16_timeline", "gru_bwd_bf16_timeline",
+    "mlvae_gru_bwd_bf16_timeline", _GRU_ARGS)
 ABLATED = {(name, r): _timed(name, r) for name in _ARGS
            for r in _build.ABLATION_ROWS}
 
@@ -284,6 +297,61 @@ def wide_rows(dev, iters: int):
     return rows
 
 
+def gru_problem(dev, B: int, seed: int = 0):
+    """A bf16 K5-bwd input at T, H=512 (``bench_fwd_timeline``'s K5-fwd
+    input), its trajectory from the bf16 K5-fwd, and cotangents N(0,
+    0.1^2) for every h in bf16."""
+    gx, w, b = ftl.gru_problem(dev, B, seed)
+    hs, hs32 = G.gru_layer_fwd(gx, w, b)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dhs = (torch.randn(hs.shape, generator=g, device=dev) * 0.1).to(
+        torch.bfloat16)
+    return gx, w, b, hs, hs32, dhs
+
+
+def timed_gru(prob, rows: int, reverse: bool = False):
+    """K5-bwd's bf16 timing build (the recurrence) on ``prob`` at ``rows``
+    a block: ((dgx, db_hh), as ``gru_layer_bwd``'s, and the (T, blocks,
+    10) int64 timeline)."""
+    gx, w, b, hs, hs32, dhs = prob
+    Tn, B, G3 = gx.shape
+    Hn = G3 // 3
+    dev = gx.device
+    tl = torch.zeros((Tn, G.k5_plan("bwd", Hn, True, rows).blocks,
+                      K1_SLOTS), device=dev, dtype=torch.int64)
+    dgx = torch.empty_like(gx)
+    dgn = torch.empty_like(hs)
+    db = torch.zeros((G3,), device=dev, dtype=torch.float32)
+    dh_buf = torch.zeros((B, Hn), device=dev, dtype=torch.float32)
+    barrier = torch.zeros((1,), device=dev, dtype=torch.int32)
+    TIMED["gru_bwd_bf16"](
+        gx.data_ptr(), w.data_ptr(), b.data_ptr(), hs.data_ptr(),
+        hs32.data_ptr(), dhs.data_ptr(), dgx.data_ptr(), dgn.data_ptr(),
+        db.data_ptr(), dh_buf.data_ptr(), barrier.data_ptr(), Tn, B, Hn,
+        int(reverse), rows, tl.data_ptr(), _build.stream_handle(dev))
+    return (dgx, db), tl
+
+
+def gru_rows(dev, iters: int):
+    rows = []
+    for B, r in ftl.GRU_CASES:
+        prob = gru_problem(dev, B)
+        want = ftl.with_rows(r, lambda: G.gru_layer_bwd(*prob))
+        got, tl = timed_gru(prob, r)
+        torch.cuda.synchronize()
+        ms = ftl.with_rows(r, lambda: cuda_ms(
+            lambda: G.gru_layer_bwd(*prob), iters))
+        rows.append({
+            "kernel": "gru_bwd_bf16", "B": B, "T": T, "H": ftl.GRU_H,
+            "rows_a_block": r,
+            "bit_equal_to_normal_build": (torch.equal(got[0], want[0])
+                                          and torch.equal(got[1], want[2])),
+            "ms": ms, "us_a_step_total": ms * 1e3 / T,
+            "ms_timing_build": cuda_ms(lambda: timed_gru(prob, r), iters),
+            "us_a_step": ftl.phase_split(tl.cpu(), WIDE_PHASES)})
+    return rows
+
+
 def make_problem(dev, In: int, B: int, seed: int = 0):
     """x, w_ih, w_hh bf16, the f32 bias at the recipe layers' scales
     (weights U(+-1/sqrt(H))), the forward's hs and cs from K3/K4-fwd, bf16
@@ -353,7 +421,8 @@ def cuda_ms(fn, iters: int) -> float:
 def bench(dev, iters: int = 10) -> Dict:
     _build.build([*_build.VARIANTS, "lstm_fused_fwd", "lstm_fused_bwd",
                   "lstm_semi_bwd", "lstm_fwd", "lstm_bwd",
-                  "lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16"])
+                  "lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16",
+                  "gru_fwd_bf16", "gru_bwd_bf16"])
     rows = []
     for name, In in CASES:
         for B in BATCHES:
@@ -374,7 +443,8 @@ def bench(dev, iters: int = 10) -> Dict:
                     f"rows{r}": ablation(name, prob, r, iters)
                     for r in _build.ABLATION_ROWS}})
     return {"rows": rows, "lstm_bwd": k1_rows(dev, iters),
-            "lstm_bwd_wide_bf16": wide_rows(dev, iters)}
+            "lstm_bwd_wide_bf16": wide_rows(dev, iters),
+            "gru_bwd_bf16": gru_rows(dev, iters)}
 
 
 def ablation(name: str, prob, rows: int, iters: int) -> Dict:
@@ -409,7 +479,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                       "device": torch.cuda.get_device_name(dev),
                       "nvidia_smi": _card(), **res}), flush=True)
     bad = [(r["kernel"], r["B"]) for r in [*res["rows"], *res["lstm_bwd"],
-                                           *res["lstm_bwd_wide_bf16"]]
+                                           *res["lstm_bwd_wide_bf16"],
+                                           *res["gru_bwd_bf16"]]
            if not r["bit_equal_to_normal_build"]]
     if bad:
         print(f"bench_bwd_timeline: the timing build differs from the "

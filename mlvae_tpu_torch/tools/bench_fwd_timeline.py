@@ -1,17 +1,20 @@
-"""A step timeline of the LSTM forwards (K1-fwd, K3/K4-fwd, the wide K1-fwd
-on bf16 streams) on the card.
+"""A step timeline of the recurrent forwards (K1-fwd, K3/K4-fwd, the wide
+K1-fwd and K5-fwd on bf16 streams) on the card.
 
     python -m mlvae_tpu_torch.tools.bench_fwd_timeline [--iters N]
 
-Builds ``csrc/lstm_fwd.cu``, ``csrc/lstm_fused_fwd.cu`` and
-``csrc/lstm_fwd_wide_bf16.cu`` a second time with ``-DMLVAE_FWD_TIMELINE``
+Builds ``csrc/lstm_fwd.cu``, ``csrc/lstm_fused_fwd.cu``,
+``csrc/lstm_fwd_wide_bf16.cu`` and ``csrc/gru_fwd_bf16.cu`` a second time
+with ``-DMLVAE_FWD_TIMELINE``
 (their own library names, see ``_build.VARIANTS``): a lead thread of each
 block reads ``%globaltimer`` at the phase boundaries of its chain of work
 and writes, for each step, the step's start and end and each phase's sum
 over the step's batch tiles into a (T, blocks, 8) buffer
 (``csrc/fwd_timeline.cuh``). For K1-fwd at B=64 and 128 (f32) and
 K3/K4-fwd at In=128, 512 and 1024 and B=64 and 256 (bf16), H=512, and the
-wide K1-fwd on bf16 streams at H=1024, B=64 (LSTM_FC's AMP shape), T=160,
+wide K1-fwd on bf16 streams at H=1024, B=64 (LSTM_FC's AMP shape), and
+K5-fwd on bf16 streams at H=512, B=64 (gate 3's AMP shape) with 32 and
+with 64 rows a block (``ops.gru.BF16_ROWS``; ``rows_a_block``), T=160,
 inputs from a generator seeded 0 at the recipe layers' scales, it
 prints each phase's microseconds a step: each block's mean over the steps,
 then the min, median and max over the blocks. The phases, on the chain of
@@ -41,6 +44,7 @@ import torch
 
 from mlvae_tpu_torch import _build
 from mlvae_tpu_torch.device import resolve_device
+from mlvae_tpu_torch.ops import gru as G
 from mlvae_tpu_torch.ops import lstm as L
 from mlvae_tpu_torch.ops.k1_plan import (k1_fwd_plan,  # noqa: F401
                                          narrow_fwd_ring_depth,
@@ -63,7 +67,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = {"lstm_fwd": [_P] * 6 + [_I] * 4 + [_P, _P],
          "lstm_fused_fwd": [_P] * 7 + [_I] * 5 + [_P, _P],
-         "lstm_fwd_wide_bf16": [_P] * 5 + [_I] * 4 + [_P, _P]}
+         "lstm_fwd_wide_bf16": [_P] * 5 + [_I] * 4 + [_P, _P],
+         "gru_fwd_bf16": [_P] * 6 + [_I] * 5 + [_P, _P]}
+GRU_H = 512           # K5-fwd's shape: gate 3's layers
+GRU_CASES = ((64, 32), (64, 64))   # (B, rows a block)
 
 # Not registered: their launches count on no path.
 TIMED = {name: _build.Kernel(f"{name}_timeline", f"{name}_timeline",
@@ -230,6 +237,69 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def gru_problem(dev, B: int, seed: int = 0):
+    """A bf16 K5-fwd input at T, H=512: gx N(0, 0.5^2), W_hh and b_hh
+    U(+-1/sqrt(H)) (gx and W_hh bf16, b_hh f32)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    gx = (torch.randn((T, B, 3 * GRU_H), generator=g, device=dev)
+          * 0.5).to(bf)
+    w = ((torch.rand((3 * GRU_H, GRU_H), generator=g, device=dev) * 2 - 1)
+         / GRU_H ** 0.5).to(bf)
+    b = (torch.rand((3 * GRU_H,), generator=g, device=dev) * 2 - 1) \
+        / GRU_H ** 0.5
+    return gx, w, b
+
+
+def with_rows(rows: int, fn):
+    """``fn()`` with the bf16 K5 builds launched at ``rows`` a block."""
+    keep, G.BF16_ROWS = G.BF16_ROWS, rows
+    try:
+        return fn()
+    finally:
+        G.BF16_ROWS = keep
+
+
+def timed_gru(prob, rows: int, reverse: bool = False):
+    """K5-fwd's bf16 timing build on ``prob`` at ``rows`` a block: ((hs,
+    hs32), as ``gru_layer_fwd``'s, and the (T, blocks, 8) int64
+    timeline)."""
+    gx, w, b = prob
+    Tn, B, G3 = gx.shape
+    Hn = G3 // 3
+    dev = gx.device
+    tl = torch.zeros((Tn, G.k5_plan("fwd", Hn, True, rows).blocks, SLOTS),
+                     device=dev, dtype=torch.int64)
+    hs = torch.empty((Tn, B, Hn), device=dev, dtype=gx.dtype)
+    hs32 = torch.empty((Tn, B, Hn), device=dev, dtype=torch.float32)
+    barrier = torch.zeros((1,), device=dev, dtype=torch.int32)
+    TIMED["gru_fwd_bf16"](gx.data_ptr(), w.data_ptr(), b.data_ptr(),
+                          hs.data_ptr(), hs32.data_ptr(), barrier.data_ptr(),
+                          Tn, B, Hn, int(reverse), rows, tl.data_ptr(),
+                          _build.stream_handle(dev))
+    return (hs, hs32), tl
+
+
+def gru_rows(dev, iters: int):
+    rows = []
+    for B, r in GRU_CASES:
+        prob = gru_problem(dev, B)
+        want = with_rows(r, lambda: G.gru_layer_fwd(*prob))
+        got, tl = timed_gru(prob, r)
+        torch.cuda.synchronize()
+        ms = with_rows(r, lambda: cuda_ms(lambda: G.gru_layer_fwd(*prob),
+                                          iters))
+        rows.append({
+            "kernel": "gru_fwd_bf16", "In": None, "B": B, "T": T,
+            "H": GRU_H, "rows_a_block": r,
+            "bit_equal_to_normal_build": all(
+                torch.equal(a, c) for a, c in zip(got, want)),
+            "ms": ms, "us_a_step": ms * 1e3 / T,
+            "ms_timing_build": cuda_ms(lambda: timed_gru(prob, r), iters),
+            "phases_us_a_step": phase_split(tl.cpu())})
+    return rows
+
+
 def bench(dev, iters: int = 10, cases=CASES) -> Dict:
     _build.build([*(f"{n}_timeline" for n in _build.FWD_TIMED),
                   *_build.FWD_TIMED])
@@ -248,7 +318,7 @@ def bench(dev, iters: int = 10, cases=CASES) -> Dict:
             "ms": ms, "us_a_step": ms * 1e3 / T,
             "ms_timing_build": cuda_ms(lambda: timed_fwd(name, prob), iters),
             "phases_us_a_step": phase_split(tl.cpu())})
-    return {"rows": rows}
+    return {"rows": rows + gru_rows(dev, iters)}
 
 
 def _card() -> str:
