@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's LSTM kernels and its eval step in two checkouts on one
+"""Time the port's recurrence kernels and its steps in two checkouts on one
 NVIDIA card, in turns.
 
     python3 chip_ab.py [--only lstm_bwd] OTHER_CHECKOUT [OTHER_CHECKOUT ...]
@@ -16,7 +16,11 @@ step's first loss; and, in a checkout that has them, the wide K1-fwd and
 K1-bwd at H=1024 (digests at B=64, K1-bwd also at B=70, and times) and
 LSTM_FC's f32 train step (time, digest of its first loss), and where they
 exist the same for the wide builds on bf16 streams (K1-bwd's dW_hh also
-digested alone) and LSTM_FC's AMP train step. Each run prints one line
+digested alone) and LSTM_FC's AMP train step; and K5 (the GRU recurrence
+kernels) in f32 and on bf16 streams, digests of K5-fwd's and K5-bwd's
+outputs at B=64 and 70, both directions, their times at gate 3's shape
+(T=160, B=64, H=512), and gate 3's f32 and AMP train steps (time, digest
+of the first loss). Each run prints one line
 ``AB <root> <JSON of ms and digests>``; the card's name and power limit
 come first. It compares
 two versions of code that both checkouts have (a parent and its change):
@@ -149,6 +153,54 @@ def time_checkout(root: Path) -> dict:
         warmup=1)
     del f32
     out.update(time_wide(cs, dev))
+    out.update(time_gru(cs, dev))
+    return out
+
+
+def time_gru(cs, dev) -> dict:
+    """K5-fwd and K5-bwd, f32 and on bf16 streams, at gate 3's layers (T=160,
+    H=512): digests of their outputs at B=64 and 70, both directions, their
+    times at B=64; gate 3's f32 and AMP train steps at full width: the
+    digest of the first loss and the step's time."""
+    from mlvae_tpu_torch import bench_utils
+    from mlvae_tpu_torch.ops import gru as G
+    import torch
+    T, H = 160, 512
+    out = {}
+    for bf16 in (False, True):
+        sfx = "_bf16" if bf16 else ""
+        g = torch.Generator(device=dev).manual_seed(15)
+        for B in (64, 70):
+            for reverse in (False, True):
+                gx, w, b, hs, hs32, dhs = cs.gru_problem(g, dev, T, B, H,
+                                                         bf16, reverse)
+                key = sfx + ("_B70" if B == 70 else "") + (
+                    "_reverse" if reverse else "")
+                out[f"digest_gru_fwd{key}"] = digest(
+                    [x for x in G.gru_layer_fwd(gx, w, b, reverse)
+                     if x is not None])
+                out[f"digest_gru_bwd{key}"] = digest(
+                    G.gru_layer_bwd(gx, w, b, hs, hs32, dhs, reverse))
+                if B == 64 and not reverse:
+                    out[f"gru_fwd{sfx}"] = cs.cuda_ms(
+                        lambda: G.gru_layer_fwd(gx, w, b), iters=20)
+                    out[f"gru_bwd{sfx}"] = cs.cuda_ms(
+                        lambda: G.gru_layer_bwd(gx, w, b, hs, hs32, dhs),
+                        iters=10)
+    for amp in (False, True):
+        label = "amp" if amp else "f32"
+        gate = bench_utils.build_gate(3, seed=0, device=dev, amp=amp,
+                                      full_width=True)
+        batch = bench_utils.gate_batch(3, device=dev, B=64, T=T,
+                                       C=bench_utils.GATE3_RECIPE["C"])
+        noise = cs.gate_noise(gate, batch,
+                              torch.Generator(device=dev).manual_seed(43))
+        loss = gate.train_step(batch, noise)
+        out[f"digest_gate3_{label}_loss"] = digest(
+            [torch.as_tensor(loss).reshape(1)])
+        out[f"gate3_{label}_step"] = cs.cuda_ms(
+            lambda: gate.train_step(batch, noise), iters=5, warmup=1)
+        del gate
     return out
 
 

@@ -12,16 +12,22 @@ Phases, each reported on its own line; any failure exits non-zero:
    and of the bf16 builds (the tensor-core K1-fwd and K1-bwd, and K1-bwd's
    dW_hh kernel) at H=1024 and 640, as their C code computes it (grid,
    threads, shared memory, blocks an SM holds, registers, local bytes: 0
-   for the bf16 builds) against ``ops.k1_plan``;
+   for the bf16 builds) against ``ops.k1_plan``, and likewise K5's builds
+   on bf16 streams (K5-fwd, K5-bwd at B=64 and 70, its dW_hh kernel) at
+   H=512, 208 and 528 in both layouts (32 and 64 rows of a batch tile a
+   block) against ``ops.gru.k5_plan``;
 2. each kernel against its plain PyTorch version on the card, at the
    slices' shapes (B=64, T=160, H=512; the fused kernels at In=128, 512
    and 1024 as the AMP step gives them; the filterbank K6 in its Kaldi
    mode at the Kaldi pass's B=256 x 325 frames and B=1, in its
    SpeechBrain mode at B=64 and B=1 x 160 frames; the GRU kernels K5-fwd
-   and K5-bwd in f32 and bf16), plus ragged and edge cases, K1-fwd and
+   and K5-bwd in f32 and on bf16 streams, the tensor-core builds, also at
+   H=128, 208 and 528, ragged B, T=1 and 2, and K5-bwd's bf16 dW_hh
+   kernel on its own operands), plus ragged and edge cases, K1-fwd and
    K1-bwd again over many back-to-back launches (``--lstm-repeats``,
    ``--lstm-bwd-repeats``), the fused kernels over a few, K5 over 26 per
-   kernel and direction, K6 over 20 per mode that must be bit-identical,
+   kernel and direction (each bit-equal to the first of its dtype), K6
+   over 20 per mode that must be bit-identical,
    and K6's two extractors against the float64 golden on two short
    utterances; the K-unrolled LSTM forwards at the unroll bench's shape
    (B=128, T=160, H=512, In 512 and 128, K 2, 4, 8, both directions): K7a
@@ -68,7 +74,8 @@ Phases, each reported on its own line; any failure exits non-zero:
    the BASELINE gate configs (``bench_utils.build_gate``): the GRU
    sequence VAE of gate 3 at full width (C=120, H=512, LAT=32, B=64,
    T=160), two f32 and two AMP steps, 3 K5-fwd and 3 K5-bwd launches a
-   step, each first step against the same step through the plain
+   step (under AMP only the bf16 builds, and 3 of K5-bwd's dW_hh kernel),
+   each first step against the same step through the plain
    versions and the AMP loss against the f32 loss, f32 parameters and
    Adam states under AMP; one step of each of gates 1, 2 and 4 on the
    card against the same step on the CPU; and the unroll A/B path
@@ -93,8 +100,12 @@ Phases, each reported on its own line; any failure exits non-zero:
    (``compute_kaldi_features`` over 256 written wav files, one batch,
    host clock), the f32 and AMP train steps of each target, the AMP VAE
    step at the JAX bench's B=256 (and its profile), K5-fwd and K5-bwd in
-   f32 and bf16 beside their bounds, their plain versions and cuDNN's GRU
-   layer, the gate-3 train step in f32 and under AMP, K7a (f32, bf16) and
+   f32 beside their bounds, their plain versions and cuDNN's GRU layer,
+   and on bf16 streams in turns with cuDNN's bf16 layer and with their
+   other layout (medians and spreads; cuDNN's kernels alone, all and
+   without its matrix products), K5-bwd's dW_hh kernel beside one bf16
+   ``torch.matmul`` of its operands, the gate-3 train step in f32 and
+   under AMP (and a profile of each), K7a (f32, bf16) and
    K7b per K beside K1-fwd and K3/K4-fwd at B=128, their bounds, plain
    versions and cuDNN's LSTM layer, K3-bwd (In 32, 128, 512) and K4-bwd
    (In 1024) at B=64 and K3-bwd In=512, K4-bwd at B=256 in turns with
@@ -107,8 +118,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    normal ones), the backwards' step timeline
    (``mlvae_tpu_torch.tools.bench_bwd_timeline``: microseconds a step of
    each phase, and the ablation without or with
-   half of the copies' L2 traffic), and profiles of one eval, one wav-in
-   eval, one f32 and one AMP VAE train step and one f32 gate-3 step; the
+   half of the copies' L2 traffic; K5 on bf16 streams in both layouts),
+   and profiles of one eval, one wav-in eval, one f32 and one AMP VAE
+   train step; the
    wide K1-fwd and K1-bwd at H=1024 in turns with cuDNN's f32 layer, their
    plain versions and bounds, LSTM_FC's eval and train steps (ms,
    utt-sec/sec) and a profile of each; the bf16 wide builds likewise in
