@@ -14,8 +14,7 @@ Phases, each reported on its own line; any failure exits non-zero:
    threads, shared memory, blocks an SM holds, registers, local bytes: 0
    for the bf16 builds) against ``ops.k1_plan``, and likewise K5's builds
    on bf16 streams (K5-fwd, K5-bwd at B=64 and 70, its dW_hh kernel) at
-   H=512, 208 and 528 in both layouts (32 and 64 rows of a batch tile a
-   block) against ``ops.gru.k5_plan``;
+   H=512, 208 and 528 against ``ops.gru.k5_plan``;
 2. each kernel against its plain PyTorch version on the card, at the
    slices' shapes (B=64, T=160, H=512; the fused kernels at In=128, 512
    and 1024 as the AMP step gives them; the filterbank K6 in its Kaldi
@@ -101,9 +100,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    host clock), the f32 and AMP train steps of each target, the AMP VAE
    step at the JAX bench's B=256 (and its profile), K5-fwd and K5-bwd in
    f32 beside their bounds, their plain versions and cuDNN's GRU layer,
-   and on bf16 streams in turns with cuDNN's bf16 layer and with their
-   other layout (medians and spreads; cuDNN's kernels alone, all and
-   without its matrix products), K5-bwd's dW_hh kernel beside one bf16
+   and on bf16 streams in turns with cuDNN's bf16 layer (medians and
+   spreads; cuDNN's kernels alone, all and those launched every step),
+   K5-bwd's dW_hh kernel beside one bf16
    ``torch.matmul`` of its operands, the gate-3 train step in f32 and
    under AMP (and a profile of each), K7a (f32, bf16) and
    K7b per K beside K1-fwd and K3/K4-fwd at B=128, their bounds, plain
@@ -118,7 +117,7 @@ Phases, each reported on its own line; any failure exits non-zero:
    normal ones), the backwards' step timeline
    (``mlvae_tpu_torch.tools.bench_bwd_timeline``: microseconds a step of
    each phase, and the ablation without or with
-   half of the copies' L2 traffic; K5 on bf16 streams in both layouts),
+   half of the copies' L2 traffic; K5 on bf16 streams),
    and profiles of one eval, one wav-in eval, one f32 and one AMP VAE
    train step; the
    wide K1-fwd and K1-bwd at H=1024 in turns with cuDNN's f32 layer, their
@@ -991,44 +990,41 @@ def gru_errors(fwd, bwd, want_fwd, want_bwd):
 
 def gru_plans(dev, report):
     """Phase 1: the bf16 K5 builds' launch plans as the C code computes
-    them (blocks, threads, shared memory, blocks an SM can hold, boxes or
-    ring buffers, registers, local bytes) at H=512, 208 and 528, at the
-    rows a block ``ops.gru.k5_plan`` picks and at the other layout,
-    against ``k5_plan``: each cooperative grid co-resident on this card,
-    the picked layout without spills."""
+    them (blocks, threads, shared memory, blocks an SM can hold, boxes,
+    ring buffers or stages, registers, local bytes) at H=512, 208 and 528
+    (K5-bwd at B=64, one tile and the split barrier, and B=70, the tiles
+    in series), against ``ops.gru.k5_plan``: each cooperative grid
+    co-resident on this card, no spills."""
     import torch
     from mlvae_tpu_torch.ops import gru as G
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
     for H in (512, 208, 528):
-        for rows in (G.BF16_ROWS, 96 - G.BF16_ROWS):
-            for direction, B in (("fwd", 64), ("bwd", 64), ("bwd", 70),
-                                 ("dw", 64)):
-                if direction == "dw" and rows != G.BF16_ROWS:
-                    continue
-                got = G.k5_launch_plan(direction, H, B, rows)
-                want = G.k5_plan(direction, H, True, rows)
-                name = "gru_dw_bf16" if direction == "dw" else \
-                    f"gru_{direction}_bf16"
-                key = f"{name} H={H} B={B} rows={got['rows']}"
-                out[key] = got
-                report(f"  plan {key}: grid {got['blocks']} x "
-                       f"{got['threads']} threads, shared memory "
-                       f"{got['smem_bytes']} B, ring {got['ring']}, "
-                       f"{got['blocks_per_sm']} block(s) an SM resident, "
-                       f"{got['registers']} registers, {got['local_bytes']} "
-                       f"B local a thread; {sms} SMs")
-                check((got["blocks"], got["threads"], got["smem_bytes"])
-                      == (want.blocks, want.threads, want.smem_bytes)
-                      and (direction == "bwd" or got["ring"] == (
-                          want.boxes if direction == "fwd" else 4)),
-                      f"{key} plan {got} != {want}")
-                check(got["blocks_per_sm"] >= 1 and
-                      (direction == "dw" or
-                       got["blocks"] <= got["blocks_per_sm"] * sms),
-                      f"{key}: the grid cannot be co-resident")
-                check(rows != G.BF16_ROWS or got["local_bytes"] == 0,
-                      f"{key} spills: {got['local_bytes']} B local")
+        for direction, B in (("fwd", 64), ("bwd", 64), ("bwd", 70),
+                             ("dw", 64)):
+            got = G.k5_launch_plan(direction, H, B)
+            want = G.k5_plan(direction, H, True)
+            name = f"gru_{direction}_bf16"
+            key = f"{name} H={H} B={B}"
+            out[key] = got
+            report(f"  plan {key}: grid {got['blocks']} x {got['threads']} "
+                   f"threads, shared memory {got['smem_bytes']} B, ring "
+                   f"{got['ring']}, rows {got['rows']}, "
+                   f"{got['blocks_per_sm']} block(s) an SM resident, "
+                   f"{got['registers']} registers, {got['local_bytes']} B "
+                   f"local a thread; {sms} SMs")
+            check((got["blocks"], got["threads"], got["smem_bytes"],
+                   got["rows"]) == (want.blocks, want.threads,
+                                    want.smem_bytes, want.rows)
+                  and got["ring"] == {"fwd": want.boxes, "bwd": 16,
+                                      "dw": G.DW_STAGES}[direction],
+                  f"{key} plan {got} != {want}")
+            check(got["blocks_per_sm"] >= 1 and
+                  (direction == "dw" or
+                   got["blocks"] <= got["blocks_per_sm"] * sms),
+                  f"{key}: the grid cannot be co-resident")
+            check(got["local_bytes"] == 0,
+                  f"{key} spills: {got['local_bytes']} B local")
     return out
 
 
@@ -2570,9 +2566,7 @@ def time_fwd_timeline(dev, report):
     from mlvae_tpu_torch.tools import bench_fwd_timeline as ftl
     res = ftl.bench(dev)
     for r in res["rows"]:
-        report(f"  timeline {r['kernel']} H={r['H']} In={r['In']} B={r['B']}"
-               + (f" rows={r['rows_a_block']}" if "rows_a_block" in r
-                  else "") + ": "
+        report(f"  timeline {r['kernel']} H={r['H']} In={r['In']} B={r['B']}: "
                f"{r['ms']:.4f} ms ({r['us_a_step']:.2f} us a step), timing "
                f"build {r['ms_timing_build']:.4f}; us a step, median over "
                "blocks (min-max): " + ", ".join(
@@ -2603,9 +2597,7 @@ def time_bwd_timeline(dev, report):
                    for k, v in r["ablation"].items()))
     for r in [*res["lstm_bwd"], *res["lstm_bwd_wide_bf16"],
               *res["gru_bwd_bf16"]]:
-        report(f"  timeline {r['kernel']} H={r['H']} B={r['B']}"
-               + (f" rows={r['rows_a_block']}" if "rows_a_block" in r
-                  else "") + ": "
+        report(f"  timeline {r['kernel']} H={r['H']} B={r['B']}: "
                f"{r['ms']:.4f} ms ({r['us_a_step_total']:.2f} us a step), "
                f"timing build {r['ms_timing_build']:.4f}; us a step, median "
                "over blocks (min-max): " + ", ".join(
@@ -2852,11 +2844,11 @@ def gru_dw_bound(T, B, H):
                   BF16_PEAK)
 
 
-def kernel_split(fn):
+def kernel_split(fn, steps):
     """Device time (profiler, after one warm-up call) of the kernels one
-    call of ``fn`` launches: (all, those that are no matrix product: no
-    'gemm', 'xmma' or 'cutlass' in the name, i.e. cuDNN's recurrence
-    without its input and weight products), and the names."""
+    call of ``fn`` launches: (all of them, those launched at least
+    ``steps`` times in the call, i.e. once a step of a recurrence, and the
+    six longest as (name, launches, ms))."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2864,13 +2856,14 @@ def kernel_split(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [(ev.key, getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0)) / 1e3)
-            for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA]
-    gemm = ("gemm", "xmma", "cutlass")
-    rest = sum(ms for k, ms in rows if not any(w in k.lower() for w in gemm))
-    return sum(ms for _, ms in rows), rest, sorted(k for k, _ in rows)
+    rows = sorted(((getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0)) / 1e3,
+                    ev.count, ev.key) for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    return (sum(ms for ms, _, _ in rows),
+            sum(ms for ms, n, _ in rows if n >= steps),
+            [(k[:40], n, round(ms, 4)) for ms, n, k in rows[:6]])
 
 
 def time_gru(dev, report, errs, counts):
@@ -2881,10 +2874,10 @@ def time_gru(dev, report, errs, counts):
     projection; its forward+backward less its forward, which also forms
     dX and dW_ih); the bf16 builds in turns with cuDNN's bf16 layer
     (median and spread of each, microseconds a step, and cuDNN's kernels
-    alone, all and without its matrix products, from the profiler), in
-    turns with their other layout (``BF16_ROWS``), beside their plain
-    versions and bounds; and K5-bwd's dW_hh kernel alone beside one bf16
-    ``torch.matmul`` of its operands."""
+    alone from the profiler: all of them, and those launched every step,
+    its recurrence without its input, dX and weight products), beside
+    their plain versions and bounds; and K5-bwd's dW_hh kernel alone
+    beside one bf16 ``torch.matmul`` of its operands."""
     import torch
     from mlvae_tpu_torch import _build
     from mlvae_tpu_torch.ops import gru as G
@@ -2953,24 +2946,15 @@ def time_gru(dev, report, errs, counts):
         return cuda_ms(lambda: cudnn(xg)[0].backward(dy), iters, warmup=1) \
             - cuda_ms(lambda: cudnn(xg), iters, warmup=1)
 
-    def other_rows(fn):
-        def run(iters):
-            keep, G.BF16_ROWS = G.BF16_ROWS, 96 - G.BF16_ROWS
-            try:
-                return fn(iters)
-            finally:
-                G.BF16_ROWS = keep
-        return run
-
     with torch.no_grad():
-        all_f, rest_f, names_f = kernel_split(lambda: cudnn(x))
-    all_fb, rest_fb, names_b = kernel_split(
-        lambda: cudnn(xg)[0].backward(dy))
-    all_g, rest_g, _ = kernel_split(lambda: cudnn(xg))
-    cudnn_alone = {"gru_fwd_bf16": (all_f, rest_f),
-                   "gru_bwd_bf16": (all_fb - all_g, rest_fb - rest_g)}
-    report(f"  cuDNN bf16 GRU kernels: forward {names_f}; forward and "
-           f"backward {names_b}")
+        all_f, step_f, top_f = kernel_split(lambda: cudnn(x), T)
+    all_fb, step_fb, top_b = kernel_split(
+        lambda: cudnn(xg)[0].backward(dy), T)
+    all_g, step_g, _ = kernel_split(lambda: cudnn(xg), T)
+    cudnn_alone = {"gru_fwd_bf16": (all_f, step_f),
+                   "gru_bwd_bf16": (all_fb - all_g, step_fb - step_g)}
+    report(f"  cuDNN bf16 GRU kernels (name, launches, ms): forward "
+           f"{top_f}; forward and backward {top_b}")
     # K5-bwd's dW_hh kernel alone, on the plain BPTT's operands
     dgx, _, _, dgh = G.gru_layer_bwd_ref(gx, w, b, hs, hs32, dhs, False,
                                          with_dgh=True)
@@ -2985,7 +2969,6 @@ def time_gru(dev, report, errs, counts):
     ys = hs[:-1].reshape(-1, H)
     dw_lib = cuda_ms(lambda: torch.matmul(xs.t(), ys), iters=20)
     w_bound, w_by = gru_dw_bound(T, B, H)
-    other = 96 - G.BF16_ROWS
     for name, kern, yard, plain, (b_ms, b_by) in (
             ("gru_fwd_bf16", fwd, lib_fwd,
              cuda_ms(lambda: G.gru_layer_ref(gx, w, b, False), iters=3,
@@ -2995,11 +2978,8 @@ def time_gru(dev, report, errs, counts):
                                                  False), iters=2, warmup=1),
              gru_bwd_bound(T, B, H, True))):
         ks, ys_ = interleaved_ms(kern, yard, GRU_YARD_ROUNDS, iters=10)
-        ks2, os_ = interleaved_ms(kern, other_rows(kern), GRU_YARD_ROUNDS,
-                                  iters=10)
         km, ym = statistics.median(ks), statistics.median(ys_)
-        km2, om = statistics.median(ks2), statistics.median(os_)
-        alone, rest = cudnn_alone[name]
+        alone, per_step = cudnn_alone[name]
         row = dict(
             name=name, route="cuda", source=f"mlvae_tpu_torch/csrc/{name}.cu",
             replaces="mlvae_tpu/ops/gru_pallas.py:"
@@ -3008,26 +2988,21 @@ def time_gru(dev, report, errs, counts):
             us_a_step=km * 1e3 / T, plain_ms=plain, bound_ms=b_ms,
             bound_by=b_by, library_ms=ym, library_spread=[min(ys_), max(ys_)],
             factor=km / ym, cudnn_kernels_ms=alone,
-            cudnn_recurrence_ms=rest,
+            cudnn_per_step_ms=per_step,
             factor_kernels=km / alone if alone else None,
-            rows=G.BF16_ROWS, other_rows={
-                "rows": other, "ms": om, "spread": [min(os_), max(os_)],
-                "ms_in_turns": km2},
             shape="T=160 B=64 H=512 bf16", **counts[name])
         if name == "gru_bwd_bf16":
             row["recurrence_ms"] = km - dw_ms
         out.append(row)
         report(f"  {name} T={T} B={B} H={H}: {km:.4f} ms median "
                f"({min(ks):.4f}-{max(ks):.4f}; {km * 1e3 / T:.2f} us a "
-               f"step; rows a block {G.BF16_ROWS}); cuDNN bf16 GRU layer "
+               f"step); cuDNN bf16 GRU layer "
                + ("forward incl. input projection" if name == "gru_fwd_bf16"
                   else "forward+backward less forward, incl. dX and "
                   "dW_ih") + f", in turns, {ym:.4f} median ({min(ys_):.4f}-"
                f"{max(ys_):.4f}); factor {km / ym:.3f}; cuDNN's kernels "
-               f"alone {alone:.4f}, without its matrix products {rest:.4f} "
-               f"(profiler); in turns with {other} rows a block: "
-               f"{km2:.4f} against {om:.4f} ({min(os_):.4f}-{max(os_):.4f});"
-               f" plain {plain:.4f}; bound {b_ms:.4f} by {b_by}"
+               f"alone {alone:.4f}, those launched every step {per_step:.4f}"
+               f" (profiler); plain {plain:.4f}; bound {b_ms:.4f} by {b_by}"
                + (f"; its dW_hh kernel {dw_ms:.4f}, the recurrence alone "
                   f"{km - dw_ms:.4f}" if name == "gru_bwd_bf16" else ""))
     report(f"  gru_dw_bf16 H={H}: {dw_ms:.4f} ms (plain {dw_plain:.4f}, one "

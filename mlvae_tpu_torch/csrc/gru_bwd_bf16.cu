@@ -41,13 +41,13 @@
 // columns through a tensor map that ends at 2H, then dgn[t]), in 64-column
 // chunks through a ring of two buffers a warp (warp w takes chunks w, w +
 // 8, ...), and multiplies them by W_hh's columns of its 8 units, held in
-// registers as B fragments (the warp's chunks only): 3H x RB bf16 a block
-// a step, 96 KB at H=512 and RB=32. The warps' sums are added in warp
+// registers as B fragments (the warp's chunks only): 3H x 32 bf16 a block
+// a step, 96 KB at H=512. The warps' sums are added in warp
 // order, so the order is fixed. B > 64 runs the tiles in series with the
 // dh carry in dh_buf. db_hh: each cell thread sums its f32 dgh over the
-// steps, the block adds its rows in order at the end, and the SPLIT <= 2
-// blocks of a group of units add theirs to the zeroed db_hh by atomicAdd:
-// two addends onto zero give the same sum in either order.
+// steps, the block adds its rows in order at the end, and the two blocks
+// of a group of units add theirs to the zeroed db_hh by atomicAdd: two
+// addends onto zero give the same sum in either order.
 //
 // The dW_hh kernel: dW_hh (3H x H) = X^T Y, X = [dgx[..., :2H] | dgn] and
 // Y = hs, each viewed as ((T-1)*B) rows and shifted by a step (forward:
@@ -57,7 +57,12 @@
 // H=512), 64-row K chunks of both operands copied by the TMA (128-byte
 // swizzle, four stages), eight warps of 32 x 32 with mma.sync m16n8k16 on
 // fragments read by ldmatrix.trans, every sum in K order: no atomics,
-// repeated launches bit-equal.
+// repeated launches bit-equal. Keeping dW_hh in registers inside the
+// recurrence instead would put a product as large as the recompute's
+// between the arrival and the wait, where the recompute already fills
+// most of the barrier (1.10 of 1.76 us a step at gate 3's shape on an
+// H100), and about 48 registers on a kernel at 200; the kernel after the
+// recurrence takes 0.083 of K5-bwd's 0.788 ms (PERF.md section 6).
 #include "bwd_timeline.cuh"
 #include "gru_mma.cuh"
 
@@ -75,7 +80,7 @@ using namespace grubf;
 namespace {
 
 // The exchange's ring: chunks of BOX gate columns (one TMA box of RB
-// rows), XBUFS buffers a warp, so that a warp's next chunk is in flight
+// rows, 4 KB), XBUFS buffers a warp, so that a warp's next chunk is in flight
 // while it multiplies the last one; a warp takes at most XC chunks.
 constexpr int XBUFS = 2;
 constexpr int RING = WARPS * XBUFS;
@@ -91,22 +96,19 @@ __host__ __device__ inline int dgh_chunks(int H) {
 // The h_{t-1} tile, the ring, the K parts' sums (the exchange's dh sums
 // and the final db_hh sums reuse them), an mbarrier a box and a ring
 // buffer.
-template <int RB>
 size_t bwd_smem_bytes(int H) {
-  return (size_t)(n_boxes(H) + RING) *
-             (Layout<RB>::BOX_BYTES + sizeof(uint64_t)) +
-         Layout<RB>::SUMS_FLOAT2 * sizeof(float2);
+  return (size_t)(n_boxes(H) + RING) * (BOX_BYTES + sizeof(uint64_t)) +
+         PART_FLOAT2 * sizeof(float2);
 }
 
-// The cell thread's inputs of one step: gx of its units' three gates, the
+// The cell thread's inputs of one step: gx of its unit's three gates, the
 // f32 h_{t-1} and the cotangent of h_t from above.
-template <int NU>
 struct CellIn {
-  float gx[GATES][NU];
-  float h_prev[NU], dhs[NU];
+  float gx[GATES];
+  float h_prev, dhs;
 };
 
-template <int RB, bool ONE>
+template <bool ONE>
 __global__ void __launch_bounds__(THREADS, 1)
 gru_bwd_bf16_kernel(const bf16* __restrict__ gx,
                     const bf16* __restrict__ w_hh,
@@ -118,8 +120,6 @@ gru_bwd_bf16_kernel(const bf16* __restrict__ gx,
                     const __grid_constant__ CUtensorMap map_h,
                     const __grid_constant__ CUtensorMap map_g,
                     const __grid_constant__ CUtensorMap map_n TL_ARG) {
-  using L = Layout<RB>;
-  constexpr int NU = L::NU;
   extern __shared__ __align__(1024) float4 smem4[];
   const int nb = n_boxes(H);
   const int ncz = rz_chunks(H), nc = dgh_chunks(H);
@@ -127,23 +127,23 @@ gru_bwd_bf16_kernel(const bf16* __restrict__ gx,
   bf16* tile = reinterpret_cast<bf16*>(smem4);
   bf16* ring = tile + (size_t)nb * RB * BOX;
   float2* part = reinterpret_cast<float2*>(ring + (size_t)RING * RB * BOX);
-  uint64_t* hbar = reinterpret_cast<uint64_t*>(part + L::SUMS_FLOAT2);
+  uint64_t* hbar = reinterpret_cast<uint64_t*>(part + PART_FLOAT2);
   uint64_t* gbar = hbar + nb;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int nblk = gridDim.x;
-  const int u0 = (blockIdx.x / L::SPLIT) * UNITS;
-  const int r0 = (blockIdx.x % L::SPLIT) * RB;  // the block's rows of a tile
+  const int u0 = (blockIdx.x / SPLIT) * UNITS;
+  const int r0 = (blockIdx.x % SPLIT) * RB;  // the block's rows of a tile
   if (tid == 0) {
     if (smem_u32(tile) & 1023) __trap();  // the swizzle's 1024-byte atoms
     for (int i = 0; i < nb + RING; ++i) mbar_init(&hbar[i]);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   int lo, hi;
-  k_part<RB>(H, warp / L::MT, lo, hi);
-  uint32_t wf[L::KMAX][GATES][2];
-  load_w_frags<RB>(wf, w_hh, H, u0, lo, hi);
+  k_part(H, warp / MT, lo, hi);
+  uint32_t wf[KMAX][GATES][2];
+  load_w_frags(wf, w_hh, H, u0, lo, hi);
   // the exchange's B fragments: chunk c = warp + 8 ci of bf16(dgh), k-step
   // kk: xw = {b0, b1}, b0 = W_hh[col, col + 1][u0 + g] (two rows of the
   // unit's column), b1 8 rows on, col = the chunk's first gate column + 16
@@ -170,20 +170,18 @@ gru_bwd_bf16_kernel(const bf16* __restrict__ gx,
         xw[ci][kk][j] = v;
       }
   }
-  const int cb = cell_row<RB>();
-  const int cu = u0 + cell_unit<RB>();  // the cell thread's first unit
-  float bias[GATES][NU];
+  const int cb = cell_row();
+  const int cu = u0 + cell_unit();  // the cell thread's unit
+  float bias[GATES];
 #pragma unroll
-  for (int q = 0; q < GATES; ++q)
-#pragma unroll
-    for (int e = 0; e < NU; ++e) bias[q][e] = b_hh[q * H + cu + e];
+  for (int q = 0; q < GATES; ++q) bias[q] = b_hh[q * H + cu];
   __syncthreads();
 
   const int arow = (lane & 7) + 8 * ((lane >> 3) & 1);
   const int acol = 8 * (lane >> 4);
   unsigned int hstaged = 0;  // copies of h_{t-1}: the boxes' parity
   unsigned int gphase = 0;   // this warp's ring buffers' next parities
-  float db[GATES][NU] = {};  // the f32 dgh summed over the steps
+  float db[GATES] = {};      // the f32 dgh summed over the steps
   TL_CLOCK;
   auto mark = [&](int k) { TL_MARK(k ? TL_RECOMPUTE : TL_STAGE); };
   auto pos = [&](int s) { return reverse ? Tn - 1 - s : s; };
@@ -193,82 +191,70 @@ gru_bwd_bf16_kernel(const bf16* __restrict__ gx,
   // processed step); `issued`: its copies are in flight already. In the
   // one-tile schedule it issues the copies of step s - 1 once the tile is
   // free, and says so.
-  auto recompute = [&](int s, int i, float (&pre)[GATES][NU],
+  auto recompute = [&](int s, int i, float (&pre)[GATES],
                        bool issued) -> bool {
     if (s == 0) {
 #pragma unroll
-      for (int q = 0; q < GATES; ++q)
-#pragma unroll
-        for (int e = 0; e < NU; ++e) pre[q][e] = 0.0f;
+      for (int q = 0; q < GATES; ++q) pre[q] = 0.0f;
       return false;
     }
     const bool ahead = ONE && s >= 2;
     auto after = [&] {
       if (ahead && tid == 0)
-        stage_h<RB>(tile, &map_h, hbar, nb, prev_pos(s - 1), r0);
+        stage_h(tile, &map_h, hbar, nb, prev_pos(s - 1), r0);
     };
-    recurrent_product<RB>(pre, tile, part, hbar, &map_h, wf, lo, hi, nb,
-                          prev_pos(s), i * BT + r0, hstaged, mark, after,
-                          issued);
+    recurrent_product(pre, tile, part, hbar, &map_h, wf, lo, hi, nb,
+                      prev_pos(s), i * BT + r0, hstaged, mark, after, issued);
     return ahead;
   };
 
-  auto load_in = [&](int s, int i, CellIn<NU>& in) {
+  auto load_in = [&](int s, int i, CellIn& in) {
     const int b = i * BT + r0 + cb;
     if (b >= B) return;
     const size_t row = (size_t)pos(s) * B + b;
 #pragma unroll
     for (int q = 0; q < GATES; ++q)
-      load_bf(in.gx[q], gx + row * G + q * H + cu);
-    load_bf(in.dhs, dhs + row * H + cu);
-    if (s > 0) {
-      load_f32(in.h_prev, hs32 + ((size_t)prev_pos(s) * B + b) * H + cu);
-    } else {
-#pragma unroll
-      for (int e = 0; e < NU; ++e) in.h_prev[e] = 0.0f;
-    }
+      in.gx[q] = __bfloat162float(gx[row * G + q * H + cu]);
+    in.dhs = __bfloat162float(dhs[row * H + cu]);
+    in.h_prev =
+        s > 0 ? hs32[((size_t)prev_pos(s) * B + b) * H + cu] : 0.0f;
   };
 
   // the cell of step s, tile i: dgx[t] and dgn[t] from gh's recurrent part
-  // and the dh carry from the step above; the local term dh z of
-  // dh_{t-1} into dhz; db summed
-  auto cell = [&](int s, int i, const float (&pre)[GATES][NU],
-                  const CellIn<NU>& in, const float (&dh_c)[NU],
-                  float (&dhz)[NU]) {
+  // and the dh carry from the step above; returns the local term dh z of
+  // dh_{t-1}; db summed
+  auto cell = [&](int s, int i, const float (&pre)[GATES], const CellIn& in,
+                  float dh_c) -> float {
     const int b = i * BT + r0 + cb;
-    if (b >= B) return;
-    float dr[NU], dz[NU], dn[NU], dnr[NU];
-#pragma unroll
-    for (int e = 0; e < NU; ++e) {
-      const float hn = pre[2][e] + bias[2][e];
-      const float r = sigmoid_f(in.gx[0][e] + (pre[0][e] + bias[0][e]));
-      const float z = sigmoid_f(in.gx[1][e] + (pre[1][e] + bias[1][e]));
-      const float n = tanhf(in.gx[2][e] + r * hn);
-      const float dh = in.dhs[e] + dh_c[e];
-      dn[e] = dh * (1.0f - z) * (1.0f - n * n);
-      dr[e] = dn[e] * hn * r * (1.0f - r);
-      dz[e] = dh * (in.h_prev[e] - n) * z * (1.0f - z);
-      dnr[e] = dn[e] * r;
-      db[0][e] += dr[e];
-      db[1][e] += dz[e];
-      db[2][e] += dnr[e];
-      dhz[e] = dh * z;
-    }
+    if (b >= B) return 0.0f;
+    const float hn = pre[2] + bias[2];
+    const float r = sigmoid_f(in.gx[0] + (pre[0] + bias[0]));
+    const float z = sigmoid_f(in.gx[1] + (pre[1] + bias[1]));
+    const float n = tanhf(in.gx[2] + r * hn);
+    const float dh = in.dhs + dh_c;
+    const float dn = dh * (1.0f - z) * (1.0f - n * n);
+    const float dr = dn * hn * r * (1.0f - r);
+    const float dz = dh * (in.h_prev - n) * z * (1.0f - z);
+    const float dnr = dn * r;
+    db[0] += dr;
+    db[1] += dz;
+    db[2] += dnr;
     const size_t row = (size_t)pos(s) * B + b;
     bf16* dst = dgx + row * G + cu;
-    store_bf(dst, dr);
-    store_bf(dst + H, dz);
-    store_bf(dst + 2 * H, dn);
-    store_bf(dgn + row * H + cu, dnr);
+    dst[0] = __float2bfloat16_rn(dr);
+    dst[H] = __float2bfloat16_rn(dz);
+    dst[2 * H] = __float2bfloat16_rn(dn);
+    dgn[row * H + cu] = __float2bfloat16_rn(dnr);
+    return dh * z;
   };
 
   // dh_{t-1}'s exchange part for the cell thread's row of tile i and its
-  // units: rows [b0, b0 + RB) of bf16(dgh) of step s (every block's, in
+  // unit: rows [b0, b0 + RB) of bf16(dgh) of step s (every block's, in
   // L2) times W_hh's columns of this block's units, chunk c by warp c % 8
   // through its two ring buffers, then the warps' sums in warp order.
   // Ends after a block barrier; `part` stays taken until the caller's
   // next one.
-  auto dh_product = [&](int s, int i, float (&xs)[NU]) {
+  auto dh_product = [&](int s, int i) -> float {
     const int b0 = i * BT + r0;
     const int t = pos(s);
     bf16* bufs = ring + (size_t)warp * XBUFS * RB * BOX;
@@ -279,15 +265,15 @@ gru_bwd_bf16_kernel(const bf16* __restrict__ gx,
       const fused::Chunk ch =
           c < ncz ? fused::Chunk{&map_g, c * BOX, b0, t}
                   : fused::Chunk{&map_n, (c - ncz) * BOX, b0, t};
-      mbar_expect(&bars[slot], L::BOX_BYTES);
+      mbar_expect(&bars[slot], BOX_BYTES);
       fused::tma_half(bufs + (size_t)slot * RB * BOX, ch, 0, &bars[slot]);
     };
     if (lane == 0)
       for (int j = 0; j < XBUFS && warp + j * WARPS < nc; ++j)
         issue(warp + j * WARPS, j);
-    float acc[L::MT][4];
+    float acc[MT][4];
 #pragma unroll
-    for (int m = 0; m < L::MT; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][e] = 0.0f;
 #pragma unroll
@@ -302,7 +288,7 @@ gru_bwd_bf16_kernel(const bf16* __restrict__ gx,
 #pragma unroll
         for (int kk = 0; kk < KB; ++kk)
 #pragma unroll
-          for (int m = 0; m < L::MT; ++m) {
+          for (int m = 0; m < MT; ++m) {
             uint32_t a[4];
             fused::ldsm_x4(a, fused::swz_at<RB>(buf, 16 * m + arow,
                                                 16 * kk + acol));
@@ -317,41 +303,32 @@ gru_bwd_bf16_kernel(const bf16* __restrict__ gx,
     }
     // lane (g, t) of m-tile m holds rows 16 m + g (+ 8) at units 2t, 2t+1
 #pragma unroll
-    for (int m = 0; m < L::MT; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        part[((warp * L::MT + m) * 2 + h) * 32 + lane] =
+        part[((warp * MT + m) * 2 + h) * 32 + lane] =
             make_float2(acc[m][2 * h], acc[m][2 * h + 1]);
     __syncthreads();
-    const int mt = warp % L::MT, kp = warp / L::MT;
-    const int h = kp & 1, eo = L::KP == 4 ? kp >> 1 : 0;
+    const int mt = warp % MT, h = cell_half();
+    float xs = 0.0f;
 #pragma unroll
-    for (int e = 0; e < NU; ++e) xs[e] = 0.0f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float2 v = part[((w * L::MT + mt) * 2 + h) * 32 + lane];
-      if constexpr (NU == 2) {
-        xs[0] += v.x;
-        xs[1] += v.y;
-      } else {
-        xs[0] += eo ? v.y : v.x;
-      }
-    }
+    for (int w = 0; w < WARPS; ++w)
+      xs += cell_pick(part[((w * MT + mt) * 2 + h) * 32 + lane]);
     TL_MARK(TL_DH_PRODUCT);
+    return xs;
   };
 
   unsigned int arrivals = 0;
   if constexpr (ONE) {
     // one tile; the dh carry in registers
-    float dh_c[NU] = {};
-    float pre[GATES][NU];
-    CellIn<NU> in;
+    float dh_c = 0.0f;
+    float pre[GATES];
+    CellIn in;
     bool issued = recompute(Tn - 1, 0, pre, false);
     load_in(Tn - 1, 0, in);
     for (int s = Tn - 1;; --s) {
       TL_BEGIN();
-      float dhz[NU];
-      cell(s, 0, pre, in, dh_c, dhz);
+      const float dhz = cell(s, 0, pre, in, dh_c);
       if (s == 0) {
         TL_MARK(TL_CELL);
         TL_STORE(s);
@@ -371,10 +348,7 @@ gru_bwd_bf16_kernel(const bf16* __restrict__ gx,
       grid_wait(barrier, arrivals * nblk, 0, THREADS);
       TL_MARK(TL_WAIT);
       TL_WAITED();
-      float xs[NU];
-      dh_product(s, 0, xs);
-#pragma unroll
-      for (int e = 0; e < NU; ++e) dh_c[e] = dhz[e] + xs[e];
+      dh_c = dhz + dh_product(s, 0);
       TL_STORE(s);
     }
   } else {
@@ -385,16 +359,15 @@ gru_bwd_bf16_kernel(const bf16* __restrict__ gx,
       TL_BEGIN();
       for (int i = 0; i < ntiles; ++i) {
         __syncthreads();  // the tile and the sums are free again
-        float pre[GATES][NU];
-        CellIn<NU> in;
+        float pre[GATES];
+        CellIn in;
         recompute(s, i, pre, false);
         load_in(s, i, in);
         TL_MARK(TL_LOADS);
         const int b = i * BT + r0 + cb;
-        float dh_c[NU] = {}, dhz[NU];
-        if (b < B) load_f32(dh_c, dh_buf + (size_t)b * H + cu);
-        cell(s, i, pre, in, dh_c, dhz);
-        if (b < B) store_f32(dh_buf + (size_t)b * H + cu, dhz);
+        float* dh = dh_buf + (size_t)b * H + cu;
+        const float dhz = cell(s, i, pre, in, b < B ? *dh : 0.0f);
+        if (b < B) *dh = dhz;
         TL_MARK(TL_CELL);
       }
       if (s == 0) {
@@ -409,16 +382,9 @@ gru_bwd_bf16_kernel(const bf16* __restrict__ gx,
       TL_MARK(TL_WAIT);
       TL_WAITED();
       for (int i = 0; i < ntiles; ++i) {
-        float xs[NU];
-        dh_product(s, i, xs);
+        const float xs = dh_product(s, i);
         const int b = i * BT + r0 + cb;
-        if (b < B) {
-          float dh[NU];
-          load_f32(dh, dh_buf + (size_t)b * H + cu);
-#pragma unroll
-          for (int e = 0; e < NU; ++e) dh[e] += xs[e];
-          store_f32(dh_buf + (size_t)b * H + cu, dh);
-        }
+        if (b < B) dh_buf[(size_t)b * H + cu] += xs;
         __syncthreads();  // the dh sums and the ring are free again
       }
       TL_STORE(s);
@@ -430,9 +396,7 @@ gru_bwd_bf16_kernel(const bf16* __restrict__ gx,
   float* dbs = reinterpret_cast<float*>(part);  // [RB][GATES * UNITS]
 #pragma unroll
   for (int q = 0; q < GATES; ++q)
-#pragma unroll
-    for (int e = 0; e < NU; ++e)
-      dbs[cb * GATES * UNITS + q * UNITS + cu - u0 + e] = db[q][e];
+    dbs[cb * GATES * UNITS + q * UNITS + cu - u0] = db[q];
   __syncthreads();
   if (tid < GATES * UNITS) {
     float sum = 0.0f;
@@ -579,23 +543,11 @@ int plan_of(Kernel* kernel, size_t smem, int* out) {
   return cudaSuccess;
 }
 
-template <int RB>
-int bwd_plan(int H, int B, int* out) {
-  const int err = plan_of(B <= BT ? gru_bwd_bf16_kernel<RB, true>
-                                  : gru_bwd_bf16_kernel<RB, false>,
-                          bwd_smem_bytes<RB>(H), out);
-  out[0] = grid_blocks(H, RB);
-  out[4] = RING;
-  out[5] = RB;
-  return err;
-}
-
-template <int RB>
 cudaError_t launch_bwd(void** args, int H, int B, cudaStream_t stream) {
-  return launch_cooperative(B <= BT ? gru_bwd_bf16_kernel<RB, true>
-                                    : gru_bwd_bf16_kernel<RB, false>,
-                            grid_blocks(H, RB), THREADS, args,
-                            bwd_smem_bytes<RB>(H), stream);
+  return launch_cooperative(B <= BT ? gru_bwd_bf16_kernel<true>
+                                    : gru_bwd_bf16_kernel<false>,
+                            grid_blocks(H), THREADS, args, bwd_smem_bytes(H),
+                            stream);
 }
 
 }  // namespace
@@ -606,17 +558,21 @@ const char* mlvae_gru_bwd_bf16_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The recurrence's launch plan for H, B and `rows` a block (32 or 64):
-// out[0] blocks, [1] threads, [2] dynamic shared memory bytes, [3]
-// resident blocks an SM, [4] ring buffers of bf16(dgh) chunks, [5] rows a
-// block, [6] registers a thread, [7] local memory bytes a thread (spills),
-// of the build B takes (one tile: the split barrier; more: the tiles in
-// series). Returns a cudaError_t.
-int mlvae_gru_bwd_bf16_plan(int H, int B, int rows, int* out) {
+// The recurrence's launch plan for H, B: out[0] blocks, [1] threads, [2]
+// dynamic shared memory bytes, [3] resident blocks an SM, [4] ring
+// buffers of bf16(dgh) chunks, [5] rows of a batch tile a block, [6]
+// registers a thread, [7] local memory bytes a thread (spills), of the
+// build B takes (one tile: the split barrier; more: the tiles in series).
+// Returns a cudaError_t.
+int mlvae_gru_bwd_bf16_plan(int H, int B, int* out) {
   if (!takes(1, B, H)) return cudaErrorInvalidValue;
-  if (rows == 32) return bwd_plan<32>(H, B, out);
-  if (rows == 64) return bwd_plan<64>(H, B, out);
-  return cudaErrorInvalidValue;
+  const int err = plan_of(B <= BT ? gru_bwd_bf16_kernel<true>
+                                  : gru_bwd_bf16_kernel<false>,
+                          bwd_smem_bytes(H), out);
+  out[0] = grid_blocks(H);
+  out[4] = RING;
+  out[5] = RB;
+  return err;
 }
 
 // The dW_hh kernel's plan for H: out[0] blocks, [4] stages, [5] K rows a
@@ -635,7 +591,7 @@ int mlvae_gru_dw_bf16_plan(int H, int* out) {
 // element written), 16-byte aligned (the TMA reads them back), hs
 // likewise; db_hh (3H) f32 output, zeroed; dh_buf (B,H) zeroed f32
 // scratch (read by the tiles in series of B > 64 only); barrier one zeroed
-// counter; rows a block 32 or 64. H a multiple of 16 up to 528. dW_hh is
+// counter. H a multiple of 16 up to 528. dW_hh is
 // mlvae_gru_dw_bf16's, after this. Returns a cudaError_t. The timing build
 // (MLVAE_K1_BWD_TIMELINE) is mlvae_gru_bwd_bf16_timeline, which also takes
 // the (T, blocks, 10) u64 timeline before the stream.
@@ -646,20 +602,19 @@ int mlvae_gru_bwd_bf16(
 #endif
     const bf16* gx, const bf16* w_hh, const float* b_hh, const bf16* hs,
     const float* hs32, const bf16* dhs, bf16* dgx, bf16* dgn, float* db_hh,
-    float* dh_buf, unsigned int* barrier, int T, int B, int H, int reverse,
-    int rows TL_ARG, cudaStream_t stream) {
-  if (!takes(T, B, H) || (rows != 32 && rows != 64) ||
-      reinterpret_cast<uintptr_t>(hs) % 16 ||
+    float* dh_buf, unsigned int* barrier, int T, int B, int H,
+    int reverse TL_ARG, cudaStream_t stream) {
+  if (!takes(T, B, H) || reinterpret_cast<uintptr_t>(hs) % 16 ||
       reinterpret_cast<uintptr_t>(dgx) % 16 ||
       reinterpret_cast<uintptr_t>(dgn) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap map_h, map_g, map_n;
-  cudaError_t err = fused::tensor_map(&map_h, hs, H, H, B, T, rows);
+  cudaError_t err = fused::tensor_map(&map_h, hs, H, H, B, T, RB);
   // dgx's r and z columns only: the map ends at 2H of each 3H row
   if (err == cudaSuccess)
-    err = fused::tensor_map(&map_g, dgx, 2 * H, GATES * H, B, T, rows);
+    err = fused::tensor_map(&map_g, dgx, 2 * H, GATES * H, B, T, RB);
   if (err == cudaSuccess)
-    err = fused::tensor_map(&map_n, dgn, H, H, B, T, rows);
+    err = fused::tensor_map(&map_n, dgn, H, H, B, T, RB);
   if (err != cudaSuccess) return err;
   void* args[] = {(void*)&gx,     (void*)&w_hh,    (void*)&b_hh,
                   (void*)&hs32,   (void*)&dhs,     (void*)&dgx,
@@ -672,8 +627,7 @@ int mlvae_gru_bwd_bf16(
                   (void*)&timeline
 #endif
   };
-  return rows == 32 ? launch_bwd<32>(args, H, B, stream)
-                    : launch_bwd<64>(args, H, B, stream);
+  return launch_bwd(args, H, B, stream);
 }
 
 // dW_hh (3H,H) f32 output (every element written) = sum over the steps s

@@ -30,7 +30,7 @@
 // hs itself. The writers fence hs for the async proxy before the split
 // grid barrier's arrival; the next step's gx and h_{t-1} for the first
 // tile are loaded between the arrival and the wait. B > 64 runs the 64-row
-// tiles in series. Rows a block (RB): see k5_plan in ops/gru.py.
+// tiles in series.
 #include "fwd_timeline.cuh"
 #include "gru_mma.cuh"
 
@@ -39,21 +39,18 @@ using namespace grubf;
 namespace {
 
 // The h_{t-1} tile (its boxes), the K parts' sums, an mbarrier a box.
-template <int RB>
 size_t fwd_smem_bytes(int H) {
-  return (size_t)n_boxes(H) * (Layout<RB>::BOX_BYTES + sizeof(uint64_t)) +
+  return (size_t)n_boxes(H) * (BOX_BYTES + sizeof(uint64_t)) +
          PART_FLOAT2 * sizeof(float2);
 }
 
-// The cell thread's inputs of one step: gx of its units' three gates, and
-// their f32 h_{t-1}.
-template <int NU>
+// The cell thread's inputs of one step: gx of its unit's three gates, and
+// its f32 h_{t-1}.
 struct CellIn {
-  float gx[GATES][NU];
-  float h_prev[NU];
+  float gx[GATES];
+  float h_prev;
 };
 
-template <int RB>
 __global__ void __launch_bounds__(THREADS, 1)
 gru_fwd_bf16_kernel(const bf16* __restrict__ gx,
                     const bf16* __restrict__ w_hh,
@@ -61,8 +58,6 @@ gru_fwd_bf16_kernel(const bf16* __restrict__ gx,
                     unsigned int* barrier, int Tn, int B, int H, int reverse,
                     const __grid_constant__ CUtensorMap map_h
                         FWD_TIMELINE_ARG) {
-  using L = Layout<RB>;
-  constexpr int NU = L::NU;
   extern __shared__ __align__(1024) float4 smem4[];
   const int nb = n_boxes(H);
   bf16* tile = reinterpret_cast<bf16*>(smem4);
@@ -70,8 +65,8 @@ gru_fwd_bf16_kernel(const bf16* __restrict__ gx,
   uint64_t* bar = reinterpret_cast<uint64_t*>(part + PART_FLOAT2);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const int u0 = (blockIdx.x / L::SPLIT) * UNITS;
-  const int r0 = (blockIdx.x % L::SPLIT) * RB;  // the block's rows of a tile
+  const int u0 = (blockIdx.x / SPLIT) * UNITS;
+  const int r0 = (blockIdx.x % SPLIT) * RB;  // the block's rows of a tile
   const int G = GATES * H;
   if (tid == 0) {
     if (smem_u32(tile) & 1023) __trap();  // the swizzle's 1024-byte atoms
@@ -79,40 +74,34 @@ gru_fwd_bf16_kernel(const bf16* __restrict__ gx,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   int lo, hi;
-  k_part<RB>(H, warp / L::MT, lo, hi);
-  uint32_t wf[L::KMAX][GATES][2];
-  load_w_frags<RB>(wf, w_hh, H, u0, lo, hi);
-  const int cb = cell_row<RB>();
-  const int cu = u0 + cell_unit<RB>();  // the cell thread's first unit
-  float bias[GATES][NU];
+  k_part(H, warp / MT, lo, hi);
+  uint32_t wf[KMAX][GATES][2];
+  load_w_frags(wf, w_hh, H, u0, lo, hi);
+  const int cb = cell_row();
+  const int cu = u0 + cell_unit();  // the cell thread's unit
+  float bias[GATES];
 #pragma unroll
-  for (int q = 0; q < GATES; ++q)
-#pragma unroll
-    for (int e = 0; e < NU; ++e) bias[q][e] = b_hh[q * H + cu + e];
+  for (int q = 0; q < GATES; ++q) bias[q] = b_hh[q * H + cu];
   __syncthreads();
   const int ntiles = (B + BT - 1) / BT;
 
-  auto load_in = [&](int s, int i, CellIn<NU>& in) {
+  auto load_in = [&](int s, int i, CellIn& in) {
     const int t = reverse ? Tn - 1 - s : s;
     const int tp = reverse ? t + 1 : t - 1;
     const int b = i * BT + r0 + cb;
     if (b >= B) return;
+    const bf16* g = gx + ((size_t)t * B + b) * G + cu;
 #pragma unroll
     for (int q = 0; q < GATES; ++q)
-      load_bf(in.gx[q], gx + ((size_t)t * B + b) * G + q * H + cu);
+      in.gx[q] = __bfloat162float(g[(size_t)q * H]);
     // h_{t-1} was written by this same thread one step earlier
-    if (s > 0) {
-      load_f32(in.h_prev, hs32 + ((size_t)tp * B + b) * H + cu);
-    } else {
-#pragma unroll
-      for (int e = 0; e < NU; ++e) in.h_prev[e] = 0.0f;
-    }
+    in.h_prev = s > 0 ? hs32[((size_t)tp * B + b) * H + cu] : 0.0f;
   };
 
   FWD_CLOCK;
   auto mark = [&](int k) { FWD_MARK(k ? FWD_PRODUCT : FWD_STAGE); };
   auto nothing = [] {};
-  CellIn<NU> in0;
+  CellIn in0;
   load_in(0, 0, in0);
   unsigned int staged = 0, arrivals = 0;
   for (int s = 0; s < Tn; ++s) {
@@ -121,26 +110,21 @@ gru_fwd_bf16_kernel(const bf16* __restrict__ gx,
     const int tp = reverse ? t + 1 : t - 1;  // previous processed position
     for (int i = 0; i < ntiles; ++i) {
       const int b = i * BT + r0 + cb;
-      float pre[GATES][NU] = {};
+      float pre[GATES] = {};
       if (s > 0)
-        recurrent_product<RB>(pre, tile, part, bar, &map_h, wf, lo, hi, nb,
-                              tp, i * BT + r0, staged, mark, nothing);
-      CellIn<NU> in = in0;
+        recurrent_product(pre, tile, part, bar, &map_h, wf, lo, hi, nb, tp,
+                          i * BT + r0, staged, mark, nothing);
+      CellIn in = in0;
       if (i > 0) load_in(s, i, in);
       FWD_MARK(FWD_INPUT);
       if (b < B) {
-        float h[NU];
-#pragma unroll
-        for (int e = 0; e < NU; ++e) {
-          const float r = sigmoid_f(in.gx[0][e] + (pre[0][e] + bias[0][e]));
-          const float z = sigmoid_f(in.gx[1][e] + (pre[1][e] + bias[1][e]));
-          const float n =
-              tanhf(in.gx[2][e] + r * (pre[2][e] + bias[2][e]));
-          h[e] = (1.0f - z) * n + z * in.h_prev[e];
-        }
+        const float r = sigmoid_f(in.gx[0] + (pre[0] + bias[0]));
+        const float z = sigmoid_f(in.gx[1] + (pre[1] + bias[1]));
+        const float n = tanhf(in.gx[2] + r * (pre[2] + bias[2]));
+        const float h = (1.0f - z) * n + z * in.h_prev;
         const size_t o = ((size_t)t * B + b) * H + cu;
-        store_f32(hs32 + o, h);
-        store_bf(hs + o, h);
+        hs32[o] = h;
+        hs[o] = __float2bfloat16_rn(h);
       }
       FWD_MARK(FWD_CELL);
       if (i + 1 < ntiles) __syncthreads();  // the tile is free for copies
@@ -158,22 +142,35 @@ gru_fwd_bf16_kernel(const bf16* __restrict__ gx,
   }
 }
 
-template <int RB>
-int plan_of(int H, int* out) {
-  auto* kernel = gru_fwd_bf16_kernel<RB>;
-  const size_t smem = fwd_smem_bytes<RB>(H);
+}  // namespace
+
+extern "C" {
+
+const char* mlvae_gru_fwd_bf16_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The launch plan for H (B does not change it): out[0] blocks, [1]
+// threads, [2] dynamic shared memory bytes, [3] resident blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), [4] TMA boxes of the
+// h_{t-1} tile (one mbarrier each), [5] rows of a batch tile a block, [6]
+// registers a thread, [7] local memory bytes a thread (spills). Returns a
+// cudaError_t.
+int mlvae_gru_fwd_bf16_plan(int H, int* out) {
+  if (!takes(1, 1, H)) return cudaErrorInvalidValue;
+  const size_t smem = fwd_smem_bytes(H);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gru_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int occ = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &occ, gru_fwd_bf16_kernel, THREADS, smem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
+  err = cudaFuncGetAttributes(&attr, gru_fwd_bf16_kernel);
   if (err != cudaSuccess) return err;
-  out[0] = grid_blocks(H, RB);
+  out[0] = grid_blocks(H);
   out[1] = THREADS;
   out[2] = static_cast<int>(smem);
   out[3] = occ;
@@ -184,31 +181,10 @@ int plan_of(int H, int* out) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* mlvae_gru_fwd_bf16_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// The launch plan for H and `rows` a block (32 or 64; B does not change
-// it): out[0] blocks, [1] threads, [2] dynamic shared memory bytes, [3]
-// resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// [4] TMA boxes of the h_{t-1} tile (one mbarrier each), [5] rows a block,
-// [6] registers a thread, [7] local memory bytes a thread (spills).
-// Returns a cudaError_t.
-int mlvae_gru_fwd_bf16_plan(int H, int rows, int* out) {
-  if (!takes(1, 1, H)) return cudaErrorInvalidValue;
-  if (rows == 32) return plan_of<32>(H, out);
-  if (rows == 64) return plan_of<64>(H, out);
-  return cudaErrorInvalidValue;
-}
-
 // gx (T,B,3H) and w_hh (3H,H) bf16, b_hh (3H) f32 inputs; hs (T,B,H) bf16
 // and hs32 (T,B,H) f32 outputs, hs 16-byte aligned (the TMA reads it);
-// barrier one zeroed counter; rows a block 32 or 64. H a multiple of 16 up
-// to 528. Returns a cudaError_t. The timing build (MLVAE_FWD_TIMELINE) is
+// barrier one zeroed counter. H a multiple of 16 up to 528. Returns a
+// cudaError_t. The timing build (MLVAE_FWD_TIMELINE) is
 // mlvae_gru_fwd_bf16_timeline, which also takes the (T, blocks, 8) u64
 // timeline before the stream.
 #ifdef MLVAE_FWD_TIMELINE
@@ -217,13 +193,12 @@ int mlvae_gru_fwd_bf16_timeline(
 int mlvae_gru_fwd_bf16(
 #endif
     const bf16* gx, const bf16* w_hh, const float* b_hh, bf16* hs,
-    float* hs32, unsigned int* barrier, int T, int B, int H, int reverse,
-    int rows FWD_TIMELINE_ARG, cudaStream_t stream) {
-  if (!takes(T, B, H) || (rows != 32 && rows != 64) ||
-      reinterpret_cast<uintptr_t>(hs) % 16)
+    float* hs32, unsigned int* barrier, int T, int B, int H,
+    int reverse FWD_TIMELINE_ARG, cudaStream_t stream) {
+  if (!takes(T, B, H) || reinterpret_cast<uintptr_t>(hs) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap map_h;
-  const cudaError_t err = fused::tensor_map(&map_h, hs, H, H, B, T, rows);
+  const cudaError_t err = fused::tensor_map(&map_h, hs, H, H, B, T, RB);
   if (err != cudaSuccess) return err;
   void* args[] = {(void*)&gx, (void*)&w_hh,    (void*)&b_hh,
                   (void*)&hs, (void*)&hs32,    (void*)&barrier,
@@ -234,11 +209,8 @@ int mlvae_gru_fwd_bf16(
                   (void*)&timeline
 #endif
   };
-  if (rows == 32)
-    return launch_cooperative(gru_fwd_bf16_kernel<32>, grid_blocks(H, 32),
-                              THREADS, args, fwd_smem_bytes<32>(H), stream);
-  return launch_cooperative(gru_fwd_bf16_kernel<64>, grid_blocks(H, 64),
-                            THREADS, args, fwd_smem_bytes<64>(H), stream);
+  return launch_cooperative(gru_fwd_bf16_kernel, grid_blocks(H), THREADS,
+                            args, fwd_smem_bytes(H), stream);
 }
 
 }  // extern "C"

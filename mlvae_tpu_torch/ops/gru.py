@@ -49,10 +49,10 @@ GRU_BWD = _build.register(_build.Kernel(
     "gru_bwd", "gru_bwd", "mlvae_gru_bwd", [_P] * 11 + [_I] * 4 + [_P]))
 GRU_FWD_BF16 = _build.register(_build.Kernel(
     "gru_fwd_bf16", "gru_fwd_bf16", "mlvae_gru_fwd_bf16",
-    [_P] * 6 + [_I] * 5 + [_P]))
+    [_P] * 6 + [_I] * 4 + [_P]))
 GRU_BWD_BF16 = _build.register(_build.Kernel(
     "gru_bwd_bf16", "gru_bwd_bf16", "mlvae_gru_bwd_bf16",
-    [_P] * 11 + [_I] * 5 + [_P]))
+    [_P] * 11 + [_I] * 4 + [_P]))
 GRU_DW_BF16 = _build.register(_build.Kernel(
     "gru_dw_bf16", "gru_bwd_bf16", "mlvae_gru_dw_bf16",
     [_P] * 4 + [_I] * 4 + [_P]))
@@ -65,10 +65,8 @@ BOX = 64              # columns of a TMA box (bf16 builds)
 F32_UNITS = 4         # csrc/gru_common.cuh
 BF16_UNITS = 8        # csrc/gru_mma.cuh
 THREADS = 256
-# Rows of each 64-row batch tile a bf16 block takes (csrc/gru_mma.cuh: RB,
-# 32 or 64). 32 puts two blocks on each group of eight units, H/4 blocks
-# (128 at H=512): each block stages, multiplies and exchanges half the
-# rows, on twice the SMs.
+# Rows of each 64-row batch tile a bf16 block takes (csrc/gru_mma.cuh: RB):
+# two blocks on each group of eight units, H/4 blocks (128 at H=512)
 BF16_ROWS = 32
 XBUFS = 2             # the bf16 K5-bwd's ring buffers a warp
 DW_M, DW_N, DW_BK, DW_STAGES = 64, 128, 64, 4   # the dW_hh kernel's tiles
@@ -88,17 +86,14 @@ def _boxes(cols: int) -> int:
     return -(-cols // BOX)
 
 
-def k5_plan(direction: str, H: int, bf16: bool, rows: int = None
-            ) -> K5Plan:
+def k5_plan(direction: str, H: int, bf16: bool) -> K5Plan:
     """The build of K5 that runs ``direction`` ("fwd", "bwd", or on bf16
     streams "dw", K5-bwd's dW_hh kernel) at hidden width H, and its launch
     as the ``csrc`` code computes it. f32 streams: ``gru_fwd.cu`` /
     ``gru_bwd.cu``, H/4 blocks of four units. bf16 streams: the tensor-core
-    builds, H/8 groups of eight units with 64/rows blocks each. Every H
-    that is a multiple of 16 up to 528 runs in both dtypes (H/4 blocks
-    resident on an H100's 132 SMs); another H is refused. ``rows``: a
-    bf16 block's rows of a tile, ``BF16_ROWS`` unless given."""
-    rows = BF16_ROWS if rows is None else rows
+    builds, H/8 groups of eight units with two blocks of 32 rows each.
+    Every H that is a multiple of 16 up to 528 runs in both dtypes (H/4
+    blocks resident on an H100's 132 SMs); another H is refused."""
     if H < 16 or H % 16:
         raise ValueError(f"K5: H={H} must be a positive multiple of 16")
     if H > K5_MAX_H:
@@ -114,26 +109,21 @@ def k5_plan(direction: str, H: int, bf16: bool, rows: int = None
             else 4 * (3 * H * F32_UNITS + H * (BT + 4) + red
                       + 2 * BT * 3 * F32_UNITS)
         return K5Plan("f32", BT, H // F32_UNITS, THREADS, smem, 0)
-    if rows not in (32, 64):
-        raise ValueError(f"K5: a bf16 block takes 32 or 64 rows, not {rows}")
-    mt = rows // 16
-    box_bytes = rows * BOX * 2
+    box_bytes = BF16_ROWS * BOX * 2
     parts = 8 * 3 * 2 * 32 * 8           # the K parts' sums (float2s)
+    nb = _boxes(H)
     if direction == "fwd":
-        nb = _boxes(H)
         smem = nb * (box_bytes + 8) + parts
     elif direction == "bwd":
-        nb = _boxes(H)
-        sums = max(parts, 8 * mt * 2 * 32 * 8)
-        smem = (nb + 8 * XBUFS) * (box_bytes + 8) + sums
+        smem = (nb + 8 * XBUFS) * (box_bytes + 8) + parts
     elif direction == "dw":
         blocks = -(-H // DW_N) * (_boxes(2 * H) + _boxes(H))
         return K5Plan("bf16", DW_BK, blocks, THREADS,
                       DW_STAGES * (DW_BK * (DW_M + DW_N) * 2 + 8), 0)
     else:
         raise ValueError(f"K5: no direction {direction!r}")
-    return K5Plan("bf16", rows, H // BF16_UNITS * (BT // rows), THREADS,
-                  smem, nb)
+    return K5Plan("bf16", BF16_ROWS, H // BF16_UNITS * (BT // BF16_ROWS),
+                  THREADS, smem, nb)
 
 _STREAMS = (torch.float32, torch.bfloat16)
 
@@ -290,7 +280,7 @@ def gru_layer_fwd(gx: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
         # the next step stages h_{t-1} from hs itself (TMA, 16-byte base)
         GRU_FWD_BF16(gx.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
                      hs.data_ptr(), hs32.data_ptr(), barrier.data_ptr(), T,
-                     B, H, int(reverse), plan.rows, stream)
+                     B, H, int(reverse), stream)
     else:
         # h ping-pong buffer (h_0 = 0)
         hbuf = torch.zeros((2, H, B), device=gx.device, dtype=torch.float32)
@@ -344,7 +334,7 @@ def gru_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                      hs.data_ptr(), hs32.data_ptr(), dhs.data_ptr(),
                      dgx.data_ptr(), dgn.data_ptr(), db.data_ptr(),
                      dh_buf.data_ptr(), barrier.data_ptr(), T, B, H,
-                     int(reverse), plan.rows, stream)
+                     int(reverse), stream)
         if T > 1:
             GRU_DW_BF16(dgx.data_ptr(), dgn.data_ptr(), hs.data_ptr(),
                         dw.data_ptr(), T, B, H, int(reverse), stream)
@@ -360,20 +350,17 @@ def gru_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     return dgx, dw, db
 
 
-def k5_launch_plan(direction: str, H: int, B: int, rows: int = None
-                   ) -> dict:
+def k5_launch_plan(direction: str, H: int, B: int) -> dict:
     """What a bf16 build of ``direction`` ("fwd", "bwd", "dw") computes for
-    its launch at H, B and ``rows`` a block (``BF16_ROWS`` unless given;
-    its ``*_plan`` entry point): blocks, threads,
+    its launch at H, B (its ``*_plan`` entry point): blocks, threads,
     shared memory bytes, resident blocks an SM, boxes (fwd) / ring buffers
     (bwd) / stages (dw), rows a block / K rows a stage, registers and local
     memory bytes a thread. Builds the library; needs the card. Not a
     launch: it counts nowhere."""
-    rows = BF16_ROWS if rows is None else rows
     kernel = {"fwd": GRU_FWD_BF16, "bwd": GRU_BWD_BF16,
               "dw": GRU_DW_BF16}[direction]
     fn = getattr(_build.library(kernel.source), f"{kernel.symbol}_plan")
-    args = {"fwd": (H, rows), "bwd": (H, B, rows), "dw": (H,)}[direction]
+    args = {"fwd": (H,), "bwd": (H, B), "dw": (H,)}[direction]
     fn.argtypes = [_I] * len(args) + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 8)()

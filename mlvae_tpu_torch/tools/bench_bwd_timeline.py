@@ -52,9 +52,8 @@ K5-bwd on bf16 streams (``csrc/gru_bwd_bf16.cu``) has a timing build of
 its recurrence with the same define, slots and phases (``WIDE_PHASES``;
 ``dh_stage`` and ``dh_product`` are its exchange of bf16(dgh)), a (T,
 blocks, 10) buffer, at T=160, H=512, B=64 (gate 3's AMP shape) on the
-trajectory of the bf16 K5-fwd, with 32 and with 64 rows a block
-(``ops.gru.BF16_ROWS``; ``rows_a_block``); its dgx and db_hh must be
-bit-equal to the normal build's at the same rows.
+trajectory of the bf16 K5-fwd; its dgx and db_hh must be bit-equal to
+the normal build's.
 
 It prints one JSON line naming the card and its power limit, and exits
 non-zero when an output differs. It needs the card and raises without
@@ -108,7 +107,7 @@ _ARGS = {"lstm_fused_bwd": [_P] * 15 + [_I] * 5 + [_P, _P],
          "lstm_semi_bwd": [_P] * 12 + [_I] * 5 + [_P, _P]}
 _K1_ARGS = [_P] * 11 + [_I] * 4 + [_P, _P]
 _WIDE_ARGS = [_P] * 9 + [_I] * 4 + [_P, _P]
-_GRU_ARGS = [_P] * 11 + [_I] * 5 + [_P, _P]
+_GRU_ARGS = [_P] * 11 + [_I] * 4 + [_P, _P]
 
 
 def _timed(name: str, rows: Optional[int] = None) -> _build.Kernel:
@@ -309,16 +308,16 @@ def gru_problem(dev, B: int, seed: int = 0):
     return gx, w, b, hs, hs32, dhs
 
 
-def timed_gru(prob, rows: int, reverse: bool = False):
-    """K5-bwd's bf16 timing build (the recurrence) on ``prob`` at ``rows``
-    a block: ((dgx, db_hh), as ``gru_layer_bwd``'s, and the (T, blocks,
-    10) int64 timeline)."""
+def timed_gru(prob, reverse: bool = False):
+    """K5-bwd's bf16 timing build (the recurrence) on ``prob``: ((dgx,
+    db_hh), as ``gru_layer_bwd``'s, and the (T, blocks, 10) int64
+    timeline)."""
     gx, w, b, hs, hs32, dhs = prob
     Tn, B, G3 = gx.shape
     Hn = G3 // 3
     dev = gx.device
-    tl = torch.zeros((Tn, G.k5_plan("bwd", Hn, True, rows).blocks,
-                      K1_SLOTS), device=dev, dtype=torch.int64)
+    tl = torch.zeros((Tn, G.k5_plan("bwd", Hn, True).blocks, K1_SLOTS),
+                     device=dev, dtype=torch.int64)
     dgx = torch.empty_like(gx)
     dgn = torch.empty_like(hs)
     db = torch.zeros((G3,), device=dev, dtype=torch.float32)
@@ -328,26 +327,24 @@ def timed_gru(prob, rows: int, reverse: bool = False):
         gx.data_ptr(), w.data_ptr(), b.data_ptr(), hs.data_ptr(),
         hs32.data_ptr(), dhs.data_ptr(), dgx.data_ptr(), dgn.data_ptr(),
         db.data_ptr(), dh_buf.data_ptr(), barrier.data_ptr(), Tn, B, Hn,
-        int(reverse), rows, tl.data_ptr(), _build.stream_handle(dev))
+        int(reverse), tl.data_ptr(), _build.stream_handle(dev))
     return (dgx, db), tl
 
 
 def gru_rows(dev, iters: int):
     rows = []
-    for B, r in ftl.GRU_CASES:
+    for B in ftl.GRU_BATCHES:
         prob = gru_problem(dev, B)
-        want = ftl.with_rows(r, lambda: G.gru_layer_bwd(*prob))
-        got, tl = timed_gru(prob, r)
+        want = G.gru_layer_bwd(*prob)
+        got, tl = timed_gru(prob)
         torch.cuda.synchronize()
-        ms = ftl.with_rows(r, lambda: cuda_ms(
-            lambda: G.gru_layer_bwd(*prob), iters))
+        ms = cuda_ms(lambda: G.gru_layer_bwd(*prob), iters)
         rows.append({
             "kernel": "gru_bwd_bf16", "B": B, "T": T, "H": ftl.GRU_H,
-            "rows_a_block": r,
             "bit_equal_to_normal_build": (torch.equal(got[0], want[0])
                                           and torch.equal(got[1], want[2])),
             "ms": ms, "us_a_step_total": ms * 1e3 / T,
-            "ms_timing_build": cuda_ms(lambda: timed_gru(prob, r), iters),
+            "ms_timing_build": cuda_ms(lambda: timed_gru(prob), iters),
             "us_a_step": ftl.phase_split(tl.cpu(), WIDE_PHASES)})
     return rows
 

@@ -13,8 +13,7 @@ over the step's batch tiles into a (T, blocks, 8) buffer
 (``csrc/fwd_timeline.cuh``). For K1-fwd at B=64 and 128 (f32) and
 K3/K4-fwd at In=128, 512 and 1024 and B=64 and 256 (bf16), H=512, and the
 wide K1-fwd on bf16 streams at H=1024, B=64 (LSTM_FC's AMP shape), and
-K5-fwd on bf16 streams at H=512, B=64 (gate 3's AMP shape) with 32 and
-with 64 rows a block (``ops.gru.BF16_ROWS``; ``rows_a_block``), T=160,
+K5-fwd on bf16 streams at H=512, B=64 (gate 3's AMP shape), T=160,
 inputs from a generator seeded 0 at the recipe layers' scales, it
 prints each phase's microseconds a step: each block's mean over the steps,
 then the min, median and max over the blocks. The phases, on the chain of
@@ -68,9 +67,9 @@ _I = ctypes.c_int
 _ARGS = {"lstm_fwd": [_P] * 6 + [_I] * 4 + [_P, _P],
          "lstm_fused_fwd": [_P] * 7 + [_I] * 5 + [_P, _P],
          "lstm_fwd_wide_bf16": [_P] * 5 + [_I] * 4 + [_P, _P],
-         "gru_fwd_bf16": [_P] * 6 + [_I] * 5 + [_P, _P]}
+         "gru_fwd_bf16": [_P] * 6 + [_I] * 4 + [_P, _P]}
 GRU_H = 512           # K5-fwd's shape: gate 3's layers
-GRU_CASES = ((64, 32), (64, 64))   # (B, rows a block)
+GRU_BATCHES = (64,)
 
 # Not registered: their launches count on no path.
 TIMED = {name: _build.Kernel(f"{name}_timeline", f"{name}_timeline",
@@ -251,51 +250,40 @@ def gru_problem(dev, B: int, seed: int = 0):
     return gx, w, b
 
 
-def with_rows(rows: int, fn):
-    """``fn()`` with the bf16 K5 builds launched at ``rows`` a block."""
-    keep, G.BF16_ROWS = G.BF16_ROWS, rows
-    try:
-        return fn()
-    finally:
-        G.BF16_ROWS = keep
-
-
-def timed_gru(prob, rows: int, reverse: bool = False):
-    """K5-fwd's bf16 timing build on ``prob`` at ``rows`` a block: ((hs,
-    hs32), as ``gru_layer_fwd``'s, and the (T, blocks, 8) int64
-    timeline)."""
+def timed_gru(prob, reverse: bool = False):
+    """K5-fwd's bf16 timing build on ``prob``: ((hs, hs32), as
+    ``gru_layer_fwd``'s, and the (T, blocks, 8) int64 timeline)."""
     gx, w, b = prob
     Tn, B, G3 = gx.shape
     Hn = G3 // 3
     dev = gx.device
-    tl = torch.zeros((Tn, G.k5_plan("fwd", Hn, True, rows).blocks, SLOTS),
+    tl = torch.zeros((Tn, G.k5_plan("fwd", Hn, True).blocks, SLOTS),
                      device=dev, dtype=torch.int64)
     hs = torch.empty((Tn, B, Hn), device=dev, dtype=gx.dtype)
     hs32 = torch.empty((Tn, B, Hn), device=dev, dtype=torch.float32)
     barrier = torch.zeros((1,), device=dev, dtype=torch.int32)
     TIMED["gru_fwd_bf16"](gx.data_ptr(), w.data_ptr(), b.data_ptr(),
                           hs.data_ptr(), hs32.data_ptr(), barrier.data_ptr(),
-                          Tn, B, Hn, int(reverse), rows, tl.data_ptr(),
+                          Tn, B, Hn, int(reverse), tl.data_ptr(),
                           _build.stream_handle(dev))
     return (hs, hs32), tl
 
 
 def gru_rows(dev, iters: int):
     rows = []
-    for B, r in GRU_CASES:
+    for B in GRU_BATCHES:
         prob = gru_problem(dev, B)
-        want = with_rows(r, lambda: G.gru_layer_fwd(*prob))
-        got, tl = timed_gru(prob, r)
+        want = G.gru_layer_fwd(*prob)
+        got, tl = timed_gru(prob)
         torch.cuda.synchronize()
-        ms = with_rows(r, lambda: cuda_ms(lambda: G.gru_layer_fwd(*prob),
-                                          iters))
+        ms = cuda_ms(lambda: G.gru_layer_fwd(*prob), iters)
         rows.append({
             "kernel": "gru_fwd_bf16", "In": None, "B": B, "T": T,
-            "H": GRU_H, "rows_a_block": r,
+            "H": GRU_H,
             "bit_equal_to_normal_build": all(
                 torch.equal(a, c) for a, c in zip(got, want)),
             "ms": ms, "us_a_step": ms * 1e3 / T,
-            "ms_timing_build": cuda_ms(lambda: timed_gru(prob, r), iters),
+            "ms_timing_build": cuda_ms(lambda: timed_gru(prob), iters),
             "phases_us_a_step": phase_split(tl.cpu())})
     return rows
 

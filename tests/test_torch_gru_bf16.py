@@ -115,16 +115,14 @@ def test_shared_pieces_are_included_not_copied():
 def test_plan_takes_every_h_the_parent_took(H):
     f32 = [G.k5_plan(d, H, False) for d in ("fwd", "bwd")]
     assert all(p.build == "f32" and p.blocks == H // 4 for p in f32)
-    for rows in (32, 64):
-        fwd, bwd = (G.k5_plan(d, H, True, rows) for d in ("fwd", "bwd"))
-        for plan in (fwd, bwd):
-            assert plan.build == "bf16" and plan.rows == rows
-            assert plan.blocks == H // 8 * (64 // rows) <= G.SMS
-            assert plan.threads == 256
-            assert 0 < plan.smem_bytes <= G.SMEM_LIMIT, plan
-            assert plan.boxes == -(-H // 64)
-    # the picked layout has the parent's grid, H/4 blocks
-    assert G.k5_plan("fwd", H, True).blocks == H // 4
+    for plan in (G.k5_plan(d, H, True) for d in ("fwd", "bwd")):
+        # two blocks of 32 rows on each group of eight units: the parent's
+        # grid, H/4 blocks
+        assert plan.build == "bf16" and plan.rows == 32
+        assert plan.blocks == H // 8 * 2 == H // 4 <= G.SMS
+        assert plan.threads == 256
+        assert 0 < plan.smem_bytes <= G.SMEM_LIMIT, plan
+        assert plan.boxes == -(-H // 64)
     dw = G.k5_plan("dw", H, True)
     assert dw.blocks == -(-H // 128) * (-(-2 * H // 64) - (-H // 64))
     assert 2 * dw.smem_bytes <= G.SMEM_LIMIT       # two blocks an SM
@@ -142,30 +140,28 @@ def test_plan_refuses_what_no_build_takes(H, error, bf16):
         G.k5_plan("bwd", H, bf16)
 
 
-def test_plan_refuses_unknown_directions_and_layouts():
+def test_plan_refuses_unknown_directions():
     with pytest.raises(ValueError):
         G.k5_plan("dw", 512, False)        # the f32 backward forms dW_hh
-    with pytest.raises(ValueError):
-        G.k5_plan("fwd", 512, True, rows=16)
     with pytest.raises(ValueError):
         G.k5_plan("up", 512, True)
 
 
-@pytest.mark.parametrize("H, rows, fwd, bwd", [
-    (512, 32, 45120, 110784), (512, 64, 77888, 213184),
-    (208, 32, 28704, 94368), (528, 64, 86088, 221384)])
-def test_bf16_shared_memory(H, rows, fwd, bwd):
-    # K5-fwd: the h_{t-1} tile (64-column boxes of `rows` rows), an
-    # mbarrier a box, the K parts' sums (8 warps x 3 gates x 2 row halves
-    # x 32 lanes of float2). K5-bwd: the tile and the ring of sixteen
-    # boxes, an mbarrier each, and the sums (the exchange's, 8 warps x
-    # rows/16 m-tiles x 2 x 32 float2, where they are larger)
-    nb, box = -(-H // 64), rows * 64 * 2
+@pytest.mark.parametrize("H, fwd, bwd", [(512, 45120, 110784),
+                                         (208, 28704, 94368),
+                                         (528, 49224, 114888)])
+def test_bf16_shared_memory(H, fwd, bwd):
+    # K5-fwd: the h_{t-1} tile (64-column boxes of 32 rows), an mbarrier a
+    # box, the K parts' sums (8 warps x 3 gates x 2 row halves x 32 lanes
+    # of float2). K5-bwd: the tile and the ring of sixteen boxes, an
+    # mbarrier each, and the sums, which the exchange's (8 warps x 2
+    # m-tiles x 2 x 32 float2) reuse
+    nb, box = -(-H // 64), 32 * 64 * 2
     parts = 8 * 3 * 2 * 32 * 8
-    assert G.k5_plan("fwd", H, True, rows).smem_bytes == fwd \
+    assert G.k5_plan("fwd", H, True).smem_bytes == fwd \
         == nb * (box + 8) + parts
-    assert G.k5_plan("bwd", H, True, rows).smem_bytes == bwd \
-        == (nb + 16) * (box + 8) + max(parts, 8 * rows // 16 * 2 * 32 * 8)
+    assert G.k5_plan("bwd", H, True).smem_bytes == bwd \
+        == (nb + 16) * (box + 8) + parts
 
 
 def test_plan_constants_are_the_kernels():
@@ -183,7 +179,7 @@ def test_plan_constants_are_the_kernels():
             int(_constant("gru_bwd_bf16.cu", "DW_BK")),
             int(_constant("gru_bwd_bf16.cu", "DW_STAGES"))) == (
         G.DW_N, G.DW_BK, G.DW_STAGES)
-    assert G.BF16_ROWS in (32, 64)
+    assert int(_constant("gru_mma.cuh", "RB")) == G.BF16_ROWS == 32
 
 
 # ---------------------------------------------------------------------------
@@ -229,13 +225,13 @@ def test_bf16_layers_take_the_new_builds(recorded, H, T):
     assert dw.dtype == db.dtype == torch.float32
     # the recurrence, then dW_hh over its dgx and dgn, which a T=1 layer
     # (whose only step has h_{t-1} = 0) does without
-    want = [("gru_fwd_bf16", 12), ("gru_bwd_bf16", 17)]
+    want = [("gru_fwd_bf16", 11), ("gru_bwd_bf16", 16)]
     if T > 1:
         want.append(("gru_dw_bf16", 9))
     assert [(n, len(a)) for n, a in recorded] == want
-    # T, B, H, reverse and the picked rows a block
-    assert recorded[0][1][6:11] == (T, 70, H, 0, G.BF16_ROWS)
-    assert recorded[1][1][11:16] == (T, 70, H, 0, G.BF16_ROWS)
+    # T, B, H, reverse
+    assert recorded[0][1][6:10] == (T, 70, H, 0)
+    assert recorded[1][1][11:15] == (T, 70, H, 0)
     assert G.GRU_FWD_BF16.launches == G.GRU_BWD_BF16.launches == 1
     assert G.GRU_DW_BF16.launches == (T > 1)
     assert G.GRU_FWD.launches == G.GRU_BWD.launches == 0
@@ -274,7 +270,6 @@ def test_timing_builds_bind_the_new_sources():
     assert _build.timeline_define(fwd.source) == _build.FWD_TIMELINE_DEFINE
     assert _build.timeline_define(bwd.source) == \
         _build.K1_BWD_TIMELINE_DEFINE
-    assert {r for _, r in ftl.GRU_CASES} == {32, 64}
 
 
 # ---------------------------------------------------------------------------
