@@ -2236,13 +2236,14 @@ def lstm_bwd_bound(T, B, H, bf16=False):
     return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
 
 
-def dw_bound(T, B, H):
-    """The bf16 K1-bwd's dW_hh kernel: 2·4H·H·(T-1)B at the bf16
-    tensor-core peak, against dgx and hs (shifted, bf16) read and dW_hh
-    (f32) written once."""
+def dw_bound(T, B, H, gates=4):
+    """The dW_hh kernel after a bf16 recurrence (K1-bwd's, or with
+    ``gates=3`` K5-bwd's): 2·gates·H·H·(T-1)B at the bf16 tensor-core
+    peak, against its operands (the dgates, shifted, and hs, bf16) read and
+    dW_hh (f32) written once."""
     K = (T - 1) * B
-    return _bound(2.0 * 4 * H * H * K, 2.0 * K * 5 * H + 4.0 * 4 * H * H,
-                  BF16_PEAK)
+    return _bound(2.0 * gates * H * H * K,
+                  2.0 * K * (gates + 1) * H + 4.0 * gates * H * H, BF16_PEAK)
 
 
 def _bound(flops, nbytes, peak):
@@ -2421,9 +2422,11 @@ def interleaved_ms(kernel, yard, rounds, iters):
     return ks, ys
 
 
-def kernel_ms(fn) -> float:
-    """Device time of the CUDA kernels one call of ``fn`` launches, summed
-    (torch.profiler), after one warm-up call."""
+def kernel_split(fn, steps):
+    """Device time (profiler, after one warm-up call) of the kernels one
+    call of ``fn`` launches: (all of them, those launched at least
+    ``steps`` times in the call, i.e. once a step of a recurrence, and the
+    six longest as (name, launches, ms))."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2431,10 +2434,20 @@ def kernel_ms(fn) -> float:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0))
-               for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    rows = sorted(((getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0)) / 1e3,
+                    ev.count, ev.key) for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    return (sum(ms for ms, _, _ in rows),
+            sum(ms for ms, n, _ in rows if n >= steps),
+            [(k[:40], n, round(ms, 4)) for ms, n, k in rows[:6]])
+
+
+def kernel_ms(fn) -> float:
+    """Device time of the CUDA kernels one call of ``fn`` launches, summed
+    (torch.profiler), after one warm-up call."""
+    return kernel_split(fn, 1)[0]
 
 
 def time_fused_bwd(dev, report, T=160, H=512, cases=BWD_YARD_CASES,
@@ -2835,37 +2848,6 @@ def gru_bwd_bound(T, B, H, bf16):
     return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
 
 
-def gru_dw_bound(T, B, H):
-    """K5-bwd's bf16 dW_hh kernel: 2 (T-1) B 3H H operations at the bf16
-    tensor-core peak, against bf16(dgh) and hs read and dW_hh (f32) written
-    once."""
-    K = (T - 1) * B
-    return _bound(2.0 * K * 3 * H * H, 2.0 * K * 4 * H + 4.0 * 3 * H * H,
-                  BF16_PEAK)
-
-
-def kernel_split(fn, steps):
-    """Device time (profiler, after one warm-up call) of the kernels one
-    call of ``fn`` launches: (all of them, those launched at least
-    ``steps`` times in the call, i.e. once a step of a recurrence, and the
-    six longest as (name, launches, ms))."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = sorted(((getattr(ev, "self_device_time_total",
-                            getattr(ev, "self_cuda_time_total", 0)) / 1e3,
-                    ev.count, ev.key) for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA),
-                  reverse=True)
-    return (sum(ms for ms, _, _ in rows),
-            sum(ms for ms, n, _ in rows if n >= steps),
-            [(k[:40], n, round(ms, 4)) for ms, n, k in rows[:6]])
-
-
 def time_gru(dev, report, errs, counts):
     """K5-fwd and K5-bwd at the gate-3 shape (T=160, B=64, H=512): the f32
     builds beside their plain versions, bounds and cuDNN's f32 one-layer
@@ -2968,7 +2950,7 @@ def time_gru(dev, report, errs, counts):
     xs = torch.cat([dgx[1:, :, :2 * H], dgn[1:]], dim=2).reshape(-1, 3 * H)
     ys = hs[:-1].reshape(-1, H)
     dw_lib = cuda_ms(lambda: torch.matmul(xs.t(), ys), iters=20)
-    w_bound, w_by = gru_dw_bound(T, B, H)
+    w_bound, w_by = dw_bound(T, B, H, gates=3)
     for name, kern, yard, plain, (b_ms, b_by) in (
             ("gru_fwd_bf16", fwd, lib_fwd,
              cuda_ms(lambda: G.gru_layer_ref(gx, w, b, False), iters=3,
