@@ -40,7 +40,16 @@
 // its own four units, through __ldcg in a fixed order, onto the dh z term.
 // Shared memory is 178 KB at H=512; the H/4 blocks must all be resident,
 // which limits H to 528 on an H100 (132 SMs).
+#include "bwd_timeline.cuh"
 #include "gru_common.cuh"
+
+// The step timeline (bwd_timeline.cuh, only with -DMLVAE_K1_BWD_TIMELINE):
+// slot 5 partial_dw (db_hh, the split-K share of dh_{t-1} and dW), 7
+// reduce (dh_{t-1} from the shares). Stage is the copy of h_{t-1} into
+// shared memory, wait the whole grid barrier.
+#ifdef MLVAE_K1_BWD_TIMELINE
+enum { TL_PARTIAL_DW = 5, TL_REDUCE = 7 };
+#endif
 
 using namespace gru;
 
@@ -111,7 +120,8 @@ gru_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
                const float* __restrict__ dhs,
                float* __restrict__ dgx, float* __restrict__ dw_hh,
                float* __restrict__ db_hh, float* part, float* dh_buf,
-               unsigned int* barrier, int T, int B, int H, int reverse) {
+               unsigned int* barrier, int T, int B, int H,
+               int reverse TL_ARG) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
   float* x_s = w_s + (size_t)GATES * H * UNITS;
@@ -166,8 +176,10 @@ gru_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
     }
   }
 
+  TL_CLOCK;
   unsigned int barriers = 0;
   for (int s = T - 1; s >= 0; --s) {  // processing steps, walked backward
+    TL_BEGIN();
     const int t = reverse ? T - 1 - s : s;
     const int tp = reverse ? t + 1 : t - 1;  // previous processed position
     const bool first = s == 0;               // h_{t-1} = 0
@@ -179,6 +191,7 @@ gru_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
       if (!first) {
         stage_transposed(x_s, hs + ((size_t)tp * B + b0) * H, H, nb);
         __syncthreads();
+        TL_MARK(TL_STAGE);
         if (prod) {
           float acc[4][UNITS];
 #pragma unroll
@@ -207,6 +220,7 @@ gru_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
                     j] = acc[r][j];
         }
         __syncthreads();
+        TL_MARK(TL_RECOMPUTE);
       }
 
       float dg[GATES] = {0.0f, 0.0f, 0.0f};  // dgh in f32
@@ -254,6 +268,7 @@ gru_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
         df_s[cb * ROWS + q * UNITS + cj] = dg[q];
       }
       __syncthreads();
+      TL_MARK(TL_CELL);
 
       if (tid < ROWS) {
         float sum = 0.0f;
@@ -297,11 +312,18 @@ gru_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
           }
         }
       }
+      TL_MARK(TL_PARTIAL_DW);
     }
-    if (first) break;
+    if (first) {
+      TL_STORE(s);
+      break;
+    }
 
     // every block's shares of step s are written: sum this block's units
+    TL_ARRIVED();
     grid_barrier(barrier, (++barriers) * gridDim.x);
+    TL_MARK(TL_WAIT);
+    TL_WAITED();
     const float* part_all = part + (size_t)(s & 1) * nblk * B * H;
     const int lane_q = tid % RED;
     for (int b0 = 0; b0 < B; b0 += BT) {
@@ -333,6 +355,8 @@ gru_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
                                        : acc.w;
       if (b < B) dh_buf[(size_t)b * H + u0 + lane_q] += mine;
     }
+    TL_MARK(TL_REDUCE);
+    TL_STORE(s);
   }
 
 #pragma unroll
@@ -359,19 +383,30 @@ const char* mlvae_gru_bwd_error_string(int err) {
 // row 16-byte aligned. Outputs, every element written: dgx (T,B,3H),
 // dw_hh (3H,H) and db_hh (3H) f32. Scratch: part (2, H/4, B, H) f32,
 // dh_buf (B,H) zeroed, barrier one zeroed counter. H a multiple of 16.
-// Returns a cudaError_t.
-int mlvae_gru_bwd(const float* gx, const float* w_hh, const float* b_hh,
-                  const float* hs, const float* dhs, float* dgx,
-                  float* dw_hh, float* db_hh, float* part, float* dh_buf,
-                  unsigned int* barrier, int T, int B, int H, int reverse,
-                  cudaStream_t stream) {
+// Returns a cudaError_t. The timing build (MLVAE_K1_BWD_TIMELINE) is
+// mlvae_gru_bwd_timeline, which also takes the (T, H/4, 10) u64 timeline
+// before the stream.
+#ifdef MLVAE_K1_BWD_TIMELINE
+int mlvae_gru_bwd_timeline(
+#else
+int mlvae_gru_bwd(
+#endif
+    const float* gx, const float* w_hh, const float* b_hh, const float* hs,
+    const float* dhs, float* dgx, float* dw_hh, float* db_hh, float* part,
+    float* dh_buf, unsigned int* barrier, int T, int B, int H,
+    int reverse TL_ARG, cudaStream_t stream) {
   if (H % (UNITS * KSPLIT) != 0 || H > KPT * THREADS || T < 1 || B < 1)
     return cudaErrorInvalidValue;
   void* args[] = {(void*)&gx,     (void*)&w_hh,   (void*)&b_hh,
                   (void*)&hs,     (void*)&dhs,    (void*)&dgx,
                   (void*)&dw_hh,  (void*)&db_hh,  (void*)&part,
                   (void*)&dh_buf, (void*)&barrier, (void*)&T,
-                  (void*)&B,      (void*)&H,      (void*)&reverse};
+                  (void*)&B,      (void*)&H,      (void*)&reverse
+#ifdef MLVAE_K1_BWD_TIMELINE
+                  ,
+                  (void*)&timeline
+#endif
+  };
   return launch_cooperative(gru_bwd_kernel, H / UNITS, THREADS, args,
                             smem_bytes(H), stream);
 }

@@ -30,6 +30,7 @@
 // writes its slice of h_t. A grid barrier (grid_sync.cuh) ends each step.
 // Shared memory is 164 KB at H=512; the H/4 blocks must all be resident,
 // one per SM, which limits H to 528 on an H100 (132 SMs).
+#include "fwd_timeline.cuh"
 #include "gru_common.cuh"
 
 using namespace gru;
@@ -46,7 +47,7 @@ __global__ void __launch_bounds__(THREADS)
 gru_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
                const float* __restrict__ b_hh, float* __restrict__ hs,
                float* hbuf, unsigned int* barrier, int T, int B, int H,
-               int reverse) {
+               int reverse FWD_TIMELINE_ARG) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
   float* h_s = w_s + (size_t)GATES * H * UNITS;
@@ -80,7 +81,9 @@ gru_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
 #pragma unroll
   for (int q = 0; q < GATES; ++q) bias[q] = b_hh[q * H + u0 + cj];
 
+  FWD_CLOCK;
   for (int s = 0; s < T; ++s) {
+    FWD_BEGIN();
     const int t = reverse ? T - 1 - s : s;
     const int tp = reverse ? t + 1 : t - 1;  // previous processed position
     const float* h_prev = hbuf + (size_t)(s & 1) * H * B;   // [H][B]
@@ -94,6 +97,7 @@ gru_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
         h_s[idx] = bb < nb ? __ldcg(h_prev + (size_t)k * B + b0 + bb) : 0.0f;
       }
       __syncthreads();
+      FWD_MARK(FWD_STAGE);
 
       if (prod) {
         float acc[4][UNITS];
@@ -123,6 +127,7 @@ gru_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
                 acc[r][j];
       }
       __syncthreads();
+      FWD_MARK(FWD_PRODUCT);
 
       if (cb < nb) {
         const int b = b0 + cb;
@@ -148,8 +153,11 @@ gru_fwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
         hs[o] = h;
         h_next[(size_t)(u0 + cj) * B + b] = h;
       }
+      FWD_MARK(FWD_CELL);
     }
     grid_barrier(barrier, (unsigned int)(s + 1) * gridDim.x);
+    FWD_MARK(FWD_BARRIER);
+    FWD_STORE(s, 0);
   }
 }
 
@@ -163,16 +171,28 @@ const char* mlvae_gru_fwd_error_string(int err) {
 
 // gx (T,B,3H), w_hh (3H,H) and b_hh (3H) f32; hs (T,B,H) f32 output; hbuf
 // (2,H,B) f32 scratch whose first half is zero; barrier one zeroed
-// counter. H a multiple of 16. Returns a cudaError_t.
-int mlvae_gru_fwd(const float* gx, const float* w_hh, const float* b_hh,
-                  float* hs, float* hbuf, unsigned int* barrier, int T,
-                  int B, int H, int reverse, cudaStream_t stream) {
+// counter. H a multiple of 16. Returns a cudaError_t. The timing build
+// (MLVAE_FWD_TIMELINE) is mlvae_gru_fwd_timeline, which also takes the
+// (T, H/4, 8) u64 timeline before the stream.
+#ifdef MLVAE_FWD_TIMELINE
+int mlvae_gru_fwd_timeline(
+#else
+int mlvae_gru_fwd(
+#endif
+    const float* gx, const float* w_hh, const float* b_hh, float* hs,
+    float* hbuf, unsigned int* barrier, int T, int B, int H,
+    int reverse FWD_TIMELINE_ARG, cudaStream_t stream) {
   if (H % (UNITS * KSPLIT) != 0 || T < 1 || B < 1)
     return cudaErrorInvalidValue;
   void* args[] = {(void*)&gx,      (void*)&w_hh, (void*)&b_hh,
                   (void*)&hs,      (void*)&hbuf, (void*)&barrier,
                   (void*)&T,       (void*)&B,    (void*)&H,
-                  (void*)&reverse};
+                  (void*)&reverse
+#ifdef MLVAE_FWD_TIMELINE
+                  ,
+                  (void*)&timeline
+#endif
+  };
   return launch_cooperative(gru_fwd_kernel, H / UNITS, THREADS, args,
                             smem_bytes(H), stream);
 }

@@ -53,7 +53,11 @@ its recurrence with the same define, slots and phases (``WIDE_PHASES``;
 ``dh_stage`` and ``dh_product`` are its exchange of bf16(dgh)), a (T,
 blocks, 10) buffer, at T=160, H=512, B=64 (gate 3's AMP shape) on the
 trajectory of the bf16 K5-fwd; its dgx and db_hh must be bit-equal to
-the normal build's.
+the normal build's. K5-bwd in f32 (``csrc/gru_bwd.cu``) has one with the
+same define and K1-bwd's slots and phases (``K1_PHASES``: ``partial_dw``
+also sums db_hh), at the same shape in f32 on the trajectory of the f32
+K5-fwd; its dgx, dW_hh and db_hh must be bit-equal to the normal
+build's.
 
 It prints one JSON line naming the card and its power limit, and exits
 non-zero when an output differs. It needs the card and raises without
@@ -108,6 +112,7 @@ _ARGS = {"lstm_fused_bwd": [_P] * 15 + [_I] * 5 + [_P, _P],
 _K1_ARGS = [_P] * 11 + [_I] * 4 + [_P, _P]
 _WIDE_ARGS = [_P] * 9 + [_I] * 4 + [_P, _P]
 _GRU_ARGS = [_P] * 11 + [_I] * 4 + [_P, _P]
+_GRU_F32_ARGS = [_P] * 11 + [_I] * 4 + [_P, _P]
 
 
 def _timed(name: str, rows: Optional[int] = None) -> _build.Kernel:
@@ -127,6 +132,8 @@ TIMED["lstm_bwd_wide_bf16"] = _build.Kernel(
 TIMED["gru_bwd_bf16"] = _build.Kernel(
     "gru_bwd_bf16_timeline", "gru_bwd_bf16_timeline",
     "mlvae_gru_bwd_bf16_timeline", _GRU_ARGS)
+TIMED["gru_bwd"] = _build.Kernel("gru_bwd_timeline", "gru_bwd_timeline",
+                                 "mlvae_gru_bwd_timeline", _GRU_F32_ARGS)
 ABLATED = {(name, r): _timed(name, r) for name in _ARGS
            for r in _build.ABLATION_ROWS}
 
@@ -296,57 +303,80 @@ def wide_rows(dev, iters: int):
     return rows
 
 
-def gru_problem(dev, B: int, seed: int = 0):
-    """A bf16 K5-bwd input at T, H=512 (``bench_fwd_timeline``'s K5-fwd
-    input), its trajectory from the bf16 K5-fwd, and cotangents N(0,
-    0.1^2) for every h in bf16."""
-    gx, w, b = ftl.gru_problem(dev, B, seed)
+def gru_problem(dev, B: int, seed: int = 0, bf16: bool = True):
+    """A K5-bwd input at T, H=512 (``bench_fwd_timeline``'s K5-fwd input,
+    bf16 or f32), its trajectory from K5-fwd, and cotangents N(0, 0.1^2)
+    for every h in the stream dtype."""
+    gx, w, b = ftl.gru_problem(dev, B, seed, bf16)
     hs, hs32 = G.gru_layer_fwd(gx, w, b)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     dhs = (torch.randn(hs.shape, generator=g, device=dev) * 0.1).to(
-        torch.bfloat16)
+        gx.dtype)
     return gx, w, b, hs, hs32, dhs
 
 
 def timed_gru(prob, reverse: bool = False):
-    """K5-bwd's bf16 timing build (the recurrence) on ``prob``: ((dgx,
-    db_hh), as ``gru_layer_bwd``'s, and the (T, blocks, 10) int64
-    timeline)."""
+    """K5-bwd's timing build of ``prob``'s stream dtype on ``prob``: bf16,
+    the recurrence, ((dgx, db_hh), as ``gru_layer_bwd``'s); f32, ((dgx,
+    dW_hh, db_hh)); and the (T, blocks, 10) int64 timeline."""
     gx, w, b, hs, hs32, dhs = prob
     Tn, B, G3 = gx.shape
     Hn = G3 // 3
     dev = gx.device
-    tl = torch.zeros((Tn, G.k5_plan("bwd", Hn, True).blocks, K1_SLOTS),
+    bf16 = gx.dtype == torch.bfloat16
+    tl = torch.zeros((Tn, G.k5_plan("bwd", Hn, bf16).blocks, K1_SLOTS),
                      device=dev, dtype=torch.int64)
     dgx = torch.empty_like(gx)
-    dgn = torch.empty_like(hs)
     db = torch.zeros((G3,), device=dev, dtype=torch.float32)
     dh_buf = torch.zeros((B, Hn), device=dev, dtype=torch.float32)
     barrier = torch.zeros((1,), device=dev, dtype=torch.int32)
-    TIMED["gru_bwd_bf16"](
+    stream = _build.stream_handle(dev)
+    if bf16:
+        dgn = torch.empty_like(hs)
+        TIMED["gru_bwd_bf16"](
+            gx.data_ptr(), w.data_ptr(), b.data_ptr(), hs.data_ptr(),
+            hs32.data_ptr(), dhs.data_ptr(), dgx.data_ptr(), dgn.data_ptr(),
+            db.data_ptr(), dh_buf.data_ptr(), barrier.data_ptr(), Tn, B, Hn,
+            int(reverse), tl.data_ptr(), stream)
+        return (dgx, db), tl
+    dw = torch.zeros((G3, Hn), device=dev, dtype=torch.float32)
+    part = torch.empty((2, Hn // G.F32_UNITS, B, Hn), device=dev,
+                       dtype=torch.float32)
+    TIMED["gru_bwd"](
         gx.data_ptr(), w.data_ptr(), b.data_ptr(), hs.data_ptr(),
-        hs32.data_ptr(), dhs.data_ptr(), dgx.data_ptr(), dgn.data_ptr(),
-        db.data_ptr(), dh_buf.data_ptr(), barrier.data_ptr(), Tn, B, Hn,
-        int(reverse), tl.data_ptr(), _build.stream_handle(dev))
-    return (dgx, db), tl
+        dhs.data_ptr(), dgx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        part.data_ptr(), dh_buf.data_ptr(), barrier.data_ptr(), Tn, B, Hn,
+        int(reverse), tl.data_ptr(), stream)
+    return (dgx, dw, db), tl
 
 
-def gru_rows(dev, iters: int):
+def gru_rows(dev, iters: int, dtypes=(True, False)):
+    """The rows of K5-bwd at gate 3's shape: its bf16 recurrence, then its
+    f32 build (``dtypes``: bf16 flags)."""
     rows = []
-    for B in ftl.GRU_BATCHES:
-        prob = gru_problem(dev, B)
-        want = G.gru_layer_bwd(*prob)
-        got, tl = timed_gru(prob)
-        torch.cuda.synchronize()
-        ms = cuda_ms(lambda: G.gru_layer_bwd(*prob), iters)
-        rows.append({
-            "kernel": "gru_bwd_bf16", "B": B, "T": T, "H": ftl.GRU_H,
-            "bit_equal_to_normal_build": (torch.equal(got[0], want[0])
-                                          and torch.equal(got[1], want[2])),
-            "ms": ms, "us_a_step_total": ms * 1e3 / T,
-            "ms_timing_build": cuda_ms(lambda: timed_gru(prob), iters),
-            "us_a_step": ftl.phase_split(tl.cpu(), WIDE_PHASES)})
+    for bf16 in dtypes:
+        for B in ftl.GRU_BATCHES:
+            rows.append(gru_row(gru_problem(dev, B, bf16=bf16), iters))
     return rows
+
+
+def gru_row(prob, iters: int):
+    bf16 = prob[0].dtype == torch.bfloat16
+    want = G.gru_layer_bwd(*prob)
+    got, tl = timed_gru(prob)
+    torch.cuda.synchronize()
+    if bf16:                 # the recurrence's outputs: dgx and db_hh
+        want = (want[0], want[2])
+    ms = cuda_ms(lambda: G.gru_layer_bwd(*prob), iters)
+    return {
+        "kernel": "gru_bwd_bf16" if bf16 else "gru_bwd",
+        "B": prob[0].shape[1], "T": T, "H": ftl.GRU_H,
+        "bit_equal_to_normal_build": all(
+            torch.equal(a, c) for a, c in zip(got, want)),
+        "ms": ms, "us_a_step_total": ms * 1e3 / T,
+        "ms_timing_build": cuda_ms(lambda: timed_gru(prob), iters),
+        "us_a_step": ftl.phase_split(tl.cpu(),
+                                     WIDE_PHASES if bf16 else K1_PHASES)}
 
 
 def make_problem(dev, In: int, B: int, seed: int = 0):
@@ -419,7 +449,7 @@ def bench(dev, iters: int = 10) -> Dict:
     _build.build([*_build.VARIANTS, "lstm_fused_fwd", "lstm_fused_bwd",
                   "lstm_semi_bwd", "lstm_fwd", "lstm_bwd",
                   "lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16",
-                  "gru_fwd_bf16", "gru_bwd_bf16"])
+                  "gru_fwd_bf16", "gru_bwd_bf16", "gru_fwd", "gru_bwd"])
     rows = []
     for name, In in CASES:
         for B in BATCHES:
@@ -441,7 +471,7 @@ def bench(dev, iters: int = 10) -> Dict:
                     for r in _build.ABLATION_ROWS}})
     return {"rows": rows, "lstm_bwd": k1_rows(dev, iters),
             "lstm_bwd_wide_bf16": wide_rows(dev, iters),
-            "gru_bwd_bf16": gru_rows(dev, iters)}
+            "gru": gru_rows(dev, iters)}
 
 
 def ablation(name: str, prob, rows: int, iters: int) -> Dict:
@@ -477,7 +507,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                       "nvidia_smi": _card(), **res}), flush=True)
     bad = [(r["kernel"], r["B"]) for r in [*res["rows"], *res["lstm_bwd"],
                                            *res["lstm_bwd_wide_bf16"],
-                                           *res["gru_bwd_bf16"]]
+                                           *res["gru"]]
            if not r["bit_equal_to_normal_build"]]
     if bad:
         print(f"bench_bwd_timeline: the timing build differs from the "

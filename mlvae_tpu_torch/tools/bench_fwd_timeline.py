@@ -1,11 +1,11 @@
 """A step timeline of the recurrent forwards (K1-fwd, K3/K4-fwd, the wide
-K1-fwd and K5-fwd on bf16 streams) on the card.
+K1-fwd, K5-fwd in f32 and on bf16 streams) on the card.
 
     python -m mlvae_tpu_torch.tools.bench_fwd_timeline [--iters N]
 
 Builds ``csrc/lstm_fwd.cu``, ``csrc/lstm_fused_fwd.cu``,
-``csrc/lstm_fwd_wide_bf16.cu`` and ``csrc/gru_fwd_bf16.cu`` a second time
-with ``-DMLVAE_FWD_TIMELINE``
+``csrc/lstm_fwd_wide_bf16.cu``, ``csrc/gru_fwd_bf16.cu`` and
+``csrc/gru_fwd.cu`` a second time with ``-DMLVAE_FWD_TIMELINE``
 (their own library names, see ``_build.VARIANTS``): a lead thread of each
 block reads ``%globaltimer`` at the phase boundaries of its chain of work
 and writes, for each step, the step's start and end and each phase's sum
@@ -13,7 +13,8 @@ over the step's batch tiles into a (T, blocks, 8) buffer
 (``csrc/fwd_timeline.cuh``). For K1-fwd at B=64 and 128 (f32) and
 K3/K4-fwd at In=128, 512 and 1024 and B=64 and 256 (bf16), H=512, and the
 wide K1-fwd on bf16 streams at H=1024, B=64 (LSTM_FC's AMP shape), and
-K5-fwd on bf16 streams at H=512, B=64 (gate 3's AMP shape), T=160,
+K5-fwd on bf16 streams and in f32 at H=512, B=64 (gate 3's AMP and f32
+shapes), T=160,
 inputs from a generator seeded 0 at the recipe layers' scales, it
 prints each phase's microseconds a step: each block's mean over the steps,
 then the min, median and max over the blocks. The phases, on the chain of
@@ -67,7 +68,8 @@ _I = ctypes.c_int
 _ARGS = {"lstm_fwd": [_P] * 6 + [_I] * 4 + [_P, _P],
          "lstm_fused_fwd": [_P] * 7 + [_I] * 5 + [_P, _P],
          "lstm_fwd_wide_bf16": [_P] * 5 + [_I] * 4 + [_P, _P],
-         "gru_fwd_bf16": [_P] * 6 + [_I] * 4 + [_P, _P]}
+         "gru_fwd_bf16": [_P] * 6 + [_I] * 4 + [_P, _P],
+         "gru_fwd": [_P] * 6 + [_I] * 4 + [_P, _P]}
 GRU_H = 512           # K5-fwd's shape: gate 3's layers
 GRU_BATCHES = (64,)
 
@@ -236,56 +238,76 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def gru_problem(dev, B: int, seed: int = 0):
-    """A bf16 K5-fwd input at T, H=512: gx N(0, 0.5^2), W_hh and b_hh
-    U(+-1/sqrt(H)) (gx and W_hh bf16, b_hh f32)."""
+def gru_problem(dev, B: int, seed: int = 0, bf16: bool = True):
+    """A K5-fwd input at T, H=512: gx N(0, 0.5^2), W_hh and b_hh
+    U(+-1/sqrt(H)) (gx and W_hh bf16, or f32 with ``bf16`` false; b_hh
+    f32)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    bf = torch.bfloat16
+    dt = torch.bfloat16 if bf16 else torch.float32
     gx = (torch.randn((T, B, 3 * GRU_H), generator=g, device=dev)
-          * 0.5).to(bf)
+          * 0.5).to(dt)
     w = ((torch.rand((3 * GRU_H, GRU_H), generator=g, device=dev) * 2 - 1)
-         / GRU_H ** 0.5).to(bf)
+         / GRU_H ** 0.5).to(dt)
     b = (torch.rand((3 * GRU_H,), generator=g, device=dev) * 2 - 1) \
         / GRU_H ** 0.5
     return gx, w, b
 
 
 def timed_gru(prob, reverse: bool = False):
-    """K5-fwd's bf16 timing build on ``prob``: ((hs, hs32), as
-    ``gru_layer_fwd``'s, and the (T, blocks, 8) int64 timeline)."""
+    """K5-fwd's timing build of ``prob``'s stream dtype (``gru_fwd_bf16`` or
+    ``gru_fwd``) on ``prob``: ((hs, hs32), as ``gru_layer_fwd``'s, and the
+    (T, blocks, 8) int64 timeline)."""
     gx, w, b = prob
     Tn, B, G3 = gx.shape
     Hn = G3 // 3
     dev = gx.device
-    tl = torch.zeros((Tn, G.k5_plan("fwd", Hn, True).blocks, SLOTS),
+    bf16 = gx.dtype == torch.bfloat16
+    tl = torch.zeros((Tn, G.k5_plan("fwd", Hn, bf16).blocks, SLOTS),
                      device=dev, dtype=torch.int64)
     hs = torch.empty((Tn, B, Hn), device=dev, dtype=gx.dtype)
-    hs32 = torch.empty((Tn, B, Hn), device=dev, dtype=torch.float32)
+    hs32 = torch.empty((Tn, B, Hn), device=dev,
+                       dtype=torch.float32) if bf16 else None
     barrier = torch.zeros((1,), device=dev, dtype=torch.int32)
-    TIMED["gru_fwd_bf16"](gx.data_ptr(), w.data_ptr(), b.data_ptr(),
-                          hs.data_ptr(), hs32.data_ptr(), barrier.data_ptr(),
-                          Tn, B, Hn, int(reverse), tl.data_ptr(),
-                          _build.stream_handle(dev))
+    stream = _build.stream_handle(dev)
+    if bf16:
+        TIMED["gru_fwd_bf16"](gx.data_ptr(), w.data_ptr(), b.data_ptr(),
+                              hs.data_ptr(), hs32.data_ptr(),
+                              barrier.data_ptr(), Tn, B, Hn, int(reverse),
+                              tl.data_ptr(), stream)
+    else:
+        hbuf = torch.zeros((2, Hn, B), device=dev, dtype=torch.float32)
+        TIMED["gru_fwd"](gx.data_ptr(), w.data_ptr(), b.data_ptr(),
+                         hs.data_ptr(), hbuf.data_ptr(), barrier.data_ptr(),
+                         Tn, B, Hn, int(reverse), tl.data_ptr(), stream)
     return (hs, hs32), tl
 
 
-def gru_rows(dev, iters: int):
+def gru_rows(dev, iters: int, dtypes=(True, False)):
+    """The rows of K5-fwd at gate 3's shape: its bf16 build, then its f32
+    build (``dtypes``: bf16 flags)."""
     rows = []
-    for B in GRU_BATCHES:
-        prob = gru_problem(dev, B)
-        want = G.gru_layer_fwd(*prob)
-        got, tl = timed_gru(prob)
-        torch.cuda.synchronize()
-        ms = cuda_ms(lambda: G.gru_layer_fwd(*prob), iters)
-        rows.append({
-            "kernel": "gru_fwd_bf16", "In": None, "B": B, "T": T,
-            "H": GRU_H,
-            "bit_equal_to_normal_build": all(
-                torch.equal(a, c) for a, c in zip(got, want)),
-            "ms": ms, "us_a_step": ms * 1e3 / T,
-            "ms_timing_build": cuda_ms(lambda: timed_gru(prob), iters),
-            "phases_us_a_step": phase_split(tl.cpu())})
+    for bf16 in dtypes:
+        for B in GRU_BATCHES:
+            prob = gru_problem(dev, B, bf16=bf16)
+            rows.append(gru_row(prob, iters))
     return rows
+
+
+def gru_row(prob, iters: int):
+    gx = prob[0]
+    B = gx.shape[1]
+    want = G.gru_layer_fwd(*prob)
+    got, tl = timed_gru(prob)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: G.gru_layer_fwd(*prob), iters)
+    return {
+        "kernel": "gru_fwd_bf16" if gx.dtype == torch.bfloat16
+        else "gru_fwd", "In": None, "B": B, "T": T, "H": GRU_H,
+        "bit_equal_to_normal_build": all(
+            torch.equal(a, c) for a, c in zip(got, want) if c is not None),
+        "ms": ms, "us_a_step": ms * 1e3 / T,
+        "ms_timing_build": cuda_ms(lambda: timed_gru(prob), iters),
+        "phases_us_a_step": phase_split(tl.cpu())}
 
 
 def bench(dev, iters: int = 10, cases=CASES) -> Dict:

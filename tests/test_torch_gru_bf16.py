@@ -86,7 +86,17 @@ def test_f32_sources_keep_only_f32_entry_points(kernel, src):
     assert sig.count(",") + 1 == len(kernel.argtypes)
     assert "bf16" not in sig and "void*" not in sig.replace(" ", "")
     text = (CSRC / f"{src}.cu").read_text()
-    assert re.findall(r"int (mlvae_\w+)\(", text) == [f"mlvae_{src}"]
+    # the f32 entry point, its launch plan and, under the timing define
+    # only, the timing build's entry point in its place
+    entries = re.findall(r"int (mlvae_\w+)\(", text)
+    assert sorted(set(entries)) == sorted(entries)
+    assert set(entries) <= {f"mlvae_{src}", f"mlvae_{src}_plan",
+                            f"mlvae_{src}_timeline"}
+    assert f"mlvae_{src}" in entries
+    timed = f"{src}_timeline"
+    define = _build.timeline_define(timed)[2:]
+    assert re.search(rf"#ifdef {define}\nint mlvae_{timed}\(\n#else\n"
+                     rf"int mlvae_{src}\(\n#endif", text)
     # plain f32 code: no template over the stream type, no bf16
     for f in (f"{src}.cu", "gru_common.cuh"):
         assert not re.search(r"\bbf16\s*\*|__nv_bfloat16|template <typename|"
