@@ -13,8 +13,8 @@ Phases, each reported on its own line; any failure exits non-zero:
    dW_hh kernel) at H=1024 and 640, as their C code computes it (grid,
    threads, shared memory, blocks an SM holds, registers, local bytes: 0
    for the bf16 builds) against ``ops.k1_plan``, and likewise K5's builds
-   on bf16 streams (K5-fwd, K5-bwd at B=64 and 70, its dW_hh kernel) at
-   H=512, 208 and 528 against ``ops.gru.k5_plan``;
+   in f32 and on bf16 streams (K5-fwd, K5-bwd at B=64 and 70, the bf16
+   dW_hh kernel) at H=512, 208 and 528 against ``ops.gru.k5_plan``;
 2. each kernel against its plain PyTorch version on the card, at the
    slices' shapes (B=64, T=160, H=512; the fused kernels at In=128, 512
    and 1024 as the AMP step gives them; the filterbank K6 in its Kaldi
@@ -99,9 +99,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    (``compute_kaldi_features`` over 256 written wav files, one batch,
    host clock), the f32 and AMP train steps of each target, the AMP VAE
    step at the JAX bench's B=256 (and its profile), K5-fwd and K5-bwd in
-   f32 beside their bounds, their plain versions and cuDNN's GRU layer,
-   and on bf16 streams in turns with cuDNN's bf16 layer (medians and
-   spreads; cuDNN's kernels alone, all and those launched every step),
+   f32 and on bf16 streams beside their bounds and plain versions, in
+   turns with cuDNN's GRU layer of their dtype (medians and spreads;
+   cuDNN's kernels alone, all and those launched every step),
    K5-bwd's dW_hh kernel beside one bf16
    ``torch.matmul`` of its operands, the gate-3 train step in f32 and
    under AMP (and a profile of each), K7a (f32, bf16) and
@@ -117,7 +117,7 @@ Phases, each reported on its own line; any failure exits non-zero:
    normal ones), the backwards' step timeline
    (``mlvae_tpu_torch.tools.bench_bwd_timeline``: microseconds a step of
    each phase, and the ablation without or with
-   half of the copies' L2 traffic; K5 on bf16 streams),
+   half of the copies' L2 traffic; K5 in f32 and on bf16 streams),
    and profiles of one eval, one wav-in eval, one f32 and one AMP VAE
    train step; the
    wide K1-fwd and K1-bwd at H=1024 in turns with cuDNN's f32 layer, their
@@ -212,8 +212,8 @@ GRU_BF16_BWD_RTOL = 1e-2  # bf16 backward: a dgh one bf16 ulp off
 GRU_REPEATS = 26      # phase 2's repeated launches per K5 kernel and
                       # direction, half f32, half bf16, each bit-equal to
                       # the first of its dtype
-GRU_YARD_ROUNDS = 2   # phase 4: the bf16 K5 builds in turns with cuDNN's
-                      # bf16 layer (two pairs of samples a round)
+GRU_YARD_ROUNDS = 2   # phase 4: the K5 builds in turns with cuDNN's layer
+                      # of their dtype (two pairs of samples a round)
 GATE_RTOL = 1e-4      # gates 1, 2, 4 card against CPU: loss, and each
                       # parameter's grad in norm (f32 sums in another order)
 # K7a and K7b: bit-equal to their one-step twins (K1-fwd, K7a at K=1,
@@ -989,42 +989,45 @@ def gru_errors(fwd, bwd, want_fwd, want_bwd):
 
 
 def gru_plans(dev, report):
-    """Phase 1: the bf16 K5 builds' launch plans as the C code computes
-    them (blocks, threads, shared memory, blocks an SM can hold, boxes,
-    ring buffers or stages, registers, local bytes) at H=512, 208 and 528
-    (K5-bwd at B=64, one tile and the split barrier, and B=70, the tiles
-    in series), against ``ops.gru.k5_plan``: each cooperative grid
-    co-resident on this card, no spills."""
+    """Phase 1: K5's launch plans as the C code computes them (blocks,
+    threads, shared memory, blocks an SM can hold, boxes, ring buffers or
+    stages, registers, local bytes) at H=512, 208 and 528 (K5-bwd at B=64,
+    one tile and the split barrier, and B=70, the tiles in series), the
+    f32 builds beside the bf16 ones (and their dW_hh kernel), against
+    ``ops.gru.k5_plan``: each cooperative grid co-resident on this card, no
+    spills."""
     import torch
     from mlvae_tpu_torch.ops import gru as G
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
     for H in (512, 208, 528):
-        for direction, B in (("fwd", 64), ("bwd", 64), ("bwd", 70),
-                             ("dw", 64)):
-            got = G.k5_launch_plan(direction, H, B)
-            want = G.k5_plan(direction, H, True)
-            name = f"gru_{direction}_bf16"
-            key = f"{name} H={H} B={B}"
-            out[key] = got
-            report(f"  plan {key}: grid {got['blocks']} x {got['threads']} "
-                   f"threads, shared memory {got['smem_bytes']} B, ring "
-                   f"{got['ring']}, rows {got['rows']}, "
-                   f"{got['blocks_per_sm']} block(s) an SM resident, "
-                   f"{got['registers']} registers, {got['local_bytes']} B "
-                   f"local a thread; {sms} SMs")
-            check((got["blocks"], got["threads"], got["smem_bytes"],
-                   got["rows"]) == (want.blocks, want.threads,
-                                    want.smem_bytes, want.rows)
-                  and got["ring"] == {"fwd": want.boxes, "bwd": 16,
-                                      "dw": G.DW_STAGES}[direction],
-                  f"{key} plan {got} != {want}")
-            check(got["blocks_per_sm"] >= 1 and
-                  (direction == "dw" or
-                   got["blocks"] <= got["blocks_per_sm"] * sms),
-                  f"{key}: the grid cannot be co-resident")
-            check(got["local_bytes"] == 0,
-                  f"{key} spills: {got['local_bytes']} B local")
+        for bf16 in (False, True):
+            for direction, B in (("fwd", 64), ("bwd", 64), ("bwd", 70),
+                                 ("dw", 64))[:4 if bf16 else 3]:
+                got = G.k5_launch_plan(direction, H, B, bf16)
+                want = G.k5_plan(direction, H, bf16)
+                name = f"gru_{direction}" + ("_bf16" if bf16 else "")
+                key = f"{name} H={H} B={B}"
+                out[key] = got
+                report(f"  plan {key}: grid {got['blocks']} x "
+                       f"{got['threads']} threads, shared memory "
+                       f"{got['smem_bytes']} B, ring {got['ring']}, rows "
+                       f"{got['rows']}, {got['blocks_per_sm']} block(s) an "
+                       f"SM resident, {got['registers']} registers, "
+                       f"{got['local_bytes']} B local a thread; {sms} SMs")
+                ring = ({"fwd": want.boxes, "bwd": 16, "dw": G.DW_STAGES}
+                        [direction] if bf16 else want.boxes)
+                check((got["blocks"], got["threads"], got["smem_bytes"],
+                       got["rows"], got["ring"]) == (
+                           want.blocks, want.threads, want.smem_bytes,
+                           want.rows, ring),
+                      f"{key} plan {got} != {want}")
+                check(got["blocks_per_sm"] >= 1 and
+                      (direction == "dw" or
+                       got["blocks"] <= got["blocks_per_sm"] * sms),
+                      f"{key}: the grid cannot be co-resident")
+                check(got["local_bytes"] == 0,
+                      f"{key} spills: {got['local_bytes']} B local")
     return out
 
 
@@ -2848,145 +2851,117 @@ def gru_bwd_bound(T, B, H, bf16):
     return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
 
 
-def time_gru(dev, report, errs, counts):
-    """K5-fwd and K5-bwd at the gate-3 shape (T=160, B=64, H=512): the f32
-    builds beside their plain versions, bounds and cuDNN's f32 one-layer
-    GRU (``torch.nn.GRU``, the same b_hn-inside-r semantics; never the
-    port's path) at the encoder's In=120 (its forward with the input
-    projection; its forward+backward less its forward, which also forms
-    dX and dW_ih); the bf16 builds in turns with cuDNN's bf16 layer
-    (median and spread of each, microseconds a step, and cuDNN's kernels
-    alone from the profiler: all of them, and those launched every step,
+def time_gru(dev, report, errs, counts, T=160, B=64, H=512, In=120,
+             rounds=GRU_YARD_ROUNDS):
+    """K5-fwd and K5-bwd at the gate-3 shape (T=160, B=64, H=512), f32 and
+    on bf16 streams, each in turns with cuDNN's one-layer GRU of its dtype
+    (``torch.nn.GRU``, the same b_hn-inside-r semantics; never the port's
+    path) at the encoder's In=120 (its forward with the input projection;
+    its forward+backward less its forward, which also forms dX and dW_ih):
+    median and spread of each, microseconds a step, and cuDNN's kernels
+    alone from the profiler (all of them, and those launched every step,
     its recurrence without its input, dX and weight products), beside
-    their plain versions and bounds; and K5-bwd's dW_hh kernel alone
+    their plain versions and bounds; and K5-bwd's bf16 dW_hh kernel alone
     beside one bf16 ``torch.matmul`` of its operands."""
     import torch
     from mlvae_tpu_torch import _build
     from mlvae_tpu_torch.ops import gru as G
-    T, B, H, In = 160, 64, 512, 120
     g = torch.Generator(device=dev).manual_seed(45)
     out = []
-    # f32
-    gx, w, b, hs, hs32, dhs = gru_problem(g, dev, T, B, H, False, False)
-    f32 = {"gru_fwd": (cuda_ms(lambda: G.gru_layer_fwd(gx, w, b, False),
-                               iters=20),
-                       cuda_ms(lambda: G.gru_layer_ref(gx, w, b, False),
-                               iters=3, warmup=1),
-                       gru_fwd_bound(T, B, H, False)),
-           "gru_bwd": (cuda_ms(lambda: G.gru_layer_bwd(
-                           gx, w, b, hs, hs32, dhs, False), iters=10),
-                       cuda_ms(lambda: G.gru_layer_bwd_ref(
-                           gx, w, b, hs, hs32, dhs, False), iters=2,
-                           warmup=1),
-                       gru_bwd_bound(T, B, H, False))}
-    cudnn = torch.nn.GRU(In, H, 1).to(dev)
-    cudnn.flatten_parameters()
-    x = torch.randn((T, B, In), generator=g, device=dev)
-    with torch.no_grad():
-        lib_fwd = cuda_ms(lambda: cudnn(x), iters=20)
-    xg = x.clone().requires_grad_()
-    dy = torch.randn((T, B, H), generator=g, device=dev)
-    lib_bwd = cuda_ms(lambda: cudnn(xg)[0].backward(dy), iters=10) \
-        - cuda_ms(lambda: cudnn(xg), iters=10)
-    for name, lib in (("gru_fwd", lib_fwd), ("gru_bwd", lib_bwd)):
-        ms, plain, (b_ms, b_by) = f32[name]
-        report(f"  {name} f32: {ms:.4f} ms (bound {b_ms:.4f} by {b_by}; "
-               f"plain {plain:.4f}; cuDNN f32 GRU layer "
-               + ("forward incl. input projection" if name == "gru_fwd"
-                  else "forward+backward less forward, incl. dX and "
-                  "dW_ih") + f" {lib:.4f})")
-        out.append(dict(
-            name=name, route="cuda", source=f"mlvae_tpu_torch/csrc/{name}.cu",
-            replaces="mlvae_tpu/ops/gru_pallas.py:"
-            + ("31" if name == "gru_fwd" else "63"),
-            max_abs_err=errs[name], ms=ms, plain_ms=plain, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib, shape="T=160 B=64 H=512 f32",
-            **counts[name]))
+    for bf16 in (False, True):
+        dt = torch.bfloat16 if bf16 else torch.float32
+        sfx, label = ("_bf16", "bf16") if bf16 else ("", "f32")
+        gx, w, b, hs, hs32, dhs = gru_problem(g, dev, T, B, H, bf16, False)
+        cudnn = torch.nn.GRU(In, H, 1).to(dev, dt)
+        cudnn.flatten_parameters()
+        x = torch.randn((T, B, In), generator=g, device=dev).to(dt)
+        xg = x.clone().requires_grad_()
+        dy = torch.randn((T, B, H), generator=g, device=dev).to(dt)
 
-    # bf16: the tensor-core builds in turns with cuDNN's bf16 layer
-    bf = torch.bfloat16
-    gx, w, b, hs, hs32, dhs = gru_problem(g, dev, T, B, H, True, False)
-    cudnn = torch.nn.GRU(In, H, 1).to(dev, bf)
-    cudnn.flatten_parameters()
-    x = torch.randn((T, B, In), generator=g, device=dev).to(bf)
-    xg = x.clone().requires_grad_()
-    dy = torch.randn((T, B, H), generator=g, device=dev).to(bf)
+        def fwd(iters):
+            return cuda_ms(lambda: G.gru_layer_fwd(gx, w, b, False), iters,
+                           warmup=1)
 
-    def fwd(iters):
-        return cuda_ms(lambda: G.gru_layer_fwd(gx, w, b, False), iters,
-                       warmup=1)
+        def bwd(iters):
+            return cuda_ms(lambda: G.gru_layer_bwd(gx, w, b, hs, hs32, dhs,
+                                                   False), iters, warmup=1)
 
-    def bwd(iters):
-        return cuda_ms(lambda: G.gru_layer_bwd(gx, w, b, hs, hs32, dhs,
-                                               False), iters, warmup=1)
+        def lib_fwd(iters):
+            with torch.no_grad():
+                return cuda_ms(lambda: cudnn(x), iters, warmup=1)
 
-    def lib_fwd(iters):
+        def lib_bwd(iters):
+            return cuda_ms(lambda: cudnn(xg)[0].backward(dy), iters,
+                           warmup=1) \
+                - cuda_ms(lambda: cudnn(xg), iters, warmup=1)
+
         with torch.no_grad():
-            return cuda_ms(lambda: cudnn(x), iters, warmup=1)
-
-    def lib_bwd(iters):
-        return cuda_ms(lambda: cudnn(xg)[0].backward(dy), iters, warmup=1) \
-            - cuda_ms(lambda: cudnn(xg), iters, warmup=1)
-
-    with torch.no_grad():
-        all_f, step_f, top_f = kernel_split(lambda: cudnn(x), T)
-    all_fb, step_fb, top_b = kernel_split(
-        lambda: cudnn(xg)[0].backward(dy), T)
-    all_g, step_g, _ = kernel_split(lambda: cudnn(xg), T)
-    cudnn_alone = {"gru_fwd_bf16": (all_f, step_f),
-                   "gru_bwd_bf16": (all_fb - all_g, step_fb - step_g)}
-    report(f"  cuDNN bf16 GRU kernels (name, launches, ms): forward "
-           f"{top_f}; forward and backward {top_b}")
-    # K5-bwd's dW_hh kernel alone, on the plain BPTT's operands
-    dgx, _, _, dgh = G.gru_layer_bwd_ref(gx, w, b, hs, hs32, dhs, False,
-                                         with_dgh=True)
-    dgn = dgh[..., 2 * H:].contiguous()
-    dwbuf = torch.empty((3 * H, H), device=dev)
-    st = _build.stream_handle(dev)
-    dw_ms = cuda_ms(lambda: G.GRU_DW_BF16(
-        dgx.data_ptr(), dgn.data_ptr(), hs.data_ptr(), dwbuf.data_ptr(), T,
-        B, H, 0, st), iters=20)
-    dw_plain = cuda_ms(lambda: G.gru_dw_ref(dgx, dgn, hs), iters=2, warmup=1)
-    xs = torch.cat([dgx[1:, :, :2 * H], dgn[1:]], dim=2).reshape(-1, 3 * H)
-    ys = hs[:-1].reshape(-1, H)
-    dw_lib = cuda_ms(lambda: torch.matmul(xs.t(), ys), iters=20)
-    w_bound, w_by = dw_bound(T, B, H, gates=3)
-    for name, kern, yard, plain, (b_ms, b_by) in (
-            ("gru_fwd_bf16", fwd, lib_fwd,
-             cuda_ms(lambda: G.gru_layer_ref(gx, w, b, False), iters=3,
-                     warmup=1), gru_fwd_bound(T, B, H, True)),
-            ("gru_bwd_bf16", bwd, lib_bwd,
-             cuda_ms(lambda: G.gru_layer_bwd_ref(gx, w, b, hs, hs32, dhs,
-                                                 False), iters=2, warmup=1),
-             gru_bwd_bound(T, B, H, True))):
-        ks, ys_ = interleaved_ms(kern, yard, GRU_YARD_ROUNDS, iters=10)
-        km, ym = statistics.median(ks), statistics.median(ys_)
-        alone, per_step = cudnn_alone[name]
-        row = dict(
-            name=name, route="cuda", source=f"mlvae_tpu_torch/csrc/{name}.cu",
-            replaces="mlvae_tpu/ops/gru_pallas.py:"
-            + ("31" if name == "gru_fwd_bf16" else "63"),
-            max_abs_err=errs[name], ms=km, spread=[min(ks), max(ks)],
-            us_a_step=km * 1e3 / T, plain_ms=plain, bound_ms=b_ms,
-            bound_by=b_by, library_ms=ym, library_spread=[min(ys_), max(ys_)],
-            factor=km / ym, cudnn_kernels_ms=alone,
-            cudnn_per_step_ms=per_step,
-            factor_kernels=km / alone if alone else None,
-            shape="T=160 B=64 H=512 bf16", **counts[name])
-        if name == "gru_bwd_bf16":
-            row["recurrence_ms"] = km - dw_ms
-        out.append(row)
-        report(f"  {name} T={T} B={B} H={H}: {km:.4f} ms median "
-               f"({min(ks):.4f}-{max(ks):.4f}; {km * 1e3 / T:.2f} us a "
-               f"step); cuDNN bf16 GRU layer "
-               + ("forward incl. input projection" if name == "gru_fwd_bf16"
-                  else "forward+backward less forward, incl. dX and "
-                  "dW_ih") + f", in turns, {ym:.4f} median ({min(ys_):.4f}-"
-               f"{max(ys_):.4f}); factor {km / ym:.3f}; cuDNN's kernels "
-               f"alone {alone:.4f}, those launched every step {per_step:.4f}"
-               f" (profiler); plain {plain:.4f}; bound {b_ms:.4f} by {b_by}"
-               + (f"; its dW_hh kernel {dw_ms:.4f}, the recurrence alone "
-                  f"{km - dw_ms:.4f}" if name == "gru_bwd_bf16" else ""))
+            all_f, step_f, top_f = kernel_split(lambda: cudnn(x), T)
+        all_fb, step_fb, top_b = kernel_split(
+            lambda: cudnn(xg)[0].backward(dy), T)
+        all_g, step_g, _ = kernel_split(lambda: cudnn(xg), T)
+        cudnn_alone = {"gru_fwd" + sfx: (all_f, step_f),
+                       "gru_bwd" + sfx: (all_fb - all_g, step_fb - step_g)}
+        report(f"  cuDNN {label} GRU kernels (name, launches, ms): forward "
+               f"{top_f}; forward and backward {top_b}")
+        if bf16:
+            # K5-bwd's dW_hh kernel alone, on the plain BPTT's operands
+            dgx, _, _, dgh = G.gru_layer_bwd_ref(gx, w, b, hs, hs32, dhs,
+                                                 False, with_dgh=True)
+            dgn = dgh[..., 2 * H:].contiguous()
+            dwbuf = torch.empty((3 * H, H), device=dev)
+            st = _build.stream_handle(dev)
+            dw_ms = cuda_ms(lambda: G.GRU_DW_BF16(
+                dgx.data_ptr(), dgn.data_ptr(), hs.data_ptr(),
+                dwbuf.data_ptr(), T, B, H, 0, st), iters=20)
+            dw_plain = cuda_ms(lambda: G.gru_dw_ref(dgx, dgn, hs), iters=2,
+                               warmup=1)
+            xs = torch.cat([dgx[1:, :, :2 * H], dgn[1:]],
+                           dim=2).reshape(-1, 3 * H)
+            ys = hs[:-1].reshape(-1, H)
+            dw_lib = cuda_ms(lambda: torch.matmul(xs.t(), ys), iters=20)
+            w_bound, w_by = dw_bound(T, B, H, gates=3)
+        for name, kern, yard, plain, (b_ms, b_by) in (
+                ("gru_fwd" + sfx, fwd, lib_fwd,
+                 cuda_ms(lambda: G.gru_layer_ref(gx, w, b, False), iters=3,
+                         warmup=1), gru_fwd_bound(T, B, H, bf16)),
+                ("gru_bwd" + sfx, bwd, lib_bwd,
+                 cuda_ms(lambda: G.gru_layer_bwd_ref(gx, w, b, hs, hs32,
+                                                     dhs, False),
+                         iters=2, warmup=1),
+                 gru_bwd_bound(T, B, H, bf16))):
+            ks, ys_ = interleaved_ms(kern, yard, rounds, iters=10)
+            km, ym = statistics.median(ks), statistics.median(ys_)
+            alone, per_step = cudnn_alone[name]
+            row = dict(
+                name=name, route="cuda",
+                source=f"mlvae_tpu_torch/csrc/{name}.cu",
+                replaces="mlvae_tpu/ops/gru_pallas.py:"
+                + ("31" if name.startswith("gru_fwd") else "63"),
+                max_abs_err=errs[name], ms=km, spread=[min(ks), max(ks)],
+                us_a_step=km * 1e3 / T, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=ym,
+                library_spread=[min(ys_), max(ys_)], factor=km / ym,
+                cudnn_kernels_ms=alone, cudnn_per_step_ms=per_step,
+                factor_kernels=km / alone if alone else None,
+                shape=f"T={T} B={B} H={H} {label}", **counts[name])
+            if name == "gru_bwd_bf16":
+                row["recurrence_ms"] = km - dw_ms
+            out.append(row)
+            report(f"  {name} T={T} B={B} H={H}: {km:.4f} ms median "
+                   f"({min(ks):.4f}-{max(ks):.4f}; {km * 1e3 / T:.2f} us a "
+                   f"step); cuDNN {label} GRU layer "
+                   + ("forward incl. input projection"
+                      if name.startswith("gru_fwd")
+                      else "forward+backward less forward, incl. dX and "
+                      "dW_ih") + f", in turns, {ym:.4f} median "
+                   f"({min(ys_):.4f}-{max(ys_):.4f}); factor {km / ym:.3f}; "
+                   f"cuDNN's kernels alone {alone:.4f}, those launched "
+                   f"every step {per_step:.4f} (profiler); plain "
+                   f"{plain:.4f}; bound {b_ms:.4f} by {b_by}"
+                   + (f"; its dW_hh kernel {dw_ms:.4f}, the recurrence "
+                      f"alone {km - dw_ms:.4f}" if name == "gru_bwd_bf16"
+                      else ""))
     report(f"  gru_dw_bf16 H={H}: {dw_ms:.4f} ms (plain {dw_plain:.4f}, one "
            f"bf16 torch.matmul of the same operands {dw_lib:.4f}, bound "
            f"{w_bound:.4f} by {w_by})")
@@ -2996,7 +2971,7 @@ def time_gru(dev, report, errs, counts):
         replaces="mlvae_tpu/ops/gru_pallas.py:63",
         max_abs_err=errs["gru_dw_bf16"], ms=dw_ms, plain_ms=dw_plain,
         bound_ms=w_bound, bound_by=w_by, library_ms=dw_lib,
-        shape="T=160 B=64 H=512 bf16", **counts["gru_dw_bf16"]))
+        shape=f"T={T} B={B} H={H} bf16", **counts["gru_dw_bf16"]))
     return out
 
 

@@ -26,10 +26,11 @@ and writes dgx in the stream dtype.
 that ``k5_plan`` picks, and ``gru_layer_ref`` / ``gru_layer_bwd_ref`` for
 CPU tensors only; ``GRURecurrence`` joins them. f32 streams take
 ``csrc/gru_fwd.cu`` / ``csrc/gru_bwd.cu`` (CUDA-core FMAs, four units a
-block); bf16 streams take ``csrc/gru_fwd_bf16.cu`` / ``csrc/gru_bwd_bf16.cu``
-(the tensor cores, eight units a group of blocks, ``csrc/gru_mma.cuh``),
-whose backward is two kernels: the recurrence, then dW_hh
-(``gru_dw_ref`` is its plain version).
+block, h_{t-1} from hs by the TMA, ``csrc/gru_common.cuh``); bf16 streams
+take ``csrc/gru_fwd_bf16.cu`` / ``csrc/gru_bwd_bf16.cu`` (the tensor
+cores, eight units a group of blocks, ``csrc/gru_mma.cuh``), whose
+backward is two kernels: the recurrence, then dW_hh (``gru_dw_ref`` is its
+plain version).
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 GRU_FWD = _build.register(_build.Kernel(
-    "gru_fwd", "gru_fwd", "mlvae_gru_fwd", [_P] * 6 + [_I] * 4 + [_P]))
+    "gru_fwd", "gru_fwd", "mlvae_gru_fwd", [_P] * 5 + [_I] * 4 + [_P]))
 GRU_BWD = _build.register(_build.Kernel(
     "gru_bwd", "gru_bwd", "mlvae_gru_bwd", [_P] * 11 + [_I] * 4 + [_P]))
 GRU_FWD_BF16 = _build.register(_build.Kernel(
@@ -65,6 +66,8 @@ BOX = 64              # columns of a TMA box (bf16 builds)
 F32_UNITS = 4         # csrc/gru_common.cuh
 BF16_UNITS = 8        # csrc/gru_mma.cuh
 THREADS = 256
+F32_BOXC = 32         # columns of an f32 TMA box (csrc/gru_common.cuh: BOXC)
+F32_RP = BT + 8       # row pitch of the f32 builds' split-K sums (RP)
 # Rows of each 64-row batch tile a bf16 block takes (csrc/gru_mma.cuh: RB):
 # two blocks on each group of eight units, H/4 blocks (128 at H=512)
 BF16_ROWS = 32
@@ -79,7 +82,7 @@ class K5Plan:
     blocks: int       # the grid (cooperative for the recurrences)
     threads: int
     smem_bytes: int   # dynamic shared memory a block
-    boxes: int        # bf16 recurrences: TMA boxes of h_{t-1}; 0 in f32
+    boxes: int        # the recurrences' TMA boxes of h_{t-1}; 0 for dw
 
 
 def _boxes(cols: int) -> int:
@@ -90,7 +93,8 @@ def k5_plan(direction: str, H: int, bf16: bool) -> K5Plan:
     """The build of K5 that runs ``direction`` ("fwd", "bwd", or on bf16
     streams "dw", K5-bwd's dW_hh kernel) at hidden width H, and its launch
     as the ``csrc`` code computes it. f32 streams: ``gru_fwd.cu`` /
-    ``gru_bwd.cu``, H/4 blocks of four units. bf16 streams: the tensor-core
+    ``gru_bwd.cu``, H/4 blocks of four units, each staging a 64-row tile
+    of h_{t-1} whole in 32-column boxes. bf16 streams: the tensor-core
     builds, H/8 groups of eight units with two blocks of 32 rows each.
     Every H that is a multiple of 16 up to 528 runs in both dtypes (H/4
     blocks resident on an H100's 132 SMs); another H is refused."""
@@ -104,11 +108,15 @@ def k5_plan(direction: str, H: int, bf16: bool) -> K5Plan:
     if not bf16:
         if direction not in ("fwd", "bwd"):
             raise ValueError(f"K5: no f32 build runs {direction!r}")
-        red = 4 * BT * 3 * F32_UNITS
-        smem = 4 * (3 * H * F32_UNITS + H * BT + red) if direction == "fwd" \
-            else 4 * (3 * H * F32_UNITS + H * (BT + 4) + red
-                      + 2 * BT * 3 * F32_UNITS)
-        return K5Plan("f32", BT, H // F32_UNITS, THREADS, smem, 0)
+        nb = -(-H // F32_BOXC)
+        rows = 3 * F32_UNITS
+        # the tile, W_hh's rows [k][unit][r, z, n, 0], the split-K sums
+        # (and K5-bwd's dgh rows), f32; an mbarrier a box
+        floats = nb * BT * F32_BOXC + 4 * H * F32_UNITS + 4 * rows * F32_RP
+        if direction == "bwd":
+            floats += BT * rows
+        return K5Plan("f32", BT, H // F32_UNITS, THREADS, 4 * floats + 8 * nb,
+                      nb)
     box_bytes = BF16_ROWS * BOX * 2
     parts = 8 * 3 * 2 * 32 * 8           # the K parts' sums (float2s)
     nb = _boxes(H)
@@ -282,11 +290,10 @@ def gru_layer_fwd(gx: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                      hs.data_ptr(), hs32.data_ptr(), barrier.data_ptr(), T,
                      B, H, int(reverse), stream)
     else:
-        # h ping-pong buffer (h_0 = 0)
-        hbuf = torch.zeros((2, H, B), device=gx.device, dtype=torch.float32)
+        # the next step copies h_{t-1} from hs itself (TMA, 16-byte base)
         GRU_FWD(gx.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-                hs.data_ptr(), hbuf.data_ptr(), barrier.data_ptr(), T, B, H,
-                int(reverse), stream)
+                hs.data_ptr(), barrier.data_ptr(), T, B, H, int(reverse),
+                stream)
     return hs, hs32
 
 
@@ -322,8 +329,9 @@ def gru_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     db = torch.zeros((G,), device=gx.device, dtype=torch.float32)
     if not (T and B):
         return dgx, dw, db
-    # the dh carry (zero at the start), each entry touched by one thread
-    # only; the step barrier's counter
+    # the dh carry (zero at the start; f32 at B <= 64 keeps it in
+    # registers), each entry touched by one thread only; the step
+    # barrier's counter
     dh_buf = torch.zeros((B, H), device=gx.device, dtype=torch.float32)
     barrier = torch.zeros((1,), device=gx.device, dtype=torch.int32)
     stream = _build.stream_handle(gx.device)
@@ -339,8 +347,8 @@ def gru_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
             GRU_DW_BF16(dgx.data_ptr(), dgn.data_ptr(), hs.data_ptr(),
                         dw.data_ptr(), T, B, H, int(reverse), stream)
     else:
-        # each block's split-K share of dgh @ W_hh, ping-ponged between
-        # steps
+        # each block's split-K share of dgh @ W_hh, (block, unit group, row,
+        # unit), ping-ponged between steps
         part = torch.empty((2, H // F32_UNITS, B, H), device=gx.device,
                            dtype=torch.float32)
         GRU_BWD(gx.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
@@ -350,15 +358,15 @@ def gru_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     return dgx, dw, db
 
 
-def k5_launch_plan(direction: str, H: int, B: int) -> dict:
-    """What a bf16 build of ``direction`` ("fwd", "bwd", "dw") computes for
-    its launch at H, B (its ``*_plan`` entry point): blocks, threads,
-    shared memory bytes, resident blocks an SM, boxes (fwd) / ring buffers
-    (bwd) / stages (dw), rows a block / K rows a stage, registers and local
-    memory bytes a thread. Builds the library; needs the card. Not a
-    launch: it counts nowhere."""
-    kernel = {"fwd": GRU_FWD_BF16, "bwd": GRU_BWD_BF16,
-              "dw": GRU_DW_BF16}[direction]
+def k5_launch_plan(direction: str, H: int, B: int, bf16: bool = True) -> dict:
+    """What a build of ``direction`` ("fwd", "bwd", on bf16 streams also
+    "dw") computes for its launch at H, B (its ``*_plan`` entry point):
+    blocks, threads, shared memory bytes, resident blocks an SM, boxes (fwd;
+    f32 bwd) / ring buffers (bf16 bwd) / stages (dw), rows a block / K rows
+    a stage, registers and local memory bytes a thread. Builds the library;
+    needs the card. Not a launch: it counts nowhere."""
+    kernel = ({"fwd": GRU_FWD_BF16, "bwd": GRU_BWD_BF16, "dw": GRU_DW_BF16}
+              if bf16 else {"fwd": GRU_FWD, "bwd": GRU_BWD})[direction]
     fn = getattr(_build.library(kernel.source), f"{kernel.symbol}_plan")
     args = {"fwd": (H,), "bwd": (H, B), "dw": (H,)}[direction]
     fn.argtypes = [_I] * len(args) + [ctypes.POINTER(ctypes.c_int)]

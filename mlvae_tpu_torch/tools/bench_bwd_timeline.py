@@ -52,12 +52,12 @@ K5-bwd on bf16 streams (``csrc/gru_bwd_bf16.cu``) has a timing build of
 its recurrence with the same define, slots and phases (``WIDE_PHASES``;
 ``dh_stage`` and ``dh_product`` are its exchange of bf16(dgh)), a (T,
 blocks, 10) buffer, at T=160, H=512, B=64 (gate 3's AMP shape) on the
-trajectory of the bf16 K5-fwd; its dgx and db_hh must be bit-equal to
-the normal build's. K5-bwd in f32 (``csrc/gru_bwd.cu``) has one with the
-same define and K1-bwd's slots and phases (``K1_PHASES``: ``partial_dw``
-also sums db_hh), at the same shape in f32 on the trajectory of the f32
-K5-fwd; its dgx, dW_hh and db_hh must be bit-equal to the normal
-build's.
+trajectory of the bf16 K5-fwd; its dgx and db_hh must be bit-equal to the
+normal build's. K5-bwd in f32 (``csrc/gru_bwd.cu``) has one with the same
+define and K1-bwd's slots and phases (``K1_PHASES``; ``loads`` also holds
+thread 0's issue of the next step's copies), at the same shape in f32 on
+the trajectory of the f32 K5-fwd; its dgx, dW_hh and db_hh must be
+bit-equal to the normal build's.
 
 It prints one JSON line naming the card and its power limit, and exits
 non-zero when an output differs. It needs the card and raises without

@@ -69,7 +69,7 @@ _ARGS = {"lstm_fwd": [_P] * 6 + [_I] * 4 + [_P, _P],
          "lstm_fused_fwd": [_P] * 7 + [_I] * 5 + [_P, _P],
          "lstm_fwd_wide_bf16": [_P] * 5 + [_I] * 4 + [_P, _P],
          "gru_fwd_bf16": [_P] * 6 + [_I] * 4 + [_P, _P],
-         "gru_fwd": [_P] * 6 + [_I] * 4 + [_P, _P]}
+         "gru_fwd": [_P] * 5 + [_I] * 4 + [_P, _P]}
 GRU_H = 512           # K5-fwd's shape: gate 3's layers
 GRU_BATCHES = (64,)
 
@@ -275,10 +275,9 @@ def timed_gru(prob, reverse: bool = False):
                               barrier.data_ptr(), Tn, B, Hn, int(reverse),
                               tl.data_ptr(), stream)
     else:
-        hbuf = torch.zeros((2, Hn, B), device=dev, dtype=torch.float32)
         TIMED["gru_fwd"](gx.data_ptr(), w.data_ptr(), b.data_ptr(),
-                         hs.data_ptr(), hbuf.data_ptr(), barrier.data_ptr(),
-                         Tn, B, Hn, int(reverse), tl.data_ptr(), stream)
+                         hs.data_ptr(), barrier.data_ptr(), Tn, B, Hn,
+                         int(reverse), tl.data_ptr(), stream)
     return (hs, hs32), tl
 
 
