@@ -2,7 +2,7 @@
 """Time the port's recurrence kernels and its steps in two checkouts on one
 NVIDIA card, in turns.
 
-    python3 chip_ab.py [--only lstm_bwd|gru] OTHER_CHECKOUT [...]
+    python3 chip_ab.py [--only lstm_bwd] OTHER_CHECKOUT [OTHER_CHECKOUT ...]
 
 runs OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT (with
 several, the others in order, this checkout twice, the others in reverse
@@ -27,9 +27,8 @@ two versions of code that both checkouts have (a parent and its change):
 a change that may slow an earlier path is held against its parent here.
 ``--only lstm_bwd`` times K1-bwd alone (B=64, and its digests at B=64 and
 70 from inputs of their own), to hold the steps of a redesign against
-each other in one run; ``--only gru`` times K5 alone (``time_gru``: its
-digests and times in f32 and on bf16 streams, and gate 3's f32 and AMP
-steps). It needs a CUDA card and exits non-zero without one.
+each other in one run. It needs a CUDA card and exits non-zero without
+one.
 """
 from __future__ import annotations
 
@@ -68,16 +67,6 @@ def time_lstm_bwd(root: Path) -> dict:
             "digest_lstm_bwd_B70": digest(L.lstm_layer_bwd(*bwd70, False)),
             "lstm_bwd": cs.cuda_ms(lambda: L.lstm_layer_bwd(*bwd, False),
                                    iters=20)}
-
-
-def time_only_gru(root: Path) -> dict:
-    """K5 alone in one checkout, in this process: ``time_gru``."""
-    sys.path.insert(0, str(root))
-    import chip_smoke as cs
-    from mlvae_tpu_torch import _build
-    from mlvae_tpu_torch.device import resolve_device
-    _build.build(["gru_fwd", "gru_bwd", "gru_fwd_bf16", "gru_bwd_bf16"])
-    return time_gru(cs, resolve_device(None))
 
 
 def time_checkout(root: Path) -> dict:
@@ -288,17 +277,17 @@ def time_wide_bf16(cs, dev, batch) -> dict:
 def main(argv) -> int:
     if len(argv) in (3, 4) and argv[1] == "--time":
         root = Path(argv[2]).resolve()
-        only = {"lstm_bwd": time_lstm_bwd, "gru": time_only_gru}
-        res = (only[argv[3]] if argv[3:] else time_checkout)(root)
+        res = (time_lstm_bwd(root) if argv[3:] == ["lstm_bwd"]
+               else time_checkout(root))
         print("AB", root, json.dumps(res), flush=True)
         return 0
     args = argv[1:]
     only = []
     if args[:1] == ["--only"]:
-        if args[1:2] not in (["lstm_bwd"], ["gru"]):
+        if args[1:2] != ["lstm_bwd"]:
             print(__doc__, file=sys.stderr)
             return 2
-        only, args = args[1:2], args[2:]
+        only, args = ["lstm_bwd"], args[2:]
     if not args:
         print(__doc__, file=sys.stderr)
         return 2

@@ -24,25 +24,26 @@
 // which needs every unit's dgh before any unit's dh_{t-1} can be formed: a
 // reduction across blocks every step.
 //
-// Design, K1-bwd's (lstm_bwd.cu) with three gates: one persistent
-// cooperative grid of H/4 blocks. Block k owns UNITS=4 hidden units, i.e.
-// 12 gate rows, and keeps those rows of W_hh in shared memory (the
-// recompute) and in registers (the partials), and its 12 rows of dW_hh in
-// registers for the whole sequence: the block owns those rows, so dW_hh
-// and db_hh need no atomics and are deterministic. h_{t-1} comes straight
-// from hs by the TMA into a 128-byte swizzled tile, a box of 32 columns x
-// 64 rows an mbarrier (gru_common.cuh, shared with K5-fwd, as are the
-// recompute's register tiles over all 256 threads and the gate math). The
-// gate thread (row, unit) forms its dgh from its dh carry, writes its
-// columns of dgx[t], and leaves dh z for the carry. One pass over the
-// dgh then writes the block's split-K share of dh_{t-1}, its 12 rows'
-// product partial = dgh[:, rows] @ W_hh[rows, :] (B x H), and adds its
-// share of dW_hh. The partials lie [unit group][row][unit] in a ping-pong
-// buffer, so that a reducing block reads its four units of a row as one
-// float4 and a warp's reads fill whole 32-byte sectors; the writer turns
-// each 4 x 4 of rows and units across a lane quad with shuffles. After the
-// grid barrier each block sums the partials of all blocks for its own four
-// units, through L2 in block order, onto dh z.
+// Design, K1-bwd's (lstm_bwd.cu) with three gates: one persistent cooperative
+// grid of H/4 blocks. Block k owns UNITS=4 hidden units, i.e. 12 gate rows,
+// and keeps those rows of W_hh in shared memory (the recompute) and in
+// registers (the partials), and its 12 rows of dW_hh in registers for the
+// whole sequence: the block owns those rows, so dW_hh and db_hh need no
+// atomics and are deterministic. h_{t-1} comes straight from hs by the TMA
+// into a 128-byte swizzled tile, a box of 32 columns x 64 rows an mbarrier
+// (gru_common.cuh, shared with K5-fwd, as are the recompute's register tiles
+// over all 256 threads and the gate math). The gate thread (row, unit) forms
+// its dgh from its dh carry, writes its columns of dgx[t], and leaves dh z for
+// the carry. One pass over the dgh then writes the block's split-K share of
+// dh_{t-1}, its 12 rows' product partial = dgh[:, rows] @ W_hh[rows, :] (B x
+// H), and adds its share of dW_hh. The partials lie [unit group][row][unit] in
+// a ping-pong buffer, so that a reducing block reads its four units of a row
+// as one float4 and a warp's reads fill whole 32-byte sectors; the writer
+// turns each lane quad's 4 x 4 of rows and units around through shared memory
+// (red_s, free during the pass: a step 1.0 us shorter than with K1-bwd's
+// shuffles at B=64, H=512). After the grid barrier each block sums the
+// partials of all blocks for its own four units, through L2 in block order,
+// onto dh z.
 //
 // The schedule (B <= 64, one tile). Only the dgh, the partials and the reduce
 // lie on the chain of steps: the recompute of step s-1 reads hs and W_hh only.
@@ -80,6 +81,8 @@ namespace {
 constexpr int KPT = 3;                   // columns of H a thread, at most
 constexpr int RED = 4;                   // lanes that sum one row's partials
 constexpr int DBT = 32;                  // the first of db_hh's 12 threads
+constexpr int XQ = 20;   // a quad's transpose scratch: 16 floats, padded
+static_assert(THREADS / 32 * 8 * XQ <= KSPLIT * ROWS * RP, "fits red_s");
 static_assert(RED == UNITS, "a reducing lane ends with its own unit");
 static_assert(ROWS % 4 == 0, "dgh rows are read as float4");
 
@@ -95,31 +98,9 @@ bool takes(int T, int B, int H) {
          B >= 1 && bwd_smem_bytes(H) <= SMEM_LIMIT;
 }
 
-// A 4 x 4 transpose across the quad of lanes holding v: lane u (its place
-// in the quad) ends with v[j] = the v[u] of lane j. Two butterflies: the
-// 2 x 2 blocks across lanes u ^ 2, then the entries within them across
-// lanes u ^ 1.
-__device__ __forceinline__ void quad_transpose(float (&v)[4], int u) {
-  const bool hi = u & 2;
-  const float a0 = __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[2], 2);
-  const float a1 = __shfl_xor_sync(0xffffffffu, hi ? v[1] : v[3], 2);
-  if (hi) {
-    v[0] = a0;
-    v[1] = a1;
-  } else {
-    v[2] = a0;
-    v[3] = a1;
-  }
-  const bool lo = u & 1;
-  const float b0 = __shfl_xor_sync(0xffffffffu, lo ? v[0] : v[1], 1);
-  const float b1 = __shfl_xor_sync(0xffffffffu, lo ? v[2] : v[3], 1);
-  if (lo) {
-    v[0] = b0;
-    v[2] = b1;
-  } else {
-    v[1] = b0;
-    v[3] = b1;
-  }
+// 1 - n^2, its contraction pinned as the single-copy design compiled it.
+__device__ __forceinline__ float one_minus_sq(float n) {
+  return __fmaf_rn(-n, n, 1.0f);
 }
 
 // The gate thread's inputs of one step: gx's three gates, h_{t-1} and the
@@ -296,12 +277,16 @@ gru_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
   // One pass over the tile's nb rows from b0 and this thread's columns k:
   // partial[b][k] = sum_row dgh[b][row] * W_hh[row][k], rows in order,
   // into part_s [H/4][B][4] (the quad of lanes that holds four rows of
-  // units k - k % 4 .. + 3 turns them around, so that lane u stores row
-  // bb + u's four units as one float4), and dW_hh[rows][k] += sum_b
-  // dgh[b][row] * h_{t-1}[b][k], rows in order. The partials' stores drain
-  // behind dW's products.
+  // units k - k % 4 .. + 3 turns them around through shared memory, so
+  // that lane u stores row bb + u's four units as one float4), and
+  // dW_hh[rows][k] += sum_b dgh[b][row] * h_{t-1}[b][k], rows in order. The
+  // partials' stores drain behind dW's products.
   auto partial_dw = [&](float* part_s, int b0, int nb) {
     const int u = tid & 3;
+    // the quad's 4 x 4 of rows and units turned around in red_s, free
+    // between the gate math and the next recompute: [quad][row][unit] a
+    // warp, quads XQ floats apart
+    float* xq = red_s + (tid >> 5) * (8 * XQ) + ((tid & 31) >> 2) * XQ;
 #pragma unroll 2  // two groups of rows in flight
     for (int bb = 0; bb < nb; bb += 4) {
       float dgv[4][ROWS];
@@ -318,11 +303,14 @@ gru_bwd_kernel(const float* __restrict__ gx, const float* __restrict__ w_hh,
             for (int q = 0; q < ROWS; ++q) p = fmaf(dgv[r][q], wr[kk][q], p);
             v[r] = p;
           }
-          quad_transpose(v, u);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) xq[r * UNITS + u] = v[r];
+          __syncwarp();
+          const float4 t = *reinterpret_cast<const float4*>(xq + u * UNITS);
+          __syncwarp();
           if (k < H && bb + u < nb)
             *reinterpret_cast<float4*>(
-                part_s + ((size_t)(k >> 2) * B + b0 + bb + u) * UNITS) =
-                make_float4(v[0], v[1], v[2], v[3]);
+                part_s + ((size_t)(k >> 2) * B + b0 + bb + u) * UNITS) = t;
         }
         if (k < H) {
           float hb[4];

@@ -179,16 +179,6 @@ __device__ __forceinline__ float new_gate(float gx_n, float r, float hn) {
   return tanhf(__fmaf_rn(r, hn, gx_n));
 }
 
-// h_t = (1 - z) * n + z * h_{t-1}, pinned likewise.
-__device__ __forceinline__ float new_state(float z, float n, float h_old) {
-  return __fmaf_rn(__fsub_rn(1.0f, z), n, __fmul_rn(z, h_old));
-}
-
-// 1 - n^2, pinned likewise (K5-bwd).
-__device__ __forceinline__ float one_minus_sq(float n) {
-  return __fmaf_rn(-n, n, 1.0f);
-}
-
 // The 3-D tensor map over hs (T, B, H) f32: boxes of 32 columns x 64 rows
 // of one position, zeros past B and H, 128-byte swizzled.
 inline cudaError_t hs_map(CUtensorMap* map, const float* hs, int T, int B,

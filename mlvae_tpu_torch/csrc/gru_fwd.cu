@@ -51,6 +51,12 @@ size_t fwd_smem_bytes(int H) {
   return sizeof(float) * common_floats(H) + sizeof(uint64_t) * n_boxes(H);
 }
 
+// h_t = (1 - z) * n + z * h_{t-1}, its contraction pinned as the
+// single-copy design compiled it.
+__device__ __forceinline__ float new_state(float z, float n, float h_old) {
+  return __fmaf_rn(__fsub_rn(1.0f, z), n, __fmul_rn(z, h_old));
+}
+
 bool takes(int T, int B, int H) {
   return H % (UNITS * KSPLIT) == 0 && T >= 1 && B >= 1 &&
          fwd_smem_bytes(H) <= SMEM_LIMIT;

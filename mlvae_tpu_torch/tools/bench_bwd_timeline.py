@@ -350,33 +350,29 @@ def timed_gru(prob, reverse: bool = False):
     return (dgx, dw, db), tl
 
 
-def gru_rows(dev, iters: int, dtypes=(True, False)):
+def gru_rows(dev, iters: int):
     """The rows of K5-bwd at gate 3's shape: its bf16 recurrence, then its
-    f32 build (``dtypes``: bf16 flags)."""
+    f32 build."""
     rows = []
-    for bf16 in dtypes:
+    for bf16 in (True, False):
         for B in ftl.GRU_BATCHES:
-            rows.append(gru_row(gru_problem(dev, B, bf16=bf16), iters))
+            prob = gru_problem(dev, B, bf16=bf16)
+            want = G.gru_layer_bwd(*prob)
+            got, tl = timed_gru(prob)
+            torch.cuda.synchronize()
+            if bf16:         # the recurrence's outputs: dgx and db_hh
+                want = (want[0], want[2])
+            ms = cuda_ms(lambda: G.gru_layer_bwd(*prob), iters)
+            rows.append({
+                "kernel": "gru_bwd_bf16" if bf16 else "gru_bwd", "B": B,
+                "T": T, "H": ftl.GRU_H,
+                "bit_equal_to_normal_build": all(
+                    torch.equal(a, c) for a, c in zip(got, want)),
+                "ms": ms, "us_a_step_total": ms * 1e3 / T,
+                "ms_timing_build": cuda_ms(lambda: timed_gru(prob), iters),
+                "us_a_step": ftl.phase_split(
+                    tl.cpu(), WIDE_PHASES if bf16 else K1_PHASES)})
     return rows
-
-
-def gru_row(prob, iters: int):
-    bf16 = prob[0].dtype == torch.bfloat16
-    want = G.gru_layer_bwd(*prob)
-    got, tl = timed_gru(prob)
-    torch.cuda.synchronize()
-    if bf16:                 # the recurrence's outputs: dgx and db_hh
-        want = (want[0], want[2])
-    ms = cuda_ms(lambda: G.gru_layer_bwd(*prob), iters)
-    return {
-        "kernel": "gru_bwd_bf16" if bf16 else "gru_bwd",
-        "B": prob[0].shape[1], "T": T, "H": ftl.GRU_H,
-        "bit_equal_to_normal_build": all(
-            torch.equal(a, c) for a, c in zip(got, want)),
-        "ms": ms, "us_a_step_total": ms * 1e3 / T,
-        "ms_timing_build": cuda_ms(lambda: timed_gru(prob), iters),
-        "us_a_step": ftl.phase_split(tl.cpu(),
-                                     WIDE_PHASES if bf16 else K1_PHASES)}
 
 
 def make_problem(dev, In: int, B: int, seed: int = 0):

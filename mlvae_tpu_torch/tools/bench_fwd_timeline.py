@@ -281,32 +281,27 @@ def timed_gru(prob, reverse: bool = False):
     return (hs, hs32), tl
 
 
-def gru_rows(dev, iters: int, dtypes=(True, False)):
+def gru_rows(dev, iters: int):
     """The rows of K5-fwd at gate 3's shape: its bf16 build, then its f32
-    build (``dtypes``: bf16 flags)."""
+    build."""
     rows = []
-    for bf16 in dtypes:
+    for bf16 in (True, False):
         for B in GRU_BATCHES:
             prob = gru_problem(dev, B, bf16=bf16)
-            rows.append(gru_row(prob, iters))
+            want = G.gru_layer_fwd(*prob)
+            got, tl = timed_gru(prob)
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: G.gru_layer_fwd(*prob), iters)
+            rows.append({
+                "kernel": "gru_fwd_bf16" if bf16 else "gru_fwd", "In": None,
+                "B": B, "T": T, "H": GRU_H,
+                "bit_equal_to_normal_build": all(
+                    torch.equal(a, c) for a, c in zip(got, want)
+                    if c is not None),
+                "ms": ms, "us_a_step": ms * 1e3 / T,
+                "ms_timing_build": cuda_ms(lambda: timed_gru(prob), iters),
+                "phases_us_a_step": phase_split(tl.cpu())})
     return rows
-
-
-def gru_row(prob, iters: int):
-    gx = prob[0]
-    B = gx.shape[1]
-    want = G.gru_layer_fwd(*prob)
-    got, tl = timed_gru(prob)
-    torch.cuda.synchronize()
-    ms = cuda_ms(lambda: G.gru_layer_fwd(*prob), iters)
-    return {
-        "kernel": "gru_fwd_bf16" if gx.dtype == torch.bfloat16
-        else "gru_fwd", "In": None, "B": B, "T": T, "H": GRU_H,
-        "bit_equal_to_normal_build": all(
-            torch.equal(a, c) for a, c in zip(got, want) if c is not None),
-        "ms": ms, "us_a_step": ms * 1e3 / T,
-        "ms_timing_build": cuda_ms(lambda: timed_gru(prob), iters),
-        "phases_us_a_step": phase_split(tl.cpu())}
 
 
 def bench(dev, iters: int = 10, cases=CASES) -> Dict:

@@ -256,13 +256,3 @@ def test_chip_smoke_gru_yard_rehearsed_on_the_cpu(smoke):
         rows[3]["ms"] - rows[4]["ms"])
     # the kernel and cuDNN in turns: kernel, cuDNN, cuDNN, kernel
     assert calls.count(10) >= 4 * 4
-
-
-def test_chip_ab_takes_only_its_known_subsets(monkeypatch, capsys):
-    monkeypatch.syspath_prepend(str(REPO))
-    import chip_ab
-    assert chip_ab.main(["chip_ab.py", "--only", "gru"]) == 2
-    assert chip_ab.main(["chip_ab.py", "--only", "k5", str(REPO)]) == 2
-    assert chip_ab.main(["chip_ab.py", "--only", "gru",
-                         str(REPO / "tests")]) == 2
-    assert "--only lstm_bwd|gru" in capsys.readouterr().err
