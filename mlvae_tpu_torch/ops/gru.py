@@ -358,7 +358,7 @@ def gru_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     return dgx, dw, db
 
 
-def k5_launch_plan(direction: str, H: int, B: int, bf16: bool = True) -> dict:
+def k5_launch_plan(direction: str, H: int, B: int, bf16: bool) -> dict:
     """What a build of ``direction`` ("fwd", "bwd", on bf16 streams also
     "dw") computes for its launch at H, B (its ``*_plan`` entry point):
     blocks, threads, shared memory bytes, resident blocks an SM, boxes (fwd;
