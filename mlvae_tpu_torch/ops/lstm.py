@@ -38,7 +38,8 @@ import ctypes
 import torch
 
 from mlvae_tpu_torch import _build
-from mlvae_tpu_torch.ops.k1_plan import k1_bwd_plan, k1_fwd_plan
+from mlvae_tpu_torch.ops.k1_plan import (NARROW_MAX_H, k1_bwd_plan,
+                                         k1_dw_plan, k1_fwd_plan)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -546,7 +547,16 @@ def semi_input_grads(x, w_ih, dgx):
 def _check_fused(name, x, w_ih, bias, w_hh, extra=()) -> None:
     """A fused kernel's inputs: one CUDA device, bf16 streams (x, the
     weights, hs, dhs) and f32 bias / cells / dc_last, contiguous, shapes
-    (T, B, In), (4H, In), (4H,), (4H, H), In a multiple of 8 and H of 16."""
+    (T, B, In), (4H, In), (4H,), (4H, H), In a multiple of 8 and H of 16.
+    H above 528 is refused before the rest: every fused kernel keeps H/4
+    blocks of one cooperative grid resident, one an SM of an H100's 132."""
+    H = w_hh.shape[-1]
+    if H > NARROW_MAX_H:
+        raise NotImplementedError(
+            f"{name}: H={H} above {NARROW_MAX_H}: the fused kernels keep H/4 "
+            "blocks of one cooperative grid resident, one an SM of an "
+            "H100's 132, and have no wide build (ROADMAP.md queue 2, 'Still "
+            "to port')")
     tensors = (x, w_ih, bias, w_hh) + tuple(extra)
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -566,7 +576,6 @@ def _check_fused(name, x, w_ih, bias, w_hh, extra=()) -> None:
     if x.dim() != 3:
         raise ValueError(f"{name}: x {tuple(x.shape)} is not (T, B, In)")
     T, B, In = x.shape
-    H = w_hh.shape[-1]
     if (w_hh.shape != (4 * H, H) or w_ih.shape != (4 * H, In)
             or bias.shape != (4 * H,)):
         raise ValueError(f"{name}: w_ih {tuple(w_ih.shape)}, bias "

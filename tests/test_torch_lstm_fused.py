@@ -323,3 +323,38 @@ def test_fused_wrappers_take_the_plain_version_only_on_the_cpu():
             fn(x, wi, b, wh, torch.empty((T, B, H), **m), cs,
                torch.empty((T, B, H), **m), torch.empty((B, H),
                                                         device="meta"))
+
+
+@pytest.mark.parametrize("name", ["lstm_fused_fwd", "lstm_fused_bwd",
+                                  "lstm_semi_bwd"])
+def test_fused_wrappers_refuse_h_above_528_before_the_device(name):
+    """A bf16 layer at H=640 fits the fused tiers' budget (``fused_tier``
+    sends In=128 to ``LSTMFused`` and In=640 to ``LSTMSemiFused``), but the
+    fused kernels keep H/4 blocks resident, 132 at most on an H100: the
+    wrappers refuse it naming ROADMAP queue 2 before they look at the
+    device, and H=528, the widest grid that fits, reaches the device
+    check."""
+    from mlvae_tpu_torch.nn.rnn import fused_tier
+    assert fused_tier(128, 640, torch.bfloat16) is pl.LSTMFused
+    assert fused_tier(640, 640, torch.bfloat16) is pl.LSTMSemiFused
+    fn = getattr(pl, name)
+
+    def call(H):
+        T, B, In = 3, 2, 128
+        m = dict(device="meta", dtype=torch.bfloat16)
+        args = (torch.empty((T, B, In), **m), torch.empty((4 * H, In), **m),
+                torch.empty((4 * H,), device="meta"),
+                torch.empty((4 * H, H), **m))
+        if name != "lstm_fused_fwd":
+            args += (torch.empty((T, B, H), **m),
+                     torch.empty((T, B, H), device="meta"),
+                     torch.empty((T, B, H), **m),
+                     torch.empty((B, H), device="meta"))
+        return fn(*args)
+
+    for H in (544, 640, 1024):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 2, 'Still to port'"):
+            call(H)
+    with pytest.raises(ValueError, match="CUDA device"):
+        call(528)
