@@ -2612,7 +2612,7 @@ def time_bwd_timeline(dev, report):
                    f"r={k[4:]} {v['us_a_step']['step']:.2f} ({v['ms']:.4f})"
                    for k, v in r["ablation"].items()))
     for r in [*res["lstm_bwd"], *res["lstm_bwd_wide_bf16"],
-              *res["gru"]]:
+              *res["lstm_bwd_wide"], *res["gru"]]:
         report(f"  timeline {r['kernel']} H={r['H']} B={r['B']}: "
                f"{r['ms']:.4f} ms ({r['us_a_step_total']:.2f} us a step), "
                f"timing build {r['ms_timing_build']:.4f}; us a step, median "
@@ -2621,7 +2621,7 @@ def time_bwd_timeline(dev, report):
                    for k, v in r["us_a_step"].items()))
     bad = [r["kernel"] for r in [*res["rows"], *res["lstm_bwd"],
                                  *res["lstm_bwd_wide_bf16"],
-                                 *res["gru"]]
+                                 *res["lstm_bwd_wide"], *res["gru"]]
            if not r["bit_equal_to_normal_build"]]
     check(not bad, f"the timing build differs from the normal build: {bad}")
     return res

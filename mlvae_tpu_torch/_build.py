@@ -40,15 +40,15 @@ SOURCES = ("lstm_fwd", "lstm_bwd", "md_viterbi", "lstm_fused_fwd",
 # with it the ablation that reads only the first r rows of each staged chunk
 # from L2 (r = 0, 32; wrong outputs by design); K1-bwd, the wide K1-bwd on
 # bf16 streams and K5-bwd on bf16 streams with their own step timeline in
-# the same tool (their own define), and so K5-bwd in f32; the forwards
-# K1-fwd, K3/K4-fwd, the wide K1-fwd and K5-fwd in f32 and on bf16 streams
-# with the step timeline of tools/bench_fwd_timeline.py. No build in
+# the same tool (their own define), and so K5-bwd and the wide K1-bwd in
+# f32; the forwards K1-fwd, K3/K4-fwd, the wide K1-fwd and K5-fwd in f32
+# and on bf16 streams with the step timeline of tools/bench_fwd_timeline.py. No build in
 # SOURCES has any of these defines.
 TIMELINE_DEFINE = "-DMLVAE_BWD_TIMELINE"
 K1_BWD_TIMELINE_DEFINE = "-DMLVAE_K1_BWD_TIMELINE"
 FWD_TIMELINE_DEFINE = "-DMLVAE_FWD_TIMELINE"
 FWD_TIMED = ("lstm_fwd", "lstm_fused_fwd", "lstm_fwd_wide_bf16",
-             "gru_fwd_bf16", "gru_fwd")
+             "gru_fwd_bf16", "gru_fwd", "lstm_fwd_wide")
 ABLATION_ROWS = (0, 32)
 VARIANTS = {f"{src}_timeline{suffix}": (src, [TIMELINE_DEFINE, *flags])
             for src in ("lstm_fused_bwd", "lstm_semi_bwd")
@@ -57,7 +57,7 @@ VARIANTS = {f"{src}_timeline{suffix}": (src, [TIMELINE_DEFINE, *flags])
                 for r in ABLATION_ROWS))}
 VARIANTS.update({f"{src}_timeline": (src, [K1_BWD_TIMELINE_DEFINE])
                  for src in ("lstm_bwd", "lstm_bwd_wide_bf16",
-                             "gru_bwd_bf16", "gru_bwd")})
+                             "gru_bwd_bf16", "gru_bwd", "lstm_bwd_wide")})
 VARIANTS.update({f"{src}_timeline": (src, [FWD_TIMELINE_DEFINE])
                  for src in FWD_TIMED})
 

@@ -54,7 +54,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bwd_timeline.cuh"
 #include "grid_sync.cuh"
+
+// The step timeline (bwd_timeline.cuh, only with -DMLVAE_K1_BWD_TIMELINE):
+// stage is thread 0's wait for each chunk of the recompute, recompute the
+// rest of product(), cell the dgates and their stores, slot 5 partial_dw
+// the partials and dW_hh with dW's copies of h_{t-1}, wait the grid
+// barrier (not split: barrier is the same span), slot 7 reduce.
+#ifdef MLVAE_K1_BWD_TIMELINE
+enum { TL_PARTIAL_DW = 5, TL_REDUCE = 7 };
+#endif
 #include "lstm_wide.cuh"
 
 namespace {
@@ -108,7 +118,7 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
                      const float* __restrict__ hst, float* __restrict__ dgx,
                      float* __restrict__ dw_hh, float* part, float* dh_buf,
                      float* dc_buf, unsigned int* barrier, int T, int B,
-                     int H, int reverse) {
+                     int H, int reverse TL_ARG) {
   extern __shared__ __align__(16) float smem[];
   const Smem sm = carve(smem, H);
   const int tid = threadIdx.x;
@@ -134,8 +144,10 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
   const float4* w4 = reinterpret_cast<const float4*>(sm.w);
   const float4* dg4 = reinterpret_cast<const float4*>(sm.dg);
   unsigned int arrivals = 0;
+  TL_CLOCK;
 
   for (int s = T - 1; s >= 0; --s) {
+    TL_BEGIN();
     const bool first = s == 0;  // h_{t-1} = c_{t-1} = 0
     const int t = reverse ? T - 1 - s : s;
     const int tp = reverse ? t + 1 : t - 1;
@@ -145,7 +157,10 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
     for (int b0 = 0; b0 < B; b0 += BT) {
       const int nb = min(BT, B - b0);
       const int b = b0 + cb;
-      if (!first) product<TB, TR>(sm, h_prev, H, Bp, b0);
+      if (!first)
+        product<TB, TR>(sm, h_prev, H, Bp, b0, [&](bool staged) {
+          TL_MARK(staged ? TL_STAGE : TL_RECOMPUTE);
+        });
 
       // the cell: dgates to dgx[t] and dg_s (zero past the tile's end)
 #pragma unroll
@@ -194,6 +209,7 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
           sm.dg[cb * ROWS + q * UNITS + uu] = dg[q];
       }
       __syncthreads();  // dg_s written, red_s (the ring) read
+      TL_MARK(TL_CELL);
       if (first) continue;
 
       // h_{t-1} lands again, eight rows a chunk, while the partials form
@@ -268,9 +284,16 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
         __syncthreads();  // the buffer is free
         if (c + RING < nbc) stage_rows(sm.ring, hs_prev, B, H, b0, c + RING);
       }
+      TL_MARK(TL_PARTIAL_DW);
     }
-    if (first) break;
+    if (first) {
+      TL_STORE(s);
+      break;
+    }
+    TL_ARRIVED();
     grid_barrier(barrier, ++arrivals * nblk);
+    TL_MARK(TL_WAIT);
+    TL_WAITED();
 
     // dh_{t-1} for row b0 + cb, units cu and cu + 1: the partials of every
     // block through L2 in block order, four lanes a row, then shuffles
@@ -308,6 +331,8 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
           dh_buf[(size_t)b * H + u0 + cu + e] = acc[cu + e];
       }
     }
+    TL_MARK(TL_REDUCE);
+    TL_STORE(s);
   }
 
   if (kq < H) {
@@ -359,13 +384,18 @@ int mlvae_lstm_bwd_wide_plan(int H, int B, int* out) {
 // unit group, row, unit); dh_buf (B,H) zeroed and dc_buf (B,H) holding
 // dc_last, both scratch; hst (T,H,Bp) f32 scratch for hs transposed, Bp =
 // B rounded up to 4; barrier one zeroed counter. Two launches on the
-// stream: the transpose, then the recurrence. Returns a cudaError_t.
-int mlvae_lstm_bwd_wide(const float* gx, const float* w_hh, const float* hs,
-                        const float* cs, const float* dhs, float* dgx,
-                        float* dw_hh, float* part, float* dh_buf,
-                        float* dc_buf, float* hst, unsigned int* barrier,
-                        int T, int B, int H, int reverse,
-                        cudaStream_t stream) {
+// stream: the transpose, then the recurrence. Returns a cudaError_t. The
+// timing build (MLVAE_K1_BWD_TIMELINE) is mlvae_lstm_bwd_wide_timeline,
+// which also takes the (T, H/8, 10) u64 timeline before the stream.
+#ifdef MLVAE_K1_BWD_TIMELINE
+int mlvae_lstm_bwd_wide_timeline(
+#else
+int mlvae_lstm_bwd_wide(
+#endif
+    const float* gx, const float* w_hh, const float* hs, const float* cs,
+    const float* dhs, float* dgx, float* dw_hh, float* part, float* dh_buf,
+    float* dc_buf, float* hst, unsigned int* barrier, int T, int B, int H,
+    int reverse TL_ARG, cudaStream_t stream) {
   if (!takes(T, B, H)) return cudaErrorInvalidValue;
   const int Bp = pitch_of(B);
   transpose_hs<<<dim3((H + 31) / 32, (Bp + 31) / 32, T), dim3(32, 8), 0,
@@ -378,7 +408,12 @@ int mlvae_lstm_bwd_wide(const float* gx, const float* w_hh, const float* hs,
                   (void*)&dgx,
                   (void*)&dw_hh, (void*)&part,   (void*)&dh_buf,
                   (void*)&dc_buf, (void*)&barrier, (void*)&T,
-                  (void*)&B,     (void*)&H,      (void*)&reverse};
+                  (void*)&B,     (void*)&H,      (void*)&reverse
+#ifdef MLVAE_K1_BWD_TIMELINE
+                  ,
+                  (void*)&timeline
+#endif
+  };
   return launch_cooperative(lstm_bwd_wide_kernel, H / UNITS, THREADS, args,
                             smem_bytes(H, true), stream);
 }

@@ -32,7 +32,15 @@
 // warps.
 #include <cuda_runtime.h>
 
+#include "fwd_timeline.cuh"
 #include "grid_sync.cuh"
+
+// The step timeline (fwd_timeline.cuh, only with -DMLVAE_FWD_TIMELINE):
+// stage is thread 0's wait for each chunk (its copies and the block
+// barrier after them), product the rest of product() (the FMAs, the
+// barrier that frees each buffer and the slice-sum pass), cell the cell
+// update and its stores, barrier the grid barrier's wait, offchain the
+// next step's gx loads between its arrival and wait.
 #include "lstm_wide.cuh"
 
 namespace {
@@ -46,7 +54,7 @@ lstm_fwd_wide_kernel(const float* __restrict__ gx,
                      const float* __restrict__ w_hh, float* __restrict__ hs,
                      float* __restrict__ cs, float* hbuf,
                      unsigned int* barrier, int T, int B, int H,
-                     int reverse) {
+                     int reverse FWD_TIMELINE_ARG) {
   extern __shared__ __align__(16) float smem[];
   const Smem sm = carve(smem, H);
   const int tid = threadIdx.x;
@@ -74,9 +82,11 @@ lstm_fwd_wide_kernel(const float* __restrict__ gx,
     }
   };
   load_gx0(0);
+  FWD_CLOCK;
 
   unsigned int arrivals = 0;
   for (int s = 0; s < T; ++s) {
+    FWD_BEGIN();
     const int t = reverse ? T - 1 - s : s;
     const int tp = reverse ? t + 1 : t - 1;  // previous processed position
     const float* h_prev = hbuf + (size_t)(s & 1) * H * Bp;
@@ -84,7 +94,10 @@ lstm_fwd_wide_kernel(const float* __restrict__ gx,
     for (int i = 0; i < ntiles; ++i) {
       const int b0 = i * BT;
       const int b = b0 + cb;
-      if (s > 0) product<TB, TR>(sm, h_prev, H, Bp, b0);
+      if (s > 0)
+        product<TB, TR>(sm, h_prev, H, Bp, b0, [&](bool staged) {
+          FWD_MARK(staged ? FWD_STAGE : FWD_PRODUCT);
+        });
       if (b < B) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -116,13 +129,18 @@ lstm_fwd_wide_kernel(const float* __restrict__ gx,
         }
       }
       __syncthreads();  // red_s (the ring) read before the next product
+      FWD_MARK(FWD_CELL);
     }
     grid_arrive(barrier);
     ++arrivals;
+    FWD_MARK(FWD_CELL);
     if (s + 1 < T) {
       load_gx0(s + 1);  // needs no other block's writes
+      FWD_MARK(FWD_OFFCHAIN);
       grid_wait(barrier, arrivals * gridDim.x, 0, THREADS);
+      FWD_MARK(FWD_BARRIER);
     }
+    FWD_STORE(s, 0);
   }
 }
 
@@ -166,14 +184,26 @@ int mlvae_lstm_fwd_wide_plan(int H, int B, int* out) {
 
 // As mlvae_lstm_fwd: gx (T,B,4H) f32, w_hh (4H,H) f32, hs/cs (T,B,H) f32
 // outputs, hbuf (2,H,Bp) f32 scratch zeroed (Bp = B rounded up to 4),
-// barrier one zeroed counter. Returns a cudaError_t.
-int mlvae_lstm_fwd_wide(const float* gx, const float* w_hh, float* hs,
-                        float* cs, float* hbuf, unsigned int* barrier, int T,
-                        int B, int H, int reverse, cudaStream_t stream) {
+// barrier one zeroed counter. Returns a cudaError_t. The timing build
+// (MLVAE_FWD_TIMELINE) is mlvae_lstm_fwd_wide_timeline, which also takes
+// the (T, H/8, 8) u64 timeline before the stream.
+#ifdef MLVAE_FWD_TIMELINE
+int mlvae_lstm_fwd_wide_timeline(
+#else
+int mlvae_lstm_fwd_wide(
+#endif
+    const float* gx, const float* w_hh, float* hs, float* cs, float* hbuf,
+    unsigned int* barrier, int T, int B, int H, int reverse FWD_TIMELINE_ARG,
+    cudaStream_t stream) {
   if (!takes(T, B, H)) return cudaErrorInvalidValue;
   void* args[] = {(void*)&gx, (void*)&w_hh,    (void*)&hs, (void*)&cs,
                   (void*)&hbuf, (void*)&barrier, (void*)&T, (void*)&B,
-                  (void*)&H,  (void*)&reverse};
+                  (void*)&H,  (void*)&reverse
+#ifdef MLVAE_FWD_TIMELINE
+                  ,
+                  (void*)&timeline
+#endif
+  };
   return launch_cooperative(lstm_fwd_wide_kernel, H / UNITS, THREADS, args,
                             smem_bytes(H, false), stream);
 }

@@ -164,9 +164,11 @@ __device__ __forceinline__ const float* chunk_ready(float* ring, int c,
 // rows, the slab h staged chunk by chunk, with TB x TR register tiles:
 // the K slices' sums into red_s [ks][row][gate row]. Returns after a
 // barrier: red_s is written (the ring is taken until the cell reads it).
-template <int TB, int TR>
+// mark(true) ends each wait for a chunk and mark(false) each stretch of
+// product work (the step timeline's marks; a no-op in the normal builds).
+template <int TB, int TR, typename Mark>
 __device__ inline void product(const Smem& sm, const float* h, int H, int Bp,
-                               int b0) {
+                               int b0, Mark mark) {
   constexpr int KS = TB * TR * THREADS / (BT * ROWS);  // K slices
   constexpr int NBG = BT / TB;                          // batch groups
   constexpr int PER = THREADS / KS;                     // threads a slice
@@ -185,7 +187,9 @@ __device__ inline void product(const Smem& sm, const float* h, int H, int Bp,
     for (int r = 0; r < TR; ++r) acc[b][r] = 0.0f;
   for (int c = 0; c < RING && c < nc; ++c) stage(sm.ring, h, H, Bp, c, b0);
   for (int c = 0; c < nc; ++c) {
+    mark(false);
     const float* buf = chunk_ready(sm.ring, c, nc);
+    mark(true);
     const int part = min(CHUNK, H - c * CHUNK) / KS;
     const int kb = c * CHUNK + ks * part;  // this slice's first k
     const float* hb = buf + (size_t)ks * part * PITCH + bg * 4;
@@ -258,6 +262,7 @@ __device__ inline void product(const Smem& sm, const float* h, int H, int Bp,
     }
   }
   __syncthreads();
+  mark(false);
 }
 
 // The recurrent part of the cell thread's pre-activation of gate q for its

@@ -1,5 +1,5 @@
 """A step timeline of the LSTM backwards (K3-bwd, K4-bwd, K1-bwd, the wide
-K1-bwd on bf16 streams) on the card.
+K1-bwd in f32 and on bf16 streams) and K5-bwd on the card.
 
     python -m mlvae_tpu_torch.tools.bench_bwd_timeline [--iters N]
 
@@ -59,6 +59,11 @@ thread 0's issue of the next step's copies), at the same shape in f32 on
 the trajectory of the f32 K5-fwd; its dgx, dW_hh and db_hh must be
 bit-equal to the normal build's.
 
+The wide K1-bwd in f32 (``csrc/lstm_bwd_wide.cu``) has one too, with
+K1-bwd's define, slots and phases (``K1_PHASES``), a (T, H/8, 10) buffer,
+at T=160, H=1024, B=64 (LSTM_FC's f32 shape) on the trajectory of the f32
+wide K1-fwd; its dgx and dW_hh must be bit-equal to the normal build's.
+
 It prints one JSON line naming the card and its power limit, and exits
 non-zero when an output differs. It needs the card and raises without
 CUDA.
@@ -113,6 +118,7 @@ _K1_ARGS = [_P] * 11 + [_I] * 4 + [_P, _P]
 _WIDE_ARGS = [_P] * 9 + [_I] * 4 + [_P, _P]
 _GRU_ARGS = [_P] * 11 + [_I] * 4 + [_P, _P]
 _GRU_F32_ARGS = [_P] * 11 + [_I] * 4 + [_P, _P]
+_WIDE_F32_ARGS = [_P] * 12 + [_I] * 4 + [_P, _P]
 
 
 def _timed(name: str, rows: Optional[int] = None) -> _build.Kernel:
@@ -134,6 +140,9 @@ TIMED["gru_bwd_bf16"] = _build.Kernel(
     "mlvae_gru_bwd_bf16_timeline", _GRU_ARGS)
 TIMED["gru_bwd"] = _build.Kernel("gru_bwd_timeline", "gru_bwd_timeline",
                                  "mlvae_gru_bwd_timeline", _GRU_F32_ARGS)
+TIMED["lstm_bwd_wide"] = _build.Kernel(
+    "lstm_bwd_wide_timeline", "lstm_bwd_wide_timeline",
+    "mlvae_lstm_bwd_wide_timeline", _WIDE_F32_ARGS)
 ABLATED = {(name, r): _timed(name, r) for name in _ARGS
            for r in _build.ABLATION_ROWS}
 
@@ -251,18 +260,19 @@ def k1_rows(dev, iters: int):
     return rows
 
 
-def wide_problem(dev, B: int, seed: int = 0):
-    """A bf16 wide K1-bwd input at T, H=1024: gx N(0, 0.5^2), W_hh
-    U(+-1/sqrt(H)) and cotangents N(0, 0.1^2) for every h in bf16, the
-    trajectory from the bf16 K1-fwd, an f32 cotangent for the final c."""
+def wide_problem(dev, B: int, seed: int = 0, bf16: bool = True):
+    """A wide K1-bwd input at T, H=1024: gx N(0, 0.5^2), W_hh
+    U(+-1/sqrt(H)) and cotangents N(0, 0.1^2) for every h in bf16 (or f32
+    with ``bf16`` false), the trajectory from the wide K1-fwd of that
+    dtype, an f32 cotangent for the final c."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    bf = torch.bfloat16
+    dt = torch.bfloat16 if bf16 else torch.float32
     gx = (torch.randn((T, B, 4 * WIDE_H), generator=g, device=dev)
-          * 0.5).to(bf)
+          * 0.5).to(dt)
     w = ((torch.rand((4 * WIDE_H, WIDE_H), generator=g, device=dev) * 2 - 1)
-         / WIDE_H ** 0.5).to(bf)
+         / WIDE_H ** 0.5).to(dt)
     hs, cs = L.lstm_layer_fwd(gx, w)
-    dhs = (torch.randn((T, B, WIDE_H), generator=g, device=dev) * 0.1).to(bf)
+    dhs = (torch.randn((T, B, WIDE_H), generator=g, device=dev) * 0.1).to(dt)
     dc_last = torch.randn((B, WIDE_H), generator=g, device=dev) * 0.1
     return gx, w, hs, cs, dhs, dc_last
 
@@ -284,6 +294,45 @@ def timed_wide(prob, reverse: bool = False):
         barrier.data_ptr(), Tn, B, Hn, int(reverse), tl.data_ptr(),
         _build.stream_handle(dev))
     return dgx, tl
+
+
+def timed_wide_f32(prob, reverse: bool = False):
+    """The f32 wide K1-bwd's timing build on ``prob``: ((dgx, dW_hh), as
+    ``lstm_layer_bwd``'s, and the (T, H/8, 10) int64 timeline)."""
+    gx, w, hs, cs, dhs, dc_last = prob
+    Tn, B, G = gx.shape
+    Hn = G // 4
+    dev = gx.device
+    tl = torch.zeros((Tn, Hn // 8, K1_SLOTS), device=dev, dtype=torch.int64)
+    dgx = torch.empty_like(gx)
+    dw = torch.zeros((G, Hn), device=dev, dtype=torch.float32)
+    part, dh_buf, dc_buf, barrier = L.k1_bwd_scratch(gx, dc_last)
+    slab = L.k1_bwd_hs_slab(hs)
+    TIMED["lstm_bwd_wide"](
+        gx.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+        dhs.data_ptr(), dgx.data_ptr(), dw.data_ptr(), part.data_ptr(),
+        dh_buf.data_ptr(), dc_buf.data_ptr(), slab.data_ptr(),
+        barrier.data_ptr(), Tn, B, Hn, int(reverse), tl.data_ptr(),
+        _build.stream_handle(dev))
+    return (dgx, dw), tl
+
+
+def wide_f32_rows(dev, iters: int):
+    rows = []
+    for B in K1_BATCHES:
+        prob = wide_problem(dev, B, bf16=False)
+        want = L.lstm_layer_bwd(*prob)
+        got, tl = timed_wide_f32(prob)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: L.lstm_layer_bwd(*prob), iters)
+        rows.append({
+            "kernel": "lstm_bwd_wide", "B": B, "T": T, "H": WIDE_H,
+            "bit_equal_to_normal_build": all(
+                torch.equal(a, b) for a, b in zip(got, want)),
+            "ms": ms, "us_a_step_total": ms * 1e3 / T,
+            "ms_timing_build": cuda_ms(lambda: timed_wide_f32(prob), iters),
+            "us_a_step": ftl.phase_split(tl.cpu(), K1_PHASES)})
+    return rows
 
 
 def wide_rows(dev, iters: int):
@@ -445,7 +494,8 @@ def bench(dev, iters: int = 10) -> Dict:
     _build.build([*_build.VARIANTS, "lstm_fused_fwd", "lstm_fused_bwd",
                   "lstm_semi_bwd", "lstm_fwd", "lstm_bwd",
                   "lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16",
-                  "gru_fwd_bf16", "gru_bwd_bf16", "gru_fwd", "gru_bwd"])
+                  "gru_fwd_bf16", "gru_bwd_bf16", "gru_fwd", "gru_bwd",
+                  "lstm_fwd_wide", "lstm_bwd_wide"])
     rows = []
     for name, In in CASES:
         for B in BATCHES:
@@ -467,6 +517,7 @@ def bench(dev, iters: int = 10) -> Dict:
                     for r in _build.ABLATION_ROWS}})
     return {"rows": rows, "lstm_bwd": k1_rows(dev, iters),
             "lstm_bwd_wide_bf16": wide_rows(dev, iters),
+            "lstm_bwd_wide": wide_f32_rows(dev, iters),
             "gru": gru_rows(dev, iters)}
 
 
@@ -503,6 +554,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                       "nvidia_smi": _card(), **res}), flush=True)
     bad = [(r["kernel"], r["B"]) for r in [*res["rows"], *res["lstm_bwd"],
                                            *res["lstm_bwd_wide_bf16"],
+                                           *res["lstm_bwd_wide"],
                                            *res["gru"]]
            if not r["bit_equal_to_normal_build"]]
     if bad:

@@ -1,18 +1,21 @@
 """A step timeline of the recurrent forwards (K1-fwd, K3/K4-fwd, the wide
-K1-fwd, K5-fwd in f32 and on bf16 streams) on the card.
+K1-fwd in f32 and on bf16 streams, K5-fwd in f32 and on bf16 streams) on
+the card.
 
     python -m mlvae_tpu_torch.tools.bench_fwd_timeline [--iters N]
 
 Builds ``csrc/lstm_fwd.cu``, ``csrc/lstm_fused_fwd.cu``,
-``csrc/lstm_fwd_wide_bf16.cu``, ``csrc/gru_fwd_bf16.cu`` and
-``csrc/gru_fwd.cu`` a second time with ``-DMLVAE_FWD_TIMELINE``
+``csrc/lstm_fwd_wide_bf16.cu``, ``csrc/gru_fwd_bf16.cu``,
+``csrc/gru_fwd.cu`` and ``csrc/lstm_fwd_wide.cu`` a second time with
+``-DMLVAE_FWD_TIMELINE``
 (their own library names, see ``_build.VARIANTS``): a lead thread of each
 block reads ``%globaltimer`` at the phase boundaries of its chain of work
 and writes, for each step, the step's start and end and each phase's sum
 over the step's batch tiles into a (T, blocks, 8) buffer
 (``csrc/fwd_timeline.cuh``). For K1-fwd at B=64 and 128 (f32) and
-K3/K4-fwd at In=128, 512 and 1024 and B=64 and 256 (bf16), H=512, and the
-wide K1-fwd on bf16 streams at H=1024, B=64 (LSTM_FC's AMP shape), and
+K3/K4-fwd at In=128, 512 and 1024 and B=64 and 256 (bf16), H=512, the
+wide K1-fwd on bf16 streams and in f32 at H=1024, B=64 (LSTM_FC's AMP
+and f32 shapes), and
 K5-fwd on bf16 streams and in f32 at H=512, B=64 (gate 3's AMP and f32
 shapes), T=160,
 inputs from a generator seeded 0 at the recipe layers' scales, it
@@ -58,7 +61,8 @@ PHASES = {"input": 2, "stage": 3, "product": 4, "cell": 5, "barrier": 6,
 # (kernel, In, B); In None for K1-fwd
 CASES = (("lstm_fwd", None, 64), ("lstm_fwd", None, 128),
          *(("lstm_fused_fwd", In, B) for In in (128, 512, 1024)
-           for B in (64, 256)), ("lstm_fwd_wide_bf16", None, 64))
+           for B in (64, 256)), ("lstm_fwd_wide_bf16", None, 64),
+         ("lstm_fwd_wide", None, 64))
 T, H = 160, 512
 WIDE_H = 1024         # the wide K1-fwd's shape: LSTM_FC's layers
 WARMUP = 2
@@ -69,7 +73,8 @@ _ARGS = {"lstm_fwd": [_P] * 6 + [_I] * 4 + [_P, _P],
          "lstm_fused_fwd": [_P] * 7 + [_I] * 5 + [_P, _P],
          "lstm_fwd_wide_bf16": [_P] * 5 + [_I] * 4 + [_P, _P],
          "gru_fwd_bf16": [_P] * 6 + [_I] * 4 + [_P, _P],
-         "gru_fwd": [_P] * 5 + [_I] * 4 + [_P, _P]}
+         "gru_fwd": [_P] * 5 + [_I] * 4 + [_P, _P],
+         "lstm_fwd_wide": [_P] * 6 + [_I] * 4 + [_P, _P]}
 GRU_H = 512           # K5-fwd's shape: gate 3's layers
 GRU_BATCHES = (64,)
 
@@ -161,16 +166,16 @@ def phase_split(tl: torch.Tensor, phases: Dict[str, int] = PHASES
 
 
 def make_problem(dev, name: str, In: Optional[int], B: int, seed: int = 0):
-    """K1-fwd: gx N(0, 0.5^2) and W_hh U(+-1/sqrt(H)), f32 (the wide build:
-    bf16 at H=1024). K3/K4-fwd: x N(0, 0.5^2), W_ih, W_hh U(+-1/sqrt(H))
+    """K1-fwd: gx N(0, 0.5^2) and W_hh U(+-1/sqrt(H)), f32 (the wide
+    builds: at H=1024, f32 or bf16). K3/K4-fwd: x N(0, 0.5^2), W_ih, W_hh U(+-1/sqrt(H))
     bf16 and the bias f32."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    if name in ("lstm_fwd", "lstm_fwd_wide_bf16"):
+    if name in ("lstm_fwd", "lstm_fwd_wide_bf16", "lstm_fwd_wide"):
         Hn = H if name == "lstm_fwd" else WIDE_H
         gx = torch.randn((T, B, 4 * Hn), generator=g, device=dev) * 0.5
         w = (torch.rand((4 * Hn, Hn), generator=g, device=dev) * 2 - 1) \
             / Hn ** 0.5
-        if name == "lstm_fwd":
+        if name != "lstm_fwd_wide_bf16":
             return gx, w
         return gx.to(torch.bfloat16), w.to(torch.bfloat16)
     bf = torch.bfloat16
@@ -191,19 +196,19 @@ def normal(name: str, prob, reverse: bool = False):
 def timed_fwd(name: str, prob, reverse: bool = False):
     """The timing build of ``name`` on ``prob``: ((hs, cs), as the normal
     wrapper's, and the (T, blocks, 8) int64 timeline: H/4 blocks, H/8 for
-    the wide build)."""
+    the wide builds)."""
     kernel = TIMED[name]
     head = prob[0]
     Tn, B = head.shape[:2]
     Hn = prob[-1].shape[1]
     dev = head.device
     stream = _build.stream_handle(dev)
-    units = 8 if name == "lstm_fwd_wide_bf16" else 4
+    units = 8 if name in ("lstm_fwd_wide_bf16", "lstm_fwd_wide") else 4
     tl = torch.zeros((Tn, Hn // units, SLOTS), device=dev, dtype=torch.int64)
     cs = torch.empty((Tn, B, Hn), device=dev, dtype=torch.float32)
     hs = torch.empty((Tn, B, Hn), device=dev, dtype=head.dtype)
     barrier = torch.zeros((1,), device=dev, dtype=torch.int32)
-    if name == "lstm_fwd":
+    if name in ("lstm_fwd", "lstm_fwd_wide"):
         gx, w = prob
         hbuf = torch.zeros((2, Hn, L.hbuf_pitch(B)), device=dev,
                            dtype=torch.float32)

@@ -97,11 +97,12 @@ def _tl_slots(text):
 @pytest.mark.parametrize("src, phases", [("lstm_bwd", btl.K1_PHASES),
                                          ("lstm_bwd_wide_bf16",
                                           btl.WIDE_PHASES),
-                                         ("gru_bwd", btl.K1_PHASES)])
+                                         ("gru_bwd", btl.K1_PHASES),
+                                         ("lstm_bwd_wide", btl.K1_PHASES)])
 def test_k1_bwd_sources_share_the_timeline_clock(src, phases):
-    """Both K1-bwd timing builds and the f32 K5-bwd's take the clock and
-    macros from bwd_timeline.cuh and name only their own two slots;
-    together they are the phases the tool reads."""
+    """The K1-bwd timing builds (narrow; wide, f32 and bf16) and the f32
+    K5-bwd's take the clock and macros from bwd_timeline.cuh and name only
+    their own two slots; together they are the phases the tool reads."""
     header = (_build.CSRC / "bwd_timeline.cuh").read_text()
     text = (_build.CSRC / f"{src}.cu").read_text()
     assert '#include "bwd_timeline.cuh"' in text

@@ -39,7 +39,7 @@ def test_forward_timed_kernels_are_not_counted_on_any_path():
     assert {k.symbol for k in ftl.TIMED.values()} == {
         "mlvae_lstm_fwd_timeline", "mlvae_lstm_fused_fwd_timeline",
         "mlvae_lstm_fwd_wide_bf16_timeline", "mlvae_gru_fwd_bf16_timeline",
-        "mlvae_gru_fwd_timeline"}
+        "mlvae_gru_fwd_timeline", "mlvae_lstm_fwd_wide_timeline"}
 
 
 def _timeline(T=4, blocks=3):
