@@ -8,11 +8,12 @@ Phases, each reported on its own line; any failure exits non-zero:
 1. the card and the kernel build (every ``mlvae_tpu_torch/csrc/*.cu``,
    compiled from this checkout, and the timing builds of K3-bwd, K4-bwd,
    K1-fwd and K3/K4-fwd, one ``nvcc`` per build in parallel), and the
-   launch plan of the wide K1 builds (H above 528) at H=1024, 768 and 640,
-   and of the bf16 builds (the tensor-core K1-fwd and K1-bwd, and K1-bwd's
-   dW_hh kernel) at H=1024 and 640, as their C code computes it (grid,
-   threads, shared memory, blocks an SM holds, registers, local bytes: 0
-   for the bf16 builds) against ``ops.k1_plan``, and likewise K5's builds
+   launch plan of the wide K1 builds (H above 528: K1-fwd, K1-bwd at B=64
+   and 70, K1-bwd's dW_hh kernel) at H=1024, 768 and 640 in f32, and of
+   the bf16 builds (the tensor-core K1-fwd and K1-bwd, and K1-bwd's dW_hh
+   kernel) at H=1024 and 640, as their C code computes it (grid, threads,
+   shared memory, blocks an SM holds, registers, local bytes: 0 for every
+   build) against ``ops.k1_plan``, and likewise K5's builds
    in f32 and on bf16 streams (K5-fwd, K5-bwd at B=64 and 70, the bf16
    dW_hh kernel) at H=512, 208 and 528 against ``ops.gru.k5_plan``;
 2. each kernel against its plain PyTorch version on the card, at the
@@ -41,9 +42,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    serial schedule (B=320; In=4096), and 50 repeated launches per case
    and direction (K1-fwd at B=64 and 128, K3/K4-fwd at In=1024 B=64 and
    In=512 B=256) each bit-equal to the first; the wide K1-fwd and K1-bwd
-   (``lstm_fwd_wide``, ``lstm_bwd_wide``) at H=1024, B=64, T=160, at
-   H=768 and 640, ragged B (1, 63, 65, 70), B=128, T=1 and 2, both
-   directions, and 50 repeated launches of each per direction at
+   (``lstm_fwd_wide``, ``lstm_bwd_wide`` and its dW_hh kernel
+   ``lstm_dw_wide``, which is also held against its plain version on its
+   own operands) at H=1024, B=64, T=160, at H=768 and 640, ragged B (1,
+   63, 65, 70), B=128, T=1 and 2, both directions, and 50 repeated
+   launches of each per direction at
    H=1024, B=64, each bit-equal to the first; the wide builds on bf16
    streams (``lstm_fwd_wide_bf16``, ``lstm_bwd_wide_bf16`` and its dW_hh
    kernel ``lstm_dw_wide_bf16``) against the plain versions in bf16 at
@@ -84,7 +87,8 @@ Phases, each reported on its own line; any failure exits non-zero:
    FC 1024-64-64-2, B=64, T=160, weights from seed 0,
    ``bench_utils.build_lstm_fc``): the TEST eval step (4 wide K1-fwd
    launches, logits and loss against the plain versions, frame-level MD
-   scores) and two f32 training steps (4 + 4 wide launches a step, the
+   scores) and two f32 training steps (4 + 4 + 4 wide launches a step:
+   K1-fwd, K1-bwd and its dW_hh kernel; the
    first step's loss and grad norms against the plain versions, ``lstm``
    and ``fc`` moved); then its two AMP (bf16) training steps
    (``build_lstm_fc(bf16=True)``: 4 + 4 + 4 launches of the bf16 wide
@@ -93,7 +97,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    versions and its loss against the f32 step's from the same state and
    draws, f32 parameters and Adam states);
 4. times from CUDA events after warm-up: each kernel, its plain version,
-   a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6),
+   a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6, in
+   turns with K6 in SpeechBrain mode and on the Kaldi pass's batch:
+   medians and spreads of ten samples each, and K6's factor),
    the eval step, the wav-in ``infer`` at B=1 (read and features, then
    the eval), the wav-in eval step at B=64, the Kaldi feature pass
    (``compute_kaldi_features`` over 256 written wav files, one batch,
@@ -121,11 +127,14 @@ Phases, each reported on its own line; any failure exits non-zero:
    and profiles of one eval, one wav-in eval, one f32 and one AMP VAE
    train step; the
    wide K1-fwd and K1-bwd at H=1024 in turns with cuDNN's f32 layer, their
-   plain versions and bounds, LSTM_FC's eval and train steps (ms,
-   utt-sec/sec) and a profile of each; the bf16 wide builds likewise in
+   plain versions and bounds, K1-bwd's dW_hh kernel beside one f32
+   ``torch.matmul`` of its operands (TF32 off), LSTM_FC's eval and train
+   steps (ms, utt-sec/sec) and a profile of each; the bf16 wide builds
+   likewise in
    turns with cuDNN's bf16 layer, K1-bwd's dW_hh kernel beside one bf16
    ``torch.matmul`` of its operands, and LSTM_FC's AMP train step and its
-   profile; the timelines include the bf16 wide builds' timing builds;
+   profile; the timelines include the wide builds' timing builds, f32 and
+   bf16;
 5. a ``kernels`` JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -234,8 +243,9 @@ NO_GRU = {"gru_fwd": 0, "gru_bwd": 0, "gru_fwd_bf16": 0, "gru_bwd_bf16": 0,
 NO_UNROLL = {"lstm_unroll_fwd": 0, "lstm_unroll_fused_fwd": 0}
 # the wide K1 builds (H above 528), f32 and bf16, run on the LSTM_FC path
 # only
-NO_WIDE = {"lstm_fwd_wide": 0, "lstm_bwd_wide": 0, "lstm_fwd_wide_bf16": 0,
-           "lstm_bwd_wide_bf16": 0, "lstm_dw_wide_bf16": 0}
+NO_WIDE = {"lstm_fwd_wide": 0, "lstm_bwd_wide": 0, "lstm_dw_wide": 0,
+           "lstm_fwd_wide_bf16": 0, "lstm_bwd_wide_bf16": 0,
+           "lstm_dw_wide_bf16": 0}
 PER_FORWARD = {"lstm_fwd": 10, "lstm_bwd": 0, "md_viterbi_lattice": 1,
                "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK, **NO_GRU,
                **NO_UNROLL, **NO_WIDE}
@@ -284,7 +294,8 @@ PER_GATE3_AMP_STEP = {**{k: 0 for k in PER_FORWARD}, "gru_fwd_bf16": 3,
 # LSTM_FC (four f32 LSTM layers at H=1024): the wide K1-fwd once a layer in
 # the eval forward, and K1-fwd and K1-bwd once a layer in a train step
 PER_LSTM_FC_EVAL = {**{k: 0 for k in PER_FORWARD}, "lstm_fwd_wide": 4}
-PER_LSTM_FC_STEP = {**PER_LSTM_FC_EVAL, "lstm_bwd_wide": 4}
+PER_LSTM_FC_STEP = {**PER_LSTM_FC_EVAL, "lstm_bwd_wide": 4,
+                    "lstm_dw_wide": 4}
 # its AMP (bf16) train step: no layer fits a fused tier at H=1024, so every
 # layer takes the wide K1 builds on bf16 streams (K1-bwd: the recurrence,
 # then the dW_hh kernel), and no f32 K1 or fused kernel runs
@@ -596,26 +607,25 @@ WIDE_BF16_REPEATS = 50
 def wide_plans(dev, report):
     """Phase 1: the wide builds' launch plan as the C code computes it
     (blocks, threads, shared memory, blocks an SM can hold, registers,
-    local bytes), f32 and bf16 (the tensor-core builds, with K1-bwd's
-    dW_hh kernel ``dw``; K1-bwd at B=64, one tile and the split barrier,
-    and B=70, the tiles in series), against ``ops.k1_plan``, each
-    cooperative grid co-resident on this card, the bf16 builds without
-    spills."""
+    local bytes), f32 and bf16, each with K1-bwd's dW_hh kernel ``dw``
+    (K1-bwd at B=64, one tile and the split barrier, and B=70, the tiles in
+    series), against ``ops.k1_plan``, each cooperative grid co-resident on
+    this card, no build spilling."""
     import torch
     from mlvae_tpu_torch.ops import lstm as L
     from mlvae_tpu_torch.ops.k1_plan import (k1_bwd_plan, k1_dw_plan,
                                              k1_fwd_plan)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
-    cases = [(H, False, d, 64) for H in (1024, 768, 640) for d in ("fwd",
-                                                                  "bwd")]
+    cases = [(H, False, d, B) for H in (1024, 768, 640)
+             for d, B in (("fwd", 64), ("bwd", 64), ("bwd", 70), ("dw", 64))]
     cases += [(H, True, d, B) for H in (1024, 640)
               for d, B in (("fwd", 64), ("bwd", 64), ("bwd", 70),
                            ("dw", 64))]
     for H, bf16, direction, B in cases:
         got = L.wide_plan(direction, H, B, bf16=bf16)
         if direction == "dw":
-            want = k1_dw_plan(H, B)
+            want = k1_dw_plan(H, B, bf16=bf16)
         else:
             want = (k1_fwd_plan if direction == "fwd" else k1_bwd_plan)(
                 H, B, bf16=bf16)
@@ -627,8 +637,8 @@ def wide_plans(dev, report):
                f"{got['chunk']}, {got['blocks_per_sm']} block(s) an SM "
                f"resident (occupancy), {got['registers']} registers, "
                f"{got['local_bytes']} B local a thread; {sms} SMs")
-        check(want.variant == ("dw_bf16" if direction == "dw" else
-                               "wide_bf16" if bf16 else "wide") and
+        check(want.variant == (("dw" if direction == "dw" else "wide")
+                               + ("_bf16" if bf16 else "")) and
               (got["blocks"], got["threads"], got["smem_bytes"],
                got["ring"]) == (want.blocks, want.threads,
                                 want.smem_bytes, want.ring),
@@ -637,7 +647,7 @@ def wide_plans(dev, report):
               (direction == "dw" or
                got["blocks"] <= got["blocks_per_sm"] * sms),
               f"{name} H={H}: the grid cannot be co-resident")
-        check(not bf16 or got["local_bytes"] == 0,
+        check(got["local_bytes"] == 0,
               f"{name} H={H} B={B} spills: {got['local_bytes']} B local")
     return out
 
@@ -686,15 +696,15 @@ def check_lstm_wide(dev, report, bf16=False):
             dgx_err, dw_err = bwd_errors(got, want)
             if bf16:
                 dgx_err = rel_err(got[0], want[0])
-                # the dW_hh kernel on its own operands: the kernel's dgx
-                # and hs, f32 sums of (T-1)*B terms in another order
-                own = rel_err(got[1], L.wide_dw_ref(got[0], hs_r, reverse))
-                report(f"  lstm_dw_wide_bf16 T={T} B={B} H={H} reverse="
-                       f"{reverse}: against wide_dw_ref on the kernel's dgx "
-                       f"and hs, max rel err {own:.3e} (tol {BWD_RTOL:g})")
-                check(own <= BWD_RTOL, f"lstm_dw_wide_bf16 disagrees: {own}")
-                if (T, B, H) == cases[0]:
-                    worst["dw"] = max(worst.get("dw", 0.0), own)
+            # the dW_hh kernel on its own operands: the kernel's dgx and
+            # hs, f32 sums of (T-1)*B terms in another order
+            own = rel_err(got[1], L.wide_dw_ref(got[0], hs_r, reverse))
+            report(f"  lstm_dw_wide{sfx} T={T} B={B} H={H} reverse="
+                   f"{reverse}: against wide_dw_ref on the kernel's dgx "
+                   f"and hs, max rel err {own:.3e} (tol {BWD_RTOL:g})")
+            check(own <= BWD_RTOL, f"lstm_dw_wide{sfx} disagrees: {own}")
+            if (T, B, H) == cases[0]:
+                worst["dw"] = max(worst.get("dw", 0.0), own)
             report(f"  lstm_bwd_wide{sfx} T={T} B={B} H={H} reverse="
                    f"{reverse}: dgx max {'rel' if bf16 else 'abs'} err "
                    f"{dgx_err:.3e} (tol {dgx_tol:g}), dW_hh max rel err "
@@ -2239,14 +2249,16 @@ def lstm_bwd_bound(T, B, H, bf16=False):
     return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
 
 
-def dw_bound(T, B, H, gates=4):
-    """The dW_hh kernel after a bf16 recurrence (K1-bwd's, or with
-    ``gates=3`` K5-bwd's): 2·gates·H·H·(T-1)B at the bf16 tensor-core
-    peak, against its operands (the dgates, shifted, and hs, bf16) read and
-    dW_hh (f32) written once."""
+def dw_bound(T, B, H, gates=4, bf16=True):
+    """The dW_hh kernel after a recurrence (K1-bwd's, or with ``gates=3``
+    K5-bwd's): 2·gates·H·H·(T-1)B at the bf16 tensor-core peak (bf16
+    operands) or the f32 peak, against its operands (the dgates, shifted,
+    and hs, in the stream dtype) read and dW_hh (f32) written once."""
     K = (T - 1) * B
+    item = 2.0 if bf16 else 4.0
     return _bound(2.0 * gates * H * H * K,
-                  2.0 * K * (gates + 1) * H + 4.0 * gates * H * H, BF16_PEAK)
+                  item * K * (gates + 1) * H + 4.0 * gates * H * H,
+                  BF16_PEAK if bf16 else F32_PEAK)
 
 
 def _bound(flops, nbytes, peak):
@@ -2750,27 +2762,32 @@ def time_lstm_fc(dev, report, model, batch, first_noise, errs, counts,
     bwd_plain = cuda_ms(lambda: lstm_layer_bwd_ref(*prob), iters=2, warmup=1)
     f_bound, f_by = lstm_bound(T, B, H, bf16=amp)
     b_bound, b_by = lstm_bwd_bound(T, B, H, bf16=amp)
-    if amp:   # K1-bwd's dW_hh kernel alone, on its operands at this shape
-        from mlvae_tpu_torch import _build
-        from mlvae_tpu_torch.ops import lstm as L
-        dgx, hs = L.lstm_layer_bwd(*prob, False)[0], prob[2]
-        dw = torch.empty((4 * H, H), device=dev)
-        st = _build.stream_handle(dev)
-        dw_ms = cuda_ms(lambda: L.LSTM_DW_WIDE_BF16(
-            dgx.data_ptr(), hs.data_ptr(), dw.data_ptr(), T, B, H, 0, st),
-            iters=10)
-        dw_plain = cuda_ms(lambda: L.wide_dw_ref(dgx, hs), iters=1,
-                           warmup=1)
-        xs, ys = dgx[1:].reshape(-1, 4 * H), hs[:-1].reshape(-1, H)
+    # K1-bwd's dW_hh kernel alone, on its operands at this shape
+    from mlvae_tpu_torch import _build
+    from mlvae_tpu_torch.ops import lstm as L
+    dw_kernel = L.LSTM_DW_WIDE_BF16 if amp else L.LSTM_DW_WIDE
+    dgx, hs = L.lstm_layer_bwd(*prob, False)[0], prob[2]
+    dw = torch.empty((4 * H, H), device=dev)
+    st = _build.stream_handle(dev)
+    dw_ms = cuda_ms(lambda: dw_kernel(
+        dgx.data_ptr(), hs.data_ptr(), dw.data_ptr(), T, B, H, 0, st),
+        iters=10)
+    dw_plain = cuda_ms(lambda: L.wide_dw_ref(dgx, hs), iters=1, warmup=1)
+    xs, ys = dgx[1:].reshape(-1, 4 * H), hs[:-1].reshape(-1, H)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick in f32
+    try:
         dw_lib = cuda_ms(lambda: torch.matmul(xs.t(), ys), iters=10)
-        w_bound, w_by = dw_bound(T, B, H)
-        report(f"  lstm_dw_wide_bf16 H={H}: {dw_ms:.4f} ms (plain "
-               f"{dw_plain:.4f}, one bf16 torch.matmul of the same operands "
-               f"{dw_lib:.4f}, bound {w_bound:.4f} by {w_by}); K1-bwd's "
-               f"recurrence alone "
-               f"{bwd[f'lstm_bwd{sfx} B={B}']['ms'] - dw_ms:.4f}")
-    f_row, b_row = fwd[f"lstm_fwd{sfx} B={B}"], bwd[f"lstm_bwd{sfx} B={B}"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    w_bound, w_by = dw_bound(T, B, H, bf16=amp)
     dt = "bf16" if amp else "f32"
+    report(f"  {dw_kernel.name} H={H}: {dw_ms:.4f} ms (plain "
+           f"{dw_plain:.4f}, one {dt} torch.matmul of the same operands "
+           f"{dw_lib:.4f}, bound {w_bound:.4f} by {w_by}); K1-bwd's "
+           f"recurrence alone "
+           f"{bwd[f'lstm_bwd{sfx} B={B}']['ms'] - dw_ms:.4f}")
+    f_row, b_row = fwd[f"lstm_fwd{sfx} B={B}"], bwd[f"lstm_bwd{sfx} B={B}"]
     report(f"  lstm_fwd_wide{sfx} H={H}: {f_row['ms']:.4f} ms (plain "
            f"{fwd_plain:.4f}, cuDNN {dt} layer with its input projection in "
            f"turns {f_row['cudnn_ms']:.4f}, its kernels alone "
@@ -2817,14 +2834,14 @@ def time_lstm_fc(dev, report, model, batch, first_noise, errs, counts,
              plain_ms=bwd_plain, bound_ms=b_bound, bound_by=b_by,
              library_ms=b_row["cudnn_ms"], interleaved=bwd,
              **counts[f"lstm_bwd_wide{sfx}"])]
-    if amp:   # ms above: the whole K1-bwd, its dW_hh kernel included
-        kernels.append(dict(
-            name="lstm_dw_wide_bf16", route="cuda",
-            source="mlvae_tpu_torch/csrc/lstm_bwd_wide_bf16.cu",
-            replaces="mlvae_tpu/ops/lstm_pallas.py:115",
-            max_abs_err=wide["dw"], ms=dw_ms, plain_ms=dw_plain,
-            bound_ms=w_bound, bound_by=w_by, library_ms=dw_lib,
-            **counts["lstm_dw_wide_bf16"]))
+    # ms above: the whole K1-bwd, its dW_hh kernel included
+    kernels.append(dict(
+        name=dw_kernel.name, route="cuda",
+        source=f"mlvae_tpu_torch/csrc/lstm_bwd_wide{sfx}.cu",
+        replaces="mlvae_tpu/ops/lstm_pallas.py:115",
+        max_abs_err=wide["dw"], ms=dw_ms, plain_ms=dw_plain,
+        bound_ms=w_bound, bound_by=w_by, library_ms=dw_lib,
+        **counts[dw_kernel.name]))
     return kernels, steps
 
 
@@ -3111,20 +3128,34 @@ def fbank_cufft(frames, mode):
     return fb.fbank_frames_ref(frames, mode, _power=_rfft_power)
 
 
+FBANK_TURNS = 5   # rounds of K6 in turns with cuFFT: ten samples each
+
+
 def time_fbank(dev, report, cases, errs, counts):
     """K6 in each mode and shape against its plain version, the cuFFT
     yardstick and its bound; the kernels line reports the wav-in eval
-    step's shape (SpeechBrain mode, B=64) and lists every shape."""
+    step's shape (SpeechBrain mode, B=64) and lists every shape. In
+    SpeechBrain mode and on the Kaldi pass's batch K6 and the yardstick are
+    timed in turns (kernel, cuFFT, cuFFT, kernel; ``FBANK_TURNS`` rounds):
+    medians and spreads, and K6's factor against cuFFT."""
     from mlvae_tpu_torch.ops import fbank as fb
     by_shape = {}
     for label, mode, frames, _ in cases:
         small = frames.shape[0] < 1000
-        ms = cuda_ms(lambda: fb.fbank_frames_cuda(frames, mode),
-                     iters=100 if small else 20)
+        k_iters, y_iters = (100, 20) if small else (20, 5)
+        run = (lambda: fb.fbank_frames_cuda(frames, mode))
+        yard = (lambda: fbank_cufft(frames, mode))
+        turns = mode == fb.SB or not small
+        if turns:
+            ks, ys = interleaved_ms(lambda _: cuda_ms(run, iters=k_iters),
+                                    lambda _: cuda_ms(yard, iters=y_iters),
+                                    FBANK_TURNS, None)
+            ms, lib = statistics.median(ks), statistics.median(ys)
+        else:
+            ms = cuda_ms(run, iters=k_iters)
+            lib = cuda_ms(yard, iters=y_iters)
         plain = cuda_ms(lambda: fb.fbank_frames_ref(frames, mode),
                         iters=20 if small else 5)
-        lib = cuda_ms(lambda: fbank_cufft(frames, mode),
-                      iters=20 if small else 5)
         lib_err = max_err(fbank_cufft(frames, mode),
                           fb.fbank_frames_ref(frames, mode))
         (b_ms, b_by), (f_ms, f_by) = fbank_bound(mode, frames.shape[0])
@@ -3133,11 +3164,19 @@ def time_fbank(dev, report, cases, errs, counts):
                                fft_bound_ms=f_ms, fft_bound_by=f_by,
                                max_abs_err=errs[label],
                                frames=frames.shape[0])
+        turned = ""
+        if turns:
+            by_shape[label].update(
+                ms_spread=[min(ks), max(ks)],
+                library_spread=[min(ys), max(ys)], factor=ms / lib)
+            turned = (f" in turns, medians of {len(ks)} samples each: K6 "
+                      f"{min(ks):.4f}-{max(ks):.4f}, cuFFT "
+                      f"{min(ys):.4f}-{max(ys):.4f}, factor {ms / lib:.3f}")
         report(f"  fbank {label} ({frames.shape[0]} frames): {ms:.4f} ms "
                f"(bound {b_ms:.4f} by {b_by} for the DFT over the window, "
                f"{f_ms:.4f} by {f_by} for an FFT; plain {plain:.4f}; cuFFT "
                f"rfft + power + mel + log {lib:.4f}, max abs err against "
-               f"the plain version {lib_err:.3e})")
+               f"the plain version {lib_err:.3e}){turned}")
     shape = next(label for label, mode, _, repeat in cases
                  if mode == fb.SB and repeat)  # the wav-in eval batch
     head = by_shape[shape]

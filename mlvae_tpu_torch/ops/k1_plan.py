@@ -17,9 +17,16 @@ copies is. The launch code in ``csrc/`` computes the same numbers; the
 - ``wide`` (528 < H <= 1024, f32 streams; ``csrc/lstm_fwd_wide.cu``,
   ``csrc/lstm_bwd_wide.cu``): eight units a block, so H/8 <= 128 blocks,
   W_hh's 32 rows of the block in shared memory (128 KB at H=1024), and
-  h_{t-1} staged in chunks of ``CHUNK`` rows of k x 64 batch columns
-  through a ring of ``WIDE_RING`` buffers (``cp.async``), since all of it
-  (256 KB at B=64) does not fit beside W_hh.
+  h_{t-1} staged by the TMA box by box, since all of it (256 KB at B=64)
+  does not fit beside W_hh: K1-fwd's eight K slices (a warp each) take
+  boxes of ``CHUNK`` / 8 rows of k x 64 batch columns through rings of
+  ``WIDE_FWD_RING`` boxes each, K1-bwd's four slices (two warps each)
+  boxes of ``CHUNK`` / 4 columns x 64 rows of hs through rings of
+  ``WIDE_BWD_RING``; ``ring`` counts a slice's boxes. Each slice's sums
+  then take its ring (``RED_SLICE`` floats). K1-bwd's ``split`` says
+  whether B takes one tile (the recompute between the barrier's arrival
+  and wait). dW_hh is a kernel of its own after the recurrence
+  (``k1_dw_plan``, f32).
 - ``wide_bf16`` (528 < H <= 1024, H % 128 == 0, bf16 streams;
   ``csrc/lstm_fwd_wide_bf16.cu``, ``csrc/lstm_bwd_wide_bf16.cu``): the
   same grid, its products on the tensor cores. W_hh's 32 rows sit in
@@ -28,9 +35,8 @@ copies is. The launch code in ``csrc/`` computes the same numbers; the
   mbarrier each. K1-bwd also holds W_hh's columns of its units (4H x 8
   bf16) and streams every block's dgates (dgx[t]) in chunks of ``XCHUNK``
   gate columns through ``BF16_RING`` buffers, the tile's memory, two a
-  warp; its ``split`` says whether B takes
-  one tile (the recompute between the barrier's arrival and wait). dW_hh
-  is a kernel of its own after the recurrence (``k1_dw_plan``).
+  warp; its ``split`` as above. dW_hh is a kernel of its own after the
+  recurrence (``k1_dw_plan(..., bf16=True)``).
 
 No recipe of the repo has an LSTM on K1 wider than 1024; a wider H is
 refused (``ROADMAP.md`` queue 2, "Still to port"), as are bf16 streams at
@@ -56,9 +62,17 @@ NARROW_THREADS = 256
 # the wide builds (csrc/lstm_wide.cuh)
 WIDE_UNITS = 8
 WIDE_THREADS = 256
-CHUNK = 128           # rows of k in one staged chunk of h_{t-1}
-WIDE_RING = 2         # chunk buffers
-PITCH = BT + 4        # floats a staged row: 16-byte rows, no bank conflicts
+CHUNK = 128           # rows of k whose K slices a product sums in turn
+RED_UNIT = BT + 4     # a slice's sums [gate][unit][row]: a unit's pitch,
+RED_GATE = 8 * RED_UNIT + 8   # a gate's (floats)
+RED_SLICE = 4 * RED_GATE
+WIDE_FWD_SLICES = 8   # K1-fwd (csrc/lstm_fwd_wide.cu): a warp a K slice,
+WIDE_FWD_RING = 3     # boxes of CHUNK / 8 rows x 64 columns a warp
+WIDE_BWD_SLICES = 4   # K1-bwd (csrc/lstm_bwd_wide.cu): two warps a slice,
+WIDE_BWD_RING = 2     # boxes of CHUNK / 4 columns x 64 rows a slice
+WIDE_DW_TILE = 128    # its dW_hh kernel: rows and columns of dW_hh a block
+WIDE_DW_BK = 16       # K rows a stage
+WIDE_DW_STAGES = 3
 # the wide builds on bf16 streams (csrc/lstm_wide_mma.cuh,
 # csrc/lstm_bwd_wide_bf16.cu)
 SLICE = 128           # columns of a K slice of h_{t-1}
@@ -72,7 +86,7 @@ DW_STAGES = 3
 
 @dataclass(frozen=True)
 class K1Plan:
-    variant: str      # "narrow", "wide", "wide_bf16" or "dw_bf16"
+    variant: str      # "narrow", "wide", "wide_bf16", "dw" or "dw_bf16"
     units: int        # hidden units a block owns
     blocks: int       # the cooperative grid, H / units
     threads: int      # a block
@@ -131,17 +145,34 @@ def narrow_bwd_smem_bytes(H: int) -> int:
     return 4 * (nbox * 64 * 32 + 16 * H + 4 * 64 * 16 + 64 * 16) + 8 * nbox
 
 
+def wide_box_floats(bwd: bool) -> int:
+    """The f32 wide builds' TMA box: CHUNK / slices rows (K1-fwd) or
+    columns (K1-bwd) of k by 64 batch rows."""
+    return CHUNK // (WIDE_BWD_SLICES if bwd else WIDE_FWD_SLICES) * BT
+
+
 def wide_fwd_smem_bytes(H: int) -> int:
-    """``wide::smem_bytes(H, false)`` of ``csrc/lstm_wide.cuh``: W_hh's 32
-    rows of the block and the ring of chunks, f32; the K slices' partial
-    pre-activations reuse the ring."""
-    return 4 * (32 * H + WIDE_RING * CHUNK * PITCH)
+    """``smem_bytes`` of ``csrc/lstm_fwd_wide.cu``: the eight warps' rings
+    (whose boxes the slices' sums reuse) and W_hh's 32 rows of the block,
+    f32, and an mbarrier a box."""
+    boxes = WIDE_FWD_SLICES * WIDE_FWD_RING
+    return 4 * (boxes * wide_box_floats(False) + 32 * H) + 8 * boxes
 
 
 def wide_bwd_smem_bytes(H: int) -> int:
-    """``wide::smem_bytes(H, true)``: K1-fwd's layout and the tile's dgates
-    (64 rows of 32 gate rows), f32."""
-    return wide_fwd_smem_bytes(H) + 4 * BT * 32
+    """``smem_bytes`` of ``csrc/lstm_bwd_wide.cu``: the four slices' rings,
+    W_hh's 32 rows, the tile's dgates (64 rows of 32 gate rows) and the
+    reduce's sums (64 rows of 8 units), f32, and an mbarrier a box."""
+    boxes = WIDE_BWD_SLICES * WIDE_BWD_RING
+    return (4 * (boxes * wide_box_floats(True) + 32 * H + BT * (32 + 8))
+            + 8 * boxes)
+
+
+def wide_dw_smem_bytes() -> int:
+    """``dw_smem_bytes`` of ``csrc/lstm_bwd_wide.cu``: ``WIDE_DW_STAGES``
+    stages of ``WIDE_DW_BK`` rows of both operands, 128 columns of f32
+    each."""
+    return 4 * WIDE_DW_STAGES * WIDE_DW_BK * 2 * WIDE_DW_TILE
 
 
 def wide_bf16_fwd_smem_bytes(H: int) -> int:
@@ -181,7 +212,7 @@ def k1_fwd_plan(H: int, B: int, bf16: bool = False) -> K1Plan:
         return K1Plan("narrow", NARROW_UNITS, H // NARROW_UNITS,
                       NARROW_THREADS, narrow_fwd_smem_bytes(H, nq), nq)
     return K1Plan("wide", WIDE_UNITS, H // WIDE_UNITS, WIDE_THREADS,
-                  wide_fwd_smem_bytes(H), WIDE_RING)
+                  wide_fwd_smem_bytes(H), WIDE_FWD_RING)
 
 
 @lru_cache(maxsize=None)
@@ -201,14 +232,23 @@ def k1_bwd_plan(H: int, B: int, bf16: bool = False) -> K1Plan:
                       cols=2 if H <= 2 * NARROW_THREADS else 3,
                       split=B <= BT)
     return K1Plan("wide", WIDE_UNITS, H // WIDE_UNITS, WIDE_THREADS,
-                  wide_bwd_smem_bytes(H), WIDE_RING)
+                  wide_bwd_smem_bytes(H), WIDE_BWD_RING, split=B <= BT)
 
 
 @lru_cache(maxsize=None)
-def k1_dw_plan(H: int, B: int) -> K1Plan:
-    """The dW_hh kernel after the bf16 K1-bwd: (H/128) x (4H/128) blocks of
-    a 128 x 128 tile of dW_hh, ``DW_STAGES`` stages (``ring``)."""
+def k1_dw_plan(H: int, B: int, bf16: bool = True) -> K1Plan:
+    """The dW_hh kernel after the wide K1-bwd's recurrence: blocks of a 128
+    x 128 tile of dW_hh, (H/128) x (4H/128) of them, rounded up in f32;
+    ``ring`` its stages (``DW_STAGES`` on bf16 streams,
+    ``WIDE_DW_STAGES`` in f32)."""
     _check(H, B)
+    if not bf16:
+        if H <= NARROW_MAX_H:
+            raise ValueError(f"K1: H={H} takes the narrow K1-bwd, which "
+                             "forms dW_hh itself")
+        return K1Plan("dw", 0, -(-H // WIDE_DW_TILE)
+                      * -(-4 * H // WIDE_DW_TILE), WIDE_THREADS,
+                      wide_dw_smem_bytes(), WIDE_DW_STAGES)
     _check_bf16(H)
     return K1Plan("dw_bf16", 0, (H // DW_TILE) * (4 * H // DW_TILE),
                   WIDE_THREADS, dw_smem_bytes(), DW_STAGES)

@@ -13,8 +13,8 @@ Two families, as in ``mlvae_tpu/ops/lstm_pallas.py``:
   (f32 streams only), above it up to H=1024 ``csrc/lstm_fwd_wide.cu`` /
   ``csrc/lstm_bwd_wide.cu`` on f32 streams and
   ``csrc/lstm_fwd_wide_bf16.cu`` / ``csrc/lstm_bwd_wide_bf16.cu`` on bf16
-  streams (H % 128 == 0; the bf16 backward's dW_hh is a second kernel,
-  after the recurrence; a wider H is refused), and ``lstm_layer_ref`` /
+  streams (H % 128 == 0; a wider H is refused); either wide backward forms
+  dW_hh in a second kernel, after the recurrence. ``lstm_layer_ref`` /
   ``lstm_layer_bwd_ref`` for CPU tensors only; ``LSTMRecurrence`` joins
   them.
 - **Fused input projection** (K3/K4-fwd, K3-bwd, K4-bwd;
@@ -39,7 +39,7 @@ import torch
 
 from mlvae_tpu_torch import _build
 from mlvae_tpu_torch.ops.k1_plan import (NARROW_MAX_H, k1_bwd_plan,
-                                         k1_dw_plan, k1_fwd_plan)
+                                         k1_fwd_plan)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,7 +55,11 @@ LSTM_FWD_WIDE = _build.register(_build.Kernel(
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]))
 LSTM_BWD_WIDE = _build.register(_build.Kernel(
     "lstm_bwd_wide", "lstm_bwd_wide", "mlvae_lstm_bwd_wide",
-    [_P] * 12 + [_I, _I, _I, _I, _P]))
+    [_P] * 10 + [_I, _I, _I, _I, _P]))
+# the dW_hh kernel that follows the f32 wide K1-bwd's recurrence
+LSTM_DW_WIDE = _build.register(_build.Kernel(
+    "lstm_dw_wide", "lstm_bwd_wide", "mlvae_lstm_dw_wide",
+    [_P] * 3 + [_I] * 4 + [_P]))
 # the wide builds on bf16 streams (tensor cores), and the dW_hh kernel that
 # follows the bf16 K1-bwd's recurrence
 LSTM_FWD_WIDE_BF16 = _build.register(_build.Kernel(
@@ -165,10 +169,10 @@ def lstm_layer_bwd_ref(gx: torch.Tensor, w_hh: torch.Tensor,
 
 def wide_dw_ref(dgx: torch.Tensor, hs: torch.Tensor,
                 reverse: bool = False) -> torch.Tensor:
-    """Plain dW_hh of the bf16 K1-bwd from its operands (the work of the
-    dW_hh kernel): dgx (T, B, 4H), which holds the dgates rounded to the
-    stream dtype as both of ``_bwd_recurrent_grads``' products take them,
-    and hs (T, B, H) shifted by a step, summed in f32 ->
+    """Plain dW_hh of the wide K1-bwd from its operands (the work of the
+    dW_hh kernels, f32 and bf16): dgx (T, B, 4H), which holds the dgates
+    rounded to the stream dtype as both of ``_bwd_recurrent_grads``'
+    products take them, and hs (T, B, H) shifted by a step, summed in f32 ->
     (4H, H) f32: sum over the processing order's steps s >= 1 of
     dgx[t_s]^T hs[t_{s-1}] (the first processed step's h_{t-1} is zero)."""
     T, B, G = dgx.shape
@@ -216,14 +220,15 @@ def hbuf_pitch(B: int) -> int:
 
 
 def wide_plan(direction: str, H: int, B: int, bf16: bool = False) -> dict:
-    """What the wide build of ``direction`` ("fwd", "bwd", or on bf16
-    streams also "dw", the dW_hh kernel) computes for its launch at H, B on
-    f32 or ``bf16`` streams (its ``*_plan`` entry point): blocks, threads,
-    shared memory bytes, resident blocks an SM, ring buffers (bf16 K1-fwd:
-    the h_{t-1} tile's slices; dW_hh: stages), rows or columns a chunk,
-    registers and local memory bytes a thread. Builds the library; needs
-    the card. Not a launch: it counts nowhere."""
+    """What the wide build of ``direction`` ("fwd", "bwd" or "dw", K1-bwd's
+    dW_hh kernel) computes for its launch at H, B on f32 or ``bf16``
+    streams (its ``*_plan`` entry point): blocks, threads, shared memory
+    bytes, resident blocks an SM, ring buffers (f32: boxes a K slice; bf16
+    K1-fwd: the h_{t-1} tile's slices; dW_hh: stages), rows or columns a
+    chunk, registers and local memory bytes a thread. Builds the library;
+    needs the card. Not a launch: it counts nowhere."""
     kernel = {("fwd", False): LSTM_FWD_WIDE, ("bwd", False): LSTM_BWD_WIDE,
+              ("dw", False): LSTM_DW_WIDE,
               ("fwd", True): LSTM_FWD_WIDE_BF16,
               ("bwd", True): LSTM_BWD_WIDE_BF16,
               ("dw", True): LSTM_DW_WIDE_BF16}[direction, bf16]
@@ -290,8 +295,7 @@ def k1_bwd_scratch(gx: torch.Tensor, dc_last: torch.Tensor):
     (``k1_bwd_plan``'s units a block: the narrow build lays each block's
     B x H out as (H/4, B, 4), the wide one as (H/8, B, 8)); the dh carry
     (zero at the start) and the dc carry (from dc_last), (B, H), each entry
-    touched by one thread only; the step barrier's counter. The wide build
-    also takes ``hs`` transposed (``k1_bwd_hs_slab``)."""
+    touched by one thread only; the step barrier's counter."""
     _, B, G = gx.shape
     H = G // 4
     units = k1_bwd_plan(H, max(B, 1)).units
@@ -300,15 +304,6 @@ def k1_bwd_scratch(gx: torch.Tensor, dc_last: torch.Tensor):
     dh_buf = torch.zeros((B, H), device=gx.device, dtype=torch.float32)
     barrier = torch.zeros((1,), device=gx.device, dtype=torch.int32)
     return part, dh_buf, dc_last.clone(), barrier
-
-
-def k1_bwd_hs_slab(hs: torch.Tensor) -> torch.Tensor:
-    """The wide K1-bwd's scratch for hs transposed: (T, H, Bp) f32, Bp =
-    B rounded up to 4 (``hbuf_pitch``), every entry written by the
-    kernel's transpose (zeros past B)."""
-    T, B, H = hs.shape
-    return torch.empty((T, H, hbuf_pitch(B)), device=hs.device,
-                       dtype=torch.float32)
 
 
 def k1_bf16_bwd_scratch(gx: torch.Tensor, dc_last: torch.Tensor):
@@ -333,7 +328,7 @@ def lstm_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
     H=1024 (f32, or bf16 at H % 128 == 0), mixed stream dtypes and an H
     that is not a multiple of 16 refused, the bf16 layers no build takes
     and an H above 1024 ``NotImplementedError``. dW_hh comes back f32 in
-    either dtype. On bf16 streams two kernels launch: the recurrence
+    either dtype. The wide builds launch two kernels: the recurrence
     (dgx), then the dW_hh kernel over dgx and hs (``wide_dw_ref``), which
     a T=1 layer, whose only step has h_{t-1} = 0, does without.
     """
@@ -360,27 +355,30 @@ def lstm_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
                          "kernel reads it as float4 or by the TMA)")
     dgx = torch.empty_like(gx)
     dw = torch.zeros((G, H), device=gx.device, dtype=torch.float32)
-    if T and B and plan.variant == "wide_bf16":
+    if not (T and B):
+        return dgx, dw
+    stream = _build.stream_handle(gx.device)
+    if plan.variant == "wide_bf16":
         dh_buf, dc_buf, barrier = k1_bf16_bwd_scratch(gx, dc_last)
-        stream = _build.stream_handle(gx.device)
         kernel(gx.data_ptr(), w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
                dhs.data_ptr(), dgx.data_ptr(), dh_buf.data_ptr(),
                dc_buf.data_ptr(), barrier.data_ptr(), T, B, H, int(reverse),
                stream)
-        if T > 1:
-            LSTM_DW_WIDE_BF16(dgx.data_ptr(), hs.data_ptr(), dw.data_ptr(),
-                              T, B, H, int(reverse), stream)
-    elif T and B:
+    else:
         part, dh_buf, dc_buf, barrier = k1_bwd_scratch(gx, dc_last)
         head = (gx.data_ptr(), w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                dhs.data_ptr(), dgx.data_ptr(), dw.data_ptr(),
-                part.data_ptr(), dh_buf.data_ptr(), dc_buf.data_ptr())
-        tail = (barrier.data_ptr(), T, B, H, int(reverse),
-                _build.stream_handle(gx.device))
+                dhs.data_ptr(), dgx.data_ptr())
+        tail = (part.data_ptr(), dh_buf.data_ptr(), dc_buf.data_ptr(),
+                barrier.data_ptr(), T, B, H, int(reverse), stream)
         if plan.variant == "narrow":
-            kernel(*head, *tail)
-        else:
-            kernel(*head, k1_bwd_hs_slab(hs).data_ptr(), *tail)
+            kernel(*head, dw.data_ptr(), *tail)
+            return dgx, dw
+        kernel(*head, *tail)
+    if T > 1:
+        dw_kernel = LSTM_DW_WIDE_BF16 if plan.variant == "wide_bf16" \
+            else LSTM_DW_WIDE
+        dw_kernel(dgx.data_ptr(), hs.data_ptr(), dw.data_ptr(), T, B, H,
+                  int(reverse), stream)
     return dgx, dw
 
 

@@ -59,10 +59,12 @@ thread 0's issue of the next step's copies), at the same shape in f32 on
 the trajectory of the f32 K5-fwd; its dgx, dW_hh and db_hh must be
 bit-equal to the normal build's.
 
-The wide K1-bwd in f32 (``csrc/lstm_bwd_wide.cu``) has one too, with
-K1-bwd's define, slots and phases (``K1_PHASES``), a (T, H/8, 10) buffer,
+The wide K1-bwd in f32 (``csrc/lstm_bwd_wide.cu``) has one of its
+recurrence too, with K1-bwd's define, slots and phases (``K1_PHASES``;
+``partial_dw`` is the pass forming the partials), a (T, H/8, 10) buffer,
 at T=160, H=1024, B=64 (LSTM_FC's f32 shape) on the trajectory of the f32
-wide K1-fwd; its dgx and dW_hh must be bit-equal to the normal build's.
+wide K1-fwd; its dgx must be bit-equal to the normal build's. Its normal
+build's ms include the dW_hh kernel that follows the recurrence.
 
 It prints one JSON line naming the card and its power limit, and exits
 non-zero when an output differs. It needs the card and raises without
@@ -118,7 +120,7 @@ _K1_ARGS = [_P] * 11 + [_I] * 4 + [_P, _P]
 _WIDE_ARGS = [_P] * 9 + [_I] * 4 + [_P, _P]
 _GRU_ARGS = [_P] * 11 + [_I] * 4 + [_P, _P]
 _GRU_F32_ARGS = [_P] * 11 + [_I] * 4 + [_P, _P]
-_WIDE_F32_ARGS = [_P] * 12 + [_I] * 4 + [_P, _P]
+_WIDE_F32_ARGS = [_P] * 10 + [_I] * 4 + [_P, _P]
 
 
 def _timed(name: str, rows: Optional[int] = None) -> _build.Kernel:
@@ -297,38 +299,35 @@ def timed_wide(prob, reverse: bool = False):
 
 
 def timed_wide_f32(prob, reverse: bool = False):
-    """The f32 wide K1-bwd's timing build on ``prob``: ((dgx, dW_hh), as
-    ``lstm_layer_bwd``'s, and the (T, H/8, 10) int64 timeline)."""
+    """The f32 wide K1-bwd's timing build (the recurrence) on ``prob``:
+    (dgx, as ``lstm_layer_bwd``'s, and the (T, H/8, 10) int64
+    timeline)."""
     gx, w, hs, cs, dhs, dc_last = prob
     Tn, B, G = gx.shape
     Hn = G // 4
     dev = gx.device
     tl = torch.zeros((Tn, Hn // 8, K1_SLOTS), device=dev, dtype=torch.int64)
     dgx = torch.empty_like(gx)
-    dw = torch.zeros((G, Hn), device=dev, dtype=torch.float32)
     part, dh_buf, dc_buf, barrier = L.k1_bwd_scratch(gx, dc_last)
-    slab = L.k1_bwd_hs_slab(hs)
     TIMED["lstm_bwd_wide"](
         gx.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-        dhs.data_ptr(), dgx.data_ptr(), dw.data_ptr(), part.data_ptr(),
-        dh_buf.data_ptr(), dc_buf.data_ptr(), slab.data_ptr(),
-        barrier.data_ptr(), Tn, B, Hn, int(reverse), tl.data_ptr(),
-        _build.stream_handle(dev))
-    return (dgx, dw), tl
+        dhs.data_ptr(), dgx.data_ptr(), part.data_ptr(), dh_buf.data_ptr(),
+        dc_buf.data_ptr(), barrier.data_ptr(), Tn, B, Hn, int(reverse),
+        tl.data_ptr(), _build.stream_handle(dev))
+    return dgx, tl
 
 
 def wide_f32_rows(dev, iters: int):
     rows = []
     for B in K1_BATCHES:
         prob = wide_problem(dev, B, bf16=False)
-        want = L.lstm_layer_bwd(*prob)
+        want = L.lstm_layer_bwd(*prob)[0]
         got, tl = timed_wide_f32(prob)
         torch.cuda.synchronize()
         ms = cuda_ms(lambda: L.lstm_layer_bwd(*prob), iters)
         rows.append({
             "kernel": "lstm_bwd_wide", "B": B, "T": T, "H": WIDE_H,
-            "bit_equal_to_normal_build": all(
-                torch.equal(a, b) for a, b in zip(got, want)),
+            "bit_equal_to_normal_build": torch.equal(got, want),
             "ms": ms, "us_a_step_total": ms * 1e3 / T,
             "ms_timing_build": cuda_ms(lambda: timed_wide_f32(prob), iters),
             "us_a_step": ftl.phase_split(tl.cpu(), K1_PHASES)})

@@ -2,13 +2,15 @@
 
     python -m mlvae_tpu_torch.tools.bench_wide_ablation [--iters N]
 
-Builds ``csrc/lstm_fwd_wide.cu`` and ``csrc/lstm_bwd_wide.cu`` (f32), and
-``csrc/lstm_fwd_wide_bf16.cu`` and ``csrc/lstm_bwd_wide_bf16.cu`` (bf16
-streams; K1-bwd's recurrence without its dW_hh kernel), once as they are
-and once for each entry of ``ABLATIONS``: a copy of ``csrc/`` (under
+Builds ``csrc/lstm_fwd_wide.cu`` and ``csrc/lstm_bwd_wide.cu`` (f32;
+K1-bwd's recurrence and its dW_hh kernel), and ``csrc/lstm_fwd_wide_bf16.cu``
+and ``csrc/lstm_bwd_wide_bf16.cu`` (bf16 streams; K1-bwd's recurrence
+without its dW_hh kernel), once as they are and once for each entry of
+``ABLATIONS``: a copy of ``csrc/`` (under
 ``mlvae_tpu_torch/_build/ablation/``) in which one phase is taken out by a
-text substitution (its FMAs, its copies of h_{t-1} or of the dgates, its
-exchange), so that the time it saves is that phase's share. The ablated
+text substitution (its FMAs, its copies of h_{t-1} or of the dgates or of
+dW_hh's operands, its exchange), so that the time it saves is that
+phase's share. The ablated
 outputs are wrong by design; each is reported beside its time. It runs at
 LSTM_FC's shape (T=160, B=64, H=1024) on inputs from a generator seeded 0,
 times each build with CUDA events after warm-up in two rounds (the lower
@@ -36,11 +38,13 @@ from mlvae_tpu_torch.ops import lstm as L
 T, B, H = 160, 64, 1024
 ROUNDS = 2
 
-_PRODUCT_FMAS = ("lstm_wide.cuh", "for (int k = 0; k < part; ++k) {",
-                 "for (int k = 0; k < 0; ++k) {")
-_STAGE = ("lstm_wide.cuh",
-          "    cp_async16(buf + r * PITCH + 4 * j,\n"
-          "               h + (size_t)(k0 + r) * Bp + (ok ? b : 0), ok);", "")
+# the f32 builds' TMA boxes of h_{t-1}: as the bf16 builds' below
+_TMA = ("    mbar_expect(bar, BOX * sizeof(float));\n"
+        "    asm volatile(\n"
+        "        \"cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::\"\n"
+        "        \"complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\" ::\"r\"(\n"
+        "            smem_u32(my_ring + (size_t)(n % RING) * BOX)),\n")
+_TMA_END = "        : \"memory\");\n"
 # the bf16 builds' TMA copies: each copy's mbarrier expects no bytes, so
 # it completes at once and the tile keeps what it held
 _STAGE_BF16 = ("lstm_wide_mma.cuh",
@@ -51,25 +55,39 @@ _STAGE_BF16 = ("lstm_wide_mma.cuh",
 # (kernel source, [(file, text, replacement)]); "" keeps the build as it is
 ABLATIONS = {
     "fwd": ("lstm_fwd_wide", []),
-    "fwd-product_fmas": ("lstm_fwd_wide", [_PRODUCT_FMAS]),
-    "fwd-staging": ("lstm_fwd_wide", [_STAGE]),
+    "fwd-product_fmas": ("lstm_fwd_wide", [(
+        "lstm_fwd_wide.cu", "for (int k4 = 0; k4 < part / 4; ++k4) {",
+        "for (int k4 = 0; k4 < 0; ++k4) {")]),
+    "fwd-staging": ("lstm_fwd_wide", [(
+        "lstm_fwd_wide.cu",
+        _TMA + "        \"l\"(&map_h), \"r\"(b0), \"r\"(kb), \"r\"(slot), "
+        "\"r\"(smem_u32(bar))\n" + _TMA_END, "    mbar_expect(bar, 0);\n")]),
     "bwd": ("lstm_bwd_wide", []),
-    "bwd-recompute_fmas": ("lstm_bwd_wide", [_PRODUCT_FMAS]),
-    "bwd-recompute_staging": ("lstm_bwd_wide", [_STAGE]),
-    "bwd-partials": ("lstm_bwd_wide", [(
-        "lstm_bwd_wide.cu", "for (int b8 = 0; b8 < nb; b8 += 8) {",
-        "for (int b8 = 0; b8 < 0; b8 += 8) {")]),
-    "bwd-dw": ("lstm_bwd_wide", [(
+    "bwd-recompute_fmas": ("lstm_bwd_wide", [(
+        "lstm_bwd_wide.cu", "for (int k4 = 0; k4 < part / 4; ++k4) {",
+        "for (int k4 = 0; k4 < 0; ++k4) {")]),
+    "bwd-recompute_staging": ("lstm_bwd_wide", [(
         "lstm_bwd_wide.cu",
-        "for (int bb = 0; bb < 8; ++bb) {\n            const float4 hv",
-        "for (int bb = 0; bb < 0; ++bb) {\n            const float4 hv")]),
+        _TMA + "        \"l\"(&map_h), \"r\"(kb), \"r\"(b0), \"r\"(tp), "
+        "\"r\"(smem_u32(bar))\n" + _TMA_END, "    mbar_expect(bar, 0);\n")]),
+    "bwd-partials": ("lstm_bwd_wide", [(
+        "lstm_bwd_wide.cu", "for (int bb = 0; bb < nb; ++bb) {",
+        "for (int bb = 0; bb < 0; ++bb) {")]),
+    # the dW_hh kernel after the recurrence: its FMAs, its copies
+    "bwd-dw": ("lstm_bwd_wide", [(
+        "lstm_bwd_wide.cu", "for (int kk = 0; kk < DW_BK; ++kk) {",
+        "for (int kk = 0; kk < 0; ++kk) {")]),
     "bwd-dw_staging": ("lstm_bwd_wide", [(
         "lstm_bwd_wide.cu",
-        "    cp_async16(buf + (size_t)r * H + 4 * j,\n"
-        "               h + (size_t)(ok ? b : 0) * H + 4 * j, ok);", "")]),
+        "      cp_async16(as + r * DW_TILE + c4,\n"
+        "                 a_ok ? dgx + ((size_t)t * B + b) * G + m0 + c4 : dgx, "
+        "a_ok);\n"
+        "      cp_async16(bs + r * DW_TILE + c4,\n"
+        "                 b_ok ? hs + ((size_t)tp * B + b) * H + n0 + c4 : hs, "
+        "b_ok);\n", "")]),
     "bwd-reduce": ("lstm_bwd_wide", [(
-        "lstm_bwd_wide.cu", "for (int w = q4; w < nblk; w += 4) {",
-        "for (int w = q4; w < 0; w += 4) {")]),
+        "lstm_bwd_wide.cu", "for (int w = q4; w < nblk; w += RED) {",
+        "for (int w = q4; w < 0; w += RED) {")]),
     "fwd_bf16": ("lstm_fwd_wide_bf16", []),
     "fwd_bf16-staging": ("lstm_fwd_wide_bf16", [_STAGE_BF16]),
     "bwd_bf16": ("lstm_bwd_wide_bf16", []),
@@ -170,18 +188,21 @@ def _launcher(lib, src, prob):
                 raise RuntimeError(f"{src}: CUDA error {code}")
             return h, c
         return run
-    fn.argtypes = [P] * 12 + [I] * 4 + [P]
+    fn.argtypes = [P] * 10 + [I] * 4 + [P]
+    dw_fn = lib.mlvae_lstm_dw_wide
+    dw_fn.argtypes = [P] * 3 + [I] * 4 + [P]
 
     def run():
         dgx = torch.empty_like(gx)
         dw = torch.zeros_like(w)
         part, dh_buf, dc_buf, bar = L.k1_bwd_scratch(gx, dc_last)
-        slab = L.k1_bwd_hs_slab(hs)
+        st = _build.stream_handle(dev)
         code = fn(gx.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                  dhs.data_ptr(), dgx.data_ptr(), dw.data_ptr(),
-                  part.data_ptr(), dh_buf.data_ptr(), dc_buf.data_ptr(),
-                  slab.data_ptr(), bar.data_ptr(), T, B, H, 0,
-                  _build.stream_handle(dev))
+                  dhs.data_ptr(), dgx.data_ptr(), part.data_ptr(),
+                  dh_buf.data_ptr(), dc_buf.data_ptr(), bar.data_ptr(), T, B,
+                  H, 0, st)
+        code = code or dw_fn(dgx.data_ptr(), hs.data_ptr(), dw.data_ptr(), T,
+                             B, H, 0, st)
         if code:
             raise RuntimeError(f"{src}: CUDA error {code}")
         return dgx, dw

@@ -183,7 +183,7 @@ def recorded(monkeypatch):
     order; the device check and the stream lookup pass meta tensors."""
     calls = []
     for k in (L.LSTM_FWD, L.LSTM_BWD, L.LSTM_FWD_WIDE, L.LSTM_BWD_WIDE,
-              L.LSTM_FWD_WIDE_BF16, L.LSTM_BWD_WIDE_BF16,
+              L.LSTM_DW_WIDE, L.LSTM_FWD_WIDE_BF16, L.LSTM_BWD_WIDE_BF16,
               L.LSTM_DW_WIDE_BF16):
         monkeypatch.setattr(
             k, "_fn", lambda *a, _n=k.name: calls.append((_n, len(a))) or 0)
@@ -216,7 +216,9 @@ def test_f32_wide_layers_keep_the_f32_builds(recorded, Hn):
     args = _k1_args(3, 8, Hn, torch.float32)
     L.lstm_layer_fwd(*args[:2])
     L.lstm_layer_bwd(*args)
-    assert recorded == [("lstm_fwd_wide", 11), ("lstm_bwd_wide", 17)]
+    # the f32 recurrence, then its own dW_hh kernel
+    assert recorded == [("lstm_fwd_wide", 11), ("lstm_bwd_wide", 15),
+                        ("lstm_dw_wide", 8)]
 
 
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
