@@ -25,10 +25,11 @@
 //
 // The recurrence (lstm_wide.cuh): one persistent cooperative grid of H/8
 // blocks; a block owns 8 units, i.e. 32 gate rows, and keeps those rows of
-// W_hh in shared memory (128 KB at H=1024) for the recompute, and in
-// registers the columns of them that its thread forms partials for: a
-// thread owns four consecutive columns of H and all 32 rows, the 128
-// registers that dW_hh's accumulators took in PR 11's design. A step, for
+// W_hh in shared memory (128 KB at H=1024) for the recompute; for the
+// partials a thread owns four consecutive columns of H and takes their 32
+// rows into registers at the start of each pass (128 registers, which
+// dW_hh's accumulators held for the whole launch in PR 11's design, and
+// which the recompute needs the rest of the step). A step, for
 // a 64-row batch tile: h_{t-1} comes straight from hs by the TMA (a 3-D
 // tensor map over hs (H, B, T), boxes of 32 columns x 64 rows, 128-byte
 // swizzled, zeros past B), each of the recompute's four K slices (64
@@ -41,24 +42,28 @@
 // to dgx[t] and shared memory; then one pass forms each thread's four
 // columns of its split-K share of dh_{t-1}, partial[b][k] = sum over the
 // block's rows in row order of dgates[b][row] * W_hh[row][k], eight
-// float4 reads of the row's dgates for 128 FMAs, stored as float4s. After
-// the grid barrier each block sums the partials of every block for its
-// own 8 units in block order, as four interleaved lanes, then shuffles.
+// float4 reads of the row's dgates (one shared-memory pass each: every
+// lane reads the same row) for 128 FMAs, stored as float4s. After the grid
+// barrier each block sums the partials of every block for its own 8 units
+// in block order, as four interleaved lanes, then shuffles.
 //
-// The schedule (B <= 64, one tile). Only the dgates, the partials and the
-// reduce lie on the chain of steps: the recompute of step s-1 reads hs and
-// W_hh only. So the step's grid barrier is split: cell(s) -> the first
-// copies of h for step s-1 issued -> the partials of step s -> arrive ->
-// recompute(s-1) -> loads of step s-1's gx, c and dh inputs -> wait ->
-// reduce(s), the dh and dc carries in registers. B > 64 runs the tiles in
-// series (each tile: copy and recompute, cell, partials; then the barrier
-// and the reduce), the carries in dh_buf and dc_buf.
+// The schedule (B <= 64, one tile). The recompute of step s-1 reads hs and
+// W_hh only, and is bound by its FMAs; the reduce of step s waits for every
+// block's partials and is bound by L2. So they run at once, in each
+// thread: cell(s) -> the first copies of h for step s-1 issued -> the
+// partials of step s -> arrive -> loads of step s-1's gx, c and dh inputs
+// -> wait -> recompute(s-1), each of its chunks carrying a batch of the
+// reduce's loads (issued when the chunk's box has landed, added after its
+// products) -> the reduce's shuffles -> cell(s-1), the dh and dc carries
+// in registers. B > 64 runs the tiles in series (each tile: copy and
+// recompute, cell, partials; then the barrier and the reduce), the carries
+// in dh_buf and dc_buf.
 //
 // The exchange keeps PR 11's split-K partials, laid out (slot, writing
 // block, unit group of 8, row, unit), so that a reducing block reads its
-// 8 units of a row as two float4s of one 32-byte sector: (2, H/8, B, H)
-// f32, 64 MB at H=1024, B=64, of which one step writes and reads one 32 MB
-// slot. Every sum keeps PR 11's order (each pre-activation over its K
+// 8 units of a row as one 32-byte sector, two lanes a float4 each, and its
+// 64 rows from one writer as 2 KB in a run: (2, H/8, B, H) f32, 64 MB at
+// H=1024, B=64, of which one step writes and reads one 32 MB slot. Every sum keeps PR 11's order (each pre-activation over its K
 // slice in k order, chunk after chunk, then the four slices in order; each
 // partial over the 32 rows; the reduce over blocks), and the cell its
 // contraction, so the outputs are bit-identical to that design's. Shared
@@ -85,11 +90,13 @@
 
 // The step timeline (bwd_timeline.cuh, only with -DMLVAE_K1_BWD_TIMELINE):
 // stage is thread 0's wait for its slice's boxes, recompute the rest of
-// the recompute, cell the dgates and their stores, slot 5 partial_dw the
-// pass forming the partials (to the arrival), wait the grid barrier,
-// barrier the arrival to the end of the wait, slot 7 reduce, loads the
-// next step's cell inputs (and, B <= 64, thread 0's issue of the next
-// step's first copies, which it counts to the pass).
+// the recompute (B <= 64: with the reduce's loads and adds in its chunks),
+// cell the dgates and their stores, slot 5 partial_dw the pass forming the
+// partials (to the arrival; B <= 64 also thread 0's issue of the next
+// step's first copies), wait the grid barrier, barrier the arrival to the
+// end of the wait, slot 7 reduce (B <= 64: its shuffles and the block
+// barrier after them, where the block waits for its slowest slice), loads
+// the next step's cell inputs.
 #ifdef MLVAE_K1_BWD_TIMELINE
 enum { TL_PARTIAL_DW = 5, TL_REDUCE = 7 };
 #endif
@@ -193,8 +200,9 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
 
   // h_{t-1} @ W_hh^T for the tile from b0, this slice's part of it: each
   // sum over the slice's k of every chunk in order, box by box as they
-  // land; the sums into the slice's ring (red)
-  auto recompute = [&](int tp, int b0) {
+  // land; the sums into the slice's ring (red). at_chunk(c) runs once chunk
+  // c's box has landed, after_chunk(c) once the chunk's products are done.
+  auto recompute = [&](int tp, int b0, auto at_chunk, auto after_chunk) {
     float acc[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -206,6 +214,7 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
       TL_MARK(TL_RECOMPUTE);
       mbar_wait(&my_mb[n % RING], (n / RING) & 1);
       TL_MARK(TL_STAGE);
+      at_chunk(c);
       const int part = slice_part(H, c, KS);
       const int kb = c * CHUNK + ks * part;
       // row b of a box is 128 bytes, its 16-byte unit k / 4 at that unit ^
@@ -238,6 +247,7 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
               acc[j][r] = fmaf(hb[j][i], wj[r], acc[j][r]);
         }
       }
+      after_chunk(c);
       // the slice's two warps have read the box
       asm volatile("bar.sync %0, %1;" ::"r"(1 + ks), "r"(SLICE_T)
                    : "memory");
@@ -368,38 +378,72 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
   // through L2 in block order, four lanes a row and half of its units (the
   // lane of q4 sums blocks q4, q4 + 4, ...), then shuffles across the four;
   // a lane pair reads the row's 32-byte sector (units 0-3, 4-7) at once.
-  // Lanes q4 = 0 store the sums to dst + row * ld (rows below B).
-  auto reduce = [&](const float* slot, int b0, float* dst, int ld) {
-    const int lane = tid % 32;
-    const int q4 = (lane >> 1) % RED, half = lane & 1;
+  // Two passes of 32 rows (row 32 p + 4 warp + lane / 8). The loads go in
+  // batches of eight, batch c (blocks 16 c .. 16 c + 15 of both passes) in
+  // flight while the recompute's chunk c runs (red_load before the chunk,
+  // red_add after it); each pass's sum keeps its block order.
+  const int lane = tid % 32;
+  const int q4 = (lane >> 1) % RED, half = lane & 1;
+  float4 red_v[8];    // a batch in flight
+  float4 red_acc[2];  // the two passes' sums
+  auto red_row = [&](int pass) { return pass * 32 + (tid / 32) * 4 + lane / 8; };
+  auto red_ok = [&](int b0, int c, int u) {
+    return q4 + RED * (4 * c + (u >> 1)) < nblk && b0 + red_row(u & 1) < B;
+  };
+  auto red_load = [&](const float* slot, int b0, int c) {
 #pragma unroll
-    for (int pass = 0; pass < BT / 32; ++pass) {
-      const int row = pass * 32 + (tid / 32) * 4 + lane / 8;
-      const int b = b0 + row;
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (b < B) {
-#pragma unroll 8
-        for (int w = q4; w < nblk; w += RED) {
-          const float4 v = __ldcg(reinterpret_cast<const float4*>(
-              slot + (size_t)w * B * H +
-              ((size_t)blockIdx.x * B + b) * UNITS + half * 4));
-          acc.x += v.x;
-          acc.y += v.y;
-          acc.z += v.z;
-          acc.w += v.w;
-        }
-      }
-#pragma unroll
-      for (int off = 2; off < 2 * RED; off <<= 1) {
-        acc.x += __shfl_xor_sync(0xffffffffu, acc.x, off);
-        acc.y += __shfl_xor_sync(0xffffffffu, acc.y, off);
-        acc.z += __shfl_xor_sync(0xffffffffu, acc.z, off);
-        acc.w += __shfl_xor_sync(0xffffffffu, acc.w, off);
-      }
-      if (q4 == 0 && b < B)
-        *reinterpret_cast<float4*>(dst + (size_t)row * ld + half * 4) = acc;
+    for (int u = 0; u < 8; ++u) {
+      const int w = q4 + RED * (4 * c + (u >> 1));
+      red_v[u] = red_ok(b0, c, u)
+                     ? __ldcg(reinterpret_cast<const float4*>(
+                           slot + (size_t)w * B * H +
+                           ((size_t)blockIdx.x * B + b0 + red_row(u & 1)) *
+                               UNITS +
+                           half * 4))
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
   };
+  auto red_add = [&](int b0, int c) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (red_ok(b0, c, u)) {
+        float4& a = red_acc[u & 1];
+        a.x += red_v[u].x;
+        a.y += red_v[u].y;
+        a.z += red_v[u].z;
+        a.w += red_v[u].w;
+      }
+    }
+  };
+  // the passes' sums across the four lanes; lanes q4 = 0 store them to dst
+  // + row * ld (rows below B)
+  auto red_finish = [&](int b0, float* dst, int ld) {
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      float4 a = red_acc[pass];
+#pragma unroll
+      for (int off = 2; off < 2 * RED; off <<= 1) {
+        a.x += __shfl_xor_sync(0xffffffffu, a.x, off);
+        a.y += __shfl_xor_sync(0xffffffffu, a.y, off);
+        a.z += __shfl_xor_sync(0xffffffffu, a.z, off);
+        a.w += __shfl_xor_sync(0xffffffffu, a.w, off);
+      }
+      const int row = red_row(pass);
+      if (q4 == 0 && b0 + row < B)
+        *reinterpret_cast<float4*>(dst + (size_t)row * ld + half * 4) = a;
+      red_acc[pass] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  };
+  red_acc[0] = red_acc[1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  // the whole reduce of the tile from b0, with no recompute beside it
+  auto reduce = [&](const float* slot, int b0, float* dst, int ld) {
+    for (int c = 0; c < nc; ++c) {
+      red_load(slot, b0, c);
+      red_add(b0, c);
+    }
+    red_finish(b0, dst, ld);
+  };
+  auto none = [](int) {};
 
   auto prev_pos = [&](int s) {  // h_{t-1}'s position for step s
     const int t = reverse ? T - 1 - s : s;
@@ -420,7 +464,7 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
     CellIn in;
     if (T > 1) {
       issue_first(prev_pos(T - 1), 0);
-      recompute(prev_pos(T - 1), 0);
+      recompute(prev_pos(T - 1), 0, none, none);
     }
     load_in(T - 1, 0, in);
     __syncthreads();  // the slices' sums
@@ -441,17 +485,25 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
       ++arrivals;
       TL_MARK(TL_PARTIAL_DW);
       TL_ARRIVED();
-      if (s > 1) {
-        recompute(prev_pos(s - 1), 0);
-        TL_MARK(TL_RECOMPUTE);
-      }
       load_in(s - 1, 0, in);
       TL_MARK(TL_LOADS);
       grid_wait(barrier, arrivals * gridDim.x, 0, THREADS);
       TL_MARK(TL_WAIT);
       TL_WAITED();
-      reduce(part_of(s), 0, dh_s, UNITS);
-      __syncthreads();
+      // the recompute of step s-1 carries the reduce of step s: batch c of
+      // the partials' loads in flight while its chunk c runs
+      const float* slot = part_of(s);
+      if (s > 1)
+        recompute(prev_pos(s - 1), 0,
+                  [&](int c) { red_load(slot, 0, c); },
+                  [&](int c) { red_add(0, c); });
+      else
+        for (int c = 0; c < nc; ++c) {
+          red_load(slot, 0, c);
+          red_add(0, c);
+        }
+      red_finish(0, dh_s, UNITS);
+      __syncthreads();  // dh_s and the slices' sums written
       dh_c[0] = dh_s[cb * UNITS + cu];
       dh_c[1] = dh_s[cb * UNITS + cu + 1];
       TL_MARK(TL_REDUCE);
@@ -466,7 +518,7 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
         const int nb = min(BT, B - b0);
         if (!first) {
           issue_first(prev_pos(s), b0);
-          recompute(prev_pos(s), b0);
+          recompute(prev_pos(s), b0, none, none);
         }
         __syncthreads();  // the sums written; the last tile's dg_s read
         TL_MARK(TL_RECOMPUTE);
@@ -515,8 +567,8 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
 // ---------------------------------------------------------------------------
 
 constexpr int DW_TILE = 128;   // rows and columns of dW_hh a block
-constexpr int DW_BK = 16;      // rows of K a stage
-constexpr int DW_STAGES = 3;
+constexpr int DW_BK = 32;      // rows of K a stage
+constexpr int DW_STAGES = 2;
 constexpr int DW_STAGE = DW_BK * 2 * DW_TILE;  // floats: both operands
 
 size_t dw_smem_bytes() { return sizeof(float) * DW_STAGES * DW_STAGE; }

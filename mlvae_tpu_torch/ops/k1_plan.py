@@ -71,8 +71,8 @@ WIDE_FWD_RING = 3     # boxes of CHUNK / 8 rows x 64 columns a warp
 WIDE_BWD_SLICES = 4   # K1-bwd (csrc/lstm_bwd_wide.cu): two warps a slice,
 WIDE_BWD_RING = 2     # boxes of CHUNK / 4 columns x 64 rows a slice
 WIDE_DW_TILE = 128    # its dW_hh kernel: rows and columns of dW_hh a block
-WIDE_DW_BK = 16       # K rows a stage
-WIDE_DW_STAGES = 3
+WIDE_DW_BK = 32       # K rows a stage
+WIDE_DW_STAGES = 2
 # the wide builds on bf16 streams (csrc/lstm_wide_mma.cuh,
 # csrc/lstm_bwd_wide_bf16.cu)
 SLICE = 128           # columns of a K slice of h_{t-1}

@@ -85,9 +85,10 @@ ABLATIONS = {
         "      cp_async16(bs + r * DW_TILE + c4,\n"
         "                 b_ok ? hs + ((size_t)tp * B + b) * H + n0 + c4 : hs, "
         "b_ok);\n", "")]),
+    # the reduce's loads of every block's partials
     "bwd-reduce": ("lstm_bwd_wide", [(
-        "lstm_bwd_wide.cu", "for (int w = q4; w < nblk; w += RED) {",
-        "for (int w = q4; w < 0; w += RED) {")]),
+        "lstm_bwd_wide.cu", "      red_v[u] = red_ok(b0, c, u)\n",
+        "      red_v[u] = false\n")]),
     "fwd_bf16": ("lstm_fwd_wide_bf16", []),
     "fwd_bf16-staging": ("lstm_fwd_wide_bf16", [_STAGE_BF16]),
     "bwd_bf16": ("lstm_bwd_wide_bf16", []),

@@ -112,12 +112,12 @@ def test_wide_shared_memory(Hn, fwd, bwd):
     # sums reuse), W_hh's 32 rows, f32, and an mbarrier a box; K1-bwd: four
     # slices' rings of two 64 x 32 boxes, W_hh's rows, the dgates (64 x
     # 32), the reduce's sums (64 x 8), f32, and an mbarrier a box; its
-    # dW_hh kernel three stages of 16 rows of both 128-column operands
+    # dW_hh kernel two stages of 32 rows of both 128-column operands
     assert P.k1_fwd_plan(Hn, 64).smem_bytes == fwd \
         == 4 * (8 * 3 * 16 * 64 + 32 * Hn) + 8 * 8 * 3
     assert P.k1_bwd_plan(Hn, 64).smem_bytes == bwd \
         == 4 * (4 * 2 * 64 * 32 + 32 * Hn + 64 * 32 + 64 * 8) + 8 * 4 * 2
-    assert P.k1_dw_plan(Hn, 64, bf16=False).smem_bytes == 4 * 3 * 16 * 256
+    assert P.k1_dw_plan(Hn, 64, bf16=False).smem_bytes == 4 * 2 * 32 * 256
 
 
 @pytest.mark.parametrize("Hn", [1040, 1536, 2048])
@@ -276,7 +276,7 @@ def test_dw_plan_for_every_wide_h(Bn):
         w = P.k1_dw_plan(Hn, Bn, bf16=False)
         assert w.variant == "dw" and w.threads == 256
         assert w.blocks == -(-Hn // 128) * -(-4 * Hn // 128)
-        assert w.ring == 3 and 2 * w.smem_bytes <= P.SMEM_LIMIT
+        assert w.ring == 2 and 2 * w.smem_bytes <= P.SMEM_LIMIT
     # the narrow K1-bwd forms dW_hh itself
     with pytest.raises(ValueError, match="narrow"):
         P.k1_dw_plan(512, Bn, bf16=False)
