@@ -120,7 +120,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    in turns with cuDNN's forward of the same layer likewise, the
    forwards' step timeline (``mlvae_tpu_torch.tools.bench_fwd_timeline``:
    microseconds a step of each phase, the timing builds bit-equal to the
-   normal ones), the backwards' step timeline
+   normal ones; and what a warp's 16-byte shared-memory read costs by
+   pattern, ``mlvae_tpu_torch.tools.bench_smem_reads``), the backwards'
+   step timeline
    (``mlvae_tpu_torch.tools.bench_bwd_timeline``: microseconds a step of
    each phase, and the ablation without or with
    half of the copies' L2 traffic; K5 in f32 and on bf16 streams),
@@ -2606,6 +2608,17 @@ def time_fwd_timeline(dev, report):
     return res
 
 
+def time_smem_reads(dev, report):
+    """SM clocks a warp LDS.128 takes by pattern
+    (``mlvae_tpu_torch.tools.bench_smem_reads``): what the wide K1
+    products' shared-memory reads cost against their FMAs."""
+    from mlvae_tpu_torch.tools import bench_smem_reads as probe
+    res = probe.bench(dev)
+    report("  shared-memory reads, SM clocks a warp LDS.128: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in res.items()))
+    return res
+
+
 def time_bwd_timeline(dev, report):
     """The step timeline of K3-bwd, K4-bwd, K1-bwd and the wide K1-bwd on
     bf16 streams (their timing builds, tools/bench_bwd_timeline.py):
@@ -3458,6 +3471,7 @@ def main(argv=None) -> int:
     kernels += time_fused(dev, report, errs, counts)
     bwd_timeline = time_bwd_timeline(dev, report)
     fwd_timeline = time_fwd_timeline(dev, report)
+    fwd_timeline["smem_reads"] = time_smem_reads(dev, report)
     report("phase 4 the MD_VAE train steps, K5, K7, gate 3")
     train_step = time_training(dev, report, train_model, train_batch,
                                first_noise)

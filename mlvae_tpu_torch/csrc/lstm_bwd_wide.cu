@@ -387,21 +387,25 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
   float4 red_v[8];    // a batch in flight
   float4 red_acc[2];  // the two passes' sums
   auto red_row = [&](int pass) { return pass * 32 + (tid / 32) * 4 + lane / 8; };
+  // a lane's blocks are RED * B * H floats apart in a slot
+  const size_t red_stride = (size_t)RED * B * H;
   auto red_ok = [&](int b0, int c, int u) {
     return q4 + RED * (4 * c + (u >> 1)) < nblk && b0 + red_row(u & 1) < B;
   };
   auto red_load = [&](const float* slot, int b0, int c) {
+    // this lane's float4 of block q4's row in each pass, then block by block
+    const float* base[2];
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int w = q4 + RED * (4 * c + (u >> 1));
+    for (int pass = 0; pass < 2; ++pass)
+      base[pass] = slot + (size_t)q4 * B * H +
+                   ((size_t)blockIdx.x * B + b0 + red_row(pass)) * UNITS +
+                   half * 4 + (size_t)(4 * c) * red_stride;
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
       red_v[u] = red_ok(b0, c, u)
                      ? __ldcg(reinterpret_cast<const float4*>(
-                           slot + (size_t)w * B * H +
-                           ((size_t)blockIdx.x * B + b0 + red_row(u & 1)) *
-                               UNITS +
-                           half * 4))
+                           base[u & 1] + (u >> 1) * red_stride))
                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
   };
   auto red_add = [&](int b0, int c) {
 #pragma unroll
@@ -570,6 +574,7 @@ constexpr int DW_TILE = 128;   // rows and columns of dW_hh a block
 constexpr int DW_BK = 32;      // rows of K a stage
 constexpr int DW_STAGES = 2;
 constexpr int DW_STAGE = DW_BK * 2 * DW_TILE;  // floats: both operands
+static_assert(DW_BK * 8 == THREADS, "a stage: eight threads a row of K");
 
 size_t dw_smem_bytes() { return sizeof(float) * DW_STAGES * DW_STAGE; }
 
@@ -597,26 +602,30 @@ lstm_dw_wide_kernel(const float* __restrict__ dgx,
   // the shared-memory pipe (eight or four distinct float4s a warp)
   const int wm = (tid / 128) * 64 + (tid % 32) / 4 * 4;
   const int wn = ((tid / 32) % 4) * 32 + (tid % 4) * 4;
+  // the copies: thread -> row lr of each stage, float4s lq + 8 j of both
+  // operands' 32 in that row
+  const int lr = tid / 8, lq = tid % 8;
 
   // rows [kk0, kk0 + DW_BK) of K (step T-1-kk/B's dgates and its h_{t-1},
   // batch row kk % B) into stage st, one copy group; zeros past K, G, H
   auto load = [&](int st, int kk0) {
-    float* as = dsm + (size_t)st * DW_STAGE;
+    float* as = dsm + (size_t)st * DW_STAGE + lr * DW_TILE;
     float* bs = as + DW_BK * DW_TILE;
-    for (int i = tid; i < DW_BK * DW_TILE / 4; i += THREADS) {
-      const int r = i / (DW_TILE / 4), c4 = (i % (DW_TILE / 4)) * 4;
-      const int kk = kk0 + r;
-      const bool in_k = kk < K;
-      const int s = T - 1 - (in_k ? kk / B : 0);
-      const int b = in_k ? kk % B : 0;
-      const int t = reverse ? T - 1 - s : s;
-      const int tp = reverse ? t + 1 : t - 1;
+    const int kk = kk0 + lr;
+    const bool in_k = kk < K;
+    const int s = T - 1 - (in_k ? kk / B : 0);
+    const int b = in_k ? kk % B : 0;
+    const int t = reverse ? T - 1 - s : s;
+    const int tp = reverse ? t + 1 : t - 1;
+    const float* a_row = dgx + ((size_t)t * B + b) * G + m0;
+    const float* b_row = hs + ((size_t)tp * B + b) * H + n0;
+#pragma unroll
+    for (int j = 0; j < DW_TILE / 32; ++j) {
+      const int c4 = (lq + 8 * j) * 4;
       const bool a_ok = in_k && m0 + c4 < G;
       const bool b_ok = in_k && n0 + c4 < H;
-      cp_async16(as + r * DW_TILE + c4,
-                 a_ok ? dgx + ((size_t)t * B + b) * G + m0 + c4 : dgx, a_ok);
-      cp_async16(bs + r * DW_TILE + c4,
-                 b_ok ? hs + ((size_t)tp * B + b) * H + n0 + c4 : hs, b_ok);
+      cp_async16(as + c4, a_ok ? a_row + c4 : dgx, a_ok);
+      cp_async16(bs + c4, b_ok ? b_row + c4 : hs, b_ok);
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
   };

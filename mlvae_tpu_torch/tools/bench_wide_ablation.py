@@ -79,12 +79,8 @@ ABLATIONS = {
         "for (int kk = 0; kk < 0; ++kk) {")]),
     "bwd-dw_staging": ("lstm_bwd_wide", [(
         "lstm_bwd_wide.cu",
-        "      cp_async16(as + r * DW_TILE + c4,\n"
-        "                 a_ok ? dgx + ((size_t)t * B + b) * G + m0 + c4 : dgx, "
-        "a_ok);\n"
-        "      cp_async16(bs + r * DW_TILE + c4,\n"
-        "                 b_ok ? hs + ((size_t)tp * B + b) * H + n0 + c4 : hs, "
-        "b_ok);\n", "")]),
+        "      cp_async16(as + c4, a_ok ? a_row + c4 : dgx, a_ok);\n"
+        "      cp_async16(bs + c4, b_ok ? b_row + c4 : hs, b_ok);\n", "")]),
     # the reduce's loads of every block's partials
     "bwd-reduce": ("lstm_bwd_wide", [(
         "lstm_bwd_wide.cu", "      red_v[u] = red_ok(b0, c, u)\n",

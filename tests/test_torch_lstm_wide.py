@@ -335,3 +335,11 @@ def test_f32_dw_plain_version_is_the_plain_bptts_dw(Tn, Bn, Hn, reverse):
         assert not got.any() and not dw.any()
     else:
         assert float((got - dw).abs().max()) <= 1e-5 * float(dw.abs().max())
+
+
+def test_smem_probe_needs_cuda(monkeypatch):
+    from mlvae_tpu_torch.tools import bench_smem_reads as probe
+    assert len(probe.PATTERNS) == 5 and "mlvae_smem_probe" in probe.SOURCE
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        probe.main([])
