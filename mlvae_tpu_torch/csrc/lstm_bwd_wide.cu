@@ -332,7 +332,8 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
   // The tile's nb rows from b0: this thread's columns of the block's
   // split-K share of dh_{t-1}, partial[b][kq + c] = sum over the 32 rows
   // in order of dgates[b][row] * W_hh[row][kq + c], into part_s as
-  // (unit group, row, unit), a float4 of four units.
+  // (unit group, row, unit), a float4 of four units. Four rows at once:
+  // their sixteen sums are sixteen chains of FMAs, issued interleaved.
   auto partials = [&](float* part_s, int b0, int nb) {
     if (kq >= H) return;
     // W_hh's 32 rows of the thread's columns, in registers for the pass
@@ -350,27 +351,39 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
         wr[c][4 * q + 3] = v.w;
       }
     const float4* g4 = reinterpret_cast<const float4*>(dg_s);
-#pragma unroll 4
-    for (int bb = 0; bb < nb; ++bb) {
-      float d[ROWS];
+#pragma unroll 1
+    for (int bb = 0; bb < nb; bb += 4) {
+      // 4 rows at once, their 16 sums interleaved row by row of W_hh
+      // (each its own chain, rows in order); dg_s holds zeros past nb
+      float d[4][ROWS];
 #pragma unroll
-      for (int q = 0; q < ROWS / 4; ++q) {
-        const float4 v = g4[bb * (ROWS / 4) + q];
-        d[4 * q + 0] = v.x;
-        d[4 * q + 1] = v.y;
-        d[4 * q + 2] = v.z;
-        d[4 * q + 3] = v.w;
-      }
-      float p[4];
+      for (int h = 0; h < 4; ++h)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        p[c] = 0.0f;
+        for (int q = 0; q < ROWS / 4; ++q) {
+          const float4 v = g4[(bb + h) * (ROWS / 4) + q];
+          d[h][4 * q + 0] = v.x;
+          d[h][4 * q + 1] = v.y;
+          d[h][4 * q + 2] = v.z;
+          d[h][4 * q + 3] = v.w;
+        }
+      float p[4][4];
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) p[c] = fmaf(d[r], wr[c][r], p[c]);
-      }
-      *reinterpret_cast<float4*>(
-          part_s + ((size_t)(kq >> 3) * B + b0 + bb) * UNITS + (kq & 7)) =
-          make_float4(p[0], p[1], p[2], p[3]);
+      for (int h = 0; h < 4; ++h)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) p[h][c] = 0.0f;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int h = 0; h < 4; ++h)
+            p[h][c] = fmaf(d[h][r], wr[c][r], p[h][c]);
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        if (bb + h < nb)
+          *reinterpret_cast<float4*>(
+              part_s + ((size_t)(kq >> 3) * B + b0 + bb + h) * UNITS +
+              (kq & 7)) = make_float4(p[h][0], p[h][1], p[h][2], p[h][3]);
     }
   };
 
