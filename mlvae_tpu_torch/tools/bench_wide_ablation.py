@@ -71,8 +71,8 @@ ABLATIONS = {
         _TMA + "        \"l\"(&map_h), \"r\"(kb), \"r\"(b0), \"r\"(tp), "
         "\"r\"(smem_u32(bar))\n" + _TMA_END, "    mbar_expect(bar, 0);\n")]),
     "bwd-partials": ("lstm_bwd_wide", [(
-        "lstm_bwd_wide.cu", "for (int bb = 0; bb < nb; ++bb) {",
-        "for (int bb = 0; bb < 0; ++bb) {")]),
+        "lstm_bwd_wide.cu", "for (int bb = 0; bb < nb; bb += 4) {",
+        "for (int bb = 0; bb < 0; bb += 4) {")]),
     # the dW_hh kernel after the recurrence: its FMAs, its copies
     "bwd-dw": ("lstm_bwd_wide", [(
         "lstm_bwd_wide.cu", "for (int kk = 0; kk < DW_BK; ++kk) {",
