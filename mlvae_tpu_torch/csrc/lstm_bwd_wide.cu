@@ -67,7 +67,7 @@
 // slice in k order, chunk after chunk, then the four slices in order; each
 // partial over the 32 rows; the reduce over blocks), and the cell its
 // contraction, so the outputs are bit-identical to that design's. Shared
-// memory: 200 KB at H=1024.
+// memory: 202 KB at H=1024.
 //
 // dW_hh (mlvae_lstm_dw_wide): dW_hh[r][k] = sum over the processing
 // order's steps s from T-1 down to 1, and within a step over the batch
@@ -75,9 +75,11 @@
 // in that order from zero: PR 11's order, so its bits too. A tiled f32
 // SIMT product (not split over K): a block of 256 threads owns a 128 x 128
 // tile of dW_hh, a warp 64 x 32 of it, a thread 8 x 8 (two float4s of rows
-// and two of columns for 64 FMAs), and streams the K = (T-1)B
-// rows of both operands through DW_STAGES stages of DW_BK rows (cp.async,
-// zeros past the end); (H/128) x (4H/128) blocks, two an SM. Bound: 2 *
+// and two of columns for 64 FMAs), and streams the K = (T-1)B rows of both
+// operands through two stages of 32 rows (cp.async, zeros past the end;
+// each thread copies one row a stage, so that the step and batch row of
+// a row of K are worked out once: the kernel is bound by the issue of its
+// instructions); (H/128) x (4H/128) blocks, two an SM. Bound: 2 *
 // 4H * H * (T-1) * B = 85.4 GFLOP at B=64, H=1024, T=160 (1.27 ms at 67
 // TFLOP/s).
 #include <cuda_runtime.h>
@@ -510,16 +512,14 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
       // the recompute of step s-1 carries the reduce of step s: batch c of
       // the partials' loads in flight while its chunk c runs
       const float* slot = part_of(s);
-      if (s > 1)
+      if (s > 1) {
         recompute(prev_pos(s - 1), 0,
                   [&](int c) { red_load(slot, 0, c); },
                   [&](int c) { red_add(0, c); });
-      else
-        for (int c = 0; c < nc; ++c) {
-          red_load(slot, 0, c);
-          red_add(0, c);
-        }
-      red_finish(0, dh_s, UNITS);
+        red_finish(0, dh_s, UNITS);
+      } else {
+        reduce(slot, 0, dh_s, UNITS);
+      }
       __syncthreads();  // dh_s and the slices' sums written
       dh_c[0] = dh_s[cb * UNITS + cu];
       dh_c[1] = dh_s[cb * UNITS + cu + 1];
