@@ -587,11 +587,13 @@ def stress_lstm_bwd(dev, report, repeats):
 
 WIDE_H = 1024         # LSTM_FC's LSTM
 # phase 2's cases of both wide kernels, (T, B, H): the main path's shape
-# first, the other widths the launch takes, ragged B on either side of a
-# 64-row tile, B=128 (two tiles), T=1 and T=2
-WIDE_CASES = ((160, 64, 1024), (33, 64, 768), (33, 64, 640), (9, 1, 1024),
-              (9, 63, 1024), (9, 65, 1024), (9, 70, 1024), (33, 128, 1024),
-              (1, 64, 1024), (2, 64, 1024))
+# first, the other widths the launch takes (H % 32 == 16 among them: K
+# slices of the last chunk whose rows are not in fours, a grid of H/8
+# blocks not a multiple of 4), ragged B on either side of a 64-row tile,
+# B=128 (two tiles), T=1 and T=2
+WIDE_CASES = ((160, 64, 1024), (33, 64, 768), (33, 64, 640), (9, 70, 560),
+              (9, 64, 592), (9, 1, 1024), (9, 63, 1024), (9, 65, 1024),
+              (9, 70, 1024), (33, 128, 1024), (1, 64, 1024), (2, 64, 1024))
 WIDE_REPEATS = 50     # phase 2's repeated launches per wide kernel and
                       # direction at H=1024, B=64, T=160, each bit-equal to
                       # the first
