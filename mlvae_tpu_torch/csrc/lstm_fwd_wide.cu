@@ -173,42 +173,71 @@ lstm_fwd_wide_kernel(const float* __restrict__ gx,
           const int part = slice_part(H, c, KS);
           const int kb = c * CHUNK + ks * part;  // this slice's first k
           const float* hb = my_ring + (size_t)(n % RING) * BOX + bg * 4;
-          // row k of the box against W_hh's rows 4 rq0 .. 4 rq0 + 7 at kb +
-          // k (v0, v1): 64 FMAs
-          auto row = [&](int k, float4 v0, float4 v1) {
-            float hr[TB];
-#pragma unroll
-            for (int q = 0; q < TB / 4; ++q) {
-              const float4 v =
-                  *reinterpret_cast<const float4*>(hb + k * BT + q * 32);
-              hr[4 * q + 0] = v.x;
-              hr[4 * q + 1] = v.y;
-              hr[4 * q + 2] = v.z;
-              hr[4 * q + 3] = v.w;
-            }
-            const float wr[TR] = {v0.x, v0.y, v0.z, v0.w,
-                                  v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-            for (int bb = 0; bb < TB; ++bb)
-#pragma unroll
-              for (int r = 0; r < TR; ++r)
-                acc[bb][r] = fmaf(hr[bb], wr[r], acc[bb][r]);
-          };
-          // k in groups of four where kb is a multiple of 4 (W_hh's rows
-          // at kb + 4 k4 + i are slots of one swizzle, eight float4s
-          // apart); one k at a time past them, or where the last chunk's
-          // parts (H % 32 == 16) are not
-          const int k_grouped = (kb & 3) ? 0 : part & ~3;
+          if (((kb | part) & 3) == 0) {
 #pragma unroll 4
-          for (int k4 = 0; k4 < k_grouped / 4; ++k4) {
-            const float4* wk0 = w4 + w_slot(kb + 4 * k4, rq0);
-            const float4* wk1 = w4 + w_slot(kb + 4 * k4, rq0 + 1);
+            for (int k4 = 0; k4 < part / 4; ++k4) {
+              // W_hh's rows at k = kb + 4 k4 + i: slots of one swizzle
+              // (kb is a multiple of 4), eight float4s apart
+              const float4* wk0 = w4 + w_slot(kb + 4 * k4, rq0);
+              const float4* wk1 = w4 + w_slot(kb + 4 * k4, rq0 + 1);
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              row(4 * k4 + i, wk0[i * (ROWS / 4)], wk1[i * (ROWS / 4)]);
+              for (int i = 0; i < 4; ++i) {
+                const int k = 4 * k4 + i;
+                float hr[TB], wr[TR];
+#pragma unroll
+                for (int q = 0; q < TB / 4; ++q) {
+                  const float4 v = *reinterpret_cast<const float4*>(
+                      hb + k * BT + q * 32);
+                  hr[4 * q + 0] = v.x;
+                  hr[4 * q + 1] = v.y;
+                  hr[4 * q + 2] = v.z;
+                  hr[4 * q + 3] = v.w;
+                }
+                const float4 v0 = wk0[i * (ROWS / 4)];
+                const float4 v1 = wk1[i * (ROWS / 4)];
+                wr[0] = v0.x;
+                wr[1] = v0.y;
+                wr[2] = v0.z;
+                wr[3] = v0.w;
+                wr[4] = v1.x;
+                wr[5] = v1.y;
+                wr[6] = v1.z;
+                wr[7] = v1.w;
+#pragma unroll
+                for (int bb = 0; bb < TB; ++bb)
+#pragma unroll
+                  for (int r = 0; r < TR; ++r)
+                    acc[bb][r] = fmaf(hr[bb], wr[r], acc[bb][r]);
+              }
+            }
+          } else {
+            // the last chunk's parts where H % 32 == 16: not in fours
+            for (int k = 0; k < part; ++k) {
+              float hr[TB], wr[TR];
+#pragma unroll
+              for (int q = 0; q < TB / 4; ++q) {
+                const float4 v = *reinterpret_cast<const float4*>(
+                    hb + k * BT + q * 32);
+                hr[4 * q + 0] = v.x;
+                hr[4 * q + 1] = v.y;
+                hr[4 * q + 2] = v.z;
+                hr[4 * q + 3] = v.w;
+              }
+#pragma unroll
+              for (int q = 0; q < TR / 4; ++q) {
+                const float4 v = w4[w_slot(kb + k, rq0 + q)];
+                wr[4 * q + 0] = v.x;
+                wr[4 * q + 1] = v.y;
+                wr[4 * q + 2] = v.z;
+                wr[4 * q + 3] = v.w;
+              }
+#pragma unroll
+              for (int bb = 0; bb < TB; ++bb)
+#pragma unroll
+                for (int r = 0; r < TR; ++r)
+                  acc[bb][r] = fmaf(hr[bb], wr[r], acc[bb][r]);
+            }
           }
-          for (int k = k_grouped; k < part; ++k)
-            row(k, w4[w_slot(kb + k, rq0)], w4[w_slot(kb + k, rq0 + 1)]);
           __syncwarp();  // the buffer is read
           if (lane == 0 && c + RING < nc) issue(n + RING, c + RING, b0,
                                                 s & 1);
