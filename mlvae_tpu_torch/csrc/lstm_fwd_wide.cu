@@ -74,6 +74,11 @@ size_t smem_bytes(int H) {
          sizeof(uint64_t) * KS * RING;
 }
 
+// QUADS: H % 32 == 0, so every K slice's rows of every chunk start on a
+// multiple of 4 and come in fours (else the last chunk's may not: H % 32
+// == 16 takes the build with a k-at-a-time branch for them, which costs
+// the main loop a few percent when compiled in).
+template <bool QUADS>
 __global__ void __launch_bounds__(THREADS, 1)
 lstm_fwd_wide_kernel(const float* __restrict__ gx,
                      const float* __restrict__ w_hh, float* __restrict__ hs,
@@ -173,7 +178,7 @@ lstm_fwd_wide_kernel(const float* __restrict__ gx,
           const int part = slice_part(H, c, KS);
           const int kb = c * CHUNK + ks * part;  // this slice's first k
           const float* hb = my_ring + (size_t)(n % RING) * BOX + bg * 4;
-          if (((kb | part) & 3) == 0) {
+          if (QUADS || ((kb | part) & 3) == 0) {
 #pragma unroll 4
             for (int k4 = 0; k4 < part / 4; ++k4) {
               // W_hh's rows at k = kb + 4 k4 + i: slots of one swizzle
@@ -307,6 +312,12 @@ lstm_fwd_wide_kernel(const float* __restrict__ gx,
   }
 }
 
+// The build H takes (QUADS above).
+const void* kernel_for(int H) {
+  return H % 32 ? (const void*)lstm_fwd_wide_kernel<false>
+                : (const void*)lstm_fwd_wide_kernel<true>;
+}
+
 // The tensor map of the (2, H, Bp) h buffer: (batch column, row k, slot),
 // batch innermost; boxes of 64 columns x 16 rows of one slot, zeros past
 // B and past H.
@@ -344,16 +355,17 @@ const char* mlvae_lstm_fwd_wide_error_string(int err) {
 int mlvae_lstm_fwd_wide_plan(int H, int B, int* out) {
   if (!takes(1, B, H)) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(H);
+  const void* kernel = kernel_for(H);
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int occ = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, lstm_fwd_wide_kernel, THREADS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS,
+                                                      smem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, lstm_fwd_wide_kernel);
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   out[0] = H / UNITS;
   out[1] = THREADS;
@@ -391,8 +403,10 @@ int mlvae_lstm_fwd_wide(
                   (void*)&timeline
 #endif
   };
-  return launch_cooperative(lstm_fwd_wide_kernel, H / UNITS, THREADS, args,
-                            smem_bytes(H), stream);
+  return H % 32 ? launch_cooperative(lstm_fwd_wide_kernel<false>, H / UNITS,
+                                     THREADS, args, smem_bytes(H), stream)
+                : launch_cooperative(lstm_fwd_wide_kernel<true>, H / UNITS,
+                                     THREADS, args, smem_bytes(H), stream);
 }
 
 }  // extern "C"
