@@ -28,7 +28,8 @@
 // W_hh in shared memory (128 KB at H=1024) for the recompute; for the
 // partials a thread owns four consecutive columns of H and takes their 32
 // rows into registers at the start of each pass (128 registers, which
-// dW_hh's accumulators held for the whole launch in PR 11's design, and
+// dW_hh's accumulators held for the whole launch in the first wide design
+// (cp.async chunks), and
 // which the recompute needs the rest of the step). A step, for
 // a 64-row batch tile: h_{t-1} comes straight from hs by the TMA (a 3-D
 // tensor map over hs (H, B, T), boxes of 32 columns x 64 rows, 128-byte
@@ -59,24 +60,26 @@
 // recompute, cell, partials; then the barrier and the reduce), the carries
 // in dh_buf and dc_buf.
 //
-// The exchange keeps PR 11's split-K partials, laid out (slot, writing
-// block, unit group of 8, row, unit), so that a reducing block reads its
-// 8 units of a row as one 32-byte sector, two lanes a float4 each, and its
-// 64 rows from one writer as 2 KB in a run: (2, H/8, B, H) f32, 64 MB at
-// H=1024, B=64, of which one step writes and reads one 32 MB slot. Every sum keeps PR 11's order (each pre-activation over its K
-// slice in k order, chunk after chunk, then the four slices in order; each
-// partial over the 32 rows; the reduce over blocks), and the cell its
-// contraction, so the outputs are bit-identical to that design's. Shared
-// memory: 202 KB at H=1024.
+// The exchange keeps the first wide design's split-K partials, laid out
+// (slot, writing block, unit group of 8, row, unit), so that a reducing
+// block reads its 8 units of a row as one 32-byte sector, two lanes a
+// float4 each, and its 64 rows from one writer as 2 KB in a run: (2, H/8,
+// B, H) f32, 64 MB at H=1024, B=64, of which one step writes and reads one
+// 32 MB slot. Every sum keeps that design's order (each pre-activation
+// over its K slice in k order, chunk after chunk, then the four slices in
+// order; each partial over the 32 rows; the reduce over blocks), and the
+// cell its contraction, so the outputs are bit-identical to that
+// design's. Shared memory: 202 KB at H=1024.
 //
 // dW_hh (mlvae_lstm_dw_wide): dW_hh[r][k] = sum over the processing
 // order's steps s from T-1 down to 1, and within a step over the batch
 // rows b in order, of dgx[t_s][b][r] * hs[t_{s-1}][b][k], one fmaf a term
-// in that order from zero: PR 11's order, so its bits too. A tiled f32
-// SIMT product (not split over K): a block of 256 threads owns a 128 x 128
-// tile of dW_hh, a warp 64 x 32 of it, a thread 8 x 8 (two float4s of rows
-// and two of columns for 64 FMAs), and streams the K = (T-1)B rows of both
-// operands through two stages of 32 rows (cp.async, zeros past the end;
+// in that order from zero: the first wide design's order, so its bits too.
+// A tiled f32 SIMT product (not split over K): a block of 256 threads owns
+// a 128 x 128 tile of dW_hh, a warp 64 x 32 of it, a thread 8 x 8 (two
+// float4s of rows and two of columns for 64 FMAs), and streams the K =
+// (T-1)B rows of both operands through two stages of 32 rows (cp.async,
+// zeros past the end;
 // each thread copies one row a stage, so that the step and batch row of
 // a row of K are worked out once: the kernel is bound by the issue of its
 // instructions); (H/128) x (4H/128) blocks, two an SM. Bound: 2 *
@@ -401,7 +404,9 @@ lstm_bwd_wide_kernel(const float* __restrict__ gx,
   const int q4 = (lane >> 1) % RED, half = lane & 1;
   float4 red_v[8];    // a batch in flight
   float4 red_acc[2];  // the two passes' sums
-  auto red_row = [&](int pass) { return pass * 32 + (tid / 32) * 4 + lane / 8; };
+  auto red_row = [&](int pass) {
+    return pass * 32 + (tid / 32) * 4 + lane / 8;
+  };
   // a lane's blocks are RED * B * H floats apart in a slot
   const size_t red_stride = (size_t)RED * B * H;
   auto red_ok = [&](int b0, int c, int u) {

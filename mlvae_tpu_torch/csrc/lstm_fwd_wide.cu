@@ -36,12 +36,12 @@
 // writes its slice of h_t to the buffer. The step ends in the split grid
 // barrier of grid_sync.cuh, the next step's gx for the first tile loaded
 // between the arrival and the wait. Three block barriers a step where the
-// cp.async design of PR 11 took two a chunk and three for its slice-sum
-// pass. The sums, their order and the cell update's pinned contraction are
-// that design's, so the outputs are bit-identical to it. Not tried: TMA
-// multicast of each box to a cluster of blocks (every block reads all 256
-// KB of h_{t-1} from L2 each step, 32 MB a step over 128 blocks). Shared
-// memory: 224 KB at H=1024.
+// first wide design (cp.async chunks) took two a chunk and three for its
+// slice-sum pass. The sums, their order and the cell update's pinned
+// contraction are that design's, so the outputs are bit-identical to it.
+// Not tried: TMA multicast of each box to a cluster of blocks (every block
+// reads all 256 KB of h_{t-1} from L2 each step, 32 MB a step over 128
+// blocks). Shared memory: 224 KB at H=1024.
 #include <cuda_runtime.h>
 
 #include "fwd_timeline.cuh"
