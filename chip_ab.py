@@ -20,7 +20,11 @@ digested alone) and LSTM_FC's AMP train step; and K5 (the GRU recurrence
 kernels) in f32 and on bf16 streams, digests of K5-fwd's and K5-bwd's
 outputs at B=64 and 70, both directions, their times at gate 3's shape
 (T=160, B=64, H=512), and gate 3's f32 and AMP train steps (time, digest
-of the first loss). Each run prints one line
+of the first loss); and K2 (the MD-Viterbi decode at B=64, T=160, L=8)
+and K6 (the filterbank on the Kaldi pass's batch and, in SpeechBrain
+mode, the wav-in eval batch: the build the frame width takes, and the
+DFT build ``csrc/fbank.cu`` alone where a checkout has more than one
+build), a digest and a time each. Each run prints one line
 ``AB <root> <JSON of ms and digests>``; the card's name and power limit
 come first. It compares
 two versions of code that both checkouts have (a parent and its change):
@@ -83,7 +87,7 @@ def time_checkout(root: Path) -> dict:
     _build.build([n for n in _build.SOURCES if n in (
         "lstm_fwd", "lstm_bwd", "lstm_fused_fwd", "lstm_fused_bwd",
         "lstm_semi_bwd", "md_viterbi", "lstm_fwd_wide", "lstm_bwd_wide",
-        "lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16")])
+        "lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16", "fbank", "fbank_fft")])
     g = torch.Generator(device=dev).manual_seed(11)
     T, B, H = 160, 64, 512
     gx = torch.randn((T, B, 4 * H), generator=g, device=dev) * 0.5
@@ -154,6 +158,37 @@ def time_checkout(root: Path) -> dict:
     del f32
     out.update(time_wide(cs, dev))
     out.update(time_gru(cs, dev))
+    out.update(time_decode_fbank(cs, dev))
+    return out
+
+
+def time_decode_fbank(cs, dev) -> dict:
+    """K2 at the eval step's decode (B=64, T=160, L=8; the checkout's
+    ``md_viterbi_batch_cuda``, weight folded in) and K6 on the Kaldi
+    pass's batch and the wav-in eval batch: the build each width takes
+    (a digest that changes with that build by design) and the DFT build
+    (``fbank_frames_cuda(..., build="dft")`` where the checkout has more
+    than one build, else the same call), digests and times."""
+    import inspect
+    import numpy as np
+    from mlvae_tpu_torch.ops import decode as dec
+    from mlvae_tpu_torch.ops import fbank as fb
+    prob = cs.viterbi_problem(np.random.RandomState(7), dev, 64, 160, 14, 8,
+                              1.0)
+    out = {"digest_md_viterbi": digest(dec.md_viterbi_batch_cuda(*prob)),
+           "md_viterbi": cs.cuda_ms(lambda: dec.md_viterbi_batch_cuda(*prob),
+                                    iters=50)}
+    dft = {"build": "dft"} if "build" in inspect.signature(
+        fb.fbank_frames_cuda).parameters else {}
+    for _, mode, frames, _ in cs.fbank_cases(dev):
+        if frames.shape[0] < 1000 or frames.shape[1] not in (400, 512):
+            continue
+        key = "kaldi" if mode == fb.KALDI else "sb"
+        for sfx, kw in (("", {}), ("_dft", dft)):
+            out[f"digest_fbank{sfx}_{key}"] = digest(
+                [fb.fbank_frames_cuda(frames, mode, **kw)])
+            out[f"fbank{sfx}_{key}"] = cs.cuda_ms(
+                lambda: fb.fbank_frames_cuda(frames, mode, **kw), iters=20)
     return out
 
 

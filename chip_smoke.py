@@ -18,18 +18,25 @@ Phases, each reported on its own line; any failure exits non-zero:
    dW_hh kernel) at H=512, 208 and 528 against ``ops.gru.k5_plan``;
 2. each kernel against its plain PyTorch version on the card, at the
    slices' shapes (B=64, T=160, H=512; the fused kernels at In=128, 512
-   and 1024 as the AMP step gives them; the filterbank K6 in its Kaldi
+   and 1024 as the AMP step gives them; the MD-Viterbi decode K2, one
+   launch a decode, bit-exact against the plain decode and lattice at L
+   1 to 64 and T 1 to 2000, its choices kept in shared memory and read
+   back from global memory; the filterbank K6 in its Kaldi
    mode at the Kaldi pass's B=256 x 325 frames and B=1, in its
-   SpeechBrain mode at B=64 and B=1 x 160 frames; the GRU kernels K5-fwd
+   SpeechBrain mode at B=64 and B=1 x 160 frames, by its FFT build
+   (``csrc/fbank_fft.cu``, which those widths take) and its DFT build
+   (``csrc/fbank.cu``), and the DFT build at n_fft = 448, which takes it,
+   with the FFT build's launch plan; the GRU kernels K5-fwd
    and K5-bwd in f32 and on bf16 streams, the tensor-core builds, also at
    H=128, 208 and 528, ragged B, T=1 and 2, and K5-bwd's bf16 dW_hh
    kernel on its own operands), plus ragged and edge cases, K1-fwd and
    K1-bwd again over many back-to-back launches (``--lstm-repeats``,
    ``--lstm-bwd-repeats``), the fused kernels over a few, K5 over 26 per
    kernel and direction (each bit-equal to the first of its dtype), K6
-   over 20 per mode that must be bit-identical,
-   and K6's two extractors against the float64 golden on two short
-   utterances; the K-unrolled LSTM forwards at the unroll bench's shape
+   over 20 per build and shape that must be bit-identical,
+   and K6's two extractors with each build against the float64 golden on
+   two short utterances; the K-unrolled LSTM forwards at the unroll
+   bench's shape
    (B=128, T=160, H=512, In 512 and 128, K 2, 4, 8, both directions): K7a
    in f32 bit-equal to K1-fwd, K7a in bf16 bit-equal to its K=1, K7b
    bit-equal to K3/K4-fwd, the twins against the plain versions, K7 at
@@ -58,12 +65,15 @@ Phases, each reported on its own line; any failure exits non-zero:
 3. MD_VAE at the recipe's full width (H=512, B=64, T=160, L=8, weights
    from a seed) through the kernels: the TEST-target eval step (finite
    losses, decoded boundaries that sum to each utterance's phoneme count,
-   launch counts of 10 / 1 / 1 per forward, agreement with the same forward
+   launch counts of 10 K1-fwd / 1 K2 per forward, agreement with the same
+   forward
    through the plain versions, one ``infer_features`` call at B=1); the
    wav-in path: ``infer`` on a written wav at B=1 (one verdict per
-   phoneme, launches 1 K6 / 10 / 1 / 1), a B=64 wav batch through
-   ``Fbank(deltas=True)`` and the eval step against the same through the
-   plain versions, and ``compute_kaldi_features`` over a small
+   phoneme, launches 1 K6 FFT build / 10 K1-fwd / 1 K2), a B=64 wav batch
+   through ``Fbank(deltas=True)`` and the eval step against the same
+   through the plain versions, the same waves through
+   ``Fbank(n_fft=448)`` (one launch of K6's DFT build), and
+   ``compute_kaldi_features`` over a small
    ``kaldi_data`` directory on the card against the CPU; then
    the f32 training step, two steps of each target (epochs 1, 2, 3:
    PHN_RECOG, B_DETECTOR, VAE): finite losses, launches per step, exactly
@@ -98,8 +108,10 @@ Phases, each reported on its own line; any failure exits non-zero:
    draws, f32 parameters and Adam states);
 4. times from CUDA events after warm-up: each kernel, its plain version,
    a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6, in
-   turns with K6 in SpeechBrain mode and on the Kaldi pass's batch:
-   medians and spreads of ten samples each, and K6's factor),
+   turns with each build of K6 in SpeechBrain mode and on the Kaldi pass's
+   batch: medians and spreads of ten samples each, and K6's factor; each
+   build's kernel alone by the profiler), K2 a decode at B=64 and B=1 by
+   CUDA events and by the profiler, with its microseconds a chain step,
    the eval step, the wav-in ``infer`` at B=1 (read and features, then
    the eval), the wav-in eval step at B=64, the Kaldi feature pass
    (``compute_kaldi_features`` over 256 written wav files, one batch,
@@ -238,7 +250,7 @@ UNROLL_ITERS = 20     # timed calls per kernel on the unroll path (phase 3)
 # kernel launches in one eval forward: ten directional LSTM layers (2 + 2
 # + 2 + 2x2 bidirectional), one decode
 NO_FUSED = {"lstm_fused_fwd": 0, "lstm_fused_bwd": 0, "lstm_semi_bwd": 0}
-NO_FBANK = {"fbank": 0}
+NO_FBANK = {"fbank": 0, "fbank_fft": 0}
 NO_GRU = {"gru_fwd": 0, "gru_bwd": 0, "gru_fwd_bf16": 0, "gru_bwd_bf16": 0,
           "gru_dw_bf16": 0}
 # K7a and K7b run on the unroll A/B path only (phase 3's last part)
@@ -248,26 +260,24 @@ NO_UNROLL = {"lstm_unroll_fwd": 0, "lstm_unroll_fused_fwd": 0}
 NO_WIDE = {"lstm_fwd_wide": 0, "lstm_bwd_wide": 0, "lstm_dw_wide": 0,
            "lstm_fwd_wide_bf16": 0, "lstm_bwd_wide_bf16": 0,
            "lstm_dw_wide_bf16": 0}
-PER_FORWARD = {"lstm_fwd": 10, "lstm_bwd": 0, "md_viterbi_lattice": 1,
-               "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK, **NO_GRU,
-               **NO_UNROLL, **NO_WIDE}
-# the wav-in forward adds one K6 launch (SpeechBrain mode) for the batch
-PER_WAV_FORWARD = {**PER_FORWARD, "fbank": 1}
+PER_FORWARD = {"lstm_fwd": 10, "lstm_bwd": 0, "md_viterbi": 1, **NO_FUSED,
+               **NO_FBANK, **NO_GRU, **NO_UNROLL, **NO_WIDE}
+# the wav-in forward adds one K6 launch (SpeechBrain mode, N = 400: the FFT
+# build) for the batch
+PER_WAV_FORWARD = {**PER_FORWARD, "fbank_fft": 1}
 # kernel launches in one training step: each target's forward runs the
 # LSTMs of the branches it gates in; its backward reaches only the LSTMs
 # of the modules it trains (VAE: the rnn's 2 layers and the decoder's 2
 # bidirectional layers; the recognizer and the detector sit behind
 # stop-gradients)
 PER_TRAIN_STEP = {
-    "PHN_RECOG": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi_lattice": 0,
-                  "md_viterbi_backtrace": 0, **NO_FUSED, **NO_FBANK,
-                  **NO_GRU, **NO_UNROLL, **NO_WIDE},
-    "B_DETECTOR": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi_lattice": 0,
-                   "md_viterbi_backtrace": 0, **NO_FUSED, **NO_FBANK,
-                   **NO_GRU, **NO_UNROLL, **NO_WIDE},
-    "VAE": {"lstm_fwd": 10, "lstm_bwd": 6, "md_viterbi_lattice": 1,
-            "md_viterbi_backtrace": 1, **NO_FUSED, **NO_FBANK, **NO_GRU,
-            **NO_UNROLL, **NO_WIDE},
+    "PHN_RECOG": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi": 0, **NO_FUSED,
+                  **NO_FBANK, **NO_GRU, **NO_UNROLL, **NO_WIDE},
+    "B_DETECTOR": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi": 0,
+                   **NO_FUSED, **NO_FBANK, **NO_GRU, **NO_UNROLL,
+                   **NO_WIDE},
+    "VAE": {"lstm_fwd": 10, "lstm_bwd": 6, "md_viterbi": 1, **NO_FUSED,
+            **NO_FBANK, **NO_GRU, **NO_UNROLL, **NO_WIDE},
 }
 # the same under AMP: every layer takes K3 or K4 and none K1; K4 only for
 # the decoder's In=1024 pair (K3-bwd: the rnn's 2 layers and decoder l0,
@@ -275,16 +285,12 @@ PER_TRAIN_STEP = {
 NO_K1 = {"lstm_fwd": 0, "lstm_bwd": 0, **NO_WIDE}
 PER_AMP_STEP = {
     "PHN_RECOG": {**NO_K1, **NO_FBANK, **NO_GRU, **NO_UNROLL,
-                  "md_viterbi_lattice": 0, "md_viterbi_backtrace": 0,
-                  "lstm_fused_fwd": 2, "lstm_fused_bwd": 2,
+                  "md_viterbi": 0, "lstm_fused_fwd": 2, "lstm_fused_bwd": 2,
                   "lstm_semi_bwd": 0},
     "B_DETECTOR": {**NO_K1, **NO_FBANK, **NO_GRU, **NO_UNROLL,
-                   "md_viterbi_lattice": 0, "md_viterbi_backtrace": 0,
-                   "lstm_fused_fwd": 2,
+                   "md_viterbi": 0, "lstm_fused_fwd": 2,
                    "lstm_fused_bwd": 2, "lstm_semi_bwd": 0},
-    "VAE": {**NO_K1, **NO_FBANK, **NO_GRU, **NO_UNROLL,
-            "md_viterbi_lattice": 1,
-            "md_viterbi_backtrace": 1,
+    "VAE": {**NO_K1, **NO_FBANK, **NO_GRU, **NO_UNROLL, "md_viterbi": 1,
             "lstm_fused_fwd": 10, "lstm_fused_bwd": 4, "lstm_semi_bwd": 2},
 }
 # one gate-3 train step: K5-fwd for the encoder and the decoder's two
@@ -1317,6 +1323,14 @@ def stress_unroll(dev, report, repeats, T=160, B=128, H=512):
 
 
 def check_viterbi(dev, report):
+    """K2, one launch a decode, against the plain decode and the plain
+    lattice, bit for bit: L = 1, 3, 8, 40, 64; T = 1, 5, 160, 600, 2000;
+    weights 0, 0.5, 1, 2; quantized ties; B = 1 (``infer``'s shape); the
+    choices kept in shared memory and, where T * L * 2 bytes pass 64 KB,
+    read back from global memory (each case's route from
+    ``viterbi_plan``, held against the kernel's own plan). Returns the
+    main path's problem (B=64, T=160, L=8), one at B=1, and the largest
+    error of the lattice and of the decode."""
     import numpy as np
     import torch
     from mlvae_tpu_torch.ops import decode as dec
@@ -1326,10 +1340,19 @@ def check_viterbi(dev, report):
         (64, 160, 14, 8, 1.0, False), (64, 160, 14, 8, 0.5, True),
         (64, 160, 14, 8, 0.0, True), (64, 160, 14, 8, 2.0, False),
         (64, 160, 14, 1, 1.0, True), (5, 1, 14, 1, 1.0, False),
-        (16, 160, 14, 40, 1.0, True), (3, 5, 6, 3, 1.0, True)]
+        (16, 160, 14, 40, 1.0, True), (3, 5, 6, 3, 1.0, True),
+        (1, 160, 14, 8, 1.0, False), (16, 160, 14, 64, 1.0, True),
+        (16, 160, 14, 64, 0.5, False), (4, 600, 14, 64, 1.0, True),
+        (4, 2000, 14, 40, 0.5, False)]
+    routes = set()
     for B, T, N, L, w, q in cases:
         prob = viterbi_problem(rs, dev, B, T, N, L, w, q)
+        plan = dec.viterbi_plan(T, L)
+        card = dec.viterbi_launch_plan(T, L)
+        routes.add(plan["choices"])
+        before = dec.VITERBI.launches
         got = dec.md_viterbi_batch_cuda(*prob)
+        one = dec.VITERBI.launches - before
         want = dec.md_viterbi_batch_ref(*prob)
         yx, y_, y, lpb, lpi, tl, ll, _ = prob
         paths_k, beta_k = dec.md_viterbi_lattice_cuda(
@@ -1346,11 +1369,18 @@ def check_viterbi(dev, report):
         worst["backtrace"] = max(worst["backtrace"], *(
             max_err(a, b) for a, b in zip(got, want)))
         report(f"  md_viterbi B={B} T={T} L={L} w={w} quantized={q}: "
-               f"outputs bit-exact {same}, lattice bit-exact {same_lat}")
+               f"outputs bit-exact {same}, lattice bit-exact {same_lat}; "
+               f"{one} launch; choices in {plan['choices']} memory; plan "
+               f"{card}")
         check(same and same_lat, "md_viterbi disagrees with its plain "
               "version")
-    # the main path's decode shape, for the timings
-    return viterbi_problem(rs, dev, 64, 160, 14, 8, 1.0), worst
+        check(one == 1, f"md_viterbi took {one} launches for one decode")
+        check({k: card[k] for k in plan} == plan and card["local_bytes"] == 0,
+              f"md_viterbi's plan {card} is not {plan}")
+    check(routes == {"shared", "global"}, f"the backtrace took only {routes}")
+    # the main path's decode shapes, for the timings
+    return (viterbi_problem(rs, dev, 64, 160, 14, 8, 1.0),
+            viterbi_problem(rs, dev, 1, 160, 14, 8, 1.0), worst)
 
 
 KALDI_PASS = (256, 104_000)  # utterances, and the longest one's samples:
@@ -1384,19 +1414,40 @@ def kaldi_pass_batch(dev, utts):
     return torch.from_numpy(waves).to(dev), torch.from_numpy(lengths)
 
 
-def fbank_frames_of(mode, waves, lengths, max_frames):
+DFT_N = 448   # an n_fft that takes K6's DFT build (N/2 = 2^5 * 7)
+FFT_GENERIC_N = (480, 256, 60)  # widths whose FFT passes are read at run
+                                # time (phase 2 only)
+
+
+def fbank_frames_of(mode, waves, lengths, max_frames, n_fft=400):
     """The (rows, N) frames the extractors hand K6."""
     from mlvae_tpu_torch.ops import fbank as fb
     if mode == fb.KALDI:
         return fb.kaldi_frames(waves, lengths, max_frames, 320, 400)
     return fb.sb_frame_gather(waves, lengths, max_frames, 320,
-                              400).reshape(-1, 400)
+                              n_fft).reshape(-1, n_fft)
+
+
+def k6(frames, mode, build=None):
+    """K6 on ``frames`` as the extractors call it (the SpeechBrain mode's
+    window is the frame, n_fft; Kaldi's 400 samples of 512 columns)."""
+    from mlvae_tpu_torch.ops import fbank as fb
+    window = 400 if mode == fb.KALDI else frames.shape[1]
+    return fb.fbank_frames_cuda(frames, mode, window=window, build=build)
+
+
+def k6_ref(frames, mode, **kw):
+    from mlvae_tpu_torch.ops import fbank as fb
+    window = 400 if mode == fb.KALDI else frames.shape[1]
+    return fb.fbank_frames_ref(frames, mode, window=window, **kw)
 
 
 def fbank_cases(dev, B=64, T=160):
     """K6's shapes on the main paths: (label, mode, frames, repeat): the
     Kaldi pass's batch, the wav-in eval batch (both repeated in phase 2),
-    and one utterance of T frames in each mode."""
+    one utterance of T frames in each mode (the FFT build takes all of
+    them: N = 512 and 400), and the wav-in batch at n_fft = ``DFT_N``,
+    which takes the DFT build (repeated)."""
     from mlvae_tpu_torch.bench_utils import synth_wav_batch
     from mlvae_tpu_torch.ops import fbank as fb
     waves, lengths = kaldi_pass_batch(dev, kaldi_pass_waves())
@@ -1411,38 +1462,78 @@ def fbank_cases(dev, B=64, T=160):
                 fb.KALDI, waves * 32768.0, lengths, T - 1), False))
         cases.append((f"sb B={b} x {T}", fb.SB,
                        fbank_frames_of(fb.SB, waves, lengths, T), b > 1))
+        if b > 1:
+            cases.append((f"sb n_fft={DFT_N} B={b} x {T}", fb.SB,
+                          fbank_frames_of(fb.SB, waves, lengths, T, DFT_N),
+                          True))
     return cases
 
 
 def check_fbank(dev, report, cases):
     """K6 in both modes against its plain version at the main paths'
-    shapes, repeated launches bit-identical, and both extractors on the
-    card against the float64 golden on ``tests/test_fbank_pallas.py``'s two
-    utterances. Returns the max abs error per case."""
+    shapes, each by the build ``fbank_plan`` picks for its width (and the
+    DFT build also at the FFT build's widths), repeated launches
+    bit-identical, the FFT build's launch plan (no local memory), its
+    passes read at run time at ``FFT_GENERIC_N``, and both extractors with
+    each build on the card against the float64 golden on
+    ``tests/test_fbank_pallas.py``'s two utterances. Returns the max abs
+    error per case and build."""
+    import functools
     import numpy as np
     import torch
-    from mlvae_tpu_torch.bench_utils import synth_wave
+    from mlvae_tpu_torch.bench_utils import synth_wav_batch, synth_wave
     from mlvae_tpu_torch.ops import fbank as fb
     from mlvae_tpu_torch.ops import frontend_ref as ref
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "TF32 matmuls are on: the plain version would not be f32")
     errs = {}
     for label, mode, frames, repeat in cases:
-        got = fb.fbank_frames_cuda(frames, mode)
-        want = fb.fbank_frames_ref(frames, mode)
-        torch.cuda.synchronize()
-        errs[label] = max_err(got, want)
+        plan = fb.fbank_plan(frames.shape[1])
+        want = k6_ref(frames, mode)
         tol = FBANK_KALDI_ATOL if mode == fb.KALDI else FBANK_SB_ATOL
-        same = all(torch.equal(fb.fbank_frames_cuda(frames, mode), got)
-                   for _ in range(FBANK_REPEATS if repeat else 0))
-        report(f"  fbank {label} ({frames.shape[0]} frames of "
-               f"{frames.shape[1]}): max_abs_err {errs[label]:.3e} (tol "
-               f"{tol:g}); finite {bool(torch.isfinite(got).all())}"
-               + (f"; {FBANK_REPEATS} repeats bit-identical {same}"
-                  if repeat else ""))
-        check(errs[label] <= tol and bool(torch.isfinite(got).all()),
-              f"fbank {label} disagrees: {errs[label]}")
-        check(same, f"fbank {label}: repeated launches differ")
+        for build in ((plan, "dft") if plan == "fft" else (plan,)):
+            before = fb.BUILDS[build].launches
+            got = k6(frames, mode) if build == plan else k6(frames, mode,
+                                                            build)
+            torch.cuda.synchronize()
+            check(fb.BUILDS[build].launches == before + 1,
+                  f"fbank {label}: the {build} build did not launch")
+            errs[label, build] = max_err(got, want)
+            same = all(torch.equal(k6(frames, mode, build), got)
+                       for _ in range(FBANK_REPEATS if repeat else 0))
+            report(f"  fbank {label} ({frames.shape[0]} frames of "
+                   f"{frames.shape[1]}), {build} build"
+                   f"{' (the plan)' if build == plan else ''}: max_abs_err "
+                   f"{errs[label, build]:.3e} (tol {tol:g}); finite "
+                   f"{bool(torch.isfinite(got).all())}"
+                   + (f"; {FBANK_REPEATS} repeats bit-identical {same}"
+                      if repeat else ""))
+            check(errs[label, build] <= tol
+                  and bool(torch.isfinite(got).all()),
+                  f"fbank {label} ({build}) disagrees: {errs[label, build]}")
+            check(same, f"fbank {label} ({build}): repeated launches differ")
+        if plan == "fft":
+            card = fb.fbank_fft_launch_plan(frames.shape[0], frames.shape[1],
+                                            mode)
+            report(f"    plan fbank_fft: {card}")
+            check(card["local_bytes"] == 0, f"fbank_fft spills: {card}")
+
+    # the FFT build's passes read at run time, at widths no recipe uses:
+    # radix 3 (480 = 2 (4, 4, 3, 5)), radix 8 first (256 = 2 (8, 4, 4)),
+    # radix 2 (60 = 2 (2, 3, 5))
+    waves, lengths = synth_wav_batch(4, 160, seed=1, device=dev)
+    for n in FFT_GENERIC_N:
+        frames = fbank_frames_of(fb.SB, waves, lengths, 160, n)
+        card = fb.fbank_fft_launch_plan(frames.shape[0], n, fb.SB, window=n)
+        got = k6(frames, fb.SB)
+        err = max_err(got, k6_ref(frames, fb.SB))
+        same = torch.equal(k6(frames, fb.SB), got)
+        report(f"  fbank sb n_fft={n} B=4 x 160, fft build, radices "
+               f"{fb.fft_radices(n // 2)} read at run time: max_abs_err "
+               f"{err:.3e} (tol {FBANK_SB_ATOL:g}); repeat bit-identical "
+               f"{same}; plan {card}")
+        check(err <= FBANK_SB_ATOL and same and not card["fixed_passes"]
+              and card["local_bytes"] == 0, f"fbank n_fft={n} disagrees")
 
     lengths = [16000, 9000]
     waves = np.zeros((2, 16000), np.float32)
@@ -1450,20 +1541,33 @@ def check_fbank(dev, report, cases):
         waves[i, :n] = synth_wave(n, i)
     w = torch.from_numpy(waves).to(dev)
     lens = torch.tensor(lengths, device=dev)
-    kaldi, _ = fb.kaldi_fbank_batch(w, lens, max_frames=50)
-    sb, _ = fb.sb_fbank_batch(w, lens, max_frames=51)
-    for name, got, golden in (("kaldi", kaldi, ref.kaldi_fbank),
-                              ("sb", sb, ref.sb_fbank)):
-        rel = 0.0
-        for i, n in enumerate(lengths):
-            g = golden(waves[i, :n])
-            x = got[i, :g.shape[0]].cpu().numpy()
-            rel = max(rel, float(np.max(np.abs(x - g)
-                                        / np.maximum(np.abs(g), 1e-3))))
+    saved = fb.fbank_frames
+    golden_err = {}
+    try:
+        for build in ("fft", "dft"):
+            fb.fbank_frames = functools.partial(fb.fbank_frames_cuda,
+                                                build=build)
+            kaldi, _ = fb.kaldi_fbank_batch(w, lens, max_frames=50)
+            sb, _ = fb.sb_fbank_batch(w, lens, max_frames=51)
+            for name, got, golden in (("kaldi", kaldi, ref.kaldi_fbank),
+                                      ("sb", sb, ref.sb_fbank)):
+                rel = 0.0
+                for i, n in enumerate(lengths):
+                    g = golden(waves[i, :n])
+                    x = got[i, :g.shape[0]].cpu().numpy()
+                    rel = max(rel, float(np.max(
+                        np.abs(x - g) / np.maximum(np.abs(g), 1e-3))))
+                golden_err[name, build] = rel
+    finally:
+        fb.fbank_frames = saved
+    for name in ("kaldi", "sb"):
         report(f"  fbank {name} extractor on the card against the float64 "
-               f"golden ({lengths} samples): max rel err {rel:.3e} (tol "
-               f"{FBANK_GOLDEN_RTOL:g})")
-        check(rel < FBANK_GOLDEN_RTOL, f"fbank {name} is off the golden")
+               f"golden ({lengths} samples): max rel err, FFT build "
+               f"{golden_err[name, 'fft']:.3e}, DFT build "
+               f"{golden_err[name, 'dft']:.3e} (tol {FBANK_GOLDEN_RTOL:g})")
+        check(max(golden_err[name, "fft"], golden_err[name, "dft"])
+              < FBANK_GOLDEN_RTOL, f"fbank {name} is off the golden")
+    errs["golden"] = {f"{n} {b}": v for (n, b), v in golden_err.items()}
     return errs
 
 
@@ -1686,8 +1790,10 @@ def wav_forward(model, fbank, waves, lengths, batch, noise):
 def run_wav(dev, report, model, B=64, T=160, L=8):
     """The wav-in path through the kernels: ``infer`` at B=1 on a written
     wav, a B=64 wav batch through ``Fbank(deltas=True)`` and the eval step
-    against the same through the plain versions, and the Kaldi feature
-    pass on the card against the CPU. Returns the launches of the three."""
+    against the same through the plain versions (K6's FFT build), the same
+    waves through ``Fbank(n_fft=DFT_N)`` (its DFT build), and the Kaldi
+    feature pass on the card against the CPU (the FFT build). Returns the
+    launches of the four."""
     import tempfile
     import numpy as np
     import torch
@@ -1749,6 +1855,23 @@ def run_wav(dev, report, model, B=64, T=160, L=8):
     check(feat_err <= FBANK_SB_ATOL, "the wav-in features disagree")
     against_plain(report, b, preds, losses, ref, ref_losses)
 
+    # the extractor at an n_fft that takes K6's DFT build
+    dft_fbank = Fbank(n_fft=DFT_N)
+    reset_launches()
+    feats = dft_fbank(waves, lengths)
+    torch.cuda.synchronize()
+    counts = launches()
+    add(counts)
+    with twins():
+        ref_feats = dft_fbank(waves, lengths)
+    feat_err = max_err(feats, ref_feats)
+    report(f"  Fbank(n_fft={DFT_N}) B={B} T={T}: features "
+           f"{tuple(feats.shape)} against the plain version: max abs err "
+           f"{feat_err:.3e} dB (tol {FBANK_SB_ATOL:g}); launches {counts}")
+    check(feat_err <= FBANK_SB_ATOL and bool(torch.isfinite(feats).all())
+          and counts == {**dict.fromkeys(counts, 0), "fbank": 1},
+          f"Fbank(n_fft={DFT_N}) failed")
+
     with tempfile.TemporaryDirectory() as tmp:
         # two speakers with two utterances each, 1 to 2 s, speech-like
         kaldi_hp = write_kaldi_dir(Path(tmp), [
@@ -1769,7 +1892,7 @@ def run_wav(dev, report, model, B=64, T=160, L=8):
     check(list(got) == list(want) and all(got[u].shape == want[u].shape
                                           for u in want)
           and err <= CMVN_RTOL and counts == {**dict.fromkeys(counts, 0),
-                                              "fbank": 1},
+                                              "fbank_fft": 1},
           "compute_kaldi_features on the card disagrees with the CPU")
     return total
 
@@ -2331,10 +2454,68 @@ def backtrace_bound(B, T, L):
     return nbytes / MEM_BW * 1e3, "bytes"
 
 
-def time_all(dev, report, model, batch, noise, prob, errs, counts):
+def viterbi_bound(prob):
+    """K2 in one launch: the lattice's bytes and operations
+    (``lattice_bound``) and the backtrace's outputs written once (boundary
+    and flvl (B, T), plvl (B, L), int32); the choices it reads are the
+    lattice's own output, read back on the chip."""
+    yx, _, y, *_ = prob
+    B, T, _, _ = yx.shape
+    L = y.shape[1]
+    lat_ms, by = lattice_bound(prob)
+    return lat_ms + 4.0 * (2 * B * T + B * L) / MEM_BW * 1e3, by
+
+
+def time_viterbi(dev, report, probs, errs, counts):
+    """K2 per decode at each shape of ``probs`` ({label: problem}): the
+    kernel (one launch, inputs checked and weighted beforehand) back to
+    back by CUDA events and alone by the profiler, the plain decode, its
+    bound and the microseconds a chain step (the profiler's ms / (T - 1)),
+    beside the bounds of the two earlier launches (``lattice_bound``,
+    ``backtrace_bound``). The kernels line takes the first shape."""
+    from mlvae_tpu_torch.ops import decode as dec
+    by_shape = {}
+    for label, prob in probs.items():
+        yx, y_, y, lpb, lpi, tl, ll, w = prob
+        B, T = yx.shape[:2]
+        L = y.shape[1]
+        lpi_w = dec.fold_weight(lpi, w).contiguous()
+        run = (lambda: dec.md_viterbi_cuda(yx, y_, y, lpb, lpi_w, tl, ll))
+        ms = cuda_ms(run, iters=50)
+        dev_ms = kernel_ms(run)
+        plain = cuda_ms(lambda: dec.md_viterbi_batch_ref(*prob), iters=3,
+                        warmup=1)
+        bound, by = viterbi_bound(prob)
+        by_shape[label] = dict(
+            ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound,
+            bound_by=by, us_per_step=dev_ms * 1e3 / max(T - 1, 1),
+            lattice_bound_ms=lattice_bound(prob)[0],
+            backtrace_bound_ms=backtrace_bound(B, T, L)[0])
+        report(f"  md_viterbi {label}: {ms:.4f} ms a decode back to back "
+               f"(CUDA events, the wrapper's host work included), kernel "
+               f"{dev_ms:.4f} ms (profiler; "
+               f"{by_shape[label]['us_per_step']:.3f} us a chain step), one "
+               f"launch; plain {plain:.4f}; bound {bound:.6f} by {by}, the "
+               f"earlier lattice's {by_shape[label]['lattice_bound_ms']:.6f} "
+               f"and backtrace's "
+               f"{by_shape[label]['backtrace_bound_ms']:.6f}")
+    head = next(iter(by_shape.values()))
+    return dict(name="md_viterbi", route="cuda",
+                source="mlvae_tpu_torch/csrc/md_viterbi.cu",
+                replaces="mlvae_tpu/ops/decode_pallas.py:37 (lattice) and "
+                         ":111 (backtrace)",
+                max_abs_err=max(errs["lattice"], errs["backtrace"]),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=None, device_ms=head["device_ms"],
+                us_per_step=head["us_per_step"],
+                shape=next(iter(by_shape)), by_shape=by_shape,
+                **counts["md_viterbi"])
+
+
+def time_all(dev, report, model, batch, noise, prob, prob_b1, errs, counts):
     import torch
     from mlvae_tpu_torch.cli.infer import infer_features
-    from mlvae_tpu_torch.ops import decode as dec
     from mlvae_tpu_torch.ops.lstm import lstm_layer_bwd_ref, lstm_layer_ref
     T, B, H = 160, 64, 512
     g = torch.Generator(device=dev).manual_seed(11)
@@ -2347,20 +2528,8 @@ def time_all(dev, report, model, batch, noise, prob, errs, counts):
     k1_lib = k1_yard["lstm_fwd B=64"]["cudnn_ms"]
     k1_bound, k1_by = lstm_bound(T, B, H)
 
-    yx, y_, y, lpb, lpi, tl, ll, w8 = prob
-    lpi_w = dec.fold_weight(lpi, w8).contiguous()
-    paths, beta0 = dec.md_viterbi_lattice_cuda(yx, y_, y, lpb, lpi_w, tl, ll)
-    lat = cuda_ms(lambda: dec.md_viterbi_lattice_cuda(
-        yx, y_, y, lpb, lpi_w, tl, ll), iters=50)
-    lat_plain = cuda_ms(lambda: dec.md_viterbi_lattice_ref(
-        yx, y_, y, lpb, lpi_w, tl.long(), ll.long()), iters=3, warmup=1)
-    bt = cuda_ms(lambda: dec.md_viterbi_backtrace_cuda(paths, beta0, tl, ll),
-                 iters=50)
-    paths_r = paths.long().permute(1, 0, 2, 3).contiguous()
-    bt_plain = cuda_ms(lambda: dec.md_viterbi_backtrace_ref(
-        paths_r, beta0.long(), tl.long(), ll.long()), iters=3, warmup=1)
-    lat_bound, lat_by = lattice_bound(prob)
-    bt_bound, bt_by = backtrace_bound(64, 160, 8)
+    k2 = time_viterbi(dev, report, {"B=64 T=160 L=8": prob,
+                                    "B=1 T=160 L=8": prob_b1}, errs, counts)
 
     k1b_prob = bwd_problem(g, dev, T, B, H, False)
     k1b_plain = cuda_ms(lambda: lstm_layer_bwd_ref(*k1b_prob, False),
@@ -2388,9 +2557,6 @@ def time_all(dev, report, model, batch, noise, prob, errs, counts):
     report(f"  lstm_bwd {k1b:.4f} ms (plain {k1b_plain:.4f}, cuDNN LSTM "
            f"layer backward incl. dX and dW_ih, in turns, {k1b_lib:.4f}, "
            f"bound {k1b_bound:.4f} by {k1b_by})")
-    report(f"  md_viterbi_lattice {lat:.4f} ms (plain {lat_plain:.4f}, bound "
-           f"{lat_bound:.6f} by {lat_by}); md_viterbi_backtrace {bt:.4f} ms "
-           f"(plain {bt_plain:.4f}, bound {bt_bound:.6f} by {bt_by})")
     report(f"  eval step B={Bm} T={Tm}: {step:.3f} ms "
            f"({Bm * Tm * HOP_SEC / (step / 1e3):.1f} utt-sec/sec); "
            f"through the plain versions {step_plain:.3f} ms")
@@ -2411,19 +2577,7 @@ def time_all(dev, report, model, batch, noise, prob, errs, counts):
              ms=k1b, plain_ms=k1b_plain, bound_ms=k1b_bound, bound_by=k1b_by,
              library_ms=k1b_lib, interleaved=k1b_yard,
              **counts["lstm_bwd"]),
-        dict(name="md_viterbi_lattice", route="cuda",
-             source="mlvae_tpu_torch/csrc/md_viterbi.cu",
-             replaces="mlvae_tpu/ops/decode_pallas.py:37",
-             max_abs_err=errs["lattice"], **counts["md_viterbi_lattice"],
-             ms=lat, plain_ms=lat_plain, bound_ms=lat_bound, bound_by=lat_by,
-             library_ms=None),
-        dict(name="md_viterbi_backtrace", route="cuda",
-             source="mlvae_tpu_torch/csrc/md_viterbi.cu",
-             replaces="mlvae_tpu/ops/decode_pallas.py:111",
-             max_abs_err=errs["backtrace"],
-             **counts["md_viterbi_backtrace"],
-             ms=bt, plain_ms=bt_plain, bound_ms=bt_bound, bound_by=bt_by,
-             library_ms=None),
+        k2,
     ], {"eval_step_ms": step, "eval_step_plain_ms": step_plain,
         "utt_sec_per_sec": Bm * Tm * HOP_SEC / (step / 1e3),
         "infer_b1_ms": infer_ms}
@@ -3106,19 +3260,21 @@ def time_gate3(dev, report, gate, batch, noise, label):
     return out
 
 
-def fbank_bound(mode, rows):
-    """K6's least time on ``rows`` frames, counted two ways, each against
-    the window's 400 columns read and the 40 log-mels written once: as K6
-    computes it, the DFT as products over the window's columns (the TPU
-    kernel counts the same products over all N = 512 in the Kaldi mode),
-    and as an FFT would, about 2.5 N log2 N operations for a real N-point
-    transform. Both add the pre-processing (DC removal, pre-emphasis and
-    window: 5 operations a column; the window alone in the SpeechBrain
-    mode), the power and each filter's nonzero bins. Returns ((ms, by) as
-    K6 computes it, (ms, by) with an FFT)."""
+def fbank_bound(mode, rows, n=None):
+    """K6's least time on ``rows`` frames of ``n`` columns (512 in the
+    Kaldi mode, else 400), counted two ways, each against the window's
+    columns (400; n in the SpeechBrain mode) read and the 40 log-mels
+    written once: as the DFT build computes it, products over the window's
+    columns (the TPU kernel counts the same products over all N = 512 in
+    the Kaldi mode), and as the FFT build would, about 2.5 N log2 N
+    operations for a real N-point transform. Both add the pre-processing
+    (DC removal, pre-emphasis and window: 5 operations a column; the
+    window alone in the SpeechBrain mode), the power and each filter's
+    nonzero bins. Returns ((ms, by) for the DFT, (ms, by) for an FFT)."""
     import math
     from mlvae_tpu_torch.ops import fbank as fb
-    window, n = 400, (512 if mode == fb.KALDI else 400)
+    n = n or (512 if mode == fb.KALDI else 400)
+    window = 400 if mode == fb.KALDI else n
     bins = n // 2 + 1
     nonzero = int(fb._frame_consts(mode, 16000, n, window, 40)[
         "mel_len"].sum())
@@ -3139,71 +3295,89 @@ def _rfft_power(f, consts):
 def fbank_cufft(frames, mode):
     """The library yardstick: the plain version with cuFFT's rfft in place
     of the two DFT products (timed here, never the port's path)."""
-    from mlvae_tpu_torch.ops import fbank as fb
-    return fb.fbank_frames_ref(frames, mode, _power=_rfft_power)
+    return k6_ref(frames, mode, _power=_rfft_power)
 
 
 FBANK_TURNS = 5   # rounds of K6 in turns with cuFFT: ten samples each
 
 
 def time_fbank(dev, report, cases, errs, counts):
-    """K6 in each mode and shape against its plain version, the cuFFT
-    yardstick and its bound; the kernels line reports the wav-in eval
-    step's shape (SpeechBrain mode, B=64) and lists every shape. In
-    SpeechBrain mode and on the Kaldi pass's batch K6 and the yardstick are
-    timed in turns (kernel, cuFFT, cuFFT, kernel; ``FBANK_TURNS`` rounds):
-    medians and spreads, and K6's factor against cuFFT."""
+    """K6 in each mode and shape by the build its width takes, against its
+    plain version, the cuFFT yardstick and its bound; at the FFT build's
+    widths the DFT build too (the earlier design, as it still runs at
+    other widths). In SpeechBrain mode and on the Kaldi pass's batch the
+    build and the yardstick are timed in turns (kernel, cuFFT, cuFFT,
+    kernel; ``FBANK_TURNS`` rounds): medians and spreads, and the factor
+    against cuFFT. The kernels line gives each build at its main shape:
+    the FFT build at the wav-in eval batch (SpeechBrain, B=64), the DFT
+    build at the same waves with n_fft = ``DFT_N``; every shape under
+    ``by_shape``."""
     from mlvae_tpu_torch.ops import fbank as fb
-    by_shape = {}
+    by_shape = {"fft": {}, "dft": {}}
     for label, mode, frames, _ in cases:
         small = frames.shape[0] < 1000
         k_iters, y_iters = (100, 20) if small else (20, 5)
-        run = (lambda: fb.fbank_frames_cuda(frames, mode))
+        plan = fb.fbank_plan(frames.shape[1])
         yard = (lambda: fbank_cufft(frames, mode))
-        turns = mode == fb.SB or not small
-        if turns:
-            ks, ys = interleaved_ms(lambda _: cuda_ms(run, iters=k_iters),
-                                    lambda _: cuda_ms(yard, iters=y_iters),
-                                    FBANK_TURNS, None)
-            ms, lib = statistics.median(ks), statistics.median(ys)
-        else:
-            ms = cuda_ms(run, iters=k_iters)
-            lib = cuda_ms(yard, iters=y_iters)
-        plain = cuda_ms(lambda: fb.fbank_frames_ref(frames, mode),
-                        iters=20 if small else 5)
-        lib_err = max_err(fbank_cufft(frames, mode),
-                          fb.fbank_frames_ref(frames, mode))
-        (b_ms, b_by), (f_ms, f_by) = fbank_bound(mode, frames.shape[0])
-        by_shape[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                               bound_ms=b_ms, bound_by=b_by,
-                               fft_bound_ms=f_ms, fft_bound_by=f_by,
-                               max_abs_err=errs[label],
-                               frames=frames.shape[0])
-        turned = ""
-        if turns:
-            by_shape[label].update(
-                ms_spread=[min(ks), max(ks)],
-                library_spread=[min(ys), max(ys)], factor=ms / lib)
-            turned = (f" in turns, medians of {len(ks)} samples each: K6 "
-                      f"{min(ks):.4f}-{max(ks):.4f}, cuFFT "
-                      f"{min(ys):.4f}-{max(ys):.4f}, factor {ms / lib:.3f}")
-        report(f"  fbank {label} ({frames.shape[0]} frames): {ms:.4f} ms "
-               f"(bound {b_ms:.4f} by {b_by} for the DFT over the window, "
-               f"{f_ms:.4f} by {f_by} for an FFT; plain {plain:.4f}; cuFFT "
-               f"rfft + power + mel + log {lib:.4f}, max abs err against "
-               f"the plain version {lib_err:.3e}){turned}")
-    shape = next(label for label, mode, _, repeat in cases
-                 if mode == fb.SB and repeat)  # the wav-in eval batch
-    head = by_shape[shape]
-    return [dict(name="fbank", route="cuda",
-                 source="mlvae_tpu_torch/csrc/fbank.cu",
-                 replaces="mlvae_tpu/ops/fbank_pallas.py:40",
-                 max_abs_err=head["max_abs_err"], ms=head["ms"],
-                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-                 bound_by=head["bound_by"], fft_bound_ms=head["fft_bound_ms"],
-                 fft_bound_by=head["fft_bound_by"],
-                 library_ms=head["library_ms"],
-                 shape=shape, by_shape=by_shape, **counts["fbank"])]
+        plain = cuda_ms(lambda: k6_ref(frames, mode), iters=20 if small else 5)
+        lib_err = max_err(fbank_cufft(frames, mode), k6_ref(frames, mode))
+        (d_ms, d_by), (f_ms, f_by) = fbank_bound(mode, frames.shape[0],
+                                                 frames.shape[1])
+        for build in ((plan, "dft") if plan == "fft" else (plan,)):
+            run = (lambda: k6(frames, mode, build))
+            turns = mode == fb.SB or not small
+            if turns:
+                ks, ys = interleaved_ms(
+                    lambda _: cuda_ms(run, iters=k_iters),
+                    lambda _: cuda_ms(yard, iters=y_iters), FBANK_TURNS, None)
+                ms, lib = statistics.median(ks), statistics.median(ys)
+            else:
+                ms = cuda_ms(run, iters=k_iters)
+                lib = cuda_ms(yard, iters=y_iters)
+            b_ms, b_by = (f_ms, f_by) if build == "fft" else (d_ms, d_by)
+            dev_ms = kernel_ms(run)
+            row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                       library_ms=lib, bound_ms=b_ms,
+                       bound_by=b_by, dft_bound_ms=d_ms, fft_bound_ms=f_ms,
+                       share_of_fft_bound=f_ms / ms,
+                       max_abs_err=errs[label, build],
+                       frames=frames.shape[0], n=frames.shape[1])
+            turned = ""
+            if turns:
+                row.update(ms_spread=[min(ks), max(ks)],
+                           library_spread=[min(ys), max(ys)],
+                           factor=ms / lib)
+                turned = (f" in turns, medians of {len(ks)} samples each: "
+                          f"K6 {min(ks):.4f}-{max(ks):.4f}, cuFFT "
+                          f"{min(ys):.4f}-{max(ys):.4f}, factor "
+                          f"{ms / lib:.3f}")
+            by_shape[build][label] = row
+            report(f"  fbank {label} ({frames.shape[0]} frames of "
+                   f"{frames.shape[1]}), {build} build: {ms:.4f} ms (kernel "
+                   f"alone {dev_ms:.4f} by the profiler; bound "
+                   f"{d_ms:.4f} by {d_by} for the DFT over the window, "
+                   f"{f_ms:.4f} by {f_by} for an FFT: {100 * f_ms / ms:.1f} "
+                   f"% of it; plain {plain:.4f}; cuFFT rfft + power + mel + "
+                   f"log {lib:.4f}, max abs err against the plain version "
+                   f"{lib_err:.3e}){turned}")
+    heads = {"fft": next(label for label, mode, f, repeat in cases
+                         if mode == fb.SB and repeat
+                         and fb.fbank_plan(f.shape[1]) == "fft"),
+             "dft": next(label for label, mode, f, repeat in cases
+                         if fb.fbank_plan(f.shape[1]) == "dft")}
+    out = []
+    for build, name, src in (("fft", "fbank_fft", "fbank_fft.cu"),
+                             ("dft", "fbank", "fbank.cu")):
+        head = by_shape[build][heads[build]]
+        out.append(dict(
+            name=name, route="cuda", source=f"mlvae_tpu_torch/csrc/{src}",
+            replaces="mlvae_tpu/ops/fbank_pallas.py:40",
+            max_abs_err=head["max_abs_err"], ms=head["ms"],
+            device_ms=head["device_ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=head["library_ms"],
+            shape=heads[build], by_shape=by_shape[build], **counts[name]))
+    return out
 
 
 def host_ms(fn, iters, warmup=2):
@@ -3395,7 +3569,7 @@ def main(argv=None) -> int:
     errs["lstm_wide_bf16"] = check_lstm_wide(dev, report, bf16=True)
     stress_lstm_wide(dev, report, WIDE_BF16_REPEATS, bf16=True)
     report("phase 2 K2, K3/K4, K6, K5, K7")
-    prob, errs_viterbi = check_viterbi(dev, report)
+    prob, prob_b1, errs_viterbi = check_viterbi(dev, report)
     errs.update(errs_viterbi)
     errs["lstm_fused_fwd"] = check_fused_fwd(dev, report)
     errs.update(check_fused_bwd(dev, report))
@@ -3463,8 +3637,8 @@ def main(argv=None) -> int:
           f"a kernel of the path never launched: {counts}")
 
     report("phase 4 times (CUDA events, after warm-up)")
-    kernels, step = time_all(dev, report, model, batch, noise, prob, errs,
-                             counts)
+    kernels, step = time_all(dev, report, model, batch, noise, prob, prob_b1,
+                             errs, counts)
     kernels += time_fbank(dev, report, cases, errs_fbank, counts)
     del cases
     wav_in = time_wav(dev, report, model)

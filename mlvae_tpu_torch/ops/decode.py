@@ -2,7 +2,8 @@
 
 Counterpart of ``mlvae_tpu/ops/decode.py`` (the batched DP and its numpy
 oracle) and ``ops/decode_pallas.py`` (kernels K2-lattice and
-K2-backtrace). Recurrence, with ``b`` the MD state:
+K2-backtrace, one kernel here: ``csrc/md_viterbi.cu``, one launch a
+decode). Recurrence, with ``b`` the MD state:
 
     e[t, l, b]   = log p(y_l | x_t)[b] - log p(y_l)[b]
     dp[0, 0, b]  = w * log_pi[0, b] + e[0, 0, b]
@@ -33,12 +34,57 @@ NEG_INF = -1e30
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-LATTICE = _build.register(_build.Kernel(
-    "md_viterbi_lattice", "md_viterbi", "mlvae_md_viterbi_lattice",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]))
-BACKTRACE = _build.register(_build.Kernel(
-    "md_viterbi_backtrace", "md_viterbi", "mlvae_md_viterbi_backtrace",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]))
+VITERBI = _build.register(_build.Kernel(
+    "md_viterbi", "md_viterbi", "mlvae_md_viterbi",
+    [_P] * 12 + [_I] * 4 + [_P]))
+
+# the kernel's launch plan (``make_plan`` in csrc/md_viterbi.cu)
+MAX_L = 1024             # phonemes a row: 32 carry slots a lane
+RING_FLOATS = 4096       # one half of the emissions' ring
+MAX_CHUNK = 32           # steps a half holds at most
+CHOICE_BYTES = 64 * 1024  # the choices stay in shared memory up to this
+
+
+def viterbi_plan(T: int, L: int) -> dict:
+    """What K2's launch takes at T steps and L phonemes, as the kernel
+    computes it: carry slots a lane (ceil(L / 32) rounded up to a power of
+    2, the build), steps a half of the ring holds, whether the (T, L, 2)
+    int8 choices stay in shared memory for the backtrace ("shared") or
+    are read back from global memory ("global"), and the shared memory
+    bytes (the ring, y, the backtrace's two bits a step, the choices where
+    kept). Refuses (``ValueError``) L above 1024."""
+    if T < 1 or not 1 <= L <= MAX_L:
+        raise ValueError(f"K2 takes T >= 1 and 1 to {MAX_L} phonemes, not "
+                         f"T={T}, L={L}")
+    slots = 1
+    while slots < -(-L // 32):
+        slots *= 2
+    step = 2 * L + 4
+    chunk = min(MAX_CHUNK, RING_FLOATS // step)
+    shared = 2 * T * L <= CHOICE_BYTES
+    words = -(-T // 128) * 4       # a bit a step, whole 16 bytes
+    smem = 4 * (2 * chunk * step + -(-L // 4) * 4 + 2 * words) \
+        + (-(-2 * T * L // 16) * 16 if shared else 0)
+    return {"slots": slots, "chunk": chunk,
+            "choices": "shared" if shared else "global", "smem_bytes": smem}
+
+
+def viterbi_launch_plan(T: int, L: int) -> dict:
+    """``viterbi_plan`` as the kernel's ``mlvae_md_viterbi_plan`` entry
+    point computes it, with the build's registers and local memory bytes
+    a thread. Builds the library; needs the card. Not a launch: it counts
+    nowhere."""
+    fn = getattr(_build.library(VITERBI.source), "mlvae_md_viterbi_plan")
+    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    code = fn(T, L, out)
+    if code:
+        raise RuntimeError(f"md_viterbi plan: CUDA error {code}")
+    return {"slots": out[0], "chunk": out[1],
+            "choices": "shared" if out[2] else "global",
+            "smem_bytes": out[3], "registers": out[4],
+            "local_bytes": out[5]}
 
 
 def clamped_log(x: torch.Tensor) -> torch.Tensor:
@@ -156,8 +202,9 @@ def md_viterbi_batch_ref(log_p_yx, log_p_y, y, log_p_b, log_p_pi, t_lens,
 
 def md_viterbi_batch_cuda(log_p_yx, log_p_y, y, log_p_b, log_p_pi, t_lens,
                           l_lens, weight=1.0):
-    """K2-lattice + K2-backtrace on the card; the contract of
-    ``md_viterbi_batch_ref``. Raises on what the kernels do not take."""
+    """K2 on the card, one launch; the contract of ``md_viterbi_batch_ref``.
+    Raises on what the kernel does not take (L above 1024, float inputs
+    not 8-byte aligned)."""
     B, T, N, two = log_p_yx.shape
     L = y.shape[1]
     dev = log_p_yx.device
@@ -170,9 +217,10 @@ def md_viterbi_batch_cuda(log_p_yx, log_p_y, y, log_p_b, log_p_pi, t_lens,
     shapes = {"log_p_y": (N, 2), "log_p_b": (B, T, 2), "log_p_pi": (B, T, 2)}
     for name, a in floats.items():
         if a.device != dev or a.dtype != torch.float32 \
-                or not a.is_contiguous():
+                or not a.is_contiguous() or a.data_ptr() % 8:
             raise ValueError(f"md_viterbi_batch_cuda: {name} must be a "
-                             f"contiguous f32 tensor on {dev}")
+                             f"contiguous, 8-byte aligned f32 tensor on "
+                             f"{dev}")
         if name in shapes and tuple(a.shape) != shapes[name]:
             raise ValueError(f"md_viterbi_batch_cuda: {name} is "
                              f"{tuple(a.shape)}, expected {shapes[name]}")
@@ -180,49 +228,43 @@ def md_viterbi_batch_cuda(log_p_yx, log_p_y, y, log_p_b, log_p_pi, t_lens,
             or tuple(l_lens.shape) != (B,):
         raise ValueError("md_viterbi_batch_cuda: y must be (B, L) and the "
                          "lengths (B,)")
+    viterbi_plan(T, L)
     y32 = y.to(dev, torch.int32).contiguous()
     t32 = t_lens.to(dev, torch.int32).contiguous()
     l32 = l_lens.to(dev, torch.int32).contiguous()
     # the weight scales every lpi use: fold it in here, outside the kernel
     lpi_w = fold_weight(log_p_pi, weight).contiguous()
-    paths, beta0 = md_viterbi_lattice_cuda(log_p_yx, log_p_y, y32, log_p_b,
-                                           lpi_w, t32, l32)
-    if T == 1:
-        lanes = torch.arange(L, device=dev)[None, :]
-        plvl = torch.where(lanes == (l32 - 1)[:, None], beta0[:, None], 0)
-        return (torch.ones((B, 1), dtype=torch.int32, device=dev),
-                beta0[:, None].clone(), plvl.int())
-    return md_viterbi_backtrace_cuda(paths, beta0, t32, l32)
+    return md_viterbi_cuda(log_p_yx, log_p_y, y32, log_p_b, lpi_w, t32,
+                           l32)[:3]
+
+
+def md_viterbi_cuda(log_p_yx, log_p_y, y32, log_p_b, lpi_w, t32, l32):
+    """K2 on checked, contiguous inputs (int32 ``y32``, ``t32``, ``l32``;
+    ``lpi_w`` weighted), one launch. Returns (boundary (B, T), flvl_md
+    (B, T), plvl_md (B, L), int32; the lattice's choices paths (B, T, L,
+    2) int8 and beta0 (B,) int32)."""
+    B, T, N, _ = log_p_yx.shape
+    L = y32.shape[1]
+    dev = y32.device
+    paths = torch.empty((B, T, L, 2), dtype=torch.int8, device=dev)
+    beta0 = torch.empty((B,), dtype=torch.int32, device=dev)
+    boundary = torch.empty((B, T), dtype=torch.int32, device=dev)
+    flvl = torch.empty((B, T), dtype=torch.int32, device=dev)
+    plvl = torch.empty((B, L), dtype=torch.int32, device=dev)
+    VITERBI(log_p_yx.data_ptr(), log_p_y.data_ptr(), y32.data_ptr(),
+            log_p_b.data_ptr(), lpi_w.data_ptr(), t32.data_ptr(),
+            l32.data_ptr(), paths.data_ptr(), beta0.data_ptr(),
+            boundary.data_ptr(), flvl.data_ptr(), plvl.data_ptr(), B, T, N,
+            L, _build.stream_handle(dev))
+    return boundary, flvl, plvl, paths, beta0
 
 
 def md_viterbi_lattice_cuda(log_p_yx, log_p_y, y32, log_p_b, lpi_w, t32,
                             l32):
-    """K2-lattice on checked, contiguous inputs (int32 ``y32``, ``t32``,
-    ``l32``; ``lpi_w`` weighted). Returns (paths (B, T, L, 2) int8,
-    beta0 (B,) int32)."""
-    B, T, N, _ = log_p_yx.shape
-    L = y32.shape[1]
-    paths = torch.empty((B, T, L, 2), dtype=torch.int8, device=y32.device)
-    beta0 = torch.empty((B,), dtype=torch.int32, device=y32.device)
-    LATTICE(log_p_yx.data_ptr(), log_p_y.data_ptr(), y32.data_ptr(),
-            log_p_b.data_ptr(), lpi_w.data_ptr(), t32.data_ptr(),
-            l32.data_ptr(), paths.data_ptr(), beta0.data_ptr(), B, T, N, L,
-            _build.stream_handle(y32.device))
-    return paths, beta0
-
-
-def md_viterbi_backtrace_cuda(paths, beta0, t32, l32):
-    """K2-backtrace over the lattice's int8 choices (T >= 2). Returns
-    (boundary (B, T), flvl_md (B, T), plvl_md (B, L)), int32."""
-    B, T, L, _ = paths.shape
-    dev = paths.device
-    boundary = torch.empty((B, T), dtype=torch.int32, device=dev)
-    flvl = torch.empty((B, T), dtype=torch.int32, device=dev)
-    plvl = torch.empty((B, L), dtype=torch.int32, device=dev)
-    BACKTRACE(paths.data_ptr(), beta0.data_ptr(), t32.data_ptr(),
-              l32.data_ptr(), boundary.data_ptr(), flvl.data_ptr(),
-              plvl.data_ptr(), B, T, L, _build.stream_handle(dev))
-    return boundary, flvl, plvl
+    """K2's lattice outputs, the contract of K2-lattice: (paths (B, T, L,
+    2) int8, beta0 (B,) int32), from one launch of ``md_viterbi_cuda``."""
+    return md_viterbi_cuda(log_p_yx, log_p_y, y32, log_p_b, lpi_w, t32,
+                           l32)[3:]
 
 
 def md_viterbi_batch(log_p_yx, log_p_y, y, log_p_b, log_p_pi, t_lens,

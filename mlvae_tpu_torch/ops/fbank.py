@@ -14,6 +14,13 @@ one kernel, ``csrc/fbank.cu``, with a mode for each extractor:
 * ``SB``: frames (rows, 400) already zero outside the utterance; periodic
   Hamming, 201 bins, SpeechBrain's mel banks, ``10 log10(max(mel, 1e-10))``.
 
+K6 has two builds, chosen by the frame width N before the launch
+(``fbank_plan``): ``csrc/fbank_fft.cu`` (``FBANK_FFT``) takes an even N
+whose N/2 factors into 2, 3, 4 and 5 (the recipes' N = 512 and 400) and
+computes the transform as a real-input FFT; ``csrc/fbank.cu`` (``FBANK``)
+takes any other N up to 512 and computes it as a DFT. Neither stands in
+for the other when a build or a launch fails.
+
 ``fbank_frames`` launches the kernel for CUDA tensors and runs the plain
 version, ``fbank_frames_ref``, for CPU tensors only. The plain version
 follows the TPU kernel's association: the window, two f32 products with
@@ -44,6 +51,76 @@ _I = ctypes.c_int
 FBANK = _build.register(_build.Kernel(
     "fbank", "fbank", "mlvae_fbank",
     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]))
+FBANK_FFT = _build.register(_build.Kernel(
+    "fbank_fft", "fbank_fft", "mlvae_fbank_fft",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]))
+BUILDS = {"fft": FBANK_FFT, "dft": FBANK}
+MAX_N = 512   # the widest frame either build takes
+
+
+# ---------------------------------------------------------------------------
+# the build a frame width takes, and the FFT build's plan
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def fft_radices(m: int):
+    """The radices of the FFT build's passes over m complex points, in pass
+    order: fours (a two left over makes the first of them an eight, or
+    stays a two), then threes, then fives; None when m has a prime factor
+    above 5. 256 -> (4, 4, 4, 4); 200 -> (8, 5, 5); 240 -> (4, 4, 3, 5)."""
+    if m < 1:
+        return None
+    rest, count = m, {}
+    for f in (2, 3, 5):
+        count[f] = 0
+        while rest % f == 0:
+            rest //= f
+            count[f] += 1
+    if rest != 1:
+        return None
+    fours, two = divmod(count[2], 2)
+    radices = [4] * fours
+    if two:
+        radices = [8] + radices[1:] if fours else [2]
+    return tuple(radices + [3] * count[3] + [5] * count[5])
+
+
+def fbank_plan(n: int) -> str:
+    """The build of K6 that takes frames of ``n`` columns: "fft" for an
+    even n whose n/2 factors into 2, 3, 4 and 5, else "dft". Refuses
+    (``ValueError``) n outside [1, 512]."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"K6 takes frames of 1 to {MAX_N} columns, not {n}")
+    return "fft" if n % 2 == 0 and fft_radices(n // 2) is not None \
+        else "dft"
+
+
+def _packed_radices(m: int) -> int:
+    """The radices as the FFT build reads them: four bits a pass, the
+    first pass in the lowest bits."""
+    return sum(r << (4 * i) for i, r in enumerate(fft_radices(m)))
+
+
+def fft_tables(n: int) -> Dict[str, np.ndarray]:
+    """The FFT build's tables for frames of n columns (m = n/2 complex
+    points), each entry exp(-2 pi i a) in float64 rounded to f32, as (re,
+    im) pairs: ``fft_tw`` the passes' twiddles, pass after pass, a pass of
+    radix R over sub-transforms of p points holding entry (r - 1) p + k
+    = exp(-2 pi i r k / (p R)) for r in [1, R), k in [0, p) (m - 1 in
+    all); ``fft_split`` the split step's exp(-2 pi i k / n), k in [0, m]."""
+    m = n // 2
+    tw, p = [], 1
+    for radix in fft_radices(m):
+        r = np.arange(1, radix)[:, None]
+        k = np.arange(p)[None, :]
+        tw.append(np.exp(-2j * np.pi * r * k / (p * radix)).reshape(-1))
+        p *= radix
+    tw = np.concatenate(tw) if tw else np.zeros((0,), complex)
+    split = np.exp(-2j * np.pi * np.arange(m + 1) / n)
+
+    def pairs(z):
+        return np.stack([z.real, z.imag], axis=-1).astype(np.float32)
+    return {"fft_tw": pairs(tw), "fft_split": pairs(split)}
 
 
 # ---------------------------------------------------------------------------
@@ -83,7 +160,8 @@ def _frame_consts(mode: str, sr: int, n: int, window: int,
     """What K6 and its plain version take for frames of ``n`` columns: the
     window zero-extended to ``n``, the (n, n//2+1) DFT matrices and the
     (n//2+1, n_mels) banks (the plain version), the n-entry twiddle tables
-    and the banks packed to each filter's nonzero bins (the kernel)."""
+    (the DFT build), the banks packed to each filter's nonzero bins (both
+    builds) and, where the FFT build takes n, its ``fft_tables``."""
     if mode == KALDI:
         if n != ref.next_pow2(window):
             raise ValueError(f"Kaldi frames are {ref.next_pow2(window)} "
@@ -108,10 +186,13 @@ def _frame_consts(mode: str, sr: int, n: int, window: int,
     packed = np.zeros((n_mels, width), np.float32)
     for m in range(n_mels):
         packed[m, :span[m]] = banks[lo[m]:lo[m] + span[m], m]
-    return {"win": win, "cos_m": cos_m, "sin_m": sin_m, "banks": banks,
-            "twiddle_cos": np.cos(ang).astype(np.float32),
-            "twiddle_sin": (-np.sin(ang)).astype(np.float32),
-            "mel_w": packed, "mel_lo": lo, "mel_len": span}
+    consts = {"win": win, "cos_m": cos_m, "sin_m": sin_m, "banks": banks,
+              "twiddle_cos": np.cos(ang).astype(np.float32),
+              "twiddle_sin": (-np.sin(ang)).astype(np.float32),
+              "mel_w": packed, "mel_lo": lo, "mel_len": span}
+    if n <= MAX_N and fbank_plan(n) == "fft":
+        consts.update(fft_tables(n))
+    return consts
 
 
 _DEVICE_CONSTS: Dict[Tuple, Dict[str, torch.Tensor]] = {}
@@ -132,17 +213,18 @@ def _consts_on(device: torch.device, mode: str, sr: int, n: int, window: int,
 # ---------------------------------------------------------------------------
 
 def _dft_power(f: torch.Tensor, c: Dict[str, torch.Tensor]) -> torch.Tensor:
-    re = f @ c["cos_m"]
-    im = f @ c["sin_m"]
+    re = f @ c["cos_m"].to(f.dtype)
+    im = f @ c["sin_m"].to(f.dtype)
     return re * re + im * im
 
 
 def fbank_frames_ref(frames: torch.Tensor, mode: str, sr: int = 16000,
                      window: int = 400, n_mels: int = 40, *,
                      _power=_dft_power) -> torch.Tensor:
-    """Plain version of K6, in the TPU kernel's association order.
-    ``_power(windowed frames, consts)`` gives the power spectrum; another
-    transform may stand in for the DFT products to time a yardstick."""
+    """Plain version of K6, in the TPU kernel's association order, in the
+    frames' dtype. ``_power(windowed frames, consts)`` gives the power
+    spectrum; another transform may stand in for the DFT products to time
+    a yardstick or to mirror the FFT build."""
     n = frames.shape[1]
     c = _consts_on(frames.device, mode, sr, n, window, n_mels)
     f = frames
@@ -152,16 +234,19 @@ def fbank_frames_ref(frames: torch.Tensor, mode: str, sr: int = 16000,
         f = f - mean * valid
         shifted = torch.cat([f[:, :1], f[:, :-1]], dim=1)
         f = f - PREEMPH * shifted
-    mel = _power(f * c["win"], c) @ c["banks"]
+    mel = _power(f * c["win"].to(f.dtype), c) @ c["banks"].to(f.dtype)
     if mode == KALDI:
         return torch.log(torch.clamp(mel, min=ref.EPS_F32))
     return 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
 
 
 def fbank_frames_cuda(frames: torch.Tensor, mode: str, sr: int = 16000,
-                      window: int = 400, n_mels: int = 40) -> torch.Tensor:
-    """K6 on the card; the contract of ``fbank_frames_ref``. Raises on what
-    the kernel does not take (the launch refuses frames wider than 512)."""
+                      window: int = 400, n_mels: int = 40,
+                      build: str | None = None) -> torch.Tensor:
+    """K6 on the card; the contract of ``fbank_frames_ref``. ``build``
+    ("fft" or "dft") names the build to launch; by default the one
+    ``fbank_plan`` picks. Raises on what the builds do not take: frames
+    wider than 512, the FFT build at a width it does not take."""
     dev = frames.device
     if dev.type != "cuda" or frames.dtype != torch.float32 \
             or frames.dim() != 2 or not frames.is_contiguous():
@@ -169,16 +254,50 @@ def fbank_frames_cuda(frames: torch.Tensor, mode: str, sr: int = 16000,
                          f"{frames.dtype} on {dev}; needs a contiguous f32 "
                          "(rows, N) tensor on a CUDA device")
     rows, n = frames.shape
+    plan = fbank_plan(n)
+    build = build or plan
+    if build not in BUILDS or (build == "fft" and plan != "fft"):
+        raise ValueError(f"fbank_frames_cuda: no {build!r} build of K6 for "
+                         f"frames of {n} columns")
     c = _consts_on(dev, mode, sr, n, window, n_mels)
     out = torch.empty((rows, n_mels), dtype=torch.float32, device=dev)
-    if rows:
+    if not rows:
+        return out
+    args = (c["mel_w"].data_ptr(), c["mel_lo"].data_ptr(),
+            c["mel_len"].data_ptr(), out.data_ptr(), rows, n, window,
+            n_mels, c["mel_w"].shape[1])
+    if build == "fft":
+        FBANK_FFT(frames.data_ptr(), c["win"].data_ptr(),
+                  c["fft_tw"].data_ptr(), c["fft_split"].data_ptr(), *args,
+                  _packed_radices(n // 2), len(fft_radices(n // 2)),
+                  int(mode == KALDI), _build.stream_handle(dev))
+    else:
         FBANK(frames.data_ptr(), c["win"].data_ptr(),
               c["twiddle_cos"].data_ptr(), c["twiddle_sin"].data_ptr(),
-              c["mel_w"].data_ptr(), c["mel_lo"].data_ptr(),
-              c["mel_len"].data_ptr(), out.data_ptr(), rows, n, window,
-              n_mels, c["mel_w"].shape[1], int(mode == KALDI),
-              _build.stream_handle(dev))
+              *args, int(mode == KALDI), _build.stream_handle(dev))
     return out
+
+
+def fbank_fft_launch_plan(rows: int, n: int, mode: str, sr: int = 16000,
+                          window: int = 400, n_mels: int = 40) -> dict:
+    """What the FFT build computes for its launch on ``rows`` frames of
+    ``n`` columns in ``mode`` (its ``mlvae_fbank_fft_plan`` entry point):
+    blocks, warps a block, shared memory bytes, resident blocks an SM,
+    registers and local memory bytes a thread, and whether the build it
+    launches has its passes fixed when compiled (N = 512 and 400). Builds
+    the library; needs the card. Not a launch: it counts nowhere."""
+    width = _frame_consts(mode, sr, n, window, n_mels)["mel_w"].shape[1]
+    fn = getattr(_build.library(FBANK_FFT.source), "mlvae_fbank_fft_plan")
+    fn.argtypes = [_I] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    code = fn(rows, n, n_mels, width, _packed_radices(n // 2),
+              len(fft_radices(n // 2)), int(mode == KALDI), out)
+    if code:
+        raise RuntimeError(f"fbank_fft plan: CUDA error {code}")
+    keys = ("blocks", "warps", "smem_bytes", "blocks_per_sm", "registers",
+            "local_bytes", "fixed_passes")
+    return dict(zip(keys, list(out)))
 
 
 def fbank_frames(frames: torch.Tensor, mode: str, sr: int = 16000,
