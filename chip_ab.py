@@ -2,7 +2,7 @@
 """Time the port's recurrence kernels and its steps in two checkouts on one
 NVIDIA card, in turns.
 
-    python3 chip_ab.py [--only lstm_bwd] OTHER_CHECKOUT [OTHER_CHECKOUT ...]
+    python3 chip_ab.py [--only lstm_bwd|fbank] OTHER_CHECKOUT [...]
 
 runs OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT (with
 several, the others in order, this checkout twice, the others in reverse
@@ -30,12 +30,15 @@ come first. It compares
 two versions of code that both checkouts have (a parent and its change):
 a change that may slow an earlier path is held against its parent here.
 ``--only lstm_bwd`` times K1-bwd alone (B=64, and its digests at B=64 and
-70 from inputs of their own), to hold the steps of a redesign against
-each other in one run. It needs a CUDA card and exits non-zero without
-one.
+70 from inputs of their own), and ``--only fbank`` K6 alone (the build
+each width takes, on the Kaldi pass's batch and the wav-in eval batch:
+digests, and ``FBANK_SAMPLES`` times each), to hold the steps of a
+redesign against each other in one run. It needs a CUDA card and exits
+non-zero without one.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -71,6 +74,41 @@ def time_lstm_bwd(root: Path) -> dict:
             "digest_lstm_bwd_B70": digest(L.lstm_layer_bwd(*bwd70, False)),
             "lstm_bwd": cs.cuda_ms(lambda: L.lstm_layer_bwd(*bwd, False),
                                    iters=20)}
+
+
+FBANK_SAMPLES = 5   # times of 20 calls each, a checkout, in --only fbank
+
+
+def time_fbank_alone(root: Path) -> dict:
+    """K6 alone in one checkout, in this process: the digest of the build
+    each width takes on the Kaldi pass's batch and the wav-in eval batch,
+    and ``FBANK_SAMPLES`` times of each."""
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    from mlvae_tpu_torch import _build
+    from mlvae_tpu_torch.device import resolve_device
+    from mlvae_tpu_torch.ops import fbank as fb
+    dev = resolve_device(None)
+    _build.build([n for n in _build.SOURCES if n in ("fbank", "fbank_fft")])
+    out = {}
+    for key, mode, frames in main_fbank_cases(cs, fb, dev):
+        out[f"digest_fbank_{key}"] = digest(
+            [fb.fbank_frames_cuda(frames, mode)])
+        out[f"fbank_{key}"] = [
+            cs.cuda_ms(lambda: fb.fbank_frames_cuda(frames, mode), iters=20)
+            for _ in range(FBANK_SAMPLES)]
+    return out
+
+
+def main_fbank_cases(cs, fb, dev):
+    """(key, mode, frames) of K6 on the Kaldi pass's batch ("kaldi") and
+    the wav-in eval batch ("sb")."""
+    for _, mode, frames, _ in cs.fbank_cases(dev):
+        if frames.shape[0] >= 1000 and frames.shape[1] in (400, 512):
+            yield ("kaldi" if mode == fb.KALDI else "sb"), mode, frames
+
+
+ONLY = {"lstm_bwd": time_lstm_bwd, "fbank": time_fbank_alone}
 
 
 def time_checkout(root: Path) -> dict:
@@ -167,9 +205,8 @@ def time_decode_fbank(cs, dev) -> dict:
     ``md_viterbi_batch_cuda``, weight folded in) and K6 on the Kaldi
     pass's batch and the wav-in eval batch: the build each width takes
     (a digest that changes with that build by design) and the DFT build
-    (``fbank_frames_cuda(..., build="dft")`` where the checkout has more
-    than one build, else the same call), digests and times."""
-    import inspect
+    (``ops.fbank._launch("dft", ...)`` where the checkout has more than
+    one build, else the same call), digests and times."""
     import numpy as np
     from mlvae_tpu_torch.ops import decode as dec
     from mlvae_tpu_torch.ops import fbank as fb
@@ -178,17 +215,13 @@ def time_decode_fbank(cs, dev) -> dict:
     out = {"digest_md_viterbi": digest(dec.md_viterbi_batch_cuda(*prob)),
            "md_viterbi": cs.cuda_ms(lambda: dec.md_viterbi_batch_cuda(*prob),
                                     iters=50)}
-    dft = {"build": "dft"} if "build" in inspect.signature(
-        fb.fbank_frames_cuda).parameters else {}
-    for _, mode, frames, _ in cs.fbank_cases(dev):
-        if frames.shape[0] < 1000 or frames.shape[1] not in (400, 512):
-            continue
-        key = "kaldi" if mode == fb.KALDI else "sb"
-        for sfx, kw in (("", {}), ("_dft", dft)):
-            out[f"digest_fbank{sfx}_{key}"] = digest(
-                [fb.fbank_frames_cuda(frames, mode, **kw)])
+    dft = (functools.partial(fb._launch, "dft") if hasattr(fb, "_launch")
+           else fb.fbank_frames_cuda)
+    for key, mode, frames in main_fbank_cases(cs, fb, dev):
+        for sfx, run in (("", fb.fbank_frames_cuda), ("_dft", dft)):
+            out[f"digest_fbank{sfx}_{key}"] = digest([run(frames, mode)])
             out[f"fbank{sfx}_{key}"] = cs.cuda_ms(
-                lambda: fb.fbank_frames_cuda(frames, mode, **kw), iters=20)
+                lambda: run(frames, mode), iters=20)
     return out
 
 
@@ -312,17 +345,16 @@ def time_wide_bf16(cs, dev, batch) -> dict:
 def main(argv) -> int:
     if len(argv) in (3, 4) and argv[1] == "--time":
         root = Path(argv[2]).resolve()
-        res = (time_lstm_bwd(root) if argv[3:] == ["lstm_bwd"]
-               else time_checkout(root))
+        res = ONLY[argv[3]](root) if argv[3:] else time_checkout(root)
         print("AB", root, json.dumps(res), flush=True)
         return 0
     args = argv[1:]
     only = []
     if args[:1] == ["--only"]:
-        if args[1:2] != ["lstm_bwd"]:
+        if len(args) < 2 or args[1] not in ONLY:
             print(__doc__, file=sys.stderr)
             return 2
-        only, args = ["lstm_bwd"], args[2:]
+        only, args = args[1:2], args[2:]
     if not args:
         print(__doc__, file=sys.stderr)
         return 2

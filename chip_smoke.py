@@ -367,13 +367,14 @@ def rel_err(a, b) -> float:
 # ---------------------------------------------------------------------------
 
 def viterbi_problem(rs, dev, B, T, N, L, weight, quantize=False):
-    """Decode inputs made with numpy: ragged lengths with T >= L, and with
-    ``quantize`` probabilities on a coarse grid, which makes exact ties."""
+    """Decode inputs made with numpy: ragged lengths (T >= l_len where
+    T >= L), and with ``quantize`` probabilities on a coarse grid, which
+    makes exact ties."""
     import numpy as np
     import torch
     from mlvae_tpu_torch.ops.decode import clamped_log_np
     l_lens = rs.randint(1, L + 1, B)
-    t_lens = np.array([rs.randint(max(l, 1), T + 1) for l in l_lens])
+    t_lens = np.array([rs.randint(min(l, T), T + 1) for l in l_lens])
     t_lens[0], l_lens[0] = T, L
     p = rs.rand(B, T, N) * 0.98 + 0.01
     bv = rs.rand(B, T) * 0.98 + 0.01
@@ -1324,10 +1325,12 @@ def stress_unroll(dev, report, repeats, T=160, B=128, H=512):
 
 def check_viterbi(dev, report):
     """K2, one launch a decode, against the plain decode and the plain
-    lattice, bit for bit: L = 1, 3, 8, 40, 64; T = 1, 5, 160, 600, 2000;
-    weights 0, 0.5, 1, 2; quantized ties; B = 1 (``infer``'s shape); the
-    choices kept in shared memory and, where T * L * 2 bytes pass 64 KB,
-    read back from global memory (each case's route from
+    lattice, bit for bit: L = 1, 3, 8, 32, 40, 64, 100, 181, 200, 512 (every
+    build: 1, 2, 4, 8 and 16 carry slots a lane, each with no local
+    memory); T = 1, 5, 160, 600, 1100, 2000, and T < L at L=512; weights 0,
+    0.5, 1, 2; quantized ties; B = 1 (``infer``'s shape); the choices kept
+    in shared memory and, where T * L * 2 bytes pass 64 KB, read back from
+    global memory, both at every slot count (each case's route from
     ``viterbi_plan``, held against the kernel's own plan). Returns the
     main path's problem (B=64, T=160, L=8), one at B=1, and the largest
     error of the lattice and of the decode."""
@@ -1343,13 +1346,16 @@ def check_viterbi(dev, report):
         (16, 160, 14, 40, 1.0, True), (3, 5, 6, 3, 1.0, True),
         (1, 160, 14, 8, 1.0, False), (16, 160, 14, 64, 1.0, True),
         (16, 160, 14, 64, 0.5, False), (4, 600, 14, 64, 1.0, True),
-        (4, 2000, 14, 40, 0.5, False)]
+        (4, 2000, 14, 40, 0.5, False), (4, 160, 14, 100, 1.0, True),
+        (4, 400, 14, 100, 0.5, False), (2, 181, 14, 181, 1.0, True),
+        (2, 300, 14, 200, 0.5, False), (2, 64, 14, 512, 1.0, False),
+        (2, 600, 14, 512, 1.0, True), (2, 1100, 14, 32, 1.0, True)]
     routes = set()
     for B, T, N, L, w, q in cases:
         prob = viterbi_problem(rs, dev, B, T, N, L, w, q)
         plan = dec.viterbi_plan(T, L)
         card = dec.viterbi_launch_plan(T, L)
-        routes.add(plan["choices"])
+        routes.add((plan["slots"], plan["choices"]))
         before = dec.VITERBI.launches
         got = dec.md_viterbi_batch_cuda(*prob)
         one = dec.VITERBI.launches - before
@@ -1377,7 +1383,9 @@ def check_viterbi(dev, report):
         check(one == 1, f"md_viterbi took {one} launches for one decode")
         check({k: card[k] for k in plan} == plan and card["local_bytes"] == 0,
               f"md_viterbi's plan {card} is not {plan}")
-    check(routes == {"shared", "global"}, f"the backtrace took only {routes}")
+    check(routes == {(n, c) for n in (1, 2, 4, 8, 16)
+                     for c in ("shared", "global")},
+          f"the builds and routes run were only {sorted(routes)}")
     # the main path's decode shapes, for the timings
     return (viterbi_problem(rs, dev, 64, 160, 14, 8, 1.0),
             viterbi_problem(rs, dev, 1, 160, 14, 8, 1.0), worst)
@@ -1430,10 +1438,13 @@ def fbank_frames_of(mode, waves, lengths, max_frames, n_fft=400):
 
 def k6(frames, mode, build=None):
     """K6 on ``frames`` as the extractors call it (the SpeechBrain mode's
-    window is the frame, n_fft; Kaldi's 400 samples of 512 columns)."""
+    window is the frame, n_fft; Kaldi's 400 samples of 512 columns): by
+    the build its plan picks, or by ``build`` ("fft", "dft")."""
     from mlvae_tpu_torch.ops import fbank as fb
     window = 400 if mode == fb.KALDI else frames.shape[1]
-    return fb.fbank_frames_cuda(frames, mode, window=window, build=build)
+    if build is None:
+        return fb.fbank_frames_cuda(frames, mode, window=window)
+    return fb._launch(build, frames, mode, window=window)
 
 
 def k6_ref(frames, mode, **kw):
@@ -1545,8 +1556,7 @@ def check_fbank(dev, report, cases):
     golden_err = {}
     try:
         for build in ("fft", "dft"):
-            fb.fbank_frames = functools.partial(fb.fbank_frames_cuda,
-                                                build=build)
+            fb.fbank_frames = functools.partial(fb._launch, build)
             kaldi, _ = fb.kaldi_fbank_batch(w, lens, max_frames=50)
             sb, _ = fb.sb_fbank_batch(w, lens, max_frames=51)
             for name, got, golden in (("kaldi", kaldi, ref.kaldi_fbank),

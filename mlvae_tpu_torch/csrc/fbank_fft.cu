@@ -474,6 +474,8 @@ using KernelFn = void (*)(const float*, const float*, const float2*,
 
 // the build for a mode and a frame width: 512 as (4, 4, 4, 4) and 400 as
 // (8, 5, 5) have passes fixed when compiled, any other width reads them
+// (read at run time, N = 512 took 8 % longer on the Kaldi pass's batch on
+// an H100: PERF.md section 6)
 KernelFn kernel_for(bool kaldi, int N, int radices) {
   const int fixed = N == 512 && radices == 0x4444   ? 256
                     : N == 400 && radices == 0x558 ? 200

@@ -46,7 +46,8 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_L = 1024;              // 32 slots a lane
+constexpr int MAX_L = 512;               // 16 slots a lane: at 32 the
+                                         // carry no longer fits in registers
 constexpr int RING_FLOATS = 4096;        // one half of the ring: 16 KB
 constexpr int MAX_CHUNK = 32;            // steps a half holds at most
 constexpr int CHOICE_BYTES = 64 * 1024;  // choices kept in shared memory
@@ -257,8 +258,9 @@ __global__ void __launch_bounds__(32) md_viterbi_kernel(
     // step's choices are stored, so that no load waits on the chain. Every
     // lane runs every step, with no branch around the chain: a slot past L
     // reads slot L - 1's inputs, and its carry, never read by a slot below
-    // L, goes unused; only the choices' stores are predicated. (The read
-    // one step past the chunk stays inside the ring and goes unused.)
+    // L, goes unused; only the choices' stores are predicated. The chunk's
+    // last step reads its own inputs again as the next step's, unused: a
+    // read past the chunk could leave the ring.
     float2 x_next[SLOTS];
     float2 pb_next = side[0];
     float2 pi_next = side[chunk];
@@ -271,11 +273,12 @@ __global__ void __launch_bounds__(32) md_viterbi_kernel(
       float2 x[SLOTS];
 #pragma unroll
       for (int j = 0; j < SLOTS; ++j) x[j] = x_next[j];
-      pb_next = side[s + 1];
-      pi_next = side[chunk + s + 1];
+      const int sn = s + 1 < ns ? s + 1 : s;
+      pb_next = side[sn];
+      pi_next = side[chunk + sn];
 #pragma unroll
       for (int j = 0; j < SLOTS; ++j) {
-        x_next[j] = e_s[(s + 1) * L + min(lane + 32 * j, L - 1)];
+        x_next[j] = e_s[sn * L + min(lane + 32 * j, L - 1)];
       }
       // dp[l-1] before this step: lane - 1's slot j, or for lane 0 lane
       // 31's slot j - 1 (NEG_INF for slot 0)
@@ -380,8 +383,7 @@ KernelFn kernel_for(int slots) {
     case 2: return md_viterbi_kernel<2, SHARED>;
     case 4: return md_viterbi_kernel<4, SHARED>;
     case 8: return md_viterbi_kernel<8, SHARED>;
-    case 16: return md_viterbi_kernel<16, SHARED>;
-    default: return md_viterbi_kernel<32, SHARED>;
+    default: return md_viterbi_kernel<16, SHARED>;
   }
 }
 
@@ -401,7 +403,7 @@ const char* mlvae_md_viterbi_error_string(int err) {
 // The decode of B rows, one launch: the choices (B, T, L, 2) int8, beta0
 // (B,), boundary and flvl (B, T), plvl (B, L), int32. The float inputs must
 // be 8-byte aligned (cp.async). Refuses (as an invalid value) an empty
-// batch, T, N or L < 1 and L above 1024.
+// batch, T, N or L < 1 and L above 512.
 int mlvae_md_viterbi(const float* log_p_yx, const float* log_p_y,
                      const int32_t* y, const float* log_p_b,
                      const float* lpi_w, const int32_t* t_lens,

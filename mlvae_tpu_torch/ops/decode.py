@@ -39,7 +39,7 @@ VITERBI = _build.register(_build.Kernel(
     [_P] * 12 + [_I] * 4 + [_P]))
 
 # the kernel's launch plan (``make_plan`` in csrc/md_viterbi.cu)
-MAX_L = 1024             # phonemes a row: 32 carry slots a lane
+MAX_L = 512              # phonemes a row: 16 carry slots a lane
 RING_FLOATS = 4096       # one half of the emissions' ring
 MAX_CHUNK = 32           # steps a half holds at most
 CHOICE_BYTES = 64 * 1024  # the choices stay in shared memory up to this
@@ -52,7 +52,7 @@ def viterbi_plan(T: int, L: int) -> dict:
     int8 choices stay in shared memory for the backtrace ("shared") or
     are read back from global memory ("global"), and the shared memory
     bytes (the ring, y, the backtrace's two bits a step, the choices where
-    kept). Refuses (``ValueError``) L above 1024."""
+    kept). Refuses (``ValueError``) L above 512."""
     if T < 1 or not 1 <= L <= MAX_L:
         raise ValueError(f"K2 takes T >= 1 and 1 to {MAX_L} phonemes, not "
                          f"T={T}, L={L}")
@@ -203,7 +203,7 @@ def md_viterbi_batch_ref(log_p_yx, log_p_y, y, log_p_b, log_p_pi, t_lens,
 def md_viterbi_batch_cuda(log_p_yx, log_p_y, y, log_p_b, log_p_pi, t_lens,
                           l_lens, weight=1.0):
     """K2 on the card, one launch; the contract of ``md_viterbi_batch_ref``.
-    Raises on what the kernel does not take (L above 1024, float inputs
+    Raises on what the kernel does not take (L above 512, float inputs
     not 8-byte aligned)."""
     B, T, N, two = log_p_yx.shape
     L = y.shape[1]

@@ -241,24 +241,31 @@ def fbank_frames_ref(frames: torch.Tensor, mode: str, sr: int = 16000,
 
 
 def fbank_frames_cuda(frames: torch.Tensor, mode: str, sr: int = 16000,
-                      window: int = 400, n_mels: int = 40,
-                      build: str | None = None) -> torch.Tensor:
-    """K6 on the card; the contract of ``fbank_frames_ref``. ``build``
-    ("fft" or "dft") names the build to launch; by default the one
-    ``fbank_plan`` picks. Raises on what the builds do not take: frames
-    wider than 512, the FFT build at a width it does not take."""
+                      window: int = 400, n_mels: int = 40) -> torch.Tensor:
+    """K6 on the card, by the build ``fbank_plan`` picks for the frames'
+    width; the contract of ``fbank_frames_ref``. Raises on frames wider
+    than 512."""
+    return _launch(fbank_plan(frames.shape[-1]), frames, mode, sr, window,
+                   n_mels)
+
+
+def _launch(build: str, frames: torch.Tensor, mode: str, sr: int = 16000,
+            window: int = 400, n_mels: int = 40) -> torch.Tensor:
+    """K6's ``build`` ("fft" or "dft") on the card. ``fbank_frames_cuda``
+    launches the build its plan picks; ``chip_smoke.py`` and
+    ``chip_ab.py`` also launch the DFT build at the FFT build's widths,
+    to hold the two against each other."""
+    n = frames.shape[-1]
+    if build not in BUILDS or (build == "fft" and fbank_plan(n) != "fft"):
+        raise ValueError(f"fbank_frames_cuda: no {build!r} build of K6 for "
+                         f"frames of {n} columns")
     dev = frames.device
     if dev.type != "cuda" or frames.dtype != torch.float32 \
             or frames.dim() != 2 or not frames.is_contiguous():
         raise ValueError(f"fbank_frames_cuda: frames {tuple(frames.shape)} "
                          f"{frames.dtype} on {dev}; needs a contiguous f32 "
                          "(rows, N) tensor on a CUDA device")
-    rows, n = frames.shape
-    plan = fbank_plan(n)
-    build = build or plan
-    if build not in BUILDS or (build == "fft" and plan != "fft"):
-        raise ValueError(f"fbank_frames_cuda: no {build!r} build of K6 for "
-                         f"frames of {n} columns")
+    rows = frames.shape[0]
     c = _consts_on(dev, mode, sr, n, window, n_mels)
     out = torch.empty((rows, n_mels), dtype=torch.float32, device=dev)
     if not rows:

@@ -102,8 +102,8 @@ def test_lane_carry_is_the_plain_lattice(L, quantize):
     (1, 1, 1, 32, "shared"), (160, 40, 2, 32, "shared"),
     (160, 64, 2, 31, "shared"), (512, 64, 2, 31, "shared"),
     (513, 64, 2, 31, "global"), (2000, 40, 2, 32, "global"),
-    (160, 100, 4, 20, "shared"), (160, 1024, 32, 1, "global"),
-    (32, 1024, 32, 1, "shared")])
+    (160, 100, 4, 20, "shared"), (160, 512, 16, 3, "global"),
+    (64, 512, 16, 3, "shared")])
 def test_plan_keeps_the_choices_where_they_fit(T, L, slots, chunk, choices):
     """The choices stay in shared memory while T * L * 2 bytes fit in
     64 KB (T=512, L=64 is the last T at L=64), else the backtrace reads
@@ -121,7 +121,7 @@ def test_plan_keeps_the_choices_where_they_fit(T, L, slots, chunk, choices):
     assert plan["smem_bytes"] <= 232_448
 
 
-@pytest.mark.parametrize("T,L", [(1, 1025), (160, 0), (0, 8)])
+@pytest.mark.parametrize("T,L", [(1, 513), (160, 0), (0, 8)])
 def test_plan_refuses_what_the_kernel_does_not_take(T, L):
     with pytest.raises(ValueError, match="K2 takes"):
         dec.viterbi_plan(T, L)
@@ -143,6 +143,17 @@ def test_plan_constants_and_entry_point_are_the_sources():
     assert names == ["md_viterbi"]
     assert "-fmad=false" in _build._flags("md_viterbi")
     assert "__syncthreads" not in re.sub(r"//.*", "", src)
+
+
+def test_every_slot_count_the_plan_gives_has_a_build():
+    """The builds are the plan's slot counts up to MAX_L, and no more: the
+    16-slot build is the widest, the last whose carry stays in registers."""
+    src = SRC.read_text()
+    builds = {int(n) for n in re.findall(
+        r"md_viterbi_kernel<(\d+), SHARED>", src)}
+    slots = {dec.viterbi_plan(160, L)["slots"]
+             for L in range(1, dec.MAX_L + 1)}
+    assert builds == slots == {1, 2, 4, 8, 16}
 
 
 def test_the_wrapper_refuses_cpu_inputs():

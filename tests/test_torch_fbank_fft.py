@@ -207,6 +207,22 @@ def test_the_wrapper_refuses_cpu_frames():
         pfb.fbank_frames_cuda(torch.zeros((2, 512)), pfb.KALDI)
 
 
+@pytest.mark.parametrize("n", [512, 400, 448, 480, 250])
+def test_the_wrapper_launches_the_build_its_plan_picks(n, monkeypatch):
+    seen = []
+    monkeypatch.setattr(pfb, "_launch",
+                        lambda build, *args: seen.append(build))
+    pfb.fbank_frames_cuda(torch.zeros((2, n)), pfb.SB, window=n)
+    assert seen == [pfb.fbank_plan(n)]
+
+
+@pytest.mark.parametrize("build,n", [("fft", 448), ("fft", 254),
+                                     ("rfft", 512)])
+def test_the_launcher_refuses_a_build_that_does_not_take_the_width(build, n):
+    with pytest.raises(ValueError, match="no .* build of K6"):
+        pfb._launch(build, torch.zeros((2, n)), pfb.SB, window=n)
+
+
 # ---------------------------------------------------------------------------
 # the mirror against numpy, the plain version and the golden
 # ---------------------------------------------------------------------------
