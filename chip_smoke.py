@@ -105,7 +105,25 @@ Phases, each reported on its own line; any failure exits non-zero:
    builds a step, K1-fwd, K1-bwd and its dW_hh kernel, and no f32 K1 or
    fused kernel, the first step against the plain
    versions and its loss against the f32 step's from the same state and
-   draws, f32 parameters and Adam states);
+   draws, f32 parameters and Adam states); then the CLI path in a
+   temporary directory, at the recipe's full width as a user runs it
+   (``config/run.yaml``, the MD_VAE recipe, the synthesized SynAudioMNIST
+   corpus, batches of 8): both feature passes (the Kaldi pass and the
+   SpeechBrain pass, each one K6 launch a set), ``cli.train`` for three
+   debug epochs of two batches (PHN_RECOG, B_DETECTOR, VAE, each with its
+   VALID pass), ``cli.test`` from the best checkpoint and
+   ``cli.infer.main`` on one utterance of the corpus, then ``cli.train
+   --bf16`` (one epoch of each target): the launches of every stage exact
+   (per train batch the train step's, per eval batch the eval forward's
+   of the stage's target), each run held against the same run through the
+   plain versions (each feature pass run again on the same wavs, every
+   utterance's features within 2e-3; the epoch losses within 1e-4, 1e-3
+   under --bf16, both runs on the kernel run's cached features; the
+   TEST pass on the same checkpoint with the same decode, MD and boundary
+   scores and saved MD results; the same verdicts), with the feature
+   passes' seconds, and as smoke readings of these two-batch debug epochs
+   (no profile) each epoch's wall and utterance-seconds a second, the
+   evaluate restore/eval/write split and ``infer``'s milliseconds;
 4. times from CUDA events after warm-up: each kernel, its plain version,
    a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6, in
    turns with each build of K6 in SpeechBrain mode and on the Kaldi pass's
@@ -311,6 +329,24 @@ PER_LSTM_FC_AMP_STEP = {**{k: 0 for k in PER_FORWARD},
                         "lstm_fwd_wide_bf16": 4, "lstm_bwd_wide_bf16": 4,
                         "lstm_dw_wide_bf16": 4}
 LSTM_FC_ACTIVE = {"lstm", "fc"}
+# the CLI path (phase 3): cli.train's debug epochs (2 batches of 8), the
+# VALID pass after each (the valid set's 6 utterances: one batch) and
+# cli.test's TEST pass (one batch). An eval forward runs the LSTMs of the
+# branches its target gates in: the recognizer's 2 layers (PHN_RECOG), the
+# detector's 2 (B_DETECTOR), or all ten and the decode (VAE, TEST); under
+# --bf16 the eval forward stays f32
+PER_EVAL = {"PHN_RECOG": {**PER_FORWARD, "lstm_fwd": 2, "md_viterbi": 0},
+            "B_DETECTOR": {**PER_FORWARD, "lstm_fwd": 2, "md_viterbi": 0},
+            "VAE": PER_FORWARD}
+CLI_LOSS_RTOL = 1e-4      # the CLI path's epoch losses, the kernels against
+                          # the plain versions from the same seed: f32 sums
+                          # in another order through six Adam steps
+CLI_AMP_LOSS_RTOL = 1e-3  # the same under --bf16 (the fused kernels' flips)
+CLI_FEAT_ATOL = 2e-3      # both feature passes' features (deltas; the
+                          # Kaldi pass after speaker CMVN), the kernel
+                          # against the plain version: the gate of
+                          # tests/test_torch_fbank.py
+CLI_EPOCHS = 3            # one PHN_RECOG -> B_DETECTOR -> VAE cycle
 ACTIVE = {
     "PHN_RECOG": {"phoneme_recognizer"},
     "B_DETECTOR": {"boundary_detector"},
@@ -3515,6 +3551,369 @@ def profile_step(fn, label, report):
             "top": [[k, n, us / 1e3] for us, n, k in rows[:8]]}
 
 
+class CliProbe:
+    """Counts, times and records the CLI path from outside: the launches
+    and batches of each stage (TRAIN and VALID per epoch, TEST), each
+    stage's loss and each TEST batch's decode, the two feature passes'
+    seconds and launches, and ``infer``'s milliseconds. It wraps the
+    recipe's hooks and the data path's passes for its lifetime."""
+
+    def __init__(self):
+        import mlvae_tpu_torch.cli.infer as infer_mod
+        from mlvae_tpu_torch.data import data_io
+        from mlvae_tpu_torch.models.MD_VAE.model import SBModel
+        from mlvae_tpu_torch.training.brain import Brain
+        self.stages, self.decodes, self.passes, self.infer_ms = {}, [], {}, []
+        self._saved = []
+        probe = self
+
+        def wrap(owner, name, make):
+            orig = getattr(owner, name)
+            self._saved.append((owner, name, orig))
+            setattr(owner, name, make(orig))
+
+        def on_stage_start(orig):
+            def fn(model, stage, epoch=None):
+                orig(model, stage, epoch)
+                probe._key = (stage.name, epoch)
+                probe.stages[probe._key] = {"target": model.target.name,
+                                            "batches": 0,
+                                            "start": launches()}
+            return fn
+
+        def on_stage_end(orig):
+            def fn(model, stage, stage_loss, epoch=None):
+                import torch
+                torch.cuda.synchronize()
+                rec = probe.stages[(stage.name, epoch)]
+                start = rec.pop("start")
+                rec["launches"] = {k: v - start[k]
+                                   for k, v in launches().items()}
+                rec["loss"] = float(stage_loss)
+                return orig(model, stage, stage_loss, epoch)
+            return fn
+
+        def counted(orig):
+            def fn(model, *args, **kwargs):
+                probe.stages[probe._key]["batches"] += 1
+                return orig(model, *args, **kwargs)
+            return fn
+
+        def evaluate_predictions(orig):
+            def fn(model, preds, batch, stage):
+                if stage.name == "TEST":
+                    probe.decodes.append(
+                        (list(batch["id"]),
+                         {k: v.cpu() for k, v in preds.items()}))
+                return orig(model, preds, batch, stage)
+            return fn
+
+        def feature_pass(name):
+            def make(orig):
+                def fn(*args, **kwargs):
+                    import torch
+                    before = launches()
+                    t0 = time.perf_counter()
+                    out = orig(*args, **kwargs)
+                    torch.cuda.synchronize()
+                    rec = probe.passes.setdefault(
+                        name, {"seconds": 0.0, "calls": 0,
+                               "launches": {k: 0 for k in before}})
+                    rec["seconds"] += time.perf_counter() - t0
+                    rec["calls"] += 1
+                    rec.setdefault("io", []).append((orig, args, kwargs,
+                                                     out))
+                    for k, v in launches().items():
+                        rec["launches"][k] += v - before[k]
+                    return out
+                return fn
+            return make
+
+        def timed_infer(orig):
+            def fn(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = orig(*args, **kwargs)
+                probe.infer_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return fn
+
+        wrap(SBModel, "on_stage_start", on_stage_start)
+        wrap(SBModel, "on_stage_end", on_stage_end)
+        wrap(Brain, "train_batch", counted)
+        wrap(Brain, "evaluate_batch", counted)
+        wrap(SBModel, "evaluate_predictions", evaluate_predictions)
+        wrap(data_io, "compute_kaldi_features", feature_pass("kaldi"))
+        wrap(data_io, "sb_features", feature_pass("speechbrain"))
+        wrap(infer_mod, "infer", timed_infer)
+
+    def close(self):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+
+    def reset(self):
+        self.stages, self.decodes, self.infer_ms = {}, [], []
+
+
+def cli_args(name, bf16=False):
+    """The recipe as a user runs it: config/run.yaml, the synthesized
+    corpus, the MD_VAE recipe at its full width, three debug epochs of two
+    batches, on the card (no --device)."""
+    args = [str(REPO / "config/run.yaml"), "--dataset", "SynAudioMNIST",
+            "--language", "digits", "--n_phonemes", "12",
+            "--model_class", "MD_VAE", "--model_name", name,
+            "--model",
+            f"!include:{REPO / 'mlvae_tpu_torch/models/MD_VAE/model.yaml'}",
+            "--extra_overrides",
+            "{model: {n_epochs: %d, recon_weight: 1.0, phn_recog_bce_weight:"
+            " 1.0, boundary_bce_weight: 1.0}}" % CLI_EPOCHS,
+            "--debug", "--debug_batches", "2"]
+    return args + (["--bf16"] if bf16 else [])
+
+
+def expected_stage_launches(probe, amp=False):
+    """What each stage must launch: per batch, the train step's or the
+    eval forward's launches of its target."""
+    per_step = PER_AMP_STEP if amp else PER_TRAIN_STEP
+    want = {}
+    for key, rec in probe.stages.items():
+        if key[0] == "TRAIN":
+            one = per_step[rec["target"]]
+        elif key[0] == "VALID":
+            one = PER_EVAL[rec["target"]]
+        else:
+            one = PER_FORWARD
+        want[key] = {k: v * rec["batches"] for k, v in one.items()}
+    return want
+
+
+def run_cli_train(report, probe, name, amp=False):
+    """``cli.train`` for CLI_EPOCHS debug epochs through the kernels, then
+    the same run from the same seed through the plain versions; returns
+    the kernel run's model, its launches and the stage records."""
+    import numpy as np
+    import torch
+    from mlvae_tpu_torch.cli import train as train_cli
+
+    tol = CLI_AMP_LOSS_RTOL if amp else CLI_LOSS_RTOL
+    label = "--bf16 " if amp else ""
+    probe.reset()
+    reset_launches()
+    model = train_cli.main(cli_args(name, bf16=amp))
+    torch.cuda.synchronize()
+    total = launches()
+    stages = probe.stages
+    for e in model.epoch_log:
+        report(f"  {label}epoch {e['epoch']} {stages[('TRAIN', e['epoch'])]['target']}: "
+               f"train loss {e['loss']:.6f}, valid loss "
+               f"{e['valid_loss']:.6f}; {e['seconds']:.3f} s wall, "
+               f"{e['utt_sec_per_sec']:.1f} utt-sec/sec ({e['batches']} "
+               f"batches)")
+    want = expected_stage_launches(probe, amp)
+    for key, rec in stages.items():
+        report(f"  {label}{key[0]} epoch {key[1]} ({rec['target']}, "
+               f"{rec['batches']} batches): launches "
+               f"{ {k: v for k, v in rec['launches'].items() if v} }")
+        check(rec["launches"] == want[key],
+              f"{label}{key}: launches {rec['launches']} != {want[key]}")
+        check(np.isfinite(rec["loss"]), f"{label}{key}: non-finite loss")
+    check([k for k in stages] == [(st, e) for e in range(1, CLI_EPOCHS + 1)
+                                  for st in ("TRAIN", "VALID")],
+          f"{label}stages {list(stages)}")
+    check(model.target.name == "VAE", "the cycle did not end on VAE")
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "a parameter is not f32")
+    kernel_stages = dict(stages)
+    probe.reset()
+    with twins():
+        reset_launches()
+        train_cli.main(cli_args(name + "_plain", bf16=amp))
+        torch.cuda.synchronize()
+        check(sum(launches().values()) == 0,
+              "the plain CLI run hit a kernel")
+    rel = {key: abs(rec["loss"] - probe.stages[key]["loss"])
+           / max(abs(probe.stages[key]["loss"]), 1e-12)
+           for key, rec in kernel_stages.items()}
+    report(f"  {label}against the plain versions from the same seed: "
+           "stage loss rel err " + ", ".join(
+               f"{k[0]} {k[1]} {v:.3e}" for k, v in rel.items())
+           + f" (tol {tol:g})")
+    check(max(rel.values()) <= tol, f"{label}CLI losses disagree")
+    return model, total, kernel_stages
+
+
+def check_feature_passes(report, probe):
+    """Each feature pass of the kernel run again on the same inputs
+    through the plain versions: every utterance's ``kaldi_feat`` and
+    ``feat`` within CLI_FEAT_ATOL. Returns the max abs err of each pass."""
+    import numpy as np
+    errs = {}
+    for name, rec in probe.passes.items():
+        err = 0.0
+        for orig, args, kwargs, got in rec["io"]:
+            with twins():
+                reset_launches()
+                want = orig(*args, **kwargs)
+                check(sum(launches().values()) == 0,
+                      f"the plain {name} pass hit a kernel")
+            check(list(got) == list(want), f"the {name} pass's utterances "
+                  "differ from the plain version's")
+            for u in got:
+                check(got[u].shape == want[u].shape,
+                      f"{name} pass {u}: {got[u].shape} != {want[u].shape}")
+                err = max(err, float(np.abs(got[u] - want[u]).max()))
+        n = sum(len(io[3]) for io in rec["io"])
+        report(f"  {name} feature pass against the plain versions on the "
+               f"same {n} utterances: max abs err {err:.3e} "
+               f"(tol {CLI_FEAT_ATOL:g})")
+        check(err <= CLI_FEAT_ATOL,
+              f"the {name} pass disagrees with the plain versions")
+        errs[name] = err
+    return errs
+
+
+def run_cli(dev, report, smi):
+    """Phase 3's CLI path in a temporary directory, at the recipe's full
+    width on the card: the corpus synthesized and both feature passes
+    (K6), ``cli.train`` (three debug epochs), ``cli.test`` from the best
+    checkpoint, ``cli.infer.main`` on one utterance of the corpus, each
+    against the same through the plain versions; then ``cli.train
+    --bf16``. Returns the launches of the kernel runs and the numbers."""
+    import json as json_
+    import logging
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from mlvae_tpu_torch.cli import infer as infer_cli
+    from mlvae_tpu_torch.cli import test as test_cli
+
+    # the CLI's INFO lines stay off this script's output
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    cwd = os.getcwd()
+    root = tempfile.mkdtemp(prefix="mlvae_cli_")
+    probe = CliProbe()
+    out = {"card": smi}
+    try:
+        os.chdir(root)
+        reset_launches()
+        model, train_total, stages = run_cli_train(report, probe, "cli")
+        for name, rec in probe.passes.items():
+            report(f"  {name} feature pass: {rec['seconds']:.3f} s over "
+                   f"{rec['calls']} calls (one a set); launches "
+                   f"{ {k: v for k, v in rec['launches'].items() if v} }")
+            check(rec["launches"]["fbank_fft"] == rec["calls"] == 3
+                  and sum(rec["launches"].values()) == 3,
+                  f"the {name} pass did not take K6's FFT build once a set")
+        out["feature_pass_err"] = check_feature_passes(report, probe)
+        passes = {k: {n: v for n, v in rec.items() if n != "io"}
+                  for k, rec in probe.passes.items()}
+        out["feature_pass_s"] = {k: v["seconds"] for k, v in passes.items()}
+        out["epochs"] = model.epoch_log
+        del model
+
+        # TEST from the best checkpoint, then the same checkpoint and
+        # batches through the plain versions
+        metrics = Path(root) / "results/cli/test_output/test_metrics.txt"
+        saved = Path(root) / "datasets/SynAudioMNIST/saved_md_results/cli.json"
+        probe.reset()
+        reset_launches()
+        model = test_cli.main(cli_args("cli"))
+        torch.cuda.synchronize()
+        test_total = launches()
+        rec = probe.stages[("TEST", CLI_EPOCHS)]
+        want = {k: v * rec["batches"] for k, v in PER_FORWARD.items()}
+        timing = model.evaluate_timing
+        report(f"  cli.test ({rec['batches']} batch): loss "
+               f"{rec['loss']:.6f}; evaluate restore {timing['restore']:.3f}"
+               f" s, eval {timing['eval']:.3f} s, write {timing['write']:.3f}"
+               f" s; launches { {k: v for k, v in rec['launches'].items() if v} }")
+        check(rec["launches"] == want,
+              f"TEST launches {rec['launches']} != {want}")
+        kernel_metrics, kernel_saved = metrics.read_text(), saved.read_text()
+        kernel_decodes = probe.decodes
+        probe.reset()
+        saved.unlink()
+        with twins():
+            reset_launches()
+            plain = test_cli.main(cli_args("cli"))
+            check(sum(launches().values()) == 0,
+                  "the plain TEST pass hit a kernel")
+        same_decode = len(kernel_decodes) == len(probe.decodes) and all(
+            ids == pids and all(torch.equal(p[k], pp[k]) for k in p)
+            for (ids, p), (pids, pp) in zip(kernel_decodes, probe.decodes))
+        counts_of = lambda text: [ln for ln in text.splitlines()  # noqa
+                                  if "plvl_md" in ln or "boundary." in ln]
+        same_counts = counts_of(kernel_metrics) == counts_of(
+            metrics.read_text())
+        same_saved = json_.loads(kernel_saved) == json_.loads(
+            saved.read_text())
+        loss_rel = abs(rec["loss"] - probe.stages[("TEST", CLI_EPOCHS)]
+                       ["loss"]) / abs(rec["loss"])
+        report(f"  cli.test against the plain versions on the same "
+               f"checkpoint: same decode {same_decode}, same MD and boundary "
+               f"scores {same_counts}, same saved MD results {same_saved}, "
+               f"loss rel err {loss_rel:.3e} (tol {CLI_LOSS_RTOL:g})")
+        check(same_decode and same_counts and same_saved,
+              "the TEST pass disagrees with the plain versions")
+        check(loss_rel <= CLI_LOSS_RTOL, "the TEST loss disagrees")
+        out["evaluate_s"] = timing
+        del model, plain
+
+        # infer on one utterance of the corpus, from the best checkpoint
+        ann = json_.loads((Path(root) / "datasets/SynAudioMNIST/annotation/"
+                           "test.json").read_text())
+        utt, meta = sorted(ann.items())[0]
+        args = cli_args("cli") + ["--wav", meta["wav_path"], "--canonical",
+                                  " ".join(meta["txt_gt_cnncl_seq"])]
+        probe.reset()
+        reset_launches()
+        verdicts = infer_cli.main(args)
+        torch.cuda.synchronize()
+        infer_total = launches()
+        want = {**PER_FORWARD, "fbank_fft": 1}
+        with twins():
+            plain_verdicts = infer_cli.main(args)
+        report(f"  cli.infer {utt} ({len(verdicts)} phonemes): "
+               f"{probe.infer_ms[0]:.3f} ms for infer (read, features, "
+               f"eval); verdicts {[v['mispronounced'] for v in verdicts]}; "
+               f"launches { {k: v for k, v in infer_total.items() if v} }; "
+               f"equal to the plain versions' {verdicts == plain_verdicts}")
+        check(infer_total == want, f"infer launches {infer_total} != {want}")
+        check(len(verdicts) == len(meta["txt_gt_cnncl_seq"])
+              and verdicts == plain_verdicts, "infer disagrees")
+        out["infer_ms"] = probe.infer_ms[0]
+
+        amp_model, amp_total, _ = run_cli_train(report, probe, "cli_bf16",
+                                                amp=True)
+        check(all(p.dtype == torch.float32 for p in amp_model.parameters()),
+              "an AMP parameter is not f32")
+        out["bf16_epochs"] = amp_model.epoch_log
+        del amp_model
+        report(f"  the CLI path on {smi}: feature passes "
+               + ", ".join(f"{k} {v:.3f} s" for k, v in
+                           out["feature_pass_s"].items())
+               + "; epochs " + ", ".join(
+                   f"{e['epoch']}: {e['seconds']:.3f} s {e['utt_sec_per_sec']:.1f}"
+                   " utt-sec/sec" for e in out["epochs"])
+               + f"; evaluate {timing['restore']:.3f}/{timing['eval']:.3f}/"
+               f"{timing['write']:.3f} s; infer {out['infer_ms']:.3f} ms")
+    finally:
+        probe.close()
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    passes_total = {k: sum(p["launches"][k] for p in passes.values())
+                    for k in train_total}
+    counts = {k: train_total[k] + test_total[k] + infer_total[k]
+              for k in train_total}
+    out["stage_launches"] = {f"{k[0]} {k[1]} {v['target']}": {
+        n: c for n, c in v["launches"].items() if c}
+        for k, v in stages.items()}
+    out["feature_pass_launches"] = {
+        k: {n: c for n, c in v["launches"].items() if c}
+        for k, v in passes.items()}
+    return counts, amp_total, passes_total, out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3625,14 +4024,23 @@ def main(argv=None) -> int:
            f"{WIDE_H}, 4 layers, B=64, T=160), two steps")
     fc_amp_model, _, fc_amp_noise, fc_amp_counts = run_lstm_fc(
         dev, report, amp=True)
+    report("phase 3 the CLI path at the recipe's full width: the corpus and "
+           "both feature passes, cli.train (3 debug epochs), cli.test, "
+           "cli.infer, cli.train --bf16, each against the plain versions")
+    cli_counts, cli_amp_counts, cli_pass_counts, cli = run_cli(dev, report,
+                                                               smi)
     # the paths' launches: the eval forward's, the wav-in path's, the six
     # f32 and six AMP MD_VAE train steps', the four gate-3 steps', the
     # unroll path's, LSTM_FC's eval and two f32 train steps' and its two
-    # AMP train steps'
+    # AMP train steps', and the CLI path's (the feature passes with
+    # cli.train, cli.test and cli.infer; cli.train --bf16)
     counts = {k: {"launches": eval_counts[k] + wav_counts[k]
                   + train_counts[k] + amp_counts[k] + gate_counts[k]
                   + amp_gate_counts[k] + unroll_counts[k] + fc_counts[k]
-                  + fc_amp_counts[k],
+                  + fc_amp_counts[k] + cli_counts[k] + cli_amp_counts[k],
+                  "launches_cli": cli_counts[k],
+                  "launches_cli_feature_passes": cli_pass_counts[k],
+                  "launches_cli_bf16": cli_amp_counts[k],
                   "launches_eval_step": eval_counts[k],
                   "launches_wav_in": wav_counts[k],
                   "launches_training": train_counts[k],
@@ -3692,7 +4100,7 @@ def main(argv=None) -> int:
                        "gate3_train_step": gate3_step,
                        "gru_plans": k5_plans,
                        "bwd_timeline": bwd_timeline,
-                       "fwd_timeline": fwd_timeline}))
+                       "fwd_timeline": fwd_timeline, "cli": cli}))
     report(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

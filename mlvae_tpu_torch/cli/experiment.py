@@ -1,0 +1,128 @@
+"""Experiment setup (counterpart of ``mlvae_tpu/cli/experiment.py``):
+
+parse the CLI -> pick the device and the run's generator -> load the
+hparams YAML with the overrides and the ``extra_overrides`` channel ->
+create the experiment directory -> prepare the dataset -> build the
+datasets (both feature passes on the device) -> build
+``mlvae_tpu_torch.models.<model_class>.model.SBModel``.
+
+``--device`` picks the device; without it the run is on CUDA and raises
+where there is none (``device.resolve_device``): ``--device cpu`` is the
+only way onto the CPU. The device and the generator are set before the
+YAML is loaded, since the loader hands both to every module it builds.
+"""
+from __future__ import annotations
+
+import importlib
+import logging
+import shutil
+import time
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+from mlvae_tpu_torch.cli.args import parse_arguments
+from mlvae_tpu_torch.data.data_io import prepare_datasets
+from mlvae_tpu_torch.device import resolve_device
+from mlvae_tpu_torch.hyperyaml import (load_hyperyaml, recursive_update,
+                                       resolve_references)
+from mlvae_tpu_torch.hyperyaml.loader import _parse_tagged
+from mlvae_tpu_torch.training.brain import check_run_opts
+
+logger = logging.getLogger(__name__)
+
+# the JAX package's datasets and recipes that the port has not ported yet,
+# by the ROADMAP queue 1 item that ports them
+UNPORTED_DATASETS = {"TIMIT": 5, "L2_ARCTIC": 5, "ChineseDPA": 5}
+UNPORTED_MODELS = {
+    "MD_VAE_sfl": 7, "MD_VAE_joint": 7, "MD_VAE_joint_ll": 7,
+    "MD_VAE_sfl_saved_phn_recog": 7,
+    "test_vanilla_vae": 8, "test_gmm_vae": 8, "test_h_vae": 8,
+    "test_phn_classifier": 8, "test_b_ind_classifier": 8, "LSTM_FC": 8,
+    "CRDNN_CTC": 9, "CRDNN_CTC_cnncl": 9, "HMM_DNN_ALI": 9,
+    "w2v_MD_VAE": 11, "w2v_MD_VAE_sfl": 11, "w2v_MD_VAE_sfl_resi": 11,
+    "w2v_CRDNN_CTC": 11, "w2v_CRDNN_CTC_cnncl": 11, "w2v_LSTM_FC": 11,
+}
+
+
+def _unported(what: str, name: str, table: Dict[str, int]) -> None:
+    if name in table:
+        raise NotImplementedError(
+            f"{what} {name} is not ported to the CLI yet; it waits in "
+            f"ROADMAP queue 1 item {table[name]}")
+
+
+def prepare_experiment(args: List[str], prepare_exp_dir: bool = True
+                       ) -> Dict:
+    hparams_file, run_opts, overrides_str = parse_arguments(args)
+    check_run_opts(run_opts)
+    for key in ("compile_cache", "compile_cache_dir"):
+        if key in run_opts:
+            logger.info("--%s has no meaning without XLA (PyTorch keeps no "
+                        "compile cache here); it changes nothing", key)
+    device = resolve_device(run_opts.get("device"))
+    # the modules' weights: the YAML's torch.manual_seed seeds this one
+    generator = torch.Generator(device=device)
+
+    overrides = _parse_tagged(overrides_str) if overrides_str else {}
+    overrides = overrides or {}
+    extra_overrides = overrides.pop("extra_overrides", {}) or {}
+
+    with open(hparams_file) as fin:
+        hparams = load_hyperyaml(fin, [extra_overrides, overrides],
+                                 device=device, generator=generator)
+    # the extra_overrides channel is merged again after the load, so that
+    # nested recipe values win over YAML-resolved ones
+    recursive_update(hparams, extra_overrides, keep_objects=True)
+
+    if prepare_exp_dir and "output_dir" in hparams:
+        out_dir = Path(hparams["output_dir"])
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # the overrides-resolved YAML: re-running from it repeats this run
+        try:
+            with open(hparams_file) as fin:
+                resolved = resolve_references(
+                    fin, [extra_overrides, overrides])
+            (out_dir / "hyperparams.yaml").write_text(resolved.read())
+        except Exception:
+            logger.exception("could not dump resolved hyperparams; "
+                             "copying the raw file instead")
+            try:
+                shutil.copy(hparams_file, out_dir / "hyperparams.yaml")
+            except shutil.SameFileError:
+                pass
+
+    prepared = {"hparams": hparams, "run_opts": run_opts, "device": device}
+
+    t_prep = time.time()
+    dataset_name = hparams["dataset"]
+    _unported("dataset", dataset_name, UNPORTED_DATASETS)
+    prepare_mod = importlib.import_module(
+        f"mlvae_tpu_torch.data.datasets.{dataset_name}.prepare")
+    prepare_mod.prepare(**hparams["prepare"])
+
+    datasets, label_encoder = prepare_datasets(hparams, device=device)
+    prepared["datasets"] = datasets
+    prepared["label_encoder"] = label_encoder
+    prepared["prepare_seconds"] = time.time() - t_prep
+    logger.info("dataset prepare+load: %.1fs", prepared["prepare_seconds"])
+
+    if "model_class" in hparams:
+        model_class = hparams["model_class"]
+        _unported("recipe", model_class, UNPORTED_MODELS)
+        model_mod = importlib.import_module(
+            f"mlvae_tpu_torch.models.{model_class}.model")
+        # the step draws' generator, from the run's seed
+        step_gen = torch.Generator(device=device).manual_seed(
+            int(hparams.get("seed", 0)))
+        prepared["model"] = model_mod.SBModel(
+            label_encoder=label_encoder,
+            modules=hparams["model"]["modules"],
+            hparams=hparams["model"],
+            run_opts=run_opts,
+            checkpointer=hparams["model"].get("checkpointer"),
+            generator=step_gen,
+            device=device,
+        )
+    return prepared

@@ -7,11 +7,21 @@ JAX entry does: it reads and resamples the wav, runs the recipe's
 the phonemes. ``infer_features`` takes features (T, input_size) and
 phoneme ids. Both build the JAX entry's single-utterance batch (uniform
 forced-alignment boundaries, zero MD labels) and run the TEST-target eval
-step. The YAML/CLI layer and checkpoint selection come in later slices,
-so the caller passes the model, a dict of hparams and the label encoder.
+step. ``main`` is the command line, as the JAX entry's:
+
+    python -m mlvae_tpu_torch.cli.infer config/run.yaml \
+        --dataset ... --model_class MD_VAE --model_name my_run \
+        --model '!include:mlvae_tpu_torch/models/MD_VAE/model.yaml' \
+        --wav path/to/utt.wav --canonical "w ah n , t uw"
+
+It builds the run as ``cli.test`` does, restores the best checkpoint by
+the recipe's ``max_key`` / ``min_key``, takes the prior of the training
+set and prints one verdict a phoneme.
 """
 from __future__ import annotations
 
+import logging
+import sys
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -114,3 +124,38 @@ def infer_features(model, feats, canonical_ids: Sequence[int],
             "mispronounced": bool(plvl[i]) if decoded else None,
         })
     return results
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO, stream=sys.stdout)
+    args = list(argv if argv is not None else sys.argv[1:])
+
+    def pop_opt(name):
+        i = args.index(name)
+        value = args[i + 1]
+        del args[i:i + 2]
+        return value
+
+    wav_path = pop_opt("--wav")
+    canonical = pop_opt("--canonical").replace(",", " ").split()
+
+    from mlvae_tpu_torch.cli.experiment import prepare_experiment
+    prepared = prepare_experiment(args, prepare_exp_dir=False)
+    model, hparams = prepared["model"], prepared["hparams"]
+    model.on_evaluate_start(max_key=hparams["model"].get("max_key"),
+                            min_key=hparams["model"].get("min_key"))
+    model.eval()
+    results = infer(model, hparams, prepared["label_encoder"], wav_path,
+                    canonical,
+                    prior=np.asarray(prepared["datasets"][0][0]["prior"]),
+                    device=prepared["device"])
+    for r in results:
+        verdict = "MISPRONOUNCED" if r["mispronounced"] else "ok"
+        start = "       -" if r["start_sec"] is None \
+            else f"{r['start_sec']:8.3f}"
+        print(f"{start}s  {r['phoneme']:6s} {verdict}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -60,17 +60,30 @@ def to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     return params, states
 
 
-def read_npz_tree(path) -> Dict:
-    """One ``mlvae_tpu`` checkpoint blob (``np.savez`` of a pytree keyed by
-    ``jax.tree_util.keystr`` paths such as ``['decoder']['rnn']['...']``)
-    -> nested dict of numpy arrays."""
-    tree: Dict = {}
+def write_npz_flat(path, flat: Dict[str, np.ndarray]) -> None:
+    """One checkpoint blob: ``np.savez`` of a flat tree keyed by
+    ``jax.tree_util.keystr`` paths, the layout of the ``mlvae_tpu``
+    checkpointer."""
+    np.savez(path, **{k: np.asarray(v) for k, v in flat.items()})
+
+
+def read_npz_flat(path) -> Dict[str, np.ndarray]:
+    """One checkpoint blob -> {keystr path: numpy array}; the one reader
+    of the layout (``read_npz_tree`` and the checkpointer build on it)."""
     with np.load(path, allow_pickle=False) as data:
-        for key in data.files:
-            parts = _KEYSTR.findall(key)
-            if "".join(f"['{p}']" for p in parts) != key:
-                raise ValueError(f"{path}: unrecognised key path {key!r}")
-            _insert(tree, parts, data[key])
+        return {k: data[k] for k in data.files}
+
+
+def read_npz_tree(path) -> Dict:
+    """One blob of plain nested dicts (keys such as
+    ``['decoder']['rnn']['...']``, as ``params.npz`` and ``states.npz``
+    hold them) -> nested dict of numpy arrays."""
+    tree: Dict = {}
+    for key, value in read_npz_flat(path).items():
+        parts = _KEYSTR.findall(key)
+        if "".join(f"['{p}']" for p in parts) != key:
+            raise ValueError(f"{path}: unrecognised key path {key!r}")
+        _insert(tree, parts, value)
     return tree
 
 

@@ -4,8 +4,7 @@ The port's own copy of ``mlvae_tpu/data/encoder.py``'s ``LabelEncoder``
 (SpeechBrain's ``CTCTextEncoder`` as the reference uses it): build from a
 phoneme inventory, insert a blank, encode and decode sequences, and save
 and load the same readable text file, so that a label file the JAX package
-wrote loads here. Building it from a recipe's hparams
-(``get_label_encoder``) waits for the YAML slice (ROADMAP queue 1 item 2).
+wrote loads here; ``get_label_encoder`` builds it from a recipe's hparams.
 """
 from __future__ import annotations
 
@@ -101,3 +100,14 @@ class LabelEncoder:
                 enc.lab2ind[lab] = int(ind)
         enc.ind2lab = {i: l for l, i in enc.lab2ind.items()}
         return enc
+
+
+def get_label_encoder(hparams) -> LabelEncoder:
+    """The dataset's label encoder: the phoneme set of
+    ``hparams["prepare"]["phoneme_set_handler"]`` with the blank inserted
+    at ``hparams["blank_index"]``."""
+    enc = LabelEncoder()
+    phoneme_set = hparams["prepare"]["phoneme_set_handler"].get_phoneme_set()
+    enc.update_from_iterable(phoneme_set, sequence_input=False)
+    enc.insert_blank(index=hparams["blank_index"])
+    return enc

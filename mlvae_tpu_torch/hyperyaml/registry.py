@@ -1,0 +1,119 @@
+"""Dotted-name resolution for the port's YAML loader (counterpart of
+``mlvae_tpu/hyperyaml/registry.py``).
+
+The recipes name torch and SpeechBrain classes (``!new:torch.nn.LSTM``,
+``!new:speechbrain.processing.features.InputNormalization``) and the
+repo's own modules by short prefixes (``!new:modules.fc_block.FCBlock``).
+Every alias the JAX package's registry knows maps here onto a port target,
+or raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+A ``torch.*`` or ``speechbrain.*`` name without an alias is refused: it
+never falls through to a plain import of the library class, and nothing
+resolves into the JAX package.
+"""
+from __future__ import annotations
+
+import importlib
+import pydoc
+from typing import Any, Dict, Optional
+
+# exact dotted name -> dotted target in the port
+ALIASES: Dict[str, str] = {
+    # seeding / determinism (config/run.yaml)
+    "torch.manual_seed": "mlvae_tpu_torch.utils.seed.manual_seed",
+    "torch.use_deterministic_algorithms":
+        "mlvae_tpu_torch.utils.seed.use_deterministic_algorithms",
+    # core nn (models/MD_VAE/model.yaml)
+    "torch.nn.LSTM": "mlvae_tpu_torch.nn.rnn.LSTM",
+    "torch.nn.GRU": "mlvae_tpu_torch.nn.rnn.GRU",
+    "torch.nn.LeakyReLU": "mlvae_tpu_torch.nn.layers.LeakyReLU",
+    "torch.optim.Adam": "mlvae_tpu_torch.training.optim.Adam",
+    # the SpeechBrain surface the recipes use
+    "speechbrain.utils.epoch_loop.EpochCounter":
+        "mlvae_tpu_torch.training.epoch_loop.EpochCounter",
+    "speechbrain.utils.checkpoints.Checkpointer":
+        "mlvae_tpu_torch.training.checkpointer.Checkpointer",
+    "speechbrain.processing.features.InputNormalization":
+        "mlvae_tpu_torch.nn.norm.InputNormalization",
+    "speechbrain.lobes.features.Fbank": "mlvae_tpu_torch.ops.fbank.Fbank",
+    # stdlib passthrough used by the loader itself (``!ref <x.attr>``)
+    "getattr": "builtins.getattr",
+}
+
+_ITEM4 = "ROADMAP queue 1 item 4 (the rest of training/optim.py)"
+_ITEM9 = "ROADMAP queue 1 item 9 (the CTC family)"
+_ITEM11 = "ROADMAP queue 1 item 11 (the wav2vec2 family)"
+
+# aliases of the JAX registry whose targets the port has not ported yet
+UNPORTED: Dict[str, str] = {
+    "torch.optim.Adadelta": _ITEM4,
+    "torch.optim.SGD": _ITEM4,
+    "speechbrain.nnet.linear.Linear": _ITEM9,
+    "speechbrain.nnet.activations.Softmax": _ITEM9,
+    "speechbrain.nnet.schedulers.NewBobScheduler": _ITEM9,
+    "speechbrain.nnet.losses.ctc_loss": _ITEM9,
+    "speechbrain.nnet.losses.nll_loss": _ITEM9,
+    "speechbrain.lobes.models.CRDNN.CRDNN": _ITEM9,
+    "speechbrain.lobes.models.VanillaNN.VanillaNN": _ITEM9,
+    "speechbrain.lobes.models.huggingface_wav2vec.HuggingFaceWav2Vec2":
+        _ITEM11,
+    "speechbrain.alignment.aligner.HMMAligner": _ITEM9,
+}
+
+# dotted-name prefixes remapped into the port
+PREFIX_REMAPS = [
+    ("modules.", "mlvae_tpu_torch.modules."),
+    ("utils.", "mlvae_tpu_torch.utils."),
+    ("models.", "mlvae_tpu_torch.models."),
+    ("datasets.", "mlvae_tpu_torch.data.datasets."),
+]
+
+# JAX-package modules under those prefixes that the port has not ported
+UNPORTED_PREFIXES: Dict[str, str] = {
+    "modules.crdnn.": _ITEM9,
+    "modules.hmm_aligner.": _ITEM9,
+    "modules.wav2vec2.": _ITEM11,
+}
+
+# top-level packages whose names never resolve by a plain import: the
+# libraries the recipes name, and the JAX package and JAX itself
+_REFUSED_PACKAGES = ("torch", "speechbrain", "mlvae_tpu", "jax")
+
+def _locate_dotted(path: str) -> Optional[Any]:
+    obj = pydoc.locate(path)
+    if obj is not None:
+        return obj
+    # pydoc.locate can fail on lazily importable modules: split by hand
+    parts = path.split(".")
+    for i in range(len(parts) - 1, 0, -1):
+        try:
+            obj = importlib.import_module(".".join(parts[:i]))
+        except ImportError:
+            continue
+        try:
+            for attr in parts[i:]:
+                obj = getattr(obj, attr)
+            return obj
+        except AttributeError:
+            continue
+    return None
+
+
+def locate(name: str) -> Optional[Any]:
+    """A YAML dotted name -> a live object of the port, or None."""
+    if name in ALIASES:
+        return _locate_dotted(ALIASES[name])
+    if name in UNPORTED:
+        raise NotImplementedError(
+            f"{name} has no port target yet; it waits in {UNPORTED[name]}")
+    for prefix, item in UNPORTED_PREFIXES.items():
+        if name.startswith(prefix):
+            raise NotImplementedError(
+                f"{name} has no port target yet; it waits in {item}")
+    for prefix, replacement in PREFIX_REMAPS:
+        if name.startswith(prefix):
+            return _locate_dotted(replacement + name[len(prefix):])
+    if name.split(".")[0] in _REFUSED_PACKAGES:
+        raise NotImplementedError(
+            f"{name} has no alias in the port's registry; a torch, "
+            f"SpeechBrain or JAX-package name resolves only through one")
+    return _locate_dotted(name)

@@ -63,8 +63,11 @@ class LSTMFC(MDModel):
                          **kw)
         self.fc = FCBlock(h["fc_sizes"], **kw)
 
-    def on_stage_start(self, stage: Stage, epoch: Optional[int] = None):
+    def set_stage(self, stage: Stage, epoch: Optional[int] = None):
         self.stage = stage
+
+    def on_stage_start(self, stage: Stage, epoch: Optional[int] = None):
+        self.set_stage(stage, epoch)
         self.stats_loggers = {"flvl_md_stats": MDMetricStats()}
 
     def _keys(self, train: bool) -> Tuple[str, str]:
@@ -107,17 +110,12 @@ class LSTMFC(MDModel):
             batch[feat_key][1])
         return loss, {}
 
-    @torch.no_grad()
     def eval_step(self, batch: Dict, noise: Optional[Dict] = None,
                   generator: Optional[torch.Generator] = None):
-        """One TEST eval step, as the JAX package's jitted eval step returns
-        it: (predictions restricted to ``EVAL_PRED_KEYS``, loss, per-key
-        losses)."""
+        """``Brain.eval_step`` in a TEST stage of its own: a fresh
+        ``flvl_md_stats`` for the step's ``evaluate_predictions``."""
         self.on_stage_start(Stage.TEST)
-        preds = self.compute_forward(batch, noise=noise, generator=generator)
-        loss, losses = self.compute_objectives(preds, batch)
-        return ({k: v for k, v in preds.items() if k in self.EVAL_PRED_KEYS},
-                loss, losses)
+        return self.eval_forward(batch, noise=noise, generator=generator)
 
     def evaluate_predictions(self, predictions: Dict, batch: Dict,
                              ids=None) -> None:

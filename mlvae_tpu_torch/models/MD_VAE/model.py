@@ -1,6 +1,10 @@
 """Flagship recipe MD_VAE (counterpart of
-``mlvae_tpu/models/MD_VAE/model.py`` ``SBModel``): the training step of
-its three alternating targets and the TEST-target eval step.
+``mlvae_tpu/models/MD_VAE/model.py``): ``MDVAE``, the training step of its
+three alternating targets and the TEST-target eval step, and ``SBModel``,
+the recipe as the CLI builds it from the YAML's modules, with the
+host-side evaluation (MD and boundary statistics on VALID stages of VAE
+epochs and on TEST) and the saved-MD-results dump of the TEST stage, which
+a later run's data cleaning reads.
 
 forward = normalizer (its stats update while training before
 ``update_until_epoch``) + phoneme recognizer + boundary detector +
@@ -32,12 +36,19 @@ inputs). ``batch["prior"]`` reaches the decode as bf16.
 from __future__ import annotations
 
 import contextlib
+import json
+import logging
+import warnings
 from enum import Enum, auto
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from mlvae_tpu_torch.metrics.boundary import BoundaryMetricStats
+from mlvae_tpu_torch.metrics.loss import LossMetricStats
+from mlvae_tpu_torch.metrics.md import MDMetricStats
 from mlvae_tpu_torch.models.md_model import MDModel
 from mlvae_tpu_torch.modules.boundary_detector import BoundaryDetector
 from mlvae_tpu_torch.modules.decoder import Decoder
@@ -49,7 +60,10 @@ from mlvae_tpu_torch.nn.norm import InputNormalization
 from mlvae_tpu_torch.nn.rnn import LSTM
 from mlvae_tpu_torch.ops import decode as dec
 from mlvae_tpu_torch.training.brain import Stage
-from mlvae_tpu_torch.utils.tensor import abs_lengths, apply_lens_to_loss
+from mlvae_tpu_torch.utils.tensor import (abs_lengths, apply_lens_to_loss,
+                                          undo_padding)
+
+logger = logging.getLogger(__name__)
 
 NOISE_KEYS = ("kumaraswamy_u", "vanilla_eps", "gumbel_g", "gmm_eps")
 
@@ -62,6 +76,14 @@ class Target(Enum):
 
 
 TRAIN_CYCLE = (Target.PHN_RECOG, Target.B_DETECTOR, Target.VAE)
+# the recipe's modules, as ``model.yaml`` names them under ``modules``
+MODULE_NAMES = ("feat_fc", "phoneme_recognizer", "phn_recog_fc",
+                "boundary_detector", "concat_fc", "rnn", "pi_fc", "encoder",
+                "decoder")
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class MDVAE(MDModel):
@@ -73,14 +95,27 @@ class MDVAE(MDModel):
 
     def __init__(self, hparams: Dict,
                  generator: Optional[torch.Generator] = None, device=None,
-                 run_opts: Optional[Dict] = None):
-        super().__init__(hparams, run_opts)
+                 run_opts: Optional[Dict] = None,
+                 modules: Optional[Dict] = None, **brain_kwargs):
+        """The modules are built from ``hparams`` with weights drawn from
+        ``generator`` on ``device``, or taken from ``modules`` (name ->
+        module, as the YAML builds them); the normalizer is
+        ``hparams["normalizer"]`` where that is one, sized to
+        ``input_size``."""
+        super().__init__(hparams, run_opts, **brain_kwargs)
         self.target = Target.TEST
         h = self.hparams
+        inp = h["input_size"]
+        norm = h.get("normalizer")
+        self.normalizer = norm if isinstance(norm, InputNormalization) \
+            else InputNormalization(device=device)
+        self.normalizer.ensure_size(inp)
+        if modules is not None:
+            for name in MODULE_NAMES:
+                setattr(self, name, modules[name])
+            return
         kw = dict(generator=generator, device=device)
         n_cls = h["n_phonemes"] + 2
-        inp = h["input_size"]
-        self.normalizer = InputNormalization(inp, device=device)
         self.feat_fc = FCBlock([inp, h["feat_fc_size"], h["feat_fc_size"]],
                                end_activation=True, **kw)
         self.phoneme_recognizer = PhonemeRecognizer(
@@ -110,10 +145,10 @@ class MDVAE(MDModel):
             [h["dec_rnn_hidden_size"] * 2, h["dec_fc_size"],
              h["dec_fc_size"], inp], **kw)
 
-    def on_stage_start(self, stage: Stage, epoch: Optional[int] = None):
-        """TRAIN takes the epoch's target, ``(epoch-1) % 3`` of PHN_RECOG,
-        B_DETECTOR, VAE; TEST takes the TEST target."""
-        if stage == Stage.TRAIN:
+    def set_stage(self, stage: Stage, epoch: Optional[int] = None):
+        """TRAIN and VALID take the epoch's target, ``(epoch-1) % 3`` of
+        PHN_RECOG, B_DETECTOR, VAE; TEST takes the TEST target."""
+        if stage in (Stage.TRAIN, Stage.VALID):
             if epoch is None:
                 raise ValueError(f"{stage} needs the epoch")
             self.target = TRAIN_CYCLE[(epoch - 1) % 3]
@@ -156,28 +191,33 @@ class MDVAE(MDModel):
                         for s in drop.dropout_shapes(B, T)]
         return out
 
-    def prepare_batch(self, batch: Dict) -> Dict:
+    def prepare_batch(self, batch):
         """Host-side checks of what the decode indexes with: every utterance
         has at least one canonical phoneme and at least as many frames as
         phonemes (T >= L; the batched decode would otherwise emit a silently
         truncated boundary sequence), and every canonical id, padding
-        included, is a class of the model."""
+        included, is a class of the model with a row in the prior.
+        ``batch`` is a host batch (a ``PaddedBatch``) or a dict of
+        tensors."""
         feats, feat_lens = batch["feat"]
         cn, cn_lens = batch["gt_cnncl_seq"]
-        names = batch.get("id", list(range(len(feat_lens))))
-        t = np.round(np.asarray(feat_lens.cpu(), np.float32) * feats.shape[1])
-        l = np.round(np.asarray(cn_lens.cpu(), np.float32) * cn.shape[1])
+        names = batch["id"] if "id" in batch else \
+            list(range(len(feat_lens)))
+        t = np.round(_host(feat_lens).astype(np.float32) * feats.shape[1])
+        l = np.round(_host(cn_lens).astype(np.float32) * cn.shape[1])
         bad = np.where((t < l) | (l < 1))[0]
         if len(bad):
             raise ValueError(
                 "utterances without canonical phonemes or with fewer frames "
                 f"than canonical phonemes (T < L), undecodable: "
                 f"{[names[i] for i in bad[:5]]}")
-        n_cls = self.hparams["n_phonemes"] + 2
-        ids = np.asarray(cn.cpu())
+        n_cls = min(self.hparams["n_phonemes"] + 2,
+                    batch["prior"][0].shape[1])
+        ids = _host(cn)
         bad = np.where(((ids < 0) | (ids >= n_cls)).any(axis=1))[0]
         if len(bad):
-            raise ValueError(f"canonical phoneme ids outside [0, {n_cls}): "
+            raise ValueError(f"canonical phoneme ids outside [0, {n_cls}) "
+                             f"(the classes and the prior's labels): "
                              f"{[names[i] for i in bad[:5]]}")
         return batch
 
@@ -190,10 +230,17 @@ class MDVAE(MDModel):
         # the decode sees stop-gradded inputs, built in their streams' dtype
         # and then cast to f32 as the JAX decode casts them; its outputs
         # are labels
+        # the recipe's prior covers the label encoder's labels (the
+        # phoneme set and the blank), one class fewer than the recognizer's
+        # outputs: pad it to the decode's (N, 2) table with a row that no
+        # canonical id reads (``prepare_batch`` checks the ids)
+        prior = batch["prior"][0][0]
+        prior = torch.nn.functional.pad(prior, (0, phn_out.shape[-1]
+                                                - prior.shape[0]))
         log_p_yx, log_p_y, log_p_b, log_p_pi = (
             v.float().contiguous() for v in dec.build_viterbi_inputs(
                 phn_out.detach(), predictions["boundary_v"].detach(),
-                predictions["pi_logits"].detach(), batch["prior"][0][0]))
+                predictions["pi_logits"].detach(), prior))
         boundary, flvl, plvl = dec.md_viterbi_batch(
             log_p_yx, log_p_y, plvl_cnnl.to(torch.int32), log_p_b,
             log_p_pi, t_lens, l_lens,
@@ -283,14 +330,133 @@ class MDVAE(MDModel):
                   for k, v in predictions["losses"].items()}
         return self.weighted_total(losses), losses
 
-    @torch.no_grad()
-    def eval_step(self, batch: Dict, noise: Optional[Dict] = None,
-                  generator: Optional[torch.Generator] = None):
-        """One TEST-target eval step, as the JAX package's jitted eval step
-        returns it: (predictions restricted to ``EVAL_PRED_KEYS``, total
-        loss, per-key losses)."""
-        self.on_stage_start(Stage.TEST)
-        preds = self.compute_forward(batch, noise=noise, generator=generator)
-        loss, losses = self.compute_objectives(preds, batch)
-        return ({k: v for k, v in preds.items() if k in self.EVAL_PRED_KEYS},
-                loss, losses)
+
+class SBModel(MDVAE):
+    """MD_VAE as ``cli.train`` / ``cli.test`` build it: the YAML's modules
+    (``modules=hparams["model"]["modules"]``), its checkpointer and epoch
+    counter, the run's step generator, and the label encoder."""
+    USED_BATCH_KEYS = {"feat", "gt_cnncl_seq", "fa_boundary_seq",
+                       "gt_boundary_seq", "plvl_gt_md_lbl_seq", "prior"}
+
+    def __init__(self, modules: Dict, hparams: Dict,
+                 run_opts: Optional[Dict] = None, checkpointer=None,
+                 label_encoder=None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(hparams, run_opts=run_opts, modules=modules,
+                         checkpointer=checkpointer,
+                         label_encoder=label_encoder)
+        self.generator = generator
+        if self.hparams.get("use_kaldi_feat", False):
+            raise NotImplementedError(
+                "use_kaldi_feat is the MD_VAE_sfl input path; it waits in "
+                "ROADMAP queue 1 item 7")
+
+    # -- stage hooks ---------------------------------------------------------
+    def on_stage_start(self, stage: Stage, epoch=None):
+        self.set_stage(stage, epoch)
+        logger.info("Epoch %s, stage %s: target is %s", epoch, stage,
+                    self.target)
+        self._pending_md_results = {}
+        self.stats_loggers = {}
+        if stage == Stage.TRAIN or self.to_run_evaluation(stage):
+            for key in self.hparams.get("metric_keys", []):
+                if key.endswith("_loss"):
+                    self.stats_loggers[key + "_stats"] = LossMetricStats(key)
+        if self.to_run_evaluation(stage):
+            self.stats_loggers["plvl_md_stats"] = MDMetricStats()
+            self.stats_loggers["boundary_stats"] = BoundaryMetricStats()
+
+    def to_run_evaluation(self, stage) -> bool:
+        return (stage == Stage.VALID and self.target == Target.VAE) \
+            or stage == Stage.TEST
+
+    def on_stage_end(self, stage, stage_loss, epoch=None):
+        self._flush_md_results()
+        # VALID off the VAE epochs is neither logged nor checkpointed
+        if stage == Stage.VALID and not self.to_run_evaluation(stage):
+            return
+        super().on_stage_end(stage, stage_loss, epoch)
+
+    def prepare_batch(self, batch):
+        batch = super().prepare_batch(batch)
+        # the recognizer's targets gather one boundary per phoneme; a
+        # forced alignment with another count is clamped there, so say so
+        # (a boundary pushed past the last frame by the bump-right rule is
+        # a legitimate cause)
+        _, cn_lens = batch["gt_cnncl_seq"]
+        L = batch["gt_cnncl_seq"][0].shape[1]
+        l = np.round(_host(cn_lens).astype(np.float32) * L)
+        fa_b, fa_lens = (_host(x) for x in batch["fa_boundary_seq"])
+        Tb = fa_b.shape[1]
+        tmask = np.arange(Tb)[None, :] < np.round(
+            fa_lens.astype(np.float32) * Tb)[:, None]
+        mism = np.where((fa_b * tmask).sum(axis=1) != l)[0]
+        if len(mism):
+            ids = [batch["id"][i] for i in mism]
+            logger.warning(
+                "forced-alignment boundary count != canonical length for "
+                "%d utterance(s) (recognizer targets clamped): %s%s",
+                len(mism), ids[:5], "..." if len(ids) > 5 else "")
+        return batch
+
+    # -- host-side evaluation and the saved MD results -----------------------
+    def evaluate_predictions(self, predictions, batch, stage):
+        if not self.to_run_evaluation(stage):
+            return
+        boundary = _host(predictions["decoded_boundary_seq"])
+        plvl = _host(predictions["decoded_plvl_md_lbl_seq"])
+        t_lens = _host(predictions["decoded_t_lens"])
+        l_lens = _host(predictions["decoded_l_lens"])
+        B = boundary.shape[0]
+        pred_boundary = [boundary[i, :t_lens[i]] for i in range(B)]
+        pred_plvl = [plvl[i, :l_lens[i]] for i in range(B)]
+        gt_md_seqs = undo_padding(*(_host(x) for x in
+                                    batch["plvl_gt_md_lbl_seq"]))
+        gt_b_seqs = undo_padding(*(_host(x) for x in
+                                   batch["gt_boundary_seq"]))
+        self.stats_loggers["plvl_md_stats"].append(
+            ids=self._batch_ids, pred_md_lbl_seqs=pred_plvl,
+            gt_md_lbl_seqs=gt_md_seqs, pred_boundary_seqs=pred_boundary,
+            gt_boundary_seqs=gt_b_seqs)
+        self.stats_loggers["boundary_stats"].append(
+            ids=self._batch_ids, predictions=pred_boundary,
+            targets=gt_b_seqs)
+        if stage == Stage.TEST:
+            self.save_md_result(self._batch_ids, pred_boundary, pred_plvl)
+
+    def save_md_result(self, utt_ids, boundary_seqs, plvl_md_seqs):
+        """Each utterance's mispronounced spans, [phoneme index, start
+        fraction, end fraction], for the data-cleaning round trip; kept
+        per stage and written once by ``_flush_md_results``."""
+        for utt_id, boundary, md in zip(utt_ids, boundary_seqs,
+                                        plvl_md_seqs):
+            T = len(boundary)
+            idx = np.where(np.asarray(boundary) == 1)[0].tolist() + [T]
+            pct = [i / T for i in idx]
+            utt_results = []
+            for misp_idx in np.where(np.asarray(md) == 1)[0]:
+                start_pct, end_pct = pct[misp_idx], pct[misp_idx + 1]
+                if start_pct == end_pct:
+                    warnings.warn("empty mispronunciation span")
+                    continue
+                utt_results.append([int(misp_idx), start_pct, end_pct])
+            self._pending_md_results[utt_id] = utt_results
+
+    def _flush_md_results(self):
+        """Merge the stage's results into
+        ``datasets/<dataset>/saved_md_results/<model_name>.json``."""
+        md_results = getattr(self, "_pending_md_results", None)
+        if not md_results:
+            return
+        save_dir = Path("datasets") / self.hparams["dataset_name"] / \
+            "saved_md_results"
+        save_dir.mkdir(parents=True, exist_ok=True)
+        save_path = save_dir / f"{self.hparams['model_name']}.json"
+        if save_path.exists():
+            with open(save_path) as f:
+                existing = json.load(f)
+            existing.update(md_results)
+            md_results = existing
+        with open(save_path, "w") as f:
+            json.dump(md_results, f)
+        self._pending_md_results = {}

@@ -1,14 +1,47 @@
 """Shared recipe base (counterpart of ``mlvae_tpu/models/md_model.py``):
-the optimizers by module and the weighted total loss with KLD weights
-annealed by the training-set size."""
+the optimizers by module, the weighted total loss with KLD weights
+annealed by the training-set size, the loss statistics of
+``hparams["metric_keys"]``, the train log and scalar sink, the checkpoint
+on every VALID stage under ``max_key`` / ``min_key``, the resume from the
+newest checkpoint, and the TEST metric and statistics files.
+
+A checkpoint holds the JAX package's trees: ``params`` (every parameter,
+keyed by its module path), ``states`` (the normalizer's running
+statistics) and ``opt__<name>`` (each optimizer's state per module, in
+the layout of ``optax.inject_hyperparams(optax.adam)``: ``count``,
+``hyperparams``, ``inner_state[0]`` with ``count``, ``mu`` and ``nu``), so
+that either package resumes or evaluates from the other's checkpoints.
+"""
 from __future__ import annotations
 
+import logging
 import warnings
+from pathlib import Path
 from typing import Dict
 
-from mlvae_tpu_torch.training.brain import Brain
+import numpy as np
+import torch
+
+from mlvae_tpu_torch.convert import STATE_MODULES, load_jax_checkpoint
+from mlvae_tpu_torch.metrics.loss import LossMetricStats
+from mlvae_tpu_torch.training.brain import Brain, Stage
+from mlvae_tpu_torch.training.checkpointer import checkpoint_has
+from mlvae_tpu_torch.training.loggers import FileTrainLogger, ScalarWriter
+
+logger = logging.getLogger(__name__)
 
 KLD_N_SAMPLES_DEFAULT = 2249  # the reference's L2-ARCTIC training-set size
+
+
+def keystr(parts) -> str:
+    """A module path as ``jax.tree_util.keystr`` writes a dict path."""
+    return "".join(f"['{p}']" for p in parts)
+
+
+def as_optimizer(info):
+    """A YAML optimizer entry (``!name:torch.optim.Adam`` gives a partial
+    of the port's ``Adam``) -> an optimizer with ``init`` and ``step``."""
+    return info if hasattr(info, "init") else info()
 
 
 class MDModel(Brain):
@@ -29,10 +62,10 @@ class MDModel(Brain):
         self.optimizers, self.opt_states = {}, {}
         for name, info in opt_info.items():
             if isinstance(info, dict):
-                opt = info["opt_class"]
+                opt = as_optimizer(info["opt_class"])
                 module_names = list(info.get("modules", [])) or None
             else:
-                opt, module_names = info, None
+                opt, module_names = as_optimizer(info), None
             self.optimizers[name] = (opt, module_names)
             self.opt_states[name] = self._init_opt_state(opt, module_names)
 
@@ -52,3 +85,205 @@ class MDModel(Brain):
                 weight = weight / (n_samples / self.hparams["batch_size"])
             total = total + weight * value
         return total
+
+    # -- hooks ---------------------------------------------------------------
+    def on_fit_start(self):
+        super().on_fit_start()
+        out_dir = Path(self.hparams["output_dir"])
+        self.train_logger = FileTrainLogger(out_dir / "train_log.txt")
+        self.scalar_writer = ScalarWriter(out_dir)
+        with open(out_dir / "modules.txt", "w") as f:
+            for name, module in self.named_children():
+                f.write(f"{name}: {module!r}\n")
+        if self.checkpointer is not None:   # resume from the newest
+            ckpt = self.checkpointer.find_checkpoint()
+            if ckpt is not None:
+                self._restore(ckpt, with_opt=True)
+                logger.info("resumed from %s (epoch %s)", ckpt.path,
+                            ckpt.meta.get("epoch"))
+
+    def on_stage_start(self, stage: Stage, epoch=None):
+        self.set_stage(stage, epoch)
+        self.stats_loggers = {}
+        for key in self.hparams.get("metric_keys", []):
+            if key.endswith("_loss"):
+                self.stats_loggers[key + "_stats"] = LossMetricStats(key)
+
+    def collect_metrics(self, stage_loss) -> Dict[str, float]:
+        log_metrics = {"loss": round(float(stage_loss), 3)}
+        for metric_key in self.hparams.get("metric_keys", []):
+            parts = metric_key.split(".")
+            stats = self.stats_loggers.get(f"{parts[0].lower()}_stats")
+            if stats is None:
+                continue
+            try:
+                if len(parts) == 1:
+                    for k, v in stats.summarize(None).items():
+                        log_metrics[f"{metric_key}.{k}"] = round(float(v), 2)
+                else:
+                    log_metrics[metric_key] = round(
+                        float(stats.summarize(parts[1])), 2)
+            except ValueError:
+                pass  # no data appended this stage
+        return log_metrics
+
+    def on_stage_end(self, stage: Stage, stage_loss, epoch=None):
+        stage_name = stage.name.lower()
+        if epoch is None:
+            epoch = self.current_epoch()
+        log_metrics = self.collect_metrics(stage_loss)
+
+        if stage in (Stage.TRAIN, Stage.VALID):
+            self.train_logger.log_stats(
+                stats_meta={"stage": stage_name, "epoch": epoch},
+                **{f"{stage_name}_stats": log_metrics})
+            for k, v in log_metrics.items():
+                self.scalar_writer.add_scalar(f"{k}/{stage_name}", v,
+                                              global_step=epoch)
+            if stage == Stage.VALID and self.checkpointer is not None:
+                max_keys, min_keys = [], []
+                if self.hparams.get("max_key") is not None:
+                    max_keys.append(self.hparams["max_key"])
+                if self.hparams.get("min_key") is not None:
+                    min_keys.append(self.hparams["min_key"])
+                if not max_keys and not min_keys:
+                    raise ValueError("no max_key or min_key provided")
+                meta = dict(log_metrics)
+                meta["epoch"] = epoch
+                self.checkpointer.save_and_keep_only(
+                    self.checkpoint_state(), meta=meta,
+                    max_keys=max_keys, min_keys=min_keys)
+
+        if stage == Stage.TEST:
+            out_dir = Path(self.hparams["output_dir"]) / "test_output"
+            out_dir.mkdir(parents=True, exist_ok=True)
+            log_str = ", ".join(f"{k}: {v}" for k, v in log_metrics.items())
+            logger.info("Best epoch: %s, %s", epoch, log_str)
+            with open(out_dir / "test_metrics.txt", "w") as f:
+                f.write(f"Epoch: {epoch}\n")
+                values = []
+                for k, v in log_metrics.items():
+                    f.write(f"{k}: {v}\n")
+                    values.append(str(v))
+                f.write(f"Epoch: {epoch}\t" + "\t".join(values) + "\n")
+            for stats_key, stats in self.stats_loggers.items():
+                name = stats_key.replace("_stats", "")
+                try:
+                    with open(out_dir / f"{name}.txt", "w") as f:
+                        stats.write_stats(f)
+                except ValueError:
+                    pass
+
+    def on_evaluate_start(self, max_key=None, min_key=None):
+        """Restore the best checkpoint by ``max_key`` / ``min_key``:
+        parameters and the normalizer's statistics, and the epoch counter
+        from its meta. A checkpoint from epoch 1 of a longer run, or one
+        picked without its key, is refused unless ``--debug`` or
+        ``--allow_stale_ckpt``."""
+        if self.checkpointer is None:
+            return
+        ckpt = self.checkpointer.find_checkpoint(max_key=max_key,
+                                                 min_key=min_key)
+        if ckpt is None:
+            return
+        self._restore(ckpt, with_opt=False)
+        logger.info("recovered checkpoint %s", ckpt.path)
+        if self.allow_stale_ckpt or self.debug:
+            return
+        limit = getattr(self.hparams.get("epoch_counter"), "limit", None)
+        epoch = ckpt.meta.get("epoch")
+        if (limit is not None and limit > 1 and epoch is not None
+                and int(epoch) <= 1):
+            raise RuntimeError(
+                f"evaluate would use checkpoint {ckpt.path.name} from epoch "
+                f"{epoch} of a {limit}-epoch config: the training run that "
+                f"produced it almost certainly failed. Re-run training, or "
+                f"pass --allow_stale_ckpt to evaluate it anyway.")
+        if (max_key or min_key) and self.checkpointer.last_selection_fell_back:
+            raise RuntimeError(
+                f"no checkpoint records the selection key "
+                f"{max_key or min_key!r}; evaluating the newest checkpoint "
+                f"instead could silently score the wrong model. Pass "
+                f"--allow_stale_ckpt to accept the newest checkpoint.")
+
+    # -- checkpoint state ----------------------------------------------------
+    def checkpoint_state(self) -> Dict[str, Dict[str, np.ndarray]]:
+        """The trees of a checkpoint, flat and keyed as the JAX package's
+        ``jax.tree_util.keystr`` writes them."""
+        params, states = {}, {}
+        for key, value in self.state_dict().items():
+            path = key.split(".")
+            target = states if path[0] in STATE_MODULES else params
+            target[keystr(path)] = value.detach().cpu().numpy()
+        state = {"params": params, "states": states}
+        for name in self.opt_states:
+            state[f"opt__{name}"] = self._opt_tree(name)
+        return state
+
+    def _opt_layout(self, name):
+        """(module key, its parameters' names and shapes) per state of
+        optimizer ``name``, in the order of the state's flat moments."""
+        mods = self.param_modules()
+        return [(mk, [(n, tuple(p.shape)) for n, p in
+                      mods[mk].named_parameters()])
+                for mk in self.opt_states[name]]
+
+    def _opt_tree(self, name) -> Dict[str, np.ndarray]:
+        opt = self.optimizers[name][0]
+        f32 = np.float32
+        out = {}
+        for mk, params in self._opt_layout(name):
+            st = self.opt_states[name][mk]
+            count = np.asarray(st["count"].cpu().numpy(), np.int32)
+            out[f"['{mk}'].count"] = count
+            hyper = {"b1": opt.betas[0], "b2": opt.betas[1], "eps": opt.eps,
+                     "eps_root": 0.0, "learning_rate": opt.lr}
+            for k, v in hyper.items():
+                out[f"['{mk}'].hyperparams['{k}']"] = np.asarray(v, f32)
+            inner = f"['{mk}'].inner_state[0]"
+            out[inner + ".count"] = count
+            for moment in ("mu", "nu"):
+                flat = st[moment].cpu().numpy()
+                offset = 0
+                for pname, shape in params:
+                    n = int(np.prod(shape))
+                    out[f"{inner}.{moment}" + keystr([mk] + pname.split("."))
+                        ] = flat[offset:offset + n].reshape(shape)
+                    offset += n
+        return out
+
+    def _set_opt_tree(self, name, tree: Dict[str, np.ndarray]) -> None:
+        for mk, params in self._opt_layout(name):
+            st = self.opt_states[name][mk]
+            inner = f"['{mk}'].inner_state[0]"
+            st["count"].copy_(torch.as_tensor(tree[inner + ".count"]))
+            for moment in ("mu", "nu"):
+                flat = np.concatenate([
+                    tree[f"{inner}.{moment}"
+                         + keystr([mk] + pname.split("."))].reshape(-1)
+                    for pname, _ in params])
+                st[moment].copy_(torch.from_numpy(flat))
+
+    def _restore(self, ckpt, with_opt: bool) -> None:
+        """Parameters and running statistics from ``ckpt`` (and the
+        optimizer states with ``with_opt``), and the epoch counter from its
+        meta. Every parameter must be in the checkpoint; running statistics
+        only where it saved them."""
+        missing, unexpected = self.load_state_dict(
+            load_jax_checkpoint(ckpt.path), strict=False)
+        bad = [k for k in missing if k.split(".")[0] not in STATE_MODULES]
+        if bad or unexpected:
+            raise ValueError(f"checkpoint {ckpt.path} does not fit the model:"
+                             f" missing {bad[:3]}, unexpected "
+                             f"{unexpected[:3]}")
+        if with_opt:
+            names = [n for n in self.opt_states
+                     if checkpoint_has(ckpt, f"opt__{n}")]
+            restored = self.checkpointer.load_checkpoint(
+                ckpt, {f"opt__{n}": self._opt_tree(n) for n in names})
+            for n in names:
+                self._set_opt_tree(n, restored[f"opt__{n}"])
+        epoch = ckpt.meta.get("epoch")
+        counter = self.hparams.get("epoch_counter")
+        if epoch is not None and counter is not None:
+            counter.current = int(epoch)

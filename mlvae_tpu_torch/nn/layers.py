@@ -74,3 +74,30 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     return torch.where(mask.to(device=x.device, dtype=torch.bool),
                        x / keep_x,
                        torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class LeakyReLU(nn.Module):
+    """Stateless activation (YAML alias of ``torch.nn.LeakyReLU``), with
+    ``leaky_relu``'s slope in x's dtype."""
+
+    def __init__(self, negative_slope: float = 0.01):
+        super().__init__()
+        self.negative_slope = negative_slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(x, self.negative_slope)
+
+
+class Softplus(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return softplus(x)
+
+
+class Identity(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+class Sequential(nn.Sequential):
+    """Ordered composition; children are named ``0``, ``1``, ... as the
+    JAX ``Sequential``'s parameter subtrees are."""

@@ -1,12 +1,19 @@
 """Input normalization with running global statistics (counterpart of
-``mlvae_tpu/nn/norm.py``, ``norm_type="global"``).
+``mlvae_tpu/nn/norm.py``, ``norm_type="global"``; YAML alias of
+``speechbrain.processing.features.InputNormalization``).
 
 ``count``, ``glob_mean`` and ``glob_std`` are f32 buffers and the output
 comes back in the input's dtype. ``update=True`` folds the batch's masked
 per-utterance statistics into the running averages while
 ``epoch < update_until_epoch``; the eval step never updates.
+
+A recipe's YAML gives no feature width (``norm_type: global`` only), as
+the JAX module takes it from the first batch (``Brain.ensure_states``):
+built with ``feat_dim=None``, the buffers appear at ``ensure_size``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -17,13 +24,33 @@ EPS = 1e-10
 
 
 class InputNormalization(nn.Module):
-    def __init__(self, feat_dim: int, update_until_epoch: int = 3,
+    def __init__(self, feat_dim: Optional[int] = None,
+                 update_until_epoch: int = 3, norm_type: str = "global",
                  device=None):
         super().__init__()
+        if norm_type != "global":
+            raise NotImplementedError(
+                f"norm_type {norm_type!r}: the port has the global "
+                "statistics only, which every ported recipe uses")
         self.update_until_epoch = update_until_epoch
-        self.register_buffer("count", torch.zeros((), device=device))
-        self.register_buffer("glob_mean", torch.zeros(feat_dim, device=device))
-        self.register_buffer("glob_std", torch.ones(feat_dim, device=device))
+        self._device = device
+        self.feat_dim = None
+        if feat_dim is not None:
+            self.ensure_size(feat_dim)
+
+    def ensure_size(self, feat_dim: int) -> None:
+        """Create the buffers for ``feat_dim`` features (count 0, mean 0,
+        std 1) unless they exist; a different width raises."""
+        if self.feat_dim is not None:
+            if self.feat_dim != int(feat_dim):
+                raise ValueError(f"normalizer holds {self.feat_dim} features, "
+                                 f"got {feat_dim}")
+            return
+        self.feat_dim = int(feat_dim)
+        dev = self._device
+        self.register_buffer("count", torch.zeros((), device=dev))
+        self.register_buffer("glob_mean", torch.zeros(feat_dim, device=dev))
+        self.register_buffer("glob_std", torch.ones(feat_dim, device=dev))
 
     @torch.no_grad()
     def _update(self, feats: torch.Tensor, rel_lens: torch.Tensor):
@@ -45,6 +72,7 @@ class InputNormalization(nn.Module):
     def forward(self, feats: torch.Tensor, rel_lens: torch.Tensor,
                 epoch: int = 1, update: bool = False) -> torch.Tensor:
         in_dtype = feats.dtype
+        self.ensure_size(feats.shape[-1])
         feats = feats.float()
         if update and epoch < self.update_until_epoch:
             self._update(feats, rel_lens)

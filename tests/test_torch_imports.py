@@ -13,9 +13,14 @@ import torch
 
 from mlvae_tpu_torch.bench_utils import build_md_vae, synth_batch
 from mlvae_tpu_torch.bench_utils import synth_wav_batch
+from mlvae_tpu_torch.cli import infer as infer_cli
+from mlvae_tpu_torch.cli import test as test_cli
+from mlvae_tpu_torch.cli import train as train_cli
+from mlvae_tpu_torch.cli.experiment import prepare_experiment
 from mlvae_tpu_torch.cli.infer import infer, infer_features
 from mlvae_tpu_torch.data.data_io import compute_kaldi_features
 from mlvae_tpu_torch.device import resolve_device
+from mlvae_tpu_torch.hyperyaml import load_hyperyaml
 from mlvae_tpu_torch.ops.decode import md_viterbi_batch
 from mlvae_tpu_torch.ops.fbank import (KALDI, SB, Fbank, KaldiFbank,
                                         fbank_frames)
@@ -25,6 +30,11 @@ torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "mlvae_tpu_torch"
+# the CLI's arguments without --device: the run is on CUDA
+CLI_ARGS = [str(REPO / "config/run.yaml"), "--dataset", "SynAudioMNIST",
+            "--language", "digits", "--n_phonemes", "12", "--model_class",
+            "MD_VAE", "--model_name", "x", "--model",
+            f"!include:{PORT / 'models/MD_VAE/model.yaml'}"]
 
 
 def _port_modules():
@@ -65,9 +75,12 @@ def test_port_sources_never_name_jax(path):
                                    "synth_batch", "infer_features", "infer",
                                    "Fbank", "KaldiFbank",
                                    "compute_kaldi_features",
-                                   "synth_wav_batch"])
-def test_entry_points_default_to_cuda(entry, monkeypatch):
+                                   "synth_wav_batch", "load_hyperyaml",
+                                   "prepare_experiment", "cli.train",
+                                   "cli.test", "cli.infer"])
+def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
     calls = {
         "resolve_device": lambda: resolve_device(None),
         "build_md_vae": lambda: build_md_vae(),
@@ -78,6 +91,13 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
         "KaldiFbank": lambda: KaldiFbank()([0.0] * 800),
         "compute_kaldi_features": lambda: compute_kaldi_features({}, "test"),
         "synth_wav_batch": lambda: synth_wav_batch(2, 8),
+        "load_hyperyaml": lambda: load_hyperyaml(
+            "fc: !new:modules.fc_block.FCBlock\n    fc_sizes: [2, 3]\n"),
+        "prepare_experiment": lambda: prepare_experiment(CLI_ARGS),
+        "cli.train": lambda: train_cli.main(CLI_ARGS),
+        "cli.test": lambda: test_cli.main(CLI_ARGS),
+        "cli.infer": lambda: infer_cli.main(
+            CLI_ARGS + ["--wav", "utt.wav", "--canonical", "one"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
