@@ -83,6 +83,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    ``build_md_vae(bf16=True)``), whose launches take K3/K4 and never K1,
    whose parameters and optimizer states stay f32, and whose VAE step is
    also held against the f32 step from the same state and draws; then
+   MD_VAE_sfl's VAE train step at full width (``bench_utils.build_md_vae(
+   recipe="MD_VAE_sfl")``: five π samples, the Kaldi pass's features in),
+   two steps: launches exact (26 K1-fwd, 22 K1-bwd, 1 K2), exactly the
+   VAE branch's modules and ``baseline_fc`` moved, the first step's loss
+   and each module's grad norm against the plain versions; then
    the BASELINE gate configs (``bench_utils.build_gate``): the GRU
    sequence VAE of gate 3 at full width (C=120, H=512, LAT=32, B=64,
    T=160), two f32 and two AMP steps, 3 K5-fwd and 3 K5-bwd launches a
@@ -123,7 +128,14 @@ Phases, each reported on its own line; any failure exits non-zero:
    scores and saved MD results; the same verdicts), with the feature
    passes' seconds, and as smoke readings of these two-batch debug epochs
    (no profile) each epoch's wall and utterance-seconds a second, the
-   evaluate restore/eval/write split and ``infer``'s milliseconds;
+   evaluate restore/eval/write split and ``infer``'s milliseconds; then
+   the same for the rest of the MD_VAE family in a second temporary
+   directory, each through one turn of its cycle (MD_VAE_sfl three
+   epochs on the Kaldi pass's features, MD_VAE_joint and MD_VAE_joint_ll
+   one, MD_VAE_sfl_saved_phn_recog two, over posteriors the script
+   writes), ``cli.test`` and ``cli.infer`` (not for saved_phn_recog),
+   and MD_VAE_sfl's ``cli.train --bf16``, every stage's launches exact
+   (``recipe_launches``) and each run held against the plain versions;
 4. times from CUDA events after warm-up: each kernel, its plain version,
    a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6, in
    turns with each build of K6 in SpeechBrain mode and on the Kaldi pass's
@@ -134,7 +146,8 @@ Phases, each reported on its own line; any failure exits non-zero:
    the eval), the wav-in eval step at B=64, the Kaldi feature pass
    (``compute_kaldi_features`` over 256 written wav files, one batch,
    host clock), the f32 and AMP train steps of each target, the AMP VAE
-   step at the JAX bench's B=256 (and its profile), K5-fwd and K5-bwd in
+   step at the JAX bench's B=256 (and its profile), MD_VAE_sfl's VAE
+   train step (and its profile), K5-fwd and K5-bwd in
    f32 and on bf16 streams beside their bounds and plain versions, in
    turns with cuDNN's GRU layer of their dtype (medians and spreads;
    cuDNN's kernels alone, all and those launched every step),
@@ -283,34 +296,6 @@ PER_FORWARD = {"lstm_fwd": 10, "lstm_bwd": 0, "md_viterbi": 1, **NO_FUSED,
 # the wav-in forward adds one K6 launch (SpeechBrain mode, N = 400: the FFT
 # build) for the batch
 PER_WAV_FORWARD = {**PER_FORWARD, "fbank_fft": 1}
-# kernel launches in one training step: each target's forward runs the
-# LSTMs of the branches it gates in; its backward reaches only the LSTMs
-# of the modules it trains (VAE: the rnn's 2 layers and the decoder's 2
-# bidirectional layers; the recognizer and the detector sit behind
-# stop-gradients)
-PER_TRAIN_STEP = {
-    "PHN_RECOG": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi": 0, **NO_FUSED,
-                  **NO_FBANK, **NO_GRU, **NO_UNROLL, **NO_WIDE},
-    "B_DETECTOR": {"lstm_fwd": 2, "lstm_bwd": 2, "md_viterbi": 0,
-                   **NO_FUSED, **NO_FBANK, **NO_GRU, **NO_UNROLL,
-                   **NO_WIDE},
-    "VAE": {"lstm_fwd": 10, "lstm_bwd": 6, "md_viterbi": 1, **NO_FUSED,
-            **NO_FBANK, **NO_GRU, **NO_UNROLL, **NO_WIDE},
-}
-# the same under AMP: every layer takes K3 or K4 and none K1; K4 only for
-# the decoder's In=1024 pair (K3-bwd: the rnn's 2 layers and decoder l0,
-# both directions)
-NO_K1 = {"lstm_fwd": 0, "lstm_bwd": 0, **NO_WIDE}
-PER_AMP_STEP = {
-    "PHN_RECOG": {**NO_K1, **NO_FBANK, **NO_GRU, **NO_UNROLL,
-                  "md_viterbi": 0, "lstm_fused_fwd": 2, "lstm_fused_bwd": 2,
-                  "lstm_semi_bwd": 0},
-    "B_DETECTOR": {**NO_K1, **NO_FBANK, **NO_GRU, **NO_UNROLL,
-                   "md_viterbi": 0, "lstm_fused_fwd": 2,
-                   "lstm_fused_bwd": 2, "lstm_semi_bwd": 0},
-    "VAE": {**NO_K1, **NO_FBANK, **NO_GRU, **NO_UNROLL, "md_viterbi": 1,
-            "lstm_fused_fwd": 10, "lstm_fused_bwd": 4, "lstm_semi_bwd": 2},
-}
 # one gate-3 train step: K5-fwd for the encoder and the decoder's two
 # directions, K5-bwd for each of them; nothing else. Under AMP the bf16
 # builds only, K5-bwd as the recurrence and its dW_hh kernel (T > 1)
@@ -329,15 +314,6 @@ PER_LSTM_FC_AMP_STEP = {**{k: 0 for k in PER_FORWARD},
                         "lstm_fwd_wide_bf16": 4, "lstm_bwd_wide_bf16": 4,
                         "lstm_dw_wide_bf16": 4}
 LSTM_FC_ACTIVE = {"lstm", "fc"}
-# the CLI path (phase 3): cli.train's debug epochs (2 batches of 8), the
-# VALID pass after each (the valid set's 6 utterances: one batch) and
-# cli.test's TEST pass (one batch). An eval forward runs the LSTMs of the
-# branches its target gates in: the recognizer's 2 layers (PHN_RECOG), the
-# detector's 2 (B_DETECTOR), or all ten and the decode (VAE, TEST); under
-# --bf16 the eval forward stays f32
-PER_EVAL = {"PHN_RECOG": {**PER_FORWARD, "lstm_fwd": 2, "md_viterbi": 0},
-            "B_DETECTOR": {**PER_FORWARD, "lstm_fwd": 2, "md_viterbi": 0},
-            "VAE": PER_FORWARD}
 CLI_LOSS_RTOL = 1e-4      # the CLI path's epoch losses, the kernels against
                           # the plain versions from the same seed: f32 sums
                           # in another order through six Adam steps
@@ -353,6 +329,52 @@ ACTIVE = {
     "VAE": {"feat_fc", "phn_recog_fc", "concat_fc", "rnn", "pi_fc",
             "encoder", "decoder"},
 }
+# the rest of the MD_VAE family (phase 3): MD_VAE_sfl's VAE target runs
+# the hierarchical VAE and the decoder once a π sample, SFL_SAMPLES of
+# them in a train step and one in an eval forward; MD_VAE_joint trains
+# every branch in its VAE step; MD_VAE_sfl_saved_phn_recog has no
+# recognizer and cycles B_DETECTOR -> VAE
+SFL_SAMPLES = 5           # the recipe's pi_mcmc_num
+FAMILY = ("MD_VAE_sfl", "MD_VAE_joint", "MD_VAE_joint_ll",
+          "MD_VAE_sfl_saved_phn_recog")
+FAMILY_EPOCHS = {"MD_VAE_sfl": 3, "MD_VAE_joint": 1, "MD_VAE_joint_ll": 1,
+                 "MD_VAE_sfl_saved_phn_recog": 2}
+SFL_ACTIVE = {"feat_fc", "phn_recog_out_fc", "concat_fc", "rnn", "pi_fc",
+              "encoder", "decoder", "baseline_fc"}
+
+
+def recipe_launches(recipe, target, train, amp=False):
+    """One eval forward's (``train``: one train step's) launches of an
+    MD_VAE family recipe's ``target``, MD_VAE's included. A forward runs
+    the LSTMs of the branches its target gates in: K1-fwd once a
+    directional layer (the recognizer 2, none in
+    MD_VAE_sfl_saved_phn_recog; the detector 2; the rnn 2 and the
+    decoder's two bidirectional layers 4 a π sample), and one decode in
+    VAE and TEST. A train step's backward reaches only the layers of the
+    modules its target trains: K1-bwd once a layer (VAE: the rnn and the
+    decoder, the recognizer and the detector behind stop-gradients but in
+    MD_VAE_joint). Under AMP a train step takes K3/K4-fwd for every layer
+    and no K1, K4-bwd for the decoder's second (In=1024) pair a sample and
+    K3-bwd for the rest; the eval forward stays f32."""
+    sfl = "sfl" in recipe
+    rec = 0 if recipe == "MD_VAE_sfl_saved_phn_recog" else 2
+    vae = target in ("VAE", "TEST")
+    n = SFL_SAMPLES if sfl and train and vae else 1
+    fwd = {"PHN_RECOG": rec, "B_DETECTOR": 2}.get(target, rec + 2 + 2 + 4 * n)
+    bwd = 0
+    if train:
+        bwd = {"PHN_RECOG": rec, "B_DETECTOR": 2}.get(target, 2 + 4 * n)
+        if vae and recipe == "MD_VAE_joint":
+            bwd += rec + 2
+    out = {k: 0 for k in PER_FORWARD}
+    out["md_viterbi"] = 1 if vae else 0
+    if train and amp:
+        semi = 2 * n if vae else 0
+        out.update(lstm_fused_fwd=fwd, lstm_fused_bwd=bwd - semi,
+                   lstm_semi_bwd=semi)
+    else:
+        out.update(lstm_fwd=fwd, lstm_bwd=bwd)
+    return out
 
 
 class SmokeFailure(Exception):
@@ -1945,21 +1967,27 @@ def run_wav(dev, report, model, B=64, T=160, L=8):
 
 def train_noise(model, B, T, dev, g):
     """One training step's draws under the model's current target, made
-    with a torch generator and named as ``MDVAE.draws`` lists them."""
+    with a torch generator and named as ``MDVAE.draws`` lists them: a
+    dropout mask, or a name that repeats (MD_VAE_sfl's per-sample draws),
+    goes into a list."""
     import torch
     from mlvae_tpu_torch.nn.dist import gumbel_noise
+    draws = model.draws(B, T, train=True)
+    names = [d[0] for d in draws]
     noise = {}
-    for name, kind, shape, keep, dtype in model.draws(B, T, train=True):
+    for name, kind, shape, keep, dtype in draws:
         if kind == "bernoulli":
-            noise.setdefault(name, []).append(
-                torch.rand(shape, generator=g, device=dev) < keep)
+            v = torch.rand(shape, generator=g, device=dev) < keep
         elif kind == "uniform":
-            noise[name] = torch.rand(shape, generator=g, device=dev)
+            v = torch.rand(shape, generator=g, device=dev)
         elif kind == "normal":
-            noise[name] = torch.randn(shape, generator=g, device=dev)
+            v = torch.randn(shape, generator=g, device=dev)
         else:
-            noise[name] = gumbel_noise(shape, device=dev, generator=g,
-                                       dtype=dtype)
+            v = gumbel_noise(shape, device=dev, generator=g, dtype=dtype)
+        if kind == "bernoulli" or names.count(name) > 1:
+            noise.setdefault(name, []).append(v)
+        else:
+            noise[name] = v
     return noise
 
 
@@ -2014,7 +2042,6 @@ def run_training(dev, report, B=64, T=160, L=8, amp=False):
     from mlvae_tpu_torch.bench_utils import build_md_vae, synth_batch
     from mlvae_tpu_torch.training.brain import Stage
 
-    per_step = PER_AMP_STEP if amp else PER_TRAIN_STEP
     loss_tol, grad_tol = (AMP_LOSS_RTOL, AMP_GRAD_RTOL) if amp else \
         (LOSS_RTOL, GRAD_RTOL)
     model = build_md_vae(batch_size=B, seed=0, device=dev, bf16=amp)
@@ -2071,8 +2098,9 @@ def run_training(dev, report, B=64, T=160, L=8, amp=False):
                    f"normalizer count +{d_norm:g}")
             check(np.isfinite(float(loss)) and
                   all(np.isfinite(list(vals.values()))), "non-finite loss")
-            check(counts == per_step[name],
-                  f"{name} launch counts {counts} != {per_step[name]}")
+            want = recipe_launches("MD_VAE", name, True, amp)
+            check(counts == want,
+                  f"{name} launch counts {counts} != {want}")
             check(f32_state(model), "a parameter, grad or optimizer state is "
                   "not f32")
             check(moved == ACTIVE[name] and stepped == ACTIVE[name] and kept,
@@ -2110,6 +2138,109 @@ def run_training(dev, report, B=64, T=160, L=8, amp=False):
                           "the AMP loss is far from the f32 loss")
     report(f"  launches in the six training steps: {total}")
     return model, batch, first_noise, total
+
+
+def run_sfl_training(dev, report, B=64, T=160, L=8):
+    """MD_VAE_sfl's VAE train step at full width (``SFL_SAMPLES`` π samples
+    on the Kaldi pass's features), two steps through the kernels, the
+    first also through the plain versions from the same state and draws:
+    launches, loss, each module's applied grad norm, the modules that
+    moved. Returns the model, the batch, the first draws and the
+    launches of the two kernel steps."""
+    import numpy as np
+    import torch
+    from mlvae_tpu_torch.bench_utils import build_md_vae, synth_batch
+    from mlvae_tpu_torch.training.brain import Stage
+
+    model = build_md_vae(batch_size=B, seed=0, device=dev,
+                         recipe="MD_VAE_sfl")
+    batch = synth_batch(B, T, L, seed=0, device=dev)
+    batch["kaldi_feat"] = batch["feat"]
+    model.on_stage_start(Stage.TRAIN, 3)
+    check(int(model.hparams["pi_mcmc_num"]) == SFL_SAMPLES,
+          "the sfl recipe's pi_mcmc_num moved")
+    want = recipe_launches("MD_VAE_sfl", "VAE", train=True)
+    g = torch.Generator(device=dev).manual_seed(7)
+    total = {k: 0 for k in launches()}
+    first_noise = None
+    for step in range(2):
+        noise = train_noise(model, B, T, dev, g)
+        if step == 0:
+            first_noise = noise
+            start = snapshot(model)
+            with twins():
+                reset_launches()
+                ref_loss, ref_losses = model.fit_batch(batch, 3, noise=noise)
+                ref_norms = grad_norms(model)
+                torch.cuda.synchronize()
+                check(sum(launches().values()) == 0,
+                      "the plain sfl step hit a kernel")
+            restore(model, start)
+        weights, opt_states = snapshot(model)
+        reset_launches()
+        loss, losses = model.fit_batch(batch, 3, noise=noise)
+        torch.cuda.synchronize()
+        counts = launches()
+        for k in total:
+            total[k] += counts[k]
+        vals = {k: float(v) for k, v in losses.items()}
+        moved = {mk for mk, mod in model.param_modules().items()
+                 if any(not torch.equal(v, weights[f"{mk}.{n}"])
+                        for n, v in mod.state_dict().items())}
+        stepped = {mk for mk, st in model.opt_states["optimizer"].items()
+                   if int(st["count"]) != int(opt_states["optimizer"][mk]
+                                              ["count"])}
+        report(f"  sfl VAE step {step + 1}: loss {float(loss):.6f} ("
+               + ", ".join(f"{k} {v:.6f}" for k, v in vals.items())
+               + f"); launches { {k: v for k, v in counts.items() if v} }; "
+               f"modules moved {sorted(moved)}")
+        check(np.isfinite(float(loss)) and
+              all(np.isfinite(list(vals.values()))), "non-finite sfl loss")
+        check(counts == want, f"sfl VAE launch counts {counts} != {want}")
+        check(moved == SFL_ACTIVE and stepped == SFL_ACTIVE,
+              f"sfl: moved {sorted(moved)}, Adam stepped {sorted(stepped)}; "
+              f"want {sorted(SFL_ACTIVE)}")
+        check(f32_state(model), "an sfl parameter, grad or optimizer state "
+              "is not f32")
+        if step == 0:
+            norms = grad_norms(model)
+            loss_rel = abs(float(loss) - float(ref_loss)) / abs(
+                float(ref_loss))
+            norm_rel = {mk: abs(v - ref_norms[mk]) / ref_norms[mk]
+                        if ref_norms[mk] else abs(v)
+                        for mk, v in norms.items()}
+            report(f"  against the plain versions: loss rel err "
+                   f"{loss_rel:.3e} (tol {LOSS_RTOL:g}); grad norm rel err "
+                   + ", ".join(f"{mk} {v:.3e}" for mk, v in norm_rel.items()
+                               if norms[mk])
+                   + f" (tol {GRAD_RTOL:g}); inactive grads zero "
+                   f"{all(v == 0 for mk, v in norms.items() if mk not in SFL_ACTIVE)}")
+            check(loss_rel <= LOSS_RTOL, "the sfl loss disagrees")
+            check(all(v == 0 for mk, v in norms.items()
+                      if mk not in SFL_ACTIVE),
+                  "an inactive sfl module applied non-zero grads")
+            check(max(norm_rel.values()) <= GRAD_RTOL,
+                  "the sfl grads disagree")
+    report(f"  launches in the two sfl steps: "
+           f"{ {k: v for k, v in total.items() if v} }")
+    return model, batch, first_noise, total
+
+
+def time_sfl_training(dev, report, model, batch, noise, smi):
+    """The sfl VAE train step's time (host clock around synchronised
+    steps) and throughput, and a profile of one."""
+    B, T = batch["kaldi_feat"][0].shape[:2]
+    ms = cuda_ms(lambda: model.fit_batch(batch, 3, noise=noise), iters=5,
+                 warmup=1)
+    out = {"ms": ms, "utt_sec_per_sec": B * T * HOP_SEC / (ms / 1e3),
+           "card": smi}
+    report(f"  sfl VAE train step B={B} T={T} ({SFL_SAMPLES} π samples): "
+           f"{ms:.3f} ms ({out['utt_sec_per_sec']:.1f} utt-sec/sec) on "
+           f"{smi}")
+    out["profile"] = profile_step(
+        lambda: model.fit_batch(batch, 3, noise=noise),
+        "sfl VAE train step", report)
+    return out
 
 
 def run_lstm_fc(dev, report, B=64, T=160, amp=False):
@@ -3654,51 +3785,53 @@ class CliProbe:
         self.stages, self.decodes, self.infer_ms = {}, [], []
 
 
-def cli_args(name, bf16=False):
+def cli_epochs(recipe):
+    """The debug epochs of a recipe's CLI run: one turn of its cycle."""
+    return CLI_EPOCHS if recipe == "MD_VAE" else FAMILY_EPOCHS[recipe]
+
+
+def cli_args(name, bf16=False, recipe="MD_VAE"):
     """The recipe as a user runs it: config/run.yaml, the synthesized
-    corpus, the MD_VAE recipe at its full width, three debug epochs of two
-    batches, on the card (no --device)."""
+    corpus, the recipe at its full width (the loss weights its YAML leaves
+    to the default pinned to 1.0), one turn of its cycle in debug epochs
+    of two batches, on the card (no --device)."""
+    from mlvae_tpu_torch.bench_utils import unset_loss_weights
+    yaml = REPO / "mlvae_tpu_torch/models" / recipe / "model.yaml"
+    pinned = "".join(f", {k}: 1.0" for k in unset_loss_weights(yaml))
     args = [str(REPO / "config/run.yaml"), "--dataset", "SynAudioMNIST",
             "--language", "digits", "--n_phonemes", "12",
-            "--model_class", "MD_VAE", "--model_name", name,
-            "--model",
-            f"!include:{REPO / 'mlvae_tpu_torch/models/MD_VAE/model.yaml'}",
+            "--model_class", recipe, "--model_name", name,
+            "--model", f"!include:{yaml}",
             "--extra_overrides",
-            "{model: {n_epochs: %d, recon_weight: 1.0, phn_recog_bce_weight:"
-            " 1.0, boundary_bce_weight: 1.0}}" % CLI_EPOCHS,
+            "{model: {n_epochs: %d%s}}" % (cli_epochs(recipe), pinned),
             "--debug", "--debug_batches", "2"]
     return args + (["--bf16"] if bf16 else [])
 
 
-def expected_stage_launches(probe, amp=False):
+def expected_stage_launches(probe, amp=False, recipe="MD_VAE"):
     """What each stage must launch: per batch, the train step's or the
     eval forward's launches of its target."""
-    per_step = PER_AMP_STEP if amp else PER_TRAIN_STEP
-    want = {}
-    for key, rec in probe.stages.items():
-        if key[0] == "TRAIN":
-            one = per_step[rec["target"]]
-        elif key[0] == "VALID":
-            one = PER_EVAL[rec["target"]]
-        else:
-            one = PER_FORWARD
-        want[key] = {k: v * rec["batches"] for k, v in one.items()}
-    return want
+    return {key: {k: v * rec["batches"] for k, v in recipe_launches(
+        recipe, rec["target"], key[0] == "TRAIN", amp).items()}
+        for key, rec in probe.stages.items()}
 
 
-def run_cli_train(report, probe, name, amp=False):
-    """``cli.train`` for CLI_EPOCHS debug epochs through the kernels, then
-    the same run from the same seed through the plain versions; returns
-    the kernel run's model, its launches and the stage records."""
+def run_cli_train(report, probe, name, amp=False, recipe="MD_VAE"):
+    """``cli.train`` for one turn of the recipe's cycle in debug epochs
+    through the kernels, then the same run from the same seed through the
+    plain versions; returns the kernel run's model, its launches and the
+    stage records."""
     import numpy as np
     import torch
     from mlvae_tpu_torch.cli import train as train_cli
 
     tol = CLI_AMP_LOSS_RTOL if amp else CLI_LOSS_RTOL
-    label = "--bf16 " if amp else ""
+    label = ("" if recipe == "MD_VAE" else recipe + " ") + \
+        ("--bf16 " if amp else "")
+    epochs = cli_epochs(recipe)
     probe.reset()
     reset_launches()
-    model = train_cli.main(cli_args(name, bf16=amp))
+    model = train_cli.main(cli_args(name, bf16=amp, recipe=recipe))
     torch.cuda.synchronize()
     total = launches()
     stages = probe.stages
@@ -3708,7 +3841,7 @@ def run_cli_train(report, probe, name, amp=False):
                f"{e['valid_loss']:.6f}; {e['seconds']:.3f} s wall, "
                f"{e['utt_sec_per_sec']:.1f} utt-sec/sec ({e['batches']} "
                f"batches)")
-    want = expected_stage_launches(probe, amp)
+    want = expected_stage_launches(probe, amp, recipe)
     for key, rec in stages.items():
         report(f"  {label}{key[0]} epoch {key[1]} ({rec['target']}, "
                f"{rec['batches']} batches): launches "
@@ -3716,7 +3849,7 @@ def run_cli_train(report, probe, name, amp=False):
         check(rec["launches"] == want[key],
               f"{label}{key}: launches {rec['launches']} != {want[key]}")
         check(np.isfinite(rec["loss"]), f"{label}{key}: non-finite loss")
-    check([k for k in stages] == [(st, e) for e in range(1, CLI_EPOCHS + 1)
+    check([k for k in stages] == [(st, e) for e in range(1, epochs + 1)
                                   for st in ("TRAIN", "VALID")],
           f"{label}stages {list(stages)}")
     check(model.target.name == "VAE", "the cycle did not end on VAE")
@@ -3726,7 +3859,7 @@ def run_cli_train(report, probe, name, amp=False):
     probe.reset()
     with twins():
         reset_launches()
-        train_cli.main(cli_args(name + "_plain", bf16=amp))
+        train_cli.main(cli_args(name + "_plain", bf16=amp, recipe=recipe))
         torch.cuda.synchronize()
         check(sum(launches().values()) == 0,
               "the plain CLI run hit a kernel")
@@ -3771,6 +3904,101 @@ def check_feature_passes(report, probe):
     return errs
 
 
+def run_cli_test(report, probe, root, name, recipe="MD_VAE"):
+    """``cli.test`` from the best checkpoint (MD_VAE_joint saves none in
+    one epoch: the weights it builds), then the same checkpoint and
+    batches through the plain versions: launches, decode, MD and boundary
+    scores, saved MD results, loss. Returns the kernel run's launches and
+    its evaluate split."""
+    import json as json_
+    import torch
+    from mlvae_tpu_torch.cli import test as test_cli
+
+    label = "" if recipe == "MD_VAE" else recipe + " "
+    args = cli_args(name, recipe=recipe)
+    metrics = Path(root) / f"results/{name}/test_output/test_metrics.txt"
+    saved = Path(root) / \
+        f"datasets/SynAudioMNIST/saved_md_results/{name}.json"
+    probe.reset()
+    reset_launches()
+    model = test_cli.main(args)
+    torch.cuda.synchronize()
+    test_total = launches()
+    (key, rec), = [(k, v) for k, v in probe.stages.items()
+                   if k[0] == "TEST"]
+    want = {k: v * rec["batches"] for k, v in
+            recipe_launches(recipe, "TEST", train=False).items()}
+    timing = model.evaluate_timing
+    report(f"  {label}cli.test ({rec['batches']} batch): loss "
+           f"{rec['loss']:.6f}; evaluate restore {timing['restore']:.3f}"
+           f" s, eval {timing['eval']:.3f} s, write {timing['write']:.3f}"
+           f" s; launches { {k: v for k, v in rec['launches'].items() if v} }")
+    check(rec["launches"] == want,
+          f"{label}TEST launches {rec['launches']} != {want}")
+    kernel_metrics, kernel_saved = metrics.read_text(), saved.read_text()
+    kernel_decodes = probe.decodes
+    probe.reset()
+    saved.unlink()
+    with twins():
+        reset_launches()
+        test_cli.main(args)
+        check(sum(launches().values()) == 0,
+              "the plain TEST pass hit a kernel")
+    same_decode = len(kernel_decodes) == len(probe.decodes) and all(
+        ids == pids and all(torch.equal(p[k], pp[k]) for k in p)
+        for (ids, p), (pids, pp) in zip(kernel_decodes, probe.decodes))
+    counts_of = lambda text: [ln for ln in text.splitlines()  # noqa
+                              if "plvl_md" in ln or "boundary." in ln]
+    same_counts = counts_of(kernel_metrics) == counts_of(
+        metrics.read_text())
+    same_saved = json_.loads(kernel_saved) == json_.loads(saved.read_text())
+    loss_rel = abs(rec["loss"] - probe.stages[key]["loss"]) / abs(
+        rec["loss"])
+    report(f"  {label}cli.test against the plain versions on the same "
+           f"checkpoint: same decode {same_decode}, same MD and boundary "
+           f"scores {same_counts}, same saved MD results {same_saved}, "
+           f"loss rel err {loss_rel:.3e} (tol {CLI_LOSS_RTOL:g})")
+    check(same_decode and same_counts and same_saved,
+          f"the {label}TEST pass disagrees with the plain versions")
+    check(loss_rel <= CLI_LOSS_RTOL, f"the {label}TEST loss disagrees")
+    return test_total, timing
+
+
+def run_cli_infer(report, probe, root, name, recipe="MD_VAE"):
+    """``cli.infer`` on one utterance of the corpus from the best
+    checkpoint, then through the plain versions: launches and verdicts.
+    Returns the kernel run's launches and ``infer``'s milliseconds."""
+    import json as json_
+    import torch
+    from mlvae_tpu_torch.cli import infer as infer_cli
+
+    label = "" if recipe == "MD_VAE" else recipe + " "
+    ann = json_.loads((Path(root) / "datasets/SynAudioMNIST/annotation/"
+                       "test.json").read_text())
+    utt, meta = sorted(ann.items())[0]
+    args = cli_args(name, recipe=recipe) + [
+        "--wav", meta["wav_path"], "--canonical",
+        " ".join(meta["txt_gt_cnncl_seq"])]
+    probe.reset()
+    reset_launches()
+    verdicts = infer_cli.main(args)
+    torch.cuda.synchronize()
+    infer_total = launches()
+    want = {**recipe_launches(recipe, "TEST", train=False), "fbank_fft": 1}
+    with twins():
+        plain_verdicts = infer_cli.main(args)
+    report(f"  {label}cli.infer {utt} ({len(verdicts)} phonemes): "
+           f"{probe.infer_ms[0]:.3f} ms for infer (read, features, "
+           f"eval); verdicts {[v['mispronounced'] for v in verdicts]}; "
+           f"launches { {k: v for k, v in infer_total.items() if v} }; "
+           f"equal to the plain versions' {verdicts == plain_verdicts}")
+    check(infer_total == want,
+          f"{label}infer launches {infer_total} != {want}")
+    check(len(verdicts) == len(meta["txt_gt_cnncl_seq"])
+          and verdicts == plain_verdicts, f"{label}infer disagrees")
+    return infer_total, probe.infer_ms[0]
+
+
 def run_cli(dev, report, smi):
     """Phase 3's CLI path in a temporary directory, at the recipe's full
     width on the card: the corpus synthesized and both feature passes
@@ -3778,14 +4006,11 @@ def run_cli(dev, report, smi):
     checkpoint, ``cli.infer.main`` on one utterance of the corpus, each
     against the same through the plain versions; then ``cli.train
     --bf16``. Returns the launches of the kernel runs and the numbers."""
-    import json as json_
     import logging
     import os
     import shutil
     import tempfile
     import torch
-    from mlvae_tpu_torch.cli import infer as infer_cli
-    from mlvae_tpu_torch.cli import test as test_cli
 
     # the CLI's INFO lines stay off this script's output
     logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
@@ -3811,77 +4036,10 @@ def run_cli(dev, report, smi):
         out["epochs"] = model.epoch_log
         del model
 
-        # TEST from the best checkpoint, then the same checkpoint and
-        # batches through the plain versions
-        metrics = Path(root) / "results/cli/test_output/test_metrics.txt"
-        saved = Path(root) / "datasets/SynAudioMNIST/saved_md_results/cli.json"
-        probe.reset()
-        reset_launches()
-        model = test_cli.main(cli_args("cli"))
-        torch.cuda.synchronize()
-        test_total = launches()
-        rec = probe.stages[("TEST", CLI_EPOCHS)]
-        want = {k: v * rec["batches"] for k, v in PER_FORWARD.items()}
-        timing = model.evaluate_timing
-        report(f"  cli.test ({rec['batches']} batch): loss "
-               f"{rec['loss']:.6f}; evaluate restore {timing['restore']:.3f}"
-               f" s, eval {timing['eval']:.3f} s, write {timing['write']:.3f}"
-               f" s; launches { {k: v for k, v in rec['launches'].items() if v} }")
-        check(rec["launches"] == want,
-              f"TEST launches {rec['launches']} != {want}")
-        kernel_metrics, kernel_saved = metrics.read_text(), saved.read_text()
-        kernel_decodes = probe.decodes
-        probe.reset()
-        saved.unlink()
-        with twins():
-            reset_launches()
-            plain = test_cli.main(cli_args("cli"))
-            check(sum(launches().values()) == 0,
-                  "the plain TEST pass hit a kernel")
-        same_decode = len(kernel_decodes) == len(probe.decodes) and all(
-            ids == pids and all(torch.equal(p[k], pp[k]) for k in p)
-            for (ids, p), (pids, pp) in zip(kernel_decodes, probe.decodes))
-        counts_of = lambda text: [ln for ln in text.splitlines()  # noqa
-                                  if "plvl_md" in ln or "boundary." in ln]
-        same_counts = counts_of(kernel_metrics) == counts_of(
-            metrics.read_text())
-        same_saved = json_.loads(kernel_saved) == json_.loads(
-            saved.read_text())
-        loss_rel = abs(rec["loss"] - probe.stages[("TEST", CLI_EPOCHS)]
-                       ["loss"]) / abs(rec["loss"])
-        report(f"  cli.test against the plain versions on the same "
-               f"checkpoint: same decode {same_decode}, same MD and boundary "
-               f"scores {same_counts}, same saved MD results {same_saved}, "
-               f"loss rel err {loss_rel:.3e} (tol {CLI_LOSS_RTOL:g})")
-        check(same_decode and same_counts and same_saved,
-              "the TEST pass disagrees with the plain versions")
-        check(loss_rel <= CLI_LOSS_RTOL, "the TEST loss disagrees")
+        test_total, timing = run_cli_test(report, probe, root, "cli")
         out["evaluate_s"] = timing
-        del model, plain
-
-        # infer on one utterance of the corpus, from the best checkpoint
-        ann = json_.loads((Path(root) / "datasets/SynAudioMNIST/annotation/"
-                           "test.json").read_text())
-        utt, meta = sorted(ann.items())[0]
-        args = cli_args("cli") + ["--wav", meta["wav_path"], "--canonical",
-                                  " ".join(meta["txt_gt_cnncl_seq"])]
-        probe.reset()
-        reset_launches()
-        verdicts = infer_cli.main(args)
-        torch.cuda.synchronize()
-        infer_total = launches()
-        want = {**PER_FORWARD, "fbank_fft": 1}
-        with twins():
-            plain_verdicts = infer_cli.main(args)
-        report(f"  cli.infer {utt} ({len(verdicts)} phonemes): "
-               f"{probe.infer_ms[0]:.3f} ms for infer (read, features, "
-               f"eval); verdicts {[v['mispronounced'] for v in verdicts]}; "
-               f"launches { {k: v for k, v in infer_total.items() if v} }; "
-               f"equal to the plain versions' {verdicts == plain_verdicts}")
-        check(infer_total == want, f"infer launches {infer_total} != {want}")
-        check(len(verdicts) == len(meta["txt_gt_cnncl_seq"])
-              and verdicts == plain_verdicts, "infer disagrees")
-        out["infer_ms"] = probe.infer_ms[0]
+        infer_total, out["infer_ms"] = run_cli_infer(report, probe, root,
+                                                     "cli")
 
         amp_model, amp_total, _ = run_cli_train(report, probe, "cli_bf16",
                                                 amp=True)
@@ -3912,6 +4070,90 @@ def run_cli(dev, report, smi):
         k: {n: c for n, c in v["launches"].items() if c}
         for k, v in passes.items()}
     return counts, amp_total, passes_total, out
+
+
+def write_saved_posteriors(root, rows=64, classes=14):
+    """``results/saved_phn_recog_outs.pkl`` for MD_VAE_sfl_saved_phn_recog:
+    random (rows, classes) posteriors for every utterance of the
+    synthesized corpus's three sets (``prepare_batch`` cuts or zero-pads
+    them to each batch's length)."""
+    import json as json_
+    import pickle
+    import numpy as np
+    rs = np.random.RandomState(0)
+    outs = {}
+    for name in ("train", "valid", "test"):
+        ann = json_.loads((Path(root) / "datasets/SynAudioMNIST/annotation"
+                           / f"{name}.json").read_text())
+        for utt in sorted(ann):
+            outs[utt] = rs.randn(rows, classes).astype(np.float32)
+    (Path(root) / "results").mkdir(exist_ok=True)
+    with open(Path(root) / "results/saved_phn_recog_outs.pkl", "wb") as f:
+        pickle.dump(outs, f)
+    return len(outs)
+
+
+def run_cli_family(dev, report, smi):
+    """Phase 3's CLI path for the rest of the MD_VAE family in a temporary
+    directory, at each recipe's full width on the card: ``cli.train`` for
+    one turn of its cycle (MD_VAE_sfl 3 epochs, on the Kaldi pass's
+    features; MD_VAE_joint and MD_VAE_joint_ll 1; saved_phn_recog 2, over
+    posteriors the script writes), ``cli.test`` and, but for
+    saved_phn_recog (whose posteriors a served wav lacks), ``cli.infer``,
+    each against the same through the plain versions; then MD_VAE_sfl's
+    ``cli.train --bf16``. Returns the launches of the kernel runs (f32 and
+    --bf16) and the numbers."""
+    import logging
+    import os
+    import shutil
+    import tempfile
+
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    cwd = os.getcwd()
+    root = tempfile.mkdtemp(prefix="mlvae_cli_family_")
+    probe = CliProbe()
+    out = {"card": smi}
+    counts = {k: 0 for k in launches()}
+
+    def add(total):
+        for k in counts:
+            counts[k] += total[k]
+    try:
+        os.chdir(root)
+        for recipe in FAMILY:
+            name = recipe.lower()
+            rec = out[recipe] = {}
+            if recipe == "MD_VAE_sfl_saved_phn_recog":
+                n = write_saved_posteriors(root)
+                report(f"  {recipe}: posteriors of {n} utterances written")
+            model, total, stages = run_cli_train(report, probe, name,
+                                                 recipe=recipe)
+            add(total)
+            rec["epochs"] = model.epoch_log
+            rec["stage_launches"] = {f"{k[0]} {k[1]} {v['target']}": {
+                kn: c for kn, c in v["launches"].items() if c}
+                for k, v in stages.items()}
+            del model
+            total, rec["evaluate_s"] = run_cli_test(report, probe, root,
+                                                    name, recipe)
+            add(total)
+            if recipe != "MD_VAE_sfl_saved_phn_recog":
+                total, rec["infer_ms"] = run_cli_infer(report, probe, root,
+                                                       name, recipe)
+                add(total)
+            report(f"  {recipe} on {smi}: epochs " + ", ".join(
+                f"{e['epoch']}: {e['seconds']:.3f} s "
+                f"{e['utt_sec_per_sec']:.1f} utt-sec/sec"
+                for e in rec["epochs"]))
+        amp_model, amp_total, _ = run_cli_train(
+            report, probe, "sfl_bf16", amp=True, recipe="MD_VAE_sfl")
+        out["MD_VAE_sfl"]["bf16_epochs"] = amp_model.epoch_log
+        del amp_model
+    finally:
+        probe.close()
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    return counts, amp_total, out
 
 
 def main(argv=None) -> int:
@@ -4005,6 +4247,11 @@ def main(argv=None) -> int:
            "B=64, T=160, L=8), two steps per target")
     amp_model, amp_batch, amp_noise, amp_counts = run_training(
         dev, report, amp=True)
+    report("phase 3 MD_VAE_sfl's VAE training step at full width (H=512, "
+           f"B=64, T=160, L=8, {SFL_SAMPLES} π samples, the Kaldi pass's "
+           "features in), two steps")
+    sfl_model, sfl_batch, sfl_noise, sfl_counts = run_sfl_training(
+        dev, report)
     report("phase 3 BASELINE gate configs: gate 3 (GRU sequence VAE) at "
            "full width (C=120, H=512, LAT=32, B=64, T=160), two f32 and two "
            "AMP steps; gates 1, 2, 4 one step each, card against CPU")
@@ -4029,15 +4276,28 @@ def main(argv=None) -> int:
            "cli.infer, cli.train --bf16, each against the plain versions")
     cli_counts, cli_amp_counts, cli_pass_counts, cli = run_cli(dev, report,
                                                                smi)
+    report("phase 3 the CLI path of the rest of the MD_VAE family at full "
+           "width: MD_VAE_sfl, MD_VAE_joint, MD_VAE_joint_ll, "
+           "MD_VAE_sfl_saved_phn_recog (cli.train through each cycle, "
+           "cli.test, cli.infer), MD_VAE_sfl's cli.train --bf16, each "
+           "against the plain versions")
+    fam_counts, fam_amp_counts, cli["family"] = run_cli_family(dev, report,
+                                                               smi)
     # the paths' launches: the eval forward's, the wav-in path's, the six
-    # f32 and six AMP MD_VAE train steps', the four gate-3 steps', the
-    # unroll path's, LSTM_FC's eval and two f32 train steps' and its two
-    # AMP train steps', and the CLI path's (the feature passes with
-    # cli.train, cli.test and cli.infer; cli.train --bf16)
+    # f32 and six AMP MD_VAE train steps', the two MD_VAE_sfl VAE steps',
+    # the four gate-3 steps', the unroll path's, LSTM_FC's eval and two
+    # f32 train steps' and its two AMP train steps', and the CLI paths'
+    # (the feature passes with cli.train, cli.test and cli.infer;
+    # cli.train --bf16), MD_VAE's and the family's
     counts = {k: {"launches": eval_counts[k] + wav_counts[k]
-                  + train_counts[k] + amp_counts[k] + gate_counts[k]
+                  + train_counts[k] + amp_counts[k] + sfl_counts[k]
+                  + gate_counts[k]
                   + amp_gate_counts[k] + unroll_counts[k] + fc_counts[k]
-                  + fc_amp_counts[k] + cli_counts[k] + cli_amp_counts[k],
+                  + fc_amp_counts[k] + cli_counts[k] + cli_amp_counts[k]
+                  + fam_counts[k] + fam_amp_counts[k],
+                  "launches_sfl_training": sfl_counts[k],
+                  "launches_cli_family": fam_counts[k],
+                  "launches_cli_family_bf16": fam_amp_counts[k],
                   "launches_cli": cli_counts[k],
                   "launches_cli_feature_passes": cli_pass_counts[k],
                   "launches_cli_bf16": cli_amp_counts[k],
@@ -4066,7 +4326,7 @@ def main(argv=None) -> int:
     bwd_timeline = time_bwd_timeline(dev, report)
     fwd_timeline = time_fwd_timeline(dev, report)
     fwd_timeline["smem_reads"] = time_smem_reads(dev, report)
-    report("phase 4 the MD_VAE train steps, K5, K7, gate 3")
+    report("phase 4 the MD_VAE and MD_VAE_sfl train steps, K5, K7, gate 3")
     train_step = time_training(dev, report, train_model, train_batch,
                                first_noise)
     del train_model
@@ -4074,6 +4334,9 @@ def main(argv=None) -> int:
                              label="AMP")
     del amp_model
     amp_step["VAE_B256"] = time_amp_vae(dev, report)
+    sfl_step = time_sfl_training(dev, report, sfl_model, sfl_batch,
+                                 sfl_noise, smi)
+    del sfl_model
     kernels += time_gru(dev, report, errs, counts)
     kernels += time_unroll(dev, report, unroll_res, errs, counts)
     gate3_step = {"f32": time_gate3(dev, report, gate, gate_batch,
@@ -4097,6 +4360,7 @@ def main(argv=None) -> int:
                        "lstm_fc": lstm_fc, "lstm_fc_amp": lstm_fc_amp,
                        "wav_in": wav_in, "train_step": train_step,
                        "amp_train_step": amp_step,
+                       "sfl_train_step": sfl_step,
                        "gate3_train_step": gate3_step,
                        "gru_plans": k5_plans,
                        "bwd_timeline": bwd_timeline,

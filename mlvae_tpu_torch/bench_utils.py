@@ -2,8 +2,9 @@
 the filesystem (counterpart of ``mlvae_tpu/bench_utils.py``).
 
 The widths are the recipe's, copied from
-``mlvae_tpu/models/MD_VAE/model.yaml``, with its Adam at ``lr``;
-``overrides`` changes any of them (narrow widths for the CPU tests).
+``mlvae_tpu/models/MD_VAE/model.yaml`` (and MD_VAE_sfl's from its
+``model.yaml``), with its Adam at ``lr``; ``overrides`` changes any of
+them (narrow widths for the CPU tests).
 ``synth_batch`` draws the same numpy values as the JAX package's
 ``synth_batch`` for the same arguments. ``build_lstm_fc`` builds the
 LSTM_FC recipe (``LSTM_FC_RECIPE``, from
@@ -22,16 +23,19 @@ variable-length utterances, gate 4 a ``GroupedLatentVAE`` with
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import yaml
 from torch import nn
 from torch.func import functional_call
 
 from mlvae_tpu_torch.device import resolve_device
 from mlvae_tpu_torch.models.LSTM_FC.model import LSTMFC
 from mlvae_tpu_torch.models.MD_VAE.model import MDVAE
+from mlvae_tpu_torch.models.MD_VAE_sfl.model import MDVAESFL
 from mlvae_tpu_torch.modules.conv_vae import ConvVAE
 from mlvae_tpu_torch.modules.grouped_vae import GroupedLatentVAE, group_elbo
 from mlvae_tpu_torch.modules.vanilla_vae import VanillaVAE
@@ -83,18 +87,63 @@ RECIPE = {
 }
 
 
+# MD_VAE_sfl at the widths of mlvae_tpu/models/MD_VAE_sfl/model.yaml:
+# MD_VAE's, the recognizer-output FC under its name there, a baseline head
+# [512, 16, 16, 1], five π samples a training step, the Kaldi pass's
+# features in, and every loss weight 1
+SFL_RECIPE = {k: v for k, v in RECIPE.items() if k != "phn_recog_fc_size"}
+SFL_RECIPE.update({
+    "phn_recog_out_fc_size": 32,
+    "baseline_fc_size": 16,
+    "pi_mcmc_num": 5,
+    "use_kaldi_feat": True,
+    "boundary_kld_weight": 1.0,
+    "vae_kld_weight": 1.0,
+    "pi_nll_weight": 1.0,
+    "rif_weight": 1.0,
+    "entropy_weight": 1.0,
+    "baseline_weight": 1.0,
+})
+# the recipes ``build_md_vae`` builds: widths and the step's class
+MD_VAE_RECIPES = {"MD_VAE": (RECIPE, MDVAE),
+                  "MD_VAE_sfl": (SFL_RECIPE, MDVAESFL)}
+
+
+# the loss weights of the MD_VAE family; a recipe may leave some out of its
+# YAML, and the model then takes 1.0 with a warning
+# (``models/md_model.weighted_total``)
+LOSS_WEIGHTS = ("recon_weight", "phn_recog_bce_weight",
+                "boundary_bce_weight", "boundary_kld_weight",
+                "vae_kld_weight", "pi_nll_weight", "rif_weight",
+                "entropy_weight", "baseline_weight")
+
+
+def unset_loss_weights(yaml_path) -> List[str]:
+    """The ``LOSS_WEIGHTS`` that the recipe at ``yaml_path`` leaves out of
+    its top-level keys (the YAML read with its tags ignored): the weights a
+    run pins to 1.0 so that none falls to the warning's default."""
+    class Keys(yaml.SafeLoader):
+        pass
+    Keys.add_multi_constructor("!", lambda loader, suffix, node: None)
+    keys = yaml.load(Path(yaml_path).read_text(), Loader=Keys) or {}
+    return [k for k in LOSS_WEIGHTS if k not in keys]
+
+
 def build_md_vae(batch_size: int = 8, overrides=None, seed: int = 0,
-                 device=None, bf16: bool = False) -> MDVAE:
-    """MD_VAE at the recipe's widths with weights drawn from ``seed`` on
-    ``device`` (None means CUDA), its optimizer states initialised.
-    ``bf16`` turns AMP on for the training step, as the JAX bench's
-    default ``--bf16`` does (``bench.py``); the eval step stays f32."""
+                 device=None, bf16: bool = False,
+                 recipe: str = "MD_VAE") -> MDVAE:
+    """``recipe`` (MD_VAE, or MD_VAE_sfl) at its widths with weights drawn
+    from ``seed`` on ``device`` (None means CUDA), its optimizer states
+    initialised. ``bf16`` turns AMP on for the training step, as the JAX
+    bench's default ``--bf16`` does (``bench.py``); the eval step stays
+    f32."""
     dev = resolve_device(device)
-    hparams = dict(RECIPE, batch_size=batch_size)
+    widths, cls = MD_VAE_RECIPES[recipe]
+    hparams = dict(widths, batch_size=batch_size)
     hparams.update(overrides or {})
     hparams.setdefault("optimizer", Adam(lr=hparams["lr"]))
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    model = MDVAE(hparams, generator=gen, run_opts={"bf16": bf16}).to(
+    model = cls(hparams, generator=gen, run_opts={"bf16": bf16}).to(
         dev).eval()
     model.init_optimizers()
     return model
@@ -123,7 +172,7 @@ def synth_batch(batch_size: int = 8, T: int = 160, L: int = 8,
     def t(a):
         return torch.from_numpy(a).to(dev)
 
-    return {
+    batch = {
         "feat": (t(feats), t(feat_lens)),
         "gt_cnncl_seq": (t(cnncl), t(cnncl_lens)),
         "fa_boundary_seq": (t(boundary), t(feat_lens)),
@@ -131,6 +180,7 @@ def synth_batch(batch_size: int = 8, T: int = 160, L: int = 8,
         "plvl_gt_md_lbl_seq": (t(md), t(cnncl_lens)),
         "prior": (t(prior_b), t(cnncl_lens)),
     }
+    return batch
 
 
 # LSTM_FC at the widths of mlvae_tpu/models/LSTM_FC/model.yaml: fbank with

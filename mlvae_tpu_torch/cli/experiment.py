@@ -36,8 +36,6 @@ logger = logging.getLogger(__name__)
 # by the ROADMAP queue 1 item that ports them
 UNPORTED_DATASETS = {"TIMIT": 5, "L2_ARCTIC": 5, "ChineseDPA": 5}
 UNPORTED_MODELS = {
-    "MD_VAE_sfl": 7, "MD_VAE_joint": 7, "MD_VAE_joint_ll": 7,
-    "MD_VAE_sfl_saved_phn_recog": 7,
     "test_vanilla_vae": 8, "test_gmm_vae": 8, "test_h_vae": 8,
     "test_phn_classifier": 8, "test_b_ind_classifier": 8, "LSTM_FC": 8,
     "CRDNN_CTC": 9, "CRDNN_CTC_cnncl": 9, "HMM_DNN_ALI": 9,

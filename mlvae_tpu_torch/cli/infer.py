@@ -7,7 +7,9 @@ JAX entry does: it reads and resamples the wav, runs the recipe's
 the phonemes. ``infer_features`` takes features (T, input_size) and
 phoneme ids. Both build the JAX entry's single-utterance batch (uniform
 forced-alignment boundaries, zero MD labels) and run the TEST-target eval
-step. ``main`` is the command line, as the JAX entry's:
+step. As the JAX entry, the batch holds the features under ``kaldi_feat``
+too, which MD_VAE_sfl reads: a model trained on the Kaldi pass's features
+is served the recipe's ``compute_features``. ``main`` is the command line, as the JAX entry's:
 
     python -m mlvae_tpu_torch.cli.infer config/run.yaml \
         --dataset ... --model_class MD_VAE --model_name my_run \
@@ -97,6 +99,9 @@ def infer_features(model, feats, canonical_ids: Sequence[int],
     batch = {
         "id": ["utt"],
         "feat": (feats[None], one),
+        # the same features for a recipe that reads the Kaldi pass's
+        # (MD_VAE_sfl), as the JAX entry serves them
+        "kaldi_feat": (feats[None], one),
         "gt_cnncl_seq": (t(canonical_ids, torch.int64), one),
         "fa_boundary_seq": (boundary, one),
         "gt_boundary_seq": (boundary, one),

@@ -61,6 +61,11 @@ class PaddedBatch:
             return self.ids
         return self._data[key]
 
+    def __setitem__(self, key, value):
+        """A key a recipe's ``prepare_batch`` adds: (array, relative
+        lengths)."""
+        self._data[key] = value
+
     def __contains__(self, key):
         return key == "id" or key in self._data
 

@@ -15,6 +15,14 @@ The training target cycles PHN_RECOG -> B_DETECTOR -> VAE by
 ``(epoch-1) % 3``; the branches a target runs are gated by it, and the
 losses of the branches it does not train are detached.
 
+The other recipes of the family subclass these two classes as the JAX
+package's do, through its hooks: ``TRAIN_CYCLE``, ``detach_inactive``,
+``save_md_on_valid``, ``PHN_FC_NAME``, ``used_batch_keys``,
+``_init_stage_stats``, ``to_run_evaluation``, ``_input_feats``,
+``_branch_inputs``, ``_phn_recog_branch``, ``_vae_branch``,
+``_sample_draws`` and ``_build_modules``; the modules are the recipe's,
+by the names its YAML gives them.
+
 Every draw is named, and ``draws`` lists those of one forward in the JAX
 package's order (``fold_in(rng, 0..k)`` of its ``RngStream``). The eval
 step draws ``kumaraswamy_u`` (10, B, T), ``vanilla_eps`` (B, T, latent),
@@ -59,7 +67,7 @@ from mlvae_tpu_torch.nn import dist as D
 from mlvae_tpu_torch.nn.norm import InputNormalization
 from mlvae_tpu_torch.nn.rnn import LSTM
 from mlvae_tpu_torch.ops import decode as dec
-from mlvae_tpu_torch.training.brain import Stage
+from mlvae_tpu_torch.training.brain import Stage, batch_feats
 from mlvae_tpu_torch.utils.tensor import (abs_lengths, apply_lens_to_loss,
                                           undo_padding)
 
@@ -75,83 +83,102 @@ class Target(Enum):
     TEST = auto()
 
 
-TRAIN_CYCLE = (Target.PHN_RECOG, Target.B_DETECTOR, Target.VAE)
-# the recipe's modules, as ``model.yaml`` names them under ``modules``
-MODULE_NAMES = ("feat_fc", "phoneme_recognizer", "phn_recog_fc",
-                "boundary_detector", "concat_fc", "rnn", "pi_fc", "encoder",
-                "decoder")
-
-
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class MDVAE(MDModel):
+    USED_BATCH_KEYS = {"feat", "gt_cnncl_seq", "fa_boundary_seq",
+                       "gt_boundary_seq", "plvl_gt_md_lbl_seq", "prior"}
     # what the host-side evaluation reads (JAX SBModel.EVAL_PRED_KEYS)
     EVAL_PRED_KEYS = frozenset({
         "decoded_boundary_seq", "decoded_plvl_md_lbl_seq",
         "decoded_t_lens", "decoded_l_lens",
     })
+    # the subclass knobs of the JAX SBModel: the training targets by epoch;
+    # whether the losses of the branches a target does not train are
+    # detached (the joint recipes train them all); whether VALID saves MD
+    # results as TEST does; the recognizer-output FC's module name
+    TRAIN_CYCLE = (Target.PHN_RECOG, Target.B_DETECTOR, Target.VAE)
+    detach_inactive = True
+    save_md_on_valid = False
+    PHN_FC_NAME = "phn_recog_fc"
 
     def __init__(self, hparams: Dict,
                  generator: Optional[torch.Generator] = None, device=None,
                  run_opts: Optional[Dict] = None,
                  modules: Optional[Dict] = None, **brain_kwargs):
         """The modules are built from ``hparams`` with weights drawn from
-        ``generator`` on ``device``, or taken from ``modules`` (name ->
-        module, as the YAML builds them); the normalizer is
-        ``hparams["normalizer"]`` where that is one, sized to
-        ``input_size``."""
+        ``generator`` on ``device`` (``_build_modules``), or taken from
+        ``modules`` (name -> module, as the YAML builds them, every one
+        under its YAML name); the normalizer is ``hparams["normalizer"]``
+        where that is one, sized to ``input_size``."""
         super().__init__(hparams, run_opts, **brain_kwargs)
         self.target = Target.TEST
-        h = self.hparams
-        inp = h["input_size"]
-        norm = h.get("normalizer")
+        norm = self.hparams.get("normalizer")
         self.normalizer = norm if isinstance(norm, InputNormalization) \
             else InputNormalization(device=device)
-        self.normalizer.ensure_size(inp)
-        if modules is not None:
-            for name in MODULE_NAMES:
-                setattr(self, name, modules[name])
-            return
-        kw = dict(generator=generator, device=device)
+        self.normalizer.ensure_size(self.hparams["input_size"])
+        if modules is None:
+            modules = self._build_modules(
+                self.hparams, dict(generator=generator, device=device))
+        for name, module in modules.items():
+            setattr(self, name, module)
+
+    @staticmethod
+    def _build_modules(h: Dict, kw: Dict) -> Dict[str, torch.nn.Module]:
+        """The recipe's modules at ``h``'s widths, in the YAML's order (the
+        order their weights are drawn in), by the YAML's names."""
+        inp = h["input_size"]
         n_cls = h["n_phonemes"] + 2
-        self.feat_fc = FCBlock([inp, h["feat_fc_size"], h["feat_fc_size"]],
-                               end_activation=True, **kw)
-        self.phoneme_recognizer = PhonemeRecognizer(
+        mods = {}
+        mods["feat_fc"] = FCBlock(
+            [inp, h["feat_fc_size"], h["feat_fc_size"]], end_activation=True,
+            **kw)
+        mods["phoneme_recognizer"] = PhonemeRecognizer(
             inp, h["phn_rnn_hidden_size"], h["phn_rnn_num_layers"],
             [h["phn_rnn_hidden_size"], h["phn_fc_size"], h["phn_fc_size"],
              n_cls], h["n_phonemes"], **kw)
-        self.phn_recog_fc = FCBlock(
+        mods["phn_recog_fc"] = FCBlock(
             [n_cls, h["phn_recog_fc_size"], h["phn_recog_fc_size"]],
             end_activation=True, **kw)
-        self.boundary_detector = BoundaryDetector(
+        mods["boundary_detector"] = BoundaryDetector(
             inp, h["boundary_rnn_hidden_size"], h["boundary_rnn_num_layers"],
             [h["boundary_rnn_hidden_size"], h["boundary_fc_size"],
              h["boundary_fc_size"], 1], **kw)
-        self.concat_fc = FCBlock(
+        mods["concat_fc"] = FCBlock(
             [h["feat_fc_size"] + h["phn_recog_fc_size"], h["concat_fc_size"],
              h["concat_fc_size"]], end_activation=True, **kw)
-        self.rnn = LSTM(h["concat_fc_size"], h["rnn_hidden_size"],
-                        h["rnn_num_layers"], dropout=h["rnn_dropout"], **kw)
-        self.pi_fc = FCBlock([h["rnn_hidden_size"], h["pi_fc_size"],
-                              h["pi_fc_size"] // 2, 2], **kw)
-        self.encoder = HierarchicalVAE(
+        mods["rnn"] = LSTM(h["concat_fc_size"], h["rnn_hidden_size"],
+                           h["rnn_num_layers"], dropout=h["rnn_dropout"],
+                           **kw)
+        mods["pi_fc"] = FCBlock([h["rnn_hidden_size"], h["pi_fc_size"],
+                                 h["pi_fc_size"] // 2, 2], **kw)
+        mods["encoder"] = HierarchicalVAE(
             [h["rnn_hidden_size"], h["enc_fc_size"], h["enc_fc_size"]],
             h["latent_size"], h["num_components"], **kw)
-        self.decoder = Decoder(
+        mods["decoder"] = Decoder(
             h["latent_size"], h["dec_rnn_hidden_size"],
             h["dec_rnn_num_layers"], h["dec_rnn_dropout"],
             [h["dec_rnn_hidden_size"] * 2, h["dec_fc_size"],
              h["dec_fc_size"], inp], **kw)
+        return mods
+
+    def used_batch_keys(self):
+        keys = set(self.USED_BATCH_KEYS)
+        if self.hparams.get("use_kaldi_feat", False):
+            keys.add("kaldi_feat")   # the MD_VAE_sfl input path
+        return keys
 
     def set_stage(self, stage: Stage, epoch: Optional[int] = None):
-        """TRAIN and VALID take the epoch's target, ``(epoch-1) % 3`` of
-        PHN_RECOG, B_DETECTOR, VAE; TEST takes the TEST target."""
+        """TRAIN and VALID take the epoch's target, ``(epoch-1) % n`` of
+        ``TRAIN_CYCLE`` (PHN_RECOG, B_DETECTOR, VAE); TEST takes the TEST
+        target."""
         if stage in (Stage.TRAIN, Stage.VALID):
             if epoch is None:
                 raise ValueError(f"{stage} needs the epoch")
-            self.target = TRAIN_CYCLE[(epoch - 1) % 3]
+            cycle = self.TRAIN_CYCLE
+            self.target = cycle[(epoch - 1) % len(cycle)]
         elif stage == Stage.TEST:
             self.target = Target.TEST
         else:
@@ -166,10 +193,7 @@ class MDVAE(MDModel):
         ``bernoulli``, ``gumbel`` and ``normal``; names that repeat (one
         dropout mask per gap between layers) are replayed as a list. The
         dtype is f32 but for ``pi_gumbel`` under AMP (bf16)."""
-        h, t = self.hparams, self.target
-        lat, nc = h["latent_size"], h["num_components"]
-        f32 = torch.float32
-        pi_dtype = torch.bfloat16 if self.auto_mix_prec else f32
+        t, f32 = self.target, torch.float32
         out = []
         if t in (Target.B_DETECTOR, Target.VAE, Target.TEST):
             out.append(("kumaraswamy_u", "uniform",
@@ -179,16 +203,27 @@ class MDVAE(MDModel):
                 out += [("rnn_dropout", "bernoulli", s,
                          1.0 - self.rnn.dropout, f32)
                         for s in self.rnn.dropout_shapes(B, T)]
-                out.append(("pi_gumbel", "gumbel", (B, T, 2), None,
-                            pi_dtype))
-            out += [("vanilla_eps", "normal", (B, T, lat), None, f32),
-                    ("gumbel_g", "gumbel", (B, T, nc), None, f32),
-                    ("gmm_eps", "normal", (B, T, lat * nc), None, f32)]
-            if train:
-                drop = self.decoder.rnn
-                out += [("decoder_dropout", "bernoulli", s,
-                         1.0 - drop.dropout, f32)
-                        for s in drop.dropout_shapes(B, T)]
+            out += self._sample_draws(B, T, train)
+        return out
+
+    def _sample_draws(self, B: int, T: int, train: bool) -> List:
+        """The draws of one π sample and the VAE on it: π's Gumbel noise
+        (training only), the encoder's three, the decoder's dropout
+        masks (training only)."""
+        h = self.hparams
+        lat, nc = h["latent_size"], h["num_components"]
+        f32 = torch.float32
+        out = []
+        if train:
+            out.append(("pi_gumbel", "gumbel", (B, T, 2), None,
+                        torch.bfloat16 if self.auto_mix_prec else f32))
+        out += [("vanilla_eps", "normal", (B, T, lat), None, f32),
+                ("gumbel_g", "gumbel", (B, T, nc), None, f32),
+                ("gmm_eps", "normal", (B, T, lat * nc), None, f32)]
+        if train:
+            drop = self.decoder.rnn
+            out += [("decoder_dropout", "bernoulli", s, 1.0 - drop.dropout,
+                     f32) for s in drop.dropout_shapes(B, T)]
         return out
 
     def prepare_batch(self, batch):
@@ -199,7 +234,7 @@ class MDVAE(MDModel):
         included, is a class of the model with a row in the prior.
         ``batch`` is a host batch (a ``PaddedBatch``) or a dict of
         tensors."""
-        feats, feat_lens = batch["feat"]
+        feats, feat_lens = batch_feats(batch)
         cn, cn_lens = batch["gt_cnncl_seq"]
         names = batch["id"] if "id" in batch else \
             list(range(len(feat_lens)))
@@ -225,7 +260,7 @@ class MDVAE(MDModel):
         phn_out = predictions["phn_recog_out"]
         T = phn_out.shape[1]
         plvl_cnnl, plvl_lens = batch["gt_cnncl_seq"]
-        t_lens = abs_lengths(batch["feat"][1], T)
+        t_lens = abs_lengths(batch_feats(batch)[1], T)
         l_lens = abs_lengths(plvl_lens, plvl_cnnl.shape[1])
         # the decode sees stop-gradded inputs, built in their streams' dtype
         # and then cast to f32 as the JAX decode casts them; its outputs
@@ -262,41 +297,90 @@ class MDVAE(MDModel):
                                  target)
 
     def _forward(self, batch, noise, generator, train, epoch, target):
-        feats, feat_lens = batch["feat"]
-        feats = self.normalizer(feats, feat_lens, epoch=epoch, update=train)
-        fa_boundary = batch["fa_boundary_seq"][0]
+        feats, feat_lens = self._input_feats(batch, train, epoch)
+        inputs = self._branch_inputs(feats, target)
         preds = {"losses": {}}
 
-        def maybe_detach(losses, active):
-            return losses if active else {k: v.detach()
-                                          for k, v in losses.items()}
-
         if target in (Target.PHN_RECOG, Target.VAE, Target.TEST):
-            phn = self.phoneme_recognizer(
-                feats, feat_lens, batch["gt_cnncl_seq"][0], fa_boundary,
-                train=train, generator=generator)
+            phn = self._phn_recog_branch(inputs["phn_in"], feat_lens, batch,
+                                         train, generator)
             preds["phn_recog_out"] = phn["out"]
             preds["losses"].update(
-                maybe_detach(phn["losses"], target == Target.PHN_RECOG))
+                self._maybe_detach(phn["losses"],
+                                   target == Target.PHN_RECOG))
 
         if target in (Target.B_DETECTOR, Target.VAE, Target.TEST):
-            bd = self.boundary_detector(feats, fa_boundary,
-                                        u=noise.get("kumaraswamy_u"),
-                                        generator=generator, train=train)
+            bd = self.boundary_detector(
+                inputs["bdet_in"], batch["fa_boundary_seq"][0],
+                u=noise.get("kumaraswamy_u"), generator=generator,
+                train=train)
             preds["boundary_v"] = bd["boundary_v"]
             preds["losses"].update(
-                maybe_detach(bd["losses"], target == Target.B_DETECTOR))
+                self._maybe_detach(bd["losses"],
+                                   target == Target.B_DETECTOR))
 
-        if target not in (Target.VAE, Target.TEST):
-            return preds
-        phn_in = preds["phn_recog_out"].detach()   # stop-grad
-        rnn_in = torch.cat([self.feat_fc(feats), self.phn_recog_fc(phn_in)],
+        if target in (Target.VAE, Target.TEST):
+            self._vae_branch(preds, feats, inputs["vae_in"], batch, noise,
+                             generator, train)
+        return preds
+
+    def _maybe_detach(self, losses, active: bool):
+        if active or not self.detach_inactive:
+            return losses
+        return {k: v.detach() for k, v in losses.items()}
+
+    def _input_feats(self, batch, train: bool, epoch: int):
+        """The model's input features and their relative lengths: the
+        normalized ``feat`` (the normalizer's statistics update while
+        training, before ``update_until_epoch``)."""
+        feats, feat_lens = batch["feat"]
+        return (self.normalizer(feats, feat_lens, epoch=epoch, update=train),
+                feat_lens)
+
+    def _branch_inputs(self, feats, target):
+        """Each branch's input: the features for the recognizer and the
+        detector, ``feat_fc`` of them for the VAE (where the target runs
+        it)."""
+        vae_in = self.feat_fc(feats) \
+            if target in (Target.VAE, Target.TEST) else None
+        return {"phn_in": feats, "bdet_in": feats, "vae_in": vae_in}
+
+    def _phn_recog_branch(self, feats, feat_lens, batch, train, generator):
+        """The recognizer's {"out", "losses"}; MD_VAE_sfl_saved_phn_recog
+        reads saved posteriors instead."""
+        return self.phoneme_recognizer(
+            feats, feat_lens, batch["gt_cnncl_seq"][0],
+            batch["fa_boundary_seq"][0], train=train, generator=generator)
+
+    def _pi_branch(self, preds, vae_in, noise, generator, train):
+        """The π logits (into ``preds``) from the VAE input and the
+        stop-gradded recognizer output; returns the LSTM's output."""
+        phn_fc = getattr(self, self.PHN_FC_NAME)
+        rnn_in = torch.cat([vae_in, phn_fc(preds["phn_recog_out"].detach())],
                            dim=-1)
         rnn_out, _ = self.rnn(self.concat_fc(rnn_in), train=train,
                               generator=generator,
                               masks=noise.get("rnn_dropout"))
-        pi_logits = self.pi_fc(rnn_out)
-        preds["pi_logits"] = pi_logits
+        preds["pi_logits"] = self.pi_fc(rnn_out)
+        return rnn_out
+
+    def _decode_into(self, preds, batch):
+        """The in-step MD Viterbi decode, its outputs into ``preds``;
+        returns the frame-level labels."""
+        boundary, flvl, plvl, t_lens, l_lens = self._decode(preds, batch)
+        preds["decoded_boundary_seq"] = boundary
+        preds["decoded_flvl_md_lbl_seq"] = flvl
+        preds["decoded_plvl_md_lbl_seq"] = plvl
+        preds["decoded_t_lens"] = t_lens
+        preds["decoded_l_lens"] = l_lens
+        return flvl
+
+    def _vae_branch(self, preds, feats, vae_in, batch, noise, generator,
+                    train):
+        """π (sampled while training, argmax otherwise), the decode, the π
+        NLL against the decoded frame labels, the VAE and the decoder."""
+        rnn_out = self._pi_branch(preds, vae_in, noise, generator, train)
+        pi_logits = preds["pi_logits"]
         if train:
             sampled = D.categorical_sample(pi_logits, g=noise.get("pi_gumbel"),
                                            generator=generator)
@@ -306,15 +390,9 @@ class MDVAE(MDModel):
         sampled_pi = torch.stack([1 - sampled, sampled], dim=2)
         preds["sampled_pi"] = sampled_pi
 
-        boundary, flvl, plvl, t_lens, l_lens = self._decode(preds, batch)
-        preds["decoded_boundary_seq"] = boundary
-        preds["decoded_flvl_md_lbl_seq"] = flvl
-        preds["decoded_plvl_md_lbl_seq"] = plvl
-        preds["decoded_t_lens"] = t_lens
-        preds["decoded_l_lens"] = l_lens
+        flvl = self._decode_into(preds, batch)
         preds["losses"]["pi_nll_loss"] = -D.categorical_log_prob(pi_logits,
                                                                  flvl)
-
         enc = self.encoder(rnn_out, sampled_pi, noise=noise,
                            generator=generator)
         preds["losses"].update(enc["losses"])
@@ -322,10 +400,9 @@ class MDVAE(MDModel):
                                generator=generator,
                                masks=noise.get("decoder_dropout"))
         preds["losses"].update(dec_out["losses"])
-        return preds
 
     def compute_objectives(self, predictions, batch):
-        feat_lens = batch["feat"][1]
+        feat_lens = batch_feats(batch)[1]
         losses = {k: apply_lens_to_loss(v, feat_lens)
                   for k, v in predictions["losses"].items()}
         return self.weighted_total(losses), losses
@@ -335,8 +412,6 @@ class SBModel(MDVAE):
     """MD_VAE as ``cli.train`` / ``cli.test`` build it: the YAML's modules
     (``modules=hparams["model"]["modules"]``), its checkpointer and epoch
     counter, the run's step generator, and the label encoder."""
-    USED_BATCH_KEYS = {"feat", "gt_cnncl_seq", "fa_boundary_seq",
-                       "gt_boundary_seq", "plvl_gt_md_lbl_seq", "prior"}
 
     def __init__(self, modules: Dict, hparams: Dict,
                  run_opts: Optional[Dict] = None, checkpointer=None,
@@ -346,16 +421,19 @@ class SBModel(MDVAE):
                          checkpointer=checkpointer,
                          label_encoder=label_encoder)
         self.generator = generator
-        if self.hparams.get("use_kaldi_feat", False):
-            raise NotImplementedError(
-                "use_kaldi_feat is the MD_VAE_sfl input path; it waits in "
-                "ROADMAP queue 1 item 7")
 
     # -- stage hooks ---------------------------------------------------------
     def on_stage_start(self, stage: Stage, epoch=None):
+        self._stage_epoch = epoch
         self.set_stage(stage, epoch)
         logger.info("Epoch %s, stage %s: target is %s", epoch, stage,
                     self.target)
+        self._init_stage_stats(stage)
+
+    def _init_stage_stats(self, stage):
+        """The stage's statistics: the losses of ``metric_keys`` in TRAIN
+        and where the stage is evaluated, the MD and boundary statistics
+        where it is."""
         self._pending_md_results = {}
         self.stats_loggers = {}
         if stage == Stage.TRAIN or self.to_run_evaluation(stage):
@@ -367,6 +445,8 @@ class SBModel(MDVAE):
             self.stats_loggers["boundary_stats"] = BoundaryMetricStats()
 
     def to_run_evaluation(self, stage) -> bool:
+        """Whether the stage scores its decodes: VALID on the VAE target's
+        epochs, and TEST."""
         return (stage == Stage.VALID and self.target == Target.VAE) \
             or stage == Stage.TEST
 
@@ -421,7 +501,7 @@ class SBModel(MDVAE):
         self.stats_loggers["boundary_stats"].append(
             ids=self._batch_ids, predictions=pred_boundary,
             targets=gt_b_seqs)
-        if stage == Stage.TEST:
+        if stage == Stage.TEST or self.save_md_on_valid:
             self.save_md_result(self._batch_ids, pred_boundary, pred_plvl)
 
     def save_md_result(self, utt_ids, boundary_seqs, plvl_md_seqs):

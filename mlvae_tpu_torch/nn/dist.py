@@ -160,3 +160,18 @@ def categorical_log_prob(logits, value):
     """log p(value) for integer ``value`` under Categorical(logits); f32."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     return torch.gather(logp, -1, value.long()[..., None])[..., 0]
+
+
+def categorical_entropy(logits):
+    """Entropy of Categorical(logits) over the last axis; f32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -(torch.exp(logp) * logp).sum(dim=-1)
+
+
+def categorical_ll_onehot(logits, one_hot):
+    """<log_softmax(logits), one_hot> over the last axis: the reference's
+    bmm of ``Categorical.logits``, which torch normalizes to
+    log-probabilities at construction, against a one-hot target; so its
+    logit gradient is one_hot - softmax. f32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return (logp * one_hot.float()).sum(dim=-1)

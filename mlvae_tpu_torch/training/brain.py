@@ -36,7 +36,11 @@ eval and write seconds. A step's draws come from ``self.generator``, or
 from ``self.noise_source`` when it is set: it is called once per step,
 train and eval alike, with the step's ``draws`` list (``MDVAE.draws``),
 and returns the step's ``noise``, so a test can replay another run's
-draws through the loops as it does through ``fit_batch``.
+draws through the loops as it does through ``fit_batch``. A batch's
+features are ``feat``, or ``kaldi_feat`` where a batch has no ``feat``
+(``batch_feats``, the JAX Brain's fallback); the recipe names the keys
+its step reads (``used_batch_keys``), and ``to_device_batch`` moves
+those only.
 
 Run options of the JAX Brain that the port does not have yet raise
 ``NotImplementedError`` (``check_run_opts``): the scanned epoch, the
@@ -91,6 +95,12 @@ class Stage(Enum):
     TRAIN = auto()
     VALID = auto()
     TEST = auto()
+
+
+def batch_feats(batch):
+    """A batch's (features, relative lengths): ``feat``, or ``kaldi_feat``
+    in a batch without it (the JAX Brain's fallback)."""
+    return batch["feat"] if "feat" in batch else batch["kaldi_feat"]
 
 
 def global_norm(flat_grads: List[torch.Tensor]) -> torch.Tensor:
@@ -175,6 +185,10 @@ class Brain(nn.Module):
     def prepare_batch(self, batch):
         """Host-side checks of a batch before it moves to the device."""
         return batch
+
+    def used_batch_keys(self) -> Optional[set]:
+        """The batch keys the step reads (``USED_BATCH_KEYS``; None: all)."""
+        return self.USED_BATCH_KEYS
 
     def draws(self, B: int, T: int, train: bool = False) -> List:
         """The draws of one forward (see ``MDVAE.draws``); none here."""
@@ -305,7 +319,7 @@ class Brain(nn.Module):
         device, with the keys the step reads (float64 arrays as f32) and
         the utterance ids under ``id``."""
         dev = self.device
-        used = self.USED_BATCH_KEYS
+        used = self.used_batch_keys()
         out = {"id": list(batch["id"])}
         for key in batch.keys():
             if key == "id" or (used is not None and key not in used):
@@ -325,7 +339,7 @@ class Brain(nn.Module):
         None (draw from ``self.generator``) without one."""
         if self.noise_source is None:
             return None
-        B, T = dev_batch["feat"][0].shape[:2]
+        B, T = batch_feats(dev_batch)[0].shape[:2]
         noise = self.noise_source(self.draws(B, T, train))
 
         def on_dev(v):
@@ -422,7 +436,7 @@ class Brain(nn.Module):
             losses, frames = [], 0
             for i, batch in enumerate(prefetch(train_loader)):
                 losses.append(self.train_batch(batch, epoch))
-                feats, lens = batch["feat"]
+                feats, lens = batch_feats(batch)
                 frames += int(np.round(np.asarray(lens)
                                        * feats.shape[1]).sum())
                 if self.debug and i + 1 >= self.debug_batches:

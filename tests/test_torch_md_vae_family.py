@@ -1,0 +1,314 @@
+"""The rest of the MD_VAE family through the port's ``fit`` and
+``evaluate`` against the JAX package's, on the synthesized SynAudioMNIST
+corpus with ``config/run.yaml``, in the pattern of
+``tests/test_torch_cli.py``: narrow widths (every LSTM at H=32; three π
+samples for the sfl recipes), the JAX model's weights, and every draw of
+every train and eval step replayed (``Brain.noise_source``; the sfl
+recipes' per-sample draws as lists). For MD_VAE_sfl (three epochs: one
+PHN_RECOG -> B_DETECTOR -> VAE cycle), MD_VAE_joint and MD_VAE_joint_ll
+(one epoch each: the VAE target with all three branches) and
+MD_VAE_sfl_saved_phn_recog (two epochs: B_DETECTOR -> VAE, over a
+synthetic pickle of posteriors):
+
+* each epoch's train and valid loss within rel 1e-4, the stages and their
+  targets, and the normalizer's statistics;
+* then ``evaluate`` on the same weights (the JAX run's best checkpoint
+  where it saved one): the decoded sequences, the MD and boundary
+  statistics, ``test_metrics.txt``'s scores and the saved MD results
+  equal;
+* for the joint pair, VALID after epochs 9 and 10 on the same weights:
+  the statistics, the checkpoint kept and the saved MD results as the JAX
+  package's (MD_VAE_joint scores VALID only in every 10th epoch and saves
+  its MD results; MD_VAE_joint_ll scores every epoch and saves none).
+
+Also: the port's recipe copies are byte-equal to the JAX package's, and
+the CLI refuses the recipes still unported and no longer these four."""
+import json
+import pickle
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from mlvae_tpu.cli.experiment import prepare_experiment as jax_prepare
+from mlvae_tpu.data import data_io as jdio
+from mlvae_tpu.training.brain import Stage as JaxStage
+
+from mlvae_tpu_torch.cli.experiment import (UNPORTED_MODELS,
+                                            prepare_experiment)
+from mlvae_tpu_torch.bench_utils import unset_loss_weights
+from mlvae_tpu_torch.convert import from_jax
+from mlvae_tpu_torch.training.brain import Stage
+from mlvae_tpu_torch.training.checkpointer import Checkpointer
+from test_torch_cli import _Recorder
+from test_torch_sfl import replay
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+FAMILY = ("MD_VAE_sfl", "MD_VAE_joint", "MD_VAE_joint_ll",
+          "MD_VAE_sfl_saved_phn_recog")
+JOINT = ("MD_VAE_joint", "MD_VAE_joint_ll")
+RTOL = 1e-4
+# batches of 6: the train set's 12 utterances in two, the valid and test
+# sets' 6 in one each
+BATCH = 6
+NARROW = "phn_rnn_hidden_size: 32, boundary_rnn_hidden_size: 32, " \
+    "rnn_hidden_size: 32, dec_rnn_hidden_size: 32"
+# recipe -> (epochs, the stages' targets)
+CYCLES = {"MD_VAE_sfl": (3, ["PHN_RECOG", "B_DETECTOR", "VAE"]),
+          "MD_VAE_joint": (1, ["VAE"]),
+          "MD_VAE_joint_ll": (1, ["VAE"]),
+          "MD_VAE_sfl_saved_phn_recog": (2, ["B_DETECTOR", "VAE"])}
+
+
+def _args(recipe, name, package, device):
+    yaml = REPO / package / "models" / recipe / "model.yaml"
+    epochs = CYCLES[recipe][0]
+    pinned = ", ".join(f"{k}: 1.0" for k in unset_loss_weights(yaml))
+    extra = ", ".join(x for x in (NARROW, pinned,
+                                  "pi_mcmc_num: 3" if "sfl" in recipe
+                                  else "") if x)
+    args = [str(REPO / "config/run.yaml"), "--batch_size", str(BATCH),
+            "--dataset", "SynAudioMNIST", "--language", "digits",
+            "--n_phonemes", "12", "--model_class", recipe,
+            "--model_name", name, "--model", f"!include:{yaml}",
+            "--extra_overrides",
+            "{model: {n_epochs: %d, %s}}" % (epochs, extra),
+            "--debug", "--debug_batches", "2"]
+    return args + (["--device", "cpu"] if device else [])
+
+
+class _JaxDraws:
+    """The JAX Brain's step keys (one split of its rng a step, train and
+    eval alike), each step's draws made from its key as the JAX step
+    makes them."""
+
+    def __init__(self, rng):
+        self.rng = rng
+
+    def __call__(self, draws):
+        self.rng, key = jax.random.split(self.rng)
+        return replay(draws, key)
+
+
+def _write_saved_posteriors(workdir, datasets):
+    """``results/saved_phn_recog_outs.pkl``: random (T, 14) posteriors for
+    every utterance, beside both runs' output directories."""
+    rs = np.random.RandomState(0)
+    outs = {u: rs.randn(len(ds.data[u]["feat"]), 14).astype(np.float32)
+            for ds in datasets for u in ds.ids}
+    (workdir / "results").mkdir(exist_ok=True)
+    with open(workdir / "results/saved_phn_recog_outs.pkl", "wb") as f:
+        pickle.dump(outs, f)
+
+
+@pytest.fixture()
+def workdir(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
+@pytest.mark.parametrize("recipe", FAMILY)
+def test_fit_and_evaluate_match_jax(recipe, workdir, monkeypatch):
+    monkeypatch.setattr(jdio, "_native_lib", lambda: None)
+    jp = jax_prepare(_args(recipe, "jx", "mlvae_tpu", False),
+                     prepare_exp_dir=True)
+    if recipe == "MD_VAE_sfl_saved_phn_recog":
+        _write_saved_posteriors(workdir, jp["datasets"])
+    pp = prepare_experiment(_args(recipe, "px", "mlvae_tpu_torch", True))
+    jm, pm = jp["model"], pp["model"]
+    for jds, pds in zip(jp["datasets"], pp["datasets"]):
+        assert pds.ids == jds.ids
+    assert sorted(n for n, _ in pm.named_children()) == sorted(
+        ["normalizer", *jp["hparams"]["model"]["modules"]])
+    jm.init_params()
+    missing, unexpected = pm.load_state_dict(
+        from_jax(jax.device_get(jm.params)), strict=False)
+    assert not unexpected and all(k.startswith("normalizer.")
+                                  for k in missing)
+    pm.noise_source = _JaxDraws(jm.rng)
+    jrec, prec = _Recorder(jm, np.asarray), \
+        _Recorder(pm, lambda t: t.cpu().numpy())
+    targets = []
+    start = pm.on_stage_start
+
+    def on_stage_start(stage, epoch=None):
+        start(stage, epoch)
+        targets.append(pm.target.name)
+    pm.on_stage_start = on_stage_start
+
+    for prep, model in ((jp, jm), (pp, pm)):
+        h = prep["hparams"]
+        model.fit(h["model"]["epoch_counter"], prep["datasets"][0],
+                  prep["datasets"][1],
+                  train_loader_kwargs=h["train_dataloader_opts"],
+                  valid_loader_kwargs=h["valid_dataloader_opts"])
+    epochs, cycle = CYCLES[recipe]
+    assert [s[:2] for s in prec.stages] == [s[:2] for s in jrec.stages] == \
+        [(st, e) for e in range(1, epochs + 1) for st in ("TRAIN", "VALID")]
+    assert targets == [t for t in cycle for _ in range(2)]
+    for (name, epoch, got), (_, _, want) in zip(prec.stages, jrec.stages):
+        np.testing.assert_allclose(got, want, rtol=RTOL,
+                                   err_msg=f"{name} epoch {epoch}")
+    j_norm = jax.device_get(jm.states["normalizer"])
+    assert float(pm.normalizer.count) == float(j_norm["count"])
+    np.testing.assert_allclose(pm.normalizer.glob_mean.numpy(),
+                               j_norm["glob_mean"], rtol=1e-5, atol=1e-6)
+
+    # evaluate on the same weights: the JAX run's best checkpoint where it
+    # saved one (MD_VAE_joint evaluates VALID only every 10th epoch)
+    max_key = jp["hparams"]["model"]["max_key"]
+    pm.load_state_dict(from_jax(jax.device_get(jm.params),
+                                jax.device_get(jm.states)))
+    jck = jm.checkpointer.find_checkpoint(max_key=max_key)
+    assert (jck is None) == (recipe == "MD_VAE_joint")
+    own_checkpointer = pm.checkpointer
+    if jck is not None:
+        pm.checkpointer = Checkpointer(jck.path.parent)
+    jrec.decodes.clear()
+    prec.decodes.clear()
+    pm.noise_source = _JaxDraws(jm.rng)
+    for prep, model in ((jp, jm), (pp, pm)):
+        model.evaluate(prep["datasets"][2], max_key=max_key,
+                       test_loader_kwargs=prep["hparams"][
+                           "test_dataloader_opts"])
+    assert len(prec.decodes) == len(jrec.decodes) == 1   # 6 utterances
+    for (_, pids, got), (_, jids, want) in zip(prec.decodes, jrec.decodes):
+        assert pids == jids
+        assert set(got) == set(want)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    for stats in ("plvl_md_stats", "boundary_stats"):
+        assert pm.stats_loggers[stats].scores_list == \
+            jm.stats_loggers[stats].scores_list, stats
+    md = "datasets/SynAudioMNIST/saved_md_results"
+    assert json.loads((workdir / md / "px.json").read_text()) == \
+        json.loads((workdir / md / "jx.json").read_text())
+
+    def metrics(name):
+        text = (workdir / f"results/{name}/test_output/test_metrics.txt"
+                ).read_text().splitlines()
+        return dict(ln.split(": ") for ln in text[1:-1])
+    got, want = metrics("px"), metrics("jx")
+    assert list(got) == list(want)
+    for key in want:
+        if "loss" in key:   # the losses, rounded to 2 or 3 decimals
+            assert abs(float(got[key]) - float(want[key])) <= 0.01, key
+        else:               # the MD and boundary scores: from the decode
+            assert got[key] == want[key], key
+
+    if recipe in JOINT:
+        pm.checkpointer = own_checkpointer
+        _check_valid_epochs(recipe, jp, pp, jrec, prec, workdir)
+
+
+def _valid_stage(prep, model, stage, epoch):
+    """A VALID stage as ``fit`` runs it after epoch ``epoch``'s TRAIN."""
+    loader = model.make_dataloader(
+        prep["datasets"][1], stage,
+        **prep["hparams"]["valid_dataloader_opts"])
+    model.on_stage_start(stage, epoch)
+    loss = float(np.mean([model.evaluate_batch(b, stage) for b in loader]))
+    model.on_stage_end(stage, loss, epoch)
+
+
+def _check_valid_epochs(recipe, jp, pp, jrec, prec, workdir):
+    """VALID after epochs 9 and 10 on the same weights and draws: the
+    stages' statistics, the checkpoint kept and the saved MD results as
+    the JAX package's. MD_VAE_joint scores (and keeps a checkpoint) only
+    in epoch 10 and adds VALID's MD results to the file; MD_VAE_joint_ll
+    scores every epoch and saves MD results in TEST only."""
+    jm, pm = jp["model"], pp["model"]
+    max_key = jp["hparams"]["model"]["max_key"]
+    md = workdir / "datasets/SynAudioMNIST/saved_md_results"
+    after_test = json.loads((md / "px.json").read_text())
+    pm.noise_source = _JaxDraws(jm.rng)
+    pm.eval()
+    for epoch in (9, 10):
+        jrec.decodes.clear()
+        prec.decodes.clear()
+        _valid_stage(jp, jm, JaxStage.VALID, epoch)
+        _valid_stage(pp, pm, Stage.VALID, epoch)
+        scored = recipe == "MD_VAE_joint_ll" or epoch == 10
+        assert sorted(pm.stats_loggers) == sorted(jm.stats_loggers)
+        assert ("plvl_md_stats" in pm.stats_loggers) == scored
+        assert bool(pm.stats_loggers) == scored
+        assert len(prec.decodes) == len(jrec.decodes) == 1   # 6 utterances
+        for (_, pids, got), (_, jids, want) in zip(prec.decodes,
+                                                   jrec.decodes):
+            assert pids == jids
+            for key in want:
+                np.testing.assert_array_equal(got[key], want[key],
+                                              err_msg=key)
+        for key, stats in jm.stats_loggers.items():
+            if key.endswith("_loss_stats"):
+                got, want = pm.stats_loggers[key].summarize(), \
+                    stats.summarize()
+                assert set(got) == set(want), key
+                for k in want:
+                    np.testing.assert_allclose(float(got[k]),
+                                               float(want[k]), rtol=RTOL,
+                                               err_msg=f"{key} {k}")
+            else:
+                assert pm.stats_loggers[key].scores_list == \
+                    stats.scores_list, key
+        pck = pm.checkpointer.find_checkpoint(max_key=max_key)
+        jck = jm.checkpointer.find_checkpoint(max_key=max_key)
+        assert (pck is None) == (jck is None) == (
+            recipe == "MD_VAE_joint" and epoch == 9)
+        if jck is not None:
+            assert pck.meta["epoch"] == jck.meta["epoch"]
+            assert pck.meta[max_key] == jck.meta[max_key]
+        got = json.loads((md / "px.json").read_text())
+        assert got == json.loads((md / "jx.json").read_text())
+        valid_ids = set(pp["datasets"][1].ids)
+        saved = recipe == "MD_VAE_joint" and epoch == 10
+        assert (got == after_test) == (not saved)
+        assert valid_ids <= set(got) if saved else \
+            not valid_ids & set(got)
+
+
+@pytest.mark.parametrize("recipe", FAMILY)
+def test_recipe_copies_are_byte_equal(recipe):
+    assert (REPO / "mlvae_tpu_torch/models" / recipe / "model.yaml"
+            ).read_bytes() == \
+        (REPO / "mlvae_tpu/models" / recipe / "model.yaml").read_bytes()
+
+
+@pytest.mark.parametrize("recipe", sorted(UNPORTED_MODELS) + list(FAMILY))
+def test_unported_recipes_refused(recipe, workdir, monkeypatch):
+    """The CLI names the ROADMAP item of a recipe still unported; the four
+    recipes of the family get past it to their model module (neither the
+    corpus nor a model is built here)."""
+    from types import SimpleNamespace
+    from mlvae_tpu_torch.cli import experiment
+    import_module = experiment.importlib.import_module
+
+    def stub_import(name, *args, **kwargs):
+        if ".datasets." in name:
+            return SimpleNamespace(prepare=lambda **kw: None)
+        if ".models." in name:
+            raise _Reached(import_module(name, *args, **kwargs))
+        return import_module(name, *args, **kwargs)
+    monkeypatch.setattr(experiment.importlib, "import_module", stub_import)
+    monkeypatch.setattr(experiment, "prepare_datasets",
+                        lambda *a, **k: ([None] * 3, None))
+    args = _args("MD_VAE_joint", "refused", "mlvae_tpu_torch", True)
+    args[args.index("--model_class") + 1] = recipe
+    if recipe in FAMILY:
+        with pytest.raises(_Reached) as reached:
+            prepare_experiment(args)
+        assert reached.value.args[0].__name__ == \
+            f"mlvae_tpu_torch.models.{recipe}.model"
+    else:
+        with pytest.raises(NotImplementedError,
+                           match=f"item {UNPORTED_MODELS[recipe]}"):
+            prepare_experiment(args)
+
+
+class _Reached(Exception):
+    """Raised with a recipe's model module once the CLI imports it."""
