@@ -11,7 +11,8 @@ Phases, each reported on its own line; any failure exits non-zero:
    launch plan of the wide K1 builds (H above 528: K1-fwd, K1-bwd at B=64
    and 70, K1-bwd's dW_hh kernel) at H=1024, 768 and 640 in f32, and of
    the bf16 builds (the tensor-core K1-fwd and K1-bwd, and K1-bwd's dW_hh
-   kernel) at H=1024 and 640, as their C code computes it (grid, threads,
+   kernel) at H=1024, 640, 512, 384, 256 and 128, as their C code
+   computes it (grid, threads,
    shared memory, blocks an SM holds, registers, local bytes: 0 for every
    build) against ``ops.k1_plan``, and likewise K5's builds
    in f32 and on bf16 streams (K5-fwd, K5-bwd at B=64 and 70, the bf16
@@ -61,7 +62,10 @@ Phases, each reported on its own line; any failure exits non-zero:
    dgx bf16, cs and dW_hh f32, at the fused kernels' bf16 tolerances; the
    dW_hh kernel also against its plain version on its own operands), and
    repeated launches of each per direction at H=1024, B=64, each
-   bit-equal to the first;
+   bit-equal to the first; the same bf16 builds at H = 128, 256, 384 and
+   512, B = 1, 8, 24 and 64, T = 80 and 160, both directions, and 20
+   repeated launches at H=512, B=64, T=80 (CRDNN_CTC's first LSTM layer
+   under --bf16), each bit-equal to the first;
 3. MD_VAE at the recipe's full width (H=512, B=64, T=160, L=8, weights
    from a seed) through the kernels: the TEST-target eval step (finite
    losses, decoded boundaries that sum to each utterance's phoneme count,
@@ -136,6 +140,18 @@ Phases, each reported on its own line; any failure exits non-zero:
    writes), ``cli.test`` and ``cli.infer`` (not for saved_phn_recog),
    and MD_VAE_sfl's ``cli.train --bf16``, every stage's launches exact
    (``recipe_launches``) and each run held against the plain versions;
+   then CRDNN_CTC at full width (CNN 128/256, four bidirectional LSTM
+   layers at H=512, DNN 512, ``bench_utils.build_crdnn_ctc``, B=64,
+   T=160, L=32): the f32 eval forward (8 K1-fwd), two f32 train steps (8
+   K1-fwd, 8 K1-bwd) and two --bf16 steps (the first LSTM layer on K1 on
+   bf16 streams: 2 + 2 + 2 of K1-fwd, K1-bwd and its dW_hh kernel; 6
+   K3/K4-fwd and 6 K4-bwd), launches exact, ``crdnn`` and ``output``
+   moved, the first step of each against the plain versions and the
+   --bf16 loss against the f32 one; and the CLI path of CRDNN_CTC and
+   CRDNN_CTC_cnncl (``cli.train``, one debug epoch, and ``cli.test``,
+   whose greedy decodes, PERs, MD and boundary statistics and
+   ``md_result_seqs.txt`` equal the plain run's), and CRDNN_CTC's
+   ``cli.train --bf16``;
 4. times from CUDA events after warm-up: each kernel, its plain version,
    a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6, in
    turns with each build of K6 in SpeechBrain mode and on the Kaldi pass's
@@ -179,7 +195,10 @@ Phases, each reported on its own line; any failure exits non-zero:
    turns with cuDNN's bf16 layer, K1-bwd's dW_hh kernel beside one bf16
    ``torch.matmul`` of its operands, and LSTM_FC's AMP train step and its
    profile; the timelines include the wide builds' timing builds, f32 and
-   bf16;
+   bf16; CRDNN_CTC's eval forward and f32 and --bf16 train steps (ms,
+   utt-sec/sec) with a profile of each step (kernel time, idle share),
+   and the bf16 K1 at H=512, B=64, T=80 and 160 in turns with cuDNN's
+   bf16 layer beside its plain version and bound;
 5. a ``kernels`` JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -341,6 +360,30 @@ FAMILY_EPOCHS = {"MD_VAE_sfl": 3, "MD_VAE_joint": 1, "MD_VAE_joint_ll": 1,
                  "MD_VAE_sfl_saved_phn_recog": 2}
 SFL_ACTIVE = {"feat_fc", "phn_recog_out_fc", "concat_fc", "rnn", "pi_fc",
               "encoder", "decoder", "baseline_fc"}
+# CRDNN_CTC and CRDNN_CTC_cnncl (phase 3): four bidirectional LSTM layers
+# at H=512. The f32 step takes K1-fwd and K1-bwd (the narrow builds) once a
+# layer direction. Under --bf16 the first layer (In 256 x 30 = 7,680) fits
+# neither fused tier and takes K1 on bf16 streams (the tensor-core builds;
+# K1-bwd's dW_hh kernel after each recurrence), layers 2-4 (In 1,024) the
+# semi-fused tier (K3/K4-fwd, K4-bwd). The eval forward stays f32
+CTC_RECIPES = ("CRDNN_CTC", "CRDNN_CTC_cnncl")
+CTC_EPOCHS = 1            # one two-batch debug epoch
+CTC_B, CTC_T, CTC_L = 64, 160, 32   # the train step's batch: T' = 80
+PER_CRDNN_EVAL = {**{k: 0 for k in PER_FORWARD}, "lstm_fwd": 8}
+PER_CRDNN_STEP = {**PER_CRDNN_EVAL, "lstm_bwd": 8}
+PER_CRDNN_AMP_STEP = {**{k: 0 for k in PER_FORWARD},
+                      "lstm_fwd_wide_bf16": 2, "lstm_bwd_wide_bf16": 2,
+                      "lstm_dw_wide_bf16": 2, "lstm_fused_fwd": 6,
+                      "lstm_semi_bwd": 6}
+CRDNN_ACTIVE = {"crdnn", "output"}
+# phase 2: K1 on bf16 streams at H <= 512 (the tensor-core builds, which
+# the CRDNN's first layer takes under --bf16 at H=512), each H at each B
+# and T, both directions, against the plain versions at the bf16 wide
+# builds' tolerances
+K1_BF16_NARROW_H = (128, 256, 384, 512)
+K1_BF16_NARROW_B = (1, 8, 24, 64)
+K1_BF16_NARROW_T = (80, 160)
+K1_BF16_NARROW_REPEATS = 20   # repeated launches at H=512, B=64, T=80
 
 
 def recipe_launches(recipe, target, train, amp=False):
@@ -355,7 +398,11 @@ def recipe_launches(recipe, target, train, amp=False):
     decoder, the recognizer and the detector behind stop-gradients but in
     MD_VAE_joint). Under AMP a train step takes K3/K4-fwd for every layer
     and no K1, K4-bwd for the decoder's second (In=1024) pair a sample and
-    K3-bwd for the rest; the eval forward stays f32."""
+    K3-bwd for the rest; the eval forward stays f32. The CTC recipes take
+    ``PER_CRDNN_EVAL``, ``PER_CRDNN_STEP`` or ``PER_CRDNN_AMP_STEP``."""
+    if recipe in CTC_RECIPES:   # no target: the stage alone decides
+        return dict(PER_CRDNN_AMP_STEP if train and amp else
+                    PER_CRDNN_STEP if train else PER_CRDNN_EVAL)
     sfl = "sfl" in recipe
     rec = 0 if recipe == "MD_VAE_sfl_saved_phn_recog" else 2
     vae = target in ("VAE", "TEST")
@@ -688,7 +735,7 @@ def wide_plans(dev, report):
     out = {}
     cases = [(H, False, d, B) for H in (1024, 768, 640)
              for d, B in (("fwd", 64), ("bwd", 64), ("bwd", 70), ("dw", 64))]
-    cases += [(H, True, d, B) for H in (1024, 640)
+    cases += [(H, True, d, B) for H in (1024, 640, 512, 384, 256, 128)
               for d, B in (("fwd", 64), ("bwd", 64), ("bwd", 70),
                            ("dw", 64))]
     for H, bf16, direction, B in cases:
@@ -2366,6 +2413,360 @@ def run_lstm_fc(dev, report, B=64, T=160, amp=False):
     return model, batch, first_noise, total
 
 
+# ---------------------------------------------------------------------------
+# K1 on bf16 streams at H <= 512, and CRDNN_CTC
+# ---------------------------------------------------------------------------
+
+def check_k1_bf16_narrow(dev, report):
+    """Phase 2: the tensor-core K1-fwd and K1-bwd (and its dW_hh kernel) at
+    every H of ``K1_BF16_NARROW_H``, B of ``K1_BF16_NARROW_B`` and T of
+    ``K1_BF16_NARROW_T``, both directions, against the plain versions in
+    bf16: hs and cs within FUSED_ATOL, dgx and dW_hh within FUSED_BWD_RTOL
+    of their largest entry, the dW_hh kernel against ``wide_dw_ref`` on
+    the kernel's own dgx within BWD_RTOL; then repeated launches at H=512,
+    B=64, T=80 against the plain versions and bit-equal to the first.
+    Returns the worst errors at H=512, B=64, T=80 (the CRDNN's shape)."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    g = torch.Generator(device=dev).manual_seed(46)
+    worst, wrong = {}, []
+    for H in K1_BF16_NARROW_H:
+        for T in K1_BF16_NARROW_T:
+            errs = {"fwd": 0.0, "dgx": 0.0, "dw": 0.0, "dw_own": 0.0}
+            flips = 0.0
+            for B in K1_BF16_NARROW_B:
+                check(L.k1_fwd_plan(H, B, bf16=True).variant == "wide_bf16"
+                      and L.k1_bwd_plan(H, B, bf16=True).variant
+                      == "wide_bf16", f"bf16 H={H} takes no tensor-core K1")
+                for reverse in (False, True):
+                    prob = bwd_problem(g, dev, T, B, H, reverse, bf16=True)
+                    gx, w, hs_r, cs_r = prob[:4]
+                    hs_k, cs_k = L.lstm_layer_fwd(gx, w, reverse)
+                    got = L.lstm_layer_bwd(*prob, reverse)
+                    want = L.lstm_layer_bwd_ref(*prob, reverse)
+                    own = L.wide_dw_ref(got[0], hs_r, reverse)
+                    torch.cuda.synchronize()
+                    e = {"fwd": max(max_err(hs_k, hs_r), max_err(cs_k, cs_r)),
+                         "dgx": rel_err(got[0], want[0]),
+                         "dw": rel_err(got[1], want[1]),
+                         "dw_own": rel_err(got[1], own)}
+                    ok = (hs_k.dtype == torch.bfloat16
+                          and got[0].dtype == torch.bfloat16
+                          and e["fwd"] <= FUSED_ATOL
+                          and e["dgx"] <= FUSED_BWD_RTOL
+                          and e["dw"] <= FUSED_BWD_RTOL
+                          and e["dw_own"] <= BWD_RTOL)
+                    if not ok:
+                        wrong.append((H, T, B, reverse, e))
+                        report("  " + where_wrong(torch.maximum(
+                            (hs_k.float() - hs_r.float()).abs(),
+                            (cs_k - cs_r).abs()), reverse))
+                    for k, v in e.items():
+                        errs[k] = max(errs[k], v)
+                    flips = max(flips, float((hs_k != hs_r).float().mean()))
+                    if (H, T, B) == (512, 80, 64):
+                        for k, v in e.items():
+                            worst[k] = max(worst.get(k, 0.0), v)
+            report(f"  lstm_*_wide_bf16 H={H} T={T} B="
+                   f"{'/'.join(map(str, K1_BF16_NARROW_B))}, both "
+                   f"directions: hs/cs max abs err {errs['fwd']:.3e} (tol "
+                   f"{FUSED_ATOL:g}; hs not bit-equal at most {flips:.4f}), "
+                   f"dgx {errs['dgx']:.3e} and dW_hh {errs['dw']:.3e} of "
+                   f"their largest entry (tol {FUSED_BWD_RTOL:g}), the dW_hh "
+                   f"kernel on its own operands {errs['dw_own']:.3e} (tol "
+                   f"{BWD_RTOL:g})")
+    check(not wrong, f"the bf16 K1 at H <= 512 disagrees: {wrong[:4]}")
+    stress_lstm_wide(dev, report, K1_BF16_NARROW_REPEATS, T=80, B=64, H=512,
+                     bf16=True)
+    return worst
+
+
+def crdnn_counts(counts, want, what):
+    check(counts == want, f"{what} launches "
+          f"{ {k: v for k, v in counts.items() if v} } != "
+          f"{ {k: v for k, v in want.items() if v} }")
+
+
+def run_crdnn_training(dev, report, B=CTC_B, T=CTC_T, L=CTC_L, amp=False):
+    """CRDNN_CTC at the recipe's full width (``bench_utils.build_crdnn_ctc``,
+    weights from seed 0; ``synth_ctc_batch`` at B, T, L): the f32 eval
+    forward (launches, finite loss, log-probabilities, loss and greedy
+    decode against the plain versions) and two training steps (launches,
+    finite losses, exactly ``crdnn`` and ``output`` moved, the normalizer's
+    count up by B, f32 parameters, grads and Adadelta states; the first
+    step's loss and applied grad norms against the same step through the
+    plain versions). ``amp``: the --bf16 steps (no eval forward: it stays
+    f32), whose first step is also held against the f32 step from the same
+    state and draws. Returns the model, the batch, the first step's draws
+    and the launches."""
+    import numpy as np
+    import torch
+    from mlvae_tpu_torch.bench_utils import build_crdnn_ctc, synth_ctc_batch
+    from mlvae_tpu_torch.ops.ctc import ctc_greedy_decode
+
+    model = build_crdnn_ctc(batch_size=B, seed=0, device=dev, bf16=amp)
+    batch = synth_ctc_batch(B, T, L, seed=0, device=dev)
+    total = {k: 0 for k in launches()}
+    loss_tol, grad_tol = (AMP_LOSS_RTOL, AMP_GRAD_RTOL) if amp else \
+        (LOSS_RTOL, GRAD_RTOL)
+    if not amp:
+        reset_launches()
+        preds, loss, _ = model.eval_forward(batch)
+        torch.cuda.synchronize()
+        counts = launches()
+        for k in total:
+            total[k] += counts[k]
+        crdnn_counts(counts, PER_CRDNN_EVAL, "CRDNN_CTC eval")
+        check(np.isfinite(float(loss)) and
+              bool(torch.isfinite(preds["pout"]).all()), "non-finite eval")
+        with twins():
+            reset_launches()
+            ref, ref_loss, _ = model.eval_forward(batch)
+            torch.cuda.synchronize()
+            check(sum(launches().values()) == 0, "the plain run hit a kernel")
+        lens = batch["feat"][1].cpu().numpy()
+        same = ctc_greedy_decode(preds["pout"].cpu().numpy(), lens) == \
+            ctc_greedy_decode(ref["pout"].cpu().numpy(), lens)
+        err = max_err(preds["pout"], ref["pout"])
+        loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        report(f"  eval forward: loss {float(loss):.6f}; pout "
+               f"{tuple(preds['pout'].shape)}; launches "
+               f"{ {k: v for k, v in counts.items() if v} }; against the "
+               f"plain versions: pout max abs err {err:.3e} (tol "
+               f"{FWD_ATOL:g}), loss rel err {loss_rel:.3e} (tol "
+               f"{LOSS_RTOL:g}), same greedy decode {same}")
+        check(err <= FWD_ATOL and loss_rel <= LOSS_RTOL and same,
+              "the CRDNN_CTC eval forward disagrees with the plain versions")
+    g = torch.Generator(device=dev).manual_seed(8)
+    first_noise = None
+    label = "--bf16" if amp else "f32"
+    for step in range(2):
+        noise = train_noise(model, B, T, dev, g)
+        if step == 0:
+            first_noise = noise
+            start = snapshot(model)
+            with twins():
+                reset_launches()
+                ref_loss, _ = model.fit_batch(batch, 1, noise=noise)
+                ref_norms = grad_norms(model)
+                torch.cuda.synchronize()
+                check(sum(launches().values()) == 0,
+                      "the plain training step hit a kernel")
+            restore(model, start)
+            if amp:
+                model.auto_mix_prec = False
+                loss_f32, _ = model.fit_batch(batch, 1, noise=noise)
+                model.auto_mix_prec = True
+                restore(model, start)
+        weights = {k: v.clone() for k, v in model.state_dict().items()}
+        norm_count = float(model.normalizer.count)
+        reset_launches()
+        loss, _ = model.fit_batch(batch, 1, noise=noise)
+        torch.cuda.synchronize()
+        counts = launches()
+        for k in total:
+            total[k] += counts[k]
+        moved = {mk for mk, mod in model.param_modules().items()
+                 if any(not torch.equal(v, weights[f"{mk}.{n}"])
+                        for n, v in mod.state_dict().items())}
+        d_norm = float(model.normalizer.count) - norm_count
+        report(f"  {label} train step {step + 1}: loss {float(loss):.6f}; "
+               f"launches { {k: v for k, v in counts.items() if v} }; "
+               f"modules moved {sorted(moved)}; normalizer count "
+               f"+{d_norm:g}")
+        check(np.isfinite(float(loss)), "non-finite CRDNN_CTC loss")
+        crdnn_counts(counts, PER_CRDNN_AMP_STEP if amp else PER_CRDNN_STEP,
+                     f"CRDNN_CTC {label} step")
+        check(moved == CRDNN_ACTIVE, f"moved {sorted(moved)}")
+        check(d_norm == B, f"the normalizer's count moved by {d_norm}")
+        check(f32_state(model), "a parameter, grad or state is not f32")
+        if step == 0:
+            norms = grad_norms(model)
+            loss_rel = abs(float(loss) - float(ref_loss)) / abs(
+                float(ref_loss))
+            norm_rel = {mk: abs(v - ref_norms[mk]) / ref_norms[mk]
+                        for mk, v in norms.items()}
+            report(f"  against the plain versions: loss rel err "
+                   f"{loss_rel:.3e} (tol {loss_tol:g}); grad norm rel err "
+                   + ", ".join(f"{mk} {v:.3e}" for mk, v in norm_rel.items())
+                   + f" (tol {grad_tol:g})")
+            check(loss_rel <= loss_tol, "CRDNN_CTC training loss disagrees")
+            check(max(norm_rel.values()) <= grad_tol,
+                  "CRDNN_CTC training grads disagree")
+            if amp:
+                f32_rel = abs(float(loss) - float(loss_f32)) / abs(
+                    float(loss_f32))
+                report(f"  against the f32 step from the same state and "
+                       f"draws: f32 loss {float(loss_f32):.6f}, rel err "
+                       f"{f32_rel:.3e} (tol {AMP_F32_RTOL:g})")
+                check(f32_rel <= AMP_F32_RTOL,
+                      "the --bf16 loss is far from the f32 loss")
+    report(f"  launches of the CRDNN_CTC {label} path: "
+           f"{ {k: v for k, v in total.items() if v} }")
+    return model, batch, first_noise, total
+
+
+def time_crdnn(dev, report, model, batch, noise, smi, amp=False):
+    """Phase 4: the CRDNN_CTC train step (f32 eval forward too), ms and
+    utt-sec/sec (B·T·0.02 s a step), and a profile of one step: its kernel
+    time and the device's idle share, beside the card."""
+    B, T = batch["feat"][0].shape[:2]
+    label = "--bf16" if amp else "f32"
+    out = {"card": smi}
+    if not amp:
+        ev = cuda_ms(lambda: model.eval_forward(batch), iters=5, warmup=1)
+        out.update(eval_ms=ev,
+                   eval_utt_sec_per_sec=B * T * HOP_SEC / (ev / 1e3))
+        report(f"  CRDNN_CTC eval forward B={B} T={T}: {ev:.3f} ms "
+               f"({out['eval_utt_sec_per_sec']:.1f} utt-sec/sec) on {smi}")
+    tr = cuda_ms(lambda: model.fit_batch(batch, 1, noise=noise), iters=5,
+                 warmup=1)
+    out.update(train_ms=tr,
+               train_utt_sec_per_sec=B * T * HOP_SEC / (tr / 1e3))
+    report(f"  CRDNN_CTC {label} train step B={B} T={T}: {tr:.3f} ms "
+           f"({out['train_utt_sec_per_sec']:.1f} utt-sec/sec) on {smi}")
+    out["train_profile"] = profile_step(
+        lambda: model.fit_batch(batch, 1, noise=noise),
+        f"CRDNN_CTC {label} train step", report)
+    return out
+
+
+def time_k1_bf16_h512(dev, report, counts):
+    """Phase 4: the tensor-core K1-fwd and K1-bwd at the CRDNN's H=512,
+    B=64, T=80 (its length after the time pool) and T=160, each in turns
+    with cuDNN's bf16 one-layer LSTM, beside its plain version and bound,
+    and the launches of the paths that reach them at H=512 (the CRDNN
+    --bf16 step's and the CLI's)."""
+    import torch
+    from mlvae_tpu_torch.ops.lstm import lstm_layer_bwd_ref, lstm_layer_ref
+    g = torch.Generator(device=dev).manual_seed(47)
+    out = {}
+    B, H = 64, 512
+    for T in (80, 160):
+        fwd = time_fwd_yard(dev, report, (("lstm_fwd_bf16", None, B),), T=T,
+                            H=H)[f"lstm_fwd_bf16 B={B}"]
+        bwd = time_fused_bwd(dev, report, T=T, H=H,
+                             cases=(("lstm_bwd_bf16", None, B),))[
+            f"lstm_bwd_bf16 B={B}"]
+        prob = bwd_problem(g, dev, T, B, H, False, bf16=True)
+        fwd["plain_ms"] = cuda_ms(lambda: lstm_layer_ref(*prob[:2]),
+                                  iters=2, warmup=1)
+        bwd["plain_ms"] = cuda_ms(lambda: lstm_layer_bwd_ref(*prob), iters=2,
+                                  warmup=1)
+        out[f"T={T}"] = {"lstm_fwd_wide_bf16": fwd, "lstm_bwd_wide_bf16": bwd}
+        report(f"  K1 bf16 H={H} B={B} T={T}: fwd {fwd['ms']:.4f} ms (plain "
+               f"{fwd['plain_ms']:.4f}, cuDNN {fwd['cudnn_ms']:.4f}, bound "
+               f"{fwd['bound_ms']:.4f} by {fwd['bound_by']}); bwd "
+               f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, cuDNN "
+               f"{bwd['cudnn_ms']:.4f}, bound {bwd['bound_ms']:.4f} by "
+               f"{bwd['bound_by']})")
+    out["launches_crdnn"] = {k: counts[k]["launches_crdnn_amp_training"]
+                             + counts[k]["launches_cli_ctc_bf16"]
+                             for k in ("lstm_fwd_wide_bf16",
+                                       "lstm_bwd_wide_bf16",
+                                       "lstm_dw_wide_bf16")}
+    return out
+
+
+def run_cli_test_ctc(report, probe, root, name, recipe):
+    """``cli.test`` of a CTC recipe from its best checkpoint, then the same
+    checkpoint and batches through the plain versions: launches, the
+    greedy decodes, both PERs, the MD and boundary statistics, the
+    ``md_result_seqs.txt`` table and the loss. Returns the kernel run's
+    launches and its evaluate split."""
+    import torch
+    from mlvae_tpu_torch.cli import test as test_cli
+
+    args = cli_args(name, recipe=recipe)
+    table = Path(root) / f"results/{name}/test_output/md_result_seqs.txt"
+
+    def outcome(model):
+        st = model.stats_loggers
+        return ([d["hyp"] for d in st["phn_per_stats"].details],
+                [st[k].summarize() for k in ("phn_per_stats",
+                                             "cnncl_per_stats")],
+                st["plvl_md_stats"].scores_list,
+                st["boundary_stats"].scores_list, table.read_text())
+    probe.reset()
+    reset_launches()
+    model = test_cli.main(args)
+    torch.cuda.synchronize()
+    test_total = launches()
+    (key, rec), = [(k, v) for k, v in probe.stages.items()
+                   if k[0] == "TEST"]
+    want = {k: v * rec["batches"] for k, v in
+            recipe_launches(recipe, "TEST", train=False).items()}
+    crdnn_counts(rec["launches"], want, f"{recipe} TEST")
+    got = outcome(model)
+    timing = model.evaluate_timing
+    probe.reset()
+    with twins():
+        reset_launches()
+        plain = test_cli.main(args)
+        check(sum(launches().values()) == 0,
+              "the plain TEST pass hit a kernel")
+    same = got == outcome(plain)
+    loss_rel = abs(rec["loss"] - probe.stages[key]["loss"]) / abs(
+        rec["loss"])
+    per = got[1][0]["error_rate"], got[1][1]["error_rate"]
+    report(f"  {recipe} cli.test ({rec['batches']} batch): loss "
+           f"{rec['loss']:.6f}, PER {per[0]} / {per[1]} (pronounced / "
+           f"canonical); launches "
+           f"{ {k: v for k, v in rec['launches'].items() if v} }; against "
+           f"the plain versions on the same checkpoint: same decodes, PER, "
+           f"MD and boundary statistics and md_result_seqs.txt {same}, loss "
+           f"rel err {loss_rel:.3e} (tol {CLI_LOSS_RTOL:g})")
+    check(same, f"the {recipe} TEST pass disagrees with the plain versions")
+    check(loss_rel <= CLI_LOSS_RTOL, f"the {recipe} TEST loss disagrees")
+    return test_total, timing
+
+
+def run_cli_ctc(dev, report, smi):
+    """Phase 3's CLI path of CRDNN_CTC and CRDNN_CTC_cnncl in a temporary
+    directory at the recipes' full width on the card: for each,
+    ``cli.train`` for one debug epoch of two batches and ``cli.test``,
+    each against the same through the plain versions; then CRDNN_CTC's
+    ``cli.train --bf16``. Returns the launches of the kernel runs (f32 and
+    --bf16) and the numbers."""
+    import logging
+    import os
+    import shutil
+    import tempfile
+
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    cwd = os.getcwd()
+    root = tempfile.mkdtemp(prefix="mlvae_cli_ctc_")
+    probe = CliProbe()
+    out = {"card": smi}
+    counts = {k: 0 for k in launches()}
+    try:
+        os.chdir(root)
+        for recipe in CTC_RECIPES:
+            rec = out[recipe] = {}
+            model, total, stages = run_cli_train(report, probe,
+                                                 recipe.lower(),
+                                                 recipe=recipe)
+            rec["epochs"] = model.epoch_log
+            del model
+            test_total, rec["evaluate_s"] = run_cli_test_ctc(
+                report, probe, root, recipe.lower(), recipe)
+            for k in counts:
+                counts[k] += total[k] + test_total[k]
+            report(f"  {recipe} on {smi}: epochs " + ", ".join(
+                f"{e['epoch']}: {e['seconds']:.3f} s "
+                f"{e['utt_sec_per_sec']:.1f} utt-sec/sec"
+                for e in rec["epochs"]))
+        amp_model, amp_total, _ = run_cli_train(
+            report, probe, "ctc_bf16", amp=True, recipe="CRDNN_CTC")
+        out["CRDNN_CTC"]["bf16_epochs"] = amp_model.epoch_log
+        del amp_model
+    finally:
+        probe.close()
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    return counts, amp_total, out
+
+
 def gate_noise(gate, batch, g):
     """One step's standard normal draws, from ``g`` on its device."""
     import torch
@@ -3692,6 +4093,8 @@ class CliProbe:
     def __init__(self):
         import mlvae_tpu_torch.cli.infer as infer_mod
         from mlvae_tpu_torch.data import data_io
+        from mlvae_tpu_torch.models.CRDNN_CTC.model import \
+            SBModel as CTCModel
         from mlvae_tpu_torch.models.MD_VAE.model import SBModel
         from mlvae_tpu_torch.training.brain import Brain
         self.stages, self.decodes, self.passes, self.infer_ms = {}, [], {}, []
@@ -3707,9 +4110,10 @@ class CliProbe:
             def fn(model, stage, epoch=None):
                 orig(model, stage, epoch)
                 probe._key = (stage.name, epoch)
-                probe.stages[probe._key] = {"target": model.target.name,
-                                            "batches": 0,
-                                            "start": launches()}
+                target = getattr(model, "target", None)
+                probe.stages[probe._key] = {
+                    "target": target.name if target else "CTC",
+                    "batches": 0, "start": launches()}
             return fn
 
         def on_stage_end(orig):
@@ -3768,8 +4172,9 @@ class CliProbe:
                 return out
             return fn
 
-        wrap(SBModel, "on_stage_start", on_stage_start)
-        wrap(SBModel, "on_stage_end", on_stage_end)
+        for model_cls in (SBModel, CTCModel):
+            wrap(model_cls, "on_stage_start", on_stage_start)
+            wrap(model_cls, "on_stage_end", on_stage_end)
         wrap(Brain, "train_batch", counted)
         wrap(Brain, "evaluate_batch", counted)
         wrap(SBModel, "evaluate_predictions", evaluate_predictions)
@@ -3787,6 +4192,8 @@ class CliProbe:
 
 def cli_epochs(recipe):
     """The debug epochs of a recipe's CLI run: one turn of its cycle."""
+    if recipe in CTC_RECIPES:
+        return CTC_EPOCHS
     return CLI_EPOCHS if recipe == "MD_VAE" else FAMILY_EPOCHS[recipe]
 
 
@@ -3797,7 +4204,8 @@ def cli_args(name, bf16=False, recipe="MD_VAE"):
     of two batches, on the card (no --device)."""
     from mlvae_tpu_torch.bench_utils import unset_loss_weights
     yaml = REPO / "mlvae_tpu_torch/models" / recipe / "model.yaml"
-    pinned = "".join(f", {k}: 1.0" for k in unset_loss_weights(yaml))
+    pinned = "" if recipe in CTC_RECIPES else "".join(
+        f", {k}: 1.0" for k in unset_loss_weights(yaml))
     args = [str(REPO / "config/run.yaml"), "--dataset", "SynAudioMNIST",
             "--language", "digits", "--n_phonemes", "12",
             "--model_class", recipe, "--model_name", name,
@@ -3852,7 +4260,8 @@ def run_cli_train(report, probe, name, amp=False, recipe="MD_VAE"):
     check([k for k in stages] == [(st, e) for e in range(1, epochs + 1)
                                   for st in ("TRAIN", "VALID")],
           f"{label}stages {list(stages)}")
-    check(model.target.name == "VAE", "the cycle did not end on VAE")
+    check(recipe in CTC_RECIPES or model.target.name == "VAE",
+          "the cycle did not end on VAE")
     check(all(p.dtype == torch.float32 for p in model.parameters()),
           "a parameter is not f32")
     kernel_stages = dict(stages)
@@ -4219,6 +4628,9 @@ def main(argv=None) -> int:
     stress_lstm_wide(dev, report)
     errs["lstm_wide_bf16"] = check_lstm_wide(dev, report, bf16=True)
     stress_lstm_wide(dev, report, WIDE_BF16_REPEATS, bf16=True)
+    report("phase 2 K1 on bf16 streams at H = 128, 256, 384, 512 (the "
+           "tensor-core builds)")
+    errs["lstm_bf16_narrow"] = check_k1_bf16_narrow(dev, report)
     report("phase 2 K2, K3/K4, K6, K5, K7")
     prob, prob_b1, errs_viterbi = check_viterbi(dev, report)
     errs.update(errs_viterbi)
@@ -4283,18 +4695,39 @@ def main(argv=None) -> int:
            "against the plain versions")
     fam_counts, fam_amp_counts, cli["family"] = run_cli_family(dev, report,
                                                                smi)
+    report(f"phase 3 CRDNN_CTC at full width (CNN 128/256, 4 bidirectional "
+           f"LSTM layers at H=512, DNN 512, B={CTC_B}, T={CTC_T}, "
+           f"L={CTC_L}): the f32 eval forward and two f32 training steps")
+    ctc_model, ctc_batch, ctc_noise, ctc_counts = run_crdnn_training(
+        dev, report)
+    report("phase 3 CRDNN_CTC's --bf16 training step at full width, two "
+           "steps: the first LSTM layer on K1 on bf16 streams")
+    ctc_amp_model, _, ctc_amp_noise, ctc_amp_counts = run_crdnn_training(
+        dev, report, amp=True)
+    report("phase 3 the CLI path of CRDNN_CTC and CRDNN_CTC_cnncl at full "
+           "width: cli.train (one debug epoch) and cli.test, CRDNN_CTC's "
+           "cli.train --bf16, each against the plain versions")
+    cli_ctc_counts, cli_ctc_amp_counts, cli["ctc"] = run_cli_ctc(
+        dev, report, smi)
     # the paths' launches: the eval forward's, the wav-in path's, the six
     # f32 and six AMP MD_VAE train steps', the two MD_VAE_sfl VAE steps',
     # the four gate-3 steps', the unroll path's, LSTM_FC's eval and two
     # f32 train steps' and its two AMP train steps', and the CLI paths'
     # (the feature passes with cli.train, cli.test and cli.infer;
-    # cli.train --bf16), MD_VAE's and the family's
+    # cli.train --bf16), MD_VAE's and the family's; CRDNN_CTC's eval
+    # forward and f32 and --bf16 train steps, and the CTC recipes' CLI paths
     counts = {k: {"launches": eval_counts[k] + wav_counts[k]
                   + train_counts[k] + amp_counts[k] + sfl_counts[k]
                   + gate_counts[k]
                   + amp_gate_counts[k] + unroll_counts[k] + fc_counts[k]
                   + fc_amp_counts[k] + cli_counts[k] + cli_amp_counts[k]
-                  + fam_counts[k] + fam_amp_counts[k],
+                  + fam_counts[k] + fam_amp_counts[k] + ctc_counts[k]
+                  + ctc_amp_counts[k] + cli_ctc_counts[k]
+                  + cli_ctc_amp_counts[k],
+                  "launches_crdnn_training": ctc_counts[k],
+                  "launches_crdnn_amp_training": ctc_amp_counts[k],
+                  "launches_cli_ctc": cli_ctc_counts[k],
+                  "launches_cli_ctc_bf16": cli_ctc_amp_counts[k],
                   "launches_sfl_training": sfl_counts[k],
                   "launches_cli_family": fam_counts[k],
                   "launches_cli_family_bf16": fam_amp_counts[k],
@@ -4355,6 +4788,22 @@ def main(argv=None) -> int:
     kernels += fc_amp_kernels
     del fc_amp_model
     lstm_fc["plans"] = plans
+    report("phase 4 CRDNN_CTC, f32 and --bf16, and K1 on bf16 streams at "
+           "H=512")
+    crdnn = {"f32": time_crdnn(dev, report, ctc_model, ctc_batch, ctc_noise,
+                               smi),
+             "bf16": time_crdnn(dev, report, ctc_amp_model, ctc_batch,
+                                ctc_amp_noise, smi, amp=True)}
+    del ctc_model, ctc_amp_model
+    h512 = time_k1_bf16_h512(dev, report, counts)
+    for row in kernels:   # the bf16 K1 rows: their H=512 numbers as well
+        if row["name"] in ("lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16"):
+            row["h512"] = {t: h512[t][row["name"]] for t in ("T=80",
+                                                              "T=160")}
+            row["h512"]["launches_crdnn"] = h512["launches_crdnn"][
+                row["name"]]
+            row["h512"]["max_abs_err"] = errs["lstm_bf16_narrow"][
+                "fwd" if "fwd" in row["name"] else "dgx"]
     report("phase 5 the kernels line, the card and the result")
     report(json.dumps({"kernels": kernels, "eval_step": step,
                        "lstm_fc": lstm_fc, "lstm_fc_amp": lstm_fc_amp,
@@ -4362,7 +4811,7 @@ def main(argv=None) -> int:
                        "amp_train_step": amp_step,
                        "sfl_train_step": sfl_step,
                        "gate3_train_step": gate3_step,
-                       "gru_plans": k5_plans,
+                       "gru_plans": k5_plans, "crdnn_ctc": crdnn,
                        "bwd_timeline": bwd_timeline,
                        "fwd_timeline": fwd_timeline, "cli": cli}))
     report(smi)

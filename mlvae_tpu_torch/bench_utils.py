@@ -9,7 +9,10 @@ them (narrow widths for the CPU tests).
 ``synth_batch`` for the same arguments. ``build_lstm_fc`` builds the
 LSTM_FC recipe (``LSTM_FC_RECIPE``, from
 ``mlvae_tpu/models/LSTM_FC/model.yaml``) and ``synth_flvl_batch`` its
-frame-level batches. ``synth_wave`` and
+frame-level batches. ``build_crdnn_ctc`` builds the CRDNN_CTC recipe
+(``CRDNN_RECIPE``, from ``mlvae_tpu/models/CRDNN_CTC/model.yaml``) and
+``synth_ctc_batch`` its batches with pronounced and canonical phoneme
+sequences. ``synth_wave`` and
 ``synth_wav_batch`` make audio for the wav front end: tones plus noise, as
 ``tests/test_fbank_pallas.py`` makes them.
 
@@ -33,6 +36,7 @@ from torch import nn
 from torch.func import functional_call
 
 from mlvae_tpu_torch.device import resolve_device
+from mlvae_tpu_torch.models.CRDNN_CTC.model import CRDNNCTC
 from mlvae_tpu_torch.models.LSTM_FC.model import LSTMFC
 from mlvae_tpu_torch.models.MD_VAE.model import MDVAE
 from mlvae_tpu_torch.models.MD_VAE_sfl.model import MDVAESFL
@@ -43,7 +47,7 @@ from mlvae_tpu_torch.nn import dist as D
 from mlvae_tpu_torch.nn.layers import Linear
 from mlvae_tpu_torch.nn.rnn import GRU
 from mlvae_tpu_torch.training.brain import cast_floats, f32_gemm_sums
-from mlvae_tpu_torch.training.optim import Adam
+from mlvae_tpu_torch.training.optim import Adadelta, Adam
 from mlvae_tpu_torch.utils.tensor import apply_lens_to_loss
 
 N_PHONEMES = 12          # digits task (smoke-test scale)
@@ -240,6 +244,83 @@ def synth_flvl_batch(batch_size: int = 8, T: int = 160, seed: int = 0,
     return {"feat": (t(feats), t(lens)), "aug_feat": (t(aug), t(lens)),
             "flvl_gt_md_lbl_seq": (t(md), t(lens)),
             "aug_flvl_gt_md_lbl_seq": (t(md.copy()), t(lens))}
+
+
+# CRDNN_CTC at the widths of mlvae_tpu/models/CRDNN_CTC/model.yaml: two CNN
+# blocks of (128, 256) channels with 3x3 kernels, time pooling 2, a 4-layer
+# bidirectional LSTM at H=512 (its first layer's input 256 x 30 = 7,680),
+# two DNN blocks of 512, dropout 0.15, n_phonemes + 2 outputs, Adadelta at
+# lr 1.0, rho 0.95, eps 1e-8
+CRDNN_RECIPE = {
+    "input_size": INPUT_SIZE,
+    "n_phonemes": N_PHONEMES,
+    "dropout": 0.15,
+    "cnn_blocks": 2,
+    "cnn_channels": (128, 256),
+    "cnn_kernelsize": (3, 3),
+    "rnn_layers": 4,
+    "rnn_neurons": 512,
+    "rnn_bidirectional": True,
+    "dnn_blocks": 2,
+    "dnn_neurons": 512,
+    "blank_index": 0,
+    "lr": 1.0,
+    "rho": 0.95,
+    "eps": 1e-8,
+}
+
+
+def build_crdnn_ctc(batch_size: int = 8, overrides=None, seed: int = 0,
+                    device=None, bf16: bool = False) -> CRDNNCTC:
+    """CRDNN_CTC at ``CRDNN_RECIPE``'s widths with weights drawn from
+    ``seed`` on ``device`` (None means CUDA), its Adadelta states
+    initialised. ``bf16`` turns AMP on for the training step, as
+    ``--bf16`` does; the eval forward stays f32."""
+    dev = resolve_device(device)
+    hparams = dict(CRDNN_RECIPE, batch_size=batch_size)
+    hparams.update(overrides or {})
+    hparams.setdefault("optimizer", Adadelta(
+        lr=hparams["lr"], rho=hparams["rho"], eps=hparams["eps"]))
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    model = CRDNNCTC(hparams, generator=gen, device="cpu",
+                     run_opts={"bf16": bf16}).to(dev).eval()
+    model.init_optimizers()
+    return model
+
+
+def synth_ctc_batch(batch_size: int = 8, T: int = 160, L: int = 32,
+                    seed: int = 0, device=None) -> Dict[str, Tuple]:
+    """A synthetic CRDNN_CTC batch on ``device``: ``feat`` (B, T, 120) with
+    ``synth_batch``'s relative lengths (1.0 down to 0.8); the pronounced
+    phonemes ``gt_phn_seq`` (B, L), ids 1 .. n_phonemes (0 is the blank),
+    relative lengths 1.0 down to 0.75; the canonical ``gt_cnncl_seq``, the
+    same with about a fifth of the phonemes substituted; and
+    ``gt_boundary_seq`` (B, T), one start frame per canonical phoneme."""
+    dev = resolve_device(device)
+    rs = np.random.RandomState(seed)
+    feats = rs.randn(batch_size, T, INPUT_SIZE).astype(np.float32)
+    feat_lens = np.linspace(1.0, 0.8, batch_size).astype(np.float32)
+    phn = rs.randint(1, N_PHONEMES + 1, (batch_size, L)).astype(np.int64)
+    sub = rs.rand(batch_size, L) < MISP_RATE
+    cnncl = np.where(sub, rs.randint(1, N_PHONEMES + 1, (batch_size, L)),
+                     phn).astype(np.int64)
+    phn_lens = np.linspace(1.0, 0.75, batch_size).astype(np.float32)
+    l_abs = np.round(phn_lens * L).astype(int)
+    t_abs = np.round(feat_lens * T).astype(int)
+    boundary = np.zeros((batch_size, T), np.float32)
+    for i in range(batch_size):
+        starts = np.sort(rs.choice(np.arange(1, t_abs[i]), l_abs[i] - 1,
+                                   replace=False))
+        boundary[i, 0] = 1
+        boundary[i, starts] = 1
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    return {"feat": (t(feats), t(feat_lens)),
+            "gt_phn_seq": (t(phn), t(phn_lens)),
+            "gt_cnncl_seq": (t(cnncl), t(phn_lens)),
+            "gt_boundary_seq": (t(boundary), t(feat_lens))}
 
 
 def synth_wave(n: int, seed: int = 0, scale: float = 8000.0,

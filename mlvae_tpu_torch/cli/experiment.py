@@ -38,7 +38,7 @@ UNPORTED_DATASETS = {"TIMIT": 5, "L2_ARCTIC": 5, "ChineseDPA": 5}
 UNPORTED_MODELS = {
     "test_vanilla_vae": 8, "test_gmm_vae": 8, "test_h_vae": 8,
     "test_phn_classifier": 8, "test_b_ind_classifier": 8, "LSTM_FC": 8,
-    "CRDNN_CTC": 9, "CRDNN_CTC_cnncl": 9, "HMM_DNN_ALI": 9,
+    "HMM_DNN_ALI": 9,
     "w2v_MD_VAE": 11, "w2v_MD_VAE_sfl": 11, "w2v_MD_VAE_sfl_resi": 11,
     "w2v_CRDNN_CTC": 11, "w2v_CRDNN_CTC_cnncl": 11, "w2v_LSTM_FC": 11,
 }

@@ -1,7 +1,8 @@
-// K1-bwd for 528 < H <= 1024 on bf16 streams: backpropagation through the
-// LSTM recurrence over precomputed input gates with its three products on
-// the tensor cores (LSTM_FC's AMP step: four layers at H=1024), in two
-// kernels: the recurrence, then dW_hh.
+// K1-bwd on bf16 streams at every H % 128 == 0 up to 1024: backpropagation
+// through the LSTM recurrence over precomputed input gates with its three
+// products on the tensor cores (LSTM_FC's AMP step: four layers at H=1024;
+// CRDNN_CTC's: its first bidirectional layer at H=512), in two kernels: the
+// recurrence, then dW_hh.
 //
 // Replaces the TPU kernel mlvae_tpu/ops/lstm_pallas.py `_bwd_kernel`
 // (launched by `_run_bwd`) under AMP. The recurrence walks the processing

@@ -1,6 +1,7 @@
-// K1-fwd for 528 < H <= 1024 on bf16 streams: the LSTM forward recurrence
-// over precomputed input gates with its recurrent product on the tensor
-// cores (LSTM_FC's AMP step: four layers at H=1024).
+// K1-fwd on bf16 streams at every H % 128 == 0 up to 1024: the LSTM forward
+// recurrence over precomputed input gates with its recurrent product on the
+// tensor cores (LSTM_FC's AMP step: four layers at H=1024; CRDNN_CTC's: its
+// first bidirectional layer at H=512, In=7,680).
 //
 // Replaces the TPU kernel mlvae_tpu/ops/lstm_pallas.py `_fwd_kernel`
 // (launched by `_run_fwd`) under AMP: hs[t] = o * tanh(c_t), c_t = f *

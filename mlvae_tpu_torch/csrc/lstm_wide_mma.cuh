@@ -1,6 +1,6 @@
 // What the wide K1 builds on bf16 streams share (lstm_fwd_wide_bf16.cu,
-// lstm_bwd_wide_bf16.cu): the block's layout for 528 < H <= 1024 (H % 128
-// == 0), h_{t-1} staged whole by the TMA, and the recurrent product
+// lstm_bwd_wide_bf16.cu): the block's layout for every H % 128 == 0 up to
+// 1024, h_{t-1} staged whole by the TMA, and the recurrent product
 // h_{t-1} @ W_hh^T of one 64-row batch tile on the tensor cores.
 //
 // As the f32 wide builds (lstm_wide.cuh), one persistent cooperative grid

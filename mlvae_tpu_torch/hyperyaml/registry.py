@@ -27,6 +27,8 @@ ALIASES: Dict[str, str] = {
     "torch.nn.GRU": "mlvae_tpu_torch.nn.rnn.GRU",
     "torch.nn.LeakyReLU": "mlvae_tpu_torch.nn.layers.LeakyReLU",
     "torch.optim.Adam": "mlvae_tpu_torch.training.optim.Adam",
+    "torch.optim.Adadelta": "mlvae_tpu_torch.training.optim.Adadelta",
+    "torch.optim.SGD": "mlvae_tpu_torch.training.optim.SGD",
     # the SpeechBrain surface the recipes use
     "speechbrain.utils.epoch_loop.EpochCounter":
         "mlvae_tpu_torch.training.epoch_loop.EpochCounter",
@@ -35,25 +37,27 @@ ALIASES: Dict[str, str] = {
     "speechbrain.processing.features.InputNormalization":
         "mlvae_tpu_torch.nn.norm.InputNormalization",
     "speechbrain.lobes.features.Fbank": "mlvae_tpu_torch.ops.fbank.Fbank",
+    # the CTC recipes (models/CRDNN_CTC/model.yaml)
+    "speechbrain.nnet.linear.Linear": "mlvae_tpu_torch.nn.sb_compat.SBLinear",
+    "speechbrain.nnet.activations.Softmax":
+        "mlvae_tpu_torch.nn.sb_compat.Softmax",
+    "speechbrain.nnet.schedulers.NewBobScheduler":
+        "mlvae_tpu_torch.training.schedulers.NewBobScheduler",
+    "speechbrain.nnet.losses.ctc_loss": "mlvae_tpu_torch.ops.ctc.ctc_loss",
+    "speechbrain.lobes.models.CRDNN.CRDNN":
+        "mlvae_tpu_torch.modules.crdnn.CRDNN",
+    "speechbrain.lobes.models.VanillaNN.VanillaNN":
+        "mlvae_tpu_torch.modules.crdnn.VanillaNN",
     # stdlib passthrough used by the loader itself (``!ref <x.attr>``)
     "getattr": "builtins.getattr",
 }
 
-_ITEM4 = "ROADMAP queue 1 item 4 (the rest of training/optim.py)"
-_ITEM9 = "ROADMAP queue 1 item 9 (the CTC family)"
+_ITEM9 = "ROADMAP queue 1 item 9 (the CTC family's HMM_DNN_ALI)"
 _ITEM11 = "ROADMAP queue 1 item 11 (the wav2vec2 family)"
 
 # aliases of the JAX registry whose targets the port has not ported yet
 UNPORTED: Dict[str, str] = {
-    "torch.optim.Adadelta": _ITEM4,
-    "torch.optim.SGD": _ITEM4,
-    "speechbrain.nnet.linear.Linear": _ITEM9,
-    "speechbrain.nnet.activations.Softmax": _ITEM9,
-    "speechbrain.nnet.schedulers.NewBobScheduler": _ITEM9,
-    "speechbrain.nnet.losses.ctc_loss": _ITEM9,
     "speechbrain.nnet.losses.nll_loss": _ITEM9,
-    "speechbrain.lobes.models.CRDNN.CRDNN": _ITEM9,
-    "speechbrain.lobes.models.VanillaNN.VanillaNN": _ITEM9,
     "speechbrain.lobes.models.huggingface_wav2vec.HuggingFaceWav2Vec2":
         _ITEM11,
     "speechbrain.alignment.aligner.HMMAligner": _ITEM9,
@@ -69,7 +73,6 @@ PREFIX_REMAPS = [
 
 # JAX-package modules under those prefixes that the port has not ported
 UNPORTED_PREFIXES: Dict[str, str] = {
-    "modules.crdnn.": _ITEM9,
     "modules.hmm_aligner.": _ITEM9,
     "modules.wav2vec2.": _ITEM11,
 }

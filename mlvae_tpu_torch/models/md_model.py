@@ -8,9 +8,11 @@ newest checkpoint, and the TEST metric and statistics files.
 A checkpoint holds the JAX package's trees: ``params`` (every parameter,
 keyed by its module path), ``states`` (the normalizer's running
 statistics) and ``opt__<name>`` (each optimizer's state per module, in
-the layout of ``optax.inject_hyperparams(optax.adam)``: ``count``,
-``hyperparams``, ``inner_state[0]`` with ``count``, ``mu`` and ``nu``), so
-that either package resumes or evaluates from the other's checkpoints.
+the layout of ``optax.inject_hyperparams`` of the optimizer: ``count``,
+``hyperparams`` and the inner states, e.g. Adam's ``inner_state[0]`` with
+``count``, ``mu`` and ``nu``, Adadelta's ``inner_state[1]`` with ``e_g``
+and ``e_x``, SGD's ``inner_state[0].trace`` with momentum), so that either
+package resumes or evaluates from the other's checkpoints.
 """
 from __future__ import annotations
 
@@ -45,6 +47,12 @@ def as_optimizer(info):
 
 
 class MDModel(Brain):
+    # modules of the recipe's YAML ``modules`` that hold no parameters (the
+    # CTC recipes' normalizer): the JAX package keeps an optimizer state
+    # for each all the same (its count and hyperparameters, no moments,
+    # never advanced), which the checkpoint carries
+    stateless_opt_modules: tuple = ()
+
     def init_optimizers(self):
         """``hparams["optimizer"]`` for every module, or
         ``hparams["optimizers"]``: a list or dict whose entries are an
@@ -229,6 +237,10 @@ class MDModel(Brain):
                 for mk in self.opt_states[name]]
 
     def _opt_tree(self, name) -> Dict[str, np.ndarray]:
+        """Optimizer ``name``'s states in the layout the optimizer names
+        (``training/optim.py``): per module the outer ``count``, the
+        injected hyperparameters (f32), its ``SCALARS`` again under their
+        inner paths and its ``MOMENTS`` per parameter."""
         opt = self.optimizers[name][0]
         f32 = np.float32
         out = {}
@@ -236,33 +248,37 @@ class MDModel(Brain):
             st = self.opt_states[name][mk]
             count = np.asarray(st["count"].cpu().numpy(), np.int32)
             out[f"['{mk}'].count"] = count
-            hyper = {"b1": opt.betas[0], "b2": opt.betas[1], "eps": opt.eps,
-                     "eps_root": 0.0, "learning_rate": opt.lr}
-            for k, v in hyper.items():
+            for k, v in opt.hyperparams().items():
                 out[f"['{mk}'].hyperparams['{k}']"] = np.asarray(v, f32)
-            inner = f"['{mk}'].inner_state[0]"
-            out[inner + ".count"] = count
-            for moment in ("mu", "nu"):
-                flat = st[moment].cpu().numpy()
+            for key, path in opt.SCALARS.items():
+                out[f"['{mk}'].{path}"] = np.asarray(
+                    st[key].cpu().numpy(), np.int32)
+            for key, path in opt.MOMENTS.items():
+                flat = st[key].cpu().numpy()
                 offset = 0
                 for pname, shape in params:
                     n = int(np.prod(shape))
-                    out[f"{inner}.{moment}" + keystr([mk] + pname.split("."))
+                    out[f"['{mk}'].{path}" + keystr([mk] + pname.split("."))
                         ] = flat[offset:offset + n].reshape(shape)
                     offset += n
+        if self.optimizers[name][1] is None:
+            for mk in self.stateless_opt_modules:
+                out[f"['{mk}'].count"] = np.asarray(0, np.int32)
+                for k, v in opt.hyperparams().items():
+                    out[f"['{mk}'].hyperparams['{k}']"] = np.asarray(v, f32)
         return out
 
     def _set_opt_tree(self, name, tree: Dict[str, np.ndarray]) -> None:
+        opt = self.optimizers[name][0]
         for mk, params in self._opt_layout(name):
             st = self.opt_states[name][mk]
-            inner = f"['{mk}'].inner_state[0]"
-            st["count"].copy_(torch.as_tensor(tree[inner + ".count"]))
-            for moment in ("mu", "nu"):
+            st["count"].copy_(torch.as_tensor(tree[f"['{mk}'].count"]))
+            for key, path in opt.MOMENTS.items():
                 flat = np.concatenate([
-                    tree[f"{inner}.{moment}"
+                    tree[f"['{mk}'].{path}"
                          + keystr([mk] + pname.split("."))].reshape(-1)
                     for pname, _ in params])
-                st[moment].copy_(torch.from_numpy(flat))
+                st[key].copy_(torch.from_numpy(flat))
 
     def _restore(self, ckpt, with_opt: bool) -> None:
         """Parameters and running statistics from ``ckpt`` (and the

@@ -22,7 +22,8 @@ package's ``_lstm_layer`` picks (``mlvae_tpu/nn/rnn.py:150-223``):
   cast to f32, W_hh is cast to the stream dtype, and hs and the final
   states come back in it. A bf16 layer that neither predicate admits
   takes K1 as an f32 one does, on bf16 gx, W_hh and hs, where H % 128 == 0
-  (LSTM_FC's four H=1024 layers: the wide K1 builds); with another H it
+  (LSTM_FC's four H=1024 layers, and the CRDNN's first, In=7,680 at
+  H=512: the bf16 K1 builds); with another H it
   is refused, since the JAX package then runs a bf16-carry ``lax.scan``
   (``mlvae_tpu/nn/rnn.py:225-239``) that the port does not have
   (``ROADMAP.md`` queue 1 item 4). The JAX package also leaves the

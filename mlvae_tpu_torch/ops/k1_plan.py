@@ -27,21 +27,25 @@ copies is. The launch code in ``csrc/`` computes the same numbers; the
   whether B takes one tile (the recompute between the barrier's arrival
   and wait). dW_hh is a kernel of its own after the recurrence
   (``k1_dw_plan``, f32).
-- ``wide_bf16`` (528 < H <= 1024, H % 128 == 0, bf16 streams;
-  ``csrc/lstm_fwd_wide_bf16.cu``, ``csrc/lstm_bwd_wide_bf16.cu``): the
-  same grid, its products on the tensor cores. W_hh's 32 rows sit in
-  registers as mma fragments, and h_{t-1} lands whole from hs by the TMA
-  (128 KB at H=1024) in ``ring`` = H/128 slices of ``SLICE`` columns, one
-  mbarrier each. K1-bwd also holds W_hh's columns of its units (4H x 8
-  bf16) and streams every block's dgates (dgx[t]) in chunks of ``XCHUNK``
-  gate columns through ``BF16_RING`` buffers, the tile's memory, two a
-  warp; its ``split`` as above. dW_hh is a kernel of its own after the
-  recurrence (``k1_dw_plan(..., bf16=True)``).
+- ``wide_bf16`` (bf16 streams at every H % 128 == 0 up to 1024, the
+  whole of the JAX kernel's bf16 contract; ``csrc/lstm_fwd_wide_bf16.cu``,
+  ``csrc/lstm_bwd_wide_bf16.cu``): the wide builds' grid of eight units a
+  block (hence the name, at any H), its products on the tensor cores.
+  W_hh's 32 rows sit in registers as mma fragments, and h_{t-1} lands
+  whole from hs by the TMA (128 KB at H=1024) in ``ring`` = H/128 slices of
+  ``SLICE`` columns, one mbarrier each, a warp a slice (warps past H/128
+  hold none: at H=512 four of eight multiply, at H=128 one). K1-bwd also
+  holds W_hh's columns of its units (4H x 8 bf16) and streams every
+  block's dgates (dgx[t]) in chunks of ``XCHUNK`` gate columns through
+  ``BF16_RING`` buffers, the tile's memory, two a warp; its ``split`` as
+  above. dW_hh is a kernel of its own after the recurrence
+  (``k1_dw_plan(..., bf16=True)``). The CRDNN's first LSTM layer (In =
+  7,680 at H=512) takes it under AMP: it fits neither fused tier.
 
 No recipe of the repo has an LSTM on K1 wider than 1024; a wider H is
-refused (``ROADMAP.md`` queue 2, "Still to port"), as are bf16 streams at
-H <= 528 (queue 2) and a bf16 wide layer whose H is not a multiple of 128,
-which the JAX package runs as a bf16-carry scan (queue 1 item 4).
+refused (``ROADMAP.md`` queue 2, "Still to port"), as is a bf16 layer
+whose H is not a multiple of 128, which the JAX package runs as a
+bf16-carry scan (queue 1 item 4).
 
 Only integers here: the CPU tests import it.
 """
@@ -108,11 +112,6 @@ def _check(H: int, B: int) -> None:
 
 
 def _check_bf16(H: int) -> None:
-    if H <= NARROW_MAX_H:
-        raise NotImplementedError(
-            f"K1: bf16 streams at H={H} <= {NARROW_MAX_H} need the narrow "
-            "builds on bf16 streams, which the port does not have yet "
-            "(ROADMAP.md queue 2, 'Still to port')")
     if H % SLICE:
         raise NotImplementedError(
             f"K1: a bf16 layer at H={H}, not a multiple of {SLICE}, takes no "

@@ -9,11 +9,11 @@ Two families, as in ``mlvae_tpu/ops/lstm_pallas.py``:
   stays outside (a plain ``torch.matmul``), and the recurrence ``gates =
   gx[t] + h_{t-1} @ W_hh^T`` runs here. ``lstm_layer_fwd`` /
   ``lstm_layer_bwd`` run, for CUDA tensors, the build that ``ops.k1_plan``
-  picks for H: ``csrc/lstm_fwd.cu`` / ``csrc/lstm_bwd.cu`` up to H=528
-  (f32 streams only), above it up to H=1024 ``csrc/lstm_fwd_wide.cu`` /
-  ``csrc/lstm_bwd_wide.cu`` on f32 streams and
-  ``csrc/lstm_fwd_wide_bf16.cu`` / ``csrc/lstm_bwd_wide_bf16.cu`` on bf16
-  streams (H % 128 == 0; a wider H is refused); either wide backward forms
+  picks for H: on f32 streams ``csrc/lstm_fwd.cu`` / ``csrc/lstm_bwd.cu``
+  up to H=528 and ``csrc/lstm_fwd_wide.cu`` / ``csrc/lstm_bwd_wide.cu``
+  above it up to H=1024; on bf16 streams ``csrc/lstm_fwd_wide_bf16.cu`` /
+  ``csrc/lstm_bwd_wide_bf16.cu`` at every H % 128 == 0 up to 1024 (a wider
+  H is refused); either wide backward forms
   dW_hh in a second kernel, after the recurrence. ``lstm_layer_ref`` /
   ``lstm_layer_bwd_ref`` for CPU tensors only; ``LSTMRecurrence`` joins
   them.
@@ -248,13 +248,14 @@ def lstm_layer_fwd(gx: torch.Tensor, w_hh: torch.Tensor,
                    reverse: bool = False):
     """K1-fwd: same contract as ``lstm_layer_ref``, gx and W_hh in one
     stream dtype (f32 or bf16). CPU tensors take the plain version; CUDA
-    tensors launch the build ``k1_fwd_plan`` picks or raise: the narrow one
-    (four units a block, H/4 blocks all resident at once, f32 streams) up
-    to H=528, the wide ones (eight units a block; f32, or bf16 on the
-    tensor cores) above it up to H=1024. Mixed stream dtypes and an H that
-    is not a multiple of 16 are refused (``ValueError``); bf16 streams at
-    H <= 528 or at an H that is not a multiple of 128, and an H above 1024,
-    raise ``NotImplementedError``."""
+    tensors launch the build ``k1_fwd_plan`` picks or raise: on f32
+    streams the narrow one (four units a block, H/4 blocks all resident at
+    once) up to H=528 and the wide one (eight units a block) above it up to
+    H=1024; on bf16 streams the tensor-core build (eight units a block) at
+    every H % 128 == 0 up to 1024. Mixed stream dtypes and an H that is not
+    a multiple of 16 are refused (``ValueError``); bf16 streams at an H
+    that is not a multiple of 128, and an H above 1024, raise
+    ``NotImplementedError``."""
     if gx.device.type == "cpu":
         return lstm_layer_ref(gx, w_hh, reverse)
     dtype = _stream_dtype("lstm_layer_fwd", (gx, w_hh), ())
@@ -324,11 +325,11 @@ def lstm_layer_bwd(gx: torch.Tensor, w_hh: torch.Tensor, hs: torch.Tensor,
     """K1-bwd: same contract as ``lstm_layer_bwd_ref``, gx, W_hh, hs and dhs
     in one stream dtype (f32 or bf16), cs and dc_last f32. CPU tensors take
     the plain version; CUDA tensors launch the build ``k1_bwd_plan`` picks
-    or raise, as K1-fwd: narrow up to H=528 (f32 streams), wide up to
-    H=1024 (f32, or bf16 at H % 128 == 0), mixed stream dtypes and an H
+    or raise, as K1-fwd: f32 narrow up to H=528 and wide up to H=1024,
+    bf16 at every H % 128 == 0 up to 1024, mixed stream dtypes and an H
     that is not a multiple of 16 refused, the bf16 layers no build takes
     and an H above 1024 ``NotImplementedError``. dW_hh comes back f32 in
-    either dtype. The wide builds launch two kernels: the recurrence
+    either dtype. The wide and bf16 builds launch two kernels: the recurrence
     (dgx), then the dW_hh kernel over dgx and hs (``wide_dw_ref``), which
     a T=1 layer, whose only step has h_{t-1} = 0, does without.
     """

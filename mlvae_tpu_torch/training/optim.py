@@ -1,5 +1,5 @@
 """Optimizers as plain tensor code (counterpart of
-``mlvae_tpu/training/optim.py``).
+``mlvae_tpu/training/optim.py``): ``Adam``, ``Adadelta`` and ``SGD``.
 
 ``Adam`` follows ``optax.adam`` as the JAX package builds it
 (``inject_hyperparams``, so the hyperparameters are f32 scalars) in optax's
@@ -10,6 +10,19 @@ bias corrections by the incremented ``count``, and
 module's state advance and update on a device-side condition, as the train
 step's inactive-module rule needs. One state covers one module's parameters
 as a flat vector.
+
+``Adadelta`` follows ``optax.adadelta`` (``scale_by_adadelta`` then the
+learning rate): ``e_g = (1-rho)*g^2 + rho*e_g``, ``u = sqrt(e_x + eps) /
+sqrt(e_g + eps) * g``, ``e_x = (1-rho)*u^2 + rho*e_x``, ``update = u *
+(-lr)``. ``SGD`` follows ``optax.sgd``: without momentum ``g * (-lr)``,
+with it the trace ``t = g + momentum*t`` and ``t * (-lr)``. Their
+hyperparameters are f32 scalars, as ``inject_hyperparams`` makes them.
+
+Each optimizer names its checkpoint layout, the JAX package's
+``inject_hyperparams`` state of one module: ``hyperparams()`` (the
+injected hyperparameters by name), ``SCALARS`` (state keys written under
+an inner path as well as the outer ``count``) and ``MOMENTS`` (state key
+-> inner path of a flat moment, written per parameter).
 """
 from __future__ import annotations
 
@@ -20,19 +33,36 @@ import torch
 INT32_MAX = 2 ** 31 - 1
 
 
-class Adam:
-    def __init__(self, lr: float = 1e-3, betas=(0.9, 0.999),
-                 eps: float = 1e-8):
-        self.lr = float(lr)
-        self.betas = (float(betas[0]), float(betas[1]))
-        self.eps = float(eps)
+def _f32(v, dev) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=dev)
+
+
+def _scatter(params: Sequence[torch.Tensor], update: torch.Tensor) -> None:
+    """Add the flat ``update`` to ``params`` in order."""
+    offset = 0
+    for p in params:
+        n = p.numel()
+        p.add_(update[offset:offset + n].view_as(p))
+        offset += n
+
+
+def _advance(count: torch.Tensor) -> torch.Tensor:
+    return torch.where(count < INT32_MAX, count + 1, count)
+
+
+class _Optimizer:
+    """The flat per-module state: ``count`` and the ``MOMENTS``, f32
+    vectors of the module's parameters' total size."""
+    SCALARS: Dict[str, str] = {}
+    MOMENTS: Dict[str, str] = {}
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
         n = sum(p.numel() for p in params)
         dev = params[0].device
-        return {"count": torch.zeros((), dtype=torch.int32, device=dev),
-                "mu": torch.zeros(n, dtype=torch.float32, device=dev),
-                "nu": torch.zeros(n, dtype=torch.float32, device=dev)}
+        state = {"count": torch.zeros((), dtype=torch.int32, device=dev)}
+        for key in self.MOMENTS:
+            state[key] = torch.zeros(n, dtype=torch.float32, device=dev)
+        return state
 
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor], grad: torch.Tensor,
@@ -40,31 +70,90 @@ class Adam:
         """Advance ``state`` and update ``params`` in place from ``grad``,
         the parameters' gradients flattened and concatenated in order.
         Where the 0-d bool ``active`` is False, neither happens."""
-        dev = grad.device
-
-        def f32(v):
-            return torch.tensor(v, dtype=torch.float32, device=dev)
-
-        b1, b2, eps, neg_lr = (f32(self.betas[0]), f32(self.betas[1]),
-                               f32(self.eps), f32(-self.lr))
-        count = state["count"]
-        mu = (1 - b1) * grad + b1 * state["mu"]
-        nu = (1 - b2) * (grad * grad) + b2 * state["nu"]
-        count_inc = torch.where(count < INT32_MAX, count + 1, count)
-        c = count_inc.float()
-        mu_hat = mu / (1 - torch.pow(b1, c))
-        nu_hat = nu / (1 - torch.pow(b2, c))
-        update = mu_hat / (torch.sqrt(nu_hat) + eps) * neg_lr
+        count = _advance(state["count"])
+        update, new = self._update(grad, state, count)
+        new["count"] = count
         if active is not None:
             update = torch.where(active, update, torch.zeros_like(update))
-            mu = torch.where(active, mu, state["mu"])
-            nu = torch.where(active, nu, state["nu"])
-            count_inc = torch.where(active, count_inc, count)
-        state["mu"].copy_(mu)
-        state["nu"].copy_(nu)
-        state["count"].copy_(count_inc)
-        offset = 0
-        for p in params:
-            n = p.numel()
-            p.add_(update[offset:offset + n].view_as(p))
-            offset += n
+            new = {k: torch.where(active, v, state[k])
+                   for k, v in new.items()}
+        for k, v in new.items():
+            state[k].copy_(v)
+        _scatter(params, update)
+
+    def _update(self, grad: torch.Tensor, state: Dict, count: torch.Tensor):
+        """(the flat update, the new moments) at the advanced ``count``."""
+        raise NotImplementedError
+
+
+class Adam(_Optimizer):
+    SCALARS = {"count": "inner_state[0].count"}
+    MOMENTS = {"mu": "inner_state[0].mu", "nu": "inner_state[0].nu"}
+
+    def __init__(self, lr: float = 1e-3, betas=(0.9, 0.999),
+                 eps: float = 1e-8):
+        self.lr = float(lr)
+        self.betas = (float(betas[0]), float(betas[1]))
+        self.eps = float(eps)
+
+    def hyperparams(self) -> Dict[str, float]:
+        return {"b1": self.betas[0], "b2": self.betas[1], "eps": self.eps,
+                "eps_root": 0.0, "learning_rate": self.lr}
+
+    def _update(self, grad, state, count):
+        dev = grad.device
+        b1, b2, eps, neg_lr = (_f32(self.betas[0], dev),
+                               _f32(self.betas[1], dev), _f32(self.eps, dev),
+                               _f32(-self.lr, dev))
+        mu = (1 - b1) * grad + b1 * state["mu"]
+        nu = (1 - b2) * (grad * grad) + b2 * state["nu"]
+        c = count.float()
+        mu_hat = mu / (1 - torch.pow(b1, c))
+        nu_hat = nu / (1 - torch.pow(b2, c))
+        return mu_hat / (torch.sqrt(nu_hat) + eps) * neg_lr, \
+            {"mu": mu, "nu": nu}
+
+
+class Adadelta(_Optimizer):
+    """``optax.adadelta`` (weight decay 0) at the JAX factory's defaults."""
+    MOMENTS = {"e_g": "inner_state[1].e_g", "e_x": "inner_state[1].e_x"}
+
+    def __init__(self, lr: float = 1.0, rho: float = 0.9, eps: float = 1e-6,
+                 **kwargs):
+        self.lr, self.rho, self.eps = float(lr), float(rho), float(eps)
+
+    def hyperparams(self) -> Dict[str, float]:
+        return {"eps": self.eps, "learning_rate": self.lr, "rho": self.rho,
+                "weight_decay": 0.0}
+
+    def _update(self, grad, state, count):
+        dev = grad.device
+        rho, eps, neg_lr = (_f32(self.rho, dev), _f32(self.eps, dev),
+                            _f32(-self.lr, dev))
+        e_g = (1 - rho) * (grad * grad) + rho * state["e_g"]
+        u = torch.sqrt(state["e_x"] + eps) / torch.sqrt(e_g + eps) * grad
+        e_x = (1 - rho) * (u * u) + rho * state["e_x"]
+        return u * neg_lr, {"e_g": e_g, "e_x": e_x}
+
+
+class SGD(_Optimizer):
+    """``optax.sgd``: a trace of ``momentum`` where it is nonzero (the JAX
+    factory passes ``momentum or None``), plain steps otherwise."""
+
+    def __init__(self, lr: float = 1e-2, momentum: float = 0.0, **kwargs):
+        self.lr, self.momentum = float(lr), float(momentum or 0.0)
+        self.MOMENTS = ({"trace": "inner_state[0].trace"} if self.momentum
+                        else {})
+
+    def hyperparams(self) -> Dict[str, float]:
+        out = {"learning_rate": self.lr}
+        if self.momentum:
+            out["momentum"] = self.momentum
+        return out
+
+    def _update(self, grad, state, count):
+        neg_lr = _f32(-self.lr, grad.device)
+        if not self.momentum:
+            return grad * neg_lr, {}
+        trace = grad + _f32(self.momentum, grad.device) * state["trace"]
+        return trace * neg_lr, {"trace": trace}

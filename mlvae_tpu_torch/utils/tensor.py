@@ -69,3 +69,31 @@ def boundary_to_phoneme_index(boundary_seqs: torch.Tensor) -> torch.Tensor:
     at each frame: ``cumsum(boundary) - 1``, floored at 0."""
     idx = torch.cumsum(boundary_seqs.to(torch.int32), dim=1) - 1
     return torch.clamp(idx, min=0)
+
+
+def resample_by_factor_np(source: np.ndarray, target_len: int,
+                          axis: int = 1, tol: int = 3) -> np.ndarray:
+    """Host side: repeat each frame of ``source`` along ``axis`` by the
+    integer factor ``target_len // len``, then cut or zero-pad to
+    ``target_len``. A length difference beyond ``tol`` raises: zero
+    log-probabilities are probability 1 for every class and would corrupt
+    the posteriors an alignment reads."""
+    src_len = source.shape[axis]
+    factor = target_len // src_len
+    if factor <= 0:
+        raise ValueError(
+            f"non-positive factor for input lengths: {src_len} and "
+            f"{target_len}")
+    out = np.repeat(source, factor, axis=axis)
+    diff = out.shape[axis] - target_len
+    if not -tol <= diff <= tol:
+        raise ValueError(
+            "length difference between resampled and target too large: "
+            f"{diff} (source {src_len} x{factor} vs target {target_len})")
+    if diff > 0:
+        out = np.take(out, np.arange(target_len), axis=axis)
+    elif diff < 0:
+        pad_widths = [(0, 0)] * out.ndim
+        pad_widths[axis] = (0, -diff)
+        out = np.pad(out, pad_widths)
+    return out

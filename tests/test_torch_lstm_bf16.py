@@ -376,11 +376,11 @@ def _k1_args(T, B, H, streams=torch.bfloat16, cells=torch.float32):
 def test_k1_wrappers_refuse_what_no_build_takes(direction):
     """Off the CPU the wrappers launch or raise, never run the plain
     version: mixed stream dtypes and non-f32 cells are refused
-    (``ValueError``), bf16 streams at H <= 528 (the narrow builds take f32
-    only) and H above 1024 raise ``NotImplementedError`` naming
-    ``ROADMAP.md`` queue 2, a bf16 wide layer whose H is not a multiple of
-    128 names queue 1 item 4 (the bf16-carry scan), and a bf16 layer the
-    wide bf16 build takes is refused for not lying on a CUDA device."""
+    (``ValueError``), H above 1024 raises ``NotImplementedError`` naming
+    ``ROADMAP.md`` queue 2, a bf16 layer whose H is not a multiple of 128
+    names queue 1 item 4 (the bf16-carry scan), and a bf16 layer the bf16
+    build takes (every H % 128 == 0, 128 to 1024) is refused for not lying
+    on a CUDA device."""
     def call(args):
         gx, w, hs, cs, dhs, dc = args
         if direction == "fwd":
@@ -397,15 +397,13 @@ def test_k1_wrappers_refuse_what_no_build_takes(direction):
             call((gx, w, hs.float(), cs, dhs, dc))
         with pytest.raises(ValueError, match="must be f32"):
             call(_k1_args(3, 8, 1024, cells=torch.bfloat16))
-    for H in (128, 512, 528):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 2, 'Still to port'"):
-            call(_k1_args(3, 8, H))
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        call(_k1_args(3, 8, 528))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
         call(_k1_args(3, 8, 1040))
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         call(_k1_args(3, 8, 544))
-    for H in (640, 1024):
+    for H in (128, 512, 640, 1024):
         with pytest.raises(ValueError, match="CUDA device"):
             call(_k1_args(3, 8, H))
     # f32 streams keep every build: only the device is refused

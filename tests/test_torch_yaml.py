@@ -169,9 +169,9 @@ def test_prefix_remaps_resolve_into_the_port(name):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("modules.crdnn.CRDNN", "item 9"),
+    ("modules.hmm_aligner.HMMAligner", "item 9"),
     ("modules.wav2vec2.Wav2Vec2Encoder", "item 11"),
-    ("torch.optim.SGD", "item 4"),
+    ("speechbrain.nnet.losses.nll_loss", "item 9"),
     ("torch.nn.Linear", "no alias"),
     ("speechbrain.nnet.CNN.Conv1d", "no alias"),
     ("mlvae_tpu.nn.rnn.LSTM", "no alias"),
