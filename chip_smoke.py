@@ -151,7 +151,18 @@ Phases, each reported on its own line; any failure exits non-zero:
    CRDNN_CTC_cnncl (``cli.train``, one debug epoch, and ``cli.test``,
    whose greedy decodes, PERs, MD and boundary statistics and
    ``md_result_seqs.txt`` equal the plain run's), and CRDNN_CTC's
-   ``cli.train --bf16``;
+   ``cli.train --bf16``; then, in one more temporary directory, the CLI
+   path of the five harness recipes and LSTM_FC at their recipes' widths
+   (``cli.train``, one debug epoch, and ``cli.test``, each against the
+   same through the plain versions: every stage's launches exact by
+   ``recipe_launches``, epoch and VALID losses within 1e-4, TEST's
+   ``test_metrics.txt`` and statistics equal), test_h_vae's and
+   LSTM_FC's ``cli.train --bf16`` (within 1e-3; LSTM_FC at lr 0.001,
+   ``BF16_CLI_EXTRA``), and HMM_DNN_ALI's ``cli.train`` and ``cli.test``
+   with the ``forward`` and the ``viterbi`` training type on the card
+   against the same on the CPU from the card run's weights (no kernel
+   launched; losses within 1e-4; stored alignments and accuracy equal),
+   with the phase's seconds;
 4. times from CUDA events after warm-up: each kernel, its plain version,
    a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6, in
    turns with each build of K6 in SpeechBrain mode and on the Kaldi pass's
@@ -198,7 +209,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    bf16; CRDNN_CTC's eval forward and f32 and --bf16 train steps (ms,
    utt-sec/sec) with a profile of each step (kernel time, idle share),
    and the bf16 K1 at H=512, B=64, T=80 and 160 in turns with cuDNN's
-   bf16 layer beside its plain version and bound;
+   bf16 layer beside its plain version and bound; HMM_DNN_ALI's
+   ``forward`` train step at B=64, T=160, L=16 (ms, utt-sec/sec) with a
+   profile of one step (kernel time, idle share, kernel launches);
 5. a ``kernels`` JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -384,6 +397,33 @@ K1_BF16_NARROW_H = (128, 256, 384, 512)
 K1_BF16_NARROW_B = (1, 8, 24, 64)
 K1_BF16_NARROW_T = (80, 160)
 K1_BF16_NARROW_REPEATS = 20   # repeated launches at H=512, B=64, T=80
+# the five harness recipes, LSTM_FC and HMM_DNN_ALI through the CLI (phase
+# 3), one two-batch debug epoch each at the recipe's width. A harness
+# recipe's forward runs K1-fwd once a directional LSTM layer (the
+# recognizer's or the detector's 2; the decoder's two bidirectional
+# layers 4; test_h_vae's trunk 2 and decoder 4), its f32 train step K1-bwd
+# once a layer too (test_h_vae's π sample stops no gradient from its
+# trunk). Under --bf16 every layer takes K3/K4-fwd, the decoder's second
+# (In = 2H = 1024) layer K4-bwd and the rest K3-bwd. LSTM_FC takes the
+# wide K1 builds (``PER_LSTM_FC_*``); HMM_DNN_ALI no kernel at all
+HARNESS = ("test_phn_classifier", "test_b_ind_classifier",
+           "test_vanilla_vae", "test_gmm_vae", "test_h_vae")
+HARNESS_EPOCHS = 1
+# directional LSTM layers a forward, and those of them on K4 under --bf16
+HARNESS_LAYERS = {"test_phn_classifier": (2, 0),
+                  "test_b_ind_classifier": (2, 0), "test_vanilla_vae": (4, 2),
+                  "test_gmm_vae": (4, 2), "test_h_vae": (6, 2)}
+# LSTM_FC's --bf16 CLI run takes lr 0.001 in place of its recipe's 1.0:
+# at 1.0 Adam's first step moves every weight by +-1 wherever its
+# gradient is non-zero, so a bf16 flip of a near-zero gradient between
+# the kernel and the plain version becomes a whole step of 2, and the runs
+# part (TRAIN 4.182e-3, VALID 6.070e-3 rel on an H100; the f32 run, whose
+# flips are rarer, stays within 2.3e-6 at 1.0)
+BF16_CLI_EXTRA = {"LSTM_FC": ", lr: 0.001"}
+HMM_TYPES = ("forward", "viterbi")
+HMM_RTOL = 1e-4           # HMM_DNN_ALI on the card against the CPU: f32
+                          # sums in another order through two Adam steps
+HMM_B, HMM_T, HMM_L = 64, 160, 16   # phase 4's HMM_DNN_ALI train step
 
 
 def recipe_launches(recipe, target, train, amp=False):
@@ -399,10 +439,26 @@ def recipe_launches(recipe, target, train, amp=False):
     MD_VAE_joint). Under AMP a train step takes K3/K4-fwd for every layer
     and no K1, K4-bwd for the decoder's second (In=1024) pair a sample and
     K3-bwd for the rest; the eval forward stays f32. The CTC recipes take
-    ``PER_CRDNN_EVAL``, ``PER_CRDNN_STEP`` or ``PER_CRDNN_AMP_STEP``."""
+    ``PER_CRDNN_EVAL``, ``PER_CRDNN_STEP`` or ``PER_CRDNN_AMP_STEP``,
+    LSTM_FC ``PER_LSTM_FC_*``, a harness recipe its ``HARNESS_LAYERS``,
+    HMM_DNN_ALI none."""
     if recipe in CTC_RECIPES:   # no target: the stage alone decides
         return dict(PER_CRDNN_AMP_STEP if train and amp else
                     PER_CRDNN_STEP if train else PER_CRDNN_EVAL)
+    if recipe == "LSTM_FC":
+        return dict(PER_LSTM_FC_AMP_STEP if train and amp else
+                    PER_LSTM_FC_STEP if train else PER_LSTM_FC_EVAL)
+    out = {k: 0 for k in PER_FORWARD}
+    if recipe == "HMM_DNN_ALI":
+        return out
+    if recipe in HARNESS:
+        n, semi = HARNESS_LAYERS[recipe]
+        if train and amp:
+            out.update(lstm_fused_fwd=n, lstm_fused_bwd=n - semi,
+                       lstm_semi_bwd=semi)
+        else:
+            out.update(lstm_fwd=n, lstm_bwd=n if train else 0)
+        return out
     sfl = "sfl" in recipe
     rec = 0 if recipe == "MD_VAE_sfl_saved_phn_recog" else 2
     vae = target in ("VAE", "TEST")
@@ -413,7 +469,6 @@ def recipe_launches(recipe, target, train, amp=False):
         bwd = {"PHN_RECOG": rec, "B_DETECTOR": 2}.get(target, 2 + 4 * n)
         if vae and recipe == "MD_VAE_joint":
             bwd += rec + 2
-    out = {k: 0 for k in PER_FORWARD}
     out["md_viterbi"] = 1 if vae else 0
     if train and amp:
         semi = 2 * n if vae else 0
@@ -2767,6 +2822,295 @@ def run_cli_ctc(dev, report, smi):
     return counts, amp_total, out
 
 
+def stats_summaries(model):
+    """Each TEST statistic's summary, by name (the loss statistics too)."""
+    out = {}
+    for key, stats in sorted(model.stats_loggers.items()):
+        try:
+            out[key] = stats.summarize()
+        except ValueError:   # nothing appended
+            out[key] = None
+    return out
+
+
+def run_cli_test_metrics(report, probe, root, name, recipe):
+    """``cli.test`` of a harness recipe or LSTM_FC from its best
+    checkpoint, then the same checkpoint and batches through the plain
+    versions: launches exact, ``test_metrics.txt`` equal (phoneme
+    accuracy, boundary, loss and frame-level MD scores as written), every
+    non-loss statistic's summary equal and the loss within
+    CLI_LOSS_RTOL. Returns the kernel run's launches."""
+    import torch
+    from mlvae_tpu_torch.cli import test as test_cli
+
+    args = cli_args(name, recipe=recipe)
+    metrics = Path(root) / f"results/{name}/test_output/test_metrics.txt"
+    probe.reset()
+    reset_launches()
+    model = test_cli.main(args)
+    torch.cuda.synchronize()
+    test_total = launches()
+    (key, rec), = [(k, v) for k, v in probe.stages.items()
+                   if k[0] == "TEST"]
+    want = {k: v * rec["batches"] for k, v in
+            recipe_launches(recipe, "TEST", train=False).items()}
+    crdnn_counts(rec["launches"], want, f"{recipe} TEST")
+    got_text, got = metrics.read_text(), stats_summaries(model)
+    probe.reset()
+    with twins():
+        reset_launches()
+        plain = test_cli.main(args)
+        check(sum(launches().values()) == 0,
+              "the plain TEST pass hit a kernel")
+    want_stats = stats_summaries(plain)
+    same = got_text == metrics.read_text() and all(
+        got[k] == want_stats[k] for k in got if not k.endswith("loss_stats"))
+    same = same and sorted(got) == sorted(want_stats)
+    loss_rel = abs(rec["loss"] - probe.stages[key]["loss"]) / max(
+        abs(rec["loss"]), 1e-12)
+    report(f"  {recipe} cli.test ({rec['batches']} batch): loss "
+           f"{rec['loss']:.6f}, {got}; launches "
+           f"{ {k: v for k, v in rec['launches'].items() if v} }; against "
+           f"the plain versions on the same checkpoint: same statistics and "
+           f"test_metrics.txt {same}, loss rel err {loss_rel:.3e} (tol "
+           f"{CLI_LOSS_RTOL:g})")
+    check(same, f"the {recipe} TEST pass disagrees with the plain versions")
+    check(loss_rel <= CLI_LOSS_RTOL, f"the {recipe} TEST loss disagrees")
+    return test_total
+
+
+def run_cli_hmm(report, probe, root, training_type, smi):
+    """HMM_DNN_ALI's ``cli.train`` (one debug epoch) and ``cli.test`` with
+    ``training_type`` on the card, then the same on the CPU from the card
+    run's initial weights and cached features: no kernel launches on
+    either, each stage's loss within HMM_RTOL, the aligner's stored
+    alignments and ``accuracy.average`` equal. Returns the card run's
+    launches and the numbers."""
+    import numpy as np
+    import torch
+    from mlvae_tpu_torch.cli import test as test_cli
+    from mlvae_tpu_torch.cli import train as train_cli
+    from mlvae_tpu_torch.models.HMM_DNN_ALI.model import SBModel as HMM
+
+    extra = f", init_training_type: {training_type}, " \
+        "realign_during_train: True"
+    start = HMM.on_fit_start
+    init = {}
+
+    def on_fit_start(model):   # the CPU run starts from the card's weights
+        if init:
+            model.load_state_dict(init)
+        else:
+            init.update({k: v.detach().cpu().clone()
+                         for k, v in model.state_dict().items()})
+        return start(model)
+    runs = {}
+    HMM.on_fit_start = on_fit_start
+    try:
+        for where in ("card", "cpu"):
+            name = f"hmm_{training_type}" + ("_cpu" if where == "cpu"
+                                              else "")
+            args = cli_args(name, recipe="HMM_DNN_ALI", extra=extra) + (
+                ["--device", "cpu"] if where == "cpu" else [])
+            probe.reset()
+            reset_launches()
+            t0 = time.perf_counter()
+            model = train_cli.main(args)
+            train_s = time.perf_counter() - t0
+            stages = dict(probe.stages)
+            store = dict(model.hparams["aligner"].align_dict)
+            del model
+            probe.reset()
+            tested = test_cli.main(args)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            runs[where] = {
+                "stages": stages, "store": store, "train_s": train_s,
+                "launches": launches(),
+                "test_loss": probe.stages[("TEST", 1)]["loss"],
+                "accuracy": tested.stats_loggers[
+                    "accuracy_stats"].summarize("average"),
+                "test_store": dict(tested.hparams["aligner"].align_dict)}
+            del tested
+    finally:
+        HMM.on_fit_start = start
+    card, cpu = runs["card"], runs["cpu"]
+    check(sum(card["launches"].values()) == 0,
+          f"HMM_DNN_ALI {training_type} launched a kernel: "
+          f"{ {k: v for k, v in card['launches'].items() if v} }")
+    check(all(sum(rec["launches"].values()) == 0
+              for rec in card["stages"].values()),
+          "an HMM_DNN_ALI stage launched a kernel")
+    check(list(card["stages"]) == list(cpu["stages"]),
+          f"HMM_DNN_ALI stages {list(card['stages'])}")
+    rel = {k: abs(card["stages"][k]["loss"] - cpu["stages"][k]["loss"])
+           / max(abs(cpu["stages"][k]["loss"]), 1e-12)
+           for k in card["stages"]}
+    rel[("TEST", 1)] = abs(card["test_loss"] - cpu["test_loss"]) / max(
+        abs(cpu["test_loss"]), 1e-12)
+
+    def same_store(a, b):
+        return sorted(a) == sorted(b) and all(
+            np.array_equal(a[k], b[k]) for k in a)
+    same = same_store(card["store"], cpu["store"]) and same_store(
+        card["test_store"], cpu["test_store"])
+    report(f"  HMM_DNN_ALI {training_type} on {smi}: stage losses "
+           + ", ".join(f"{k[0]} {v['loss']:.6f}" for k, v in
+                       card["stages"].items())
+           + f", TEST {card['test_loss']:.6f}; accuracy.average "
+           f"{card['accuracy']:.4f}; {len(card['store'])} alignments stored "
+           f"in training; cli.train {card['train_s']:.3f} s; no kernel "
+           f"launched; against the CPU run from the same weights: loss rel "
+           "err " + ", ".join(f"{k[0]} {v:.3e}" for k, v in rel.items())
+           + f" (tol {HMM_RTOL:g}), same alignments {same}, same accuracy "
+           f"{card['accuracy'] == cpu['accuracy']}")
+    check(max(rel.values()) <= HMM_RTOL,
+          f"HMM_DNN_ALI {training_type}: the card's losses disagree")
+    check(same and card["accuracy"] == cpu["accuracy"],
+          f"HMM_DNN_ALI {training_type}: the alignments disagree")
+    return card["launches"], {
+        "stage_loss": {f"{k[0]} {k[1]}": v["loss"]
+                       for k, v in card["stages"].items()},
+        "test_loss": card["test_loss"], "accuracy": card["accuracy"],
+        "loss_rel_err_cpu": {f"{k[0]} {k[1]}": v for k, v in rel.items()},
+        "train_s": card["train_s"]}
+
+
+def run_cli_harness(dev, report, smi):
+    """Phase 3's CLI path of the five harness recipes, LSTM_FC and
+    HMM_DNN_ALI in one temporary directory (one corpus), each at its
+    recipe's width: ``cli.train`` (one debug epoch of two batches) and
+    ``cli.test`` through the kernels against the same through the plain
+    versions (launches exact; epoch losses within CLI_LOSS_RTOL, under
+    --bf16 CLI_AMP_LOSS_RTOL; TEST's statistics equal); test_h_vae's and
+    LSTM_FC's ``cli.train --bf16`` likewise; HMM_DNN_ALI with the
+    ``forward`` and the ``viterbi`` training type against the CPU. Returns
+    the launches of the kernel runs (f32 and --bf16), the numbers and the
+    phase's seconds."""
+    import logging
+    import os
+    import shutil
+    import tempfile
+
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    root = tempfile.mkdtemp(prefix="mlvae_cli_harness_")
+    probe = CliProbe()
+    out = {"card": smi}
+    counts = {k: 0 for k in launches()}
+    amp_counts = {k: 0 for k in launches()}
+
+    def add(to, total):
+        for k in to:
+            to[k] += total[k]
+    try:
+        os.chdir(root)
+        for recipe in HARNESS + ("LSTM_FC",):
+            rec = out[recipe] = {}
+            model, total, stages = run_cli_train(report, probe,
+                                                 recipe.lower(),
+                                                 recipe=recipe)
+            add(counts, total)
+            rec["epochs"] = model.epoch_log
+            rec["stage_launches"] = {f"{k[0]} {k[1]}": {
+                kn: c for kn, c in v["launches"].items() if c}
+                for k, v in stages.items()}
+            del model
+            add(counts, run_cli_test_metrics(report, probe, root,
+                                             recipe.lower(), recipe))
+        for recipe in ("test_h_vae", "LSTM_FC"):
+            amp_model, amp_total, _ = run_cli_train(
+                report, probe, recipe.lower() + "_bf16", amp=True,
+                recipe=recipe, extra=BF16_CLI_EXTRA.get(recipe, ""))
+            add(amp_counts, amp_total)
+            out[recipe]["bf16_epochs"] = amp_model.epoch_log
+            del amp_model
+        for training_type in HMM_TYPES:
+            total, out[f"HMM_DNN_ALI_{training_type}"] = run_cli_hmm(
+                report, probe, root, training_type, smi)
+            add(counts, total)
+    finally:
+        probe.close()
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    report(f"  the harness, LSTM_FC and HMM_DNN_ALI CLI phase: "
+           f"{out['seconds']:.1f} s on {smi}")
+    return counts, amp_counts, out
+
+
+def hmm_batch(dev, B=HMM_B, T=HMM_T, L=HMM_L, seed=0):
+    """A numpy-seeded HMM_DNN_ALI batch on ``dev``: features (B, T, 120),
+    canonical phonemes (B, L) and their end samples, relative lengths from
+    1.0 down to 0.8, utterance ids."""
+    import numpy as np
+    import torch
+    from mlvae_tpu_torch.bench_utils import INPUT_SIZE
+    rs = np.random.RandomState(seed)
+    t_lens = np.round(np.linspace(1.0, 0.8, B) * T).astype(np.int64)
+    feats = rs.randn(B, T, INPUT_SIZE).astype(np.float32)
+    phns = rs.randint(0, 14, (B, L))
+    ends = np.stack([np.append(np.sort(rs.choice(np.arange(1, t), L - 1,
+                                                 replace=False)), t) * 320
+                     for t in t_lens])
+
+    def pair(a, rel):
+        return (torch.from_numpy(a).to(dev), torch.from_numpy(rel).to(dev))
+    ones = np.ones(B, np.float32)
+    return {"id": [f"utt{b}" for b in range(B)],
+            "feat": pair(feats, (t_lens / T).astype(np.float32)),
+            "gt_cnncl_seq": pair(phns, ones),
+            "gt_phn_end_seq": pair(ends, ones)}
+
+
+def build_hmm(dev, training_type="forward"):
+    """HMM_DNN_ALI from the port's recipe copy at its full width, on
+    ``dev``, weights from seed 0, its optimizer states initialised."""
+    import torch
+    from mlvae_tpu_torch.bench_utils import INPUT_SIZE
+    from mlvae_tpu_torch.hyperyaml import load_hyperyaml
+    from mlvae_tpu_torch.models.HMM_DNN_ALI.model import SBModel as HMM
+    injected = {"n_epochs": 1, "dataset_name": "SynAudioMNIST",
+                "model_name": "bench", "output_dir": "/tmp/mlvae_bench",
+                "input_size": INPUT_SIZE, "n_phonemes": 12,
+                "batch_size": HMM_B, "init_training_type": training_type}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with open(REPO / "mlvae_tpu_torch/models/HMM_DNN_ALI/model.yaml") as f:
+        hp = load_hyperyaml(f, overrides=injected,
+                            overrides_must_match=False, device=dev,
+                            generator=gen)
+    hp.update({k: v for k, v in injected.items() if k not in hp})
+    model = HMM(modules=hp["modules"], hparams=hp, device=dev)
+    model.init_optimizers()
+    return model
+
+
+def time_hmm(dev, report, smi):
+    """Phase 4: one HMM_DNN_ALI train step (``forward`` type) at B=64,
+    T=160, L=16 on the card: ms and utt-sec/sec, and a profile of one
+    step: kernel time, the device's idle share and the kernels launched a
+    step (the forward score's recursion is torch ops, one small step a
+    frame, forward and backward)."""
+    import numpy as np
+    import torch
+    model = build_hmm(dev)
+    batch = hmm_batch(dev)
+    loss, _ = model.fit_batch(batch, 1)
+    check(bool(np.isfinite(float(loss))), "HMM_DNN_ALI: non-finite loss")
+    B, T = batch["feat"][0].shape[:2]
+    out = {"card": smi, "B": B, "T": T, "L": HMM_L}
+    ms = cuda_ms(lambda: model.fit_batch(batch, 1), iters=5, warmup=1)
+    out.update(train_ms=ms, train_utt_sec_per_sec=B * T * HOP_SEC
+               / (ms / 1e3))
+    report(f"  HMM_DNN_ALI forward train step B={B} T={T} L={HMM_L}: "
+           f"{ms:.3f} ms ({out['train_utt_sec_per_sec']:.1f} utt-sec/sec) "
+           f"on {smi}")
+    out["train_profile"] = profile_step(
+        lambda: model.fit_batch(batch, 1), "HMM_DNN_ALI train step", report)
+    return out
+
+
 def gate_noise(gate, batch, g):
     """One step's standard normal draws, from ``g`` on its device."""
     import torch
@@ -4074,12 +4418,15 @@ def profile_step(fn, label, report):
             rows.append((dev_us, ev.count, ev.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
+    n_kernels = sum(r[1] for r in rows)
     idle = max(0.0, 1 - total / 1e3 / wall_ms)
     report(f"  profile of one {label}: wall {wall_ms:.3f} ms, kernel time "
-           f"{total / 1e3:.3f} ms (idle share {idle:.3f}); "
+           f"{total / 1e3:.3f} ms (idle share {idle:.3f}), {n_kernels} "
+           "kernel launches; "
            + "; ".join(f"{k[:48]} x{n} {us / 1e3:.3f} ms"
                        for us, n, k in rows[:8]))
     return {"wall_ms": wall_ms, "kernel_ms": total / 1e3, "idle_share": idle,
+            "kernel_launches": n_kernels,
             "top": [[k, n, us / 1e3] for us, n, k in rows[:8]]}
 
 
@@ -4091,12 +4438,16 @@ class CliProbe:
     recipe's hooks and the data path's passes for its lifetime."""
 
     def __init__(self):
+        import importlib
         import mlvae_tpu_torch.cli.infer as infer_mod
         from mlvae_tpu_torch.data import data_io
         from mlvae_tpu_torch.models.CRDNN_CTC.model import \
             SBModel as CTCModel
         from mlvae_tpu_torch.models.MD_VAE.model import SBModel
         from mlvae_tpu_torch.training.brain import Brain
+        others = [importlib.import_module(
+            f"mlvae_tpu_torch.models.{r}.model").SBModel
+            for r in HARNESS + ("LSTM_FC", "HMM_DNN_ALI")]
         self.stages, self.decodes, self.passes, self.infer_ms = {}, [], {}, []
         self._saved = []
         probe = self
@@ -4112,7 +4463,7 @@ class CliProbe:
                 probe._key = (stage.name, epoch)
                 target = getattr(model, "target", None)
                 probe.stages[probe._key] = {
-                    "target": target.name if target else "CTC",
+                    "target": target.name if target else "-",
                     "batches": 0, "start": launches()}
             return fn
 
@@ -4172,7 +4523,7 @@ class CliProbe:
                 return out
             return fn
 
-        for model_cls in (SBModel, CTCModel):
+        for model_cls in (SBModel, CTCModel, *others):
             wrap(model_cls, "on_stage_start", on_stage_start)
             wrap(model_cls, "on_stage_end", on_stage_end)
         wrap(Brain, "train_batch", counted)
@@ -4194,14 +4545,17 @@ def cli_epochs(recipe):
     """The debug epochs of a recipe's CLI run: one turn of its cycle."""
     if recipe in CTC_RECIPES:
         return CTC_EPOCHS
+    if recipe in HARNESS + ("LSTM_FC", "HMM_DNN_ALI"):
+        return HARNESS_EPOCHS
     return CLI_EPOCHS if recipe == "MD_VAE" else FAMILY_EPOCHS[recipe]
 
 
-def cli_args(name, bf16=False, recipe="MD_VAE"):
+def cli_args(name, bf16=False, recipe="MD_VAE", extra=""):
     """The recipe as a user runs it: config/run.yaml, the synthesized
     corpus, the recipe at its full width (the loss weights its YAML leaves
     to the default pinned to 1.0), one turn of its cycle in debug epochs
-    of two batches, on the card (no --device)."""
+    of two batches, on the card (no --device). ``extra``: more recipe
+    keys, e.g. HMM_DNN_ALI's training type."""
     from mlvae_tpu_torch.bench_utils import unset_loss_weights
     yaml = REPO / "mlvae_tpu_torch/models" / recipe / "model.yaml"
     pinned = "" if recipe in CTC_RECIPES else "".join(
@@ -4211,7 +4565,8 @@ def cli_args(name, bf16=False, recipe="MD_VAE"):
             "--model_class", recipe, "--model_name", name,
             "--model", f"!include:{yaml}",
             "--extra_overrides",
-            "{model: {n_epochs: %d%s}}" % (cli_epochs(recipe), pinned),
+            "{model: {n_epochs: %d%s%s}}" % (cli_epochs(recipe), pinned,
+                                             extra),
             "--debug", "--debug_batches", "2"]
     return args + (["--bf16"] if bf16 else [])
 
@@ -4224,11 +4579,12 @@ def expected_stage_launches(probe, amp=False, recipe="MD_VAE"):
         for key, rec in probe.stages.items()}
 
 
-def run_cli_train(report, probe, name, amp=False, recipe="MD_VAE"):
+def run_cli_train(report, probe, name, amp=False, recipe="MD_VAE",
+                  extra=""):
     """``cli.train`` for one turn of the recipe's cycle in debug epochs
     through the kernels, then the same run from the same seed through the
-    plain versions; returns the kernel run's model, its launches and the
-    stage records."""
+    plain versions (``extra``: more recipe keys, as ``cli_args``); returns
+    the kernel run's model, its launches and the stage records."""
     import numpy as np
     import torch
     from mlvae_tpu_torch.cli import train as train_cli
@@ -4239,7 +4595,8 @@ def run_cli_train(report, probe, name, amp=False, recipe="MD_VAE"):
     epochs = cli_epochs(recipe)
     probe.reset()
     reset_launches()
-    model = train_cli.main(cli_args(name, bf16=amp, recipe=recipe))
+    model = train_cli.main(cli_args(name, bf16=amp, recipe=recipe,
+                                    extra=extra))
     torch.cuda.synchronize()
     total = launches()
     stages = probe.stages
@@ -4260,15 +4617,16 @@ def run_cli_train(report, probe, name, amp=False, recipe="MD_VAE"):
     check([k for k in stages] == [(st, e) for e in range(1, epochs + 1)
                                   for st in ("TRAIN", "VALID")],
           f"{label}stages {list(stages)}")
-    check(recipe in CTC_RECIPES or model.target.name == "VAE",
-          "the cycle did not end on VAE")
+    check(getattr(model, "target", None) is None
+          or model.target.name == "VAE", "the cycle did not end on VAE")
     check(all(p.dtype == torch.float32 for p in model.parameters()),
           "a parameter is not f32")
     kernel_stages = dict(stages)
     probe.reset()
     with twins():
         reset_launches()
-        train_cli.main(cli_args(name + "_plain", bf16=amp, recipe=recipe))
+        train_cli.main(cli_args(name + "_plain", bf16=amp, recipe=recipe,
+                                extra=extra))
         torch.cuda.synchronize()
         check(sum(launches().values()) == 0,
               "the plain CLI run hit a kernel")
@@ -4709,13 +5067,21 @@ def main(argv=None) -> int:
            "cli.train --bf16, each against the plain versions")
     cli_ctc_counts, cli_ctc_amp_counts, cli["ctc"] = run_cli_ctc(
         dev, report, smi)
+    report("phase 3 the CLI path of the five harness recipes, LSTM_FC and "
+           "HMM_DNN_ALI at their recipes' widths: cli.train (one debug "
+           "epoch) and cli.test against the plain versions, test_h_vae's "
+           "and LSTM_FC's cli.train --bf16, HMM_DNN_ALI (forward, viterbi) "
+           "on the card against the CPU")
+    cli_hr_counts, cli_hr_amp_counts, cli["harness"] = run_cli_harness(
+        dev, report, smi)
     # the paths' launches: the eval forward's, the wav-in path's, the six
     # f32 and six AMP MD_VAE train steps', the two MD_VAE_sfl VAE steps',
     # the four gate-3 steps', the unroll path's, LSTM_FC's eval and two
     # f32 train steps' and its two AMP train steps', and the CLI paths'
     # (the feature passes with cli.train, cli.test and cli.infer;
     # cli.train --bf16), MD_VAE's and the family's; CRDNN_CTC's eval
-    # forward and f32 and --bf16 train steps, and the CTC recipes' CLI paths
+    # forward and f32 and --bf16 train steps, and the CTC recipes' CLI paths;
+    # the harness recipes', LSTM_FC's and HMM_DNN_ALI's CLI paths
     counts = {k: {"launches": eval_counts[k] + wav_counts[k]
                   + train_counts[k] + amp_counts[k] + sfl_counts[k]
                   + gate_counts[k]
@@ -4723,7 +5089,10 @@ def main(argv=None) -> int:
                   + fc_amp_counts[k] + cli_counts[k] + cli_amp_counts[k]
                   + fam_counts[k] + fam_amp_counts[k] + ctc_counts[k]
                   + ctc_amp_counts[k] + cli_ctc_counts[k]
-                  + cli_ctc_amp_counts[k],
+                  + cli_ctc_amp_counts[k] + cli_hr_counts[k]
+                  + cli_hr_amp_counts[k],
+                  "launches_cli_harness": cli_hr_counts[k],
+                  "launches_cli_harness_bf16": cli_hr_amp_counts[k],
                   "launches_crdnn_training": ctc_counts[k],
                   "launches_crdnn_amp_training": ctc_amp_counts[k],
                   "launches_cli_ctc": cli_ctc_counts[k],
@@ -4796,6 +5165,8 @@ def main(argv=None) -> int:
                                 ctc_amp_noise, smi, amp=True)}
     del ctc_model, ctc_amp_model
     h512 = time_k1_bf16_h512(dev, report, counts)
+    report("phase 4 HMM_DNN_ALI's train step (forward type)")
+    hmm_step = time_hmm(dev, report, smi)
     for row in kernels:   # the bf16 K1 rows: their H=512 numbers as well
         if row["name"] in ("lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16"):
             row["h512"] = {t: h512[t][row["name"]] for t in ("T=80",
@@ -4812,6 +5183,7 @@ def main(argv=None) -> int:
                        "sfl_train_step": sfl_step,
                        "gate3_train_step": gate3_step,
                        "gru_plans": k5_plans, "crdnn_ctc": crdnn,
+                       "hmm_dnn_ali": hmm_step,
                        "bwd_timeline": bwd_timeline,
                        "fwd_timeline": fwd_timeline, "cli": cli}))
     report(smi)

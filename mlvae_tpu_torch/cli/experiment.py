@@ -36,9 +36,6 @@ logger = logging.getLogger(__name__)
 # by the ROADMAP queue 1 item that ports them
 UNPORTED_DATASETS = {"TIMIT": 5, "L2_ARCTIC": 5, "ChineseDPA": 5}
 UNPORTED_MODELS = {
-    "test_vanilla_vae": 8, "test_gmm_vae": 8, "test_h_vae": 8,
-    "test_phn_classifier": 8, "test_b_ind_classifier": 8, "LSTM_FC": 8,
-    "HMM_DNN_ALI": 9,
     "w2v_MD_VAE": 11, "w2v_MD_VAE_sfl": 11, "w2v_MD_VAE_sfl_resi": 11,
     "w2v_CRDNN_CTC": 11, "w2v_CRDNN_CTC_cnncl": 11, "w2v_LSTM_FC": 11,
 }

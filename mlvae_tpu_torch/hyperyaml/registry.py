@@ -48,19 +48,20 @@ ALIASES: Dict[str, str] = {
         "mlvae_tpu_torch.modules.crdnn.CRDNN",
     "speechbrain.lobes.models.VanillaNN.VanillaNN":
         "mlvae_tpu_torch.modules.crdnn.VanillaNN",
+    # HMM_DNN_ALI (models/HMM_DNN_ALI/model.yaml)
+    "speechbrain.nnet.losses.nll_loss": "mlvae_tpu_torch.ops.losses.nll_loss",
+    "speechbrain.alignment.aligner.HMMAligner":
+        "mlvae_tpu_torch.modules.hmm_aligner.HMMAligner",
     # stdlib passthrough used by the loader itself (``!ref <x.attr>``)
     "getattr": "builtins.getattr",
 }
 
-_ITEM9 = "ROADMAP queue 1 item 9 (the CTC family's HMM_DNN_ALI)"
 _ITEM11 = "ROADMAP queue 1 item 11 (the wav2vec2 family)"
 
 # aliases of the JAX registry whose targets the port has not ported yet
 UNPORTED: Dict[str, str] = {
-    "speechbrain.nnet.losses.nll_loss": _ITEM9,
     "speechbrain.lobes.models.huggingface_wav2vec.HuggingFaceWav2Vec2":
         _ITEM11,
-    "speechbrain.alignment.aligner.HMMAligner": _ITEM9,
 }
 
 # dotted-name prefixes remapped into the port
@@ -73,7 +74,6 @@ PREFIX_REMAPS = [
 
 # JAX-package modules under those prefixes that the port has not ported
 UNPORTED_PREFIXES: Dict[str, str] = {
-    "modules.hmm_aligner.": _ITEM9,
     "modules.wav2vec2.": _ITEM11,
 }
 

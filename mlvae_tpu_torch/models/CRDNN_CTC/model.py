@@ -24,7 +24,6 @@ forward draws nothing.
 """
 from __future__ import annotations
 
-import contextlib
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -35,20 +34,17 @@ from mlvae_tpu_torch.metrics.alignment import batch_align_sequences
 from mlvae_tpu_torch.metrics.boundary import BoundaryMetricStats
 from mlvae_tpu_torch.metrics.error_rate import ErrorRateStats
 from mlvae_tpu_torch.metrics.md import MDMetricStats
-from mlvae_tpu_torch.models.md_model import MDModel
+from mlvae_tpu_torch.models.md_model import MDModel, grad_if
 from mlvae_tpu_torch.modules.crdnn import CRDNN
 from mlvae_tpu_torch.nn.norm import InputNormalization
 from mlvae_tpu_torch.nn.sb_compat import SBLinear, Softmax
 from mlvae_tpu_torch.ops import ctc as ctc_ops
 from mlvae_tpu_torch.training.brain import Stage
-from mlvae_tpu_torch.utils.tensor import resample_by_factor_np, undo_padding
+from mlvae_tpu_torch.utils.tensor import (resample_by_factor_np, to_host,
+                                          undo_padding)
 
 
 _LOG_SOFTMAX = Softmax(apply_log=True)
-
-
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class CRDNNCTC(MDModel):
@@ -69,11 +65,7 @@ class CRDNNCTC(MDModel):
         if modules is None:
             modules = self.build_modules(
                 self.hparams, dict(generator=generator, device=device))
-        for name, module in modules.items():
-            setattr(self, name, module)
-        self.stateless_opt_modules = tuple(
-            name for name, module in modules.items()
-            if next(module.parameters(), None) is None)
+        self.adopt_modules(modules)
         self.normalizer.ensure_size(self.hparams["input_size"])
 
     @staticmethod
@@ -104,7 +96,7 @@ class CRDNNCTC(MDModel):
         ``train`` updates the normalizer's statistics, applies dropout and
         builds the graph; otherwise no graph is built."""
         feats, feat_lens = batch["feat"]
-        with contextlib.nullcontext() if train else torch.no_grad():
+        with grad_if(train):
             feats = self.normalizer(feats, feat_lens, epoch=epoch,
                                     update=train)
             out = self.output(self.crdnn(feats, train=train,
@@ -147,15 +139,15 @@ class SBModel(CRDNNCTC):
             self.stats_loggers["boundary_stats"] = BoundaryMetricStats()
 
     def evaluate_predictions(self, predictions, batch, stage):
-        pout = _host(predictions["pout"])
-        pout_lens = _host(batch["feat"][1])
+        pout = to_host(predictions["pout"])
+        pout_lens = to_host(batch["feat"][1])
         blank = self.hparams.get("blank_index", 0)
         ind2lab = self.label_encoder.decode_ndim if self.label_encoder \
             else None
         pred_phns = ctc_ops.ctc_greedy_decode(pout, pout_lens,
                                               blank_id=blank)
-        phns, phn_lens = (_host(x) for x in batch["gt_phn_seq"])
-        cnncls, cnncl_lens = (_host(x) for x in batch["gt_cnncl_seq"])
+        phns, phn_lens = (to_host(x) for x in batch["gt_phn_seq"])
+        cnncls, cnncl_lens = (to_host(x) for x in batch["gt_cnncl_seq"])
         self.stats_loggers["phn_per_stats"].append(
             ids=self._batch_ids, predict=pred_phns, target=phns,
             target_len=phn_lens, ind2lab=ind2lab)
@@ -172,7 +164,7 @@ class SBModel(CRDNNCTC):
         boundary_seqs = self._ctc_segmentation(batch, pout, gt_cnncl_seqs,
                                                blank)
         gt_boundaries = [np.asarray(b) for b in undo_padding(
-            *(_host(x) for x in batch["gt_boundary_seq"]))]
+            *(to_host(x) for x in batch["gt_boundary_seq"]))]
         self.stats_loggers["plvl_md_stats"].append(
             self._batch_ids, pred_phn_seqs=ali_pred, gt_phn_seqs=ali_gt,
             gt_cnncl_seqs=ali_cnncl, pred_boundary_seqs=boundary_seqs,
@@ -187,7 +179,7 @@ class SBModel(CRDNNCTC):
         feats, feat_lens = batch["feat"]
         T_feat = feats.shape[1]
         pout_rs = resample_by_factor_np(pout, T_feat)
-        feat_lens = _host(feat_lens)
+        feat_lens = to_host(feat_lens)
         out = []
         for i, labels in enumerate(gt_cnncl_seqs):
             n = int(round(float(feat_lens[i]) * T_feat))

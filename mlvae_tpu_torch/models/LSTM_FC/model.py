@@ -17,10 +17,14 @@ build (``lstm_fwd_wide_bf16``, ``lstm_bwd_wide_bf16``) in the AMP train
 step (``run_opts["bf16"]``), where no layer fits a fused tier. The
 training step's only draws are the LSTM's dropout keep-masks, one
 (T, B, H) mask a gap between layers (``draws``).
+
+``LSTMFC`` builds its modules from the widths in ``hparams``
+(``bench_utils.build_lstm_fc``) or takes the YAML's; ``SBModel`` is the
+recipe as ``cli.train`` / ``cli.test`` build it (selection on
+``flvl_md.F1``).
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,12 +32,13 @@ import torch
 import torch.nn.functional as F
 
 from mlvae_tpu_torch.metrics.md import MDMetricStats
-from mlvae_tpu_torch.models.md_model import MDModel
+from mlvae_tpu_torch.models.md_model import MDModel, dropout_draws, grad_if
 from mlvae_tpu_torch.modules.fc_block import FCBlock
 from mlvae_tpu_torch.nn.norm import InputNormalization
 from mlvae_tpu_torch.nn.rnn import LSTM
 from mlvae_tpu_torch.training.brain import Stage
-from mlvae_tpu_torch.utils.tensor import apply_lens_to_loss, undo_padding
+from mlvae_tpu_torch.utils.tensor import (apply_lens_to_loss, to_host,
+                                          undo_padding)
 
 
 def weighted_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
@@ -46,22 +51,36 @@ def weighted_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
 
 
 class LSTMFC(MDModel):
+    USED_BATCH_KEYS = {"feat", "aug_feat", "flvl_gt_md_lbl_seq",
+                       "aug_flvl_gt_md_lbl_seq"}
     # what the host-side evaluation reads (JAX SBModel.EVAL_PRED_KEYS)
     EVAL_PRED_KEYS = frozenset({"out"})
 
     def __init__(self, hparams: Dict,
                  generator: Optional[torch.Generator] = None, device=None,
-                 run_opts: Optional[Dict] = None):
-        super().__init__(hparams, run_opts)
-        h = self.hparams
-        kw = dict(generator=generator, device=device)
+                 run_opts: Optional[Dict] = None,
+                 modules: Optional[Dict] = None, **brain_kwargs):
+        """The modules are built from ``hparams``'s widths with weights
+        drawn from ``generator`` on ``device``, or taken from ``modules``
+        (the YAML's ``normalizer``, ``lstm`` and ``fc``)."""
+        super().__init__(hparams, run_opts, **brain_kwargs)
         self.stage = Stage.TEST
         self.stats_loggers: Dict = {}
-        self.normalizer = InputNormalization(h["input_size"], device=device)
-        self.lstm = LSTM(h["input_size"], h["lstm_hidden_size"],
-                         h["lstm_num_layers"], dropout=h["lstm_dropout"],
-                         **kw)
-        self.fc = FCBlock(h["fc_sizes"], **kw)
+        if modules is None:
+            modules = self.build_modules(
+                self.hparams, dict(generator=generator, device=device))
+        self.adopt_modules(modules)
+        self.normalizer.ensure_size(self.hparams["input_size"])
+
+    @staticmethod
+    def build_modules(h: Dict, kw: Dict) -> Dict[str, torch.nn.Module]:
+        """The recipe's modules at ``h``'s widths, in the YAML's order."""
+        return {"normalizer": InputNormalization(h["input_size"],
+                                                 device=kw["device"]),
+                "lstm": LSTM(h["input_size"], h["lstm_hidden_size"],
+                             h["lstm_num_layers"], dropout=h["lstm_dropout"],
+                             **kw),
+                "fc": FCBlock(h["fc_sizes"], **kw)}
 
     def set_stage(self, stage: Stage, epoch: Optional[int] = None):
         self.stage = stage
@@ -80,10 +99,8 @@ class LSTMFC(MDModel):
         """The draws of one forward, in the JAX package's RngStream order:
         (name, kind, shape, keep probability, dtype), as ``MDVAE.draws``
         lists them. Only a training forward draws: the LSTM's keep-masks."""
-        if not train:
-            return []
-        return [("lstm_dropout", "bernoulli", s, 1.0 - self.lstm.dropout,
-                 torch.float32) for s in self.lstm.dropout_shapes(B, T)]
+        return dropout_draws("lstm_dropout", self.lstm, B, T) if train \
+            else []
 
     def compute_forward(self, batch: Dict, noise: Optional[Dict] = None,
                         generator: Optional[torch.Generator] = None,
@@ -92,7 +109,7 @@ class LSTMFC(MDModel):
         applies dropout (``noise["lstm_dropout"]``, else drawn from
         ``generator``) and builds the graph; otherwise no graph is built."""
         feats = batch[self._keys(train)[0]][0]
-        with contextlib.nullcontext() if train else torch.no_grad():
+        with grad_if(train):
             out, _ = self.lstm(feats, train=train, generator=generator,
                                masks=(noise or {}).get("lstm_dropout"))
             return {"out": self.fc(out)}
@@ -122,12 +139,30 @@ class LSTMFC(MDModel):
         """Host side: each frame's argmax against the clean frame labels,
         both trimmed to their lengths, into ``flvl_md_stats``. ``ids``
         name the utterances (row numbers by default)."""
-        out = predictions["out"].detach().float().cpu().numpy()
-        feat_lens = batch["feat"][1].cpu().numpy()
-        md, md_lens = (x.cpu().numpy() for x in batch["flvl_gt_md_lbl_seq"])
+        out = to_host(predictions["out"])
+        feat_lens = to_host(batch["feat"][1])
+        md, md_lens = (to_host(x) for x in batch["flvl_gt_md_lbl_seq"])
         pred = undo_padding(out.argmax(-1), feat_lens)
         gt = undo_padding(np.asarray(md), md_lens)
         self.stats_loggers["flvl_md_stats"].append(
             list(range(len(pred))) if ids is None else list(ids),
             pred_md_lbl_seqs=[list(p) for p in pred],
             gt_md_lbl_seqs=[list(g) for g in gt])
+
+
+class SBModel(LSTMFC):
+    """LSTM_FC as ``cli.train`` / ``cli.test`` build it: the YAML's
+    modules, its checkpointer and epoch counter, the run's step generator
+    and the label encoder."""
+
+    def __init__(self, modules: Dict, hparams: Dict,
+                 run_opts: Optional[Dict] = None, checkpointer=None,
+                 label_encoder=None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(hparams, run_opts=run_opts, modules=modules,
+                         checkpointer=checkpointer,
+                         label_encoder=label_encoder)
+        self.generator = generator
+
+    def evaluate_predictions(self, predictions: Dict, batch, stage=None):
+        super().evaluate_predictions(predictions, batch, self._batch_ids)

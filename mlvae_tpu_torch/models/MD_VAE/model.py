@@ -43,7 +43,6 @@ inputs). ``batch["prior"]`` reaches the decode as bf16.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import logging
 import warnings
@@ -57,7 +56,8 @@ import torch
 from mlvae_tpu_torch.metrics.boundary import BoundaryMetricStats
 from mlvae_tpu_torch.metrics.loss import LossMetricStats
 from mlvae_tpu_torch.metrics.md import MDMetricStats
-from mlvae_tpu_torch.models.md_model import MDModel
+from mlvae_tpu_torch.models.md_model import (MDModel, dropout_draws,
+                                             grad_if, pi_vae_draws)
 from mlvae_tpu_torch.modules.boundary_detector import BoundaryDetector
 from mlvae_tpu_torch.modules.decoder import Decoder
 from mlvae_tpu_torch.modules.fc_block import FCBlock
@@ -69,7 +69,7 @@ from mlvae_tpu_torch.nn.rnn import LSTM
 from mlvae_tpu_torch.ops import decode as dec
 from mlvae_tpu_torch.training.brain import Stage, batch_feats
 from mlvae_tpu_torch.utils.tensor import (abs_lengths, apply_lens_to_loss,
-                                          undo_padding)
+                                          to_host, undo_padding)
 
 logger = logging.getLogger(__name__)
 
@@ -81,10 +81,6 @@ class Target(Enum):
     B_DETECTOR = auto()
     VAE = auto()
     TEST = auto()
-
-
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class MDVAE(MDModel):
@@ -122,8 +118,7 @@ class MDVAE(MDModel):
         if modules is None:
             modules = self._build_modules(
                 self.hparams, dict(generator=generator, device=device))
-        for name, module in modules.items():
-            setattr(self, name, module)
+        self.adopt_modules(modules)
 
     @staticmethod
     def _build_modules(h: Dict, kw: Dict) -> Dict[str, torch.nn.Module]:
@@ -200,31 +195,15 @@ class MDVAE(MDModel):
                         (BoundaryDetector.SAMPLE_TIMES, B, T), None, f32))
         if t in (Target.VAE, Target.TEST):
             if train:
-                out += [("rnn_dropout", "bernoulli", s,
-                         1.0 - self.rnn.dropout, f32)
-                        for s in self.rnn.dropout_shapes(B, T)]
+                out += dropout_draws("rnn_dropout", self.rnn, B, T)
             out += self._sample_draws(B, T, train)
         return out
 
     def _sample_draws(self, B: int, T: int, train: bool) -> List:
         """The draws of one π sample and the VAE on it: π's Gumbel noise
         (training only), the encoder's three, the decoder's dropout
-        masks (training only)."""
-        h = self.hparams
-        lat, nc = h["latent_size"], h["num_components"]
-        f32 = torch.float32
-        out = []
-        if train:
-            out.append(("pi_gumbel", "gumbel", (B, T, 2), None,
-                        torch.bfloat16 if self.auto_mix_prec else f32))
-        out += [("vanilla_eps", "normal", (B, T, lat), None, f32),
-                ("gumbel_g", "gumbel", (B, T, nc), None, f32),
-                ("gmm_eps", "normal", (B, T, lat * nc), None, f32)]
-        if train:
-            drop = self.decoder.rnn
-            out += [("decoder_dropout", "bernoulli", s, 1.0 - drop.dropout,
-                     f32) for s in drop.dropout_shapes(B, T)]
-        return out
+        masks (training only): ``pi_vae_draws``."""
+        return pi_vae_draws(self, B, T, train)
 
     def prepare_batch(self, batch):
         """Host-side checks of what the decode indexes with: every utterance
@@ -238,8 +217,8 @@ class MDVAE(MDModel):
         cn, cn_lens = batch["gt_cnncl_seq"]
         names = batch["id"] if "id" in batch else \
             list(range(len(feat_lens)))
-        t = np.round(_host(feat_lens).astype(np.float32) * feats.shape[1])
-        l = np.round(_host(cn_lens).astype(np.float32) * cn.shape[1])
+        t = np.round(to_host(feat_lens).astype(np.float32) * feats.shape[1])
+        l = np.round(to_host(cn_lens).astype(np.float32) * cn.shape[1])
         bad = np.where((t < l) | (l < 1))[0]
         if len(bad):
             raise ValueError(
@@ -248,7 +227,7 @@ class MDVAE(MDModel):
                 f"{[names[i] for i in bad[:5]]}")
         n_cls = min(self.hparams["n_phonemes"] + 2,
                     batch["prior"][0].shape[1])
-        ids = _host(cn)
+        ids = to_host(cn)
         bad = np.where(((ids < 0) | (ids >= n_cls)).any(axis=1))[0]
         if len(bad):
             raise ValueError(f"canonical phoneme ids outside [0, {n_cls}) "
@@ -292,7 +271,7 @@ class MDVAE(MDModel):
         target = self.target
         if train and target == Target.TEST:
             raise ValueError("the TEST target does not train")
-        with contextlib.nullcontext() if train else torch.no_grad():
+        with grad_if(train):
             return self._forward(batch, noise or {}, generator, train, epoch,
                                  target)
 
@@ -465,8 +444,8 @@ class SBModel(MDVAE):
         # a legitimate cause)
         _, cn_lens = batch["gt_cnncl_seq"]
         L = batch["gt_cnncl_seq"][0].shape[1]
-        l = np.round(_host(cn_lens).astype(np.float32) * L)
-        fa_b, fa_lens = (_host(x) for x in batch["fa_boundary_seq"])
+        l = np.round(to_host(cn_lens).astype(np.float32) * L)
+        fa_b, fa_lens = (to_host(x) for x in batch["fa_boundary_seq"])
         Tb = fa_b.shape[1]
         tmask = np.arange(Tb)[None, :] < np.round(
             fa_lens.astype(np.float32) * Tb)[:, None]
@@ -483,16 +462,16 @@ class SBModel(MDVAE):
     def evaluate_predictions(self, predictions, batch, stage):
         if not self.to_run_evaluation(stage):
             return
-        boundary = _host(predictions["decoded_boundary_seq"])
-        plvl = _host(predictions["decoded_plvl_md_lbl_seq"])
-        t_lens = _host(predictions["decoded_t_lens"])
-        l_lens = _host(predictions["decoded_l_lens"])
+        boundary = to_host(predictions["decoded_boundary_seq"])
+        plvl = to_host(predictions["decoded_plvl_md_lbl_seq"])
+        t_lens = to_host(predictions["decoded_t_lens"])
+        l_lens = to_host(predictions["decoded_l_lens"])
         B = boundary.shape[0]
         pred_boundary = [boundary[i, :t_lens[i]] for i in range(B)]
         pred_plvl = [plvl[i, :l_lens[i]] for i in range(B)]
-        gt_md_seqs = undo_padding(*(_host(x) for x in
+        gt_md_seqs = undo_padding(*(to_host(x) for x in
                                     batch["plvl_gt_md_lbl_seq"]))
-        gt_b_seqs = undo_padding(*(_host(x) for x in
+        gt_b_seqs = undo_padding(*(to_host(x) for x in
                                    batch["gt_boundary_seq"]))
         self.stats_loggers["plvl_md_stats"].append(
             ids=self._batch_ids, pred_md_lbl_seqs=pred_plvl,

@@ -16,6 +16,7 @@ package resumes or evaluates from the other's checkpoints.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import warnings
 from pathlib import Path
@@ -26,6 +27,7 @@ import torch
 
 from mlvae_tpu_torch.convert import STATE_MODULES, load_jax_checkpoint
 from mlvae_tpu_torch.metrics.loss import LossMetricStats
+from mlvae_tpu_torch.nn.norm import InputNormalization
 from mlvae_tpu_torch.training.brain import Brain, Stage
 from mlvae_tpu_torch.training.checkpointer import checkpoint_has
 from mlvae_tpu_torch.training.loggers import FileTrainLogger, ScalarWriter
@@ -40,6 +42,37 @@ def keystr(parts) -> str:
     return "".join(f"['{p}']" for p in parts)
 
 
+def grad_if(train: bool):
+    """The forward's context: autograd while training, none otherwise."""
+    return contextlib.nullcontext() if train else torch.no_grad()
+
+
+def dropout_draws(name: str, lstm, B: int, T: int):
+    """An LSTM's dropout keep-masks as named draws (see ``MDVAE.draws``):
+    one (T, B, width) mask a gap between layers."""
+    return [(name, "bernoulli", s, 1.0 - lstm.dropout, torch.float32)
+            for s in lstm.dropout_shapes(B, T)]
+
+
+def pi_vae_draws(model, B: int, T: int, train: bool):
+    """The draws of one π sample and the hierarchical VAE and decoder on
+    it (MD_VAE's and test_h_vae's): π's Gumbel noise (training only; bf16
+    under AMP, as ``jax.random.categorical`` draws it for bf16 logits),
+    the encoder's three, the decoder's dropout masks (training only)."""
+    lat, nc = model.hparams["latent_size"], model.hparams["num_components"]
+    f32 = torch.float32
+    out = []
+    if train:
+        out.append(("pi_gumbel", "gumbel", (B, T, 2), None,
+                    torch.bfloat16 if model.auto_mix_prec else f32))
+    out += [("vanilla_eps", "normal", (B, T, lat), None, f32),
+            ("gumbel_g", "gumbel", (B, T, nc), None, f32),
+            ("gmm_eps", "normal", (B, T, lat * nc), None, f32)]
+    if train:
+        out += dropout_draws("decoder_dropout", model.decoder.rnn, B, T)
+    return out
+
+
 def as_optimizer(info):
     """A YAML optimizer entry (``!name:torch.optim.Adam`` gives a partial
     of the port's ``Adam``) -> an optimizer with ``init`` and ``step``."""
@@ -48,10 +81,25 @@ def as_optimizer(info):
 
 class MDModel(Brain):
     # modules of the recipe's YAML ``modules`` that hold no parameters (the
-    # CTC recipes' normalizer): the JAX package keeps an optimizer state
-    # for each all the same (its count and hyperparameters, no moments,
-    # never advanced), which the checkpoint carries
+    # CTC recipes' and LSTM_FC's normalizer): the JAX package keeps an
+    # optimizer state for each all the same (its counts and
+    # hyperparameters, no moments, never advanced), which the checkpoint
+    # carries
     stateless_opt_modules: tuple = ()
+    # a recipe whose YAML selects on a metric it never emits (HMM_DNN_ALI)
+    # evaluates the newest checkpoint as its normal path: the guard of
+    # ``on_evaluate_start`` lets that selection through
+    ALLOW_KEYLESS_CKPT = False
+
+    def adopt_modules(self, modules: Dict) -> None:
+        """The recipe's modules as children by their names; those without
+        parameters keep an optimizer state in the checkpoint
+        (``stateless_opt_modules``)."""
+        for name, module in modules.items():
+            setattr(self, name, module)
+        self.stateless_opt_modules = tuple(
+            name for name, module in modules.items()
+            if next(module.parameters(), None) is None)
 
     def init_optimizers(self):
         """``hparams["optimizer"]`` for every module, or
@@ -187,7 +235,8 @@ class MDModel(Brain):
         parameters and the normalizer's statistics, and the epoch counter
         from its meta. A checkpoint from epoch 1 of a longer run, or one
         picked without its key, is refused unless ``--debug`` or
-        ``--allow_stale_ckpt``."""
+        ``--allow_stale_ckpt`` (the second also where the recipe sets
+        ``ALLOW_KEYLESS_CKPT``)."""
         if self.checkpointer is None:
             return
         ckpt = self.checkpointer.find_checkpoint(max_key=max_key,
@@ -207,7 +256,9 @@ class MDModel(Brain):
                 f"{epoch} of a {limit}-epoch config: the training run that "
                 f"produced it almost certainly failed. Re-run training, or "
                 f"pass --allow_stale_ckpt to evaluate it anyway.")
-        if (max_key or min_key) and self.checkpointer.last_selection_fell_back:
+        if ((max_key or min_key)
+                and self.checkpointer.last_selection_fell_back
+                and not self.ALLOW_KEYLESS_CKPT):
             raise RuntimeError(
                 f"no checkpoint records the selection key "
                 f"{max_key or min_key!r}; evaluating the newest checkpoint "
@@ -266,6 +317,8 @@ class MDModel(Brain):
                 out[f"['{mk}'].count"] = np.asarray(0, np.int32)
                 for k, v in opt.hyperparams().items():
                     out[f"['{mk}'].hyperparams['{k}']"] = np.asarray(v, f32)
+                for path in opt.SCALARS.values():
+                    out[f"['{mk}'].{path}"] = np.asarray(0, np.int32)
         return out
 
     def _set_opt_tree(self, name, tree: Dict[str, np.ndarray]) -> None:
@@ -303,3 +356,21 @@ class MDModel(Brain):
         counter = self.hparams.get("epoch_counter")
         if epoch is not None and counter is not None:
             counter.current = int(epoch)
+
+
+class RecipeModel(MDModel):
+    """A recipe as ``cli.train`` / ``cli.test`` build it from its YAML: the
+    modules by their YAML names, ``hparams["normalizer"]`` (sized to
+    ``input_size``; a fresh one where the YAML has none), its checkpointer
+    and epoch counter, the run's step generator and the label encoder."""
+
+    def __init__(self, modules: Dict, hparams: Dict, run_opts=None,
+                 checkpointer=None, label_encoder=None,
+                 generator: torch.Generator = None, device=None):
+        super().__init__(hparams, run_opts, checkpointer=checkpointer,
+                         label_encoder=label_encoder, generator=generator)
+        norm = self.hparams.get("normalizer")
+        self.normalizer = norm if isinstance(norm, InputNormalization) \
+            else InputNormalization(device=device)
+        self.normalizer.ensure_size(self.hparams["input_size"])
+        self.adopt_modules(modules)

@@ -1,7 +1,9 @@
 """MLP block of Linear + LeakyReLU pairs (counterpart of
 ``mlvae_tpu/modules/fc_block.py``): hidden layers get LeakyReLU, the last
 Linear gets one only when ``end_activation``. Layers are named
-``lin0``, ``lin1``, ... as in the JAX package's parameter tree."""
+``lin0``, ``lin1``, ... as in the JAX package's parameter tree. ``dropout``
+is taken and never used, as by the JAX module (the recipes' YAML passes
+it)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -14,12 +16,14 @@ from mlvae_tpu_torch.nn.layers import Linear, leaky_relu
 
 class FCBlock(nn.Module):
     def __init__(self, fc_sizes: Sequence[int], end_activation: bool = False,
+                 dropout: float = 0.15,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         sizes = [int(s) for s in fc_sizes]
         if len(sizes) < 2:
             raise ValueError(f"fc_sizes needs at least [in, out], got {sizes}")
         self.end_activation = bool(end_activation)
+        self.dropout = dropout   # taken, never used
         self.n_layers = len(sizes) - 1
         for i in range(self.n_layers):
             self.add_module(f"lin{i}", Linear(sizes[i], sizes[i + 1],

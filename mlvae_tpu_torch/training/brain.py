@@ -370,6 +370,9 @@ class Brain(nn.Module):
         device, the step; returns the loss on the device."""
         batch = self.prepare_batch(batch)
         dev_batch = self.to_device_batch(batch)
+        # a recipe that runs more device work on the batch after its step
+        # (HMM_DNN_ALI's realignment) reuses both
+        self._last_prepared_batch, self._last_dev_batch = batch, dev_batch
         self._batch_ids = batch["id"]
         loss, losses = self.train_step(
             dev_batch, epoch, noise=self._next_noise(dev_batch, True),

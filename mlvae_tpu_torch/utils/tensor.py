@@ -41,10 +41,12 @@ def apply_weight(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return torch.einsum("btnc,btn->btc", x.to(dt), weight.to(dt))
 
 
-def apply_lens_to_loss(loss: torch.Tensor,
-                       rel_lens: torch.Tensor) -> torch.Tensor:
-    """Masked mean; loss (B, T, ...), rel_lens (B,). The mask threshold is
-    the unrounded ``rel_len * T`` (see the module header)."""
+def apply_lens_to_loss(loss: torch.Tensor, rel_lens: torch.Tensor,
+                       reduction: str = "mean") -> torch.Tensor:
+    """Masked reduction; loss (B, T, ...), rel_lens (B,). The mask
+    threshold is the unrounded ``rel_len * T`` (see the module header).
+    ``reduction``: ``mean`` over the valid elements, ``batchmean`` (their
+    sum over B) or ``batch`` (each utterance's mean)."""
     T = loss.shape[1]
     idx = torch.arange(T, device=loss.device)[None, :]
     thresh = rel_lens.float()[:, None] * T
@@ -52,7 +54,24 @@ def apply_lens_to_loss(loss: torch.Tensor,
     while mask.dim() < loss.dim():
         mask = mask[..., None]
     mask = mask.expand(loss.shape)
-    return (loss * mask).sum() / mask.sum()
+    masked = loss * mask
+    B = loss.shape[0]
+    if reduction == "mean":
+        return masked.sum() / mask.sum()
+    if reduction == "batchmean":
+        return masked.sum() / B
+    if reduction == "batch":
+        return masked.reshape(B, -1).sum(-1) / mask.reshape(B, -1).sum(-1)
+    raise ValueError(f"unknown reduction: {reduction}")
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor (bf16 as f32) or an array -> a host numpy array."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def undo_padding(batch, rel_lens) -> List[np.ndarray]:

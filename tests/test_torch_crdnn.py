@@ -22,7 +22,8 @@
 * (g) ``k1_plan`` and the bf16 K1 wrappers at H = 128-512 (the launches'
   bookkeeping on meta tensors), H % 128 != 0 refused naming item 4;
 * (h) the recipe copies byte-equal to the JAX package's, the CLI and the
-  registry refusing only what is still unported."""
+  registry refusing only what is still unported (the wav2vec2 family),
+  and the HMM_DNN_ALI names resolving into the port."""
 from pathlib import Path
 
 import numpy as np
@@ -500,8 +501,11 @@ def test_recipe_copies_are_byte_equal(recipe):
 
 
 def test_cli_refuses_only_what_is_unported():
+    """Only the six wav2vec2 recipes are refused, each naming item 11."""
     assert not set(RECIPES) & set(UNPORTED_MODELS)
-    assert UNPORTED_MODELS["HMM_DNN_ALI"] == 9
+    assert UNPORTED_MODELS == {name: 11 for name in (
+        "w2v_MD_VAE", "w2v_MD_VAE_sfl", "w2v_MD_VAE_sfl_resi",
+        "w2v_CRDNN_CTC", "w2v_CRDNN_CTC_cnncl", "w2v_LSTM_FC")}
 
 
 @pytest.mark.parametrize("name, target", [
@@ -526,5 +530,8 @@ def test_registry_resolves_the_ctc_names(name, target):
     "speechbrain.alignment.aligner.HMMAligner",
     "modules.hmm_aligner.HMMAligner"])
 def test_registry_still_refuses_the_hmm_aligner_recipe(name):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        registry.locate(name)
+    """The HMM_DNN_ALI names, refused until its port, now resolve into the
+    port's ``ops.losses`` and ``modules.hmm_aligner``."""
+    target = registry.locate(name)
+    assert target.__module__ in ("mlvae_tpu_torch.ops.losses",
+                                 "mlvae_tpu_torch.modules.hmm_aligner")

@@ -169,9 +169,10 @@ def test_prefix_remaps_resolve_into_the_port(name):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("modules.hmm_aligner.HMMAligner", "item 9"),
+    ("mlvae_tpu.modules.hmm_aligner.HMMAligner", "no alias"),
     ("modules.wav2vec2.Wav2Vec2Encoder", "item 11"),
-    ("speechbrain.nnet.losses.nll_loss", "item 9"),
+    ("speechbrain.lobes.models.huggingface_wav2vec.HuggingFaceWav2Vec2",
+     "item 11"),
     ("torch.nn.Linear", "no alias"),
     ("speechbrain.nnet.CNN.Conv1d", "no alias"),
     ("mlvae_tpu.nn.rnn.LSTM", "no alias"),
