@@ -162,7 +162,18 @@ Phases, each reported on its own line; any failure exits non-zero:
    with the ``forward`` and the ``viterbi`` training type on the card
    against the same on the CPU from the card run's weights (no kernel
    launched; losses within 1e-4; stored alignments and accuracy equal),
-   with the phase's seconds;
+   with the phase's seconds; then the real corpora's data path in one
+   more temporary directory (``run_cli_corpora``): corpora laid out as
+   L2-ARCTIC (every speaker of its split, two utterances of 2-4 s),
+   TIMIT (its waves as NIST SPHERE) and ChineseDPA
+   (``data/corpus_layout.py``, seed 0); on L2-ARCTIC MD_VAE's
+   ``cli.train`` (one debug epoch) and ``cli.test`` at the recipe's full
+   width and LSTM_FC's ``cli.train`` with ``augmentation`` in the run
+   YAML, each against the same through the plain versions; TIMIT's and
+   ChineseDPA's ``prepare_experiment``; every corpus's two feature passes
+   with K6's launches exact (one a set each, the SpeechBrain pass twice a
+   set with augmentation) and against the plain versions; ``cli.ingest``
+   over the TIMIT tree;
 4. times from CUDA events after warm-up: each kernel, its plain version,
    a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6, in
    turns with each build of K6 in SpeechBrain mode and on the Kaldi pass's
@@ -421,6 +432,23 @@ HARNESS_LAYERS = {"test_phn_classifier": (2, 0),
 # flips are rarer, stays within 2.3e-6 at 1.0)
 BF16_CLI_EXTRA = {"LSTM_FC": ", lr: 0.001"}
 HMM_TYPES = ("forward", "viterbi")
+# the CLI's corpus: config/run.yaml and the synthesized SynAudioMNIST
+# corpus; "epochs": None takes one turn of the recipe's cycle
+SYNTH_CORPUS = {"dataset": "SynAudioMNIST", "language": "digits",
+                "n_phonemes": 12, "hparams": REPO / "config/run.yaml",
+                "epochs": None}
+# the real corpora's data path (phase 3): corpora laid out as L2-ARCTIC
+# (every speaker of its split, two utterances of 2-4 s each), TIMIT (its
+# waves as SPHERE) and ChineseDPA (data/corpus_layout.py), from seed 0
+L2_CORPUS = {"dataset": "L2_ARCTIC", "language": "english",
+             "n_phonemes": 39, "epochs": 1}
+TIMIT_CORPUS = {"dataset": "TIMIT", "language": "english",
+                "n_phonemes": 39, "epochs": 1}
+DPA_CORPUS = {"dataset": "ChineseDPA", "language": "pinyin",
+              "n_phonemes": 62, "epochs": 1}
+AUGMENTATION = ("augmentation: !new:mlvae_tpu_torch.ops.augment."
+                "WaveAugment\n  speeds: [0.95, 1.0, 1.05]\n"
+                "  noise_snr_db: 30\n")
 HMM_RTOL = 1e-4           # HMM_DNN_ALI on the card against the CPU: f32
                           # sums in another order through two Adam steps
 HMM_B, HMM_T, HMM_L = 64, 160, 16   # phase 4's HMM_DNN_ALI train step
@@ -4550,23 +4578,27 @@ def cli_epochs(recipe):
     return CLI_EPOCHS if recipe == "MD_VAE" else FAMILY_EPOCHS[recipe]
 
 
-def cli_args(name, bf16=False, recipe="MD_VAE", extra=""):
+def cli_args(name, bf16=False, recipe="MD_VAE", extra="", corpus=None):
     """The recipe as a user runs it: config/run.yaml, the synthesized
     corpus, the recipe at its full width (the loss weights its YAML leaves
     to the default pinned to 1.0), one turn of its cycle in debug epochs
     of two batches, on the card (no --device). ``extra``: more recipe
-    keys, e.g. HMM_DNN_ALI's training type."""
+    keys, e.g. HMM_DNN_ALI's training type; ``corpus``: another dataset,
+    its language and phoneme count, run YAML or number of epochs (keys of
+    ``SYNTH_CORPUS``)."""
     from mlvae_tpu_torch.bench_utils import unset_loss_weights
+    corpus = {**SYNTH_CORPUS, **(corpus or {})}
     yaml = REPO / "mlvae_tpu_torch/models" / recipe / "model.yaml"
     pinned = "" if recipe in CTC_RECIPES else "".join(
         f", {k}: 1.0" for k in unset_loss_weights(yaml))
-    args = [str(REPO / "config/run.yaml"), "--dataset", "SynAudioMNIST",
-            "--language", "digits", "--n_phonemes", "12",
+    args = [str(corpus["hparams"]), "--dataset", corpus["dataset"],
+            "--language", corpus["language"],
+            "--n_phonemes", str(corpus["n_phonemes"]),
             "--model_class", recipe, "--model_name", name,
             "--model", f"!include:{yaml}",
             "--extra_overrides",
-            "{model: {n_epochs: %d%s%s}}" % (cli_epochs(recipe), pinned,
-                                             extra),
+            "{model: {n_epochs: %d%s%s}}" % (
+                corpus["epochs"] or cli_epochs(recipe), pinned, extra),
             "--debug", "--debug_batches", "2"]
     return args + (["--bf16"] if bf16 else [])
 
@@ -4580,11 +4612,12 @@ def expected_stage_launches(probe, amp=False, recipe="MD_VAE"):
 
 
 def run_cli_train(report, probe, name, amp=False, recipe="MD_VAE",
-                  extra=""):
+                  extra="", corpus=None):
     """``cli.train`` for one turn of the recipe's cycle in debug epochs
-    through the kernels, then the same run from the same seed through the
-    plain versions (``extra``: more recipe keys, as ``cli_args``); returns
-    the kernel run's model, its launches and the stage records."""
+    (or ``corpus``'s epochs) through the kernels, then the same run from
+    the same seed through the plain versions (``extra``, ``corpus``: as
+    ``cli_args``); returns the kernel run's model, its launches and the
+    stage records."""
     import numpy as np
     import torch
     from mlvae_tpu_torch.cli import train as train_cli
@@ -4592,11 +4625,11 @@ def run_cli_train(report, probe, name, amp=False, recipe="MD_VAE",
     tol = CLI_AMP_LOSS_RTOL if amp else CLI_LOSS_RTOL
     label = ("" if recipe == "MD_VAE" else recipe + " ") + \
         ("--bf16 " if amp else "")
-    epochs = cli_epochs(recipe)
+    epochs = (corpus or {}).get("epochs") or cli_epochs(recipe)
     probe.reset()
     reset_launches()
     model = train_cli.main(cli_args(name, bf16=amp, recipe=recipe,
-                                    extra=extra))
+                                    extra=extra, corpus=corpus))
     torch.cuda.synchronize()
     total = launches()
     stages = probe.stages
@@ -4618,6 +4651,7 @@ def run_cli_train(report, probe, name, amp=False, recipe="MD_VAE",
                                   for st in ("TRAIN", "VALID")],
           f"{label}stages {list(stages)}")
     check(getattr(model, "target", None) is None
+          or epochs != cli_epochs(recipe)
           or model.target.name == "VAE", "the cycle did not end on VAE")
     check(all(p.dtype == torch.float32 for p in model.parameters()),
           "a parameter is not f32")
@@ -4626,7 +4660,7 @@ def run_cli_train(report, probe, name, amp=False, recipe="MD_VAE",
     with twins():
         reset_launches()
         train_cli.main(cli_args(name + "_plain", bf16=amp, recipe=recipe,
-                                extra=extra))
+                                extra=extra, corpus=corpus))
         torch.cuda.synchronize()
         check(sum(launches().values()) == 0,
               "the plain CLI run hit a kernel")
@@ -4671,7 +4705,7 @@ def check_feature_passes(report, probe):
     return errs
 
 
-def run_cli_test(report, probe, root, name, recipe="MD_VAE"):
+def run_cli_test(report, probe, root, name, recipe="MD_VAE", corpus=None):
     """``cli.test`` from the best checkpoint (MD_VAE_joint saves none in
     one epoch: the weights it builds), then the same checkpoint and
     batches through the plain versions: launches, decode, MD and boundary
@@ -4682,10 +4716,10 @@ def run_cli_test(report, probe, root, name, recipe="MD_VAE"):
     from mlvae_tpu_torch.cli import test as test_cli
 
     label = "" if recipe == "MD_VAE" else recipe + " "
-    args = cli_args(name, recipe=recipe)
+    args = cli_args(name, recipe=recipe, corpus=corpus)
+    dataset = {**SYNTH_CORPUS, **(corpus or {})}["dataset"]
     metrics = Path(root) / f"results/{name}/test_output/test_metrics.txt"
-    saved = Path(root) / \
-        f"datasets/SynAudioMNIST/saved_md_results/{name}.json"
+    saved = Path(root) / f"datasets/{dataset}/saved_md_results/{name}.json"
     probe.reset()
     reset_launches()
     model = test_cli.main(args)
@@ -4923,6 +4957,181 @@ def run_cli_family(dev, report, smi):
     return counts, amp_total, out
 
 
+def check_corpus_passes(report, probe, label, sets, augmented=False):
+    """The feature passes that ``probe`` recorded since its ``passes``
+    were last emptied: the Kaldi pass and the SpeechBrain pass once a set
+    each (and the SpeechBrain pass a second time a set over the augmented
+    waves), one launch of K6's FFT build a call (no set passes 256
+    utterances) and no other kernel. Prints their seconds and launches;
+    returns them."""
+    out = {}
+    for name, want in (("kaldi", sets), ("speechbrain",
+                                        sets * (2 if augmented else 1))):
+        rec = probe.passes.get(name, {"calls": 0, "seconds": 0.0,
+                                      "launches": launches()})
+        got = {k: v for k, v in rec["launches"].items() if v}
+        n = sum(len(io[3]) for io in rec.get("io", ()))
+        report(f"  {label} {name} feature pass: {rec['seconds']:.3f} s over "
+               f"{rec['calls']} calls ({n} utterances); launches {got}")
+        check(rec["calls"] == want and got == {"fbank_fft": want},
+              f"{label}: the {name} pass made {rec['calls']} calls and "
+              f"launched {got}, not K6's FFT build once a call of {want}")
+        out[name] = {"seconds": rec["seconds"], "calls": rec["calls"],
+                     "utterances": n, "launches": got}
+    return out
+
+
+def run_cli_corpora(dev, report, smi):
+    """Phase 3's real corpora: corpora laid out as L2-ARCTIC, TIMIT and
+    ChineseDPA (``data/corpus_layout.py``, seed 0) in a temporary
+    directory, through the entry points a user calls. On L2-ARCTIC (every
+    speaker of its split, two utterances of 2-4 s): ``cli.train`` of
+    MD_VAE at the recipe's full width (one debug epoch of two batches)
+    and ``cli.test``, then ``cli.train`` of LSTM_FC (H=1024) with
+    ``augmentation`` in the run YAML, each against the same through the
+    plain versions; TIMIT's waves as NIST SPHERE and ChineseDPA's through
+    ``prepare_experiment`` (the prepare and both feature passes); each
+    corpus's feature passes with K6's launches exact (twice the
+    SpeechBrain pass's with augmentation) and held against the plain
+    versions; ``cli.ingest`` over the TIMIT tree. Returns the launches of
+    the kernel runs and the numbers."""
+    import logging
+    import os
+    import pickle
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mlvae_tpu_torch.cli import ingest as ingest_cli
+    from mlvae_tpu_torch.cli.experiment import prepare_experiment
+    from mlvae_tpu_torch.data import corpus_layout
+    from mlvae_tpu_torch.data.wav import read_wav
+
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    t_start = time.perf_counter()
+    cwd = os.getcwd()
+    root = tempfile.mkdtemp(prefix="mlvae_cli_corpora_")
+    probe = CliProbe()
+    out = {"card": smi}
+    counts = {k: 0 for k in launches()}
+
+    def add(total):
+        for k in counts:
+            counts[k] += total[k]
+
+    def passes(label, sets=3, augmented=False):
+        """This corpus's passes, checked and held against the plain
+        versions (which resets the launch counts: read them before),
+        then forgotten."""
+        rec = check_corpus_passes(report, probe, label, sets, augmented)
+        out.setdefault("feature_pass_err", {})[label] = \
+            check_feature_passes(report, probe)
+        probe.passes = {}
+        return rec
+    try:
+        os.chdir(root)
+        t0 = time.perf_counter()
+        written = corpus_layout.write_l2_arctic("datasets/L2_ARCTIC")
+        corpus_layout.write_timit("datasets/TIMIT")
+        corpus_layout.write_chinese_dpa("datasets/ChineseDPA")
+        out["write_s"] = time.perf_counter() - t0
+        report(f"  corpora written in {out['write_s']:.3f} s: L2_ARCTIC "
+               f"{sum(map(len, written.values()))} utterances of "
+               f"{len(written)} speakers, TIMIT, ChineseDPA")
+
+        # MD_VAE on L2-ARCTIC: the prepare, both feature passes, one epoch
+        probe.passes = {}
+        model, total, _ = run_cli_train(report, probe, "l2_md_vae",
+                                        corpus=L2_CORPUS)
+        add(total)
+        out["L2_ARCTIC"] = {"passes": passes("L2_ARCTIC"),
+                            "epochs": model.epoch_log}
+        del model
+        test_total, out["L2_ARCTIC"]["evaluate_s"] = run_cli_test(
+            report, probe, root, "l2_md_vae", corpus=L2_CORPUS)
+        add(test_total)
+
+        # LSTM_FC on the same corpus with augmentation: a run YAML that
+        # names the augmenter, and the computed sets made anew
+        run_yaml = Path(root) / "run_augmented.yaml"
+        run_yaml.write_text((REPO / "config/run.yaml").read_text()
+                            + AUGMENTATION)
+        shutil.rmtree("datasets/L2_ARCTIC/computed_dataset")
+        model, total, _ = run_cli_train(
+            report, probe, "l2_lstm_fc", recipe="LSTM_FC",
+            corpus={**L2_CORPUS, "hparams": run_yaml})
+        add(total)
+        out["L2_ARCTIC_augmented"] = {
+            "passes": passes("L2_ARCTIC augmented", augmented=True),
+            "epochs": model.epoch_log}
+        del model
+        with open("datasets/L2_ARCTIC/computed_dataset/train.pkl",
+                  "rb") as f:
+            train = pickle.load(f)
+        check(all(s["aug_feat"].shape == s["feat"].shape
+                  and not np.array_equal(s["aug_wav"], s["wav"])
+                  for s in train.values()),
+              "the augmented train set repeats the clean waves")
+
+        # TIMIT (SPHERE) and ChineseDPA: the prepare and both passes
+        for label, corpus in (("TIMIT", TIMIT_CORPUS),
+                              ("ChineseDPA", DPA_CORPUS)):
+            reset_launches()
+            t0 = time.perf_counter()
+            prepared = prepare_experiment(cli_args(
+                label.lower(), recipe="test_phn_classifier", corpus=corpus))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            add(launches())
+            sizes = [len(ds.ids) for ds in prepared["datasets"]]
+            sample = next(iter(prepared["datasets"][0].data.values()))
+            check(all(sizes) and sample["feat"].shape[1] == 120
+                  and sample["feat"].shape == sample["kaldi_feat"].shape
+                  and np.isfinite(sample["feat"]).all(),
+                  f"{label}: sets {sizes}, feat {sample['feat'].shape}")
+            report(f"  {label} prepare_experiment: {seconds:.3f} s; sets "
+                   f"{sizes} utterances")
+            del prepared
+            out[label] = {"passes": passes(label), "sets": sizes,
+                          "prepare_s": seconds}
+
+        # cli.ingest over the TIMIT tree: every SPHERE file as 16 kHz WAV
+        t0 = time.perf_counter()
+        src = Path("datasets/TIMIT/original_dataset")
+        n = ingest_cli.main([str(src), "ingested/TIMIT"])
+        seconds = time.perf_counter() - t0
+        sph = sorted(src.rglob("*.wav"))
+        err = 0.0
+        for path in sph:
+            want, _ = read_wav(path)
+            got, sr = read_wav(Path("ingested/TIMIT") / path.relative_to(
+                src))
+            check(sr == 16000 and len(got) == len(want),
+                  f"ingest {path}: {sr} Hz, {len(got)} != {len(want)}")
+            err = max(err, float(np.abs(got - want).max()))
+        report(f"  cli.ingest over the TIMIT tree: {n} files in "
+               f"{seconds:.3f} s (host only), max abs err {err:.3e} "
+               "against the SPHERE source (PCM16 again)")
+        check(n == len(sph) and err <= 2 / 32768,
+              f"cli.ingest wrote {n} of {len(sph)} files, err {err}")
+        out["ingest"] = {"files": n, "seconds": seconds}
+    finally:
+        probe.close()
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_start
+    report(f"  the real corpora's data path on {smi}: "
+           + "; ".join(f"{k} passes " + ", ".join(
+               f"{n} {p['seconds']:.3f} s" for n, p in v["passes"].items())
+               + ("; epochs " + ", ".join(
+                   f"{e['epoch']}: {e['seconds']:.3f} s" for e in
+                   v["epochs"]) if "epochs" in v else "")
+               for k, v in out.items() if isinstance(v, dict)
+               and "passes" in v)
+           + f"; {out['seconds']:.1f} s in all")
+    return counts, out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5074,6 +5283,13 @@ def main(argv=None) -> int:
            "on the card against the CPU")
     cli_hr_counts, cli_hr_amp_counts, cli["harness"] = run_cli_harness(
         dev, report, smi)
+    report("phase 3 the real corpora's data path: corpora laid out as "
+           "L2-ARCTIC, TIMIT (SPHERE) and ChineseDPA; on L2-ARCTIC MD_VAE's "
+           "cli.train (one debug epoch) and cli.test and LSTM_FC's "
+           "cli.train with augmentation, TIMIT's and ChineseDPA's prepare "
+           "and both feature passes, each against the plain versions; "
+           "cli.ingest over the TIMIT tree")
+    cli_corpora_counts, cli["corpora"] = run_cli_corpora(dev, report, smi)
     # the paths' launches: the eval forward's, the wav-in path's, the six
     # f32 and six AMP MD_VAE train steps', the two MD_VAE_sfl VAE steps',
     # the four gate-3 steps', the unroll path's, LSTM_FC's eval and two
@@ -5081,7 +5297,8 @@ def main(argv=None) -> int:
     # (the feature passes with cli.train, cli.test and cli.infer;
     # cli.train --bf16), MD_VAE's and the family's; CRDNN_CTC's eval
     # forward and f32 and --bf16 train steps, and the CTC recipes' CLI paths;
-    # the harness recipes', LSTM_FC's and HMM_DNN_ALI's CLI paths
+    # the harness recipes', LSTM_FC's and HMM_DNN_ALI's CLI paths; the
+    # real corpora's (their feature passes, MD_VAE's and LSTM_FC's runs)
     counts = {k: {"launches": eval_counts[k] + wav_counts[k]
                   + train_counts[k] + amp_counts[k] + sfl_counts[k]
                   + gate_counts[k]
@@ -5090,7 +5307,8 @@ def main(argv=None) -> int:
                   + fam_counts[k] + fam_amp_counts[k] + ctc_counts[k]
                   + ctc_amp_counts[k] + cli_ctc_counts[k]
                   + cli_ctc_amp_counts[k] + cli_hr_counts[k]
-                  + cli_hr_amp_counts[k],
+                  + cli_hr_amp_counts[k] + cli_corpora_counts[k],
+                  "launches_cli_corpora": cli_corpora_counts[k],
                   "launches_cli_harness": cli_hr_counts[k],
                   "launches_cli_harness_bf16": cli_hr_amp_counts[k],
                   "launches_crdnn_training": ctc_counts[k],

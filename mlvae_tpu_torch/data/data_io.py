@@ -12,9 +12,11 @@ Two feature passes run on the card, both through K6: the Kaldi pass
 (``compute_kaldi_features``: ``KaldiFbank`` and per-speaker CMVN, which
 takes the place of the reference's four Kaldi subprocesses) and the
 SpeechBrain pass (the recipe's ``compute_features``, an ``ops.fbank.Fbank``,
-over 256-utterance chunks). There is no CPU fallback: a pass runs on the
-run's device or raises. The JAX package's native C++ Kaldi branch is not
-ported (the port's extractor is K6).
+over 256-utterance chunks), run a second time over the augmented waves
+where the recipe names an ``augmentation`` (the waves themselves are
+augmented on the host, ``ops/augment.py``). There is no CPU fallback: a
+pass runs on the run's device or raises. The JAX package's native C++
+Kaldi branch is not ported (the port's extractor is K6).
 """
 from __future__ import annotations
 
@@ -164,11 +166,11 @@ def data_io_prep(hparams, device=None) -> List[DynamicItemDataset]:
     """The three sets (train, valid, test) as dynamic-item datasets with
     both feature passes run: the Kaldi pass on ``device`` (None means
     CUDA) and the SpeechBrain pass through ``hparams["compute_features"]``
-    (built on the run's device by the loader)."""
-    if hparams.get("augmentation") is not None:
-        raise NotImplementedError(
-            "wave augmentation is not ported; it waits in ROADMAP queue 1 "
-            "item 5 (the data path)")
+    (built on the run's device by the loader). Where ``hparams`` names an
+    ``augmentation`` (``ops.augment.WaveAugment``), each utterance gets one
+    augmented wave on the host, set by set in the sets' utterance order as
+    the JAX package draws them, and the SpeechBrain pass runs again over
+    the augmented waves (``aug_wav``, ``aug_feat``)."""
 
     def dataset_prep(set_name: str) -> DynamicItemDataset:
         ds = DynamicItemDataset.from_json(
@@ -194,6 +196,7 @@ def data_io_prep(hparams, device=None) -> List[DynamicItemDataset]:
 
     sr = hparams["sample_rate"]
     compute_features = hparams["compute_features"]
+    augmentation = hparams.get("augmentation")
 
     def kaldi_feat_pipeline(utt_id):
         yield kaldi_feats[utt_id]
@@ -212,8 +215,14 @@ def data_io_prep(hparams, device=None) -> List[DynamicItemDataset]:
                 "rate/hop configuration")
         return feat[:n]
 
+    def trimmed_sb_features(wavs):
+        return {u: _trim_to_kaldi(f, u) for u, f in
+                sb_features(compute_features, wavs).items()}
+
     wav_store: Dict[str, np.ndarray] = {}
+    aug_wav_store: Dict[str, np.ndarray] = {}
     sb_feats: Dict[str, np.ndarray] = {}
+    aug_sb_feats: Dict[str, np.ndarray] = {}
     t0 = time.time()
     for ds in datasets:
         wavs = {}
@@ -223,16 +232,20 @@ def data_io_prep(hparams, device=None) -> List[DynamicItemDataset]:
                 wav = resample(wav, file_sr, sr)
             wavs[utt_id] = wav
         wav_store.update(wavs)
-        sb_feats.update({u: _trim_to_kaldi(f, u) for u, f in
-                         sb_features(compute_features, wavs).items()})
+        sb_feats.update(trimmed_sb_features(wavs))
+        if augmentation is not None:
+            aug = {u: np.asarray(augmentation(w[None]))[0]
+                   for u, w in wavs.items()}
+            aug_wav_store.update(aug)
+            aug_sb_feats.update(trimmed_sb_features(aug))
     logger.info("SB feature pass (batched): %d utts in %.1fs",
                 len(sb_feats), time.time() - t0)
 
     def audio_pipeline(utt_id):
         yield wav_store[utt_id]
         yield sb_feats[utt_id]
-        yield wav_store[utt_id]   # no augmentation: aug_* repeat the wave
-        yield sb_feats[utt_id]
+        yield aug_wav_store.get(utt_id, wav_store[utt_id])
+        yield aug_sb_feats.get(utt_id, sb_feats[utt_id])
 
     def flvl_pipeline(feat, aug_feat, duration, seg_seq, txt_seq):
         # which text sequence arrives (phn vs cnncl) is set by the takes

@@ -2,9 +2,8 @@
 
 The port's own copy of ``mlvae_tpu/data/wav.py``: RIFF WAV (8-, 16- and
 32-bit PCM, channels averaged) through the standard library, NIST SPHERE
-(the LDC TIMIT format) as raw PCM or mu-law, and a windowed-sinc polyphase
-resampler in numpy. SPHERE files with shorten compression need the
-shorten decoder, which waits in ROADMAP queue 1 item 5 (the data path).
+(the LDC TIMIT format) as raw PCM, mu-law or shorten-compressed
+(``data/shorten.py``), and a windowed-sinc polyphase resampler in numpy.
 """
 from __future__ import annotations
 
@@ -19,7 +18,7 @@ def _read_sphere(path) -> tuple[np.ndarray, int]:
     reference converted with sph2pipe, ``datasets/prepare_kaldi.py:36-42``):
     1024-byte ASCII header of 'name -type value' lines, then PCM/ulaw data,
     either raw or shorten-compressed ('embedded-shorten-v*', the actual LDC
-    TIMIT encoding, which raises here until the decoder is ported)."""
+    TIMIT encoding — decoded on the host by ``data/shorten.py``)."""
     with open(path, "rb") as f:
         magic = f.read(8)
         assert magic.startswith(b"NIST_1A")
@@ -38,10 +37,21 @@ def _read_sphere(path) -> tuple[np.ndarray, int]:
     ch = int(fields.get("channel_count", 1))
     nbytes = int(fields.get("sample_n_bytes", 2))
     if "shorten" in coding:
-        raise NotImplementedError(
-            f"{path}: shorten-compressed SPHERE ({coding!r}) needs the "
-            "shorten decoder, not yet ported (ROADMAP queue 1 item 5, the "
-            "data path); decompress it to raw SPHERE or WAV first")
+        from mlvae_tpu_torch.data.shorten import (ULAW_TYPES, decode_shorten,
+                                                  ulaw_to_linear)
+        samples, ftype, nchan = decode_shorten(raw)
+        count = fields.get("sample_count")
+        if count is not None:
+            samples = samples[: int(count)]
+        if ftype in ULAW_TYPES or coding.startswith(("ulaw", "mu-law")):
+            data = ulaw_to_linear(samples).astype(np.float32) / 8192.0
+        else:
+            data = samples.astype(np.float32) / 32768.0
+        if nchan > 1:
+            data = data.mean(axis=1)
+        else:
+            data = data[:, 0]
+        return data, sr
     if coding.startswith("ulaw") or coding.startswith("mu-law"):
         u = np.frombuffer(raw, np.uint8).astype(np.int16)
         u = ~u & 0xFF

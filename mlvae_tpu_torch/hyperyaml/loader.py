@@ -58,6 +58,21 @@ class TaggedValue:
         return TaggedValue(self.tag, copy.deepcopy(self.value, memo))
 
 
+class Placeholder:
+    """Dumpable stand-in for ``!PLACEHOLDER`` (``dump_hyperyaml``)."""
+
+    yaml_tag = "!PLACEHOLDER"
+
+
+class RefTag:
+    """Dumpable stand-in for ``!ref <key>`` (``dump_hyperyaml``)."""
+
+    yaml_tag = "!ref"
+
+    def __init__(self, ref_str: str):
+        self.ref_str = ref_str
+
+
 class _TaggedLoader(yaml.SafeLoader):
     pass
 
@@ -376,6 +391,29 @@ def _to_dumpable(node):
     return node
 
 
+def dump_hyperyaml(yaml_tree, output_stream, *args, **kwargs):
+    """Dump a tree that may contain Placeholder/RefTag sentinels."""
+
+    def convert(node):
+        if isinstance(node, Placeholder):
+            return TaggedValue("!PLACEHOLDER", "")
+        if isinstance(node, RefTag):
+            return TaggedValue("!ref", node.ref_str)
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [convert(v) for v in node]
+        return node
+
+    yaml.dump(
+        _to_dumpable(convert(yaml_tree)),
+        output_stream,
+        Dumper=_TaggedDumper,
+        sort_keys=False,
+        default_flow_style=False,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Materialization (construction)
 # ---------------------------------------------------------------------------
@@ -540,3 +578,7 @@ def load_hyperyaml(
         for k in [k for k in hparams if str(k).startswith("__")]:
             del hparams[k]
     return hparams
+
+
+# the reference name (HyperPyYAML's own)
+load_hyperpyyaml = load_hyperyaml

@@ -5,7 +5,8 @@ The recipes name torch and SpeechBrain classes (``!new:torch.nn.LSTM``,
 ``!new:speechbrain.processing.features.InputNormalization``) and the
 repo's own modules by short prefixes (``!new:modules.fc_block.FCBlock``).
 Every alias the JAX package's registry knows maps here onto a port target,
-or raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+or raises ``NotImplementedError`` naming the ROADMAP item that ports it;
+``register`` adds names of the caller's own.
 A ``torch.*`` or ``speechbrain.*`` name without an alias is refused: it
 never falls through to a plain import of the library class, and nothing
 resolves into the JAX package.
@@ -77,9 +78,36 @@ UNPORTED_PREFIXES: Dict[str, str] = {
     "modules.wav2vec2.": _ITEM11,
 }
 
+# the JAX package's top-level name
+JAX_PACKAGE = "mlvae_tpu"
+
+# names under the JAX package that a YAML written for it may carry, by the
+# rest of the dotted name -> the port's target (so that one override loads
+# in both packages; nothing resolves into the JAX package)
+JAX_PACKAGE_ALIASES: Dict[str, str] = {
+    # the JAX augmenter's docstring names it so (ops/augment.py)
+    "ops.augment.WaveAugment": "mlvae_tpu_torch.ops.augment.WaveAugment",
+}
+
 # top-level packages whose names never resolve by a plain import: the
 # libraries the recipes name, and the JAX package and JAX itself
-_REFUSED_PACKAGES = ("torch", "speechbrain", "mlvae_tpu", "jax")
+_REFUSED_PACKAGES = ("torch", "speechbrain", JAX_PACKAGE, "jax")
+
+# programmatic registrations (tests, user extensions): a name -> an object
+# or a dotted path of the port
+_EXTRA: Dict[str, Any] = {}
+
+
+def register(name: str, target: Any) -> None:
+    """Register an object (or dotted path) under a YAML-visible name. A
+    dotted path into the JAX package or JAX is refused."""
+    if isinstance(target, str) and \
+            target.split(".")[0] in (JAX_PACKAGE, "jax", "jaxlib"):
+        raise ValueError(
+            f"register({name!r}, {target!r}): the port never resolves a "
+            "name into the JAX package or JAX")
+    _EXTRA[name] = target
+
 
 def _locate_dotted(path: str) -> Optional[Any]:
     obj = pydoc.locate(path)
@@ -103,6 +131,9 @@ def _locate_dotted(path: str) -> Optional[Any]:
 
 def locate(name: str) -> Optional[Any]:
     """A YAML dotted name -> a live object of the port, or None."""
+    if name in _EXTRA:
+        target = _EXTRA[name]
+        return _locate_dotted(target) if isinstance(target, str) else target
     if name in ALIASES:
         return _locate_dotted(ALIASES[name])
     if name in UNPORTED:
@@ -115,7 +146,10 @@ def locate(name: str) -> Optional[Any]:
     for prefix, replacement in PREFIX_REMAPS:
         if name.startswith(prefix):
             return _locate_dotted(replacement + name[len(prefix):])
-    if name.split(".")[0] in _REFUSED_PACKAGES:
+    root, _, rest = name.partition(".")
+    if root == JAX_PACKAGE and rest in JAX_PACKAGE_ALIASES:
+        return _locate_dotted(JAX_PACKAGE_ALIASES[rest])
+    if root in _REFUSED_PACKAGES:
         raise NotImplementedError(
             f"{name} has no alias in the port's registry; a torch, "
             f"SpeechBrain or JAX-package name resolves only through one")

@@ -239,10 +239,29 @@ def test_sb_features_one_call_per_chunk(prepared):
                                        atol=1e-4, err_msg=u)
 
 
-def test_unported_datasets_name_the_roadmap():
+def test_unported_datasets_name_the_roadmap(prepared, monkeypatch):
+    """No dataset is refused any longer: each of the three real corpora
+    passes ``_unported`` and has its port ``prepare``, and ``data_io_prep``
+    takes an ``augmentation`` (its waves and features differ from the
+    clean ones, frame for frame as long)."""
+    import importlib
     from mlvae_tpu_torch.cli.experiment import UNPORTED_DATASETS, _unported
+    assert UNPORTED_DATASETS == {}
     for name in ("TIMIT", "L2_ARCTIC", "ChineseDPA"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            _unported("dataset", name, UNPORTED_DATASETS)
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        pdio.data_io_prep({"augmentation": object()})
+        _unported("dataset", name, UNPORTED_DATASETS)
+        mod = importlib.import_module(
+            f"mlvae_tpu_torch.data.datasets.{name}.prepare")
+        assert callable(mod.prepare)
+    monkeypatch.chdir(prepared["root"] / "port")
+    # a run YAML that names the augmenter, by the JAX package's name
+    text = (REPO / "config/run.yaml").read_text() + (
+        "augmentation: !new:mlvae_tpu.ops.augment.WaveAugment\n"
+        "  speeds: [0.9, 1.1]\n")
+    h = load_hyperyaml(text, [_parse_tagged(OVERRIDES)], device="cpu")
+    train = pdio.data_io_prep(h, device="cpu")[0]
+    for utt in train.ids[:3]:
+        s = train.compute_sample(utt, ["wav", "aug_wav", "feat", "aug_feat"])
+        assert s["aug_wav"].shape == s["wav"].shape
+        assert not np.allclose(s["aug_wav"], s["wav"])
+        assert s["aug_feat"].shape == s["feat"].shape
+        assert not np.allclose(s["aug_feat"], s["feat"])

@@ -105,11 +105,22 @@ def test_read_wav_matches_jax(kind, tmp_path):
 
 
 def test_read_shorten_sphere_names_the_roadmap(tmp_path):
+    """A shorten-compressed SPHERE is read, not refused: equal to the JAX
+    reader's, cut to the header's sample count."""
+    from test_shorten import FN_DIFF1, FN_DIFF2, TYPE_S16LH, _Encoder, _wave
+    y = _wave(4 * 64, seed=11)
+    enc = _Encoder(TYPE_S16LH, nchan=1, blocksize=64)
+    for i, fn in enumerate((FN_DIFF2, FN_DIFF1, FN_DIFF2, FN_DIFF1)):
+        enc.block(0, fn, y[i * 64:(i + 1) * 64])
     path = tmp_path / "shorten.sph"
     _sphere(path, {"sample_coding": "-s26 pcm,embedded-shorten-v2.00",
-                   "sample_rate": "-i 16000"}, b"ajkg" * 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        pwav.read_wav(path)
+                   "sample_rate": "-i 16000", "sample_count": "-i 250"},
+            enc.finish())
+    got, sr = pwav.read_wav(path)
+    want, want_sr = jwav.read_wav(path)
+    assert sr == want_sr == 16000 and got.dtype == np.float32
+    assert len(got) == 250
+    np.testing.assert_array_equal(got, want)
 
 
 def test_write_wav_bytes_match_jax(tmp_path):

@@ -182,6 +182,84 @@ def test_no_plain_import_of_library_or_jax_names(name, match):
         registry.locate(name)
 
 
+def test_public_surface_names_the_jax_packages():
+    import mlvae_tpu.hyperyaml as jax_hyperyaml
+    import mlvae_tpu_torch.hyperyaml as port_hyperyaml
+    assert set(jax_hyperyaml.__all__) <= set(port_hyperyaml.__all__)
+    assert "register" in port_hyperyaml.__all__
+    for name in port_hyperyaml.__all__:
+        assert getattr(port_hyperyaml, name).__module__.startswith(
+            "mlvae_tpu_torch."), name
+
+
+def test_register_as_jax(monkeypatch):
+    """``register`` as the JAX registry's: an object or a dotted path
+    under a YAML-visible name, which wins over every alias; a path into
+    the JAX package or JAX is refused."""
+    from mlvae_tpu_torch.hyperyaml import register
+    from mlvae_tpu.hyperyaml.registry import register as jax_register
+    monkeypatch.setattr(registry, "_EXTRA", {})
+    monkeypatch.setattr(jax_registry, "_EXTRA", {})
+    calls = []
+    for reg in (register, jax_register):
+        reg("testing.record", lambda v: calls.append(v) or v)
+        reg("testing.counter", "collections.Counter")
+    text = ("__x: !apply:testing.record [42]\ny: 1\n"
+            "c: !new:testing.counter\n    a: 2\n")
+    got, want = load_hyperyaml(text, device="cpu"), jax_load(text)
+    assert calls == [42, 42]
+    assert got == want == {"y": 1, "c": collections.Counter(a=2)}
+    register("torch.nn.LSTM", FCBlock)   # a registration wins
+    assert registry.locate("torch.nn.LSTM") is FCBlock
+    for target in ("mlvae_tpu.nn.rnn.LSTM", "jax.numpy.add"):
+        with pytest.raises(ValueError, match="never resolves"):
+            register("testing.bad", target)
+
+
+def test_jax_name_of_the_augmenter_resolves_to_the_port():
+    from mlvae_tpu_torch.ops.augment import WaveAugment
+    assert registry.locate("mlvae_tpu.ops.augment.WaveAugment") \
+        is WaveAugment
+    text = ("aug: !new:mlvae_tpu.ops.augment.WaveAugment\n"
+            "    speeds: [0.9, 1.1]\n    noise_snr_db: 20\n")
+    aug, jax_aug = load_hyperyaml(text, device="cpu")["aug"], \
+        jax_load(text)["aug"]
+    assert isinstance(aug, WaveAugment)
+    assert type(jax_aug).__module__ == "mlvae_tpu.ops.augment"
+    assert (aug.speeds, aug.noise_snr_db) == (jax_aug.speeds,
+                                              jax_aug.noise_snr_db)
+
+
+def _dump_trees(ph, ref):
+    return {
+        "flat": {"a": ph(), "b": ref("<a>")},
+        "nested": {"model": {"size": ph(), "double": ref("<size> * 2"),
+                             "layers": [1, ref("<model[size]>"), None]},
+                   "name": "x", "rate": 0.5, "on": True},
+        "list": [ph(), {"k": [ref("<a>/<b>"), "s"]}, 3],
+    }
+
+
+@pytest.mark.parametrize("tree", ["flat", "nested", "list"])
+def test_dump_hyperyaml_bytes_equal_to_jax(tree):
+    from io import StringIO
+    from mlvae_tpu.hyperyaml import Placeholder as JaxPlaceholder
+    from mlvae_tpu.hyperyaml import RefTag as JaxRefTag
+    from mlvae_tpu.hyperyaml import dump_hyperyaml as jax_dump
+    from mlvae_tpu_torch.hyperyaml import (Placeholder, RefTag,
+                                           dump_hyperyaml)
+    got, want = StringIO(), StringIO()
+    dump_hyperyaml(_dump_trees(Placeholder, RefTag)[tree], got)
+    jax_dump(_dump_trees(JaxPlaceholder, JaxRefTag)[tree], want)
+    assert got.getvalue().encode() == want.getvalue().encode()
+    assert "!PLACEHOLDER" in got.getvalue() and "!ref" in got.getvalue()
+    # the dump parses back to the tagged tree it came from
+    parsed = _parse_tagged(got.getvalue())
+    first = parsed[0] if tree == "list" else parsed.get("a", None)
+    if first is not None:
+        assert first.tag == "!PLACEHOLDER"
+
+
 def test_recipe_copy_is_byte_identical():
     assert RECIPE.read_bytes() == JAX_RECIPE.read_bytes()
 
