@@ -173,7 +173,19 @@ Phases, each reported on its own line; any failure exits non-zero:
    ChineseDPA's ``prepare_experiment``; every corpus's two feature passes
    with K6's launches exact (one a set each, the SpeechBrain pass twice a
    set with augmentation) and against the plain versions; ``cli.ingest``
-   over the TIMIT tree;
+   over the TIMIT tree; then the six wav2vec2 recipes (``run_cli_w2v``,
+   alone ``chip_w2v.py``), the encoder at wav2vec2-large-lv60's topology
+   (24 layers, d=1024, random init from the seed): each recipe's
+   ``cli.train`` (w2v_MD_VAE one cycle, the others one debug epoch) and
+   the ``--bf16`` runs of w2v_MD_VAE and w2v_CRDNN_CTC (its H=32 LSTM on
+   ``nn.rnn.lstm_scan``), against the same through the plain versions
+   (w2v_LSTM_FC launches no kernel and has no plain run), every stage's
+   launches exact; ``cli.test`` of w2v_MD_VAE and w2v_CRDNN_CTC; K1-fwd
+   and K1-bwd at H=32 at that run's shapes against their plain versions;
+   w2v_LSTM_FC's checkpoint with bf16 Adam moments read back bit for bit;
+   cnncl's ``cli.test_on_three_sets`` and MD_VAE_sfl_saved_phn_recog's
+   ``cli.train`` on its dump; ``cli.test_external`` on the card against
+   the CPU; a frozen and a fine-tuned train step's times and profiles;
 4. times from CUDA events after warm-up: each kernel, its plain version,
    a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6, in
    turns with each build of K6 in SpeechBrain mode and on the Kaldi pass's
@@ -231,6 +243,7 @@ and prints no result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -452,6 +465,50 @@ AUGMENTATION = ("augmentation: !new:mlvae_tpu_torch.ops.augment."
 HMM_RTOL = 1e-4           # HMM_DNN_ALI on the card against the CPU: f32
                           # sums in another order through two Adam steps
 HMM_B, HMM_T, HMM_L = 64, 160, 16   # phase 4's HMM_DNN_ALI train step
+# the wav2vec2 recipes through the CLI (phase 3): the encoder at
+# wav2vec2-large-lv60's topology (24 layers, d=1024, 16 heads, FFN 4096,
+# random init, about 317M parameters) and each recipe's heads at its own
+# width. The trunk is torch ops (no kernel); the heads' kernels launch as
+# their recipes' do: the MD_VAE family's as MD_VAE's and MD_VAE_sfl's;
+# w2v_CRDNN_CTC's one unidirectional LSTM layer at H=32 K1's narrow build
+# in f32 (K1-fwd a forward, K1-bwd a train step) and ``nn.rnn.lstm_scan``
+# (no kernel) in its --bf16 train step; w2v_CRDNN_CTC_cnncl's two
+# bidirectional layers at H=512 K1 four times; w2v_LSTM_FC none.
+# w2v_MD_VAE trains one cycle (three debug epochs, so that its --bf16 run
+# reaches K4 in the VAE target), the others one debug epoch; the
+# fine-tuned trunks' VALID losses, after Adam's near lr * sign(g) first
+# steps on 317M parameters, are held within W2V_VALID_RTOL: every trunk
+# weight whose gradient's sign is rounding noise moves by +-lr either way
+# (w2v_CRDNN_CTC's f32 VALID loss, K1's f32 sums against the plain
+# version's, parted by 2.6e-5 and 3.0e-3 in two runs on an H100; its
+# TRAIN loss by 5e-8; the TEST pass on one checkpoint is equal)
+W2V_RECIPES = ("w2v_MD_VAE", "w2v_MD_VAE_sfl", "w2v_MD_VAE_sfl_resi",
+               "w2v_CRDNN_CTC", "w2v_CRDNN_CTC_cnncl", "w2v_LSTM_FC")
+W2V_EPOCHS = {"w2v_MD_VAE": 3}
+W2V_EXTRA = {"w2v_CRDNN_CTC_cnncl": ", min_key: loss"}   # its YAML keys
+                                                          # are null
+W2V_ARCH = {"num_hidden_layers": 24, "hidden_size": 1024,
+            "num_attention_heads": 16, "intermediate_size": 4096}
+W2V_PARAMS = (3.1e8, 3.2e8)   # bounds of the encoder's parameter count
+# the fine-tuned trunks' VALID tolerance (above); the frozen trunks' runs
+# keep CLI_LOSS_RTOL and CLI_AMP_LOSS_RTOL (their VALID losses parted by
+# 5.9e-5 or less on an H100)
+W2V_VALID_RTOL = 1e-2
+W2V_FINE_TUNED = ("w2v_MD_VAE_sfl_resi", "w2v_CRDNN_CTC",
+                  "w2v_CRDNN_CTC_cnncl", "w2v_LSTM_FC")  # freeze: False
+W2V_CTC = {"w2v_CRDNN_CTC": 1, "w2v_CRDNN_CTC_cnncl": 4}  # K1 layer dirs
+# the f32 kernel runs whose checkpoints a later command reads (cli.test,
+# cli.test_on_three_sets), and w2v_LSTM_FC's (a fine-tuned trunk with
+# bf16 Adam moments, MLVAE_OPT_MOMENT_DTYPE, read back and deleted); no
+# other w2v run writes one (checkpoint_writes; the MD_VAE family writes
+# none outside VAE epochs)
+W2V_SAVED = ("w2v_MD_VAE", "w2v_CRDNN_CTC", "w2v_CRDNN_CTC_cnncl",
+             "w2v_LSTM_FC")
+W2V_BF16_MOMENTS = "w2v_LSTM_FC"
+
+K1_H32_ATOL = 1e-5    # K1 at w2v_CRDNN_CTC's H=32: f32 sums of 32 terms
+W2V_POST_ATOL = 1e-4  # cnncl's dumped log-posteriors, kernels against the
+                      # plain versions: K1's f32 sums in another order
 
 
 def recipe_launches(recipe, target, train, amp=False):
@@ -469,10 +526,17 @@ def recipe_launches(recipe, target, train, amp=False):
     K3-bwd for the rest; the eval forward stays f32. The CTC recipes take
     ``PER_CRDNN_EVAL``, ``PER_CRDNN_STEP`` or ``PER_CRDNN_AMP_STEP``,
     LSTM_FC ``PER_LSTM_FC_*``, a harness recipe its ``HARNESS_LAYERS``,
-    HMM_DNN_ALI none."""
+    HMM_DNN_ALI none, the w2v recipes as ``W2V_CTC`` and the MD_VAE
+    family's (their trunks launch none)."""
     if recipe in CTC_RECIPES:   # no target: the stage alone decides
         return dict(PER_CRDNN_AMP_STEP if train and amp else
                     PER_CRDNN_STEP if train else PER_CRDNN_EVAL)
+    if recipe in W2V_CTC or recipe == "w2v_LSTM_FC":
+        n = W2V_CTC.get(recipe, 0)
+        out = {k: 0 for k in PER_FORWARD}
+        if not amp or not train:   # --bf16: lstm_scan, no kernel
+            out.update(lstm_fwd=n, lstm_bwd=n if train else 0)
+        return out
     if recipe == "LSTM_FC":
         return dict(PER_LSTM_FC_AMP_STEP if train and amp else
                     PER_LSTM_FC_STEP if train else PER_LSTM_FC_EVAL)
@@ -4475,7 +4539,7 @@ class CliProbe:
         from mlvae_tpu_torch.training.brain import Brain
         others = [importlib.import_module(
             f"mlvae_tpu_torch.models.{r}.model").SBModel
-            for r in HARNESS + ("LSTM_FC", "HMM_DNN_ALI")]
+            for r in HARNESS + ("LSTM_FC", "HMM_DNN_ALI", "w2v_LSTM_FC")]
         self.stages, self.decodes, self.passes, self.infer_ms = {}, [], {}, []
         self._saved = []
         probe = self
@@ -4573,6 +4637,8 @@ def cli_epochs(recipe):
     """The debug epochs of a recipe's CLI run: one turn of its cycle."""
     if recipe in CTC_RECIPES:
         return CTC_EPOCHS
+    if recipe in W2V_RECIPES:
+        return W2V_EPOCHS.get(recipe, 1)
     if recipe in HARNESS + ("LSTM_FC", "HMM_DNN_ALI"):
         return HARNESS_EPOCHS
     return CLI_EPOCHS if recipe == "MD_VAE" else FAMILY_EPOCHS[recipe]
@@ -4589,7 +4655,7 @@ def cli_args(name, bf16=False, recipe="MD_VAE", extra="", corpus=None):
     from mlvae_tpu_torch.bench_utils import unset_loss_weights
     corpus = {**SYNTH_CORPUS, **(corpus or {})}
     yaml = REPO / "mlvae_tpu_torch/models" / recipe / "model.yaml"
-    pinned = "" if recipe in CTC_RECIPES else "".join(
+    pinned = "" if recipe in CTC_RECIPES + tuple(W2V_CTC) else "".join(
         f", {k}: 1.0" for k in unset_loss_weights(yaml))
     args = [str(corpus["hparams"]), "--dataset", corpus["dataset"],
             "--language", corpus["language"],
@@ -4611,13 +4677,33 @@ def expected_stage_launches(probe, amp=False, recipe="MD_VAE"):
         for key, rec in probe.stages.items()}
 
 
+@contextlib.contextmanager
+def checkpoint_writes(on: bool):
+    """With ``on`` False, the checkpointer's saves write nothing (the
+    w2v runs whose checkpoints nothing reads: a machine's disk takes 45
+    GiB of writes a call, and one w2v checkpoint, the trunk's 315M
+    parameters with their Adam moments, is 3.8 GB)."""
+    from mlvae_tpu_torch.training.checkpointer import Checkpointer
+    orig = Checkpointer.save_and_keep_only
+    if not on:
+        Checkpointer.save_and_keep_only = lambda self, *a, **k: None
+    try:
+        yield
+    finally:
+        Checkpointer.save_and_keep_only = orig
+
+
 def run_cli_train(report, probe, name, amp=False, recipe="MD_VAE",
-                  extra="", corpus=None):
+                  extra="", corpus=None, valid_tol=None, saves=(True, True),
+                  plain=True):
     """``cli.train`` for one turn of the recipe's cycle in debug epochs
     (or ``corpus``'s epochs) through the kernels, then the same run from
     the same seed through the plain versions (``extra``, ``corpus``: as
-    ``cli_args``); returns the kernel run's model, its launches and the
-    stage records."""
+    ``cli_args``; ``valid_tol``: the VALID stages' tolerance where it is
+    not the TRAIN stages'; ``saves``: whether the kernel run and the plain
+    run write their checkpoints; ``plain`` False: no plain run, for a
+    path that launches no kernel, which the launch check holds); returns
+    the kernel run's model, its launches and the stage records."""
     import numpy as np
     import torch
     from mlvae_tpu_torch.cli import train as train_cli
@@ -4628,9 +4714,12 @@ def run_cli_train(report, probe, name, amp=False, recipe="MD_VAE",
     epochs = (corpus or {}).get("epochs") or cli_epochs(recipe)
     probe.reset()
     reset_launches()
-    model = train_cli.main(cli_args(name, bf16=amp, recipe=recipe,
-                                    extra=extra, corpus=corpus))
+    t0 = time.perf_counter()
+    with checkpoint_writes(saves[0]):
+        model = train_cli.main(cli_args(name, bf16=amp, recipe=recipe,
+                                        extra=extra, corpus=corpus))
     torch.cuda.synchronize()
+    model.cli_wall_s = time.perf_counter() - t0
     total = launches()
     stages = probe.stages
     for e in model.epoch_log:
@@ -4652,12 +4741,17 @@ def run_cli_train(report, probe, name, amp=False, recipe="MD_VAE",
           f"{label}stages {list(stages)}")
     check(getattr(model, "target", None) is None
           or epochs != cli_epochs(recipe)
+          or epochs % len(model.TRAIN_CYCLE)
           or model.target.name == "VAE", "the cycle did not end on VAE")
     check(all(p.dtype == torch.float32 for p in model.parameters()),
           "a parameter is not f32")
     kernel_stages = dict(stages)
+    if not plain:
+        check(sum(total.values()) == 0, f"{label}launched a kernel")
+        report(f"  {label}launches no kernel: it is its own plain version")
+        return model, total, kernel_stages
     probe.reset()
-    with twins():
+    with twins(), checkpoint_writes(saves[1]):
         reset_launches()
         train_cli.main(cli_args(name + "_plain", bf16=amp, recipe=recipe,
                                 extra=extra, corpus=corpus))
@@ -4667,11 +4761,14 @@ def run_cli_train(report, probe, name, amp=False, recipe="MD_VAE",
     rel = {key: abs(rec["loss"] - probe.stages[key]["loss"])
            / max(abs(probe.stages[key]["loss"]), 1e-12)
            for key, rec in kernel_stages.items()}
+    tols = {key: valid_tol if valid_tol and key[0] == "VALID" else tol
+            for key in rel}
     report(f"  {label}against the plain versions from the same seed: "
            "stage loss rel err " + ", ".join(
-               f"{k[0]} {k[1]} {v:.3e}" for k, v in rel.items())
-           + f" (tol {tol:g})")
-    check(max(rel.values()) <= tol, f"{label}CLI losses disagree")
+               f"{k[0]} {k[1]} {v:.3e} (tol {tols[k]:g})"
+               for k, v in rel.items()))
+    check(all(v <= tols[k] for k, v in rel.items()),
+          f"{label}CLI losses disagree")
     return model, total, kernel_stages
 
 
@@ -5132,6 +5229,420 @@ def run_cli_corpora(dev, report, smi):
     return counts, out
 
 
+def check_k1_h32(dev, report, shapes):
+    """K1-fwd and K1-bwd at w2v_CRDNN_CTC's H=32, at each (T, B) its CLI
+    run gave the forward, both directions, against the plain versions;
+    returns the largest errors (hs and cs, dgx, dW_hh relative)."""
+    import torch
+    from mlvae_tpu_torch.ops.lstm import (lstm_layer_bwd, lstm_layer_bwd_ref,
+                                          lstm_layer_fwd, lstm_layer_ref)
+    g = torch.Generator(device=dev).manual_seed(11)
+    worst = {"fwd": 0.0, "dgx": 0.0, "dw": 0.0}
+    check(bool(shapes), "the w2v_CRDNN_CTC run gave K1 no H=32 layer")
+    for T, B in sorted(shapes):
+        for reverse in (False, True):
+            prob = bwd_problem(g, dev, T, B, 32, reverse)
+            hs_k, cs_k = lstm_layer_fwd(prob[0], prob[1], reverse)
+            hs_r, cs_r = lstm_layer_ref(prob[0], prob[1], reverse)
+            got = lstm_layer_bwd(*prob, reverse)
+            want = lstm_layer_bwd_ref(*prob, reverse)
+            torch.cuda.synchronize()
+            fwd = max(max_err(hs_k, hs_r), max_err(cs_k, cs_r))
+            dgx, dw = bwd_errors(got, want)
+            report(f"  lstm_fwd / lstm_bwd T={T} B={B} H=32 reverse="
+                   f"{reverse}: hs, cs max_abs_err {fwd:.3e}, dgx "
+                   f"{dgx:.3e} (tol {K1_H32_ATOL:g}), dW_hh max rel err "
+                   f"{dw:.3e} (tol {BWD_RTOL:g})")
+            check(fwd <= K1_H32_ATOL and dgx <= K1_H32_ATOL
+                  and dw <= BWD_RTOL, f"K1 at H=32 disagrees: {fwd}, "
+                  f"{dgx}, {dw}")
+            for k, v in (("fwd", fwd), ("dgx", dgx), ("dw", dw)):
+                worst[k] = max(worst[k], v)
+    return worst
+
+
+def set_sizes(root, batch=8, debug_batches=2):
+    """Each synthesized set's utterances and its debug run's batches."""
+    import json as json_
+    out = {}
+    for name in ("train", "valid", "test"):
+        n = len(json_.loads((Path(root) / "datasets/SynAudioMNIST/"
+                             f"annotation/{name}.json").read_text()))
+        out[name] = (n, min(debug_batches, -(-n // batch)))
+    return out
+
+
+def run_cli_three_sets(report, probe, root, name):
+    """``cli.test_on_three_sets`` of w2v_CRDNN_CTC_cnncl from its
+    checkpoint (``name``'s run), through the kernels and then through the
+    plain versions: the launches of its three TEST passes, the dump of
+    every utterance's posteriors and the test set's metrics. Returns the
+    kernel run's launches."""
+    import pickle
+    import numpy as np
+    import torch
+    from mlvae_tpu_torch.cli import test_on_three_sets as three_cli
+
+    recipe = "w2v_CRDNN_CTC_cnncl"
+    args = cli_args(name, recipe=recipe, extra=W2V_EXTRA[recipe])
+    dump = Path(root) / f"results/{name}/saved_phn_recog_outs.pkl"
+    metrics = Path(root) / f"results/{name}/test_output/test_metrics.txt"
+    sizes = set_sizes(root)
+
+    def run():
+        if dump.exists():
+            dump.unlink()
+        t0 = time.perf_counter()
+        three_cli.main(args)
+        torch.cuda.synchronize()
+        with open(dump, "rb") as f:
+            return pickle.load(f), metrics.read_text(), \
+                time.perf_counter() - t0
+    probe.reset()
+    reset_launches()
+    got, got_metrics, wall = run()
+    total = launches()
+    batches = sum(b for _, b in sizes.values())
+    want = {k: v * batches for k, v in
+            recipe_launches(recipe, "TEST", train=False).items()}
+    check(total == want, f"test_on_three_sets launches {total} != {want}")
+    with twins():
+        reset_launches()
+        plain, plain_metrics, _ = run()
+        check(sum(launches().values()) == 0,
+              "the plain test_on_three_sets hit a kernel")
+    n = sum(u for u, _ in sizes.values())
+    err = max(float(np.abs(got[u] - plain[u]).max()) for u in got)
+    report(f"  {recipe} cli.test_on_three_sets: {len(got)} utterances of "
+           f"{n} dumped ({batches} TEST batches), {wall:.3f} s; launches "
+           f"{ {k: v for k, v in total.items() if v} }; against the plain "
+           f"versions: posteriors max abs err {err:.3e} (tol "
+           f"{W2V_POST_ATOL:g}), same test metrics "
+           f"{got_metrics == plain_metrics}")
+    check(len(got) == n and sorted(got) == sorted(plain)
+          and all(v.shape[1] == 14 and np.isfinite(v).all()
+                  for v in got.values()), "the dump is incomplete")
+    check(err <= W2V_POST_ATOL and got_metrics == plain_metrics,
+          "test_on_three_sets disagrees with the plain versions")
+    with open(dump, "wb") as f:   # the kernel run's dump, for what reads it
+        pickle.dump(got, f)
+    return total
+
+
+def run_cli_external(report, root, name):
+    """``cli.test_external`` over an external DNN-HMM JSON for the test
+    set (the ground-truth segments, ``sil`` and ``sil*`` phones in turn),
+    the YAML's modules on the card, against the same on the CPU."""
+    import contextlib
+    import io
+    import json as json_
+    import pickle
+    from mlvae_tpu_torch.cli import test_external as ext_cli
+
+    with open(Path(root) / "datasets/SynAudioMNIST/computed_dataset/"
+              "test.pkl", "rb") as f:
+        computed = pickle.load(f)
+    ext = {u: [[float(a), float(b), "sil" if i % 2 else "sil*"]
+               for i, (a, b) in enumerate(s["gt_seg_seq"])]
+           for u, s in computed.items()}
+    ext_dir = Path(root) / "datasets/SynAudioMNIST/external_data"
+    ext_dir.mkdir(parents=True, exist_ok=True)
+    (ext_dir / "dnn_hmm_test.json").write_text(json_.dumps(ext))
+    args = cli_args(name, recipe="test_vanilla_vae")
+    # the command prints every metric: kept off this script's output
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        card = ext_cli.main(args)
+        wall = time.perf_counter() - t0
+        cpu = ext_cli.main(args + ["--device", "cpu"])
+    report(f"  cli.test_external ({len(ext)} test utterances): "
+           f"{wall:.3f} s; fa boundary.f1 {card['fa']['boundary.f1']:.2f}, "
+           f"asr boundary.rec {card['asr']['boundary.rec']:.2f}, asr MD.ACC "
+           f"{card['asr']['MD.ACC']:.2f}; equal to the CPU run's "
+           f"{card == cpu}")
+    check(card == cpu and card["asr"]["boundary.rec"] > 90,
+          "cli.test_external disagrees")
+    return wall
+
+
+@contextlib.contextmanager
+def deterministic(on=True):
+    """cuDNN's and torch's deterministic algorithms on (or off) inside,
+    restored after."""
+    import torch
+    saved = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
+def time_w2v_step(report, model, epoch, label, smi, iters=5):
+    """A w2v recipe's train step on its run's last TRAIN batch (CUDA
+    events, ``iters`` calls after warm-up, and one profile, in torch's
+    default, non-deterministic mode), and, for a frozen trunk, the trunk's
+    forward under ``no_grad`` that the step runs first."""
+    import torch
+    from mlvae_tpu_torch.training.brain import Stage
+    with deterministic(False):
+        dev_batch = model.to_device_batch(model._last_prepared_batch)
+        B, T = dev_batch["feat"][0].shape[:2]
+        wavs = dev_batch["wav"][0]
+        out = {"B": B, "T": T, "wav_samples": wavs.shape[1], "card": smi}
+        if model.wav2vec2.freeze:
+            with torch.no_grad():
+                out["trunk_ms"] = cuda_ms(lambda: model.wav2vec2(wavs), iters)
+        model.set_stage(Stage.TRAIN, epoch)
+
+        def step():
+            model.train_step(dev_batch, epoch, generator=model.generator)
+        out["step_ms"] = cuda_ms(step, iters)
+        out["profile"] = profile_step(step, f"{label} train step", report)
+        report(f"  {label} train step (B={B}, T={T}, "
+               f"{out['wav_samples']} wave samples): {out['step_ms']:.3f} ms"
+               + (f", of which the frozen trunk's forward "
+                  f"{out['trunk_ms']:.3f} ms" if "trunk_ms" in out else
+                  " (the fine-tuned trunk's forward and backward inside)")
+               + f" on {smi}")
+        return out
+
+
+def check_w2v_checkpoint(report, model, opt="wav2vec_opt"):
+    """The checkpoint a fine-tuned w2v run with bf16 Adam moments wrote
+    (``MLVAE_OPT_MOMENT_DTYPE=bfloat16``): read back, the trunk's
+    parameters and optimizer ``opt``'s tree equal to the model's bit for
+    bit, the moments bf16 words (``|V2``) and the step count past 0; then
+    deleted. Returns its size and read time."""
+    import shutil
+    import numpy as np
+    from mlvae_tpu_torch.convert import load_jax_checkpoint
+    ckpts = model.checkpointer.list_checkpoints()
+    check(len(ckpts) == 1, f"{len(ckpts)} checkpoints, want 1")
+    path = ckpts[0].path
+    size = sum(f.stat().st_size for f in path.iterdir())
+    t0 = time.perf_counter()
+    params = load_jax_checkpoint(path)
+    name = f"opt__{opt}"
+    want = model._opt_tree(opt)
+    got = model.checkpointer.load_checkpoint(ckpts[0], {name: want})[name]
+    read_s = time.perf_counter() - t0
+    state = model.state_dict()
+    trunk = [k for k in state if k.startswith("wav2vec2.")]
+    same_params = bool(trunk) and all(
+        np.array_equal(state[k].cpu().numpy(), params[k].numpy())
+        for k in trunk)
+
+    def bits(a):
+        return a.view(np.int16) if a.dtype.kind == "V" else a
+    same_opt = sorted(got) == sorted(want) and all(
+        np.array_equal(bits(got[k]), bits(want[k])) for k in want)
+    words = [k for k, v in got.items() if v.dtype == np.dtype("V2")]
+    count = int(got["['wav2vec2'].count"])
+    report(f"  the fine-tuned run's checkpoint: {size / 2**30:.2f} GiB, read"
+           f" back in {read_s:.3f} s; the trunk's {len(trunk)} parameters "
+           f"equal {same_params}, {opt}'s {len(want)} leaves equal "
+           f"{same_opt}, {len(words)} of them bf16 moments, count {count};"
+           f" deleted")
+    check(same_params and same_opt and words and count > 0,
+          "the w2v checkpoint does not read back")
+    shutil.rmtree(path)
+    return {"bytes": size, "read_s": read_s, "bf16_moment_leaves": len(words)}
+
+
+def check_w2v_first_run(report, probe, model, out):
+    """The first w2v run's encoder (wav2vec2-large-lv60's topology) and
+    its two feature passes (K6's FFT build once a set each)."""
+    enc = model.wav2vec2
+    n = sum(p.numel() for p in enc.parameters())
+    arch = {k: getattr(enc, k) for k in W2V_ARCH}
+    report(f"  the encoder: {arch}, {n} parameters, {enc.feat_extract_norm}"
+           f" norm, stable layer norm {enc.do_stable_layer_norm}, frozen "
+           f"{enc.freeze}")
+    check(arch == W2V_ARCH and enc.do_stable_layer_norm
+          and W2V_PARAMS[0] < n < W2V_PARAMS[1], "not wav2vec2-large-lv60")
+    out["encoder_parameters"] = n
+    passes = probe.passes.values()
+    report("  feature passes' launches " + str(
+        {k: {c: v for c, v in rec["launches"].items() if v}
+         for k, rec in probe.passes.items()}))
+    check(len(probe.passes) == 2 and all(
+        rec["launches"]["fbank_fft"] == rec["calls"] == 3
+        and sum(rec["launches"].values()) == 3 for rec in passes),
+        "a feature pass did not take K6 once a set")
+
+
+def run_cli_w2v(dev, report, smi):
+    """Phase 3's CLI path of the six wav2vec2 recipes in one temporary
+    directory, the encoder at wav2vec2-large-lv60's topology on the card:
+    each recipe's ``cli.train`` (w2v_MD_VAE one cycle, the others one
+    debug epoch) against the same through the plain versions (none for
+    w2v_LSTM_FC, which launches no kernel; its checkpoint, with bf16 Adam
+    moments, read back), launches exact; ``cli.test`` of w2v_MD_VAE and
+    w2v_CRDNN_CTC likewise; their
+    ``cli.train --bf16`` (w2v_CRDNN_CTC's LSTM on ``lstm_scan``); K1 at
+    H=32 at the shapes of the w2v_CRDNN_CTC run against the plain
+    versions; ``cli.test_on_three_sets`` of w2v_CRDNN_CTC_cnncl and
+    MD_VAE_sfl_saved_phn_recog's ``cli.train`` on its dump;
+    ``cli.test_external``; the train steps' times. Returns the launches of
+    the kernel runs (f32 and --bf16), the numbers and K1's H=32 errors."""
+    import logging
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from mlvae_tpu_torch.nn import rnn as prnn
+    from mlvae_tpu_torch.ops import lstm as lstm_ops
+
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    t_phase = time.perf_counter()
+    outer = report
+
+    def report(line):   # each line with the phase's seconds at its end
+        outer(f"{line} [+{time.perf_counter() - t_phase:.1f} s]")
+    cwd = os.getcwd()
+    root = tempfile.mkdtemp(prefix="mlvae_cli_w2v_")
+    probe = CliProbe()
+    out = {"card": smi}
+    counts = {k: 0 for k in launches()}
+    amp_counts = {k: 0 for k in launches()}
+    h32_shapes = set()
+
+    def add(to, total):
+        for k in to:
+            to[k] += total[k]
+
+    def train(recipe, amp=False):
+        label = recipe + (" --bf16" if amp else "")
+        t0 = time.perf_counter()
+        moments = recipe == W2V_BF16_MOMENTS and not amp
+        saved_env = os.environ.get("MLVAE_OPT_MOMENT_DTYPE")
+        if moments:
+            os.environ["MLVAE_OPT_MOMENT_DTYPE"] = "bfloat16"
+        try:
+            model, total, stages = run_cli_train(
+                report, probe, recipe.lower() + ("_bf16" if amp else ""),
+                amp=amp, recipe=recipe, extra=W2V_EXTRA.get(recipe, ""),
+                valid_tol=W2V_VALID_RTOL if recipe in W2V_FINE_TUNED
+                else None,
+                saves=(recipe in W2V_SAVED and not amp, False),
+                plain=recipe != "w2v_LSTM_FC")   # launches no kernel
+        finally:
+            if moments:
+                if saved_env is None:
+                    os.environ.pop("MLVAE_OPT_MOMENT_DTYPE")
+                else:
+                    os.environ["MLVAE_OPT_MOMENT_DTYPE"] = saved_env
+        check(model.wav2vec2.freeze != (recipe in W2V_FINE_TUNED),
+              f"{recipe}: freeze {model.wav2vec2.freeze}")
+        if moments:
+            out.setdefault(recipe, {})["checkpoint"] = \
+                check_w2v_checkpoint(report, model)
+        wall = time.perf_counter() - t0
+        kernel_s = sum(e["seconds"] for e in model.epoch_log)
+        rec = out.setdefault(recipe, {})
+        rec["bf16_epochs" if amp else "epochs"] = model.epoch_log
+        rec["bf16_stage_launches" if amp else "stage_launches"] = {
+            f"{k[0]} {k[1]} {v['target']}": {
+                n: c for n, c in v["launches"].items() if c}
+            for k, v in stages.items()}
+        rec["bf16_wall_s" if amp else "wall_s"] = wall
+        rec["bf16_kernel_run_s" if amp else "kernel_run_s"] = \
+            model.cli_wall_s
+        report(f"  {label}: the kernel run's epochs {kernel_s:.3f} s of "
+               f"train and valid steps, its cli.train {model.cli_wall_s:.3f}"
+               f" s; with the plain run {wall:.3f} s wall on {smi}")
+        return model, total
+
+    # deterministic cuDNN and torch ops for these runs: the fine-tuned
+    # trunks' conv backward (cuDNN's weight gradients, atomics) otherwise
+    # parts two runs of the same seed (1.3e-3 in w2v_CRDNN_CTC's --bf16
+    # epoch, whose train step runs no kernel), which would hide what the
+    # kernels change
+    try:
+        os.chdir(root)
+        with deterministic():
+            for recipe in W2V_RECIPES:
+                record = None
+                if recipe == "w2v_CRDNN_CTC":
+                    record = lstm_ops.lstm_layer_fwd
+
+                    def recording(gx, w_hh, reverse=False, _orig=record):
+                        if w_hh.shape[1] == 32:
+                            h32_shapes.add(tuple(gx.shape[:2]))
+                        return _orig(gx, w_hh, reverse)
+                    lstm_ops.lstm_layer_fwd = recording
+                try:
+                    model, total = train(recipe)
+                finally:
+                    if record is not None:
+                        lstm_ops.lstm_layer_fwd = record
+                add(counts, total)
+                if recipe == W2V_RECIPES[0]:   # its launches hold the
+                    check_w2v_first_run(report, probe, model, out)  # passes'
+                    out["w2v_MD_VAE_step"] = time_w2v_step(
+                        report, model, W2V_EPOCHS["w2v_MD_VAE"], "w2v_MD_VAE",
+                        smi)
+                if recipe == "w2v_MD_VAE_sfl_resi":
+                    out["w2v_MD_VAE_sfl_resi_step"] = time_w2v_step(
+                        report, model, 1, "w2v_MD_VAE_sfl_resi", smi)
+                del model
+                if recipe == "w2v_MD_VAE":
+                    total, _ = run_cli_test(report, probe, root,
+                                            recipe.lower(), recipe)
+                    add(counts, total)
+                elif recipe == "w2v_CRDNN_CTC":
+                    total, _ = run_cli_test_ctc(report, probe, root,
+                                                recipe.lower(), recipe)
+                    add(counts, total)
+            scans = []
+            scan = prnn.lstm_scan
+            for recipe in ("w2v_MD_VAE", "w2v_CRDNN_CTC"):
+                prnn.lstm_scan = lambda *a, _f=scan: scans.append(
+                    a[0].shape) or _f(*a)
+                try:
+                    model, total = train(recipe, amp=True)
+                finally:
+                    prnn.lstm_scan = scan
+                add(amp_counts, total)
+                del model
+                if recipe == "w2v_MD_VAE":
+                    check(not scans, "w2v_MD_VAE --bf16 took lstm_scan")
+            # the kernel run and its plain twin: one layer a TRAIN batch each
+            want = 2 * set_sizes(root)["train"][1]
+            report(f"  w2v_CRDNN_CTC --bf16: lstm_scan {len(scans)} calls "
+                   f"(want {want}) at {sorted(set(scans))}")
+            check(len(scans) == want
+                  and all(s[2] == 4 * 32 and s[0] > 1 for s in scans),
+                  "w2v_CRDNN_CTC --bf16 did not take lstm_scan once a step")
+            out["k1_h32"] = check_k1_h32(dev, report, h32_shapes)
+            out["k1_h32_shapes"] = sorted(h32_shapes)
+            add(counts, run_cli_three_sets(report, probe, root,
+                                           "w2v_crdnn_ctc_cnncl"))
+            model, total, _ = run_cli_train(
+                report, probe, "w2v_saved_phn_recog",
+                recipe="MD_VAE_sfl_saved_phn_recog",
+                extra=", phn_recog_outs_path: "
+                      "w2v_crdnn_ctc_cnncl/saved_phn_recog_outs.pkl")
+            check(len(model.saved_phn_recog_outs)
+                  == sum(n for n, _ in set_sizes(root).values()),
+                  "saved_phn_recog did not read the whole dump")
+            del model
+            add(counts, total)
+            out["test_external_s"] = run_cli_external(report, root, "w2v_ext")
+    finally:
+        probe.close()
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    report(f"  the w2v CLI phase: {out['seconds']:.1f} s on {smi}")
+    return counts, amp_counts, out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5290,6 +5801,14 @@ def main(argv=None) -> int:
            "and both feature passes, each against the plain versions; "
            "cli.ingest over the TIMIT tree")
     cli_corpora_counts, cli["corpora"] = run_cli_corpora(dev, report, smi)
+    report("phase 3 the wav2vec2 recipes through the CLI, the encoder at "
+           "wav2vec2-large-lv60's topology (24 layers, d=1024, random "
+           "init): each recipe's cli.train, cli.test of w2v_MD_VAE and "
+           "w2v_CRDNN_CTC, their cli.train --bf16, cnncl's "
+           "cli.test_on_three_sets into MD_VAE_sfl_saved_phn_recog, "
+           "cli.test_external, each against the plain versions; K1 at H=32")
+    cli_w2v_counts, cli_w2v_amp_counts, cli["w2v"] = run_cli_w2v(
+        dev, report, smi)
     # the paths' launches: the eval forward's, the wav-in path's, the six
     # f32 and six AMP MD_VAE train steps', the two MD_VAE_sfl VAE steps',
     # the four gate-3 steps', the unroll path's, LSTM_FC's eval and two
@@ -5307,7 +5826,10 @@ def main(argv=None) -> int:
                   + fam_counts[k] + fam_amp_counts[k] + ctc_counts[k]
                   + ctc_amp_counts[k] + cli_ctc_counts[k]
                   + cli_ctc_amp_counts[k] + cli_hr_counts[k]
-                  + cli_hr_amp_counts[k] + cli_corpora_counts[k],
+                  + cli_hr_amp_counts[k] + cli_corpora_counts[k]
+                  + cli_w2v_counts[k] + cli_w2v_amp_counts[k],
+                  "launches_cli_w2v": cli_w2v_counts[k],
+                  "launches_cli_w2v_bf16": cli_w2v_amp_counts[k],
                   "launches_cli_corpora": cli_corpora_counts[k],
                   "launches_cli_harness": cli_hr_counts[k],
                   "launches_cli_harness_bf16": cli_hr_amp_counts[k],
@@ -5393,6 +5915,16 @@ def main(argv=None) -> int:
                 row["name"]]
             row["h512"]["max_abs_err"] = errs["lstm_bf16_narrow"][
                 "fwd" if "fwd" in row["name"] else "dgx"]
+    for row in kernels:   # K1 at w2v_CRDNN_CTC's H=32 (phase 3)
+        if row["name"] in ("lstm_fwd", "lstm_bwd"):
+            h32 = cli["w2v"]["k1_h32"]
+            row["h32"] = {"shapes_T_B": cli["w2v"]["k1_h32_shapes"],
+                          "max_abs_err": h32["fwd" if row["name"] ==
+                                             "lstm_fwd" else "dgx"],
+                          "launches_cli_w2v": counts[row["name"]][
+                              "launches_cli_w2v"]}
+            if row["name"] == "lstm_bwd":
+                row["h32"]["dw_max_rel_err"] = h32["dw"]
     report("phase 5 the kernels line, the card and the result")
     report(json.dumps({"kernels": kernels, "eval_step": step,
                        "lstm_fc": lstm_fc, "lstm_fc_amp": lstm_fc_amp,

@@ -33,12 +33,10 @@ from mlvae_tpu_torch.training.brain import check_run_opts
 logger = logging.getLogger(__name__)
 
 # the JAX package's datasets and recipes that the port has not ported yet,
-# by the ROADMAP queue 1 item that ports them (every dataset is ported)
+# by the ROADMAP queue 1 item that ports them (every dataset and every
+# recipe is ported)
 UNPORTED_DATASETS: Dict[str, int] = {}
-UNPORTED_MODELS = {
-    "w2v_MD_VAE": 11, "w2v_MD_VAE_sfl": 11, "w2v_MD_VAE_sfl_resi": 11,
-    "w2v_CRDNN_CTC": 11, "w2v_CRDNN_CTC_cnncl": 11, "w2v_LSTM_FC": 11,
-}
+UNPORTED_MODELS: Dict[str, int] = {}
 
 
 def _unported(what: str, name: str, table: Dict[str, int]) -> None:

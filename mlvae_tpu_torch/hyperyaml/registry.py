@@ -53,17 +53,16 @@ ALIASES: Dict[str, str] = {
     "speechbrain.nnet.losses.nll_loss": "mlvae_tpu_torch.ops.losses.nll_loss",
     "speechbrain.alignment.aligner.HMMAligner":
         "mlvae_tpu_torch.modules.hmm_aligner.HMMAligner",
+    # the w2v recipes (models/w2v_MD_VAE/model.yaml)
+    "speechbrain.lobes.models.huggingface_wav2vec.HuggingFaceWav2Vec2":
+        "mlvae_tpu_torch.modules.wav2vec2.Wav2Vec2Encoder",
     # stdlib passthrough used by the loader itself (``!ref <x.attr>``)
     "getattr": "builtins.getattr",
 }
 
-_ITEM11 = "ROADMAP queue 1 item 11 (the wav2vec2 family)"
-
 # aliases of the JAX registry whose targets the port has not ported yet
-UNPORTED: Dict[str, str] = {
-    "speechbrain.lobes.models.huggingface_wav2vec.HuggingFaceWav2Vec2":
-        _ITEM11,
-}
+# (none now), by the ROADMAP item that ports them
+UNPORTED: Dict[str, str] = {}
 
 # dotted-name prefixes remapped into the port
 PREFIX_REMAPS = [
@@ -74,9 +73,8 @@ PREFIX_REMAPS = [
 ]
 
 # JAX-package modules under those prefixes that the port has not ported
-UNPORTED_PREFIXES: Dict[str, str] = {
-    "modules.wav2vec2.": _ITEM11,
-}
+# (none now)
+UNPORTED_PREFIXES: Dict[str, str] = {}
 
 # the JAX package's top-level name
 JAX_PACKAGE = "mlvae_tpu"

@@ -66,7 +66,9 @@ class CRDNNCTC(MDModel):
             modules = self.build_modules(
                 self.hparams, dict(generator=generator, device=device))
         self.adopt_modules(modules)
-        self.normalizer.ensure_size(self.hparams["input_size"])
+        norm = getattr(self, "normalizer", None)   # none in w2v_CRDNN_CTC
+        if norm is not None:
+            norm.ensure_size(self.hparams["input_size"])
 
     @staticmethod
     def build_modules(h: Dict, kw: Dict) -> Dict[str, torch.nn.Module]:

@@ -277,7 +277,8 @@ class MDVAE(MDModel):
 
     def _forward(self, batch, noise, generator, train, epoch, target):
         feats, feat_lens = self._input_feats(batch, train, epoch)
-        inputs = self._branch_inputs(feats, target)
+        inputs = self._branch_inputs(feats, target, batch, noise, generator,
+                                     train)
         preds = {"losses": {}}
 
         if target in (Target.PHN_RECOG, Target.VAE, Target.TEST):
@@ -316,10 +317,10 @@ class MDVAE(MDModel):
         return (self.normalizer(feats, feat_lens, epoch=epoch, update=train),
                 feat_lens)
 
-    def _branch_inputs(self, feats, target):
+    def _branch_inputs(self, feats, target, batch, noise, generator, train):
         """Each branch's input: the features for the recognizer and the
         detector, ``feat_fc`` of them for the VAE (where the target runs
-        it)."""
+        it). The w2v recipes feed projections of wav2vec2 features."""
         vae_in = self.feat_fc(feats) \
             if target in (Target.VAE, Target.TEST) else None
         return {"phn_in": feats, "bdet_in": feats, "vae_in": vae_in}

@@ -25,7 +25,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from mlvae_tpu_torch.convert import STATE_MODULES, load_jax_checkpoint
+from mlvae_tpu_torch.convert import (STATE_MODULES, load_jax_checkpoint,
+                                     stack_layers, unstack_layers)
 from mlvae_tpu_torch.metrics.loss import LossMetricStats
 from mlvae_tpu_torch.nn.norm import InputNormalization
 from mlvae_tpu_torch.training.brain import Brain, Stage
@@ -71,6 +72,23 @@ def pi_vae_draws(model, B: int, T: int, train: bool):
     if train:
         out += dropout_draws("decoder_dropout", model.decoder.rnn, B, T)
     return out
+
+
+def moment_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """An optimizer moment as the JAX checkpointer writes it: bf16 as its
+    raw 16-bit words (``|V2``, what ``np.asarray`` of an ml_dtypes bf16
+    array saves), any other dtype as itself."""
+    if t.dtype == torch.bfloat16:
+        return t.detach().view(torch.int16).cpu().numpy().view("V2")
+    return t.detach().cpu().numpy()
+
+
+def moment_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """The inverse of ``moment_to_numpy``."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(arr))
 
 
 def as_optimizer(info):
@@ -270,10 +288,12 @@ class MDModel(Brain):
         """The trees of a checkpoint, flat and keyed as the JAX package's
         ``jax.tree_util.keystr`` writes them."""
         params, states = {}, {}
-        for key, value in self.state_dict().items():
+        flat = stack_layers({k: v.detach().cpu().numpy()
+                             for k, v in self.state_dict().items()})
+        for key, value in flat.items():
             path = key.split(".")
             target = states if path[0] in STATE_MODULES else params
-            target[keystr(path)] = value.detach().cpu().numpy()
+            target[keystr(path)] = value
         state = {"params": params, "states": states}
         for name in self.opt_states:
             state[f"opt__{name}"] = self._opt_tree(name)
@@ -305,13 +325,15 @@ class MDModel(Brain):
                 out[f"['{mk}'].{path}"] = np.asarray(
                     st[key].cpu().numpy(), np.int32)
             for key, path in opt.MOMENTS.items():
-                flat = st[key].cpu().numpy()
-                offset = 0
+                flat = moment_to_numpy(st[key])
+                offset, per_param = 0, {}
                 for pname, shape in params:
                     n = int(np.prod(shape))
-                    out[f"['{mk}'].{path}" + keystr([mk] + pname.split("."))
-                        ] = flat[offset:offset + n].reshape(shape)
+                    per_param[pname] = flat[offset:offset + n].reshape(shape)
                     offset += n
+                for pname, value in stack_layers(per_param).items():
+                    out[f"['{mk}'].{path}"
+                        + keystr([mk] + pname.split("."))] = value
         if self.optimizers[name][1] is None:
             for mk in self.stateless_opt_modules:
                 out[f"['{mk}'].count"] = np.asarray(0, np.int32)
@@ -326,12 +348,14 @@ class MDModel(Brain):
         for mk, params in self._opt_layout(name):
             st = self.opt_states[name][mk]
             st["count"].copy_(torch.as_tensor(tree[f"['{mk}'].count"]))
+            names = list(stack_layers({p: None for p, _ in params}))
             for key, path in opt.MOMENTS.items():
-                flat = np.concatenate([
-                    tree[f"['{mk}'].{path}"
-                         + keystr([mk] + pname.split("."))].reshape(-1)
-                    for pname, _ in params])
-                st[key].copy_(torch.from_numpy(flat))
+                per_param = unstack_layers({
+                    p: tree[f"['{mk}'].{path}" + keystr([mk] + p.split("."))]
+                    for p in names})
+                flat = np.concatenate([per_param[p].reshape(-1)
+                                       for p, _ in params])
+                st[key].copy_(moment_from_numpy(flat))
 
     def _restore(self, ckpt, with_opt: bool) -> None:
         """Parameters and running statistics from ``ckpt`` (and the

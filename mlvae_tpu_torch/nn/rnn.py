@@ -23,13 +23,19 @@ package's ``_lstm_layer`` picks (``mlvae_tpu/nn/rnn.py:150-223``):
   states come back in it. A bf16 layer that neither predicate admits
   takes K1 as an f32 one does, on bf16 gx, W_hh and hs, where H % 128 == 0
   (LSTM_FC's four H=1024 layers, and the CRDNN's first, In=7,680 at
-  H=512: the bf16 K1 builds); with another H it
-  is refused, since the JAX package then runs a bf16-carry ``lax.scan``
-  (``mlvae_tpu/nn/rnn.py:225-239``) that the port does not have
-  (``ROADMAP.md`` queue 1 item 4). The JAX package also leaves the
+  H=512: the bf16 K1 builds). The JAX package also leaves the
   kernels for a bf16-carry ``lax.scan`` when B is not a multiple of 16
   (``_pallas_eligible``): that is a TPU tiling limit, not semantics, and
   the port keeps its kernels for every B.
+- the JAX package's ``lax.scan`` path (``mlvae_tpu/nn/rnn.py:225-239``,
+  with ``_lstm_cell``) is ``lstm_scan``, the plain recurrence in torch ops
+  with its rounding points, on the card too (there is no Pallas kernel
+  there to port). It takes a bf16 layer outside both fused tiers whose H
+  is not a multiple of 128 (no K1 bf16 build; the JAX package's bf16-carry
+  scan, e.g. w2v_CRDNN_CTC's H=32 under ``--bf16``), and a layer of either
+  dtype whose H is not a multiple of 16 (no K1 build at all; the JAX
+  package runs its scan at any H). ``lstm_route`` decides by shape and
+  dtype before any launch.
 
 The stack runs time-major, with one transpose in and one out. A
 bidirectional layer outputs ``[fwd, bwd]``; the reverse direction is
@@ -43,9 +49,13 @@ per gap, the shape the JAX module draws.
 ``x @ W_ih^T + b_ih`` as one ``torch.matmul`` outside the recurrence and
 runs ``ops.gru.GRURecurrence`` (K5-fwd forward, K5-bwd backward on the
 card) with W_hh cast to the stream dtype and b_hh to f32, for f32 and bf16
-streams alike. As for the LSTM, the JAX package's bf16-carry ``lax.scan``
-for a bf16 B that is not a multiple of 16 is a TPU tiling limit, and the
-port keeps its kernels for every B.
+streams alike, but where the JAX ``_gru_layer`` runs its ``lax.scan``
+(``mlvae_tpu/nn/rnn.py:362,386``) for a reason of semantics: a bf16 layer
+whose H is not a multiple of 128, and a layer of either dtype whose H is
+not a multiple of 16, take ``gru_scan``, its recurrence in torch ops
+(``gru_route``). As for the LSTM, the JAX package's bf16-carry scan for a
+bf16 B that is not a multiple of 16 is a TPU tiling limit, and the port
+keeps its kernels for every B.
 """
 from __future__ import annotations
 
@@ -67,11 +77,8 @@ LANE = 128   # the JAX package pads the fused kernels' input width to this
 
 def fused_tier(In: int, H: int, dtype):
     """The fused kernel a ``dtype`` stream of input width ``In`` takes
-    (``LSTMFused`` or ``LSTMSemiFused``), or None for K1. Only bf16 streams
-    take one, as the JAX package's default ``MLVAE_PALLAS_FUSED=auto``
-    does; a bf16 layer outside both tiers takes K1 where H % 128 == 0, as
-    the JAX package's Pallas ``lstm_layer`` does, and is refused
-    otherwise."""
+    (``LSTMFused`` or ``LSTMSemiFused``), or None. Only bf16 streams take
+    one, as the JAX package's default ``MLVAE_PALLAS_FUSED=auto`` does."""
     if dtype != torch.bfloat16:
         return None
     In_pad = -(-In // LANE) * LANE
@@ -79,14 +86,86 @@ def fused_tier(In: int, H: int, dtype):
         return LSTMFused
     if semifused_eligible(In_pad, H, dtype):
         return LSTMSemiFused
-    if H % LANE == 0:
-        return None
-    raise NotImplementedError(
-        f"a bf16 LSTM layer of input width {In} and H={H} is outside both "
-        "fused tiers (In and H multiples of 128 within the budget) and K1's "
-        "(H a multiple of 128); the JAX package runs it as a bf16-carry "
-        "lax.scan (mlvae_tpu/nn/rnn.py:225-239), which the port does not "
-        "have (ROADMAP.md queue 1 item 4)")
+    return None
+
+
+def takes_scan(H: int, dtype) -> bool:
+    """Whether a recurrent layer of hidden width H on a ``dtype`` stream
+    outside the fused tiers runs the plain recurrence: every H that is
+    not a multiple of 16 (no K1 or K5 build), and a bf16 H that is not a
+    multiple of 128 (the JAX package's bf16-carry scan, where its Pallas
+    kernels need the 128-lane tile)."""
+    return H % 16 != 0 or (dtype == torch.bfloat16 and H % LANE != 0)
+
+
+def lstm_route(In: int, H: int, dtype):
+    """What runs an LSTM layer: ``LSTMFused`` / ``LSTMSemiFused`` (K3,
+    K4), ``"scan"`` (``lstm_scan``) or ``"k1"`` (``LSTMRecurrence``)."""
+    tier = fused_tier(In, H, dtype)
+    if tier is not None:
+        return tier
+    return "scan" if takes_scan(H, dtype) else "k1"
+
+
+def gru_route(H: int, dtype) -> str:
+    """``"scan"`` (``gru_scan``) or ``"k5"`` (``GRURecurrence``)."""
+    return "scan" if takes_scan(H, dtype) else "k5"
+
+
+def logistic(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA expands it: ``1 / (1 + exp(-x))``, each op
+    rounded to x's dtype (in bf16 this differs from ``torch.sigmoid``'s
+    one rounding in about 30 % of values)."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def lstm_scan(gx: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False):
+    """The JAX package's ``lax.scan`` LSTM over gx (T, B, 4H) = x W_ih^T +
+    biases and W_hh (4H, H), both in the stream dtype: ``h @ W_hh^T`` in
+    that dtype (f32 sums), added to gx, the gates' sigmoid (``logistic``)
+    and tanh, ``c = f c + i g`` and ``h = o tanh(c)``, each op rounded to
+    the stream dtype, the carries (h, c) kept in it from zeros. Autograd gives the
+    gradients. Returns (hs (T, B, H), c_last (B, H)), c_last after the last
+    PROCESSED step (t=0 when ``reverse``)."""
+    T, B, _ = gx.shape
+    H = w_hh.shape[1]
+    w_t = w_hh.t()
+    h = gx.new_zeros((B, H))
+    c = gx.new_zeros((B, H))
+    hs = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        g = gx[t] + h @ w_t
+        i = logistic(g[:, :H])
+        f = logistic(g[:, H:2 * H])
+        gg = torch.tanh(g[:, 2 * H:3 * H])
+        o = logistic(g[:, 3 * H:])
+        c = f * c + i * gg
+        h = o * torch.tanh(c)
+        hs[t] = h
+    return torch.stack(hs, 0), c
+
+
+def gru_scan(gx: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+             reverse: bool = False) -> torch.Tensor:
+    """The JAX ``_gru_layer``'s ``lax.scan`` over gx (T, B, 3H) = x W_ih^T
+    + b_ih, W_hh (3H, H) and b_hh (3H,), all in the stream dtype: ``gh = h
+    @ W_hh^T + b_hh``, ``r``, ``z`` the ``logistic`` of gx + gh, ``n = tanh(gx_n
+    + r gh_n)``, ``h = (1 - z) n + z h``, each op rounded to the stream
+    dtype, h kept in it from zeros. Returns hs (T, B, H)."""
+    T, B, _ = gx.shape
+    H = w_hh.shape[1]
+    w_t = w_hh.t()
+    h = gx.new_zeros((B, H))
+    hs = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        gh = h @ w_t + b_hh
+        x_t = gx[t]
+        r = logistic(x_t[:, :H] + gh[:, :H])
+        z = logistic(x_t[:, H:2 * H] + gh[:, H:2 * H])
+        n = torch.tanh(x_t[:, 2 * H:] + r * gh[:, 2 * H:])
+        h = (1.0 - z) * n + z * h
+        hs[t] = h
+    return torch.stack(hs, 0)
 
 
 class _Stack(nn.Module):
@@ -184,15 +263,16 @@ class LSTM(_Stack):
         last_h, last_c = [], []
         for layer in range(self.num_layers):
             outs = []
-            tier = fused_tier(out.shape[-1], self.hidden_size, out.dtype)
+            route = lstm_route(out.shape[-1], self.hidden_size, out.dtype)
             for d, sfx in enumerate(self._suffixes(layer)):
-                if tier is not None:
-                    hs, c_last = self._fused(out, sfx, tier, d == 1)
-                else:
+                if route in ("scan", "k1"):
                     gx = self._gates(out, sfx, folded=self.bidirectional)
-                    hs, c_last = LSTMRecurrence.apply(
-                        gx.contiguous(), getattr(self, f"weight_hh_{sfx}").to(
-                            gx.dtype).contiguous(), d == 1)
+                    w_hh = getattr(self, f"weight_hh_{sfx}").to(gx.dtype)
+                    hs, c_last = (lstm_scan if route == "scan"
+                                  else LSTMRecurrence.apply)(
+                        gx.contiguous(), w_hh.contiguous(), d == 1)
+                else:
+                    hs, c_last = self._fused(out, sfx, route, d == 1)
                 # final state after the last PROCESSED step (t=0 reversed)
                 last_h.append(hs[0] if d == 1 else hs[-1])
                 last_c.append(c_last.to(x.dtype))
@@ -251,16 +331,19 @@ class GRU(_Stack):
         last_h = []
         for layer in range(self.num_layers):
             outs = []
+            route = gru_route(self.hidden_size, out.dtype)
             for d, sfx in enumerate(self._suffixes(layer)):
                 gx = torch.matmul(
                     out, getattr(self, f"weight_ih_{sfx}").t()) \
                     + self._bias(f"bias_ih_{sfx}", out)
-                hs = GRURecurrence.apply(
-                    gx.contiguous(),
-                    getattr(self, f"weight_hh_{sfx}").to(out.dtype)
-                    .contiguous(),
-                    self._bias(f"bias_hh_{sfx}", out).float().contiguous(),
-                    d == 1)
+                w_hh = getattr(self, f"weight_hh_{sfx}").to(out.dtype)
+                b_hh = self._bias(f"bias_hh_{sfx}", out)
+                if route == "scan":
+                    hs = gru_scan(gx, w_hh, b_hh.to(out.dtype), d == 1)
+                else:
+                    hs = GRURecurrence.apply(
+                        gx.contiguous(), w_hh.contiguous(),
+                        b_hh.float().contiguous(), d == 1)
                 # final state after the last PROCESSED step (t=0 reversed)
                 last_h.append(hs[0] if d == 1 else hs[-1])
                 outs.append(hs)

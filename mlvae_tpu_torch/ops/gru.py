@@ -99,7 +99,9 @@ def k5_plan(direction: str, H: int, bf16: bool) -> K5Plan:
     Every H that is a multiple of 16 up to 528 runs in both dtypes (H/4
     blocks resident on an H100's 132 SMs); another H is refused."""
     if H < 16 or H % 16:
-        raise ValueError(f"K5: H={H} must be a positive multiple of 16")
+        raise ValueError(f"K5: H={H} must be a positive multiple of 16; "
+                         "``nn.rnn`` runs a layer of another H as "
+                         "``gru_scan`` (the JAX package's lax.scan)")
     if H > K5_MAX_H:
         raise NotImplementedError(
             f"K5: H={H} above {K5_MAX_H}: every build keeps H/4 blocks of "

@@ -43,9 +43,10 @@ copies is. The launch code in ``csrc/`` computes the same numbers; the
   7,680 at H=512) takes it under AMP: it fits neither fused tier.
 
 No recipe of the repo has an LSTM on K1 wider than 1024; a wider H is
-refused (``ROADMAP.md`` queue 2, "Still to port"), as is a bf16 layer
-whose H is not a multiple of 128, which the JAX package runs as a
-bf16-carry scan (queue 1 item 4).
+refused (``ROADMAP.md`` queue 2, "Still to port"). No build takes a bf16
+H that is not a multiple of 128, or any H that is not a multiple of 16:
+``nn.rnn.lstm_route`` sends such a layer to ``lstm_scan``, the JAX
+package's ``lax.scan``, before any launch.
 
 Only integers here: the CPU tests import it.
 """
@@ -103,7 +104,9 @@ class K1Plan:
 def _check(H: int, B: int) -> None:
     if H < 16 or H % 16 or B < 1:
         raise ValueError(f"K1: H={H} must be a positive multiple of 16 "
-                         f"and B={B} positive")
+                         f"and B={B} positive; ``nn.rnn`` runs a layer "
+                         "of another H as ``lstm_scan`` (the JAX "
+                         "package's lax.scan), never on K1")
     if H > WIDE_MAX_H:
         raise NotImplementedError(
             f"K1: H={H} is above {WIDE_MAX_H}, the widest the port's K1 "
@@ -113,11 +116,11 @@ def _check(H: int, B: int) -> None:
 
 def _check_bf16(H: int) -> None:
     if H % SLICE:
-        raise NotImplementedError(
-            f"K1: a bf16 layer at H={H}, not a multiple of {SLICE}, takes no "
-            "K1 build; the JAX package runs it as a bf16-carry lax.scan "
-            "(mlvae_tpu/nn/rnn.py:225-239), which the port does not have "
-            "(ROADMAP.md queue 1 item 4)")
+        raise ValueError(
+            f"K1: no bf16 build takes H={H}, not a multiple of {SLICE} (nor "
+            "does the JAX Pallas kernel); ``nn.rnn`` runs such a layer as "
+            "``lstm_scan``, the JAX package's bf16-carry lax.scan "
+            "(mlvae_tpu/nn/rnn.py:225-239)")
 
 
 def narrow_fwd_smem_bytes(H: int, nq: int) -> int:

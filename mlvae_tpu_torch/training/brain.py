@@ -40,7 +40,9 @@ draws through the loops as it does through ``fit_batch``. A batch's
 features are ``feat``, or ``kaldi_feat`` where a batch has no ``feat``
 (``batch_feats``, the JAX Brain's fallback); the recipe names the keys
 its step reads (``used_batch_keys``), and ``to_device_batch`` moves
-those only.
+those only. ``step_draws`` lists a step's draws from its device batch
+(``draws`` at the features' B and T, unless a recipe needs more of the
+batch).
 
 Run options of the JAX Brain that the port does not have yet raise
 ``NotImplementedError`` (``check_run_opts``): the scanned epoch, the
@@ -194,6 +196,12 @@ class Brain(nn.Module):
         """The draws of one forward (see ``MDVAE.draws``); none here."""
         return []
 
+    def step_draws(self, dev_batch: Dict, train: bool) -> List:
+        """The draws of one step on ``dev_batch``: ``draws`` at its
+        features' B and T."""
+        B, T = batch_feats(dev_batch)[0].shape[:2]
+        return self.draws(B, T, train)
+
     def evaluate_predictions(self, predictions: Dict, batch, stage):
         """Host-side hook after each VALID/TEST batch (metrics etc.)."""
 
@@ -339,8 +347,7 @@ class Brain(nn.Module):
         None (draw from ``self.generator``) without one."""
         if self.noise_source is None:
             return None
-        B, T = batch_feats(dev_batch)[0].shape[:2]
-        noise = self.noise_source(self.draws(B, T, train))
+        noise = self.noise_source(self.step_draws(dev_batch, train))
 
         def on_dev(v):
             if isinstance(v, list):

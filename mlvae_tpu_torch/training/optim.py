@@ -18,6 +18,17 @@ sqrt(e_g + eps) * g``, ``e_x = (1-rho)*u^2 + rho*e_x``, ``update = u *
 with it the trace ``t = g + momentum*t`` and ``t * (-lr)``. Their
 hyperparameters are f32 scalars, as ``inject_hyperparams`` makes them.
 
+``Adam(moment_dtype=...)``, or the environment's ``MLVAE_OPT_MOMENT_DTYPE``
+where the argument is not given, keeps both moments in that dtype, as the
+JAX ``OptimizerFactory.make`` builds ``_scale_by_adam_moment_dtype``
+(``mlvae_tpu/training/optim.py:20-62,80-86``): the stored moments are
+upcast to the grads' f32, ``mu = b1*m + (1-b1)*g`` and ``nu = b2*v +
+(1-b2)*g^2`` in f32, the update ``(mu / c1) / (sqrt(nu / c2) + eps) *
+(-lr)`` from those f32 moments, and only then are they rounded into the
+state. Its injected hyperparameters lack ``eps_root``; its moments are
+written to a checkpoint in their dtype (bf16 as the JAX checkpointer's
+``|V2`` raw 16-bit words). f32, or nothing, keeps ``optax.adam``.
+
 Each optimizer names its checkpoint layout, the JAX package's
 ``inject_hyperparams`` state of one module: ``hyperparams()`` (the
 injected hyperparameters by name), ``SCALARS`` (state keys written under
@@ -26,6 +37,7 @@ an inner path as well as the outer ``count``) and ``MOMENTS`` (state key
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -51,17 +63,18 @@ def _advance(count: torch.Tensor) -> torch.Tensor:
 
 
 class _Optimizer:
-    """The flat per-module state: ``count`` and the ``MOMENTS``, f32
-    vectors of the module's parameters' total size."""
+    """The flat per-module state: ``count`` and the ``MOMENTS``, vectors of
+    the module's parameters' total size in ``moment_dtype``."""
     SCALARS: Dict[str, str] = {}
     MOMENTS: Dict[str, str] = {}
+    moment_dtype = torch.float32
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
         n = sum(p.numel() for p in params)
         dev = params[0].device
         state = {"count": torch.zeros((), dtype=torch.int32, device=dev)}
         for key in self.MOMENTS:
-            state[key] = torch.zeros(n, dtype=torch.float32, device=dev)
+            state[key] = torch.zeros(n, dtype=self.moment_dtype, device=dev)
         return state
 
     @torch.no_grad()
@@ -86,28 +99,54 @@ class _Optimizer:
         raise NotImplementedError
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def _moment_dtype(name) -> torch.dtype:
+    """A dtype name as ``jnp.dtype`` takes it ("bfloat16", ...)."""
+    if str(name).strip() not in _DTYPES:
+        raise ValueError(f"moment_dtype {name!r}: one of {sorted(_DTYPES)}")
+    return _DTYPES[str(name).strip()]
+
+
 class Adam(_Optimizer):
     SCALARS = {"count": "inner_state[0].count"}
     MOMENTS = {"mu": "inner_state[0].mu", "nu": "inner_state[0].nu"}
 
     def __init__(self, lr: float = 1e-3, betas=(0.9, 0.999),
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, moment_dtype=None):
         self.lr = float(lr)
         self.betas = (float(betas[0]), float(betas[1]))
         self.eps = float(eps)
+        if moment_dtype is None:
+            moment_dtype = os.environ.get("MLVAE_OPT_MOMENT_DTYPE",
+                                          "").strip() or None
+        self.moment_dtype = (torch.float32 if not moment_dtype
+                             else _moment_dtype(moment_dtype))
 
     def hyperparams(self) -> Dict[str, float]:
-        return {"b1": self.betas[0], "b2": self.betas[1], "eps": self.eps,
-                "eps_root": 0.0, "learning_rate": self.lr}
+        out = {"b1": self.betas[0], "b2": self.betas[1], "eps": self.eps,
+               "eps_root": 0.0, "learning_rate": self.lr}
+        if self.moment_dtype != torch.float32:
+            del out["eps_root"]   # _adam_moment_dtype injects no eps_root
+        return out
 
     def _update(self, grad, state, count):
         dev = grad.device
         b1, b2, eps, neg_lr = (_f32(self.betas[0], dev),
                                _f32(self.betas[1], dev), _f32(self.eps, dev),
                                _f32(-self.lr, dev))
+        c = count.float()
+        if self.moment_dtype != torch.float32:
+            mu = b1 * state["mu"].to(grad.dtype) + (1 - b1) * grad
+            nu = b2 * state["nu"].to(grad.dtype) + (1 - b2) * (grad * grad)
+            out = (mu / (1 - torch.pow(b1, c))) / (
+                torch.sqrt(nu / (1 - torch.pow(b2, c))) + eps)
+            return out * neg_lr, {"mu": mu.to(self.moment_dtype),
+                                  "nu": nu.to(self.moment_dtype)}
         mu = (1 - b1) * grad + b1 * state["mu"]
         nu = (1 - b2) * (grad * grad) + b2 * state["nu"]
-        c = count.float()
         mu_hat = mu / (1 - torch.pow(b1, c))
         nu_hat = nu / (1 - torch.pow(b2, c))
         return mu_hat / (torch.sqrt(nu_hat) + eps) * neg_lr, \

@@ -20,9 +20,10 @@
   MD and boundary statistics and ``md_result_seqs.txt`` equal; the
   checkpoints' optimizer trees under the JAX checkpointer's keys;
 * (g) ``k1_plan`` and the bf16 K1 wrappers at H = 128-512 (the launches'
-  bookkeeping on meta tensors), H % 128 != 0 refused naming item 4;
+  bookkeeping on meta tensors), H % 128 != 0 refused naming
+  ``lstm_scan``, which ``nn.rnn`` runs such a layer on;
 * (h) the recipe copies byte-equal to the JAX package's, the CLI and the
-  registry refusing only what is still unported (the wav2vec2 family),
+  registry refusing nothing (the wav2vec2 family, the last, is ported),
   and the HMM_DNN_ALI names resolving into the port."""
 from pathlib import Path
 
@@ -447,10 +448,10 @@ def test_bf16_plans_at_narrow_h(Hn, Bn):
 @pytest.mark.parametrize("Hn", [16, 64, 192, 320, 448, 528])
 def test_bf16_h_off_the_lane_names_item_4(Hn):
     for plan in (P.k1_fwd_plan, P.k1_bwd_plan):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        with pytest.raises(ValueError, match="lstm_scan"):
             plan(Hn, 64, bf16=True)
         assert plan(Hn, 64).variant == "narrow"
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="lstm_scan"):
         P.k1_dw_plan(Hn, 64)
 
 
@@ -501,11 +502,11 @@ def test_recipe_copies_are_byte_equal(recipe):
 
 
 def test_cli_refuses_only_what_is_unported():
-    """Only the six wav2vec2 recipes are refused, each naming item 11."""
+    """No recipe is refused: the six wav2vec2 recipes, the last, were
+    ported with item 11."""
     assert not set(RECIPES) & set(UNPORTED_MODELS)
-    assert UNPORTED_MODELS == {name: 11 for name in (
-        "w2v_MD_VAE", "w2v_MD_VAE_sfl", "w2v_MD_VAE_sfl_resi",
-        "w2v_CRDNN_CTC", "w2v_CRDNN_CTC_cnncl", "w2v_LSTM_FC")}
+    assert UNPORTED_MODELS == {}
+    assert registry.UNPORTED == {} and registry.UNPORTED_PREFIXES == {}
 
 
 @pytest.mark.parametrize("name, target", [

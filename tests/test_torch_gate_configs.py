@@ -16,7 +16,8 @@ roundings where torch sums in f32 and rounds once (about 1e-2 apart). The
 JAX gate 3 runs its scan in f32, as the JAX test does; under AMP the JAX
 GRU's Pallas dispatch is forced on and its kernel runs in interpret mode
 (on the CPU it would take a bf16-carry scan, which is not what the TPU
-runs), and the JAX step runs op by op: under ``jit`` XLA may keep fused
+runs at H=512) and the port's GRU route is pinned to K5 alike, and the
+JAX step runs op by op: under ``jit`` XLA may keep fused
 bf16 intermediates in f32 (excess precision), where the port, as the
 Pallas kernels, rounds each.
 """
@@ -163,6 +164,11 @@ def _spy_gru_interpret(monkeypatch):
         gp, "gru_layer",
         lambda gx, w, b, reverse=False, interpret=False:
         real(gx, w, b, reverse, True))
+    # the port on the kernel path alike: at this narrow H a bf16 GRU
+    # layer routes to the bf16-carry scan in both packages otherwise
+    # (tests/test_torch_rnn_scan.py holds that route)
+    from mlvae_tpu_torch.nn import rnn as prnn
+    monkeypatch.setattr(prnn, "gru_route", lambda H, dtype: "k5")
 
 
 @pytest.mark.parametrize("n,amp", [(1, False), (2, False), (3, False),

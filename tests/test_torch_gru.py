@@ -2,7 +2,9 @@
 backward against the Pallas kernels (``gru_pallas._run_fwd`` / ``_run_bwd``
 in interpret mode), f32 and bf16, both directions; ``GRURecurrence``
 against ``jax.grad`` of ``gru_layer``; ``nn.rnn.GRU`` against the JAX
-module with its Pallas dispatch forced on (kernels in interpret mode),
+module with its Pallas dispatch forced on (kernels in interpret mode) and
+the port's route pinned to K5 alike (a bf16 layer at this H=32 takes
+both packages' scans otherwise: ``tests/test_torch_rnn_scan.py``),
 values and gradients; weights carried by ``convert.from_jax``; and the
 wrappers' refusal of a tensor that is on neither the CPU nor a card.
 
@@ -26,6 +28,7 @@ import mlvae_tpu.nn.rnn as jrnn
 import mlvae_tpu.ops.gru_pallas as gp
 from mlvae_tpu.nn.rnn import GRU as JaxGRU
 
+import mlvae_tpu_torch.nn.rnn as prnn
 import mlvae_tpu_torch.ops.gru as pg
 from mlvae_tpu_torch.convert import from_jax
 from mlvae_tpu_torch.nn.rnn import GRU
@@ -190,6 +193,10 @@ def test_gru_module_matches_jax(dtype, case, monkeypatch):
     jcalls, pcalls = [], []
     _spy_jax_interpret(monkeypatch, jcalls)
     _spy_port(monkeypatch, pcalls)
+    # both packages on the kernel path: a bf16 layer at H=32 routes to
+    # the bf16-carry scan in both (tests/test_torch_rnn_scan.py holds
+    # that route); this test holds the module's K5 plumbing
+    monkeypatch.setattr(prnn, "gru_route", lambda H, dtype: "k5")
 
     def f(p, xx):
         out, h_n = jmod.apply(p, xx, rng=key, train=train)

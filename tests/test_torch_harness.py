@@ -12,8 +12,8 @@ against the JAX package, on the CPU:
   atol 1e-5, losses rel 1e-4), then three ``fit_batch`` steps, each
   step's losses rel 1e-4, each module's applied (clipped) gradient rel
   1e-3 in norm, every parameter after the step rel 1e-4 in norm;
-* (c) the same three steps under ``--bf16`` at H=128 (narrower bf16 LSTMs
-  wait in ROADMAP queue 1 item 4) with the JAX Pallas dispatch forced on
+* (c) the same three steps under ``--bf16`` at H=128 (a narrower bf16 LSTM
+  takes ``lstm_scan``, not a kernel) with the JAX Pallas dispatch forced on
   and its fused kernels in interpret mode, both packages' fused budgets
   lowered alike so that a decoder's In=2H layer takes K4 as at H=512:
   the LSTM tiers by spies, the losses rel 1e-3, the norm of each

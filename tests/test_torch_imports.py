@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, its entry points refuse to run without CUDA unless asked for the
-CPU, and its chip smoke refuses to run without a card or without the
-repo."""
+package (nor ``transformers``: the wav2vec2 snapshot loader reads its
+files with ``json`` and ``torch``), its entry points refuse to run without
+CUDA unless asked for the CPU, and its chip smoke refuses to run without a
+card or without the repo."""
 import re
 import shutil
 import subprocess
@@ -15,6 +16,8 @@ from mlvae_tpu_torch.bench_utils import build_md_vae, synth_batch
 from mlvae_tpu_torch.bench_utils import synth_wav_batch
 from mlvae_tpu_torch.cli import infer as infer_cli
 from mlvae_tpu_torch.cli import test as test_cli
+from mlvae_tpu_torch.cli import test_external as test_external_cli
+from mlvae_tpu_torch.cli import test_on_three_sets as three_sets_cli
 from mlvae_tpu_torch.cli import train as train_cli
 from mlvae_tpu_torch.cli.experiment import prepare_experiment
 from mlvae_tpu_torch.cli.infer import infer, infer_features
@@ -53,7 +56,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'mlvae_tpu'))\n"
+        "('jax', 'jaxlib', 'mlvae_tpu', 'transformers'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -64,11 +67,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize("path", sorted(
     p.relative_to(REPO).as_posix() for p in
     list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu"))
-    + [REPO / "chip_smoke.py"]))
+    + [REPO / "chip_smoke.py", REPO / "chip_w2v.py"]))
 def test_port_sources_never_name_jax(path):
     text = (REPO / path).read_text()
     assert not re.search(r"^\s*(import|from)\s+jax", text, re.M), path
     assert not re.search(r"\bmlvae_tpu\.", text), path
+    assert not re.search(r"^\s*(import|from)\s+transformers", text,
+                         re.M), path
+
+
+def test_encoder_attention_is_plain_torch_ops():
+    """The wav2vec2 attention is matmuls and a softmax, as the JAX
+    module's, never ``scaled_dot_product_attention``."""
+    text = (PORT / "modules/wav2vec2.py").read_text()
+    code = "\n".join(ln for ln in text.splitlines()
+                     if not ln.lstrip().startswith(("#", "``")))
+    assert "scaled_dot_product_attention(" not in code
+    assert "torch.softmax(scores" in code
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "build_md_vae",
@@ -77,7 +92,9 @@ def test_port_sources_never_name_jax(path):
                                    "compute_kaldi_features",
                                    "synth_wav_batch", "load_hyperyaml",
                                    "prepare_experiment", "cli.train",
-                                   "cli.test", "cli.infer"])
+                                   "cli.test", "cli.infer",
+                                   "cli.test_on_three_sets",
+                                   "cli.test_external"])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
@@ -98,6 +115,8 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
         "cli.test": lambda: test_cli.main(CLI_ARGS),
         "cli.infer": lambda: infer_cli.main(
             CLI_ARGS + ["--wav", "utt.wav", "--canonical", "one"]),
+        "cli.test_on_three_sets": lambda: three_sets_cli.main(CLI_ARGS),
+        "cli.test_external": lambda: test_external_cli.main(CLI_ARGS),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -248,11 +248,17 @@ def test_lstm_fc_layers_miss_both_fused_tiers_at_full_width():
 
 def test_bf16_layer_off_the_lane_names_the_scan():
     """A bf16 layer outside both tiers whose H is not a multiple of 128
-    needs the JAX package's bf16-carry scan, which the port does not
-    have."""
-    from mlvae_tpu_torch.nn.rnn import fused_tier
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        fused_tier(12, 16, torch.bfloat16)
+    takes the JAX package's bf16-carry scan, ``lstm_scan``; an H that is
+    not a multiple of 16 takes it in either dtype; every other layer keeps
+    its kernel."""
+    from mlvae_tpu_torch.nn.rnn import fused_tier, lstm_route
+    assert fused_tier(12, 16, torch.bfloat16) is None
+    assert lstm_route(12, 16, torch.bfloat16) == "scan"
+    assert lstm_route(7680, 32, torch.bfloat16) == "scan"
+    assert lstm_route(12, 20, torch.float32) == "scan"
+    assert lstm_route(12, 32, torch.float32) == "k1"
+    assert lstm_route(7680, 512, torch.bfloat16) == "k1"
+    assert lstm_route(120, 512, torch.bfloat16) is L.LSTMFused
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +384,8 @@ def test_k1_wrappers_refuse_what_no_build_takes(direction):
     version: mixed stream dtypes and non-f32 cells are refused
     (``ValueError``), H above 1024 raises ``NotImplementedError`` naming
     ``ROADMAP.md`` queue 2, a bf16 layer whose H is not a multiple of 128
-    names queue 1 item 4 (the bf16-carry scan), and a bf16 layer the bf16
+    has no build (``ValueError`` naming ``lstm_scan``, where ``nn.rnn``
+    runs such a layer), and a bf16 layer the bf16
     build takes (every H % 128 == 0, 128 to 1024) is refused for not lying
     on a CUDA device."""
     def call(args):
@@ -397,11 +404,11 @@ def test_k1_wrappers_refuse_what_no_build_takes(direction):
             call((gx, w, hs.float(), cs, dhs, dc))
         with pytest.raises(ValueError, match="must be f32"):
             call(_k1_args(3, 8, 1024, cells=torch.bfloat16))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="lstm_scan"):
         call(_k1_args(3, 8, 528))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
         call(_k1_args(3, 8, 1040))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="lstm_scan"):
         call(_k1_args(3, 8, 544))
     for H in (128, 512, 640, 1024):
         with pytest.raises(ValueError, match="CUDA device"):

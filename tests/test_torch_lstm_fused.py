@@ -301,10 +301,21 @@ def test_lstm_module_f32_keeps_k1(monkeypatch):
     assert [n for n, _, _ in calls] == ["LSTMRecurrence"] * 4
 
 
-def test_bf16_layer_outside_both_tiers_is_refused():
+def test_bf16_layer_outside_both_tiers_is_refused(monkeypatch):
+    """Such a layer (H=16, no fused tier, no bf16 K1 build) is no longer
+    refused: it runs ``lstm_scan``, the JAX package's bf16-carry scan,
+    and no kernel wrapper."""
+    import mlvae_tpu_torch.nn.rnn as prnn
+    calls = []
+    real = prnn.lstm_scan
+    monkeypatch.setattr(prnn, "lstm_scan",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    monkeypatch.setattr(pl, "lstm_layer_fwd", lambda *a: pytest.fail(
+        "a bf16 layer at H=16 reached K1"))
     mod = LSTM(12, 16).to(torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        mod(torch.randn(2, 5, 12, dtype=torch.bfloat16))
+    out, (h_n, c_n) = mod(torch.randn(2, 5, 12, dtype=torch.bfloat16))
+    assert out.dtype == h_n.dtype == c_n.dtype == torch.bfloat16
+    assert out.shape == (2, 5, 16) and calls == [(5, 2, 64)]
 
 
 def test_fused_wrappers_take_the_plain_version_only_on_the_cpu():

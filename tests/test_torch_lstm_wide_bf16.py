@@ -112,10 +112,10 @@ def test_bf16_plan_constants_are_the_kernels():
 @pytest.mark.parametrize("Hn", [544, 576, 704, 1008])
 def test_bf16_wide_h_off_the_lane_names_the_scan(Hn):
     for plan in (P.k1_fwd_plan, P.k1_bwd_plan):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        with pytest.raises(ValueError, match="lstm_scan"):
             plan(Hn, 64, bf16=True)
         assert plan(Hn, 64).variant == "wide"   # f32 keeps its build
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="lstm_scan"):
         P.k1_dw_plan(Hn, 64)
 
 
@@ -123,10 +123,10 @@ def test_bf16_wide_h_off_the_lane_names_the_scan(Hn):
 def test_bf16_narrow_h_names_queue_2(Hn):
     """bf16 streams at H <= 528 no longer wait in queue 2: the tensor-core
     build takes every H % 128 == 0 (the JAX kernel's whole bf16 contract),
-    and another H names queue 1 item 4 (the bf16-carry scan)."""
+    and another H has no build (``nn.rnn`` runs it as ``lstm_scan``)."""
     for plan in (P.k1_fwd_plan, P.k1_bwd_plan):
         if Hn % 128:
-            with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+            with pytest.raises(ValueError, match="lstm_scan"):
                 plan(Hn, 64, bf16=True)
         else:
             assert plan(Hn, 64, bf16=True).variant == "wide_bf16"
@@ -230,7 +230,7 @@ def test_f32_wide_layers_keep_the_f32_builds(recorded, Hn):
 @pytest.mark.parametrize("Hn", [544, 656, 1008])
 def test_bf16_wide_h_off_the_lane_is_refused(recorded, direction, Hn):
     args = _k1_args(3, 8, Hn, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="lstm_scan"):
         if direction == "fwd":
             L.lstm_layer_fwd(*args[:2])
         else:

@@ -178,6 +178,12 @@ def test_prefix_remaps_resolve_into_the_port(name):
     ("mlvae_tpu.nn.rnn.LSTM", "no alias"),
 ])
 def test_no_plain_import_of_library_or_jax_names(name, match):
+    if match == "item 11":
+        # the wav2vec2 names, refused until item 11 ported the encoder,
+        # resolve into the port
+        assert registry.locate(name).__module__ == \
+            "mlvae_tpu_torch.modules.wav2vec2"
+        return
     with pytest.raises(NotImplementedError, match=match):
         registry.locate(name)
 
