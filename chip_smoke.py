@@ -186,6 +186,23 @@ Phases, each reported on its own line; any failure exits non-zero:
    cnncl's ``cli.test_on_three_sets`` and MD_VAE_sfl_saved_phn_recog's
    ``cli.train`` on its dump; ``cli.test_external`` on the card against
    the CPU; a frozen and a fine-tuned train step's times and profiles;
+   then data parallelism, ZeRO-1 and the trunk's tensor parallelism
+   (``run_parallel``), two ranks sharing the card over gloo through
+   ``mlvae_tpu_torch.tools.parallel_step``: MD_VAE's VAE train step at
+   full width (B=64 over two ranks) in f32 and under --bf16 against one
+   process on the same batch and draws (loss within 1e-5; f32 parameters
+   within rtol 1e-4 / atol 1e-5, --bf16 grad norms within 1e-2; the
+   ranks bit-equal; each rank's launches those of one process at B=32),
+   the same step at world size 1 over NCCL, the step under --zero1
+   (parameters and moments bit-equal to replicated data parallelism,
+   half the moments a rank), which collectives gloo takes on CUDA
+   tensors (the port's collectives need all four), each rank's step
+   alone on its rows without collectives (what sharing the card costs),
+   the wav2vec2-large-lv60 trunk split
+   over two ranks against the unsplit trunk (1e-4, f32, TF32 off) and
+   one w2v_LSTM_FC training step, and ``cli.train`` / ``cli.test``
+   --data_parallel --num_devices 2 with batches of 5; each rank's step
+   times beside one process's, with the phase's seconds;
 4. times from CUDA events after warm-up: each kernel, its plain version,
    a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6, in
    turns with each build of K6 in SpeechBrain mode and on the Kaldi pass's
@@ -5643,6 +5660,371 @@ def run_cli_w2v(dev, report, smi):
     return counts, amp_counts, out
 
 
+# the parallel phase: data parallelism, ZeRO-1 and the wav2vec2 trunk's
+# tensor parallelism, two ranks sharing the one card over gloo, each
+# against one process (mlvae_tpu_torch.tools.parallel_step)
+PAR_N = 2
+PAR_B, PAR_T, PAR_L = 64, 160, 8
+PAR_W2V_B, PAR_W2V_SAMPLES = 2, 16000     # T = 49 trunk frames
+PAR_CLI_BATCH = 5                        # does not divide the two ranks
+PAR_TIME_STEPS = 2                       # timed steps a rank, the first cold
+PAR_LOSS_RTOL, PAR_RTOL, PAR_ATOL = 1e-5, 1e-4, 1e-5
+PAR_TRUNK_ATOL = 1e-4                    # f32, TF32 off
+# under --bf16 each rank's weight gradients leave their GEMMs rounded to
+# bf16 before the f32 all-reduce, where one process rounds the whole
+# batch's once: gradients one bf16 ulp apart. Adam's first step moves an
+# entry by lr * |g| / (|g| + eps), at most MD_VAE's lr, so entries whose
+# gradient is near zero may move apart by a fraction of a step. An entry
+# more than lr from one process's moved the other way by more than half a
+# step: its gradient's sign flipped where the gradient was not near zero
+PAR_BF16_PARAM_ATOL = 1e-3
+PAR_TIMEOUT = 420
+# the recipes' widths (a CPU rehearsal narrows them: the ranks are processes
+# of their own, which see no monkeypatch)
+PAR_MD_OVERRIDES: dict = {}
+PAR_W2V_BUILD: dict = {}
+
+
+def par_launch(root, name, spec):
+    """``spec``'s ranks through ``tools.parallel_step`` in a process of
+    their own; returns each rank's outputs."""
+    import torch
+    spec = dict(spec, out=str(root / name))
+    path = root / f"{name}.pt"
+    torch.save(spec, path)
+    res = subprocess.run([sys.executable, "-m",
+                          "mlvae_tpu_torch.tools.parallel_step", str(path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=PAR_TIMEOUT)
+    check(res.returncode == 0, f"the {name} ranks failed:\n"
+          f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return [torch.load(root / name / f"rank{r}.pt", weights_only=False)
+            for r in range(spec["world"])]
+
+
+def par_param_errs(got, want):
+    """(largest abs error, entries outside rtol/atol, entries) over the
+    parameters both hold."""
+    worst, bad, total = 0.0, 0, 0
+    for key, w in want.items():
+        w = torch_tensor(w)
+        if not w.is_floating_point():
+            continue
+        d = (torch_tensor(got[key]).double() - w.double()).abs()
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        bad += int((d > PAR_ATOL + PAR_RTOL * w.double().abs()).sum())
+        total += w.numel()
+    return worst, bad, total
+
+
+def torch_tensor(x):
+    import torch
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(x)
+
+
+def par_rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def run_parallel(dev, report, smi):
+    """(a) MD_VAE's VAE train step at the recipe's width, f32 then --bf16,
+    on two ranks (B=32 each) against one process at B=64: losses, the
+    updated parameters, exact launches a rank; the same f32 step at world
+    size 1 (NCCL on the card) bit-equal to one process; (b) the same step
+    under ZeRO-1, bit-equal to (a); (c) the TP=2 trunk at
+    wav2vec2-large-lv60's topology against the unsplit trunk, and one
+    w2v_LSTM_FC training step, on the same two ranks laid out anew; (d)
+    cli.train (three debug epochs of two batches of 5) and cli.test with
+    --data_parallel --num_devices 2 against one process that pads as two
+    ranks do. Returns the launches of the ranks' steps (a, b) and the
+    phase's numbers."""
+    import shutil
+    import tempfile
+    import torch
+
+    t_phase = time.perf_counter()
+    on = "cuda" if dev.type == "cuda" else "cpu"
+    root = Path(tempfile.mkdtemp(prefix="mlvae_par_"))
+    out = {"card": smi, "ranks": PAR_N}
+    total = {k: 0 for k in launches()}
+    try:
+        dp_runs, dp_refs = par_dp_references(dev, report)
+        tp_run, tp_ref = par_tp_reference(dev)
+        if on == "cuda":
+            torch.cuda.empty_cache()
+        out["seconds_references"] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        ranks = par_launch(root, "ranks", dict(
+            world=PAR_N, device=on, probe_collectives=True,
+            runs=dp_runs + [dict(tp_run, n_model=PAR_N)]))
+        out["seconds_ranks"] = time.perf_counter() - t0
+        out["gloo_on_cuda"] = ranks[0][-1]["collectives"]
+        report(f"  gloo on CUDA tensors: {out['gloo_on_cuda']}")
+        par_dp_check(report, smi, [r[:len(dp_runs)] for r in ranks], dp_refs,
+                     total, out)
+        par_tp_check(report, [r[len(dp_runs)] for r in ranks], tp_ref, out)
+        report(f"  (a)-(c): {out['seconds_references']:.1f} s in this "
+               f"process, {out['seconds_ranks']:.1f} s on the ranks")
+        par_cli(dev, report, root, out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    report(f"  the parallel phase: {out['seconds']:.1f} s; launches of the "
+           f"ranks' steps {total}")
+    return total, out
+
+
+def par_dp_references(dev, report):
+    """(a), (b): the ranks' runs, and their one-process references run
+    here (the f32 step also at world size 1)."""
+    import torch
+    from mlvae_tpu_torch.bench_utils import build_md_vae, synth_batch
+    from mlvae_tpu_torch.parallel import mesh as M
+    from mlvae_tpu_torch.tools import parallel_step
+    from mlvae_tpu_torch.training.brain import Stage, draw_noise
+
+    on = dev.type
+    batch = synth_batch(PAR_B, PAR_T, PAR_L, seed=0, device="cpu")
+    probe = build_md_vae(batch_size=PAR_B, device=dev,
+                         overrides=PAR_MD_OVERRIDES)
+    probe.set_stage(Stage.TRAIN, 3)
+    g = torch.Generator(device=dev).manual_seed(11)
+    noise = {}
+    for amp in (False, True):
+        probe.auto_mix_prec = amp
+        noise[amp] = {k: [x.cpu() for x in v] if isinstance(v, list)
+                      else v.cpu() for k, v in draw_noise(
+                          probe.draws(PAR_B, PAR_T, True), g, dev).items()}
+    del probe
+
+    def md(amp, **kw):
+        return dict(kind="md_vae", device=on, batch=batch,
+                    build=dict(batch_size=PAR_B, seed=0, bf16=amp,
+                               overrides=PAR_MD_OVERRIDES),
+                    steps=[{"epoch": 3, "noise": noise[amp]}], **kw)
+
+    def timed(amp):
+        return dict(md(amp), steps=md(amp)["steps"] * PAR_TIME_STEPS,
+                    save_keys=[])
+
+    refs = {amp: parallel_step.run(md(amp)) for amp in (False, True)}
+    refs["ms"] = {amp: parallel_step.run(timed(amp))["ms"]
+                  for amp in (False, True)}
+    # the same code at world size 1 (NCCL on the card), in this process
+    M.init_mesh(0, 1, 1, M.free_port(), on)
+    try:
+        solo = parallel_step.run(md(False))
+    finally:
+        M.destroy_mesh()
+    bits = solo["steps"][0]["loss"] == refs[False]["steps"][0]["loss"] \
+        and all(torch.equal(v, refs[False]["state_dict"][k])
+                for k, v in solo["state_dict"].items())
+    report(f"  --data_parallel at world size 1 ("
+           f"{'NCCL' if on == 'cuda' else 'gloo'}): loss "
+           f"{solo['steps'][0]['loss']:.7f}, loss and parameters bit-equal "
+           f"to one process {bits}")
+    check(bits, "--data_parallel at world size 1 is not one process's step")
+    refs["world1_bit_equal"] = bits
+    return [md(False), md(True), md(False, run_opts={"zero1": True}),
+            timed(False), timed(True)], refs
+
+
+def par_dp_check(report, smi, ranks, refs, total, out):
+    """(a), (b): the ranks' runs against one process."""
+    import torch
+    out["world1_bit_equal"] = refs["world1_bit_equal"]
+    for amp, i, label in ((False, 0, "f32"), (True, 1, "bf16")):
+        rank_outs = [r[i] for r in ranks]
+        ref = refs[amp]
+        loss_rel = max(par_rel(r["steps"][0]["loss"],
+                               ref["steps"][0]["loss"]) for r in rank_outs)
+        key_rel = max(par_rel(r["steps"][0]["losses"][k], v)
+                      for r in rank_outs for k, v in
+                      ref["steps"][0]["losses"].items())
+        worst, bad, n = par_param_errs(rank_outs[0]["state_dict"],
+                                       ref["state_dict"])
+        same = all(torch.equal(v, rank_outs[1]["state_dict"][k])
+                   for k, v in rank_outs[0]["state_dict"].items())
+        want = {k: v for k, v in recipe_launches(
+            "MD_VAE", "VAE", True, amp).items() if v}
+        got = [{k: v for k, v in r["launches"].items() if v}
+               for r in rank_outs]
+        norm_rel = max(par_rel(rank_outs[0]["grad_norms"][mk], v)
+                       for mk, v in ref["grad_norms"].items() if v)
+        report(f"  (a) {label}: loss {rank_outs[0]['steps'][0]['loss']:.7f}"
+               f" (one process {ref['steps'][0]['loss']:.7f}), rel err "
+               f"{loss_rel:.3e}, per-key {key_rel:.3e} (tol "
+               f"{PAR_LOSS_RTOL:g}); parameters: max abs err {worst:.3e} "
+               f"(limit {PAR_BF16_PARAM_ATOL:g} under --bf16), {bad} of {n} "
+               f"outside rtol {PAR_RTOL:g} / atol {PAR_ATOL:g}; grad norms "
+               f"rel err {norm_rel:.3e}; ranks bit-equal {same}; launches a "
+               f"rank {got} (want {want})")
+        check(loss_rel <= PAR_LOSS_RTOL and key_rel <= PAR_LOSS_RTOL,
+              f"(a) {label}: the ranks' loss disagrees with one process")
+        check(bad == 0 if not amp else (worst <= PAR_BF16_PARAM_ATOL
+                                        and norm_rel <= AMP_GRAD_RTOL),
+              f"(a) {label}: parameters max abs err {worst:.3e}, {bad} "
+              f"outside tolerance, grad norms {norm_rel:.3e}")
+        check(same, f"(a) {label}: the ranks' parameters differ")
+        check(all(c == want for c in got),
+              f"(a) {label}: launches a rank {got} != {want}")
+        for r in rank_outs:
+            for k in total:
+                total[k] += r["launches"][k]
+        out[f"dp_{label}"] = {
+            "loss_rel_err": loss_rel, "param_max_abs_err": worst,
+            "params_outside_tol": bad, "params": n,
+            "grad_norm_rel_err": norm_rel,
+            "rank_step_ms": [r[3 + i]["ms"] for r in ranks],
+            "one_process_step_ms": refs["ms"][amp],
+            "launches_a_rank": got[0]}
+        report(f"  {label} step ms (first cold), rank 0 "
+               f"{[round(x, 2) for x in ranks[0][3 + i]['ms']]}, rank 1 "
+               f"{[round(x, 2) for x in ranks[1][3 + i]['ms']]}; one "
+               f"process at B={PAR_B}: "
+               f"{[round(x, 2) for x in refs['ms'][amp]]} ({smi})")
+    rep, z1 = ranks[0][0], ranks[0][2]
+    bits = all(torch.equal(v, z1["state_dict"][k])
+               for k, v in rep["state_dict"].items()) and all(
+        torch.equal(v, z1["moments"][k]) for k, v in rep["moments"].items())
+    report(f"  (b) ZeRO-1: parameters and moments bit-equal to (a) "
+           f"{bits}; moments held a rank "
+           f"{z1['moment_shard_fraction']:.4f} of the whole")
+    check(bits, "(b) ZeRO-1 is not bit-equal to replicated DP")
+    check(abs(z1["moment_shard_fraction"] - 1 / PAR_N) < 1e-3,
+          "(b) ZeRO-1 does not split the moments")
+    for r in ranks:
+        for k in total:
+            total[k] += r[2]["launches"][k]
+    out["zero1_bit_equal"] = bits
+
+
+def par_tp_reference(dev):
+    """(c): the ranks' run (the trunk's forward, then a w2v_LSTM_FC step)
+    and its one-process reference run here."""
+    import torch
+    from mlvae_tpu_torch.bench_utils import (build_w2v_lstm_fc,
+                                             synth_w2v_fc_batch)
+    from mlvae_tpu_torch.tools import parallel_step
+    from mlvae_tpu_torch.training.brain import draw_noise
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    wbatch = synth_w2v_fc_batch(PAR_W2V_B, PAR_W2V_SAMPLES, seed=0,
+                                device="cpu")
+    wprobe = build_w2v_lstm_fc(device=dev, **PAR_W2V_BUILD)
+    wnoise = {k: [x.cpu() for x in v] if isinstance(v, list) else
+              v.cpu() for k, v in draw_noise(
+                  wprobe.step_draws({k: tuple(x.to(dev) for x in v)
+                                     for k, v in wbatch.items()}, True),
+                  g, dev).items()}
+    del wprobe
+    keep = ["classifier.", "wav2vec2.layers.0.", "wav2vec2.layers.23."]
+    wspec = dict(kind="w2v_lstm_fc", device=dev.type, batch=wbatch,
+                 build=PAR_W2V_BUILD, save_keys=keep,
+                 steps=[{"epoch": 1, "trunk": True},
+                        {"epoch": 1, "noise": wnoise}])
+    return wspec, parallel_step.run(wspec)
+
+
+def par_tp_check(report, wranks, wone, out):
+    """(c): the split trunk and its step against one process."""
+    trunk = wone["steps"][0]["preds"]["trunk"]
+    t_err = max(float((r["steps"][0]["preds"]["trunk"] - trunk).abs().max())
+                for r in wranks)
+    w_rel = max(par_rel(r["steps"][1]["loss"], wone["steps"][1]["loss"])
+                for r in wranks)
+    w_worst, w_bad, w_n = par_param_errs(wranks[0]["state_dict"],
+                                         wone["state_dict"])
+    report(f"  (c) TP=2 trunk (24 layers, d=1024, 16 heads, FFN 4096, "
+           f"B={PAR_W2V_B}, T={trunk.shape[1]}): max abs err "
+           f"{t_err:.3e} (tol {PAR_TRUNK_ATOL:g}); w2v_LSTM_FC step "
+           f"loss {wranks[0]['steps'][1]['loss']:.7f} (one process "
+           f"{wone['steps'][1]['loss']:.7f}, rel err {w_rel:.3e}); "
+           f"classifier, first and last layer after it: max abs err "
+           f"{w_worst:.3e}, {w_bad} of {w_n} outside rtol {PAR_RTOL:g} "
+           f"/ atol {PAR_ATOL:g}; step ms rank 0 "
+           f"{round(wranks[0]['ms'][1], 2)}, rank 1 "
+           f"{round(wranks[1]['ms'][1], 2)}, one process "
+           f"{round(wone['ms'][1], 2)}")
+    check(t_err <= PAR_TRUNK_ATOL, "(c) the split trunk disagrees")
+    check(w_rel <= PAR_LOSS_RTOL and w_bad == 0,
+          "(c) the TP training step disagrees with one process")
+    out["tp"] = {"trunk_max_abs_err": t_err, "loss_rel_err": w_rel,
+                 "param_max_abs_err": w_worst,
+                 "rank_step_ms": [r["ms"] for r in wranks],
+                 "one_process_step_ms": wone["ms"]}
+
+
+def par_cli_outputs(run_dir):
+    """A CLI run's scalars by (tag, epoch), its checkpoint's meta and
+    parameters, and its TEST metrics' text."""
+    import numpy as np
+    scalars = {}
+    for line in (run_dir / "scalars.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        scalars[(rec["tag"], rec["step"])] = rec["value"]
+    (ckpt,) = (run_dir / "checkpoints").iterdir()
+    with np.load(ckpt / "params.npz") as f:
+        params = dict(f)
+    return (scalars, json.loads((ckpt / "meta.json").read_text()), params,
+            (run_dir / "test_output" / "test_metrics.txt").read_text())
+
+
+def par_cli(dev, report, root, out):
+    """(d): cli.train -> cli.test on two ranks (started from this process
+    by the entry points), against one process that pads its batches of 5
+    as two ranks do, in the same working directory (one corpus and feature
+    pass)."""
+    import os
+    from mlvae_tpu_torch.cli import test as test_cli
+    from mlvae_tpu_torch.cli import train as train_cli
+    from mlvae_tpu_torch.tools import parallel_step
+
+    t0 = time.perf_counter()
+    cli_dir = root / "cli"
+    cli_dir.mkdir()
+    tail = ["--batch_size", str(PAR_CLI_BATCH)] + (
+        ["--device", "cpu"] if dev.type == "cpu" else [])   # a rehearsal
+    dp = ["--data_parallel", "True", "--num_devices", str(PAR_N)]
+    cwd = os.getcwd()
+    try:
+        os.chdir(cli_dir)
+        with parallel_step.padded_as_ranks(PAR_N):
+            train_cli.main(cli_args("one") + tail)
+            test_cli.main(cli_args("one") + tail)
+        t_one = time.perf_counter() - t0
+        train_cli.main(cli_args("dp") + tail + dp)
+        test_cli.main(cli_args("dp") + tail + dp)
+    finally:
+        os.chdir(cwd)
+    got, want = (par_cli_outputs(cli_dir / "results" / name)
+                 for name in ("dp", "one"))
+    loss_rel = max((par_rel(got[0][k], v) for k, v in want[0].items()
+                    if "loss" in k[0] and k in got[0]), default=0.0)
+    scores_equal = sorted(got[0]) == sorted(want[0]) and all(
+        got[0][k] == v for k, v in want[0].items() if "loss" not in k[0])
+    worst, bad, n = par_param_errs(got[2], want[2])
+    report(f"  (d) cli.train / cli.test on two ranks, batches of "
+           f"{PAR_CLI_BATCH} (padded to 6), against one process padding "
+           f"alike ({t_one:.1f} s): {len(want[0])} scalars, losses rel err "
+           f"{loss_rel:.3e} (tol {PAR_LOSS_RTOL:g}), scores equal "
+           f"{scores_equal}; checkpoint epoch {got[1]['epoch']} "
+           f"({want[1]['epoch']}), parameters max abs err {worst:.3e}, "
+           f"{bad} of {n} outside rtol {PAR_RTOL:g} / atol {PAR_ATOL:g}; "
+           f"TEST metrics equal {got[3] == want[3]} "
+           f"({'plvl_md.F1' in got[3]})")
+    check(loss_rel <= PAR_LOSS_RTOL and scores_equal,
+          "(d) the two ranks' TRAIN / VALID scalars disagree")
+    check(got[1]["epoch"] == want[1]["epoch"] and bad == 0,
+          "(d) the two ranks' checkpoint disagrees with one process's")
+    check(got[3] == want[3] and "plvl_md.F1" in got[3],
+          "(d) the two ranks' TEST metrics disagree")
+    out["cli"] = {"loss_rel_err": loss_rel, "param_max_abs_err": worst,
+                  "params_outside_tol": bad, "one_process_s": t_one}
+    out["seconds_cli"] = time.perf_counter() - t0
+    report(f"  (d): {out['seconds_cli']:.1f} s")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5809,6 +6191,14 @@ def main(argv=None) -> int:
            "cli.test_external, each against the plain versions; K1 at H=32")
     cli_w2v_counts, cli_w2v_amp_counts, cli["w2v"] = run_cli_w2v(
         dev, report, smi)
+    report("phase 3 data parallelism, ZeRO-1 and the trunk's tensor "
+           "parallelism, two ranks sharing the card over gloo: MD_VAE's VAE "
+           f"train step at full width (B={PAR_B} over {PAR_N} ranks), f32 "
+           "and --bf16, and under --zero1, against one process; the TP=2 "
+           "wav2vec2-large-lv60 trunk and a w2v_LSTM_FC step; cli.train / "
+           "cli.test --data_parallel --num_devices 2 with batches of "
+           f"{PAR_CLI_BATCH}")
+    par_counts, cli["parallel"] = run_parallel(dev, report, smi)
     # the paths' launches: the eval forward's, the wav-in path's, the six
     # f32 and six AMP MD_VAE train steps', the two MD_VAE_sfl VAE steps',
     # the four gate-3 steps', the unroll path's, LSTM_FC's eval and two
@@ -5827,7 +6217,9 @@ def main(argv=None) -> int:
                   + ctc_amp_counts[k] + cli_ctc_counts[k]
                   + cli_ctc_amp_counts[k] + cli_hr_counts[k]
                   + cli_hr_amp_counts[k] + cli_corpora_counts[k]
-                  + cli_w2v_counts[k] + cli_w2v_amp_counts[k],
+                  + cli_w2v_counts[k] + cli_w2v_amp_counts[k]
+                  + par_counts[k],
+                  "launches_parallel": par_counts[k],
                   "launches_cli_w2v": cli_w2v_counts[k],
                   "launches_cli_w2v_bf16": cli_w2v_amp_counts[k],
                   "launches_cli_corpora": cli_corpora_counts[k],

@@ -135,22 +135,91 @@ def unset_loss_weights(yaml_path) -> List[str]:
 
 def build_md_vae(batch_size: int = 8, overrides=None, seed: int = 0,
                  device=None, bf16: bool = False,
-                 recipe: str = "MD_VAE") -> MDVAE:
+                 recipe: str = "MD_VAE", run_opts=None) -> MDVAE:
     """``recipe`` (MD_VAE, or MD_VAE_sfl) at its widths with weights drawn
     from ``seed`` on ``device`` (None means CUDA), its optimizer states
     initialised. ``bf16`` turns AMP on for the training step, as the JAX
     bench's default ``--bf16`` does (``bench.py``); the eval step stays
-    f32."""
+    f32. ``run_opts`` adds run options (``data_parallel``, ``zero1``: the
+    model is then placed on the rank's mesh)."""
     dev = resolve_device(device)
     widths, cls = MD_VAE_RECIPES[recipe]
     hparams = dict(widths, batch_size=batch_size)
     hparams.update(overrides or {})
     hparams.setdefault("optimizer", Adam(lr=hparams["lr"]))
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    model = cls(hparams, generator=gen, run_opts={"bf16": bf16}).to(
-        dev).eval()
+    model = cls(hparams, generator=gen,
+                run_opts={"bf16": bf16, **(run_opts or {})}).to(dev).eval()
+    return ready_to_step(model)
+
+
+def ready_to_step(model):
+    """A built model placed on its rank's mesh (none: nothing happens),
+    its optimizer states initialised and, under ``--zero1``, split."""
+    model.place_on_mesh()
     model.init_optimizers()
+    model.setup_zero1()
     return model
+
+
+# w2v_LSTM_FC at its recipe's widths (mlvae_tpu/models/w2v_LSTM_FC/
+# model.yaml): the fine-tuned trunk, FC [1024, 64, 64, 1], Adam at 3e-4 on
+# the classifier and 1e-4 on the trunk
+W2V_FC_RECIPE = {"wav2vec2_size": 1024, "fc_size": 64, "lr": 3e-4,
+                 "lr_wav2vec": 1e-4}
+
+
+def build_w2v_lstm_fc(overrides=None, seed: int = 0, device=None,
+                      bf16: bool = False, run_opts=None, **encoder_kw):
+    """w2v_LSTM_FC's ``SBModel`` with weights drawn from ``seed`` on
+    ``device``: the trunk at wav2vec2-large-lv60's topology for
+    ``wav2vec2_size`` 1024 (24 layers, 16 heads, FFN 4096; a narrower size
+    shrinks it as the recipe's ``output_size`` does; ``encoder_kw`` go to
+    the encoder), ``freeze: False``."""
+    from mlvae_tpu_torch.models.w2v_LSTM_FC.model import SBModel
+    from mlvae_tpu_torch.modules.fc_block import FCBlock
+    from mlvae_tpu_torch.modules.wav2vec2 import Wav2Vec2Encoder
+    dev = resolve_device(device)
+    h = dict(W2V_FC_RECIPE, **(overrides or {}))
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    size = h["wav2vec2_size"]
+    modules = {
+        "wav2vec2": Wav2Vec2Encoder(**{
+            "source": "", "output_size": size, "output_norm": True,
+            "freeze": False, "generator": gen, **encoder_kw}),
+        "classifier": FCBlock([size, h["fc_size"], h["fc_size"], 1],
+                              generator=gen)}
+    hparams = {"optimizers": {
+        "adam_opt": {"opt_class": Adam(lr=h["lr"]),
+                     "modules": ["classifier"]},
+        "wav2vec_opt": {"opt_class": Adam(lr=h["lr_wav2vec"]),
+                        "modules": ["wav2vec2"]}}}
+    model = SBModel(modules, hparams,
+                    run_opts={"bf16": bf16, **(run_opts or {})}).to(
+        dev).eval()
+    return ready_to_step(model)
+
+
+def synth_w2v_fc_batch(batch_size: int = 4, samples: int = 16000,
+                       seed: int = 0, device=None, conv_output_length=None
+                       ) -> Dict[str, Tuple]:
+    """A synthetic w2v_LSTM_FC batch on ``device``: ``wav`` (B, samples),
+    ``feat`` (B, T, 120) and ``flvl_gt_md_lbl_seq`` (B, T) at the trunk's
+    frame count T, relative lengths 1.0 down to 0.8."""
+    from mlvae_tpu_torch.modules.wav2vec2 import conv_output_length as col
+    dev = resolve_device(device)
+    rs = np.random.RandomState(seed)
+    T = (conv_output_length or col)(samples)
+    wav = rs.randn(batch_size, samples).astype(np.float32)
+    lens = np.linspace(1.0, 0.8, batch_size).astype(np.float32)
+    feats = rs.randn(batch_size, T, INPUT_SIZE).astype(np.float32)
+    md = (rs.rand(batch_size, T) < MISP_RATE).astype(np.int64)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    return {"wav": (t(wav), t(lens)), "feat": (t(feats), t(lens)),
+            "flvl_gt_md_lbl_seq": (t(md), t(lens))}
 
 
 def synth_batch(batch_size: int = 8, T: int = 160, L: int = 8,

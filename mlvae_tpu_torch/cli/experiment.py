@@ -10,15 +10,25 @@ datasets (both feature passes on the device) -> build
 where there is none (``device.resolve_device``): ``--device cpu`` is the
 only way onto the CPU. The device and the generator are set before the
 YAML is loaded, since the loader hands both to every module it builds.
+
+``run_ranked`` is how ``cli.train`` and ``cli.test`` take
+``--data_parallel True [--num_devices N] [--tensor_parallel M]``: it
+starts N ranks (``parallel.mesh.launch``; N defaults to the visible
+cards, one rank on the CPU), one card a rank where there are enough
+(NCCL), else sharing the cards over gloo, and runs the entry point on
+each. A rank prepares its experiment on its own card; rank 0 prepares
+the dataset and writes the experiment directory first, the others then
+read what it wrote.
 """
 from __future__ import annotations
 
 import importlib
 import logging
 import shutil
+import sys
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import torch
 
@@ -28,6 +38,7 @@ from mlvae_tpu_torch.device import resolve_device
 from mlvae_tpu_torch.hyperyaml import (load_hyperyaml, recursive_update,
                                        resolve_references)
 from mlvae_tpu_torch.hyperyaml.loader import _parse_tagged
+from mlvae_tpu_torch.parallel import mesh as M
 from mlvae_tpu_torch.training.brain import check_run_opts
 
 logger = logging.getLogger(__name__)
@@ -46,6 +57,40 @@ def _unported(what: str, name: str, table: Dict[str, int]) -> None:
             f"ROADMAP queue 1 item {table[name]}")
 
 
+def _on_ranks(run_opts: Dict) -> bool:
+    return bool(run_opts.get("data_parallel")) or \
+        int(run_opts.get("tensor_parallel") or 1) > 1
+
+
+def _rank_entry(module: str, name: str, argv: List[str]) -> None:
+    getattr(importlib.import_module(module), name)(argv)
+
+
+def run_ranked(entry: Callable, argv: List[str]):
+    """``entry(argv)`` here, or on the ranks that ``--data_parallel`` /
+    ``--tensor_parallel`` ask for (then None here). ``entry`` must be a
+    module-level function: the ranks are new processes."""
+    _, run_opts, _ = parse_arguments(argv)
+    if not _on_ranks(run_opts) or M.current() is not None:
+        return entry(argv)
+    check_run_opts(run_opts)
+    device_type = resolve_device(run_opts.get("device")).type
+    n_model = int(run_opts.get("tensor_parallel") or 1)
+    n = run_opts.get("num_devices") or (
+        torch.cuda.device_count() if device_type == "cuda" else 1)
+    M.check_split(n, n_model)
+    if device_type == "cuda":
+        # build every kernel once here: the ranks load the libraries
+        from mlvae_tpu_torch import _build
+        _build.build()
+    module = entry.__module__
+    if module == "__main__":    # python -m mlvae_tpu_torch.cli.train
+        module = sys.modules["__main__"].__spec__.name
+    M.launch(_rank_entry, (module, entry.__name__, argv), n, n_model,
+             device_type)
+    return None
+
+
 def prepare_experiment(args: List[str], prepare_exp_dir: bool = True
                        ) -> Dict:
     hparams_file, run_opts, overrides_str = parse_arguments(args)
@@ -54,7 +99,16 @@ def prepare_experiment(args: List[str], prepare_exp_dir: bool = True
         if key in run_opts:
             logger.info("--%s has no meaning without XLA (PyTorch keeps no "
                         "compile cache here); it changes nothing", key)
-    device = resolve_device(run_opts.get("device"))
+    mesh = M.current()
+    if _on_ranks(run_opts) and mesh is None:
+        raise RuntimeError("--data_parallel / --tensor_parallel: start the "
+                           "ranks with cli.experiment.run_ranked")
+    device = resolve_device(run_opts.get("device")) if mesh is None \
+        else resolve_device(mesh.device)
+    # rank 0 prepares and writes first; the others read what it wrote
+    if mesh is not None and not mesh.is_writer:
+        M.barrier()
+        prepare_exp_dir = False
     # the modules' weights: the YAML's torch.manual_seed seeds this one
     generator = torch.Generator(device=device)
 
@@ -96,6 +150,8 @@ def prepare_experiment(args: List[str], prepare_exp_dir: bool = True
     prepare_mod.prepare(**hparams["prepare"])
 
     datasets, label_encoder = prepare_datasets(hparams, device=device)
+    if mesh is not None and mesh.is_writer:
+        M.barrier()
     prepared["datasets"] = datasets
     prepared["label_encoder"] = label_encoder
     prepared["prepare_seconds"] = time.time() - t_prep

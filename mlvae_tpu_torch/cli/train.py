@@ -7,13 +7,13 @@
 import logging
 import sys
 
-from mlvae_tpu_torch.cli.experiment import prepare_experiment
+from mlvae_tpu_torch.cli.experiment import prepare_experiment, run_ranked
 
 
-def main(argv=None):
+def _main(argv):
     logging.basicConfig(level=logging.INFO, stream=sys.stdout)
     prepared = prepare_experiment(
-        argv if argv is not None else sys.argv[1:], prepare_exp_dir=True)
+        argv, prepare_exp_dir=True)
     hparams = prepared["hparams"]
     train_dataset, valid_dataset, _ = prepared["datasets"]
     model = prepared["model"]
@@ -25,6 +25,12 @@ def main(argv=None):
         valid_loader_kwargs=hparams["valid_dataloader_opts"],
     )
     return model
+
+
+def main(argv=None):
+    """The run's model, or None where ``--data_parallel`` /
+    ``--tensor_parallel`` ran it on ranks of their own."""
+    return run_ranked(_main, argv if argv is not None else sys.argv[1:])
 
 
 if __name__ == "__main__":

@@ -506,7 +506,7 @@ class SBModel(MDVAE):
         """Merge the stage's results into
         ``datasets/<dataset>/saved_md_results/<model_name>.json``."""
         md_results = getattr(self, "_pending_md_results", None)
-        if not md_results:
+        if not md_results or not self.is_writer:
             return
         save_dir = Path("datasets") / self.hparams["dataset_name"] / \
             "saved_md_results"

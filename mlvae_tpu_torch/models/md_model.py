@@ -97,6 +97,16 @@ def as_optimizer(info):
     return info if hasattr(info, "init") else info()
 
 
+class _NoWrites:
+    """The train log and scalar sink of a rank that does not write."""
+
+    def log_stats(self, *args, **kwargs):
+        pass
+
+    def add_scalar(self, *args, **kwargs):
+        pass
+
+
 class MDModel(Brain):
     # modules of the recipe's YAML ``modules`` that hold no parameters (the
     # CTC recipes' and LSTM_FC's normalizer): the JAX package keeps an
@@ -164,11 +174,14 @@ class MDModel(Brain):
     def on_fit_start(self):
         super().on_fit_start()
         out_dir = Path(self.hparams["output_dir"])
-        self.train_logger = FileTrainLogger(out_dir / "train_log.txt")
-        self.scalar_writer = ScalarWriter(out_dir)
-        with open(out_dir / "modules.txt", "w") as f:
-            for name, module in self.named_children():
-                f.write(f"{name}: {module!r}\n")
+        if self.is_writer:
+            self.train_logger = FileTrainLogger(out_dir / "train_log.txt")
+            self.scalar_writer = ScalarWriter(out_dir)
+            with open(out_dir / "modules.txt", "w") as f:
+                for name, module in self.named_children():
+                    f.write(f"{name}: {module!r}\n")
+        else:   # rank 0 alone writes
+            self.train_logger = self.scalar_writer = _NoWrites()
         if self.checkpointer is not None:   # resume from the newest
             ckpt = self.checkpointer.find_checkpoint()
             if ckpt is not None:
@@ -224,11 +237,14 @@ class MDModel(Brain):
                     raise ValueError("no max_key or min_key provided")
                 meta = dict(log_metrics)
                 meta["epoch"] = epoch
-                self.checkpointer.save_and_keep_only(
-                    self.checkpoint_state(), meta=meta,
-                    max_keys=max_keys, min_keys=min_keys)
+                # every rank gathers its shards, rank 0 writes
+                state = self.checkpoint_state()
+                if self.is_writer:
+                    self.checkpointer.save_and_keep_only(
+                        state, meta=meta, max_keys=max_keys,
+                        min_keys=min_keys)
 
-        if stage == Stage.TEST:
+        if stage == Stage.TEST and self.is_writer:
             out_dir = Path(self.hparams["output_dir"]) / "test_output"
             out_dir.mkdir(parents=True, exist_ok=True)
             log_str = ", ".join(f"{k}: {v}" for k, v in log_metrics.items())
@@ -255,6 +271,7 @@ class MDModel(Brain):
         picked without its key, is refused unless ``--debug`` or
         ``--allow_stale_ckpt`` (the second also where the recipe sets
         ``ALLOW_KEYLESS_CKPT``)."""
+        self.place_on_mesh()
         if self.checkpointer is None:
             return
         ckpt = self.checkpointer.find_checkpoint(max_key=max_key,
@@ -289,23 +306,37 @@ class MDModel(Brain):
         ``jax.tree_util.keystr`` writes them."""
         params, states = {}, {}
         flat = stack_layers({k: v.detach().cpu().numpy()
-                             for k, v in self.state_dict().items()})
+                             for k, v in self.full_state_dict().items()})
         for key, value in flat.items():
             path = key.split(".")
             target = states if path[0] in STATE_MODULES else params
             target[keystr(path)] = value
         state = {"params": params, "states": states}
+        if not self.ckpt_opt_state:
+            if not getattr(self, "_warned_no_opt_ckpt", False):
+                self._warned_no_opt_ckpt = True
+                logger.warning(
+                    "--ckpt_opt_state False: optimizer state excluded from "
+                    "checkpoints; a resumed run restarts with fresh "
+                    "optimizer moments")
+            return state
         for name in self.opt_states:
             state[f"opt__{name}"] = self._opt_tree(name)
         return state
 
     def _opt_layout(self, name):
-        """(module key, its parameters' names and shapes) per state of
+        """(module key, its parameters' names and whole shapes) per state of
         optimizer ``name``, in the order of the state's flat moments."""
-        mods = self.param_modules()
-        return [(mk, [(n, tuple(p.shape)) for n, p in
-                      mods[mk].named_parameters()])
-                for mk in self.opt_states[name]]
+        out = []
+        for mk in self.opt_states[name]:
+            shapes = []
+            for n, shape, dim in self._moment_layout(mk):
+                shape = list(shape)
+                if dim is not None:
+                    shape[dim] *= self.mesh.n_model
+                shapes.append((n, tuple(shape)))
+            out.append((mk, shapes))
+        return out
 
     def _opt_tree(self, name) -> Dict[str, np.ndarray]:
         """Optimizer ``name``'s states in the layout the optimizer names
@@ -325,7 +356,7 @@ class MDModel(Brain):
                 out[f"['{mk}'].{path}"] = np.asarray(
                     st[key].cpu().numpy(), np.int32)
             for key, path in opt.MOMENTS.items():
-                flat = moment_to_numpy(st[key])
+                flat = moment_to_numpy(self.full_moment(name, mk, key))
                 offset, per_param = 0, {}
                 for pname, shape in params:
                     n = int(np.prod(shape))
@@ -355,15 +386,17 @@ class MDModel(Brain):
                     for p in names})
                 flat = np.concatenate([per_param[p].reshape(-1)
                                        for p, _ in params])
-                st[key].copy_(moment_from_numpy(flat))
+                self.set_full_moment(name, mk, key, moment_from_numpy(flat))
 
     def _restore(self, ckpt, with_opt: bool) -> None:
         """Parameters and running statistics from ``ckpt`` (and the
         optimizer states with ``with_opt``), and the epoch counter from its
         meta. Every parameter must be in the checkpoint; running statistics
         only where it saved them."""
+        self.place_on_mesh()
         missing, unexpected = self.load_state_dict(
-            load_jax_checkpoint(ckpt.path), strict=False)
+            self.local_state_dict(load_jax_checkpoint(ckpt.path)),
+            strict=False)
         bad = [k for k in missing if k.split(".")[0] not in STATE_MODULES]
         if bad or unexpected:
             raise ValueError(f"checkpoint {ckpt.path} does not fit the model:"

@@ -39,7 +39,7 @@ class SBModel(W2V_CRDNN_CTC):
 
     def on_stage_end(self, stage, stage_loss, epoch=None):
         super().on_stage_end(stage, stage_loss, epoch)
-        if stage == Stage.TEST:
+        if stage == Stage.TEST and self.is_writer:
             path = Path(self.hparams["output_dir"]) / \
                 "saved_phn_recog_outs.pkl"
             existing = {}

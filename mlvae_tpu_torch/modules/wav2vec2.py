@@ -62,6 +62,8 @@ from torch import nn
 
 from mlvae_tpu_torch.convert import hf_state_dict_to_port
 from mlvae_tpu_torch.nn.layers import dropout, uniform_
+from mlvae_tpu_torch.parallel import mesh
+from mlvae_tpu_torch.parallel import tp as tp_ops
 
 logger = logging.getLogger(__name__)
 
@@ -95,10 +97,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def whole_tensor_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
     """``F.layer_norm(x, x.shape)``: one mean and variance over every
-    element, batch and padding included; f32 statistics."""
+    element, batch and padding included; f32 statistics. Under data
+    parallelism the batch is the global one: the sums go over the data
+    group (``mesh.data_all_reduce``), as the JAX step's over its mesh."""
     xf = x.float()
-    m = xf.mean()
-    v = ((xf - m) ** 2).mean()
+    n = xf.numel() * mesh.data_size()
+    m = mesh.data_all_reduce(xf.sum()) / n
+    v = mesh.data_all_reduce(((xf - m) ** 2).sum()) / n
     return ((xf - m) * torch.rsqrt(v + eps)).to(x.dtype)
 
 
@@ -324,12 +329,49 @@ class Wav2Vec2Encoder(nn.Module):
                 t[f"{name}_s"], t[f"{name}_b"] = ones(H), zeros(H)
             self.layers.append(_holder(**t))
 
+        # the model group this trunk is split over (``split_for_tp``)
+        self.tp_mesh = None
         self.pretrained_loaded = False
         if snapshot is not None:
             state = hf_state_dict_to_port(read_snapshot_weights(snapshot))
             self.load_state_dict(state, strict=True)
             self.pretrained_loaded = True
             logger.info("loaded wav2vec2 weights from %s", snapshot)
+
+    # -- tensor parallelism ------------------------------------------------------
+    def tensor_parallel_splits(self) -> Dict[str, int]:
+        """The placement hook (the JAX module's ``partition_specs``):
+        parameter name -> the dim it is split along over the model axis."""
+        return tp_ops.wav2vec2_split_dims(self)
+
+    def split_for_tp(self, tp_mesh) -> None:
+        """Keep this model rank's shard of every split parameter (the full
+        ones must be equal on every rank: same seed or restored)."""
+        err = tp_ops.validate_tp(self, tp_mesh.n_model)
+        if err:
+            raise ValueError(f"cannot tensor-split the wav2vec2 trunk: {err}")
+        params = dict(self.named_parameters())
+        with torch.no_grad():
+            for name, dim in self.tensor_parallel_splits().items():
+                p = params[name]
+                p.data = tp_ops.shard(p.data, dim, tp_mesh.n_model,
+                                      tp_mesh.model_rank)
+        self.tp_mesh = tp_mesh
+
+    def _tp_slice(self, full: torch.Tensor, dim: int) -> torch.Tensor:
+        """This model rank's slice of a mask drawn for the whole trunk."""
+        t = self.tp_mesh
+        return tp_ops.shard(full, dim, t.n_model, t.model_rank)
+
+    def _site_mask(self, mask, shape, dim, rate, train, generator):
+        """A split site's keep-mask: the full draw's slice (drawn here from
+        ``generator`` where none is given, the same on every model rank)."""
+        if not train or rate <= 0.0:
+            return None
+        if mask is None:
+            mask = torch.rand(shape, generator=generator,
+                              device=self.layers[0].q_w.device) < 1.0 - rate
+        return self._tp_slice(mask, dim)
 
     # -- draws -----------------------------------------------------------------
     def layer_dropout_sites(self, B: int, T: int):
@@ -406,6 +448,12 @@ class Wav2Vec2Encoder(nn.Module):
         B, T, H = h.shape
         nh = self.num_attention_heads
         hd = H // nh
+        if self.tp_mesh is not None:
+            # this rank's heads: q/k/v column-split, o row-split
+            mask = self._site_mask(mask, (B, nh, T, T), 1,
+                                   self.attention_dropout, train, generator)
+            nh //= self.tp_mesh.n_model
+            h = tp_ops.copy_to_model(h, self.tp_mesh)
 
         def heads(x):
             return x.reshape(B, T, nh, hd)
@@ -418,7 +466,11 @@ class Wav2Vec2Encoder(nn.Module):
         attn = torch.softmax(scores, dim=-1)
         attn = dropout(attn, self.attention_dropout, train, generator,
                        mask=mask).to(h.dtype)
-        out = torch.einsum("bnqk,bknd->bqnd", attn, v).reshape(B, T, H)
+        out = torch.einsum("bnqk,bknd->bqnd", attn, v).reshape(B, T,
+                                                               nh * hd)
+        if self.tp_mesh is not None:
+            return tp_ops.reduce_from_model(out @ lp.o_w,
+                                            self.tp_mesh) + lp.o_b
         return out @ lp.o_w + lp.o_b
 
     def _layer(self, lp, h, masks, train, generator):
@@ -428,8 +480,19 @@ class Wav2Vec2Encoder(nn.Module):
             return dropout(x, hd, train, generator, mask=masks[i])
 
         def ffn(x):
-            f = drop(gelu(x @ lp.ff_in_w + lp.ff_in_b), 2)
-            return drop(f @ lp.ff_out_w + lp.ff_out_b, 3)
+            if self.tp_mesh is None:
+                f = drop(gelu(x @ lp.ff_in_w + lp.ff_in_b), 2)
+                return drop(f @ lp.ff_out_w + lp.ff_out_b, 3)
+            # ff_in column-split (the activation's dropout mask sliced
+            # alike), ff_out row-split
+            x = tp_ops.copy_to_model(x, self.tp_mesh)
+            m2 = self._site_mask(masks[2], (*x.shape[:-1],
+                                            self.intermediate_size), -1,
+                                 hd, train, generator)
+            f = dropout(gelu(x @ lp.ff_in_w + lp.ff_in_b), hd, train,
+                        generator, mask=m2)
+            y = tp_ops.reduce_from_model(f @ lp.ff_out_w, self.tp_mesh)
+            return drop(y + lp.ff_out_b, 3)
 
         if self.do_stable_layer_norm:   # pre-LN (large-lv60)
             a = self._attention(lp, layer_norm(h, lp.ln1_s, lp.ln1_b, eps),

@@ -5,7 +5,9 @@
 ``count``, ``glob_mean`` and ``glob_std`` are f32 buffers and the output
 comes back in the input's dtype. ``update=True`` folds the batch's masked
 per-utterance statistics into the running averages while
-``epoch < update_until_epoch``; the eval step never updates.
+``epoch < update_until_epoch``; the eval step never updates. Under data
+parallelism the batch means and the count are the global batch's (sums
+over the data group), as the JAX step takes them over its mesh.
 
 A recipe's YAML gives no feature width (``norm_type: global`` only), as
 the JAX module takes it from the first batch (``Brain.ensure_states``):
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mlvae_tpu_torch.parallel.mesh import data_all_reduce, data_size
 from mlvae_tpu_torch.utils.tensor import length_mask
 
 EPS = 1e-10
@@ -60,13 +63,16 @@ class InputNormalization(nn.Module):
         cur_mean = (feats * mask).sum(dim=1) / denom               # (B, C)
         var = ((feats - cur_mean[:, None, :]) ** 2 * mask).sum(dim=1) / denom
         cur_std = torch.sqrt(torch.clamp(var, min=EPS))
+        # the global batch's means: this rank holds B of its rows
+        B = B * data_size()
+        sums = data_all_reduce(torch.stack([cur_mean.sum(dim=0),
+                                            cur_std.sum(dim=0)]))
+        batch_mean, batch_std = sums[0] / B, sums[1] / B
         new_count = self.count + B
         w_old = self.count / new_count
         w_new = 1.0 - w_old
-        self.glob_mean.copy_(w_old * self.glob_mean
-                             + w_new * cur_mean.mean(dim=0))
-        self.glob_std.copy_(w_old * self.glob_std
-                            + w_new * cur_std.mean(dim=0))
+        self.glob_mean.copy_(w_old * self.glob_mean + w_new * batch_mean)
+        self.glob_std.copy_(w_old * self.glob_std + w_new * batch_std)
         self.count.copy_(new_count)
 
     def forward(self, feats: torch.Tensor, rel_lens: torch.Tensor,

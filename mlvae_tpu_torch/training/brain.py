@@ -44,10 +44,45 @@ those only. ``step_draws`` lists a step's draws from its device batch
 (``draws`` at the features' B and T, unless a recipe needs more of the
 batch).
 
+Data and tensor parallelism (``--data_parallel``, ``--tensor_parallel``,
+``--zero1``) run on the ranks that ``parallel.mesh.launch`` starts
+(``cli.train`` and ``cli.test`` start them); ``self.mesh`` is the rank's
+place, and one process is a mesh of one rank (``mesh.solo``), whose
+collectives return their input: one process and the ranks run one step.
+A step on N data ranks gives what one process gives on the same padded
+global batch with the same seed (up to the order of float sums):
+
+* the global batch is padded to a multiple of the data axis by repeating
+  its last row (``pad_batch``, the JAX Brain's ``to_device_batch``), and
+  each rank runs the forward on its rows at the global T
+  (``shard_batch``), so the kernels' routes are those of a one-process
+  run at B/N;
+* the step's draws are the global batch's, from the replayed
+  ``noise_source`` or drawn from ``self.generator`` at the global shapes
+  in the order of ``step_draws`` (``draw_noise``: one process and every
+  rank draw the same), and each rank takes its rows (``local_noise``);
+* the predictions are all-gathered over the data group before
+  ``compute_objectives`` (``gather_predictions``, differentiable: the
+  backward hands each rank its rows' gradient), so every masked mean
+  takes the global normaliser and every rank holds the global loss; the
+  normalizer and the wav2vec2 whole-tensor norms reduce over the data
+  group in the forward;
+* each module's flat gradient is reduce-scattered over the data group,
+  the global norm summed from the pieces, and the clip, the non-finite
+  skip and the inactive-module rule decided from global values, so every
+  rank takes the same decisions; then the pieces are all-gathered and
+  every rank runs the optimizer (replicated), or each rank runs it on its
+  piece and the update is all-gathered (``--zero1``,
+  ``parallel/zero1.py``). Tensor-split modules all-reduce their shards'
+  gradients over the data group instead.
+
+At evaluation the gathered predictions are trimmed of the padding rows
+before ``evaluate_predictions`` (``trim_replica_padding``). Rank 0 alone
+writes (``is_writer``).
+
 Run options of the JAX Brain that the port does not have yet raise
 ``NotImplementedError`` (``check_run_opts``): the scanned epoch, the
-device-batch cache, data and tensor parallelism, ZeRO-1, asynchronous
-checkpoints, checkpoints without optimizer state and the profiler.
+device-batch cache, asynchronous checkpoints and the profiler.
 """
 from __future__ import annotations
 
@@ -63,23 +98,20 @@ from torch import nn
 from torch.func import functional_call
 
 from mlvae_tpu_torch.data.batch import DataLoader, prefetch
+from mlvae_tpu_torch.parallel import mesh as M
+from mlvae_tpu_torch.parallel import zero1
 
 logger = logging.getLogger(__name__)
 
-_ITEM12 = "ROADMAP queue 1 item 12 (parallelism and scale)"
+_ITEM12 = "ROADMAP queue 1 item 12b (the rest of parallelism and scale)"
 # run option -> the values the port takes; any other value raises
 UNPORTED_RUN_OPTS = {
     "scan_epoch": (False,),
     "scan_chunk": (),
-    "data_parallel": (False,),
-    "num_devices": (None, 1),
-    "tensor_parallel": (None, 1),
-    "zero1": (False,),
     "async_ckpt": (False,),
     "cache_device_batches": (False,),
     "device_batch_cache_mb": (),
     "profile": (False,),
-    "ckpt_opt_state": (True,),
 }
 
 
@@ -105,8 +137,47 @@ def batch_feats(batch):
     return batch["feat"] if "feat" in batch else batch["kaldi_feat"]
 
 
-def global_norm(flat_grads: List[torch.Tensor]) -> torch.Tensor:
-    return torch.stack([(g * g).sum() for g in flat_grads]).sum().sqrt()
+def draw_noise(draws: List, generator: Optional[torch.Generator],
+               device) -> Dict:
+    """Named draws (``Brain.draws``' list) made from ``generator``: a
+    dropout mask, or a name that repeats, goes into a list; a
+    ``bernoulli_split`` draw is a list of masks, one a shape."""
+    from mlvae_tpu_torch.nn.dist import gumbel_noise
+    names = [d[0] for d in draws]
+    noise: Dict = {}
+    kw = dict(generator=generator, device=device)
+    for name, kind, shape, keep, dtype in draws:
+        if kind == "bernoulli_split":
+            noise[name] = [torch.rand(sh, **kw) < k
+                           for sh, k in zip(shape, keep)]
+            continue
+        if kind == "bernoulli":
+            v = torch.rand(shape, **kw) < keep
+        elif kind == "uniform":
+            v = torch.rand(shape, **kw)
+        elif kind == "normal":
+            v = torch.randn(shape, **kw)
+        elif kind == "gumbel":
+            v = gumbel_noise(shape, dtype=dtype, **kw)
+        else:
+            raise ValueError(f"unknown draw kind {kind!r} of {name!r}")
+        if kind == "bernoulli" or names.count(name) > 1:
+            noise.setdefault(name, []).append(v)
+        else:
+            noise[name] = v
+    return noise
+
+
+def _draw_shapes(draws: List) -> Dict[str, List[tuple]]:
+    """name -> the shapes of its draws in order (a ``bernoulli_split``
+    draw gives one a mask)."""
+    out: Dict[str, List[tuple]] = {}
+    for name, kind, shape, _, _ in draws:
+        if kind == "bernoulli_split":
+            out.setdefault(name, []).extend(tuple(s) for s in shape)
+        else:
+            out.setdefault(name, []).append(tuple(shape))
+    return out
 
 
 def cast_floats(tree, dtype, min_ndim: int = 0):
@@ -172,6 +243,26 @@ class Brain(nn.Module):
         self.avg_train_loss = 0.0
         self.stats_loggers: Dict = {}
         self._batch_ids: List = []
+        # data / tensor parallelism: this rank's place in the mesh (one
+        # process: a mesh of one rank)
+        self.mesh = M.solo()
+        tp = int(self.run_opts.get("tensor_parallel") or 1)
+        if self.run_opts.get("data_parallel", False) or tp > 1:
+            self.mesh = M.current()
+            if self.mesh is None:
+                raise RuntimeError(
+                    "--data_parallel / --tensor_parallel run on the ranks "
+                    "that parallel.mesh.launch starts (cli.train and "
+                    "cli.test start them)")
+            if self.mesh.n_model != tp:
+                raise ValueError(f"the mesh's model axis is "
+                                 f"{self.mesh.n_model}, the run asks for "
+                                 f"--tensor_parallel {tp}")
+        self.zero1 = bool(self.run_opts.get("zero1", False))
+        self.ckpt_opt_state = bool(self.run_opts.get("ckpt_opt_state", True))
+        # (optimizer name, module) pairs whose moments are ZeRO-1 pieces
+        self.zero1_keys: set = set()
+        self._placed = False
 
     # -- the recipe's contract ----------------------------------------------
     def compute_forward(self, batch: Dict, noise: Optional[Dict] = None,
@@ -198,7 +289,9 @@ class Brain(nn.Module):
 
     def step_draws(self, dev_batch: Dict, train: bool) -> List:
         """The draws of one step on ``dev_batch``: ``draws`` at its
-        features' B and T."""
+        features' B and T (none where the recipe has no ``draws``)."""
+        if type(self).draws is Brain.draws:
+            return []
         B, T = batch_feats(dev_batch)[0].shape[:2]
         return self.draws(B, T, train)
 
@@ -222,7 +315,9 @@ class Brain(nn.Module):
         pass
 
     def on_fit_start(self):
+        self.place_on_mesh()
         self.init_optimizers()
+        self.setup_zero1()
 
     def on_evaluate_start(self, max_key=None, min_key=None):
         pass
@@ -249,28 +344,319 @@ class Brain(nn.Module):
         return {mk: opt.init(list(mods[mk].parameters()))
                 for mk in self._opt_module_keys(module_names)}
 
+    # -- data and tensor parallelism -------------------------------------
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes logs, checkpoints and outputs: rank
+        0 of a mesh, or the one process."""
+        return self.mesh.is_writer
+
+    def tp_split_dims(self) -> Dict[str, int]:
+        """Tensor-split parameter (full name) -> its split dim, from the
+        modules' placement hook ``tensor_parallel_splits`` (the JAX
+        modules' ``partition_specs``); empty without a model axis."""
+        if self.mesh.n_model == 1:
+            return {}
+        out = {}
+        for name, mod in self.named_children():
+            if hasattr(mod, "tensor_parallel_splits"):
+                out.update({f"{name}.{k}": d for k, d in
+                            mod.tensor_parallel_splits().items()})
+        return out
+
+    def tp_modules(self) -> set:
+        return {k.split(".")[0] for k in self.tp_split_dims()}
+
+    def place_on_mesh(self) -> None:
+        """Rank 0's parameters and buffers on every rank, then the
+        tensor-split modules cut to this rank's shards (once)."""
+        if self.mesh.world == 1 or self._placed:
+            return
+        M.replicate(list(self.parameters()) + list(self.buffers()))
+        if self.mesh.n_model > 1:
+            for name, mod in self.named_children():
+                if hasattr(mod, "split_for_tp"):
+                    mod.split_for_tp(self.mesh)
+                    logger.info("tensor-parallel placement for module %r "
+                                "(model axis %d)", name, self.mesh.n_model)
+        self._placed = True
+
+    def setup_zero1(self) -> None:
+        """Under ``--zero1``, cut the moments of every module that is not
+        tensor-split into this rank's pieces (``parallel/zero1.py``)."""
+        self.zero1_keys = set()
+        if not self.zero1:
+            return
+        if self.mesh.n_data <= 1:
+            logger.warning("--zero1 requested but this run has no data axis "
+                           "above 1; optimizer-state sharding is inactive")
+            return
+        tp_mods = self.tp_modules()
+        for name, (opt, module_names) in self.optimizers.items():
+            for mk in self._opt_module_keys(module_names):
+                if mk in tp_mods:
+                    continue
+                zero1.shard_state(self.opt_states[name][mk], opt.MOMENTS,
+                                  self.mesh)
+                self.zero1_keys.add((name, mk))
+        logger.info("ZeRO-1: optimizer state split over the %d-way data "
+                    "axis for %d (optimizer, module) pairs",
+                    self.mesh.n_data, len(self.zero1_keys))
+
+    def full_state_dict(self, prefixes=None) -> Dict[str, torch.Tensor]:
+        """``state_dict`` (its keys under ``prefixes``, all without) with
+        every tensor-split parameter whole again (a collective over the
+        model group under a model axis)."""
+        from mlvae_tpu_torch.parallel.tp import unshard
+        sd = {k: v for k, v in self.state_dict().items()
+              if prefixes is None or any(k.startswith(p) for p in prefixes)}
+        for key, dim in self.tp_split_dims().items():
+            if key in sd:
+                sd[key] = unshard(sd[key], dim, self.mesh)
+        return sd
+
+    def local_state_dict(self, sd: Dict[str, torch.Tensor]) -> Dict:
+        """A whole ``state_dict`` cut to this rank's tensor-split shards."""
+        from mlvae_tpu_torch.parallel.tp import shard
+        sd = dict(sd)
+        for key, dim in self.tp_split_dims().items():
+            if key in sd:
+                sd[key] = shard(sd[key], dim, self.mesh.n_model,
+                                self.mesh.model_rank)
+        return sd
+
+    def _moment_layout(self, mk: str):
+        """(parameter name, this rank's shape, split dim or None) per
+        parameter of module ``mk``, in the order of its flat moments."""
+        dims = self.tp_split_dims()
+        return [(n, tuple(p.shape), dims.get(f"{mk}.{n}"))
+                for n, p in getattr(self, mk).named_parameters()]
+
+    def full_moment(self, name: str, mk: str, key: str) -> torch.Tensor:
+        """Moment ``key`` of optimizer ``name``'s state of module ``mk``,
+        flat over the whole parameters (ZeRO-1 pieces and tensor-split
+        shards gathered: a collective under a mesh)."""
+        from mlvae_tpu_torch.parallel.tp import unshard
+        flat = self.opt_states[name][mk][key]
+        layout = self._moment_layout(mk)
+        if (name, mk) in self.zero1_keys:
+            n = sum(int(np.prod(s)) for _, s, _ in layout)
+            flat = zero1.gather_flat(flat, n, self.mesh)
+        if all(d is None for _, _, d in layout):
+            return flat
+        parts, off = [], 0
+        for _, shape, dim in layout:
+            k = int(np.prod(shape))
+            t = flat[off:off + k].view(shape)
+            off += k
+            parts.append((unshard(t, dim, self.mesh) if dim is not None
+                          else t).reshape(-1))
+        return torch.cat(parts)
+
+    def set_full_moment(self, name: str, mk: str, key: str,
+                        flat: torch.Tensor) -> None:
+        """The inverse of ``full_moment``: a whole flat moment cut to this
+        rank's shards and piece, into the state."""
+        from mlvae_tpu_torch.parallel.tp import shard
+        state = self.opt_states[name][mk]
+        flat = flat.to(device=state[key].device, dtype=state[key].dtype)
+        layout = self._moment_layout(mk)
+        if any(d is not None for _, _, d in layout):
+            n_model, m = self.mesh.n_model, self.mesh.model_rank
+            parts, off = [], 0
+            for _, shape, dim in layout:
+                full = list(shape)
+                if dim is not None:
+                    full[dim] *= n_model
+                k = int(np.prod(full))
+                t = flat[off:off + k].view(full)
+                off += k
+                parts.append((shard(t, dim, n_model, m) if dim is not None
+                              else t).reshape(-1))
+            flat = torch.cat(parts)
+        if (name, mk) in self.zero1_keys:
+            flat = zero1.split_flat(flat, self.mesh)
+        state[key].copy_(flat)
+
+    def moment_shard_fraction(self) -> float:
+        """The share of the optimizer moments' bytes this rank holds."""
+        mods = self.param_modules()
+        return zero1.moment_shard_fraction(
+            (self.opt_states[name][mk], opt.MOMENTS,
+             sum(p.numel() for p in mods[mk].parameters()))
+            for name, (opt, names) in self.optimizers.items()
+            for mk in self._opt_module_keys(names))
+
+    def pad_batch(self, batch: Dict) -> Dict:
+        """The batch padded to a multiple of the data axis by repeating its
+        last row (ids too); unchanged on one data rank."""
+        n = self.mesh.n_data
+        if n == 1:
+            return batch
+        out = {}
+        for key, value in batch.items():
+            if key == "id":
+                ids = list(value)
+                out[key] = ids + ids[-1:] * ((-len(ids)) % n)
+            else:
+                out[key] = tuple(M.pad_rows(v, n) for v in value)
+        return out
+
+    def local_noise(self, batch: Dict, local: Dict, train: bool,
+                    noise: Dict) -> Dict:
+        """This rank's rows of the global batch's draws ``noise``. A
+        draw's batch axis is the one whose size differs between the global
+        and the local draws."""
+        g_shapes = _draw_shapes(self.step_draws(batch, train))
+        l_shapes = _draw_shapes(self.step_draws(local, train))
+        n, r = self.mesh.n_data, self.mesh.data_rank
+
+        def rows(v, gs, ls):
+            axes = [i for i, (a, b) in enumerate(zip(gs, ls)) if a != b]
+            if not axes:
+                return v
+            if len(axes) > 1 or gs[axes[0]] != ls[axes[0]] * n:
+                raise ValueError(f"draw of shape {gs} has no batch axis of "
+                                 f"the local shape {ls}")
+            return v.narrow(axes[0], r * ls[axes[0]], ls[axes[0]])
+
+        out = {}
+        for name, value in noise.items():
+            if name not in g_shapes:
+                out[name] = value
+                continue
+            vals = value if isinstance(value, list) else [value]
+            got = [rows(v, gs, ls) for v, gs, ls in
+                   zip(vals, g_shapes[name], l_shapes[name])]
+            out[name] = got if isinstance(value, list) else got[0]
+        return out
+
+    def gather_predictions(self, preds, n_local: int):
+        """Every tensor of the predictions all-gathered over the data group
+        along its batch axis (the first); differentiable."""
+        if isinstance(preds, dict):
+            return {k: self.gather_predictions(v, n_local)
+                    for k, v in preds.items()}
+        if isinstance(preds, (list, tuple)):
+            return type(preds)(self.gather_predictions(v, n_local)
+                               for v in preds)
+        if isinstance(preds, torch.Tensor):
+            if preds.dim() == 0 or preds.shape[0] != n_local:
+                raise ValueError(
+                    f"a prediction of shape {tuple(preds.shape)} is not "
+                    f"batch-major over this rank's {n_local} rows; data "
+                    "parallelism gathers the predictions along their first "
+                    "axis")
+            return M.gather_rows(preds, self.mesh)
+        return preds
+
+    def trim_replica_padding(self, preds, n: int):
+        """The predictions of the ``n`` real rows (the JAX Brain's
+        ``_trim_replica_padding``): the padding rows off every tensor whose
+        first axis is the padded batch."""
+        padded = M.padded_rows(n, self.mesh.n_data)
+        if padded == n:
+            return preds
+        if isinstance(preds, dict):
+            return {k: self.trim_replica_padding(v, n)
+                    for k, v in preds.items()}
+        if isinstance(preds, torch.Tensor) and preds.dim() >= 1 \
+                and preds.shape[0] == padded:
+            return preds[:n]
+        return preds
+
+    def _local_forward(self, batch: Dict, noise, generator, train: bool,
+                       fn: Callable):
+        """``fn(batch, noise, generator)`` on this rank's rows of the padded
+        global batch, its predictions gathered over the data group. The
+        draws are the global batch's, one process and every rank alike:
+        ``noise``, or made from ``generator`` at the global shapes in the
+        order of ``step_draws`` (``draw_noise``)."""
+        batch = self.pad_batch(batch)
+        if noise is None:
+            noise = draw_noise(self.step_draws(batch, train), generator,
+                               self.device)
+        if self.mesh.n_data == 1:
+            return fn(batch, noise, generator)
+        local = M.shard_batch(batch, self.mesh)
+        noise = self.local_noise(batch, local, train, noise)
+        n_local = batch_feats(local)[0].shape[0]
+        return self.gather_predictions(fn(local, noise, generator), n_local)
+
+    def _reduce_grads(self, grads: Dict, loss: torch.Tensor):
+        """The gradient rule (see the module docstring): (each module's
+        gradient as this rank holds it after the reduction, the global
+        norm, whether each module's gradient has a nonzero anywhere)."""
+        mesh, tp_mods = self.mesh, self.tp_modules()
+        tp_dims = self.tp_split_dims()
+        red, data_sq, data_nz, model_sq, model_nz = {}, [], [], [], []
+        rep_sq = []
+        for mk, g in grads.items():
+            if g is None:
+                continue
+            if mk in tp_mods:
+                g = M.all_reduce(g, mesh.data_group)
+                split = self._split_mask(mk, tp_dims, g)
+                model_sq.append((g * g * split).sum())
+                rep_sq.append((g * g * (1 - split)).sum())
+                model_nz.append((g != 0).any().float())
+            else:
+                g = zero1.reduce_scatter_grad(g, mesh)
+                data_sq.append((g * g).sum())
+                data_nz.append((g != 0).any().float())
+            red[mk] = g
+        zero = torch.zeros((), device=loss.device)
+        dv = M.all_reduce(torch.stack(data_sq + data_nz), mesh.data_group) \
+            if data_sq else None
+        mv = M.all_reduce(torch.stack(model_sq + model_nz),
+                          mesh.model_group) if model_sq else None
+        sq = [dv[:len(data_sq)].sum() if dv is not None else zero,
+              mv[:len(model_sq)].sum() if mv is not None else zero,
+              torch.stack(rep_sq).sum() if rep_sq else zero]
+        gnorm = torch.stack(sq).sum().sqrt()
+        flags = iter(list(dv[len(data_sq):]) if dv is not None else [])
+        tflags = iter(list(mv[len(model_sq):]) if mv is not None else [])
+        active = {mk: next(tflags if mk in tp_mods else flags) > 0
+                  for mk in red}
+        return red, gnorm, active
+
+    def _split_mask(self, mk: str, tp_dims: Dict, g: torch.Tensor):
+        """1 on the flat gradient's elements of module ``mk``'s
+        tensor-split parameters, 0 on its replicated ones."""
+        parts = [torch.full((p.numel(),), float(f"{mk}.{n}" in tp_dims),
+                            device=g.device, dtype=g.dtype)
+                 for n, p in getattr(self, mk).named_parameters()]
+        return torch.cat(parts)
+
     # -- the step ----------------------------------------------------------
     def train_step(self, batch: Dict, epoch: int,
                    noise: Optional[Dict] = None,
                    generator: Optional[torch.Generator] = None):
         """One fused step; returns (loss, losses), detached. Afterwards each
         reached parameter's ``.grad`` holds the gradient as applied:
-        clipped, or zeros after a non-finite step."""
+        clipped, or zeros after a non-finite step (None under ``--zero1``,
+        where a rank holds only its piece). ``batch`` and ``noise`` are the
+        global batch's."""
         for p in self.parameters():
             p.grad = None
-        kwargs = dict(noise=noise, generator=generator, train=True,
-                      epoch=epoch)
-        with (f32_gemm_sums() if self.auto_mix_prec
-              else contextlib.nullcontext()):
+        kwargs = dict(train=True, epoch=epoch)
+
+        def forward(b, nz, gen):
             if self.auto_mix_prec:
                 params = {name: p.to(torch.bfloat16) if p.is_floating_point()
                           else p for name, p in self.named_parameters()}
-                preds = cast_floats(functional_call(
-                    self, params, (cast_floats(batch, torch.bfloat16, 2),),
-                    kwargs), torch.float32)
-            else:
-                preds = self.compute_forward(batch, **kwargs)
-            loss, losses = self.compute_objectives(preds, batch)
+                return cast_floats(functional_call(
+                    self, params, (cast_floats(b, torch.bfloat16, 2),),
+                    dict(kwargs, noise=nz, generator=gen)), torch.float32)
+            return self.compute_forward(b, noise=nz, generator=gen,
+                                        **kwargs)
+
+        with (f32_gemm_sums() if self.auto_mix_prec
+              else contextlib.nullcontext()):
+            preds = self._local_forward(batch, noise, generator, True,
+                                        forward)
+            loss, losses = self.compute_objectives(preds,
+                                                   self.pad_batch(batch))
             loss.backward()
 
         modules = self.param_modules()
@@ -281,31 +667,54 @@ class Brain(nn.Module):
                 torch.cat([(p.grad if p.grad is not None
                             else torch.zeros_like(p)).reshape(-1)
                            for p in ps])
-        with torch.no_grad():
-            reached = [g for g in grads.values() if g is not None]
-            gnorm = global_norm(reached) if reached else \
-                torch.zeros((), device=loss.device)
-            finite = torch.isfinite(loss) & torch.isfinite(gnorm)
-            clip = torch.clamp(self.max_grad_norm / (gnorm + 1e-12), max=1.0)
-            for mk, g in grads.items():
-                if g is None:
-                    continue
-                # REPLACE on a non-finite step: NaN * 0 would stay NaN
-                g = torch.where(finite, g * clip, torch.zeros_like(g))
-                grads[mk] = g
-                offset = 0
-                for p in modules[mk].parameters():
-                    p.grad = g[offset:offset + p.numel()].view_as(p)
-                    offset += p.numel()
-            for name in sorted(self.optimizers):
-                opt, module_names = self.optimizers[name]
-                for mk in self._opt_module_keys(module_names):
-                    g = grads[mk]
-                    if g is None:   # never reached: all zero, inactive
-                        continue
-                    opt.step(list(modules[mk].parameters()), g,
-                             self.opt_states[name][mk], active=(g != 0).any())
+        self._update(modules, grads, loss)
         return loss.detach(), {k: v.detach() for k, v in losses.items()}
+
+    @torch.no_grad()
+    def _update(self, modules: Dict, grads: Dict, loss: torch.Tensor
+                ) -> None:
+        """The optimizers' step on the reduced gradients, replicated or
+        ZeRO-1."""
+        from mlvae_tpu_torch.training.optim import scatter_flat
+        red, gnorm, active = self._reduce_grads(grads, loss)
+        finite = torch.isfinite(loss) & torch.isfinite(gnorm)
+        clip = torch.clamp(self.max_grad_norm / (gnorm + 1e-12), max=1.0)
+        zero1_mods = {mk for _, mk in self.zero1_keys}
+        tp_mods = self.tp_modules()
+        full = {}
+        for mk, g in red.items():
+            # REPLACE on a non-finite step: NaN * 0 would stay NaN
+            red[mk] = torch.where(finite, g * clip, torch.zeros_like(g))
+            # a module whose applied gradient is all zero (its losses
+            # detached, or the step non-finite) is inactive
+            active[mk] = active[mk] & finite
+            params = list(modules[mk].parameters())
+            if mk in zero1_mods:
+                for p in params:
+                    p.grad = None
+                continue
+            n = sum(p.numel() for p in params)
+            g = red[mk] if mk in tp_mods else \
+                M.all_gather_cat(red[mk], self.mesh.data_group)[:n]
+            full[mk] = g
+            offset = 0
+            for p in params:
+                p.grad = g[offset:offset + p.numel()].view_as(p)
+                offset += p.numel()
+        for name in sorted(self.optimizers):
+            opt, module_names = self.optimizers[name]
+            for mk in self._opt_module_keys(module_names):
+                if mk not in red:   # never reached: all zero, inactive
+                    continue
+                params = list(modules[mk].parameters())
+                state = self.opt_states[name][mk]
+                if (name, mk) in self.zero1_keys:
+                    n = sum(p.numel() for p in params)
+                    update = zero1.gather_flat(
+                        opt.delta(red[mk], state, active[mk]), n, self.mesh)
+                    scatter_flat(params, update)
+                else:
+                    opt.step(params, full[mk], state, active=active[mk])
 
     def fit_batch(self, batch: Dict, epoch: int,
                   noise: Optional[Dict] = None,
@@ -376,7 +785,7 @@ class Brain(nn.Module):
         """One TRAIN batch of the loop: host checks, the move to the
         device, the step; returns the loss on the device."""
         batch = self.prepare_batch(batch)
-        dev_batch = self.to_device_batch(batch)
+        dev_batch = self.pad_batch(self.to_device_batch(batch))
         # a recipe that runs more device work on the batch after its step
         # (HMM_DNN_ALI's realignment) reuses both
         self._last_prepared_batch, self._last_dev_batch = batch, dev_batch
@@ -395,9 +804,13 @@ class Brain(nn.Module):
         """The current stage's forward without training, as the JAX
         package's jitted eval step returns it: (predictions restricted to
         ``EVAL_PRED_KEYS``, total loss, per-key losses)."""
-        preds = self.compute_forward(dev_batch, noise=noise,
-                                     generator=generator, epoch=epoch)
-        loss, losses = self.compute_objectives(preds, dev_batch)
+        preds = self._local_forward(
+            dev_batch, noise, generator, False,
+            lambda b, nz, gen: self.compute_forward(b, noise=nz,
+                                                    generator=gen,
+                                                    epoch=epoch))
+        loss, losses = self.compute_objectives(preds,
+                                               self.pad_batch(dev_batch))
         keys = self.EVAL_PRED_KEYS
         if keys is not None:
             preds = {k: v for k, v in preds.items() if k in keys}
@@ -414,14 +827,15 @@ class Brain(nn.Module):
         """One VALID or TEST batch: the forward, the losses recorded, the
         host-side evaluation; returns the loss."""
         batch = self.prepare_batch(batch)
-        dev_batch = self.to_device_batch(batch)
+        dev_batch = self.pad_batch(self.to_device_batch(batch))
         self._batch_ids = batch["id"]
         preds, loss, losses = self.eval_forward(
             dev_batch, self.current_epoch(),
             noise=self._next_noise(dev_batch, False),
             generator=self.generator)
         self._record_losses(losses)
-        self.evaluate_predictions(preds, batch, stage)
+        self.evaluate_predictions(
+            self.trim_replica_padding(preds, len(batch["id"])), batch, stage)
         return float(loss)
 
     def fit(self, epoch_counter, train_set, valid_set=None,

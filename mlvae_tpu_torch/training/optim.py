@@ -49,7 +49,7 @@ def _f32(v, dev) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=dev)
 
 
-def _scatter(params: Sequence[torch.Tensor], update: torch.Tensor) -> None:
+def scatter_flat(params: Sequence[torch.Tensor], update: torch.Tensor) -> None:
     """Add the flat ``update`` to ``params`` in order."""
     offset = 0
     for p in params:
@@ -83,6 +83,14 @@ class _Optimizer:
         """Advance ``state`` and update ``params`` in place from ``grad``,
         the parameters' gradients flattened and concatenated in order.
         Where the 0-d bool ``active`` is False, neither happens."""
+        scatter_flat(params, self.delta(grad, state, active))
+
+    @torch.no_grad()
+    def delta(self, grad: torch.Tensor, state: Dict,
+              active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Advance ``state`` from the flat ``grad`` and return the flat
+        update, elementwise; ZeRO-1 runs it on a rank's piece of a
+        module's gradient and moments (``parallel/zero1.py``)."""
         count = _advance(state["count"])
         update, new = self._update(grad, state, count)
         new["count"] = count
@@ -92,7 +100,7 @@ class _Optimizer:
                    for k, v in new.items()}
         for k, v in new.items():
             state[k].copy_(v)
-        _scatter(params, update)
+        return update
 
     def _update(self, grad: torch.Tensor, state: Dict, count: torch.Tensor):
         """(the flat update, the new moments) at the advanced ``count``."""

@@ -34,9 +34,11 @@ from mlvae_tpu.data import data_io as jdio
 from mlvae_tpu_torch.cli import infer as infer_cli
 from mlvae_tpu_torch.cli import test as test_cli
 from mlvae_tpu_torch.cli import train as train_cli
+from mlvae_tpu_torch.cli.args import parse_arguments
 from mlvae_tpu_torch.cli.experiment import prepare_experiment
 from mlvae_tpu_torch.convert import from_jax
 from mlvae_tpu_torch.models.MD_VAE.model import Target
+from mlvae_tpu_torch.training.brain import check_run_opts
 from mlvae_tpu_torch.training.checkpointer import Checkpointer
 from test_torch_train_step import _replay
 
@@ -226,9 +228,20 @@ def test_fit_and_evaluate_match_jax(workdir, monkeypatch):
     ("cache_device_batches", None), ("profile", None),
     ("ckpt_opt_state", "False")])
 def test_unported_run_options_raise(workdir, option, value):
+    """The options of ROADMAP item 12b raise, naming it. Those of item 12a
+    pass the check, and the two that need ranks raise where a caller
+    builds the experiment outside them (``cli.train`` / ``cli.test`` start
+    them through ``run_ranked``; ``tests/test_torch_parallel.py``)."""
     args = _args("opts") + [f"--{option}"] + ([value] if value else [])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        prepare_experiment(args)
+    if option not in ("data_parallel", "num_devices", "tensor_parallel",
+                      "zero1", "ckpt_opt_state"):
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            prepare_experiment(args)
+        return
+    check_run_opts(parse_arguments(args)[1])
+    if option in ("data_parallel", "tensor_parallel"):
+        with pytest.raises(RuntimeError, match="run_ranked"):
+            prepare_experiment(args)
 
 
 def test_device_defaults_to_cuda(workdir, monkeypatch):

@@ -22,6 +22,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import jax
 
@@ -191,7 +192,18 @@ def test_lstm_fc_trains_on_augmented_features(workdir):
         assert not np.array_equal(sample["aug_wav"], sample["wav"])
 
 
-def test_ingest_wav_bytes_equal_to_jax(workdir, monkeypatch):
+@pytest.fixture()
+def one_blas_thread():
+    """The resampler's ``np.convolve`` runs on OpenBLAS's ``dot``: with its
+    default of a thread a core it waited minutes for cores busy with other
+    test processes (473 s in a six-worker run, 5 s alone). One thread, on
+    both packages alike, takes seconds under any load."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
+
+
+def test_ingest_wav_bytes_equal_to_jax(workdir, monkeypatch,
+                                       one_blas_thread):
     def no_native():
         raise OSError("the native library is left out of this test")
     monkeypatch.setattr(jax_native, "load", no_native)
