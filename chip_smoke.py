@@ -202,7 +202,31 @@ Phases, each reported on its own line; any failure exits non-zero:
    over two ranks against the unsplit trunk (1e-4, f32, TF32 off) and
    one w2v_LSTM_FC training step, and ``cli.train`` / ``cli.test``
    --data_parallel --num_devices 2 with batches of 5; each rank's step
-   times beside one process's, with the phase's seconds;
+   times beside one process's, with the phase's seconds; then the run
+   options (``run_options``): MD_VAE through ``cli.train`` (one target
+   cycle, no --debug) and ``cli.test`` on a synthesized corpus of 8 x 24
+   utterances of 2 to 7 digits (three padded shapes an epoch), once with
+   --scan_epoch True --scan_chunk 2 --async_ckpt True
+   --cache_device_batches True --profile True and once with the four
+   off, f32 and --bf16: every epoch's TRAIN and VALID loss, the final
+   checkpoint's arrays, TEST's decodes, statistics files and saved MD
+   results held one against the other (equal, or within 1e-6 where a
+   library GEMM rounds otherwise in a graph), the step graphs' captures
+   and replays, every stage's kernel launches in the graph run by the
+   profiler (epoch 1's TRAIN from its ``--profile`` trace, every other
+   stage from a profiler window) against the same stage of the eager
+   run by the wrappers, each run's peak memory, each epoch's wall time
+   both ways; the same scanned run on one NCCL rank (--data_parallel
+   True --num_devices 1) against one process; the w2v_MD_VAE
+   frozen-trunk cache (two debug epochs, f32 and --bf16: the trunk in
+   epoch 1 only, the cached features bit-equal to the step's, the
+   losses against MLVAE_W2V_FROZEN_CACHE=0); w2v_LSTM_FC (the lv60 trunk
+   fine-tuned) scanned and not, two epochs on the same corpus (graphs,
+   peak memory, losses); the fine-tuned lv60 trunk at B=8 with 4 s of
+   audio, its per-layer recompute on and off (the memory held before the
+   step, at the peak of its forward and backward, when the update starts
+   and at the update's peak; step ms in turns; the gradients one against
+   the other);
 4. times from CUDA events after warm-up: each kernel, its plain version,
    a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6, in
    turns with each build of K6 in SpeechBrain mode and on the Kaldi pass's
@@ -4559,6 +4583,11 @@ class CliProbe:
             for r in HARNESS + ("LSTM_FC", "HMM_DNN_ALI", "w2v_LSTM_FC")]
         self.stages, self.decodes, self.passes, self.infer_ms = {}, [], {}, []
         self._saved = []
+        # with a set here, each stage not in it runs inside a profiler
+        # window whose kernel launches land in its record's "profiled"
+        self.profile_stages, self._prof = None, None
+        # with a list here, each VALID batch's predictions
+        self.valid_preds = None
         probe = self
 
         def wrap(owner, name, make):
@@ -4574,6 +4603,11 @@ class CliProbe:
                 probe.stages[probe._key] = {
                     "target": target.name if target else "-",
                     "batches": 0, "start": launches()}
+                if probe.profile_stages is not None \
+                        and probe._key not in probe.profile_stages:
+                    probe._prof = stage_profiler()
+                    probe._prof.__enter__()
+                    time.sleep(PROFILE_MARGIN_S)
             return fn
 
         def on_stage_end(orig):
@@ -4585,6 +4619,12 @@ class CliProbe:
                 rec["launches"] = {k: v - start[k]
                                    for k, v in launches().items()}
                 rec["loss"] = float(stage_loss)
+                if probe._prof is not None:
+                    time.sleep(PROFILE_MARGIN_S)
+                    probe._prof.__exit__(None, None, None)
+                    rec["profiled"], rec["profiled_trace"] = \
+                        profiled_counts(probe._prof)
+                    probe._prof = None
                 return orig(model, stage, stage_loss, epoch)
             return fn
 
@@ -4599,6 +4639,10 @@ class CliProbe:
                 if stage.name == "TEST":
                     probe.decodes.append(
                         (list(batch["id"]),
+                         {k: v.cpu() for k, v in preds.items()}))
+                elif probe.valid_preds is not None:
+                    probe.valid_preds.append(
+                        (probe._key, list(batch["id"]),
                          {k: v.cpu() for k, v in preds.items()}))
                 return orig(model, preds, batch, stage)
             return fn
@@ -6025,6 +6069,660 @@ def par_cli(dev, report, root, out):
     report(f"  (d): {out['seconds_cli']:.1f} s")
 
 
+# the run options phase: MD_VAE through cli.train / cli.test with the four
+# options on and off, on a synthesized corpus of 8 speakers x 24
+# utterances of 2 to 7 digits (96 TRAIN utterances: twelve batches of 8 in
+# three padded shapes, VALID's six in three, so that each epoch captures a
+# step graph for each shape and replays it), one target cycle (the recipe
+# checkpoints on its VAE epoch only)
+RUNOPT_ON = ("--scan_epoch", "True", "--scan_chunk", "2", "--async_ckpt",
+             "True", "--cache_device_batches", "True", "--profile", "True")
+RUNOPT_OFF = ("--scan_epoch", "False", "--async_ckpt", "False",
+              "--cache_device_batches", "False", "--profile", "False")
+RUNOPT_CORPUS = (8, 24, (2, 7))   # speakers, utterances a speaker, digits
+RUNOPT_RTOL = 1e-6        # a library GEMM that rounds otherwise in a graph
+# the kernels whose launches the profiler counts in the graph run
+RUNOPT_KERNELS = ("lstm_fwd", "lstm_bwd", "md_viterbi", "lstm_fused_fwd",
+                  "lstm_fused_bwd", "lstm_semi_bwd")
+W2V_CACHE_EPOCHS = 2      # the frozen-trunk cache: epoch 1 fills it
+# the fine-tuned trunk's scanned run (its graphs' memory): w2v_LSTM_FC,
+# two epochs on the same corpus (its waves padded to 0.5 s buckets)
+W2V_SCAN_RECIPE, W2V_SCAN_EPOCHS = "w2v_LSTM_FC", 2
+REMAT_B, REMAT_SAMPLES = 8, 64000   # the fine-tuned trunk: 4 s of audio
+REMAT_ITERS, REMAT_ROUNDS = 5, 2    # timed steps a turn, turns each way
+
+
+def runopt_args(name, opts, amp=False, recipe="MD_VAE", debug=False,
+                epochs=None, dev=None):
+    """``cli_args`` with the run options ``opts`` (and without
+    ``--debug``: the scanned epoch is off under it)."""
+    args = cli_args(name, bf16=amp, recipe=recipe,
+                    corpus={"epochs": epochs} if epochs else None)
+    if not debug:
+        i = args.index("--debug")
+        del args[i:i + 3]
+    args += list(opts)
+    return args + (["--device", "cpu"] if dev is not None
+                   and dev.type == "cpu" else [])
+
+
+def kernel_counts(names):
+    """Kernel launches by the port's kernel names, from the profiler's
+    kernel records' names (CUPTI's: eager launches and the kernels of
+    replayed graphs alike)."""
+    import re
+    out = {}
+    for full in names:
+        m = re.search(r"(\w+)_kernel\b", full)
+        if not m:
+            continue
+        name = m.group(1)
+        if name == "lstm_fused_bwd" and "<true>" in full:
+            name = "lstm_semi_bwd"      # K4-bwd: the SEMI instance
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def trace_launches(path):
+    """``kernel_counts`` of a Chrome trace that ``--profile`` wrote."""
+    return kernel_counts(ev.get("name", "") for ev in json.loads(
+        Path(path).read_text())["traceEvents"] if ev.get("cat") == "kernel")
+
+
+# the profiler drops a kernel record whose start, or end, falls outside
+# its window by the host clock; the card's timestamps are mapped onto that
+# clock with some error, so a stage's window opens this long before its
+# first launch and closes this long after its last kernel ends
+PROFILE_MARGIN_S = 0.01
+
+
+def stage_profiler():
+    """A ``torch.profiler`` window over the card's activity."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def profiled_counts(prof):
+    """``kernel_counts`` of a closed ``stage_profiler`` window: of its
+    events, and of its Chrome trace."""
+    import os
+    import tempfile
+    import torch
+    events = kernel_counts(e.name for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        return events, trace_launches(path)
+    finally:
+        os.remove(path)
+
+
+@contextlib.contextmanager
+def graph_launch_tally(probe):
+    """Inside, each step graph's kernel calls at its capture (what each of
+    its replays launches) are tallied by kernel, and each replay adds its
+    graph's tally to the probe's current stage (``"replayed"``)."""
+    import torch
+    from mlvae_tpu_torch import _build
+    from mlvae_tpu_torch.training.step_graphs import StepGraph
+    captured = {}
+    saved = (_build.Kernel.__call__, StepGraph.__init__, StepGraph.__call__)
+    call, init, replay = saved
+
+    def kernel_call(self, *args):
+        call(self, *args)
+        if torch.cuda.is_current_stream_capturing():
+            captured[self.name] = captured.get(self.name, 0) + 1
+
+    def graph_init(self, *args, **kwargs):
+        captured.clear()
+        init(self, *args, **kwargs)
+        self.tally = dict(captured)
+
+    def graph_call(self, *args):
+        out = replay(self, *args)
+        rec = probe.stages[probe._key].setdefault("replayed", {})
+        for k, v in self.tally.items():
+            rec[k] = rec.get(k, 0) + v
+        return out
+    _build.Kernel.__call__ = kernel_call
+    StepGraph.__init__, StepGraph.__call__ = graph_init, graph_call
+    try:
+        yield
+    finally:
+        _build.Kernel.__call__ = saved[0]
+        StepGraph.__init__, StepGraph.__call__ = saved[1:]
+
+
+@contextlib.contextmanager
+def peak_memory(dev):
+    """Inside, the card's allocations from a reset peak: the yielded dict
+    gets the bytes held at the start (``base_gib``) and the peaks of
+    ``torch.cuda.max_memory_allocated`` and ``max_memory_reserved`` (a
+    graph's memory pool counts in both), in GiB; empty off the card."""
+    import gc
+    import torch
+    out = {}
+    if dev.type != "cuda":
+        yield out
+        return
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["base_gib"] = torch.cuda.memory_allocated(dev) / 2 ** 30
+    yield out
+    torch.cuda.synchronize()
+    out["allocated_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["reserved_gib"] = torch.cuda.max_memory_reserved(dev) / 2 ** 30
+
+
+def gib(peak) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in peak.items()) or "-"
+
+
+def rel_diff(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def ckpt_arrays(run_dir):
+    """The newest checkpoint's arrays by (file, key)."""
+    import numpy as np
+    from mlvae_tpu_torch.training.checkpointer import Checkpointer
+    ckpt = Checkpointer(run_dir / "checkpoints").find_checkpoint()
+    out = {}
+    for f in sorted(ckpt.path.glob("*.npz")):
+        with np.load(f) as data:
+            out.update({(f.name, k): data[k] for k in data.files})
+    return ckpt.meta, out
+
+
+def array_errs(got, want):
+    """(largest relative error in norm, arrays not bit-equal)."""
+    import numpy as np
+    worst, unequal = 0.0, 0
+    for key, w in want.items():
+        g = got[key]
+        if w.dtype.kind == "V":
+            g, w = g.view(np.int16), w.view(np.int16)
+        if not np.array_equal(g, w):
+            unequal += 1
+            w64, g64 = w.astype(np.float64), g.astype(np.float64)
+            worst = max(worst, float(np.linalg.norm(g64 - w64) / max(
+                np.linalg.norm(w64), 1e-30)))
+    return worst, unequal
+
+
+def run_md_vae_options(report, probe, root, amp, dev):
+    """MD_VAE's ``cli.train`` then ``cli.test`` once with the four options
+    off and once on, from one seed: epoch losses, the final checkpoint's
+    arrays, TEST's decodes, statistics files and saved MD results held one
+    against the other, and every VALID batch's predictions; the graphs'
+    captures and replays; every stage's kernel launches in the graph run
+    (its eager steps' wrapper counts plus, for each replay, the kernels
+    its graph recorded at capture) against the same stage of the eager
+    run by the wrappers, exact; the graph run's launches by the profiler
+    (epoch 1's TRAIN from the ``--profile`` trace, every other stage from
+    the probe's windows, by their events and by their Chrome traces),
+    epoch 1's TRAIN and TEST exact, the others reported with what the
+    profiler's records lack; each run's peak memory; each epoch's wall
+    time both ways. Returns (the numbers, the eager run's wrapper counts,
+    the graph run's launches by replays and eager steps, and by the
+    profiler)."""
+    import torch
+    from mlvae_tpu_torch.cli import test as test_cli
+    from mlvae_tpu_torch.cli import train as train_cli
+
+    label = "--bf16 " if amp else "f32 "
+    cuda = dev.type == "cuda"
+    runs = {}
+    for on in (False, True):
+        name = f"ro_{'bf16' if amp else 'f32'}_{'on' if on else 'off'}"
+        # the graph run's stages in profiler windows, but epoch 1's TRAIN,
+        # which its own --profile traces
+        probe.reset()
+        probe.profile_stages = {("TRAIN", 1)} if on and cuda else None
+        probe.valid_preds = []
+        reset_launches()
+        opts = RUNOPT_ON if on else RUNOPT_OFF
+        try:
+            with graph_launch_tally(probe):
+                with peak_memory(dev) as peak:
+                    model = train_cli.main(runopt_args(name, opts, amp,
+                                                       dev=dev))
+                rec = {"name": name, "epochs": model.epoch_log,
+                       "fit": dict(model.scan_stats), "peak": peak,
+                       "valid_preds": probe.valid_preds}
+                check(model.checkpointer._worker is None,
+                      "the checkpointer's worker outlived fit")
+                del model
+                stages = dict(probe.stages)
+                probe.reset()
+                model = test_cli.main(runopt_args(name, opts, amp,
+                                                  dev=dev))
+                torch.cuda.synchronize()
+        finally:
+            probe.profile_stages, probe.valid_preds = None, None
+        stages.update(probe.stages)
+        (test_key,) = [k for k in probe.stages if k[0] == "TEST"]
+        rec.update(stages=stages, test=dict(model.scan_stats),
+                   decodes=list(probe.decodes),
+                   evaluate=model.evaluate_timing,
+                   test_loss=stages[test_key]["loss"], launches=launches())
+        del model
+        runs[on] = rec
+    off, on = runs[False], runs[True]
+    run_off, run_on = (Path(root) / "results" / r["name"] for r in (off,
+                                                                     on))
+    # the losses of every epoch's TRAIN and VALID stage
+    loss_err, same = 0.0, True
+    for a, b in zip(on["epochs"], off["epochs"]):
+        for key in ("loss", "valid_loss"):
+            loss_err = max(loss_err, rel_diff(a[key], b[key]))
+            same &= a[key] == b[key]
+    # the final checkpoints, TEST's decodes, statistics and saved results
+    meta_on, arr_on = ckpt_arrays(run_on)
+    meta_off, arr_off = ckpt_arrays(run_off)
+    ckpt_err, ckpt_unequal = array_errs(arr_on, arr_off)
+    same_decode = len(on["decodes"]) == len(off["decodes"]) > 0 and all(
+        ids == pids and all(torch.equal(p[k], pp[k]) for k in p)
+        for (ids, p), (pids, pp) in zip(on["decodes"], off["decodes"]))
+    files = sorted(f.name for f in (run_off / "test_output").iterdir())
+    same_files = files == sorted(f.name for f in (run_on / "test_output")
+                                 .iterdir()) and all(
+        (run_on / "test_output" / f).read_text()
+        == (run_off / "test_output" / f).read_text() for f in files)
+    saved = Path(root) / "datasets/SynAudioMNIST/saved_md_results"
+    same_saved = json.loads((saved / f"{on['name']}.json").read_text()) \
+        == json.loads((saved / f"{off['name']}.json").read_text())
+    test_err = rel_diff(on["test_loss"], off["test_loss"])
+    same_valid = len(on["valid_preds"]) == len(off["valid_preds"]) > 0 \
+        and all(ka == kb and ia == ib and sorted(pa) == sorted(pb)
+                and all(torch.equal(pa[k], pb[k]) for k in pa)
+                for (ka, ia, pa), (kb, ib, pb) in zip(on["valid_preds"],
+                                                      off["valid_preds"]))
+    # every stage of the graph run against the same stage of the eager run
+    eager = {key: rec["launches"] for key, rec in off["stages"].items()}
+    graphs = {key: {k: rec["launches"].get(k, 0)
+                    + rec.get("replayed", {}).get(k, 0)
+                    for k in rec["launches"]}
+              for key, rec in on["stages"].items()}
+    trace1 = trace_launches(run_on / "profile" / "trace.json")
+    prof = {key: (trace1 if key == ("TRAIN", 1) else rec.get("profiled", {}))
+            for key, rec in on["stages"].items()}
+    prof_trace = {key: (trace1 if key == ("TRAIN", 1)
+                        else rec.get("profiled_trace", {}))
+                  for key, rec in on["stages"].items()}
+    kernels = sorted({k for k in RUNOPT_KERNELS
+                      for d in (*graphs.values(), *eager.values())
+                      if d.get(k, 0)})
+
+    def total(by_stage):
+        return {k: sum(d.get(k, 0) for d in by_stage.values())
+                for k in kernels}
+
+    def equal(a, keys):
+        return all(a[key].get(k, 0) == eager[key].get(k, 0)
+                   for key in keys for k in kernels)
+    graphs_equal = graphs.keys() == eager.keys() and equal(graphs, eager)
+    exact = [key for key in eager if key == ("TRAIN", 1)
+             or key[0] == "TEST"]
+    prof_exact = not cuda or (prof.keys() == eager.keys()
+                              and equal(prof, exact))
+    lacking = {f"{s}{e}": {k: graphs[(s, e)].get(k, 0) - d.get(k, 0)
+                           for k in kernels
+                           if graphs[(s, e)].get(k, 0) != d.get(k, 0)}
+               for (s, e), d in prof.items()}
+    lacking = {key: d for key, d in lacking.items() if d}
+    prof_total, graphs_total = total(prof), total(graphs)
+    stage_list = " ".join(f"{s}{e}" for s, e in eager)
+    steps = (run_on / "step_times.jsonl").read_text().splitlines()
+    walls = {w: [round(e["seconds"], 3) for e in r["epochs"]]
+             for w, r in (("off", off), ("on", on))}
+    report(f"  {label}MD_VAE, {len(on['epochs'])} epochs of "
+           f"{on['epochs'][0]['batches']} batches: TRAIN / VALID losses rel "
+           f"err {loss_err:.3e} (tol {RUNOPT_RTOL:g}; equal {same}); final "
+           f"checkpoint (epoch {meta_on['epoch']}) {len(arr_on)} arrays, "
+           f"{ckpt_unequal} not bit-equal, rel err {ckpt_err:.3e}; TEST "
+           f"decodes equal {same_decode}, statistics files equal "
+           f"{same_files} ({len(files)}), saved MD results equal "
+           f"{same_saved}, loss rel err {test_err:.3e}")
+    report(f"  {label}graphs: fit {on['fit']}, cli.test {on['test']}; "
+           f"VALID predictions equal {same_valid} "
+           f"({len(on['valid_preds'])} batches); launches of the stages "
+           f"{stage_list}: the eager run's by the wrappers "
+           f"{total(eager)}; the graph run's (eager steps by the "
+           f"wrappers, {  {k: on['launches'][k] for k in kernels} }, and "
+           f"replays by their graphs' captured kernels) {graphs_total}, "
+           f"stage by stage equal {graphs_equal}; by the profiler, events "
+           f"{prof_total}, traces {total(prof_trace)}, TRAIN1 and TEST "
+           f"equal {prof_exact}, records lacking {lacking or 'none'}; "
+           f"peak memory of "
+           f"cli.train GiB off ({gib(off['peak'])}), on ({gib(on['peak'])});"
+           f" step_times.jsonl {len(steps)} lines; epoch wall s off "
+           f"{walls['off']}, on {walls['on']} (on: under the profiler); "
+           f"evaluate eval s off {off['evaluate']['eval']:.3f}, on "
+           f"{on['evaluate']['eval']:.3f}")
+    check(loss_err <= RUNOPT_RTOL, f"{label}the options change the losses")
+    check(ckpt_err <= RUNOPT_RTOL and meta_on["epoch"] == meta_off["epoch"],
+          f"{label}the options change the checkpoint")
+    check(same_decode and same_files and same_saved
+          and test_err <= RUNOPT_RTOL, f"{label}the options change TEST")
+    check(same_valid, f"{label}the options change VALID's predictions")
+    check(graphs_equal and (kernels or not cuda),
+          f"{label}graph launches {graphs} != eager {eager}")
+    check(prof_exact, f"{label}profiled launches {prof} != eager {eager}")
+    check(not cuda or (on["fit"]["captures"] > 0 and on["fit"]["replays"]
+                       > 0 and on["test"]["replays"] > 0),
+          f"{label}no step graph was replayed")
+    check(len(steps) == len(on["epochs"]), "step_times.jsonl lines")
+    return {"loss_rel_err": loss_err, "losses_equal": same,
+            "ckpt_rel_err": ckpt_err, "ckpt_arrays_unequal": ckpt_unequal,
+            "test_equal": same_decode and same_files and same_saved,
+            "graphs_fit": on["fit"], "graphs_test": on["test"],
+            "launches_graphs": {f"{s} {e}": {k: d.get(k, 0)
+                                             for k in kernels}
+                                for (s, e), d in graphs.items()},
+            "launches_profiler_graphs": {f"{s} {e}": d for (s, e), d
+                                         in prof.items()},
+            "launches_profiler_traces": {f"{s} {e}": d for (s, e), d
+                                         in prof_trace.items()},
+            "profiler_records_lacking": lacking,
+            "valid_predictions_equal": same_valid,
+            "launches_wrappers_eager": {f"{s} {e}": {
+                k: d.get(k, 0) for k in kernels} for (s, e), d
+                in eager.items()},
+            "peak_gib": {"off": off["peak"], "on": on["peak"]},
+            "epoch_wall_s": walls,
+            "evaluate_eval_s": {"off": off["evaluate"]["eval"],
+                                "on": on["evaluate"]["eval"]}}, \
+        off["launches"], graphs_total, prof_total
+
+
+def run_w2v_cache(report, probe, amp, dev):
+    """w2v_MD_VAE (the frozen lv60 trunk) through ``cli.train``, two debug
+    epochs, with the frozen-trunk cache and with
+    ``MLVAE_W2V_FROZEN_CACHE=0``: the trunk's forwards by stage, the
+    cached features against the step's (the first batch's), the epoch
+    losses (VALID under ``--bf16`` reads the cached bf16 features, as the
+    JAX package's does)."""
+    import os
+    import torch
+    from mlvae_tpu_torch.cli import train as train_cli
+    from mlvae_tpu_torch.modules.wav2vec2 import Wav2Vec2Encoder
+
+    label = "--bf16 " if amp else "f32 "
+    runs = {}
+    for cached in (True, False):
+        calls, outs = {}, []
+
+        def hook(mod, args, out):
+            if isinstance(mod, Wav2Vec2Encoder):
+                key = " ".join(map(str, probe._key))
+                calls[key] = calls.get(key, 0) + 1
+                if not outs:
+                    outs.append(out.detach().clone())
+        handle = torch.nn.modules.module.register_module_forward_hook(hook)
+        os.environ["MLVAE_W2V_FROZEN_CACHE"] = "1" if cached else "0"
+        try:
+            with checkpoint_writes(False):
+                model = train_cli.main(runopt_args(
+                    f"w2v_cache_{int(cached)}{'_bf16' if amp else ''}",
+                    (), amp, recipe="w2v_MD_VAE", debug=True,
+                    epochs=W2V_CACHE_EPOCHS, dev=dev))
+        finally:
+            handle.remove()
+            os.environ.pop("MLVAE_W2V_FROZEN_CACHE")
+        runs[cached] = (calls, outs[0], model.epoch_log,
+                        len(model._dev_batch_cache))
+        del model
+    (c_on, f_on, e_on, n_cached), (c_off, f_off, e_off, _) = runs[True], \
+        runs[False]
+    train_equal = all(a["loss"] == b["loss"] for a, b in zip(e_on, e_off))
+    valid_err = max(rel_diff(a["valid_loss"], b["valid_loss"])
+                    for a, b in zip(e_on, e_off))
+    same_feats = f_on.dtype == f_off.dtype and torch.equal(f_on, f_off)
+    first_only = set(c_on) <= {"TRAIN 1", "VALID 1"} and \
+        sum(c_off.values()) > sum(c_on.values())
+    report(f"  {label}w2v_MD_VAE frozen-trunk cache: trunk forwards with "
+           f"the cache {c_on} ({n_cached} batches cached), without "
+           f"{c_off}; cached features bit-equal to the step's {same_feats}"
+           f" ({f_on.dtype}); TRAIN losses equal {train_equal}; VALID "
+           f"losses rel err {valid_err:.3e}")
+    check(first_only and same_feats and train_equal,
+          f"{label}the frozen-trunk cache disagrees")
+    check(amp or valid_err == 0.0, "f32 VALID losses differ with the cache")
+    return {"trunk_calls_cached": c_on, "trunk_calls_uncached": c_off,
+            "features_equal": same_feats, "train_losses_equal": train_equal,
+            "valid_rel_err": valid_err}
+
+
+def run_remat(dev, report, smi, B=REMAT_B, samples=REMAT_SAMPLES,
+              build=None, iters=REMAT_ITERS, rounds=REMAT_ROUNDS):
+    """The fine-tuned lv60 trunk (w2v_MD_VAE_sfl_resi's topology, here
+    w2v_LSTM_FC's step) at B=8 with 4 s of audio, one step from one state
+    with the same draws with the per-layer recompute on and off (in
+    deterministic mode): the bytes held before the step, the peak of the
+    forward and backward (up to ``_update``), the bytes held when
+    ``_update`` starts and the update's own peak; then step ms in turns
+    (default mode, ``iters`` steps after warm-up, ``rounds`` turns each
+    way), and the gradients one against the other."""
+    import os
+    import torch
+    from mlvae_tpu_torch.bench_utils import (build_w2v_lstm_fc,
+                                             synth_w2v_fc_batch)
+    from mlvae_tpu_torch.training.brain import Stage, draw_noise
+
+    cuda = dev.type == "cuda"
+    model = (build or build_w2v_lstm_fc)(device=dev)
+    batch = synth_w2v_fc_batch(batch_size=B, samples=samples, device=dev)
+    model.train()
+    model.set_stage(Stage.TRAIN, 1)
+    g = torch.Generator(device=dev).manual_seed(1)
+    noise = draw_noise(model.step_draws(batch, True), g, dev)
+    snap = snapshot(model)
+    out, grads = {"B": B, "samples": samples, "card": smi}, {}
+    update = model._update
+
+    def split_update(phases):
+        def fn(*args):
+            if cuda:
+                torch.cuda.synchronize()
+                phases["fwd_bwd_peak"] = torch.cuda.max_memory_allocated(dev)
+                phases["at_update"] = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            update(*args)
+            if cuda:
+                torch.cuda.synchronize()
+                phases["update_peak"] = torch.cuda.max_memory_allocated(dev)
+        return fn
+
+    def step():
+        model.train_step(batch, 1, noise=noise)
+    saved_env = os.environ.get("MLVAE_W2V_REMAT")
+    try:
+        for remat in ("1", "0"):
+            os.environ["MLVAE_W2V_REMAT"] = remat
+            restore(model, snap)
+            for p in model.parameters():
+                p.grad = None
+            phases = {}
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                phases["before"] = torch.cuda.memory_allocated(dev)
+            # cuDNN's and torch's deterministic algorithms: the two steps
+            # differ by the recompute alone
+            model._update = split_update(phases)
+            try:
+                with deterministic():
+                    step()
+                    torch.cuda.synchronize()
+            finally:
+                del model._update
+            # on the host: the next run's memory starts where this one's
+            # did
+            grads[remat] = {n: p.grad.cpu() for n, p in
+                            model.named_parameters() if p.grad is not None}
+            for p in model.parameters():
+                p.grad = None
+            out[f"remat_{remat}"] = {f"{k}_gib": v / 2 ** 30
+                                     for k, v in phases.items()}
+        for _ in range(rounds):
+            for remat in ("1", "0"):
+                os.environ["MLVAE_W2V_REMAT"] = remat
+                out[f"remat_{remat}"].setdefault("step_ms", []).append(
+                    cuda_ms(step, iters))
+    finally:
+        if saved_env is None:
+            os.environ.pop("MLVAE_W2V_REMAT", None)
+        else:
+            os.environ["MLVAE_W2V_REMAT"] = saved_env
+    errs = [float((grads["1"][n].double() - grads["0"][n].double()).norm()
+                  / max(float(grads["0"][n].double().norm()), 1e-30))
+            for n in grads["0"]]
+    out["grad_rel_err"] = max(errs)
+    out["grads_bit_equal"] = all(torch.equal(grads["1"][n], grads["0"][n])
+                                 for n in grads["0"])
+
+    def line(r):
+        return ", ".join(f"{k[:-4]} {v:.3f} GiB" for k, v in r.items()
+                         if k.endswith("_gib")) + ", step ms " + ", ".join(
+            f"{v:.3f}" for v in r["step_ms"])
+    report(f"  the fine-tuned lv60 trunk (B={B}, {samples} samples): "
+           f"recompute on: {line(out['remat_1'])}; off: "
+           f"{line(out['remat_0'])} ({iters} steps a turn after 2 of "
+           f"warm-up, turns on, off x {rounds}); gradients ({len(errs)}) "
+           f"max rel err {out['grad_rel_err']:.3e}, bit-equal "
+           f"{out['grads_bit_equal']} on {smi}")
+    check(set(grads["1"]) == set(grads["0"]) and len(errs) > 0
+          and out["grad_rel_err"] <= RUNOPT_RTOL,
+          "the recompute changes the gradients")
+    return out
+
+
+def run_w2v_scan(report, probe, dev):
+    """The fine-tuned trunk's scanned run: ``W2V_SCAN_RECIPE`` through
+    ``cli.train``, ``W2V_SCAN_EPOCHS`` epochs on the run options' corpus
+    (several padded wave lengths an epoch), with ``--scan_epoch`` (step
+    graphs on the card) and without, in deterministic mode, its
+    checkpoints unwritten: the graphs' captures and replays, each run's
+    peak memory, the epoch losses (within ``W2V_VALID_RTOL``: the
+    fine-tuned trunk's Adam first steps move every weight whose gradient's
+    sign is rounding noise) and walls."""
+    from mlvae_tpu_torch.cli import train as train_cli
+
+    runs = {}
+    for scan in (False, True):
+        opts = ("--scan_epoch", str(scan), "--scan_chunk", "2")
+        probe.reset()
+        with deterministic(), checkpoint_writes(False), \
+                peak_memory(dev) as peak:
+            model = train_cli.main(runopt_args(
+                f"w2v_scan_{int(scan)}", opts, recipe=W2V_SCAN_RECIPE,
+                epochs=W2V_SCAN_EPOCHS, dev=dev))
+        runs[scan] = {"epochs": model.epoch_log,
+                      "graphs": dict(model.scan_stats), "peak": peak,
+                      "fine_tuned": not model.wav2vec2.freeze}
+        del model
+    off, on = runs[False], runs[True]
+    err = max(rel_diff(a[k], b[k]) for a, b in zip(on["epochs"],
+                                                   off["epochs"])
+              for k in ("loss", "valid_loss"))
+    same = all(a[k] == b[k] for a, b in zip(on["epochs"], off["epochs"])
+               for k in ("loss", "valid_loss"))
+    walls = {w: [round(e["seconds"], 3) for e in r["epochs"]]
+             for w, r in (("off", off), ("on", on))}
+    report(f"  {W2V_SCAN_RECIPE} (the lv60 trunk fine-tuned), "
+           f"{len(on['epochs'])} epochs of {on['epochs'][0]['batches']} "
+           f"batches, --scan_epoch on: graphs {on['graphs']}; peak memory "
+           f"of cli.train GiB off ({gib(off['peak'])}), on "
+           f"({gib(on['peak'])}); TRAIN / VALID losses rel err {err:.3e} "
+           f"(tol {W2V_VALID_RTOL:g}; equal {same}); epoch wall s off "
+           f"{walls['off']}, on {walls['on']}")
+    check(on["fine_tuned"] and err <= W2V_VALID_RTOL,
+          f"{W2V_SCAN_RECIPE}: the scanned run disagrees")
+    check(dev.type != "cuda" or (on["graphs"]["captures"] > 0
+                                 and on["graphs"]["replays"] > 0),
+          f"{W2V_SCAN_RECIPE}: no step graph was replayed")
+    return {"graphs": on["graphs"], "peak_gib": {"off": off["peak"],
+                                                 "on": on["peak"]},
+            "loss_rel_err": err, "losses_equal": same, "epoch_wall_s": walls}
+
+
+def run_world1_scan(report, root, dev):
+    """``cli.train`` / ``cli.test`` with ``--scan_epoch`` on one rank of a
+    mesh (``--data_parallel True --num_devices 1``: NCCL on the card, a
+    world of one whose collectives return their input) against the
+    one-process run with the options on: scalars and TEST metrics."""
+    from mlvae_tpu_torch.cli import test as test_cli
+    from mlvae_tpu_torch.cli import train as train_cli
+    args = runopt_args("ro_rank", RUNOPT_ON, dev=dev) + [
+        "--data_parallel", "True", "--num_devices", "1"]
+    t0 = time.perf_counter()
+    train_cli.main(args)
+    test_cli.main(args)
+    got, want = (par_cli_outputs(Path(root) / "results" / n)
+                 for n in ("ro_rank", "ro_f32_on"))
+    same = got[0] == want[0] and got[3] == want[3]
+    worst, bad, n = par_param_errs(got[2], want[2])
+    report(f"  one NCCL rank with --scan_epoch against one process: "
+           f"{len(want[0])} scalars and TEST metrics equal {same}; "
+           f"parameters max abs err {worst:.3e} ({bad} of {n} outside "
+           f"tolerance); {time.perf_counter() - t0:.1f} s")
+    check(same and bad == 0, "the world-of-one rank disagrees")
+    return {"equal": same, "param_max_abs_err": worst}
+
+
+def run_options(dev, report, smi):
+    """The run options phase (``--scan_epoch``, ``--async_ckpt``,
+    ``--cache_device_batches``, ``--profile``): MD_VAE's CLI path with
+    them and without, f32 and ``--bf16``; the w2v frozen-trunk cache; the
+    trunk's per-layer recompute; one rank's scanned run; the fine-tuned
+    trunk's scanned run. Returns the wrapper counts of its eager MD_VAE
+    runs (options off), its graph runs' launches (eager steps and
+    replays) and their profiler counts, and the numbers."""
+    import logging
+    import os
+    import shutil
+    import tempfile
+    from mlvae_tpu_torch.data.synth import generate_corpus
+
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    root = Path(tempfile.mkdtemp(prefix="mlvae_runopt_"))
+    probe = CliProbe()
+    out = {"card": smi}
+    counts, graph_counts, prof_counts = {}, {}, {}
+    try:
+        os.chdir(root)
+        generate_corpus(root / "datasets/SynAudioMNIST", *RUNOPT_CORPUS)
+        for amp in (False, True):
+            out["bf16" if amp else "f32"], c, gc, pc = run_md_vae_options(
+                report, probe, root, amp, dev)
+            counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+            for into, got in ((graph_counts, gc), (prof_counts, pc)):
+                for k, v in got.items():
+                    into[k] = into.get(k, 0) + v
+        out["world1_scan"] = run_world1_scan(report, root, dev)
+        out["w2v_cache"] = {("bf16" if amp else "f32"):
+                            run_w2v_cache(report, probe, amp, dev)
+                            for amp in (False, True)}
+        out["w2v_scan"] = run_w2v_scan(report, probe, dev)
+    finally:
+        probe.close()
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    out["remat"] = run_remat(dev, report, smi)
+    out["seconds"] = time.perf_counter() - t0
+    report(f"  the run options phase: {out['seconds']:.1f} s on {smi}")
+    return counts, graph_counts, prof_counts, out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6199,6 +6897,15 @@ def main(argv=None) -> int:
            "cli.test --data_parallel --num_devices 2 with batches of "
            f"{PAR_CLI_BATCH}")
     par_counts, cli["parallel"] = run_parallel(dev, report, smi)
+    report("phase 3 the run options: MD_VAE through cli.train / cli.test "
+           "with --scan_epoch True --scan_chunk 2 --async_ckpt True "
+           "--cache_device_batches True --profile True and with the four "
+           "off (f32 and --bf16, no --debug, one target cycle); the "
+           "w2v_MD_VAE frozen-trunk cache (f32 and --bf16); the fine-tuned "
+           "lv60 trunk's per-layer recompute on and off; one NCCL rank "
+           "with --scan_epoch")
+    ro_counts, ro_graph_counts, ro_prof_counts, cli["run_options"] = \
+        run_options(dev, report, smi)
     # the paths' launches: the eval forward's, the wav-in path's, the six
     # f32 and six AMP MD_VAE train steps', the two MD_VAE_sfl VAE steps',
     # the four gate-3 steps', the unroll path's, LSTM_FC's eval and two
@@ -6218,7 +6925,12 @@ def main(argv=None) -> int:
                   + cli_ctc_amp_counts[k] + cli_hr_counts[k]
                   + cli_hr_amp_counts[k] + cli_corpora_counts[k]
                   + cli_w2v_counts[k] + cli_w2v_amp_counts[k]
-                  + par_counts[k],
+                  + par_counts[k] + ro_counts[k],
+                  "launches_run_options": ro_counts[k],
+                  "launches_run_options_graphs":
+                      ro_graph_counts.get(k, 0),
+                  "launches_run_options_graphs_profiler":
+                      ro_prof_counts.get(k, 0),
                   "launches_parallel": par_counts[k],
                   "launches_cli_w2v": cli_w2v_counts[k],
                   "launches_cli_w2v_bf16": cli_w2v_amp_counts[k],

@@ -140,7 +140,9 @@ class Kernel:
     """One C entry point of a kernel library, with its launch count.
 
     ``launches`` rises by one for each call whose launch the CUDA runtime
-    accepted, and nowhere else."""
+    accepted, and nowhere else: a call under CUDA graph capture records
+    the launch into the graph and launches nothing, and a graph's replay
+    makes no call (the profiler counts a replay's kernels)."""
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence):
@@ -169,7 +171,10 @@ class Kernel:
         if code != 0:
             raise RuntimeError(f"{self.name}: CUDA error {code}: "
                                f"{self._err(code).decode()}")
-        self.launches += 1
+        import torch
+        if not (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            self.launches += 1
 
 
 def stream_handle(device) -> int:

@@ -8,9 +8,8 @@
 
 Positional: the hparams YAML.  ``--key value`` pairs become a YAML
 overrides string (tags like ``!include:`` preserved); the keys of
-``RUN_OPT_KEYS`` become run options. The JAX package's run options are
-all parsed here; those the port does not support yet raise in
-``training.brain.check_run_opts``.
+``RUN_OPT_KEYS`` become run options: the JAX package's, every one of
+which the port takes (``training/brain.py``).
 """
 from __future__ import annotations
 

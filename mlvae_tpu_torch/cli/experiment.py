@@ -39,7 +39,6 @@ from mlvae_tpu_torch.hyperyaml import (load_hyperyaml, recursive_update,
                                        resolve_references)
 from mlvae_tpu_torch.hyperyaml.loader import _parse_tagged
 from mlvae_tpu_torch.parallel import mesh as M
-from mlvae_tpu_torch.training.brain import check_run_opts
 
 logger = logging.getLogger(__name__)
 
@@ -73,7 +72,6 @@ def run_ranked(entry: Callable, argv: List[str]):
     _, run_opts, _ = parse_arguments(argv)
     if not _on_ranks(run_opts) or M.current() is not None:
         return entry(argv)
-    check_run_opts(run_opts)
     device_type = resolve_device(run_opts.get("device")).type
     n_model = int(run_opts.get("tensor_parallel") or 1)
     n = run_opts.get("num_devices") or (
@@ -94,7 +92,6 @@ def run_ranked(entry: Callable, argv: List[str]):
 def prepare_experiment(args: List[str], prepare_exp_dir: bool = True
                        ) -> Dict:
     hparams_file, run_opts, overrides_str = parse_arguments(args)
-    check_run_opts(run_opts)
     for key in ("compile_cache", "compile_cache_dir"):
         if key in run_opts:
             logger.info("--%s has no meaning without XLA (PyTorch keeps no "

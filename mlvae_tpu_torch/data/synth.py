@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 
@@ -40,11 +40,16 @@ def generate_corpus(
     root,
     n_speakers: int = 4,
     utts_per_speaker: int = 6,
-    digits_per_utt: int = 4,
+    digits_per_utt: Union[int, Tuple[int, int]] = 4,
     misp_prob: float = 0.25,
     seed: int = 1234,
 ) -> Path:
-    """Write a synthetic corpus under ``root/original_dataset``; returns root."""
+    """Write a synthetic corpus under ``root/original_dataset``; returns root.
+
+    ``digits_per_utt`` may be a range ``(lo, hi)``: each utterance then
+    draws its digit count from it first, so that utterances, and the
+    padded shapes of their batches, differ in length. An int keeps the
+    JAX package's bytes."""
     root = Path(root)
     ds_dir = root / "original_dataset"
     rs = np.random.RandomState(seed)
@@ -58,16 +63,19 @@ def generate_corpus(
         meta = {}
         for u in range(utts_per_speaker):
             utt_id = f"{spk}_{u:03d}"
-            canonical = rs.randint(0, _N_DIGITS, digits_per_utt)
+            n_digits = digits_per_utt
+            if not isinstance(n_digits, int):
+                n_digits = int(rs.randint(n_digits[0], n_digits[1] + 1))
+            canonical = rs.randint(0, _N_DIGITS, n_digits)
             pronounced = canonical.copy()
-            for i in range(digits_per_utt):
+            for i in range(n_digits):
                 if rs.rand() < misp_prob:
                     choices = [d for d in range(_N_DIGITS) if d != canonical[i]]
                     pronounced[i] = rs.choice(choices)
             # render: leading/trailing silence + digit tones
             sil = int(0.05 * SR)
             seg_lens = rs.randint(int(0.12 * SR), int(0.25 * SR),
-                                  digits_per_utt)
+                                  n_digits)
             pieces = [np.zeros(sil, np.float32)]
             segments = []
             fa_segments = []

@@ -51,6 +51,11 @@ class SBModel(RecipeModel):
 
     def on_stage_start(self, stage, epoch=None):
         super().on_stage_start(stage, epoch)
+        if self.training_type == "viterbi":
+            # prev_alignments change as the aligner's store refreshes: a
+            # cached device batch would freeze them
+            self.cache_device_batches = False
+            self._dev_batch_cache.clear()
         self.stats_loggers["accuracy_stats"] = MetricStats(
             metric=self.aligner.calc_accuracy)
 

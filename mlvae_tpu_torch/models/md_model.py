@@ -30,7 +30,9 @@ from mlvae_tpu_torch.convert import (STATE_MODULES, load_jax_checkpoint,
 from mlvae_tpu_torch.metrics.loss import LossMetricStats
 from mlvae_tpu_torch.nn.norm import InputNormalization
 from mlvae_tpu_torch.training.brain import Brain, Stage
-from mlvae_tpu_torch.training.checkpointer import checkpoint_has
+from mlvae_tpu_torch.training.checkpointer import (CheckpointKeyMismatch,
+                                                   DeviceSnapshot,
+                                                   checkpoint_has)
 from mlvae_tpu_torch.training.loggers import FileTrainLogger, ScalarWriter
 
 logger = logging.getLogger(__name__)
@@ -238,7 +240,8 @@ class MDModel(Brain):
                 meta = dict(log_metrics)
                 meta["epoch"] = epoch
                 # every rank gathers its shards, rank 0 writes
-                state = self.checkpoint_state()
+                state = self.checkpoint_snapshot(asynchronous=bool(
+                    getattr(self.checkpointer, "async_save", False)))
                 if self.is_writer:
                     self.checkpointer.save_and_keep_only(
                         state, meta=meta, max_keys=max_keys,
@@ -304,24 +307,48 @@ class MDModel(Brain):
     def checkpoint_state(self) -> Dict[str, Dict[str, np.ndarray]]:
         """The trees of a checkpoint, flat and keyed as the JAX package's
         ``jax.tree_util.keystr`` writes them."""
+        return self.checkpoint_snapshot().fetch()
+
+    def checkpoint_snapshot(self, asynchronous: bool = False
+                            ) -> DeviceSnapshot:
+        """The tensors of a checkpoint on their way to the host (a
+        collective under a mesh: every rank gathers its shards), and how
+        ``checkpoint_state``'s trees are made of them; ``asynchronous``:
+        the copy from the card runs on a side stream (``--async_ckpt``)."""
+        tensors = {f"sd/{k}": v for k, v in self.full_state_dict().items()}
+        if self.ckpt_opt_state:
+            for name in self.opt_states:
+                opt = self.optimizers[name][0]
+                for mk, _ in self._opt_layout(name):
+                    st = self.opt_states[name][mk]
+                    for key in ["count", *opt.SCALARS]:
+                        tensors[f"opt/{name}/{mk}/{key}"] = st[key]
+                    for key in opt.MOMENTS:
+                        tensors[f"opt/{name}/{mk}/{key}"] = \
+                            self.full_moment(name, mk, key)
+        elif not getattr(self, "_warned_no_opt_ckpt", False):
+            self._warned_no_opt_ckpt = True
+            logger.warning(
+                "--ckpt_opt_state False: optimizer state excluded from "
+                "checkpoints; a resumed run restarts with fresh optimizer "
+                "moments")
+        return DeviceSnapshot(tensors, self._checkpoint_trees,
+                              asynchronous=asynchronous)
+
+    def _checkpoint_trees(self, host: Dict[str, torch.Tensor]
+                          ) -> Dict[str, Dict[str, np.ndarray]]:
         params, states = {}, {}
-        flat = stack_layers({k: v.detach().cpu().numpy()
-                             for k, v in self.full_state_dict().items()})
+        flat = stack_layers({k[len("sd/"):]: v.numpy()
+                             for k, v in host.items() if k.startswith("sd/")})
         for key, value in flat.items():
             path = key.split(".")
             target = states if path[0] in STATE_MODULES else params
             target[keystr(path)] = value
         state = {"params": params, "states": states}
-        if not self.ckpt_opt_state:
-            if not getattr(self, "_warned_no_opt_ckpt", False):
-                self._warned_no_opt_ckpt = True
-                logger.warning(
-                    "--ckpt_opt_state False: optimizer state excluded from "
-                    "checkpoints; a resumed run restarts with fresh "
-                    "optimizer moments")
-            return state
-        for name in self.opt_states:
-            state[f"opt__{name}"] = self._opt_tree(name)
+        if self.ckpt_opt_state:
+            for name in self.opt_states:
+                state[f"opt__{name}"] = self._opt_tree(
+                    name, lambda mk, key, n=name: host[f"opt/{n}/{mk}/{key}"])
         return state
 
     def _opt_layout(self, name):
@@ -338,25 +365,31 @@ class MDModel(Brain):
             out.append((mk, shapes))
         return out
 
-    def _opt_tree(self, name) -> Dict[str, np.ndarray]:
+    def _opt_tree(self, name, tensor=None) -> Dict[str, np.ndarray]:
         """Optimizer ``name``'s states in the layout the optimizer names
         (``training/optim.py``): per module the outer ``count``, the
         injected hyperparameters (f32), its ``SCALARS`` again under their
-        inner paths and its ``MOMENTS`` per parameter."""
+        inner paths and its ``MOMENTS`` per parameter. ``tensor(mk, key)``
+        gives a state's tensor (whole moments); the live states without
+        it."""
         opt = self.optimizers[name][0]
+        if tensor is None:
+            def tensor(mk, key):
+                return (self.full_moment(name, mk, key)
+                        if key in opt.MOMENTS
+                        else self.opt_states[name][mk][key])
         f32 = np.float32
         out = {}
         for mk, params in self._opt_layout(name):
-            st = self.opt_states[name][mk]
-            count = np.asarray(st["count"].cpu().numpy(), np.int32)
+            count = np.asarray(tensor(mk, "count").cpu().numpy(), np.int32)
             out[f"['{mk}'].count"] = count
             for k, v in opt.hyperparams().items():
                 out[f"['{mk}'].hyperparams['{k}']"] = np.asarray(v, f32)
             for key, path in opt.SCALARS.items():
                 out[f"['{mk}'].{path}"] = np.asarray(
-                    st[key].cpu().numpy(), np.int32)
+                    tensor(mk, key).cpu().numpy(), np.int32)
             for key, path in opt.MOMENTS.items():
-                flat = moment_to_numpy(self.full_moment(name, mk, key))
+                flat = moment_to_numpy(tensor(mk, key))
                 offset, per_param = 0, {}
                 for pname, shape in params:
                     n = int(np.prod(shape))
@@ -405,8 +438,20 @@ class MDModel(Brain):
         if with_opt:
             names = [n for n in self.opt_states
                      if checkpoint_has(ckpt, f"opt__{n}")]
-            restored = self.checkpointer.load_checkpoint(
-                ckpt, {f"opt__{n}": self._opt_tree(n) for n in names})
+            try:
+                restored = self.checkpointer.load_checkpoint(
+                    ckpt, {f"opt__{n}": self._opt_tree(n) for n in names})
+            except CheckpointKeyMismatch as e:
+                if not e.rec_name.startswith("opt__"):
+                    raise
+                # the optimizer-state layout changed: resume the parameters
+                # and statistics with fresh moments, loudly (the JAX
+                # MDModel.on_fit_start's fallback)
+                logger.warning(
+                    "checkpoint %s predates the current optimizer-state "
+                    "layout (%s); resuming with freshly initialized "
+                    "optimizer state", ckpt.path, e)
+                names = []
             for n in names:
                 self._set_opt_tree(n, restored[f"opt__{n}"])
         epoch = ckpt.meta.get("epoch")

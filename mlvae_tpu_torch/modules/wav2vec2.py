@@ -41,6 +41,15 @@ output, the FFN activation, the FFN output). ``draws`` lists them and
 ``forward(noise=...)`` replays them; without noise they are drawn from
 ``generator``.
 
+Per-layer recompute: a training forward wraps each layer in
+``torch.utils.checkpoint`` (on by default, off with
+``MLVAE_W2V_REMAT=0``, the JAX trunk's ``jax.checkpoint`` switch), so the
+backward keeps each layer's input only and recomputes the rest. A layer's
+masks are drawn before the checkpointed call (``_layer_masks``, in the
+order the layer draws them) and its parameters are bound at the call (the
+AMP step's bf16 copies), so the recompute uses the forward's masks and
+weights.
+
 Weights: random, of the same topology, unless ``source`` or else
 ``save_path`` names a local HF snapshot directory (its ``config.json``
 and ``pytorch_model.bin`` or ``model.safetensors``, read with ``torch``
@@ -53,12 +62,15 @@ import contextlib
 import json
 import logging
 import math
+import os
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mlvae_tpu_torch.convert import hf_state_dict_to_port
 from mlvae_tpu_torch.nn.layers import dropout, uniform_
@@ -82,6 +94,15 @@ _LARGE_ARCH = dict(
     do_stable_layer_norm=True,
 )
 
+
+
+def remat_enabled() -> bool:
+    """Whether a training forward recomputes each layer in the backward
+    (``torch.utils.checkpoint``; on unless ``MLVAE_W2V_REMAT`` is 0 or
+    false), keeping only each layer's (B, T, D) input, as the JAX trunk's
+    ``jax.checkpoint`` does."""
+    return os.environ.get("MLVAE_W2V_REMAT", "1").lower() not in (
+        "0", "false")
 
 
 def _scalar(value: float, x: torch.Tensor) -> float:
@@ -407,6 +428,22 @@ class Wav2Vec2Encoder(nn.Module):
                     f32))
         return out
 
+    def _layer_masks(self, masks, h: torch.Tensor, train: bool,
+                     generator) -> List:
+        """A layer's four keep-masks, each missing one of a site that drops
+        drawn from ``generator`` as the layer would draw it."""
+        if not train:
+            return list(masks)
+        B, T = h.shape[:2]
+        out = []
+        for mask, (shape, rate) in zip(masks,
+                                       self.layer_dropout_sites(B, T)):
+            if mask is None and rate > 0.0:
+                mask = torch.rand(shape, device=h.device,
+                                  generator=generator) < 1.0 - rate
+            out.append(mask)
+        return out
+
     def conv_output_length(self, n: int) -> int:
         return conv_output_length(n, self.conv_kernel, self.conv_stride)
 
@@ -529,10 +566,22 @@ class Wav2Vec2Encoder(nn.Module):
             h = dropout(h, self.hidden_dropout, train, generator,
                         mask=noise.get("w2v_hidden_dropout", [None])[0])
             layer_masks = noise.get("w2v_layer_dropout")
+            remat = torch.is_grad_enabled() and remat_enabled()
             for i, lp in enumerate(self.layers):
                 masks = layer_masks[4 * i:4 * i + 4] if layer_masks \
                     else [None] * 4
-                h = self._layer(lp, h, masks, train, generator)
+                if not remat:
+                    h = self._layer(lp, h, masks, train, generator)
+                    continue
+                # the recompute must see the forward's masks (drawn here,
+                # in the order the layer draws them) and its parameters
+                # (under the AMP step's functional_call, the bf16 copies)
+                masks = self._layer_masks(masks, h, train, generator)
+                view = SimpleNamespace(**{n: getattr(lp, n) for n, _ in
+                                          lp.named_parameters()})
+                h = checkpoint(self._layer, view, h, masks, train, None,
+                               use_reentrant=False,
+                               preserve_rng_state=False)
             if self.do_stable_layer_norm:
                 h = layer_norm(h, self.enc_norm.scale, self.enc_norm.bias,
                                self.layer_norm_eps)

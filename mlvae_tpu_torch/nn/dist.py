@@ -108,8 +108,10 @@ def kld_beta(alpha, beta, prior_alpha: float, prior_beta: float):
     """Closed-form KL(Beta(alpha, beta) || Beta(a0, b0)) in the
     digamma/lgamma form."""
     alpha, beta = alpha.float(), beta.float()
-    a0 = torch.tensor(prior_alpha, dtype=torch.float32, device=alpha.device)
-    b0 = torch.tensor(prior_beta, dtype=torch.float32, device=alpha.device)
+    # filled on the device: no host copy inside a step graph
+    a0 = torch.full((), prior_alpha, dtype=torch.float32,
+                    device=alpha.device)
+    b0 = torch.full((), prior_beta, dtype=torch.float32, device=alpha.device)
     lg, dg = torch.special.gammaln, torch.special.digamma
 
     def log_beta_fn(a, b):

@@ -180,8 +180,8 @@ def md_viterbi_backtrace_ref(paths, beta0, t_lens, l_lens):
 def fold_weight(log_p_pi, weight):
     """w * log pi, computed once outside the lattice as the TPU wrapper
     does (the same f32 product the JAX scan forms at every step)."""
-    return log_p_pi * torch.tensor(weight, dtype=torch.float32,
-                                   device=log_p_pi.device)
+    return log_p_pi * torch.full((), weight, dtype=torch.float32,
+                                 device=log_p_pi.device)
 
 
 def md_viterbi_batch_ref(log_p_yx, log_p_y, y, log_p_b, log_p_pi, t_lens,

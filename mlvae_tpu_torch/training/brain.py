@@ -80,16 +80,50 @@ At evaluation the gathered predictions are trimmed of the padding rows
 before ``evaluate_predictions`` (``trim_replica_padding``). Rank 0 alone
 writes (``is_writer``).
 
-Run options of the JAX Brain that the port does not have yet raise
-``NotImplementedError`` (``check_run_opts``): the scanned epoch, the
-device-batch cache, asynchronous checkpoints and the profiler.
+The JAX Brain's run options:
+
+* ``--cache_device_batches`` (on by default) keeps each batch's device
+  copy, ``pad_batch(to_device_batch(prepare_batch(b)))`` as
+  ``augment_device_batch`` leaves it, keyed by its utterance ids and the
+  keys the step reads, under ``--device_batch_cache_mb`` (2048), a budget
+  that ``_autoscale_cache_budget`` shrinks where the model's state needs
+  most of the card (``torch.cuda.mem_get_info``; ``MLVAE_HBM_BYTES`` off
+  the card, ``MLVAE_HBM_TIGHT`` forcing the tight mode either way). No
+  step writes into a batch in place, so a cached batch serves every
+  epoch.
+* ``--scan_epoch`` (off under ``--debug`` and without the cache) runs
+  each TRAIN, VALID and TEST epoch in runs of at most ``--scan_chunk``
+  (32) consecutive same-shape batches, in the per-batch loop's order with
+  its draws, one wait for the card a chunk (for the chunk ``depth`` back:
+  3, or 1 in the tight mode) and the VALID / TEST host hooks
+  (``evaluate_predictions``) replayed per batch after their chunk. On the
+  card each step of a run is a CUDA graph (``training/step_graphs.py``)
+  captured at the second batch of its shapes, stage, target and epoch and
+  replayed; an epoch's graphs share one memory pool and the
+  ``STEP_GRAPHS_KEPT`` most recently used stay. A replay copies its batch
+  from the device-batch cache into the graph's inputs, so the JAX Brain's
+  stacked-input cache (its ``lax.scan`` reads a run as one (K, ...)
+  stack) has no counterpart here. On the CPU, and over gloo (whose
+  collectives cannot be captured), the same chunks run eagerly
+  (``scan_dispatch``).
+* ``--async_ckpt`` sets the checkpointer's worker-thread saver
+  (``training/checkpointer.py``); ``fit`` waits at each TRAIN epoch until
+  no snapshot's copy can see the epoch's in-place updates
+  (``wait_device_release``) and closes the checkpointer at its end, also
+  when it raises.
+* ``--profile`` traces epoch 1's TRAIN stage with ``torch.profiler`` into
+  ``<output_dir>/profile/`` and appends each epoch's step times to
+  ``<output_dir>/step_times.jsonl`` (``utils/profiling.py``).
 """
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
+from collections import OrderedDict, deque
 from enum import Enum, auto
+from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -100,29 +134,14 @@ from torch.func import functional_call
 from mlvae_tpu_torch.data.batch import DataLoader, prefetch
 from mlvae_tpu_torch.parallel import mesh as M
 from mlvae_tpu_torch.parallel import zero1
+from mlvae_tpu_torch.training.step_graphs import (StepGraph, clone_tree,
+                                                  tree_signature)
+from mlvae_tpu_torch.utils.profiling import StepTimer, trace
 
 logger = logging.getLogger(__name__)
 
-_ITEM12 = "ROADMAP queue 1 item 12b (the rest of parallelism and scale)"
-# run option -> the values the port takes; any other value raises
-UNPORTED_RUN_OPTS = {
-    "scan_epoch": (False,),
-    "scan_chunk": (),
-    "async_ckpt": (False,),
-    "cache_device_batches": (False,),
-    "device_batch_cache_mb": (),
-    "profile": (False,),
-}
-
-
-def check_run_opts(run_opts: Dict) -> None:
-    """Raise ``NotImplementedError`` for a run option the port does not
-    support yet, rather than ignore it."""
-    for key, allowed in UNPORTED_RUN_OPTS.items():
-        if key in run_opts and run_opts[key] not in allowed:
-            raise NotImplementedError(
-                f"run option --{key} {run_opts[key]} is not ported; it "
-                f"waits in {_ITEM12}")
+# the step graphs a scanned epoch keeps, the most recently used
+STEP_GRAPHS_KEPT = 8
 
 
 class Stage(Enum):
@@ -194,6 +213,22 @@ def cast_floats(tree, dtype, min_ndim: int = 0):
     return tree
 
 
+def _batch_signature(dev: Dict):
+    """A device batch's keys, shapes and dtypes (its ids aside)."""
+    return tree_signature({k: v for k, v in dev.items() if k != "id"})
+
+
+def _tree_bytes(tree) -> int:
+    """The bytes of a nested dict / list / tuple's tensors."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
 @contextlib.contextmanager
 def f32_gemm_sums():
     """cuBLAS's bf16 GEMMs sum in f32 inside the block, split-K included
@@ -221,7 +256,8 @@ class Brain(nn.Module):
         super().__init__()
         self.hparams = dict(hparams)
         self.run_opts = dict(run_opts or {})
-        check_run_opts(self.run_opts)
+        if checkpointer is not None and "async_ckpt" in self.run_opts:
+            checkpointer.async_save = bool(self.run_opts["async_ckpt"])
         self.auto_mix_prec = bool(self.run_opts.get(
             "bf16", self.run_opts.get("auto_mix_prec", False)))
         self.max_grad_norm = float(self.run_opts.get("max_grad_norm",
@@ -263,6 +299,25 @@ class Brain(nn.Module):
         # (optimizer name, module) pairs whose moments are ZeRO-1 pieces
         self.zero1_keys: set = set()
         self._placed = False
+        # the device-batch cache, the scanned epoch and the profiler
+        self.cache_device_batches = bool(self.run_opts.get(
+            "cache_device_batches", True))
+        self._dev_batch_cache: Dict = {}
+        self._dev_batch_cache_bytes = 0
+        self.device_batch_cache_limit = int(self.run_opts.get(
+            "device_batch_cache_mb", 2048)) * 1024 * 1024
+        self._hbm_tight = False
+        self.scan_epoch = bool(self.run_opts.get("scan_epoch", False))
+        self.scan_chunk = int(self.run_opts.get("scan_chunk", 32) or 32)
+        self._graphs: OrderedDict = OrderedDict()
+        self._graph_pool = None
+        self._warm: set = set()
+        self._scan_logged = False
+        # captures and replays of the card's step graphs, eager steps
+        self.scan_stats = {"captures": 0, "replays": 0, "eager": 0,
+                           "waits": 0}
+        self.profile = bool(self.run_opts.get("profile", False))
+        self._fitting = False
 
     # -- the recipe's contract ----------------------------------------------
     def compute_forward(self, batch: Dict, noise: Optional[Dict] = None,
@@ -751,6 +806,75 @@ class Brain(nn.Module):
                 for a in (arr, np.asarray(lens, np.float32)))
         return out
 
+    def augment_device_batch(self, dev: Dict) -> Dict:
+        """Hook: a recipe may add tensors derived from the device batch
+        before it is cached (the w2v recipes' frozen-trunk features,
+        ``models/w2v_common.py``); deterministic in the batch, since the
+        result serves every epoch."""
+        return dev
+
+    def _cached_device_batch(self, batch) -> Dict:
+        """``pad_batch(to_device_batch(batch))`` as ``augment_device_batch``
+        leaves it, from the device-batch cache where it is on (keyed by
+        the utterance ids and the keys the step reads, under
+        ``device_batch_cache_limit`` bytes)."""
+        if not self.cache_device_batches:
+            return self.augment_device_batch(
+                self.pad_batch(self.to_device_batch(batch)))
+        used = self.used_batch_keys()
+        key = (tuple(batch["id"]),
+               tuple(sorted(used)) if used is not None else None)
+        hit = self._dev_batch_cache.get(key)
+        if hit is not None:
+            return hit
+        dev = self.augment_device_batch(
+            self.pad_batch(self.to_device_batch(batch)))
+        nbytes = _tree_bytes(dev)
+        if self._dev_batch_cache_bytes + nbytes \
+                <= self.device_batch_cache_limit:
+            self._dev_batch_cache[key] = dev
+            self._dev_batch_cache_bytes += nbytes
+        return dev
+
+    def _autoscale_cache_budget(self) -> None:
+        """Shrink the device-batch cache budget where the model's state
+        needs most of the card, and decide the tight mode (depth-1 scanned
+        dispatch), as the JAX Brain does: the state's reserve is 4.5x the
+        parameters' bytes and 2 GiB, tight where it passes 3/5 of the
+        card, and the cache takes half of what is left (the JAX Brain's
+        device-batch and stacked-input caches share that half). The
+        card's memory comes from ``torch.cuda.mem_get_info``; off the card
+        from ``MLVAE_HBM_BYTES`` (nothing to do without it).
+        ``MLVAE_HBM_TIGHT`` forces the tight mode either way."""
+        env = os.environ.get("MLVAE_HBM_TIGHT")
+        if env is not None:
+            self._hbm_tight = env.strip().lower() in ("1", "true", "yes")
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in self.parameters())
+        dev = self.device
+        if dev.type == "cuda":
+            hbm = int(torch.cuda.mem_get_info(dev)[1])
+        else:
+            hbm = int(os.environ.get("MLVAE_HBM_BYTES") or 0)
+            if not hbm:
+                return
+        reserve = 9 * param_bytes // 2 + 2 * 1024 ** 3
+        if env is None:
+            self._hbm_tight = reserve > (hbm * 3) // 5
+        if self._hbm_tight:
+            logger.info(
+                "HBM-tight mode: depth-1 scan dispatch, single-snapshot "
+                "async-ckpt queue (state reserve %d MiB vs HBM %d MiB)",
+                reserve >> 20, hbm >> 20)
+        budget = max(0, (hbm - reserve) // 2)
+        if budget < self.device_batch_cache_limit:
+            logger.info(
+                "device batch cache budget %d -> %d MiB "
+                "(params %d MiB, HBM %d MiB)",
+                self.device_batch_cache_limit >> 20, budget >> 20,
+                param_bytes >> 20, hbm >> 20)
+            self.device_batch_cache_limit = int(budget)
+
     def _next_noise(self, dev_batch: Dict, train: bool) -> Optional[Dict]:
         """The step's replayed draws from ``noise_source``, on the device;
         None (draw from ``self.generator``) without one."""
@@ -785,7 +909,7 @@ class Brain(nn.Module):
         """One TRAIN batch of the loop: host checks, the move to the
         device, the step; returns the loss on the device."""
         batch = self.prepare_batch(batch)
-        dev_batch = self.pad_batch(self.to_device_batch(batch))
+        dev_batch = self._cached_device_batch(batch)
         # a recipe that runs more device work on the batch after its step
         # (HMM_DNN_ALI's realignment) reuses both
         self._last_prepared_batch, self._last_dev_batch = batch, dev_batch
@@ -827,7 +951,7 @@ class Brain(nn.Module):
         """One VALID or TEST batch: the forward, the losses recorded, the
         host-side evaluation; returns the loss."""
         batch = self.prepare_batch(batch)
-        dev_batch = self.pad_batch(self.to_device_batch(batch))
+        dev_batch = self._cached_device_batch(batch)
         self._batch_ids = batch["id"]
         preds, loss, losses = self.eval_forward(
             dev_batch, self.current_epoch(),
@@ -841,56 +965,304 @@ class Brain(nn.Module):
     def fit(self, epoch_counter, train_set, valid_set=None,
             train_loader_kwargs=None, valid_loader_kwargs=None,
             progressbar=None):
-        self.on_fit_start()
-        train_loader = self.make_dataloader(
-            train_set, Stage.TRAIN, **(train_loader_kwargs or {}))
-        valid_loader = None
-        if valid_set is not None:
-            valid_loader = self.make_dataloader(
-                valid_set, Stage.VALID, **(valid_loader_kwargs or {}))
-        self._fit_epochs(epoch_counter, train_loader, valid_loader)
+        # the fit scope: derived batches (the frozen-trunk features) are
+        # cached only where batches come back every epoch
+        self._fitting = True
+        try:
+            self.on_fit_start()
+            self._autoscale_cache_budget()
+            train_loader = self.make_dataloader(
+                train_set, Stage.TRAIN, **(train_loader_kwargs or {}))
+            valid_loader = None
+            if valid_set is not None:
+                valid_loader = self.make_dataloader(
+                    valid_set, Stage.VALID, **(valid_loader_kwargs or {}))
+            self.step_timer = StepTimer(hop_seconds=float(
+                self.hparams.get("hop_length", 20)) / 1000.0)
+            self._fit_epochs(epoch_counter, train_loader, valid_loader)
+        except BaseException:
+            # pending async saves persist all the same; the original
+            # error is never masked by the flush's
+            try:
+                self.on_fit_end()
+            except Exception:
+                logger.exception("on_fit_end after fit failure")
+            raise
+        else:
+            self.on_fit_end()
+        finally:
+            self._fitting = False
+
+    def on_fit_end(self):
+        """Flush the checkpointer's pending saves and stop its worker."""
+        if self.checkpointer is not None and hasattr(self.checkpointer,
+                                                     "close"):
+            self.checkpointer.close()
+
+    def use_scan(self) -> bool:
+        """Whether this stage's epoch is scanned: ``--scan_epoch`` with the
+        device-batch cache, off under ``--debug``."""
+        return self.scan_epoch and self.cache_device_batches \
+            and not self.debug
 
     def _fit_epochs(self, epoch_counter, train_loader, valid_loader):
         hop_s = float(self.hparams.get("hop_length", 20)) / 1000.0
         self.epoch_log: List[Dict] = []
+        out_dir = self.hparams.get("output_dir")
         for epoch in epoch_counter:
             self.train()
             self.on_stage_start(Stage.TRAIN, epoch)
+            # the epoch's steps update parameters and moments in place: an
+            # async snapshot's copy must not see them
+            waiter = getattr(self.checkpointer, "wait_device_release", None)
+            if waiter is not None:
+                waiter()
+            self.step_timer.reset()
             t0 = time.time()
-            losses, frames = [], 0
-            for i, batch in enumerate(prefetch(train_loader)):
-                losses.append(self.train_batch(batch, epoch))
-                feats, lens = batch_feats(batch)
-                frames += int(np.round(np.asarray(lens)
-                                       * feats.shape[1]).sum())
-                if self.debug and i + 1 >= self.debug_batches:
-                    break
-            # the epoch's one wait for the card
-            self.avg_train_loss = float(np.mean(
-                [float(l) for l in losses])) if losses else 0.0
+            use_scan = self.use_scan()
+            tracing = self.profile and epoch == 1 and out_dir is not None
+            with trace(Path(out_dir or ".") / "profile", enabled=tracing):
+                if use_scan:
+                    self.avg_train_loss, frames, n = \
+                        self._fit_epoch_scanned(train_loader, epoch)
+                else:
+                    losses, frames = [], 0
+                    for i, batch in enumerate(prefetch(train_loader)):
+                        self.step_timer.start()
+                        losses.append(self.train_batch(batch, epoch))
+                        feats, lens = batch_feats(batch)
+                        f = int(np.round(np.asarray(lens)
+                                         * feats.shape[1]).sum())
+                        self.step_timer.stop(f)
+                        frames += f
+                        if self.debug and i + 1 >= self.debug_batches:
+                            break
+                    n = len(losses)
+                    # the epoch's one wait for the card
+                    self.avg_train_loss = float(np.mean(
+                        [float(l) for l in losses])) if losses else 0.0
             wall = time.time() - t0
             rate = frames * hop_s / max(wall, 1e-9)
             logger.info("epoch %d train: %.4f (%.1fs, %.0f utt-sec/sec)",
                         epoch, self.avg_train_loss, wall, rate)
             self.epoch_log.append({"epoch": epoch, "loss": self.avg_train_loss,
                                    "seconds": wall, "utt_sec_per_sec": rate,
-                                   "batches": len(losses)})
+                                   "batches": n})
+            if self.profile and out_dir is not None and self.is_writer:
+                self.step_timer.write(Path(out_dir) / "step_times.jsonl")
             self.on_stage_end(Stage.TRAIN, self.avg_train_loss, epoch)
 
             if valid_loader is not None:
                 self.eval()
                 self.on_stage_start(Stage.VALID, epoch)
                 tv = time.time()
-                vlosses = []
-                for i, batch in enumerate(prefetch(valid_loader)):
-                    vlosses.append(self.evaluate_batch(batch, Stage.VALID))
-                    if self.debug and i + 1 >= self.debug_batches:
-                        break
-                avg = float(np.mean(vlosses)) if vlosses else 0.0
+                if self.use_scan():
+                    avg = self._eval_epoch_scanned(valid_loader, Stage.VALID)
+                else:
+                    vlosses = []
+                    for i, batch in enumerate(prefetch(valid_loader)):
+                        vlosses.append(self.evaluate_batch(batch,
+                                                           Stage.VALID))
+                        if self.debug and i + 1 >= self.debug_batches:
+                            break
+                    avg = float(np.mean(vlosses)) if vlosses else 0.0
                 logger.info("epoch %d valid: %.4f (%.1fs)", epoch, avg,
                             time.time() - tv)
                 self.epoch_log[-1]["valid_loss"] = avg
                 self.on_stage_end(Stage.VALID, avg, epoch)
+
+    # -- the scanned epoch ------------------------------------------------
+    def scan_dispatch(self) -> str:
+        """How a scanned epoch's steps run: ``"graph"`` (CUDA graphs) on
+        the card, ``"eager"`` on the CPU and over gloo."""
+        if self.device.type != "cuda" or (self.mesh.world > 1
+                                          and self.mesh.backend == "gloo"):
+            return "eager"
+        return "graph"
+
+    def _scan_depth(self) -> int:
+        """Chunks in flight before the loop waits for the oldest: 3, or 1
+        in the tight mode."""
+        return 1 if self._hbm_tight else 3
+
+    def _graph_key(self, kind: str, stage: Stage, sig, epoch: int, noise):
+        """What a step graph bakes in: the batch's and the draws' shapes,
+        the stage, the recipe's target, the epoch (KLD annealing, the
+        normalizer's update) and the modules' mode."""
+        return (kind, stage, sig, tree_signature(noise), epoch,
+                getattr(self, "target", None),
+                getattr(self, "training_type", None), self.training)
+
+    def _reset_graphs(self) -> None:
+        self._graphs.clear()
+        self._warm.clear()
+        self._graph_pool = None
+
+    def _scan_step(self, kind: str, stage: Stage, sig, epoch: int,
+                   dev: Dict, fn: Callable):
+        """One step of a scanned epoch: its draws (replayed or from the
+        generator, in the per-batch loop's order), then ``fn(batch,
+        noise)`` eagerly, or on the card through its step graph (eager the
+        first time a key is seen, captured the second time, replayed
+        after); the outputs cloned."""
+        train = kind == "train"
+        noise = self._next_noise(dev, train)
+        if noise is None:
+            noise = draw_noise(self.step_draws(dev, train), self.generator,
+                               self.device)
+        mode = self.scan_dispatch()
+        if not self._scan_logged:
+            self._scan_logged = True
+            logger.info("--scan_epoch: %s dispatch (%s)", mode,
+                        "CUDA graphs of the steps" if mode == "graph"
+                        else "the chunks' steps run eagerly: no CUDA "
+                        "graphs on this device or process group")
+        if mode == "eager":
+            self.scan_stats["eager"] += 1
+            return fn(dev, noise)
+        key = self._graph_key(kind, stage, sig, epoch, noise)
+        graph = self._graphs.get(key)
+        if graph is None and key not in self._warm:
+            self._warm.add(key)
+            self.scan_stats["eager"] += 1
+            return fn(dev, noise)
+        if graph is None:
+            # the epoch's graphs share one memory pool: each replay's
+            # outputs are cloned before any other graph replays
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = StepGraph(fn, (dev, noise), pool=self._graph_pool)
+            self._graphs[key] = graph
+            if len(self._graphs) > STEP_GRAPHS_KEPT:
+                self._graphs.popitem(last=False)
+            self.scan_stats["captures"] += 1
+        else:
+            self._graphs.move_to_end(key)
+        out = graph(dev, noise)
+        self.scan_stats["replays"] += 1
+        if train:
+            # the graph's gradients are its pool's temporaries, which the
+            # next replay of any graph rewrites
+            for p in self.parameters():
+                p.grad = None
+        return clone_tree(out)
+
+    def _scan_wait(self, pending: deque) -> None:
+        """Bound the chunks in flight: wait for the chunk ``depth`` back."""
+        depth = self._scan_depth()
+        if len(pending) >= depth:
+            marker = pending[-depth]
+            if isinstance(marker, torch.cuda.Event):
+                marker.synchronize()
+            self.scan_stats["waits"] += 1
+
+    def _chunk_marker(self):
+        """What marks a chunk's end on the device (None off the card)."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record()
+        return event
+
+    def _fit_epoch_scanned(self, train_loader, epoch: int):
+        """One TRAIN epoch in runs of at most ``scan_chunk`` consecutive
+        same-shape batches (see the module docstring): the per-batch loop's
+        batches, order, draws and steps, one wait a chunk. Returns (mean
+        train loss, frames, batches)."""
+        self._reset_graphs()
+        losses: List = []
+        markers: deque = deque()
+        frames = 0
+        step_fn = (lambda b, nz: self.train_step(b, epoch, noise=nz,
+                                                 generator=self.generator))
+
+        def dispatch(run, sig):
+            for dev, f in run:
+                self.step_timer.start()
+                self._batch_ids = dev["id"]
+                loss, step_losses = self._scan_step(
+                    "train", Stage.TRAIN, sig, epoch, dev, step_fn)
+                self.step += 1
+                losses.append((loss, step_losses))
+                self.step_timer.stop(f)
+            markers.append(self._chunk_marker())
+            self._scan_wait(markers)
+
+        run: List = []
+        run_sig = None
+        for batch in train_loader:
+            prepared = self.prepare_batch(batch)
+            dev = self._cached_device_batch(prepared)
+            feats, lens = batch_feats(batch)
+            f = int(np.round(np.asarray(lens) * feats.shape[1]).sum())
+            frames += f
+            sig = _batch_signature(dev)
+            if run and (sig != run_sig or len(run) >= self.scan_chunk):
+                dispatch(run, run_sig)
+                run = []
+            run_sig = sig
+            run.append((dev, f))
+        if run:
+            dispatch(run, run_sig)
+        # the epoch's one fetch of its losses
+        values = [float(l) for l, _ in losses]
+        for _, step_losses in losses:
+            self._record_losses(step_losses)
+        self._reset_graphs()
+        mean = float(np.mean(values)) if values else 0.0
+        return mean, frames, len(values)
+
+    def _eval_epoch_scanned(self, loader, stage: Stage) -> float:
+        """One VALID or TEST epoch in runs of at most ``scan_chunk``
+        same-shape batches: one wait a chunk, whose host hooks
+        (``evaluate_predictions``) replay per batch while the next chunk
+        runs."""
+        epoch = self.current_epoch()
+        self._reset_graphs()
+        losses_all: List[float] = []
+        inflight: deque = deque()
+        fn = (lambda b, nz: self.eval_forward(b, epoch, noise=nz,
+                                              generator=self.generator))
+
+        def dispatch(run, sig):
+            outs = [self._scan_step("eval", stage, sig, epoch, dev, fn)
+                    for dev, _ in run]
+            inflight.append(([hb for _, hb in run], outs,
+                             self._chunk_marker()))
+
+        def drain():
+            host_batches, outs, marker = inflight.popleft()
+            if marker is not None:
+                marker.synchronize()
+            self.scan_stats["waits"] += 1
+            for host_batch, (preds, loss, losses) in zip(host_batches, outs):
+                self._batch_ids = host_batch["id"]
+                self._record_losses(losses)
+                self.evaluate_predictions(
+                    self.trim_replica_padding(preds, len(host_batch["id"])),
+                    host_batch, stage)
+                losses_all.append(float(loss))
+
+        run: List = []
+        run_sig = None
+        for batch in loader:
+            prepared = self.prepare_batch(batch)
+            dev = self._cached_device_batch(prepared)
+            sig = _batch_signature(dev)
+            if run and (sig != run_sig or len(run) >= self.scan_chunk):
+                dispatch(run, run_sig)
+                run = []
+                while len(inflight) > 1:
+                    drain()
+            run_sig = sig
+            run.append((dev, prepared))
+        if run:
+            dispatch(run, run_sig)
+        while inflight:
+            drain()
+        self._reset_graphs()
+        self._scanned_batches = len(losses_all)
+        return float(np.mean(losses_all)) if losses_all else 0.0
 
     def evaluate(self, test_set, max_key=None, min_key=None,
                  test_loader_kwargs=None, progressbar=None) -> float:
@@ -899,25 +1271,32 @@ class Brain(nn.Module):
         write seconds that the log line gives."""
         t0 = time.time()
         self.on_evaluate_start(max_key=max_key, min_key=min_key)
+        self._autoscale_cache_budget()
         t_restore = time.time()
         self.eval()
         epoch = self.current_epoch()
         self.on_stage_start(Stage.TEST, epoch)
         loader = self.make_dataloader(test_set, Stage.TEST,
                                       **(test_loader_kwargs or {}))
-        losses = []
-        for i, batch in enumerate(prefetch(loader)):
-            losses.append(self.evaluate_batch(batch, Stage.TEST))
-            if self.debug and i + 1 >= self.debug_batches:
-                break
-        avg = float(np.mean(losses)) if losses else 0.0
+        if self.use_scan():
+            avg = self._eval_epoch_scanned(loader, Stage.TEST)
+            batches = self._scanned_batches
+        else:
+            losses = []
+            for i, batch in enumerate(prefetch(loader)):
+                losses.append(self.evaluate_batch(batch, Stage.TEST))
+                if self.debug and i + 1 >= self.debug_batches:
+                    break
+            avg = float(np.mean(losses)) if losses else 0.0
+            batches = len(losses)
         t_eval = time.time()
         self.on_stage_end(Stage.TEST, avg, epoch)
         self.evaluate_timing = {"restore": t_restore - t0,
                                 "eval": t_eval - t_restore,
                                 "write": time.time() - t_eval,
-                                "batches": len(losses)}
+                                "batches": batches}
         logger.info("evaluate timing: restore %.1fs, eval %.1fs, write "
                     "%.1fs", *(self.evaluate_timing[k]
                                for k in ("restore", "eval", "write")))
         return avg
+

@@ -46,7 +46,9 @@ INT32_MAX = 2 ** 31 - 1
 
 
 def _f32(v, dev) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=dev)
+    """A 0-d f32 constant filled on ``dev`` (no host copy: a step graph
+    can capture it)."""
+    return torch.full((), v, dtype=torch.float32, device=dev)
 
 
 def scatter_flat(params: Sequence[torch.Tensor], update: torch.Tensor) -> None:

@@ -13,8 +13,7 @@ synthesized SynAudioMNIST corpus with ``config/run.yaml``:
   valid loss within rel 1e-4; then ``evaluate`` from the JAX run's best
   checkpoint: the decoded sequences equal, the MD and boundary statistics
   and ``test_metrics.txt`` equal, and the saved MD results equal;
-* the run options the port does not support yet raise, naming the
-  ROADMAP item.
+* every run option of the JAX CLI reaches the Brain.
 
 Both packages prepare their data in one working directory, so the port
 reads the JAX package's computed datasets: the same batches."""
@@ -34,11 +33,9 @@ from mlvae_tpu.data import data_io as jdio
 from mlvae_tpu_torch.cli import infer as infer_cli
 from mlvae_tpu_torch.cli import test as test_cli
 from mlvae_tpu_torch.cli import train as train_cli
-from mlvae_tpu_torch.cli.args import parse_arguments
 from mlvae_tpu_torch.cli.experiment import prepare_experiment
 from mlvae_tpu_torch.convert import from_jax
 from mlvae_tpu_torch.models.MD_VAE.model import Target
-from mlvae_tpu_torch.training.brain import check_run_opts
 from mlvae_tpu_torch.training.checkpointer import Checkpointer
 from test_torch_train_step import _replay
 
@@ -228,20 +225,28 @@ def test_fit_and_evaluate_match_jax(workdir, monkeypatch):
     ("cache_device_batches", None), ("profile", None),
     ("ckpt_opt_state", "False")])
 def test_unported_run_options_raise(workdir, option, value):
-    """The options of ROADMAP item 12b raise, naming it. Those of item 12a
-    pass the check, and the two that need ranks raise where a caller
-    builds the experiment outside them (``cli.train`` / ``cli.test`` start
-    them through ``run_ranked``; ``tests/test_torch_parallel.py``)."""
+    """Every run option of the JAX CLI is taken and reaches the Brain
+    (none raises as unported any more); the two that need ranks raise
+    where a caller builds the experiment outside them (``cli.train`` /
+    ``cli.test`` start them through ``run_ranked``;
+    ``tests/test_torch_parallel.py``)."""
     args = _args("opts") + [f"--{option}"] + ([value] if value else [])
-    if option not in ("data_parallel", "num_devices", "tensor_parallel",
-                      "zero1", "ckpt_opt_state"):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            prepare_experiment(args)
-        return
-    check_run_opts(parse_arguments(args)[1])
     if option in ("data_parallel", "tensor_parallel"):
         with pytest.raises(RuntimeError, match="run_ranked"):
             prepare_experiment(args)
+        return
+    model = prepare_experiment(args)["model"]
+    reached = {
+        "scan_epoch": lambda: model.scan_epoch,
+        "num_devices": lambda: model.run_opts["num_devices"] == 2,
+        "zero1": lambda: model.zero1,
+        "async_ckpt": lambda: model.checkpointer.async_save,
+        "cache_device_batches": lambda: (
+            model.run_opts["cache_device_batches"]
+            and model.cache_device_batches),
+        "profile": lambda: model.profile,
+        "ckpt_opt_state": lambda: not model.ckpt_opt_state}[option]
+    assert reached()
 
 
 def test_device_defaults_to_cuda(workdir, monkeypatch):

@@ -107,6 +107,23 @@ def test_synthesized_corpus_is_byte_equal(tmp_path):
             (tmp_path / "jax" / rel).read_bytes(), rel
 
 
+def test_synthesized_corpus_with_a_digit_range(tmp_path):
+    """``digits_per_utt=(lo, hi)``: each utterance's digit count in the
+    range, several counts, segments and durations that follow them."""
+    generate_corpus(tmp_path, n_speakers=2, utts_per_speaker=8,
+                    digits_per_utt=(2, 5))
+    counts = set()
+    for meta in (tmp_path / "original_dataset").glob("*/*_meta.json"):
+        for utt in json.loads(meta.read_text()).values():
+            n = len(utt["canonical_digit_seq"])
+            assert 2 <= n <= 5
+            assert len(utt["pronounced_digit_seq"]) == \
+                len(utt["segment_seq"]) == n
+            assert utt["segment_seq"][-1][1] < utt["duration"]
+            counts.add(n)
+    assert len(counts) > 1
+
+
 def test_prepared_annotations_are_equal(prepared):
     root = prepared["root"]
     rel = Path("datasets/SynAudioMNIST")

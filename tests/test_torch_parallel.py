@@ -46,7 +46,7 @@ from mlvae_tpu_torch.bench_utils import RECIPE, build_md_vae, synth_batch
 from mlvae_tpu_torch.convert import from_jax
 from mlvae_tpu_torch.parallel import mesh as M
 from mlvae_tpu_torch.parallel import zero1
-from mlvae_tpu_torch.training.brain import check_run_opts
+from mlvae_tpu_torch.training.brain import Brain
 from test_torch_train_step import SMALL, _replay
 
 torch.set_num_threads(2)
@@ -137,14 +137,20 @@ def test_zero1_pieces_cover_the_vector(n, k):
 
 
 def test_ported_run_options_pass_and_the_rest_name_item_12b():
-    for opts in ({"data_parallel": True}, {"num_devices": 2},
-                 {"tensor_parallel": 2}, {"zero1": True},
-                 {"ckpt_opt_state": False}):
-        check_run_opts(opts)
-    for key in ("scan_epoch", "async_ckpt", "cache_device_batches",
-                "profile"):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            check_run_opts({key: True})
+    """Every run option builds a Brain (item 12b is ported): one process
+    takes the options of the ranks' runs and of one run alike; only
+    ``--data_parallel`` / ``--tensor_parallel`` need the ranks."""
+    brain = Brain({}, run_opts={"num_devices": 2, "zero1": True,
+                                "ckpt_opt_state": False, "scan_epoch": True,
+                                "async_ckpt": True,
+                                "cache_device_batches": False,
+                                "profile": True})
+    assert brain.mesh.world == 1 and brain.zero1
+    assert not brain.ckpt_opt_state and brain.scan_epoch and brain.profile
+    assert not brain.cache_device_batches and not brain.use_scan()
+    for opts in ({"data_parallel": True}, {"tensor_parallel": 2}):
+        with pytest.raises(RuntimeError, match="parallel.mesh.launch"):
+            Brain({}, run_opts=opts)
 
 
 def test_a_dp_brain_needs_the_ranks():
