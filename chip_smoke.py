@@ -226,7 +226,25 @@ Phases, each reported on its own line; any failure exits non-zero:
    audio, its per-layer recompute on and off (the memory held before the
    step, at the peak of its forward and backward, when the update starts
    and at the update's peak; step ms in turns; the gradients one against
-   the other);
+   the other); then ``fused_f32``, the fused tiers on f32 streams: each f32
+   build against its plain version at H=512 (K3/K4-fwd at In=128 and 512,
+   K3-bwd at In=128, K4-bwd at In=512; B=64, 1 and 70, T=160, 1 and 2,
+   both directions; hs and cs within 1e-4, every backward output within
+   1e-4 of its largest entry), 10 repeated forward and 50 backward
+   launches per case and direction bit-equal to the first, K7b on f32
+   streams at K 2, 4, 8 (B=128, In=512) bit-equal to K3/K4-fwd on f32
+   streams; MD_VAE at full width under ``MLVAE_PALLAS_FUSED=1`` (one f32
+   train step of each target and the TEST eval forward against the plain
+   versions, launches exact as reckoned from the JAX f32 budgets and
+   pinned, which the layers' routes must give too: a VAE step 8
+   K3/K4-fwd and 2 K1-fwd, 3 K3-bwd, 1 K4-bwd and 2 K1-bwd, 1 K2; the VAE
+   loss against the default step's) and its AMP VAE step under ``=0``
+   (only the bf16 K1 builds and K2); ``cli.train`` (one debug epoch a
+   target) and ``cli.test`` in a process started with
+   ``MLVAE_PALLAS_FUSED=1`` (this script with ``--fused-cli-child``),
+   every stage's launches exact and each run against the plain versions,
+   and ``cli.train`` with ``MLVAE_PALLAS_FUSED=ture`` exiting non-zero
+   with the switch's ``ValueError``;
 4. times from CUDA events after warm-up: each kernel, its plain version,
    a one-call PyTorch yardstick where one exists (cuFFT's rfft for K6, in
    turns with each build of K6 in SpeechBrain mode and on the Kaldi pass's
@@ -275,7 +293,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    and the bf16 K1 at H=512, B=64, T=80 and 160 in turns with cuDNN's
    bf16 layer beside its plain version and bound; HMM_DNN_ALI's
    ``forward`` train step at B=64, T=160, L=16 (ms, utt-sec/sec) with a
-   profile of one step (kernel time, idle share, kernel launches);
+   profile of one step (kernel time, idle share, kernel launches); the
+   f32 fused builds at H=512, B=64, T=160 in turns with the unfused f32
+   route and cuDNN's f32 layer (TF32 off), beside their bounds and plain
+   versions, and MD_VAE's f32 VAE step under ``MLVAE_PALLAS_FUSED=1``
+   against the default in turns, with a profile of each;
 5. a ``kernels`` JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -377,12 +399,15 @@ UNROLL_ITERS = 20     # timed calls per kernel on the unroll path (phase 3)
 
 # kernel launches in one eval forward: ten directional LSTM layers (2 + 2
 # + 2 + 2x2 bidirectional), one decode
-NO_FUSED = {"lstm_fused_fwd": 0, "lstm_fused_bwd": 0, "lstm_semi_bwd": 0}
+NO_FUSED = {"lstm_fused_fwd": 0, "lstm_fused_bwd": 0, "lstm_semi_bwd": 0,
+            "lstm_fused_fwd_f32": 0, "lstm_fused_bwd_f32": 0,
+            "lstm_semi_bwd_f32": 0}
 NO_FBANK = {"fbank": 0, "fbank_fft": 0}
 NO_GRU = {"gru_fwd": 0, "gru_bwd": 0, "gru_fwd_bf16": 0, "gru_bwd_bf16": 0,
           "gru_dw_bf16": 0}
 # K7a and K7b run on the unroll A/B path only (phase 3's last part)
-NO_UNROLL = {"lstm_unroll_fwd": 0, "lstm_unroll_fused_fwd": 0}
+NO_UNROLL = {"lstm_unroll_fwd": 0, "lstm_unroll_fused_fwd": 0,
+             "lstm_unroll_fused_fwd_f32": 0}
 # the wide K1 builds (H above 528), f32 and bf16, run on the LSTM_FC path
 # only
 NO_WIDE = {"lstm_fwd_wide": 0, "lstm_bwd_wide": 0, "lstm_dw_wide": 0,
@@ -552,6 +577,107 @@ W2V_POST_ATOL = 1e-4  # cnncl's dumped log-posteriors, kernels against the
                       # plain versions: K1's f32 sums in another order
 
 
+def md_vae_layers():
+    """MD_VAE's LSTM layers at ``bench_utils.RECIPE``'s widths (the
+    recipe's; the CLI builds the same from its YAML): each module's (In,
+    H, directions) a layer. The fbank's 120 and the latent's 32 take the
+    fused tiers padded to 128."""
+    from mlvae_tpu_torch.bench_utils import RECIPE as R
+
+    def stack(In, H, n, dirs):
+        return tuple((In if i == 0 else H * dirs, H, dirs) for i in range(n))
+    return {"phoneme_recognizer": stack(R["input_size"],
+                                        R["phn_rnn_hidden_size"],
+                                        R["phn_rnn_num_layers"], 1),
+            "boundary_detector": stack(R["input_size"],
+                                       R["boundary_rnn_hidden_size"],
+                                       R["boundary_rnn_num_layers"], 1),
+            "rnn": stack(R["concat_fc_size"], R["rnn_hidden_size"],
+                         R["rnn_num_layers"], 1),
+            "decoder": stack(R["latent_size"], R["dec_rnn_hidden_size"],
+                             R["dec_rnn_num_layers"], 2)}
+
+
+@contextlib.contextmanager
+def fused_switch(value):
+    """``nn.rnn.PALLAS_LSTM_FUSED`` set to ``value`` ("auto", True,
+    False) for the block, as ``MLVAE_PALLAS_FUSED`` sets it at import."""
+    from mlvae_tpu_torch.nn import rnn
+    saved = rnn.PALLAS_LSTM_FUSED
+    rnn.PALLAS_LSTM_FUSED = value
+    try:
+        yield
+    finally:
+        rnn.PALLAS_LSTM_FUSED = saved
+
+
+# MD_VAE's launches under MLVAE_PALLAS_FUSED=1 on f32 streams, reckoned
+# from the JAX package's f32 budgets (13 MiB) at H=512: the In=120 and
+# In=32 layers (padded to 128) take K3 (10.49 MB), the In=512 layers K4
+# (12.58 MB; K3 would need 16.78), the decoder's In=1,024 layers K1 (K4
+# would need 16.78). A forward runs its target's layers (PHN_RECOG and
+# B_DETECTOR: K3 then K4; VAE and TEST: 8 fused and 2 K1 layer directions,
+# and the decode), a train step's backward the modules it trains (VAE: the
+# rnn's K3 and K4, the decoder's two K3 and two K1 directions)
+_ZERO = {k: 0 for k in PER_FORWARD}
+_ON_OWN_EVAL = {**_ZERO, "lstm_fused_fwd_f32": 2}
+_ON_VAE_EVAL = {**_ZERO, "lstm_fused_fwd_f32": 8, "lstm_fwd": 2,
+                "md_viterbi": 1}
+_ON_OWN_STEP = {**_ON_OWN_EVAL, "lstm_fused_bwd_f32": 1,
+                "lstm_semi_bwd_f32": 1}
+PER_F32_ON_EVAL = {"PHN_RECOG": _ON_OWN_EVAL, "B_DETECTOR": _ON_OWN_EVAL,
+                   "VAE": _ON_VAE_EVAL, "TEST": _ON_VAE_EVAL}
+PER_F32_ON_STEP = {"PHN_RECOG": _ON_OWN_STEP, "B_DETECTOR": _ON_OWN_STEP,
+                   "VAE": {**_ON_VAE_EVAL, "lstm_fused_bwd_f32": 3,
+                           "lstm_semi_bwd_f32": 1, "lstm_bwd": 2}}
+# its AMP VAE step under MLVAE_PALLAS_FUSED=0: every layer direction on the
+# bf16 K1 builds, the ten forward and the six the step trains backward
+# (K1-bwd's dW_hh kernel after each recurrence), and the decode
+PER_OFF_AMP_VAE_STEP = {**_ZERO, "lstm_fwd_wide_bf16": 10,
+                        "lstm_bwd_wide_bf16": 6, "lstm_dw_wide_bf16": 6,
+                        "md_viterbi": 1}
+
+
+def md_vae_switch_launches(target, train, amp):
+    """MD_VAE's launches by each layer's route under the switch as it
+    stands (``nn.rnn.lstm_route``), for the report beside the pinned
+    counts: a forward runs its target's modules' layers (TEST and VAE all
+    four, and the decode), a train step's backward the modules it trains
+    (VAE: the rnn and the decoder). A fused layer takes K3/K4-fwd and
+    K3-bwd or K4-bwd of its stream dtype, a K1 layer K1-fwd and K1-bwd, on
+    bf16 streams the tensor-core builds with K1-bwd's dW_hh kernel; the
+    eval forward is f32."""
+    import torch
+    from mlvae_tpu_torch.nn import rnn
+    bf = train and amp
+    dtype = torch.bfloat16 if bf else torch.float32
+    sfx = "" if bf else "_f32"
+    own = {"PHN_RECOG": ("phoneme_recognizer",),
+           "B_DETECTOR": ("boundary_detector",)}
+    layers = md_vae_layers()
+    fwd = own.get(target, tuple(layers))
+    bwd = own.get(target, ("rnn", "decoder")) if train else ()
+    out = dict(_ZERO)
+    for mods, back in ((fwd, False), (bwd, True)):
+        for mk in mods:
+            for In, H, dirs in layers[mk]:
+                route = rnn.lstm_route(In, H, dtype)
+                if route == "k1" and bf:
+                    names = (("lstm_bwd_wide_bf16", "lstm_dw_wide_bf16")
+                             if back else ("lstm_fwd_wide_bf16",))
+                elif route == "k1":
+                    names = ("lstm_bwd",) if back else ("lstm_fwd",)
+                elif back:
+                    names = (("lstm_semi_bwd" if route.__name__ ==
+                              "LSTMSemiFused" else "lstm_fused_bwd") + sfx,)
+                else:
+                    names = ("lstm_fused_fwd" + sfx,)
+                for n in names:
+                    out[n] += dirs
+    out["md_viterbi"] = 1 if target in ("VAE", "TEST") else 0
+    return out
+
+
 def recipe_launches(recipe, target, train, amp=False):
     """One eval forward's (``train``: one train step's) launches of an
     MD_VAE family recipe's ``target``, MD_VAE's included. A forward runs
@@ -568,7 +694,23 @@ def recipe_launches(recipe, target, train, amp=False):
     ``PER_CRDNN_EVAL``, ``PER_CRDNN_STEP`` or ``PER_CRDNN_AMP_STEP``,
     LSTM_FC ``PER_LSTM_FC_*``, a harness recipe its ``HARNESS_LAYERS``,
     HMM_DNN_ALI none, the w2v recipes as ``W2V_CTC`` and the MD_VAE
-    family's (their trunks launch none)."""
+    family's (their trunks launch none). That is the default
+    ``MLVAE_PALLAS_FUSED``, and also ``1`` on bf16 streams and ``0`` on
+    f32 streams, which route alike. ``1`` on f32 streams and ``0`` on bf16
+    ones (``nn.rnn.PALLAS_LSTM_FUSED`` as this process reads it) are
+    reckoned for MD_VAE only: ``PER_F32_ON_EVAL`` / ``PER_F32_ON_STEP``,
+    and ``PER_OFF_AMP_VAE_STEP`` for its AMP VAE step."""
+    from mlvae_tpu_torch.nn import rnn
+    switch, bf = rnn.PALLAS_LSTM_FUSED, train and amp
+    if switch is True and not bf:
+        check(recipe == "MD_VAE", f"{recipe}'s f32 launches are reckoned "
+              "under MLVAE_PALLAS_FUSED=1 for MD_VAE only")
+        return dict((PER_F32_ON_STEP if train else PER_F32_ON_EVAL)[target])
+    if switch is False and bf:
+        check(recipe == "MD_VAE" and target == "VAE", f"{recipe} {target}'s"
+              " AMP launches are reckoned under MLVAE_PALLAS_FUSED=0 for "
+              "MD_VAE's VAE step only")
+        return dict(PER_OFF_AMP_VAE_STEP)
     if recipe in CTC_RECIPES:   # no target: the stage alone decides
         return dict(PER_CRDNN_AMP_STEP if train and amp else
                     PER_CRDNN_STEP if train else PER_CRDNN_EVAL)
@@ -3376,8 +3518,9 @@ def run_unroll(dev, report, iters=UNROLL_ITERS):
     {2, 4, 8}): ``mlvae_tpu_torch.tools.bench_lstm_unroll.bench``, the
     function its command line runs. Every unrolled arm must be bit-equal
     to its one-step twin, and each timed kernel launches 1 + warm-up +
-    ``iters`` times: K1-fwd and K3/K4-fwd once each, K7a seven times (three
-    K in f32; K=1 and three K in bf16), K7b three times."""
+    ``iters`` times: K1-fwd and K3/K4-fwd once each (and K3/K4-fwd on f32
+    streams), K7a seven times (three K in f32; K=1 and three K in bf16),
+    K7b three times in bf16 and three in f32."""
     import math
     import torch
     from mlvae_tpu_torch.tools import bench_lstm_unroll as BU
@@ -3389,15 +3532,15 @@ def run_unroll(dev, report, iters=UNROLL_ITERS):
     n_k = len(BU.KS)
     want = {**{k: 0 for k in PER_FORWARD}, "lstm_fwd": per,
             "lstm_fused_fwd": per, "lstm_unroll_fwd": per * (2 * n_k + 1),
-            "lstm_unroll_fused_fwd": per * n_k}
+            "lstm_unroll_fused_fwd": per * n_k, "lstm_fused_fwd_f32": per,
+            "lstm_unroll_fused_fwd_f32": per * n_k}
     worst = BU.worst_max_abs(res)
     times = [a["twin_ms"] for a in res["arms"] if "K" in a] + [
         k["ms"] for a in res["arms"] for k in a.get("K", {}).values()]
     report(f"  unroll A/B at B={BU.SHAPE[0]} T={BU.SHAPE[1]} "
            f"H={BU.SHAPE[2]} In={BU.SHAPE[3]}, K {list(BU.KS)}: worst "
-           f"max_abs against the twins {worst:g} (must be 0); "
-           + "; ".join(a["status"] for a in res["arms"] if "status" in a)
-           + f"; launches {counts}")
+           f"max_abs against the twins {worst:g} (must be 0); launches "
+           f"{counts}")
     check(worst == 0.0, f"an unrolled arm differs from its twin by {worst}")
     check(all(math.isfinite(t) and t > 0 for t in times),
           f"unroll path times {times}")
@@ -3448,36 +3591,40 @@ def _bound(flops, nbytes, peak):
     return max(t_o, t_b) * 1e3, "operations" if t_o > t_b else "bytes"
 
 
-def fused_fwd_bound(T, B, In, H):
-    """One product over [x_t | h_{t-1}] per step at the bf16 tensor-core
-    peak, against x, hs (bf16), cs (f32), the bf16 weights and the bias
-    moved once."""
+def fused_fwd_bound(T, B, In, H, bf16=True):
+    """One product over [x_t | h_{t-1}] per step at the stream dtype's peak
+    (bf16 tensor cores, or f32), against x, hs, the weights (the stream
+    dtype), cs and the bias (f32) moved once."""
+    i = 2.0 if bf16 else 4.0
     flops = 2.0 * B * 4 * H * (In + H) * T
-    nbytes = (2.0 * T * B * In + 2.0 * T * B * H + 4.0 * T * B * H
-              + 2.0 * 4 * H * (In + H) + 4.0 * 4 * H)
-    return _bound(flops, nbytes, BF16_PEAK)
+    nbytes = (i * T * B * In + i * T * B * H + 4.0 * T * B * H
+              + i * 4 * H * (In + H) + 4.0 * 4 * H)
+    return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
 
 
-def fused_bwd_bound(T, B, In, H):
+def fused_bwd_bound(T, B, In, H, bf16=True):
     """Three products over In + H columns per step (the recompute; dX with
-    dh_{t-1}; dW_ih with dW_hh) against x, dX, hs, dhs (bf16), cs, dc_last,
-    the weights, the bias and the f32 dW_ih, db, dW_hh moved once."""
+    dh_{t-1}; dW_ih with dW_hh) at the stream dtype's peak, against x, dX,
+    hs, dhs (the stream dtype), cs, dc_last, the weights, the bias and the
+    f32 dW_ih, db, dW_hh moved once."""
+    i = 2.0 if bf16 else 4.0
     flops = 3 * 2.0 * B * 4 * H * (In + H) * T
-    nbytes = (2.0 * 2 * T * B * In + 2.0 * 2 * T * B * H + 4.0 * T * B * H
-              + 4.0 * B * H + 2.0 * 4 * H * (In + H) + 4.0 * 4 * H
+    nbytes = (i * 2 * T * B * In + i * 2 * T * B * H + 4.0 * T * B * H
+              + 4.0 * B * H + i * 4 * H * (In + H) + 4.0 * 4 * H
               + 4.0 * 4 * H * (In + H) + 4.0 * 4 * H)
-    return _bound(flops, nbytes, BF16_PEAK)
+    return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
 
 
-def semi_bwd_bound(T, B, In, H):
-    """The recompute over In + H columns, dh_{t-1} and dW_hh over H, against
-    x, dgx, hs, dhs (bf16), cs, dc_last, the weights, the bias and the f32
-    dW_hh moved once."""
+def semi_bwd_bound(T, B, In, H, bf16=True):
+    """The recompute over In + H columns, dh_{t-1} and dW_hh over H at the
+    stream dtype's peak, against x, dgx, hs, dhs (the stream dtype), cs,
+    dc_last, the weights, the bias and the f32 dW_hh moved once."""
+    i = 2.0 if bf16 else 4.0
     flops = 2.0 * B * 4 * H * (In + H) * T + 2 * 2.0 * B * 4 * H * H * T
-    nbytes = (2.0 * T * B * In + 2.0 * T * B * 4 * H + 2.0 * 2 * T * B * H
-              + 4.0 * T * B * H + 4.0 * B * H + 2.0 * 4 * H * (In + H)
+    nbytes = (i * T * B * In + i * T * B * 4 * H + i * 2 * T * B * H
+              + 4.0 * T * B * H + 4.0 * B * H + i * 4 * H * (In + H)
               + 4.0 * 4 * H + 4.0 * 4 * H * H)
-    return _bound(flops, nbytes, BF16_PEAK)
+    return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
 
 
 def lattice_bound(prob):
@@ -3638,16 +3785,16 @@ def time_all(dev, report, model, batch, noise, prob, prob_b1, errs, counts):
         "infer_b1_ms": infer_ms}
 
 
-def interleaved_ms(kernel, yard, rounds, iters):
-    """Two timers in turns (kernel, yardstick, yardstick, kernel), `rounds`
-    times: each one's samples (ms a call, CUDA events)."""
-    ks, ys = [], []
+def in_turns(timers, rounds, iters):
+    """Timers in turns, in order then in reverse (kernel, yardstick,
+    yardstick, kernel for two), ``rounds`` times: each one's samples (ms
+    a call, CUDA events)."""
+    samples = [[] for _ in timers]
     for _ in range(rounds):
-        ks.append(kernel(iters))
-        ys.append(yard(iters))
-        ys.append(yard(iters))
-        ks.append(kernel(iters))
-    return ks, ys
+        for order in (range(len(timers)), range(len(timers) - 1, -1, -1)):
+            for i in order:
+                samples[i].append(timers[i](iters))
+    return samples
 
 
 def kernel_split(fn, steps):
@@ -3719,7 +3866,7 @@ def time_fused_bwd(dev, report, T=160, H=512, cases=BWD_YARD_CASES,
             return cuda_ms(lambda: cudnn(xg)[0].backward(dy), iters=iters,
                            warmup=1) - fwd
 
-        ks, ys = interleaved_ms(kernel, yard, rounds, iters=5)
+        ks, ys = in_turns((kernel, yard), rounds, iters=5)
         km, ym = statistics.median(ks), statistics.median(ys)
         dev_ms = (kernel_ms(lambda: cudnn(xg)[0].backward(dy))
                   - kernel_ms(lambda: cudnn(xg)))
@@ -3777,10 +3924,10 @@ def time_fwd_yard(dev, report, cases, T=160, H=512, rounds=FWD_YARD_ROUNDS):
             key = f"{name} In={In} B={B}"
         cudnn.flatten_parameters()  # else cuDNN compacts them every call
         with torch.no_grad():
-            ks, ys = interleaved_ms(
-                lambda iters: cuda_ms(fn, iters=iters, warmup=1),
-                lambda iters: cuda_ms(lambda: cudnn(x), iters=iters,
-                                      warmup=1), rounds, iters=5)
+            ks, ys = in_turns(
+                (lambda iters: cuda_ms(fn, iters=iters, warmup=1),
+                 lambda iters: cuda_ms(lambda: cudnn(x), iters=iters,
+                                       warmup=1)), rounds, iters=5)
             dev_ms = kernel_ms(lambda: cudnn(x))
         km, ym = statistics.median(ks), statistics.median(ys)
         fk = km / dev_ms if dev_ms else float("nan")
@@ -4171,7 +4318,7 @@ def time_gru(dev, report, errs, counts, T=160, B=64, H=512, In=120,
                                                      dhs, False),
                          iters=2, warmup=1),
                  gru_bwd_bound(T, B, H, bf16))):
-            ks, ys_ = interleaved_ms(kern, yard, rounds, iters=10)
+            ks, ys_ = in_turns((kern, yard), rounds, iters=10)
             km, ym = statistics.median(ks), statistics.median(ys_)
             alone, per_step = cudnn_alone[name]
             row = dict(
@@ -4237,15 +4384,19 @@ def time_unroll(dev, report, res, errs, counts):
             gx.to(bf), w_hh.to(bf), False, K), iters=2, warmup=1),
         "fused": cuda_ms(lambda: LU.run_fwd_fused_k_ref(
             x.to(bf), w_ih.to(bf), bias, w_hh.to(bf), False, K), iters=2,
-            warmup=1)}
+            warmup=1),
+        "fused_f32": cuda_ms(lambda: LU.run_fwd_fused_k_ref(
+            x, w_ih, bias, w_hh, False, K), iters=2, warmup=1)}
     arms = {(a["arm"], a["dtype"]): a for a in res["arms"] if "K" in a}
     bounds = {("plain", "f32"): lstm_bound(T, B, H),
               ("plain", "bf16"): lstm_bound(T, B, H, bf16=True),
-              ("fused", "bf16"): fused_fwd_bound(T, B, In, H)}
+              ("fused", "bf16"): fused_fwd_bound(T, B, In, H),
+              ("fused", "f32"): fused_fwd_bound(T, B, In, H, bf16=False)}
     for key, a in arms.items():
         b_ms, b_by = bounds[key]
         fused_arm = key[0] == "fused"
-        p_ms = plain["fused" if fused_arm else key[1]]
+        p_ms = plain[("fused" if key[1] == "bf16" else "fused_f32")
+                     if fused_arm else key[1]]
         name = "lstm_unroll_fused_fwd" if fused_arm else "lstm_unroll_fwd"
         report(f"  {name} {key[1]}: "
                + ", ".join(f"K={k} {v['ms']:.4f} ms" for k, v in
@@ -4270,8 +4421,10 @@ def time_unroll(dev, report, res, errs, counts):
     def by_k(a):
         return {k: v["ms"] for k, v in a["K"].items()}
 
-    f32, b16, fused = (arms[("plain", "f32")], arms[("plain", "bf16")],
-                       arms[("fused", "bf16")])
+    f32, b16, fused, fused32 = (arms[("plain", "f32")],
+                                arms[("plain", "bf16")],
+                                arms[("fused", "bf16")],
+                                arms[("fused", "f32")])
     return [
         dict(name="lstm_unroll_fwd", route="cuda",
              source="mlvae_tpu_torch/csrc/lstm_unroll_fwd.cu",
@@ -4299,6 +4452,17 @@ def time_unroll(dev, report, res, errs, counts):
              shape=f"T={T} B={B} In={In} H={H} bf16 K={K}",
              ms_by_k=by_k(fused), twin_ms=fused["twin_ms"], b64_ms=b64,
              **counts["lstm_unroll_fused_fwd"]),
+        dict(name="lstm_unroll_fused_fwd_f32", route="cuda",
+             source="mlvae_tpu_torch/csrc/lstm_fused_fwd_f32.cu",
+             replaces="mlvae_tpu/ops/lstm_unroll_exp.py:93",
+             max_abs_err=errs["lstm_unroll_fused_fwd_f32"],
+             ms=fused32["K"][str(K)]["ms"], plain_ms=plain["fused_f32"],
+             bound_ms=bounds[("fused", "f32")][0],
+             bound_by=bounds[("fused", "f32")][1],
+             library_ms=fused32["library_ms"],
+             shape=f"T={T} B={B} In={In} H={H} f32 K={K}",
+             ms_by_k=by_k(fused32), twin_ms=fused32["twin_ms"],
+             **counts["lstm_unroll_fused_fwd_f32"]),
     ]
 
 
@@ -4382,9 +4546,10 @@ def time_fbank(dev, report, cases, errs, counts):
             run = (lambda: k6(frames, mode, build))
             turns = mode == fb.SB or not small
             if turns:
-                ks, ys = interleaved_ms(
-                    lambda _: cuda_ms(run, iters=k_iters),
-                    lambda _: cuda_ms(yard, iters=y_iters), FBANK_TURNS, None)
+                ks, ys = in_turns(
+                    (lambda _: cuda_ms(run, iters=k_iters),
+                     lambda _: cuda_ms(yard, iters=y_iters)), FBANK_TURNS,
+                    None)
                 ms, lib = statistics.median(ks), statistics.median(ys)
             else:
                 ms = cuda_ms(run, iters=k_iters)
@@ -6723,6 +6888,528 @@ def run_options(dev, report, smi):
     return counts, graph_counts, prof_counts, out
 
 
+# ---------------------------------------------------------------------------
+# fused_f32: the fused tiers on f32 streams (K3/K4-fwd, K3-bwd, K4-bwd and
+# K7b in f32) behind MLVAE_PALLAS_FUSED
+# ---------------------------------------------------------------------------
+
+F32_KERNELS = ("lstm_fused_fwd_f32", "lstm_fused_bwd_f32",
+               "lstm_semi_bwd_f32", "lstm_unroll_fused_fwd_f32")
+# (T, B) of each f32 build's check at H=512: the main path's, B=1, ragged
+# B, T=1 and T=2
+F32_CASES = ((160, 64), (160, 1), (160, 70), (1, 64), (2, 64))
+F32_FWD_REPEATS = 10   # repeated K3/K4-fwd launches per In and direction
+F32_BWD_REPEATS = 50   # repeated K3-bwd / K4-bwd launches per direction
+SWITCH_OFF_RTOL = 5e-2  # the AMP VAE step under MLVAE_PALLAS_FUSED=0 (K1 on
+                        # bf16 streams, a bf16 gx) against the default AMP
+                        # step (the fused tiers, an f32 input product)
+SWITCH_CHILD_TIMEOUT = 420
+F32_YARD_ROUNDS = 2
+SWITCH_ROUNDS = 2
+
+
+def f32_problem(g, dev, T, B, In, H):
+    """``fused_problem``'s layer on f32 streams."""
+    import torch
+    x = torch.randn((T, B, In), generator=g, device=dev) * 0.5
+    w_ih = (torch.rand((4 * H, In), generator=g, device=dev) * 2 - 1) \
+        / H ** 0.5
+    bias = (torch.rand((4 * H,), generator=g, device=dev) * 2 - 1) / H ** 0.5
+    w_hh = (torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1) \
+        / H ** 0.5
+    return x, w_ih, bias, w_hh
+
+
+def f32_cotangents(g, dev, T, B, H):
+    import torch
+    return (torch.randn((T, B, H), generator=g, device=dev) * 0.1,
+            torch.randn((B, H), generator=g, device=dev) * 0.1)
+
+
+def check_fused_f32(dev, report, H=512):
+    """The f32 builds' shared memory as their C code plans it against
+    ``ops.lstm.fused_f32_smem`` (the CPU tests' mirror); each f32 build
+    against its plain version at H=512: K3/K4-fwd at
+    In=128 and 512 (MD_VAE's widths under MLVAE_PALLAS_FUSED=1), K3-bwd at
+    In=128 and K4-bwd at In=512, both directions, at ``F32_CASES``; hs and
+    cs within LSTM_ATOL, every backward output within BWD_RTOL of its
+    largest entry (the backward on the kernel's own hs and cs). Returns
+    each kernel's worst max abs error (hs and cs; dX, dgx) at T=160,
+    B=64."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    g = torch.Generator(device=dev).manual_seed(71)
+    worst = dict.fromkeys(F32_KERNELS[:3], 0.0)
+    outs = {"lstm_fused_bwd": ("dX", "dW_ih", "db", "dW_hh"),
+            "lstm_semi_bwd": ("dgx", "dW_hh")}
+    plans = {(k, In): (L.fused_f32_launch_smem(k, In, H),
+                       L.fused_f32_smem(k, In, H))
+             for k, In in (("fwd", 128), ("fwd", 512), ("bwd", 128),
+                           ("bwd", 256), ("semi", 512), ("semi", 640))}
+    report(f"  f32 builds' shared memory at H={H}, the C plan against "
+           "ops.lstm.fused_f32_smem: " + ", ".join(
+               f"{k} In={In} {c}/{py}" for (k, In), (c, py) in plans.items()))
+    check(all(c == py for c, py in plans.values()),
+          f"the f32 builds' shared memory plan differs: {plans}")
+    for In, bwd in ((128, "lstm_fused_bwd"), (512, "lstm_semi_bwd")):
+        for T, B in F32_CASES:
+            for reverse in (False, True):
+                prob = f32_problem(g, dev, T, B, In, H)
+                got = L.lstm_fused_fwd(*prob, reverse)
+                want = L.lstm_fused_fwd_ref(*prob, reverse)
+                dhs, dc = f32_cotangents(g, dev, T, B, H)
+                args = (*prob, *got, dhs, dc, reverse)
+                bgot = getattr(L, bwd)(*args)
+                bwant = getattr(L, bwd + "_ref")(*args)
+                torch.cuda.synchronize()
+                hs_err, cs_err, _ = fused_fwd_errors(got, want)
+                berrs = fused_bwd_errors(bgot, bwant)
+                report(f"  f32 T={T} B={B} In={In} H={H} reverse={reverse}: "
+                       f"lstm_fused_fwd hs max_abs_err {hs_err:.3e}, cs "
+                       f"{cs_err:.3e} (tol {LSTM_ATOL:g}); {bwd} max err "
+                       "rel to largest entry " + ", ".join(
+                           f"{n} {e:.3e}" for n, e in zip(outs[bwd], berrs))
+                       + f" (tol {BWD_RTOL:g})")
+                check(max(hs_err, cs_err) <= LSTM_ATOL,
+                      f"f32 lstm_fused_fwd disagrees: {hs_err}, {cs_err}")
+                check(max(berrs) <= BWD_RTOL, f"f32 {bwd} disagrees: {berrs}")
+                if (T, B) == (160, 64):
+                    worst["lstm_fused_fwd_f32"] = max(
+                        worst["lstm_fused_fwd_f32"], hs_err, cs_err)
+                    worst[bwd + "_f32"] = max(worst[bwd + "_f32"],
+                                              max_err(bgot[0], bwant[0]))
+    return worst
+
+
+def stress_fused_f32(dev, report, H=512, T=160, B=64):
+    """Repeated launches of the f32 builds at the main path's shape, back to
+    back, both directions: K3/K4-fwd at In=128 and 512, ``F32_FWD_REPEATS``
+    each, K3-bwd (In=128) and K4-bwd (In=512), ``F32_BWD_REPEATS`` each,
+    every one bit-equal to the first."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    g = torch.Generator(device=dev).manual_seed(72)
+    total, wrong = 0, []
+    for In, bwd in ((128, "lstm_fused_bwd"), (512, "lstm_semi_bwd")):
+        for reverse in (False, True):
+            prob = f32_problem(g, dev, T, B, In, H)
+            first = L.lstm_fused_fwd(*prob, reverse)
+            for j in range(F32_FWD_REPEATS):
+                total += 1
+                if not bit_equal(L.lstm_fused_fwd(*prob, reverse), first):
+                    wrong.append(("lstm_fused_fwd", In, reverse, j))
+            args = (*prob, *first, *f32_cotangents(g, dev, T, B, H), reverse)
+            bfirst = getattr(L, bwd)(*args)
+            for j in range(F32_BWD_REPEATS):
+                total += 1
+                if not bit_equal(getattr(L, bwd)(*args), bfirst):
+                    wrong.append((bwd, In, reverse, j))
+    report(f"  f32 builds repeated at T={T}, B={B}, H={H}, both directions: "
+           f"{total} launches against the first of each: {len(wrong)} not "
+           "bit-equal" + (f": {wrong[:8]}" if wrong else ""))
+    check(not wrong, f"f32 fused builds not bit-equal in {len(wrong)} of "
+          f"{total} repeated launches")
+
+
+def check_unroll_f32(dev, report, T=160, B=128, H=512, In=512):
+    """K7b on f32 streams at the unroll bench's shape, K in UNROLL_KS, both
+    directions: bit-equal to K3/K4-fwd on f32 streams, and that twin
+    against the plain version (LSTM_ATOL). Returns the twin's worst max
+    abs error."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
+    g = torch.Generator(device=dev).manual_seed(74)
+    worst = 0.0
+    for reverse in (False, True):
+        prob = f32_problem(g, dev, T, B, In, H)
+        twin = L.lstm_fused_fwd(*prob, reverse)
+        same = {K: bit_equal(LU.run_fwd_fused_k(*prob, reverse, K), twin)
+                for K in UNROLL_KS}
+        want = LU.run_fwd_fused_k_ref(*prob, reverse, UNROLL_KS[0])
+        torch.cuda.synchronize()
+        hs_err, cs_err, _ = fused_fwd_errors(twin, want)
+        report(f"  lstm_unroll_fused_fwd f32 T={T} B={B} In={In} H={H} "
+               f"reverse={reverse}: bit-equal to lstm_fused_fwd f32 at K "
+               f"{same}; the twin against the plain version: hs max_abs_err "
+               f"{hs_err:.3e}, cs {cs_err:.3e} (tol {LSTM_ATOL:g})")
+        check(all(same.values()), f"f32 K7b differs from its twin: {same}")
+        check(max(hs_err, cs_err) <= LSTM_ATOL,
+              f"f32 K3/K4-fwd at B={B} disagrees: {hs_err}, {cs_err}")
+        worst = max(worst, hs_err, cs_err)
+    return worst
+
+
+def run_switch_training(dev, report, B=64, T=160, L=8):
+    """MD_VAE at the recipe's width under MLVAE_PALLAS_FUSED=1 on f32
+    streams: one train step of each target (PHN_RECOG, B_DETECTOR, VAE)
+    and the TEST eval forward, each against the same through the plain
+    versions (loss within LOSS_RTOL, each module's applied grad norm
+    within GRAD_RTOL, exactly the target's modules moved), launches exact
+    per tier (the pinned ``PER_F32_ON_*``, which the layers' routes,
+    ``md_vae_switch_launches``, must give too), the VAE loss against the
+    default (K1) step's from the same weights and draws within LOSS_RTOL; then the
+    AMP VAE step under MLVAE_PALLAS_FUSED=0: only the bf16 K1 builds (with
+    K1-bwd's dW_hh kernel) and K2 launch, its loss within AMP_LOSS_RTOL of
+    its plain twin and within SWITCH_OFF_RTOL of the default AMP step's.
+    Returns the f32 model, batch and VAE draws, the launches of the
+    kernel runs, and the numbers."""
+    import numpy as np
+    import torch
+    from mlvae_tpu_torch.bench_utils import build_md_vae, synth_batch
+    from mlvae_tpu_torch.training.brain import Stage
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / abs(float(b))
+
+    model = build_md_vae(batch_size=B, seed=0, device=dev)
+    batch = synth_batch(B, T, L, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(75)
+    total = {k: 0 for k in launches()}
+    out = {}
+    vae_noise = None
+    with fused_switch(True):
+        for epoch in (1, 2, 3):
+            model.on_stage_start(Stage.TRAIN, epoch)
+            name = model.target.name
+            noise = train_noise(model, B, T, dev, g)
+            start = snapshot(model)
+            with twins():
+                reset_launches()
+                ref_loss, _ = model.fit_batch(batch, epoch, noise=noise)
+                ref_norms = grad_norms(model)
+                torch.cuda.synchronize()
+                check(sum(launches().values()) == 0,
+                      "the plain training step hit a kernel")
+            restore(model, start)
+            auto_loss = None
+            if name == "VAE":
+                vae_noise = noise
+                with fused_switch("auto"):
+                    auto_loss, _ = model.fit_batch(batch, epoch, noise=noise)
+                restore(model, start)
+            weights = start[0]
+            reset_launches()
+            loss, losses = model.fit_batch(batch, epoch, noise=noise)
+            torch.cuda.synchronize()
+            counts = launches()
+            for k in total:
+                total[k] += counts[k]
+            moved = {mk for mk, mod in model.param_modules().items()
+                     if any(not torch.equal(v, weights[f"{mk}.{n}"])
+                            for n, v in mod.state_dict().items())}
+            want = recipe_launches("MD_VAE", name, True)
+            routes = md_vae_switch_launches(name, True, False)
+            norms = grad_norms(model)
+            loss_rel = rel(loss, ref_loss)
+            norm_rel = {mk: abs(v - ref_norms[mk]) / ref_norms[mk]
+                        if ref_norms[mk] else abs(v)
+                        for mk, v in norms.items()}
+            report(f"  MLVAE_PALLAS_FUSED=1 f32 {name} step: loss "
+                   f"{float(loss):.6f}; launches "
+                   f"{ {k: v for k, v in counts.items() if v} }; modules "
+                   f"moved {sorted(moved)}; against the plain versions: loss "
+                   f"rel err {loss_rel:.3e} (tol {LOSS_RTOL:g}), grad norm "
+                   "rel err " + ", ".join(f"{mk} {v:.3e}" for mk, v in
+                                          norm_rel.items() if norms[mk])
+                   + f" (tol {GRAD_RTOL:g})")
+            check(np.isfinite(float(loss)), f"{name}: non-finite loss")
+            check(counts == want, f"=1 {name} launches {counts} != {want}")
+            check(routes == want, f"=1 {name}: the layers' routes give "
+                  f"{routes}, not the reckoned {want}")
+            check(moved == ACTIVE[name], f"=1 {name} moved {sorted(moved)}")
+            check(loss_rel <= LOSS_RTOL, f"=1 {name} loss disagrees")
+            check(max(norm_rel.values()) <= GRAD_RTOL,
+                  f"=1 {name} grads disagree")
+            out[name] = {"loss": float(loss), "loss_rel_plain": loss_rel,
+                         "grad_norm_rel_plain": max(norm_rel.values())}
+            if auto_loss is not None:
+                auto_rel = rel(loss, auto_loss)
+                report(f"  against the default (K1) step from the same "
+                       f"weights and draws: loss {float(auto_loss):.6f}, rel "
+                       f"err {auto_rel:.3e} (tol {LOSS_RTOL:g})")
+                check(auto_rel <= LOSS_RTOL, "the =1 VAE loss is far from "
+                      "the default step's")
+                out[name]["loss_rel_auto"] = auto_rel
+
+        model.set_stage(Stage.TEST)
+        ebatch = model.prepare_batch(batch)
+        noise = eval_noise(model, B, T, dev, seed=3)
+        reset_launches()
+        preds = model.compute_forward(ebatch, noise=noise)
+        _, losses = model.compute_objectives(preds, ebatch)
+        torch.cuda.synchronize()
+        counts = launches()
+        for k in total:
+            total[k] += counts[k]
+        want = recipe_launches("MD_VAE", "TEST", False)
+        report(f"  MLVAE_PALLAS_FUSED=1 f32 TEST eval forward: launches "
+               f"{ {k: v for k, v in counts.items() if v} }")
+        check(counts == want, f"=1 TEST launches {counts} != {want}")
+        check(md_vae_switch_launches("TEST", False, False) == want,
+              "=1 TEST: the layers' routes differ from the reckoned counts")
+        with twins():
+            ref = model.compute_forward(ebatch, noise=noise)
+            _, ref_losses = model.compute_objectives(ref, ebatch)
+        against_plain(report, ebatch, preds, losses, ref, ref_losses)
+
+    amp = build_md_vae(batch_size=B, seed=0, device=dev, bf16=True)
+    amp.on_stage_start(Stage.TRAIN, 3)
+    noise = train_noise(amp, B, T, dev, g)
+    start = snapshot(amp)
+    auto_loss, _ = amp.fit_batch(batch, 3, noise=noise)
+    restore(amp, start)
+    with fused_switch(False):
+        with twins():
+            ref_loss, _ = amp.fit_batch(batch, 3, noise=noise)
+        restore(amp, start)
+        reset_launches()
+        loss, _ = amp.fit_batch(batch, 3, noise=noise)
+        torch.cuda.synchronize()
+        counts = launches()
+        want = recipe_launches("MD_VAE", "VAE", True, amp=True)
+        routes = md_vae_switch_launches("VAE", True, True)
+    for k in total:
+        total[k] += counts[k]
+    plain_rel, auto_rel = rel(loss, ref_loss), rel(loss, auto_loss)
+    report(f"  MLVAE_PALLAS_FUSED=0 AMP VAE step: loss {float(loss):.6f}; "
+           f"launches { {k: v for k, v in counts.items() if v} }; against "
+           f"the plain versions rel err {plain_rel:.3e} (tol "
+           f"{AMP_LOSS_RTOL:g}); against the default AMP step "
+           f"{float(auto_loss):.6f}, rel err {auto_rel:.3e} (tol "
+           f"{SWITCH_OFF_RTOL:g})")
+    check(counts == want, f"=0 AMP VAE launches {counts} != {want}")
+    check(routes == want, f"=0 AMP VAE: the layers' routes give {routes}, "
+          f"not the reckoned {want}")
+    check(plain_rel <= AMP_LOSS_RTOL, "the =0 AMP loss disagrees with the "
+          "plain versions")
+    check(auto_rel <= SWITCH_OFF_RTOL, "the =0 AMP loss is far from the "
+          "default AMP step's")
+    out["amp_off_VAE"] = {"loss": float(loss), "loss_rel_plain": plain_rel,
+                          "loss_rel_auto": auto_rel}
+    del amp
+    return model, batch, vae_noise, total, out
+
+
+def run_cli_switch_child(out_dir):
+    """In a process started with MLVAE_PALLAS_FUSED=1 in its environment
+    (``--fused-cli-child``): MD_VAE's ``cli.train`` (one debug epoch a
+    target) and ``cli.test`` as in phase 3, each against the same run
+    through the plain versions, every stage's launches exact under the
+    switch; writes the launches and the stages to
+    ``out_dir/result.json``."""
+    import logging
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from mlvae_tpu_torch.nn import rnn
+
+    def report(line):
+        print(line, flush=True)
+
+    check(rnn.PALLAS_LSTM_FUSED is True, "MLVAE_PALLAS_FUSED read as "
+          f"{rnn.PALLAS_LSTM_FUSED!r}, not 1")
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    cwd = os.getcwd()
+    root = tempfile.mkdtemp(prefix="mlvae_cli_f32_")
+    probe = CliProbe()
+    try:
+        os.chdir(root)
+        model, train_total, stages = run_cli_train(report, probe, "cli_f32")
+        epochs = model.epoch_log
+        del model
+        test_total, timing = run_cli_test(report, probe, root, "cli_f32")
+        torch.cuda.synchronize()
+    finally:
+        probe.close()
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    res = {"counts": {k: train_total[k] + test_total[k] for k in train_total},
+           "stage_launches": {f"{k[0]} {k[1]} {v['target']}": {
+               n: c for n, c in v["launches"].items() if c}
+               for k, v in stages.items()},
+           "epochs": epochs, "evaluate_s": timing}
+    (Path(out_dir) / "result.json").write_text(json.dumps(res))
+    return 0
+
+
+def run_cli_switch(dev, report):
+    """MD_VAE's ``cli.train`` and ``cli.test`` in a process whose
+    environment holds MLVAE_PALLAS_FUSED=1 (this script again, with
+    ``--fused-cli-child``), its lines relayed; then ``cli.train`` with
+    MLVAE_PALLAS_FUSED=ture, which must exit non-zero with the switch's
+    ValueError. Returns the child's launches and its record."""
+    import os
+    import shutil
+    import tempfile
+    out = tempfile.mkdtemp(prefix="mlvae_switch_")
+    env = {**os.environ, "MLVAE_PALLAS_FUSED": "1",
+           "PYTHONPATH": os.pathsep.join(
+               [str(REPO)] + ([os.environ["PYTHONPATH"]]
+                              if os.environ.get("PYTHONPATH") else []))}
+    try:
+        proc = subprocess.run(
+            [sys.executable, str(REPO / "chip_smoke.py"),
+             "--fused-cli-child", out], env=env, capture_output=True,
+            text=True, timeout=SWITCH_CHILD_TIMEOUT)
+        for line in proc.stdout.splitlines():
+            report("  [MLVAE_PALLAS_FUSED=1] " + line.strip())
+        check(proc.returncode == 0, "the CLI under MLVAE_PALLAS_FUSED=1 "
+              f"exited {proc.returncode}: {proc.stderr[-3000:]}")
+        res = json.loads((Path(out) / "result.json").read_text())
+        env["MLVAE_PALLAS_FUSED"] = "ture"
+        bad = subprocess.run(
+            [sys.executable, "-m", "mlvae_tpu_torch.cli.train",
+             *cli_args("cli_ture")], cwd=out, env=env, capture_output=True,
+            text=True, timeout=SWITCH_CHILD_TIMEOUT)
+        msg = ("ValueError: MLVAE_PALLAS_FUSED='ture' is not a recognized "
+               "boolean")
+        said = msg if msg in bad.stderr else bad.stderr[-500:]
+        report(f"  cli.train with MLVAE_PALLAS_FUSED=ture: exit "
+               f"{bad.returncode}; {said}")
+        check(bad.returncode != 0 and msg in bad.stderr,
+              "a misspelled MLVAE_PALLAS_FUSED did not stop the CLI")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return res["counts"], res
+
+
+def time_fused_f32(dev, report, errs, counts, model, batch, vae_noise, smi,
+                   T=160, B=64, H=512):
+    """The f32 builds at the main path's widths in turns with two
+    yardsticks: the unfused f32 route (K3/K4-fwd: one ``torch.matmul`` for
+    the input projection, then K1-fwd; K3-bwd: K1-bwd and the GEMMs for
+    dX, dW_ih and db; K4-bwd, which emits dgx as K1-bwd does: K1-bwd) and
+    ``torch.nn.LSTM`` f32 (cuDNN, TF32 off; the backward as its forward and
+    backward less its forward), beside their bounds and plain versions;
+    then MD_VAE's f32 VAE step under MLVAE_PALLAS_FUSED=1 against the
+    default in turns, with a profile of each. Returns the kernels line's
+    rows of K3/K4-fwd (In=128), K3-bwd (In=128) and K4-bwd (In=512) on
+    f32 streams."""
+    import torch
+    from mlvae_tpu_torch.ops import lstm as L
+    g = torch.Generator(device=dev).manual_seed(76)
+    rows, res = [], {"card": smi}
+
+    def timer(fn):
+        return lambda iters: cuda_ms(fn, iters=iters, warmup=1)
+
+    saved_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for In in (128, 512):
+            x, w_ih, bias, w_hh = prob = f32_problem(g, dev, T, B, In, H)
+            hs, cs = L.lstm_fused_fwd(*prob)
+            dhs, dc = f32_cotangents(g, dev, T, B, H)
+            gx = (torch.matmul(x, w_ih.t()) + bias).contiguous()
+            cudnn = torch.nn.LSTM(In, H, 1).to(dev)
+            cudnn.flatten_parameters()
+            xg = x.clone().requires_grad_()
+            dy = torch.randn((T, B, H), generator=g, device=dev)
+
+            def unfused_fwd():
+                return L.lstm_layer_fwd(
+                    (torch.matmul(x, w_ih.t()) + bias).contiguous(), w_hh)
+
+            def cudnn_fwd():
+                with torch.no_grad():
+                    return cudnn(x)
+
+            def unfused_bwd(k3=In == 128):
+                dgx, dw = L.lstm_layer_bwd(gx, w_hh, hs, cs, dhs, dc)
+                if k3:
+                    return (torch.matmul(dgx, w_ih),
+                            dgx.flatten(0, 1).t() @ x.flatten(0, 1),
+                            dgx.sum((0, 1)), dw)
+                return dgx, dw
+
+            def cudnn_bwd(iters):
+                fwd = cuda_ms(lambda: cudnn(xg), iters=iters, warmup=1)
+                return cuda_ms(lambda: cudnn(xg)[0].backward(dy),
+                               iters=iters, warmup=1) - fwd
+
+            bwd = "lstm_fused_bwd" if In == 128 else "lstm_semi_bwd"
+            kern_bwd = getattr(L, bwd)
+            for name, fns, bound, plain in (
+                    ("lstm_fused_fwd_f32",
+                     (timer(lambda: L.lstm_fused_fwd(*prob)),
+                      timer(unfused_fwd), timer(cudnn_fwd)),
+                     fused_fwd_bound(T, B, In, H, bf16=False),
+                     lambda: L.lstm_fused_fwd_ref(*prob)),
+                    (bwd + "_f32",
+                     (timer(lambda: kern_bwd(*prob, hs, cs, dhs, dc)),
+                      timer(unfused_bwd), cudnn_bwd),
+                     (fused_bwd_bound if In == 128 else semi_bwd_bound)(
+                         T, B, In, H, bf16=False),
+                     lambda: getattr(L, bwd + "_ref")(*prob, hs, cs, dhs,
+                                                      dc))):
+                ks, us, cs_ = in_turns(fns, F32_YARD_ROUNDS, iters=5)
+                km, um, cm = (statistics.median(v) for v in (ks, us, cs_))
+                p_ms = cuda_ms(plain, iters=1, warmup=1)
+                b_ms, b_by = bound
+                row = {"ms": km, "spread": [min(ks), max(ks)],
+                       "us_a_step": km * 1e3 / T, "unfused_ms": um,
+                       "unfused_spread": [min(us), max(us)],
+                       "cudnn_ms": cm, "cudnn_spread": [min(cs_), max(cs_)],
+                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+                res[f"{name} In={In}"] = row
+                report(f"  {name} In={In} T={T} B={B} H={H}: {km:.4f} ms "
+                       f"median ({min(ks):.4f}-{max(ks):.4f}; "
+                       f"{row['us_a_step']:.2f} us a step); in turns the "
+                       f"unfused f32 route {um:.4f} ({min(us):.4f}-"
+                       f"{max(us):.4f}), cuDNN f32 (TF32 off) {cm:.4f} "
+                       f"({min(cs_):.4f}-{max(cs_):.4f}); factors "
+                       f"{km / um:.3f}, {km / cm:.3f}; plain {p_ms:.4f}; "
+                       f"bound {b_ms:.4f} by {b_by}; {smi}")
+                if name == "lstm_fused_fwd_f32" and In == 512:
+                    continue   # the row reports In=128, MD_VAE's most
+                src = ("lstm_fused_fwd_f32.cu" if name.startswith(
+                    "lstm_fused_fwd") else "lstm_fused_bwd_f32.cu")
+                line = {"lstm_fused_fwd_f32": 347, "lstm_fused_bwd_f32": 371,
+                        "lstm_semi_bwd_f32": 519}[name]
+                rows.append(dict(
+                    name=name, route="cuda",
+                    source=f"mlvae_tpu_torch/csrc/{src}",
+                    replaces=f"mlvae_tpu/ops/lstm_pallas.py:{line}",
+                    max_abs_err=errs[name], ms=km, plain_ms=p_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=cm,
+                    unfused_ms=um, shape=f"T={T} B={B} In={In} H={H} f32",
+                    card=smi, **counts[name]))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved_tf32
+    for row in rows:   # K3/K4-fwd's In=512 time beside its In=128 row
+        if row["name"] == "lstm_fused_fwd_f32":
+            row["ms_in512"] = res["lstm_fused_fwd_f32 In=512"]["ms"]
+
+    def step(value):
+        def fn(iters):
+            with fused_switch(value):
+                return cuda_ms(lambda: model.fit_batch(
+                    batch, 3, noise=vae_noise), iters=iters, warmup=1)
+        return fn
+
+    on, auto = in_turns((step(True), step("auto")), SWITCH_ROUNDS, iters=3)
+    res["vae_step"] = {"on_ms": statistics.median(on), "on": on,
+                       "auto_ms": statistics.median(auto), "auto": auto}
+    for value, label in ((True, "on"), ("auto", "auto")):
+        with fused_switch(value):
+            res["vae_step"][f"profile_{label}"] = profile_step(
+                lambda: model.fit_batch(batch, 3, noise=vae_noise),
+                f"f32 VAE train step, MLVAE_PALLAS_FUSED "
+                f"{'=1' if value is True else 'unset'}", report)
+    vs = res["vae_step"]
+    report(f"  MD_VAE f32 VAE step B={B} T={T} in turns: "
+           f"MLVAE_PALLAS_FUSED=1 {vs['on_ms']:.3f} ms median "
+           f"({min(on):.3f}-{max(on):.3f}), unset {vs['auto_ms']:.3f} "
+           f"({min(auto):.3f}-{max(auto):.3f}); kernel time "
+           f"{vs['profile_on']['kernel_ms']:.3f} against "
+           f"{vs['profile_auto']['kernel_ms']:.3f} ms, idle share "
+           f"{vs['profile_on']['idle_share']:.3f} against "
+           f"{vs['profile_auto']['idle_share']:.3f}; {smi}")
+    return rows, res
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6732,6 +7419,8 @@ def main(argv=None) -> int:
     ap.add_argument("--lstm-bwd-repeats", type=int, default=LSTM_BWD_REPEATS,
                     help="K1-bwd launches per direction in phase 2's "
                     "repeated check (default %(default)s)")
+    # the fused_f32 phase's CLI process (run_cli_switch), not for a user
+    ap.add_argument("--fused-cli-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not (REPO / "mlvae_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: the mlvae_tpu_torch package is not beside this "
@@ -6751,6 +7440,8 @@ def main(argv=None) -> int:
     # register every kernel before the first launch count is read
     from mlvae_tpu_torch.ops import (decode, fbank, gru, lstm,  # noqa: F401
                                      lstm_unroll_exp)
+    if args.fused_cli_child:
+        return run_cli_switch_child(args.fused_cli_child)
 
     t_start = time.perf_counter()
 
@@ -6906,6 +7597,19 @@ def main(argv=None) -> int:
            "with --scan_epoch")
     ro_counts, ro_graph_counts, ro_prof_counts, cli["run_options"] = \
         run_options(dev, report, smi)
+    report("phase 3 fused_f32: the fused tiers on f32 streams (K3/K4-fwd, "
+           "K3-bwd, K4-bwd, K7b) against their plain versions at H=512, "
+           "repeated launches, K7b bit-equal to K3/K4-fwd; MD_VAE's f32 "
+           "steps and TEST forward under MLVAE_PALLAS_FUSED=1 and its AMP "
+           "VAE step under =0 at full width; cli.train / cli.test with "
+           "MLVAE_PALLAS_FUSED=1, and =ture refused")
+    errs.update(check_fused_f32(dev, report))
+    stress_fused_f32(dev, report)
+    errs["lstm_unroll_fused_fwd_f32"] = check_unroll_f32(dev, report)
+    sw_model, sw_batch, sw_noise, sw_counts, cli["fused_f32"] = \
+        run_switch_training(dev, report)
+    sw_cli_counts, cli["fused_f32"]["cli"] = run_cli_switch(dev, report)
+    report("phase 3 fused_f32 done")
     # the paths' launches: the eval forward's, the wav-in path's, the six
     # f32 and six AMP MD_VAE train steps', the two MD_VAE_sfl VAE steps',
     # the four gate-3 steps', the unroll path's, LSTM_FC's eval and two
@@ -6914,7 +7618,8 @@ def main(argv=None) -> int:
     # cli.train --bf16), MD_VAE's and the family's; CRDNN_CTC's eval
     # forward and f32 and --bf16 train steps, and the CTC recipes' CLI paths;
     # the harness recipes', LSTM_FC's and HMM_DNN_ALI's CLI paths; the
-    # real corpora's (their feature passes, MD_VAE's and LSTM_FC's runs)
+    # real corpora's (their feature passes, MD_VAE's and LSTM_FC's runs);
+    # the fused_f32 phase's steps, eval forward and CLI runs
     counts = {k: {"launches": eval_counts[k] + wav_counts[k]
                   + train_counts[k] + amp_counts[k] + sfl_counts[k]
                   + gate_counts[k]
@@ -6925,7 +7630,10 @@ def main(argv=None) -> int:
                   + cli_ctc_amp_counts[k] + cli_hr_counts[k]
                   + cli_hr_amp_counts[k] + cli_corpora_counts[k]
                   + cli_w2v_counts[k] + cli_w2v_amp_counts[k]
-                  + par_counts[k] + ro_counts[k],
+                  + par_counts[k] + ro_counts[k] + sw_counts[k]
+                  + sw_cli_counts[k],
+                  "launches_fused_f32": sw_counts[k],
+                  "launches_fused_f32_cli": sw_cli_counts[k],
                   "launches_run_options": ro_counts[k],
                   "launches_run_options_graphs":
                       ro_graph_counts.get(k, 0),
@@ -7011,6 +7719,13 @@ def main(argv=None) -> int:
     h512 = time_k1_bf16_h512(dev, report, counts)
     report("phase 4 HMM_DNN_ALI's train step (forward type)")
     hmm_step = time_hmm(dev, report, smi)
+    report("phase 4 fused_f32: the f32 builds in turns with the unfused f32 "
+           "route and cuDNN f32; MD_VAE's f32 VAE step under "
+           "MLVAE_PALLAS_FUSED=1 against the default")
+    f32_rows, cli["fused_f32"]["times"] = time_fused_f32(
+        dev, report, errs, counts, sw_model, sw_batch, sw_noise, smi)
+    kernels += f32_rows
+    del sw_model
     for row in kernels:   # the bf16 K1 rows: their H=512 numbers as well
         if row["name"] in ("lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16"):
             row["h512"] = {t: h512[t][row["name"]] for t in ("T=80",

@@ -33,7 +33,8 @@ SOURCES = ("lstm_fwd", "lstm_bwd", "md_viterbi", "lstm_fused_fwd",
            "lstm_fused_bwd", "lstm_semi_bwd", "fbank", "gru_fwd", "gru_bwd",
            "lstm_unroll_fwd", "lstm_unroll_fused_fwd", "lstm_fwd_wide",
            "lstm_bwd_wide", "lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16",
-           "gru_fwd_bf16", "gru_bwd_bf16", "fbank_fft")
+           "gru_fwd_bf16", "gru_bwd_bf16", "fbank_fft", "lstm_fused_fwd_f32",
+           "lstm_fused_bwd_f32")
 # second builds of a source under their own library names: the fused
 # backwards with the step timeline of tools/bench_bwd_timeline.py (a
 # %globaltimer stamp at each phase boundary of each step and block), and

@@ -7,26 +7,29 @@ Parameters carry ``torch.nn.LSTM``'s names and layouts
 The initial state is zero. Each layer takes the kernel tier the JAX
 package's ``_lstm_layer`` picks (``mlvae_tpu/nn/rnn.py:150-223``):
 
-- an f32 stream takes K1: the input projection of every time step is one
-  ``torch.matmul`` outside the recurrence, as the JAX package leaves it to
-  XLA, and the recurrence is ``ops.lstm.LSTMRecurrence`` (K1-fwd forward,
-  K1-bwd backward on the card), so autograd gives dX, dW_ih and the
-  biases from its dgx as XLA does from the Pallas kernel's; W_hh enters
-  it in the stream dtype;
-- a bf16 stream (AMP) takes the fused input projection:
-  ``ops.lstm.LSTMFused`` (K3) where ``fused_eligible`` holds for the input
-  width padded to a multiple of 128, else ``LSTMSemiFused`` (K4) where
-  ``semifused_eligible`` does. x and W_ih are zero-padded to that width
+- the fused input projection, for the streams ``MLVAE_PALLAS_FUSED``
+  sends there (``PALLAS_LSTM_FUSED``: by default bf16 (AMP) streams only;
+  ``1`` f32 streams too; ``0`` none): ``ops.lstm.LSTMFused`` (K3) where
+  ``fused_eligible`` holds for the input width padded to a multiple of
+  128, else ``LSTMSemiFused`` (K4) where ``semifused_eligible`` does (the
+  budgets take the dtype: at H=512 an f32 layer of In 128 takes K3, of In
+  512 K4, of In 1,024 neither). x and W_ih are zero-padded to that width
   exactly where the JAX package pads (the pad's backward slices dW_ih
   back), the bias is ``b_ih + b_hh`` summed in the stream dtype and then
   cast to f32, W_hh is cast to the stream dtype, and hs and the final
-  states come back in it. A bf16 layer that neither predicate admits
-  takes K1 as an f32 one does, on bf16 gx, W_hh and hs, where H % 128 == 0
-  (LSTM_FC's four H=1024 layers, and the CRDNN's first, In=7,680 at
-  H=512: the bf16 K1 builds). The JAX package also leaves the
-  kernels for a bf16-carry ``lax.scan`` when B is not a multiple of 16
-  (``_pallas_eligible``): that is a TPU tiling limit, not semantics, and
-  the port keeps its kernels for every B.
+  states come back in it;
+- every other layer takes K1 where H % 16 == 0 (on bf16 streams where H
+  % 128 == 0): the input projection of every time step is one
+  ``torch.matmul`` outside the recurrence in the stream dtype, as the JAX
+  package leaves it to XLA, and the recurrence is
+  ``ops.lstm.LSTMRecurrence`` (K1-fwd forward, K1-bwd backward on the
+  card), so autograd gives dX, dW_ih and the biases from its dgx as XLA
+  does from the Pallas kernel's; W_hh enters it in the stream dtype (on
+  bf16 streams: LSTM_FC's four H=1024 layers, the CRDNN's first, In=7,680
+  at H=512, and under ``MLVAE_PALLAS_FUSED=0`` every layer). The JAX
+  package also leaves the kernels for a bf16-carry ``lax.scan`` when B is
+  not a multiple of 16 (``_pallas_eligible``): that is a TPU tiling
+  limit, not semantics, and the port keeps its kernels for every B.
 - the JAX package's ``lax.scan`` path (``mlvae_tpu/nn/rnn.py:225-239``,
   with ``_lstm_cell``) is ``lstm_scan``, the plain recurrence in torch ops
   with its rounding points, on the card too (there is no Pallas kernel
@@ -71,15 +74,33 @@ from mlvae_tpu_torch.ops.gru import GRURecurrence
 from mlvae_tpu_torch.ops.lstm import (LSTMFused, LSTMRecurrence,
                                       LSTMSemiFused, fused_eligible,
                                       semifused_eligible)
+from mlvae_tpu_torch.utils.envflags import env_tristate
 
 LANE = 128   # the JAX package pads the fused kernels' input width to this
+
+# ``MLVAE_PALLAS_FUSED`` as the JAX package reads it (``mlvae_tpu/nn/
+# rnn.py``), at import: "auto" (unset) sends bf16 streams to the fused
+# tiers, True (``1``) f32 streams too, False (``0``) neither, so that every
+# layer takes K1 or the scan; any other value raises ``ValueError``.
+PALLAS_LSTM_FUSED = env_tristate("MLVAE_PALLAS_FUSED", "auto")
+
+
+def _fused_requested(dtype) -> bool:
+    """Whether ``MLVAE_PALLAS_FUSED`` sends a ``dtype`` stream to the fused
+    tiers (``_fused_requested`` of the JAX package): ``auto`` bf16 only,
+    ``1`` f32 and bf16, ``0`` neither. Eligibility is the shape's."""
+    if PALLAS_LSTM_FUSED == "auto":
+        return dtype == torch.bfloat16
+    return bool(PALLAS_LSTM_FUSED)
 
 
 def fused_tier(In: int, H: int, dtype):
     """The fused kernel a ``dtype`` stream of input width ``In`` takes
-    (``LSTMFused`` or ``LSTMSemiFused``), or None. Only bf16 streams take
-    one, as the JAX package's default ``MLVAE_PALLAS_FUSED=auto`` does."""
-    if dtype != torch.bfloat16:
+    (``LSTMFused`` or ``LSTMSemiFused``), or None: where the switch
+    requests the tiers for the dtype, the first whose budget the input
+    width padded to a multiple of 128 fits, as the JAX package picks it."""
+    if dtype not in (torch.float32, torch.bfloat16) \
+            or not _fused_requested(dtype):
         return None
     In_pad = -(-In // LANE) * LANE
     if fused_eligible(In_pad, H, dtype):
@@ -235,8 +256,8 @@ class LSTM(_Stack):
         return gx + (b_ih + b_hh) if folded else gx + b_ih + b_hh
 
     def _fused(self, x: torch.Tensor, sfx: str, tier, reverse: bool):
-        """One layer direction through a fused tier: x (T, B, In) bf16 ->
-        (hs (T, B, H), c_last (B, H) f32). The kernels take an f32 bias,
+        """One layer direction through a fused tier: x (T, B, In) f32 or
+        bf16 -> (hs (T, B, H) in x's dtype, c_last (B, H) f32). The kernels take an f32 bias,
         zeros without biases."""
         w_ih = getattr(self, f"weight_ih_{sfx}")
         w_hh = getattr(self, f"weight_hh_{sfx}")

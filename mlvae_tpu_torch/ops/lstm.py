@@ -20,12 +20,15 @@ Two families, as in ``mlvae_tpu/ops/lstm_pallas.py``:
 - **Fused input projection** (K3/K4-fwd, K3-bwd, K4-bwd;
   ``_run_fwd_fused``, ``_run_bwd_fused``, ``_run_bwd_semi`` and the
   ``lstm_layer_fused`` / ``lstm_layer_semifused`` custom VJPs), the bf16
-  (AMP) path: ``x @ W_ih^T + bias`` is formed inside the recurrence, so
-  the (T, B, 4H) gates never reach memory. ``lstm_fused_fwd``,
-  ``lstm_fused_bwd`` and ``lstm_semi_bwd`` run ``csrc/lstm_fused_fwd.cu``,
-  ``csrc/lstm_fused_bwd.cu`` and ``csrc/lstm_semi_bwd.cu`` for CUDA
-  tensors (bf16 streams only) and the ``*_ref`` plain versions for CPU
-  tensors only; ``LSTMFused`` and ``LSTMSemiFused`` join them.
+  (AMP) path, and the f32 one under ``MLVAE_PALLAS_FUSED=1``: ``x @ W_ih^T
+  + bias`` is formed inside the recurrence, so the (T, B, 4H) gates never
+  reach memory. ``lstm_fused_fwd``, ``lstm_fused_bwd`` and
+  ``lstm_semi_bwd`` run, for CUDA tensors, ``csrc/lstm_fused_fwd.cu``,
+  ``csrc/lstm_fused_bwd.cu`` and ``csrc/lstm_semi_bwd.cu`` on bf16 streams
+  (tensor cores) and ``csrc/lstm_fused_fwd_f32.cu`` and the two kernels of
+  ``csrc/lstm_fused_bwd_f32.cu`` on f32 streams (exact f32 FMAs), and the
+  ``*_ref`` plain versions for CPU tensors only; ``LSTMFused`` and
+  ``LSTMSemiFused`` join them.
 
 All run in torch gate order (i, f, g, o) with zero initial state and f32
 carries. ``reverse`` processes t = T-1 .. 0 by indexing; outputs stay in
@@ -80,6 +83,16 @@ LSTM_FUSED_BWD = _build.register(_build.Kernel(
 LSTM_SEMI_BWD = _build.register(_build.Kernel(
     "lstm_semi_bwd", "lstm_semi_bwd", "mlvae_lstm_semi_bwd",
     [_P] * 12 + [_I, _I, _I, _I, _I, _P]))
+# the same three on f32 streams; K3-bwd and K4-bwd share one source
+LSTM_FUSED_FWD_F32 = _build.register(_build.Kernel(
+    "lstm_fused_fwd_f32", "lstm_fused_fwd_f32", "mlvae_lstm_fused_fwd_f32",
+    [_P] * 8 + [_I] * 5 + [_P]))
+LSTM_FUSED_BWD_F32 = _build.register(_build.Kernel(
+    "lstm_fused_bwd_f32", "lstm_fused_bwd_f32", "mlvae_lstm_fused_bwd_f32",
+    [_P] * 16 + [_I] * 5 + [_P]))
+LSTM_SEMI_BWD_F32 = _build.register(_build.Kernel(
+    "lstm_semi_bwd_f32", "lstm_fused_bwd_f32", "mlvae_lstm_semi_bwd_f32",
+    [_P] * 13 + [_I] * 5 + [_P]))
 
 
 def _gate_acts(gates: torch.Tensor, H: int):
@@ -415,7 +428,7 @@ class LSTMRecurrence(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# Fused input projection (K3/K4-fwd, K3-bwd, K4-bwd): the bf16 (AMP) path
+# Fused input projection (K3/K4-fwd, K3-bwd, K4-bwd): bf16 and f32 streams
 # ---------------------------------------------------------------------------
 
 # The JAX package's scoped-VMEM budget for the fused backward's residents
@@ -543,12 +556,45 @@ def semi_input_grads(x, w_ih, dgx):
     return dx, dwih, dgx.sum((0, 1), dtype=torch.float32)
 
 
-def _check_fused(name, x, w_ih, bias, w_hh, extra=()) -> None:
-    """A fused kernel's inputs: one CUDA device, bf16 streams (x, the
-    weights, hs, dhs) and f32 bias / cells / dc_last, contiguous, shapes
-    (T, B, In), (4H, In), (4H,), (4H, H), In a multiple of 8 and H of 16.
-    H above 528 is refused before the rest: every fused kernel keeps H/4
-    blocks of one cooperative grid resident, one an SM of an H100's 132."""
+# a block of K3-bwd forms at most four groups of 4 dX columns, H/4 blocks
+K3_MAX_IN_PER_H = 4
+SMEM_LIMIT = 232448   # an H100 block's shared memory, bytes
+
+
+def fused_f32_smem(kind: str, In: int, H: int) -> int:
+    """Shared memory bytes of a launch of the f32 fused builds, as
+    ``smem_bytes`` of ``csrc/lstm_fused_fwd_f32.cu`` (``kind`` "fwd") and
+    ``csrc/lstm_fused_bwd_f32.cu`` ("bwd": K3, "semi": K4) compute it: the
+    block's 16 rows of W_hh (pitch H + 4), the partial sums (4 x 64 x 16),
+    two stages of a 64 x 128 chunk (pitch 132) and its weights (2,560
+    floats); the backwards also their dW (16 x (In + H), K4 16 x H) and a
+    tile's own dgates (64 x 16). f32 throughout; the launch refuses more
+    than ``SMEM_LIMIT``."""
+    floats = 16 * (H + 4) + 4 * 64 * 16 + 2 * (64 * 132 + 128 * 4 * 5)
+    if kind != "fwd":
+        floats += 16 * (H if kind == "semi" else In + H) + 16 * 64
+    return 4 * floats
+
+
+def fused_f32_launch_smem(kind: str, In: int, H: int) -> int:
+    """``fused_f32_smem`` as the C code of the build computes it (its
+    ``*_smem`` entry point; builds the library, launches nothing)."""
+    src = "lstm_fused_fwd_f32" if kind == "fwd" else "lstm_fused_bwd_f32"
+    fn = getattr(_build.library(src), f"mlvae_{src}_smem")
+    args = (H,) if kind == "fwd" else (In, H, int(kind == "semi"))
+    fn.argtypes, fn.restype = [_I] * len(args), _I
+    return int(fn(*args))
+
+
+def _check_fused(name, x, w_ih, bias, w_hh, extra=()):
+    """A fused kernel's inputs: one CUDA device, streams (x, the weights,
+    and hs, dhs of the backwards) all bf16 or all f32, f32 bias / cells /
+    dc_last, contiguous, shapes (T, B, In), (4H, In), (4H,), (4H, H), In a
+    multiple of 8 and H of 16; on f32 streams x, the weights and hs start on
+    16 bytes (the kernels copy them 16 bytes at a time). H above 528 is
+    refused before the rest: every fused kernel keeps H/4 blocks of one
+    cooperative grid resident, one an SM of an H100's 132. Returns the
+    stream dtype."""
     H = w_hh.shape[-1]
     if H > NARROW_MAX_H:
         raise NotImplementedError(
@@ -562,12 +608,11 @@ def _check_fused(name, x, w_ih, bias, w_hh, extra=()) -> None:
         raise ValueError(f"{name}: tensors on "
                          f"{sorted({str(t.device) for t in tensors})}; all "
                          "must be on one CUDA device")
-    if x.dtype != torch.bfloat16 or w_ih.dtype != torch.bfloat16 \
-            or w_hh.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"{name}: the kernel takes bf16 x and weights (got {x.dtype}, "
-            f"{w_ih.dtype}, {w_hh.dtype}); f32 layers take K1 "
-            "(LSTMRecurrence)")
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or w_ih.dtype != x.dtype or w_hh.dtype != x.dtype:
+        raise ValueError(
+            f"{name}: x and the weights must be all bf16 or all f32 (got "
+            f"{x.dtype}, {w_ih.dtype}, {w_hh.dtype})")
     if bias.dtype != torch.float32:
         raise ValueError(f"{name}: bias must be f32 (got {bias.dtype})")
     if not all(t.is_contiguous() for t in tensors):
@@ -583,10 +628,15 @@ def _check_fused(name, x, w_ih, bias, w_hh, extra=()) -> None:
     if In % 8 or H % 16:
         raise ValueError(f"{name}: In={In} must be a multiple of 8 and "
                          f"H={H} of 16")
+    if x.dtype == torch.float32 and any(
+            t.data_ptr() % 16 for t in (x, w_ih, w_hh) + tuple(extra[:1])):
+        raise ValueError(f"{name}: x, the weights and hs must start on 16 "
+                         "bytes")
+    return x.dtype
 
 
 def _check_fused_bwd(name, x, w_ih, bias, w_hh, hs, cs, dhs, dc_last):
-    _check_fused(name, x, w_ih, bias, w_hh, (hs, cs, dhs, dc_last))
+    dtype = _check_fused(name, x, w_ih, bias, w_hh, (hs, cs, dhs, dc_last))
     T, B, _ = x.shape
     H = w_hh.shape[1]
     if (hs.shape != (T, B, H) or cs.shape != (T, B, H)
@@ -594,30 +644,41 @@ def _check_fused_bwd(name, x, w_ih, bias, w_hh, hs, cs, dhs, dc_last):
         raise ValueError(f"{name}: hs/cs/dhs {tuple(hs.shape)}/"
                          f"{tuple(cs.shape)}/{tuple(dhs.shape)}, dc_last "
                          f"{tuple(dc_last.shape)} are not (T, B, H), (B, H)")
-    if hs.dtype != torch.bfloat16 or dhs.dtype != torch.bfloat16 \
+    if hs.dtype != dtype or dhs.dtype != dtype \
             or cs.dtype != torch.float32 or dc_last.dtype != torch.float32:
-        raise ValueError(f"{name}: hs and dhs must be bf16, cs and dc_last "
-                         "f32")
+        raise ValueError(f"{name}: hs and dhs must be x's dtype ({dtype}), "
+                         "cs and dc_last f32")
+    return dtype
 
 
 def lstm_fused_fwd(x, w_ih, bias, w_hh, reverse: bool = False):
     """K3/K4-fwd: same contract as ``lstm_fused_fwd_ref``. CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise. As K1's
-    narrow build, the H/4 blocks must all be resident at once (H <= 528 on
-    an H100); the fused kernels have no wide build."""
+    the plain version; CUDA tensors launch the build of the stream dtype
+    (bf16: tensor cores; f32: exact f32) or raise. As K1's narrow build,
+    the H/4 blocks must all be resident at once (H <= 528 on an H100); the
+    fused kernels have no wide build."""
     if x.device.type == "cpu":
         return lstm_fused_fwd_ref(x, w_ih, bias, w_hh, reverse)
-    _check_fused("lstm_fused_fwd", x, w_ih, bias, w_hh)
+    dtype = _check_fused("lstm_fused_fwd", x, w_ih, bias, w_hh)
     T, B, In = x.shape
     H = w_hh.shape[1]
-    hs = torch.empty((T, B, H), device=x.device, dtype=x.dtype)
+    hs = torch.empty((T, B, H), device=x.device, dtype=dtype)
     cs = torch.empty((T, B, H), device=x.device, dtype=torch.float32)
     barrier = torch.zeros((1,), device=x.device, dtype=torch.int32)
-    if T and B:
+    if not (T and B):
+        return hs, cs
+    stream = _build.stream_handle(x.device)
+    if dtype == torch.float32:
+        # the next step's input products, (B, 4H): each cell thread's own
+        xg = torch.empty((B, 4 * H), device=x.device, dtype=torch.float32)
+        LSTM_FUSED_FWD_F32(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
+                           w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                           xg.data_ptr(), barrier.data_ptr(), T, B, In, H,
+                           int(reverse), stream)
+    else:
         LSTM_FUSED_FWD(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
                        w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                       barrier.data_ptr(), T, B, In, H, int(reverse),
-                       _build.stream_handle(x.device))
+                       barrier.data_ptr(), T, B, In, H, int(reverse), stream)
     return hs, cs
 
 
@@ -630,15 +691,26 @@ def _bwd_scratch(x, H, dc_last):
     return dh_buf, dc_last.clone(), barrier
 
 
+def _check_k3_width(name, In, H):
+    """K3-bwd's dX columns: a block owns at most four groups of 4, so In
+    may be at most 4H (both builds)."""
+    if In > K3_MAX_IN_PER_H * H:
+        raise NotImplementedError(
+            f"{name}: In={In} above 4H={4 * H}: a block of K3-bwd forms at "
+            "most four groups of 4 dX columns (ROADMAP.md queue 2, item 1)")
+
+
 def lstm_fused_bwd(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last,
                    reverse: bool = False):
     """K3-bwd: same contract as ``lstm_fused_bwd_ref``. CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
+    the plain version; CUDA tensors launch the build of the stream dtype or
+    raise (In above 4H: ``NotImplementedError`` before the device)."""
     if x.device.type == "cpu":
         return lstm_fused_bwd_ref(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last,
                                   reverse)
-    _check_fused_bwd("lstm_fused_bwd", x, w_ih, bias, w_hh, hs, cs, dhs,
-                     dc_last)
+    _check_k3_width("lstm_fused_bwd", x.shape[-1], w_hh.shape[-1])
+    dtype = _check_fused_bwd("lstm_fused_bwd", x, w_ih, bias, w_hh, hs, cs,
+                             dhs, dc_last)
     T, B, In = x.shape
     H = w_hh.shape[1]
     dx = torch.empty_like(x)
@@ -648,39 +720,50 @@ def lstm_fused_bwd(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last,
     if not (T and B):
         return dx, dwih.zero_(), db.zero_(), dwhh.zero_()
     dh_buf, dc_buf, barrier = _bwd_scratch(x, H, dc_last)
-    # the step's bf16 dgates, exchanged between blocks; ping-ponged
-    dgbuf = torch.empty((2, B, 4 * H), device=x.device, dtype=x.dtype)
-    LSTM_FUSED_BWD(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
-                   w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                   dhs.data_ptr(), dx.data_ptr(), dwih.data_ptr(),
-                   db.data_ptr(), dwhh.data_ptr(), dgbuf.data_ptr(),
-                   dh_buf.data_ptr(), dc_buf.data_ptr(), barrier.data_ptr(),
-                   T, B, In, H, int(reverse), _build.stream_handle(x.device))
+    # the step's dgates in the stream dtype, exchanged between blocks;
+    # ping-ponged
+    dgbuf = torch.empty((2, B, 4 * H), device=x.device, dtype=dtype)
+    head = (x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(), w_hh.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(), dx.data_ptr(),
+            dwih.data_ptr(), db.data_ptr(), dwhh.data_ptr(), dgbuf.data_ptr())
+    tail = (dh_buf.data_ptr(), dc_buf.data_ptr(), barrier.data_ptr(), T, B,
+            In, H, int(reverse), _build.stream_handle(x.device))
+    if dtype == torch.float32:
+        # the pre-activations recomputed for the next step, (B, 4H)
+        pre = torch.empty((B, 4 * H), device=x.device, dtype=torch.float32)
+        LSTM_FUSED_BWD_F32(*head, pre.data_ptr(), *tail)
+    else:
+        LSTM_FUSED_BWD(*head, *tail)
     return dx, dwih, db, dwhh
 
 
 def lstm_semi_bwd(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last,
                   reverse: bool = False):
     """K4-bwd: same contract as ``lstm_semi_bwd_ref``. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    plain version; CUDA tensors launch the build of the stream dtype or
+    raise."""
     if x.device.type == "cpu":
         return lstm_semi_bwd_ref(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last,
                                  reverse)
-    _check_fused_bwd("lstm_semi_bwd", x, w_ih, bias, w_hh, hs, cs, dhs,
-                     dc_last)
+    dtype = _check_fused_bwd("lstm_semi_bwd", x, w_ih, bias, w_hh, hs, cs,
+                             dhs, dc_last)
     T, B, In = x.shape
     H = w_hh.shape[1]
-    dgx = torch.empty((T, B, 4 * H), device=x.device, dtype=x.dtype)
+    dgx = torch.empty((T, B, 4 * H), device=x.device, dtype=dtype)
     dwhh = torch.empty((4 * H, H), device=x.device, dtype=torch.float32)
     if not (T and B):
         return dgx, dwhh.zero_()
     dh_buf, dc_buf, barrier = _bwd_scratch(x, H, dc_last)
-    LSTM_SEMI_BWD(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
-                  w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                  dhs.data_ptr(), dgx.data_ptr(), dwhh.data_ptr(),
-                  dh_buf.data_ptr(), dc_buf.data_ptr(),
-                  barrier.data_ptr(), T, B, In, H, int(reverse),
-                  _build.stream_handle(x.device))
+    head = (x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(), w_hh.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(), dgx.data_ptr(),
+            dwhh.data_ptr())
+    tail = (dh_buf.data_ptr(), dc_buf.data_ptr(), barrier.data_ptr(), T, B,
+            In, H, int(reverse), _build.stream_handle(x.device))
+    if dtype == torch.float32:
+        pre = torch.empty((B, 4 * H), device=x.device, dtype=torch.float32)
+        LSTM_SEMI_BWD_F32(*head, pre.data_ptr(), *tail)
+    else:
+        LSTM_SEMI_BWD(*head, *tail)
     return dgx, dwhh
 
 

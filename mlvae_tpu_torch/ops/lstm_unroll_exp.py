@@ -8,12 +8,13 @@ consecutive time steps per iteration of the recurrence.
   with the gates of K steps staged at once. The result does not depend on
   K; in f32 it is bit-identical to K1-fwd (``ops.lstm.lstm_layer_fwd``),
   and in bf16 its K=1 is the one-step twin of the plain arm.
-- ``run_fwd_fused_k`` (K7b, ``csrc/lstm_unroll_fused_fwd.cu``): K3/K4-fwd's
-  recurrence with the input projection inside, x (T, B, In), W_ih (4H, In),
-  an f32 bias and W_hh in bf16, the input products of K steps formed ahead
-  of their barriers; bit-identical to K3/K4-fwd
-  (``ops.lstm.lstm_fused_fwd``). On f32 streams it is not ported, as
-  K3/K4-fwd on f32 streams is not.
+- ``run_fwd_fused_k`` (K7b): K3/K4-fwd's recurrence with the input
+  projection inside, x (T, B, In), W_ih (4H, In) and W_hh in one stream
+  dtype and an f32 bias, the input products of K steps formed ahead of
+  their barriers; bit-identical to K3/K4-fwd (``ops.lstm.lstm_fused_fwd``)
+  of its dtype. bf16 streams run ``csrc/lstm_unroll_fused_fwd.cu``; f32
+  streams the K entry point of K3/K4-fwd's f32 build
+  (``csrc/lstm_fused_fwd_f32.cu``), registered as its own kernel.
 
 Both are forward only, as the JAX module is. The contract is the JAX one:
 T a multiple of K (else ``ValueError``, on every device), hs in the stream
@@ -40,8 +41,9 @@ LSTM_UNROLL_FWD = _build.register(_build.Kernel(
 LSTM_UNROLL_FUSED_FWD = _build.register(_build.Kernel(
     "lstm_unroll_fused_fwd", "lstm_unroll_fused_fwd",
     "mlvae_lstm_unroll_fused_fwd", [_P] * 7 + [_I] * 6 + [_P]))
-
-F32_FUSED = "not ported: K3/K4 on f32 streams (ROADMAP queue 2)"
+LSTM_UNROLL_FUSED_FWD_F32 = _build.register(_build.Kernel(
+    "lstm_unroll_fused_fwd_f32", "lstm_fused_fwd_f32",
+    "mlvae_lstm_unroll_fused_fwd_f32", [_P] * 8 + [_I] * 6 + [_P]))
 
 
 def _check_k(T: int, K: int) -> None:
@@ -115,31 +117,40 @@ def run_fwd_k(gx: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False,
     return hs, cs
 
 
-def check_fwd_fused_k(x, w_ih, bias, w_hh, K: int) -> None:
-    """K7b's inputs: T a multiple of K, bf16 streams (f32 ones are not
-    ported), then K3/K4-fwd's checks (``ops.lstm._check_fused``)."""
+def check_fwd_fused_k(x, w_ih, bias, w_hh, K: int):
+    """K7b's inputs: T a multiple of K, then K3/K4-fwd's checks
+    (``ops.lstm._check_fused``). Returns the stream dtype."""
     _check_k(x.shape[0], K)
-    if x.dtype == torch.float32:
-        raise NotImplementedError(f"run_fwd_fused_k: {F32_FUSED}")
-    _check_fused("run_fwd_fused_k", x, w_ih, bias, w_hh)
+    return _check_fused("run_fwd_fused_k", x, w_ih, bias, w_hh)
 
 
 def run_fwd_fused_k(x: torch.Tensor, w_ih: torch.Tensor, bias: torch.Tensor,
                     w_hh: torch.Tensor, reverse: bool = False, K: int = 2):
     """K7b: same contract as ``run_fwd_fused_k_ref``. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise. As K3/K4-fwd,
-    the H/4 blocks must all be resident at once (H <= 528 on an H100)."""
+    plain version; CUDA tensors launch the build of the stream dtype or
+    raise. As K3/K4-fwd, the H/4 blocks must all be resident at once
+    (H <= 528 on an H100)."""
     if x.device.type == "cpu":
         return run_fwd_fused_k_ref(x, w_ih, bias, w_hh, reverse, K)
-    check_fwd_fused_k(x, w_ih, bias, w_hh, K)
+    dtype = check_fwd_fused_k(x, w_ih, bias, w_hh, K)
     T, B, In = x.shape
     H = w_hh.shape[1]
-    hs = torch.empty((T, B, H), device=x.device, dtype=x.dtype)
+    hs = torch.empty((T, B, H), device=x.device, dtype=dtype)
     cs = torch.empty((T, B, H), device=x.device, dtype=torch.float32)
     barrier = torch.zeros((1,), device=x.device, dtype=torch.int32)
-    if T and B:
+    if not (T and B):
+        return hs, cs
+    stream = _build.stream_handle(x.device)
+    if dtype == torch.float32:
+        # the input products of a group of K steps, each cell thread's own
+        xg = torch.empty((K, B, 4 * H), device=x.device, dtype=torch.float32)
+        LSTM_UNROLL_FUSED_FWD_F32(
+            x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(), w_hh.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), xg.data_ptr(), barrier.data_ptr(),
+            T, B, In, H, K, int(reverse), stream)
+    else:
         LSTM_UNROLL_FUSED_FWD(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
                               w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
                               barrier.data_ptr(), T, B, In, H, K,
-                              int(reverse), _build.stream_handle(x.device))
+                              int(reverse), stream)
     return hs, cs

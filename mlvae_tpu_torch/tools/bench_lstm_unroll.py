@@ -13,15 +13,15 @@ bias zero):
 - plain, f32: K1-fwd (``ops.lstm.lstm_layer_fwd``), then K7a at each K;
 - plain, bf16: K7a at K=1, then at each K;
 - fused, bf16: K3/K4-fwd (``ops.lstm.lstm_fused_fwd``), then K7b at each K;
-- fused, f32: not ported (K3/K4 on f32 streams), named as such.
+- fused, f32: K3/K4-fwd on f32 streams, then K7b on f32 streams at each K.
 
 For each arm it gives the twin's time and, for each K, the time and the
 largest absolute difference of hs and cs from the twin's, which must be 0;
 the bound (the larger of the operations at the card's peak for the stream
 dtype and the bytes moved once at its memory rate); and one
 ``torch.nn.LSTM`` layer with its input projection in the arm's dtype
-(cuDNN on the card) as the yardstick. Times come from CUDA events after
-warm-up on the card, from the host clock on the CPU. It prints one JSON
+(cuDNN on the card, TF32 off) as the yardstick. Times come from CUDA events
+after warm-up on the card, from the host clock on the CPU. It prints one JSON
 line, naming the card and its power limit on the card, and exits non-zero
 when a difference is not 0; a launch that fails raises.
 
@@ -67,14 +67,15 @@ def plain_bound(T: int, B: int, H: int, bf16: bool):
     return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
 
 
-def fused_bound(T: int, B: int, In: int, H: int):
+def fused_bound(T: int, B: int, In: int, H: int, bf16: bool = True):
     """K7b and K3/K4-fwd: one product over [x_t | h_{t-1}] per step at the
-    bf16 tensor-core peak, against x, hs (bf16), cs (f32), the bf16 weights
-    and the bias moved once."""
+    stream dtype's peak, against x, hs and the weights in the stream dtype,
+    cs and the bias (f32) moved once."""
+    item = 2.0 if bf16 else 4.0
     flops = 2.0 * B * 4 * H * (In + H) * T
-    nbytes = (2.0 * T * B * In + 2.0 * T * B * H + 4.0 * T * B * H
-              + 2.0 * 4 * H * (In + H) + 4.0 * 4 * H)
-    return _bound(flops, nbytes, BF16_PEAK)
+    nbytes = (item * (T * B * In + T * B * H + 4 * H * (In + H))
+              + 4.0 * T * B * H + 4.0 * 4 * H)
+    return _bound(flops, nbytes, BF16_PEAK if bf16 else F32_PEAK)
 
 
 def time_ms(fn, dev: torch.device, iters: int,
@@ -116,11 +117,17 @@ def _max_abs(got, want) -> float:
 
 
 def _library_ms(dev, In, H, dtype, x, iters) -> float:
-    """One ``torch.nn.LSTM`` layer, its input projection included."""
+    """One ``torch.nn.LSTM`` layer, its input projection included (in f32
+    without TF32)."""
     lstm = torch.nn.LSTM(In, H, 1).to(dev, dtype)
     lstm.flatten_parameters()
-    with torch.no_grad():
-        return time_ms(lambda: lstm(x), dev, iters)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            return time_ms(lambda: lstm(x), dev, iters)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
 def _arm(arm, dtype, twin_name, twin, unrolled, Ks, dev, iters, bound,
@@ -161,7 +168,11 @@ def bench(dev: torch.device, B: int = SHAPE[0], T: int = SHAPE[1],
              lambda: L.lstm_fused_fwd(x16, wih16, bias, whh16, False),
              lambda K: LU.run_fwd_fused_k(x16, wih16, bias, whh16, False, K),
              Ks, dev, iters, fused_bound(T, B, In, H), lib["bf16"]),
-        {"arm": "fused", "dtype": "f32", "status": LU.F32_FUSED},
+        _arm("fused", "f32", "lstm_fused_fwd",
+             lambda: L.lstm_fused_fwd(x, w_ih, bias, w_hh, False),
+             lambda K: LU.run_fwd_fused_k(x, w_ih, bias, w_hh, False, K),
+             Ks, dev, iters, fused_bound(T, B, In, H, bf16=False),
+             lib["f32"]),
     ]
     return {"shape": {"B": B, "T": T, "H": H, "In": In}, "iters": iters,
             "arms": arms}

@@ -12,7 +12,10 @@ a sum taken in another order can land on the other side of a bf16 rounding
 boundary: values within 4e-3 absolute (one bf16 ulp, 2^-8, at |h| <= 1)
 and grads within 4e-3 of their largest entry; the losses of the module
 tests within 1e-2 relative, where a flipped h_t feeds every later step and
-layer.
+layer. A bf16 layer on K1 (``MLVAE_PALLAS_FUSED=0``) takes its bias grads
+from a bf16 gx, which XLA sums over B*T in bf16 with more than one
+rounding: within 2e-2 of their largest entry, as in
+``tests/test_torch_lstm_bf16.py``.
 """
 import numpy as np
 import pytest
@@ -35,6 +38,7 @@ torch.set_num_threads(2)
 F32_TOL = dict(rtol=1e-5, atol=1e-6)
 BF16_ATOL = 4e-3       # absolute, values of order 1 (see the module header)
 BF16_GRAD_RTOL = 4e-3  # of the largest entry
+K1_BIAS_RTOL = 2e-2    # a bf16 K1 layer's bias grads (see the module header)
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -181,11 +185,26 @@ def test_autograd_functions_match_jax_grad(fn, dtype):
             _grad_close(leaf.grad, want, dtype, f"{name} reverse={reverse}")
 
 
+SWITCHES = ["auto", True, False]   # MLVAE_PALLAS_FUSED unset, =1, =0
+
+
+def _set_switch(monkeypatch, switch):
+    """``MLVAE_PALLAS_FUSED`` as both packages read it at import, set alike
+    in the JAX module and the port."""
+    monkeypatch.setattr(jrnn, "PALLAS_LSTM_FUSED", switch)
+    monkeypatch.setattr(prnn, "PALLAS_LSTM_FUSED", switch)
+
+
+@pytest.mark.parametrize("switch", SWITCHES, ids=["auto", "on", "off"])
 @pytest.mark.parametrize("In", [120, 32, 128, 512, 1024])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_tier_predicates_match_jax(In, dtype):
+def test_tier_predicates_match_jax(In, dtype, switch, monkeypatch):
     """At the MD_VAE widths (H=512; the fbank's 120 and the latent's 32
-    padded to 128) the port picks the JAX package's tier for each layer."""
+    padded to 128) the port picks the JAX package's tier for each layer,
+    under each value of the switch: by default bf16 only (In=1024 K4, the
+    rest K3), with ``1`` also f32 (In 32-128 K3, 512 K4, 1024 neither: the
+    f32 budgets), with ``0`` neither dtype."""
+    _set_switch(monkeypatch, switch)
     jd, td = DTYPES[dtype]
     In_pad = -(-In // 128) * 128
     H = 512
@@ -194,17 +213,27 @@ def test_tier_predicates_match_jax(In, dtype):
     assert pl.semifused_eligible(In_pad, H, td) == lp.semifused_eligible(
         In_pad, H, jd)
     assert pl.fused_eligible(In, H, td) == lp.fused_eligible(In, H, jd)
-    if dtype == "bf16":
-        want = (pl.LSTMSemiFused if In == 1024 else pl.LSTMFused)
-        assert prnn.fused_tier(In, H, td) is want
-    else:
-        assert prnn.fused_tier(In, H, td) is None
+    want = None
+    if jrnn._fused_requested(jd):
+        if lp.fused_eligible(In_pad, H, jd):
+            want = pl.LSTMFused
+        elif lp.semifused_eligible(In_pad, H, jd):
+            want = pl.LSTMSemiFused
+    assert prnn._fused_requested(td) == jrnn._fused_requested(jd)
+    assert prnn.fused_tier(In, H, td) is want
+    table = {("bf16", "auto"): {1024: pl.LSTMSemiFused},
+             ("bf16", True): {1024: pl.LSTMSemiFused},
+             ("f32", True): {512: pl.LSTMSemiFused, 1024: None}}
+    expect = table.get((dtype, switch))
+    assert want is (None if expect is None else expect.get(In, pl.LSTMFused))
 
 
 def _spy_jax_interpret(monkeypatch, calls):
-    """Force the JAX module's Pallas dispatch on the CPU and run its fused
-    kernels in interpret mode, recording (tier, x shape, reverse)."""
+    """Force the JAX module's Pallas dispatch on the CPU and run its
+    kernels in interpret mode, the fused ones and K1 (``lstm_layer``),
+    recording (tier, input shape, reverse)."""
     real = {"fused": lp.lstm_layer_fused, "semi": lp.lstm_layer_semifused}
+    real_k1 = lp.lstm_layer
 
     def spy(name):
         def f(x, w_ih, bias, w_hh, reverse=False, interpret=False):
@@ -212,10 +241,15 @@ def _spy_jax_interpret(monkeypatch, calls):
             return real[name](x, w_ih, bias, w_hh, reverse, True)
         return f
 
+    def k1(gates_x, w_hh, reverse=False, interpret=False):
+        calls.append(("k1", tuple(gates_x.shape), reverse))
+        return real_k1(gates_x, w_hh, reverse, True)
+
     monkeypatch.setattr(jrnn, "_pallas_eligible", lambda x, H: True)
     monkeypatch.setattr(jrnn, "PALLAS_LSTM_MESH", None)
     monkeypatch.setattr(lp, "lstm_layer_fused", spy("fused"))
     monkeypatch.setattr(lp, "lstm_layer_semifused", spy("semi"))
+    monkeypatch.setattr(lp, "lstm_layer", k1)
 
 
 def _spy_port(monkeypatch, calls):
@@ -231,68 +265,117 @@ def _spy_port(monkeypatch, calls):
         monkeypatch.setattr(cls, "apply", apply)
 
 
-@pytest.mark.parametrize("case", ["pad120", "bi_semi"])
-def test_lstm_module_bf16_dispatch_matches_jax(case, monkeypatch):
-    """``nn.LSTM`` on a bf16 stream against the JAX module with its Pallas
-    dispatch forced on (kernels in interpret mode): the same tier for each
-    layer direction, outputs, dX and every weight's gradient, W_ih's of
-    its unpadded shape. ``pad120``: one layer of In=120, padded to 128.
-    ``bi_semi``: the decoder's shape at H=128, a 2-layer bidirectional
-    stack over a 32-wide latent, with both packages' budgets lowered alike
-    so that the second layer's In=2H takes the semi-fused tier, as the
-    decoder's In=1024 layer does at H=512."""
-    H, B, T = 128, 4, 10
+def _module_case(case, dtype):
+    """(in_size, layers, bidirectional, the fused budget or None)."""
     if case == "pad120":
-        in_size, layers, bi = 120, 1, False
-    else:
-        in_size, layers, bi = 32, 2, True
-        budget = 1_000_000  # (256+128)*4H*6 B over it, *2 + 4H*H*4 under
+        return 120, 1, False, None
+    # bf16: (256+128)*4H*6 B over 1e6, *2 + 4H*H*4 under; f32 the same at
+    # *8 and *4 + 4H*H*4 against 1.3e6
+    return 32, 2, True, 1_000_000 if dtype == "bf16" else 1_300_000
+
+
+_JAX_MODULE_RUNS = {}
+
+
+def _jax_module_run(case, dtype, fused, monkeypatch):
+    """The JAX module's loss, parameter and input grads and its kernel
+    calls (dispatch forced, kernels in interpret mode) for ``case`` on a
+    ``dtype`` stream, the fused tiers requested or not: computed once per
+    (case, dtype, fused) in a process, since the switch reaches the JAX
+    module only through ``_fused_requested``."""
+    key = (case, dtype, fused)
+    if key not in _JAX_MODULE_RUNS:
+        jd, _ = DTYPES[dtype]
+        in_size, layers, bi, _ = _module_case(case, dtype)
+        jmod = JaxLSTM(in_size, 128, num_layers=layers, bidirectional=bi)
+        params = jax.tree_util.tree_map(lambda v: v.astype(jd),
+                                        jmod.init(jax.random.PRNGKey(1)))
+        rs = np.random.RandomState(6)
+        x = jnp.asarray(rs.randn(4, 10, in_size) * 0.5, jd)
+        w_out = rs.randn(4, 10, (2 if bi else 1) * 128).astype(np.float32)
+        jcalls = []
+        with monkeypatch.context() as mp:
+            _spy_jax_interpret(mp, jcalls)
+
+            def jloss(p, xx):
+                out, _ = jmod.apply(p, xx)
+                return jnp.sum(out.astype(jnp.float32) * w_out)
+
+            v_j, (gp_j, gx_j) = jax.value_and_grad(
+                jloss, argnums=(0, 1))(params, x)
+        _JAX_MODULE_RUNS[key] = (params, x, w_out, v_j, gp_j, gx_j, jcalls)
+    return _JAX_MODULE_RUNS[key]
+
+
+@pytest.mark.parametrize("switch", SWITCHES, ids=["auto", "on", "off"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["pad120", "bi_semi"])
+def test_lstm_module_bf16_dispatch_matches_jax(case, dtype, switch,
+                                               monkeypatch):
+    """``nn.LSTM`` on a ``dtype`` stream against the JAX module with its
+    Pallas dispatch forced on (kernels in interpret mode, K1 too), under
+    each value of ``MLVAE_PALLAS_FUSED`` set alike in both: the same
+    kernel for each layer direction, outputs, dX and every weight's
+    gradient, W_ih's of its unpadded shape. ``pad120``: one layer of
+    In=120, padded to 128 where it takes a fused tier. ``bi_semi``: the
+    decoder's shape at H=128, a 2-layer bidirectional stack over a 32-wide
+    latent, with both packages' budgets lowered alike so that the second
+    layer's In=2H takes the semi-fused tier where the switch sends its
+    dtype there, as the decoder's In=1024 layer does at H=512 in bf16 (in
+    f32 the budget is set so that the first layer takes K3 and the second
+    K4)."""
+    _set_switch(monkeypatch, switch)
+    jd, td = DTYPES[dtype]
+    H, B, T = 128, 4, 10
+    in_size, layers, bi, budget = _module_case(case, dtype)
+    if budget:
         monkeypatch.setattr(lp, "FUSED_RESIDENT_BUDGET", budget)
         monkeypatch.setattr(pl, "FUSED_RESIDENT_BUDGET", budget)
-    jmod = JaxLSTM(in_size, H, num_layers=layers, bidirectional=bi)
-    params = jax.tree_util.tree_map(lambda v: v.astype(jnp.bfloat16),
-                                    jmod.init(jax.random.PRNGKey(1)))
-    rs = np.random.RandomState(6)
-    x = jnp.asarray(rs.randn(B, T, in_size) * 0.5, jnp.bfloat16)
-    D = 2 if bi else 1
-    w_out = rs.randn(B, T, D * H).astype(np.float32)
+    fused = switch is True or (switch == "auto" and dtype == "bf16")
+    assert jrnn._fused_requested(jd) == fused
+    params, x, w_out, v_j, gp_j, gx_j, jcalls = _jax_module_run(
+        case, dtype, fused, monkeypatch)
 
-    jcalls, pcalls = [], []
-    _spy_jax_interpret(monkeypatch, jcalls)
-
-    def jloss(p, xx):
-        out, _ = jmod.apply(p, xx)
-        return jnp.sum(out.astype(jnp.float32) * w_out)
-
-    v_j, (gp_j, gx_j) = jax.value_and_grad(jloss, argnums=(0, 1))(params, x)
-
+    pcalls = []
     _spy_port(monkeypatch, pcalls)
     mod = LSTM(in_size, H, num_layers=layers, bidirectional=bi)
     mod.load_state_dict(from_jax(jax.tree_util.tree_map(
         lambda v: v.astype(jnp.float32), params)))
-    mod = mod.to(torch.bfloat16)
-    xt = torch.from_numpy(_np(x)).to(torch.bfloat16).requires_grad_()
+    mod = mod.to(td)
+    xt = torch.from_numpy(_np(x)).to(td).requires_grad_()
     out, _ = mod(xt)
-    assert out.dtype == torch.bfloat16
+    assert out.dtype == td
     loss = (out.float() * torch.from_numpy(w_out)).sum()
     loss.backward()
 
-    tiers = {"fused": "LSTMFused", "semi": "LSTMSemiFused"}
+    tiers = {"fused": "LSTMFused", "semi": "LSTMSemiFused",
+             "k1": "LSTMRecurrence"}
     assert [(tiers[n], s, r) for n, s, r in jcalls] == pcalls
     if case == "pad120":
-        assert pcalls == [("LSTMFused", (T, B, 128), False)]
+        assert pcalls == ([("LSTMFused", (T, B, 128), False)] if fused
+                          else [("LSTMRecurrence", (T, B, 4 * H), False)])
     else:
-        assert [n for n, _, _ in pcalls] == ["LSTMFused"] * 2 \
-            + ["LSTMSemiFused"] * 2
-    np.testing.assert_allclose(float(loss.detach()), float(v_j), rtol=1e-2)
-    _grad_close(xt.grad, gx_j, "bf16", "dx")
+        assert [n for n, _, _ in pcalls] == (
+            ["LSTMFused"] * 2 + ["LSTMSemiFused"] * 2 if fused
+            else ["LSTMRecurrence"] * 4)
+    np.testing.assert_allclose(float(loss.detach()), float(v_j),
+                               rtol=1e-5 if dtype == "f32" else 1e-2)
+    _grad_close(xt.grad, gx_j, dtype, "dx")
     for name, p in mod.named_parameters():
         assert tuple(p.grad.shape) == tuple(gp_j[name].shape), name
-        _grad_close(p.grad, gp_j[name], "bf16", name)
+        if dtype == "bf16" and not fused and name.startswith("bias"):
+            # K1's bf16 gx: XLA sums a bias's grad over B*T in bf16 with
+            # more than one rounding (tests/test_torch_lstm_bf16.py)
+            g, w = _np(p.grad), _np(gp_j[name])
+            assert np.abs(g - w).max() / np.abs(w).max() < K1_BIAS_RTOL, name
+            continue
+        _grad_close(p.grad, gp_j[name], dtype, name)
 
 
 def test_lstm_module_f32_keeps_k1(monkeypatch):
-    """An f32 stream never takes a fused tier, whatever its widths."""
+    """By default (``MLVAE_PALLAS_FUSED`` unset) an f32 stream never takes a
+    fused tier, whatever its widths."""
+    _set_switch(monkeypatch, "auto")
     calls = []
     _spy_port(monkeypatch, calls)
     mod = LSTM(128, 128, num_layers=2, bidirectional=True)
@@ -369,3 +452,52 @@ def test_fused_wrappers_refuse_h_above_528_before_the_device(name):
             call(H)
     with pytest.raises(ValueError, match="CUDA device"):
         call(528)
+
+
+def _meta_bwd_args(T, B, In, H, dtype=torch.float32):
+    m = dict(device="meta", dtype=dtype)
+    return (torch.empty((T, B, In), **m), torch.empty((4 * H, In), **m),
+            torch.empty((4 * H,), device="meta"),
+            torch.empty((4 * H, H), **m), torch.empty((T, B, H), **m),
+            torch.empty((T, B, H), device="meta"),
+            torch.empty((T, B, H), **m), torch.empty((B, H), device="meta"))
+
+
+@pytest.mark.parametrize("H", [128, 256, 384, 512])
+def test_f32_tiers_fit_the_f32_builds(H):
+    """Every layer the f32 budgets admit (In a multiple of 128, the width
+    ``fused_tier`` pads to) fits the f32 builds' shared memory, and K3's
+    dX columns (In at most 4H) unless the wrapper refuses the layer before
+    the device, naming ROADMAP queue 2 (K3 at H=128 and In 640-3200, at
+    H=256 and In 1152-1408, which the bf16 build refuses alike); the
+    recipes' f32 layers (H=512, In 128 to 640 padded) all fit."""
+    refused = []
+    for In in range(128, 8193, 128):
+        if pl.fused_eligible(In, H, torch.float32):
+            kinds = ("fwd", "bwd")
+        elif pl.semifused_eligible(In, H, torch.float32):
+            kinds = ("fwd", "semi")
+        else:
+            continue
+        if "bwd" in kinds and In > 4 * H:
+            refused.append(In)
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP.md queue 2, item 1"):
+                pl.lstm_fused_bwd(*_meta_bwd_args(3, 2, In, H))
+            continue
+        for kind in kinds:
+            assert pl.fused_f32_smem(kind, In, H) <= pl.SMEM_LIMIT, \
+                (kind, In, H)
+    assert refused == {128: list(range(640, 3201, 128)),
+                       256: [1152, 1280, 1408]}.get(H, [])
+    assert pl.fused_f32_smem("bwd", 256, 512) == 4 * (
+        16 * 516 + 4096 + 2 * (64 * 132 + 2560) + 16 * 768 + 1024)
+
+
+def test_k3_width_is_refused_in_bf16_too():
+    """The bf16 K3-bwd refuses In above 4H as the f32 build does, before
+    the device; 4H itself reaches the device check."""
+    with pytest.raises(NotImplementedError, match="In=640 above 4H=512"):
+        pl.lstm_fused_bwd(*_meta_bwd_args(3, 2, 640, 128, torch.bfloat16))
+    with pytest.raises(ValueError, match="CUDA device"):
+        pl.lstm_fused_bwd(*_meta_bwd_args(3, 2, 512, 128, torch.bfloat16))

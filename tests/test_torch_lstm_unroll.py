@@ -143,14 +143,16 @@ def test_t_not_a_multiple_of_k_is_refused_on_the_cpu():
 
 
 def test_f32_fused_k_is_not_ported():
-    """The check the CUDA path runs first refuses f32 streams, naming the
-    ROADMAP item; a tensor on neither the CPU nor a card (meta) reaches it
-    through the wrapper."""
+    """K7b on f32 streams is ported now (the K entry point of K3/K4-fwd's
+    f32 build): the check the CUDA path runs first takes f32 streams and
+    gives their dtype, and a tensor on neither the CPU nor a card (meta)
+    passes the dtype checks and reaches the device check, never the plain
+    version."""
     _, (_, x, wi, wh, b) = _data("f32")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+    with pytest.raises(ValueError, match="CUDA device"):
         pu.check_fwd_fused_k(x, wi, b, wh, 2)
     m = dict(device="meta")
-    with pytest.raises(NotImplementedError, match="K3/K4 on f32 streams"):
+    with pytest.raises(ValueError, match="CUDA device"):
         pu.run_fwd_fused_k(torch.empty((4, 2, 16), **m),
                            torch.empty((64, 16), **m),
                            torch.empty((64,), **m),
@@ -182,9 +184,7 @@ def test_bench_tool_runs_every_arm_on_the_cpu(capsys):
     arms = {(a["arm"], a["dtype"]): a for a in res["arms"]}
     assert set(arms) == {("plain", "f32"), ("plain", "bf16"),
                          ("fused", "bf16"), ("fused", "f32")}
-    assert arms[("fused", "f32")]["status"] == \
-        "not ported: K3/K4 on f32 streams (ROADMAP queue 2)"
-    for key in (("plain", "f32"), ("plain", "bf16"), ("fused", "bf16")):
+    for key in arms:
         a = arms[key]
         assert set(a["K"]) == {"2", "4", "8"}, key
         assert all(k["max_abs"] == 0.0 and k["ms"] > 0
@@ -197,7 +197,7 @@ def test_bench_tool_runs_every_arm_on_the_cpu(capsys):
 def test_bench_bounds_at_the_bench_shape():
     """The unroll bench's bounds (B=128, T=160, H=512, In=512): K7a f32
     42.95 GFLOP at 67 TFLOP/s, K7a bf16 148.9 MB at 3.35 TB/s, K7b 85.9
-    GFLOP at 989 TFLOP/s."""
+    GFLOP at 989 TFLOP/s, and at 67 TFLOP/s on f32 streams."""
     Bb, Tb, Hb, Ib = bench.SHAPE
     ms, by = bench.plain_bound(Tb, Bb, Hb, False)
     assert by == "operations" and ms == pytest.approx(0.641, abs=5e-4)
@@ -205,6 +205,8 @@ def test_bench_bounds_at_the_bench_shape():
     assert by == "bytes" and ms == pytest.approx(0.0444, abs=5e-5)
     ms, by = bench.fused_bound(Tb, Bb, Ib, Hb)
     assert by == "operations" and ms == pytest.approx(0.0869, abs=5e-5)
+    ms, by = bench.fused_bound(Tb, Bb, Ib, Hb, bf16=False)
+    assert by == "operations" and ms == pytest.approx(1.282, abs=5e-4)
 
 
 def test_bench_tool_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
