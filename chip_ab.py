@@ -2,7 +2,7 @@
 """Time the port's recurrence kernels and its steps in two checkouts on one
 NVIDIA card, in turns.
 
-    python3 chip_ab.py [--only lstm_bwd|fbank] OTHER_CHECKOUT [...]
+    python3 chip_ab.py [--only lstm_bwd|fbank|unroll] OTHER_CHECKOUT [...]
 
 runs OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT (with
 several, the others in order, this checkout twice, the others in reverse
@@ -32,9 +32,12 @@ a change that may slow an earlier path is held against its parent here.
 ``--only lstm_bwd`` times K1-bwd alone (B=64, and its digests at B=64 and
 70 from inputs of their own), and ``--only fbank`` K6 alone (the build
 each width takes, on the Kaldi pass's batch and the wav-in eval batch:
-digests, and ``FBANK_SAMPLES`` times each), to hold the steps of a
-redesign against each other in one run. It needs a CUDA card and exits
-non-zero without one.
+digests, and ``FBANK_SAMPLES`` times each), and ``--only unroll`` the
+K-unrolled forwards alone (K7a in f32 and on bf16 streams, K7b on bf16
+streams, at the unroll bench's B=128, T=160, H=512, In=512: digests of
+each at K 2, 4, 8 and of its one-step twin, both directions, and their
+times), to hold the steps of a redesign against each other in one run.
+It needs a CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -108,7 +111,53 @@ def main_fbank_cases(cs, fb, dev):
             yield ("kaldi" if mode == fb.KALDI else "sb"), mode, frames
 
 
-ONLY = {"lstm_bwd": time_lstm_bwd, "fbank": time_fbank_alone}
+UNROLL_KS = (2, 4, 8)
+
+
+def time_unroll_alone(root: Path) -> dict:
+    """K7a (f32 and bf16 streams) and K7b (bf16) in one checkout, in this
+    process, at B=128, T=160, H=512, In=512: the digests of each build's
+    outputs at K 2, 4, 8 and of its one-step twin's (K1-fwd of the stream
+    dtype, K3/K4-fwd), both directions, and the forward times of each."""
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    from mlvae_tpu_torch import _build
+    from mlvae_tpu_torch.device import resolve_device
+    from mlvae_tpu_torch.ops import lstm as L
+    from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
+    import torch
+    dev = resolve_device(None)
+    _build.build([n for n in _build.SOURCES if n in (
+        "lstm_fwd", "lstm_fwd_wide_bf16", "lstm_fused_fwd", "lstm_unroll_fwd",
+        "lstm_unroll_fwd_bf16", "lstm_unroll_fused_fwd")])
+    g = torch.Generator(device=dev).manual_seed(16)
+    T, B, H, In = 160, 128, 512, 512
+    builds = {
+        "lstm_unroll_fwd": (cs.unroll_problem(g, dev, T, B, H, torch.float32),
+                            LU.run_fwd_k, L.lstm_layer_fwd),
+        "lstm_unroll_fwd_bf16": (
+            cs.unroll_problem(g, dev, T, B, H, torch.bfloat16), LU.run_fwd_k,
+            L.lstm_layer_fwd),
+        "lstm_unroll_fused_fwd": (cs.fused_problem(g, dev, T, B, In, H),
+                                  LU.run_fwd_fused_k, L.lstm_fused_fwd)}
+    out = {}
+    for name, (prob, run, twin) in builds.items():
+        for reverse in (False, True):
+            sfx = "_reverse" if reverse else ""
+            out[f"digest_{name}_twin{sfx}"] = digest(twin(*prob, reverse))
+            for K in UNROLL_KS:
+                out[f"digest_{name}_K{K}{sfx}"] = digest(
+                    run(*prob, reverse, K))
+        out[f"{name}_twin"] = cs.cuda_ms(lambda: twin(*prob, False),
+                                         iters=10)
+        for K in UNROLL_KS:
+            out[f"{name}_K{K}"] = cs.cuda_ms(lambda: run(*prob, False, K),
+                                             iters=10)
+    return out
+
+
+ONLY = {"lstm_bwd": time_lstm_bwd, "fbank": time_fbank_alone,
+        "unroll": time_unroll_alone}
 
 
 def time_checkout(root: Path) -> dict:

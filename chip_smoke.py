@@ -16,7 +16,10 @@ Phases, each reported on its own line; any failure exits non-zero:
    shared memory, blocks an SM holds, registers, local bytes: 0 for every
    build) against ``ops.k1_plan``, and likewise K5's builds
    in f32 and on bf16 streams (K5-fwd, K5-bwd at B=64 and 70, the bf16
-   dW_hh kernel) at H=512, 208 and 528 against ``ops.gru.k5_plan``;
+   dW_hh kernel) at H=512, 208 and 528 against ``ops.gru.k5_plan``,
+   and the K7 builds' (K7a in f32 and on bf16 streams, K7b on bf16
+   streams; K 1, 2, 4, 8 at B 1 to 320) against
+   ``ops.lstm_unroll_exp.k7a_plan`` / ``k7b_plan``;
 2. each kernel against its plain PyTorch version on the card, at the
    slices' shapes (B=64, T=160, H=512; the fused kernels at In=128, 512
    and 1024 as the AMP step gives them; the MD-Viterbi decode K2, one
@@ -39,10 +42,13 @@ Phases, each reported on its own line; any failure exits non-zero:
    two short utterances; the K-unrolled LSTM forwards at the unroll
    bench's shape
    (B=128, T=160, H=512, In 512 and 128, K 2, 4, 8, both directions): K7a
-   in f32 bit-equal to K1-fwd, K7a in bf16 bit-equal to its K=1, K7b
-   bit-equal to K3/K4-fwd, the twins against the plain versions, K7 at
-   T=K, ragged B and narrower H against the plain versions, a few
-   repeated launches, and a T that is not a multiple of K refused;
+   in f32 bit-equal to K1-fwd, K7a on bf16 streams bit-equal to the bf16
+   K1-fwd (its tensor-core build), K7b bit-equal to K3/K4-fwd, the twins
+   against the plain versions, the three builds bit-equal to their twins
+   at B 63, 65, 200, 256, 320 (T=16 at each K; T=1 and 2), K7 at T=K,
+   ragged B and narrower H against the plain versions (bf16 K7a refusing
+   H=64), a few repeated launches, and a T that is not a multiple of K
+   refused;
    K3-bwd and K4-bwd also at the JAX bench's B=256, at T=2 beside T=1,
    at B=320 (their serial schedule), and 50 repeated launches per
    direction each bit-equal to the first; K1-fwd and K3/K4-fwd also at
@@ -264,7 +270,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    ``torch.matmul`` of its operands, the gate-3 train step in f32 and
    under AMP (and a profile of each), K7a (f32, bf16) and
    K7b per K beside K1-fwd and K3/K4-fwd at B=128, their bounds, plain
-   versions and cuDNN's LSTM layer, K3-bwd (In 32, 128, 512) and K4-bwd
+   versions and cuDNN's LSTM layer, and the three redesigned K7 builds
+   in turns with their twins and cuDNN (medians, spreads, us a step,
+   cuDNN's kernels alone), K3-bwd (In 32, 128, 512) and K4-bwd
    (In 1024) at B=64 and K3-bwd In=512, K4-bwd at B=256 in turns with
    cuDNN's bf16 backward of the same layer (kernel, cuDNN, cuDNN, kernel,
    three rounds; medians and spreads; and cuDNN's profiled kernel time),
@@ -272,9 +280,10 @@ Phases, each reported on its own line; any failure exits non-zero:
    in turns with cuDNN's forward of the same layer likewise, the
    forwards' step timeline (``mlvae_tpu_torch.tools.bench_fwd_timeline``:
    microseconds a step of each phase, the timing builds bit-equal to the
-   normal ones; and what a warp's 16-byte shared-memory read costs by
-   pattern, ``mlvae_tpu_torch.tools.bench_smem_reads``), the backwards'
-   step timeline
+   normal ones, the K7 builds beside their twins at the unroll bench's
+   shape and bit-equal to them; and what a warp's 16-byte shared-memory
+   read costs by pattern, ``mlvae_tpu_torch.tools.bench_smem_reads``),
+   the backwards' step timeline
    (``mlvae_tpu_torch.tools.bench_bwd_timeline``: microseconds a step of
    each phase, and the ablation without or with
    half of the copies' L2 traffic; K5 in f32 and on bf16 streams),
@@ -389,10 +398,12 @@ GRU_YARD_ROUNDS = 2   # phase 4: the K5 builds in turns with cuDNN's layer
                       # of their dtype (two pairs of samples a round)
 GATE_RTOL = 1e-4      # gates 1, 2, 4 card against CPU: loss, and each
                       # parameter's grad in norm (f32 sums in another order)
-# K7a and K7b: bit-equal to their one-step twins (K1-fwd, K7a at K=1,
-# K3/K4-fwd) for every K; the twins against the plain versions as above
-# (LSTM_ATOL in f32, FUSED_ATOL in bf16)
+# K7a and K7b: bit-equal to their one-step twins (K1-fwd of the stream
+# dtype, K3/K4-fwd) for every K; the twins against the plain versions as
+# above (LSTM_ATOL in f32, FUSED_ATOL in bf16)
 UNROLL_KS = (2, 4, 8)  # the unroll bench's K
+UNROLL_RAGGED_B = (63, 65, 200, 256, 320)  # K7 against the twins (phase 2)
+UNROLL_YARD_ROUNDS = 2  # phase 4: K7 in turns with the twins and cuDNN
 UNROLL_REPEATS = 5    # phase 2's repeated launches per K7 kernel, dtype and
                       # direction, at the bench shape
 UNROLL_ITERS = 20     # timed calls per kernel on the unroll path (phase 3)
@@ -406,8 +417,8 @@ NO_FBANK = {"fbank": 0, "fbank_fft": 0}
 NO_GRU = {"gru_fwd": 0, "gru_bwd": 0, "gru_fwd_bf16": 0, "gru_bwd_bf16": 0,
           "gru_dw_bf16": 0}
 # K7a and K7b run on the unroll A/B path only (phase 3's last part)
-NO_UNROLL = {"lstm_unroll_fwd": 0, "lstm_unroll_fused_fwd": 0,
-             "lstm_unroll_fused_fwd_f32": 0}
+NO_UNROLL = {"lstm_unroll_fwd": 0, "lstm_unroll_fwd_bf16": 0,
+             "lstm_unroll_fused_fwd": 0, "lstm_unroll_fused_fwd_f32": 0}
 # the wide K1 builds (H above 528), f32 and bf16, run on the LSTM_FC path
 # only
 NO_WIDE = {"lstm_fwd_wide": 0, "lstm_bwd_wide": 0, "lstm_dw_wide": 0,
@@ -1622,13 +1633,45 @@ def bit_equal(got, want) -> bool:
     return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def unroll_twin(name, prob, reverse):
+    """The one-step twin of a K7 build on its input: K1-fwd of the stream
+    dtype (its tensor-core build on bf16 streams) for K7a, K3/K4-fwd for
+    K7b."""
+    from mlvae_tpu_torch.ops import lstm as L
+    if name == "lstm_unroll_fused_fwd":
+        return L.lstm_fused_fwd(*prob, reverse)
+    return L.lstm_layer_fwd(*prob, reverse)
+
+
+def unroll_run(name, prob, reverse, K):
+    from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
+    if name == "lstm_unroll_fused_fwd":
+        return LU.run_fwd_fused_k(*prob, reverse, K)
+    return LU.run_fwd_k(*prob, reverse, K)
+
+
+def unroll_builds(g, dev, T, B, H=512, In=512):
+    """(build, input) of the three redesigned K7 builds at one shape: K7a
+    in f32 and on bf16 streams, K7b on bf16 streams at ``In``."""
+    import torch
+    return (("lstm_unroll_fwd", unroll_problem(g, dev, T, B, H,
+                                               torch.float32)),
+            ("lstm_unroll_fwd_bf16", unroll_problem(g, dev, T, B, H,
+                                                    torch.bfloat16)),
+            ("lstm_unroll_fused_fwd", fused_problem(g, dev, T, B, In, H)))
+
+
 def check_unroll(dev, report, T=160, B=128, H=512):
     """K7a and K7b on the card. At the unroll bench's shape (T=160, B=128,
     H=512; In=512 and 128 for K7b), K in ``UNROLL_KS`` and both
-    directions: K7a in f32 bit-equal to K1-fwd, K7a in bf16 bit-equal to
-    its K=1, K7b bit-equal to K3/K4-fwd, and each twin against the plain
-    version. At T=K, ragged B (5, 70, 130), H=128 and H=64: each kernel
-    against the plain version. A T that is not a multiple of K is refused
+    directions: K7a in f32 bit-equal to K1-fwd, K7a on bf16 streams
+    bit-equal to the bf16 K1-fwd (its tensor-core build; K=1 too), K7b
+    bit-equal to K3/K4-fwd, and each twin against the plain version. At
+    the ragged batches ``UNROLL_RAGGED_B`` (T=16 and K in ``UNROLL_KS``;
+    T=1 and 2 with K=T), both directions: each of the three builds
+    bit-equal to its twin. At T=K, ragged B (5, 70, 130), H=128 and H=64:
+    each kernel against the plain version, where bf16 K7a refuses H=64 (H
+    % 128) before any launch. A T that is not a multiple of K is refused
     before any launch. Returns each kernel's worst max abs error against
     the plain versions at the bench shape."""
     import torch
@@ -1636,30 +1679,29 @@ def check_unroll(dev, report, T=160, B=128, H=512):
     from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
     g = torch.Generator(device=dev).manual_seed(51)
     bf = torch.bfloat16
-    worst = {"lstm_unroll_fwd": 0.0, "lstm_unroll_fused_fwd": 0.0}
+    worst = {"lstm_unroll_fwd": 0.0, "lstm_unroll_fwd_bf16": 0.0,
+             "lstm_unroll_fused_fwd": 0.0}
     for dtype, tol in ((torch.float32, LSTM_ATOL), (bf, FUSED_ATOL)):
         gx, w = unroll_problem(g, dev, T, B, H, dtype)
         f32 = dtype == torch.float32
+        name = "lstm_unroll_fwd" if f32 else "lstm_unroll_fwd_bf16"
         for reverse in (False, True):
-            twin = (L.lstm_layer_fwd(gx, w, reverse) if f32
-                    else LU.run_fwd_k(gx, w, reverse, 1))
+            twin = L.lstm_layer_fwd(gx, w, reverse)
             same = {K: bit_equal(LU.run_fwd_k(gx, w, reverse, K), twin)
-                    for K in UNROLL_KS}
+                    for K in (1, *UNROLL_KS)}
             plain = LU.run_fwd_k_ref(gx, w, reverse, 1)
             torch.cuda.synchronize()
             hs_err, cs_err, flipped = fused_fwd_errors(twin, plain)
-            report(f"  lstm_unroll_fwd T={T} B={B} H={H} "
-                   f"{'f32' if f32 else 'bf16'} reverse={reverse}: "
-                   f"bit-equal to {'lstm_fwd' if f32 else 'its K=1'} at K "
-                   f"{same}; the twin against the plain version: hs max_abs"
-                   f"_err {hs_err:.3e}, cs {cs_err:.3e} (tol {tol:g}); hs "
-                   f"not bit-equal {flipped:.2e}")
-            check(all(same.values()), f"lstm_unroll_fwd differs from its "
-                  f"twin: {same}")
+            report(f"  {name} T={T} B={B} H={H} reverse={reverse}: "
+                   f"bit-equal to lstm_fwd{'' if f32 else ' (bf16 streams)'}"
+                   f" at K {same}; the twin against the plain version: hs "
+                   f"max_abs_err {hs_err:.3e}, cs {cs_err:.3e} (tol "
+                   f"{tol:g}); hs not bit-equal {flipped:.2e}")
+            check(all(same.values()), f"{name} differs from its twin: "
+                  f"{same}")
             check(max(hs_err, cs_err) <= tol,
-                  f"lstm_unroll_fwd disagrees: hs {hs_err}, cs {cs_err}")
-            worst["lstm_unroll_fwd"] = max(worst["lstm_unroll_fwd"], hs_err,
-                                           cs_err)
+                  f"{name} disagrees: hs {hs_err}, cs {cs_err}")
+            worst[name] = max(worst[name], hs_err, cs_err)
     for In in (512, 128):
         prob = fused_problem(g, dev, T, B, In, H)
         for reverse in (False, True):
@@ -1681,7 +1723,28 @@ def check_unroll(dev, report, T=160, B=128, H=512):
                   f"{cs_err}")
             worst["lstm_unroll_fused_fwd"] = max(
                 worst["lstm_unroll_fused_fwd"], hs_err, cs_err)
+    # the ragged batches, each build bit-equal to its twin
+    unequal, n = [], 0
+    for Br in UNROLL_RAGGED_B:
+        for Tr, Ks in ((16, UNROLL_KS), (1, (1,)), (2, (2,))):
+            for name, prob in unroll_builds(g, dev, Tr, Br, H):
+                for reverse in (False, True):
+                    twin = unroll_twin(name, prob, reverse)
+                    for K in Ks:
+                        n += 1
+                        if not bit_equal(unroll_run(name, prob, reverse, K),
+                                         twin):
+                            unequal.append((name, Tr, Br, K, reverse))
+    torch.cuda.synchronize()
+    report(f"  K7 ragged: B {list(UNROLL_RAGGED_B)}, T=16 at K "
+           f"{list(UNROLL_KS)}, T=1 and 2 at K=T, both directions, H={H}, "
+           f"In=512: {n - len(unequal)} of {n} launches bit-equal to their "
+           "twins" + (f"; unequal (build, T, B, K, reverse): {unequal[:8]}"
+                      if unequal else ""))
+    check(not unequal, f"K7 builds differ from their twins at ragged "
+          f"shapes: {unequal[:8]}")
     # (T, B, H, In, K): T=K, ragged batches, narrower H and an odd In
+    refused_h = []
     for T, B, H, In, K in ((4, 128, 512, 512, 4), (16, 5, 512, 128, 8),
                            (12, 70, 512, 512, 4), (10, 130, 128, 128, 2),
                            (8, 33, 64, 136, 8)):
@@ -1689,10 +1752,21 @@ def check_unroll(dev, report, T=160, B=128, H=512):
             errs = []
             for dtype, tol in ((torch.float32, LSTM_ATOL), (bf, FUSED_ATOL)):
                 gx, w = unroll_problem(g, dev, T, B, H, dtype)
+                name = ("lstm_unroll_fwd" if dtype == torch.float32
+                        else "lstm_unroll_fwd_bf16")
+                if dtype == bf and H % 128:
+                    # the JAX dispatch's rule: no bf16 Pallas LSTM below it
+                    before = LU.LSTM_UNROLL_FWD_BF16.launches
+                    try:
+                        LU.run_fwd_k(gx, w, reverse, K)
+                    except ValueError as e:
+                        refused_h.append(str(e)[:60])
+                    check(LU.LSTM_UNROLL_FWD_BF16.launches == before,
+                          f"bf16 K7a launched at H={H}")
+                    continue
                 got = LU.run_fwd_k(gx, w, reverse, K)
-                errs.append((f"lstm_unroll_fwd {str(dtype)[6:]}", tol,
-                             fused_fwd_errors(
-                                 got, LU.run_fwd_k_ref(gx, w, reverse, K))))
+                errs.append((name, tol, fused_fwd_errors(
+                    got, LU.run_fwd_k_ref(gx, w, reverse, K))))
             prob = fused_problem(g, dev, T, B, In, H)
             errs.append(("lstm_unroll_fused_fwd", FUSED_ATOL, fused_fwd_errors(
                 LU.run_fwd_fused_k(*prob, reverse, K),
@@ -1705,7 +1779,12 @@ def check_unroll(dev, report, T=160, B=128, H=512):
             for n, tol, e in errs:
                 check(max(e[:2]) <= tol, f"{n} disagrees at T={T} B={B} "
                       f"H={H} K={K}: {e}")
-    before = LU.LSTM_UNROLL_FWD.launches + LU.LSTM_UNROLL_FUSED_FWD.launches
+    report(f"  bf16 K7a at H=64 refused before a launch: {len(refused_h)} of "
+           f"2 ({refused_h[:1]})")
+    check(len(refused_h) == 2, "bf16 K7a at H=64 was not refused")
+    kernels = (LU.LSTM_UNROLL_FWD, LU.LSTM_UNROLL_FWD_BF16,
+               LU.LSTM_UNROLL_FUSED_FWD)
+    before = sum(k.launches for k in kernels)
     gx, w = unroll_problem(g, dev, 7, 8, 64, torch.float32)
     prob = fused_problem(g, dev, 7, 8, 128, 64)
     refused = []
@@ -1715,7 +1794,7 @@ def check_unroll(dev, report, T=160, B=128, H=512):
             call()
         except ValueError:
             refused.append(True)
-    after = LU.LSTM_UNROLL_FWD.launches + LU.LSTM_UNROLL_FUSED_FWD.launches
+    after = sum(k.launches for k in kernels)
     report(f"  T=7, K=2 refused before a launch: {len(refused)} of 2, "
            f"launches {after - before}")
     check(len(refused) == 2 and after == before,
@@ -1723,32 +1802,55 @@ def check_unroll(dev, report, T=160, B=128, H=512):
     return worst
 
 
+def unroll_plans(dev, report):
+    """Phase 1: the launch plans of the three redesigned K7 builds as their
+    C code computes them (``*_plan`` entry points) against
+    ``ops.lstm_unroll_exp.k7a_plan`` / ``k7b_plan``: K 1, 2, 4, 8 at B 1,
+    63, 128, 200, 320 (H=512; K7a f32 also H=16 and 528, bf16 H=128 and
+    1024; K7b In 128 and 512), with registers and local bytes a thread."""
+    from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
+    out, bad = {}, []
+    spills = {}
+    cases = [("lstm_unroll_fwd", H, 0) for H in (16, 512, 528)]
+    cases += [("lstm_unroll_fwd_bf16", H, 0) for H in (128, 512, 1024)]
+    cases += [("lstm_unroll_fused_fwd", 512, In) for In in (128, 512)]
+    for build, H, In in cases:
+        for B in (1, 63, 128, 200, 320):
+            for K in (1, *UNROLL_KS):
+                got = LU.device_plan(build, H, B, K, In)
+                want = (LU.k7b_plan(In, H, B, K) if In
+                        else LU.k7a_plan(H, B, K, build.endswith("bf16")))
+                key = f"{build} In={In} H={H} B={B} K={K}"
+                out[key] = got
+                if (got["blocks"], got["threads"], got["smem_bytes"],
+                        got["ring"], got["bufs"], got["tiles"],
+                        bool(got["serial"])) != (
+                        want.blocks, want.threads, want.smem_bytes,
+                        want.ring, want.bufs, want.tiles, want.serial):
+                    bad.append((key, got, want))
+                spills[build] = (got["registers"], got["local_bytes"])
+    report(f"  plan K7: {len(out)} shapes of lstm_unroll_fwd, _bf16 and "
+           f"lstm_unroll_fused_fwd against the host's plans: {len(bad)} "
+           f"differ; registers, local bytes a thread {spills}"
+           + (f"; first: {bad[0]}" if bad else ""))
+    check(not bad, f"K7 launch plans differ from the host's: {bad[:4]}")
+    return out
+
+
 def stress_unroll(dev, report, repeats, T=160, B=128, H=512):
     """Repeated K7a (f32 and bf16) and K7b launches at the unroll bench's
-    shape with K=8, back to back, each bit-equal to its twin's output."""
+    shape with K=8, back to back, each bit-equal to its twin's output (and
+    so to the first)."""
     import torch
-    from mlvae_tpu_torch.ops import lstm as L
-    from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
     g = torch.Generator(device=dev).manual_seed(52)
     K = UNROLL_KS[-1]
     total, wrong = 0, []
-    for name in ("lstm_unroll_fwd f32", "lstm_unroll_fwd bf16",
-                 "lstm_unroll_fused_fwd"):
+    for name, prob in unroll_builds(g, dev, T, B, H):
         for reverse in (False, True):
-            if name == "lstm_unroll_fused_fwd":
-                prob = fused_problem(g, dev, T, B, 512, H)
-                twin = L.lstm_fused_fwd(*prob, reverse)
-                run = lambda: LU.run_fwd_fused_k(*prob, reverse, K)
-            else:
-                f32 = name.endswith("f32")
-                gx, w = unroll_problem(
-                    g, dev, T, B, H, torch.float32 if f32 else torch.bfloat16)
-                twin = (L.lstm_layer_fwd(gx, w, reverse) if f32
-                        else LU.run_fwd_k(gx, w, reverse, 1))
-                run = lambda: LU.run_fwd_k(gx, w, reverse, K)
+            twin = unroll_twin(name, prob, reverse)
             for j in range(repeats):
                 total += 1
-                if not bit_equal(run(), twin):
+                if not bit_equal(unroll_run(name, prob, reverse, K), twin):
                     wrong.append((name, reverse, j))
     report(f"  K7 repeated: {total} launches at T={T}, B={B}, H={H}, K={K}, "
            f"both directions: {len(wrong)} not bit-equal to their twins"
@@ -3518,9 +3620,10 @@ def run_unroll(dev, report, iters=UNROLL_ITERS):
     {2, 4, 8}): ``mlvae_tpu_torch.tools.bench_lstm_unroll.bench``, the
     function its command line runs. Every unrolled arm must be bit-equal
     to its one-step twin, and each timed kernel launches 1 + warm-up +
-    ``iters`` times: K1-fwd and K3/K4-fwd once each (and K3/K4-fwd on f32
-    streams), K7a seven times (three K in f32; K=1 and three K in bf16),
-    K7b three times in bf16 and three in f32."""
+    ``iters`` times: K1-fwd in f32 and on bf16 streams (its tensor-core
+    build) and K3/K4-fwd once each (and K3/K4-fwd on f32 streams), K7a
+    three times in f32 and three on bf16 streams, K7b three times in bf16
+    and three in f32."""
     import math
     import torch
     from mlvae_tpu_torch.tools import bench_lstm_unroll as BU
@@ -3531,7 +3634,8 @@ def run_unroll(dev, report, iters=UNROLL_ITERS):
     per = 1 + BU.WARMUP + iters
     n_k = len(BU.KS)
     want = {**{k: 0 for k in PER_FORWARD}, "lstm_fwd": per,
-            "lstm_fused_fwd": per, "lstm_unroll_fwd": per * (2 * n_k + 1),
+            "lstm_fwd_wide_bf16": per, "lstm_fused_fwd": per,
+            "lstm_unroll_fwd": per * n_k, "lstm_unroll_fwd_bf16": per * n_k,
             "lstm_unroll_fused_fwd": per * n_k, "lstm_fused_fwd_f32": per,
             "lstm_unroll_fused_fwd_f32": per * n_k}
     worst = BU.worst_max_abs(res)
@@ -3948,21 +4052,26 @@ def time_fwd_yard(dev, report, cases, T=160, H=512, rounds=FWD_YARD_ROUNDS):
 
 
 def time_fwd_timeline(dev, report):
-    """The step timeline of K1-fwd, K3/K4-fwd and the wide K1-fwd on bf16
-    streams (their timing builds, tools/bench_fwd_timeline.py):
+    """The step timeline of K1-fwd, K3/K4-fwd, the wide K1-fwd on bf16
+    streams and the K7 builds beside their twins at the unroll bench's
+    shape (their timing builds, tools/bench_fwd_timeline.py):
     microseconds a step of each phase."""
     from mlvae_tpu_torch.tools import bench_fwd_timeline as ftl
     res = ftl.bench(dev)
     for r in res["rows"]:
-        report(f"  timeline {r['kernel']} H={r['H']} In={r['In']} B={r['B']}: "
-               f"{r['ms']:.4f} ms ({r['us_a_step']:.2f} us a step), timing "
-               f"build {r['ms_timing_build']:.4f}; us a step, median over "
-               "blocks (min-max): " + ", ".join(
+        k = f" K={r['K']}" if "K" in r else ""
+        report(f"  timeline {r['kernel']} H={r['H']} In={r['In']} B={r['B']}"
+               f"{k}: {r['ms']:.4f} ms ({r['us_a_step']:.2f} us a step), "
+               f"timing build {r['ms_timing_build']:.4f}; us a step, median "
+               "over blocks (min-max): " + ", ".join(
                    f"{k} {v['median']:.2f} ({v['min']:.2f}-{v['max']:.2f})"
                    for k, v in r["phases_us_a_step"].items()))
-    bad = [(r["kernel"], r["In"], r["B"]) for r in res["rows"]
+    bad = [(r["kernel"], r["In"], r["B"], r.get("K")) for r in res["rows"]
            if not r["bit_equal_to_normal_build"]]
     check(not bad, f"the timing build differs from the normal build: {bad}")
+    unequal = [(r["kernel"], r["K"]) for r in res["rows"]
+               if not r.get("bit_equal_to_twin", True)]
+    check(not unequal, f"a K7 build differs from its twin: {unequal}")
     return res
 
 
@@ -4363,13 +4472,80 @@ def time_gru(dev, report, errs, counts, T=160, B=64, H=512, In=120,
     return out
 
 
+def time_unroll_yard(dev, report, rounds=UNROLL_YARD_ROUNDS):
+    """K7a (f32, bf16) and K7b on bf16 streams at the unroll bench's shape
+    (B=128, T=160, H=512, In=512), each in turns with its one-step twin and
+    cuDNN's one-layer LSTM with its input projection in the stream dtype
+    (TF32 off): K 2, 4, 8, twin, cuDNN, then in reverse, ``rounds`` times.
+    Per build: each timer's median and spread, us a step, the factor of
+    each K's median against the twin's and cuDNN's, and cuDNN's forward
+    kernels alone (profiler)."""
+    import torch
+    from mlvae_tpu_torch.tools import bench_lstm_unroll as BU
+    B, T, H, In = BU.SHAPE
+    g = torch.Generator(device=dev).manual_seed(54)
+    out = {}
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, prob in unroll_builds(g, dev, T, B, H, In):
+            dt = prob[0].dtype
+            cudnn = torch.nn.LSTM(In if name == "lstm_unroll_fused_fwd"
+                                  else H, H, 1).to(dev, dt)
+            cudnn.flatten_parameters()
+            x = (prob[0] if name == "lstm_unroll_fused_fwd" else
+                 torch.randn((T, B, H), generator=g, device=dev).to(dt))
+            timers = [(lambda iters, K=K: cuda_ms(
+                lambda: unroll_run(name, prob, False, K), iters=iters,
+                warmup=1)) for K in UNROLL_KS]
+            timers += [lambda iters: cuda_ms(
+                lambda: unroll_twin(name, prob, False), iters=iters,
+                warmup=1),
+                lambda iters: cuda_ms(lambda: cudnn(x), iters=iters,
+                                      warmup=1)]
+            with torch.no_grad():
+                samples = in_turns(timers, rounds, iters=5)
+                alone = kernel_ms(lambda: cudnn(x))
+            med = [statistics.median(v) for v in samples]
+            row = {f"K={K}": {"ms": med[i], "spread": [min(samples[i]),
+                                                       max(samples[i])],
+                              "us_a_step": med[i] * 1e3 / T,
+                              "factor_twin": med[i] / med[-2],
+                              "factor_cudnn": med[i] / med[-1]}
+                   for i, K in enumerate(UNROLL_KS)}
+            row["twin"] = {"ms": med[-2], "spread": [min(samples[-2]),
+                                                     max(samples[-2])],
+                           "us_a_step": med[-2] * 1e3 / T}
+            row["cudnn"] = {"ms": med[-1], "spread": [min(samples[-1]),
+                                                      max(samples[-1])],
+                            "kernels_alone_ms": alone}
+            out[name] = row
+            report(f"  {name} B={B} T={T} H={H}"
+                   + (f" In={In}" if name == "lstm_unroll_fused_fwd" else "")
+                   + f" in turns: " + ", ".join(
+                       f"K={K} {row[f'K={K}']['ms']:.4f} "
+                       f"({row[f'K={K}']['spread'][0]:.4f}-"
+                       f"{row[f'K={K}']['spread'][1]:.4f}; "
+                       f"{row[f'K={K}']['us_a_step']:.2f} us a step)"
+                       for K in UNROLL_KS)
+                   + f"; twin {med[-2]:.4f} ({min(samples[-2]):.4f}-"
+                   f"{max(samples[-2]):.4f}); cuDNN {str(dt)[6:]} "
+                   f"{med[-1]:.4f} ({min(samples[-1]):.4f}-"
+                   f"{max(samples[-1]):.4f}), its kernels alone "
+                   f"{alone:.4f} (profiler)")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    return out
+
+
 def time_unroll(dev, report, res, errs, counts):
     """K7a and K7b at the unroll bench's shape from the unroll path's run
-    (``res``, CUDA events after warm-up): per K and dtype, beside K1-fwd
-    and K3/K4-fwd at the same B=128, their bounds, their plain versions
-    (timed here) and cuDNN's one-layer LSTM with its input projection in
-    the arm's dtype. The kernels line reports K=4 (f32 for K7a) and lists
-    every K and dtype beside it."""
+    (``res``, CUDA events after warm-up): per K and dtype, beside K1-fwd of
+    the stream dtype and K3/K4-fwd at the same B=128, their bounds, their
+    plain versions (timed here) and cuDNN's one-layer LSTM with its input
+    projection in the arm's dtype; then the three redesigned builds in
+    turns with their twins and cuDNN (``time_unroll_yard``). The kernels
+    line reports K=4 and lists every K beside it."""
     import torch
     from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
     from mlvae_tpu_torch.tools import bench_lstm_unroll as BU
@@ -4417,6 +4593,7 @@ def time_unroll(dev, report, res, errs, counts):
                                 iters=10)
     report(f"  lstm_unroll_fused_fwd at B=64 T={T} In={In} H={H}: "
            + ", ".join(f"{n} {v:.4f} ms" for n, v in b64.items()))
+    yard = time_unroll_yard(dev, report)
 
     def by_k(a):
         return {k: v["ms"] for k, v in a["K"].items()}
@@ -4434,13 +4611,19 @@ def time_unroll(dev, report, res, errs, counts):
              bound_by=bounds[("plain", "f32")][1],
              library_ms=f32["library_ms"],
              shape=f"T={T} B={B} H={H} f32 K={K}", ms_by_k=by_k(f32),
-             twin_ms=f32["twin_ms"],
-             bf16=dict(ms_by_k=by_k(b16), twin_ms=b16["twin_ms"],
-                       plain_ms=plain["bf16"],
-                       bound_ms=bounds[("plain", "bf16")][0],
-                       bound_by=bounds[("plain", "bf16")][1],
-                       library_ms=b16["library_ms"]),
+             twin_ms=f32["twin_ms"], in_turns=yard["lstm_unroll_fwd"],
              **counts["lstm_unroll_fwd"]),
+        dict(name="lstm_unroll_fwd_bf16", route="cuda",
+             source="mlvae_tpu_torch/csrc/lstm_unroll_fwd_bf16.cu",
+             replaces="mlvae_tpu/ops/lstm_unroll_exp.py:36",
+             max_abs_err=errs["lstm_unroll_fwd_bf16"],
+             ms=b16["K"][str(K)]["ms"], plain_ms=plain["bf16"],
+             bound_ms=bounds[("plain", "bf16")][0],
+             bound_by=bounds[("plain", "bf16")][1],
+             library_ms=b16["library_ms"],
+             shape=f"T={T} B={B} H={H} bf16 K={K}", ms_by_k=by_k(b16),
+             twin_ms=b16["twin_ms"], in_turns=yard["lstm_unroll_fwd_bf16"],
+             **counts["lstm_unroll_fwd_bf16"]),
         dict(name="lstm_unroll_fused_fwd", route="cuda",
              source="mlvae_tpu_torch/csrc/lstm_unroll_fused_fwd.cu",
              replaces="mlvae_tpu/ops/lstm_unroll_exp.py:93",
@@ -4451,6 +4634,7 @@ def time_unroll(dev, report, res, errs, counts):
              library_ms=fused["library_ms"],
              shape=f"T={T} B={B} In={In} H={H} bf16 K={K}",
              ms_by_k=by_k(fused), twin_ms=fused["twin_ms"], b64_ms=b64,
+             in_turns=yard["lstm_unroll_fused_fwd"],
              **counts["lstm_unroll_fused_fwd"]),
         dict(name="lstm_unroll_fused_fwd_f32", route="cuda",
              source="mlvae_tpu_torch/csrc/lstm_fused_fwd_f32.cu",
@@ -7465,6 +7649,7 @@ def main(argv=None) -> int:
         report(f"  ptxas {src}: " + " | ".join(usage))
     plans = wide_plans(dev, report)
     k5_plans = gru_plans(dev, report)
+    k7_plans = unroll_plans(dev, report)
 
     report("phase 2 kernels against their plain versions on the card")
     errs = {"lstm": max(check_lstm(dev, report),
@@ -7751,7 +7936,8 @@ def main(argv=None) -> int:
                        "amp_train_step": amp_step,
                        "sfl_train_step": sfl_step,
                        "gate3_train_step": gate3_step,
-                       "gru_plans": k5_plans, "crdnn_ctc": crdnn,
+                       "gru_plans": k5_plans, "k7_plans": k7_plans,
+                       "crdnn_ctc": crdnn,
                        "hmm_dnn_ali": hmm_step,
                        "bwd_timeline": bwd_timeline,
                        "fwd_timeline": fwd_timeline, "cli": cli}))

@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXTRA_FLAGS = {"md_viterbi": ["-fmad=false"]}
 SOURCES = ("lstm_fwd", "lstm_bwd", "md_viterbi", "lstm_fused_fwd",
            "lstm_fused_bwd", "lstm_semi_bwd", "fbank", "gru_fwd", "gru_bwd",
-           "lstm_unroll_fwd", "lstm_unroll_fused_fwd", "lstm_fwd_wide",
+           "lstm_unroll_fwd", "lstm_unroll_fwd_bf16", "lstm_unroll_fused_fwd",
+           "lstm_fwd_wide",
            "lstm_bwd_wide", "lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16",
            "gru_fwd_bf16", "gru_bwd_bf16", "fbank_fft", "lstm_fused_fwd_f32",
            "lstm_fused_bwd_f32")
@@ -43,13 +44,15 @@ SOURCES = ("lstm_fwd", "lstm_bwd", "md_viterbi", "lstm_fused_fwd",
 # bf16 streams and K5-bwd on bf16 streams with their own step timeline in
 # the same tool (their own define), and so K5-bwd and the wide K1-bwd in
 # f32; the forwards K1-fwd, K3/K4-fwd, the wide K1-fwd and K5-fwd in f32
-# and on bf16 streams with the step timeline of tools/bench_fwd_timeline.py. No build in
+# and on bf16 streams, and K7a (f32 and bf16) and K7b on bf16 streams,
+# with the step timeline of tools/bench_fwd_timeline.py. No build in
 # SOURCES has any of these defines.
 TIMELINE_DEFINE = "-DMLVAE_BWD_TIMELINE"
 K1_BWD_TIMELINE_DEFINE = "-DMLVAE_K1_BWD_TIMELINE"
 FWD_TIMELINE_DEFINE = "-DMLVAE_FWD_TIMELINE"
 FWD_TIMED = ("lstm_fwd", "lstm_fused_fwd", "lstm_fwd_wide_bf16",
-             "gru_fwd_bf16", "gru_fwd", "lstm_fwd_wide")
+             "gru_fwd_bf16", "gru_fwd", "lstm_fwd_wide", "lstm_unroll_fwd",
+             "lstm_unroll_fwd_bf16", "lstm_unroll_fused_fwd")
 ABLATION_ROWS = (0, 32)
 VARIANTS = {f"{src}_timeline{suffix}": (src, [TIMELINE_DEFINE, *flags])
             for src in ("lstm_fused_bwd", "lstm_semi_bwd")

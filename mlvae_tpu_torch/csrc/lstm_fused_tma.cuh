@@ -1,11 +1,12 @@
 // The TMA staging and ldmatrix fragments shared by the fused kernels that
 // stage their chunks with the Tensor Memory Accelerator: K3-bwd and K4-bwd
-// (lstm_fused_bwd.cuh) and K3/K4-fwd (lstm_fused_fwd.cu). A chunk is 64
-// batch rows x 128 columns of a 3-D bf16 tensor (columns, rows, slices),
-// copied as two 64-column halves into a 16 KB tile with the TMA's 128-byte
-// swizzle and read by ldmatrix; the descriptor zero-fills rows and columns
-// past the tensor's ends. A warp group is four warps, 128 threads, synced
-// on a named barrier of its own.
+// (lstm_fused_bwd.cuh), K3/K4-fwd (lstm_fused_fwd.cu) and K7b
+// (lstm_unroll_fused_fwd.cu). A chunk is 64 batch rows x 128 columns of a
+// 3-D bf16 tensor (columns, rows, slices), copied as two 64-column halves
+// into a 16 KB tile with the TMA's 128-byte swizzle and read by ldmatrix;
+// the descriptor zero-fills rows and columns past the tensor's ends. A
+// warp group is four warps, 128 threads, synced on a named barrier of its
+// own.
 #pragma once
 
 #include "lstm_fused_common.cuh"
@@ -41,8 +42,8 @@ __device__ __forceinline__ const bf16* tile_at(const bf16* tile, int r,
 
 // The pre-activations' product of one staged chunk for warp mi (0-3) of
 // group W: c[ni] += the chunk's rows 16 mi .. (A) times the weight rows
-// 8 ni .. (B, k = column), ni = 0, 1, 16 columns at a time in the order of
-// mma_chunk (lstm_fused_common.cuh), each accumulator one chain.
+// 8 ni .. (B, k = column), ni = 0, 1, 16 columns at a time in column
+// order, each accumulator one chain.
 __device__ __forceinline__ void pre_chunk_mma(float (&c)[2][4],
                                               const bf16* tile,
                                               const bf16* w_s, int LDW,

@@ -1,13 +1,15 @@
 """A step timeline of the recurrent forwards (K1-fwd, K3/K4-fwd, the wide
-K1-fwd in f32 and on bf16 streams, K5-fwd in f32 and on bf16 streams) on
-the card.
+K1-fwd in f32 and on bf16 streams, K5-fwd in f32 and on bf16 streams, and
+the K-unrolled K7a in f32 and on bf16 streams and K7b beside their
+one-step twins) on the card.
 
     python -m mlvae_tpu_torch.tools.bench_fwd_timeline [--iters N]
 
 Builds ``csrc/lstm_fwd.cu``, ``csrc/lstm_fused_fwd.cu``,
 ``csrc/lstm_fwd_wide_bf16.cu``, ``csrc/gru_fwd_bf16.cu``,
-``csrc/gru_fwd.cu`` and ``csrc/lstm_fwd_wide.cu`` a second time with
-``-DMLVAE_FWD_TIMELINE``
+``csrc/gru_fwd.cu``, ``csrc/lstm_fwd_wide.cu``, ``csrc/lstm_unroll_fwd.cu``,
+``csrc/lstm_unroll_fwd_bf16.cu`` and ``csrc/lstm_unroll_fused_fwd.cu`` a
+second time with ``-DMLVAE_FWD_TIMELINE``
 (their own library names, see ``_build.VARIANTS``): a lead thread of each
 block reads ``%globaltimer`` at the phase boundaries of its chain of work
 and writes, for each step, the step's start and end and each phase's sum
@@ -17,7 +19,10 @@ K3/K4-fwd at In=128, 512 and 1024 and B=64 and 256 (bf16), H=512, the
 wide K1-fwd on bf16 streams and in f32 at H=1024, B=64 (LSTM_FC's AMP
 and f32 shapes), and
 K5-fwd on bf16 streams and in f32 at H=512, B=64 (gate 3's AMP and f32
-shapes), T=160,
+shapes), and at the unroll A/B's shape (B=128, H=512, In=512) K7a in f32
+beside K1-fwd, K7a on bf16 streams beside the bf16 K1-fwd and K7b beside
+K3/K4-fwd, each K7 build at K 2, 4 and 8 and held bit-equal to its twin,
+T=160,
 inputs from a generator seeded 0 at the recipe layers' scales, it
 prints each phase's microseconds a step: each block's mean over the steps,
 then the min, median and max over the blocks. The phases, on the chain of
@@ -30,8 +35,9 @@ the step's start to the end of its wait.
 
 It also times both builds (CUDA events after warm-up: what the stamps
 cost) and holds the timing build's outputs bit-equal to the normal
-build's. It prints one JSON line naming the card and its power limit, and
-exits non-zero when an output differs. It needs the card and raises
+build's (and each K7 build's to its twin's). It prints one JSON line
+naming the card and its power limit, and exits non-zero when an output
+differs. It needs the card and raises
 without CUDA.
 """
 from __future__ import annotations
@@ -74,9 +80,18 @@ _ARGS = {"lstm_fwd": [_P] * 6 + [_I] * 4 + [_P, _P],
          "lstm_fwd_wide_bf16": [_P] * 5 + [_I] * 4 + [_P, _P],
          "gru_fwd_bf16": [_P] * 6 + [_I] * 4 + [_P, _P],
          "gru_fwd": [_P] * 5 + [_I] * 4 + [_P, _P],
-         "lstm_fwd_wide": [_P] * 6 + [_I] * 4 + [_P, _P]}
+         "lstm_fwd_wide": [_P] * 6 + [_I] * 4 + [_P, _P],
+         "lstm_unroll_fwd": [_P] * 6 + [_I] * 5 + [_P, _P],
+         "lstm_unroll_fwd_bf16": [_P] * 5 + [_I] * 5 + [_P, _P],
+         "lstm_unroll_fused_fwd": [_P] * 7 + [_I] * 6 + [_P, _P]}
 GRU_H = 512           # K5-fwd's shape: gate 3's layers
 GRU_BATCHES = (64,)
+UNROLL_B, UNROLL_IN = 128, 512  # the unroll A/B's shape (H = 512)
+UNROLL_KS = (2, 4, 8)
+# each K7 build's one-step twin
+UNROLL_TWINS = {"lstm_unroll_fwd": "lstm_fwd",
+                "lstm_unroll_fwd_bf16": "lstm_fwd_wide_bf16",
+                "lstm_unroll_fused_fwd": "lstm_fused_fwd"}
 
 # Not registered: their launches count on no path.
 TIMED = {name: _build.Kernel(f"{name}_timeline", f"{name}_timeline",
@@ -309,6 +324,102 @@ def gru_rows(dev, iters: int):
     return rows
 
 
+def unroll_problem(dev, name: str, seed: int = 0):
+    """A K7 build's input at the unroll A/B's shape, at the recipe layers'
+    scales as ``make_problem``: gx and W_hh at H=512 (f32, or bf16 for
+    ``lstm_unroll_fwd_bf16``), or K3/K4-fwd's x, W_ih, bias, W_hh at
+    In=512."""
+    if name == "lstm_unroll_fused_fwd":
+        return make_problem(dev, "lstm_fused_fwd", UNROLL_IN, UNROLL_B, seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gx = torch.randn((T, UNROLL_B, 4 * H), generator=g, device=dev) * 0.5
+    w = (torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1) / H ** 0.5
+    if name == "lstm_unroll_fwd_bf16":
+        return gx.to(torch.bfloat16), w.to(torch.bfloat16)
+    return gx, w
+
+
+def unroll_normal(name: str, prob, K: int, reverse: bool = False):
+    from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
+    if name == "lstm_unroll_fused_fwd":
+        return LU.run_fwd_fused_k(*prob, reverse, K)
+    return LU.run_fwd_k(*prob, reverse, K)
+
+
+def timed_unroll(name: str, prob, K: int, reverse: bool = False):
+    """The timing build of the K7 build ``name`` on ``prob`` unrolled K
+    steps at a time: ((hs, cs), as the normal wrapper's, and the (T,
+    blocks, 8) int64 timeline: H/4 blocks, H/8 on bf16 streams for
+    K7a)."""
+    kernel = TIMED[name]
+    head = prob[0]
+    Tn, B = head.shape[:2]
+    Hn = prob[-1].shape[1]
+    dev = head.device
+    stream = _build.stream_handle(dev)
+    units = 8 if name == "lstm_unroll_fwd_bf16" else 4
+    tl = torch.zeros((Tn, Hn // units, SLOTS), device=dev, dtype=torch.int64)
+    cs = torch.empty((Tn, B, Hn), device=dev, dtype=torch.float32)
+    hs = torch.empty((Tn, B, Hn), device=dev, dtype=head.dtype)
+    barrier = torch.zeros((1,), device=dev, dtype=torch.int32)
+    if name == "lstm_unroll_fwd":
+        gx, w = prob
+        hbuf = torch.zeros((2, Hn, L.hbuf_pitch(B)), device=dev,
+                           dtype=torch.float32)
+        kernel(gx.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+               hbuf.data_ptr(), barrier.data_ptr(), Tn, B, Hn, K,
+               int(reverse), tl.data_ptr(), stream)
+    elif name == "lstm_unroll_fwd_bf16":
+        gx, w = prob
+        kernel(gx.data_ptr(), w.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+               barrier.data_ptr(), Tn, B, Hn, K, int(reverse), tl.data_ptr(),
+               stream)
+    else:
+        x, w_ih, bias, w_hh = prob
+        kernel(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
+               w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+               barrier.data_ptr(), Tn, B, x.shape[2], Hn, K, int(reverse),
+               tl.data_ptr(), stream)
+    return (hs, cs), tl
+
+
+def unroll_rows(dev, iters: int, Ks=UNROLL_KS):
+    """At the unroll A/B's shape: each K7 build's twin (its timing build,
+    K 1), then the K7 build at each K, held bit-equal to the twin's normal
+    build and to its own normal build."""
+    rows = []
+    for name, twin in UNROLL_TWINS.items():
+        prob = unroll_problem(dev, name)
+        In = prob[0].shape[2] if name == "lstm_unroll_fused_fwd" else None
+        want = normal(twin, prob)
+        got, tl = timed_fwd(twin, prob)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: normal(twin, prob), iters)
+        rows.append({
+            "kernel": twin, "In": In, "B": UNROLL_B, "T": T, "H": H, "K": 1,
+            "bit_equal_to_normal_build": all(
+                torch.equal(a, b) for a, b in zip(got, want)),
+            "bit_equal_to_twin": True, "ms": ms, "us_a_step": ms * 1e3 / T,
+            "ms_timing_build": cuda_ms(lambda: timed_fwd(twin, prob), iters),
+            "phases_us_a_step": phase_split(tl.cpu())})
+        for K in Ks:
+            mine = unroll_normal(name, prob, K)
+            got, tl = timed_unroll(name, prob, K)
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: unroll_normal(name, prob, K), iters)
+            rows.append({
+                "kernel": name, "In": In, "B": UNROLL_B, "T": T, "H": H,
+                "K": K, "bit_equal_to_normal_build": all(
+                    torch.equal(a, b) for a, b in zip(got, mine)),
+                "bit_equal_to_twin": all(
+                    torch.equal(a, b) for a, b in zip(mine, want)),
+                "ms": ms, "us_a_step": ms * 1e3 / T,
+                "ms_timing_build": cuda_ms(
+                    lambda: timed_unroll(name, prob, K), iters),
+                "phases_us_a_step": phase_split(tl.cpu())})
+    return rows
+
+
 def bench(dev, iters: int = 10, cases=CASES) -> Dict:
     _build.build([*(f"{n}_timeline" for n in _build.FWD_TIMED),
                   *_build.FWD_TIMED])
@@ -327,7 +438,7 @@ def bench(dev, iters: int = 10, cases=CASES) -> Dict:
             "ms": ms, "us_a_step": ms * 1e3 / T,
             "ms_timing_build": cuda_ms(lambda: timed_fwd(name, prob), iters),
             "phases_us_a_step": phase_split(tl.cpu())})
-    return {"rows": rows + gru_rows(dev, iters)}
+    return {"rows": rows + gru_rows(dev, iters) + unroll_rows(dev, iters)}
 
 
 def _card() -> str:
@@ -348,11 +459,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(json.dumps({"tool": "bench_fwd_timeline",
                       "device": torch.cuda.get_device_name(dev),
                       "nvidia_smi": _card(), **res}), flush=True)
-    bad = [(r["kernel"], r["In"], r["B"]) for r in res["rows"]
-           if not r["bit_equal_to_normal_build"]]
+    bad = [(r["kernel"], r["In"], r["B"], r.get("K")) for r in res["rows"]
+           if not (r["bit_equal_to_normal_build"]
+                   and r.get("bit_equal_to_twin", True))]
     if bad:
-        print(f"bench_fwd_timeline: the timing build differs from the "
-              f"normal build at {bad}", file=sys.stderr)
+        print(f"bench_fwd_timeline: a timing build differs from its normal "
+              f"build, or a K7 build from its twin, at {bad}",
+              file=sys.stderr)
         return 1
     return 0
 

@@ -11,7 +11,8 @@ the JAX tool's scales (x and gx N(0, 0.1^2), the weights N(0, 0.05^2), the
 bias zero):
 
 - plain, f32: K1-fwd (``ops.lstm.lstm_layer_fwd``), then K7a at each K;
-- plain, bf16: K7a at K=1, then at each K;
+- plain, bf16: K1-fwd on bf16 streams (``ops.lstm.lstm_layer_fwd``, its
+  tensor-core build), then K7a at each K;
 - fused, bf16: K3/K4-fwd (``ops.lstm.lstm_fused_fwd``), then K7b at each K;
 - fused, f32: K3/K4-fwd on f32 streams, then K7b on f32 streams at each K.
 
@@ -160,8 +161,8 @@ def bench(dev: torch.device, B: int = SHAPE[0], T: int = SHAPE[1],
              lambda: L.lstm_layer_fwd(gx, w_hh, False),
              lambda K: LU.run_fwd_k(gx, w_hh, False, K), Ks, dev, iters,
              plain_bound(T, B, H, False), lib["f32"]),
-        _arm("plain", "bf16", "lstm_unroll_fwd K=1",
-             lambda: LU.run_fwd_k(gx16, whh16, False, 1),
+        _arm("plain", "bf16", "lstm_fwd",
+             lambda: L.lstm_layer_fwd(gx16, whh16, False),
              lambda K: LU.run_fwd_k(gx16, whh16, False, K), Ks, dev, iters,
              plain_bound(T, B, H, True), lib["bf16"]),
         _arm("fused", "bf16", "lstm_fused_fwd",

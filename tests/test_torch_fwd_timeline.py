@@ -39,7 +39,22 @@ def test_forward_timed_kernels_are_not_counted_on_any_path():
     assert {k.symbol for k in ftl.TIMED.values()} == {
         "mlvae_lstm_fwd_timeline", "mlvae_lstm_fused_fwd_timeline",
         "mlvae_lstm_fwd_wide_bf16_timeline", "mlvae_gru_fwd_bf16_timeline",
-        "mlvae_gru_fwd_timeline", "mlvae_lstm_fwd_wide_timeline"}
+        "mlvae_gru_fwd_timeline", "mlvae_lstm_fwd_wide_timeline",
+        "mlvae_lstm_unroll_fwd_timeline",
+        "mlvae_lstm_unroll_fwd_bf16_timeline",
+        "mlvae_lstm_unroll_fused_fwd_timeline"}
+
+
+def test_unroll_rows_pair_each_k7_build_with_its_twin():
+    """The K7 rows run at the unroll A/B's shape, each K7 build beside the
+    one-step twin it must equal bit for bit, every twin a timed build."""
+    assert ftl.UNROLL_TWINS == {"lstm_unroll_fwd": "lstm_fwd",
+                                "lstm_unroll_fwd_bf16": "lstm_fwd_wide_bf16",
+                                "lstm_unroll_fused_fwd": "lstm_fused_fwd"}
+    assert set(ftl.UNROLL_TWINS) | set(ftl.UNROLL_TWINS.values()) <= set(
+        _build.FWD_TIMED)
+    assert (ftl.UNROLL_B, ftl.H, ftl.UNROLL_IN, ftl.T) == (128, 512, 512, 160)
+    assert ftl.UNROLL_KS == (2, 4, 8)
 
 
 def _timeline(T=4, blocks=3):

@@ -142,12 +142,11 @@ def test_t_not_a_multiple_of_k_is_refused_on_the_cpu():
             pu.run_fwd_fused_k_ref(x, wi, b, wh, False, K)
 
 
-def test_f32_fused_k_is_not_ported():
-    """K7b on f32 streams is ported now (the K entry point of K3/K4-fwd's
-    f32 build): the check the CUDA path runs first takes f32 streams and
-    gives their dtype, and a tensor on neither the CPU nor a card (meta)
-    passes the dtype checks and reaches the device check, never the plain
-    version."""
+def test_f32_fused_k_reaches_the_device_check():
+    """K7b on f32 streams is ported (the K entry point of K3/K4-fwd's f32
+    build): the check the CUDA path runs takes f32 streams, and a tensor
+    on neither the CPU nor a card (meta) passes the dtype checks and
+    reaches the device check, never the plain version."""
     _, (_, x, wi, wh, b) = _data("f32")
     with pytest.raises(ValueError, match="CUDA device"):
         pu.check_fwd_fused_k(x, wi, b, wh, 2)
@@ -164,8 +163,8 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     refused, never run by the plain version."""
     m = dict(device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
-        pu.run_fwd_k(torch.empty((4, 2, 64), **m), torch.empty((64, 16), **m),
-                     False, 2)
+        pu.run_fwd_k(torch.empty((4, 2, 512), **m),
+                     torch.empty((512, 128), **m), False, 2)
     with pytest.raises(ValueError, match="CUDA"):
         pu.run_fwd_fused_k(torch.empty((4, 2, 16), **m),
                            torch.empty((64, 16), **m),
@@ -213,3 +212,129 @@ def test_bench_tool_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench.main(["--iters", "1"])
+
+
+# The launch plans of the three redesigned builds (``k7a_plan``,
+# ``k7b_plan``), integers only: which shapes fit and which are refused.
+# The card holds each build's ``*_plan`` entry point against them
+# (chip_smoke.py phase 2).
+PLAN_KS = (1, 2, 4, 8)
+PLAN_BS = (1, 63, 64, 65, 128, 256, 320)
+
+
+def _deepest(fits, hi):
+    """The largest n in [1, hi] with fits(n), else 0."""
+    return next((n for n in range(hi, 0, -1) if fits(n)), 0)
+
+
+@pytest.mark.parametrize("K", PLAN_KS)
+@pytest.mark.parametrize("B", PLAN_BS)
+def test_k7a_f32_plan_fits_every_h(K, B):
+    """f32 K7a takes every H % 16 == 0 up to 528 at K <= 8 and any B: K1-fwd's
+    deepest ring that fits beside the staged gates of the first four batch
+    tiles, then two gates buffers where they fit."""
+    ntiles = -(-B // 64)
+    for H in range(16, 529, 16):
+        p = pu.k7a_plan(H, B, K)
+        assert (p.build, p.blocks, p.threads) == ("lstm_unroll_fwd", H // 4,
+                                                  256)
+        assert p.blocks <= 132 and p.smem_bytes <= pu.SMEM_LIMIT
+        assert p.tiles == min(ntiles, 4)
+        assert p.smem_bytes == pu.k7a_f32_smem_bytes(H, B, K, p.ring, p.bufs)
+        assert p.ring == _deepest(lambda n: pu.k7a_f32_smem_bytes(
+            H, B, K, n, 1) <= pu.SMEM_LIMIT, 4 * ntiles), (H, B, K)
+        assert p.bufs == (2 if pu.k7a_f32_smem_bytes(H, B, K, p.ring, 2)
+                          <= pu.SMEM_LIMIT else 1)
+    for H in (8, 24, 544, 1024):
+        with pytest.raises(ValueError, match="multiple of 16 up to 528"):
+            pu.k7a_plan(H, B, K)
+
+
+@pytest.mark.parametrize("K", PLAN_KS)
+@pytest.mark.parametrize("B", PLAN_BS)
+def test_k7a_bf16_plan_fits_every_h(K, B):
+    """bf16 K7a takes every H % 128 == 0 up to 1024 at K <= 8 and any B: the
+    most batch tiles whose gates fit beside the h_{t-1} tile, then two
+    buffers where they fit."""
+    ntiles = -(-B // 64)
+    for H in range(128, 1025, 128):
+        p = pu.k7a_plan(H, B, K, bf16=True)
+        assert (p.build, p.blocks, p.ring) == ("lstm_unroll_fwd_bf16",
+                                               H // 8, H // 128)
+        assert p.smem_bytes <= pu.SMEM_LIMIT
+        assert p.smem_bytes == pu.k7a_bf16_smem_bytes(H, K, p.tiles, p.bufs)
+        assert p.tiles == _deepest(lambda n: pu.k7a_bf16_smem_bytes(
+            H, K, n, 1) <= pu.SMEM_LIMIT, ntiles), (H, B, K)
+        assert p.bufs == (2 if pu.k7a_bf16_smem_bytes(H, K, p.tiles, 2)
+                          <= pu.SMEM_LIMIT else 1)
+    for H in (16, 64, 192, 528, 1152):
+        with pytest.raises(ValueError, match="H % 128 == 0 up to 1024"):
+            pu.k7a_plan(H, B, K, bf16=True)
+
+
+def _parent_k7b_smem(In, H, B, K):
+    """Shared memory of the K7b design before the redesign: the
+    pre-activations, K steps' accumulators a batch tile, the weights and
+    one 256-column chunk at pitch 264."""
+    return (4 * 64 * 16 + 16 * K * -(-B // 64) * 256
+            + 2 * (16 * (In + H + 8) + 64 * 264))
+
+
+@pytest.mark.parametrize("K", PLAN_KS)
+@pytest.mark.parametrize("B", PLAN_BS)
+@pytest.mark.parametrize("In", [128, 512, 1024])
+def test_k7b_plan_fits_every_shape_the_parent_took(K, B, In):
+    """K7b keeps every batch tile in one pass with K slots where B <= 256
+    and they fit beside a chunk tile a batch tile, else K3/K4-fwd's serial
+    schedule; every shape the parent design took still fits."""
+    ntiles = -(-B // 64)
+    for H in range(16, 529, 16):
+        p = pu.k7b_plan(In, H, B, K)
+        assert (p.build, p.blocks) == ("lstm_unroll_fused_fwd", H // 4)
+        assert p.smem_bytes <= pu.SMEM_LIMIT
+        ahead = ntiles <= 4 and pu.k7b_smem_bytes(
+            In, H, ntiles, ntiles, K, True) <= pu.SMEM_LIMIT
+        assert p.serial == (not ahead), (In, H, B, K)
+        if ahead:
+            assert (p.bufs, p.tiles) == (K, ntiles)
+            assert p.ring == _deepest(lambda n: n >= ntiles and pu.
+                                      k7b_smem_bytes(In, H, ntiles, n, K,
+                                                     True) <= pu.SMEM_LIMIT,
+                                      ntiles * -(-H // 128))
+        else:
+            assert (p.ring, p.bufs, p.tiles) == (2, 1, 1)
+        if _parent_k7b_smem(In, H, B, K) <= pu.SMEM_LIMIT:
+            assert p.smem_bytes <= pu.SMEM_LIMIT
+    for In, H in ((12, 64), (128, 24), (128, 544)):
+        with pytest.raises(ValueError, match="In a multiple of 8"):
+            pu.k7b_plan(In, H, B, K)
+
+
+def test_plans_at_the_unroll_bench_shape():
+    """B=128, H=512, In=512: f32 K7a keeps K1-fwd's ring of 5 at K <= 2, 4
+    at K=4 and 3 at K=8 beside one gates buffer; bf16 K7a double-buffers
+    both tiles' gates at every K; K7b keeps both tiles in one pass with K
+    slots and 8, 7 and 5 chunk tiles of h_{t-1} at K 2, 4, 8."""
+    assert [(p.ring, p.bufs) for p in (pu.k7a_plan(512, 128, K)
+                                       for K in (1, 2, 4, 8))] == [
+        (5, 2), (5, 1), (4, 1), (3, 1)]
+    assert all((p.ring, p.bufs, p.tiles) == (4, 2, 2) for p in (
+        pu.k7a_plan(512, 128, K, bf16=True) for K in (1, 2, 4, 8)))
+    assert [(p.ring, p.bufs, p.tiles, p.serial) for p in (
+        pu.k7b_plan(512, 512, 128, K) for K in (2, 4, 8))] == [
+        (8, 2, 2, False), (7, 4, 2, False), (5, 8, 2, False)]
+
+
+def test_bf16_k7a_at_h64_is_refused_before_the_device():
+    """The JAX dispatch sends no bf16 layer of H % 128 != 0 to a Pallas
+    kernel; K7a on bf16 streams refuses H=64 on a meta tensor, naming the
+    rule, before any device check; f32 streams take it and reach the
+    device check."""
+    m = dict(device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"H % 128 == 0 .*rnn.py:100-102"):
+        pu.run_fwd_k(torch.empty((8, 33, 256), **m),
+                     torch.empty((256, 64), **m), False, 2)
+    m32 = dict(device="meta", dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pu.run_fwd_k(torch.empty((8, 33, 256), **m32),
+                     torch.empty((256, 64), **m32), False, 2)
