@@ -2,7 +2,8 @@
 """Time the port's recurrence kernels and its steps in two checkouts on one
 NVIDIA card, in turns.
 
-    python3 chip_ab.py [--only lstm_bwd|fbank|unroll] OTHER_CHECKOUT [...]
+    python3 chip_ab.py [--only lstm_bwd|fbank|unroll|fused_f32_bwd]
+                       OTHER_CHECKOUT [...]
 
 runs OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT (with
 several, the others in order, this checkout twice, the others in reverse
@@ -36,7 +37,12 @@ digests, and ``FBANK_SAMPLES`` times each), and ``--only unroll`` the
 K-unrolled forwards alone (K7a in f32 and on bf16 streams, K7b on bf16
 streams, at the unroll bench's B=128, T=160, H=512, In=512: digests of
 each at K 2, 4, 8 and of its one-step twin, both directions, and their
-times), to hold the steps of a redesign against each other in one run.
+times), and ``--only fused_f32_bwd`` the fused backwards on f32 streams
+alone (K3-bwd at In=128, K4-bwd at In=512, T=160, H=512: times at B=64,
+70 and 256, digests of both directions' outputs at B=64 and 70; and
+digests of K3/K4-fwd f32 at In 128 and 512 and of K7b f32 at K 2, 4, 8,
+both directions, at B=64 and 128), to hold the steps of a redesign
+against each other in one run.
 It needs a CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
@@ -156,8 +162,59 @@ def time_unroll_alone(root: Path) -> dict:
     return out
 
 
+F32_BWD_BATCHES = (64, 70, 256)
+
+
+def time_fused_f32_bwd(root: Path) -> dict:
+    """K3-bwd (In=128) and K4-bwd (In=512) on f32 streams in one checkout,
+    in this process, at T=160, H=512: their times at B=64, 70 and 256, the
+    digests of their outputs in both directions at B=64 and 70 (on K3/K4-fwd
+    f32's trajectory), and the digests of the forward builds of the same
+    source family, K3/K4-fwd f32 (In 128 and 512, B=64) and K7b f32 (K 2,
+    4, 8 at the unroll bench's B=128, In=512), both directions."""
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    from mlvae_tpu_torch import _build
+    from mlvae_tpu_torch.device import resolve_device
+    from mlvae_tpu_torch.ops import lstm as L
+    from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
+    import torch
+    dev = resolve_device(None)
+    _build.build(["lstm_fused_fwd_f32", "lstm_fused_bwd_f32"])
+    T, H = 160, 512
+    out = {}
+    for In, name in ((128, "lstm_fused_bwd"), (512, "lstm_semi_bwd")):
+        g = torch.Generator(device=dev).manual_seed(17)
+        for B in F32_BWD_BATCHES:
+            prob = cs.f32_problem(g, dev, T, B, In, H)
+            for reverse in (False, True):
+                hs, cs_ = L.lstm_fused_fwd(*prob, reverse)
+                dhs, dc = cs.f32_cotangents(g, dev, T, B, H)
+                args = (*prob, hs, cs_, dhs, dc, reverse)
+                sfx = f"In{In}_B{B}" + ("_reverse" if reverse else "")
+                if B != 256:
+                    out[f"digest_{name}_f32_{sfx}"] = digest(
+                        getattr(L, name)(*args))
+                if not reverse:
+                    out[f"{name}_f32_In{In}_B{B}"] = cs.cuda_ms(
+                        lambda: getattr(L, name)(*args), iters=10)
+        for reverse in (False, True):
+            prob = cs.f32_problem(g, dev, T, 64, In, H)
+            out[f"digest_lstm_fused_fwd_f32_In{In}"
+                + ("_reverse" if reverse else "")] = digest(
+                L.lstm_fused_fwd(*prob, reverse))
+    g = torch.Generator(device=dev).manual_seed(18)
+    prob = cs.f32_problem(g, dev, T, 128, 512, H)
+    for reverse in (False, True):
+        for K in UNROLL_KS:
+            out[f"digest_lstm_unroll_fused_fwd_f32_K{K}"
+                + ("_reverse" if reverse else "")] = digest(
+                LU.run_fwd_fused_k(*prob, reverse, K))
+    return out
+
+
 ONLY = {"lstm_bwd": time_lstm_bwd, "fbank": time_fbank_alone,
-        "unroll": time_unroll_alone}
+        "unroll": time_unroll_alone, "fused_f32_bwd": time_fused_f32_bwd}
 
 
 def time_checkout(root: Path) -> dict:

@@ -232,14 +232,19 @@ Phases, each reported on its own line; any failure exits non-zero:
    audio, its per-layer recompute on and off (the memory held before the
    step, at the peak of its forward and backward, when the update starts
    and at the update's peak; step ms in turns; the gradients one against
-   the other); then ``fused_f32``, the fused tiers on f32 streams: each f32
-   build against its plain version at H=512 (K3/K4-fwd at In=128 and 512,
-   K3-bwd at In=128, K4-bwd at In=512; B=64, 1 and 70, T=160, 1 and 2,
-   both directions; hs and cs within 1e-4, every backward output within
-   1e-4 of its largest entry), 10 repeated forward and 50 backward
-   launches per case and direction bit-equal to the first, K7b on f32
-   streams at K 2, 4, 8 (B=128, In=512) bit-equal to K3/K4-fwd on f32
-   streams; MD_VAE at full width under ``MLVAE_PALLAS_FUSED=1`` (one f32
+   the other); then ``fused_f32``, the fused tiers on f32 streams: the
+   backwards' shared memory, schedules and scratch as their C code plans
+   them against the CPU mirrors at every admitted (In, H) and B 1, 64, 70
+   and 256, each backward kernel's registers and local memory, each f32
+   build against its plain version at
+   H=512 (K3/K4-fwd at In=128, 256 and 512, K3-bwd at In=128 (split-K)
+   and 256 (the exchange schedule), K4-bwd at In=512; B=64, 1, 70 and
+   256, T=160, 1 and 2, both directions; and the split-K builds at H=528
+   and the exchange schedule at H=256, In=640; hs and cs within 1e-4,
+   every backward output within 1e-4 of its largest entry), 10 repeated
+   forward and 50 backward launches per case and direction bit-equal to
+   the first, K7b on f32 streams at K 2, 4, 8 (B=128, In=512) bit-equal
+   to K3/K4-fwd on f32 streams; MD_VAE at full width under ``MLVAE_PALLAS_FUSED=1`` (one f32
    train step of each target and the TEST eval forward against the plain
    versions, launches exact as reckoned from the JAX f32 budgets and
    pinned, which the layers' routes must give too: a VAE step 8
@@ -305,7 +310,10 @@ Phases, each reported on its own line; any failure exits non-zero:
    profile of one step (kernel time, idle share, kernel launches); the
    f32 fused builds at H=512, B=64, T=160 in turns with the unfused f32
    route and cuDNN's f32 layer (TF32 off), beside their bounds and plain
-   versions, and MD_VAE's f32 VAE step under ``MLVAE_PALLAS_FUSED=1``
+   versions, the backwards also at B=70 and 256, the backwards' timeline
+   in the schedule each shape takes (K3 at In=256 the exchange schedule),
+   and MD_VAE's f32 VAE step under
+   ``MLVAE_PALLAS_FUSED=1``
    against the default in turns, with a profile of each;
 5. a ``kernels`` JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
@@ -780,6 +788,34 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_usage(log: str) -> list:
+    """Each entry function's lines of an ``nvcc -Xptxas -v`` ``log``:
+    "name: registers | stack and spills", the names demangled by
+    ``c++filt`` where the machine has it (template arguments kept,
+    parameters dropped)."""
+    import re
+    entries, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            entries.append([name, []])
+        elif name and ("registers" in ln or "spill" in ln):
+            entries[-1][1].append(ln.split(":", 1)[-1].strip()
+                                  if "ptxas" in ln else ln.strip())
+    names = [e[0] for e in entries]
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+        if len(out) == len(names):
+            names = [n.replace("(anonymous namespace)::", "").split("(")[0]
+                     .removeprefix("void ") for n in out]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return [f"{n}: " + "; ".join(use) for n, (_, use) in zip(names, entries)]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -4088,8 +4124,11 @@ def time_smem_reads(dev, report):
 
 def time_bwd_timeline(dev, report):
     """The step timeline of K3-bwd, K4-bwd, K1-bwd and the wide K1-bwd on
-    bf16 streams (their timing builds, tools/bench_bwd_timeline.py):
-    microseconds a step of each phase."""
+    bf16 streams, and of K3-bwd and K4-bwd on f32 streams, each in the
+    schedule its plan takes (split-K: K3 at In=128, K4 at In=512; the
+    exchange schedule: K3 at In=256) (their timing builds,
+    tools/bench_bwd_timeline.py): microseconds a step of each phase."""
+    from mlvae_tpu_torch.ops import lstm as L
     from mlvae_tpu_torch.tools import bench_bwd_timeline as btl
     res = btl.bench(dev)
     for r in res["rows"]:
@@ -4111,9 +4150,19 @@ def time_bwd_timeline(dev, report):
                "over blocks (min-max): " + ", ".join(
                    f"{k} {v['median']:.2f} ({v['min']:.2f}-{v['max']:.2f})"
                    for k, v in r["us_a_step"].items()))
+    for r in res["fused_f32"]:
+        report(f"  timeline {r['kernel']} In={r['In']} B={r['B']} schedule "
+               f"{r['schedule']} ({L.F32_BWD_KERNELS[r['plan']['kernel']]}):"
+               f" {r['ms']:.4f} "
+               f"ms ({r['us_a_step_total']:.2f} us a step), timing build "
+               f"{r['ms_timing_build']:.4f}; us a step, median over blocks "
+               "(min-max): " + ", ".join(
+                   f"{k} {v['median']:.2f} ({v['min']:.2f}-{v['max']:.2f})"
+                   for k, v in r["us_a_step"].items()))
     bad = [r["kernel"] for r in [*res["rows"], *res["lstm_bwd"],
                                  *res["lstm_bwd_wide_bf16"],
-                                 *res["lstm_bwd_wide"], *res["gru"]]
+                                 *res["lstm_bwd_wide"], *res["gru"],
+                                 *res["fused_f32"]]
            if not r["bit_equal_to_normal_build"]]
     check(not bad, f"the timing build differs from the normal build: {bad}")
     return res
@@ -7080,8 +7129,8 @@ def run_options(dev, report, smi):
 F32_KERNELS = ("lstm_fused_fwd_f32", "lstm_fused_bwd_f32",
                "lstm_semi_bwd_f32", "lstm_unroll_fused_fwd_f32")
 # (T, B) of each f32 build's check at H=512: the main path's, B=1, ragged
-# B, T=1 and T=2
-F32_CASES = ((160, 64), (160, 1), (160, 70), (1, 64), (2, 64))
+# B, T=1 and T=2, and B=256 (four tiles, a barrier each, in the backwards)
+F32_CASES = ((160, 64), (160, 1), (160, 70), (1, 64), (2, 64), (160, 256))
 F32_FWD_REPEATS = 10   # repeated K3/K4-fwd launches per In and direction
 F32_BWD_REPEATS = 50   # repeated K3-bwd / K4-bwd launches per direction
 SWITCH_OFF_RTOL = 5e-2  # the AMP VAE step under MLVAE_PALLAS_FUSED=0 (K1 on
@@ -7089,6 +7138,7 @@ SWITCH_OFF_RTOL = 5e-2  # the AMP VAE step under MLVAE_PALLAS_FUSED=0 (K1 on
                         # step (the fused tiers, an f32 input product)
 SWITCH_CHILD_TIMEOUT = 420
 F32_YARD_ROUNDS = 2
+F32_BWD_BATCHES = (70, 256)   # the f32 backwards' other timed batches
 SWITCH_ROUNDS = 2
 
 
@@ -7111,15 +7161,20 @@ def f32_cotangents(g, dev, T, B, H):
 
 
 def check_fused_f32(dev, report, H=512):
-    """The f32 builds' shared memory as their C code plans it against
-    ``ops.lstm.fused_f32_smem`` (the CPU tests' mirror); each f32 build
-    against its plain version at H=512: K3/K4-fwd at
-    In=128 and 512 (MD_VAE's widths under MLVAE_PALLAS_FUSED=1), K3-bwd at
-    In=128 and K4-bwd at In=512, both directions, at ``F32_CASES``; hs and
-    cs within LSTM_ATOL, every backward output within BWD_RTOL of its
-    largest entry (the backward on the kernel's own hs and cs). Returns
-    each kernel's worst max abs error (hs and cs; dX, dgx) at T=160,
-    B=64."""
+    """The f32 builds' shared memory and the backwards' plans as their C
+    code computes them against ``ops.lstm.fused_f32_smem`` and
+    ``fused_f32_bwd_plan`` (the CPU tests' mirrors), the plans at every
+    admitted (In, H) and B 1, 64, 70 and 256, and the registers and local
+    memory of each backward kernel a launch can take; each f32 build against
+    its plain version at H=512: K3/K4-fwd at In=128, 256 and 512 (MD_VAE's
+    widths under MLVAE_PALLAS_FUSED=1, and K3's widest at H=512), K3-bwd at
+    In=128 (split-K) and 256 (the exchange schedule) and K4-bwd at In=512,
+    both directions, at ``F32_CASES``, and at H=528 K3-bwd at In=96 and
+    K4-bwd at In=512 and K3-bwd's exchange schedule past 768 columns
+    (H=256, In=640); hs and cs within LSTM_ATOL, every backward output
+    within BWD_RTOL of its largest entry (the backward on the kernel's own
+    hs and cs). Returns each kernel's worst max abs error (hs and cs; dX,
+    dgx) at T=160, B=64, H=512."""
     import torch
     from mlvae_tpu_torch.ops import lstm as L
     g = torch.Generator(device=dev).manual_seed(71)
@@ -7135,7 +7190,36 @@ def check_fused_f32(dev, report, H=512):
                f"{k} In={In} {c}/{py}" for (k, In), (c, py) in plans.items()))
     check(all(c == py for c, py in plans.values()),
           f"the f32 builds' shared memory plan differs: {plans}")
-    for In, bwd in ((128, "lstm_fused_bwd"), (512, "lstm_semi_bwd")):
+    # the backwards' plans: the C code's (which sizes each launch's work
+    # scratch) against the CPU mirror at every H the budgets admit, In a
+    # multiple of 8 up to 4H, B 1, 64, 70 and 256
+    keys = ("schedule", "slots", "smem", "work")
+    npts, differ = 0, []
+    for k in ("bwd", "semi"):
+        for Hh in range(16, 529, 16):
+            for In in range(8, 4 * Hh + 1, 8):
+                for B in (1, 64, 70, 256):
+                    c = L.fused_f32_launch_plan(k, In, Hh, B)
+                    py = L.fused_f32_bwd_plan(k, In, Hh, B)
+                    npts += 1
+                    if tuple(c[n] for n in keys) != tuple(py):
+                        differ.append((k, In, Hh, B, c, py))
+    report(f"  f32 backwards' plans (schedule, x slots, shared memory, work "
+           f"floats), the C plan against ops.lstm.fused_f32_bwd_plan at "
+           f"{npts} (kind, In, H, B): {len(differ)} differ"
+           + (f": {differ[:4]}" if differ else ""))
+    check(not differ, f"the f32 backwards' plan differs at {len(differ)} "
+          "points")
+    # each kernel a launch can take, at a shape that takes it
+    for k, In, Hh in (("bwd", 256, H), ("bwd", 128, 256), ("bwd", 96, 528),
+                      ("bwd", 128, H), ("semi", 512, 768), ("semi", 512, H),
+                      ("semi", 512, 528)):
+        c = L.fused_f32_launch_plan(k, In, Hh, 64)
+        report(f"  f32 {k} In={In} H={Hh}: {L.F32_BWD_KERNELS[c['kernel']]}"
+               f"<SEMI={k == 'semi'}>, {c['registers']} registers, "
+               f"{c['local_bytes']} B local a thread, {c['smem']} B shared")
+    for In, bwd in ((128, "lstm_fused_bwd"), (256, "lstm_fused_bwd"),
+                    (512, "lstm_semi_bwd")):
         for T, B in F32_CASES:
             for reverse in (False, True):
                 prob = f32_problem(g, dev, T, B, In, H)
@@ -7148,20 +7232,67 @@ def check_fused_f32(dev, report, H=512):
                 torch.cuda.synchronize()
                 hs_err, cs_err, _ = fused_fwd_errors(got, want)
                 berrs = fused_bwd_errors(bgot, bwant)
+                sched = L.fused_f32_launch_plan(
+                    "semi" if bwd == "lstm_semi_bwd" else "bwd", In, H,
+                    B)["schedule"]
                 report(f"  f32 T={T} B={B} In={In} H={H} reverse={reverse}: "
                        f"lstm_fused_fwd hs max_abs_err {hs_err:.3e}, cs "
-                       f"{cs_err:.3e} (tol {LSTM_ATOL:g}); {bwd} max err "
-                       "rel to largest entry " + ", ".join(
+                       f"{cs_err:.3e} (tol {LSTM_ATOL:g}); {bwd} (schedule "
+                       f"{sched}) max err rel to largest entry " + ", ".join(
                            f"{n} {e:.3e}" for n, e in zip(outs[bwd], berrs))
                        + f" (tol {BWD_RTOL:g})")
                 check(max(hs_err, cs_err) <= LSTM_ATOL,
                       f"f32 lstm_fused_fwd disagrees: {hs_err}, {cs_err}")
                 check(max(berrs) <= BWD_RTOL, f"f32 {bwd} disagrees: {berrs}")
-                if (T, B) == (160, 64):
+                if (T, B) == (160, 64) and In != 256:
                     worst["lstm_fused_fwd_f32"] = max(
                         worst["lstm_fused_fwd_f32"], hs_err, cs_err)
                     worst[bwd + "_f32"] = max(worst[bwd + "_f32"],
                                               max_err(bgot[0], bwant[0]))
+    # the backwards' builds H=512 does not reach: three columns a thread of
+    # [x | h] (K3 at In=96, K4) at H=528; the exchange schedule (K3 past
+    # 768 columns) at H=256, In=640
+    for In, Hh, bwd in ((96, 528, "lstm_fused_bwd"),
+                        (512, 528, "lstm_semi_bwd"),
+                        (640, 256, "lstm_fused_bwd")):
+        prob = f32_problem(g, dev, 160, 64, In, Hh)
+        args = (*prob, *L.lstm_fused_fwd(*prob), *f32_cotangents(
+            g, dev, 160, 64, Hh), True)
+        berrs = fused_bwd_errors(getattr(L, bwd)(*args),
+                                 getattr(L, bwd + "_ref")(*args))
+        sched = L.fused_f32_launch_plan(
+            "semi" if bwd == "lstm_semi_bwd" else "bwd", In, Hh,
+            64)["schedule"]
+        report(f"  f32 T=160 B=64 In={In} H={Hh} reverse=True: {bwd} "
+               f"(schedule {sched}) max err rel to largest entry " + ", ".join(
+                   f"{n} {e:.3e}" for n, e in zip(outs[bwd], berrs))
+               + f" (tol {BWD_RTOL:g})")
+        check(max(berrs) <= BWD_RTOL, f"f32 {bwd} at In={In} H={Hh} "
+              f"disagrees: {berrs}")
+    # the entries refuse a work scratch one float short of their plan's
+    from mlvae_tpu_torch import _build
+    from mlvae_tpu_torch.tools import bench_bwd_timeline as btl
+    refused = {}
+    for k, In in (("bwd", 128), ("bwd", 256), ("semi", 512)):
+        prob = f32_problem(g, dev, 2, 64, In, H)
+        prob = (*prob, *L.lstm_fused_fwd(*prob),
+                *f32_cotangents(g, dev, 2, 64, H))
+        kern = L.LSTM_SEMI_BWD_F32 if k == "semi" else L.LSTM_FUSED_BWD_F32
+        floats = L.fused_f32_launch_plan(k, In, H, 64)["work"]
+        work = torch.empty((floats,), device=dev, dtype=torch.float32)
+        scratch = L._bwd_scratch(prob[0], H, prob[7])
+        outs = btl.f32_outputs(kern.name, prob)
+        try:
+            kern(*(t.data_ptr() for t in (*prob[:7], *outs, work, *scratch)),
+                 2, 64, In, H, 0, floats - 1,
+                 _build.stream_handle(dev))
+            refused[f"{k} In={In}"] = False
+        except RuntimeError:
+            refused[f"{k} In={In}"] = True
+    report(f"  f32 backwards refuse a work scratch one float short: "
+           f"{refused}")
+    check(all(refused.values()), f"an f32 backward took a short work "
+          f"scratch: {refused}")
     return worst
 
 
@@ -7466,11 +7597,12 @@ def time_fused_f32(dev, report, errs, counts, model, batch, vae_noise, smi,
     the input projection, then K1-fwd; K3-bwd: K1-bwd and the GEMMs for
     dX, dW_ih and db; K4-bwd, which emits dgx as K1-bwd does: K1-bwd) and
     ``torch.nn.LSTM`` f32 (cuDNN, TF32 off; the backward as its forward and
-    backward less its forward), beside their bounds and plain versions;
-    then MD_VAE's f32 VAE step under MLVAE_PALLAS_FUSED=1 against the
-    default in turns, with a profile of each. Returns the kernels line's
-    rows of K3/K4-fwd (In=128), K3-bwd (In=128) and K4-bwd (In=512) on
-    f32 streams."""
+    backward less its forward), beside their bounds and plain versions; the
+    backwards also at ``F32_BWD_BATCHES`` (ragged, and four tiles); then
+    MD_VAE's f32 VAE step under MLVAE_PALLAS_FUSED=1 against
+    the default in turns, with a profile of each. Returns the kernels
+    line's rows of K3/K4-fwd (In=128), K3-bwd (In=128) and K4-bwd (In=512)
+    on f32 streams, at B."""
     import torch
     from mlvae_tpu_torch.ops import lstm as L
     g = torch.Generator(device=dev).manual_seed(76)
@@ -7482,15 +7614,17 @@ def time_fused_f32(dev, report, errs, counts, model, batch, vae_noise, smi,
     saved_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        for In in (128, 512):
-            x, w_ih, bias, w_hh = prob = f32_problem(g, dev, T, B, In, H)
+        for In, Bn in ((128, B), (512, B),
+                       *((In, b) for In in (128, 512)
+                         for b in F32_BWD_BATCHES)):
+            x, w_ih, bias, w_hh = prob = f32_problem(g, dev, T, Bn, In, H)
             hs, cs = L.lstm_fused_fwd(*prob)
-            dhs, dc = f32_cotangents(g, dev, T, B, H)
+            dhs, dc = f32_cotangents(g, dev, T, Bn, H)
             gx = (torch.matmul(x, w_ih.t()) + bias).contiguous()
             cudnn = torch.nn.LSTM(In, H, 1).to(dev)
             cudnn.flatten_parameters()
             xg = x.clone().requires_grad_()
-            dy = torch.randn((T, B, H), generator=g, device=dev)
+            dy = torch.randn((T, Bn, H), generator=g, device=dev)
 
             def unfused_fwd():
                 return L.lstm_layer_fwd(
@@ -7515,19 +7649,21 @@ def time_fused_f32(dev, report, errs, counts, model, batch, vae_noise, smi,
 
             bwd = "lstm_fused_bwd" if In == 128 else "lstm_semi_bwd"
             kern_bwd = getattr(L, bwd)
-            for name, fns, bound, plain in (
-                    ("lstm_fused_fwd_f32",
-                     (timer(lambda: L.lstm_fused_fwd(*prob)),
-                      timer(unfused_fwd), timer(cudnn_fwd)),
-                     fused_fwd_bound(T, B, In, H, bf16=False),
-                     lambda: L.lstm_fused_fwd_ref(*prob)),
-                    (bwd + "_f32",
-                     (timer(lambda: kern_bwd(*prob, hs, cs, dhs, dc)),
-                      timer(unfused_bwd), cudnn_bwd),
-                     (fused_bwd_bound if In == 128 else semi_bwd_bound)(
-                         T, B, In, H, bf16=False),
-                     lambda: getattr(L, bwd + "_ref")(*prob, hs, cs, dhs,
-                                                      dc))):
+            arms = (
+                ("lstm_fused_fwd_f32",
+                 (timer(lambda: L.lstm_fused_fwd(*prob)),
+                  timer(unfused_fwd), timer(cudnn_fwd)),
+                 fused_fwd_bound(T, Bn, In, H, bf16=False),
+                 lambda: L.lstm_fused_fwd_ref(*prob)),
+                (bwd + "_f32",
+                 (timer(lambda: kern_bwd(*prob, hs, cs, dhs, dc)),
+                  timer(unfused_bwd), cudnn_bwd),
+                 (fused_bwd_bound if In == 128 else semi_bwd_bound)(
+                     T, Bn, In, H, bf16=False),
+                 lambda: getattr(L, bwd + "_ref")(*prob, hs, cs, dhs,
+                                                  dc)))
+            for name, fns, bound, plain in (arms if Bn == B else arms[1:]):
+                key = f"{name} In={In}" + ("" if Bn == B else f" B={Bn}")
                 ks, us, cs_ = in_turns(fns, F32_YARD_ROUNDS, iters=5)
                 km, um, cm = (statistics.median(v) for v in (ks, us, cs_))
                 p_ms = cuda_ms(plain, iters=1, warmup=1)
@@ -7537,8 +7673,8 @@ def time_fused_f32(dev, report, errs, counts, model, batch, vae_noise, smi,
                        "unfused_spread": [min(us), max(us)],
                        "cudnn_ms": cm, "cudnn_spread": [min(cs_), max(cs_)],
                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
-                res[f"{name} In={In}"] = row
-                report(f"  {name} In={In} T={T} B={B} H={H}: {km:.4f} ms "
+                res[key] = row
+                report(f"  {name} In={In} T={T} B={Bn} H={H}: {km:.4f} ms "
                        f"median ({min(ks):.4f}-{max(ks):.4f}; "
                        f"{row['us_a_step']:.2f} us a step); in turns the "
                        f"unfused f32 route {um:.4f} ({min(us):.4f}-"
@@ -7546,7 +7682,7 @@ def time_fused_f32(dev, report, errs, counts, model, batch, vae_noise, smi,
                        f"({min(cs_):.4f}-{max(cs_):.4f}); factors "
                        f"{km / um:.3f}, {km / cm:.3f}; plain {p_ms:.4f}; "
                        f"bound {b_ms:.4f} by {b_by}; {smi}")
-                if name == "lstm_fused_fwd_f32" and In == 512:
+                if Bn != B or (name == "lstm_fused_fwd_f32" and In == 512):
                     continue   # the row reports In=128, MD_VAE's most
                 src = ("lstm_fused_fwd_f32.cu" if name.startswith(
                     "lstm_fused_fwd") else "lstm_fused_bwd_f32.cu")
@@ -7562,9 +7698,13 @@ def time_fused_f32(dev, report, errs, counts, model, batch, vae_noise, smi,
                     card=smi, **counts[name]))
     finally:
         torch.backends.cudnn.allow_tf32 = saved_tf32
-    for row in rows:   # K3/K4-fwd's In=512 time beside its In=128 row
+    for row in rows:   # K3/K4-fwd's In=512, the backwards' other batches
         if row["name"] == "lstm_fused_fwd_f32":
             row["ms_in512"] = res["lstm_fused_fwd_f32 In=512"]["ms"]
+        else:
+            In = 128 if row["name"] == "lstm_fused_bwd_f32" else 512
+            row["ms_by_b"] = {b: res[f"{row['name']} In={In} B={b}"]["ms"]
+                              for b in F32_BWD_BATCHES}
 
     def step(value):
         def fn(iters):
@@ -7644,9 +7784,7 @@ def main(argv=None) -> int:
     report(f"phase 1 build: {time.perf_counter() - t0:.1f} s wall for "
            f"{sorted(built) or 'nothing (cached)'}")
     for src, (_, log) in _build.BUILD_LOG.items():
-        usage = [ln.strip() for ln in log.splitlines() if "registers" in ln
-                 or "spill" in ln]
-        report(f"  ptxas {src}: " + " | ".join(usage))
+        report(f"  ptxas {src}: " + " | ".join(ptxas_usage(log)))
     plans = wide_plans(dev, report)
     k5_plans = gru_plans(dev, report)
     k7_plans = unroll_plans(dev, report)

@@ -45,8 +45,9 @@ SOURCES = ("lstm_fwd", "lstm_bwd", "md_viterbi", "lstm_fused_fwd",
 # the same tool (their own define), and so K5-bwd and the wide K1-bwd in
 # f32; the forwards K1-fwd, K3/K4-fwd, the wide K1-fwd and K5-fwd in f32
 # and on bf16 streams, and K7a (f32 and bf16) and K7b on bf16 streams,
-# with the step timeline of tools/bench_fwd_timeline.py. No build in
-# SOURCES has any of these defines.
+# with the step timeline of tools/bench_fwd_timeline.py; and K3-bwd and
+# K4-bwd on f32 streams (one library, both entries) with the first define.
+# No build in SOURCES has any of these defines.
 TIMELINE_DEFINE = "-DMLVAE_BWD_TIMELINE"
 K1_BWD_TIMELINE_DEFINE = "-DMLVAE_K1_BWD_TIMELINE"
 FWD_TIMELINE_DEFINE = "-DMLVAE_FWD_TIMELINE"
@@ -59,6 +60,8 @@ VARIANTS = {f"{src}_timeline{suffix}": (src, [TIMELINE_DEFINE, *flags])
             for suffix, flags in (("", []), *(
                 (f"_rows{r}", [f"-DMLVAE_BWD_STAGE_ROWS={r}"])
                 for r in ABLATION_ROWS))}
+VARIANTS["lstm_fused_bwd_f32_timeline"] = ("lstm_fused_bwd_f32",
+                                           [TIMELINE_DEFINE])
 VARIANTS.update({f"{src}_timeline": (src, [K1_BWD_TIMELINE_DEFINE])
                  for src in ("lstm_bwd", "lstm_bwd_wide_bf16",
                              "gru_bwd_bf16", "gru_bwd", "lstm_bwd_wide")})

@@ -37,6 +37,8 @@ natural time order.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -46,6 +48,7 @@ from mlvae_tpu_torch.ops.k1_plan import (NARROW_MAX_H, k1_bwd_plan,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 
 LSTM_FWD = _build.register(_build.Kernel(
     "lstm_fwd", "lstm_fwd", "mlvae_lstm_fwd",
@@ -89,10 +92,10 @@ LSTM_FUSED_FWD_F32 = _build.register(_build.Kernel(
     [_P] * 8 + [_I] * 5 + [_P]))
 LSTM_FUSED_BWD_F32 = _build.register(_build.Kernel(
     "lstm_fused_bwd_f32", "lstm_fused_bwd_f32", "mlvae_lstm_fused_bwd_f32",
-    [_P] * 16 + [_I] * 5 + [_P]))
+    [_P] * 15 + [_I] * 5 + [_LL, _P]))
 LSTM_SEMI_BWD_F32 = _build.register(_build.Kernel(
     "lstm_semi_bwd_f32", "lstm_fused_bwd_f32", "mlvae_lstm_semi_bwd_f32",
-    [_P] * 13 + [_I] * 5 + [_P]))
+    [_P] * 13 + [_I] * 5 + [_LL, _P]))
 
 
 def _gate_acts(gates: torch.Tensor, H: int):
@@ -564,16 +567,85 @@ SMEM_LIMIT = 232448   # an H100 block's shared memory, bytes
 def fused_f32_smem(kind: str, In: int, H: int) -> int:
     """Shared memory bytes of a launch of the f32 fused builds, as
     ``smem_bytes`` of ``csrc/lstm_fused_fwd_f32.cu`` (``kind`` "fwd") and
-    ``csrc/lstm_fused_bwd_f32.cu`` ("bwd": K3, "semi": K4) compute it: the
-    block's 16 rows of W_hh (pitch H + 4), the partial sums (4 x 64 x 16),
-    two stages of a 64 x 128 chunk (pitch 132) and its weights (2,560
-    floats); the backwards also their dW (16 x (In + H), K4 16 x H) and a
-    tile's own dgates (64 x 16). f32 throughout; the launch refuses more
+    ``smem_of`` of ``csrc/lstm_fused_bwd_f32.cu`` ("bwd": K3, "semi": K4)
+    compute it, whatever B. The forward: the block's 16 rows of W_hh (pitch
+    H + 4), the partial sums (4 x 64 x 16) and two stages of a 64 x 128
+    chunk (pitch 132) and its weights (2,560 floats). The backwards, in the
+    split-K schedule (``fused_f32_bwd_plan``): the h tile (64 x 32 boxes
+    over H), the x slots, W_hh's 16 rows, the split-K sums (4 x 64 x 16),
+    the dgates (64 x 16) and an mbarrier a box and slot; in the exchange
+    schedule the forward's layout, their dW (16 x (In + H), K4 16 x H) and
+    a tile's own dgates (64 x 16). f32 throughout; the launch refuses more
     than ``SMEM_LIMIT``."""
+    if kind != "fwd":
+        slots, smem = _f32_split_layout(kind == "semi", In, H)
+        if slots:
+            return smem
+    return _f32_exchange_smem(kind, In, H)
+
+
+def _f32_exchange_smem(kind: str, In: int, H: int) -> int:
     floats = 16 * (H + 4) + 4 * 64 * 16 + 2 * (64 * 132 + 128 * 4 * 5)
     if kind != "fwd":
         floats += 16 * (H if kind == "semi" else In + H) + 16 * 64
     return 4 * floats
+
+
+# The f32 backwards' split-K layout (csrc/lstm_fused_bwd_f32.cu): boxes of
+# 64 rows x 32 columns, x slots of a box and W_ih's 16 rows of its columns,
+# K4's ring of at most four slots, at most three columns of [x | h] a
+# thread (256 threads)
+F32_BOX = 64 * 32
+F32_XSLOT = F32_BOX + 16 * 32
+F32_RING = 4
+F32_MAX_COLS = 3 * 256
+# the schedules of ``fused_f32_bwd_plan``
+F32_EXCHANGE, F32_SPLIT = 0, 1
+
+
+def _f32_split_layout(semi: bool, In: int, H: int):
+    """(x slots, shared memory bytes) of the split-K schedule, as
+    ``split_plan`` of ``csrc/lstm_fused_bwd_f32.cu``: slots 0 where it does
+    not fit. K3 keeps every x box of a step in a slot; K4 takes up to four
+    slots in rounds."""
+    nbh = -(-H // 32)
+    fixed = 4 * (nbh * F32_BOX + 16 * H + 4 * 64 * 16 + 64 * 16) + 8 * nbh
+    slot = 4 * F32_XSLOT + 8
+    nxb = -(-In // 32)
+    fit = 0 if fixed >= SMEM_LIMIT else (SMEM_LIMIT - fixed) // slot
+    if semi:
+        slots = min(F32_RING, nxb, fit)
+    else:
+        slots = nxb if nxb <= fit else 0
+    if (H if semi else In + H) > F32_MAX_COLS:
+        slots = 0
+    return slots, fixed + slots * slot
+
+
+class F32BwdPlan(NamedTuple):
+    schedule: int   # F32_EXCHANGE or F32_SPLIT
+    slots: int      # the split-K layout's x slots (0: it does not fit)
+    smem: int       # shared memory bytes
+    work: int       # floats of the ``work`` scratch
+
+
+def fused_f32_bwd_plan(kind: str, In: int, H: int, B: int) -> F32BwdPlan:
+    """The plan of an f32 K3-bwd (``kind`` "bwd") or K4-bwd ("semi") launch,
+    the CPU mirror of ``schedule_of`` and ``work_floats`` of
+    ``csrc/lstm_fused_bwd_f32.cu``: the split-K schedule where its layout
+    fits, whatever B (a tile of 64 rows a barrier), else the exchange
+    schedule; and the floats of its scratch: the split-K partials (2, H/4,
+    min(B, 64), In + H) (K4: H columns), or the exchange schedule's (2, B,
+    4H) exchange buffer (K3) and (B, 4H) pre-activations. A launch sizes
+    its scratch from ``fused_f32_launch_plan``, the C code's plan."""
+    semi = kind == "semi"
+    slots, smem = _f32_split_layout(semi, In, H)
+    if not slots:
+        return F32BwdPlan(F32_EXCHANGE, slots,
+                          _f32_exchange_smem(kind, In, H),
+                          B * 4 * H * (1 if semi else 3))
+    return F32BwdPlan(F32_SPLIT, slots, smem,
+                      2 * (H // 4) * min(B, 64) * (H if semi else In + H))
 
 
 def fused_f32_launch_smem(kind: str, In: int, H: int) -> int:
@@ -584,6 +656,33 @@ def fused_f32_launch_smem(kind: str, In: int, H: int) -> int:
     args = (H,) if kind == "fwd" else (In, H, int(kind == "semi"))
     fn.argtypes, fn.restype = [_I] * len(args), _I
     return int(fn(*args))
+
+
+# the kernels of an f32 backward's launch (``variant_of`` of
+# csrc/lstm_fused_bwd_f32.cu)
+F32_BWD_KERNELS = ("exchange_kernel", "split_kernel<KP=2>",
+                   "split_kernel<KP=3>", "split_kernel<KP=3, XHALF>")
+
+
+@functools.lru_cache(maxsize=1024)
+def fused_f32_launch_plan(kind: str, In: int, H: int, B: int) -> dict:
+    """The plan of an f32 K3-bwd (``kind`` "bwd") or K4-bwd ("semi") launch
+    at In, H, B as the C code of the build computes it
+    (``mlvae_lstm_fused_bwd_f32_plan``): its schedule, x slots, shared
+    memory bytes, the floats of its ``work`` scratch, its kernel (an index
+    of ``F32_BWD_KERNELS``) and that kernel's registers and local memory
+    bytes a thread. Builds the library; needs the card. Not a launch: it
+    counts nowhere."""
+    fn = _build.library("lstm_fused_bwd_f32").mlvae_lstm_fused_bwd_f32_plan
+    fn.argtypes = [_I] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 7)()
+    code = fn(In, H, B, int(kind == "semi"), out)
+    if code:
+        raise RuntimeError(f"lstm_fused_bwd_f32 plan: CUDA error {code}")
+    keys = ("schedule", "slots", "smem", "work", "kernel", "registers",
+            "local_bytes")
+    return dict(zip(keys, map(int, out)))
 
 
 def _check_fused(name, x, w_ih, bias, w_hh, extra=()):
@@ -691,6 +790,28 @@ def _bwd_scratch(x, H, dc_last):
     return dh_buf, dc_last.clone(), barrier
 
 
+def f32_bwd_launch(kernel, inputs, outputs, dc_last, reverse: bool,
+                   timeline=None) -> None:
+    """Launch ``kernel``, an entry of ``csrc/lstm_fused_bwd_f32.cu`` (K3-bwd
+    or K4-bwd on f32 streams, or its timing build), on checked ``inputs``
+    (x, w_ih, bias, w_hh, hs, cs, dhs) into ``outputs`` (K3: dX, dW_ih, db,
+    dW_hh; K4: dgx, dW_hh), with the scratch that the C code's plan sizes
+    (``fused_f32_launch_plan``; the entry refuses a smaller one);
+    ``timeline`` the timing build's (T, H/4, 10) int64 buffer."""
+    x = inputs[0]
+    T, B, In = x.shape
+    H = inputs[3].shape[1]
+    kind = "semi" if len(outputs) == 2 else "bwd"
+    floats = fused_f32_launch_plan(kind, In, H, B)["work"]
+    work = torch.empty((floats,), device=x.device, dtype=torch.float32)
+    dh_buf, dc_buf, barrier = _bwd_scratch(x, H, dc_last)
+    extra = () if timeline is None else (timeline.data_ptr(),)
+    kernel(*(t.data_ptr() for t in (*inputs, *outputs)), work.data_ptr(),
+           dh_buf.data_ptr(), dc_buf.data_ptr(), barrier.data_ptr(), T, B,
+           In, H, int(reverse), floats, *extra,
+           _build.stream_handle(x.device))
+
+
 def _check_k3_width(name, In, H):
     """K3-bwd's dX columns: a block owns at most four groups of 4, so In
     may be at most 4H (both builds)."""
@@ -719,21 +840,20 @@ def lstm_fused_bwd(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last,
     dwhh = torch.empty((4 * H, H), device=x.device, dtype=torch.float32)
     if not (T and B):
         return dx, dwih.zero_(), db.zero_(), dwhh.zero_()
+    if dtype == torch.float32:
+        f32_bwd_launch(LSTM_FUSED_BWD_F32, (x, w_ih, bias, w_hh, hs, cs, dhs),
+                       (dx, dwih, db, dwhh), dc_last, reverse)
+        return dx, dwih, db, dwhh
     dh_buf, dc_buf, barrier = _bwd_scratch(x, H, dc_last)
     # the step's dgates in the stream dtype, exchanged between blocks;
     # ping-ponged
     dgbuf = torch.empty((2, B, 4 * H), device=x.device, dtype=dtype)
-    head = (x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(), w_hh.data_ptr(),
-            hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(), dx.data_ptr(),
-            dwih.data_ptr(), db.data_ptr(), dwhh.data_ptr(), dgbuf.data_ptr())
-    tail = (dh_buf.data_ptr(), dc_buf.data_ptr(), barrier.data_ptr(), T, B,
-            In, H, int(reverse), _build.stream_handle(x.device))
-    if dtype == torch.float32:
-        # the pre-activations recomputed for the next step, (B, 4H)
-        pre = torch.empty((B, 4 * H), device=x.device, dtype=torch.float32)
-        LSTM_FUSED_BWD_F32(*head, pre.data_ptr(), *tail)
-    else:
-        LSTM_FUSED_BWD(*head, *tail)
+    LSTM_FUSED_BWD(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
+                   w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                   dhs.data_ptr(), dx.data_ptr(), dwih.data_ptr(),
+                   db.data_ptr(), dwhh.data_ptr(), dgbuf.data_ptr(),
+                   dh_buf.data_ptr(), dc_buf.data_ptr(), barrier.data_ptr(),
+                   T, B, In, H, int(reverse), _build.stream_handle(x.device))
     return dx, dwih, db, dwhh
 
 
@@ -753,17 +873,16 @@ def lstm_semi_bwd(x, w_ih, bias, w_hh, hs, cs, dhs, dc_last,
     dwhh = torch.empty((4 * H, H), device=x.device, dtype=torch.float32)
     if not (T and B):
         return dgx, dwhh.zero_()
-    dh_buf, dc_buf, barrier = _bwd_scratch(x, H, dc_last)
-    head = (x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(), w_hh.data_ptr(),
-            hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(), dgx.data_ptr(),
-            dwhh.data_ptr())
-    tail = (dh_buf.data_ptr(), dc_buf.data_ptr(), barrier.data_ptr(), T, B,
-            In, H, int(reverse), _build.stream_handle(x.device))
     if dtype == torch.float32:
-        pre = torch.empty((B, 4 * H), device=x.device, dtype=torch.float32)
-        LSTM_SEMI_BWD_F32(*head, pre.data_ptr(), *tail)
-    else:
-        LSTM_SEMI_BWD(*head, *tail)
+        f32_bwd_launch(LSTM_SEMI_BWD_F32, (x, w_ih, bias, w_hh, hs, cs, dhs),
+                       (dgx, dwhh), dc_last, reverse)
+        return dgx, dwhh
+    dh_buf, dc_buf, barrier = _bwd_scratch(x, H, dc_last)
+    LSTM_SEMI_BWD(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
+                  w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                  dhs.data_ptr(), dgx.data_ptr(), dwhh.data_ptr(),
+                  dh_buf.data_ptr(), dc_buf.data_ptr(), barrier.data_ptr(),
+                  T, B, In, H, int(reverse), _build.stream_handle(x.device))
     return dgx, dwhh
 
 

@@ -66,6 +66,20 @@ at T=160, H=1024, B=64 (LSTM_FC's f32 shape) on the trajectory of the f32
 wide K1-fwd; its dgx must be bit-equal to the normal build's. Its normal
 build's ms include the dW_hh kernel that follows the recurrence.
 
+K3-bwd and K4-bwd on f32 streams (``csrc/lstm_fused_bwd_f32.cu``) have one
+timing build of both entries with ``-DMLVAE_BWD_TIMELINE``, K1-bwd's
+clock, slots and phases (``K1_PHASES``), a (T, H/4, 10) buffer: K3 at
+In=128 and K4 at In=512 (MD_VAE's f32 layers under
+``MLVAE_PALLAS_FUSED=1``), which take the split-K schedule (``split``,
+one tile of 64 rows a barrier), and K3 at In=256 (the widest K3 layer
+the f32 budget admits at H=512), which takes the exchange schedule
+(``exchange``); H=512, T=160, B=64 and 256, inputs at the recipe layers'
+scales in f32 and the trajectory from K3/K4-fwd f32. Each row runs the
+schedule the C code's plan chooses (``ops.lstm.fused_f32_launch_plan``).
+In the exchange schedule ``partial_dw`` is its dW, ``reduce`` its
+exchange and ``recompute`` holds its copies (``stage`` 0); ``cell`` holds
+the arrival. Each row's outputs must be bit-equal to the normal build's.
+
 It prints one JSON line naming the card and its power limit, and exits
 non-zero when an output differs. It needs the card and raises without
 CUDA.
@@ -147,6 +161,16 @@ TIMED["lstm_bwd_wide"] = _build.Kernel(
     "mlvae_lstm_bwd_wide_timeline", _WIDE_F32_ARGS)
 ABLATED = {(name, r): _timed(name, r) for name in _ARGS
            for r in _build.ABLATION_ROWS}
+# the f32 K3-bwd and K4-bwd: one timing build, both entries
+F32_TIMED_SRC = "lstm_fused_bwd_f32_timeline"
+TIMED.update({name: _build.Kernel(
+    F32_TIMED_SRC, F32_TIMED_SRC, f"mlvae_{name}_timeline",
+    [*kern.argtypes[:-1], _P, _P])
+    for name, kern in (("lstm_fused_bwd_f32", L.LSTM_FUSED_BWD_F32),
+                       ("lstm_semi_bwd_f32", L.LSTM_SEMI_BWD_F32))})
+F32_CASES = (("lstm_fused_bwd_f32", 128), ("lstm_semi_bwd_f32", 512),
+             ("lstm_fused_bwd_f32", 256))
+F32_SCHEDULE_NAMES = {L.F32_EXCHANGE: "exchange", L.F32_SPLIT: "split"}
 
 
 def bwd_smem_bytes(semi: bool, In: int, H: int, B: int, ahead: bool) -> int:
@@ -475,6 +499,77 @@ def timed_bwd(name: str, prob, reverse: bool = False, kernel=None):
     return (dgx, dwhh), tl
 
 
+def make_f32_problem(dev, In: int, B: int, seed: int = 0):
+    """``make_problem``'s layer on f32 streams: x, W_ih, W_hh, the bias
+    f32, the trajectory from K3/K4-fwd f32, f32 cotangents."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((T, B, In), generator=g, device=dev) * 0.5
+    w_ih = (torch.rand((4 * H, In), generator=g, device=dev) * 2 - 1) \
+        / H ** 0.5
+    bias = (torch.rand((4 * H,), generator=g, device=dev) * 2 - 1) / H ** 0.5
+    w_hh = (torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1) \
+        / H ** 0.5
+    hs, cs = L.lstm_fused_fwd(x, w_ih, bias, w_hh)
+    dhs = torch.randn((T, B, H), generator=g, device=dev) * 0.1
+    dc_last = torch.randn((B, H), generator=g, device=dev) * 0.1
+    return x, w_ih, bias, w_hh, hs, cs, dhs, dc_last
+
+
+def f32_outputs(name: str, prob):
+    """Empty outputs of the f32 K3-bwd (dX, dW_ih, db, dW_hh) or K4-bwd
+    (dgx, dW_hh) on ``prob``."""
+    x, w_ih = prob[0], prob[1]
+    Tn, B, In = x.shape
+    G = w_ih.shape[0]
+    f32 = dict(device=x.device, dtype=torch.float32)
+    if name == "lstm_semi_bwd_f32":
+        return (torch.empty((Tn, B, G), **f32),
+                torch.empty((G, G // 4), **f32))
+    return (torch.empty_like(x), torch.empty((G, In), **f32),
+            torch.empty((G,), **f32), torch.empty((G, G // 4), **f32))
+
+
+def run_f32(name: str, prob, timed: bool):
+    """The f32 build of ``name`` (its timing build if ``timed``) on
+    ``prob``: (its outputs, the (T, H/4, 10) int64 timeline or None)."""
+    x, w_ih, bias, w_hh, hs, cs, dhs, dc_last = prob
+    out = f32_outputs(name, prob)
+    tl = None
+    if timed:
+        tl = torch.zeros((x.shape[0], w_hh.shape[1] // 4, K1_SLOTS),
+                         device=x.device, dtype=torch.int64)
+    kernel = TIMED[name] if timed else (
+        L.LSTM_FUSED_BWD_F32 if name == "lstm_fused_bwd_f32"
+        else L.LSTM_SEMI_BWD_F32)
+    L.f32_bwd_launch(kernel, (x, w_ih, bias, w_hh, hs, cs, dhs), out,
+                     dc_last, False, tl)
+    return out, tl
+
+
+def f32_rows(dev, iters: int):
+    rows = []
+    for name, In in F32_CASES:
+        kind = "semi" if name == "lstm_semi_bwd_f32" else "bwd"
+        for B in BATCHES:
+            prob = make_f32_problem(dev, In, B)
+            want, _ = run_f32(name, prob, False)
+            got, tl = run_f32(name, prob, True)
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: run_f32(name, prob, False), iters)
+            plan = L.fused_f32_launch_plan(kind, In, H, B)
+            rows.append({
+                "kernel": name, "In": In, "B": B, "T": T, "H": H,
+                "schedule": F32_SCHEDULE_NAMES[plan["schedule"]],
+                "plan": plan,
+                "bit_equal_to_normal_build": all(
+                    torch.equal(a, b) for a, b in zip(got, want)),
+                "ms": ms, "us_a_step_total": ms * 1e3 / T,
+                "ms_timing_build": cuda_ms(
+                    lambda: run_f32(name, prob, True), iters),
+                "us_a_step": ftl.phase_split(tl.cpu(), K1_PHASES)})
+    return rows
+
+
 def cuda_ms(fn, iters: int) -> float:
     for _ in range(WARMUP):
         fn()
@@ -494,7 +589,8 @@ def bench(dev, iters: int = 10) -> Dict:
                   "lstm_semi_bwd", "lstm_fwd", "lstm_bwd",
                   "lstm_fwd_wide_bf16", "lstm_bwd_wide_bf16",
                   "gru_fwd_bf16", "gru_bwd_bf16", "gru_fwd", "gru_bwd",
-                  "lstm_fwd_wide", "lstm_bwd_wide"])
+                  "lstm_fwd_wide", "lstm_bwd_wide", "lstm_fused_fwd_f32",
+                  "lstm_fused_bwd_f32"])
     rows = []
     for name, In in CASES:
         for B in BATCHES:
@@ -517,7 +613,7 @@ def bench(dev, iters: int = 10) -> Dict:
     return {"rows": rows, "lstm_bwd": k1_rows(dev, iters),
             "lstm_bwd_wide_bf16": wide_rows(dev, iters),
             "lstm_bwd_wide": wide_f32_rows(dev, iters),
-            "gru": gru_rows(dev, iters)}
+            "gru": gru_rows(dev, iters), "fused_f32": f32_rows(dev, iters)}
 
 
 def ablation(name: str, prob, rows: int, iters: int) -> Dict:
@@ -554,7 +650,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     bad = [(r["kernel"], r["B"]) for r in [*res["rows"], *res["lstm_bwd"],
                                            *res["lstm_bwd_wide_bf16"],
                                            *res["lstm_bwd_wide"],
-                                           *res["gru"]]
+                                           *res["gru"], *res["fused_f32"]]
            if not r["bit_equal_to_normal_build"]]
     if bad:
         print(f"bench_bwd_timeline: the timing build differs from the "

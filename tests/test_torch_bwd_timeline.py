@@ -41,7 +41,19 @@ def test_timed_kernels_are_not_counted_on_any_path():
     bwd = {v for v in _build.VARIANTS
            if _build.source_of(v) not in _build.FWD_TIMED}
     assert {k.source for k in timed} == bwd
-    assert len(timed) == len(bwd)
+    # one timed entry a variant, but the f32 K3-bwd / K4-bwd timing build
+    # holds both entries
+    assert len(timed) == len(bwd) + 1
+    for name, normal in (("lstm_fused_bwd_f32", L.LSTM_FUSED_BWD_F32),
+                         ("lstm_semi_bwd_f32", L.LSTM_SEMI_BWD_F32)):
+        k = btl.TIMED[name]
+        assert (k.source, k.symbol) == (btl.F32_TIMED_SRC,
+                                        f"mlvae_{name}_timeline")
+        assert _build.timeline_define(k.source) == _build.TIMELINE_DEFINE
+        assert normal in _build.KERNELS
+        assert normal.source == _build.source_of(k.source)
+        assert k.argtypes[:-2] == normal.argtypes[:-1]
+        assert len(k.argtypes) == len(normal.argtypes) + 1
     # K1-bwd's timing build: its own define and entry, never LSTM_BWD
     k1 = btl.TIMED["lstm_bwd"]
     assert (k1.source, k1.symbol) == ("lstm_bwd_timeline",
@@ -98,7 +110,9 @@ def _tl_slots(text):
                                          ("lstm_bwd_wide_bf16",
                                           btl.WIDE_PHASES),
                                          ("gru_bwd", btl.K1_PHASES),
-                                         ("lstm_bwd_wide", btl.K1_PHASES)])
+                                         ("lstm_bwd_wide", btl.K1_PHASES),
+                                         ("lstm_fused_bwd_f32",
+                                          btl.K1_PHASES)])
 def test_k1_bwd_sources_share_the_timeline_clock(src, phases):
     """The K1-bwd timing builds (narrow; wide, f32 and bf16) and the f32
     K5-bwd's take the clock and macros from bwd_timeline.cuh and name only
@@ -141,6 +155,55 @@ def test_k1_phase_split_reads_the_timeline():
         {"min": 5.75, "median": 6.75, "max": 7.75})
     assert split["step"] == pytest.approx(
         {"min": 20.0, "median": 21.0, "max": 22.0})
+
+
+@pytest.mark.parametrize("schedule", ["split", "exchange"])
+def test_f32_bwd_phase_split_reads_the_timeline(schedule):
+    """The f32 K3-bwd / K4-bwd rows read K1-bwd's slots in both schedules:
+    the exchange schedule leaves stage and loads 0 (its copies lie in its
+    recompute and dW), and K4's step 0 (no pass, no barrier) leaves its
+    pass, wait and reduce 0. The tool's rows reach each schedule where the
+    plan takes it (K3 at In=128 and K4 at In=512 split-K, K3 at In=256 the
+    exchange schedule), never by force."""
+    tl = _k1_timeline(T=2, blocks=3)
+    if schedule == "exchange":
+        tl[..., btl.K1_PHASES["stage"]] = 0
+        tl[..., btl.K1_PHASES["loads"]] = 0
+    for slot in ("partial_dw", "wait", "reduce", "barrier"):
+        tl[0, :, btl.K1_PHASES[slot]] = 0
+    split = ftl.phase_split(tl, btl.K1_PHASES)
+    assert set(split) == {*btl.K1_PHASES, "step"}
+    # the tool times this schedule where the plan takes it, at every batch
+    want = {"split": L.F32_SPLIT, "exchange": L.F32_EXCHANGE}[schedule]
+    assert btl.F32_SCHEDULE_NAMES[want] == schedule
+    kinds = {"lstm_fused_bwd_f32": "bwd", "lstm_semi_bwd_f32": "semi"}
+    for B in btl.BATCHES:
+        assert [In for name, In in btl.F32_CASES if L.fused_f32_bwd_plan(
+            kinds[name], In, btl.H, B).schedule == want] == (
+                [128, 512] if schedule == "split" else [256])
+    assert split["partial_dw"]["median"] == pytest.approx(4.0)
+    assert split["reduce"]["median"] == pytest.approx(0.75)
+    assert split["wait"] == pytest.approx(
+        {"min": 0.25, "median": 0.75, "max": 1.25})
+    assert split["stage"]["median"] == pytest.approx(
+        0.0 if schedule == "exchange" else 1.0)
+    assert split["step"] == pytest.approx(
+        {"min": 20.0, "median": 21.0, "max": 22.0})
+
+
+@pytest.mark.parametrize("kernel", ["LSTM_FUSED_BWD_F32",
+                                    "LSTM_SEMI_BWD_F32"])
+def test_f32_bwd_entries_take_the_size_of_their_scratch(kernel):
+    """The f32 backwards' C entries take the floats of their ``work``
+    scratch (so that they refuse a smaller one) after ``reverse``, as a
+    64-bit int, and no schedule: the C code chooses it."""
+    k = getattr(L, kernel)
+    text = (_build.CSRC / "lstm_fused_bwd_f32.cu").read_text()
+    sig = re.search(rf"int {k.symbol}\(\n#endif\n([^)]*)\)", text).group(1)
+    params = [p.strip() for p in sig.replace("TL_ARG", "").split(",")]
+    assert len(params) == len(k.argtypes)
+    assert params[-3:-1] == ["int reverse", "long long work_size"]
+    assert k.argtypes[-2] is L._LL and "schedule" not in sig
 
 
 def test_k1_phase_split_means_over_steps_then_blocks():

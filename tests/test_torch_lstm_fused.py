@@ -490,8 +490,63 @@ def test_f32_tiers_fit_the_f32_builds(H):
                 (kind, In, H)
     assert refused == {128: list(range(640, 3201, 128)),
                        256: [1152, 1280, 1408]}.get(H, [])
+    # the split-K layout: 16 h boxes of 64 x 32, x slots of a box and W_ih's
+    # 16 rows of its 32 columns (K3 In=128 four, K4 its ring of four),
+    # W_hh's 16 rows, the split-K sums (4 x 64 x 16) and the dgates (64 x
+    # 16), f32, and an mbarrier a box and slot
+    for kind, In in (("bwd", 128), ("semi", 512), ("semi", 640)):
+        assert pl.fused_f32_smem(kind, In, 512) == 4 * (
+            16 * 64 * 32 + 4 * (64 * 32 + 16 * 32) + 16 * 512 + 4096
+            + 1024) + 8 * (16 + 4) == 225440
+    # K3 at In=256, H=512: its eight x boxes do not fit beside the h tile,
+    # so it keeps the exchange schedule's layout (the forward's with dW
+    # and a tile's dgates); and K3 past 768 columns of [x | h]
     assert pl.fused_f32_smem("bwd", 256, 512) == 4 * (
         16 * 516 + 4096 + 2 * (64 * 132 + 2560) + 16 * 768 + 1024)
+    assert pl.fused_f32_smem("bwd", 640, 256) == 4 * (
+        16 * 260 + 4096 + 2 * (64 * 132 + 2560) + 16 * 896 + 1024)
+
+
+@pytest.mark.parametrize("B", [1, 64, 70, 256])
+def test_f32_bwd_plan_takes_split_k_where_it_fits(B):
+    """The f32 backwards' schedule (``fused_f32_bwd_plan``, the mirror of
+    ``schedule_of`` and ``work_floats`` in ``csrc/lstm_fused_bwd_f32.cu``;
+    ``chip_smoke.py`` holds it against the C plan): split-K where its
+    layout fits, whatever B, its partials (2, H/4, min(B, 64), In + H) (K4:
+    H columns); else the exchange schedule and its (2, B, 4H) exchange
+    buffer (K3) and (B, 4H) pre-activations. MD_VAE's f32 layers under
+    MLVAE_PALLAS_FUSED=1 (H=512: K3 at In=128, K4 at In=512 and 640) take
+    split-K."""
+    split = pl.F32_SPLIT
+    for kind, In, H, slots in (("bwd", 128, 512, 4), ("semi", 512, 512, 4),
+                               ("semi", 640, 512, 4), ("semi", 8, 512, 1),
+                               ("bwd", 512, 128, 16), ("bwd", 8, 16, 1),
+                               ("semi", 6400, 128, 4), ("semi", 8, 528, 1),
+                               ("semi", 512, 528, 3), ("bwd", 96, 528, 3),
+                               ("bwd", 384, 256, 12)):
+        plan = pl.fused_f32_bwd_plan(kind, In, H, B)
+        cols = H if kind == "semi" else In + H
+        assert plan == (split, slots, pl.fused_f32_smem(kind, In, H),
+                        2 * (H // 4) * min(B, 64) * cols), (kind, In, H)
+        assert plan.smem <= pl.SMEM_LIMIT
+    # K3 where x's boxes do not all fit (In=256 at H=512, 128 at H=528,
+    # 512 at H=256) or In + H passes 768 columns (In=640 at H=256)
+    for In, H in ((256, 512), (128, 528), (512, 256), (640, 256),
+                  (1024, 256)):
+        plan = pl.fused_f32_bwd_plan("bwd", In, H, B)
+        assert plan == (pl.F32_EXCHANGE, 0, pl.fused_f32_smem("bwd", In, H),
+                        3 * B * 4 * H), (In, H)
+
+
+def test_f32_bwd_split_layout_covers_every_h():
+    """K4 takes split-K at every H the fused kernels take (one x slot at
+    least beside the h tile); K3 at every H for In up to 64."""
+    for H in range(16, 529, 16):
+        for In in (8, 64):
+            for kind in ("bwd", "semi"):
+                plan = pl.fused_f32_bwd_plan(kind, In, H, 64)
+                assert plan.schedule == pl.F32_SPLIT, (kind, In, H)
+                assert plan.smem <= pl.SMEM_LIMIT
 
 
 def test_k3_width_is_refused_in_bf16_too():
