@@ -2,8 +2,8 @@
 """Time the port's recurrence kernels and its steps in two checkouts on one
 NVIDIA card, in turns.
 
-    python3 chip_ab.py [--only lstm_bwd|fbank|unroll|fused_f32_bwd]
-                       OTHER_CHECKOUT [...]
+    python3 chip_ab.py [--only lstm_bwd|fbank|unroll|fused_f32_bwd|
+                              fused_f32_fwd] OTHER_CHECKOUT [...]
 
 runs OTHER_CHECKOUT, this checkout, this checkout, OTHER_CHECKOUT (with
 several, the others in order, this checkout twice, the others in reverse
@@ -41,8 +41,15 @@ times), and ``--only fused_f32_bwd`` the fused backwards on f32 streams
 alone (K3-bwd at In=128, K4-bwd at In=512, T=160, H=512: times at B=64,
 70 and 256, digests of both directions' outputs at B=64 and 70; and
 digests of K3/K4-fwd f32 at In 128 and 512 and of K7b f32 at K 2, 4, 8,
-both directions, at B=64 and 128), to hold the steps of a redesign
-against each other in one run.
+both directions, at B=64 and 128), and ``--only fused_f32_fwd`` the fused
+forwards on f32 streams alone (K3/K4-fwd at In 128 and 512, T=160,
+H=512: times at B=64, 70 and 128, digests of both directions at B=64 and
+70; K7b at B=128, In=512, K 2, 4, 8: times and digests; and the
+digests of K3-bwd (In=128) and K4-bwd (In=512) at B=64 and 70, both
+directions, on the plain forward's hs and cs, so that they read the same
+inputs in every checkout), to hold the steps of a redesign against each
+other in one run. After the runs a last line ``AB digests`` names the
+digests equal in every checkout and those that differ.
 It needs a CUDA card and exits non-zero without one.
 """
 from __future__ import annotations
@@ -213,8 +220,59 @@ def time_fused_f32_bwd(root: Path) -> dict:
     return out
 
 
+F32_FWD_BATCHES = (64, 70, 128)
+
+
+def time_fused_f32_fwd(root: Path) -> dict:
+    """K3/K4-fwd (In 128 and 512) and K7b (K 2, 4, 8 at B=128, In=512) on
+    f32 streams in one checkout, in this process, at T=160, H=512: their
+    times (K3/K4-fwd at B=64, 70 and 128), the digests of their outputs in
+    both directions (K3/K4-fwd at B=64 and 70), and the digests of K3-bwd
+    (In=128) and K4-bwd (In=512) on f32 streams at B=64 and 70, both
+    directions, on the plain forward's hs and cs: the backwards' bits on
+    inputs that do not depend on the forward kernel."""
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    from mlvae_tpu_torch import _build
+    from mlvae_tpu_torch.device import resolve_device
+    from mlvae_tpu_torch.ops import lstm as L
+    from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
+    import torch
+    dev = resolve_device(None)
+    _build.build(["lstm_fused_fwd_f32", "lstm_fused_bwd_f32"])
+    T, H = 160, 512
+    out = {}
+    for In, bwd in ((128, "lstm_fused_bwd"), (512, "lstm_semi_bwd")):
+        g = torch.Generator(device=dev).manual_seed(19)
+        for B in F32_FWD_BATCHES:
+            prob = cs.f32_problem(g, dev, T, B, In, H)
+            out[f"lstm_fused_fwd_f32_In{In}_B{B}"] = cs.cuda_ms(
+                lambda: L.lstm_fused_fwd(*prob), iters=10)
+            if B == 128:
+                continue
+            for reverse in (False, True):
+                sfx = f"In{In}_B{B}" + ("_reverse" if reverse else "")
+                out[f"digest_lstm_fused_fwd_f32_{sfx}"] = digest(
+                    L.lstm_fused_fwd(*prob, reverse))
+                hs, cs_ = L.lstm_fused_fwd_ref(*prob, reverse)
+                dhs, dc = cs.f32_cotangents(g, dev, T, B, H)
+                out[f"digest_{bwd}_f32_on_plain_{sfx}"] = digest(
+                    getattr(L, bwd)(*prob, hs, cs_, dhs, dc, reverse))
+    g = torch.Generator(device=dev).manual_seed(20)
+    prob = cs.f32_problem(g, dev, T, 128, 512, H)
+    for K in UNROLL_KS:
+        out[f"lstm_unroll_fused_fwd_f32_K{K}"] = cs.cuda_ms(
+            lambda: LU.run_fwd_fused_k(*prob, False, K), iters=10)
+        for reverse in (False, True):
+            out[f"digest_lstm_unroll_fused_fwd_f32_K{K}"
+                + ("_reverse" if reverse else "")] = digest(
+                LU.run_fwd_fused_k(*prob, reverse, K))
+    return out
+
+
 ONLY = {"lstm_bwd": time_lstm_bwd, "fbank": time_fbank_alone,
-        "unroll": time_unroll_alone, "fused_f32_bwd": time_fused_f32_bwd}
+        "unroll": time_unroll_alone, "fused_f32_bwd": time_fused_f32_bwd,
+        "fused_f32_fwd": time_fused_f32_fwd}
 
 
 def time_checkout(root: Path) -> dict:
@@ -474,12 +532,30 @@ def main(argv) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    digests = {}   # key -> {checkout: digest}
     for root in (*others, HERE, HERE, *others[::-1]):
         res = subprocess.run([sys.executable, str(HERE / "chip_ab.py"),
                               "--time", str(root), *only], cwd=root,
-                             timeout=900)
+                             timeout=900, capture_output=True, text=True)
+        print(res.stdout, end="", flush=True)
+        print(res.stderr, end="", file=sys.stderr, flush=True)
         if res.returncode:
             return res.returncode
+        for line in res.stdout.splitlines():
+            if line.startswith("AB "):
+                _, where, payload = line.split(" ", 2)
+                for k, v in json.loads(payload).items():
+                    if k.startswith("digest_"):
+                        digests.setdefault(k, {}).setdefault(
+                            where, set()).add(v)
+    roots = {str(r) for r in (*others, HERE)}
+    seen = {k: by for k, by in digests.items() if set(by) == roots}
+    equal = sorted(k for k, by in seen.items()
+                   if len(set().union(*by.values())) == 1)
+    print("AB digests", json.dumps({
+        "equal": equal, "differ": sorted(set(seen) - set(equal)),
+        "not_in_every_checkout": sorted(set(digests) - set(seen))}),
+        flush=True)
     return 0
 
 

@@ -19,7 +19,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    dW_hh kernel) at H=512, 208 and 528 against ``ops.gru.k5_plan``,
    and the K7 builds' (K7a in f32 and on bf16 streams, K7b on bf16
    streams; K 1, 2, 4, 8 at B 1 to 320) against
-   ``ops.lstm_unroll_exp.k7a_plan`` / ``k7b_plan``;
+   ``ops.lstm_unroll_exp.k7a_plan`` / ``k7b_plan``, and the f32
+   K3/K4-fwd and K7b build's (item slots, h ring, x slots, threads,
+   shared memory, scratch) at every H from 16 to 528, In 4 to 2048, B 1
+   to 1000 and K 1, 2, 4, 8 against ``ops.lstm.fused_f32_fwd_plan``, with
+   its kernel's registers and local bytes;
 2. each kernel against its plain PyTorch version on the card, at the
    slices' shapes (B=64, T=160, H=512; the fused kernels at In=128, 512
    and 1024 as the AMP step gives them; the MD-Viterbi decode K2, one
@@ -44,11 +48,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    (B=128, T=160, H=512, In 512 and 128, K 2, 4, 8, both directions): K7a
    in f32 bit-equal to K1-fwd, K7a on bf16 streams bit-equal to the bf16
    K1-fwd (its tensor-core build), K7b bit-equal to K3/K4-fwd, the twins
-   against the plain versions, the three builds bit-equal to their twins
-   at B 63, 65, 200, 256, 320 (T=16 at each K; T=1 and 2), K7 at T=K,
-   ragged B and narrower H against the plain versions (bf16 K7a refusing
-   H=64), a few repeated launches, and a T that is not a multiple of K
-   refused;
+   against the plain versions, the three builds and K7b on f32 streams
+   bit-equal to their twins at B 63, 65, 200, 256, 320 (T=16 at each K;
+   T=1 and 2) and over a few repeated launches, K7 at T=K, ragged B and
+   narrower H against the plain versions (bf16 K7a refusing H=64), and a
+   T that is not a multiple of K refused;
    K3-bwd and K4-bwd also at the JAX bench's B=256, at T=2 beside T=1,
    at B=320 (their serial schedule), and 50 repeated launches per
    direction each bit-equal to the first; K1-fwd and K3/K4-fwd also at
@@ -243,7 +247,12 @@ Phases, each reported on its own line; any failure exits non-zero:
    and the exchange schedule at H=256, In=640; hs and cs within 1e-4,
    every backward output within 1e-4 of its largest entry), 10 repeated
    forward and 50 backward launches per case and direction bit-equal to
-   the first, K7b on f32 streams at K 2, 4, 8 (B=128, In=512) bit-equal
+   the first, K3/K4-fwd on f32 streams alone at H 512 and 528, In 128,
+   256, 512 and 640, B 1, 64, 70, 128, 256 and 320 (T=160), T 1 and 2,
+   both directions (hs and cs within 1e-4), its two entries refusing a
+   scratch one float short of their plan, K7b on f32 streams at K 2, 4,
+   8 (B=128, In=512; phase 2 holds it at the K7 ragged batches too,
+   beside the other K7 builds) bit-equal
    to K3/K4-fwd on f32 streams; MD_VAE at full width under ``MLVAE_PALLAS_FUSED=1`` (one f32
    train step of each target and the TEST eval forward against the plain
    versions, launches exact as reckoned from the JAX f32 budgets and
@@ -275,8 +284,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    ``torch.matmul`` of its operands, the gate-3 train step in f32 and
    under AMP (and a profile of each), K7a (f32, bf16) and
    K7b per K beside K1-fwd and K3/K4-fwd at B=128, their bounds, plain
-   versions and cuDNN's LSTM layer, and the three redesigned K7 builds
-   in turns with their twins and cuDNN (medians, spreads, us a step,
+   versions and cuDNN's LSTM layer, and the four redesigned K7 builds
+   (K7b on f32 streams among them) in turns with their twins and cuDNN
+   of the stream dtype, TF32 off (medians, spreads, us a step,
    cuDNN's kernels alone), K3-bwd (In 32, 128, 512) and K4-bwd
    (In 1024) at B=64 and K3-bwd In=512, K4-bwd at B=256 in turns with
    cuDNN's bf16 backward of the same layer (kernel, cuDNN, cuDNN, kernel,
@@ -311,7 +321,8 @@ Phases, each reported on its own line; any failure exits non-zero:
    f32 fused builds at H=512, B=64, T=160 in turns with the unfused f32
    route and cuDNN's f32 layer (TF32 off), beside their bounds and plain
    versions, the backwards also at B=70 and 256, the backwards' timeline
-   in the schedule each shape takes (K3 at In=256 the exchange schedule),
+   in the schedule each shape takes (K3 at In=256 the exchange schedule)
+   and the forward's (the f32 rows of ``tools/bench_fwd_timeline.py``),
    and MD_VAE's f32 VAE step under
    ``MLVAE_PALLAS_FUSED=1``
    against the default in turns, with a profile of each;
@@ -1671,30 +1682,31 @@ def bit_equal(got, want) -> bool:
 
 def unroll_twin(name, prob, reverse):
     """The one-step twin of a K7 build on its input: K1-fwd of the stream
-    dtype (its tensor-core build on bf16 streams) for K7a, K3/K4-fwd for
-    K7b."""
+    dtype (its tensor-core build on bf16 streams) for K7a, K3/K4-fwd of the
+    stream dtype for K7b."""
     from mlvae_tpu_torch.ops import lstm as L
-    if name == "lstm_unroll_fused_fwd":
+    if name.startswith("lstm_unroll_fused_fwd"):
         return L.lstm_fused_fwd(*prob, reverse)
     return L.lstm_layer_fwd(*prob, reverse)
 
 
 def unroll_run(name, prob, reverse, K):
     from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
-    if name == "lstm_unroll_fused_fwd":
+    if name.startswith("lstm_unroll_fused_fwd"):
         return LU.run_fwd_fused_k(*prob, reverse, K)
     return LU.run_fwd_k(*prob, reverse, K)
 
 
 def unroll_builds(g, dev, T, B, H=512, In=512):
-    """(build, input) of the three redesigned K7 builds at one shape: K7a
-    in f32 and on bf16 streams, K7b on bf16 streams at ``In``."""
+    """(build, input) of the four redesigned K7 builds at one shape: K7a
+    in f32 and on bf16 streams, K7b on bf16 and f32 streams at ``In``."""
     import torch
     return (("lstm_unroll_fwd", unroll_problem(g, dev, T, B, H,
                                                torch.float32)),
             ("lstm_unroll_fwd_bf16", unroll_problem(g, dev, T, B, H,
                                                     torch.bfloat16)),
-            ("lstm_unroll_fused_fwd", fused_problem(g, dev, T, B, In, H)))
+            ("lstm_unroll_fused_fwd", fused_problem(g, dev, T, B, In, H)),
+            ("lstm_unroll_fused_fwd_f32", f32_problem(g, dev, T, B, In, H)))
 
 
 def check_unroll(dev, report, T=160, B=128, H=512):
@@ -1870,6 +1882,45 @@ def unroll_plans(dev, report):
            f"differ; registers, local bytes a thread {spills}"
            + (f"; first: {bad[0]}" if bad else ""))
     check(not bad, f"K7 launch plans differ from the host's: {bad[:4]}")
+    return out
+
+
+def fused_f32_fwd_plans(dev, report):
+    """Phase 1: the f32 forward's launch plan (K3/K4-fwd, and K7b with K)
+    as its C code computes it (``ops.lstm.fused_f32_fwd_launch_plan``)
+    against the CPU mirror ``ops.lstm.fused_f32_fwd_plan`` at every H the
+    fused kernels take (16 to 528, step 16), In 4 to 2048, B 1 to 1000 and
+    K 1, 2, 4, 8; then the kernel's registers and local bytes a thread.
+    Returns the plans at the main path's shapes."""
+    from mlvae_tpu_torch.ops import lstm as L
+    keys = ("schedule", "slots", "ring", "xslots", "threads", "smem",
+            "scratch")
+    npts, differ = 0, []
+    for H in range(16, 529, 16):
+        for In in (4, 8, 36, 120, 128, 256, 512, 640, 1024, 2048):
+            for B in (1, 63, 64, 65, 70, 128, 200, 256, 320, 1000):
+                for K in (1, *UNROLL_KS):
+                    c = L.fused_f32_fwd_launch_plan.__wrapped__(In, H, B, K)
+                    py = L.fused_f32_fwd_plan(In, H, B, K)
+                    npts += 1
+                    if tuple(c[n] for n in keys) != tuple(py):
+                        differ.append((In, H, B, K, c, py))
+    out = {f"In={In} H={H} B={B} K={K}": L.fused_f32_fwd_launch_plan(
+        In, H, B, K) for In, H, B, K in ((128, 512, 64, 1), (512, 512, 64, 1),
+                                          (512, 512, 128, 1),
+                                          *((512, 512, 128, K)
+                                            for K in UNROLL_KS))}
+    regs = next(iter(out.values()))
+    report(f"  plan f32 K3/K4-fwd and K7b: the C plan against "
+           f"ops.lstm.fused_f32_fwd_plan at {npts} (In, H, B, K): "
+           f"{len(differ)} differ" + (f"; first: {differ[:2]}" if differ
+                                      else "")
+           + f"; lstm_fused_fwd_f32_kernel {regs['registers']} registers, "
+           f"{regs['local_bytes']} B local a thread; at the main shapes "
+           + "; ".join(f"{k}: slots {v['slots']}, ring {v['ring']}, "
+                       f"{v['smem']} B" for k, v in out.items()))
+    check(not differ, f"the f32 forward's plan differs at {len(differ)} "
+          "points")
     return out
 
 
@@ -4089,8 +4140,9 @@ def time_fwd_yard(dev, report, cases, T=160, H=512, rounds=FWD_YARD_ROUNDS):
 
 def time_fwd_timeline(dev, report):
     """The step timeline of K1-fwd, K3/K4-fwd, the wide K1-fwd on bf16
-    streams and the K7 builds beside their twins at the unroll bench's
-    shape (their timing builds, tools/bench_fwd_timeline.py):
+    streams, the K7 builds beside their twins at the unroll bench's shape,
+    and K3/K4-fwd (In 128 and 512, B=64) and K7b (B=128, K=2) on f32
+    streams (their timing builds, tools/bench_fwd_timeline.py):
     microseconds a step of each phase."""
     from mlvae_tpu_torch.tools import bench_fwd_timeline as ftl
     res = ftl.bench(dev)
@@ -4522,7 +4574,7 @@ def time_gru(dev, report, errs, counts, T=160, B=64, H=512, In=120,
 
 
 def time_unroll_yard(dev, report, rounds=UNROLL_YARD_ROUNDS):
-    """K7a (f32, bf16) and K7b on bf16 streams at the unroll bench's shape
+    """K7a (f32, bf16) and K7b (bf16, f32) at the unroll bench's shape
     (B=128, T=160, H=512, In=512), each in turns with its one-step twin and
     cuDNN's one-layer LSTM with its input projection in the stream dtype
     (TF32 off): K 2, 4, 8, twin, cuDNN, then in reverse, ``rounds`` times.
@@ -4539,10 +4591,10 @@ def time_unroll_yard(dev, report, rounds=UNROLL_YARD_ROUNDS):
     try:
         for name, prob in unroll_builds(g, dev, T, B, H, In):
             dt = prob[0].dtype
-            cudnn = torch.nn.LSTM(In if name == "lstm_unroll_fused_fwd"
-                                  else H, H, 1).to(dev, dt)
+            fused = name.startswith("lstm_unroll_fused_fwd")
+            cudnn = torch.nn.LSTM(In if fused else H, H, 1).to(dev, dt)
             cudnn.flatten_parameters()
-            x = (prob[0] if name == "lstm_unroll_fused_fwd" else
+            x = (prob[0] if fused else
                  torch.randn((T, B, H), generator=g, device=dev).to(dt))
             timers = [(lambda iters, K=K: cuda_ms(
                 lambda: unroll_run(name, prob, False, K), iters=iters,
@@ -4570,7 +4622,7 @@ def time_unroll_yard(dev, report, rounds=UNROLL_YARD_ROUNDS):
                             "kernels_alone_ms": alone}
             out[name] = row
             report(f"  {name} B={B} T={T} H={H}"
-                   + (f" In={In}" if name == "lstm_unroll_fused_fwd" else "")
+                   + (f" In={In}" if fused else "")
                    + f" in turns: " + ", ".join(
                        f"K={K} {row[f'K={K}']['ms']:.4f} "
                        f"({row[f'K={K}']['spread'][0]:.4f}-"
@@ -4695,6 +4747,7 @@ def time_unroll(dev, report, res, errs, counts):
              library_ms=fused32["library_ms"],
              shape=f"T={T} B={B} In={In} H={H} f32 K={K}",
              ms_by_k=by_k(fused32), twin_ms=fused32["twin_ms"],
+             in_turns=yard["lstm_unroll_fused_fwd_f32"],
              **counts["lstm_unroll_fused_fwd_f32"]),
     ]
 
@@ -7161,11 +7214,12 @@ def f32_cotangents(g, dev, T, B, H):
 
 
 def check_fused_f32(dev, report, H=512):
-    """The f32 builds' shared memory and the backwards' plans as their C
-    code computes them against ``ops.lstm.fused_f32_smem`` and
-    ``fused_f32_bwd_plan`` (the CPU tests' mirrors), the plans at every
-    admitted (In, H) and B 1, 64, 70 and 256, and the registers and local
-    memory of each backward kernel a launch can take; each f32 build against
+    """The f32 backwards' shared memory and plans as their C code computes
+    them against ``ops.lstm.fused_f32_smem`` and ``fused_f32_bwd_plan``
+    (the CPU tests' mirrors; the forward's plan is phase 1's), the plans at
+    every admitted (In, H) and B 1, 64, 70 and 256, and the registers and
+    local memory of each backward kernel a launch can take; K3/K4-fwd alone
+    over ``F32_FWD_GRID`` (``check_fused_f32_fwd``); each f32 build against
     its plain version at H=512: K3/K4-fwd at In=128, 256 and 512 (MD_VAE's
     widths under MLVAE_PALLAS_FUSED=1, and K3's widest at H=512), K3-bwd at
     In=128 (split-K) and 256 (the exchange schedule) and K4-bwd at In=512,
@@ -7183,9 +7237,9 @@ def check_fused_f32(dev, report, H=512):
             "lstm_semi_bwd": ("dgx", "dW_hh")}
     plans = {(k, In): (L.fused_f32_launch_smem(k, In, H),
                        L.fused_f32_smem(k, In, H))
-             for k, In in (("fwd", 128), ("fwd", 512), ("bwd", 128),
-                           ("bwd", 256), ("semi", 512), ("semi", 640))}
-    report(f"  f32 builds' shared memory at H={H}, the C plan against "
+             for k, In in (("bwd", 128), ("bwd", 256), ("semi", 512),
+                           ("semi", 640))}
+    report(f"  f32 backwards' shared memory at H={H}, the C plan against "
            "ops.lstm.fused_f32_smem: " + ", ".join(
                f"{k} In={In} {c}/{py}" for (k, In), (c, py) in plans.items()))
     check(all(c == py for c, py in plans.values()),
@@ -7292,6 +7346,73 @@ def check_fused_f32(dev, report, H=512):
     report(f"  f32 backwards refuse a work scratch one float short: "
            f"{refused}")
     check(all(refused.values()), f"an f32 backward took a short work "
+          f"scratch: {refused}")
+    worst["lstm_fused_fwd_f32"] = max(worst["lstm_fused_fwd_f32"],
+                                      check_fused_f32_fwd(dev, report, g))
+    return worst
+
+
+# K3/K4-fwd f32 alone: (H, In, (T, B) cases); every B the main path and the
+# unroll path give it, ragged B, four and five tiles, T=1 and 2
+F32_FWD_GRID = tuple(
+    (H, In, ((160, 1), (160, 64), (160, 70), (160, 128), (160, 256),
+             (160, 320), (1, 64), (2, 64), (2, 70)))
+    for H in (512, 528) for In in (128, 256, 512, 640))
+
+
+def check_fused_f32_fwd(dev, report, g):
+    """K3/K4-fwd on f32 streams against its plain version over
+    ``F32_FWD_GRID``, both directions (hs and cs within LSTM_ATOL), and
+    that its entries refuse a scratch one float short of their plan's.
+    Returns the worst max abs error at T=160, B=64, H=512, In 128 and
+    512."""
+    import torch
+    from mlvae_tpu_torch import _build
+    from mlvae_tpu_torch.ops import lstm as L
+    from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
+    worst, errs, n = 0.0, {}, 0
+    for H, In, cases in F32_FWD_GRID:
+        for T, B in cases:
+            for reverse in (False, True):
+                prob = f32_problem(g, dev, T, B, In, H)
+                got = L.lstm_fused_fwd(*prob, reverse)
+                want = L.lstm_fused_fwd_ref(*prob, reverse)
+                torch.cuda.synchronize()
+                hs_err, cs_err, _ = fused_fwd_errors(got, want)
+                n += 1
+                errs[(H, In, T, B, reverse)] = max(hs_err, cs_err)
+                if (H, T, B) == (512, 160, 64) and In in (128, 512):
+                    worst = max(worst, hs_err, cs_err)
+    bad = {k: e for k, e in errs.items() if e > LSTM_ATOL}
+    top = max(errs, key=errs.get)
+    report(f"  f32 lstm_fused_fwd alone at H 512 and 528, In 128, 256, "
+           f"512 and 640, (T, B) {list(F32_FWD_GRID[0][2])}, both "
+           f"directions: {n} launches, worst max abs error of hs and cs "
+           f"{errs[top]:.3e} at (H, In, T, B, reverse) {top} (tol "
+           f"{LSTM_ATOL:g}); {len(bad)} past it" + (
+               f": {list(bad.items())[:4]}" if bad else ""))
+    check(not bad, f"f32 lstm_fused_fwd disagrees at {len(bad)} shapes")
+    # both entries refuse a scratch one float short of the plan's
+    refused = {}
+    x, w_ih, bias, w_hh = prob = f32_problem(g, dev, 2, 64, 128, 512)
+    floats = L.fused_f32_fwd_launch_plan(128, 512, 64, 2)["scratch"]
+    scratch = torch.empty((floats,), device=dev, dtype=torch.float32)
+    hs = torch.empty((2, 64, 512), device=dev)
+    cs = torch.empty_like(hs)
+    barrier = torch.zeros((1,), device=dev, dtype=torch.int32)
+    for name, kern, ks in (("lstm_fused_fwd_f32", L.LSTM_FUSED_FWD_F32, ()),
+                           ("lstm_unroll_fused_fwd_f32",
+                            LU.LSTM_UNROLL_FUSED_FWD_F32, (2,))):
+        try:
+            kern(*(t.data_ptr() for t in (*prob, hs, cs, scratch, barrier)),
+                 2, 64, 128, 512, *ks, 0, floats - 1,
+                 _build.stream_handle(dev))
+            refused[name] = False
+        except RuntimeError:
+            refused[name] = True
+    report(f"  f32 forward entries refuse a scratch one float short: "
+           f"{refused}")
+    check(all(refused.values()), f"an f32 forward entry took a short "
           f"scratch: {refused}")
     return worst
 
@@ -7788,6 +7909,7 @@ def main(argv=None) -> int:
     plans = wide_plans(dev, report)
     k5_plans = gru_plans(dev, report)
     k7_plans = unroll_plans(dev, report)
+    f32_fwd_plans = fused_f32_fwd_plans(dev, report)
 
     report("phase 2 kernels against their plain versions on the card")
     errs = {"lstm": max(check_lstm(dev, report),
@@ -8075,6 +8197,7 @@ def main(argv=None) -> int:
                        "sfl_train_step": sfl_step,
                        "gate3_train_step": gate3_step,
                        "gru_plans": k5_plans, "k7_plans": k7_plans,
+                       "f32_fwd_plans": f32_fwd_plans,
                        "crdnn_ctc": crdnn,
                        "hmm_dnn_ali": hmm_step,
                        "bwd_timeline": bwd_timeline,

@@ -44,8 +44,9 @@ SOURCES = ("lstm_fwd", "lstm_bwd", "md_viterbi", "lstm_fused_fwd",
 # bf16 streams and K5-bwd on bf16 streams with their own step timeline in
 # the same tool (their own define), and so K5-bwd and the wide K1-bwd in
 # f32; the forwards K1-fwd, K3/K4-fwd, the wide K1-fwd and K5-fwd in f32
-# and on bf16 streams, and K7a (f32 and bf16) and K7b on bf16 streams,
-# with the step timeline of tools/bench_fwd_timeline.py; and K3-bwd and
+# and on bf16 streams, K7a (f32 and bf16) and K7b on bf16 streams, and
+# K3/K4-fwd and K7b on f32 streams (one library, both entries), with the
+# step timeline of tools/bench_fwd_timeline.py; and K3-bwd and
 # K4-bwd on f32 streams (one library, both entries) with the first define.
 # No build in SOURCES has any of these defines.
 TIMELINE_DEFINE = "-DMLVAE_BWD_TIMELINE"
@@ -53,7 +54,8 @@ K1_BWD_TIMELINE_DEFINE = "-DMLVAE_K1_BWD_TIMELINE"
 FWD_TIMELINE_DEFINE = "-DMLVAE_FWD_TIMELINE"
 FWD_TIMED = ("lstm_fwd", "lstm_fused_fwd", "lstm_fwd_wide_bf16",
              "gru_fwd_bf16", "gru_fwd", "lstm_fwd_wide", "lstm_unroll_fwd",
-             "lstm_unroll_fwd_bf16", "lstm_unroll_fused_fwd")
+             "lstm_unroll_fwd_bf16", "lstm_unroll_fused_fwd",
+             "lstm_fused_fwd_f32")
 ABLATION_ROWS = (0, 32)
 VARIANTS = {f"{src}_timeline{suffix}": (src, [TIMELINE_DEFINE, *flags])
             for src in ("lstm_fused_bwd", "lstm_semi_bwd")

@@ -1,5 +1,6 @@
-// Shared pieces of the fused-projection LSTM kernels on f32 streams: K3/K4-fwd
-// and K7b (lstm_fused_fwd_f32.cu), K3-bwd and K4-bwd (lstm_fused_bwd_f32.cu).
+// Pieces of the fused-projection LSTM backwards on f32 streams, K3-bwd and
+// K4-bwd (lstm_fused_bwd_f32.cu), in their exchange schedule; the f32
+// K3/K4-fwd and K7b (lstm_fused_fwd_f32.cu) have a layout of their own.
 //
 // They run the bf16 fused kernels' contract (lstm_fused_common.cuh) with
 // every operand f32 and every product an exact f32 FMA (no tensor cores, no

@@ -89,7 +89,7 @@ LSTM_SEMI_BWD = _build.register(_build.Kernel(
 # the same three on f32 streams; K3-bwd and K4-bwd share one source
 LSTM_FUSED_FWD_F32 = _build.register(_build.Kernel(
     "lstm_fused_fwd_f32", "lstm_fused_fwd_f32", "mlvae_lstm_fused_fwd_f32",
-    [_P] * 8 + [_I] * 5 + [_P]))
+    [_P] * 8 + [_I] * 5 + [_LL, _P]))
 LSTM_FUSED_BWD_F32 = _build.register(_build.Kernel(
     "lstm_fused_bwd_f32", "lstm_fused_bwd_f32", "mlvae_lstm_fused_bwd_f32",
     [_P] * 15 + [_I] * 5 + [_LL, _P]))
@@ -565,29 +565,29 @@ SMEM_LIMIT = 232448   # an H100 block's shared memory, bytes
 
 
 def fused_f32_smem(kind: str, In: int, H: int) -> int:
-    """Shared memory bytes of a launch of the f32 fused builds, as
-    ``smem_bytes`` of ``csrc/lstm_fused_fwd_f32.cu`` (``kind`` "fwd") and
+    """Shared memory bytes of a launch of the f32 fused backwards, as
     ``smem_of`` of ``csrc/lstm_fused_bwd_f32.cu`` ("bwd": K3, "semi": K4)
-    compute it, whatever B. The forward: the block's 16 rows of W_hh (pitch
-    H + 4), the partial sums (4 x 64 x 16) and two stages of a 64 x 128
-    chunk (pitch 132) and its weights (2,560 floats). The backwards, in the
-    split-K schedule (``fused_f32_bwd_plan``): the h tile (64 x 32 boxes
-    over H), the x slots, W_hh's 16 rows, the split-K sums (4 x 64 x 16),
-    the dgates (64 x 16) and an mbarrier a box and slot; in the exchange
-    schedule the forward's layout, their dW (16 x (In + H), K4 16 x H) and
-    a tile's own dgates (64 x 16). f32 throughout; the launch refuses more
-    than ``SMEM_LIMIT``."""
-    if kind != "fwd":
-        slots, smem = _f32_split_layout(kind == "semi", In, H)
-        if slots:
-            return smem
+    computes it, whatever B: in the split-K schedule
+    (``fused_f32_bwd_plan``) the h tile (64 x 32 boxes over H), the x
+    slots, W_hh's 16 rows, the split-K sums (4 x 64 x 16), the dgates (64 x
+    16) and an mbarrier a box and slot; in the exchange schedule W_hh's 16
+    rows (pitch H + 4), the partial sums (4 x 64 x 16), two stages of a 64
+    x 128 chunk (pitch 132) and its weights (2,560 floats), their dW (16 x
+    (In + H), K4 16 x H) and a tile's own dgates (64 x 16). f32
+    throughout; the launch refuses more than ``SMEM_LIMIT``. The forward's
+    layout depends on B and K: ``fused_f32_fwd_plan``."""
+    if kind not in ("bwd", "semi"):
+        raise ValueError(f"fused_f32_smem: kind {kind!r} is not 'bwd' or "
+                         "'semi' (the forward: fused_f32_fwd_plan)")
+    slots, smem = _f32_split_layout(kind == "semi", In, H)
+    if slots:
+        return smem
     return _f32_exchange_smem(kind, In, H)
 
 
 def _f32_exchange_smem(kind: str, In: int, H: int) -> int:
     floats = 16 * (H + 4) + 4 * 64 * 16 + 2 * (64 * 132 + 128 * 4 * 5)
-    if kind != "fwd":
-        floats += 16 * (H if kind == "semi" else In + H) + 16 * 64
+    floats += 16 * (H if kind == "semi" else In + H) + 16 * 64
     return 4 * floats
 
 
@@ -649,13 +649,134 @@ def fused_f32_bwd_plan(kind: str, In: int, H: int, B: int) -> F32BwdPlan:
 
 
 def fused_f32_launch_smem(kind: str, In: int, H: int) -> int:
-    """``fused_f32_smem`` as the C code of the build computes it (its
-    ``*_smem`` entry point; builds the library, launches nothing)."""
-    src = "lstm_fused_fwd_f32" if kind == "fwd" else "lstm_fused_bwd_f32"
-    fn = getattr(_build.library(src), f"mlvae_{src}_smem")
-    args = (H,) if kind == "fwd" else (In, H, int(kind == "semi"))
-    fn.argtypes, fn.restype = [_I] * len(args), _I
-    return int(fn(*args))
+    """``fused_f32_smem`` as the C code of the backwards' build computes it
+    (its ``_smem`` entry point; builds the library, launches nothing)."""
+    fn = _build.library("lstm_fused_bwd_f32").mlvae_lstm_fused_bwd_f32_smem
+    fn.argtypes, fn.restype = [_I] * 3, _I
+    return int(fn(In, H, int(kind == "semi")))
+
+
+# The f32 forward's layout (csrc/lstm_fused_fwd_f32.cu): 544 threads, the
+# recurrence's eight warps, the producer's eight and the issuer's one; x
+# slots of a 64 x 32 box of x and W_ih's 16 rows of its columns; item
+# slots of 64 x 16 f32; an h copy H/16 rows x 64 columns, four a K slice
+# and 64-row tile
+F32_FWD_THREADS = 544
+F32_FWD_XSLOTS = 4
+F32_FWD_XSLOT = 64 * 32 + 16 * 32
+F32_FWD_ITEM = 64 * 16
+# the schedules of ``fused_f32_fwd_plan``: the producer a step ahead, or
+# streaming fewer tiles ahead than two steps hold
+F32_FWD_STREAM, F32_FWD_AHEAD = 0, 1
+
+
+class F32FwdPlan(NamedTuple):
+    schedule: int   # F32_FWD_STREAM or F32_FWD_AHEAD
+    slots: int      # item slots (an item: a step's 64-row batch tile)
+    ring: int       # h_{t-1} copies in flight a K slice
+    xslots: int     # x slots
+    threads: int    # threads a block
+    smem: int       # shared memory bytes
+    scratch: int    # floats of the scratch (the h ping-pong)
+
+
+def _f32_fwd_smem(H: int, nq: int, ns: int) -> int:
+    return (4 * (F32_FWD_XSLOTS * F32_FWD_XSLOT + 4 * nq * (H // 16) * 64
+                 + 16 * H + 4 * 64 * 16 + ns * F32_FWD_ITEM)
+            + 8 * (4 * nq + 2 * F32_FWD_XSLOTS + 2 * ns))
+
+
+def fused_f32_fwd_plan(In: int, H: int, B: int, K: int = 1) -> F32FwdPlan:
+    """The layout of an f32 K3/K4-fwd (K 1) or K7b (K steps a group)
+    launch, the CPU mirror of ``plan_of`` of ``csrc/lstm_fused_fwd_f32.cu``
+    (``chip_smoke.py`` holds it against the C plan). Shared memory: four x
+    slots (10 KB each), the h ring (``ring`` copies of H/16 x 64 f32 a K
+    slice, four slices), W_hh's 16 rows, the split-K partials (4 x 64 x
+    16), ``slots`` item slots (64 x 16) and their mbarriers. The slots ask
+    for two steps' tiles (K7b: K steps'), the ring every copy of a step
+    (four a tile); where both do not fit the ring gives way first down to
+    two, then the slots down to two steps, then the ring to one and the
+    slots to one. The scratch: the h ping-pong (2, H, Bp), Bp = B rounded
+    up to 4. A shape that no layout holds is refused with a ``ValueError``
+    naming it and its rule; H above 528 among them (the H/4 blocks of one
+    cooperative grid on an H100's 132 SMs)."""
+    name = f"fused_f32_fwd_plan(In={In}, H={H}, B={B}, K={K})"
+    if In < 4 or In % 4:
+        raise ValueError(f"{name}: In must be a positive multiple of 4")
+    if H < 16 or H % 16:
+        raise ValueError(f"{name}: H must be a positive multiple of 16")
+    if H > NARROW_MAX_H:
+        raise ValueError(f"{name}: H above {NARROW_MAX_H}: H/4 blocks of "
+                         "one cooperative grid, one an SM of an H100's 132")
+    if B < 1 or K < 1:
+        raise ValueError(f"{name}: B and K must be at least 1")
+    ntiles = -(-B // 64)
+    per, two = 4 * ntiles, 2 * ntiles
+    nq, ns = per, max(K, 2) * ntiles
+
+    def fits():
+        return _f32_fwd_smem(H, nq, ns) <= SMEM_LIMIT
+
+    while not fits() and nq > min(per, 2):
+        nq -= 1
+    while not fits() and ns > two:
+        ns -= 1
+    while not fits() and nq > 1:
+        nq -= 1
+    while not fits() and ns > 1:
+        ns -= 1
+    if not fits():
+        raise ValueError(f"{name}: even one h copy a slice and one item "
+                         f"slot pass {SMEM_LIMIT} bytes of shared memory")
+    return F32FwdPlan(F32_FWD_AHEAD if ns >= two else F32_FWD_STREAM, ns, nq,
+                      F32_FWD_XSLOTS, F32_FWD_THREADS,
+                      _f32_fwd_smem(H, nq, ns), 2 * H * hbuf_pitch(B))
+
+
+@functools.lru_cache(maxsize=1024)
+def fused_f32_fwd_launch_plan(In: int, H: int, B: int, K: int = 1) -> dict:
+    """The plan of an f32 K3/K4-fwd (K 1) or K7b launch at (In, H, B, K) as
+    the C code of the build computes it (``mlvae_lstm_fused_fwd_f32_plan``):
+    the fields of ``F32FwdPlan`` and the kernel's registers and local
+    memory bytes a thread. Builds the library; needs the card. Not a
+    launch: it counts nowhere."""
+    fn = _build.library("lstm_fused_fwd_f32").mlvae_lstm_fused_fwd_f32_plan
+    fn.argtypes = [_I] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 9)()
+    code = fn(In, H, B, K, out)
+    if code:
+        raise RuntimeError(f"lstm_fused_fwd_f32 plan at In={In}, H={H}, "
+                           f"B={B}, K={K}: CUDA error {code}")
+    keys = ("schedule", "slots", "ring", "xslots", "threads", "smem",
+            "scratch", "registers", "local_bytes")
+    return dict(zip(keys, map(int, out)))
+
+
+def f32_fwd_launch(kernel, inputs, reverse: bool, K=None,
+                   timeline=None):
+    """Launch ``kernel``, an entry of ``csrc/lstm_fused_fwd_f32.cu`` (K3/K4-
+    fwd, or K7b with ``K``, or their timing builds), on checked ``inputs``
+    (x, w_ih, bias, w_hh, f32) with the scratch that the C code's plan
+    sizes (``fused_f32_fwd_launch_plan``; the entry refuses a smaller
+    one); ``timeline`` the timing build's (T, H/4, 8) int64 buffer.
+    Returns (hs, cs)."""
+    x = inputs[0]
+    T, B, In = x.shape
+    H = inputs[3].shape[1]
+    hs = torch.empty((T, B, H), device=x.device, dtype=torch.float32)
+    cs = torch.empty((T, B, H), device=x.device, dtype=torch.float32)
+    if not (T and B):
+        return hs, cs
+    floats = fused_f32_fwd_launch_plan(In, H, B, K or 1)["scratch"]
+    scratch = torch.empty((floats,), device=x.device, dtype=torch.float32)
+    barrier = torch.zeros((1,), device=x.device, dtype=torch.int32)
+    ks = () if K is None else (K,)
+    extra = () if timeline is None else (timeline.data_ptr(),)
+    kernel(*(t.data_ptr() for t in (*inputs, hs, cs, scratch, barrier)), T,
+           B, In, H, *ks, int(reverse), floats, *extra,
+           _build.stream_handle(x.device))
+    return hs, cs
 
 
 # the kernels of an f32 backward's launch (``variant_of`` of
@@ -759,6 +880,9 @@ def lstm_fused_fwd(x, w_ih, bias, w_hh, reverse: bool = False):
     if x.device.type == "cpu":
         return lstm_fused_fwd_ref(x, w_ih, bias, w_hh, reverse)
     dtype = _check_fused("lstm_fused_fwd", x, w_ih, bias, w_hh)
+    if dtype == torch.float32:
+        return f32_fwd_launch(LSTM_FUSED_FWD_F32, (x, w_ih, bias, w_hh),
+                              reverse)
     T, B, In = x.shape
     H = w_hh.shape[1]
     hs = torch.empty((T, B, H), device=x.device, dtype=dtype)
@@ -766,18 +890,10 @@ def lstm_fused_fwd(x, w_ih, bias, w_hh, reverse: bool = False):
     barrier = torch.zeros((1,), device=x.device, dtype=torch.int32)
     if not (T and B):
         return hs, cs
-    stream = _build.stream_handle(x.device)
-    if dtype == torch.float32:
-        # the next step's input products, (B, 4H): each cell thread's own
-        xg = torch.empty((B, 4 * H), device=x.device, dtype=torch.float32)
-        LSTM_FUSED_FWD_F32(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
-                           w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                           xg.data_ptr(), barrier.data_ptr(), T, B, In, H,
-                           int(reverse), stream)
-    else:
-        LSTM_FUSED_FWD(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
-                       w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                       barrier.data_ptr(), T, B, In, H, int(reverse), stream)
+    LSTM_FUSED_FWD(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
+                   w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                   barrier.data_ptr(), T, B, In, H, int(reverse),
+                   _build.stream_handle(x.device))
     return hs, cs
 
 

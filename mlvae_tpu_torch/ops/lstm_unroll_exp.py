@@ -20,7 +20,7 @@ recurrence.
   (``ops.lstm.lstm_fused_fwd``) of its dtype. bf16 streams run
   ``csrc/lstm_unroll_fused_fwd.cu``; f32 streams the K entry point of
   K3/K4-fwd's f32 build (``csrc/lstm_fused_fwd_f32.cu``), registered as
-  its own kernel.
+  its own kernel, its layout ``ops.lstm.fused_f32_fwd_plan`` with K.
 
 Both are forward only, as the JAX module is. The contract is the JAX one:
 T a multiple of K (else ``ValueError``, on every device), hs in the stream
@@ -43,11 +43,13 @@ import torch
 from mlvae_tpu_torch import _build
 from mlvae_tpu_torch.ops.k1_plan import (BT, NARROW_MAX_H, SLICE,
                                          SMEM_LIMIT, WIDE_MAX_H)
-from mlvae_tpu_torch.ops.lstm import (_check_fused, hbuf_pitch,
-                                      lstm_fused_fwd_ref, lstm_layer_ref)
+from mlvae_tpu_torch.ops.lstm import (_check_fused, f32_fwd_launch,
+                                      hbuf_pitch, lstm_fused_fwd_ref,
+                                      lstm_layer_ref)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 
 LSTM_UNROLL_FWD = _build.register(_build.Kernel(
     "lstm_unroll_fwd", "lstm_unroll_fwd", "mlvae_lstm_unroll_fwd",
@@ -60,7 +62,7 @@ LSTM_UNROLL_FUSED_FWD = _build.register(_build.Kernel(
     "mlvae_lstm_unroll_fused_fwd", [_P] * 7 + [_I] * 6 + [_P]))
 LSTM_UNROLL_FUSED_FWD_F32 = _build.register(_build.Kernel(
     "lstm_unroll_fused_fwd_f32", "lstm_fused_fwd_f32",
-    "mlvae_lstm_unroll_fused_fwd_f32", [_P] * 8 + [_I] * 6 + [_P]))
+    "mlvae_lstm_unroll_fused_fwd_f32", [_P] * 8 + [_I] * 6 + [_LL, _P]))
 
 GX_BOX_BYTES = 4096   # a staged gates box: 64 rows x a block's gate columns
 # K7a f32 (csrc/lstm_unroll_fwd.cu, K1-fwd's narrow build): four units a
@@ -324,6 +326,9 @@ def run_fwd_fused_k(x: torch.Tensor, w_ih: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return run_fwd_fused_k_ref(x, w_ih, bias, w_hh, reverse, K)
     dtype = check_fwd_fused_k(x, w_ih, bias, w_hh, K)
+    if dtype == torch.float32:
+        return f32_fwd_launch(LSTM_UNROLL_FUSED_FWD_F32, (x, w_ih, bias, w_hh),
+                              reverse, K)
     T, B, In = x.shape
     H = w_hh.shape[1]
     hs = torch.empty((T, B, H), device=x.device, dtype=dtype)
@@ -331,17 +336,8 @@ def run_fwd_fused_k(x: torch.Tensor, w_ih: torch.Tensor, bias: torch.Tensor,
     barrier = torch.zeros((1,), device=x.device, dtype=torch.int32)
     if not (T and B):
         return hs, cs
-    stream = _build.stream_handle(x.device)
-    if dtype == torch.float32:
-        # the input products of a group of K steps, each cell thread's own
-        xg = torch.empty((K, B, 4 * H), device=x.device, dtype=torch.float32)
-        LSTM_UNROLL_FUSED_FWD_F32(
-            x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(), w_hh.data_ptr(),
-            hs.data_ptr(), cs.data_ptr(), xg.data_ptr(), barrier.data_ptr(),
-            T, B, In, H, K, int(reverse), stream)
-    else:
-        LSTM_UNROLL_FUSED_FWD(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
-                              w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-                              barrier.data_ptr(), T, B, In, H, K,
-                              int(reverse), stream)
+    LSTM_UNROLL_FUSED_FWD(x.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
+                          w_hh.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+                          barrier.data_ptr(), T, B, In, H, K, int(reverse),
+                          _build.stream_handle(x.device))
     return hs, cs

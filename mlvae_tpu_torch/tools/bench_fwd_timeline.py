@@ -1,7 +1,7 @@
 """A step timeline of the recurrent forwards (K1-fwd, K3/K4-fwd, the wide
-K1-fwd in f32 and on bf16 streams, K5-fwd in f32 and on bf16 streams, and
-the K-unrolled K7a in f32 and on bf16 streams and K7b beside their
-one-step twins) on the card.
+K1-fwd in f32 and on bf16 streams, K5-fwd in f32 and on bf16 streams, the
+K-unrolled K7a in f32 and on bf16 streams and K7b beside their one-step
+twins, and K3/K4-fwd and K7b on f32 streams) on the card.
 
     python -m mlvae_tpu_torch.tools.bench_fwd_timeline [--iters N]
 
@@ -22,7 +22,9 @@ K5-fwd on bf16 streams and in f32 at H=512, B=64 (gate 3's AMP and f32
 shapes), and at the unroll A/B's shape (B=128, H=512, In=512) K7a in f32
 beside K1-fwd, K7a on bf16 streams beside the bf16 K1-fwd and K7b beside
 K3/K4-fwd, each K7 build at K 2, 4 and 8 and held bit-equal to its twin,
-T=160,
+and on f32 streams (``csrc/lstm_fused_fwd_f32.cu``, its two entries in one
+timing build) K3/K4-fwd at In=128 and 512, B=64, and K7b at B=128, K=2
+beside K3/K4-fwd f32 there, T=160,
 inputs from a generator seeded 0 at the recipe layers' scales, it
 prints each phase's microseconds a step: each block's mean over the steps,
 then the min, median and max over the blocks. The phases, on the chain of
@@ -31,7 +33,11 @@ thread 0: ``input`` (the x_t product where it lies on the chain), ``stage``
 product), ``cell`` (the cell update and its stores), ``barrier`` (arrival
 to the end of the wait); ``offchain`` is the input product formed off the
 chain by other warps (0 where the design has none), and ``step`` runs from
-the step's start to the end of its wait.
+the step's start to the end of its wait. The f32 rows name the same slots
+after that design's phases (``F32_PHASES``): ``slot_wait`` (the recurrence
+waiting for its item's input products), ``stage``, ``product``, ``cell``,
+``barrier``, and ``producer`` (warps 8-15 forming the input products of a
+step's items, its waits for a free slot left out).
 
 It also times both builds (CUDA events after warm-up: what the stamps
 cost) and holds the timing build's outputs bit-equal to the normal
@@ -64,6 +70,13 @@ SLOTS = 8
 # end, 2-7 the sums below (ns)
 PHASES = {"input": 2, "stage": 3, "product": 4, "cell": 5, "barrier": 6,
           "offchain": 7}
+# the same slots as the f32 K3/K4-fwd and K7b name them
+F32_PHASES = {"slot_wait": 2, "stage": 3, "product": 4, "cell": 5,
+              "barrier": 6, "producer": 7}
+# (In, B) of the f32 K3/K4-fwd rows: MD_VAE's K3 and K4 layers; the f32
+# K7b row at the unroll A/B's shape
+F32_CASES = ((128, 64), (512, 64))
+F32_UNROLL_K = 2
 # (kernel, In, B); In None for K1-fwd
 CASES = (("lstm_fwd", None, 64), ("lstm_fwd", None, 128),
          *(("lstm_fused_fwd", In, B) for In in (128, 512, 1024)
@@ -75,6 +88,7 @@ WARMUP = 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _ARGS = {"lstm_fwd": [_P] * 6 + [_I] * 4 + [_P, _P],
          "lstm_fused_fwd": [_P] * 7 + [_I] * 5 + [_P, _P],
          "lstm_fwd_wide_bf16": [_P] * 5 + [_I] * 4 + [_P, _P],
@@ -83,7 +97,8 @@ _ARGS = {"lstm_fwd": [_P] * 6 + [_I] * 4 + [_P, _P],
          "lstm_fwd_wide": [_P] * 6 + [_I] * 4 + [_P, _P],
          "lstm_unroll_fwd": [_P] * 6 + [_I] * 5 + [_P, _P],
          "lstm_unroll_fwd_bf16": [_P] * 5 + [_I] * 5 + [_P, _P],
-         "lstm_unroll_fused_fwd": [_P] * 7 + [_I] * 6 + [_P, _P]}
+         "lstm_unroll_fused_fwd": [_P] * 7 + [_I] * 6 + [_P, _P],
+         "lstm_fused_fwd_f32": [_P] * 8 + [_I] * 5 + [_LL, _P, _P]}
 GRU_H = 512           # K5-fwd's shape: gate 3's layers
 GRU_BATCHES = (64,)
 UNROLL_B, UNROLL_IN = 128, 512  # the unroll A/B's shape (H = 512)
@@ -97,6 +112,11 @@ UNROLL_TWINS = {"lstm_unroll_fwd": "lstm_fwd",
 TIMED = {name: _build.Kernel(f"{name}_timeline", f"{name}_timeline",
                              f"mlvae_{name}_timeline", _ARGS[name])
          for name in _ARGS}
+# the f32 K7b: the K entry of the f32 K3/K4-fwd's timing build
+TIMED["lstm_unroll_fused_fwd_f32"] = _build.Kernel(
+    "lstm_unroll_fused_fwd_f32_timeline", "lstm_fused_fwd_f32_timeline",
+    "mlvae_lstm_unroll_fused_fwd_f32_timeline",
+    [_P] * 8 + [_I] * 6 + [_LL, _P, _P])
 
 
 SMEM_LIMIT = 232448   # an H100 block's shared memory
@@ -420,6 +440,65 @@ def unroll_rows(dev, iters: int, Ks=UNROLL_KS):
     return rows
 
 
+def f32_problem(dev, In: int, B: int, seed: int = 0):
+    """A K3/K4-fwd input on f32 streams at T, H=512, the scales of
+    ``make_problem``: x N(0, 0.5^2), W_ih, W_hh and the bias
+    U(+-1/sqrt(H)), all f32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((T, B, In), generator=g, device=dev) * 0.5
+    w_ih = (torch.rand((4 * H, In), generator=g, device=dev) * 2 - 1) \
+        / H ** 0.5
+    bias = (torch.rand((4 * H,), generator=g, device=dev) * 2 - 1) / H ** 0.5
+    w_hh = (torch.rand((4 * H, H), generator=g, device=dev) * 2 - 1) \
+        / H ** 0.5
+    return x, w_ih, bias, w_hh
+
+
+def timed_f32(prob, K: Optional[int] = None, reverse: bool = False):
+    """The f32 timing build on ``prob``: K3/K4-fwd, or K7b with ``K``;
+    ((hs, cs), as the normal wrappers', and the (T, H/4, 8) int64
+    timeline)."""
+    Tn = prob[0].shape[0]
+    Hn = prob[3].shape[1]
+    tl = torch.zeros((Tn, Hn // 4, SLOTS), device=prob[0].device,
+                     dtype=torch.int64)
+    name = "lstm_fused_fwd_f32" if K is None else "lstm_unroll_fused_fwd_f32"
+    out = L.f32_fwd_launch(TIMED[name], prob, reverse, K, timeline=tl)
+    return out, tl
+
+
+def f32_rows(dev, iters: int):
+    """K3/K4-fwd on f32 streams at ``F32_CASES``, then K7b on f32 streams at
+    the unroll A/B's shape with K ``F32_UNROLL_K``, held bit-equal to
+    K3/K4-fwd f32 there (its twin) and to its own normal build."""
+    from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
+    rows = []
+    for In, B, K in (*((In, B, None) for In, B in F32_CASES),
+                     (UNROLL_IN, UNROLL_B, F32_UNROLL_K)):
+        prob = f32_problem(dev, In, B)
+        twin = L.lstm_fused_fwd(*prob)
+        if K is None:
+            mine = twin
+        else:
+            mine = LU.run_fwd_fused_k(*prob, False, K)
+        got, tl = timed_f32(prob, K)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: (L.lstm_fused_fwd(*prob) if K is None else
+                              LU.run_fwd_fused_k(*prob, False, K)), iters)
+        rows.append({
+            "kernel": ("lstm_fused_fwd_f32" if K is None
+                       else "lstm_unroll_fused_fwd_f32"),
+            "In": In, "B": B, "T": T, "H": H, "K": K or 1,
+            "bit_equal_to_normal_build": all(
+                torch.equal(a, b) for a, b in zip(got, mine)),
+            "bit_equal_to_twin": all(
+                torch.equal(a, b) for a, b in zip(mine, twin)),
+            "ms": ms, "us_a_step": ms * 1e3 / T,
+            "ms_timing_build": cuda_ms(lambda: timed_f32(prob, K), iters),
+            "phases_us_a_step": phase_split(tl.cpu(), F32_PHASES)})
+    return rows
+
+
 def bench(dev, iters: int = 10, cases=CASES) -> Dict:
     _build.build([*(f"{n}_timeline" for n in _build.FWD_TIMED),
                   *_build.FWD_TIMED])
@@ -438,7 +517,8 @@ def bench(dev, iters: int = 10, cases=CASES) -> Dict:
             "ms": ms, "us_a_step": ms * 1e3 / T,
             "ms_timing_build": cuda_ms(lambda: timed_fwd(name, prob), iters),
             "phases_us_a_step": phase_split(tl.cpu())})
-    return {"rows": rows + gru_rows(dev, iters) + unroll_rows(dev, iters)}
+    return {"rows": rows + gru_rows(dev, iters) + unroll_rows(dev, iters)
+            + f32_rows(dev, iters)}
 
 
 def _card() -> str:

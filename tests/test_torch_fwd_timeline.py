@@ -6,6 +6,8 @@ shared-memory budgets pick each schedule at the main path's shapes and keep
 every shape the single-copy designs took, and the TMA descriptors' boxes
 and strides hold for ragged batches. The kernels themselves run on the
 card (``chip_smoke.py``)."""
+import ctypes
+
 import pytest
 import torch
 
@@ -42,7 +44,9 @@ def test_forward_timed_kernels_are_not_counted_on_any_path():
         "mlvae_gru_fwd_timeline", "mlvae_lstm_fwd_wide_timeline",
         "mlvae_lstm_unroll_fwd_timeline",
         "mlvae_lstm_unroll_fwd_bf16_timeline",
-        "mlvae_lstm_unroll_fused_fwd_timeline"}
+        "mlvae_lstm_unroll_fused_fwd_timeline",
+        "mlvae_lstm_fused_fwd_f32_timeline",
+        "mlvae_lstm_unroll_fused_fwd_f32_timeline"}
 
 
 def test_unroll_rows_pair_each_k7_build_with_its_twin():
@@ -183,3 +187,37 @@ def test_tool_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ftl.main([])
+
+
+def test_f32_rows_read_the_f32_design_phases():
+    """The f32 K3/K4-fwd and K7b rows name the timeline's slots after their
+    design: the recurrence's wait for its item's input products, stage,
+    product, cell and barrier on thread 0's chain, and the producer's
+    input products (slot 7, its waits for a free slot left out). They run
+    at MD_VAE's K3 and K4 widths (B=64) and, for K7b, at the unroll A/B's
+    shape with K=2, both entries from the one timing build."""
+    split = ftl.phase_split(_timeline(), ftl.F32_PHASES)
+    assert set(split) == {"slot_wait", "stage", "product", "cell",
+                          "barrier", "producer", "step"}
+    for name, us in (("slot_wait", 1.0), ("stage", 2.0), ("product", 3.0),
+                     ("cell", 1.5), ("producer", 4.0)):
+        assert split[name] == pytest.approx(
+            {"min": us, "median": us, "max": us}), name
+    assert split["barrier"]["median"] == pytest.approx(1.5)
+    assert {v: k for k, v in ftl.F32_PHASES.items()} == {
+        2: "slot_wait", 3: "stage", 4: "product", 5: "cell", 6: "barrier",
+        7: "producer"}
+    assert ftl.F32_CASES == ((128, 64), (512, 64))
+    assert (ftl.F32_UNROLL_K, ftl.UNROLL_B, ftl.UNROLL_IN) == (2, 128, 512)
+    fwd, k7b = (ftl.TIMED["lstm_fused_fwd_f32"],
+                ftl.TIMED["lstm_unroll_fused_fwd_f32"])
+    assert fwd.source == k7b.source == "lstm_fused_fwd_f32_timeline"
+    assert (fwd.symbol, k7b.symbol) == (
+        "mlvae_lstm_fused_fwd_f32_timeline",
+        "mlvae_lstm_unroll_fused_fwd_f32_timeline")
+    # the normal entries' arguments, then the timeline before the stream
+    assert fwd.argtypes == L.LSTM_FUSED_FWD_F32.argtypes[:-1] + [
+        ctypes.c_void_p, ctypes.c_void_p]
+    from mlvae_tpu_torch.ops import lstm_unroll_exp as LU
+    assert k7b.argtypes == LU.LSTM_UNROLL_FUSED_FWD_F32.argtypes[:-1] + [
+        ctypes.c_void_p, ctypes.c_void_p]

@@ -470,7 +470,9 @@ def test_f32_tiers_fit_the_f32_builds(H):
     dX columns (In at most 4H) unless the wrapper refuses the layer before
     the device, naming ROADMAP queue 2 (K3 at H=128 and In 640-3200, at
     H=256 and In 1152-1408, which the bf16 build refuses alike); the
-    recipes' f32 layers (H=512, In 128 to 640 padded) all fit."""
+    recipes' f32 layers (H=512, In 128 to 640 padded) all fit. The forward
+    (``fused_f32_fwd_plan``) fits at B 1, 64 and 256 with the producer a
+    step ahead."""
     refused = []
     for In in range(128, 8193, 128):
         if pl.fused_eligible(In, H, torch.float32):
@@ -485,9 +487,13 @@ def test_f32_tiers_fit_the_f32_builds(H):
                                match="ROADMAP.md queue 2, item 1"):
                 pl.lstm_fused_bwd(*_meta_bwd_args(3, 2, In, H))
             continue
-        for kind in kinds:
+        for kind in kinds[1:]:
             assert pl.fused_f32_smem(kind, In, H) <= pl.SMEM_LIMIT, \
                 (kind, In, H)
+        for B in (1, 64, 256):
+            plan = pl.fused_f32_fwd_plan(In, H, B)
+            assert plan.smem <= pl.SMEM_LIMIT, (In, H, B)
+            assert plan.schedule == pl.F32_FWD_AHEAD, (In, H, B)
     assert refused == {128: list(range(640, 3201, 128)),
                        256: [1152, 1280, 1408]}.get(H, [])
     # the split-K layout: 16 h boxes of 64 x 32, x slots of a box and W_ih's
@@ -505,6 +511,47 @@ def test_f32_tiers_fit_the_f32_builds(H):
         16 * 516 + 4096 + 2 * (64 * 132 + 2560) + 16 * 768 + 1024)
     assert pl.fused_f32_smem("bwd", 640, 256) == 4 * (
         16 * 260 + 4096 + 2 * (64 * 132 + 2560) + 16 * 896 + 1024)
+
+
+@pytest.mark.parametrize("K", [1, 2, 4, 8])
+def test_f32_fwd_plan_at_the_recipes_shapes(K):
+    """The f32 K3/K4-fwd (K 1) and K7b layouts (``fused_f32_fwd_plan``, the
+    mirror of ``plan_of`` in ``csrc/lstm_fused_fwd_f32.cu``; ``chip_smoke.py``
+    holds it against the C plan) at H=512, the recipes' In and batches:
+    within 227 KB, 544 threads, four x slots, the h ping-pong as scratch,
+    the item slots of two steps (K7b: of K steps, or as many as fit once
+    the h ring is down to two copies a slice) and the ring as deep as the
+    rest leaves. Shapes that no layout holds are refused, named."""
+    for In in (128, 256, 512, 640):
+        for B in (1, 64, 70, 128, 256):
+            ntiles = -(-B // 64)
+            plan = pl.fused_f32_fwd_plan(In, 512, B, K)
+            assert plan.smem <= pl.SMEM_LIMIT
+            assert (plan.threads, plan.xslots) == (544, 4)
+            assert plan.scratch == 2 * 512 * pl.hbuf_pitch(B)
+            assert plan.schedule == pl.F32_FWD_AHEAD
+            assert 2 * ntiles <= plan.slots <= max(K, 2) * ntiles
+            assert 2 <= plan.ring <= 4 * ntiles
+            if plan.ring < 4 * ntiles:   # one copy more would not fit
+                assert pl._f32_fwd_smem(512, plan.ring + 1, plan.slots) \
+                    > pl.SMEM_LIMIT
+            if plan.slots < max(K, 2) * ntiles:   # the ring gave way first
+                assert plan.ring == 2
+                assert pl._f32_fwd_smem(512, 2, plan.slots + 1) \
+                    > pl.SMEM_LIMIT
+            # the layout does not depend on In
+            assert plan == pl.fused_f32_fwd_plan(128, 512, B, K)
+    # MD_VAE's layers (B=64): every h copy of a step in flight, two slots
+    assert pl.fused_f32_fwd_plan(128, 512, 64) == (
+        pl.F32_FWD_AHEAD, 2, 4, 4, 544,
+        4 * (4 * 2560 + 4 * 4 * 32 * 64 + 16 * 512 + 4096 + 2 * 1024)
+        + 8 * (16 + 8 + 4), 2 * 512 * 64)
+    for In, H, B, Kk in ((130, 512, 64, K), (128, 520, 64, K),
+                         (128, 544, 64, K), (128, 512, 0, K),
+                         (128, 512, 64, 0)):
+        with pytest.raises(ValueError, match=rf"fused_f32_fwd_plan\(In={In}, "
+                           rf"H={H}, B={B}, K={Kk}\)"):
+            pl.fused_f32_fwd_plan(In, H, B, Kk)
 
 
 @pytest.mark.parametrize("B", [1, 64, 70, 256])
